@@ -1,0 +1,74 @@
+"""pangenome_index_tpu_torch: the find-mems serving path on PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of the JAX package pangenome_index_tpu, which stays the reference.
+The host side (index models, codecs, synthetic data, the native C++ engine
+and the numpy build functions) is imported from that package; only its numpy-only
+modules are, so this package never imports jax.
+
+Layout:
+  _build.py  nvcc build of csrc/*.cu into one library, loaded with ctypes
+  csrc/      the kernels: K1 dense rank + row gather, K2 FMD extension,
+             K3 MEM finding, K4 per-MEM tag counts
+  ops/       tables, a kernel wrapper and its plain PyTorch version per kernel
+  serve.py   the find-mems serving pipeline on one device
+
+Every function that makes tensors takes an explicit `device`. A kernel
+wrapper launches its kernel for CUDA tensors (and counts the launch in its
+`launches` attribute) and runs its plain version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+from .ops.dense_rank import gather_rows, rank6_dense
+from .ops.fmd import extend
+from .ops.mems import find_mems as _find_mems_batch
+from .ops.tagquery import query_mem_tags
+
+__version__ = "0.1.0"
+
+#: the kernel wrappers, each with its `launches` count
+KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
+           "extend": extend, "find_mems": _find_mems_batch,
+           "query_mem_tags": query_mem_tags}
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def to_device(idx, device, dense: bool = True, **kw):
+    """r-index -> tables on `device` (dense records by default, as the JAX
+    package's to_device; checkpoint=True adds checkpoint rows)."""
+    from .ops.tables import rindex_to_device
+
+    return rindex_to_device(idx, device, dense=dense, **kw)
+
+
+def find_mems(tables, reads, min_len: int, min_occ: int, capacity: int = 64):
+    """Batched MEM finding on the tables' device. reads: list of byte
+    strings. Returns per-read lists of (start, end, bwt_start, size)."""
+    import numpy as np
+    import torch
+
+    from .host import BYTE_TO_CODE
+
+    L = max(len(r) for r in reads)
+    codes = np.zeros((len(reads), L), np.int32)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+    dev = tables.device
+    res = _find_mems_batch(tables, torch.from_numpy(codes).to(dev),
+                           torch.from_numpy(lens).to(dev), min_len, min_occ,
+                           capacity=capacity)
+    s, e, b, z = (a.cpu().numpy() for a in (res.start, res.end,
+                                            res.bwt_start, res.size))
+    cnt = res.count.cpu().numpy()
+    return [
+        [(int(s[i, m]), int(e[i, m]), int(b[i, m]), int(z[i, m]))
+         for m in range(min(int(cnt[i]), capacity))]
+        for i in range(len(reads))
+    ]

@@ -1,0 +1,159 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface,
+``build/torch_kernels/<content-hash>/libpgt_kernels.so`` at the repository
+root, and loaded with ``ctypes``. The first call to ``lib()`` builds it (one
+``nvcc`` per source, all started together, then one link); later calls and
+later processes reuse the library whose hash matches the sources. A failed
+build raises with nvcc's output.
+
+Every C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; ``launch`` raises when that is not 0, so a refused
+launch never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = pathlib.Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LIB_NAME = "libpgt_kernels.so"
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+#: argument types of every C entry point (pointers and the stream as void*)
+SIGNATURES = {
+    "pgt_gather_rows": (_P, _I64, _I, _P, _I64, _P, _P),
+    "pgt_rank6_dense": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
+    "pgt_extend_ckpt": (_P, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P),
+    "pgt_extend_dense": (_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
+                         _P, _P, _P, _P),
+    "pgt_find_mems_ckpt": (_P, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I64, _P, _P, _P, _P, _P, _P),
+    "pgt_find_mems_dense": (_P, _I64, _P, _I64, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I64, _P, _P, _P, _P, _P, _P),
+    "pgt_query_mem_tags": (_P, _I64, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+}
+
+_lib = None
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where the "
+                       "CUDA toolkit is installed")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> pathlib.Path:
+    """Compile csrc/*.cu into the content-addressed library; returns its path."""
+    out_dir = BUILD_ROOT / _digest()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="tmp", dir=BUILD_ROOT))
+    try:
+        procs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = tmp / (src.stem + ".o")
+            procs.append((src, obj, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        log = []
+        failed = []
+        for src, _, proc in procs:
+            out = proc.communicate()[0].decode(errors="replace")
+            log.append(f"== {src.name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n"
+                               + "\n".join(log))
+        link = subprocess.run(
+            [nvcc, "-shared", *[str(o) for _, o, _ in procs],
+             "-o", str(tmp / LIB_NAME)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        log.append(f"== link\n{link.stdout.decode(errors='replace')}")
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + "\n".join(log))
+        (tmp / "build.log").write_text("\n".join(log))
+        try:
+            os.replace(tmp, out_dir)
+        except OSError:
+            if not lib_path.exists():  # not a concurrent build that won
+                raise
+    finally:
+        if tmp.exists():
+            shutil.rmtree(tmp, ignore_errors=True)
+    return lib_path
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas register and spill counts) for the current build."""
+    path = BUILD_ROOT / _digest() / "build.log"
+    return path.read_text() if path.exists() else ""
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.pgt_error_string.argtypes = (ctypes.c_int,)
+        handle.pgt_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `name`; raise if the launch reported a CUDA error."""
+    handle = lib()
+    err = getattr(handle, name)(*args)
+    if err != 0:
+        msg = handle.pgt_error_string(err).decode(errors="replace")
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream(device) -> int:
+    """PyTorch's current CUDA stream on `device`, as a pointer for the C API."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check(name: str, tensor, dtype, device) -> int:
+    """Validate a kernel argument and return its data pointer."""
+    if tensor.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {tensor.device}")
+    if tensor.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {tensor.dtype}")
+    if not tensor.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    return tensor.data_ptr()

@@ -1,0 +1,85 @@
+// K1: dense-mode rank and row gathers.
+//
+// Replaces ops/pallas_rank.py:gather_rows_pallas (the Pallas scalar-prefetch
+// gather, pallas_rank.py:39) and its caller rank6_pallas (pallas_rank.py:70).
+// On the TPU the gather moved aligned 8-row windows by DMA because a grid
+// step could only fetch whole blocks; here every thread loads exactly the
+// row it needs, so the alignment and the 8x over-fetch are gone and any
+// batch size is taken. Both kernels are a single dependent random load per
+// row, bound by load latency: the design keeps one row per thread (rank6) or
+// one element per thread (gather, so neighbouring threads read neighbouring
+// words of a row and the stores coalesce), and launches enough threads to
+// keep many loads in flight on every SM.
+//
+// rank6_dense runs pgt::DenseRank::rank6 from rank.cuh, the same device
+// function find_mems (mems.cu) and extend (fmd.cu) instantiate for dense
+// tables, so holding this kernel against its plain version holds theirs.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "rank.cuh"
+
+namespace {
+
+__global__ void gather_rows_kernel(const int* __restrict__ rec, int64_t n_rows,
+                                   int width, const int* __restrict__ idx,
+                                   int64_t n_out, int* __restrict__ out) {
+  const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= n_out * width) return;
+  const int64_t row = e / width;
+  const int col = static_cast<int>(e - row * width);
+  const int64_t j = pgt::clamp64(__ldg(idx + row), 0, n_rows - 1);
+  out[e] = __ldg(rec + j * width + col);
+}
+
+__global__ void rank6_dense_kernel(pgt::DenseRank rk,
+                                   const int* __restrict__ pos, int64_t n,
+                                   int* __restrict__ out) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int r[6];
+  rk.rank6(__ldg(pos + i), r);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) out[6 * i + c] = r[c];
+}
+
+constexpr int kThreads = 256;
+
+unsigned blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* pgt_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// out[i, :] = rec[clamp(idx[i], 0, n_rows - 1), :] for int32 rows of `width`
+int pgt_gather_rows(const int* rec, int64_t n_rows, int width, const int* idx,
+                    int64_t n_out, int* out, void* stream) {
+  const int64_t total = n_out * width;
+  if (total > 0) {
+    gather_rows_kernel<<<blocks_for(total), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+        rec, n_rows, width, idx, n_out, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// out[i, :] = dense rank6(pos[i]) over pos_to_run [n_p2r] and rec [n_runs, 8]
+int pgt_rank6_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+                    int64_t n_runs, const int* pos, int64_t n, int* out,
+                    void* stream) {
+  if (n > 0) {
+    pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
+                      n_runs};
+    rank6_dense_kernel<<<blocks_for(n), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(rk, pos, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

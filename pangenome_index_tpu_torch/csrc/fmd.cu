@@ -1,0 +1,84 @@
+// K2: batched bidirectional FMD extension, one interval per thread.
+//
+// Replaces ops/fmd.py:extend (with ops/rank.py:_ckpt_rank6 as its rank
+// step), an XLA program on the TPU whose one-hot selects and fused double
+// rank batch were shaped by the TPU's gather issue rate. Each extension is
+// two independent rank6 queries (at k and k+s), i.e. two random row loads,
+// so the kernel is bound by load latency and by how many loads are in
+// flight. The design issues both rows' loads before any arithmetic (two
+// 64-byte checkpoint rows = eight 16-byte loads in flight per thread), keeps
+// the 6-wide rank vectors in registers, and replaces the one-hot matrix math
+// with register selects. The rank provider is a template parameter:
+// checkpoint rows or dense records (rank.cuh).
+//
+// Used one level at a time to build the m-mer seed table (ops/mertable.py),
+// where a level is up to 4^m lanes, so every thread index is 64-bit.
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "rank.cuh"
+
+namespace {
+
+template <class Rank>
+__global__ void extend_kernel(Rank rk, const int* __restrict__ Cg,
+                              const int* __restrict__ k,
+                              const int* __restrict__ kp,
+                              const int* __restrict__ s,
+                              const int* __restrict__ code,
+                              const uint8_t* __restrict__ forward, int64_t n,
+                              int* __restrict__ ok, int* __restrict__ okp,
+                              int* __restrict__ os) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  int C[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) C[c] = __ldg(Cg + c);
+  const bool fwd = forward != nullptr && forward[i] != 0;
+  int a, b, z;
+  pgt::extend1(rk, C, __ldg(k + i), __ldg(kp + i), __ldg(s + i),
+               __ldg(code + i), fwd, a, b, z);
+  ok[i] = a;
+  okp[i] = b;
+  os[i] = z;
+}
+
+constexpr int kThreads = 256;
+
+template <class Rank>
+int launch(const Rank& rk, const int* C, const int* k, const int* kp,
+           const int* s, const int* code, const uint8_t* forward, int64_t n,
+           int* ok, int* okp, int* os, void* stream) {
+  if (n > 0) {
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    extend_kernel<Rank><<<blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        rk, C, k, kp, s, code, forward, n, ok, okp, os);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// checkpoint tables: ckpt [nrows, 16] int32; forward may be null (all backward)
+int pgt_extend_ckpt(const int* ckpt, int64_t nrows, const int* C, const int* k,
+                    const int* kp, const int* s, const int* code,
+                    const uint8_t* forward, int64_t n, int* ok, int* okp,
+                    int* os, void* stream) {
+  pgt::CkptRank rk{reinterpret_cast<const int4*>(ckpt), nrows};
+  return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
+}
+
+// dense tables: pos_to_run [n_p2r] int32, rec [n_runs, 8] int32
+int pgt_extend_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+                     int64_t n_runs, const int* C, const int* k, const int* kp,
+                     const int* s, const int* code, const uint8_t* forward,
+                     int64_t n, int* ok, int* okp, int* os, void* stream) {
+  pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
+                    n_runs};
+  return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
+}
+
+}  // extern "C"

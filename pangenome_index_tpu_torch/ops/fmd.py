@@ -1,0 +1,105 @@
+"""K2: batched bidirectional FMD extension (csrc/fmd.cu).
+
+Counterpart of pangenome_index_tpu/ops/fmd.py:extend. Per lane, with
+r = rank6 at the backward interval start bk and at bk + s:
+    delta = r(bk + s) - r(bk);  s' = delta[c];  k' = r(bk)[c] + C[c]
+    kp' = bkp + exclusive-prefix(delta[COMP_CODE])[comp(c)]
+Forward lanes swap k/kp and complement the code; failed lanes (s' <= 0)
+return (0, 0, 0). The rank provider is the table's checkpoint rows when
+present, else its dense records.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+from ..host import COMP_CODE
+from .dense_rank import rank6_dense_plain
+from .rank import ckpt_rank6
+from .tables import RIndexTables
+
+
+def rank6_plain(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """The table's rank provider in plain PyTorch ([B] -> [B, 6])."""
+    if t.ckpt is not None:
+        return ckpt_rank6(t, pos)
+    return rank6_dense_plain(t.rec, t.pos_to_run, pos)
+
+
+def extend_plain(t: RIndexTables, k, kp, s, code, forward=None):
+    """Plain extension; the 6-wide selects are one-hot, as in the JAX code,
+    so codes outside 0..5 behave alike."""
+    dev = k.device
+    if forward is None:
+        forward = torch.zeros(k.shape, dtype=torch.bool, device=dev)
+    sym6 = torch.arange(6, device=dev)[None, :]
+    comp = torch.as_tensor(COMP_CODE, dtype=torch.int64, device=dev)
+    code = code.long()
+    oh_code = sym6 == code[:, None]
+    comp_val = torch.where(oh_code, comp[None, :], 0).sum(dim=1)
+    ext_code = torch.where(forward, comp_val, code)
+    comp_ext = torch.where(forward, code, comp_val)
+    oh = sym6 == ext_code[:, None]
+    bk = torch.where(forward, kp, k)
+    bkp = torch.where(forward, k, kp)
+    both = rank6_plain(t, torch.cat((bk, bk + s)))  # one batch for both ends
+    r_k = both[: k.shape[0]]
+    delta = both[k.shape[0]:] - r_k
+    pdelta = delta[:, comp]
+    excl = torch.cumsum(pdelta, dim=1) - pdelta
+    nkp = bkp + torch.where(sym6 == comp_ext[:, None], excl, 0).sum(dim=1)
+    ns = torch.where(oh, delta, 0).sum(dim=1)
+    nk = torch.where(oh, r_k + t.C[None, :6], 0).sum(dim=1)
+    ok = ns > 0
+    nk, nkp, ns = (torch.where(ok, a, 0).to(k.dtype) for a in (nk, nkp, ns))
+    return (torch.where(forward, nkp, nk), torch.where(forward, nk, nkp), ns)
+
+
+def check_kernel_tables(t: RIndexTables) -> None:
+    """The kernels take int32 positions and single-level checkpoint rows."""
+    if t.pos_dtype != torch.int32:
+        raise ValueError("the CUDA kernels take int32 tables (n < 2^31)")
+    if t.ckpt_super is not None:
+        raise ValueError("the CUDA kernels take single-level checkpoint rows, "
+                         "not a two-level ckpt_super layout")
+    if t.ckpt is None and t.rec is None:
+        raise ValueError("tables carry neither checkpoint rows nor dense records")
+
+
+def rank_args(t: RIndexTables) -> tuple[str, tuple]:
+    """(provider suffix, leading C arguments) of the table's rank provider."""
+    dev = t.device
+    if t.ckpt is not None:
+        return "ckpt", (_build.check("ckpt", t.ckpt, torch.int32, dev),
+                        t.ckpt.shape[0])
+    return "dense", (_build.check("pos_to_run", t.pos_to_run, torch.int32, dev),
+                     t.pos_to_run.shape[0],
+                     _build.check("rec", t.rec, torch.int32, dev),
+                     t.rec.shape[0])
+
+
+def extend(t: RIndexTables, k, kp, s, code, forward=None):
+    """k, kp, s, code: [B] (int32 on the card); forward: bool [B] or None
+    (all backward). Returns the extended (k, kp, s)."""
+    if k.device.type == "cpu":
+        return extend_plain(t, k, kp, s, code, forward)
+    check_kernel_tables(t)
+    dev = t.device
+    B = k.shape[0]
+    kind, rargs = rank_args(t)
+    out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    fwd = None if forward is None else \
+        _build.check("forward", forward, torch.bool, dev)
+    _build.launch(f"pgt_extend_{kind}", *rargs,
+                  _build.check("C", t.C, torch.int32, dev),
+                  _build.check("k", k, torch.int32, dev),
+                  _build.check("kp", kp, torch.int32, dev),
+                  _build.check("s", s, torch.int32, dev),
+                  _build.check("code", code, torch.int32, dev), fwd, B,
+                  *(o.data_ptr() for o in out), _build.stream(dev))
+    extend.launches += 1
+    return tuple(out)
+
+
+extend.launches = 0

@@ -1,0 +1,234 @@
+"""Device-resident index tables as dataclasses of torch tensors.
+
+The layouts are those of the JAX package (pangenome_index_tpu/ops/tables.py),
+field for field, so tables carry across between the two packages
+(`tables_from_numpy`) and the tests can compare them directly. The port keeps
+the two rank representations its kernels read: checkpoint rows (the serving
+default: one 64-byte row per rank6 query) and dense run records (a run id and
+one 32-byte record per query). n, n_seq and max_len are host integers: every
+kernel takes them as launch arguments, and reading them never waits on the
+card.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..host import RIndex, TagArray
+
+#: default superblock width of the two-level checkpoint layout (n >= 2^31)
+SUPER_SHIFT = 30
+#: positions per checkpoint row (the 128-position variant of the JAX package
+#: measured slower and is not carried over)
+CKPT_BLOCK = 64
+
+
+@dataclass
+class RIndexTables:
+    """r-index tables on one device; r runs, 6 symbol codes."""
+
+    run_sym: torch.Tensor      # int8 [r]
+    run_start: torch.Tensor    # [r]
+    cum: torch.Tensor          # [r, 6] (a 1-row stub beside a fast rank table)
+    C: torch.Tensor            # [7] exclusive prefix counts per code
+    samples: torch.Tensor      # [r+1]
+    last_sorted: torch.Tensor  # [r]
+    last_to_run: torch.Tensor  # [r]
+    n: int                     # BWT size
+    n_seq: int
+    max_len: int
+    pos_to_run: torch.Tensor | None = None  # dense: [n+2] run of each position
+    rec: torch.Tensor | None = None         # dense: [r, 8] start, sym, cum0..5
+    ckpt: torch.Tensor | None = None        # checkpoint: [n//64+2, 16] int32
+    ckpt_super: torch.Tensor | None = None  # two-level: [n_super, 6+shift] int64
+
+    @property
+    def pos_dtype(self) -> torch.dtype:
+        return self.run_start.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.C.device
+
+
+@dataclass
+class TagTables:
+    """Tag-array tables on one device: t runs."""
+
+    pos_enc: torch.Tensor    # int64 [t] packed graph positions
+    bwt_start: torch.Tensor  # [t] run head BWT offsets (sorted)
+    total: int               # covered BWT length
+
+    @property
+    def n_runs(self) -> int:
+        return self.bwt_start.shape[0]
+
+
+def _pick_dtype(*maxvals: int) -> torch.dtype:
+    return torch.int32 if all(v < 2**31 for v in maxvals) else torch.int64
+
+
+def _put(a, dtype, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+
+
+def build_ckpt_rows(idx: RIndex, chunk: int = 1 << 22,
+                    super_shift: int | None = None):
+    """Host construction of the checkpoint rank table.
+
+    A copy of pangenome_index_tpu/ops/tables.py:build_ckpt_rows (64-position
+    rows only): the JAX module imports jax when it is loaded, so the port
+    cannot import it from there. Returns (rows [(n >> 6) + 2, 16] int32,
+    super_base [n_super, 6 + super_shift] int64 or None). For n >= 2^31, or
+    an explicit super_shift, the occ columns are relative to their
+    2^super_shift-position superblock and super_base holds the absolute occ
+    at each superblock start; otherwise rows are absolute."""
+    shift = CKPT_BLOCK.bit_length() - 1
+    if super_shift is None:
+        super_shift = SUPER_SHIFT if idx.n >= 2**31 else 0
+    ss = super_shift
+    if idx.n >= 2**31 and (not ss or ss > 31):
+        raise ValueError("n >= 2^31 requires a two-level layout with "
+                         "super_shift <= 31 (int32 relative counts)")
+    if ss and ss < shift:
+        raise ValueError("super_shift must be >= the bucket shift")
+    nwords = CKPT_BLOCK // 8                 # 4-bit codes, 8 per int32
+    width = 16                               # 6 + nwords, padded to x8
+    n_buckets = (int(idx.n) >> shift) + 2
+    chunk = max(CKPT_BLOCK, chunk - chunk % CKPT_BLOCK)  # bucket-aligned
+    row = np.zeros((n_buckets, width), dtype=np.int32)
+    super_base = None
+    if ss:
+        n_super = (((n_buckets - 1) << shift) >> ss) + 1
+        super_base = np.zeros((n_super, 6 + ss), dtype=np.int64)
+    run_end = idx.run_start + idx.run_len
+    shifts = (4 * np.arange(8, dtype=np.uint32))[None, None, :]
+    running = np.zeros(6, dtype=np.int64)
+    filled = 0
+    for p0 in range(0, int(idx.n), chunk):
+        p1 = min(p0 + chunk, int(idx.n))
+        j0 = max(int(np.searchsorted(idx.run_start, p0, side="right")) - 1, 0)
+        j1 = int(np.searchsorted(idx.run_start, p1, side="left"))
+        seg = (np.minimum(run_end[j0:j1], p1)
+               - np.maximum(idx.run_start[j0:j1], p0))
+        codes = np.repeat(idx.run_sym[j0:j1], seg)
+        b0 = p0 >> shift
+        nb = (p1 - p0 + CKPT_BLOCK - 1) >> shift
+        padded = np.full(nb * CKPT_BLOCK, 15, dtype=np.uint8)
+        padded[: p1 - p0] = codes
+        nib = padded.reshape(nb, nwords, 8).astype(np.uint32)
+        row[b0 : b0 + nb, 6 : 6 + nwords] = (
+            (nib << shifts).sum(axis=2, dtype=np.uint32).view(np.int32))
+        key = (np.arange(p1 - p0, dtype=np.int32) >> shift) * 6 \
+            + codes.astype(np.int32)
+        counts = np.bincount(key, minlength=nb * 6).reshape(nb, 6)
+        cum_local = np.zeros((nb, 6), dtype=np.int64)
+        np.cumsum(counts[:-1], axis=0, out=cum_local[1:])
+        abs_rows = running[None, :] + cum_local
+        if ss:
+            sb_lo = (p0 + (1 << ss) - 1) >> ss
+            sb_hi = (p1 - 1) >> ss
+            for sb in range(sb_lo, sb_hi + 1):
+                super_base[sb, :6] = abs_rows[((sb << ss) >> shift) - b0]
+            sbv = ((b0 + np.arange(nb, dtype=np.int64)) << shift) >> ss
+            abs_rows = abs_rows - super_base[sbv, :6]
+        row[b0 : b0 + nb, :6] = abs_rows
+        running += counts.sum(axis=0)
+        filled = b0 + nb
+    # buckets at/past n: checkpoint = totals, payload = all-0xF pad nibbles
+    if ss:
+        tail = np.arange(filled, n_buckets, dtype=np.int64)
+        sbv = (tail << shift) >> ss
+        first_unset = ((int(idx.n) - 1) >> ss) + 1 if idx.n else 0
+        super_base[first_unset:, :6] = running[None, :]
+        row[filled:, :6] = running[None, :] - super_base[sbv, :6]
+    else:
+        row[filled:, :6] = running[None, :]
+    row[filled:, 6 : 6 + nwords] = -1  # 0xFFFFFFFF: all-0xF nibbles
+    return row, super_base
+
+
+def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
+                     dense: bool = False,
+                     super_shift: int | None = None) -> RIndexTables:
+    """r-index -> tables on `device` with checkpoint rows, dense records, or
+    both (rank reads the checkpoint rows when present, as in the JAX
+    package). Same fields and values as the JAX rindex_to_device."""
+    if not (checkpoint or dense):
+        raise ValueError("the port ranks through checkpoint rows or dense "
+                         "records: pass checkpoint=True or dense=True")
+    device = torch.device(device)
+    pd = _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
+    ckpt = ckpt_super = pos_to_run = rec = None
+    if checkpoint:
+        rows, sup = build_ckpt_rows(idx, super_shift=super_shift)
+        ckpt = _put(rows, torch.int32, device)
+        if sup is not None:
+            ckpt_super = _put(sup, torch.int64, device)
+    if dense:
+        runs = np.repeat(np.arange(idx.n_runs, dtype=np.int64), idx.run_len)
+        p2r = np.concatenate((runs, [idx.n_runs - 1, idx.n_runs - 1]))
+        pos_to_run = _put(p2r, pd, device)
+        rec_np = np.zeros((idx.n_runs, 8), dtype=np.int64)
+        rec_np[:, 0] = idx.run_start
+        rec_np[:, 1] = idx.run_sym
+        rec_np[:, 2:8] = idx.cum
+        rec = _put(rec_np, pd, device)
+    return RIndexTables(
+        run_sym=_put(idx.run_sym, torch.int8, device),
+        run_start=_put(idx.run_start, pd, device),
+        # only the fallback rank path of the JAX package reads the per-run
+        # cum table; beside a fast rank table it ships a 1-row stub
+        cum=_put(idx.cum[:1], pd, device),
+        C=_put(idx.C, pd, device),
+        samples=_put(np.concatenate((idx.samples, [0])), pd, device),
+        last_sorted=_put(idx.last_sorted, pd, device),
+        last_to_run=_put(idx.last_to_run, pd, device),
+        n=int(idx.n), n_seq=int(idx.n_seq), max_len=int(idx.max_len),
+        pos_to_run=pos_to_run, rec=rec, ckpt=ckpt, ckpt_super=ckpt_super)
+
+
+def tags_to_device(tags: TagArray, device) -> TagTables:
+    """Tag array -> tables on `device`; run heads int32 below 2^31 rows."""
+    device = torch.device(device)
+    pd = _pick_dtype(tags.total)
+    return TagTables(pos_enc=_put(tags.pos_enc, torch.int64, device),
+                     bwt_start=_put(tags.bwt_start, pd, device),
+                     total=int(tags.total))
+
+
+#: JAX RIndexTables fields with no counterpart in the port (other rank modes)
+_UNPORTED_FIELDS = ("bucket_lo", "rank_table")
+
+
+def tables_from_numpy(rindex: dict[str, np.ndarray],
+                      tags: dict[str, np.ndarray] | None, device):
+    """The JAX package's RIndexTables / TagTables fields, each as a numpy
+    array (None kept), -> (RIndexTables, TagTables or None) on `device`, with
+    the same dtypes and values."""
+    device = torch.device(device)
+    for name in _UNPORTED_FIELDS:
+        if rindex.get(name) is not None:
+            raise ValueError(f"{name}: the port has no such rank mode")
+
+    def put(a):  # np.array copies: arrays from JAX are read-only
+        return None if a is None else torch.from_numpy(np.array(a)).to(device)
+
+    t = RIndexTables(
+        **{f: put(rindex[f]) for f in ("run_sym", "run_start", "cum", "C",
+                                        "samples", "last_sorted",
+                                        "last_to_run", "pos_to_run", "rec",
+                                        "ckpt", "ckpt_super")},
+        n=int(rindex["n"]), n_seq=int(rindex["n_seq"]),
+        max_len=int(rindex["max_len"]))
+    if t.ckpt_super is not None:
+        t.ckpt_super = t.ckpt_super.to(torch.int64)
+    tt = None
+    if tags is not None:
+        tt = TagTables(pos_enc=put(tags["pos_enc"]).to(torch.int64),
+                       bwt_start=put(tags["bwt_start"]),
+                       total=int(tags["total"]))
+    return t, tt

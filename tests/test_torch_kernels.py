@@ -1,0 +1,200 @@
+"""The PyTorch port's tables, rank providers, extension and tag counts against
+the JAX package, exactly, on a small synthetic index (CPU: the port runs each
+kernel's plain version; the JAX Pallas kernels run in interpret mode)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pangenome_index_tpu.ops import fmd as jfmd
+from pangenome_index_tpu.ops import rank as jrank
+from pangenome_index_tpu.ops.pallas_rank import gather_rows_pallas, rank6_pallas
+from pangenome_index_tpu.ops.tables import rindex_to_device as jax_rindex_to_device
+from pangenome_index_tpu.ops.tables import tags_to_device as jax_tags_to_device
+from pangenome_index_tpu.ops.tagquery import query_mem_tags as jax_query_mem_tags
+from pangenome_index_tpu.utils.synth import build_synth_index, synth_tag_array
+from pangenome_index_tpu_torch.ops import dense_rank, fmd, rank, tagquery
+from pangenome_index_tpu_torch.ops.tables import (rindex_to_device,
+                                                  tables_from_numpy,
+                                                  tags_to_device)
+
+JAX_FIELDS = ("run_sym", "run_start", "cum", "C", "samples", "last_sorted",
+              "last_to_run", "n", "n_seq", "max_len", "bucket_lo",
+              "pos_to_run", "rec", "rank_table", "ckpt", "ckpt_super")
+MODES = {"checkpoint": dict(checkpoint=True), "dense": dict(dense=True),
+         "two_level": dict(checkpoint=True, super_shift=9)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tensors here are tiny: intra-op threads only contend with the
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def index():
+    return build_synth_index(20_000, 4, seed=2)
+
+
+def as_numpy(tables):
+    return {f: None if getattr(tables, f) is None else np.asarray(getattr(tables, f))
+            for f in JAX_FIELDS}
+
+
+def positions(idx, n=512, seed=0):
+    pos = np.random.default_rng(seed).integers(0, idx.n + 1, n)
+    pos[:4] = (0, 1, idx.n - 1, idx.n)
+    return pos.astype(np.int32)
+
+
+def random_intervals(idx, B=256, seed=3):
+    """(k, kp, s, code, forward) lanes from short random FMD walks."""
+    rng = np.random.default_rng(seed)
+    k = np.zeros(B, np.int64)
+    kp = np.zeros(B, np.int64)
+    s = np.full(B, idx.n, np.int64)
+    for _ in range(int(rng.integers(2, 7))):
+        c = rng.integers(1, 6, B)
+        for i in range(B):
+            k[i], kp[i], s[i] = idx.backward_extend((k[i], kp[i], s[i]), int(c[i]))
+            if s[i] == 0:
+                k[i], kp[i], s[i] = 0, 0, idx.n
+    code = rng.integers(0, 6, B)
+    fwd = rng.integers(0, 2, B).astype(bool)
+    return k, kp, s, code, fwd
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_tables_match_jax_field_for_field(index, mode):
+    idx, _ = index
+    jt = as_numpy(jax_rindex_to_device(idx, **MODES[mode]))
+    pt = rindex_to_device(idx, "cpu", **MODES[mode])
+    for f in JAX_FIELDS:
+        if f in ("bucket_lo", "rank_table"):
+            assert jt[f] is None
+            continue
+        got = getattr(pt, f)
+        if jt[f] is None:
+            assert got is None, f
+        else:
+            got = got if isinstance(got, int) else got.numpy()
+            np.testing.assert_array_equal(got, jt[f], err_msg=f)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_rank6_matches_jax(index, mode):
+    idx, _ = index
+    jt = jax_rindex_to_device(idx, **MODES[mode])
+    pt = rindex_to_device(idx, "cpu", **MODES[mode])
+    pos = positions(idx)
+    expect = np.asarray(jrank.rank6(jt, jnp.asarray(pos)))
+    got = fmd.rank6_plain(pt, torch.from_numpy(pos))
+    np.testing.assert_array_equal(got.numpy(), expect)
+    if pt.ckpt is not None:
+        np.testing.assert_array_equal(rank.ckpt_rank6(pt, torch.from_numpy(pos)).numpy(),
+                                      expect)
+
+
+def test_dense_rank6_matches_pallas(index):
+    idx, _ = index
+    jt = jax_rindex_to_device(idx, dense=True)
+    pt = rindex_to_device(idx, "cpu", dense=True)
+    pos = positions(idx, 256, seed=1)
+    expect = np.asarray(rank6_pallas(jt.rec, jt.pos_to_run, jnp.asarray(pos),
+                                     interpret=True))
+    got = dense_rank.rank6_dense(pt.rec, pt.pos_to_run, torch.from_numpy(pos))
+    np.testing.assert_array_equal(got.numpy(), expect)
+
+
+def test_gather_rows_matches_pallas(index):
+    idx, _ = index
+    jt = jax_rindex_to_device(idx, dense=True)
+    pt = rindex_to_device(idx, "cpu", dense=True)
+    # the Pallas kernel fetches aligned 8-row windows; the port takes any rows
+    rng = np.random.default_rng(2)
+    aligned = rng.integers(0, idx.n_runs // 8, 64) * 8
+    win = (aligned[:, None] + np.arange(8)[None, :]).reshape(-1).astype(np.int32)
+    expect = np.asarray(gather_rows_pallas(jt.rec, jnp.asarray(win), interpret=True))
+    got = dense_rank.gather_rows(pt.rec, torch.from_numpy(win))
+    np.testing.assert_array_equal(got.numpy(), expect)
+    # any batch size; indices clamp into the table (as mems.py clips them)
+    odd = np.array([-3, 0, 5, idx.n_runs - 1, idx.n_runs + 7], np.int32)
+    got = dense_rank.gather_rows(pt.rec, torch.from_numpy(odd))
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jt.rec)[np.clip(odd, 0, idx.n_runs - 1)])
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_extend_matches_jax(index, mode):
+    idx, _ = index
+    jt = jax_rindex_to_device(idx, **MODES[mode])
+    pt = rindex_to_device(idx, "cpu", **MODES[mode])
+    k, kp, s, code, fwd = random_intervals(idx)
+    for forward in (None, fwd, np.ones_like(fwd)):
+        jf = None if forward is None else jnp.asarray(forward)
+        expect = jfmd.extend(jt, *(jnp.asarray(a, jnp.int32) for a in (k, kp, s, code)),
+                             forward=jf)
+        pf = None if forward is None else torch.from_numpy(forward)
+        got = fmd.extend(pt, *(torch.from_numpy(a.astype(np.int32))
+                               for a in (k, kp, s, code)), forward=pf)
+        for g, e in zip(got, expect):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+
+
+@pytest.mark.parametrize("capacity", [8, 32])
+def test_query_mem_tags_matches_jax(index, capacity):
+    idx, lines = index
+    tags = synth_tag_array(idx, lines=lines)
+    rng = np.random.default_rng(capacity)
+    B, M = 96, 8
+    bwt = rng.integers(0, idx.n - 1, (B, M))
+    # spans from one position to thousands of rows: window overflow included
+    size = np.where(rng.random((B, M)) < 0.5, rng.integers(1, 5, (B, M)),
+                    rng.integers(1, 4000, (B, M)))
+    size = np.minimum(size, idx.n - bwt)
+    count = rng.integers(0, M + 3, B)
+    expect = jax_query_mem_tags(jax_tags_to_device(tags), *(jnp.asarray(a, jnp.int32)
+                                                           for a in (bwt, size, count)),
+                                capacity=capacity)
+    got = tagquery.query_mem_tags(tags_to_device(tags, "cpu"),
+                                  *(torch.from_numpy(a.astype(np.int32))
+                                    for a in (bwt, size, count)), capacity=capacity)
+    for g, e in zip(got, expect):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    assert got[1].any() and not got[1].all()
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_tables_carried_from_jax(index, mode):
+    idx, lines = index
+    tags = synth_tag_array(idx, lines=lines)
+    jt = jax_rindex_to_device(idx, **MODES[mode])
+    jtt = jax_tags_to_device(tags)
+    pt, ptt = tables_from_numpy(as_numpy(jt), {f: np.asarray(getattr(jtt, f))
+                                               for f in ("pos_enc", "bwt_start",
+                                                         "total")}, "cpu")
+    own = rindex_to_device(idx, "cpu", **MODES[mode])
+    for f in JAX_FIELDS:
+        if f in ("bucket_lo", "rank_table"):
+            continue
+        a, b = getattr(pt, f), getattr(own, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert a == b if isinstance(a, int) else torch.equal(a, b), f
+    np.testing.assert_array_equal(ptt.pos_enc.numpy(), tags.pos_enc)
+    np.testing.assert_array_equal(ptt.bwt_start.numpy(), tags.bwt_start)
+    # both packages give the same answers on the carried tables
+    pos = positions(idx, seed=4)
+    np.testing.assert_array_equal(fmd.rank6_plain(pt, torch.from_numpy(pos)).numpy(),
+                                  np.asarray(jrank.rank6(jt, jnp.asarray(pos))))
+
+
+def test_tables_from_numpy_refuses_other_rank_modes(index):
+    idx, _ = index
+    with pytest.raises(ValueError, match="bucket_lo"):
+        tables_from_numpy(as_numpy(jax_rindex_to_device(idx)), None, "cpu")

@@ -1,0 +1,136 @@
+"""The PyTorch port's MEM engine and seed table against the JAX package,
+exactly, on a small synthetic index (CPU: the port's plain versions; the
+JAX dense-rank path runs its Pallas kernel in interpret mode)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pangenome_index_tpu.ops.mems import find_mems_batch, find_mems_impl
+from pangenome_index_tpu.ops.mertable import (build_mer_table, read_mer_keys_fast,
+                                              seed_difficulty as jax_seed_difficulty)
+from pangenome_index_tpu.ops.pallas_rank import rank6_pallas
+from pangenome_index_tpu.ops.sparsedict import build_sparse_dict, read_windows_fast
+from pangenome_index_tpu.ops.tables import rindex_to_device as jax_rindex_to_device
+from pangenome_index_tpu.utils.alphabet import BYTE_TO_CODE
+from pangenome_index_tpu.utils.synth import build_synth_index, synth_reads
+from pangenome_index_tpu_torch.ops import mertable
+from pangenome_index_tpu_torch.ops.mems import find_mems
+from pangenome_index_tpu_torch.ops.tables import rindex_to_device
+
+MIN_LEN, MIN_OCC, MER_M, SDICT_S = 20, 1, 6, 19
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tensors here are tiny: intra-op threads only contend with the
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    idx, lines = build_synth_index(20_000, 4, seed=2)
+    reads = synth_reads(lines, 64, 100, error_rate=0.01, seed=5)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)] for r in reads])
+    codes = codes.astype(np.int32)
+    lens = np.full(len(reads), 100, np.int32)
+    lens[::7] = np.random.default_rng(5).integers(30, 100, len(lens[::7]))
+    for i, n in enumerate(lens):
+        codes[i, n:] = 0
+    codes[3, 40] = codes[9, 5] = 4  # an N: invalid seed windows
+    mt = build_mer_table(idx, MER_M).astype(np.int32)
+    mk, mv = read_mer_keys_fast(codes, lens, MER_M)
+    keys, vals = build_sparse_dict(idx, SDICT_S)
+    _, _, di = read_windows_fast(codes, lens, SDICT_S, keys)
+    return idx, codes, lens, dict(mt=mt, mk=mk, mv=mv, vals=vals, di=di)
+
+
+def seed_kwargs(tiers, s, lib):
+    asarray = jnp.asarray if lib == "jax" else torch.from_numpy
+    kw = {}
+    if "dense" in tiers:
+        kw.update(mer_table=asarray(s["mt"]), mer_keys=asarray(s["mk"]),
+                  mer_valid=asarray(s["mv"]), mer_m=MER_M)
+    if "sdict" in tiers:
+        kw.update(sdict_vals=asarray(s["vals"]), sdict_idx=asarray(s["di"]),
+                  sdict_m=SDICT_S)
+    return kw
+
+
+def assert_same(got, expect):
+    for name, g, e in zip(got._fields, got, expect):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=name)
+
+
+@pytest.mark.parametrize("capacity", [8, 32])
+@pytest.mark.parametrize("tiers", ["none", "dense", "sdict", "dense+sdict"])
+def test_find_mems_matches_jax(setup, tiers, capacity):
+    idx, codes, lens, s = setup
+    jt = jax_rindex_to_device(idx, checkpoint=True)
+    expect, jstats = find_mems_batch(jt, jnp.asarray(codes), jnp.asarray(lens),
+                                     MIN_LEN, MIN_OCC, capacity=capacity,
+                                     with_stats=True,
+                                     **seed_kwargs(tiers, s, "jax"))
+    pt = rindex_to_device(idx, "cpu", checkpoint=True)
+    got, stats = find_mems(pt, torch.from_numpy(codes), torch.from_numpy(lens),
+                           MIN_LEN, MIN_OCC, capacity=capacity, with_stats=True,
+                           **seed_kwargs(tiers, s, "torch"))
+    assert_same(got, expect)
+    assert int(stats["steps"].sum()) == int(jstats["steps"])
+    if capacity == 8:
+        assert bool(got.overflow.any())  # counts stay exact past the capacity
+
+
+def test_dense_config_matches_pallas_closure(setup):
+    """Dense-rank configuration: the JAX engine with rank6 answered by the
+    Pallas kernel (interpret mode) against the port on dense tables."""
+    idx, codes, lens, s = setup
+    jt = jax_rindex_to_device(idx, dense=True)
+    kw = seed_kwargs("dense+sdict", s, "jax")
+
+    @jax.jit
+    def closure(codes, lens):
+        return find_mems_impl(
+            jt, codes, lens, MIN_LEN, MIN_OCC, capacity=8,
+            rank6_fn=lambda p: rank6_pallas(jt.rec, jt.pos_to_run, p,
+                                            interpret=True), **kw)
+
+    expect = closure(jnp.asarray(codes), jnp.asarray(lens))
+    pt = rindex_to_device(idx, "cpu", dense=True)
+    got = find_mems(pt, torch.from_numpy(codes), torch.from_numpy(lens),
+                    MIN_LEN, MIN_OCC, capacity=8,
+                    **seed_kwargs("dense+sdict", s, "torch"))
+    assert_same(got, expect)
+
+
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+def test_mer_table_matches_host(setup, mode):
+    idx, _, _, s = setup
+    pt = rindex_to_device(idx, "cpu", **{mode: True})
+    got = mertable.build_mer_table_device(pt, MER_M)
+    np.testing.assert_array_equal(got.numpy(), s["mt"])
+
+
+def test_seed_difficulty_matches_jax(setup):
+    _, _, lens, s = setup
+    expect = jax_seed_difficulty(s["mt"], s["mk"], s["mv"], MIN_OCC,
+                                 lengths=lens, m=MER_M)
+    got = mertable.seed_difficulty(torch.from_numpy(s["mt"]),
+                                   torch.from_numpy(s["mk"]),
+                                   torch.from_numpy(s["mv"]), MIN_OCC,
+                                   torch.from_numpy(lens), MER_M)
+    np.testing.assert_array_equal(got.numpy(), expect)
+
+
+def test_long_reads_refused(setup):
+    idx, _, _, _ = setup
+    pt = rindex_to_device(idx, "cpu", checkpoint=True)
+    codes = torch.zeros((1, 0xFFFF), dtype=torch.int32)
+    with pytest.raises(ValueError, match="65534"):
+        find_mems(pt, codes, torch.ones(1, dtype=torch.int32), MIN_LEN, MIN_OCC)
