@@ -1,5 +1,6 @@
-"""pangenome_index_tpu_torch: the find-mems serving path on PyTorch and
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""pangenome_index_tpu_torch: find-mems serving, the find-mems and
+query-tags commands and the gather-rate probe on PyTorch and hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package pangenome_index_tpu, which stays the reference.
 The host side (index models, codecs, synthetic data, the native C++ engine
@@ -7,11 +8,15 @@ and the numpy build functions) is imported from that package; only its numpy-onl
 modules are, so this package never imports jax.
 
 Layout:
-  _build.py  nvcc build of csrc/*.cu into one library, loaded with ctypes
-  csrc/      the kernels: K1 dense rank + row gather, K2 FMD extension,
-             K3 MEM finding, K4 per-MEM tag counts
-  ops/       tables, a kernel wrapper and its plain PyTorch version per kernel
-  serve.py   the find-mems serving pipeline on one device
+  _build.py        nvcc build of csrc/*.cu into one library, loaded with ctypes
+  csrc/            the kernels: K1 dense rank + row gather, K2 FMD extension,
+                   K3 MEM finding, K4 per-MEM tag counts, K5 gather probe,
+                   K6 tag positions per interval, K7 backward search (count)
+  ops/             tables, a kernel wrapper and its plain PyTorch version per
+                   kernel
+  serve.py         the find-mems serving pipeline on one device
+  cli.py           the find-mems and query-tags commands
+  gather_probe.py  the gather-rate probe (random 64-byte row gathers)
 
 Every function that makes tensors takes an explicit `device`. A kernel
 wrapper launches its kernel for CUDA tensors (and counts the launch in its
@@ -20,17 +25,21 @@ wrapper launches its kernel for CUDA tensors (and counts the launch in its
 
 from __future__ import annotations
 
+from .ops.count import count
 from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.fmd import extend
+from .ops.gather_probe import gather_chain, row_gather
 from .ops.mems import find_mems as _find_mems_batch
-from .ops.tagquery import query_mem_tags
+from .ops.tagquery import query_mem_tags, query_tags_batch
 
 __version__ = "0.1.0"
 
 #: the kernel wrappers, each with its `launches` count
 KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "extend": extend, "find_mems": _find_mems_batch,
-           "query_mem_tags": query_mem_tags}
+           "query_mem_tags": query_mem_tags, "row_gather": row_gather,
+           "gather_chain": gather_chain, "count": count,
+           "query_tags_batch": query_tags_batch}
 
 
 def reset_launches() -> None:

@@ -1,0 +1,317 @@
+"""find-mems and query-tags on the PyTorch/CUDA port.
+
+    python -m pangenome_index_tpu_torch.cli find-mems RI TAGS READS MIN_LEN MIN_OCC [options]
+    python -m pangenome_index_tpu_torch.cli query-tags RI TAGS READS [options]
+
+The commands of `python -m pangenome_index_tpu.cli` (cli.py:161-651) with
+the same argv, and stdout byte-equal to theirs under --engine native and
+--engine host, apart from the two "Total time" lines. There is one engine:
+the port's kernels on --device (default cuda; a missing card is an error,
+and --device cpu runs the kernels' plain PyTorch versions).
+
+find-mems: checkpoint (or dense) rank tables, the m-mer seed table (npz
+cache beside the index, else built with K2), the long-seed dictionary (host
+build, cached beside the index), the seed-difficulty work sort, MEM finding
+(K3; --batch-size 0 is one launch over all reads), escalation of reads past
+--mem-capacity through K3 at capacity 128 and then 1024, a host refind past
+that, tag positions per MEM (K6; overflowing windows re-queried on the
+host), and the native formatter straight to the stdout descriptor - a
+formatter failure ends the run (nothing is re-emitted).
+
+query-tags: backward search of every read (K7), then its tag positions (K6,
+the reference's run range quirk; overflowing lanes re-queried on the host).
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+
+from .host import (DEVICE_BYTES_CAP, find_all_mems, get_sparse_dict,
+                   load_serving, native, pack_reads, read_mer_keys_fast,
+                   read_reads, read_windows_fast, resolve_long_seed)
+from .ops.count import count
+from .ops.mems import find_mems
+from .ops.mertable import get_mer_table, resolve_mer_len, seed_difficulty
+from .ops.sparsedict import sdict_to_device
+from .ops.tables import rindex_to_device, tags_to_device
+from .ops.tagquery import query_tags_batch
+from .serve import check_dense_tables
+
+#: device capacities that overflowed reads are re-run at (cli.py:482)
+ESCALATION_TIERS = (128, 1024)
+
+
+def _device(name: str) -> torch.device:
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"--device {name}: no CUDA device here "
+                               "(--device cpu runs the plain versions)")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _phases(device: torch.device, seconds: dict):
+    """mark(name) adds the seconds since the last mark to seconds[name],
+    after the device has finished its queued work."""
+    last = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        seconds[name] = seconds.get(name, 0.0) + now - last[0]
+        last[0] = now
+
+    return mark
+
+
+def _check_int32(idx) -> None:
+    if idx.n >= 2**31:
+        raise ValueError("n >= 2^31: the port's kernels take int32 positions "
+                         "(the int64 kernels are not written)")
+
+
+def _tag_positions(tags, tt, qs: np.ndarray, qe: np.ndarray, capacity: int):
+    """K6 over the intervals [qs, qe] (the reference's run range quirk):
+    (positions [B, w] int64 with only the occupied columns fetched,
+    n_unique [B], n_runs [B]). Lanes past `capacity` are re-queried on the
+    host (tags.query), so every lane is complete."""
+    dev = tt.bwt_start.device
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, tt.bwt_start.dtype)
+
+    res = query_tags_batch(tt, put(qs), put(qe), capacity=capacity)
+    tuniq = res.n_unique.cpu().numpy()
+    wid = max(int(tuniq.max()), 1)
+    tpos = res.positions[:, :wid].contiguous().cpu().numpy()
+    truns, tov = res.n_runs.cpu().numpy(), res.overflow.cpu().numpy()
+    if tov.any():
+        ov = np.flatnonzero(tov)
+        vals_ov = [tags.query(int(qs[f]), int(qe[f]))[0] for f in ov]
+        wid = max(wid, max(len(v) for v in vals_ov))
+        tpos = np.pad(tpos, ((0, 0), (0, wid - tpos.shape[1])))
+        for f, v in zip(ov, vals_ov):
+            tpos[f, : len(v)] = v
+            tuniq[f] = len(v)
+    return tpos, tuniq, truns
+
+
+def cmd_find_mems(args, seconds: dict) -> int:
+    dev = _device(args.device)
+    mark = _phases(dev, seconds)
+    reads = read_reads(args.reads)
+    idx, tags = load_serving(args)
+    _check_int32(idx)
+    mark("load")
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    dense = args.rank_mode == "dense"
+    t = rindex_to_device(idx, dev, checkpoint=not dense, dense=dense)
+    if dense:
+        check_dense_tables(t)
+    tt = tags_to_device(tags, dev)
+    codes, lens = pack_reads(reads)
+    codes_d, lens_d = put(codes), put(lens)
+    mark("tables")
+
+    # seed tiers: `shared` for every launch, `per_read` in input read order
+    shared, per_read = {}, {}
+    mer_m = resolve_mer_len(args.mer_len, args.min_len, idx.n, dev)
+    if mer_m:
+        path = None if args.no_mer_cache else f"{args.ri}.mer{mer_m}.npz"
+        shared.update(mer_table=get_mer_table(idx, mer_m, t, path), mer_m=mer_m)
+        mark("mer_table")
+        mk, mv = read_mer_keys_fast(codes, lens, mer_m)
+        per_read.update(mer_keys=put(mk), mer_valid=put(mv))
+    s_long = resolve_long_seed(args.long_seed, args.min_len, mer_m)
+    if s_long:
+        sd_path = None if args.no_mer_cache else f"{args.ri}.sdict{s_long}.npz"
+        sd_keys, sd_vals = get_sparse_dict(idx, s_long, path=sd_path)
+        mark("sdict")
+        if sd_vals.nbytes > DEVICE_BYTES_CAP:
+            print(f"long-seed dictionary is {sd_vals.nbytes >> 20} MB "
+                  f"(> {DEVICE_BYTES_CAP >> 20} MB budget); serving with the "
+                  f"dense tier only (PANIDX_SDICT_MAX_BYTES overrides)",
+                  file=sys.stderr)
+        else:
+            _, _, di = read_windows_fast(codes, lens, s_long, sd_keys)
+            vals_d, di_d = sdict_to_device(sd_vals, di, dev)
+            shared.update(sdict_vals=vals_d, sdict_m=s_long)
+            per_read["sdict_idx"] = di_d
+    n_reads = len(reads)
+    order = torch.arange(n_reads, device=dev)
+    if mer_m:
+        # work sort: reads of like difficulty share a warp
+        proxy = seed_difficulty(shared["mer_table"], per_read["mer_keys"],
+                                per_read["mer_valid"], args.min_occ, lens_d,
+                                mer_m)
+        order = torch.argsort(proxy, stable=True)
+    mark("windows")
+
+    def mems_of(sel: torch.Tensor, capacity: int):
+        """K3 over the reads `sel` (input indices on the device)."""
+        return find_mems(t, codes_d[sel], lens_d[sel], args.min_len,
+                         args.min_occ, capacity=capacity, **shared,
+                         **{k: v[sel] for k, v in per_read.items()})
+
+    t_mem = time.perf_counter()
+    B = args.batch_size or n_reads
+    parts = [mems_of(order[s0 : s0 + B], args.mem_capacity)
+             for s0 in range(0, n_reads, B)]
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(n_reads, device=dev)
+    starts, ends, bwts, sizes, counts, overflow = (
+        torch.cat(field)[inv].cpu().numpy() for field in zip(*parts))
+    # reads past the buffer re-run on the device at a capacity that holds
+    # them (`counts` is exact past the capacity), input-order codes
+    for tier in (c for c in ESCALATION_TIERS if c > args.mem_capacity):
+        sel = np.flatnonzero(overflow & (counts <= tier))
+        if not len(sel):
+            continue
+        r2 = mems_of(put(sel), tier)
+        pad = tier - starts.shape[1]
+        if pad > 0:
+            starts, ends, bwts, sizes = (np.pad(a, ((0, 0), (0, pad)))
+                                         for a in (starts, ends, bwts, sizes))
+        for dst, src in ((starts, r2.start), (ends, r2.end),
+                         (bwts, r2.bwt_start), (sizes, r2.size)):
+            dst[sel, :tier] = src.cpu().numpy()
+        overflow[sel] = False
+        print(f"escalated {len(sel)} overflowed reads to device capacity "
+              f"{tier}", file=sys.stderr)
+    if overflow.any():
+        print(f"{int(overflow.sum())} reads past the top device tier: host "
+              f"refind", file=sys.stderr)
+        for i in np.flatnonzero(overflow):
+            mems = find_all_mems(idx, reads[i], args.min_len, args.min_occ)
+            counts[i] = len(mems)
+            pad = max(len(mems) - starts.shape[1], 0)
+            if pad:
+                starts, ends, bwts, sizes = (np.pad(a, ((0, 0), (0, pad)))
+                                             for a in (starts, ends, bwts, sizes))
+            for m, mm in enumerate(mems):
+                starts[i, m], ends[i, m] = mm.start, mm.end
+                bwts[i, m], sizes[i, m] = mm.bwt_start, mm.size
+    total_mem_time = time.perf_counter() - t_mem
+    mark("mems")
+
+    t_tag = time.perf_counter()
+    counts = counts.astype(np.int64)
+    n_flat = int(counts.sum())
+    ii = np.repeat(np.arange(n_reads), counts)
+    within = np.arange(n_flat) - np.repeat(np.cumsum(counts) - counts, counts)
+    qs = bwts[ii, within]
+    tpos, tuniq = np.zeros((0, 1), np.int64), np.zeros(0, np.int64)
+    if n_flat:
+        tpos, tuniq, _ = _tag_positions(tags, tt, qs, qs + sizes[ii, within] - 1,
+                                        args.tag_capacity)
+    total_tag_time = time.perf_counter() - t_tag
+    mark("tags")
+
+    sys.stdout.flush()
+    native.format_mems_native(counts, starts[ii, within], ends[ii, within],
+                              qs, sizes[ii, within], tuniq, tpos,
+                              sys.stdout.fileno())
+    print(f"\nTotal time for finding all MEMs: {total_mem_time} seconds")
+    print(f"Total time for all tag queries: {total_tag_time} seconds")
+    sys.stdout.flush()
+    mark("output")
+    return 0
+
+
+def cmd_query_tags(args, seconds: dict) -> int:
+    dev = _device(args.device)
+    mark = _phases(dev, seconds)
+    reads = read_reads(args.reads)
+    idx, tags = load_serving(args)
+    _check_int32(idx)
+    mark("load")
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    tt = tags_to_device(tags, dev)
+    codes, lens = pack_reads(reads)
+    codes_d, lens_d = (torch.from_numpy(a).to(dev) for a in (codes, lens))
+    mark("tables")
+    first, second = (a.cpu().numpy() for a in count(t, codes_d, lens_d))
+    mark("count")
+    ok = first <= second
+    tpos, tuniq, truns = _tag_positions(tags, tt, np.where(ok, first, 0),
+                                        np.where(ok, second, 0),
+                                        args.tag_capacity)
+    mark("tags")
+    for i, read in enumerate(reads):
+        if first[i] > second[i]:
+            print(f"Read {i} has no matches", file=sys.stderr)
+            continue
+        vals = tpos[i, : tuniq[i]]
+        print(f"Number of unique positions: {len(vals)}")
+        print("".join(f"{v}, " for v in vals))
+        print(f"read_index={i}\tlen={len(read)}\tbwt_start={first[i]}"
+              f"\tbwt_end={second[i]}\truns={truns[i]}")
+    sys.stdout.flush()
+    mark("output")
+    return 0
+
+
+def main(argv=None, seconds: dict | None = None) -> int:
+    """Run one command; `seconds`, when given, receives the seconds of each
+    phase (load, tables, ..., output)."""
+    p = argparse.ArgumentParser(prog="python -m pangenome_index_tpu_torch.cli",
+                                description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    sub = p.add_subparsers(dest="cmd", required=True)
+    for name, fn, mems in (("find-mems", cmd_find_mems, True),
+                           ("query-tags", cmd_query_tags, False)):
+        q = sub.add_parser(name)
+        q.add_argument("ri")
+        q.add_argument("tags")
+        q.add_argument("reads")
+        q.add_argument("--tag-capacity", type=int, default=256,
+                       help="tag positions per interval on the device; "
+                            "overflowing intervals re-query on the host")
+        if mems:
+            q.add_argument("min_len", type=int)
+            q.add_argument("min_occ", type=int)
+            q.add_argument("--mem-capacity", type=int, default=32,
+                           help="MEMs per read in the first launch; reads "
+                                "with more re-run at 128, then 1024, then "
+                                "on the host")
+            q.add_argument("--mer-len", type=int, default=-1,
+                           help="m-mer seed table size; -1 = auto (14 on a "
+                                "CUDA device, 8 on the CPU, at most "
+                                "min_len - 1), 0 disables")
+            q.add_argument("--long-seed", type=int, default=-1,
+                           help="long-seed dictionary window; -1 = auto "
+                                "(min(min_len - 1, 31)), 0 disables")
+            q.add_argument("--no-mer-cache", action="store_true",
+                           help="neither read nor write the seed table and "
+                                "dictionary caches beside the index")
+            q.add_argument("--batch-size", type=int, default=0,
+                           help="reads per MEM launch; 0 = all reads in one "
+                                "launch")
+            q.add_argument("--rank-mode", default="checkpoint",
+                           choices=["checkpoint", "dense"],
+                           help="rank tables: checkpoint rows or dense run "
+                                "records")
+        q.add_argument("--tags-format", default="auto",
+                       choices=["auto", "algorithm", "sdsl", "bytecode",
+                                "bytecode-compact"])
+        q.add_argument("--device", default="cuda",
+                       help="torch device (default cuda; cpu runs the "
+                            "kernels' plain versions)")
+        q.set_defaults(fn=fn)
+    args = p.parse_args(argv)
+    return args.fn(args, {} if seconds is None else seconds)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -17,29 +17,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tags.cuh"
+
 namespace {
 
-constexpr int kStartEveryK = 10;  // encoded_start_every_k_run
-constexpr int64_t kBig = INT64_MAX;
-
-__device__ __forceinline__ int64_t load64(const int64_t* p) {
-  return static_cast<int64_t>(__ldg(reinterpret_cast<const long long*>(p)));
-}
-
-// number of run heads <= v (searchsorted side="right")
-__device__ __forceinline__ int64_t upper_bound(const int* __restrict__ a,
-                                               int64_t n, int v) {
-  int64_t lo = 0, hi = n;
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (__ldg(a + mid) <= v) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
+using pgt::kBig;
+using pgt::kStartEveryK;
+using pgt::load64;
+using pgt::upper_bound;
 
 __global__ void query_mem_tags_kernel(const int* __restrict__ run_start,
                                       int64_t n_runs,

@@ -6,7 +6,7 @@ r = rank6 at the backward interval start bk and at bk + s:
     kp' = bkp + exclusive-prefix(delta[COMP_CODE])[comp(c)]
 Forward lanes swap k/kp and complement the code; failed lanes (s' <= 0)
 return (0, 0, 0). The rank provider is the table's checkpoint rows when
-present, else its dense records.
+present, else its dense records (ops/rank.py:rank6).
 """
 
 from __future__ import annotations
@@ -15,16 +15,8 @@ import torch
 
 from .. import _build
 from ..host import COMP_CODE
-from .dense_rank import rank6_dense_plain
-from .rank import ckpt_rank6
+from .rank import rank6 as rank6_plain
 from .tables import RIndexTables
-
-
-def rank6_plain(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
-    """The table's rank provider in plain PyTorch ([B] -> [B, 6])."""
-    if t.ckpt is not None:
-        return ckpt_rank6(t, pos)
-    return rank6_dense_plain(t.rec, t.pos_to_run, pos)
 
 
 def extend_plain(t: RIndexTables, k, kp, s, code, forward=None):

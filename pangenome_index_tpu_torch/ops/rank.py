@@ -1,18 +1,22 @@
-"""Checkpoint rank6, plain PyTorch.
+"""Rank and LF primitives, plain PyTorch.
 
-The plain version of the checkpoint rank provider in csrc/rank.cuh
-(CkptRank), which extend (K2) and find_mems (K3) instantiate; it mirrors
-pangenome_index_tpu/ops/rank.py:_ckpt_rank6 and ckpt_row_rank6. Each
-checkpoint row holds the occ counts before its bucket (cols 0..5) and the
-bucket's 64 BWT codes as 4-bit nibbles (cols 6..13, LSB first, 0xF past n);
-rank6(pos) is the row of pos >> 6 plus the count of each code among its first
-pos & 63 nibbles. Row indices clamp into the table as JAX gathers do.
+The plain versions of the rank providers in csrc/rank.cuh, which extend
+(K2), find_mems (K3) and count (K7) instantiate, and of
+pangenome_index_tpu/ops/rank.py: rank6, rank and lf_range over the three
+table kinds - checkpoint rows (CkptRank), dense run records (DenseRank), and
+base tables (the per-run cum table, run_of by searchsorted; no kernel).
+
+Each checkpoint row holds the occ counts before its bucket (cols 0..5) and
+the bucket's 64 BWT codes as 4-bit nibbles (cols 6..13, LSB first, 0xF past
+n); rank6(pos) is the row of pos >> 6 plus the count of each code among its
+first pos & 63 nibbles. Row indices clamp into the table as JAX gathers do.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .dense_rank import rank6_dense_plain
 from .tables import RIndexTables
 
 _NIBBLE_SHIFTS = torch.arange(0, 32, 4, dtype=torch.int32)
@@ -35,3 +39,42 @@ def ckpt_rank6(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
         sup = t.ckpt_super[(pos.long() >> ss).clamp(0, t.ckpt_super.shape[0] - 1)]
         r6 = sup[:, :6] + r6
     return r6
+
+
+def run_of(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """Run id containing each position (0..n inclusive), by searchsorted."""
+    pos = pos.to(t.run_start.dtype)
+    return torch.searchsorted(t.run_start, pos, right=True) - 1
+
+
+def rank6(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """The table's rank provider ([B] -> [B, 6]): checkpoint rows when
+    present, else dense records, else the per-run cum table."""
+    if t.ckpt is not None:
+        return ckpt_rank6(t, pos)
+    if t.rec is not None:
+        return rank6_dense_plain(t.rec, t.pos_to_run, pos)
+    j = run_of(t, pos)
+    onehot = torch.arange(6, device=pos.device)[None, :] \
+        == t.run_sym[j].long()[:, None]
+    extra = (pos.to(t.pos_dtype) - t.run_start[j])[:, None]
+    return t.cum[j] + onehot.to(t.pos_dtype) * extra
+
+
+def rank(t: RIndexTables, pos: torch.Tensor, code: torch.Tensor) -> torch.Tensor:
+    """occ(code, [0, pos)) for pos/code [B]; a one-hot select, so codes
+    outside 0..5 give 0 as in the JAX code."""
+    oh = torch.arange(6, device=pos.device)[None, :] == code.long()[:, None]
+    return torch.where(oh, rank6(t, pos), 0).sum(dim=1).to(t.pos_dtype)
+
+
+def lf_range(t: RIndexTables, first, second, code):
+    """Batched LF mapping of [first, second] by `code` ([B] each). Empty
+    results are the reference's (1, 0) sentinel."""
+    valid = (code > 0) & (first <= second)
+    lo = rank(t, torch.where(valid, first, 0), code)
+    inside = rank(t, torch.where(valid, second, 0) + 1, code) - lo
+    ok = valid & (inside > 0)
+    start = lo + t.C[code.long().clamp(0, t.C.shape[0] - 1)]
+    return (torch.where(ok, start, 1).to(first.dtype),
+            torch.where(ok, start + inside - 1, 0).to(first.dtype))

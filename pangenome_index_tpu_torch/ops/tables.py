@@ -5,7 +5,8 @@ field for field, so tables carry across between the two packages
 (`tables_from_numpy`) and the tests can compare them directly. The port keeps
 the two rank representations its kernels read: checkpoint rows (the serving
 default: one 64-byte row per rank6 query) and dense run records (a run id and
-one 32-byte record per query). n, n_seq and max_len are host integers: every
+one 32-byte record per query); base tables (the full per-run cum table)
+serve the plain versions only. n, n_seq and max_len are host integers: every
 kernel takes them as launch arguments, and reading them never waits on the
 card.
 """
@@ -156,10 +157,9 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
                      super_shift: int | None = None) -> RIndexTables:
     """r-index -> tables on `device` with checkpoint rows, dense records, or
     both (rank reads the checkpoint rows when present, as in the JAX
-    package). Same fields and values as the JAX rindex_to_device."""
-    if not (checkpoint or dense):
-        raise ValueError("the port ranks through checkpoint rows or dense "
-                         "records: pass checkpoint=True or dense=True")
+    package); with neither, base tables that rank through the full per-run
+    cum table (plain PyTorch only: the kernels refuse them). Same fields and
+    values as the JAX rindex_to_device (base: bucketed=False)."""
     device = torch.device(device)
     pd = _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
     ckpt = ckpt_super = pos_to_run = rec = None
@@ -180,9 +180,10 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     return RIndexTables(
         run_sym=_put(idx.run_sym, torch.int8, device),
         run_start=_put(idx.run_start, pd, device),
-        # only the fallback rank path of the JAX package reads the per-run
-        # cum table; beside a fast rank table it ships a 1-row stub
-        cum=_put(idx.cum[:1], pd, device),
+        # only base tables rank through the per-run cum table; beside a
+        # faster rank table it ships a 1-row stub, as in the JAX package
+        cum=_put(idx.cum if ckpt is None and rec is None else idx.cum[:1],
+                 pd, device),
         C=_put(idx.C, pd, device),
         samples=_put(np.concatenate((idx.samples, [0])), pd, device),
         last_sorted=_put(idx.last_sorted, pd, device),

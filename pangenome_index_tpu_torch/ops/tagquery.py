@@ -1,15 +1,23 @@
-"""K4: tag counts for every buffered MEM (csrc/tagquery.cu).
+"""K4: tag counts for every buffered MEM (csrc/tagquery.cu), and K6: tag
+positions for a batch of BWT intervals (csrc/tagbatch.cu).
 
-Counterpart of pangenome_index_tpu/ops/tagquery.py:query_mem_tags. For each
-(read, slot) below min(count, M): the run range of [bwt_start,
+K4 is the counterpart of pangenome_index_tpu/ops/tagquery.py:query_mem_tags.
+For each (read, slot) below min(count, M): the run range of [bwt_start,
 bwt_start + size - 1] by two upper-bound searches over the tag run heads,
 started with the reference's mod-10 quirk (START_EVERY_K), a `capacity`
 window of pos_enc, and the number of distinct positions in it (pairwise
 first occurrence). Other slots give 0; `overflow` marks slots whose run span
 exceeds `capacity`.
+
+K6 is the counterpart of query_tags_batch: per interval, the same run range
+(the mod-10 quirk, or the runs overlapping the interval exactly), and the
+distinct positions of the window ascending at the front of a `capacity`
+row padded with -1, for the command-line output.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -70,3 +78,69 @@ def query_mem_tags(tt: TagTables, bwt_start, size, count, capacity: int = 32):
 
 
 query_mem_tags.launches = 0
+
+
+class TagQueryResult(NamedTuple):
+    positions: torch.Tensor  # [B, capacity] int64 distinct positions, then -1
+    n_unique: torch.Tensor   # [B] int32
+    n_runs: torch.Tensor     # [B] int32 the reference's reported run count
+    overflow: torch.Tensor   # [B] bool: n_runs > capacity
+
+
+def query_tags_batch_plain(tt: TagTables, start, end, capacity: int = 64,
+                           exact: bool = False) -> TagQueryResult:
+    """start/end [B] inclusive BWT intervals (the run heads' dtype)."""
+    t = tt.n_runs
+    dev = start.device
+    first_bit = torch.searchsorted(tt.bwt_start, start, right=True)
+    end_bit = torch.searchsorted(tt.bwt_start, end, right=True)
+    run_nums = end_bit - first_bit + 1
+    if exact:
+        s = (first_bit - 1).clamp(min=0)
+    else:
+        s = torch.where(first_bit % START_EVERY_K == 0, first_bit, first_bit - 1)
+    slots = torch.arange(capacity, device=dev)
+    win = s[:, None] + slots[None, :]
+    valid = (slots[None, :] < run_nums[:, None]) & (win < t) & (win >= 0)
+    big = torch.iinfo(torch.int64).max
+    vals = torch.where(valid, tt.pos_enc[win.clamp(0, t - 1)], big)
+    vals = torch.sort(vals, dim=1).values
+    keep = torch.cat((torch.ones_like(vals[:, :1], dtype=torch.bool),
+                      vals[:, 1:] != vals[:, :-1]), dim=1) & (vals != big)
+    # compact the kept values to the front of each row, in order
+    order = torch.argsort((~keep).to(torch.int8), dim=1, stable=True)
+    kept = torch.take_along_dim(keep, order, dim=1)
+    out = torch.where(kept, torch.take_along_dim(vals, order, dim=1), -1)
+    return TagQueryResult(out, keep.sum(dim=1).to(torch.int32),
+                          run_nums.to(torch.int32), run_nums > capacity)
+
+
+def query_tags_batch(tt: TagTables, start, end, capacity: int = 64,
+                     exact: bool = False) -> TagQueryResult:
+    """start/end [B] inclusive BWT intervals -> TagQueryResult; one kernel
+    launch on the card (int32 intervals and run heads), the plain version
+    on the CPU."""
+    if capacity < 1:
+        raise ValueError("query_tags_batch: capacity must be >= 1")
+    if start.dim() != 1 or end.shape != start.shape:
+        raise ValueError("query_tags_batch: start and end must be [B] each")
+    if start.device.type == "cpu":
+        return query_tags_batch_plain(tt, start, end, capacity, exact)
+    dev = tt.bwt_start.device
+    B = start.shape[0]
+    positions = torch.empty((B, capacity), dtype=torch.int64, device=dev)
+    n_unique, n_runs = (torch.empty(B, dtype=torch.int32, device=dev)
+                        for _ in range(2))
+    overflow = torch.empty(B, dtype=torch.bool, device=dev)
+    _build.launch("pgt_query_tags_batch",
+                  _build.check("tag bwt_start", tt.bwt_start, torch.int32, dev),
+                  tt.n_runs, _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
+                  _build.check("start", start, torch.int32, dev),
+                  _build.check("end", end, torch.int32, dev), B, int(capacity),
+                  int(bool(exact)), positions.data_ptr(), n_unique.data_ptr(),
+                  n_runs.data_ptr(), overflow.data_ptr(), _build.stream(dev))
+    query_tags_batch.launches += 1
+    return TagQueryResult(positions, n_unique, n_runs, overflow)
+
+
+query_tags_batch.launches = 0

@@ -1,0 +1,152 @@
+"""The port's find-mems and query-tags commands end to end against the JAX
+package's: stdout byte-equal to `--engine native` and `--engine host`
+(minus the "Total time ... seconds" lines), on the synthetic graph pipeline
+of tests/test_cli.py (CPU: --device cpu runs the kernels' plain versions).
+
+The commands run in this process with the output descriptors captured
+(capfd), apart from one run of `python -m pangenome_index_tpu_torch.cli`
+that checks the entry point."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pangenome_index_tpu import cli as jax_cli
+from pangenome_index_tpu.core.gbwt_build import random_pangenome_gbz
+from pangenome_index_tpu.formats.gbz_write import save_gbz
+from pangenome_index_tpu_torch import cli
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+MIN_LEN, MIN_OCC = "10", "1"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tensors here are tiny: intra-op threads only contend with the
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """GBZ -> text -> BWT -> r-index -> tags through the JAX commands, and a
+    reads file: haplotype substrings (two short enough to span many tag
+    runs), substrings with substitutions (several MEMs per read), one with
+    an N, and one that does not occur."""
+    d = tmp_path_factory.mktemp("torch_cli")
+    save_gbz(random_pangenome_gbz(np.random.default_rng(23), n_nodes=40,
+                                  n_paths=3), d / "synth.gbz")
+    for argv in (["extract-text", "synth.gbz", "-o", "synth.txt"],
+                 ["build-bwt", "synth.txt", "synth.rl_bwt"],
+                 ["build-rindex", "synth.rl_bwt", "-o", "synth.ri"],
+                 ["build-tags", "synth.gbz", "synth.rl_bwt", "synth.tags"],
+                 ["convert-tags", "synth.tags", "synth_c.tags", "--compact",
+                  "--no-compat"]):
+        assert jax_cli.main([a if a.startswith("-") else
+                             str(d / a) if "." in a else a for a in argv]) == 0
+    lines = [l for l in (d / "synth.txt").read_bytes().split(b"\n") if l]
+    rng = np.random.default_rng(5)
+    reads = [lines[0][:30], lines[-1][5:35], lines[0][10:40], lines[-1][:30],
+             lines[1][:4], lines[2][7:12]]
+    for _ in range(8):
+        line = lines[int(rng.integers(len(lines)))]
+        s = int(rng.integers(0, max(len(line) - 60, 1)))
+        r = bytearray(line[s : s + 60])
+        for p in rng.integers(0, len(r), 3):
+            r[p] = b"ACGT"[(b"ACGT".index(r[p]) + 1) % 4]
+        reads.append(bytes(r))
+    reads += [lines[1][3:25] + b"N" + lines[1][26:40], b"ACGTTGCAACGTTGCAACGTTGCA"]
+    (d / "reads.txt").write_bytes(b"\n".join(reads) + b"\n")
+    return d
+
+
+def paths(d, cmd):
+    return [cmd, str(d / "synth.ri"), str(d / "synth_c.tags"), str(d / "reads.txt")]
+
+
+def mem_args(d):
+    return [*paths(d, "find-mems"), MIN_LEN, MIN_OCC]
+
+
+def without_seconds(out: bytes) -> bytes:
+    return b"\n".join(l for l in out.splitlines() if b"seconds" not in l)
+
+
+def jax_stdout(capfd, argv):
+    capfd.readouterr()
+    assert jax_cli.main(argv) == 0
+    sys.stdout.flush()
+    return without_seconds(capfd.readouterr().out.encode())
+
+
+def port_run(capfd, argv, seconds=None):
+    """(stdout without the seconds lines, stderr) of the port's command."""
+    capfd.readouterr()
+    assert cli.main([*argv, "--device", "cpu"], seconds) == 0
+    out = capfd.readouterr()
+    return without_seconds(out.out.encode()), out.err
+
+
+@pytest.fixture(scope="module")
+def expected():
+    return {}
+
+
+def reference(expected, capfd, d, cmd):
+    """The JAX commands' stdout, once per command; native and host agree."""
+    if cmd not in expected:
+        argv = mem_args(d) if cmd == "find-mems" else paths(d, cmd)
+        native = jax_stdout(capfd, [*argv, "--engine", "native"])
+        host = jax_stdout(capfd, [*argv, "--engine", "host"])
+        assert native == host
+        expected[cmd] = native
+    return expected[cmd]
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--batch-size", "2", "--mer-len", "4"], ["--mem-capacity", "1"],
+    ["--tag-capacity", "1"], ["--rank-mode", "dense"]],
+    ids=["defaults", "sorted-chunks", "escalation", "tag-requery", "dense"])
+def test_find_mems_matches_jax(files, expected, capfd, extra):
+    want = reference(expected, capfd, files, "find-mems")
+    seconds = {}
+    got, err = port_run(capfd, [*mem_args(files), *extra], seconds)
+    assert got == want
+    assert want.count(b"MEM START") > want.count(b"Seq: ")
+    assert {"load", "tables", "mems", "tags", "output"} <= set(seconds)
+    assert ("escalated" in err) == (extra == ["--mem-capacity", "1"])
+
+
+@pytest.mark.parametrize("extra", [[], ["--tag-capacity", "1"]],
+                         ids=["defaults", "tag-requery"])
+def test_query_tags_matches_jax(files, expected, capfd, extra):
+    want = reference(expected, capfd, files, "query-tags")
+    got, err = port_run(capfd, [*paths(files, "query-tags"), *extra])
+    assert got == want
+    assert "Read 14 has no matches" in err and "Read 15 has no matches" in err
+    runs = [int(x) for x in re.findall(rb"runs=(-?\d+)", want)]
+    assert len(runs) >= 6 and max(runs) > 1  # capacity 1 overflows there
+
+
+def test_entry_point_and_refusals(files, expected, capfd):
+    """`python -m pangenome_index_tpu_torch.cli` gives the same bytes; a
+    missing card is an error, not a fallback to the CPU."""
+    want = reference(expected, capfd, files, "find-mems")
+    env = {k: os.environ[k] for k in ("PATH", "HOME") if k in os.environ}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-m", "pangenome_index_tpu_torch.cli",
+                           *mem_args(files), "--device", "cpu"], env=env,
+                          capture_output=True, timeout=300, check=True)
+    assert without_seconds(proc.stdout) == want
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(mem_args(files))

@@ -11,7 +11,8 @@ from pangenome_index_tpu.ops.sparsedict import build_sparse_dict, read_windows_f
 from pangenome_index_tpu.utils.alphabet import BYTE_TO_CODE
 from pangenome_index_tpu.utils.synth import (build_synth_index, synth_reads,
                                              synth_tag_array)
-from pangenome_index_tpu_torch.ops import dense_rank, fmd, mems, tagquery
+from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd, gather_probe,
+                                           mems, tagquery)
 from pangenome_index_tpu_torch.ops.tables import rindex_to_device, tags_to_device
 
 pytestmark = pytest.mark.cuda
@@ -96,3 +97,60 @@ def test_kernels_refuse_two_level_tables(dev, index):
     z = torch.zeros(8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="two-level"):
         fmd.extend(t, z, z, z, z)
+
+
+@pytest.mark.parametrize("group", [1, 8, 64])
+def test_row_gather(dev, group):
+    rng = np.random.default_rng(group)
+    R, B = 4099, 4096
+    T = torch.from_numpy(rng.integers(0, 1 << 20, (R, gather_probe.WIDTH))
+                         .astype(np.int32)).to(dev)
+    heads = rng.integers(0, (R - group) // group, B // group) * group
+    idx = torch.from_numpy(heads.repeat(group).astype(np.int32)).to(dev)
+    expect = gather_probe.row_gather_plain(T, idx, group)
+    for depth in gather_probe.DEPTHS:
+        assert torch.equal(gather_probe.row_gather(T, idx, group, depth), expect)
+
+
+def test_gather_chain(dev):
+    rng = np.random.default_rng(0)
+    T = torch.from_numpy(rng.integers(0, 1 << 20, (312_500, gather_probe.WIDTH))
+                         .astype(np.int32)).to(dev)
+    idx = torch.from_numpy(rng.integers(0, 312_500, 1000).astype(np.int32)).to(dev)
+    assert torch.equal(gather_probe.gather_chain(T, idx),
+                       gather_probe.gather_chain_plain(T, idx))
+
+
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+def test_count(dev, index, mode):
+    idx, lines = index
+    t = rindex_to_device(idx, dev, **{mode: True})
+    reads = synth_reads(lines, 300, 120, error_rate=0.01, seed=4)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                      for r in reads]).astype(np.int32)
+    lens = np.random.default_rng(4).integers(0, 121, len(reads)).astype(np.int32)
+    codes[5, 7] = 4  # an N
+    c, n = (torch.from_numpy(a).to(dev) for a in (codes, lens))
+    got = count.count(t, c, n)
+    expect = count.count_plain(t, c, n)
+    for g, e in zip(got, expect):
+        assert torch.equal(g, e)
+    assert bool((got[0] <= got[1]).any()) and bool((got[0] > got[1]).any())
+
+
+@pytest.mark.parametrize("capacity", [1, 8, 256])
+@pytest.mark.parametrize("exact", [False, True])
+def test_query_tags_batch(dev, index, capacity, exact):
+    idx, lines = index
+    tt = tags_to_device(synth_tag_array(idx, lines=lines), dev)
+    rng = np.random.default_rng(capacity)
+    B = 2000
+    start = rng.integers(0, idx.n, B)
+    end = np.minimum(start + np.where(rng.random(B) < 0.5, rng.integers(0, 4, B),
+                                      rng.integers(0, 5000, B)), idx.n - 1)
+    start[-16:], end[-16:] = end[-16:] + 1, start[-16:].copy()  # start > end
+    s, e = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (start, end))
+    got = tagquery.query_tags_batch(tt, s, e, capacity, exact)
+    expect = tagquery.query_tags_batch_plain(tt, s, e, capacity, exact)
+    for name, g, x in zip(got._fields, got, expect):
+        assert torch.equal(g, x), name
