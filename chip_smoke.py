@@ -14,31 +14,42 @@ launch count set to 0 just before a path and read just after it:
 2. the gather-rate probe (gather_probe.sweep): random 64-byte row gathers
    from a [312500, 16] int32 table, independent and as dependent chains;
 3. the find-mems and query-tags commands (cli.main) on the bench index
-   written as .ri/.tags files, byte-compared with the JAX package's
-   command-line engine `--engine native` (run as its own process), then
-   timed per phase on all reads.
+   written as .ri/.tags files, byte-compared with the port's own host route
+   (find-mems: native.find_mems_native + query_tags_native +
+   format_mems_native; query-tags: native.count_native + TagArray.query),
+   then timed per phase on all reads.
+
+The script imports and starts nothing of the JAX package
+(pangenome_index_tpu), which need not be importable where it runs: that the
+port's commands print the same bytes as the JAX command line's native and
+host engines is what tests/test_torch_cli.py holds, on the CPU.
 
 Every kernel is held against its plain PyTorch version on the card at its
-path's shapes (every value is an integer: tolerance 0). Exits non-zero on
-any failure, and at once where there is no card.
+path's shapes (every value is an integer: tolerance 0); the kernels'
+bit-plane rank table is held against the checkpoint rows it is derived from.
+Exits non-zero on any failure, and at once where there is no card.
 
 The last line is {"ok": true, "device": {...}}; the line before it lists
 every kernel with the launch count of the path that runs it, its largest
-difference from the plain version, and both times.
+difference from the plain version, its device time (CUDA-graph replay), the
+plain version's time, the least time the card could take for the same bytes
+and operations (bound_ms: each input and output once, a table that rows are
+gathered from at most once), the time of the longest chain of dependent
+gathers where the kernel has one (chain_ms), the larger of the two
+(floor_ms), and the time of the one PyTorch call that computes the same
+function where there is one (library_ms).
 """
 
 import json
 import os
-import subprocess
 import sys
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
-BASE_LEN, N_HAPS, SNP_RATE, INDEX_SEED = 2_500_000, 8, 0.002, 3
-N_READS, READ_LEN, READ_ERRORS, READ_SEED = 16384, 150, 0.01, 1
-MIN_LEN, MIN_OCC, MER_M, SDICT_S, MEM_CAP, TAG_CAP = 20, 1, 14, 19, 8, 8
+TAG_CAP = 8       # tag capacity of the serving path
 N_LANES = 32768   # K1/K2 comparison batch
-N_K3 = 512        # K3 comparison: the first sorted reads
+N_K3 = 512        # K3 comparison: the first and the last sorted reads
+N_RANK = 32768    # rank6 through the bit-plane table against the checkpoint rows
 REPEATS = 3       # timed serving repeats after the first
 CLI_FIND_READS = 2048   # find-mems byte comparison: the first bench reads
 CLI_QUERY_ERRORS = 1024  # query-tags: bench reads with errors after the exact ones
@@ -49,6 +60,7 @@ SOURCES = {
     "gather_rows": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:39", "serve"),
     "rank6_dense": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:70", "serve"),
     "extend": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve"),
+    "resolve_seeds": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:87", "serve"),
     "find_mems": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43", "serve"),
     "query_mem_tags": ("csrc/tagquery.cu", "pangenome_index_tpu/ops/tagquery.py:71", "serve"),
     "row_gather": ("csrc/gather_probe.cu", "examples/gather_pipeline_probe.py:77", "probe"),
@@ -56,11 +68,17 @@ SOURCES = {
     "count": ("csrc/count.cu", "pangenome_index_tpu/ops/rank.py:196", "query-tags"),
     "query_tags_batch": ("csrc/tagbatch.cu", "pangenome_index_tpu/ops/tagquery.py:32", "find-mems"),
 }
+#: published peaks of one H100 SXM: device memory bytes/s, and float32
+#: operations/s outside the tensor cores (taken for the kernels' 32-bit
+#: integer arithmetic too)
+PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 #: kernels each path must launch (find-mems: its first run, seed table not cached)
 PATH_KERNELS = {
-    "serve": ("gather_rows", "rank6_dense", "extend", "find_mems", "query_mem_tags"),
+    "serve": ("gather_rows", "rank6_dense", "extend", "resolve_seeds", "find_mems",
+              "query_mem_tags"),
     "probe": ("row_gather", "gather_chain"),
-    "find-mems": ("gather_rows", "extend", "find_mems", "query_tags_batch"),
+    "find-mems": ("gather_rows", "extend", "resolve_seeds", "find_mems",
+                  "query_tags_batch"),
     "query-tags": ("count", "query_tags_batch"),
 }
 
@@ -88,13 +106,18 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     import pangenome_index_tpu_torch as port
-    from pangenome_index_tpu_torch import _build, gather_probe, host
+    from pangenome_index_tpu_torch import _build, gather_probe, native
     from pangenome_index_tpu_torch import cli as port_cli
+    from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
     from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd,
                                                gather_probe as probe_ops, mems,
-                                               mertable, tagquery)
+                                               mertable, rank, tagquery)
+    from pangenome_index_tpu_torch.mems_probe import (
+        BASE_LEN, MEM_CAP, MER_M, MIN_LEN, MIN_OCC, N_HAPS, N_READS, READ_LEN,
+        SDICT_S, bench_workload, device_ms)
     from pangenome_index_tpu_torch.ops.tables import rindex_to_device, tags_to_device
     from pangenome_index_tpu_torch.serve import prepare, run
+    from pangenome_index_tpu_torch.utils import synth
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -105,7 +128,9 @@ def main() -> int:
     # --- 1. build the kernels -------------------------------------------
     t0 = time.perf_counter()
     _build.lib()
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    native.get_lib()
+    log(f"kernel build (nvcc) and native engine build (g++): "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas " + line.split("ptxas info    :")[-1].strip())
@@ -113,24 +138,16 @@ def main() -> int:
     # --- workload (host; the index is cached under .bench_cache/) --------
     t0 = time.perf_counter()
     cache = os.path.join(REPO, ".bench_cache")
-    idx, lines = host.build_synth_index(BASE_LEN, N_HAPS, snp_rate=SNP_RATE,
-                                        seed=INDEX_SEED, cache_dir=cache)
-    reads = host.synth_reads(lines, N_READS, READ_LEN, error_rate=READ_ERRORS,
-                             seed=READ_SEED)
-    codes = host.BYTE_TO_CODE[np.frombuffer(b"".join(reads), np.uint8)]
-    codes = codes.reshape(N_READS, READ_LEN).astype(np.int32)
-    lens = np.full(N_READS, READ_LEN, np.int32)
-    tags = host.synth_tag_array(idx, lines=lines, cache_dir=cache)
+    idx, lines, reads, codes, lens, tags, stem = bench_workload(cache)
     log(f"index: n={idx.n} runs={idx.n_runs} tag runs={tags.n_runs} "
         f"({time.perf_counter() - t0:.1f} s)")
     # the index as files for the command line; the serving phase's
     # dictionary cache is the one find-mems reads beside the .ri
-    stem = os.path.join(cache, f"bench_{BASE_LEN}_{N_HAPS}_{INDEX_SEED}")
     ri_path, tags_path = stem + ".ri", stem + ".tags"
     if not (os.path.exists(ri_path) and os.path.exists(tags_path)):
         t0 = time.perf_counter()
-        for path, data in ((ri_path, host.ri.serialize_encoded(idx)),
-                           (tags_path, host.tagfmt.write_compressed_bytecode(tags))):
+        for path, data in ((ri_path, ri.serialize_encoded(idx)),
+                           (tags_path, tagfmt.write_compressed_bytecode(tags))):
             with open(path + ".tmp", "wb") as fh:
                 fh.write(data)
             os.replace(path + ".tmp", path)
@@ -160,22 +177,44 @@ def main() -> int:
             err = max(err, int((g.long() - e.long()).abs().max()) if g.numel() else 0)
         return err
 
+    def gathered(nbytes, *tables):
+        """Bytes that row reads of `nbytes` in all from `tables` must move:
+        no table more than once."""
+        return min(nbytes, sum(t.numel() * t.element_size() for t in tables))
+
     kernels = {}
 
-    def compare(name, kernel, plain, reps=20, plain_reps=3, record=True):
+    def compare(name, kernel, plain, plain_reps=3, record=True, nbytes=0, ops=0,
+                chain=None, library=None):
+        """Hold kernel() against plain(); with record, time both (the kernel's
+        device time by CUDA-graph replay, the plain version by events around
+        eager calls) and the one PyTorch call `library` that computes the
+        same function, and work out the bound: `nbytes` moved at the card's
+        memory rate or `ops` operations at its peak rate, whichever takes
+        longer. `chain`: the steps of the kernel's longest chain of dependent
+        gathers, timed at the end at this run's gather latency."""
         err = max_abs_err(kernel(), plain())
         torch.cuda.synchronize()
         check(err == 0, f"{name}: kernel differs from its plain version by {err}")
         if not record:
             log(f"{name}: identical to its plain version")
             return
-        ms, plain_ms = time_ms(kernel, reps), time_ms(plain, plain_reps)
-        kernels[name] = dict(name=name, route="cuda",
-                             source="pangenome_index_tpu_torch/" + SOURCES[name][0],
-                             replaces=SOURCES[name][1], max_abs_err=err,
-                             ms=ms, plain_ms=plain_ms)
-        log(f"{name}: identical to its plain version; {ms:.4f} ms vs plain "
-            f"{plain_ms:.4f} ms {card}")
+        ms, plain_ms = gather_probe.time_ms(kernel), time_ms(plain, plain_reps)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source="pangenome_index_tpu_torch/" + SOURCES[name][0],
+            replaces=SOURCES[name][1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None if library is None else gather_probe.time_ms(library),
+            chain_steps=chain)
+        k = kernels[name]
+        log(f"{name}: identical to its plain version; {ms:.4f} ms (device) vs "
+            f"plain {plain_ms:.4f} ms, bound {k['bound_ms']:.5f} ms by "
+            f"{k['bound_by']} ({nbytes} bytes, {ops} operations)"
+            + ("" if library is None else f", library call {k['library_ms']:.4f} ms")
+            + f" {card}")
 
     launches = {}
 
@@ -191,19 +230,37 @@ def main() -> int:
     rng = np.random.default_rng(7)
     pos = T(rng.integers(0, idx.n + 1, N_LANES).astype(np.int32))
     rows = T(rng.integers(0, idx.n_runs, N_LANES).astype(np.int32))
+    # the kernels' bit-plane rank table against the checkpoint rows it is
+    # derived from, both read on the card
+    rpos = T(np.concatenate((rng.integers(0, idx.n + 1, N_RANK - 4),
+                             [0, 63, idx.n - 1, idx.n])).astype(np.int32))
+    check(torch.equal(rank.planes_rank6(t_ck.ckpt_planes, rpos),
+                      rank.ckpt_rank6(t_ck, rpos)),
+          "rank6 through the bit-plane table differs from the checkpoint rows")
+    log(f"bit-plane rank table: rank6 identical to the checkpoint rows at "
+        f"{N_RANK} positions")
+    rows_l = rows.long()
     compare("gather_rows", lambda: dense_rank.gather_rows(t_dn.rec, rows),
-            lambda: dense_rank.gather_rows_plain(t_dn.rec, rows))
+            lambda: dense_rank.gather_rows_plain(t_dn.rec, rows),
+            nbytes=N_LANES * (4 + 32) + gathered(N_LANES * 32, t_dn.rec),
+            ops=N_LANES * 8,
+            library=lambda: torch.index_select(t_dn.rec, 0, rows_l))
     compare("rank6_dense",
             lambda: dense_rank.rank6_dense(t_dn.rec, t_dn.pos_to_run, pos),
-            lambda: dense_rank.rank6_dense_plain(t_dn.rec, t_dn.pos_to_run, pos))
+            lambda: dense_rank.rank6_dense_plain(t_dn.rec, t_dn.pos_to_run, pos),
+            nbytes=N_LANES * (4 + 24) + gathered(N_LANES * 4, t_dn.pos_to_run)
+            + gathered(N_LANES * 32, t_dn.rec), ops=N_LANES * 16, chain=2)
     k = rng.integers(0, idx.n, N_LANES)
     lanes = [T(a.astype(np.int32)) for a in (
         k, rng.integers(0, idx.n, N_LANES),
         rng.integers(1, np.minimum(idx.n - k, 4096) + 1),
         rng.choice(np.array([1, 2, 3, 5]), N_LANES))]
     fwd = T(rng.integers(0, 2, N_LANES).astype(bool))
+    # per lane: k, kp, s, code and the direction in, two 64-byte rows, 3 out
     compare("extend", lambda: fmd.extend(t_ck, *lanes, forward=fwd),
-            lambda: fmd.extend_plain(t_ck, *lanes, forward=fwd))
+            lambda: fmd.extend_plain(t_ck, *lanes, forward=fwd),
+            nbytes=N_LANES * (17 + 12) + gathered(N_LANES * 128, t_ck.ckpt_planes),
+            ops=N_LANES * 100, chain=1)
     for t, what in ((t_ck, "checkpoint"), (t_dn, "dense")):
         for f in (None, fwd):
             compare(f"extend ({what}, "
@@ -214,7 +271,7 @@ def main() -> int:
     # --- 3. the seed-table schedule: m=8 through K2 == host build ---------
     t0 = time.perf_counter()
     check(np.array_equal(mertable.build_mer_table_device(t_ck, 8).cpu().numpy(),
-                         host.build_mer_table(idx, 8)),
+                         mertable.build_mer_table(idx, 8)),
           "m=8 seed table built with K2 differs from the host build")
     log(f"m=8 seed table through K2: identical to the host build "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -251,7 +308,7 @@ def main() -> int:
         check(a.shape == ((N_READS,) if name == "count" else (N_READS, MEM_CAP)),
               f"{name} shape {a.shape}")
     t0 = time.perf_counter()
-    s, e, b, z, cnt = host.native.find_mems_native(
+    s, e, b, z, cnt = native.find_mems_native(
         idx, codes, lens, MIN_LEN, MIN_OCC, capacity=MEM_CAP, n_threads=0)
     native_s = time.perf_counter() - t0
     check(np.array_equal(r.count, cnt), "MEM counts differ from the native engine")
@@ -263,8 +320,8 @@ def main() -> int:
     within = np.arange(len(ii)) - np.repeat(np.cumsum(eff) - eff, eff)
     qs = b[ii, within]
     qe = qs + z[ii, within] - 1
-    _, tuniq, _ = host.native.query_tags_native(tags, qs, qe, capacity=256,
-                                                n_threads=0)
+    _, tuniq, _ = native.query_tags_native(tags, qs, qe, capacity=256,
+                                           n_threads=0)
     ok = ~r.tag_ov[ii, within]
     check(np.array_equal(r.tag_nu[ii, within][ok], tuniq[ok]),
           "tag unique counts differ from the native engine")
@@ -284,40 +341,99 @@ def main() -> int:
     # --- 2 (cont.). K3 and K4 against their plain versions ----------------
     per_read = ("mer_keys", "mer_valid", "sdict_idx")
 
-    def k3(fn, bt, kw, n):  # MemResult fields and the per-read step counts
-        res, stats = fn(bt.tables, bt.codes[:n], bt.lengths[:n], MIN_LEN,
-                        MIN_OCC, capacity=MEM_CAP, with_stats=True, **kw)
+    def k3_inputs(bt, sel):
+        """find_mems arguments for the sorted reads `sel` of a batch."""
+        return (bt.tables, bt.codes[sel].contiguous(), bt.lengths[sel].contiguous(),
+                {k: (v[sel].contiguous() if k in per_read else v)
+                 for k, v in bt.seed_kw.items()})
+
+    def k3(fn, inputs, **kw):
+        """MemResult fields and the per-read step counts."""
+        t, c, n, seed_kw = inputs
+        res, stats = fn(t, c, n, MIN_LEN, MIN_OCC, capacity=MEM_CAP,
+                        with_stats=True, **seed_kw, **kw)
         return (*res, stats["steps"])
 
+    def k3_bytes(steps):
+        """What K3 must move for reads that take `steps` extension steps:
+        codes, lengths and the resolved seed of every read position once, two
+        64-byte rank rows a step (the rank table at most once), the MEM
+        buffers, counts and steps out."""
+        n = steps.numel()
+        return (n * ((READ_LEN + 1) * (1 + 16) + 4)
+                + gathered(int(steps.sum()) * 128, t_ck.ckpt_planes)
+                + n * (3 * MEM_CAP * 4 + 8))
+
+    # the first sorted reads are the easiest; the last hold the long chains
+    # and the seed misses
+    ends = {"first": slice(0, N_K3), "last": slice(N_READS - N_K3, N_READS)}
     for cfg, bt in batches.items():
-        kw = {k: (v[:N_K3] if k in per_read else v) for k, v in bt.seed_kw.items()}
-        compare("find_mems" if cfg == "checkpoint" else f"find_mems ({cfg} rank)",
-                lambda: k3(mems.find_mems, bt, kw, N_K3),
-                lambda: k3(mems.find_mems_plain, bt, kw, N_K3),
-                reps=10, plain_reps=1, record=cfg == "checkpoint")
+        for which, sel in ends.items():
+            rec = (cfg, which) == ("checkpoint", "last")
+            inputs = k3_inputs(bt, sel)
+            st = k3(mems.find_mems, inputs)[-1]
+            compare("find_mems" if rec else
+                    f"find_mems ({cfg} rank, {which} {N_K3} sorted reads)",
+                    lambda: k3(mems.find_mems, inputs),
+                    lambda: k3(mems.find_mems_plain, inputs),
+                    plain_reps=1, record=rec, nbytes=k3_bytes(st),
+                    ops=int(st.sum()) * 100, chain=int(st.max()))
+    # the seed-resolving pass at the whole batch's shape: per position the
+    # dictionary row index and row in and the seed out, and where the
+    # dictionary misses the m-mer key, validity and row as well
+    kw = batches["checkpoint"].seed_kw
+    n_pos, n_miss = kw["sdict_idx"].numel(), int((kw["sdict_idx"] < 0).sum())
+    compare("resolve_seeds",
+            lambda: mems.resolve_seeds(N_READS, READ_LEN + 1, MIN_OCC, **kw),
+            lambda: mems.resolve_seeds_plain(N_READS, READ_LEN + 1, MIN_OCC, **kw),
+            nbytes=n_pos * (4 + 16) + gathered(n_pos * 12, kw["sdict_vals"])
+            + n_miss * 5 + gathered(n_miss * 12, kw["mer_table"]),
+            ops=n_pos * 12, chain=2)
     tt = tags_to_device(tags, dev)
     bufs = (T(r.bwt_start), T(r.size), T(r.count))
+    n_slots = int(np.minimum(r.count, MEM_CAP).sum())
+    search = int(np.ceil(np.log2(tags.n_runs)))  # steps of one binary search
     compare("query_mem_tags",
             lambda: tagquery.query_mem_tags(tt, *bufs, capacity=TAG_CAP),
-            lambda: tagquery.query_mem_tags_plain(tt, *bufs, capacity=TAG_CAP))
-    # K3's time per dependent extension step: the kernel's device time on
-    # the whole sorted batch (the profiler's, without the seed resolution
-    # the wrapper runs first), set by the batch's longest per-read chain
+            lambda: tagquery.query_mem_tags_plain(tt, *bufs, capacity=TAG_CAP),
+            nbytes=N_READS * (MEM_CAP * (8 + 5) + 4)
+            + gathered(n_slots * TAG_CAP * 8, tt.pos_enc, tt.bwt_start),
+            ops=n_slots * (2 * search + TAG_CAP * TAG_CAP), chain=search + 1)
+
+    # K3 on the whole sorted batch: the kernel's own device time (the
+    # profiler's) and its time per dependent extension step (set by the
+    # longest read's chain)
     bt = batches["checkpoint"]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            k3_steps = k3(mems.find_mems, bt, bt.seed_kw, N_READS)[-1]
-        torch.cuda.synchronize()
-    k3_dev = [ev for ev in prof.key_averages() if "find_mems_kernel" in ev.key]
-    check(len(k3_dev) == 1 and k3_dev[0].count == 3,
-          "the profiler saw no K3 launches")
-    k3_ms = k3_dev[0].device_time_total / 3 / 1e3
+    whole = k3_inputs(bt, slice(None))
+    (k3_ms, seeds_ms), k3_out = device_ms(
+        lambda: k3(mems.find_mems, whole), "find_mems_kernel", "resolve_seeds_kernel")
+    k3_steps = k3_out[-1]
     k3_us_step = k3_ms * 1e3 / int(k3_steps.max())
-    log(f"K3 kernel on all {N_READS} sorted reads: {k3_ms:.4f} ms (device), "
-        f"longest read {int(k3_steps.max())} steps (mean "
-        f"{float(k3_steps.float().mean()):.2f}): {k3_us_step:.4f} us per "
-        f"dependent step {card}")
-    del batches, bt
+    k3_bound = k3_bytes(k3_steps) / PEAK_BYTES_S * 1e3
+    log(f"K3 kernel on all {N_READS} sorted reads: "
+        f"{k3_ms:.4f} ms (device), longest read {int(k3_steps.max())} "
+        f"steps (mean {float(k3_steps.float().mean()):.2f}): {k3_us_step:.4f} us "
+        f"per dependent step; bound by bytes {k3_bound:.5f} ms; the "
+        f"seed-resolving pass before it {seeds_ms:.4f} ms (device) {card}")
+
+    # where serve.run's device time goes: a profiler trace of 5 runs (device
+    # activity only: kernels and copies, each counted once)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            run(bt, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP,
+                tag_capacity=TAG_CAP)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    evs = sorted((ev for ev in prof.key_averages() if ev.device_time_total > 0),
+                 key=lambda ev: -ev.device_time_total)
+    dev_ms = sum(ev.device_time_total for ev in evs) / 1e3
+    log(f"serve.run x5 under the profiler: wall {wall_ms:.3f} ms, device busy "
+        f"{dev_ms:.3f} ms (share {dev_ms / wall_ms:.4f}) {card}")
+    for ev in evs[:10]:
+        log(f"  {ev.device_time_total / 1e3 / dev_ms:7.2%} "
+            f"{ev.device_time_total / 5e3:.4f} ms/run x{ev.count // 5}  {ev.key[:90]}")
+    del batches, bt, whole, inputs
 
     # --- 7. the gather-rate probe -----------------------------------------
     port.reset_launches()
@@ -342,10 +458,15 @@ def main() -> int:
                     else f"row_gather (G={G}, depth={depth})",
                     lambda: probe_ops.row_gather(PT, gidx, G, depth),
                     lambda: probe_ops.row_gather_plain(PT, gidx, G, depth),
-                    record=(G, depth) == (1, 4))
+                    record=(G, depth) == (1, 4),
+                    nbytes=PROBE_GROUP_BATCH * (4 + 64)
+                    + gathered(PROBE_GROUP_BATCH * 64, PT), ops=PROBE_GROUP_BATCH * 16,
+                    library=lambda gl=gidx.long(): torch.index_select(PT, 0, gl))
     cidx = T(prng.integers(0, gather_probe.ROWS, N_READS).astype(np.int32))
     compare("gather_chain", lambda: probe_ops.gather_chain(PT, cidx),
-            lambda: probe_ops.gather_chain_plain(PT, cidx), plain_reps=1)
+            lambda: probe_ops.gather_chain_plain(PT, cidx), plain_reps=1,
+            nbytes=N_READS * 8 + gathered(N_READS * probe_ops.ITERS * 64, PT),
+            ops=N_READS * probe_ops.ITERS * 24, chain=probe_ops.ITERS)
     del PT
 
     # --- 8. the find-mems and query-tags commands -------------------------
@@ -385,15 +506,42 @@ def main() -> int:
         check(rc == 0, f"port {argv[0]} exited {rc}")
         return seconds
 
-    def jax_cmd(argv, out):
-        """The JAX package's command-line engine, as its own process."""
+    def host_find_mems(rs, out):
+        """find-mems by the port's host route: the native engine's MEMs (its
+        buffers hold every MEM of a read here), its tag positions, and its
+        formatter, to `out`."""
         t0 = time.perf_counter()
+        c, n = port_cli.pack_reads(rs)
+        hs, he, hb, hz, hc = native.find_mems_native(idx, c, n, MIN_LEN, MIN_OCC,
+                                                     capacity=1024)
+        check(int(hc.max()) <= 1024, "a read has more than 1024 MEMs")
+        hc = hc.astype(np.int64)
+        hi = np.repeat(np.arange(len(rs)), hc)
+        hw = np.arange(len(hi)) - np.repeat(np.cumsum(hc) - hc, hc)
+        hq = hb[hi, hw]
+        tpos, tuniq, _ = native.query_tags_native(tags, hq, hq + hz[hi, hw] - 1,
+                                                  capacity=256)
+        check(int(tuniq.max()) <= 256, "a MEM has more than 256 tag positions")
         with open(out, "wb") as fh:
-            proc = subprocess.run([sys.executable, "-m", "pangenome_index_tpu.cli",
-                                   *argv], stdout=fh, stderr=subprocess.PIPE,
-                                  cwd=REPO, timeout=900)
-        check(proc.returncode == 0, f"JAX {argv[0]} exited {proc.returncode}: "
-              + proc.stderr.decode(errors="replace")[-2000:])
+            native.format_mems_native(hc, hs[hi, hw], he[hi, hw], hq, hz[hi, hw],
+                                      tuniq, tpos, fh.fileno())
+            fh.write(b"\n")
+        return time.perf_counter() - t0
+
+    def host_query_tags(rs, out):
+        """query-tags by the port's host route: the native engine's backward
+        search, then the host tag array's query per read, to `out`."""
+        t0 = time.perf_counter()
+        first, second = native.count_native(idx, *port_cli.pack_reads(rs))
+        with open(out, "w") as fh:
+            for i, read in enumerate(rs):
+                if first[i] > second[i]:
+                    continue
+                vals, n_runs = tags.query(int(first[i]), int(second[i]))
+                fh.write(f"Number of unique positions: {len(vals)}\n"
+                         + "".join(f"{v}, " for v in vals)
+                         + f"\nread_index={i}\tlen={len(read)}\tbwt_start={first[i]}"
+                           f"\tbwt_end={second[i]}\truns={n_runs}\n")
         return time.perf_counter() - t0
 
     common = [ri_path, tags_path]
@@ -412,32 +560,31 @@ def main() -> int:
         for line in fh:
             if "escalated" in line or "refind" in line:
                 log("  port find-mems: " + line.strip())
-    jax_s = jax_cmd(["find-mems", *common, fm_reads, str(MIN_LEN), str(MIN_OCC),
-                     *fmt, "--engine", "native", "--mem-capacity", "1024"],
-                    os.path.join(cli_dir, "find_jax.txt"))
+    host_s = host_find_mems(reads[:CLI_FIND_READS],
+                            os.path.join(cli_dir, "find_host.txt"))
     got = without_seconds(os.path.join(cli_dir, "find_port.txt"))
-    check(got == without_seconds(os.path.join(cli_dir, "find_jax.txt")),
-          "find-mems stdout differs from the JAX command line (--engine native)")
-    log(f"find-mems on {CLI_FIND_READS} reads: stdout byte-equal to the JAX "
-        f"command line --engine native ({len(got)} bytes, "
-        f"{got.count(b'MEM START')} MEMs; JAX native {jax_s:.1f} s); port "
+    check(got == without_seconds(os.path.join(cli_dir, "find_host.txt")),
+          "find-mems stdout differs from the port's host route (native engine)")
+    log(f"find-mems on {CLI_FIND_READS} reads: stdout byte-equal to the host "
+        f"route through the native engine ({len(got)} bytes, "
+        f"{got.count(b'MEM START')} MEMs; host route {host_s:.1f} s); port "
         + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
 
-    exact = host.synth_reads(lines, N_READS, READ_LEN, error_rate=0.0, seed=2)
+    exact = synth.synth_reads(lines, N_READS, READ_LEN, error_rate=0.0, seed=2)
     qt_reads = reads_file("query_reads.txt", exact + reads[:CLI_QUERY_ERRORS])
     port.reset_launches()
     sec = port_cmd(["query-tags", *common, qt_reads, *fmt],
                    os.path.join(cli_dir, "query_port.txt"))
     read_launches("query-tags")
-    jax_s = jax_cmd(["query-tags", *common, qt_reads, *fmt, "--engine", "native"],
-                    os.path.join(cli_dir, "query_jax.txt"))
+    host_s = host_query_tags(exact + reads[:CLI_QUERY_ERRORS],
+                             os.path.join(cli_dir, "query_host.txt"))
     got = without_seconds(os.path.join(cli_dir, "query_port.txt"))
-    check(got == without_seconds(os.path.join(cli_dir, "query_jax.txt")),
-          "query-tags stdout differs from the JAX command line (--engine native)")
+    check(got == without_seconds(os.path.join(cli_dir, "query_host.txt")),
+          "query-tags stdout differs from the port's host route (native engine)")
     log(f"query-tags on {len(exact) + CLI_QUERY_ERRORS} reads: stdout "
-        f"byte-equal to the JAX command line --engine native ({len(got)} "
-        f"bytes, {got.count(b'read_index=')} reads found; JAX native "
-        f"{jax_s:.1f} s); port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
+        f"byte-equal to the host route through the native engine ({len(got)} "
+        f"bytes, {got.count(b'read_index=')} reads found; host route "
+        f"{host_s:.1f} s); port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
 
     all_reads = reads_file("all_reads.txt", reads)
     for name, argv in (("find-mems", ["find-mems", *common, all_reads,
@@ -455,21 +602,41 @@ def main() -> int:
     # the buffered MEM intervals of the serving batch, at the command line's
     # tag capacity
     mq = (T(qs.astype(np.int32)), T(qe.astype(np.int32)))
+    n_tagged = int(tagquery.query_tags_batch(tt, *mq, 256).n_unique.sum())
     for ex in (False, True):
+        # interval ends in, a capacity-wide row of positions and three counts
+        # out, and the runs it reads
         compare("query_tags_batch (exact)" if ex else "query_tags_batch",
                 lambda: tagquery.query_tags_batch(tt, *mq, 256, ex),
                 lambda: tagquery.query_tags_batch_plain(tt, *mq, 256, ex),
-                record=not ex)
-    qcodes, qlens = host.pack_reads(exact + reads[:CLI_QUERY_ERRORS])
+                record=not ex, nbytes=len(qs) * (8 + 256 * 8 + 9)
+                + gathered(n_tagged * 8, tt.pos_enc, tt.bwt_start),
+                ops=len(qs) * (2 * search + 256), chain=search + 1)
+    qcodes, qlens = port_cli.pack_reads(exact + reads[:CLI_QUERY_ERRORS])
     qc, ql = T(qcodes), T(qlens)
+    # a read that occurs takes a step per base; one that does not stops at
+    # its first empty range, counted here as one step
+    found = count.count(t_ck, qc, ql)
+    q_steps = int(torch.where(found[0] <= found[1], ql, 1).sum())
     compare("count", lambda: count.count(t_ck, qc, ql),
-            lambda: count.count_plain(t_ck, qc, ql), plain_reps=1)
+            lambda: count.count_plain(t_ck, qc, ql), plain_reps=1,
+            nbytes=qc.numel() * 4 + len(qlens) * 12
+            + gathered(q_steps * 128, t_ck.ckpt_planes),
+            ops=q_steps * 60, chain=int(qlens.max()))
     t_dn = rindex_to_device(idx, dev, dense=True)
     compare("count (dense rank)", lambda: count.count(t_dn, qc, ql),
             lambda: count.count_plain(t_dn, qc, ql), record=False)
 
     for name, entry in kernels.items():
         entry["launches"] = launches[SOURCES[name][2]][name]
+        # the longest chain of dependent gathers, at this run's gather latency
+        steps = entry.pop("chain_steps")
+        entry["chain_ms"] = None if steps is None else steps * chain[N_READS] / 1e3
+        entry["floor_ms"] = max(entry["bound_ms"], entry["chain_ms"] or 0.0)
+        log(f"{name}: {entry['ms']:.4f} ms against a floor of "
+            f"{entry['floor_ms']:.5f} ms (bytes or operations "
+            f"{entry['bound_ms']:.5f}, chain {entry['chain_ms']}): share "
+            f"{entry['floor_ms'] / entry['ms']:.4f} {card}")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [kernels[n] for n in SOURCES]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,20 @@ query-tags commands and the gather-rate probe on PyTorch and hand-written
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package pangenome_index_tpu, which stays the reference.
-The host side (index models, codecs, synthetic data, the native C++ engine
-and the numpy build functions) is imported from that package; only its numpy-only
-modules are, so this package never imports jax.
+The port imports nothing of that package: the host side (index models,
+codecs, synthetic data, the binding of the native C++ engine in src/cpp and
+the numpy build functions) is the port's own copy, under the same module
+names (utils/, models/, formats/, native.py).
 
 Layout:
   _build.py        nvcc build of csrc/*.cu into one library, loaded with ctypes
   csrc/            the kernels: K1 dense rank + row gather, K2 FMD extension,
-                   K3 MEM finding, K4 per-MEM tag counts, K5 gather probe,
+                   K3 MEM finding (with its seed-resolving pass), K4 per-MEM
+                   tag counts, K5 gather probe,
                    K6 tag positions per interval, K7 backward search (count)
+  native.py        ctypes binding of the native C++ engine (src/cpp)
+  utils/ models/ formats/   alphabet, synthetic data, host index models and
+                   the .ri / .tags codecs
   ops/             tables, a kernel wrapper and its plain PyTorch version per
                    kernel
   serve.py         the find-mems serving pipeline on one device
@@ -30,13 +35,15 @@ from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.fmd import extend
 from .ops.gather_probe import gather_chain, row_gather
 from .ops.mems import find_mems as _find_mems_batch
+from .ops.mems import resolve_seeds
 from .ops.tagquery import query_mem_tags, query_tags_batch
 
 __version__ = "0.1.0"
 
 #: the kernel wrappers, each with its `launches` count
 KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
-           "extend": extend, "find_mems": _find_mems_batch,
+           "extend": extend, "resolve_seeds": resolve_seeds,
+           "find_mems": _find_mems_batch,
            "query_mem_tags": query_mem_tags, "row_gather": row_gather,
            "gather_chain": gather_chain, "count": count,
            "query_tags_batch": query_tags_batch}
@@ -62,7 +69,7 @@ def find_mems(tables, reads, min_len: int, min_occ: int, capacity: int = 64):
     import numpy as np
     import torch
 
-    from .host import BYTE_TO_CODE
+    from .utils.alphabet import BYTE_TO_CODE
 
     L = max(len(r) for r in reads)
     codes = np.zeros((len(reads), L), np.int32)

@@ -39,10 +39,12 @@ SIGNATURES = {
     "pgt_extend_ckpt": (_P, _I64, _P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P),
     "pgt_extend_dense": (_P, _I64, _P, _I64, _P, _P, _P, _P, _P, _P, _I64,
                          _P, _P, _P, _P),
+    "pgt_resolve_seeds": (_P, _I64, _P, _P, _I, _P, _I64, _P, _I, _I64, _I, _P,
+                          _P),
     "pgt_find_mems_ckpt": (_P, _I64, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I64, _P, _P, _P, _P, _P, _P),
+                           _I, _I64, _P, _P, _P, _P, _P, _P),
     "pgt_find_mems_dense": (_P, _I64, _P, _I64, _P, _P, _P, _P, _I, _I, _I,
-                            _I, _I, _I, _I64, _P, _P, _P, _P, _P, _P),
+                            _I, _I, _I, _I, _I64, _P, _P, _P, _P, _P, _P),
     "pgt_query_mem_tags": (_P, _I64, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
     "pgt_row_gather": (_P, _I64, _P, _I64, _I, _I, _P, _P),
     "pgt_gather_chain": (_P, _I64, _P, _I64, _I, _P, _P),

@@ -31,19 +31,57 @@ import time
 import numpy as np
 import torch
 
-from .host import (DEVICE_BYTES_CAP, find_all_mems, get_sparse_dict,
-                   load_serving, native, pack_reads, read_mer_keys_fast,
-                   read_reads, read_windows_fast, resolve_long_seed)
+from . import native
+from .formats import ri, tags as tagfmt
+from .models.mems import find_all_mems
 from .ops.count import count
 from .ops.mems import find_mems
-from .ops.mertable import get_mer_table, resolve_mer_len, seed_difficulty
-from .ops.sparsedict import sdict_to_device
+from .ops.mertable import (get_mer_table, read_mer_keys_fast, resolve_mer_len,
+                           seed_difficulty)
+from .ops.sparsedict import (DEVICE_BYTES_CAP, get_sparse_dict,
+                             read_windows_fast, sdict_to_device)
 from .ops.tables import rindex_to_device, tags_to_device
 from .ops.tagquery import query_tags_batch
 from .serve import check_dense_tables
+from .utils.alphabet import BYTE_TO_CODE
 
 #: device capacities that overflowed reads are re-run at (cli.py:482)
 ESCALATION_TIERS = (128, 1024)
+
+
+def read_reads(path: str) -> list[bytes]:
+    with open(path, "rb") as fh:
+        return [l for l in fh.read().split(b"\n") if l]
+
+
+def pack_reads(reads: list[bytes]):
+    """Reads -> (codes [B, L] int32 right-padded with 0, lengths [B] int32)."""
+    L = max(len(r) for r in reads)
+    codes = np.zeros((len(reads), L), np.int32)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+    return codes, lens
+
+
+def resolve_long_seed(arg: int, min_len: int, mer_m: int) -> int:
+    """Long-seed dictionary window (ops/sparsedict.py). -1 = auto:
+    min_len - 1 (step 1 of every MEM call becomes one stepwise extension),
+    capped at 31 (int64 2-bit keys); off when it would not beat the dense
+    tier or min_len is tiny. 0 disables."""
+    if arg == 0:
+        return 0
+    s = min(min_len - 1, 31) if arg == -1 else arg
+    return s if s > max(mer_m, 3) else 0
+
+
+def load_serving(args):
+    print("Reading the rindex file (encoded)", file=sys.stderr)
+    idx = ri.load_file(args.ri)
+    print("Reading the tag array index", file=sys.stderr)
+    tags = tagfmt.load_tags_file(args.tags,
+                                 fmt=getattr(args, "tags_format", "auto"))
+    return idx, tags
 
 
 def _device(name: str) -> torch.device:

@@ -12,8 +12,10 @@
 // a read are looked at; padding is never read.
 //
 // What bounds it: each step is two rank6 row loads that depend on the
-// previous step, so a read is a chain of load latencies, as in K3. The two
-// rows of a step are independent and are issued together (rank.cuh), and
+// previous step, so a read is a chain of load latencies, as in K3. The rows
+// of a step are issued together with the load of the step's code (their
+// addresses need only the range), so a step waits for one round trip, not
+// two; only the counts of the step's own code are computed (rank.cuh), and
 // the reads are independent, so the whole batch is one launch with small
 // blocks to spread the threads over every SM. The rank provider is a
 // template parameter: checkpoint rows or dense records.
@@ -32,31 +34,29 @@ __global__ void count_kernel(Rank rk, const int* __restrict__ Cg,
                              int* __restrict__ second_out) {
   const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (b >= n_reads) return;
-  int C[6];
-#pragma unroll
-  for (int c = 0; c < 6; ++c) C[c] = __ldg(Cg + c);
   const int* read = codes + b * width;
   int first = 0, second = n - 1;
   for (int i = __ldg(lengths + b) - 1; i >= 0; --i) {
+    // the range's rank rows, in flight while the code arrives
+    const typename Rank::Rows rows = rk.load(first, second + 1 - first);
     // a length past the padded width reads code 0 there, as JAX's one-hot
     // select does
     const int c = i < width ? __ldg(read + i) : 0;
-    if (c <= 0 || first > second) {
+    if (c <= 0 || c > 5 || first > second) {
       first = 1;
       second = 0;
       break;
     }
-    int r1[6], r2[6];
-    rk.rank6(first, r1);
-    rk.rank6(second + 1, r2);
-    const int lo = pgt::sel6(r1, c);
-    const int inside = pgt::sel6(r2, c) - lo;
+    const int c_c = __ldg(Cg + c);
+    int lo, inside, unused;
+    rk.counts(rows, first, second + 1 - first, c, pgt::comp_code(c), lo,
+              inside, unused);
     if (inside <= 0) {
       first = 1;
       second = 0;
       break;
     }
-    first = lo + pgt::sel6(C, c);
+    first = lo + c_c;
     second = first + inside - 1;
   }
   first_out[b] = first;
@@ -84,12 +84,12 @@ int launch(const Rank& rk, const int* C, const int* codes, int64_t width,
 extern "C" {
 
 // codes [n_reads, width] int32 (right-padded), lengths [n_reads] int32;
-// checkpoint tables: ckpt [nrows, 16] int32
+// checkpoint tables: ckpt [nrows, 16] int32 bit-plane rows
 int pgt_count_ckpt(const int* ckpt, int64_t nrows, const int* C,
                    const int* codes, int64_t width, const int* lengths,
                    int64_t n_reads, int n, int* first, int* second,
                    void* stream) {
-  pgt::CkptRank rk{reinterpret_cast<const int4*>(ckpt), nrows};
+  pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
   return launch(rk, C, codes, width, lengths, n_reads, n, first, second,
                 stream);
 }

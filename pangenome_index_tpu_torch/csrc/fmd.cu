@@ -5,11 +5,11 @@
 // rank batch were shaped by the TPU's gather issue rate. Each extension is
 // two independent rank6 queries (at k and k+s), i.e. two random row loads,
 // so the kernel is bound by load latency and by how many loads are in
-// flight. The design issues both rows' loads before any arithmetic (two
-// 64-byte checkpoint rows = eight 16-byte loads in flight per thread), keeps
-// the 6-wide rank vectors in registers, and replaces the one-hot matrix math
-// with register selects. The rank provider is a template parameter:
-// checkpoint rows or dense records (rank.cuh).
+// flight. The design issues both rows' loads before any arithmetic and
+// computes only the three counts an extension uses (rank.cuh: on checkpoint
+// tables two masks and four 64-bit popcounts over bit-plane rows, in place
+// of the one-hot matrix math). The rank provider is a template parameter:
+// bit-plane checkpoint rows or dense records (rank.cuh).
 //
 // Used one level at a time to build the m-mer seed table (ops/mertable.py),
 // where a level is up to 4^m lanes, so every thread index is 64-bit.
@@ -31,12 +31,10 @@ __global__ void extend_kernel(Rank rk, const int* __restrict__ Cg,
                               int* __restrict__ os) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  int C[6];
-#pragma unroll
-  for (int c = 0; c < 6; ++c) C[c] = __ldg(Cg + c);
   const bool fwd = forward != nullptr && forward[i] != 0;
+  const int ki = __ldg(k + i), kpi = __ldg(kp + i), si = __ldg(s + i);
   int a, b, z;
-  pgt::extend1(rk, C, __ldg(k + i), __ldg(kp + i), __ldg(s + i),
+  pgt::extend1(rk, rk.load(fwd ? kpi : ki, si), Cg, ki, kpi, si,
                __ldg(code + i), fwd, a, b, z);
   ok[i] = a;
   okp[i] = b;
@@ -62,12 +60,13 @@ int launch(const Rank& rk, const int* C, const int* k, const int* kp,
 
 extern "C" {
 
-// checkpoint tables: ckpt [nrows, 16] int32; forward may be null (all backward)
+// checkpoint tables: ckpt [nrows, 16] int32 bit-plane rows
+// (ops/tables.py:derive_rank_planes); forward may be null (all backward)
 int pgt_extend_ckpt(const int* ckpt, int64_t nrows, const int* C, const int* k,
                     const int* kp, const int* s, const int* code,
                     const uint8_t* forward, int64_t n, int* ok, int* okp,
                     int* os, void* stream) {
-  pgt::CkptRank rk{reinterpret_cast<const int4*>(ckpt), nrows};
+  pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 

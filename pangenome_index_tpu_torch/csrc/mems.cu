@@ -1,5 +1,6 @@
 // K3: MEM finding, the whole per-read state machine in one launch, one
-// thread per read.
+// thread per read; before it, one launch that resolves the seed tiers for
+// every read position.
 //
 // Replaces ops/mems.py:find_mems_impl, which on the TPU ran thousands of reads
 // in lockstep lanes of a lax.while_loop: one extension for every lane per
@@ -9,20 +10,41 @@
 // of algorithm.hpp:653-757) with the loop state in registers; a finished read
 // costs nothing, and the MEM buffers are written once per emitted MEM.
 //
-// What bounds it: every extension is two dependent-on-the-last-step random
-// row loads (rank.cuh), so a read is a chain of load latencies, and the card
-// is kept busy only by having many reads in flight. The design therefore
-// (a) issues both rank rows of a step together, (b) keeps the read's codes
-// and seed rows as plain per-thread loads that stay in L1, and (c) relies on
-// the caller sorting reads by seed difficulty (ops/mertable.py:
-// seed_difficulty), so the 32 reads of a warp have like work and the warp
-// does not idle behind one hard read. The whole sorted batch is one launch.
+// What bounds it (measured on an H100 80GB HBM3 at 700 W, PERF.md): a read
+// is one chain of dependent iterations (615 for the longest bench read), all
+// reads run at once with about one warp to an SM scheduler, so the launch
+// takes the longest chain times the latency of one iteration: every memory
+// round trip that stands between an iteration's start and its end (some
+// 0.3 us from L2, twice that from device memory), plus its ~300 instructions
+// at the 4 to 5 cycles each that a lone warp's dependent chain gets. Bytes
+// and load counts are far from any limit (halving the loads of a step
+// changed nothing). The design therefore keeps round trips off the chain and
+// the loop short:
+// (a) one trip a step: both rank rows are loaded together (one row when both
+//     ends of the interval share it), first thing in the iteration, before
+//     the step's code is decoded; only the three counts the step uses are
+//     computed (rank.cuh: two masks and four 64-bit popcounts over bit-plane
+//     rows, where the nibble rows took some 380 instructions);
+// (b) no trip for a seed: where a read enters step 1 or step 3 depends on the
+//     step before, and a seed looked up there (dictionary row index, then
+//     the row from device memory) put two trips, 1.2 us, into almost every
+//     iteration of a warp. So resolve_seeds_kernel first writes the longest
+//     passing tier (mems.py:87-116: long seed over dense m-mer row, length 0
+//     = none) of every read position, one thread a position, dictionary
+//     first and the m-mer table only where it misses: a pass bound by rate,
+//     not by latency. Every iteration of the MEM kernel then loads the two
+//     rows its step can lead to (an entry after a step at j lands on one of
+//     two neighbouring positions) together with its rank rows, and an entry
+//     finds its seed in registers;
+// (c) the read's codes are kept eight at a time in a register and reloaded
+//     when the position leaves that window;
+// (d) the clearing of the output buffers is left to one coalesced fill by
+//     the caller. The whole batch is one launch of each kernel.
 //
-// Seeds arrive pre-resolved per read position as int4 (k, kp, s, len), len 0
-// meaning no usable seed (mems.py:87-116, done by the wrapper). Outputs:
-// (start << 16) | end, bwt_start and size per slot [B, M] (zero past the
-// count), the exact MEM count per read (it may exceed M), and optionally the
-// number of extension steps each read took.
+// Outputs: (start << 16) | end, bwt_start and size per slot [B, M] (the
+// caller zeroes them; slots past the count stay zero), the exact MEM count
+// per read (it may exceed M), and optionally the number of extension steps
+// each read took.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -30,13 +52,62 @@
 
 namespace {
 
+// v clamped into 0..hi
+__device__ __forceinline__ int clamp_to(int v, int hi) {
+  return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+// Seed tiers, as the JAX engine takes them: the dense table of every m-mer's
+// interval with the per-position keys of the reads, and the sparse long-seed
+// dictionary with the per-position dictionary rows of the reads. A null
+// table switches its tier off.
+struct SeedTiers {
+  const int* mer_table;      // [n_mer, 3] (k, kp, s)
+  int64_t n_mer;
+  const int* mer_keys;       // [B, W]
+  const uint8_t* mer_valid;  // [B, W]
+  int mer_m;
+  const int* sdict_vals;     // [n_dict, 3] (k, kp, s)
+  int64_t n_dict;
+  const int* sdict_idx;      // [B, W], -1 = absent
+  int sdict_m;
+
+  // (k, kp, s, length) of the longest passing tier at flat position `at`
+  // of the per-read arrays; length 0 = no seed
+  __device__ __forceinline__ int4 lookup(int64_t at, int min_occ) const {
+    if (sdict_vals != nullptr) {
+      const int di = __ldg(sdict_idx + at);
+      if (di >= 0) {
+        const int* r = sdict_vals + 3 * pgt::clamp64(di, 0, n_dict - 1);
+        const int size = __ldg(r + 2);
+        if (size >= (min_occ > 1 ? min_occ : 1))
+          return make_int4(__ldg(r), __ldg(r + 1), size, sdict_m);
+      }
+    }
+    if (mer_table != nullptr && __ldg(mer_valid + at) != 0) {
+      const int* r =
+          mer_table + 3 * pgt::clamp64(__ldg(mer_keys + at), 0, n_mer - 1);
+      const int size = __ldg(r + 2);
+      if (size > 0) return make_int4(__ldg(r), __ldg(r + 1), size, mer_m);
+    }
+    return make_int4(0, 0, 0, 0);
+  }
+};
+
+// seeds [n_pos] = (k, kp, s, tier length) of every read position
+__global__ void resolve_seeds_kernel(SeedTiers tiers, int64_t n_pos,
+                                     int min_occ, int4* __restrict__ seeds) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < n_pos) seeds[i] = tiers.lookup(i, min_occ);
+}
+
 template <class Rank>
 __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
                                  const int8_t* __restrict__ codes,
                                  const int* __restrict__ lengths,
                                  const int4* __restrict__ seeds, int n_reads,
-                                 int width, int min_len, int min_occ, int N,
-                                 int M, int64_t max_iters,
+                                 int width, int code_stride, int min_len,
+                                 int min_occ, int N, int M, int64_t max_iters,
                                  int* __restrict__ m_se,
                                  int* __restrict__ m_bwt,
                                  int* __restrict__ m_size,
@@ -44,21 +115,22 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
                                  int* __restrict__ steps_out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= n_reads) return;
-  int C[6];
-#pragma unroll
-  for (int c = 0; c < 6; ++c) C[c] = __ldg(Cg + c);
   const int L = width - 1;  // codes are padded with the NUL column j == L
-  const int8_t* cr = codes + static_cast<int64_t>(b) * width;
+  // the read's resolved seeds, and the two of them loaded ahead: those of
+  // the positions ahead_at and ahead_at + 1 (clamped into the read)
   const int4* sr = seeds ? seeds + static_cast<int64_t>(b) * width : nullptr;
+  int4 ahead_a = make_int4(0, 0, 0, 0), ahead_b = ahead_a;
+  int at_a = -1, at_b = -1;
+  // the read's codes, eight to a 64-bit word (rows are code_stride bytes, a
+  // multiple of 8, zero past the read)
+  const unsigned long long* cr = reinterpret_cast<const unsigned long long*>(
+      codes + static_cast<int64_t>(b) * code_stride);
+  unsigned long long window = 0;
+  int window_at = -1;
   const int len = __ldg(lengths + b);
   int* se_out = m_se + static_cast<int64_t>(b) * M;
   int* bwt_out = m_bwt + static_cast<int64_t>(b) * M;
   int* size_out = m_size + static_cast<int64_t>(b) * M;
-  for (int i = 0; i < M; ++i) {
-    se_out[i] = 0;
-    bwt_out[i] = 0;
-    size_out[i] = 0;
-  }
 
   int phase = 0, x = 0, j = 0, k = 0, kp = 0, s = 0;
   int k2 = 0, kp2 = 0, s2 = 0, cnt = 0, steps = 0;
@@ -75,9 +147,10 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
       s = N;
     }
     if (sr != nullptr && (enter1 || enter3)) {
-      // longest passing seed tier (pre-resolved): skips row.w extensions
-      const int widx = enter1 ? x + min_len - 1 : j;
-      const int4 row = sr[pgt::clamp64(widx, 0, L)];
+      // longest passing seed tier: skips row.w extensions
+      const int widx = clamp_to(enter1 ? x + min_len - 1 : j, L);
+      const int4 row = widx == at_a ? ahead_a
+                                    : (widx == at_b ? ahead_b : __ldg(sr + widx));
       const bool okrow = row.z >= min_occ && row.z > 0 && row.w > 0;
       const bool can1 = enter1 && min_len > row.w && okrow;
       const bool can3 = enter3 && j - row.w > x && okrow;
@@ -93,9 +166,25 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
 
     // --- one extension step (phase 1, 2 or 3) ---
     const bool p1 = phase == 1, p2 = phase == 2, p3 = phase == 3;
-    const int c = cr[pgt::clamp64(j, 0, L)];
+    // the interval's rank rows first: they are the round trip of the step
+    const typename Rank::Rows rows = rk.load(p2 ? kp : k, s);
+    if (sr != nullptr) {
+      // a failed or finished step at j enters step 1 or 3 at j or j + 1
+      // (forward) or at j + min_len - 1 or j + min_len (backward)
+      const int base = p2 ? j : j + min_len - 1;
+      at_a = clamp_to(base, L);
+      at_b = clamp_to(base + 1, L);
+      ahead_a = __ldg(sr + at_a);
+      ahead_b = __ldg(sr + at_b);
+    }
+    const int jc = clamp_to(j, L);
+    if ((jc >> 3) != window_at) {
+      window_at = jc >> 3;
+      window = __ldg(cr + window_at);
+    }
+    const int c = static_cast<int8_t>(window >> (8 * (jc & 7)));
     int nk, nkp, ns;
-    pgt::extend1(rk, C, k, kp, s, c, p2, nk, nkp, ns);
+    pgt::extend1(rk, rows, Cg, k, kp, s, c, p2, nk, nkp, ns);
     ++steps;
     const bool fail = ns < min_occ || ns <= 0;
 
@@ -155,20 +244,23 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
   if (steps_out != nullptr) steps_out[b] = steps;
 }
 
+// reads (threads) per block of the MEM kernel: 32, 64 and 128 take the same
+// time on an H100 (PERF.md)
 constexpr int kThreads = 64;
+constexpr int kResolveThreads = 256;
 
 template <class Rank>
 int launch(const Rank& rk, const int* C, const int8_t* codes,
            const int* lengths, const int4* seeds, int n_reads, int width,
-           int min_len, int min_occ, int N, int M, int64_t max_iters,
-           int* m_se, int* m_bwt, int* m_size, int* count, int* steps,
-           void* stream) {
+           int code_stride, int min_len, int min_occ, int N, int M,
+           int64_t max_iters, int* m_se, int* m_bwt, int* m_size, int* count,
+           int* steps, void* stream) {
   if (n_reads > 0) {
     const unsigned blocks = (n_reads + kThreads - 1) / kThreads;
     find_mems_kernel<Rank><<<blocks, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        rk, C, codes, lengths, seeds, n_reads, width, min_len, min_occ, N, M,
-        max_iters, m_se, m_bwt, m_size, count, steps);
+        rk, C, codes, lengths, seeds, n_reads, width, code_stride, min_len,
+        min_occ, N, M, max_iters, m_se, m_bwt, m_size, count, steps);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -177,29 +269,56 @@ int launch(const Rank& rk, const int* C, const int8_t* codes,
 
 extern "C" {
 
+// The longest passing seed tier of every read position: seeds [n_pos, 4]
+// int32 (k, kp, s, tier length; length 0 = none) from the dense tier
+// (mer_table [n_mer, 3], mer_keys / mer_valid [n_pos]) and the long-seed
+// dictionary (sdict_vals [n_dict, 3], sdict_idx [n_pos]); a null table
+// switches its tier off.
+int pgt_resolve_seeds(const int* mer_table, int64_t n_mer, const int* mer_keys,
+                      const uint8_t* mer_valid, int mer_m,
+                      const int* sdict_vals, int64_t n_dict,
+                      const int* sdict_idx, int sdict_m, int64_t n_pos,
+                      int min_occ, int* seeds, void* stream) {
+  if (n_pos > 0) {
+    const SeedTiers tiers{mer_table,  n_mer,  mer_keys,  mer_valid, mer_m,
+                          sdict_vals, n_dict, sdict_idx, sdict_m};
+    resolve_seeds_kernel<<<static_cast<unsigned>(
+                               (n_pos + kResolveThreads - 1) / kResolveThreads),
+                           kResolveThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+        tiers, n_pos, min_occ, reinterpret_cast<int4*>(seeds));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ckpt: [nrows, 16] int32 bit-plane rows (ops/tables.py:derive_rank_planes).
+// codes: [n_reads, code_stride] int8, code_stride a multiple of 8 and at
+// least width = read length + 1; seeds: [n_reads, width, 4] from
+// pgt_resolve_seeds, or null (no seed tiers).
 int pgt_find_mems_ckpt(const int* ckpt, int64_t nrows, const int* C,
                        const int8_t* codes, const int* lengths,
-                       const int* seeds, int n_reads, int width, int min_len,
-                       int min_occ, int N, int M, int64_t max_iters, int* m_se,
-                       int* m_bwt, int* m_size, int* count, int* steps,
-                       void* stream) {
-  pgt::CkptRank rk{reinterpret_cast<const int4*>(ckpt), nrows};
+                       const int* seeds, int n_reads, int width,
+                       int code_stride, int min_len, int min_occ, int N, int M,
+                       int64_t max_iters, int* m_se, int* m_bwt, int* m_size,
+                       int* count, int* steps, void* stream) {
+  pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
   return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
-                n_reads, width, min_len, min_occ, N, M, max_iters, m_se, m_bwt,
-                m_size, count, steps, stream);
+                n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
+                m_se, m_bwt, m_size, count, steps, stream);
 }
 
 int pgt_find_mems_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
                         int64_t n_runs, const int* C, const int8_t* codes,
                         const int* lengths, const int* seeds, int n_reads,
-                        int width, int min_len, int min_occ, int N, int M,
-                        int64_t max_iters, int* m_se, int* m_bwt, int* m_size,
-                        int* count, int* steps, void* stream) {
+                        int width, int code_stride, int min_len, int min_occ,
+                        int N, int M, int64_t max_iters, int* m_se,
+                        int* m_bwt, int* m_size, int* count, int* steps,
+                        void* stream) {
   pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
                     n_runs};
   return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
-                n_reads, width, min_len, min_occ, N, M, max_iters, m_se, m_bwt,
-                m_size, count, steps, stream);
+                n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
+                m_se, m_bwt, m_size, count, steps, stream);
 }
 
 }  // extern "C"

@@ -1,14 +1,18 @@
-// Rank providers shared by the kernels: rank6(pos) -> occ of each of the six
-// symbol codes in BWT[0, pos).
+// Rank providers shared by the kernels, and the FMD extension built on them.
 //
 // Replaces the rank step of ops/rank.py:_ckpt_rank6 / ckpt_row_rank6 (the
 // serving default, XLA on the TPU) and the dense record fetch of
-// ops/pallas_rank.py:gather_rows_pallas + rank6_pallas (Pallas). Both are one
-// dependent random load per query (64 B checkpoint row, or a 4 B run id and a
-// 32 B record), so on this card they are bound by load latency, not bandwidth
-// or arithmetic. The design issues each row as 16-byte read-only loads, all of
-// one row in flight at once, and keeps every per-symbol count in registers
-// (no dynamically indexed arrays, so nothing spills to local memory).
+// ops/pallas_rank.py:gather_rows_pallas + rank6_pallas (Pallas). A query is
+// a dependent random row load, each thread at its own address, and the
+// kernels that chain extensions (K3, K7) run about one warp to an SM
+// scheduler. Measured on an H100 80GB HBM3 at 700 W (PERF.md), a step of
+// such a chain costs the round trip of its loads (~0.3 us from L2) plus its
+// instructions at the 4 to 5 cycles each that a lone warp's dependent chain
+// gets; the number and width of the loads do not matter. The design therefore asks a provider only for the three
+// numbers one extension uses (counts(), below), never for the whole
+// 6-vector; lays the checkpoint row out so that each count is a mask and a
+// 64-bit popcount; and, when both ends of the interval lie in the same row,
+// loads and decodes that row once.
 //
 // Int32 positions and single-level checkpoint rows only (n < 2^31); the
 // wrappers refuse int64 tables and a two-level ckpt_super.
@@ -35,63 +39,142 @@ __device__ __forceinline__ int sel6(const int (&a)[6], int i) {
 // code-space complement (utils/alphabet.py:COMP_CODE = [0, 5, 3, 2, 4, 1]);
 // codes outside 0..5 give 0, as the one-hot sum does
 __device__ __forceinline__ int comp_code(int c) {
-  switch (c) {
-    case 0: return 0;
-    case 1: return 5;
-    case 2: return 3;
-    case 3: return 2;
-    case 4: return 4;
-    case 5: return 1;
-    default: return 0;
-  }
+  // one hex digit per code, code 0 lowest
+  return static_cast<unsigned>(c) < 6u ? (0x142350 >> (4 * c)) & 7 : 0;
 }
 
-// Checkpoint rows: [nrows, 16] int32, cols 0..5 the occ before the bucket's
-// first position, cols 6..13 its 64 codes as 4-bit nibbles (LSB first, 0xF
-// past n). One 64-byte row = four 16-byte loads; the count of code c among
-// the first (pos & 63) nibbles is SWAR zero-nibble detection plus __popc.
-struct CkptRank {
-  const int4* rows;  // the [nrows, 16] table viewed as [nrows, 4] int4
-  int64_t nrows;
+__device__ __forceinline__ uint64_t u64(int lo, int hi) {
+  return static_cast<uint64_t>(static_cast<uint32_t>(lo)) |
+         (static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32);
+}
 
-  __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
-    const int64_t b = clamp64(static_cast<int64_t>(pos >> 6), 0, nrows - 1);
-    const int4* p = rows + 4 * b;
-    const int4 q0 = __ldg(p), q1 = __ldg(p + 1), q2 = __ldg(p + 2),
-               q3 = __ldg(p + 3);
-    const unsigned words[8] = {
-        static_cast<unsigned>(q1.z), static_cast<unsigned>(q1.w),
-        static_cast<unsigned>(q2.x), static_cast<unsigned>(q2.y),
-        static_cast<unsigned>(q2.z), static_cast<unsigned>(q2.w),
-        static_cast<unsigned>(q3.x), static_cast<unsigned>(q3.y)};
-    r[0] = q0.x; r[1] = q0.y; r[2] = q0.z; r[3] = q0.w; r[4] = q1.x;
-    r[5] = q1.y;
-    const int i = pos & 63;
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      // word w keeps its first clamp(i - 8w, 0, 8) nibbles, the rest -> 0xF
-      int thr = i - 8 * w;
-      thr = thr < 0 ? 0 : (thr > 8 ? 8 : thr);
-      const unsigned mask = thr >= 8 ? 0xFFFFFFFFu : ((1u << (4 * thr)) - 1u);
-      const unsigned m = (words[w] & mask) | ~mask;
-#pragma unroll
-      for (int c = 0; c < 6; ++c) {
-        const unsigned x = m ^ (0x11111111u * static_cast<unsigned>(c));
-        const unsigned nz = (x | (x >> 1) | (x >> 2) | (x >> 3)) & 0x11111111u;
-        r[c] += 8 - __popc(nz);  // 0xF fillers never match a code
-      }
+// What one extension by the code `ext` needs of rank6 at pos and pos + s:
+//   r1  = occ(ext, [0, pos))
+//   d   = occ(ext, [pos, pos + s))
+//   dlt = number of positions in [pos, pos + s) whose code c has
+//         comp(c) < comp(ext): the advance of the reverse interval start
+//         (the exclusive prefix of the comp-permuted delta in ops/fmd.py)
+// A provider gives them in two calls: load(pos, s) issues every load whose
+// address the interval alone decides, so that a caller can have them in
+// flight while it still fetches and decodes the code; counts(...) takes the
+// code (ext in 0..5, qe = comp_code(ext): the callers mask other codes).
+
+// Checkpoint rows as bit planes: ops/tables.py:derive_rank_planes turns each
+// [16] int32 checkpoint row (six occ bases, 64 four-bit codes) into a row of
+// the same 64 bytes for this card:
+//   words 0..5   three 64-bit planes (lo, hi words) of q = comp(code) of the
+//                row's 64 positions, bit i = position i; 7 (all planes set)
+//                past n, so a filler matches no code
+//   words 6..15  the pairs (S[1], S[2]), (S[2], S[3]), (S[3], S[4]),
+//                (S[4], S[5]), (S[5], S[6]), S[j] = number of positions
+//                before the row with q < j (S[0] = 0 is not stored)
+// Storing q instead of the code makes "comp(c) < comp(ext)" a bitwise
+// less-than of the planes against the constant comp(ext), and the occ base of
+// ext the difference S[q + 1] - S[q]; both masks cost a handful of logic
+// operations on 64-bit words, and each count is one __popcll. The pairs are
+// stored overlapping so that S[q] and S[q + 1] come with one aligned 8-byte
+// load: a row is three loads (16 + 8 + 8 bytes of one 64-byte line), the
+// first two of them before the code is known.
+struct CkptRank {
+  const int* rows;  // [nrows, 16] bit-plane rows
+  int last_row;     // nrows - 1 (nrows < 2^31 / 64)
+
+  // the planes of the rows of pos and pos + s (one row when they share it)
+  struct Rows {
+    int row1, row2;
+    int4 a1, a2;
+    int2 b1, b2;
+  };
+
+  __device__ __forceinline__ int row_of(int pos) const {
+    const int r = pos >> 6;
+    return r < 0 ? 0 : (r > last_row ? last_row : r);
+  }
+
+  __device__ __forceinline__ const int* row_ptr(int row) const {
+    return rows + 16 * static_cast<int64_t>(row);
+  }
+
+  __device__ __forceinline__ Rows load(int pos, int s) const {
+    Rows r;
+    r.row1 = row_of(pos);
+    r.row2 = row_of(pos + s);
+    const int* p1 = row_ptr(r.row1);
+    r.a1 = __ldg(reinterpret_cast<const int4*>(p1));
+    r.b1 = __ldg(reinterpret_cast<const int2*>(p1 + 4));
+    if (r.row2 != r.row1) {  // both rows' loads are in flight together
+      const int* p2 = row_ptr(r.row2);
+      r.a2 = __ldg(reinterpret_cast<const int4*>(p2));
+      r.b2 = __ldg(reinterpret_cast<const int2*>(p2 + 4));
+    }
+    return r;
+  }
+
+  // s_lo, s_hi = S[qe], S[qe + 1] of a row
+  __device__ __forceinline__ void below(int row, int qe, int& s_lo,
+                                        int& s_hi) const {
+    const int2 s = __ldg(reinterpret_cast<const int2*>(
+        row_ptr(row) + 6 + 2 * (qe > 0 ? qe - 1 : 0)));
+    s_lo = qe > 0 ? s.x : 0;
+    s_hi = qe > 0 ? s.y : s.x;
+  }
+
+  // positions of a row with q == qe, and with q < qe
+  __device__ __forceinline__ static void masks(const int4& a, const int2& b,
+                                               int qe, uint64_t& eq,
+                                               uint64_t& lt) {
+    const uint64_t p0 = u64(a.x, a.y), p1 = u64(a.z, a.w), p2 = u64(b.x, b.y);
+    const uint64_t c0 = 0ull - (qe & 1), c1 = 0ull - ((qe >> 1) & 1),
+                   c2 = 0ull - ((qe >> 2) & 1);
+    const uint64_t x0 = ~(p0 ^ c0), x1 = ~(p1 ^ c1), x2 = ~(p2 ^ c2);
+    eq = x2 & x1 & x0;
+    lt = (~p2 & c2) | (x2 & ((~p1 & c1) | (x1 & ~p0 & c0)));
+  }
+
+  __device__ __forceinline__ void counts(const Rows& r, int pos, int s, int,
+                                         int qe, int& r1, int& d,
+                                         int& dlt) const {
+    const int pos2 = pos + s;
+    const uint64_t m1 = (1ull << (pos & 63)) - 1, m2 = (1ull << (pos2 & 63)) - 1;
+    int lo1, hi1;
+    uint64_t eq1, lt1;
+    below(r.row1, qe, lo1, hi1);
+    if (r.row2 != r.row1) {
+      int lo2, hi2;
+      uint64_t eq2, lt2;
+      below(r.row2, qe, lo2, hi2);
+      masks(r.a1, r.b1, qe, eq1, lt1);
+      masks(r.a2, r.b2, qe, eq2, lt2);
+      r1 = hi1 - lo1 + __popcll(eq1 & m1);
+      d = hi2 - lo2 + __popcll(eq2 & m2) - r1;
+      dlt = lo2 + __popcll(lt2 & m2) - lo1 - __popcll(lt1 & m1);
+    } else {
+      // both ends in one row (most steps of a chain: intervals are small):
+      // one row decoded, the counts of the range taken with one mask. For an
+      // s < 0 the range is empty and d = 0 where the difference would be
+      // negative; the callers read both as a failed extension.
+      masks(r.a1, r.b1, qe, eq1, lt1);
+      const uint64_t range = m2 & ~m1;
+      r1 = hi1 - lo1 + __popcll(eq1 & m1);
+      d = __popcll(eq1 & range);
+      dlt = __popcll(lt1 & range);
     }
   }
 };
 
 // Dense records: pos_to_run [n+2] int32 and rec [r, 8] int32 rows
 // (start, sym, cum0..cum5). One run-id load, then one 32-byte record as two
-// 16-byte loads; rank6 = cum + onehot(sym) * (pos - start).
+// 16-byte loads; rank6 = cum + onehot(sym) * (pos - start). No load depends
+// on the code.
 struct DenseRank {
   const int* pos_to_run;
   int64_t n_p2r;
   const int4* rec;  // [r, 8] viewed as [r, 2] int4
   int64_t n_runs;
+
+  struct Rows {
+    int a[6], b[6];  // rank6 at pos and at pos + s
+  };
 
   __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
     const int64_t p = clamp64(pos, 0, n_p2r - 1);
@@ -102,42 +185,54 @@ struct DenseRank {
 #pragma unroll
     for (int c = 0; c < 6; ++c) r[c] += (a.y == c) ? extra : 0;
   }
+
+  __device__ __forceinline__ Rows load(int pos, int s) const {
+    Rows r;
+    rank6(pos, r.a);
+    rank6(pos + s, r.b);
+    return r;
+  }
+
+  __device__ __forceinline__ void counts(const Rows& r, int, int, int ext,
+                                         int qe, int& r1, int& d,
+                                         int& dlt) const {
+    r1 = sel6(r.a, ext);
+    d = sel6(r.b, ext) - r1;
+    dlt = 0;
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      dlt += comp_code(c) < qe ? r.b[c] - r.a[c] : 0;
+  }
 };
 
 // One bidirectional FMD extension (ops/fmd.py:extend) of the interval
 // (k, kp, s) by `code`; forward lanes swap k/kp and complement the code.
-// Failed extensions (s' <= 0) give (0, 0, 0).
+// Failed extensions (s' <= 0) and codes outside 0..5 give (0, 0, 0).
+// `rows` = rk.load(forward ? kp : k, s), issued by the caller as early as it
+// knows the interval; Cg: the index's C array (exclusive prefix counts per
+// code) in global memory.
 template <class Rank>
-__device__ __forceinline__ void extend1(const Rank& rk, const int (&C)[6],
-                                        int k, int kp, int s, int code,
-                                        bool forward, int& ok, int& okp,
-                                        int& os) {
-  const int comp_c = comp_code(code);
-  const int ext = forward ? comp_c : code;
-  const int comp_ext = forward ? code : comp_c;
+__device__ __forceinline__ void extend1(const Rank& rk,
+                                        const typename Rank::Rows& rows,
+                                        const int* __restrict__ Cg, int k,
+                                        int kp, int s, int code, bool forward,
+                                        int& ok, int& okp, int& os) {
+  // ext = forward ? comp(code) : code, qe = comp(ext); a code outside 0..5
+  // complements to 0 and, going backward, matches nothing
+  const bool valid = static_cast<unsigned>(code) < 6u;
+  const int cv = valid ? code : 0, cc = comp_code(code);
+  const int ext = forward ? cc : cv, qe = forward ? cv : cc;
+  const bool known = forward || valid;
   const int bk = forward ? kp : k;
   const int bkp = forward ? k : kp;
-  int r1[6], r2[6];
-  rk.rank6(bk, r1);
-  rk.rank6(bk + s, r2);
-  int delta[6];
-#pragma unroll
-  for (int c = 0; c < 6; ++c) delta[c] = r2[c] - r1[c];
-  // exclusive prefix of the comp-permuted delta, read at column comp_ext
-  int acc = 0, run = 0;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-    acc = (i == comp_ext) ? run : acc;
-    run += sel6(delta, comp_code(i));
-  }
-  const int ns = sel6(delta, ext);
-  const int nk = sel6(r1, ext) + sel6(C, ext);
-  const int nkp = bkp + acc;
-  const bool good = ns > 0;
-  const int gk = good ? nk : 0, gkp = good ? nkp : 0;
+  const int c_e = __ldg(Cg + ext);
+  int r1, d, dlt;
+  rk.counts(rows, bk, s, ext, qe, r1, d, dlt);
+  const bool good = known && d > 0;
+  const int gk = good ? r1 + c_e : 0, gkp = good ? bkp + dlt : 0;
   ok = forward ? gkp : gk;
   okp = forward ? gk : gkp;
-  os = good ? ns : 0;
+  os = good ? d : 0;
 }
 
 }  // namespace pgt

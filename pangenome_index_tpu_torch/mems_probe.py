@@ -1,0 +1,169 @@
+"""Where the MEM kernel's (K3) time goes on one CUDA card: the bench
+workload of chip_smoke.py through find_mems with parts of the work taken
+away, one JSON line per configuration.
+
+    python -m pangenome_index_tpu_torch.mems_probe
+
+The workload (bench_workload, which chip_smoke.py drives too): the 20 Mbp
+synthetic pangenome (8 haplotypes), 16384 reads of 150 bp with 1% errors,
+min_len 20, min_occ 1, m=14 seed table, s=19 dictionary, MEM capacity 8,
+reads sorted by seed difficulty (serve.prepare).
+Configurations: the seed tiers (both, either, none: without seeds a read
+takes more steps, each without a lookup); the hardest and the easiest N
+reads alone (fewer warps on an SM: a kernel bound by the latency of its
+longest chain keeps its time, one bound by a rate gets faster); the reads
+unsorted; and backward search (K7) on N reads. Times are the kernels' device
+times from torch.profiler, each the mean of three launches; every line
+carries the card's name and power limit. The last lines count the SASS
+instructions of the MEM and count kernels (cuobjdump; a line says so where
+the toolkit lacks it): a chain's step costs its instructions one after the
+other.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from . import _build, gather_probe
+from .ops.count import count
+from .ops.mems import find_mems
+from .serve import prepare
+from .utils import synth
+from .utils.alphabet import BYTE_TO_CODE
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BASE_LEN, N_HAPS, SNP_RATE, INDEX_SEED = 2_500_000, 8, 0.002, 3
+N_READS, READ_LEN, READ_ERRORS, READ_SEED = 16384, 150, 0.01, 1
+MIN_LEN, MIN_OCC, MER_M, SDICT_S, MEM_CAP = 20, 1, 14, 19, 8
+PER_READ = ("mer_keys", "mer_valid", "sdict_idx")
+TIERS = {"both": None, "dictionary only": ("sdict_vals", "sdict_idx", "sdict_m"),
+         "m-mer table only": ("mer_table", "mer_keys", "mer_valid", "mer_m"),
+         "none": ()}
+
+
+def bench_workload(cache: str):
+    """The bench workload, built once and cached under `cache`: (index, its
+    text lines, the reads as bytes, their codes [N_READS, READ_LEN] and
+    lengths [N_READS] as int32, the tag array, the stem of the index's files
+    and caches under `cache`)."""
+    idx, lines = synth.build_synth_index(BASE_LEN, N_HAPS, snp_rate=SNP_RATE,
+                                         seed=INDEX_SEED, cache_dir=cache)
+    reads = synth.synth_reads(lines, N_READS, READ_LEN, error_rate=READ_ERRORS,
+                              seed=READ_SEED)
+    codes = BYTE_TO_CODE[np.frombuffer(b"".join(reads), np.uint8)]
+    codes = codes.reshape(N_READS, READ_LEN).astype(np.int32)
+    lens = np.full(N_READS, READ_LEN, np.int32)
+    tags = synth.synth_tag_array(idx, cache_dir=cache)
+    stem = os.path.join(cache, f"bench_{BASE_LEN}_{N_HAPS}_{INDEX_SEED}")
+    return idx, lines, reads, codes, lens, tags, stem
+
+
+def device_ms(fn, *kernels: str, reps: int = 3):
+    """(mean device ms over reps calls of fn() of each kernel whose name
+    holds one of `kernels`, the last call's result)."""
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            out = fn()
+        torch.cuda.synchronize()
+    ms = []
+    for kernel in kernels:
+        evs = [ev for ev in prof.key_averages() if kernel in ev.key]
+        if len(evs) != 1 or evs[0].count != reps:
+            raise RuntimeError(f"the profiler saw no {kernel} launches")
+        ms.append(evs[0].device_time_total / reps / 1e3)
+    return ms, out
+
+
+def sass_instructions() -> dict[str, int] | None:
+    """SASS instructions of every find_mems, resolve_seeds and count kernel
+    in the built library, by (demangled-enough) kernel name; None where the
+    toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True,
+                         text=True, check=True, timeout=300).stdout
+    counts, name = collections.Counter(), None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"\d+(find_mems_kernel|resolve_seeds_kernel|count_kernel)"
+                          r"(?:IN3pgt\d+(\w+?Rank))?", m.group(1))
+            name = None if k is None else \
+                k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+        elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
+            counts[name] += 1
+    return dict(counts)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("mems_probe: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    card = gather_probe.card_name(dev)
+    cache = os.path.join(REPO, ".bench_cache")
+    idx, lines, _, codes, lens, tags, stem = bench_workload(cache)
+    bt = prepare(idx, tags, codes, lens, dev, min_occ=MIN_OCC, mer_m=MER_M,
+                 sdict_s=SDICT_S, sdict_path=f"{stem}.ri.sdict{SDICT_S}.npz")
+
+    def k3(what, sel, tiers="both", order=None):
+        pick = (lambda a: a[sel].contiguous()) if order is None else \
+            (lambda a: a[order][sel].contiguous())
+        keep = TIERS[tiers]
+        kw = {k: (pick(v) if k in PER_READ else v) for k, v in bt.seed_kw.items()
+              if keep is None or k in keep}
+        c, n = pick(bt.codes), pick(bt.lengths)
+        (ms,), (_, stats) = device_ms(
+            lambda: find_mems(bt.tables, c, n, MIN_LEN, MIN_OCC, capacity=MEM_CAP,
+                              with_stats=True, **kw), "find_mems_kernel")
+        steps = stats["steps"]
+        print(json.dumps({
+            "kernel": "find_mems", "reads": what, "n_reads": int(c.shape[0]),
+            "seed_tiers": tiers, "ms": ms, "max_steps": int(steps.max()),
+            "mean_steps": float(steps.float().mean()),
+            "us_per_step_of_longest": ms * 1e3 / int(steps.max()), "card": card}),
+            flush=True)
+
+    whole = slice(None)
+    for tiers in TIERS:
+        k3("all, sorted", whole, tiers)
+    for n in (512, 2048, 8192):
+        k3(f"hardest {n}", slice(N_READS - n, N_READS))
+    k3("easiest 8192", slice(0, 8192))
+    k3("all, input order", whole, order=torch.argsort(bt.order))
+    k3("hardest 2048, no seeds", slice(N_READS - 2048, N_READS), "none")
+
+    # backward search of reads that occur (error-free), so every read takes
+    # all its steps
+    exact = synth.synth_reads(lines, N_READS, READ_LEN, error_rate=0.0, seed=2)
+    qc = BYTE_TO_CODE[np.frombuffer(b"".join(exact), np.uint8)]
+    qc = torch.from_numpy(qc.reshape(N_READS, READ_LEN).astype(np.int32)).to(dev)
+    ql = torch.from_numpy(lens).to(dev)
+    for n in (2048, 8192, N_READS):
+        (ms,), _ = device_ms(lambda: count(bt.tables, qc[:n], ql[:n]), "count_kernel")
+        print(json.dumps({"kernel": "count", "n_reads": n, "ms": ms,
+                          "us_per_step": ms * 1e3 / READ_LEN, "card": card}), flush=True)
+    sass = sass_instructions()
+    if sass is None:
+        print(json.dumps({"sass_instructions": "skipped: no cuobjdump found"}),
+              flush=True)
+    for name, n in sorted((sass or {}).items()):
+        print(json.dumps({"kernel": name, "sass_instructions": n}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

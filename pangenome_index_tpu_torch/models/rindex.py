@@ -1,0 +1,172 @@
+"""Host-side r-index model: flat per-run tables and numpy queries.
+
+The port's copy of pangenome_index_tpu/models/rindex.py, cut to what the
+port uses: the RIndex tables with rank, LF, count and FMD extension, and
+construction from a run-length BWT whose suffix array is known (the path
+utils/synth.py takes). Same fields, dtypes and values as the JAX package's
+RIndex, so either package's index serves the other's functions.
+
+    run_sym[r]     int8  dense code of each logical run
+    run_start[r]   i64   BWT offset of the run head
+    cum[r, 6]      i64   occ counts of every code before the run head
+    C[7]           i64   exclusive prefix counts per code over the whole BWT
+    samples[r]     i64   packed (seq_id, seq_offset) SA sample at each run head
+    last_sorted[r] i64   sorted packed text positions of run tails
+    last_to_run[r] i64   run id of each sorted tail
+
+Every endmarker occurrence is its own logical run; samples are packed as
+seq_id * max_len + offset.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+from ..formats.rlbwt import RLBWT
+from ..utils.alphabet import (BYTE_TO_CODE, COMP_CODE, KP_WEIGHT, NUC, SIGMA)
+
+
+@dataclass
+class RIndex:
+    run_sym: np.ndarray      # int8 [r]
+    run_start: np.ndarray    # int64 [r]
+    run_len: np.ndarray      # int64 [r]
+    cum: np.ndarray          # int64 [r, 6]
+    C: np.ndarray            # int64 [7]
+    n: int                   # BWT size (total text length incl endmarkers)
+    n_seq: int
+    max_len: int             # longest sequence length incl endmarker
+    samples: np.ndarray      # int64 [r]
+    last_sorted: np.ndarray  # int64 [r]
+    last_to_run: np.ndarray  # int64 [r]
+    # full SA (kept when built with keep_sa=True): per BWT row, the sequence
+    # id and the suffix start offset within that sequence
+    sa_seq: np.ndarray | None = None
+    sa_pos: np.ndarray | None = None
+    seq_lengths: np.ndarray | None = None
+
+    @property
+    def n_runs(self) -> int:
+        return len(self.run_sym)
+
+    # --------------------------------------------------------------- rank
+    def run_of(self, pos):
+        """Run id containing BWT position pos (pos == n maps to last run)."""
+        return np.searchsorted(self.run_start, pos, side="right") - 1
+
+    def rank(self, pos, code):
+        """occ(code, [0, pos))."""
+        j = self.run_of(pos)
+        extra = np.where(self.run_sym[j] == code, pos - self.run_start[j], 0)
+        return self.cum[j, code] + extra
+
+    def rank6(self, pos):
+        """All-symbol rank vector at pos."""
+        pos = np.asarray(pos)
+        j = self.run_of(pos)
+        out = self.cum[j].copy()
+        sym = self.run_sym[j]
+        out[..., :] += (np.arange(SIGMA) == sym[..., None]) \
+            * (pos - self.run_start[j])[..., None]
+        return out
+
+    # ----------------------------------------------------------------- LF
+    def lf_range(self, first, second, code):
+        """LF mapping of a range for one symbol; the empty sentinel (1, 0)
+        when the symbol is the endmarker/unknown (code 0) or the range is or
+        becomes empty."""
+        if code == 0 or first > second:
+            return (1, 0)
+        lo = int(self.rank(first, code))
+        inside = int(self.rank(second + 1, code)) - lo
+        if inside == 0:
+            return (1, 0)
+        start = lo + int(self.C[code])
+        return (start, start + inside - 1)
+
+    def count(self, pattern: bytes):
+        """Backward search; returns the BWT range."""
+        rng = (0, self.n - 1)
+        for b in reversed(pattern):
+            rng = self.lf_range(rng[0], rng[1], int(BYTE_TO_CODE[b]))
+        return rng
+
+    # ----------------------------------------------------------------- FMD
+    def backward_extend(self, bint, code):
+        """FMD backward extension of the bi-interval (k, kp, s)."""
+        k, kp, s = bint
+        r_ks = self.rank6(k + s)
+        r_k = self.rank6(k)
+        delta = r_ks - r_k
+        kp = kp + int((KP_WEIGHT[code] * delta).sum())
+        if r_k[code] >= r_ks[code]:
+            return (0, 0, 0)
+        return (int(r_k[code] + self.C[code]), int(kp), int(delta[code]))
+
+    def forward_extend(self, bint, code):
+        k, kp, s = bint
+        t = self.backward_extend((kp, k, s), int(COMP_CODE[code]))
+        return (t[1], t[0], t[2])
+
+
+def build_rindex_from_sa(rlbwt: RLBWT, seq_of_row: np.ndarray,
+                         pos_of_row: np.ndarray, seq_lengths: np.ndarray,
+                         keep_sa: bool = False) -> RIndex:
+    """Construct the r-index from a run-length BWT and its suffix array
+    (per BWT row: sequence id and suffix start offset; per sequence: length
+    incl. endmarker)."""
+    syms = BYTE_TO_CODE[rlbwt.syms].astype(np.int8)
+    freqs = rlbwt.freqs.astype(np.int64)
+    bad = ~np.isin(rlbwt.syms, NUC)
+    if bad.any():
+        vals = sorted(set(int(b) for b in rlbwt.syms[bad]))[:10]
+        raise ValueError(
+            f"BWT contains bytes outside the {{\\n,A,C,G,N,T}} alphabet: {vals}")
+
+    # split endmarker runs into unit runs
+    is_end = syms == 0
+    reps = np.where(is_end, freqs, 1)
+    run_sym = np.repeat(syms, reps)
+    run_len = np.where(np.repeat(is_end, reps), 1, np.repeat(freqs, reps))
+    r = run_sym.size
+    run_start = np.zeros(r, dtype=np.int64)
+    np.cumsum(run_len[:-1], out=run_start[1:])
+    n = int(run_len.sum())
+
+    # per-code totals and exclusive prefix C over the full 6-code space
+    totals = np.zeros(SIGMA, dtype=np.int64)
+    np.add.at(totals, run_sym.astype(np.int64), run_len)
+    C = np.zeros(SIGMA + 1, dtype=np.int64)
+    np.cumsum(totals, out=C[1:])
+
+    # per-run cumulative occ before the run head
+    cum = np.zeros((r, SIGMA), dtype=np.int64)
+    contrib = np.zeros((r, SIGMA), dtype=np.int64)
+    contrib[np.arange(r), run_sym.astype(np.int64)] = run_len
+    np.cumsum(contrib[:-1], axis=0, out=cum[1:])
+
+    n_seq = int(totals[0])
+    if n_seq == 0:
+        raise ValueError("BWT contains no endmarkers")
+
+    # the caller's dtype is kept (the native SA-IS hands int32 below 2^31);
+    # packing upcasts on the r-sized slice
+    seq_of_row, pos_of_row = np.asarray(seq_of_row), np.asarray(pos_of_row)
+    seq_len = np.asarray(seq_lengths, np.int64)
+    max_len = int(seq_len.max())
+
+    def packed_at(rows):
+        return seq_of_row[rows].astype(np.int64) * max_len + pos_of_row[rows]
+
+    tail_packed = packed_at(run_start + run_len - 1)
+    order = np.argsort(tail_packed, kind="stable")
+    idx = RIndex(
+        run_sym=run_sym, run_start=run_start, run_len=run_len, cum=cum,
+        C=C, n=n, n_seq=n_seq, max_len=max_len,
+        samples=packed_at(run_start), last_sorted=tail_packed[order],
+        last_to_run=order.astype(np.int64))
+    if keep_sa:
+        idx.sa_seq, idx.sa_pos, idx.seq_lengths = seq_of_row, pos_of_row, seq_len
+    return idx

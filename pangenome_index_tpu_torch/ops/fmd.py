@@ -6,7 +6,8 @@ r = rank6 at the backward interval start bk and at bk + s:
     kp' = bkp + exclusive-prefix(delta[COMP_CODE])[comp(c)]
 Forward lanes swap k/kp and complement the code; failed lanes (s' <= 0)
 return (0, 0, 0). The rank provider is the table's checkpoint rows when
-present, else its dense records (ops/rank.py:rank6).
+present, else its dense records (ops/rank.py:rank6); the kernel reads the
+checkpoint rows in their bit-plane form (tables.ckpt_planes).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..host import COMP_CODE
+from ..utils.alphabet import COMP_CODE
 from .rank import rank6 as rank6_plain
 from .tables import RIndexTables
 
@@ -57,14 +58,17 @@ def check_kernel_tables(t: RIndexTables) -> None:
                          "not a two-level ckpt_super layout")
     if t.ckpt is None and t.rec is None:
         raise ValueError("tables carry neither checkpoint rows nor dense records")
+    if t.ckpt is not None and t.ckpt_planes is None:
+        raise ValueError("checkpoint tables lack ckpt_planes "
+                         "(ops/tables.py:derive_rank_planes)")
 
 
 def rank_args(t: RIndexTables) -> tuple[str, tuple]:
     """(provider suffix, leading C arguments) of the table's rank provider."""
     dev = t.device
     if t.ckpt is not None:
-        return "ckpt", (_build.check("ckpt", t.ckpt, torch.int32, dev),
-                        t.ckpt.shape[0])
+        return "ckpt", (_build.check("ckpt_planes", t.ckpt_planes, torch.int32,
+                                     dev), t.ckpt_planes.shape[0])
     return "dense", (_build.check("pos_to_run", t.pos_to_run, torch.int32, dev),
                      t.pos_to_run.shape[0],
                      _build.check("rec", t.rec, torch.int32, dev),

@@ -1,4 +1,5 @@
-"""K3: batched MEM finding (csrc/mems.cu), one thread per read.
+"""K3: batched MEM finding (csrc/mems.cu), one thread per read, after one
+pass that resolves the seed tiers of every read position.
 
 Counterpart of pangenome_index_tpu/ops/mems.py:find_mems_impl. The per-read
 algorithm is the same state machine (phases 0..5, the three steps of the
@@ -8,10 +9,12 @@ reads in lockstep with one-hot selects for every per-lane read; the kernel
 runs each read in its own thread with its state in registers, and the plain
 version below keeps the lockstep form with direct indexing.
 
-Seed tiers are resolved once per read position before the loop
-(mems.py:87-116): the dense m-mer table row, overridden by the long-seed
-dictionary row where that passes; per position the tier's length is kept,
-0 meaning no seed.
+Seed tiers follow mems.py:87-116: at a read position the dense m-mer table
+row, overridden by the long-seed dictionary row where that passes; the
+tier's length goes with it, 0 meaning no seed. They are resolved for every
+read position before the loop (resolve_seeds: on the card one launch of its
+own kernel, one thread a position), so that the MEM kernel finds a seed with
+one load, which it issues an iteration ahead.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .dense_rank import gather_rows, gather_rows_plain
+from .dense_rank import gather_rows_plain
 from .fmd import check_kernel_tables, extend_plain, rank_args
 from .tables import RIndexTables
 
@@ -35,13 +38,14 @@ class MemResult(NamedTuple):
     overflow: torch.Tensor   # [B] bool: count exceeded capacity M
 
 
-def resolve_seeds(B: int, W: int, min_occ: int, gather, mer_table=None,
-                  mer_keys=None, mer_valid=None, mer_m: int = 0,
-                  sdict_vals=None, sdict_idx=None, sdict_m: int = 0):
+def resolve_seeds_plain(B: int, W: int, min_occ: int, mer_table=None,
+                        mer_keys=None, mer_valid=None, mer_m: int = 0,
+                        sdict_vals=None, sdict_idx=None, sdict_m: int = 0):
     """Per read position (k, kp, s, tier length) as int32 [B, W, 4], or None
-    without seed tiers. `gather(table, idx)` fetches table rows."""
+    without seed tiers."""
     if mer_table is None and sdict_vals is None:
         return None
+    gather = gather_rows_plain
     dev = (mer_table if mer_table is not None else sdict_vals).device
     seeds = torch.zeros((B, W, 4), dtype=torch.int32, device=dev)
     if mer_table is not None:
@@ -58,13 +62,60 @@ def resolve_seeds(B: int, W: int, min_occ: int, gather, mer_table=None,
     return seeds
 
 
-def _prepare(codes, gather, min_occ, seed_kw):
-    B, L = codes.shape
+def resolve_seeds(B: int, W: int, min_occ: int, mer_table=None, mer_keys=None,
+                  mer_valid=None, mer_m: int = 0, sdict_vals=None,
+                  sdict_idx=None, sdict_m: int = 0):
+    """Per read position (k, kp, s, tier length) as int32 [B, W, 4], or None
+    without seed tiers: mer_table [4^m, 3] with mer_keys / mer_valid [B, W],
+    sdict_vals [D, 3] with sdict_idx [B, W] (-1 = absent). On the
+    card one launch, one thread a position, the dictionary first and the
+    m-mer table only where it misses (int32 tables); on the CPU the plain
+    version."""
+    if mer_table is None and sdict_vals is None:
+        return None
+    dev = (mer_table if mer_table is not None else sdict_vals).device
+    if dev.type == "cpu":
+        return resolve_seeds_plain(B, W, min_occ, mer_table, mer_keys, mer_valid,
+                                   mer_m, sdict_vals, sdict_idx, sdict_m)
+
+    def per_read(name, a, dtype):
+        if tuple(a.shape) != (B, W):
+            raise ValueError(f"{name}: expected shape {(B, W)}, got {tuple(a.shape)}")
+        return _build.check(name, a, dtype, dev)
+
+    def table(name, a):
+        if a.dim() != 2 or a.shape[1] != 3 or a.shape[0] == 0:
+            raise ValueError(f"{name}: expected [rows > 0, 3]")
+        return _build.check(name, a, torch.int32, dev), a.shape[0]
+
+    mer = (None, 0, None, None, 0)
+    if mer_table is not None:
+        mer = (*table("mer_table", mer_table),
+               per_read("mer_keys", mer_keys, torch.int32),
+               per_read("mer_valid", mer_valid, torch.bool), int(mer_m))
+    sdict = (None, 0, None, 0)
+    if sdict_vals is not None:
+        sdict = (*table("sdict_vals", sdict_vals),
+                 per_read("sdict_idx", sdict_idx, torch.int32), int(sdict_m))
+    seeds = torch.empty((B, W, 4), dtype=torch.int32, device=dev)
+    _build.launch("pgt_resolve_seeds", *mer, *sdict, B * W, int(min_occ),
+                  seeds.data_ptr(), _build.stream(dev))
+    resolve_seeds.launches += 1
+    return seeds
+
+
+resolve_seeds.launches = 0
+
+
+def _prepare(codes, align: int = 1):
+    """(codes as int8 with the NUL pad column, rows padded to a multiple of
+    `align` columns; the loop's iteration bound)."""
+    L = codes.shape[1]
     if L >= 0xFFFF:  # (start, end) pack into one int32, 16 bits each
         raise ValueError(f"read length {L} exceeds the 65534 engine limit")
-    padded = torch.nn.functional.pad(codes.to(torch.int8), (0, 1))  # NUL column
-    seeds = resolve_seeds(B, L + 1, min_occ, gather, **seed_kw)
-    return padded, seeds, 4 * (L + 1) * (L + 1) + 64
+    width = -(-(L + 1) // align) * align
+    padded = torch.nn.functional.pad(codes.to(torch.int8), (0, width - L))
+    return padded, 4 * (L + 1) * (L + 1) + 64
 
 
 def _result(t, se, bwt, size, cnt, steps, capacity, with_stats):
@@ -78,32 +129,33 @@ def find_mems(t: RIndexTables, codes, lengths, min_len: int, min_occ: int,
               capacity: int = 32, with_stats: bool = False, **seed_kw):
     """codes [B, L] alphabet codes (0-padded), lengths [B]. Seed tiers as in
     the JAX engine: mer_table/mer_keys/mer_valid/mer_m and
-    sdict_vals/sdict_idx/sdict_m. Returns MemResult, with with_stats also
+    sdict_vals/sdict_idx/sdict_m (shapes: resolve_seeds).
+    Returns MemResult, with with_stats also
     {"steps": [B] extension steps per read} - their sum is the JAX engine's
     with_stats "steps". The JAX "iters" counts lockstep iterations of the
     whole batch and has no counterpart here.
 
-    On the card: one launch of the kernel over the whole batch (int32 tables,
-    codes and lengths); on the CPU: the plain version."""
+    On the card: resolve_seeds, then one launch of the kernel over the whole
+    batch (int32 tables, codes and lengths); on the CPU: the plain version."""
     if codes.device.type == "cpu":
         return find_mems_plain(t, codes, lengths, min_len, min_occ, capacity,
                                with_stats, **seed_kw)
     check_kernel_tables(t)
     dev = t.device
-    padded, seeds, max_iters = _prepare(codes, gather_rows, min_occ, seed_kw)
-    B, W = padded.shape
+    padded, max_iters = _prepare(codes, align=8)  # the kernel reads 8 codes a load
+    B, W = codes.shape[0], codes.shape[1] + 1
     kind, rargs = rank_args(t)
-    se, bwt, size = (torch.empty((B, capacity), dtype=torch.int32, device=dev)
-                     for _ in range(3))
+    seeds = resolve_seeds(B, W, min_occ, **seed_kw)
+    se, bwt, size = torch.zeros((3, B, capacity), dtype=torch.int32, device=dev)
     cnt = torch.empty(B, dtype=torch.int32, device=dev)
     steps = torch.empty(B, dtype=torch.int32, device=dev) if with_stats else None
     _build.launch(
         f"pgt_find_mems_{kind}", *rargs,
         _build.check("C", t.C, torch.int32, dev), padded.data_ptr(),
         _build.check("lengths", lengths, torch.int32, dev),
-        None if seeds is None else seeds.data_ptr(), B, W, int(min_len),
-        int(min_occ), t.n, capacity, max_iters, se.data_ptr(), bwt.data_ptr(),
-        size.data_ptr(), cnt.data_ptr(),
+        None if seeds is None else seeds.data_ptr(), B, W, padded.shape[1],
+        int(min_len), int(min_occ), t.n, capacity, max_iters, se.data_ptr(),
+        bwt.data_ptr(), size.data_ptr(), cnt.data_ptr(),
         None if steps is None else steps.data_ptr(), _build.stream(dev))
     find_mems.launches += 1
     return _result(t, se, bwt, size, cnt, steps, capacity, with_stats)
@@ -117,9 +169,9 @@ def find_mems_plain(t: RIndexTables, codes, lengths, min_len: int,
                     **seed_kw):
     """The plain version: all reads in lockstep, one extension per active
     read per iteration, per-read table reads by direct indexing."""
-    padded, seeds, max_iters = _prepare(codes, gather_rows_plain, min_occ,
-                                        seed_kw)
+    padded, max_iters = _prepare(codes)
     B, W = padded.shape
+    seeds = resolve_seeds_plain(B, W, min_occ, **seed_kw)
     L = W - 1
     dev = padded.device
     M = capacity

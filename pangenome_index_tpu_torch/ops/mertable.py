@@ -11,17 +11,25 @@ stay (0, 0, 0), so the table equals the host build_mer_table.
 get_mer_table reads and writes the JAX package's npz cache of the table
 (same content key, same 1 GB cap on cached tables); it has no step-down of
 m and no host build when a device build fails, so a kernel failure raises.
+
+The host side is the port's copy of the numpy parts of
+pangenome_index_tpu/ops/mertable.py: build_mer_table (the exact reference
+of the device build), mer_table_key (the cache's content key) and
+read_mer_keys_fast (per-position keys of a read batch, native pass).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import sys
 
 import numpy as np
 import torch
 
-from ..host import mer_table_key, read_mer_keys_fast  # noqa: F401
+from .. import native
+from ..utils.alphabet import BASE_CODES, KP_WEIGHT
+from .dense_rank import gather_rows
 from .fmd import extend
 from .tables import RIndexTables
 
@@ -29,6 +37,58 @@ from .tables import RIndexTables
 #: device-to-host fetch and the disk round trip cost more than the build
 #: (pangenome_index_tpu/ops/mertable.py:285-292)
 CACHE_MAX_BYTES = 1 << 30
+
+
+def _batched_backward_extend(idx, k, kp, s, code: int):
+    r_k = idx.rank6(k)
+    r_ks = idx.rank6(k + s)
+    delta = r_ks - r_k
+    kp2 = kp + (KP_WEIGHT[code][None, :] * delta).sum(axis=1)
+    s2 = delta[:, code]
+    k2 = r_k[:, code] + idx.C[code]
+    ok = s2 > 0
+    return np.where(ok, k2, 0), np.where(ok, kp2, 0), np.where(ok, s2, 0)
+
+
+def build_mer_table(idx, m: int) -> np.ndarray:
+    """Host build: [4^m, 3] int64 array of (k, kp, s) for every m-mer, keyed
+    by the 2-bit pack with the leftmost character in the highest bits."""
+    k = np.zeros(1, dtype=np.int64)
+    kp = np.zeros(1, dtype=np.int64)
+    s = np.full(1, idx.n, dtype=np.int64)
+    # right to left: level t holds the intervals of all length-t suffixes,
+    # keyed by their 2-bit pack (leftmost char of the suffix in high bits)
+    for t in range(m):
+        size = 4**t
+        nk = np.empty(4 * size, dtype=np.int64)
+        nkp = np.empty(4 * size, dtype=np.int64)
+        ns = np.empty(4 * size, dtype=np.int64)
+        for b, code in enumerate(BASE_CODES):
+            # prepending base b: new_key = b << (2t) | old_key
+            ek, ekp, es = _batched_backward_extend(idx, k, kp, s, int(code))
+            nk[b * size : (b + 1) * size] = ek
+            nkp[b * size : (b + 1) * size] = ekp
+            ns[b * size : (b + 1) * size] = es
+        k, kp, s = nk, nkp, ns
+    return np.stack((k, kp, s), axis=1)
+
+
+def mer_table_key(idx, m: int) -> str:
+    """Content key of the (index, m) pair the table is a pure function of."""
+    h = hashlib.sha1()
+    h.update(np.int64([m, idx.n, idx.n_runs]).tobytes())
+    h.update(np.ascontiguousarray(idx.run_sym).tobytes())
+    h.update(np.ascontiguousarray(idx.run_len).tobytes())
+    return h.hexdigest()[:16]
+
+
+def read_mer_keys_fast(codes: np.ndarray, lengths: np.ndarray, m: int):
+    """Per-position rolling m-mer keys of a read batch, through the native
+    pass: (keys [B, L+1] int32, or int64 when m > 15, valid [B, L+1] bool).
+    Entry i describes the window codes[i-m+1 .. i]; valid requires the
+    window to be ACGT-only and fully inside the read."""
+    k, v, _ = native.read_windows_native(codes, lengths, m)
+    return k, v
 
 
 def build_mer_table_device(t: RIndexTables, m: int) -> torch.Tensor:
@@ -52,8 +112,9 @@ def seed_difficulty(mer_table: torch.Tensor, keys: torch.Tensor,
                     m: int) -> torch.Tensor:
     """Per-read work proxy for work-sorted batching: in-read windows whose
     m-mer interval fails min_occ, plus in-read windows with no valid m-mer
-    (mertable.py:seed_difficulty with lengths given). [B]."""
-    s = mer_table[keys.reshape(-1).long(), 2].reshape(keys.shape)
+    (mertable.py:seed_difficulty with lengths given). [B]. The table rows
+    come through gather_rows: the row gather kernel on the card."""
+    s = gather_rows(mer_table, keys.reshape(-1))[:, 2].reshape(keys.shape)
     bad = ((s < max(int(min_occ), 1)) & valid).sum(dim=1)
     in_read = (lengths.long() - (m - 1)).clamp(min=0)
     return bad + in_read - valid.sum(dim=1)

@@ -10,12 +10,15 @@ Each checkpoint row holds the occ counts before its bucket (cols 0..5) and
 the bucket's 64 BWT codes as 4-bit nibbles (cols 6..13, LSB first, 0xF past
 n); rank6(pos) is the row of pos >> 6 plus the count of each code among its
 first pos & 63 nibbles. Row indices clamp into the table as JAX gathers do.
+The kernels read the same counts from a bit-plane form of the rows;
+planes_rank6 is its plain reader, held against ckpt_rank6 by the tests.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.alphabet import COMP_CODE
 from .dense_rank import rank6_dense_plain
 from .tables import RIndexTables
 
@@ -39,6 +42,35 @@ def ckpt_rank6(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
         sup = t.ckpt_super[(pos.long() >> ss).clamp(0, t.ckpt_super.shape[0] - 1)]
         r6 = sup[:, :6] + r6
     return r6
+
+
+def _popcount64(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 (SWAR; the shifts are arithmetic, the masks
+    drop the sign copies)."""
+    x = x - ((x >> 1) & 0x5555555555555555)
+    x = (x & 0x3333333333333333) + ((x >> 2) & 0x3333333333333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F0F0F0F0F
+    return (x * 0x0101010101010101) >> 56
+
+
+def planes_rank6(planes: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """rank6 ([B] -> [B, 6] int32) read from the bit-plane rows the kernels
+    use (tables.derive_rank_planes; csrc/rank.cuh:CkptRank): per code, the
+    row's count below the code's q = COMP_CODE[code] and one popcount of the
+    positions before pos whose planes spell q."""
+    row = planes[(pos.long() >> 6).clamp(0, planes.shape[0] - 1)]
+    words = row[:, :6].contiguous().view(torch.int64)              # [B, 3]
+    before = (torch.ones_like(pos, dtype=torch.int64) << (pos.long() & 63)) - 1
+    # S[0..6] back out of the overlapping pairs (S[1], S[2]) ... (S[5], S[6])
+    below = torch.cat((torch.zeros_like(row[:, :1]), row[:, 6:7], row[:, 7::2]), dim=1)
+    out = []
+    for code in range(6):
+        q = int(COMP_CODE[code])
+        hit = before
+        for b in range(3):
+            hit = hit & (words[:, b] if (q >> b) & 1 else ~words[:, b])
+        out.append(below[:, q + 1] - below[:, q] + _popcount64(hit).to(torch.int32))
+    return torch.stack(out, dim=1)
 
 
 def run_of(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:

@@ -4,9 +4,10 @@ The layouts are those of the JAX package (pangenome_index_tpu/ops/tables.py),
 field for field, so tables carry across between the two packages
 (`tables_from_numpy`) and the tests can compare them directly. The port keeps
 the two rank representations its kernels read: checkpoint rows (the serving
-default: one 64-byte row per rank6 query) and dense run records (a run id and
-one 32-byte record per query); base tables (the full per-run cum table)
-serve the plain versions only. n, n_seq and max_len are host integers: every
+default: one 64-byte row per rank6 query; `ckpt` in the layout shared with
+the JAX package, `ckpt_planes` derived from it for the kernels) and dense
+run records (a run id and one 32-byte record per query); base tables (the
+full per-run cum table) serve the plain versions only. n, n_seq and max_len are host integers: every
 kernel takes them as launch arguments, and reading them never waits on the
 card.
 """
@@ -18,7 +19,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..host import RIndex, TagArray
+from ..models.rindex import RIndex
+from ..models.tagarray import TagArray
+from ..utils.alphabet import COMP_CODE
 
 #: default superblock width of the two-level checkpoint layout (n >= 2^31)
 SUPER_SHIFT = 30
@@ -44,6 +47,7 @@ class RIndexTables:
     pos_to_run: torch.Tensor | None = None  # dense: [n+2] run of each position
     rec: torch.Tensor | None = None         # dense: [r, 8] start, sym, cum0..5
     ckpt: torch.Tensor | None = None        # checkpoint: [n//64+2, 16] int32
+    ckpt_planes: torch.Tensor | None = None  # the kernels' form of ckpt
     ckpt_super: torch.Tensor | None = None  # two-level: [n_super, 6+shift] int64
 
     @property
@@ -152,6 +156,40 @@ def build_ckpt_rows(idx: RIndex, chunk: int = 1 << 22,
     return row, super_base
 
 
+def derive_rank_planes(ckpt: torch.Tensor, chunk_rows: int = 1 << 16) -> torch.Tensor:
+    """The kernels' checkpoint table, derived from `ckpt` on its device.
+
+    `ckpt` rows (six occ bases, 64 four-bit codes: the layout shared with
+    the JAX package) become rows of the same 64 bytes laid out for 64-bit
+    popcounts (csrc/rank.cuh:CkptRank), with q = COMP_CODE[code]:
+      words 0..5   three 64-bit planes of q (lo word, hi word; bit i =
+                   position i of the row), q = 7 for the 0xF fillers past n
+      words 6..15  the pairs (S[1], S[2]), (S[2], S[3]), (S[3], S[4]),
+                   (S[4], S[5]), (S[5], S[6]), S[j] = positions before the
+                   row with q < j (overlapping, so that S[q] and S[q + 1]
+                   are one aligned 8-byte load)
+    Single-level rows only (no ckpt_super)."""
+    dev = ckpt.device
+    comp = torch.as_tensor(COMP_CODE.astype(np.int64), device=dev)
+    q_of_nibble = torch.full((16,), 7, dtype=torch.int64, device=dev)
+    q_of_nibble[:6] = comp
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=dev)
+    bit = torch.ones(64, dtype=torch.int64, device=dev) \
+        << torch.arange(64, dtype=torch.int64, device=dev)
+    out = torch.zeros_like(ckpt)
+    for r0 in range(0, ckpt.shape[0], chunk_rows):
+        rows = ckpt[r0 : r0 + chunk_rows]
+        nib = ((rows[:, 6:14, None] >> shifts) & 0xF).reshape(-1, 64)  # LSB first
+        q = q_of_nibble[nib.long()]
+        planes = torch.stack([(((q >> b) & 1) * bit).sum(dim=1)
+                              for b in range(3)], dim=1)
+        out[r0 : r0 + chunk_rows, :6] = planes.view(torch.int32)
+        below = torch.cumsum(rows[:, :6].long()[:, comp], dim=1)   # S[1..6]
+        pairs = torch.stack((below[:, :5], below[:, 1:]), dim=2)
+        out[r0 : r0 + chunk_rows, 6:] = pairs.reshape(-1, 10).to(torch.int32)
+    return out
+
+
 def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
                      dense: bool = False,
                      super_shift: int | None = None) -> RIndexTables:
@@ -162,12 +200,14 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     values as the JAX rindex_to_device (base: bucketed=False)."""
     device = torch.device(device)
     pd = _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
-    ckpt = ckpt_super = pos_to_run = rec = None
+    ckpt = ckpt_planes = ckpt_super = pos_to_run = rec = None
     if checkpoint:
         rows, sup = build_ckpt_rows(idx, super_shift=super_shift)
         ckpt = _put(rows, torch.int32, device)
         if sup is not None:
             ckpt_super = _put(sup, torch.int64, device)
+        else:
+            ckpt_planes = derive_rank_planes(ckpt)
     if dense:
         runs = np.repeat(np.arange(idx.n_runs, dtype=np.int64), idx.run_len)
         p2r = np.concatenate((runs, [idx.n_runs - 1, idx.n_runs - 1]))
@@ -189,7 +229,8 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         last_sorted=_put(idx.last_sorted, pd, device),
         last_to_run=_put(idx.last_to_run, pd, device),
         n=int(idx.n), n_seq=int(idx.n_seq), max_len=int(idx.max_len),
-        pos_to_run=pos_to_run, rec=rec, ckpt=ckpt, ckpt_super=ckpt_super)
+        pos_to_run=pos_to_run, rec=rec, ckpt=ckpt, ckpt_planes=ckpt_planes,
+        ckpt_super=ckpt_super)
 
 
 def tags_to_device(tags: TagArray, device) -> TagTables:
@@ -227,6 +268,8 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
         max_len=int(rindex["max_len"]))
     if t.ckpt_super is not None:
         t.ckpt_super = t.ckpt_super.to(torch.int64)
+    elif t.ckpt is not None:
+        t.ckpt_planes = derive_rank_planes(t.ckpt)
     tt = None
     if tags is not None:
         tt = TagTables(pos_enc=put(tags["pos_enc"]).to(torch.int64),

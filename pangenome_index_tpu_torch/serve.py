@@ -18,7 +18,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .host import RIndex, TagArray
+from .models.rindex import RIndex
+from .models.tagarray import TagArray
 from .ops.dense_rank import rank6_dense
 from .ops.mems import find_mems
 from .ops.mertable import (build_mer_table_device, read_mer_keys_fast,

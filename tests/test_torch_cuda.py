@@ -1,18 +1,19 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
-exactly. Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. Run on the
-card with: python -m pytest tests/test_torch_cuda.py -q"""
+exactly. Needs an NVIDIA Hopper GPU and nvcc; skipped elsewhere. It imports
+the port only, so it runs where the JAX package cannot be imported: on the
+card, python -m pytest --noconftest tests/test_torch_cuda.py -q"""
 
 import numpy as np
 import pytest
 import torch
 
-from pangenome_index_tpu.ops.mertable import build_mer_table, read_mer_keys_fast
-from pangenome_index_tpu.ops.sparsedict import build_sparse_dict, read_windows_fast
-from pangenome_index_tpu.utils.alphabet import BYTE_TO_CODE
-from pangenome_index_tpu.utils.synth import (build_synth_index, synth_reads,
-                                             synth_tag_array)
 from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd, gather_probe,
-                                           mems, tagquery)
+                                           mems, rank, tagquery)
+from pangenome_index_tpu_torch.ops.mertable import build_mer_table, read_mer_keys_fast
+from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict, read_windows_fast
+from pangenome_index_tpu_torch.utils.alphabet import BYTE_TO_CODE
+from pangenome_index_tpu_torch.utils.synth import (build_synth_index, synth_reads,
+                                                   synth_tag_array)
 from pangenome_index_tpu_torch.ops.tables import rindex_to_device, tags_to_device
 
 pytestmark = pytest.mark.cuda
@@ -59,6 +60,110 @@ def test_extend(dev, index, mode):
             assert torch.equal(g, e)
 
 
+def test_rank_planes_match_ckpt(dev, index):
+    """The bit-plane table derived on the card: rank6 through it equals
+    rank6 through ckpt at every position and at the table's edges."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    edges = [0, 63, 64, idx.n - 1, idx.n, idx.n + 1, 64 * t.ckpt.shape[0] - 1, -1]
+    pos = torch.from_numpy(np.concatenate((np.arange(idx.n + 1), edges))
+                           .astype(np.int32)).to(dev)
+    assert torch.equal(rank.planes_rank6(t.ckpt_planes, pos), rank.ckpt_rank6(t, pos))
+    assert torch.equal(t.ckpt_planes.cpu(),
+                       rindex_to_device(idx, "cpu", checkpoint=True).ckpt_planes)
+
+
+@pytest.mark.parametrize("rows", ["shared", "straddled"])
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+def test_extend_interval_ends_share_or_straddle_a_row(dev, index, mode, rows):
+    idx, _ = index
+    t = rindex_to_device(idx, dev, **{mode: True})
+    rng = np.random.default_rng(11)
+    B = 4096
+    if rows == "shared":
+        k = rng.integers(0, idx.n - 64, B)
+        s = rng.integers(1, 64 - (k & 63) + 1)
+        s[::5] = 64 - (k[::5] & 63)           # bk + s exactly on the row edge
+    else:
+        k = rng.integers(0, idx.n - 4096, B)
+        s = rng.integers(64, 4096, B)
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (k, rng.integers(0, idx.n, B), s, rng.integers(-1, 8, B))]
+    fwd = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    for g, e in zip(fmd.extend(t, *args, forward=fwd),
+                    fmd.extend_plain(t, *args, forward=fwd)):
+        assert torch.equal(g, e)
+
+
+@pytest.mark.parametrize("tiers", ["none", "dense", "sdict"])
+def test_find_mems_seed_tiers(dev, index, tiers):
+    """K3 with no seed tier and with either one alone (both together:
+    test_find_mems_and_tags), at a capacity that overflows, ragged lengths,
+    and an N."""
+    idx, lines = index
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    reads = synth_reads(lines, 130, 100, error_rate=0.01, seed=5)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                      for r in reads]).astype(np.int32)
+    lens = np.full(len(reads), 100, np.int32)
+    lens[::7] = np.random.default_rng(5).integers(0, 100, len(lens[::7]))
+    for i, n in enumerate(lens):
+        codes[i, n:] = 0
+    codes[3, 40] = 4
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    kw = {}
+    if tiers == "dense":
+        mk, mv = read_mer_keys_fast(codes, lens, 6)
+        kw = dict(mer_table=T(build_mer_table(idx, 6).astype(np.int32)),
+                  mer_keys=T(mk), mer_valid=T(mv), mer_m=6)
+    if tiers == "sdict":
+        keys, vals = build_sparse_dict(idx, 19)
+        kw = dict(sdict_vals=T(vals), sdict_m=19,
+                  sdict_idx=T(read_windows_fast(codes, lens, 19, keys)[2]))
+    for min_occ, capacity in ((1, 4), (3, 32)):
+        expect, es = mems.find_mems_plain(t, T(codes), T(lens), 20, min_occ,
+                                          capacity=capacity, with_stats=True, **kw)
+        got, gs = mems.find_mems(t, T(codes), T(lens), 20, min_occ,
+                                 capacity=capacity, with_stats=True, **kw)
+        for g, e in zip(got, expect):
+            assert torch.equal(g, e)
+        assert torch.equal(gs["steps"], es["steps"])
+    assert bool(expect.count.max() > 4)
+
+
+@pytest.mark.parametrize("tiers", ["dense", "sdict", "dense+sdict"])
+def test_resolve_seeds(dev, index, tiers):
+    """The seed-resolving kernel against its plain version: either tier
+    alone and both, min_occ 1 and 3."""
+    idx, lines = index
+    reads = synth_reads(lines, 77, 100, error_rate=0.03, seed=6)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                      for r in reads]).astype(np.int32)
+    lens = np.random.default_rng(6).integers(0, 101, len(reads)).astype(np.int32)
+    codes[2, 50] = 4
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    kw = {}
+    if "dense" in tiers:
+        mk, mv = read_mer_keys_fast(codes, lens, 6)
+        kw.update(mer_table=T(build_mer_table(idx, 6).astype(np.int32)),
+                  mer_keys=T(mk), mer_valid=T(mv), mer_m=6)
+    if "sdict" in tiers:
+        keys, vals = build_sparse_dict(idx, 19)
+        di = read_windows_fast(codes, lens, 19, keys)[2]
+        kw.update(sdict_vals=T(vals), sdict_idx=T(di), sdict_m=19)
+    for min_occ in (1, 3):
+        expect = mems.resolve_seeds_plain(len(reads), 101, min_occ, **kw)
+        assert torch.equal(mems.resolve_seeds(len(reads), 101, min_occ, **kw), expect)
+    assert bool((expect[..., 3] > 0).any()) and bool((expect[..., 3] == 0).any())
+    assert mems.resolve_seeds(4, 101, 1) is None
+
+
 @pytest.mark.parametrize("mode", ["checkpoint", "dense"])
 def test_find_mems_and_tags(dev, index, mode):
     idx, lines = index
@@ -84,7 +189,7 @@ def test_find_mems_and_tags(dev, index, mode):
     for g, e in zip(got, expect):
         assert torch.equal(g, e)
     assert torch.equal(gs["steps"], es["steps"])
-    tt = tags_to_device(synth_tag_array(idx, lines=lines), dev)
+    tt = tags_to_device(synth_tag_array(idx), dev)
     for g, e in zip(tagquery.query_mem_tags(tt, got.bwt_start, got.size, got.count, 8),
                     tagquery.query_mem_tags_plain(tt, got.bwt_start, got.size,
                                                   got.count, 8)):
@@ -141,8 +246,8 @@ def test_count(dev, index, mode):
 @pytest.mark.parametrize("capacity", [1, 8, 256])
 @pytest.mark.parametrize("exact", [False, True])
 def test_query_tags_batch(dev, index, capacity, exact):
-    idx, lines = index
-    tt = tags_to_device(synth_tag_array(idx, lines=lines), dev)
+    idx, _ = index
+    tt = tags_to_device(synth_tag_array(idx), dev)
     rng = np.random.default_rng(capacity)
     B = 2000
     start = rng.integers(0, idx.n, B)

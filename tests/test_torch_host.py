@@ -1,0 +1,271 @@
+"""The port's own host code against the JAX package's, exactly: the same
+seeded numpy inputs through the JAX package's host function and the port's
+copy of it (index model and synthetic data, the .ri and .tags codecs, the
+seed-table and dictionary builds, the read-window passes, the host MEM finder
+and the native engine's binding). One case per copied function."""
+
+import os
+
+import numpy as np
+import pytest
+
+from pangenome_index_tpu import cli as jcli
+from pangenome_index_tpu import native as jnative
+from pangenome_index_tpu.formats import ri as jri
+from pangenome_index_tpu.formats import tags as jtagfmt
+from pangenome_index_tpu.models import mems as jmems
+from pangenome_index_tpu.ops import mertable as jmertable
+from pangenome_index_tpu.ops import sparsedict as jsparsedict
+from pangenome_index_tpu.utils import synth as jsynth
+from pangenome_index_tpu_torch import cli, native
+from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
+from pangenome_index_tpu_torch.models import mems
+from pangenome_index_tpu_torch.ops import mertable, sparsedict
+from pangenome_index_tpu_torch.utils import synth
+
+INDEX_FIELDS = ("run_sym", "run_start", "run_len", "cum", "C", "n", "n_seq",
+                "max_len", "samples", "last_sorted", "last_to_run")
+
+
+def same_arrays(got, expect):
+    """Equal values and dtypes, element by element of a tuple."""
+    assert len(got) == len(expect)
+    for g, e in zip(got, expect):
+        g, e = np.asarray(g), np.asarray(e)
+        assert g.dtype == e.dtype and g.shape == e.shape
+        np.testing.assert_array_equal(g, e)
+
+
+def same_index(got, expect):
+    for f in INDEX_FIELDS:
+        same_arrays((getattr(got, f),), (getattr(expect, f),))
+
+
+def same_tags(got, expect):
+    same_arrays((got.pos_enc, got.bwt_start), (expect.pos_enc, expect.bwt_start))
+    assert got.total == expect.total
+
+
+@pytest.fixture(scope="module")
+def world():
+    """The JAX package's index, lines, reads, tags and seed tiers: the inputs
+    every case feeds to both sides."""
+    idx, lines = jsynth.build_synth_index(20_000, 4, seed=2)
+    reads = jsynth.synth_reads(lines, 48, 100, error_rate=0.02, seed=5)
+    reads[3] = reads[3][:40] + b"N" + reads[3][41:]
+    reads[7] = reads[7][:33]
+    codes, lens = jcli._pack_reads(reads)
+    tags = jsynth.synth_tag_array(idx, lines=lines)
+    return dict(idx=idx, lines=lines, reads=reads, codes=codes, lens=lens,
+                tags=tags)
+
+
+def case_build_synth_index(w, tmp_path):
+    idx, lines = synth.build_synth_index(20_000, 4, seed=2)
+    assert lines == w["lines"]
+    same_index(idx, w["idx"])
+    # the cache file is the JAX package's: each side reads the other's
+    a = synth.build_synth_index(6_000, 3, seed=4, cache_dir=str(tmp_path))[0]
+    b = jsynth.build_synth_index(6_000, 3, seed=4, cache_dir=str(tmp_path))[0]
+    assert len(os.listdir(tmp_path)) == 1
+    same_index(a, b)
+    same_index(synth.build_synth_index(6_000, 3, seed=4,
+                                       cache_dir=str(tmp_path))[0], b)
+
+
+def case_synth_reads(w, tmp_path):
+    for err, seed in ((0.0, 2), (0.02, 5)):
+        assert synth.synth_reads(w["lines"], 64, 100, error_rate=err, seed=seed) \
+            == jsynth.synth_reads(w["lines"], 64, 100, error_rate=err, seed=seed)
+
+
+def case_synth_tag_array(w, tmp_path):
+    same_tags(synth.synth_tag_array(w["idx"]), w["tags"])
+    same_tags(synth.synth_tag_array(w["idx"], cache_dir=str(tmp_path)), w["tags"])
+    same_tags(jsynth.synth_tag_array(w["idx"], cache_dir=str(tmp_path)), w["tags"])
+    assert len(os.listdir(tmp_path)) == 1
+
+
+def case_ri_round_trip(w, tmp_path):
+    data = ri.serialize_encoded(w["idx"])
+    assert data == jri.serialize_encoded(w["idx"])
+    same_index(ri.load(data), jri.load(data))
+    same_index(ri.load(data), w["idx"])
+    legacy = jri.serialize_legacy(w["idx"])
+    same_index(ri.load(legacy), jri.load(legacy))
+    path = tmp_path / "x.ri"
+    path.write_bytes(data)
+    same_index(ri.load_file(path), w["idx"])
+
+
+def case_tags_round_trip(w, tmp_path):
+    for compact in (False, True):
+        data = tagfmt.write_compressed_bytecode(w["tags"], compact=compact)
+        assert data == jtagfmt.write_compressed_bytecode(w["tags"], compact=compact)
+        fmt = "bytecode-compact" if compact else "bytecode"
+        for f in ("auto", fmt):
+            same_tags(tagfmt.load_tags(data, fmt=f), jtagfmt.load_tags(data, fmt=f))
+        same_tags(tagfmt.load_tags(data), w["tags"])
+    for data, fmt in ((jtagfmt.write_algorithm(w["tags"]), "algorithm"),
+                      (jtagfmt.write_compressed_sdsl(w["tags"]), "sdsl")):
+        for f in ("auto", fmt):
+            same_tags(tagfmt.load_tags(data, fmt=f), jtagfmt.load_tags(data, fmt=f))
+        wrapped = jtagfmt.wrap_payload(data, fmt)
+        same_tags(tagfmt.load_tags(wrapped), jtagfmt.load_tags(wrapped))
+    path = tmp_path / "x.tags"
+    path.write_bytes(tagfmt.write_compressed_bytecode(w["tags"]))
+    same_tags(tagfmt.load_tags_file(path, fmt="bytecode"), w["tags"])
+
+
+def case_build_mer_table(w, tmp_path):
+    for m in (1, 6):
+        same_arrays((mertable.build_mer_table(w["idx"], m),),
+                    (jmertable.build_mer_table(w["idx"], m),))
+
+
+def case_mer_table_key(w, tmp_path):
+    other = jsynth.build_synth_index(6_000, 3, seed=4)[0]
+    keys = {mertable.mer_table_key(i, m) for i in (w["idx"], other) for m in (6, 8)}
+    assert len(keys) == 4
+    for i in (w["idx"], other):
+        for m in (6, 8, -512):
+            assert mertable.mer_table_key(i, m) == jmertable.mer_table_key(i, m)
+
+
+def case_read_mer_keys_fast(w, tmp_path):
+    for m in (6, 14, 19):
+        same_arrays(mertable.read_mer_keys_fast(w["codes"], w["lens"], m),
+                    jmertable.read_mer_keys_fast(w["codes"], w["lens"], m))
+        # and the JAX package's numpy scan, which the native pass stands for
+        same_arrays(mertable.read_mer_keys_fast(w["codes"], w["lens"], m),
+                    jmertable.read_mer_keys(w["codes"], w["lens"], m))
+
+
+@pytest.mark.parametrize("s", [16, 30, 31])
+def test_get_sparse_dict_matches_host_build(world, tmp_path, s):
+    """The port's dictionary against the JAX package's *host* build (the JAX
+    device build wraps its keys at s = 31), built, cached and re-read by
+    either side."""
+    expect = jsparsedict.build_sparse_dict(world["idx"], s)
+    assert len(expect[0]) > 0
+    same_arrays(sparsedict.build_sparse_dict(world["idx"], s), expect)
+    assert sparsedict.sparse_dict_key(world["idx"], s) \
+        == jsparsedict.sparse_dict_key(world["idx"], s)
+    path = str(tmp_path / f"x.sdict{s}.npz")
+    same_arrays(sparsedict.get_sparse_dict(world["idx"], s, path=path), expect)
+    assert os.path.exists(path)
+    same_arrays(sparsedict.get_sparse_dict(world["idx"], s, path=path), expect)
+    same_arrays(jsparsedict.get_sparse_dict(world["idx"], s, path=path), expect)
+    assert sparsedict.DEVICE_BYTES_CAP == jsparsedict.DEVICE_BYTES_CAP
+
+
+def case_read_windows_fast(w, tmp_path):
+    for s in (16, 19):
+        keys, _ = jsparsedict.build_sparse_dict(w["idx"], s)
+        got = sparsedict.read_windows_fast(w["codes"], w["lens"], s, keys)
+        same_arrays(got, jsparsedict.read_windows_fast(w["codes"], w["lens"], s, keys))
+        assert (got[2] >= 0).any() and (got[2] < 0).any()
+        # the JAX package's numpy pair, and an empty dictionary
+        rk, rv = jmertable.read_mer_keys(w["codes"], w["lens"], s)
+        same_arrays(got, (rk, rv, jsparsedict.lookup_read_windows(keys, rk, rv)))
+        none = np.zeros(0, np.int64)
+        same_arrays(sparsedict.read_windows_fast(w["codes"], w["lens"], s, none),
+                    jsparsedict.read_windows_fast(w["codes"], w["lens"], s, none))
+
+
+def case_pack_reads(w, tmp_path):
+    same_arrays(cli.pack_reads(w["reads"]), (w["codes"], w["lens"]))
+    path = tmp_path / "reads.txt"
+    path.write_bytes(b"\n".join(w["reads"]) + b"\n\n")
+    assert cli.read_reads(str(path)) == jcli._read_reads(str(path)) == w["reads"]
+    for arg, min_len, m in ((-1, 20, 14), (-1, 40, 14), (0, 20, 14), (19, 20, 14),
+                            (12, 20, 14), (-1, 4, 0)):
+        assert cli.resolve_long_seed(arg, min_len, m) \
+            == jcli._resolve_long_seed(arg, min_len, m)
+
+
+def case_find_all_mems(w, tmp_path):
+    n_mems = 0
+    for read in w["reads"][:12]:
+        for min_len, min_occ in ((20, 1), (12, 3)):
+            got = mems.find_all_mems(w["idx"], read, min_len, min_occ)
+            expect = jmems.find_all_mems(w["idx"], read, min_len, min_occ)
+            assert [(m.start, m.end, m.bwt_start, m.size) for m in got] \
+                == [(m.start, m.end, m.bwt_start, m.size) for m in expect]
+            n_mems += len(got)
+    assert n_mems > 12
+
+
+def case_find_mems_native(w, tmp_path):
+    for capacity in (4, 64):
+        got = native.find_mems_native(w["idx"], w["codes"], w["lens"], 20, 1,
+                                      capacity=capacity)
+        same_arrays(got, jnative.find_mems_native(w["idx"], w["codes"], w["lens"],
+                                                  20, 1, capacity=capacity))
+        assert int(got[4].max()) > 4
+    same_arrays(native.count_native(w["idx"], w["codes"], w["lens"]),
+                jnative.count_native(w["idx"], w["codes"], w["lens"]))
+
+
+def _mem_intervals(w):
+    s, e, b, z, cnt = jnative.find_mems_native(w["idx"], w["codes"], w["lens"],
+                                               20, 1, capacity=64)
+    counts = np.minimum(cnt, 64).astype(np.int64)
+    ii = np.repeat(np.arange(len(counts)), counts)
+    within = np.arange(len(ii)) - np.repeat(np.cumsum(counts) - counts, counts)
+    return counts, s[ii, within], e[ii, within], b[ii, within], z[ii, within]
+
+
+def case_query_tags_native(w, tmp_path):
+    _, _, _, b, z = _mem_intervals(w)
+    for capacity, exact in ((256, False), (2, False), (256, True)):
+        same_arrays(native.query_tags_native(w["tags"], b, b + z - 1,
+                                             capacity=capacity, exact=exact),
+                    jnative.query_tags_native(w["tags"], b, b + z - 1,
+                                              capacity=capacity, exact=exact))
+
+
+def case_format_mems_native(w, tmp_path):
+    counts, s, e, b, z = _mem_intervals(w)
+    tpos, tuniq, _ = jnative.query_tags_native(w["tags"], b, b + z - 1)
+    out = []
+    for mod, name in ((native, "port.txt"), (jnative, "jax.txt")):
+        for tags_too in (True, False):
+            with open(tmp_path / name, "wb") as fh:
+                n = mod.format_mems_native(counts, s, e, b, z,
+                                           tuniq if tags_too else None,
+                                           tpos if tags_too else None, fh.fileno())
+            data = (tmp_path / name).read_bytes()
+            assert n == len(data) > 0
+            out.append(data)
+    assert out[0] == out[2] and out[1] == out[3] and out[0] != out[1]
+
+
+def case_native_build_is_the_ports_own(w, tmp_path):
+    """The binding compiles src/cpp into the port's build directory, not
+    beside the sources, and a failed build raises with the compiler's
+    output."""
+    lib = native.build()
+    assert native.BUILD_ROOT in lib.parents and native.SRC not in lib.parents
+    assert lib.exists()
+    flags = native.CXX_FLAGS
+    try:
+        native.CXX_FLAGS = (*flags, "--no-such-compiler-flag")
+        with pytest.raises(RuntimeError, match="no-such-compiler-flag"):
+            native.build()
+    finally:
+        native.CXX_FLAGS = flags
+    assert native.build() == lib
+
+
+CASES = [case_build_synth_index, case_synth_reads, case_synth_tag_array,
+         case_ri_round_trip, case_tags_round_trip, case_build_mer_table,
+         case_mer_table_key, case_read_mer_keys_fast, case_read_windows_fast,
+         case_pack_reads, case_find_all_mems, case_find_mems_native,
+         case_query_tags_native, case_format_mems_native,
+         case_native_build_is_the_ports_own]
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__[5:])
+def test_host_copy_matches_jax(world, tmp_path, case):
+    case(world, tmp_path)

@@ -1,7 +1,9 @@
-"""The PyTorch port never imports jax: checked in a fresh interpreter, since
-this test process has jax loaded already (tests/conftest.py)."""
+"""The PyTorch port imports neither jax nor the JAX package: checked in a
+fresh interpreter, since this test process has both loaded already
+(tests/conftest.py), and in the port's source text."""
 
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -13,15 +15,65 @@ import pangenome_index_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-leaked = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax."))
-print(len(names), leaked)
+
+# the commands on a small index, through the port's own host route
+import numpy as np
+from pangenome_index_tpu_torch import cli
+from pangenome_index_tpu_torch.formats import ri, tags
+from pangenome_index_tpu_torch.utils import synth
+d = sys.argv[1]
+idx, lines = synth.build_synth_index(3000, 2, seed=1)
+open(d + "/x.ri", "wb").write(ri.serialize_encoded(idx))
+open(d + "/x.tags", "wb").write(tags.write_compressed_bytecode(synth.synth_tag_array(idx)))
+open(d + "/reads.txt", "wb").write(b"\\n".join(synth.synth_reads(lines, 4, 60)) + b"\\n")
+common = [d + "/x.ri", d + "/x.tags", d + "/reads.txt"]
+assert cli.main(["find-mems", *common, "12", "1", "--device", "cpu",
+                 "--tags-format", "bytecode"]) == 0
+assert cli.main(["query-tags", *common, "--device", "cpu",
+                 "--tags-format", "bytecode"]) == 0
+
+def foreign(m):
+    return (m == "jax" or m.startswith("jax.") or m == "pangenome_index_tpu"
+            or m.startswith("pangenome_index_tpu."))
+leaked = sorted(m for m in sys.modules if foreign(m))
+print(len(names), leaked, file=sys.stderr)
 assert not leaked, leaked
+assert len(names) >= 20, names
 """
 
+#: an import of the JAX package, or a process started on one of its modules
+#: (the port's own package name goes on with "_torch")
+FOREIGN = re.compile(
+    r"""^\s*(import|from)\s+(jax|pangenome_index_tpu)(\s|\.|$)"""
+    r"""|["']-m["']\s*,\s*["']pangenome_index_tpu\.""", re.M)
 
-def test_port_imports_no_jax():
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO,
-                          capture_output=True, text=True, timeout=120)
+
+def test_port_imports_no_jax(tmp_path):
+    """Every module of the port and both commands (--device cpu), in a fresh
+    interpreter: no jax and no pangenome_index_tpu module gets loaded."""
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 10  # _build, serve and the ops modules
+    assert "MEM START" in proc.stdout or "read_index=" in proc.stdout
+
+
+def test_port_sources_name_no_jax_package():
+    """chip_smoke.py and every source of the port neither import the JAX
+    package nor start a process on it (file:line strings naming the kernels
+    they replace are not imports)."""
+    sources = [REPO / "chip_smoke.py",
+               *sorted((REPO / "pangenome_index_tpu_torch").rglob("*.py"))]
+    assert len(sources) > 20
+    hits = [f"{p.relative_to(REPO)}: {m.group(0).strip()}"
+            for p in sources for m in FOREIGN.finditer(p.read_text())]
+    assert not hits, hits
+    # the pattern does see what it is meant to see
+    for bad in ("import pangenome_index_tpu\n", "from pangenome_index_tpu import x",
+                "from pangenome_index_tpu.ops import y", "    import jax.numpy as jnp",
+                '[sys.executable, "-m", "pangenome_index_tpu.cli"]'):
+        assert FOREIGN.search(bad), bad
+    for good in ("import pangenome_index_tpu_torch as port",
+                 "from pangenome_index_tpu_torch.ops import mems",
+                 '"-m", "pangenome_index_tpu_torch.cli"',
+                 '"pangenome_index_tpu/ops/pallas_rank.py:39"'):
+        assert not FOREIGN.search(good), good

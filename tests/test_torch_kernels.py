@@ -15,7 +15,8 @@ from pangenome_index_tpu.ops.tables import tags_to_device as jax_tags_to_device
 from pangenome_index_tpu.ops.tagquery import query_mem_tags as jax_query_mem_tags
 from pangenome_index_tpu.utils.synth import build_synth_index, synth_tag_array
 from pangenome_index_tpu_torch.ops import dense_rank, fmd, rank, tagquery
-from pangenome_index_tpu_torch.ops.tables import (rindex_to_device,
+from pangenome_index_tpu_torch.ops.tables import (derive_rank_planes,
+                                                  rindex_to_device,
                                                   tables_from_numpy,
                                                   tags_to_device)
 
@@ -98,6 +99,47 @@ def test_rank6_matches_jax(index, mode):
     if pt.ckpt is not None:
         np.testing.assert_array_equal(rank.ckpt_rank6(pt, torch.from_numpy(pos)).numpy(),
                                       expect)
+
+
+@pytest.mark.parametrize("seed", [2, 4])
+def test_rank_planes_match_ckpt(seed):
+    """The kernels' bit-plane form of the checkpoint rows against `ckpt`:
+    rank6 read from either is the same at every position of the index, at
+    the row and table edges and past them, and equals the JAX package's
+    _ckpt_rank6; tables carried across from JAX get the same planes."""
+    idx, _ = build_synth_index(20_000 if seed == 2 else 6_011, 4, seed=seed)
+    jt = jax_rindex_to_device(idx, checkpoint=True)
+    pt = rindex_to_device(idx, "cpu", checkpoint=True)
+    planes = pt.ckpt_planes
+    assert planes.shape == pt.ckpt.shape and planes.dtype == torch.int32
+    assert torch.equal(planes, derive_rank_planes(pt.ckpt, chunk_rows=7))
+    n = idx.n
+    edges = [0, 1, 63, 64, 65, n - 1, n, n + 1, n + 63, 64 * (pt.ckpt.shape[0] - 1),
+             64 * pt.ckpt.shape[0] - 1]
+    pos = torch.from_numpy(np.concatenate((np.arange(n + 1), edges)).astype(np.int32))
+    via_ckpt = rank.ckpt_rank6(pt, pos)
+    via_planes = rank.planes_rank6(planes, pos)
+    assert via_planes.dtype == torch.int32
+    np.testing.assert_array_equal(via_planes.numpy(), via_ckpt.numpy())
+    np.testing.assert_array_equal(
+        via_planes.numpy(), np.asarray(jrank._ckpt_rank6(jt, jnp.asarray(pos.numpy()))))
+    np.testing.assert_array_equal(via_planes[: n + 1].numpy(),
+                                  idx.rank6(np.arange(n + 1)))
+    # positions outside the table clamp to its end rows, as in ckpt_rank6
+    out = torch.tensor([-1, -64, 64 * pt.ckpt.shape[0] + 5], dtype=torch.int32)
+    np.testing.assert_array_equal(rank.planes_rank6(planes, out).numpy(),
+                                  rank.ckpt_rank6(pt, out).numpy())
+    # fillers past n are q = 7 in all three planes; the prefix counts are
+    # stored as overlapping pairs, the last of them the positions before the row
+    last = planes[-1, :6].contiguous().view(torch.int64)
+    assert bool((last == -1).all())
+    assert torch.equal(planes[:, 7:14:2], planes[:, 8:15:2])
+    before = torch.arange(planes.shape[0]) * 64
+    assert torch.equal(planes[:, 15].long(), before.clamp(max=n))
+    carried, _ = tables_from_numpy(as_numpy(jt), None, "cpu")
+    assert torch.equal(carried.ckpt_planes, planes)
+    # two-level rows have no kernel form
+    assert rindex_to_device(idx, "cpu", checkpoint=True, super_shift=9).ckpt_planes is None
 
 
 def test_dense_rank6_matches_pallas(index):

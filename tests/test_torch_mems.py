@@ -87,6 +87,46 @@ def test_find_mems_matches_jax(setup, tiers, capacity):
         assert bool(got.overflow.any())  # counts stay exact past the capacity
 
 
+@pytest.mark.parametrize("rows", ["shared", "straddled"])
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+def test_extend_interval_ends_share_or_straddle_a_row(setup, mode, rows):
+    """Extensions whose interval ends bk and bk + s lie in one 64-position
+    checkpoint row, and ones whose ends lie in two (also with bk + s on the
+    row edge), against the JAX extend and the host model."""
+    idx = setup[0]
+    rng = np.random.default_rng(11)
+    B = 384
+    if rows == "shared":
+        k = rng.integers(0, idx.n - 64, B)
+        s = rng.integers(1, 64 - (k & 63) + 1)        # bk + s <= row end
+        s[::5] = 64 - (k[::5] & 63)                   # exactly on the edge
+        assert (((k + s - 1) >> 6) == (k >> 6)).all()
+    else:
+        k = rng.integers(0, idx.n - 4096, B)
+        s = rng.integers(64, 4096, B)
+        s[::5] = 64 - (k[::5] & 63) + 64 * rng.integers(1, 9, len(k[::5]))
+        assert (((k + s) >> 6) > (k >> 6)).all()
+    kp = rng.integers(0, idx.n, B)
+    code = rng.integers(0, 6, B)
+    fwd = rng.integers(0, 2, B).astype(bool)
+    jt = jax_rindex_to_device(idx, **{mode: True})
+    pt = rindex_to_device(idx, "cpu", **{mode: True})
+    from pangenome_index_tpu.ops.fmd import extend as jax_extend
+    from pangenome_index_tpu_torch.ops.fmd import extend
+
+    expect = jax_extend(jt, *(jnp.asarray(a, jnp.int32) for a in (k, kp, s, code)),
+                        forward=jnp.asarray(fwd))
+    got = extend(pt, *(torch.from_numpy(a.astype(np.int32)) for a in (k, kp, s, code)),
+                 forward=torch.from_numpy(fwd))
+    for g, e in zip(got, expect):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e))
+    for i in range(0, B, 16):
+        a, b = (int(kp[i]), int(k[i])) if fwd[i] else (int(k[i]), int(kp[i]))
+        ext = (idx.forward_extend if fwd[i] else idx.backward_extend)(
+            (int(k[i]), int(kp[i]), int(s[i])), int(code[i]))
+        assert tuple(int(g[i]) for g in got) == ext, (i, a, b)
+
+
 def test_dense_config_matches_pallas_closure(setup):
     """Dense-rank configuration: the JAX engine with rank6 answered by the
     Pallas kernel (interpret mode) against the port on dense tables."""
