@@ -17,7 +17,11 @@ launch count set to 0 just before a path and read just after it:
    written as .ri/.tags files, byte-compared with the port's own host route
    (find-mems: native.find_mems_native + query_tags_native +
    format_mems_native; query-tags: native.count_native + TagArray.query),
-   then timed per phase on all reads.
+   then timed per phase on all reads;
+4. the tag search (tagquery.tag_upper_bound): the descent of the tag search
+   tree that K4 and K6 search with, alone, against torch.searchsorted at
+   every run head of the bench index, its neighbours, the ends of the int32
+   range and a million random values.
 
 The script imports and starts nothing of the JAX package
 (pangenome_index_tpu), which need not be importable where it runs: that the
@@ -50,6 +54,8 @@ TAG_CAP = 8       # tag capacity of the serving path
 N_LANES = 32768   # K1/K2 comparison batch
 N_K3 = 512        # K3 comparison: the first and the last sorted reads
 N_RANK = 32768    # rank6 through the bit-plane table against the checkpoint rows
+N_SEARCH_RANDOM = 1 << 20  # random values of the tag search check
+N_WIDE = 8192     # K6 comparison on wide rows: intervals of 2 to 400 tag runs
 REPEATS = 3       # timed serving repeats after the first
 CLI_FIND_READS = 2048   # find-mems byte comparison: the first bench reads
 CLI_QUERY_ERRORS = 1024  # query-tags: bench reads with errors after the exact ones
@@ -67,6 +73,7 @@ SOURCES = {
     "gather_chain": ("csrc/gather_probe.cu", "examples/gather_pipeline_probe.py:56", "probe"),
     "count": ("csrc/count.cu", "pangenome_index_tpu/ops/rank.py:196", "query-tags"),
     "query_tags_batch": ("csrc/tagbatch.cu", "pangenome_index_tpu/ops/tagquery.py:32", "find-mems"),
+    "tag_upper_bound": ("csrc/tagsearch.cu", "pangenome_index_tpu/ops/tagquery.py:42", "tag-search"),
 }
 #: published peaks of one H100 SXM: device memory bytes/s, and float32
 #: operations/s outside the tensor cores (taken for the kernels' 32-bit
@@ -80,6 +87,7 @@ PATH_KERNELS = {
     "find-mems": ("gather_rows", "extend", "resolve_seeds", "find_mems",
                   "query_tags_batch"),
     "query-tags": ("count", "query_tags_batch"),
+    "tag-search": ("tag_upper_bound",),
 }
 
 
@@ -390,15 +398,42 @@ def main() -> int:
             + n_miss * 5 + gathered(n_miss * 12, kw["mer_table"]),
             ops=n_pos * 12, chain=2)
     tt = tags_to_device(tags, dev)
+    # the tag search tree (64-byte nodes over the run heads) against
+    # searchsorted: every head, its neighbours, the ends of the int32 range
+    # and random values, through the kernel that is the descent alone
+    levels = len(tt.tree_levels)  # lines one search reads: the tree's depth
+    heads64 = tags.bwt_start.astype(np.int64)
+    sv_all = T(np.concatenate((
+        heads64, heads64 - 1, heads64 + 1, [0, 2**31 - 1],
+        np.random.default_rng(11).integers(0, idx.n, N_SEARCH_RANDOM))).astype(np.int32))
+    port.reset_launches()
+    found = tagquery.tag_upper_bound(tt, sv_all)
+    read_launches("tag-search")
+    check(torch.equal(found.long(), torch.searchsorted(tt.bwt_start, sv_all, right=True)),
+          "the tag search tree differs from searchsorted")
+    log(f"tag search tree: {tags.n_runs} run heads, {tt.search_tree.shape[0]} lines "
+        f"of 64 bytes beside them, depth {levels} (the heads are the last level); "
+        f"identical to torch.searchsorted at {sv_all.numel()} values")
+    del sv_all, found
+    # the search alone at the shape K6 gives it: the starts of the buffered
+    # MEM intervals; per value 4 bytes in and out, one line of each internal
+    # level of the tree and one leaf line of the heads
+    sv = T(qs.astype(np.int32))
+    compare("tag_upper_bound", lambda: tagquery.tag_upper_bound(tt, sv),
+            lambda: tagquery.tag_upper_bound_plain(tt, sv),
+            nbytes=len(qs) * 8 + gathered(len(qs) * 64, tt.bwt_start)
+            + gathered(len(qs) * (levels - 1) * 64, tt.search_tree),
+            ops=len(qs) * levels * 32, chain=levels,
+            library=lambda: torch.searchsorted(tt.bwt_start, sv, right=True))
+    del sv
     bufs = (T(r.bwt_start), T(r.size), T(r.count))
     n_slots = int(np.minimum(r.count, MEM_CAP).sum())
-    search = int(np.ceil(np.log2(tags.n_runs)))  # steps of one binary search
     compare("query_mem_tags",
             lambda: tagquery.query_mem_tags(tt, *bufs, capacity=TAG_CAP),
             lambda: tagquery.query_mem_tags_plain(tt, *bufs, capacity=TAG_CAP),
             nbytes=N_READS * (MEM_CAP * (8 + 5) + 4)
             + gathered(n_slots * TAG_CAP * 8, tt.pos_enc, tt.bwt_start),
-            ops=n_slots * (2 * search + TAG_CAP * TAG_CAP), chain=search + 1)
+            ops=n_slots * (2 * levels * 32 + TAG_CAP * TAG_CAP), chain=levels + 1)
 
     # K3 on the whole sorted batch: the kernel's own device time (the
     # profiler's) and its time per dependent extension step (set by the
@@ -611,7 +646,34 @@ def main() -> int:
                 lambda: tagquery.query_tags_batch_plain(tt, *mq, 256, ex),
                 record=not ex, nbytes=len(qs) * (8 + 256 * 8 + 9)
                 + gathered(n_tagged * 8, tt.pos_enc, tt.bwt_start),
-                ops=len(qs) * (2 * search + 256), chain=search + 1)
+                ops=len(qs) * (2 * levels * 32 + 256), chain=levels + 1)
+    # the fill of a tensor of K6's output shape: the yardstick of its write
+    fill_ms = gather_probe.time_ms(
+        lambda: torch.full((len(qs), 256), -1, dtype=torch.int64, device=dev))
+    kernels["query_tags_batch"]["fill_ms"] = fill_ms
+    log(f"K6 at {len(qs)} intervals x 256: {kernels['query_tags_batch']['ms']:.4f} ms; "
+        f"torch.full of the same shape {fill_ms:.4f} ms (device) {card}")
+    # K6 on wide rows: intervals from the first row of a run to the first of
+    # the run `span` - 1 after it, 2 to 400 runs wide (a thread's, a warp's
+    # and the block's sort; rows past the capacity overflow)
+    wrng = np.random.default_rng(13)
+    spans = np.concatenate((np.arange(2, 402), wrng.integers(2, 401, N_WIDE - 400)))
+    first = wrng.integers(0, tags.n_runs - 401, N_WIDE)
+    wq = (T(tags.bwt_start[first].astype(np.int32)),
+          T(tags.bwt_start[first + spans - 1].astype(np.int32)))
+    for ex in (False, True):
+        compare(f"query_tags_batch (wide rows{', exact' if ex else ''})",
+                lambda: tagquery.query_tags_batch(tt, *wq, 256, ex),
+                lambda: tagquery.query_tags_batch_plain(tt, *wq, 256, ex), record=False)
+    wide = tagquery.query_tags_batch(tt, *wq, 256)
+    check(bool(wide.overflow.any()) and int(wide.n_unique.max()) > 32,
+          "the wide-row comparison reached no row past the capacity or the warp's sort")
+    log(f"K6 on {N_WIDE} wide rows (2 to 400 runs, capacity 256): "
+        f"{int(wide.overflow.sum())} rows past the capacity, widest row "
+        f"{int(wide.n_unique.max())} distinct positions; "
+        f"{gather_probe.time_ms(lambda: tagquery.query_tags_batch(tt, *wq, 256)):.4f} ms "
+        f"(device) {card}")
+    del wide, wq
     qcodes, qlens = port_cli.pack_reads(exact + reads[:CLI_QUERY_ERRORS])
     qc, ql = T(qcodes), T(qlens)
     # a read that occurs takes a step per base; one that does not stops at

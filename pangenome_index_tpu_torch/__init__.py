@@ -13,7 +13,8 @@ Layout:
   csrc/            the kernels: K1 dense rank + row gather, K2 FMD extension,
                    K3 MEM finding (with its seed-resolving pass), K4 per-MEM
                    tag counts, K5 gather probe,
-                   K6 tag positions per interval, K7 backward search (count)
+                   K6 tag positions per interval, K7 backward search (count),
+                   and the tag search tree's descent alone (tagsearch.cu)
   native.py        ctypes binding of the native C++ engine (src/cpp)
   utils/ models/ formats/   alphabet, synthetic data, host index models and
                    the .ri / .tags codecs
@@ -36,7 +37,7 @@ from .ops.fmd import extend
 from .ops.gather_probe import gather_chain, row_gather
 from .ops.mems import find_mems as _find_mems_batch
 from .ops.mems import resolve_seeds
-from .ops.tagquery import query_mem_tags, query_tags_batch
+from .ops.tagquery import query_mem_tags, query_tags_batch, tag_upper_bound
 
 __version__ = "0.1.0"
 
@@ -46,7 +47,8 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "find_mems": _find_mems_batch,
            "query_mem_tags": query_mem_tags, "row_gather": row_gather,
            "gather_chain": gather_chain, "count": count,
-           "query_tags_batch": query_tags_batch}
+           "query_tags_batch": query_tags_batch,
+           "tag_upper_bound": tag_upper_bound}
 
 
 def reset_launches() -> None:

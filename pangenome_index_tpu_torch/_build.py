@@ -45,14 +45,16 @@ SIGNATURES = {
                            _I, _I64, _P, _P, _P, _P, _P, _P),
     "pgt_find_mems_dense": (_P, _I64, _P, _I64, _P, _P, _P, _P, _I, _I, _I,
                             _I, _I, _I, _I, _I64, _P, _P, _P, _P, _P, _P),
-    "pgt_query_mem_tags": (_P, _I64, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P),
+    "pgt_query_mem_tags": (_P, _I64, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _P,
+                           _P, _P),
     "pgt_row_gather": (_P, _I64, _P, _I64, _I, _I, _P, _P),
     "pgt_gather_chain": (_P, _I64, _P, _I64, _I, _P, _P),
     "pgt_count_ckpt": (_P, _I64, _P, _P, _I64, _P, _I64, _I, _P, _P, _P),
     "pgt_count_dense": (_P, _I64, _P, _I64, _P, _P, _I64, _P, _I64, _I, _P,
                         _P, _P),
-    "pgt_query_tags_batch": (_P, _I64, _P, _P, _P, _I64, _I, _I, _P, _P, _P,
-                             _P, _P),
+    "pgt_query_tags_batch": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _I, _I,
+                             _P, _P, _P, _P, _P),
+    "pgt_tag_upper_bound": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
 }
 
 _lib = None

@@ -9,7 +9,8 @@ the JAX package, `ckpt_planes` derived from it for the kernels) and dense
 run records (a run id and one 32-byte record per query); base tables (the
 full per-run cum table) serve the plain versions only. n, n_seq and max_len are host integers: every
 kernel takes them as launch arguments, and reading them never waits on the
-card.
+card. The tag tables carry, beside the JAX package's fields, the search tree
+over their run heads that the tag kernels descend (`derive_search_tree`).
 """
 
 from __future__ import annotations
@@ -66,6 +67,11 @@ class TagTables:
     pos_enc: torch.Tensor    # int64 [t] packed graph positions
     bwt_start: torch.Tensor  # [t] run head BWT offsets (sorted)
     total: int               # covered BWT length
+    # the search tree over bwt_start (derive_search_tree) and the first line
+    # of each of its levels; the kernels search through it and refuse
+    # tables without it
+    search_tree: torch.Tensor | None = None
+    tree_levels: tuple[int, ...] | None = None
 
     @property
     def n_runs(self) -> int:
@@ -190,6 +196,58 @@ def derive_rank_planes(ckpt: torch.Tensor, chunk_rows: int = 1 << 16) -> torch.T
     return out
 
 
+#: keys of a search-tree node (one 64-byte line of int32) and its children
+NODE_KEYS = 16
+FAN_OUT = NODE_KEYS + 1
+
+
+def derive_search_tree(heads: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
+    """The static search tree over the sorted run heads `heads` [t], derived
+    on their device: (lines [rows, 16] of the heads' dtype, the first line
+    of each level).
+
+    A node is one line of 16 keys with 17 children. The leaf level is `heads`
+    itself read as lines of 16 (the last may be short); node j of height h
+    covers the leaf lines [j * 17^h, (j + 1) * 17^h), and its key i is the
+    first head of the leaf line where its child i + 1 begins, or the dtype's
+    maximum where the heads end before it. The tensor holds the internal
+    levels, root first, then one more line: the last leaf line padded to 16
+    keys with the maximum. levels[d] is the first line of level d, and
+    levels[depth] that padded line. With c = the keys of a node that are
+    <= v, the descent goes to child 17 * j + c, and the number of heads <= v
+    is 16 * (leaf line) + the keys of that line that are <= v
+    (ops/tagquery.py:tag_upper_bound_plain, csrc/tags.cuh:upper_bound_quad).
+    A head equal to the dtype's maximum could not be told from the padding
+    and is refused (heads are BWT offsets, below the covered length)."""
+    t = heads.shape[0]
+    dev = heads.device
+    big = torch.iinfo(heads.dtype).max
+    if t and int(heads[-1]) == big:
+        raise ValueError("a tag run head equals the dtype's maximum")
+    n_lines = max(1, -(-t // NODE_KEYS))
+    depth = 0
+    while FAN_OUT ** depth < n_lines:
+        depth += 1
+    child = torch.arange(1, FAN_OUT, device=dev)
+    parts, levels, at = [], [], 0
+    for h in range(depth, 0, -1):
+        n_nodes = -(-n_lines // FAN_OUT ** h)
+        line = (torch.arange(n_nodes, device=dev)[:, None] * FAN_OUT ** h
+                + child[None, :] * FAN_OUT ** (h - 1))
+        keys = torch.full((n_nodes, NODE_KEYS), big, dtype=heads.dtype, device=dev)
+        there = line < n_lines
+        keys[there] = heads[line[there] * NODE_KEYS]
+        parts.append(keys)
+        levels.append(at)
+        at += n_nodes
+    last = torch.full((1, NODE_KEYS), big, dtype=heads.dtype, device=dev)
+    tail = heads[(n_lines - 1) * NODE_KEYS :]
+    last[0, : tail.shape[0]] = tail
+    parts.append(last)
+    levels.append(at)
+    return torch.cat(parts), tuple(levels)
+
+
 def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
                      dense: bool = False,
                      super_shift: int | None = None) -> RIndexTables:
@@ -234,12 +292,15 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
 
 
 def tags_to_device(tags: TagArray, device) -> TagTables:
-    """Tag array -> tables on `device`; run heads int32 below 2^31 rows."""
+    """Tag array -> tables on `device`, with the search tree over the run
+    heads; run heads int32 below 2^31 rows."""
     device = torch.device(device)
     pd = _pick_dtype(tags.total)
+    heads = _put(tags.bwt_start, pd, device)
+    tree, levels = derive_search_tree(heads)
     return TagTables(pos_enc=_put(tags.pos_enc, torch.int64, device),
-                     bwt_start=_put(tags.bwt_start, pd, device),
-                     total=int(tags.total))
+                     bwt_start=heads, total=int(tags.total),
+                     search_tree=tree, tree_levels=levels)
 
 
 #: JAX RIndexTables fields with no counterpart in the port (other rank modes)
@@ -272,7 +333,9 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
         t.ckpt_planes = derive_rank_planes(t.ckpt)
     tt = None
     if tags is not None:
+        heads = put(tags["bwt_start"])
+        tree, levels = derive_search_tree(heads)
         tt = TagTables(pos_enc=put(tags["pos_enc"]).to(torch.int64),
-                       bwt_start=put(tags["bwt_start"]),
-                       total=int(tags["total"]))
+                       bwt_start=heads, total=int(tags["total"]),
+                       search_tree=tree, tree_levels=levels)
     return t, tt

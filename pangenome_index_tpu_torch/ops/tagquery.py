@@ -13,6 +13,13 @@ K6 is the counterpart of query_tags_batch: per interval, the same run range
 (the mod-10 quirk, or the runs overlapping the interval exactly), and the
 distinct positions of the window ascending at the front of a `capacity`
 row padded with -1, for the command-line output.
+
+Both kernels search the run heads through the tables' search tree
+(tables.derive_search_tree; csrc/tags.cuh). tag_upper_bound is that search
+alone (csrc/tagsearch.cu), the counterpart of the jnp.searchsorted calls of
+the two JAX functions; its plain version walks the same tree with torch
+indexing, so the structure can be held against torch.searchsorted on any
+device. The plain versions of K4 and K6 keep torch.searchsorted.
 """
 
 from __future__ import annotations
@@ -22,11 +29,72 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .tables import TagTables
+from .tables import FAN_OUT, NODE_KEYS, TagTables
 
 #: encoded_start_every_k_run of the reference (tag_arrays.hpp:120); the JAX
 #: module that defines it imports jax, so it is restated here
 START_EVERY_K = 10
+
+
+#: widest row K6 takes: its block sorts a row in shared memory
+MAX_BATCH_CAPACITY = 1 << 14
+
+def _require_tree(tt: TagTables) -> None:
+    if tt.search_tree is None:
+        raise ValueError("tag tables without a search tree: build them with "
+                         "tags_to_device or tables_from_numpy")
+
+
+def _tree_args(tt: TagTables, dev) -> tuple:
+    """The kernels' view of the tag tables: heads, their count, the search
+    tree and its lines. Raises when the tables carry no tree."""
+    _require_tree(tt)
+    heads = _build.check("tag bwt_start", tt.bwt_start, torch.int32, dev)
+    tree = _build.check("tag search tree", tt.search_tree, torch.int32, dev)
+    if heads % 16 or tree % 16:
+        raise ValueError("tag run heads and search tree must be 16-byte aligned")
+    return heads, tt.n_runs, tree, tt.search_tree.shape[0]
+
+
+def tag_upper_bound_plain(tt: TagTables, v: torch.Tensor) -> torch.Tensor:
+    """Number of run heads <= v[i] (searchsorted side="right"), found by
+    walking the tables' search tree with torch indexing: one line of 16
+    keys a level, the child chosen by the count of keys <= v. [B] int32."""
+    _require_tree(tt)
+    tree, levels = tt.search_tree, tt.tree_levels
+    t = tt.n_runs
+    if t == 0:
+        return torch.zeros(v.shape, dtype=torch.int32, device=v.device)
+    big = torch.iinfo(tree.dtype).max
+    key = v.to(tree.dtype).clamp(max=big - 1)[:, None]   # the padding never counts
+    node = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    for first in levels[:-1]:
+        node = node * FAN_OUT + (tree[first + node] <= key).sum(dim=1)
+    slots = node[:, None] * NODE_KEYS + torch.arange(NODE_KEYS, device=v.device)
+    # the last leaf line is read from the tree, where it is padded
+    leaf = torch.where((node == (t - 1) // NODE_KEYS)[:, None], tree[levels[-1]][None, :],
+                       tt.bwt_start[slots.clamp(max=t - 1)])
+    return (node * NODE_KEYS + (leaf <= key).sum(dim=1)).to(torch.int32)
+
+
+def tag_upper_bound(tt: TagTables, v: torch.Tensor) -> torch.Tensor:
+    """v [B] (the run heads' dtype) -> number of run heads <= v[i], [B]
+    int32: one kernel launch on the card (int32 heads), the plain walk of
+    the tree on the CPU."""
+    if v.dim() != 1:
+        raise ValueError("tag_upper_bound: v must be [B]")
+    if v.device.type == "cpu":
+        return tag_upper_bound_plain(tt, v)
+    dev = tt.bwt_start.device
+    out = torch.empty(v.shape[0], dtype=torch.int32, device=dev)
+    _build.launch("pgt_tag_upper_bound", *_tree_args(tt, dev),
+                  _build.check("v", v, torch.int32, dev), v.shape[0],
+                  out.data_ptr(), _build.stream(dev))
+    tag_upper_bound.launches += 1
+    return out
+
+
+tag_upper_bound.launches = 0
 
 
 def query_mem_tags_plain(tt: TagTables, bwt_start, size, count,
@@ -66,9 +134,8 @@ def query_mem_tags(tt: TagTables, bwt_start, size, count, capacity: int = 32):
     B, M = bwt_start.shape
     nu = torch.empty((B, M), dtype=torch.int32, device=dev)
     ov = torch.empty((B, M), dtype=torch.bool, device=dev)
-    _build.launch("pgt_query_mem_tags",
-                  _build.check("tag bwt_start", tt.bwt_start, torch.int32, dev),
-                  tt.n_runs, _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
+    _build.launch("pgt_query_mem_tags", *_tree_args(tt, dev),
+                  _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
                   _build.check("bwt_start", bwt_start, torch.int32, dev),
                   _build.check("size", size, torch.int32, dev),
                   _build.check("count", count, torch.int32, dev), B, M,
@@ -119,26 +186,31 @@ def query_tags_batch(tt: TagTables, start, end, capacity: int = 64,
                      exact: bool = False) -> TagQueryResult:
     """start/end [B] inclusive BWT intervals -> TagQueryResult; one kernel
     launch on the card (int32 intervals and run heads), the plain version
-    on the CPU."""
+    on the CPU. The kernel writes every slot of `positions` itself."""
     if capacity < 1:
         raise ValueError("query_tags_batch: capacity must be >= 1")
     if start.dim() != 1 or end.shape != start.shape:
         raise ValueError("query_tags_batch: start and end must be [B] each")
     if start.device.type == "cpu":
         return query_tags_batch_plain(tt, start, end, capacity, exact)
+    if capacity > MAX_BATCH_CAPACITY:
+        raise ValueError(f"query_tags_batch: the kernel takes capacities up "
+                         f"to {MAX_BATCH_CAPACITY}, got {capacity}")
     dev = tt.bwt_start.device
     B = start.shape[0]
     positions = torch.empty((B, capacity), dtype=torch.int64, device=dev)
     n_unique, n_runs = (torch.empty(B, dtype=torch.int32, device=dev)
                         for _ in range(2))
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    _build.launch("pgt_query_tags_batch",
-                  _build.check("tag bwt_start", tt.bwt_start, torch.int32, dev),
-                  tt.n_runs, _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
+    # the block's sort buffer: the power of two that holds the widest row
+    sort_slots = max(64, 1 << (capacity - 1).bit_length())
+    _build.launch("pgt_query_tags_batch", *_tree_args(tt, dev),
+                  _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
                   _build.check("start", start, torch.int32, dev),
                   _build.check("end", end, torch.int32, dev), B, int(capacity),
-                  int(bool(exact)), positions.data_ptr(), n_unique.data_ptr(),
-                  n_runs.data_ptr(), overflow.data_ptr(), _build.stream(dev))
+                  int(bool(exact)), sort_slots, positions.data_ptr(),
+                  n_unique.data_ptr(), n_runs.data_ptr(), overflow.data_ptr(),
+                  _build.stream(dev))
     query_tags_batch.launches += 1
     return TagQueryResult(positions, n_unique, n_runs, overflow)
 

@@ -14,7 +14,9 @@ from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict, read_win
 from pangenome_index_tpu_torch.utils.alphabet import BYTE_TO_CODE
 from pangenome_index_tpu_torch.utils.synth import (build_synth_index, synth_reads,
                                                    synth_tag_array)
-from pangenome_index_tpu_torch.ops.tables import rindex_to_device, tags_to_device
+from pangenome_index_tpu_torch.models.tagarray import TagArray
+from pangenome_index_tpu_torch.ops.tables import (TagTables, rindex_to_device,
+                                                  tags_to_device)
 
 pytestmark = pytest.mark.cuda
 
@@ -259,3 +261,101 @@ def test_query_tags_batch(dev, index, capacity, exact):
     expect = tagquery.query_tags_batch_plain(tt, s, e, capacity, exact)
     for name, g, x in zip(got._fields, got, expect):
         assert torch.equal(g, x), name
+
+
+def repeating_tags(t=3000, seed=0):
+    """A tag array whose positions repeat (the dedupe has work) and hold one
+    INT64_MAX (never kept); runs of 1 to 5 rows."""
+    rng = np.random.default_rng(seed)
+    pos = rng.integers(0, 400, t) * 7
+    pos[1234 % t] = np.iinfo(np.int64).max
+    return TagArray.from_runs(pos, rng.integers(1, 6, t))
+
+
+@pytest.mark.parametrize("t", [0, 1, 16, 17, 273, 4625, 21142])
+def test_tag_upper_bound(dev, t):
+    """The tree descent on the card against torch.searchsorted and the plain
+    walk of the same tree."""
+    rng = np.random.default_rng(t)
+    heads = np.sort(rng.integers(3, 3 + 4 * max(t, 1), t))
+    tags = TagArray(pos_enc=np.zeros(t, np.int64), bwt_start=heads, total=int(4 * t + 8))
+    tt = tags_to_device(tags, dev)
+    v = np.concatenate((heads, heads - 1, heads + 1, [0, -1, -2**31, 2**31 - 2, 2**31 - 1],
+                        rng.integers(0, 4 * t + 20, 5000))).astype(np.int32)
+    vd = torch.from_numpy(v).to(dev)
+    got = tagquery.tag_upper_bound(tt, vd)
+    assert torch.equal(got.long(), torch.searchsorted(tt.bwt_start, vd, right=True))
+    assert torch.equal(got, tagquery.tag_upper_bound_plain(tt, vd))
+
+
+@pytest.mark.parametrize("capacity", [1, 8, 9, 32])
+def test_query_mem_tags_partial_and_empty_reads(dev, capacity):
+    """Reads with count < M, count = 0 and count > M, MEMs of one row to
+    hundreds of runs; the slots past min(count, M) hold arbitrary values."""
+    tags = repeating_tags(seed=capacity)
+    tt = tags_to_device(tags, dev)
+    rng = np.random.default_rng(capacity)
+    B, M = 700, 8
+    bwt = rng.integers(0, tags.total - 1, (B, M))
+    size = np.where(rng.random((B, M)) < 0.6, rng.integers(1, 12, (B, M)),
+                    rng.integers(1, 900, (B, M)))
+    size = np.minimum(size, tags.total - bwt)
+    count = rng.integers(0, M + 3, B)
+    count[:40] = 0
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev) for a in (bwt, size, count)]
+    got = tagquery.query_mem_tags(tt, *args, capacity=capacity)
+    expect = tagquery.query_mem_tags_plain(tt, *args, capacity=capacity)
+    for g, e in zip(got, expect):
+        assert torch.equal(g, e)
+    assert bool(got[1].any()) and not bool(got[0][:40].any())
+
+
+@pytest.mark.parametrize("capacity", [1, 8, 33, 256, 300])
+@pytest.mark.parametrize("exact", [False, True])
+def test_query_tags_batch_wide_rows(dev, capacity, exact):
+    """Rows of every width from 1 run to past the capacity: the thread's,
+    the warp's and the block's sort, and a batch that is no multiple of a
+    block's rows."""
+    tags = repeating_tags(seed=capacity)
+    tt = tags_to_device(tags, dev)
+    rng = np.random.default_rng(capacity)
+    t = tags.n_runs
+    spans = np.concatenate((np.arange(1, 70), [127, 128, 129, 255, 256, 257, 300, 511,
+                                               600], rng.integers(1, 400, 1000)))
+    first = rng.integers(0, t, len(spans))
+    last = np.minimum(first + spans - 1, t - 1)
+    start, end = tags.bwt_start[first], tags.bwt_start[last]
+    start[-3:] = (0, tags.bwt_start[-3], tags.bwt_start[1230])
+    end[-3:] = (tags.bwt_start[40], tags.total - 1, tags.bwt_start[1240])
+    s, e = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (start, end))
+    got = tagquery.query_tags_batch(tt, s, e, capacity, exact)
+    expect = tagquery.query_tags_batch_plain(tt, s, e, capacity, exact)
+    for name, g, x in zip(got._fields, got, expect):
+        assert torch.equal(g, x), name
+    assert bool(got.overflow.any()) and not bool(got.overflow.all())
+    assert len(spans) % 128 != 0
+
+
+def test_query_tags_batch_refuses_a_capacity_past_the_sort_buffer(dev, index):
+    idx, _ = index
+    tt = tags_to_device(synth_tag_array(idx), dev)
+    z = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="capacities up to"):
+        tagquery.query_tags_batch(tt, z, z, tagquery.MAX_BATCH_CAPACITY + 1)
+    got = tagquery.query_tags_batch(tt, z, z, tagquery.MAX_BATCH_CAPACITY)
+    expect = tagquery.query_tags_batch_plain(tt, z, z, tagquery.MAX_BATCH_CAPACITY)
+    assert torch.equal(got.positions, expect.positions)
+
+
+def test_tag_kernels_refuse_tables_without_the_tree(dev, index):
+    """No binary-search route on the card: tables built by hand, without
+    the search tree, are refused by every wrapper that searches."""
+    idx, _ = index
+    tt = tags_to_device(synth_tag_array(idx), dev)
+    bare = TagTables(pos_enc=tt.pos_enc, bwt_start=tt.bwt_start, total=tt.total)
+    z = torch.zeros(8, dtype=torch.int32, device=dev)
+    for call in (lambda: tagquery.tag_upper_bound(bare, z),
+                 lambda: tagquery.query_tags_batch(bare, z, z, 8),
+                 lambda: tagquery.query_mem_tags(bare, z[None, :], z[None, :], z[:1], 8)):
+        with pytest.raises(ValueError, match="search tree"):
+            call()

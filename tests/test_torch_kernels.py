@@ -15,7 +15,8 @@ from pangenome_index_tpu.ops.tables import tags_to_device as jax_tags_to_device
 from pangenome_index_tpu.ops.tagquery import query_mem_tags as jax_query_mem_tags
 from pangenome_index_tpu.utils.synth import build_synth_index, synth_tag_array
 from pangenome_index_tpu_torch.ops import dense_rank, fmd, rank, tagquery
-from pangenome_index_tpu_torch.ops.tables import (derive_rank_planes,
+from pangenome_index_tpu_torch.ops.tables import (TagTables, derive_rank_planes,
+                                                  derive_search_tree,
                                                   rindex_to_device,
                                                   tables_from_numpy,
                                                   tags_to_device)
@@ -209,6 +210,81 @@ def test_query_mem_tags_matches_jax(index, capacity):
     for g, e in zip(got, expect):
         np.testing.assert_array_equal(g.numpy(), np.asarray(e))
     assert got[1].any() and not got[1].all()
+
+
+#: hand-made head arrays: t heads, by the tree's shape at that size (a line
+#: holds 16 heads, a node has 17 children)
+TREE_SIZES = {"one head": 1, "one full line": 16, "two lines": 17,
+              "17 lines: one full node": 272, "18 lines: a second level": 273,
+              "289 heads": 289, "290 heads": 290,
+              "289 lines: two full levels": 4624, "290 lines: a third level": 4625}
+
+
+def check_tree_search(heads: np.ndarray, extra: np.ndarray):
+    """The plain walk of the derived tree against torch.searchsorted and the
+    JAX package's jnp.searchsorted, at every head, its neighbours, the ends
+    of the int32 range and `extra`."""
+    h = torch.from_numpy(heads)
+    tree, levels = derive_search_tree(h)
+    assert tree.dtype == h.dtype and tree.shape[1] == 16
+    assert len(levels) >= 1 and levels[-1] == tree.shape[0] - 1
+    # the structure costs about t / 16 keys beside the heads
+    assert tree.numel() <= len(heads) / 16 * 1.07 + 16 * (len(levels) + 1)
+    tt = TagTables(pos_enc=torch.zeros(len(heads), dtype=torch.int64), bwt_start=h,
+                   total=0, search_tree=tree, tree_levels=levels)
+    wide = heads.astype(np.int64)
+    v = np.concatenate((wide, wide - 1, wide + 1, extra,
+                        [0, -1, -2**31, 2**31 - 2, 2**31 - 1])).astype(np.int32)
+    got = tagquery.tag_upper_bound(tt, torch.from_numpy(v))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(
+        got.numpy(), torch.searchsorted(h, torch.from_numpy(v), right=True).numpy())
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jnp.searchsorted(jnp.asarray(heads), jnp.asarray(v),
+                                                 side="right")))
+
+
+def test_tag_search_tree_on_the_synthetic_index(index):
+    idx, lines = index
+    tags = synth_tag_array(idx, lines=lines)
+    rng = np.random.default_rng(5)
+    check_tree_search(tags.bwt_start.astype(np.int32),
+                      rng.integers(-100, idx.n + 100, 4096))
+
+
+@pytest.mark.parametrize("size", list(TREE_SIZES))
+@pytest.mark.parametrize("heads", ["distinct", "equal runs"])
+def test_tag_search_tree_on_hand_made_heads(size, heads):
+    t = TREE_SIZES[size]
+    rng = np.random.default_rng(t)
+    a = np.sort(rng.choice(np.arange(5, 5 + 8 * t), t, replace=False))
+    if heads == "equal runs":      # equal heads across line and node borders
+        a = np.sort(rng.integers(5, 5 + max(t // 9, 1), t))
+    check_tree_search(a.astype(np.int32), rng.integers(0, 8 * t + 10, 512))
+
+
+def test_tag_search_tree_refuses_a_head_at_the_padding_value():
+    with pytest.raises(ValueError, match="maximum"):
+        derive_search_tree(torch.tensor([3, 2**31 - 1], dtype=torch.int32))
+
+
+def test_tag_tables_carry_the_search_tree(index):
+    """tags_to_device and tables_from_numpy both derive the tree from the
+    run heads they place; an empty tag array gets its one padded line."""
+    idx, lines = index
+    tags = synth_tag_array(idx, lines=lines)
+    own = tags_to_device(tags, "cpu")
+    tree, levels = derive_search_tree(own.bwt_start)
+    assert torch.equal(own.search_tree, tree) and own.tree_levels == levels
+    assert len(levels) == 4 and tree.shape[0] > tags.n_runs // (16 * 17)
+    jtt = jax_tags_to_device(tags)
+    jt = as_numpy(jax_rindex_to_device(idx, checkpoint=True))
+    _, carried = tables_from_numpy(jt, {f: np.asarray(getattr(jtt, f))
+                                        for f in ("pos_enc", "bwt_start", "total")},
+                                   "cpu")
+    assert torch.equal(carried.search_tree, tree) and carried.tree_levels == levels
+    empty = derive_search_tree(torch.zeros(0, dtype=torch.int32))
+    assert empty[1] == (0,) and bool((empty[0] == 2**31 - 1).all())
 
 
 @pytest.mark.parametrize("mode", list(MODES))

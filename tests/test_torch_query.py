@@ -14,6 +14,7 @@ from pangenome_index_tpu.ops import mertable as jax_mertable
 from pangenome_index_tpu.ops import rank as jrank
 from pangenome_index_tpu.ops.tables import rindex_to_device as jax_rindex_to_device
 from pangenome_index_tpu.ops.tables import tags_to_device as jax_tags_to_device
+from pangenome_index_tpu.models.tagarray import TagArray as JaxTagArray
 from pangenome_index_tpu.ops.tagquery import query_tags_batch as jax_query_tags_batch
 from pangenome_index_tpu.utils.alphabet import BYTE_TO_CODE
 from pangenome_index_tpu.utils.synth import build_synth_index, synth_tag_array
@@ -149,6 +150,49 @@ def test_query_tags_batch_matches_jax(index, capacity, exact):
     assert got.overflow.any() and (got.n_runs <= 0).any()
     if capacity < 256:
         assert not got.overflow.all()
+
+
+def wide_intervals(bwt_start: np.ndarray, total: int, spans, rng):
+    """Intervals that span the given numbers of tag runs: from inside run i
+    to inside run i + span - 1 (clipped to the array)."""
+    t = len(bwt_start)
+    spans = np.asarray(spans)
+    first = rng.integers(0, t, len(spans))
+    last = np.minimum(first + spans - 1, t - 1)
+    ends = np.concatenate((bwt_start[1:], [total]))
+    start = rng.integers(bwt_start[first], ends[first])
+    end = np.maximum(rng.integers(bwt_start[last], ends[last]), start)
+    return start.astype(np.int32), end.astype(np.int32)
+
+
+@pytest.mark.parametrize("capacity", [1, 8, 33, 256])
+@pytest.mark.parametrize("exact", [False, True])
+def test_query_tags_batch_wide_rows_match_jax(capacity, exact):
+    """Rows of 1 run to past the capacity, over a tag array whose positions
+    repeat (so the dedupe has work) and hold one INT64_MAX (never kept)."""
+    rng = np.random.default_rng(100 + capacity)
+    t = 3000
+    pos = rng.integers(0, 400, t) * 7
+    pos[rng.integers(0, t, 40)] = pos[rng.integers(0, t, 40)]
+    pos[1234] = np.iinfo(np.int64).max
+    tags = JaxTagArray.from_runs(pos, rng.integers(1, 6, t))
+    spans = np.concatenate((np.arange(1, 70), [127, 128, 129, 255, 256, 257, 300,
+                                               511, 600], rng.integers(2, 300, 120)))
+    start, end = wide_intervals(tags.bwt_start, tags.total, spans, rng)
+    # rows at the array's two ends, and the run that holds INT64_MAX
+    start[-3:] = (0, tags.bwt_start[-3], tags.bwt_start[1230])
+    end[-3:] = (tags.bwt_start[40], tags.total - 1, tags.bwt_start[1240])
+    expect = jax_query_tags_batch(jax_tags_to_device(tags), jnp.asarray(start),
+                                  jnp.asarray(end), capacity=capacity, exact=exact)
+    got = query_tags_batch(tags_to_device(tags, "cpu"), torch.from_numpy(start),
+                           torch.from_numpy(end), capacity=capacity, exact=exact)
+    for name, g, e in zip(got._fields, got, expect):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=name)
+    assert got.overflow.any() and not got.overflow.all()
+    assert int(got.n_runs.max()) > 256 and int(got.n_unique.max()) >= min(capacity, 100)
+    if capacity > 1:   # some windows hold a position twice
+        assert (got.n_unique < got.n_runs.clamp(max=capacity)).any()
+    assert not (got.positions == np.iinfo(np.int64).max).any()
 
 
 @pytest.mark.parametrize("kernel", ["count", "query_tags_batch"])
