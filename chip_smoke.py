@@ -10,7 +10,8 @@ launch count set to 0 just before a path and read just after it:
    pangenome (8 haplotypes), 16384 reads of 150 bp with 1% errors, min_len
    20, min_occ 1, m=14 seed table, s=19 long-seed dictionary, MEM capacity
    8, tag capacity 8 - through the checkpoint-rank and the dense-rank
-   configurations, checked against the native C++ engine;
+   configurations, each building the dictionary on the card (no cache
+   holds it), checked against the native C++ engine;
 2. the gather-rate probe (gather_probe.sweep): random 64-byte row gathers
    from a [312500, 16] int32 table, independent and as dependent chains;
 3. the find-mems and query-tags commands (cli.main) on the bench index
@@ -21,7 +22,13 @@ launch count set to 0 just before a path and read just after it:
 4. the tag search (tagquery.tag_upper_bound): the descent of the tag search
    tree that K4 and K6 search with, alone, against torch.searchsorted at
    every run head of the bench index, its neighbours, the ends of the int32
-   range and a million random values.
+   range and a million random values;
+5. the long-seed dictionary (sparsedict.build_sparse_dict_device, the
+   build-sdict command): s=19 at the bench index on the card, through both
+   rank providers, equal element for element to the port's host build
+   (whose seconds are printed beside the card's); every level's kernels
+   against their plain versions; s=31 and min_keep=2 on a small synthetic
+   index; the command's file loaded back and compared.
 
 The script imports and starts nothing of the JAX package
 (pangenome_index_tpu), which need not be importable where it runs: that the
@@ -52,7 +59,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 TAG_CAP = 8       # tag capacity of the serving path
 N_LANES = 32768   # K1/K2 comparison batch
-N_K3 = 512        # K3 comparison: the first and the last sorted reads
+N_K3 = 512        # K3 comparison: the first and the last reads
 N_RANK = 32768    # rank6 through the bit-plane table against the checkpoint rows
 N_SEARCH_RANDOM = 1 << 20  # random values of the tag search check
 N_WIDE = 8192     # K6 comparison on wide rows: intervals of 2 to 400 tag runs
@@ -60,6 +67,7 @@ REPEATS = 3       # timed serving repeats after the first
 CLI_FIND_READS = 2048   # find-mems byte comparison: the first bench reads
 CLI_QUERY_ERRORS = 1024  # query-tags: bench reads with errors after the exact ones
 PROBE_GROUP_BATCH = 65536  # K5 comparison batch (the probe's grouped sweep)
+SMALL_INDEX = (20_000, 4, 2)  # base length, haplotypes, seed: the s=31 build
 #: kernel -> (source, the TPU kernel or device program it replaces, the path
 #: whose launch count the kernels line reports)
 SOURCES = {
@@ -74,20 +82,25 @@ SOURCES = {
     "count": ("csrc/count.cu", "pangenome_index_tpu/ops/rank.py:196", "query-tags"),
     "query_tags_batch": ("csrc/tagbatch.cu", "pangenome_index_tpu/ops/tagquery.py:32", "find-mems"),
     "tag_upper_bound": ("csrc/tagsearch.cu", "pangenome_index_tpu/ops/tagquery.py:42", "tag-search"),
+    "sdict_expand": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:100", "build-sdict"),
+    "sdict_scatter": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:140", "build-sdict"),
 }
 #: published peaks of one H100 SXM: device memory bytes/s, and float32
 #: operations/s outside the tensor cores (taken for the kernels' 32-bit
 #: integer arithmetic too)
 PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
-#: kernels each path must launch (find-mems: its first run, seed table not cached)
+#: kernels each path must launch (serve and find-mems: seed table and
+#: dictionary not cached; gather_rows and rank6_dense: the dense-rank
+#: configuration's table check)
 PATH_KERNELS = {
     "serve": ("gather_rows", "rank6_dense", "extend", "resolve_seeds", "find_mems",
-              "query_mem_tags"),
+              "query_mem_tags", "sdict_expand", "sdict_scatter"),
     "probe": ("row_gather", "gather_chain"),
-    "find-mems": ("gather_rows", "extend", "resolve_seeds", "find_mems",
-                  "query_tags_batch"),
+    "find-mems": ("extend", "resolve_seeds", "find_mems", "query_tags_batch",
+                  "sdict_expand", "sdict_scatter"),
     "query-tags": ("count", "query_tags_batch"),
     "tag-search": ("tag_upper_bound",),
+    "build-sdict": ("sdict_expand", "sdict_scatter"),
 }
 
 
@@ -119,7 +132,8 @@ def main() -> int:
     from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
     from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd,
                                                gather_probe as probe_ops, mems,
-                                               mertable, rank, tagquery)
+                                               mertable, rank, sparsedict,
+                                               tagquery)
     from pangenome_index_tpu_torch.mems_probe import (
         BASE_LEN, MEM_CAP, MER_M, MIN_LEN, MIN_OCC, N_HAPS, N_READS, READ_LEN,
         SDICT_S, bench_workload, device_ms)
@@ -283,21 +297,141 @@ def main() -> int:
           "m=8 seed table built with K2 differs from the host build")
     log(f"m=8 seed table through K2: identical to the host build "
         f"({time.perf_counter() - t0:.1f} s)")
-    del t_dn
+
+    # --- 3b. the long-seed dictionary on the card --------------------------
+    t0 = time.perf_counter()
+    host_keys, host_vals = sparsedict.build_sparse_dict(idx, SDICT_S)
+    host_s = time.perf_counter() - t0
+    hk_d, hv_d = T(host_keys), T(host_vals)
+    card_s = []
+    for t, what in ((t_ck, "checkpoint"), (t_ck, "checkpoint"), (t_dn, "dense")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dk, dv = sparsedict.build_sparse_dict_device(idx, t, SDICT_S)
+        torch.cuda.synchronize()
+        card_s.append(f"{what} {time.perf_counter() - t0:.4f} s")
+        err = max(max_abs_err(dk, hk_d), max_abs_err(dv, hv_d))
+        check(err == 0, f"s={SDICT_S} dictionary built on the card ({what} rank) "
+                        f"differs from the host build by {err}")
+    log(f"s={SDICT_S} dictionary: {len(host_keys)} entries; built on the card "
+        f"({', '.join(card_s)}; the first holds the warm-up) identical to the host "
+        f"build, keys and vals (max difference 0); host build {host_s:.4f} s {card}")
+    del dk, dv, hk_d, hv_d
+
+    def once_ms(fn):
+        """(fn()'s result, its milliseconds by events around the one call)."""
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    # every level of the build, kernels against plain versions, and what the
+    # level must move: an entry (8 bytes of key, 12 of k, kp, size), its one
+    # or two 64-byte rank rows (the table at most once a level), 20 bytes a
+    # kept child. expand is given the interval and the rows, scatter the key
+    # and the children written; the scratch between them counts for neither.
+    sd = {name: dict(nbytes=0, ops=0, plain_ms=0.0, err=0)
+          for name in ("sdict_expand", "sdict_scatter")}
+    keys_l = torch.zeros(1, dtype=torch.int64, device=dev)
+    vals_l = torch.tensor([[0, 0, idx.n]], dtype=torch.int32, device=dev)
+    for level in range(SDICT_S):
+        D = keys_l.shape[0]
+        got = sparsedict.sdict_expand(t_ck, vals_l, 1)
+        plain, ms = once_ms(lambda: sparsedict.sdict_expand_plain(t_ck, vals_l, 1))
+        sd["sdict_expand"]["err"] = max(sd["sdict_expand"]["err"],
+                                        max_abs_err(got, plain))
+        sd["sdict_expand"]["plain_ms"] += ms
+        total = int(got[3])
+        nxt = sparsedict.sdict_scatter(keys_l, *got[:3], total, level)
+        plain, ms = once_ms(lambda: sparsedict.sdict_scatter_plain(
+            keys_l, got[0], got[1], total, level))
+        sd["sdict_scatter"]["err"] = max(sd["sdict_scatter"]["err"],
+                                         max_abs_err(nxt, plain))
+        sd["sdict_scatter"]["plain_ms"] += ms
+        rows = D + int(((vals_l[:, 0] >> 6) != ((vals_l[:, 0] + vals_l[:, 2]) >> 6)).sum())
+        sd["sdict_expand"]["nbytes"] += D * 12 + gathered(rows * 64, t_ck.ckpt_planes)
+        sd["sdict_expand"]["ops"] += D * 400
+        sd["sdict_scatter"]["nbytes"] += D * 8 + total * 20
+        sd["sdict_scatter"]["ops"] += D * 60
+        log(f"  level {level}: {D} entries, {rows} rank rows, {total} children kept")
+        flags = (got[0] != 0).reshape(-1)
+        keys_l, vals_l = nxt
+        del got, plain, nxt
+    check(torch.equal(keys_l, T(host_keys)) and torch.equal(vals_l, T(host_vals)),
+          "the level loop's dictionary differs from the host build")
+    for name, e in sd.items():
+        check(e["err"] == 0, f"{name}: kernel differs from its plain version by {e['err']}")
+    # device time of one whole build by kernel, from the profiler; the
+    # library's compaction primitive at the last level's size beside scatter
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sparsedict.build_sparse_dict_device(idx, t_ck, SDICT_S)
+        torch.cuda.synchronize()
+    by_kernel = {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
+                 if ev.device_time_total > 0}
+
+    def kernel_ms(*names):
+        return sum(ms for key, ms in by_kernel.items() if any(n in key for n in names))
+
+    sd["sdict_expand"]["ms"] = kernel_ms("sdict_expand_kernel", "sdict_scan_kernel")
+    sd["sdict_scatter"]["ms"] = kernel_ms("sdict_scatter_kernel")
+    cumsum_ms = gather_probe.time_ms(lambda: torch.cumsum(flags, dim=0))
+    for name, e in sd.items():
+        check(e["ms"] > 0, f"the profiler saw no {name} kernel")
+        t_bytes, t_ops = e["nbytes"] / PEAK_BYTES_S * 1e3, e["ops"] / PEAK_OPS_S * 1e3
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source="pangenome_index_tpu_torch/" + SOURCES[name][0],
+            replaces=SOURCES[name][1], max_abs_err=e["err"], ms=e["ms"],
+            plain_ms=e["plain_ms"], bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=cumsum_ms if name == "sdict_scatter" else None,
+            chain_steps=None)
+        log(f"{name}: identical to its plain version at all {SDICT_S} levels; "
+            f"{e['ms']:.4f} ms (device, a whole s={SDICT_S} build) vs plain "
+            f"{e['plain_ms']:.4f} ms, bound {kernels[name]['bound_ms']:.5f} ms by "
+            f"{kernels[name]['bound_by']} ({e['nbytes']} bytes, {e['ops']} operations) {card}")
+    log(f"a whole s={SDICT_S} build on the card: device busy {sum(by_kernel.values()):.4f} ms "
+        f"(scan alone {kernel_ms('sdict_scan_kernel'):.4f} ms); torch.cumsum over the "
+        f"last level's {flags.numel()} flags {cumsum_ms:.4f} ms (device) {card}")
+    del keys_l, vals_l, flags
+    # s=31 (a key's last two bits) and min_keep=2 on a small index, both providers
+    sidx, _ = synth.build_synth_index(*SMALL_INDEX[:2], seed=SMALL_INDEX[2])
+    for dense in (False, True):
+        st = rindex_to_device(sidx, dev, checkpoint=not dense, dense=dense)
+        for s_, keep in ((31, 1), (31, 2), (SDICT_S, 2)):
+            hk, hv = sparsedict.build_sparse_dict(sidx, s_, keep)
+            dk, dv = sparsedict.build_sparse_dict_device(sidx, st, s_, keep)
+            check(torch.equal(dk, T(hk)) and torch.equal(dv, T(hv)) and len(hk) > 0,
+                  f"s={s_}, min_keep={keep} on the small index "
+                  f"({'dense' if dense else 'checkpoint'} rank) differs from the host build")
+    log(f"small index (n={sidx.n}): s=31 and min_keep=2 builds on the card "
+        f"identical to the host build, both rank providers")
+    del t_dn, sidx, st
 
     # --- 4./6. the serving path, both rank configurations -----------------
+    # no cache holds the dictionary: the checkpoint configuration builds it
+    # on the card and writes the cache, the dense one is given no cache
     sdict_path = f"{ri_path}.sdict{SDICT_S}.npz"
+    if os.path.exists(sdict_path):
+        os.remove(sdict_path)
     port.reset_launches()
     results, batches = {}, {}
     for dense in (False, True):
         cfg = "dense" if dense else "checkpoint"
         batches[cfg] = prepare(idx, tags, codes, lens, dev, dense=dense,
                                min_occ=MIN_OCC, mer_m=MER_M, sdict_s=SDICT_S,
-                               sdict_path=sdict_path)
+                               sdict_path=None if dense else sdict_path)
         results[cfg] = run(batches[cfg], min_len=MIN_LEN, min_occ=MIN_OCC,
                            capacity=MEM_CAP, tag_capacity=TAG_CAP,
                            repeats=REPEATS)
     read_launches("serve")
+    check(launches["serve"]["sdict_expand"] == 2 * SDICT_S,
+          "serving did not build the dictionary on the card in both configurations")
+    check(results["checkpoint"].dict_entries == len(host_keys),
+          "serving's dictionary differs from the host build")
     for cfg, r in results.items():
         sec = r.seconds
         log(f"serve [{cfg} rank]: " + ", ".join(
@@ -350,7 +484,7 @@ def main() -> int:
     per_read = ("mer_keys", "mer_valid", "sdict_idx")
 
     def k3_inputs(bt, sel):
-        """find_mems arguments for the sorted reads `sel` of a batch."""
+        """find_mems arguments for the reads `sel` of a batch."""
         return (bt.tables, bt.codes[sel].contiguous(), bt.lengths[sel].contiguous(),
                 {k: (v[sel].contiguous() if k in per_read else v)
                  for k, v in bt.seed_kw.items()})
@@ -372,8 +506,7 @@ def main() -> int:
                 + gathered(int(steps.sum()) * 128, t_ck.ckpt_planes)
                 + n * (3 * MEM_CAP * 4 + 8))
 
-    # the first sorted reads are the easiest; the last hold the long chains
-    # and the seed misses
+    # reads in input order: both ends hold easy reads and long chains
     ends = {"first": slice(0, N_K3), "last": slice(N_READS - N_K3, N_READS)}
     for cfg, bt in batches.items():
         for which, sel in ends.items():
@@ -381,7 +514,7 @@ def main() -> int:
             inputs = k3_inputs(bt, sel)
             st = k3(mems.find_mems, inputs)[-1]
             compare("find_mems" if rec else
-                    f"find_mems ({cfg} rank, {which} {N_K3} sorted reads)",
+                    f"find_mems ({cfg} rank, {which} {N_K3} reads)",
                     lambda: k3(mems.find_mems, inputs),
                     lambda: k3(mems.find_mems_plain, inputs),
                     plain_reps=1, record=rec, nbytes=k3_bytes(st),
@@ -435,7 +568,7 @@ def main() -> int:
             + gathered(n_slots * TAG_CAP * 8, tt.pos_enc, tt.bwt_start),
             ops=n_slots * (2 * levels * 32 + TAG_CAP * TAG_CAP), chain=levels + 1)
 
-    # K3 on the whole sorted batch: the kernel's own device time (the
+    # K3 on the whole batch: the kernel's own device time (the
     # profiler's) and its time per dependent extension step (set by the
     # longest read's chain)
     bt = batches["checkpoint"]
@@ -445,7 +578,7 @@ def main() -> int:
     k3_steps = k3_out[-1]
     k3_us_step = k3_ms * 1e3 / int(k3_steps.max())
     k3_bound = k3_bytes(k3_steps) / PEAK_BYTES_S * 1e3
-    log(f"K3 kernel on all {N_READS} sorted reads: "
+    log(f"K3 kernel on all {N_READS} reads: "
         f"{k3_ms:.4f} ms (device), longest read {int(k3_steps.max())} "
         f"steps (mean {float(k3_steps.float().mean()):.2f}): {k3_us_step:.4f} us "
         f"per dependent step; bound by bytes {k3_bound:.5f} ms; the "
@@ -583,8 +716,11 @@ def main() -> int:
     fmt = ["--tags-format", "bytecode"]
     fm_reads = reads_file("find_reads.txt", reads[:CLI_FIND_READS])
     mer_cache = f"{ri_path}.mer{MER_M}.npz"
-    if os.path.exists(mer_cache):
-        os.remove(mer_cache)  # the first run builds the seed table through K2
+    for cached in (mer_cache, sdict_path):
+        if os.path.exists(cached):
+            # the first run builds the seed table through K2 and the
+            # dictionary through the level kernels
+            os.remove(cached)
     port.reset_launches()
     sec = port_cmd(["find-mems", *common, fm_reads, str(MIN_LEN), str(MIN_OCC),
                     *fmt], os.path.join(cli_dir, "find_port.txt"))
@@ -604,6 +740,25 @@ def main() -> int:
         f"route through the native engine ({len(got)} bytes, "
         f"{got.count(b'MEM START')} MEMs; host route {host_s:.1f} s); port "
         + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
+
+    built = os.path.join(cli_dir, f"built.sdict{SDICT_S}.npz")
+    if os.path.exists(built):
+        os.remove(built)
+    port.reset_launches()
+    sec = port_cmd(["build-sdict", ri_path, "-o", built, "-s", str(SDICT_S)],
+                   os.path.join(cli_dir, "sdict_port.txt"))
+    read_launches("build-sdict")
+    with np.load(built, allow_pickle=False) as z:
+        check(str(z["key"]) == sparsedict.sparse_dict_key(idx, SDICT_S, 1),
+              "build-sdict wrote another content key")
+        check(np.array_equal(z["keys"], host_keys) and np.array_equal(z["vals"], host_vals)
+              and z["vals"].dtype == host_vals.dtype,
+              "build-sdict's file differs from the host build")
+    with open(os.path.join(cli_dir, "sdict_port.txt.err")) as fh:
+        summary = [line.strip() for line in fh if line.startswith("sparse dict")]
+    check(len(summary) == 1, "build-sdict printed no summary line")
+    log(f"build-sdict: file identical to the host build ({summary[0]}); "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()) + f" {card}")
 
     exact = synth.synth_reads(lines, N_READS, READ_LEN, error_rate=0.0, seed=2)
     qt_reads = reads_file("query_reads.txt", exact + reads[:CLI_QUERY_ERRORS])

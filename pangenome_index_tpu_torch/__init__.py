@@ -1,6 +1,6 @@
-"""pangenome_index_tpu_torch: find-mems serving, the find-mems and
-query-tags commands and the gather-rate probe on PyTorch and hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""pangenome_index_tpu_torch: find-mems serving, the find-mems, query-tags
+and build-sdict commands and the gather-rate probe on PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package pangenome_index_tpu, which stays the reference.
 The port imports nothing of that package: the host side (index models,
@@ -14,14 +14,15 @@ Layout:
                    K3 MEM finding (with its seed-resolving pass), K4 per-MEM
                    tag counts, K5 gather probe,
                    K6 tag positions per interval, K7 backward search (count),
-                   and the tag search tree's descent alone (tagsearch.cu)
+                   the tag search tree's descent alone (tagsearch.cu), and
+                   the long-seed dictionary's frontier level (sparsedict.cu)
   native.py        ctypes binding of the native C++ engine (src/cpp)
   utils/ models/ formats/   alphabet, synthetic data, host index models and
                    the .ri / .tags codecs
   ops/             tables, a kernel wrapper and its plain PyTorch version per
                    kernel
   serve.py         the find-mems serving pipeline on one device
-  cli.py           the find-mems and query-tags commands
+  cli.py           the find-mems, query-tags and build-sdict commands
   gather_probe.py  the gather-rate probe (random 64-byte row gathers)
 
 Every function that makes tensors takes an explicit `device`. A kernel
@@ -37,6 +38,7 @@ from .ops.fmd import extend
 from .ops.gather_probe import gather_chain, row_gather
 from .ops.mems import find_mems as _find_mems_batch
 from .ops.mems import resolve_seeds
+from .ops.sparsedict import sdict_expand, sdict_scatter
 from .ops.tagquery import query_mem_tags, query_tags_batch, tag_upper_bound
 
 __version__ = "0.1.0"
@@ -48,7 +50,8 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "query_mem_tags": query_mem_tags, "row_gather": row_gather,
            "gather_chain": gather_chain, "count": count,
            "query_tags_batch": query_tags_batch,
-           "tag_upper_bound": tag_upper_bound}
+           "tag_upper_bound": tag_upper_bound,
+           "sdict_expand": sdict_expand, "sdict_scatter": sdict_scatter}
 
 
 def reset_launches() -> None:

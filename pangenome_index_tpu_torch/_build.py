@@ -55,6 +55,11 @@ SIGNATURES = {
     "pgt_query_tags_batch": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _I, _I,
                              _P, _P, _P, _P, _P),
     "pgt_tag_upper_bound": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
+    "pgt_sdict_expand_ckpt": (_P, _I64, _P, _P, _I64, _I, _I64, _P, _P, _P, _P,
+                              _P, _P),
+    "pgt_sdict_expand_dense": (_P, _I64, _P, _I64, _P, _P, _I64, _I, _I64, _P,
+                               _P, _P, _P, _P, _P),
+    "pgt_sdict_scatter": (_P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P),
 }
 
 _lib = None

@@ -1,17 +1,21 @@
-"""find-mems and query-tags on the PyTorch/CUDA port.
+"""find-mems, query-tags and build-sdict on the PyTorch/CUDA port.
 
     python -m pangenome_index_tpu_torch.cli find-mems RI TAGS READS MIN_LEN MIN_OCC [options]
     python -m pangenome_index_tpu_torch.cli query-tags RI TAGS READS [options]
+    python -m pangenome_index_tpu_torch.cli build-sdict RI [-o OUT] [-s S] [options]
 
-The commands of `python -m pangenome_index_tpu.cli` (cli.py:161-651) with
+The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-651) with
 the same argv, and stdout byte-equal to theirs under --engine native and
 --engine host, apart from the two "Total time" lines. There is one engine:
 the port's kernels on --device (default cuda; a missing card is an error,
-and --device cpu runs the kernels' plain PyTorch versions).
+and --device cpu runs the kernels' plain PyTorch versions). A missing file
+or invalid input ends a command with `panidx: ...` on stderr and exit code
+1, as the JAX command line does.
 
 find-mems: checkpoint (or dense) rank tables, the m-mer seed table (npz
-cache beside the index, else built with K2), the long-seed dictionary (host
-build, cached beside the index), the seed-difficulty work sort, MEM finding
+cache beside the index, else built with K2), the long-seed dictionary (npz
+cache beside the index, else built on the device from the rank tables:
+ops/sparsedict.py), MEM finding over the reads in input order
 (K3; --batch-size 0 is one launch over all reads), escalation of reads past
 --mem-capacity through K3 at capacity 128 and then 1024, a host refind past
 that, tag positions per MEM (K6; overflowing windows re-queried on the
@@ -20,6 +24,9 @@ formatter failure ends the run (nothing is re-emitted).
 
 query-tags: backward search of every read (K7), then its tag positions (K6,
 the reference's run range quirk; overflowing lanes re-queried on the host).
+
+build-sdict: the long-seed dictionary of an index, built ahead of serving
+into the file find-mems --long-seed reads.
 """
 
 from __future__ import annotations
@@ -36,8 +43,7 @@ from .formats import ri, tags as tagfmt
 from .models.mems import find_all_mems
 from .ops.count import count
 from .ops.mems import find_mems
-from .ops.mertable import (get_mer_table, read_mer_keys_fast, resolve_mer_len,
-                           seed_difficulty)
+from .ops.mertable import get_mer_table, read_mer_keys_fast, resolve_mer_len
 from .ops.sparsedict import (DEVICE_BYTES_CAP, get_sparse_dict,
                              read_windows_fast, sdict_to_device)
 from .ops.tables import rindex_to_device, tags_to_device
@@ -174,10 +180,11 @@ def cmd_find_mems(args, seconds: dict) -> int:
     s_long = resolve_long_seed(args.long_seed, args.min_len, mer_m)
     if s_long:
         sd_path = None if args.no_mer_cache else f"{args.ri}.sdict{s_long}.npz"
-        sd_keys, sd_vals = get_sparse_dict(idx, s_long, path=sd_path)
+        sd_keys, sd_vals = get_sparse_dict(idx, s_long, path=sd_path, tables=t)
         mark("sdict")
-        if sd_vals.nbytes > DEVICE_BYTES_CAP:
-            print(f"long-seed dictionary is {sd_vals.nbytes >> 20} MB "
+        sd_bytes = sd_vals.numel() * sd_vals.element_size()
+        if sd_bytes > DEVICE_BYTES_CAP:
+            print(f"long-seed dictionary is {sd_bytes >> 20} MB "
                   f"(> {DEVICE_BYTES_CAP >> 20} MB budget); serving with the "
                   f"dense tier only (PANIDX_SDICT_MAX_BYTES overrides)",
                   file=sys.stderr)
@@ -187,31 +194,22 @@ def cmd_find_mems(args, seconds: dict) -> int:
             shared.update(sdict_vals=vals_d, sdict_m=s_long)
             per_read["sdict_idx"] = di_d
     n_reads = len(reads)
-    order = torch.arange(n_reads, device=dev)
-    if mer_m:
-        # work sort: reads of like difficulty share a warp
-        proxy = seed_difficulty(shared["mer_table"], per_read["mer_keys"],
-                                per_read["mer_valid"], args.min_occ, lens_d,
-                                mer_m)
-        order = torch.argsort(proxy, stable=True)
     mark("windows")
 
-    def mems_of(sel: torch.Tensor, capacity: int):
-        """K3 over the reads `sel` (input indices on the device)."""
+    def mems_of(sel, capacity: int):
+        """K3 over the reads `sel` (a slice, or input indices on the device)."""
         return find_mems(t, codes_d[sel], lens_d[sel], args.min_len,
                          args.min_occ, capacity=capacity, **shared,
                          **{k: v[sel] for k, v in per_read.items()})
 
     t_mem = time.perf_counter()
     B = args.batch_size or n_reads
-    parts = [mems_of(order[s0 : s0 + B], args.mem_capacity)
+    parts = [mems_of(slice(s0, s0 + B), args.mem_capacity)
              for s0 in range(0, n_reads, B)]
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(n_reads, device=dev)
     starts, ends, bwts, sizes, counts, overflow = (
-        torch.cat(field)[inv].cpu().numpy() for field in zip(*parts))
+        torch.cat(field).cpu().numpy() for field in zip(*parts))
     # reads past the buffer re-run on the device at a capacity that holds
-    # them (`counts` is exact past the capacity), input-order codes
+    # them (`counts` is exact past the capacity)
     for tier in (c for c in ESCALATION_TIERS if c > args.mem_capacity):
         sel = np.flatnonzero(overflow & (counts <= tier))
         if not len(sel):
@@ -300,6 +298,30 @@ def cmd_query_tags(args, seconds: dict) -> int:
     return 0
 
 
+def cmd_build_sdict(args, seconds: dict) -> int:
+    """The long-seed dictionary of an index, built ahead of serving into the
+    content-keyed file find-mems --long-seed reads (the JAX command's
+    arguments and stderr summary). The frontier levels run on --device from
+    the index's checkpoint rank tables."""
+    dev = _device(args.device)
+    mark = _phases(dev, seconds)
+    idx = ri.load_file(args.ri)
+    _check_int32(idx)
+    mark("load")
+    s = args.s if args.s > 0 else min(args.min_len - 1, 31)
+    out = args.output or f"{args.ri}.sdict{s}.npz"
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    mark("tables")
+    t0 = time.perf_counter()
+    keys, vals = get_sparse_dict(idx, s, path=out, min_keep=args.min_keep,
+                                 tables=t)
+    mark("sdict")
+    nbytes = keys.nbytes + vals.numel() * vals.element_size()
+    print(f"sparse dict s={s}: {len(keys)} entries, {nbytes >> 20} MB -> {out} "
+          f"({time.perf_counter() - t0:.1f}s)", file=sys.stderr)
+    return 0
+
+
 def main(argv=None, seconds: dict | None = None) -> int:
     """Run one command; `seconds`, when given, receives the seconds of each
     phase (load, tables, ..., output)."""
@@ -347,8 +369,29 @@ def main(argv=None, seconds: dict | None = None) -> int:
                        help="torch device (default cuda; cpu runs the "
                             "kernels' plain versions)")
         q.set_defaults(fn=fn)
+    bs = sub.add_parser("build-sdict")
+    bs.add_argument("ri")
+    bs.add_argument("-o", "--output", default=None,
+                    help="artifact path (default <ri>.sdict<s>.npz: the path "
+                         "find-mems --long-seed reads)")
+    bs.add_argument("-s", type=int, default=0,
+                    help="window length (default min(min_len - 1, 31))")
+    bs.add_argument("--min-len", type=int, default=20,
+                    help="serving min MEM length the dictionary targets")
+    bs.add_argument("--min-keep", type=int, default=1)
+    bs.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the kernels' "
+                         "plain versions)")
+    bs.set_defaults(fn=cmd_build_sdict)
     args = p.parse_args(argv)
-    return args.fn(args, {} if seconds is None else seconds)
+    try:
+        return args.fn(args, {} if seconds is None else seconds)
+    except FileNotFoundError as exc:
+        print(f"panidx: {exc}", file=sys.stderr)
+        return 1
+    except ValueError as exc:
+        print(f"panidx: invalid input: {exc}", file=sys.stderr)
+        return 1
 
 
 if __name__ == "__main__":

@@ -9,16 +9,28 @@
 // first = lo + C[c], second = first + inside - 1. A code <= 0 or an empty
 // range gives the reference's (1, 0) sentinel; it is absorbing (lf_range
 // keeps it), so the thread stops there. Only the first lengths[b] codes of
-// a read are looked at; padding is never read.
+// a read are used; padding is staged with them and never looked at.
 //
-// What bounds it: each step is two rank6 row loads that depend on the
-// previous step, so a read is a chain of load latencies, as in K3. The rows
-// of a step are issued together with the load of the step's code (their
-// addresses need only the range), so a step waits for one round trip, not
-// two; only the counts of the step's own code are computed (rank.cuh), and
-// the reads are independent, so the whole batch is one launch with small
-// blocks to spread the threads over every SM. The rank provider is a
-// template parameter: checkpoint rows or dense records.
+// What bounds it: each step's rank rows depend on the step before, so a
+// read is a chain of load latencies (as in K3), and a lone warp's dependent
+// instructions cost 4 to 5 cycles each. Nothing about a read's codes depends
+// on the chain, so the design keeps everything but the rows off it:
+//   - a block stages the codes of its reads in shared memory before it walks
+//     them, coalesced and packed at 4 bits (codes outside 1..5 as 0, which
+//     ends a read), a window of kWindow positions at a time; a thread then
+//     reads eight codes with one shared-memory word;
+//   - while a step's rows are in flight the thread takes the next step's
+//     code and derives what depends on it alone (its complement, C[c] from
+//     shared memory), so that when the range of the next step is known every
+//     load of it is issued at once: the planes and the count pair of the
+//     code, all of one 64-byte line (rank.cuh:load_lf). No load waits for
+//     another load of its step;
+//   - after the rows arrive a step is one equality mask, two popcounts and
+//     the adds (rank.cuh:lf): the "less than" masks and the reverse
+//     interval's advance, which backward search never uses, are not computed.
+// The reads are independent: one launch, small blocks to spread the threads
+// over every SM. The rank provider is a template parameter: checkpoint rows
+// or dense records.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -26,44 +38,106 @@
 
 namespace {
 
-template <class Rank>
-__global__ void count_kernel(Rank rk, const int* __restrict__ Cg,
-                             const int* __restrict__ codes, int64_t width,
-                             const int* __restrict__ lengths, int64_t n_reads,
-                             int n, int* __restrict__ first_out,
-                             int* __restrict__ second_out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (b >= n_reads) return;
-  const int* read = codes + b * width;
-  int first = 0, second = n - 1;
-  for (int i = __ldg(lengths + b) - 1; i >= 0; --i) {
-    // the range's rank rows, in flight while the code arrives
-    const typename Rank::Rows rows = rk.load(first, second + 1 - first);
-    // a length past the padded width reads code 0 there, as JAX's one-hot
-    // select does
-    const int c = i < width ? __ldg(read + i) : 0;
-    if (c <= 0 || c > 5 || first > second) {
-      first = 1;
-      second = 0;
-      break;
-    }
-    const int c_c = __ldg(Cg + c);
-    int lo, inside, unused;
-    rk.counts(rows, first, second + 1 - first, c, pgt::comp_code(c), lo,
-              inside, unused);
-    if (inside <= 0) {
-      first = 1;
-      second = 0;
-      break;
-    }
-    first = lo + c_c;
-    second = first + inside - 1;
-  }
-  first_out[b] = first;
-  second_out[b] = second;
-}
+constexpr int kThreads = 64;         // reads a block
+constexpr int kWindow = 256;         // read positions staged at a time
+constexpr int kWords = kWindow / 8;  // packed words a read and window
 
-constexpr int kThreads = 64;
+template <class Rank>
+__global__ void __launch_bounds__(kThreads)
+count_kernel(Rank rk, const int* __restrict__ Cg,
+             const int* __restrict__ codes, int64_t width,
+             const int* __restrict__ lengths, int64_t n_reads, int n,
+             int* __restrict__ first_out, int* __restrict__ second_out) {
+  // word j of the block's read r at [j * kThreads + r]: a warp's reads of
+  // its own words fall into 32 banks
+  __shared__ uint32_t packed[kWords * kThreads];
+  __shared__ int c_of[8];
+  const int tid = threadIdx.x;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int64_t b = b0 + tid;
+  const int reads_here =
+      static_cast<int>(n_reads - b0 < kThreads ? n_reads - b0 : kThreads);
+  if (tid < 8) c_of[tid] = tid < 7 ? __ldg(Cg + tid) : 0;
+  const int len = b < n_reads ? __ldg(lengths + b) : 0;
+  int first = 0, second = n - 1;
+  // no step is taken over a batch of width 0, whatever the lengths say (the
+  // loop of ops/rank.py:count runs `width` times)
+  bool done = len <= 0 || width <= 0;
+  // a length past the padded width reads code 0 there, as JAX's one-hot
+  // select does; an empty index matches nothing
+  if (!done && (len > width || n <= 0)) {
+    first = 1;
+    second = 0;
+    done = true;
+  }
+  int i = len - 1;  // the read position of the next step
+  const int windows = static_cast<int>((width + kWindow - 1) / kWindow);
+  for (int w = windows - 1; w >= 0; --w) {
+    const int lo_pos = w * kWindow;
+    // also the barrier between the last window's readers and this one's
+    // writers; a window that no read of the block reaches is not staged
+    if (!__syncthreads_or(!done && i >= lo_pos)) continue;
+    const int64_t span = width - lo_pos;
+    const int words_here =
+        static_cast<int>(span < kWindow ? (span + 7) / 8 : kWords);
+    for (int idx = tid; idx < reads_here * words_here; idx += kThreads) {
+      const int r = idx / words_here, j = idx - r * words_here;
+      const int64_t p0 = lo_pos + 8 * j;
+      const int* src = codes + (b0 + r) * width + p0;
+      uint32_t word = 0;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int c = p0 + e < width ? __ldg(src + e) : 0;
+        word |= (c >= 1 && c <= 5 ? static_cast<uint32_t>(c) : 0u) << (4 * e);
+      }
+      packed[j * kThreads + r] = word;
+    }
+    __syncthreads();
+    if (done || i < lo_pos) continue;
+    int at = i - lo_pos;  // position inside the window
+    uint32_t word = packed[(at >> 3) * kThreads + tid];
+    int c = (word >> (4 * (at & 7))) & 15;
+    int qe = pgt::comp_code(c), c_c = c_of[c];
+    while (true) {
+      if (c == 0) {
+        first = 1;
+        second = 0;
+        done = true;
+        break;
+      }
+      const int size = second + 1 - first;
+      const typename Rank::LfRows rows = rk.load_lf(first, size, qe);
+      // while the rows are in flight: the next step's code and what depends
+      // on it alone
+      int c_next = 0;
+      if (at > 0) {
+        if (((at - 1) & 7) == 7) word = packed[((at - 1) >> 3) * kThreads + tid];
+        c_next = (word >> (4 * ((at - 1) & 7))) & 15;
+      }
+      const int qe_next = pgt::comp_code(c_next), cc_next = c_of[c_next];
+      int lo, inside;
+      rk.lf(rows, first, size, c, qe, lo, inside);
+      if (inside <= 0) {
+        first = 1;
+        second = 0;
+        done = true;
+        break;
+      }
+      first = lo + c_c;
+      second = first + inside - 1;
+      --i;
+      if (--at < 0) break;
+      c = c_next;
+      qe = qe_next;
+      c_c = cc_next;
+    }
+    if (i < 0) done = true;
+  }
+  if (b < n_reads) {
+    first_out[b] = first;
+    second_out[b] = second;
+  }
+}
 
 template <class Rank>
 int launch(const Rank& rk, const int* C, const int* codes, int64_t width,

@@ -58,6 +58,11 @@ __device__ __forceinline__ uint64_t u64(int lo, int hi) {
 // address the interval alone decides, so that a caller can have them in
 // flight while it still fetches and decodes the code; counts(...) takes the
 // code (ext in 0..5, qe = comp_code(ext): the callers mask other codes).
+//
+// Backward search (K7) knows a step's code before it knows the step's range
+// and uses neither dlt nor the "less than" masks: load_lf(pos, s, qe) issues
+// every load of the step at once, the row's count pair of qe among them, and
+// lf(...) gives only lo = r1 and inside = d.
 
 // Checkpoint rows as bit planes: ops/tables.py:derive_rank_planes turns each
 // [16] int32 checkpoint row (six occ bases, 64 four-bit codes) into a row of
@@ -110,11 +115,16 @@ struct CkptRank {
     return r;
   }
 
+  // the stored pair that holds S[qe] and S[qe + 1] of a row
+  __device__ __forceinline__ int2 pair_of(int row, int qe) const {
+    return __ldg(reinterpret_cast<const int2*>(
+        row_ptr(row) + 6 + 2 * (qe > 0 ? qe - 1 : 0)));
+  }
+
   // s_lo, s_hi = S[qe], S[qe + 1] of a row
   __device__ __forceinline__ void below(int row, int qe, int& s_lo,
                                         int& s_hi) const {
-    const int2 s = __ldg(reinterpret_cast<const int2*>(
-        row_ptr(row) + 6 + 2 * (qe > 0 ? qe - 1 : 0)));
+    const int2 s = pair_of(row, qe);
     s_lo = qe > 0 ? s.x : 0;
     s_hi = qe > 0 ? s.y : s.x;
   }
@@ -160,6 +170,47 @@ struct CkptRank {
       dlt = __popcll(lt1 & range);
     }
   }
+
+  // Backward search: the planes and the count pair of qe, of both rows
+  struct LfRows {
+    Rows r;
+    int2 s1, s2;
+  };
+
+  // every load of one lf step, none waiting for another: the count pair's
+  // address needs the code, which the caller has before the range
+  __device__ __forceinline__ LfRows load_lf(int pos, int s, int qe) const {
+    LfRows l;
+    l.r = load(pos, s);
+    l.s1 = pair_of(l.r.row1, qe);
+    if (l.r.row2 != l.r.row1) l.s2 = pair_of(l.r.row2, qe);
+    return l;
+  }
+
+  // positions of a row with q == qe
+  __device__ __forceinline__ static uint64_t eq_mask(const int4& a,
+                                                     const int2& b, int qe) {
+    const uint64_t p0 = u64(a.x, a.y), p1 = u64(a.z, a.w), p2 = u64(b.x, b.y);
+    const uint64_t c0 = 0ull - (qe & 1), c1 = 0ull - ((qe >> 1) & 1),
+                   c2 = 0ull - ((qe >> 2) & 1);
+    return ~((p0 ^ c0) | (p1 ^ c1) | (p2 ^ c2));
+  }
+
+  // lo = occ(ext, [0, pos)), inside = occ(ext, [pos, pos + s)); after the
+  // rows arrive: one mask and two popcounts
+  __device__ __forceinline__ void lf(const LfRows& l, int pos, int s, int,
+                                     int qe, int& lo, int& inside) const {
+    const int pos2 = pos + s;
+    const uint64_t m1 = (1ull << (pos & 63)) - 1, m2 = (1ull << (pos2 & 63)) - 1;
+    const uint64_t eq1 = eq_mask(l.r.a1, l.r.b1, qe);
+    lo = (qe > 0 ? l.s1.y - l.s1.x : l.s1.x) + __popcll(eq1 & m1);
+    if (l.r.row2 != l.r.row1) {
+      const uint64_t eq2 = eq_mask(l.r.a2, l.r.b2, qe);
+      inside = (qe > 0 ? l.s2.y - l.s2.x : l.s2.x) + __popcll(eq2 & m2) - lo;
+    } else {
+      inside = __popcll(eq1 & m2 & ~m1);
+    }
+  }
 };
 
 // Dense records: pos_to_run [n+2] int32 and rec [r, 8] int32 rows
@@ -202,6 +253,19 @@ struct DenseRank {
 #pragma unroll
     for (int c = 0; c < 6; ++c)
       dlt += comp_code(c) < qe ? r.b[c] - r.a[c] : 0;
+  }
+
+  // Backward search: the records do not depend on the code
+  using LfRows = Rows;
+
+  __device__ __forceinline__ LfRows load_lf(int pos, int s, int) const {
+    return load(pos, s);
+  }
+
+  __device__ __forceinline__ void lf(const LfRows& r, int, int, int ext, int,
+                                     int& lo, int& inside) const {
+    lo = sel6(r.a, ext);
+    inside = sel6(r.b, ext) - lo;
   }
 };
 

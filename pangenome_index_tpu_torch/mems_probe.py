@@ -7,17 +7,22 @@ away, one JSON line per configuration.
 The workload (bench_workload, which chip_smoke.py drives too): the 20 Mbp
 synthetic pangenome (8 haplotypes), 16384 reads of 150 bp with 1% errors,
 min_len 20, min_occ 1, m=14 seed table, s=19 dictionary, MEM capacity 8,
-reads sorted by seed difficulty (serve.prepare).
+reads in input order (serve.prepare).
 Configurations: the seed tiers (both, either, none: without seeds a read
 takes more steps, each without a lookup); the hardest and the easiest N
 reads alone (fewer warps on an SM: a kernel bound by the latency of its
 longest chain keeps its time, one bound by a rate gets faster); the reads
-unsorted; and backward search (K7) on N reads. Times are the kernels' device
+sorted by seed difficulty (mertable.seed_difficulty, the work sort the JAX
+command line runs across chunks); a mixed batch (mixed_reads: lengths 50 to
+1000 bp, error rates 0 to 10%) in input order and sorted, in turns, with
+what the sort itself costs there (the proxy and the argsort, the gathers
+that put the results back in input order); and backward search (K7) on N
+reads. Times are the kernels' device
 times from torch.profiler, each the mean of three launches; every line
 carries the card's name and power limit. The last lines count the SASS
-instructions of the MEM and count kernels (cuobjdump; a line says so where
-the toolkit lacks it): a chain's step costs its instructions one after the
-other.
+instructions of the MEM and count kernels, and the POPC among them
+(cuobjdump; a line says so where the toolkit lacks it): a chain's step costs
+its instructions one after the other.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch.profiler import ProfilerActivity, profile
 from . import _build, gather_probe
 from .ops.count import count
 from .ops.mems import find_mems
+from .ops.mertable import seed_difficulty
 from .serve import prepare
 from .utils import synth
 from .utils.alphabet import BYTE_TO_CODE
@@ -45,6 +51,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE_LEN, N_HAPS, SNP_RATE, INDEX_SEED = 2_500_000, 8, 0.002, 3
 N_READS, READ_LEN, READ_ERRORS, READ_SEED = 16384, 150, 0.01, 1
 MIN_LEN, MIN_OCC, MER_M, SDICT_S, MEM_CAP = 20, 1, 14, 19, 8
+MIXED_LEN, MIXED_ERRORS = (50, 1000), 0.10  # the mixed batch: bp, substitution rate
 PER_READ = ("mer_keys", "mer_valid", "sdict_idx")
 TIERS = {"both": None, "dictionary only": ("sdict_vals", "sdict_idx", "sdict_m"),
          "m-mer table only": ("mer_table", "mer_keys", "mer_valid", "mer_m"),
@@ -68,34 +75,69 @@ def bench_workload(cache: str):
     return idx, lines, reads, codes, lens, tags, stem
 
 
+def mixed_reads(lines: list[bytes], n_reads: int, seed: int = 4):
+    """A batch of unlike reads from a seed: each a substring of a random
+    haplotype, its length uniform in MIXED_LEN, with substitutions at a rate
+    of its own, uniform in [0, MIXED_ERRORS]. Returns (codes [n_reads,
+    MIXED_LEN[1]] int32 right-padded with 0, lengths [n_reads] int32)."""
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    codes = np.zeros((n_reads, MIXED_LEN[1]), np.int32)
+    lens = rng.integers(MIXED_LEN[0], MIXED_LEN[1] + 1, n_reads).astype(np.int32)
+    for i, n in enumerate(lens):
+        line = lines[int(rng.integers(len(lines)))]
+        a = int(rng.integers(0, len(line) - n))
+        read = np.frombuffer(line[a : a + n], np.uint8).copy()
+        hit = rng.random(n) < rng.uniform(0.0, MIXED_ERRORS)
+        read[hit] = alphabet[rng.integers(0, 4, int(hit.sum()))]
+        codes[i, :n] = BYTE_TO_CODE[read]
+    return codes, lens
+
+
 def device_ms(fn, *kernels: str, reps: int = 3):
     """(mean device ms over reps calls of fn() of each kernel whose name
-    holds one of `kernels`, the last call's result)."""
+    holds one of `kernels`, the last call's result). A trace that lost
+    launches is taken again, up to three times."""
     fn()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            out = fn()
-        torch.cuda.synchronize()
-    ms = []
-    for kernel in kernels:
-        evs = [ev for ev in prof.key_averages() if kernel in ev.key]
-        if len(evs) != 1 or evs[0].count != reps:
-            raise RuntimeError(f"the profiler saw no {kernel} launches")
-        ms.append(evs[0].device_time_total / reps / 1e3)
-    return ms, out
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                out = fn()
+            torch.cuda.synchronize()
+        found = [[ev for ev in prof.key_averages() if kernel in ev.key]
+                 for kernel in kernels]
+        if all(len(evs) == 1 and evs[0].count == reps for evs in found):
+            return [evs[0].device_time_total / reps / 1e3 for evs in found], out
+    lost = [k for k, evs in zip(kernels, found)
+            if len(evs) != 1 or evs[0].count != reps]
+    raise RuntimeError(f"the profiler saw no {', '.join(lost)} launches")
 
 
-def sass_instructions() -> dict[str, int] | None:
-    """SASS instructions of every find_mems, resolve_seeds and count kernel
-    in the built library, by (demangled-enough) kernel name; None where the
-    toolkit has no cuobjdump."""
+def event_ms(fn, reps: int = 10) -> float:
+    """Mean milliseconds of fn() over reps eager calls, by CUDA events."""
+    fn()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def sass_instructions() -> dict[str, tuple[int, int]] | None:
+    """(SASS instructions, POPC instructions among them: two to a 64-bit
+    popcount) of every find_mems, resolve_seeds and count kernel in the built
+    library, by (demangled-enough) kernel name; None where the toolkit has
+    no cuobjdump."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     if not os.path.exists(tool):
         return None
     out = subprocess.run([tool, "-sass", str(_build.build())], capture_output=True,
                          text=True, check=True, timeout=300).stdout
-    counts, name = collections.Counter(), None
+    counts, popc, name = collections.Counter(), collections.Counter(), None
     for line in out.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
@@ -105,7 +147,8 @@ def sass_instructions() -> dict[str, int] | None:
                 k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
         elif name and re.match(r"\s+/\*[0-9a-f]{4}\*/", line):
             counts[name] += 1
-    return dict(counts)
+            popc[name] += " POPC " in line
+    return {k: (n, popc[k]) for k, n in counts.items()}
 
 
 def main() -> int:
@@ -116,18 +159,26 @@ def main() -> int:
     card = gather_probe.card_name(dev)
     cache = os.path.join(REPO, ".bench_cache")
     idx, lines, _, codes, lens, tags, stem = bench_workload(cache)
+    sdict_path = f"{stem}.ri.sdict{SDICT_S}.npz"
     bt = prepare(idx, tags, codes, lens, dev, min_occ=MIN_OCC, mer_m=MER_M,
-                 sdict_s=SDICT_S, sdict_path=f"{stem}.ri.sdict{SDICT_S}.npz")
+                 sdict_s=SDICT_S, sdict_path=sdict_path)
 
-    def k3(what, sel, tiers="both", order=None):
+    def work_order(b):
+        """The reads of a batch sorted by seed difficulty, easiest first."""
+        kw = b.seed_kw
+        return torch.argsort(seed_difficulty(kw["mer_table"], kw["mer_keys"],
+                                             kw["mer_valid"], MIN_OCC, b.lengths,
+                                             MER_M), stable=True)
+
+    def k3(b, what, sel, tiers="both", order=None):
         pick = (lambda a: a[sel].contiguous()) if order is None else \
             (lambda a: a[order][sel].contiguous())
         keep = TIERS[tiers]
-        kw = {k: (pick(v) if k in PER_READ else v) for k, v in bt.seed_kw.items()
+        kw = {k: (pick(v) if k in PER_READ else v) for k, v in b.seed_kw.items()
               if keep is None or k in keep}
-        c, n = pick(bt.codes), pick(bt.lengths)
+        c, n = pick(b.codes), pick(b.lengths)
         (ms,), (_, stats) = device_ms(
-            lambda: find_mems(bt.tables, c, n, MIN_LEN, MIN_OCC, capacity=MEM_CAP,
+            lambda: find_mems(b.tables, c, n, MIN_LEN, MIN_OCC, capacity=MEM_CAP,
                               with_stats=True, **kw), "find_mems_kernel")
         steps = stats["steps"]
         print(json.dumps({
@@ -138,13 +189,37 @@ def main() -> int:
             flush=True)
 
     whole = slice(None)
+    order = work_order(bt)
     for tiers in TIERS:
-        k3("all, sorted", whole, tiers)
+        k3(bt, "all, input order", whole, tiers)
     for n in (512, 2048, 8192):
-        k3(f"hardest {n}", slice(N_READS - n, N_READS))
-    k3("easiest 8192", slice(0, 8192))
-    k3("all, input order", whole, order=torch.argsort(bt.order))
-    k3("hardest 2048, no seeds", slice(N_READS - 2048, N_READS), "none")
+        k3(bt, f"hardest {n}", slice(N_READS - n, N_READS), order=order)
+    k3(bt, "easiest 8192", slice(0, 8192), order=order)
+    k3(bt, "all, sorted", whole, order=order)
+    k3(bt, "hardest 2048, no seeds", slice(N_READS - 2048, N_READS), "none", order)
+    del bt
+
+    # unlike reads: does the work sort pay where a warp's reads differ?
+    mcodes, mlens = mixed_reads(lines, N_READS)
+    mixed = prepare(idx, tags, mcodes, mlens, dev, min_occ=MIN_OCC, mer_m=MER_M,
+                    sdict_s=SDICT_S, sdict_path=sdict_path)
+    tables = mixed.tables
+    order = work_order(mixed)
+    for what, o in (("input order", None), ("sorted", order), ("sorted", order),
+                    ("input order", None)):
+        k3(mixed, f"mixed 50-1000 bp, 0-10% errors, {what}", whole, order=o)
+    # what the sort itself costs on the card: the proxy and the argsort once
+    # a batch, the gathers that put seven result arrays back in input order
+    # once a run
+    res = find_mems(tables, mixed.codes, mixed.lengths, MIN_LEN, MIN_OCC,
+                    capacity=MEM_CAP, **mixed.seed_kw)
+    inv = torch.argsort(order)
+    for what, fn in (("proxy and argsort", lambda: work_order(mixed)),
+                     ("inverse permutation of the results",
+                      lambda: [a[inv] for a in (*res[:5], res.start, res.size)])):
+        print(json.dumps({"work sort": what, "n_reads": N_READS,
+                          "ms": event_ms(fn), "card": card}), flush=True)
+    del mixed, res
 
     # backward search of reads that occur (error-free), so every read takes
     # all its steps
@@ -153,15 +228,16 @@ def main() -> int:
     qc = torch.from_numpy(qc.reshape(N_READS, READ_LEN).astype(np.int32)).to(dev)
     ql = torch.from_numpy(lens).to(dev)
     for n in (2048, 8192, N_READS):
-        (ms,), _ = device_ms(lambda: count(bt.tables, qc[:n], ql[:n]), "count_kernel")
+        (ms,), _ = device_ms(lambda: count(tables, qc[:n], ql[:n]), "count_kernel")
         print(json.dumps({"kernel": "count", "n_reads": n, "ms": ms,
                           "us_per_step": ms * 1e3 / READ_LEN, "card": card}), flush=True)
     sass = sass_instructions()
     if sass is None:
         print(json.dumps({"sass_instructions": "skipped: no cuobjdump found"}),
               flush=True)
-    for name, n in sorted((sass or {}).items()):
-        print(json.dumps({"kernel": name, "sass_instructions": n}), flush=True)
+    for name, (n, n_popc) in sorted((sass or {}).items()):
+        print(json.dumps({"kernel": name, "sass_instructions": n,
+                          "popc_instructions": n_popc}), flush=True)
     return 0
 
 

@@ -3,8 +3,9 @@
 Counterpart of pangenome_index_tpu/ops/rank.py:count: each read, right to
 left from (0, n - 1), through lf_range; the result is the read's BWT
 interval (first, second), or the reference's (1, 0) sentinel when it does
-not occur. The kernel runs one thread per read and stops at the sentinel;
-the plain version keeps JAX's lockstep loop over the longest read.
+not occur. The kernel runs one thread per read, with the block's codes
+staged in shared memory ahead of the chain, and stops at the sentinel; the
+plain version keeps JAX's lockstep loop over the longest read.
 """
 
 from __future__ import annotations

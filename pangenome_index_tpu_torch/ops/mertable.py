@@ -113,7 +113,9 @@ def seed_difficulty(mer_table: torch.Tensor, keys: torch.Tensor,
     """Per-read work proxy for work-sorted batching: in-read windows whose
     m-mer interval fails min_occ, plus in-read windows with no valid m-mer
     (mertable.py:seed_difficulty with lengths given). [B]. The table rows
-    come through gather_rows: the row gather kernel on the card."""
+    come through gather_rows: the row gather kernel on the card. Serving
+    does not sort (a thread per read gains nothing from it); mems_probe.py
+    measures that with this proxy."""
     s = gather_rows(mer_table, keys.reshape(-1))[:, 2].reshape(keys.shape)
     bad = ((s < max(int(min_occ), 1)) & valid).sum(dim=1)
     in_read = (lengths.long() - (m - 1)).clamp(min=0)

@@ -2,9 +2,11 @@
 
 The pipeline bench.py:serve_measure measures for the JAX package, on the
 port: r-index tables -> m-mer seed table (K2 launches) -> long-seed
-dictionary (host build, cached) -> host read windows -> work sort by seed
-difficulty -> MEM finding over the sorted batch (K3, one launch) -> tag
-counts per buffered MEM (K4) -> results back in input read order.
+dictionary (built on the device at first use, cached) -> host read windows
+-> MEM finding over the batch in input read order (K3, one launch) -> tag
+counts per buffered MEM (K4). K3 gives every read a thread of its own, so
+the batch is not sorted by work: on the card what a sorted batch of mixed
+reads saved K3 was less than the sort and its inverse gathers cost (PERF.md).
 
 Two rank configurations: checkpoint rows (the serving default) or dense run
 records (the counterpart of the TPU's Pallas rank path).
@@ -20,10 +22,9 @@ import torch
 
 from .models.rindex import RIndex
 from .models.tagarray import TagArray
-from .ops.dense_rank import rank6_dense
+from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.mems import find_mems
-from .ops.mertable import (build_mer_table_device, read_mer_keys_fast,
-                           seed_difficulty)
+from .ops.mertable import build_mer_table_device, read_mer_keys_fast
 from .ops.sparsedict import get_sparse_dict, read_windows_fast, sdict_to_device
 from .ops.tables import (RIndexTables, TagTables, rindex_to_device,
                          tags_to_device)
@@ -55,23 +56,24 @@ def check_dense_tables(t: RIndexTables) -> None:
     """Exactness guard for dense tables: rank6 at every run head must equal
     that run's record, i.e. pos_to_run and rec describe the same runs (a
     mismatch would make every answer silently wrong)."""
-    heads = t.rec[:, 0].contiguous()
-    if not torch.equal(rank6_dense(t.rec, t.pos_to_run, heads), t.rec[:, 2:8]):
+    runs = torch.arange(t.rec.shape[0], dtype=torch.int32, device=t.rec.device)
+    rows = gather_rows(t.rec, runs)  # the records, through the row gather
+    heads = rows[:, 0].contiguous()
+    if not torch.equal(rank6_dense(t.rec, t.pos_to_run, heads), rows[:, 2:8]):
         raise ValueError("dense tables disagree: pos_to_run does not map run "
                          "heads to their records")
 
 
 @dataclass
 class Batch:
-    """A read batch resident on the device, sorted by seed difficulty, with
-    the tables and seed tiers that serve it (what `prepare` builds)."""
+    """A read batch resident on the device, in input read order, with the
+    tables and seed tiers that serve it (what `prepare` builds)."""
 
     tables: RIndexTables
     tag_tables: TagTables
-    codes: torch.Tensor      # [B, L] int32, sorted order
-    lengths: torch.Tensor    # [B] int32, sorted order
-    order: torch.Tensor      # sorted position -> input read index
-    seed_kw: dict            # seed tiers for find_mems (per-read rows sorted)
+    codes: torch.Tensor      # [B, L] int32
+    lengths: torch.Tensor    # [B] int32
+    seed_kw: dict            # seed tiers for find_mems
     seconds: dict[str, float]
     dict_entries: int
     dict_hit_rate: float
@@ -81,10 +83,10 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
             device, *, dense: bool = False, min_occ: int = 1, mer_m: int = 14,
             sdict_s: int = 19, sdict_path=None) -> Batch:
     """Tables, m-mer seed table, length-sdict_s dictionary and read windows
-    for one batch of reads (codes [B, L] int32, lens [B]) on `device`,
-    sorted by seed difficulty. dense=False ranks through checkpoint rows,
-    dense=True through dense run records; sdict_path caches the host
-    dictionary build."""
+    for one batch of reads (codes [B, L] int32, lens [B]) on `device`.
+    dense=False ranks through checkpoint rows, dense=True through dense run
+    records; the dictionary is built on `device` from the tables (the
+    kernels of csrc/sparsedict.cu on a card) unless sdict_path holds it."""
     device = torch.device(device)
     sec: dict[str, float] = {}
 
@@ -104,7 +106,7 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
     phase("mer_table", t0)
 
     t0 = time.perf_counter()
-    keys_sd, vals_sd = get_sparse_dict(idx, sdict_s, path=sdict_path)
+    keys_sd, vals_sd = get_sparse_dict(idx, sdict_s, path=sdict_path, tables=t)
     phase("sdict", t0)
 
     t0 = time.perf_counter()
@@ -113,32 +115,26 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
     phase("windows", t0)
 
     t0 = time.perf_counter()
-    lens_d = torch.from_numpy(np.ascontiguousarray(lens, np.int32)).to(device)
-    mer_keys = torch.from_numpy(np.ascontiguousarray(mk, np.int32)).to(device)
-    mer_valid = torch.from_numpy(np.ascontiguousarray(mv)).to(device)
-    # work sort: reads of like difficulty share a warp (results are
-    # inverse-permuted back to input order)
-    proxy = seed_difficulty(mer_table, mer_keys, mer_valid, min_occ, lens_d, mer_m)
-    order = torch.argsort(proxy, stable=True)
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
     vals_d, di_d = sdict_to_device(vals_sd, di, device)
-    kw = dict(mer_table=mer_table, mer_keys=mer_keys[order].contiguous(),
-              mer_valid=mer_valid[order].contiguous(), mer_m=mer_m,
-              sdict_vals=vals_d, sdict_idx=di_d[order].contiguous(),
-              sdict_m=sdict_s)
-    codes_d = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(device)
-    batch = Batch(tables=t, tag_tables=tt, codes=codes_d[order].contiguous(),
-                  lengths=lens_d[order].contiguous(), order=order, seed_kw=kw,
-                  seconds=sec, dict_entries=len(keys_sd),
+    kw = dict(mer_table=mer_table, mer_keys=put(mk, np.int32), mer_valid=put(mv),
+              mer_m=mer_m, sdict_vals=vals_d, sdict_idx=di_d, sdict_m=sdict_s)
+    batch = Batch(tables=t, tag_tables=tt, codes=put(codes, np.int32),
+                  lengths=put(lens, np.int32), seed_kw=kw, seconds=sec,
+                  dict_entries=len(keys_sd),
                   dict_hit_rate=float((di >= 0).sum() / max(rv.sum(), 1)))
-    phase("sort", t0)
+    phase("upload", t0)
     return batch
 
 
 def run(batch: Batch, min_len: int = 20, min_occ: int = 1, capacity: int = 8,
         tag_capacity: int = 8, repeats: int = 0) -> ServeResult:
-    """MEM finding (one K3 launch over the sorted batch) and tag counts (K4),
-    back in input read order. repeats > 0 runs both phases that many more
-    times after the first and reports their mean seconds (steady state)."""
+    """MEM finding (one K3 launch over the batch) and tag counts (K4), in
+    input read order. repeats > 0 runs both phases that many more times
+    after the first and reports their mean seconds (steady state)."""
     device = batch.codes.device
     sec = dict(batch.seconds)
     runs = []
@@ -157,11 +153,9 @@ def run(batch: Batch, min_len: int = 20, min_occ: int = 1, capacity: int = 8,
     sec["mems"] = sum(r[0] for r in steady) / len(steady)
     sec["tags"] = sum(r[1] for r in steady) / len(steady)
     t0 = time.perf_counter()
-    inv = torch.empty_like(batch.order)
-    inv[batch.order] = torch.arange(batch.order.shape[0], device=device)
 
     def back(a):
-        return a[inv].cpu().numpy()
+        return a.cpu().numpy()
 
     out = ServeResult(
         count=back(res.count), start=back(res.start), end=back(res.end),

@@ -116,6 +116,8 @@ def reference(expected, capfd, d, cmd):
     [], ["--batch-size", "2", "--mer-len", "4"], ["--mem-capacity", "1"],
     ["--tag-capacity", "1"], ["--rank-mode", "dense"]],
     ids=["defaults", "sorted-chunks", "escalation", "tag-requery", "dense"])
+# "sorted-chunks": the JAX command sorts its reads by work across chunks and
+# permutes the results back; the port serves the chunks in input order
 def test_find_mems_matches_jax(files, expected, capfd, extra):
     want = reference(expected, capfd, files, "find-mems")
     seconds = {}
@@ -150,3 +152,99 @@ def test_entry_point_and_refusals(files, expected, capfd):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(mem_args(files))
+
+
+def run_both(capfd, jax_argv, port_argv):
+    """((exit code, stderr) of the JAX command, the same of the port's)."""
+    capfd.readouterr()
+    jax_rc = jax_cli.main(jax_argv)
+    jax_err = capfd.readouterr().err
+    port_rc = cli.main([*port_argv, "--device", "cpu"])
+    return (jax_rc, jax_err), (port_rc, capfd.readouterr().err)
+
+
+def last_line(err: str) -> str:
+    return err.strip().splitlines()[-1]
+
+
+@pytest.mark.parametrize("cmd,missing", [("find-mems", "ri"), ("find-mems", "tags"),
+                                         ("find-mems", "reads"), ("query-tags", "ri"),
+                                         ("query-tags", "tags"), ("build-sdict", "ri")])
+def test_missing_file_is_panidx_error(files, capfd, cmd, missing):
+    """A missing input ends both command lines with `panidx: <the OS's
+    message>` on stderr and exit code 1, not with a traceback."""
+    gone = str(files / "nowhere" / "missing.bin")
+    named = {"ri": str(files / "synth.ri"), "tags": str(files / "synth_c.tags"),
+             "reads": str(files / "reads.txt")}
+    named[missing] = gone
+    if cmd == "build-sdict":
+        argv = [cmd, named["ri"]]
+        engine = ["--engine", "host"]
+    else:
+        argv = [cmd, named["ri"], named["tags"], named["reads"]]
+        argv += [MIN_LEN, MIN_OCC] if cmd == "find-mems" else []
+        engine = ["--engine", "host"]
+    (jax_rc, jax_err), (port_rc, port_err) = run_both(capfd, argv + engine, argv)
+    assert jax_rc == port_rc == 1
+    assert last_line(port_err) == last_line(jax_err)
+    assert last_line(port_err).startswith("panidx: ") and gone in port_err
+    assert "Traceback" not in port_err
+
+
+@pytest.mark.parametrize("cmd", ["find-mems", "query-tags"])
+def test_bad_tag_payload_is_invalid_input(files, capfd, tmp_path, cmd):
+    """A tag file that cannot be decoded: `panidx: invalid input: ...`, exit
+    code 1, the JAX command line's words."""
+    bad = tmp_path / "bad.tags"
+    bad.write_bytes((files / "synth_c.tags").read_bytes()[:37])
+    argv = [cmd, str(files / "synth.ri"), str(bad), str(files / "reads.txt")]
+    argv += [MIN_LEN, MIN_OCC] if cmd == "find-mems" else []
+    (jax_rc, jax_err), (port_rc, port_err) = run_both(
+        capfd, [*argv, "--engine", "host"], argv)
+    assert jax_rc == port_rc == 1
+    assert last_line(port_err) == last_line(jax_err)
+    assert last_line(port_err).startswith("panidx: invalid input: ")
+
+
+@pytest.mark.parametrize("cmd", ["find-mems", "query-tags", "build-sdict"])
+def test_int32_refusal_is_invalid_input(files, capfd, monkeypatch, cmd):
+    """An index past the kernels' int32 positions is refused in the command
+    line's words, not with a traceback."""
+    from types import SimpleNamespace
+
+    big = SimpleNamespace(n=2**31)
+    monkeypatch.setattr(cli, "load_serving", lambda args: (big, None))
+    monkeypatch.setattr(cli.ri, "load_file", lambda path: big)
+    argv = [cmd, str(files / "synth.ri")]
+    if cmd != "build-sdict":
+        argv += [str(files / "synth_c.tags"), str(files / "reads.txt")]
+        argv += [MIN_LEN, MIN_OCC] if cmd == "find-mems" else []
+    capfd.readouterr()
+    assert cli.main([*argv, "--device", "cpu"]) == 1
+    err = capfd.readouterr().err
+    assert last_line(err).startswith("panidx: invalid input: n >= 2^31")
+
+
+def test_find_mems_uses_a_prebuilt_dictionary(files, expected, capfd):
+    """build-sdict's default artifact is the file find-mems --long-seed reads:
+    the second command builds no dictionary and prints the same bytes."""
+    from pangenome_index_tpu_torch.ops import sparsedict as sd
+
+    want = reference(expected, capfd, files, "find-mems")
+    s = int(MIN_LEN) - 1
+    artifact = files / f"synth.ri.sdict{s}.npz"
+    artifact.unlink(missing_ok=True)
+    assert cli.main(["build-sdict", str(files / "synth.ri"), "--min-len", MIN_LEN,
+                     "--device", "cpu"]) == 0
+    assert artifact.exists()
+    stamp = artifact.stat().st_mtime_ns
+
+    def no_build(*a, **k):
+        raise AssertionError("find-mems rebuilt a dictionary it had on disk")
+
+    try:
+        real, sd.build_sparse_dict_device = sd.build_sparse_dict_device, no_build
+        got, _ = port_run(capfd, [*mem_args(files), "--mer-len", "4"])
+    finally:
+        sd.build_sparse_dict_device = real
+    assert got == want and artifact.stat().st_mtime_ns == stamp

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd, gather_probe,
-                                           mems, rank, tagquery)
+                                           mems, rank, sparsedict, tagquery)
 from pangenome_index_tpu_torch.ops.mertable import build_mer_table, read_mer_keys_fast
 from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict, read_windows_fast
 from pangenome_index_tpu_torch.utils.alphabet import BYTE_TO_CODE
@@ -243,6 +243,93 @@ def test_count(dev, index, mode):
     for g, e in zip(got, expect):
         assert torch.equal(g, e)
     assert bool((got[0] <= got[1]).any()) and bool((got[0] > got[1]).any())
+
+
+@pytest.mark.parametrize("width,n_reads", [(0, 5), (1, 70), (150, 1000),
+                                           (256, 130), (257, 64), (700, 333)])
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+def test_count_staged_windows(dev, index, mode, width, n_reads):
+    """K7 across its staging windows (256 positions) and block edges (64
+    reads): reads that occur over their whole length, reads with an N or an
+    endmarker code, codes outside 0..5, length 0, and lengths past the padded
+    width (code 0 there: no match)."""
+    idx, lines = index
+    t = rindex_to_device(idx, dev, **{mode: True})
+    rng = np.random.default_rng(width + n_reads)
+    codes = np.zeros((n_reads, width), np.int32)
+    if width:
+        reads = synth_reads(lines, n_reads, width, error_rate=0.0, seed=width)
+        codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                          for r in reads]).astype(np.int32)
+    lens = rng.integers(0, width + 1, n_reads).astype(np.int32)
+    lens[::3] = width                      # whole reads: every step taken
+    lens[1::11] = width + rng.integers(1, 400, len(lens[1::11]))  # past the width
+    lens[2::13] = 0
+    if width:
+        spoil = rng.integers(0, width, n_reads)
+        for i in range(4, n_reads, 5):     # an N, an endmarker, codes off the alphabet
+            codes[i, spoil[i]] = (4, 0, 6, -1, 15, 16)[(i // 5) % 6]
+    c, n = (torch.from_numpy(a).to(dev) for a in (codes, lens))
+    got = count.count(t, c, n)
+    expect = count.count_plain(t, c, n)
+    for g, e in zip(got, expect):
+        assert torch.equal(g, e)
+    if width >= 150:
+        found = got[0] <= got[1]
+        assert bool(found[::3].any()) and bool((~found).any())
+
+
+@pytest.mark.parametrize("min_keep", [1, 2, 3])
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+def test_sdict_levels(dev, index, mode, min_keep):
+    """The dictionary's level kernels against their plain versions at every
+    level of a build (one entry, a partial block, many blocks), and the whole
+    build against the host build."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, **{mode: True})
+    keys = torch.zeros(1, dtype=torch.int64, device=dev)
+    vals = torch.tensor([[0, 0, idx.n]], dtype=torch.int32, device=dev)
+    for level in range(20):
+        got = sparsedict.sdict_expand(t, vals, min_keep)
+        expect = sparsedict.sdict_expand_plain(t, vals, min_keep)
+        for name, g, e in zip(("child_sz", "child_kkp", "offsets", "total"), got, expect):
+            assert g.dtype == e.dtype and torch.equal(g, e), (level, name)
+        total = int(got[3])
+        nxt = sparsedict.sdict_scatter(keys, *got[:3], total, level)
+        plain = sparsedict.sdict_scatter_plain(keys, got[0], got[1], total, level)
+        for g, e in zip(nxt, plain):
+            assert g.dtype == e.dtype and torch.equal(g, e), level
+        keys, vals = nxt
+    assert keys.shape[0] > 10 * sparsedict.LEVEL_BLOCK
+    hk, hv = build_sparse_dict(idx, 20, min_keep)
+    assert np.array_equal(keys.cpu().numpy(), hk) and np.array_equal(vals.cpu().numpy(), hv)
+
+
+@pytest.mark.parametrize("s,min_keep", [(1, 1), (19, 1), (31, 1), (31, 2), (12, 3)])
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+def test_sdict_build_matches_host(dev, index, mode, s, min_keep, tmp_path):
+    idx, _ = index
+    t = rindex_to_device(idx, dev, **{mode: True})
+    hk, hv = build_sparse_dict(idx, s, min_keep)
+    before = sparsedict.sdict_expand.launches, sparsedict.sdict_scatter.launches
+    keys, vals = sparsedict.get_sparse_dict(idx, s, path=str(tmp_path / "d.npz"),
+                                            min_keep=min_keep, tables=t)
+    assert (sparsedict.sdict_expand.launches - before[0],
+            sparsedict.sdict_scatter.launches - before[1]) == (s, s)
+    assert vals.device == dev and vals.dtype == torch.int32
+    assert np.array_equal(keys, hk) and np.array_equal(vals.cpu().numpy(), hv)
+    with np.load(tmp_path / "d.npz", allow_pickle=False) as z:
+        assert np.array_equal(z["keys"], hk) and np.array_equal(z["vals"], hv)
+
+
+def test_sdict_empty_and_budget(dev, index):
+    idx, _ = index
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    keys, vals = sparsedict.build_sparse_dict_device(idx, t, 6, min_keep=idx.n + 1)
+    assert keys.shape == (0,) and vals.shape == (0, 3) and keys.device == dev
+    with pytest.raises(MemoryError, match="needs"):
+        sparsedict.build_sparse_dict_device(idx, t, 12, max_bytes=4096)
+    sparsedict.build_sparse_dict_device(idx, t, 12)  # the card's own budget
 
 
 @pytest.mark.parametrize("capacity", [1, 8, 256])

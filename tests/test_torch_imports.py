@@ -31,6 +31,8 @@ assert cli.main(["find-mems", *common, "12", "1", "--device", "cpu",
                  "--tags-format", "bytecode"]) == 0
 assert cli.main(["query-tags", *common, "--device", "cpu",
                  "--tags-format", "bytecode"]) == 0
+assert cli.main(["build-sdict", d + "/x.ri", "-s", "9", "--device", "cpu"]) == 0
+assert np.load(d + "/x.ri.sdict9.npz")["keys"].size > 0
 
 def foreign(m):
     return (m == "jax" or m.startswith("jax.") or m == "pangenome_index_tpu"
@@ -49,7 +51,7 @@ FOREIGN = re.compile(
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port and both commands (--device cpu), in a fresh
+    """Every module of the port and its commands (--device cpu), in a fresh
     interpreter: no jax and no pangenome_index_tpu module gets loaded."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
