@@ -26,9 +26,17 @@ launch count set to 0 just before a path and read just after it:
 5. the long-seed dictionary (sparsedict.build_sparse_dict_device, the
    build-sdict command): s=19 at the bench index on the card, through both
    rank providers, equal element for element to the port's host build
-   (whose seconds are printed beside the card's); every level's kernels
-   against their plain versions; s=31 and min_keep=2 on a small synthetic
-   index; the command's file loaded back and compared.
+   (whose seconds are printed beside the card's); every level's kernel
+   against its plain version; s=31 and min_keep=2 on a small synthetic
+   index; the command's file loaded back and compared;
+6. locate (locate.locate_batch, K8) on the bench index: the intervals of
+   the first 65536 MEMs the serving run buffered and 32768 random ones (at
+   run heads and mid-run, sizes 1 to 200), capacity 64, against its plain
+   version on every lane and against the host model (RIndex.run_of and
+   chained RIndex.locate_next) on 4096 of them.
+
+find-mems also runs on all 16384 reads with --batch-size 0 (chunks of 4096
+reads) and with one launch over them, byte-equal.
 
 The script imports and starts nothing of the JAX package
 (pangenome_index_tpu), which need not be importable where it runs: that the
@@ -82,8 +90,8 @@ SOURCES = {
     "count": ("csrc/count.cu", "pangenome_index_tpu/ops/rank.py:196", "query-tags"),
     "query_tags_batch": ("csrc/tagbatch.cu", "pangenome_index_tpu/ops/tagquery.py:32", "find-mems"),
     "tag_upper_bound": ("csrc/tagsearch.cu", "pangenome_index_tpu/ops/tagquery.py:42", "tag-search"),
-    "sdict_expand": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:100", "build-sdict"),
-    "sdict_scatter": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:140", "build-sdict"),
+    "sdict_level": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:100", "build-sdict"),
+    "locate_batch": ("csrc/locate.cu", "pangenome_index_tpu/ops/locate.py:29", "locate"),
 }
 #: published peaks of one H100 SXM: device memory bytes/s, and float32
 #: operations/s outside the tensor cores (taken for the kernels' 32-bit
@@ -94,14 +102,19 @@ PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 #: configuration's table check)
 PATH_KERNELS = {
     "serve": ("gather_rows", "rank6_dense", "extend", "resolve_seeds", "find_mems",
-              "query_mem_tags", "sdict_expand", "sdict_scatter"),
+              "query_mem_tags", "sdict_level"),
     "probe": ("row_gather", "gather_chain"),
     "find-mems": ("extend", "resolve_seeds", "find_mems", "query_tags_batch",
-                  "sdict_expand", "sdict_scatter"),
+                  "sdict_level"),
     "query-tags": ("count", "query_tags_batch"),
     "tag-search": ("tag_upper_bound",),
-    "build-sdict": ("sdict_expand", "sdict_scatter"),
+    "build-sdict": ("sdict_level",),
+    "locate": ("locate_batch",),
 }
+N_LOCATE_MEMS = 65536    # locate: the first buffered MEM intervals of the serving run
+N_LOCATE_RANDOM = 32768  # locate: random intervals, half at run heads, half mid-run
+LOCATE_CAP = 64          # locate: capacity
+N_LOCATE_HOST = 4096     # locate: lanes held against the host model's SA
 
 
 def log(msg):
@@ -131,17 +144,22 @@ def main() -> int:
     from pangenome_index_tpu_torch import cli as port_cli
     from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
     from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd,
-                                               gather_probe as probe_ops, mems,
-                                               mertable, rank, sparsedict,
+                                               gather_probe as probe_ops, locate,
+                                               mems, mertable, rank, sparsedict,
                                                tagquery)
     from pangenome_index_tpu_torch.mems_probe import (
         BASE_LEN, MEM_CAP, MER_M, MIN_LEN, MIN_OCC, N_HAPS, N_READS, READ_LEN,
-        SDICT_S, bench_workload, device_ms)
+        SDICT_S, TAIL_KERNEL, bench_workload, device_ms, trace_head, trace_tail)
     from pangenome_index_tpu_torch.ops.tables import rindex_to_device, tags_to_device
     from pangenome_index_tpu_torch.serve import prepare, run
     from pangenome_index_tpu_torch.utils import synth
 
     t_start = time.perf_counter()
+
+    def phase(name):
+        """Mark where a phase starts, in seconds since the run began."""
+        log(f"[{time.perf_counter() - t_start:.1f} s] {name}")
+
     dev = torch.device("cuda", 0)
     smi = gather_probe.card_name(dev)
     log(smi)
@@ -247,6 +265,7 @@ def main() -> int:
             check(launches[path][name] > 0, f"{name} was not launched on the {path} path")
 
     # --- 2. K1 and K2 against their plain versions ------------------------
+    phase("K1 and K2")
     t_ck = rindex_to_device(idx, dev, checkpoint=True)
     t_dn = rindex_to_device(idx, dev, dense=True)
     rng = np.random.default_rng(7)
@@ -291,14 +310,44 @@ def main() -> int:
                     lambda: fmd.extend_plain(t, *lanes, forward=f), record=False)
 
     # --- 3. the seed-table schedule: m=8 through K2 == host build ---------
+    phase("seed tables")
     t0 = time.perf_counter()
     check(np.array_equal(mertable.build_mer_table_device(t_ck, 8).cpu().numpy(),
                          mertable.build_mer_table(idx, 8)),
           "m=8 seed table built with K2 differs from the host build")
     log(f"m=8 seed table through K2: identical to the host build "
         f"({time.perf_counter() - t0:.1f} s)")
+    # the m=14 table of the serving path: the device time of the whole
+    # function (its 14 K2 launches and the torch passes that tile the state
+    # between them) against what it must move: each level's 4^(v+1) lanes
+    # read k, kp, s, code (16 bytes) and their two 64-byte rank rows (the
+    # table at most once a level) and write 12 bytes; the chain is one
+    # gather a level
+    for _ in range(3):  # a trace that left launches out is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_head()
+            mer14 = mertable.build_mer_table_device(t_ck, MER_M)
+            trace_tail()
+        evs = [ev for ev in prof.key_averages()
+               if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key]
+        k2 = [ev for ev in evs if "extend_kernel" in ev.key]
+        if sum(ev.count for ev in k2) == MER_M:
+            break
+        del mer14
+    check(sum(ev.count for ev in k2) == MER_M,
+          f"the trace of the m={MER_M} seed table holds {sum(ev.count for ev in k2)} K2 launches")
+    mer_ms = sum(ev.device_time_total for ev in evs) / 1e3
+    mer_k2 = sum(ev.device_time_total for ev in k2) / 1e3
+    mer_bytes = sum(4 ** (v + 1) * (16 + 12) + gathered(4 ** (v + 1) * 128, t_ck.ckpt_planes)
+                    for v in range(MER_M))
+    log(f"m={MER_M} seed table ({mer14.shape[0]} rows): device {mer_ms:.4f} ms "
+        f"(K2 {mer_k2:.4f}, the torch passes {mer_ms - mer_k2:.4f}); bound by bytes "
+        f"{mer_bytes / PEAK_BYTES_S * 1e3:.5f} ms ({mer_bytes} bytes), chain {MER_M} "
+        f"gathers {card}")
+    del mer14
 
     # --- 3b. the long-seed dictionary on the card --------------------------
+    phase("dictionary")
     t0 = time.perf_counter()
     host_keys, host_vals = sparsedict.build_sparse_dict(idx, SDICT_S)
     host_s = time.perf_counter() - t0
@@ -328,75 +377,85 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, a.elapsed_time(b)
 
-    # every level of the build, kernels against plain versions, and what the
-    # level must move: an entry (8 bytes of key, 12 of k, kp, size), its one
-    # or two 64-byte rank rows (the table at most once a level), 20 bytes a
-    # kept child. expand is given the interval and the rows, scatter the key
-    # and the children written; the scratch between them counts for neither.
-    sd = {name: dict(nbytes=0, ops=0, plain_ms=0.0, err=0)
-          for name in ("sdict_expand", "sdict_scatter")}
-    keys_l = torch.zeros(1, dtype=torch.int64, device=dev)
-    vals_l = torch.tensor([[0, 0, idx.n]], dtype=torch.int32, device=dev)
+    # every level of the build, the kernel against its plain version, and
+    # what the level must move: an entry (8 bytes of key, 12 of k, kp,
+    # size), its one or two 64-byte rank rows (the table at most once a
+    # level), 20 bytes a kept child (the sum of the bounds of the two
+    # kernels a level had before, expand and scatter: expand was given the
+    # interval and the rows, scatter the key and the children written)
+    sd = dict(nbytes=0, ops=0, plain_ms=0.0, err=0)
+    keys_l = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    vals_l = torch.tensor([[[0, 0, idx.n]]], dtype=torch.int32, device=dev)
+    counts_l = [1]
+
+    def level_out(res):
+        """A level's result as compared: the regions packed as far as their
+        totals, the block offsets and the totals."""
+        return (*sparsedict.sdict_pack(res[0], res[1], res[3].tolist()), res[2], res[3])
+
     for level in range(SDICT_S):
-        D = keys_l.shape[0]
-        got = sparsedict.sdict_expand(t_ck, vals_l, 1)
-        plain, ms = once_ms(lambda: sparsedict.sdict_expand_plain(t_ck, vals_l, 1))
-        sd["sdict_expand"]["err"] = max(sd["sdict_expand"]["err"],
-                                        max_abs_err(got, plain))
-        sd["sdict_expand"]["plain_ms"] += ms
-        total = int(got[3])
-        nxt = sparsedict.sdict_scatter(keys_l, *got[:3], total, level)
-        plain, ms = once_ms(lambda: sparsedict.sdict_scatter_plain(
-            keys_l, got[0], got[1], total, level))
-        sd["sdict_scatter"]["err"] = max(sd["sdict_scatter"]["err"],
-                                         max_abs_err(nxt, plain))
-        sd["sdict_scatter"]["plain_ms"] += ms
-        rows = D + int(((vals_l[:, 0] >> 6) != ((vals_l[:, 0] + vals_l[:, 2]) >> 6)).sum())
-        sd["sdict_expand"]["nbytes"] += D * 12 + gathered(rows * 64, t_ck.ckpt_planes)
-        sd["sdict_expand"]["ops"] += D * 400
-        sd["sdict_scatter"]["nbytes"] += D * 8 + total * 20
-        sd["sdict_scatter"]["ops"] += D * 60
-        log(f"  level {level}: {D} entries, {rows} rank rows, {total} children kept")
-        flags = (got[0] != 0).reshape(-1)
-        keys_l, vals_l = nxt
-        del got, plain, nxt
-    check(torch.equal(keys_l, T(host_keys)) and torch.equal(vals_l, T(host_vals)),
+        entries = sparsedict.sdict_pack(keys_l, vals_l, counts_l)[1]
+        D = entries.shape[0]
+        got = sparsedict.sdict_level(t_ck, keys_l, vals_l, counts_l, 1, level)
+        plain, ms = once_ms(lambda: sparsedict.sdict_level_plain(
+            t_ck, keys_l, vals_l, counts_l, 1, level))
+        sd["err"] = max(sd["err"], max_abs_err(level_out(got), level_out(plain)))
+        sd["plain_ms"] += ms
+        total = int(got[3].sum())
+        rows = D + int(((entries[:, 0] >> 6) != ((entries[:, 0] + entries[:, 2]) >> 6)).sum())
+        sd["nbytes"] += D * 20 + gathered(rows * 64, t_ck.ckpt_planes) + total * 20
+        sd["ops"] += D * 460
+        log(f"  level {level}: {D} entries, {rows} rank rows, {total} children kept "
+            f"({', '.join(str(c) for c in got[3].tolist())} by branch)")
+        keys_l, vals_l, counts_l = got[0], got[1], got[3].tolist()
+        del got, plain, entries
+    check(all(torch.equal(a, T(b)) for a, b in zip(
+        sparsedict.sdict_pack(keys_l, vals_l, counts_l), (host_keys, host_vals))),
           "the level loop's dictionary differs from the host build")
-    for name, e in sd.items():
-        check(e["err"] == 0, f"{name}: kernel differs from its plain version by {e['err']}")
-    # device time of one whole build by kernel, from the profiler; the
-    # library's compaction primitive at the last level's size beside scatter
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sparsedict.build_sparse_dict_device(idx, t_ck, SDICT_S)
-        torch.cuda.synchronize()
+    check(sd["err"] == 0, f"sdict_level: kernel differs from its plain version by {sd['err']}")
+    # device time of one whole build by kernel, from the profiler
+    for _ in range(3):  # a trace that left launches out is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_head()
+            sparsedict.build_sparse_dict_device(idx, t_ck, SDICT_S)
+            trace_tail()
+        level_launches = sum(ev.count for ev in prof.key_averages()
+                             if "sdict_level_kernel" in ev.key)
+        if level_launches == SDICT_S:
+            break
+    check(level_launches == SDICT_S,
+          f"the trace of an s={SDICT_S} build holds {level_launches} level launches")
     by_kernel = {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
-                 if ev.device_time_total > 0}
+                 if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key}
 
     def kernel_ms(*names):
         return sum(ms for key, ms in by_kernel.items() if any(n in key for n in names))
 
-    sd["sdict_expand"]["ms"] = kernel_ms("sdict_expand_kernel", "sdict_scan_kernel")
-    sd["sdict_scatter"]["ms"] = kernel_ms("sdict_scatter_kernel")
-    cumsum_ms = gather_probe.time_ms(lambda: torch.cumsum(flags, dim=0))
-    for name, e in sd.items():
-        check(e["ms"] > 0, f"the profiler saw no {name} kernel")
-        t_bytes, t_ops = e["nbytes"] / PEAK_BYTES_S * 1e3, e["ops"] / PEAK_OPS_S * 1e3
-        kernels[name] = dict(
-            name=name, route="cuda",
-            source="pangenome_index_tpu_torch/" + SOURCES[name][0],
-            replaces=SOURCES[name][1], max_abs_err=e["err"], ms=e["ms"],
-            plain_ms=e["plain_ms"], bound_ms=max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations",
-            library_ms=cumsum_ms if name == "sdict_scatter" else None,
-            chain_steps=None)
-        log(f"{name}: identical to its plain version at all {SDICT_S} levels; "
-            f"{e['ms']:.4f} ms (device, a whole s={SDICT_S} build) vs plain "
-            f"{e['plain_ms']:.4f} ms, bound {kernels[name]['bound_ms']:.5f} ms by "
-            f"{kernels[name]['bound_by']} ({e['nbytes']} bytes, {e['ops']} operations) {card}")
-    log(f"a whole s={SDICT_S} build on the card: device busy {sum(by_kernel.values()):.4f} ms "
-        f"(scan alone {kernel_ms('sdict_scan_kernel'):.4f} ms); torch.cumsum over the "
-        f"last level's {flags.numel()} flags {cumsum_ms:.4f} ms (device) {card}")
-    del keys_l, vals_l, flags
+    # the wrapper's work: the kernel and the zeroing of its look-back state
+    level_ms, memset_ms = kernel_ms("sdict_level_kernel"), kernel_ms("Memset")
+    sd["ms"] = level_ms + memset_ms
+    check(level_ms > 0, "the profiler saw no sdict_level kernel")
+    t_bytes, t_ops = sd["nbytes"] / PEAK_BYTES_S * 1e3, sd["ops"] / PEAK_OPS_S * 1e3
+    kernels["sdict_level"] = dict(
+        name="sdict_level", route="cuda",
+        source="pangenome_index_tpu_torch/" + SOURCES["sdict_level"][0],
+        replaces=SOURCES["sdict_level"][1], max_abs_err=sd["err"], ms=sd["ms"],
+        plain_ms=sd["plain_ms"], bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, chain_steps=None)
+    log(f"sdict_level: identical to its plain version at all {SDICT_S} levels; "
+        f"{sd['ms']:.4f} ms (device, a whole s={SDICT_S} build: the kernel "
+        f"{level_ms:.4f}, the zeroing of its state {memset_ms:.4f}) vs plain "
+        f"{sd['plain_ms']:.4f} ms, bound {kernels['sdict_level']['bound_ms']:.5f} ms by "
+        f"{kernels['sdict_level']['bound_by']} ({sd['nbytes']} bytes, {sd['ops']} "
+        f"operations) {card}")
+    busy = sum(by_kernel.values())
+    log(f"a whole s={SDICT_S} build on the card: device busy {busy:.4f} ms, of which "
+        f"the level kernel {level_ms:.4f}, state zeroing {memset_ms:.4f}, the rest "
+        f"(the last level's pack, the small copies) {busy - sd['ms']:.4f} {card}")
+    for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
+        log(f"  {ms:.4f} ms  {key[:90]}")
+    del keys_l, vals_l
     # s=31 (a key's last two bits) and min_keep=2 on a small index, both providers
     sidx, _ = synth.build_synth_index(*SMALL_INDEX[:2], seed=SMALL_INDEX[2])
     for dense in (False, True):
@@ -412,6 +471,7 @@ def main() -> int:
     del t_dn, sidx, st
 
     # --- 4./6. the serving path, both rank configurations -----------------
+    phase("serving")
     # no cache holds the dictionary: the checkpoint configuration builds it
     # on the card and writes the cache, the dense one is given no cache
     sdict_path = f"{ri_path}.sdict{SDICT_S}.npz"
@@ -428,7 +488,7 @@ def main() -> int:
                            capacity=MEM_CAP, tag_capacity=TAG_CAP,
                            repeats=REPEATS)
     read_launches("serve")
-    check(launches["serve"]["sdict_expand"] == 2 * SDICT_S,
+    check(launches["serve"]["sdict_level"] == 2 * SDICT_S,
           "serving did not build the dictionary on the card in both configurations")
     check(results["checkpoint"].dict_entries == len(host_keys),
           "serving's dictionary differs from the host build")
@@ -444,6 +504,7 @@ def main() -> int:
             f"+ {sec['tags_first']:.4f} s) {card}")
 
     # --- 5. cross-checks against the native engine (all reads) -----------
+    phase("native cross-check")
     r = results["checkpoint"]
     for name in ("count", "start", "end", "bwt_start", "size", "tag_nu", "tag_ov"):
         a = getattr(r, name)
@@ -480,7 +541,81 @@ def main() -> int:
               f"dense-rank configuration differs from checkpoint on {name}")
     log("dense-rank configuration: counts, buffers and tags identical to checkpoint")
 
+    # --- 6b. locate on the bench index -------------------------------------
+    phase("locate")
+    # the intervals of the first buffered MEMs of the serving run, and random
+    # ones: half at run heads, half mid-run (a chase from the head), sizes 1
+    # to 200 inside the BWT
+    lrng = np.random.default_rng(17)
+    heads_j = lrng.integers(0, idx.n_runs, N_LOCATE_RANDOM)
+    long_runs = np.flatnonzero(idx.run_len > 1)
+    mid_j = long_runs[lrng.integers(0, len(long_runs), N_LOCATE_RANDOM // 2)]
+    rand_start = np.concatenate((
+        idx.run_start[heads_j[: N_LOCATE_RANDOM // 2]],
+        idx.run_start[mid_j] + lrng.integers(1, idx.run_len[mid_j])))
+    rand_size = np.minimum(lrng.integers(1, 201, N_LOCATE_RANDOM), idx.n - rand_start)
+    l_start = np.concatenate((qs[:N_LOCATE_MEMS], rand_start)).astype(np.int32)
+    l_size = np.concatenate((z[ii, within][:N_LOCATE_MEMS], rand_size)).astype(np.int32)
+    ls, lz = T(l_start), T(l_size)
+    port.reset_launches()
+    located = locate.locate_batch(t_ck, ls, lz, LOCATE_CAP)
+    torch.cuda.synchronize()
+    read_launches("locate")
+    lpos, lcnt = located.positions.cpu().numpy(), located.count.cpu().numpy()
+    check(np.array_equal(lcnt, np.minimum(l_size, LOCATE_CAP))
+          and np.array_equal(located.overflow.cpu().numpy(), l_size > LOCATE_CAP),
+          "locate counts or overflow flags are wrong")
+    # the host model's answer for a sample of lanes: the run head's sample,
+    # locate_next up to start, then one a row (RIndex.run_of, locate_next)
+    t0 = time.perf_counter()
+    sample = lrng.choice(len(l_start), N_LOCATE_HOST, replace=False)
+    h_start = l_start[sample].astype(np.int64)
+    h_emit = np.minimum(l_size[sample], LOCATE_CAP)
+    h_run = idx.run_of(h_start)
+    cur = idx.samples[h_run].astype(np.int64)
+    left = np.where(h_emit > 0, h_start - idx.run_start[h_run], 0)
+    while (left > 0).any():
+        go = left > 0
+        cur[go] = idx.locate_next(cur[go])
+        left[go] -= 1
+    host_pos = np.zeros((N_LOCATE_HOST, LOCATE_CAP), np.int64)
+    for c in range(int(h_emit.max())):
+        host_pos[c < h_emit, c] = cur[c < h_emit]
+        go = c + 1 < h_emit
+        cur[go] = idx.locate_next(cur[go])
+    host_s = time.perf_counter() - t0
+    bad = np.flatnonzero((lpos[sample] != host_pos).any(axis=1))
+    check(len(bad) == 0, f"{len(bad)} locate lanes differ from the host model "
+                         f"(lane {sample[bad[:1]]})")
+    # what a lane must do: run_of (a search), then a locate_next for each row
+    # from the run head to start and between two emitted values
+    run_j = np.searchsorted(idx.run_start, l_start, side="right") - 1
+    emit = np.minimum(l_size, LOCATE_CAP)
+    l_steps = np.where(emit > 0, l_start - idx.run_start[run_j] + emit - 1, 0)
+    run_lines, tail_lines = len(t_ck.run_tree_levels), len(t_ck.tail_tree_levels)
+    log(f"locate: {len(l_start)} intervals ({N_LOCATE_MEMS} of the serving run's "
+        f"MEMs), identical to the host model on {N_LOCATE_HOST} lanes (its "
+        f"locate_next chains {host_s:.2f} s); locate_next steps a lane: mean "
+        f"{l_steps.mean():.2f}, longest {int(l_steps.max())}; search trees of "
+        f"{run_lines} and {tail_lines} lines a search {card}")
+    # bytes: start, size, positions, count and overflow once; per search the
+    # lines it reads (internal levels and a leaf line) and per locate_next
+    # step three 4-byte gathers, no table more than once; chain: the longest
+    # lane's run_of (its lines, samples, run_start) and its steps (the lines
+    # of a search, last_to_run, samples)
+    loc_tables = (t_ck.run_start, t_ck.run_tree, t_ck.samples, t_ck.last_sorted,
+                  t_ck.last_to_run, t_ck.tail_tree)
+    compare("locate_batch", lambda: locate.locate_batch(t_ck, ls, lz, LOCATE_CAP),
+            lambda: locate.locate_batch_plain(t_ck, ls, lz, LOCATE_CAP), plain_reps=1,
+            nbytes=len(l_start) * (8 + 4 * LOCATE_CAP + 5)
+            + gathered(len(l_start) * (run_lines * 64 + 8)
+                       + int(l_steps.sum()) * (tail_lines * 64 + 12), *loc_tables),
+            ops=(len(l_start) * run_lines + int(l_steps.sum()) * tail_lines) * 32,
+            chain=run_lines + 2 + int(l_steps.max()) * (tail_lines + 2))
+    del located, ls, lz
+
     # --- 2 (cont.). K3 and K4 against their plain versions ----------------
+    phase("K3, K4 and the tag search")
     per_read = ("mer_keys", "mer_valid", "sdict_idx")
 
     def k3_inputs(bt, sel):
@@ -586,14 +721,17 @@ def main() -> int:
 
     # where serve.run's device time goes: a profiler trace of 5 runs (device
     # activity only: kernels and copies, each counted once)
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        trace_head()
+        t0 = time.perf_counter()
         for _ in range(5):
             run(bt, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP,
                 tag_capacity=TAG_CAP)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    evs = sorted((ev for ev in prof.key_averages() if ev.device_time_total > 0),
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        trace_tail()
+    evs = sorted((ev for ev in prof.key_averages()
+                  if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key),
                  key=lambda ev: -ev.device_time_total)
     dev_ms = sum(ev.device_time_total for ev in evs) / 1e3
     log(f"serve.run x5 under the profiler: wall {wall_ms:.3f} ms, device busy "
@@ -604,6 +742,7 @@ def main() -> int:
     del batches, bt, whole, inputs
 
     # --- 7. the gather-rate probe -----------------------------------------
+    phase("probe")
     port.reset_launches()
     t0 = time.perf_counter()
     records = list(gather_probe.sweep(dev))
@@ -638,6 +777,7 @@ def main() -> int:
     del PT
 
     # --- 8. the find-mems and query-tags commands -------------------------
+    phase("commands")
     cli_dir = os.path.join(cache, "cli")
     os.makedirs(cli_dir, exist_ok=True)
 
@@ -781,14 +921,30 @@ def main() -> int:
                                       str(MIN_LEN), str(MIN_OCC), *fmt]),
                        ("query-tags", ["query-tags", *common, qt_reads, *fmt])):
         t0 = time.perf_counter()
-        sec = port_cmd(argv, os.path.join(cli_dir, "timed.txt"))
+        port.reset_launches()
+        sec = port_cmd(argv, os.path.join(cli_dir, f"timed_{name}.txt"))
         log(f"{name} on all {N_READS if name == 'find-mems' else len(exact) + CLI_QUERY_ERRORS} "
             f"reads (caches warm): {time.perf_counter() - t0:.4f} s; "
             + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()) + f" {card}")
-    for suffix in ("", ".err"):
-        os.remove(os.path.join(cli_dir, "timed.txt" + suffix))
+        if name == "find-mems":
+            chunked = port.KERNELS["find_mems"].launches
+    # --batch-size 0 took the reads in chunks of READ_CHUNK: the same bytes
+    # as one launch over all of them
+    check(chunked >= -(-N_READS // port_cli.READ_CHUNK),
+          f"find-mems --batch-size 0 made {chunked} MEM launches for {N_READS} reads")
+    port_cmd(["find-mems", *common, all_reads, str(MIN_LEN), str(MIN_OCC), *fmt,
+              "--batch-size", str(N_READS)], os.path.join(cli_dir, "one_launch.txt"))
+    check(without_seconds(os.path.join(cli_dir, "timed_find-mems.txt"))
+          == without_seconds(os.path.join(cli_dir, "one_launch.txt")),
+          "find-mems in chunks differs from one launch over all reads")
+    log(f"find-mems on all {N_READS} reads: --batch-size 0 ({chunked} MEM launches, "
+        f"chunks of {port_cli.READ_CHUNK}) byte-equal to one launch over them")
+    for name in ("timed_find-mems.txt", "timed_query-tags.txt", "one_launch.txt"):
+        for suffix in ("", ".err"):
+            os.remove(os.path.join(cli_dir, name + suffix))
 
     # --- 9. K6 and K7 against their plain versions, at the commands' shapes
+    phase("K6 and K7")
     # the buffered MEM intervals of the serving batch, at the command line's
     # tag capacity
     mq = (T(qs.astype(np.int32)), T(qe.astype(np.int32)))

@@ -1,6 +1,6 @@
 """pangenome_index_tpu_torch: find-mems serving, the find-mems, query-tags
-and build-sdict commands and the gather-rate probe on PyTorch and
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+and build-sdict commands, batched locate and the gather-rate probe on
+PyTorch and hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package pangenome_index_tpu, which stays the reference.
 The port imports nothing of that package: the host side (index models,
@@ -14,8 +14,9 @@ Layout:
                    K3 MEM finding (with its seed-resolving pass), K4 per-MEM
                    tag counts, K5 gather probe,
                    K6 tag positions per interval, K7 backward search (count),
-                   the tag search tree's descent alone (tagsearch.cu), and
-                   the long-seed dictionary's frontier level (sparsedict.cu)
+                   K8 locate (locate.cu), the tag search tree's descent
+                   alone (tagsearch.cu), and the long-seed dictionary's
+                   frontier level (sparsedict.cu)
   native.py        ctypes binding of the native C++ engine (src/cpp)
   utils/ models/ formats/   alphabet, synthetic data, host index models and
                    the .ri / .tags codecs
@@ -36,9 +37,10 @@ from .ops.count import count
 from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.fmd import extend
 from .ops.gather_probe import gather_chain, row_gather
+from .ops.locate import locate_batch
 from .ops.mems import find_mems as _find_mems_batch
 from .ops.mems import resolve_seeds
-from .ops.sparsedict import sdict_expand, sdict_scatter
+from .ops.sparsedict import sdict_level
 from .ops.tagquery import query_mem_tags, query_tags_batch, tag_upper_bound
 
 __version__ = "0.1.0"
@@ -51,7 +53,7 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "gather_chain": gather_chain, "count": count,
            "query_tags_batch": query_tags_batch,
            "tag_upper_bound": tag_upper_bound,
-           "sdict_expand": sdict_expand, "sdict_scatter": sdict_scatter}
+           "sdict_level": sdict_level, "locate_batch": locate_batch}
 
 
 def reset_launches() -> None:

@@ -55,11 +55,13 @@ SIGNATURES = {
     "pgt_query_tags_batch": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _I, _I,
                              _P, _P, _P, _P, _P),
     "pgt_tag_upper_bound": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
-    "pgt_sdict_expand_ckpt": (_P, _I64, _P, _P, _I64, _I, _I64, _P, _P, _P, _P,
+    "pgt_sdict_level_ckpt": (_P, _I64, _P, _P, _P, _I, _I64, _I64, _I64, _I64,
+                             _I64, _I, _I, _I64, _P, _P, _P, _P, _P, _P),
+    "pgt_sdict_level_dense": (_P, _I64, _P, _I64, _P, _P, _P, _I, _I64, _I64,
+                              _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P, _P,
                               _P, _P),
-    "pgt_sdict_expand_dense": (_P, _I64, _P, _I64, _P, _P, _I64, _I, _I64, _P,
-                               _P, _P, _P, _P, _P),
-    "pgt_sdict_scatter": (_P, _P, _P, _P, _I64, _I64, _I, _P, _P, _P),
+    "pgt_locate": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I,
+                   _P, _P, _P, _P),
 }
 
 _lib = None

@@ -10,17 +10,21 @@ the same argv, and stdout byte-equal to theirs under --engine native and
 the port's kernels on --device (default cuda; a missing card is an error,
 and --device cpu runs the kernels' plain PyTorch versions). A missing file
 or invalid input ends a command with `panidx: ...` on stderr and exit code
-1, as the JAX command line does.
+1, as the JAX command line does. --engine takes the one choice `device`,
+so that the reference's argv with it parses.
 
 find-mems: checkpoint (or dense) rank tables, the m-mer seed table (npz
-cache beside the index, else built with K2), the long-seed dictionary (npz
-cache beside the index, else built on the device from the rank tables:
-ops/sparsedict.py), MEM finding over the reads in input order
-(K3; --batch-size 0 is one launch over all reads), escalation of reads past
---mem-capacity through K3 at capacity 128 and then 1024, a host refind past
-that, tag positions per MEM (K6; overflowing windows re-queried on the
-host), and the native formatter straight to the stdout descriptor - a
-formatter failure ends the run (nothing is re-emitted).
+cache beside the index, else built with K2; m stepped down where the build
+would not fit the device, as in the reference), the long-seed dictionary
+(npz cache beside the index, else built on the device from the rank tables:
+ops/sparsedict.py), MEM finding over the reads in input order in chunks
+(K3; --batch-size 0 takes the reference's 4096 reads a launch, fewer where
+the device's free memory would not hold them: chunk_size), escalation of
+reads past --mem-capacity through K3 at capacity 128 and then 1024, a host
+refind past that, tag positions per MEM (K6, in chunks of intervals bounded
+the same way; overflowing windows re-queried on the host), and the native
+formatter straight to the stdout descriptor - a formatter failure ends the
+run (nothing is re-emitted).
 
 query-tags: backward search of every read (K7), then its tag positions (K6,
 the reference's run range quirk; overflowing lanes re-queried on the host).
@@ -43,9 +47,10 @@ from .formats import ri, tags as tagfmt
 from .models.mems import find_all_mems
 from .ops.count import count
 from .ops.mems import find_mems
-from .ops.mertable import get_mer_table, read_mer_keys_fast, resolve_mer_len
+from .ops.mertable import (device_budget, get_mer_table, read_mer_keys_fast,
+                           resolve_mer_len)
 from .ops.sparsedict import (DEVICE_BYTES_CAP, get_sparse_dict,
-                             read_windows_fast, sdict_to_device)
+                             read_windows_fast, sdict_vals_to_device)
 from .ops.tables import rindex_to_device, tags_to_device
 from .ops.tagquery import query_tags_batch
 from .serve import check_dense_tables
@@ -53,6 +58,39 @@ from .utils.alphabet import BYTE_TO_CODE
 
 #: device capacities that overflowed reads are re-run at (cli.py:482)
 ESCALATION_TIERS = (128, 1024)
+#: reads a MEM launch takes when --batch-size is 0 (the reference's chunk,
+#: pangenome_index_tpu/cli.py:436)
+READ_CHUNK = 4096
+#: MEM intervals a tag-position launch (K6) takes at most
+TAG_CHUNK = 65536
+ENGINE_HELP = ("accepted so that the reference's argv parses: the port has "
+               "one engine, its kernels on --device (the card, or their plain "
+               "versions on the CPU)")
+
+
+def chunk_size(n: int, item_bytes: int, cap: int, budget: int | None) -> int:
+    """How many of n items one launch takes: at most `cap`, and no more than
+    half of `budget` bytes holds at `item_bytes` each (budget None: no
+    limit); at least 1."""
+    k = min(n, cap)
+    if budget is not None:
+        k = min(k, budget // (2 * item_bytes))
+    return max(1, k)
+
+
+def read_bytes(width: int, capacity: int) -> int:
+    """Device bytes one read of `width` codes costs a MEM launch: its codes
+    and length; at each of its width + 1 window ends the m-mer key (8),
+    validity (1), dictionary row (4) and resolve_seeds' seed (16); its
+    [capacity] buffers (start, end, bwt_start, size), count, overflow and
+    steps."""
+    return 4 * width + 4 + (width + 1) * (8 + 1 + 4 + 16) + 16 * capacity + 9
+
+
+def interval_bytes(capacity: int) -> int:
+    """Device bytes one interval costs a K6 launch: its ends, a [capacity]
+    row of int64 positions, n_unique, n_runs and overflow."""
+    return 8 + 8 * capacity + 9
 
 
 def read_reads(path: str) -> list[bytes]:
@@ -122,8 +160,10 @@ def _check_int32(idx) -> None:
                          "(the int64 kernels are not written)")
 
 
-def _tag_positions(tags, tt, qs: np.ndarray, qe: np.ndarray, capacity: int):
-    """K6 over the intervals [qs, qe] (the reference's run range quirk):
+def _tag_positions(tags, tt, qs: np.ndarray, qe: np.ndarray, capacity: int,
+                   budget: int | None = None):
+    """K6 over the intervals [qs, qe] (the reference's run range quirk), in
+    chunks of chunk_size(..., TAG_CHUNK, budget) intervals, in order:
     (positions [B, w] int64 with only the occupied columns fetched,
     n_unique [B], n_runs [B]). Lanes past `capacity` are re-queried on the
     host (tags.query), so every lane is complete."""
@@ -132,11 +172,19 @@ def _tag_positions(tags, tt, qs: np.ndarray, qe: np.ndarray, capacity: int):
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, tt.bwt_start.dtype)
 
-    res = query_tags_batch(tt, put(qs), put(qe), capacity=capacity)
-    tuniq = res.n_unique.cpu().numpy()
-    wid = max(int(tuniq.max()), 1)
-    tpos = res.positions[:, :wid].contiguous().cpu().numpy()
-    truns, tov = res.n_runs.cpu().numpy(), res.overflow.cpu().numpy()
+    step = chunk_size(len(qs), interval_bytes(capacity), TAG_CHUNK, budget)
+    parts = []
+    for a in range(0, len(qs), step):
+        res = query_tags_batch(tt, put(qs[a : a + step]), put(qe[a : a + step]),
+                               capacity=capacity)
+        uniq = res.n_unique.cpu().numpy()
+        parts.append((res.positions[:, : max(int(uniq.max()), 1)].contiguous()
+                      .cpu().numpy(), uniq, res.n_runs.cpu().numpy(),
+                      res.overflow.cpu().numpy()))
+    wid = max(p[0].shape[1] for p in parts)
+    tpos = np.concatenate([np.pad(p[0], ((0, 0), (0, wid - p[0].shape[1])))
+                           for p in parts])
+    tuniq, truns, tov = (np.concatenate(f) for f in list(zip(*parts))[1:])
     if tov.any():
         ov = np.flatnonzero(tov)
         vals_ov = [tags.query(int(qs[f]), int(qe[f]))[0] for f in ov]
@@ -165,18 +213,19 @@ def cmd_find_mems(args, seconds: dict) -> int:
         check_dense_tables(t)
     tt = tags_to_device(tags, dev)
     codes, lens = pack_reads(reads)
-    codes_d, lens_d = put(codes), put(lens)
     mark("tables")
 
-    # seed tiers: `shared` for every launch, `per_read` in input read order
+    # seed tiers: `shared` for every launch, `per_read` (host arrays, sent
+    # with their chunk) in input read order
     shared, per_read = {}, {}
     mer_m = resolve_mer_len(args.mer_len, args.min_len, idx.n, dev)
     if mer_m:
-        path = None if args.no_mer_cache else f"{args.ri}.mer{mer_m}.npz"
-        shared.update(mer_table=get_mer_table(idx, mer_m, t, path), mer_m=mer_m)
+        path = None if args.no_mer_cache else (lambda m: f"{args.ri}.mer{m}.npz")
+        table, mer_m = get_mer_table(idx, mer_m, t, path)
+        shared.update(mer_table=table, mer_m=mer_m)
         mark("mer_table")
         mk, mv = read_mer_keys_fast(codes, lens, mer_m)
-        per_read.update(mer_keys=put(mk), mer_valid=put(mv))
+        per_read.update(mer_keys=mk, mer_valid=mv)
     s_long = resolve_long_seed(args.long_seed, args.min_len, mer_m)
     if s_long:
         sd_path = None if args.no_mer_cache else f"{args.ri}.sdict{s_long}.npz"
@@ -190,38 +239,49 @@ def cmd_find_mems(args, seconds: dict) -> int:
                   file=sys.stderr)
         else:
             _, _, di = read_windows_fast(codes, lens, s_long, sd_keys)
-            vals_d, di_d = sdict_to_device(sd_vals, di, dev)
-            shared.update(sdict_vals=vals_d, sdict_m=s_long)
-            per_read["sdict_idx"] = di_d
+            shared.update(sdict_vals=sdict_vals_to_device(sd_vals, dev),
+                          sdict_m=s_long)
+            per_read["sdict_idx"] = np.ascontiguousarray(di, np.int32)
     n_reads = len(reads)
     mark("windows")
 
     def mems_of(sel, capacity: int):
-        """K3 over the reads `sel` (a slice, or input indices on the device)."""
-        return find_mems(t, codes_d[sel], lens_d[sel], args.min_len,
-                         args.min_occ, capacity=capacity, **shared,
-                         **{k: v[sel] for k, v in per_read.items()})
+        """K3 over the reads `sel` (a slice, or input indices), their arrays
+        sent to the device with the launch; the results as host arrays."""
+        res = find_mems(t, put(codes[sel]), put(lens[sel]), args.min_len,
+                        args.min_occ, capacity=capacity, **shared,
+                        **{k: put(v[sel]) for k, v in per_read.items()})
+        return [field.cpu().numpy() for field in res]
 
     t_mem = time.perf_counter()
-    B = args.batch_size or n_reads
-    parts = [mems_of(slice(s0, s0 + B), args.mem_capacity)
-             for s0 in range(0, n_reads, B)]
+    budget = device_budget(dev)
+
+    def chunks(n: int, capacity: int):
+        """Chunk starts and length for n reads at `capacity` MEMs a read."""
+        size = chunk_size(n, read_bytes(codes.shape[1], capacity),
+                          args.batch_size or READ_CHUNK, budget)
+        return range(0, n, size), size
+
+    starts_at, B = chunks(n_reads, args.mem_capacity)
+    parts = [mems_of(slice(s0, s0 + B), args.mem_capacity) for s0 in starts_at]
     starts, ends, bwts, sizes, counts, overflow = (
-        torch.cat(field).cpu().numpy() for field in zip(*parts))
+        np.concatenate(field) for field in zip(*parts))
     # reads past the buffer re-run on the device at a capacity that holds
     # them (`counts` is exact past the capacity)
     for tier in (c for c in ESCALATION_TIERS if c > args.mem_capacity):
         sel = np.flatnonzero(overflow & (counts <= tier))
         if not len(sel):
             continue
-        r2 = mems_of(put(sel), tier)
         pad = tier - starts.shape[1]
         if pad > 0:
             starts, ends, bwts, sizes = (np.pad(a, ((0, 0), (0, pad)))
                                          for a in (starts, ends, bwts, sizes))
-        for dst, src in ((starts, r2.start), (ends, r2.end),
-                         (bwts, r2.bwt_start), (sizes, r2.size)):
-            dst[sel, :tier] = src.cpu().numpy()
+        starts_at, size = chunks(len(sel), tier)
+        for s0 in starts_at:
+            part = sel[s0 : s0 + size]
+            r2 = mems_of(part, tier)
+            for dst, src in zip((starts, ends, bwts, sizes), r2):
+                dst[part, :tier] = src
         overflow[sel] = False
         print(f"escalated {len(sel)} overflowed reads to device capacity "
               f"{tier}", file=sys.stderr)
@@ -250,7 +310,7 @@ def cmd_find_mems(args, seconds: dict) -> int:
     tpos, tuniq = np.zeros((0, 1), np.int64), np.zeros(0, np.int64)
     if n_flat:
         tpos, tuniq, _ = _tag_positions(tags, tt, qs, qs + sizes[ii, within] - 1,
-                                        args.tag_capacity)
+                                        args.tag_capacity, budget)
     total_tag_time = time.perf_counter() - t_tag
     mark("tags")
 
@@ -282,7 +342,7 @@ def cmd_query_tags(args, seconds: dict) -> int:
     ok = first <= second
     tpos, tuniq, truns = _tag_positions(tags, tt, np.where(ok, first, 0),
                                         np.where(ok, second, 0),
-                                        args.tag_capacity)
+                                        args.tag_capacity, device_budget(dev))
     mark("tags")
     for i, read in enumerate(reads):
         if first[i] > second[i]:
@@ -356,8 +416,9 @@ def main(argv=None, seconds: dict | None = None) -> int:
                            help="neither read nor write the seed table and "
                                 "dictionary caches beside the index")
             q.add_argument("--batch-size", type=int, default=0,
-                           help="reads per MEM launch; 0 = all reads in one "
-                                "launch")
+                           help="reads per MEM launch; 0 = 4096, fewer where "
+                                "the device's free memory would not hold "
+                                "them")
             q.add_argument("--rank-mode", default="checkpoint",
                            choices=["checkpoint", "dense"],
                            help="rank tables: checkpoint rows or dense run "
@@ -368,6 +429,8 @@ def main(argv=None, seconds: dict | None = None) -> int:
         q.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu runs the "
                             "kernels' plain versions)")
+        q.add_argument("--engine", choices=["device"], default="device",
+                       help=ENGINE_HELP)
         q.set_defaults(fn=fn)
     bs = sub.add_parser("build-sdict")
     bs.add_argument("ri")
@@ -382,6 +445,8 @@ def main(argv=None, seconds: dict | None = None) -> int:
     bs.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
+    bs.add_argument("--engine", choices=["device"], default="device",
+                    help=ENGINE_HELP)
     bs.set_defaults(fn=cmd_build_sdict)
     args = p.parse_args(argv)
     try:

@@ -7,31 +7,43 @@
 // a rank6 pair per entry, four children as whole [C, 8] states, a cumsum and
 // a scatter per branch over a buffer of guessed capacity C, restarted at 4 C
 // when a level overflowed, keys split into 30-bit halves to stay in int32.
-// Here a level is three launches over exactly the entries it has:
-//   expand   a thread an entry: one load of its rank rows (rank.cuh), the
-//            four backward extensions from them (extend1: k' = occ + C[c],
-//            kp' = kp + the advance of the reverse interval, size' = the
-//            count inside), the children written branch-major into a scratch
-//            [4, D] with size 0 where a child is dropped, and the block's
-//            kept children counted per branch (ballot, popcount);
-//   scan     one block turns the [4, blocks] counts, read branch-major as one
-//            row, into exclusive offsets and the level's total: an offset is
-//            at once the start of the branch and of the block inside it;
-//   scatter  the blocks of expand again: a kept child's place is its
-//            block's offset plus its rank among the block's kept children of
-//            its branch (ballot, popcount, a prefix over the warps), where it
-//            is written with key | base << 2t.
-// Branch-major order with the source order kept inside a branch keeps the
-// keys sorted with no sort, as in the host build. Keys are plain int64, so
-// t up to 30 (s = 31) is exact. The wrapper reads the total between scan and
-// scatter and allocates the next level at its exact size.
 //
-// What bounds it: bytes. A level must read an entry (20 bytes) and its one
-// or two 64-byte rank rows, a dependent random gather, and write 20 bytes a
-// kept child; the scratch between expand and scatter (48 bytes an entry
-// written and read) is what this simple form adds to that. Both rank
-// providers are instantiated: checkpoint rows or dense records.
+// Here a level is one launch over exactly the entries it has, a thread an
+// entry, in blocks of kBlock that take their place in entry order from a
+// ticket (so that every block before a block has started):
+//   - the entry (8 bytes of key, 12 of k, kp, size) and its one or two rank
+//     rows are loaded once, and the four backward extensions are taken from
+//     them; a checkpoint row is loaded whole (four 16-byte loads: the planes
+//     and every base's count pair), so the four bases read their pairs from
+//     registers, and dense records go through rank.cuh's extend1;
+//   - the block counts its kept children per branch (ballot, popcount; one
+//     warp a branch scans the block's eight warp counts);
+//   - the same four warps find the block's offset inside each branch by a
+//     decoupled look-back (Merrill and Garland, "Single-pass Parallel
+//     Prefix Scan with Decoupled Look-back", 2016): a block publishes its
+//     count, then sums its predecessors' counts 32 at a time until it meets
+//     one that has published its inclusive prefix, and publishes its own;
+//   - each thread stores its kept children, the dropped ones go nowhere,
+//     into the branch's own region of the output, where a warp's children
+//     of a branch form one contiguous run: region b holds the children of
+//     branch b, at most one an entry, so a region of D rows is an exact
+//     bound and not a guess. (Staging a block's children in shared memory
+//     to store each branch's as one run was slower, PERF.md.)
+// The next level reads the four regions, in order, as one input (Segments);
+// the wrapper reads the four totals after the launch and packs the last
+// level once into contiguous keys / vals. Branch-major order with the source
+// order kept inside a branch keeps the keys sorted with no sort, as in the
+// host build. Keys are plain int64, so t up to 30 (s = 31) is exact.
+//
+// What bounds it: the bytes of a level are an entry and its rank rows (a
+// gather, but in key order, which is k order, so the rows come nearly in
+// sequence and the 20 MB table of the bench index stays in L2) and 20 bytes
+// a kept child; nothing else touches device memory but 32 bytes of look-back
+// state a block. What holds it back (PERF.md): a block's look-back walks
+// over the blocks resident beside it, which all reach it at once.
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #include "rank.cuh"
@@ -40,144 +52,251 @@ namespace {
 
 constexpr int kBlock = 256;  // entries a block; ops/sparsedict.py:LEVEL_BLOCK
 constexpr int kWarps = kBlock / 32;
-constexpr int kScanThreads = 1024;
+// look-back state of a (branch, block): flag in the high word, value low
+constexpr unsigned long long kAggregate = 1ull << 32;  // the block's count
+constexpr unsigned long long kPrefix = 2ull << 32;     // count of all up to it
+
+// The level's input: regions of `stride` rows, region r holding
+// start[r + 1] - start[r] entries at its front; start[4] = D (the regions
+// past the input's are empty).
+struct Segments {
+  int64_t start[5];
+  int64_t stride;
+};
+
+// row of entry i of the level in the input regions (selects, so that the
+// struct stays in parameter space)
+__device__ __forceinline__ int64_t source_of(const Segments& sg, int64_t i) {
+  int64_t row = i;
+  if (i >= sg.start[1]) row = sg.stride + (i - sg.start[1]);
+  if (i >= sg.start[2]) row = 2 * sg.stride + (i - sg.start[2]);
+  if (i >= sg.start[3]) row = 3 * sg.stride + (i - sg.start[3]);
+  return row;
+}
 
 // code of base b (A, C, G, T -> 1, 2, 3, 5)
 __device__ __forceinline__ int base_code(int b) { return b + 1 + (b == 3); }
 
+__device__ __forceinline__ unsigned long long load_state(
+    const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
+__device__ __forceinline__ int warp_sum(int v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// The rows an entry's four extensions read: the provider's own, or for
+// checkpoint rows both whole rows in registers.
+template <class Rank>
+struct EntryRows {
+  typename Rank::Rows r;
+};
+
+template <>
+struct EntryRows<pgt::CkptRank> {
+  int row1, row2;
+  int4 r1[4], r2[4];
+};
+
+template <class Rank>
+__device__ __forceinline__ EntryRows<Rank> load_rows(const Rank& rk, int k, int s) {
+  if constexpr (std::is_same_v<Rank, pgt::CkptRank>) {
+    EntryRows<Rank> e;
+    e.row1 = rk.row_of(k);
+    e.row2 = rk.row_of(k + s);
+    const int4* p1 = reinterpret_cast<const int4*>(rk.row_ptr(e.row1));
+    const int4* p2 = reinterpret_cast<const int4*>(rk.row_ptr(e.row2));
+#pragma unroll
+    for (int q = 0; q < 4; ++q) e.r1[q] = __ldg(p1 + q);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) e.r2[q] = e.row2 != e.row1 ? __ldg(p2 + q) : e.r1[q];
+    return e;
+  } else {
+    return EntryRows<Rank>{rk.load(k, s)};
+  }
+}
+
+// the count pair (S[qe], S[qe + 1]) of qe in 1..5 of a whole checkpoint row
+__device__ __forceinline__ int2 pair_in(const int4 (&r)[4], int qe) {
+  switch (qe) {
+    case 1: return make_int2(r[1].z, r[1].w);
+    case 2: return make_int2(r[2].x, r[2].y);
+    case 3: return make_int2(r[2].z, r[2].w);
+    case 4: return make_int2(r[3].x, r[3].y);
+    default: return make_int2(r[3].z, r[3].w);
+  }
+}
+
+// The backward extension of (k, kp, s) by base b, as pgt::extend1 computes
+// it (C: the C array at the four bases' codes)
+template <class Rank>
+__device__ __forceinline__ void extend_base(const Rank& rk,
+                                            const EntryRows<Rank>& e,
+                                            const int* __restrict__ Cg,
+                                            const int (&C)[4], int k, int kp,
+                                            int s, int b, int& ok, int& okp,
+                                            int& os) {
+  if constexpr (std::is_same_v<Rank, pgt::CkptRank>) {
+    const int qe = pgt::comp_code(base_code(b));
+    const uint64_t m1 = (1ull << (k & 63)) - 1, m2 = (1ull << ((k + s) & 63)) - 1;
+    const int2 s1 = pair_in(e.r1, qe);
+    uint64_t eq1, lt1;
+    pgt::CkptRank::masks(e.r1[0], make_int2(e.r1[1].x, e.r1[1].y), qe, eq1, lt1);
+    int r1, d, dlt;
+    r1 = s1.y - s1.x + __popcll(eq1 & m1);
+    if (e.row2 != e.row1) {
+      const int2 s2 = pair_in(e.r2, qe);
+      uint64_t eq2, lt2;
+      pgt::CkptRank::masks(e.r2[0], make_int2(e.r2[1].x, e.r2[1].y), qe, eq2, lt2);
+      d = s2.y - s2.x + __popcll(eq2 & m2) - r1;
+      dlt = s2.x + __popcll(lt2 & m2) - s1.x - __popcll(lt1 & m1);
+    } else {
+      // both ends in one row; an s < 0 counts nothing, as in rank.cuh
+      const uint64_t range = m2 & ~m1;
+      d = __popcll(eq1 & range);
+      dlt = __popcll(lt1 & range);
+    }
+    const bool good = d > 0;
+    ok = good ? r1 + C[b] : 0;
+    okp = good ? kp + dlt : 0;
+    os = good ? d : 0;
+  } else {
+    pgt::extend1(rk, e.r, Cg, k, kp, s, base_code(b), false, ok, okp, os);
+  }
+}
+
 template <class Rank>
 __global__ void __launch_bounds__(kBlock)
-sdict_expand_kernel(Rank rk, const int* __restrict__ Cg,
-                    const int* __restrict__ vals, int64_t n_entries,
-                    int thresh, int* __restrict__ child_sz,
-                    int2* __restrict__ child_kkp, int* __restrict__ counts) {
-  __shared__ int warp_kept[4][kWarps];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  const bool live = i < n_entries;
+sdict_level_kernel(Rank rk, const int* __restrict__ Cg,
+                   const int64_t* __restrict__ keys_in,
+                   const int* __restrict__ vals_in, Segments sg, int thresh,
+                   int level, unsigned long long* state,
+                   unsigned int* ticket, int64_t* __restrict__ keys_out,
+                   int* __restrict__ vals_out, int* __restrict__ offsets,
+                   int* __restrict__ totals) {
+  __shared__ int blk_s;
+  __shared__ int warp_at[4][kWarps];  // kept children of the warps before
+  __shared__ int base_s[4];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x == 0) blk_s = static_cast<int>(atomicAdd(ticket, 1u));
+  __syncthreads();
+  const int blk = blk_s;
+  const int blocks = static_cast<int>(gridDim.x);
+  const int64_t D = sg.start[4];
+  const int64_t i = static_cast<int64_t>(blk) * kBlock + threadIdx.x;
+  const bool live = i < D;
+  int64_t key = 0;
   int k = 0, kp = 0, sz = 0;
   if (live) {
-    k = __ldg(vals + 3 * i);
-    kp = __ldg(vals + 3 * i + 1);
-    sz = __ldg(vals + 3 * i + 2);
+    const int64_t src = source_of(sg, i);
+    key = __ldg(reinterpret_cast<const long long*>(keys_in) + src);
+    k = __ldg(vals_in + 3 * src);
+    kp = __ldg(vals_in + 3 * src + 1);
+    sz = __ldg(vals_in + 3 * src + 2);
   }
+  int C[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) C[b] = __ldg(Cg + base_code(b));
   // a thread past the entries ranks the empty interval at 0 and keeps nothing
-  const typename Rank::Rows rows = rk.load(k, sz);
+  const EntryRows<Rank> rows = load_rows(rk, k, sz);
+  int ck[4], ckp[4], cs[4];
+  unsigned kept[4];
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
-    int ck, ckp, cs;
-    pgt::extend1(rk, rows, Cg, k, kp, sz, base_code(b), false, ck, ckp, cs);
-    const bool keep = live && cs >= thresh;
-    if (live) {
-      child_sz[b * n_entries + i] = keep ? cs : 0;
-      child_kkp[b * n_entries + i] = keep ? make_int2(ck, ckp) : make_int2(0, 0);
-    }
-    const unsigned kept = __ballot_sync(0xffffffffu, keep);
-    if ((threadIdx.x & 31) == 0) warp_kept[b][threadIdx.x >> 5] = __popc(kept);
+    extend_base(rk, rows, Cg, C, k, kp, sz, b, ck[b], ckp[b], cs[b]);
+    kept[b] = __ballot_sync(0xffffffffu, live && cs[b] >= thresh);
+    if (lane == 0) warp_at[b][warp] = __popc(kept[b]);
   }
   __syncthreads();
-  if (threadIdx.x < 4) {
-    int total = 0;
+  // warp b: the block's place inside branch b
+  if (warp < 4) {
+    const int b = warp;
+    const int c = lane < kWarps ? warp_at[b][lane] : 0;
+    int incl = c;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) total += warp_kept[threadIdx.x][w];
-    counts[static_cast<int64_t>(threadIdx.x) * gridDim.x + blockIdx.x] = total;
-  }
-}
-
-// counts [n] -> offsets [n] (exclusive prefix sums) and total[0] = their sum,
-// by one block: tiles of kScanThreads values, a running carry between tiles.
-// The sum is below 2^31: a level has no more entries than the index has rows.
-__global__ void __launch_bounds__(kScanThreads)
-sdict_scan_kernel(const int* __restrict__ counts, int64_t n,
-                  int* __restrict__ offsets, int* __restrict__ total) {
-  __shared__ int warp_sum[kScanThreads / 32];
-  __shared__ int carry_s;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry_s = 0;
-  __syncthreads();
-  for (int64_t base = 0; base < n; base += kScanThreads) {
-    const int64_t i = base + threadIdx.x;
-    const int v = i < n ? counts[i] : 0;
-    int incl = v;  // inclusive prefix inside the warp
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += up;
+    for (int d = 1; d < kWarps; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += o;
     }
-    if (lane == 31) warp_sum[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {  // inclusive prefix over the warps' sums
-      int ws = warp_sum[lane];
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int up = __shfl_up_sync(0xffffffffu, ws, d);
-        if (lane >= d) ws += up;
+    const int n_b = __shfl_sync(0xffffffffu, incl, kWarps - 1);
+    if (lane < kWarps) warp_at[b][lane] = incl - c;
+    unsigned long long* st = state + static_cast<int64_t>(b) * blocks;
+    if (lane == 0)
+      atomicExch(st + blk, (blk == 0 ? kPrefix : kAggregate) |
+                               static_cast<unsigned>(n_b));
+    int excl = 0;
+    if (blk > 0) {
+      for (int look = blk - 1;; look -= 32) {
+        const int j = look - lane;
+        unsigned long long s = kPrefix;  // before block 0: a prefix of 0
+        if (j >= 0) {
+          do {
+            s = load_state(st + j);
+          } while ((s >> 32) == 0);
+        }
+        const unsigned pre = __ballot_sync(0xffffffffu, (s >> 32) == 2);
+        int v = static_cast<int>(s & 0xffffffffu);
+        // up to and with the nearest predecessor that knows its prefix
+        if (pre && lane > __ffs(pre) - 1) v = 0;
+        excl += warp_sum(v);
+        if (pre) break;
       }
-      warp_sum[lane] = ws;
+      if (lane == 0) atomicExch(st + blk, kPrefix | static_cast<unsigned>(excl + n_b));
     }
-    __syncthreads();
-    const int carry = carry_s;
-    const int before = carry + (warp > 0 ? warp_sum[warp - 1] : 0) + incl - v;
-    if (i < n) offsets[i] = before;
-    __syncthreads();  // every thread has read the carry and the sums
-    if (threadIdx.x == kScanThreads - 1) carry_s = before + v;
+    if (lane == 0) {
+      base_s[b] = excl;
+      offsets[static_cast<int64_t>(b) * blocks + blk] = excl;
+      if (blk == blocks - 1) totals[b] = excl + n_b;
+    }
   }
   __syncthreads();
-  if (threadIdx.x == 0) total[0] = carry_s;
-}
-
-__global__ void __launch_bounds__(kBlock)
-sdict_scatter_kernel(const int64_t* __restrict__ keys,
-                     const int* __restrict__ child_sz,
-                     const int2* __restrict__ child_kkp,
-                     const int* __restrict__ offsets, int64_t n_entries,
-                     int level, int64_t* __restrict__ out_keys,
-                     int* __restrict__ out_vals) {
-  __shared__ int warp_kept[4][kWarps];
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kBlock + threadIdx.x;
-  const bool live = i < n_entries;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int cs[4], rank_in_warp[4];
+  // each kept child to its place in its branch's region: a warp's children
+  // of a branch are one contiguous run
+  const unsigned below = (1u << lane) - 1u;
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
-    cs[b] = live ? __ldg(child_sz + b * n_entries + i) : 0;
-    const unsigned kept = __ballot_sync(0xffffffffu, cs[b] != 0);
-    rank_in_warp[b] = __popc(kept & ((1u << lane) - 1u));
-    if (lane == 0) warp_kept[b][warp] = __popc(kept);
-  }
-  __syncthreads();
-  const int64_t key = live ? keys[i] : 0;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    if (cs[b] == 0) continue;
-    int before = rank_in_warp[b];
-    for (int w = 0; w < warp; ++w) before += warp_kept[b][w];
-    const int64_t dst =
-        __ldg(offsets + static_cast<int64_t>(b) * gridDim.x + blockIdx.x) + before;
-    const int2 kkp = __ldg(child_kkp + b * n_entries + i);
-    out_keys[dst] = key | (static_cast<int64_t>(b) << (2 * level));
-    out_vals[3 * dst] = kkp.x;
-    out_vals[3 * dst + 1] = kkp.y;
-    out_vals[3 * dst + 2] = cs[b];
+    if ((kept[b] >> lane) & 1u) {
+      const int64_t at = static_cast<int64_t>(b) * D + base_s[b] + warp_at[b][warp] +
+                         __popc(kept[b] & below);
+      keys_out[at] = key | (static_cast<int64_t>(b) << (2 * level));
+      vals_out[3 * at] = ck[b];
+      vals_out[3 * at + 1] = ckp[b];
+      vals_out[3 * at + 2] = cs[b];
+    }
   }
 }
 
-// expand, then the scan of its block counts; blocks must be
-// ceil(n_entries / kBlock), the partition scatter walks again
 template <class Rank>
-int launch_expand(const Rank& rk, const int* C, const int* vals,
-                  int64_t n_entries, int thresh, int64_t blocks, int* child_sz,
-                  int* child_kkp, int* counts, int* offsets, int* total,
-                  void* stream) {
-  if (n_entries <= 0 || blocks != (n_entries + kBlock - 1) / kBlock)
+int launch_level(const Rank& rk, const int* C, const int64_t* keys_in,
+                 const int* vals_in, int regions, int64_t stride, int64_t c0,
+                 int64_t c1, int64_t c2, int64_t c3, int thresh, int level,
+                 int64_t blocks, void* state, int64_t* keys_out, int* vals_out,
+                 int* offsets, int* totals, void* stream) {
+  Segments sg;
+  const int64_t counts[4] = {c0, c1, c2, c3};
+  sg.start[0] = 0;
+  for (int r = 0; r < 4; ++r) {
+    if (counts[r] < 0 || counts[r] > stride || (r >= regions && counts[r] != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    sg.start[r + 1] = sg.start[r] + counts[r];
+  }
+  sg.stride = stride;
+  const int64_t D = sg.start[4];
+  if (regions < 1 || regions > 4 || D <= 0 || D >= (int64_t{1} << 31) ||
+      blocks != (D + kBlock - 1) / kBlock || level < 0 || level > 30)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sdict_expand_kernel<Rank><<<static_cast<unsigned>(blocks), kBlock, 0, st>>>(
-      rk, C, vals, n_entries, thresh, child_sz,
-      reinterpret_cast<int2*>(child_kkp), counts);
-  const cudaError_t err = cudaGetLastError();
+  // the look-back state [4, blocks] and the ticket after it, zeroed
+  cudaError_t err = cudaMemsetAsync(state, 0, (4 * blocks + 1) * 8, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  sdict_scan_kernel<<<1, kScanThreads, 0, st>>>(counts, 4 * blocks, offsets,
-                                                 total);
+  auto* words = static_cast<unsigned long long*>(state);
+  sdict_level_kernel<Rank><<<static_cast<unsigned>(blocks), kBlock, 0, st>>>(
+      rk, C, keys_in, vals_in, sg, thresh, level, words,
+      reinterpret_cast<unsigned int*>(words + 4 * blocks), keys_out, vals_out,
+      offsets, totals);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -185,46 +304,38 @@ int launch_expand(const Rank& rk, const int* C, const int* vals,
 
 extern "C" {
 
-// vals [n_entries, 3] int32 (k, kp, size) -> child_sz [4, n_entries] int32
-// (0 = dropped), child_kkp [4, n_entries, 2] int32, counts and offsets
-// [4, blocks] int32, total [1] int32; checkpoint tables
-int pgt_sdict_expand_ckpt(const int* ckpt, int64_t nrows, const int* C,
-                          const int* vals, int64_t n_entries, int thresh,
-                          int64_t blocks, int* child_sz, int* child_kkp,
-                          int* counts, int* offsets, int* total,
-                          void* stream) {
+// One level over checkpoint tables. keys_in [regions, stride] int64 and
+// vals_in [regions, stride, 3] int32 hold the level's entries, c_r of them at
+// the front of region r -> keys_out [4, D] int64 and vals_out [4, D, 3] int32
+// (region b: the totals[b] kept children of branch b), offsets [4, blocks]
+// int32 (the block's place inside its branch), totals [4] int32. state:
+// 4 * blocks + 1 words of 8 bytes of scratch.
+int pgt_sdict_level_ckpt(const int* ckpt, int64_t nrows, const int* C,
+                         const int64_t* keys_in, const int* vals_in,
+                         int regions, int64_t stride, int64_t c0, int64_t c1,
+                         int64_t c2, int64_t c3, int thresh, int level,
+                         int64_t blocks, void* state, int64_t* keys_out,
+                         int* vals_out, int* offsets, int* totals,
+                         void* stream) {
   pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
-  return launch_expand(rk, C, vals, n_entries, thresh, blocks, child_sz,
-                       child_kkp, counts, offsets, total, stream);
+  return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
+                      thresh, level, blocks, state, keys_out, vals_out,
+                      offsets, totals, stream);
 }
 
 // the same over dense tables
-int pgt_sdict_expand_dense(const int* pos_to_run, int64_t n_p2r,
-                           const int* rec, int64_t n_runs, const int* C,
-                           const int* vals, int64_t n_entries, int thresh,
-                           int64_t blocks, int* child_sz, int* child_kkp,
-                           int* counts, int* offsets, int* total,
-                           void* stream) {
+int pgt_sdict_level_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+                          int64_t n_runs, const int* C, const int64_t* keys_in,
+                          const int* vals_in, int regions, int64_t stride,
+                          int64_t c0, int64_t c1, int64_t c2, int64_t c3,
+                          int thresh, int level, int64_t blocks, void* state,
+                          int64_t* keys_out, int* vals_out, int* offsets,
+                          int* totals, void* stream) {
   pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
                     n_runs};
-  return launch_expand(rk, C, vals, n_entries, thresh, blocks, child_sz,
-                       child_kkp, counts, offsets, total, stream);
-}
-
-// keys [n_entries] int64 and expand's outputs -> the next level's out_keys
-// [total] int64 and out_vals [total, 3] int32 (total: what scan reported)
-int pgt_sdict_scatter(const int64_t* keys, const int* child_sz,
-                      const int* child_kkp, const int* offsets,
-                      int64_t n_entries, int64_t blocks, int level,
-                      int64_t* out_keys, int* out_vals, void* stream) {
-  if (n_entries <= 0 || blocks != (n_entries + kBlock - 1) / kBlock ||
-      level < 0 || level > 30)
-    return static_cast<int>(cudaErrorInvalidValue);
-  sdict_scatter_kernel<<<static_cast<unsigned>(blocks), kBlock, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      keys, child_sz, reinterpret_cast<const int2*>(child_kkp), offsets,
-      n_entries, level, out_keys, out_vals);
-  return static_cast<int>(cudaGetLastError());
+  return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
+                      thresh, level, blocks, state, keys_out, vals_out,
+                      offsets, totals, stream);
 }
 
 }  // extern "C"

@@ -74,7 +74,7 @@ __device__ __forceinline__ void sort8(int64_t (&x)[kTiny]) {
 }
 
 __global__ void query_tags_batch_kernel(
-    pgt::TagTree tree, int64_t n_runs, const int64_t* __restrict__ pos_enc,
+    pgt::SearchTree tree, int64_t n_runs, const int64_t* __restrict__ pos_enc,
     const int* __restrict__ start, const int* __restrict__ end, int64_t n,
     int capacity, int exact, int64_t* __restrict__ positions,
     int* __restrict__ n_unique, int* __restrict__ n_runs_out,
@@ -256,8 +256,8 @@ int pgt_query_tags_batch(const int* run_start, int64_t n_runs, const int* tree,
                          int capacity, int exact, int sort_slots,
                          int64_t* positions, int* n_unique, int* n_runs_out,
                          uint8_t* overflow, void* stream) {
-  pgt::TagTree tt;
-  if (!pgt::make_tag_tree(tree, tree_rows, run_start, n_runs, &tt) ||
+  pgt::SearchTree tt;
+  if (!pgt::make_search_tree(tree, tree_rows, run_start, n_runs, &tt) ||
       capacity < 1 || capacity > kMaxCapacity || sort_slots < 64 ||
       sort_slots < capacity || (sort_slots & (sort_slots - 1)) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -37,7 +37,7 @@ using pgt::load64;
 constexpr int kRegWindow = 8;
 
 template <bool kInRegisters>
-__global__ void query_mem_tags_kernel(pgt::TagTree tree, int64_t n_runs,
+__global__ void query_mem_tags_kernel(pgt::SearchTree tree, int64_t n_runs,
                                       const int64_t* __restrict__ pos_enc,
                                       const int* __restrict__ bwt_start,
                                       const int* __restrict__ size,
@@ -116,8 +116,8 @@ int pgt_query_mem_tags(const int* run_start, int64_t n_runs, const int* tree,
                        const int* bwt_start, const int* size, const int* count,
                        int n_reads, int M, int capacity, int* n_unique,
                        uint8_t* overflow, void* stream) {
-  pgt::TagTree tt;
-  if (!pgt::make_tag_tree(tree, tree_rows, run_start, n_runs, &tt)) {
+  pgt::SearchTree tt;
+  if (!pgt::make_search_tree(tree, tree_rows, run_start, n_runs, &tt)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int64_t total = static_cast<int64_t>(n_reads) * M;

@@ -1,8 +1,10 @@
 // Tag-array search pieces shared by K4 (tagquery.cu), K6 (tagbatch.cu) and
-// the search probe (tagsearch.cu).
+// the search probe (tagsearch.cu), and the search tree that K8 (locate.cu)
+// searches the run heads and the sorted run tails with.
 //
-// The search over the t sorted tag run heads ("how many heads are <= v",
-// searchsorted side="right") goes through a static search tree made for
+// The search over t sorted int32 heads below INT32_MAX ("how many heads are
+// <= v", searchsorted side="right": the tag run heads here, run_start and
+// last_sorted in locate.cu) goes through a static search tree made for
 // 64-byte lines (ops/tables.py:derive_search_tree): a node is one aligned
 // line of 16 int32 keys with 17 children, the leaf level is the array of
 // heads itself read as lines of 16, and node j at height h covers the leaf
@@ -42,11 +44,12 @@ __device__ __forceinline__ int64_t load64(const int64_t* p) {
   return static_cast<int64_t>(__ldg(reinterpret_cast<const long long*>(p)));
 }
 
-// The search tree as a kernel argument. `nodes` holds the internal levels,
+// A search tree as a kernel argument. `nodes` holds the internal levels,
 // root first, then one more line: the last leaf line padded to 16 keys with
 // INT32_MAX (the heads' own last line may be short). Every head is below
-// INT32_MAX (it is a BWT offset), which derive_search_tree checks.
-struct TagTree {
+// INT32_MAX (a BWT offset or a packed text position), which
+// derive_search_tree checks.
+struct SearchTree {
   const int4* nodes;
   const int4* heads;       // the run heads: the leaf level, lines of 16
   int depth;               // internal levels
@@ -57,8 +60,8 @@ struct TagTree {
 
 // Fills `tree` for t heads and the derived tensor of `rows` lines; false
 // when the tensor was not derived from t heads (its line count differs).
-inline bool make_tag_tree(const int* nodes, int64_t rows, const int* heads,
-                          int64_t t, TagTree* tree) {
+inline bool make_search_tree(const int* nodes, int64_t rows, const int* heads,
+                          int64_t t, SearchTree* tree) {
   const int64_t lines = t > 0 ? (t + kNodeKeys - 1) / kNodeKeys : 1;
   int depth = 0;
   for (int64_t span = 1; span < lines; span *= kFanOut) ++depth;
@@ -100,7 +103,7 @@ __device__ __forceinline__ int quad_sum(int c) {
 // same in the four lanes of a quad; a search that is not active loads
 // nothing and its out[q] means nothing.
 template <int N>
-__device__ __forceinline__ void upper_bound_quad(const TagTree& tree,
+__device__ __forceinline__ void upper_bound_quad(const SearchTree& tree,
                                                  const int (&v)[N],
                                                  const bool (&active)[N],
                                                  int (&out)[N]) {
@@ -140,7 +143,7 @@ __device__ __forceinline__ void upper_bound_quad(const TagTree& tree,
 // The searches of a quad's four lanes, two values a lane (an interval's
 // ends): lane m of the quad brings ends[0..1] and whether it searches at
 // all; bits[0..1] are its own two results. Every lane of the warp calls it.
-__device__ __forceinline__ void upper_bound_ends(const TagTree& tree,
+__device__ __forceinline__ void upper_bound_ends(const SearchTree& tree,
                                                  const int (&ends)[2],
                                                  bool searches, int (&bits)[2]) {
   int v[8], out[8];

@@ -16,7 +16,7 @@
 
 namespace {
 
-__global__ void tag_search_kernel(pgt::TagTree tree,
+__global__ void tag_search_kernel(pgt::SearchTree tree,
                                   const int* __restrict__ values, int64_t n,
                                   int* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -47,8 +47,8 @@ extern "C" {
 int pgt_tag_upper_bound(const int* heads, int64_t t, const int* nodes,
                         int64_t rows, const int* values, int64_t n, int* out,
                         void* stream) {
-  pgt::TagTree tree;
-  if (!pgt::make_tag_tree(nodes, rows, heads, t, &tree)) {
+  pgt::SearchTree tree;
+  if (!pgt::make_search_tree(nodes, rows, heads, t, &tree)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {

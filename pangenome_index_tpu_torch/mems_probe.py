@@ -94,23 +94,49 @@ def mixed_reads(lines: list[bytes], n_reads: int, seed: int = 4):
     return codes, lens
 
 
+#: the kernel of trace_head and trace_tail (torch.cuda._sleep), to leave out
+#: of a trace's sums
+TAIL_KERNEL = "spin_kernel"
+
+
+def trace_head() -> None:
+    """About a millisecond of spinning on the card and a wait, the first
+    work under a profiler, so that the work measured starts after it: a
+    trace whose first K3 call came at once recorded 2 of its 3 launches."""
+    torch.cuda._sleep(2_000_000)
+    torch.cuda.synchronize()
+
+
+def trace_tail() -> None:
+    """Sixteen short spin kernels and a wait, the last work under a
+    profiler, so that a trace that drops its last records drops these."""
+    for _ in range(16):
+        torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+
+
 def device_ms(fn, *kernels: str, reps: int = 3):
-    """(mean device ms over reps calls of fn() of each kernel whose name
-    holds one of `kernels`, the last call's result). A trace that lost
-    launches is taken again, up to three times."""
+    """(mean device ms a launch, over reps calls of fn(), of each kernel whose
+    name holds one of `kernels`; the last call's result). The calls come
+    between trace_head and trace_tail; a trace that did not record exactly
+    reps launches of each kernel is taken again, up to three times."""
     fn()
-    for _ in range(3):
+    torch.cuda.synchronize()
+    for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_head()
             for _ in range(reps):
                 out = fn()
-            torch.cuda.synchronize()
+            trace_tail()
         found = [[ev for ev in prof.key_averages() if kernel in ev.key]
                  for kernel in kernels]
         if all(len(evs) == 1 and evs[0].count == reps for evs in found):
             return [evs[0].device_time_total / reps / 1e3 for evs in found], out
-    lost = [k for k, evs in zip(kernels, found)
-            if len(evs) != 1 or evs[0].count != reps]
-    raise RuntimeError(f"the profiler saw no {', '.join(lost)} launches")
+        seen = [(ev.key[:60], ev.count) for evs in found for ev in evs]
+        print(f"device_ms: trace {attempt + 1} of {reps} calls saw {seen}",
+              file=sys.stderr)
+    raise RuntimeError(f"the profiler did not record {reps} launches of each of "
+                       f"{', '.join(kernels)}")
 
 
 def event_ms(fn, reps: int = 10) -> float:

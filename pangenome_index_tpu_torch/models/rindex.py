@@ -1,9 +1,9 @@
 """Host-side r-index model: flat per-run tables and numpy queries.
 
 The port's copy of pangenome_index_tpu/models/rindex.py, cut to what the
-port uses: the RIndex tables with rank, LF, count and FMD extension, and
-construction from a run-length BWT whose suffix array is known (the path
-utils/synth.py takes). Same fields, dtypes and values as the JAX package's
+port uses: the RIndex tables with rank, LF, count, locate and FMD
+extension, and construction from a run-length BWT whose suffix array is
+known (the path utils/synth.py takes). Same fields, dtypes and values as the JAX package's
 RIndex, so either package's index serves the other's functions.
 
     run_sym[r]     int8  dense code of each logical run
@@ -92,6 +92,33 @@ class RIndex:
         for b in reversed(pattern):
             rng = self.lf_range(rng[0], rng[1], int(BYTE_TO_CODE[b]))
         return rng
+
+    # -------------------------------------------------------------- locate
+    def locate_first(self) -> int:
+        return int(self.samples[0])
+
+    def locate_next(self, prev):
+        idx = np.searchsorted(self.last_sorted, prev, side="right") - 1
+        run = self.last_to_run[idx] + 1
+        return self.samples[run] + (prev - self.last_sorted[idx])
+
+    def decompress_sa(self) -> np.ndarray:
+        """SA in packed coords for every row (r-index.cpp:1345-1356 chains
+        locateNext row by row; here lanes = runs and each lane walks its own
+        run via locateNext, so the wall time is max run length batches of
+        vectorized work, not n scalar steps)."""
+        out = np.zeros(self.n, dtype=np.int64)
+        cur = self.samples.copy()
+        lens = self.run_len
+        active = np.ones(self.n_runs, dtype=bool)
+        t = 0
+        while active.any():
+            out[self.run_start[active] + t] = cur[active]
+            t += 1
+            active = active & (lens > t)
+            if active.any():
+                cur[active] = self.locate_next(cur[active])
+        return out
 
     # ----------------------------------------------------------------- FMD
     def backward_extend(self, bint, code):

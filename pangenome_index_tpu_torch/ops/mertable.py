@@ -9,8 +9,10 @@ the explicit-expansion levels of build_mer_table_device. Failed extensions
 stay (0, 0, 0), so the table equals the host build_mer_table.
 
 get_mer_table reads and writes the JAX package's npz cache of the table
-(same content key, same 1 GB cap on cached tables); it has no step-down of
-m and no host build when a device build fails, so a kernel failure raises.
+(same content key, same 1 GB cap on cached tables) and steps m down, as the
+reference does, when the build would not fit the device's free memory; it
+has no host build behind the device's, so below the last m it raises, and
+a kernel failure raises.
 
 The host side is the port's copy of the numpy parts of
 pangenome_index_tpu/ops/mertable.py: build_mer_table (the exact reference
@@ -139,25 +141,71 @@ def resolve_mer_len(arg: int, min_len: int, n: int, device) -> int:
     return m if m >= 4 else 0
 
 
-def get_mer_table(idx, m: int, tables: RIndexTables, path=None) -> torch.Tensor:
-    """[4^m, 3] seed table on the tables' device, in their position dtype:
-    the npz cache at `path` when its content key matches (index, m), else
-    built with K2 launches (build_mer_table_device) and written to `path`.
-    path None, or a table past CACHE_MAX_BYTES, skips the cache."""
-    key = mer_table_key(idx, m)
+def mer_table_bytes(m: int, item: int = 4) -> int:
+    """Device bytes build_mer_table_device needs at m: at its last level the
+    four-fold copies of the last state, the bases, the three outputs of K2
+    and the stacked table, nine [4^m] arrays of `item` bytes."""
+    return 9 * (4 ** m) * item
+
+
+def device_budget(device) -> int | None:
+    """Bytes the device has free for a build: the CUDA runtime's free memory
+    and the allocator's cached blocks; None (no budget) on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    return (torch.cuda.mem_get_info(device)[0] + torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+
+
+def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
+                  max_bytes: int | None = None):
+    """(table [4^m_used, 3] on the tables' device in their position dtype,
+    m_used), as pangenome_index_tpu/ops/mertable.py:get_mer_table: m is
+    tried first, then m - 1, down to min_m = max(m - 2, 4).
+
+    At each m: the npz cache at path(m) when its content key matches
+    (index, m) and the table fits the budget; else the build with K2
+    launches (build_mer_table_device), written to path(m), when its bytes
+    (mer_table_bytes) fit; else a step down, named on stderr in the
+    reference's words. The budget is max_bytes, by default what the device
+    has free (device_budget; none on the CPU), and is decided before
+    anything is allocated. `path`: a function of m, or a file name for m
+    only, or None; a table past CACHE_MAX_BYTES skips the cache. Below
+    min_m it raises MemoryError with the sizes: the port has no host build
+    behind the device's."""
+    path_fn = path if callable(path) else (lambda mt: path if mt == m else None)
+    min_m = max(m - 2, 4)
+    if max_bytes is None:
+        max_bytes = device_budget(tables.device)
     item = 8 if idx.n >= 2**31 else 4
-    if path is not None and (4 ** m) * 3 * item > CACHE_MAX_BYTES:
-        path = None
-    if path is not None and os.path.exists(path):
-        with np.load(path, allow_pickle=False) as z:
-            if str(z["key"]) == key:
-                table = np.ascontiguousarray(z["table"])
-                return torch.from_numpy(table).to(tables.device, tables.pos_dtype)
-        print(f"mer cache {path}: stale key, rebuilding", file=sys.stderr)
-    table = build_mer_table_device(tables, m)
-    if path is not None:
-        tmp = f"{path}.tmp{os.getpid()}"
-        with open(tmp, "wb") as fh:
-            np.savez(fh, table=table.cpu().numpy(), key=key)
-        os.replace(tmp, path)
-    return table
+    for m_try in range(m, min_m - 1, -1):
+        key = mer_table_key(idx, m_try)
+        table_bytes = (4 ** m_try) * 3 * item
+        mpath = path_fn(m_try)
+        if table_bytes > CACHE_MAX_BYTES:
+            mpath = None
+        fits = max_bytes is None or table_bytes <= max_bytes
+        if mpath is not None and fits and os.path.exists(mpath):
+            with np.load(mpath, allow_pickle=False) as z:
+                if str(z["key"]) == key:
+                    table = np.ascontiguousarray(z["table"])
+                    return (torch.from_numpy(table).to(tables.device, tables.pos_dtype),
+                            m_try)
+            print(f"mer cache {mpath}: stale key, rebuilding", file=sys.stderr)
+        need = mer_table_bytes(m_try, item)
+        if max_bytes is not None and need > max_bytes:
+            print(f"mer table: device build failed at m={m_try} (MemoryError: "
+                  f"the build needs {need} bytes, the budget is {max_bytes}); "
+                  f"stepping down", file=sys.stderr)
+            continue
+        table = build_mer_table_device(tables, m_try)
+        if mpath is not None:
+            tmp = f"{mpath}.tmp{os.getpid()}"
+            with open(tmp, "wb") as fh:
+                np.savez(fh, table=table.cpu().numpy(), key=key)
+            os.replace(tmp, mpath)
+        return table, m_try
+    raise MemoryError(f"mer table: no m from {m} down to {min_m} fits the budget "
+                      f"of {max_bytes} bytes (m={min_m} needs "
+                      f"{mer_table_bytes(min_m, item)})")

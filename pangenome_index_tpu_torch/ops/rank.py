@@ -12,6 +12,7 @@ n); rank6(pos) is the row of pos >> 6 plus the count of each code among its
 first pos & 63 nibbles. Row indices clamp into the table as JAX gathers do.
 The kernels read the same counts from a bit-plane form of the rows;
 planes_rank6 is its plain reader, held against ckpt_rank6 by the tests.
+run_of and locate_next are the two searches of locate (ops/locate.py).
 """
 
 from __future__ import annotations
@@ -77,6 +78,16 @@ def run_of(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
     """Run id containing each position (0..n inclusive), by searchsorted."""
     pos = pos.to(t.run_start.dtype)
     return torch.searchsorted(t.run_start, pos, right=True) - 1
+
+
+def locate_next(t: RIndexTables, prev: torch.Tensor) -> torch.Tensor:
+    """Batched locateNext (r-index.cpp:1369-1372): the packed SA value that
+    follows each prev, through the predecessor of prev among the sorted run
+    tails (searchsorted; an index of -1 wraps, as the JAX gather does)."""
+    prev = prev.to(t.pos_dtype)
+    i = torch.searchsorted(t.last_sorted, prev, right=True) - 1
+    run = t.last_to_run[i] + 1
+    return t.samples[run] + (prev - t.last_sorted[i])
 
 
 def rank6(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:

@@ -9,13 +9,15 @@ no sort. Keys are plain int64, so s = 31 is exact.
 
 On the device (build_sparse_dict_device, the counterpart of
 pangenome_index_tpu/ops/sparsedict.py:_level_step_device and
-build_sparse_dict_device) a level is two wrappers over the kernels of
-csrc/sparsedict.cu: sdict_expand (the children of every entry and the scan of
-the kept counts) and sdict_scatter (the compaction), each with a plain
-PyTorch version beside it that CPU tensors take. The total of a level is read
-between the two (one small copy a level) and the next level allocated at its
-exact size, so there is no capacity guess and no restart; a level that would
-not fit the device's free memory raises MemoryError.
+build_sparse_dict_device) a level is one launch of the kernel of
+csrc/sparsedict.cu through sdict_level (the children of every entry, the
+block's place in each branch by a decoupled look-back, the kept children
+written into four regions, one a branch), with a plain PyTorch version
+beside it that CPU tensors take. The four totals of a level are read after
+it (one small copy a level); a region has a row for every entry of the
+level, an exact bound, so there is no capacity guess and no restart; the
+last level is packed once. A level that would not fit the device's free
+memory raises MemoryError.
 
 The host side is the port's copy of the numpy parts of the JAX module (same
 values, same npz cache): build_sparse_dict, the exact reference of the device
@@ -38,6 +40,7 @@ import torch
 from .. import _build, native
 from ..utils.alphabet import BASE_CODES, KP_WEIGHT
 from .fmd import check_kernel_tables, rank_args
+from .mertable import device_budget
 from .rank import rank6
 from .tables import RIndexTables
 
@@ -89,19 +92,30 @@ def build_sparse_dict(idx, s: int, min_keep: int = 1):
     return keys, np.stack((k, kp, sz), axis=1).astype(dt)
 
 
-#: entries a block of the level kernels (csrc/sparsedict.cu:kBlock): the
-#: partition that sdict_expand counts kept children by and sdict_scatter
-#: places them by
+#: entries a block of the level kernel (csrc/sparsedict.cu:kBlock): the
+#: partition by which sdict_level places kept children inside a branch
 LEVEL_BLOCK = 256
 _BASES = [int(c) for c in BASE_CODES]
 
 
-def sdict_expand_plain(t: RIndexTables, vals: torch.Tensor, thresh: int):
-    """One level's children, plain: vals [D, 3] (k, kp, size) -> (child_sz
-    [4, D] with 0 where the child is dropped, child_kkp [4, D, 2] (k', kp',
-    0 where dropped), offsets [4, blocks] the exclusive prefix sums of the
-    kept children per branch and block of LEVEL_BLOCK entries, read
-    branch-major as one row, total [1] their sum)."""
+def sdict_pack(keys: torch.Tensor, vals: torch.Tensor, counts) -> tuple:
+    """The entries of a level in order: the first counts[r] rows of each
+    region r of keys [R, cap] and vals [R, cap, 3], concatenated ->
+    (keys [D], vals [D, 3])."""
+    return (torch.cat([keys[r, :c] for r, c in enumerate(counts)]),
+            torch.cat([vals[r, :c] for r, c in enumerate(counts)]))
+
+
+def sdict_level_plain(t: RIndexTables, keys: torch.Tensor, vals: torch.Tensor,
+                      counts, thresh: int, level: int):
+    """One level, plain: the D = sum(counts) entries of the regions keys
+    [R, cap] / vals [R, cap, 3] (sdict_pack) -> (keys [4, D] and vals
+    [4, D, 3]: region b holds the kept children of branch b, with the base
+    at bits 2 level and 2 level + 1 of the key, in source order, zeros after
+    them; offsets [4, blocks]: per branch the kept children of the blocks of
+    LEVEL_BLOCK entries before each block; totals [4]: the kept children of
+    each branch)."""
+    keys, vals = sdict_pack(keys, vals, counts)
     D = vals.shape[0]
     dev = vals.device
     k, kp, sz = vals.unbind(dim=1)
@@ -113,100 +127,62 @@ def sdict_expand_plain(t: RIndexTables, vals: torch.Tensor, thresh: int):
     keep = cs >= thresh
     ck = (r_k[:, _BASES] + t.C[_BASES]).T
     ckp = kp[None, :] + (delta[None, :, :] * kpw[:, None, :]).sum(dim=2)
-    zero = torch.zeros((), dtype=vals.dtype, device=dev)
-    child_sz = torch.where(keep, cs, zero).to(vals.dtype).contiguous()
-    child_kkp = torch.stack((torch.where(keep, ck, zero),
-                             torch.where(keep, ckp, zero)), dim=2).to(vals.dtype)
     blocks = -(-D // LEVEL_BLOCK)
     padded = torch.nn.functional.pad(keep, (0, blocks * LEVEL_BLOCK - D))
-    counts = padded.view(4, blocks, LEVEL_BLOCK).sum(dim=2).reshape(-1)
-    incl = torch.cumsum(counts, dim=0)
-    return (child_sz, child_kkp.contiguous(),
-            (incl - counts).to(vals.dtype).view(4, blocks),
-            incl[-1:].to(vals.dtype))
+    per_block = padded.view(4, blocks, LEVEL_BLOCK).sum(dim=2)
+    incl = torch.cumsum(per_block, dim=1)
+    out_keys = torch.zeros((4, D), dtype=torch.int64, device=dev)
+    out_vals = torch.zeros((4, D, 3), dtype=vals.dtype, device=dev)
+    for b in range(4):
+        sel = keep[b]
+        n_b = int(sel.sum())
+        out_keys[b, :n_b] = keys[sel] | (b << (2 * level))
+        out_vals[b, :n_b] = torch.stack((ck[b][sel], ckp[b][sel], cs[b][sel]),
+                                        dim=1).to(vals.dtype)
+    return (out_keys, out_vals, (incl - per_block).to(torch.int32),
+            incl[:, -1].to(torch.int32))
 
 
-def sdict_expand(t: RIndexTables, vals: torch.Tensor, thresh: int):
-    """(child_sz, child_kkp, offsets, total) as sdict_expand_plain; on the
-    card the expand kernel and the scan of its counts (int32 tables), the
-    plain version on the CPU. D must be at least 1."""
-    if vals.dim() != 2 or vals.shape[1] != 3 or vals.shape[0] < 1:
-        raise ValueError("sdict_expand: vals must be [D, 3] with D >= 1")
-    if vals.device.type == "cpu":
-        return sdict_expand_plain(t, vals, thresh)
+def sdict_level(t: RIndexTables, keys: torch.Tensor, vals: torch.Tensor,
+                counts, thresh: int, level: int):
+    """(keys, vals, offsets, totals) of the next level as sdict_level_plain;
+    on the card one launch of the level kernel (int32 tables), which writes
+    a region only as far as its total, the plain version on the CPU. keys
+    [R, cap] int64 and vals [R, cap, 3] hold the level's entries, the first
+    counts[r] of region r (R = 1 for the root, 4 after a level); D =
+    sum(counts) must be at least 1."""
+    R = keys.shape[0] if keys.dim() == 2 else 0
+    if not (1 <= R <= 4 and vals.shape == (*keys.shape, 3) and len(counts) == R
+            and all(0 <= c <= keys.shape[1] for c in counts) and sum(counts) >= 1):
+        raise ValueError("sdict_level: keys must be [R, cap] and vals [R, cap, 3] "
+                         "with R <= 4 and counts[r] <= cap entries in region r, "
+                         "at least one in all")
+    if not 0 <= level < MAX_S:
+        raise ValueError(f"sdict_level: level must be in [0, {MAX_S})")
+    if keys.device.type == "cpu":
+        return sdict_level_plain(t, keys, vals, counts, thresh, level)
     check_kernel_tables(t)
     dev = t.device
-    D = vals.shape[0]
+    D = int(sum(counts))
     blocks = -(-D // LEVEL_BLOCK)
     kind, rargs = rank_args(t)
-    child_sz = torch.empty((4, D), dtype=torch.int32, device=dev)
-    child_kkp = torch.empty((4, D, 2), dtype=torch.int32, device=dev)
-    counts = torch.empty((4, blocks), dtype=torch.int32, device=dev)
+    out_keys = torch.empty((4, D), dtype=torch.int64, device=dev)
+    out_vals = torch.empty((4, D, 3), dtype=torch.int32, device=dev)
     offsets = torch.empty((4, blocks), dtype=torch.int32, device=dev)
-    total = torch.empty(1, dtype=torch.int32, device=dev)
-    _build.launch(f"pgt_sdict_expand_{kind}", *rargs,
+    totals = torch.empty(4, dtype=torch.int32, device=dev)
+    state = torch.empty(4 * blocks + 1, dtype=torch.int64, device=dev)
+    _build.launch(f"pgt_sdict_level_{kind}", *rargs,
                   _build.check("C", t.C, torch.int32, dev),
-                  _build.check("vals", vals, torch.int32, dev), D, int(thresh),
-                  blocks, child_sz.data_ptr(), child_kkp.data_ptr(),
-                  counts.data_ptr(), offsets.data_ptr(), total.data_ptr(),
-                  _build.stream(dev))
-    sdict_expand.launches += 1
-    return child_sz, child_kkp, offsets, total
-
-
-sdict_expand.launches = 0
-
-
-def sdict_scatter_plain(keys: torch.Tensor, child_sz: torch.Tensor,
-                        child_kkp: torch.Tensor, total: int, level: int):
-    """The next level, plain: the kept children of sdict_expand, branch-major
-    with the source order kept inside a branch -> (keys [total] int64 with
-    the base at bits 2 level and 2 level + 1, vals [total, 3])."""
-    dev = keys.device
-    keep = (child_sz != 0).reshape(-1)
-    dst = (torch.cumsum(keep, dim=0) - 1)[keep]
-    base = torch.arange(4, dtype=torch.int64, device=dev)[:, None] << (2 * level)
-    out_keys = torch.empty(total, dtype=torch.int64, device=dev)
-    out_vals = torch.empty((total, 3), dtype=child_sz.dtype, device=dev)
-    out_keys[dst] = (keys[None, :] | base).reshape(-1)[keep]
-    out_vals[dst, 0] = child_kkp[..., 0].reshape(-1)[keep]
-    out_vals[dst, 1] = child_kkp[..., 1].reshape(-1)[keep]
-    out_vals[dst, 2] = child_sz.reshape(-1)[keep]
-    return out_keys, out_vals
-
-
-def sdict_scatter(keys: torch.Tensor, child_sz: torch.Tensor,
-                  child_kkp: torch.Tensor, offsets: torch.Tensor, total: int,
-                  level: int):
-    """(keys, vals) of the next level as sdict_scatter_plain; on the card the
-    scatter kernel, which places a child by `offsets` and its rank in its
-    block. `total` is what sdict_expand reported, as a host integer."""
-    D = keys.shape[0]
-    if child_sz.shape != (4, D) or child_kkp.shape != (4, D, 2) or D < 1:
-        raise ValueError("sdict_scatter: children must be [4, D] and [4, D, 2] "
-                         "for keys [D], D >= 1")
-    if not 0 <= level < MAX_S:
-        raise ValueError(f"sdict_scatter: level must be in [0, {MAX_S})")
-    if keys.device.type == "cpu":
-        return sdict_scatter_plain(keys, child_sz, child_kkp, total, level)
-    dev = keys.device
-    blocks = -(-D // LEVEL_BLOCK)
-    if offsets.shape != (4, blocks):
-        raise ValueError("sdict_scatter: offsets must be [4, blocks]")
-    out_keys = torch.empty(total, dtype=torch.int64, device=dev)
-    out_vals = torch.empty((total, 3), dtype=torch.int32, device=dev)
-    _build.launch("pgt_sdict_scatter",
                   _build.check("keys", keys, torch.int64, dev),
-                  _build.check("child_sz", child_sz, torch.int32, dev),
-                  _build.check("child_kkp", child_kkp, torch.int32, dev),
-                  _build.check("offsets", offsets, torch.int32, dev), D, blocks,
-                  level, out_keys.data_ptr(), out_vals.data_ptr(),
-                  _build.stream(dev))
-    sdict_scatter.launches += 1
-    return out_keys, out_vals
+                  _build.check("vals", vals, torch.int32, dev), R, keys.shape[1],
+                  *(list(counts) + [0] * (4 - R)), int(thresh), level, blocks,
+                  state.data_ptr(), out_keys.data_ptr(), out_vals.data_ptr(),
+                  offsets.data_ptr(), totals.data_ptr(), _build.stream(dev))
+    sdict_level.launches += 1
+    return out_keys, out_vals, offsets, totals
 
 
-sdict_scatter.launches = 0
+sdict_level.launches = 0
 
 
 def _check_budget(live: int, need: int, max_bytes, what: str) -> None:
@@ -224,44 +200,41 @@ def build_sparse_dict_device(idx_or_n, tables: RIndexTables, s: int,
     tensors there, element for element the host build's arrays.
 
     idx_or_n: the index the tables were made from, or its n. Each level is
-    sdict_expand, one read of the level's total, sdict_scatter into tensors
-    of exactly that size. A failed launch raises; a level whose tensors would
-    not fit raises MemoryError with the sizes (max_bytes: a budget for the
-    build's own tensors; default on a CUDA device what it has free when the
-    build starts, the CUDA runtime's free memory and the allocator's cached
-    blocks, and none on the CPU)."""
+    one sdict_level into four regions of D rows each (the children of a
+    branch, at most one an entry), then one read of the four totals; the
+    next level reads the regions as they are, and the last is packed once
+    (sdict_pack). A failed launch raises; a level whose tensors would not
+    fit raises MemoryError with the sizes (max_bytes: a budget for the
+    build's own tensors; default mertable.device_budget, what the device
+    has free when the build starts, and none on the CPU)."""
     if not 1 <= s <= MAX_S:
         raise ValueError(f"s must be in [1, {MAX_S}]")
     n = int(getattr(idx_or_n, "n", idx_or_n))
     if n != tables.n:
         raise ValueError(f"tables of an index of {tables.n} rows, not {n}")
     dev = tables.device
-    if max_bytes is None and dev.type == "cuda":
-        max_bytes = (torch.cuda.mem_get_info(dev)[0]
-                     + torch.cuda.memory_reserved(dev)
-                     - torch.cuda.memory_allocated(dev))
-    keys = torch.zeros(1, dtype=torch.int64, device=dev)
-    vals = torch.tensor([[0, 0, n]], dtype=tables.pos_dtype, device=dev)
+    if max_bytes is None:
+        max_bytes = device_budget(dev)
+    keys = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    vals = torch.tensor([[[0, 0, n]]], dtype=tables.pos_dtype, device=dev)
+    counts = [1]
     thresh = max(int(min_keep), 1)
     item = vals.element_size()
     for level in range(s):
-        D = keys.shape[0]
+        D = sum(counts)
         if D == 0:  # nothing occurs at this length: the dictionary is empty
             break
-        live = D * (8 + 3 * item)
-        scratch = 12 * D * item + 8 * item * -(-D // LEVEL_BLOCK)
-        _check_budget(live, scratch, max_bytes,
-                      f"level {level}, the children of {D} entries,")
-        child_sz, child_kkp, offsets, total = sdict_expand(tables, vals, thresh)
-        total = int(total)  # the one read of a level
-        _check_budget(live + scratch, total * (8 + 3 * item), max_bytes,
-                      f"level {level + 1}, {total} entries,")
-        if total:
-            keys, vals = sdict_scatter(keys, child_sz, child_kkp, offsets,
-                                       total, level)
-        else:
-            keys, vals = keys[:0], vals[:0]
-    return keys, vals
+        live = keys.numel() * 8 + vals.numel() * item
+        need = 4 * D * (8 + 3 * item) + 8 * (4 * -(-D // LEVEL_BLOCK) + 1)
+        _check_budget(live, need, max_bytes,
+                      f"level {level + 1}, the children of {D} entries,")
+        keys, vals, _, totals = sdict_level(tables, keys, vals, counts, thresh,
+                                            level)
+        counts = totals.tolist()  # the one read of a level
+    _check_budget(keys.numel() * 8 + vals.numel() * item,
+                  sum(counts) * (8 + 3 * item), max_bytes,
+                  f"the packed dictionary of {sum(counts)} entries")
+    return sdict_pack(keys, vals, counts)
 
 
 def sparse_dict_key(idx, s: int, min_keep: int = 1) -> str:
@@ -331,15 +304,21 @@ def read_windows_fast(codes: np.ndarray, lengths: np.ndarray, s: int,
     return keys, valid, idx
 
 
-def sdict_to_device(vals, dict_rows: np.ndarray, device):
-    """(vals [D, 3] as a numpy array or a tensor, dict_rows [B, L+1] with -1
-    for absent windows) -> int32 tensors on `device`. An empty dictionary
-    gives one all-zero row, which no window points at."""
+def sdict_vals_to_device(vals, device) -> torch.Tensor:
+    """vals [D, 3] as a numpy array or a tensor -> an int32 tensor on
+    `device`. An empty dictionary gives one all-zero row, which no window
+    points at."""
     if not isinstance(vals, torch.Tensor):
         vals = torch.from_numpy(np.ascontiguousarray(vals))
     if vals.shape[0] == 0:
         vals = torch.zeros((1, 3), dtype=torch.int32)
     if vals.dtype != torch.int32:
         raise ValueError("the port's dictionary tier takes int32 values (n < 2^31)")
-    return (vals.to(device),
+    return vals.to(device)
+
+
+def sdict_to_device(vals, dict_rows: np.ndarray, device):
+    """(vals [D, 3] as a numpy array or a tensor, dict_rows [B, L+1] with -1
+    for absent windows) -> int32 tensors on `device` (sdict_vals_to_device)."""
+    return (sdict_vals_to_device(vals, device),
             torch.from_numpy(np.ascontiguousarray(dict_rows, np.int32)).to(device))

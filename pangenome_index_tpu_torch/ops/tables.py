@@ -10,7 +10,9 @@ run records (a run id and one 32-byte record per query); base tables (the
 full per-run cum table) serve the plain versions only. n, n_seq and max_len are host integers: every
 kernel takes them as launch arguments, and reading them never waits on the
 card. The tag tables carry, beside the JAX package's fields, the search tree
-over their run heads that the tag kernels descend (`derive_search_tree`).
+over their run heads that the tag kernels descend (`derive_search_tree`);
+the r-index tables carry two more, over the run heads and the sorted run
+tails, that locate descends.
 """
 
 from __future__ import annotations
@@ -50,6 +52,13 @@ class RIndexTables:
     ckpt: torch.Tensor | None = None        # checkpoint: [n//64+2, 16] int32
     ckpt_planes: torch.Tensor | None = None  # the kernels' form of ckpt
     ckpt_super: torch.Tensor | None = None  # two-level: [n_super, 6+shift] int64
+    # the search trees over run_start and last_sorted (derive_search_tree)
+    # and the first line of each of their levels: locate (K8) searches
+    # through them and refuses tables without them
+    run_tree: torch.Tensor | None = None
+    run_tree_levels: tuple[int, ...] | None = None
+    tail_tree: torch.Tensor | None = None
+    tail_tree_levels: tuple[int, ...] | None = None
 
     @property
     def pos_dtype(self) -> torch.dtype:
@@ -218,12 +227,13 @@ def derive_search_tree(heads: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ..
     is 16 * (leaf line) + the keys of that line that are <= v
     (ops/tagquery.py:tag_upper_bound_plain, csrc/tags.cuh:upper_bound_quad).
     A head equal to the dtype's maximum could not be told from the padding
-    and is refused (heads are BWT offsets, below the covered length)."""
+    and is refused (heads are BWT offsets or packed text positions, below
+    it wherever the kernels take them)."""
     t = heads.shape[0]
     dev = heads.device
     big = torch.iinfo(heads.dtype).max
     if t and int(heads[-1]) == big:
-        raise ValueError("a tag run head equals the dtype's maximum")
+        raise ValueError("a head of the search tree equals the dtype's maximum")
     n_lines = max(1, -(-t // NODE_KEYS))
     depth = 0
     while FAN_OUT ** depth < n_lines:
@@ -248,6 +258,35 @@ def derive_search_tree(heads: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ..
     return torch.cat(parts), tuple(levels)
 
 
+def tree_upper_bound_plain(tree: torch.Tensor, levels: tuple[int, ...],
+                           heads: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Number of heads <= v[i] (searchsorted side="right"), found by walking
+    the search tree (tree, levels) = derive_search_tree(heads) with torch
+    indexing: one line of 16 keys a level, the child chosen by the count of
+    keys <= v. [B] int64."""
+    t = heads.shape[0]
+    if t == 0:
+        return torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    big = torch.iinfo(tree.dtype).max
+    key = v.to(tree.dtype).clamp(max=big - 1)[:, None]   # the padding never counts
+    node = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    for first in levels[:-1]:
+        node = node * FAN_OUT + (tree[first + node] <= key).sum(dim=1)
+    slots = node[:, None] * NODE_KEYS + torch.arange(NODE_KEYS, device=v.device)
+    # the last leaf line is read from the tree, where it is padded
+    leaf = torch.where((node == (t - 1) // NODE_KEYS)[:, None], tree[levels[-1]][None, :],
+                       heads[slots.clamp(max=t - 1)])
+    return node * NODE_KEYS + (leaf <= key).sum(dim=1)
+
+
+def with_locate_trees(t: RIndexTables) -> RIndexTables:
+    """The tables with the search trees over run_start and last_sorted
+    derived on their device (returns t)."""
+    t.run_tree, t.run_tree_levels = derive_search_tree(t.run_start)
+    t.tail_tree, t.tail_tree_levels = derive_search_tree(t.last_sorted)
+    return t
+
+
 def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
                      dense: bool = False,
                      super_shift: int | None = None) -> RIndexTables:
@@ -255,7 +294,8 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     both (rank reads the checkpoint rows when present, as in the JAX
     package); with neither, base tables that rank through the full per-run
     cum table (plain PyTorch only: the kernels refuse them). Same fields and
-    values as the JAX rindex_to_device (base: bucketed=False)."""
+    values as the JAX rindex_to_device (base: bucketed=False), and the
+    search trees that locate descends (with_locate_trees)."""
     device = torch.device(device)
     pd = _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
     ckpt = ckpt_planes = ckpt_super = pos_to_run = rec = None
@@ -275,7 +315,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         rec_np[:, 1] = idx.run_sym
         rec_np[:, 2:8] = idx.cum
         rec = _put(rec_np, pd, device)
-    return RIndexTables(
+    return with_locate_trees(RIndexTables(
         run_sym=_put(idx.run_sym, torch.int8, device),
         run_start=_put(idx.run_start, pd, device),
         # only base tables rank through the per-run cum table; beside a
@@ -288,7 +328,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         last_to_run=_put(idx.last_to_run, pd, device),
         n=int(idx.n), n_seq=int(idx.n_seq), max_len=int(idx.max_len),
         pos_to_run=pos_to_run, rec=rec, ckpt=ckpt, ckpt_planes=ckpt_planes,
-        ckpt_super=ckpt_super)
+        ckpt_super=ckpt_super))
 
 
 def tags_to_device(tags: TagArray, device) -> TagTables:
@@ -311,7 +351,8 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
                       tags: dict[str, np.ndarray] | None, device):
     """The JAX package's RIndexTables / TagTables fields, each as a numpy
     array (None kept), -> (RIndexTables, TagTables or None) on `device`, with
-    the same dtypes and values."""
+    the same dtypes and values, and the search trees the port derives
+    beside them (over the tag run heads; over run_start and last_sorted)."""
     device = torch.device(device)
     for name in _UNPORTED_FIELDS:
         if rindex.get(name) is not None:
@@ -331,6 +372,7 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
         t.ckpt_super = t.ckpt_super.to(torch.int64)
     elif t.ckpt is not None:
         t.ckpt_planes = derive_rank_planes(t.ckpt)
+    with_locate_trees(t)
     tt = None
     if tags is not None:
         heads = put(tags["bwt_start"])

@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .tables import FAN_OUT, NODE_KEYS, TagTables
+from .tables import TagTables, tree_upper_bound_plain
 
 #: encoded_start_every_k_run of the reference (tag_arrays.hpp:120); the JAX
 #: module that defines it imports jax, so it is restated here
@@ -58,23 +58,11 @@ def _tree_args(tt: TagTables, dev) -> tuple:
 
 def tag_upper_bound_plain(tt: TagTables, v: torch.Tensor) -> torch.Tensor:
     """Number of run heads <= v[i] (searchsorted side="right"), found by
-    walking the tables' search tree with torch indexing: one line of 16
-    keys a level, the child chosen by the count of keys <= v. [B] int32."""
+    walking the tables' search tree with torch indexing
+    (tables.tree_upper_bound_plain). [B] int32."""
     _require_tree(tt)
-    tree, levels = tt.search_tree, tt.tree_levels
-    t = tt.n_runs
-    if t == 0:
-        return torch.zeros(v.shape, dtype=torch.int32, device=v.device)
-    big = torch.iinfo(tree.dtype).max
-    key = v.to(tree.dtype).clamp(max=big - 1)[:, None]   # the padding never counts
-    node = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
-    for first in levels[:-1]:
-        node = node * FAN_OUT + (tree[first + node] <= key).sum(dim=1)
-    slots = node[:, None] * NODE_KEYS + torch.arange(NODE_KEYS, device=v.device)
-    # the last leaf line is read from the tree, where it is padded
-    leaf = torch.where((node == (t - 1) // NODE_KEYS)[:, None], tree[levels[-1]][None, :],
-                       tt.bwt_start[slots.clamp(max=t - 1)])
-    return (node * NODE_KEYS + (leaf <= key).sum(dim=1)).to(torch.int32)
+    return tree_upper_bound_plain(tt.search_tree, tt.tree_levels, tt.bwt_start,
+                                  v).to(torch.int32)
 
 
 def tag_upper_bound(tt: TagTables, v: torch.Tensor) -> torch.Tensor:

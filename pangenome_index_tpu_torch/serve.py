@@ -24,7 +24,7 @@ from .models.rindex import RIndex
 from .models.tagarray import TagArray
 from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.mems import find_mems
-from .ops.mertable import build_mer_table_device, read_mer_keys_fast
+from .ops.mertable import get_mer_table, read_mer_keys_fast
 from .ops.sparsedict import get_sparse_dict, read_windows_fast, sdict_to_device
 from .ops.tables import (RIndexTables, TagTables, rindex_to_device,
                          tags_to_device)
@@ -82,8 +82,10 @@ class Batch:
 def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
             device, *, dense: bool = False, min_occ: int = 1, mer_m: int = 14,
             sdict_s: int = 19, sdict_path=None) -> Batch:
-    """Tables, m-mer seed table, length-sdict_s dictionary and read windows
-    for one batch of reads (codes [B, L] int32, lens [B]) on `device`.
+    """Tables, m-mer seed table (get_mer_table: m steps down where the
+    device could not hold it, and the reads are keyed with the m it used),
+    length-sdict_s dictionary and read windows for one batch of reads
+    (codes [B, L] int32, lens [B]) on `device`.
     dense=False ranks through checkpoint rows, dense=True through dense run
     records; the dictionary is built on `device` from the tables (the
     kernels of csrc/sparsedict.cu on a card) unless sdict_path holds it."""
@@ -102,7 +104,7 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
     phase("tables", t0)
 
     t0 = time.perf_counter()
-    mer_table = build_mer_table_device(t, mer_m)
+    mer_table, mer_m = get_mer_table(idx, mer_m, t)
     phase("mer_table", t0)
 
     t0 = time.perf_counter()

@@ -114,8 +114,9 @@ def reference(expected, capfd, d, cmd):
 
 @pytest.mark.parametrize("extra", [
     [], ["--batch-size", "2", "--mer-len", "4"], ["--mem-capacity", "1"],
-    ["--tag-capacity", "1"], ["--rank-mode", "dense"]],
-    ids=["defaults", "sorted-chunks", "escalation", "tag-requery", "dense"])
+    ["--tag-capacity", "1"], ["--rank-mode", "dense"], ["--engine", "device"]],
+    ids=["defaults", "sorted-chunks", "escalation", "tag-requery", "dense",
+         "engine-device"])
 # "sorted-chunks": the JAX command sorts its reads by work across chunks and
 # permutes the results back; the port serves the chunks in input order
 def test_find_mems_matches_jax(files, expected, capfd, extra):
@@ -128,8 +129,8 @@ def test_find_mems_matches_jax(files, expected, capfd, extra):
     assert ("escalated" in err) == (extra == ["--mem-capacity", "1"])
 
 
-@pytest.mark.parametrize("extra", [[], ["--tag-capacity", "1"]],
-                         ids=["defaults", "tag-requery"])
+@pytest.mark.parametrize("extra", [[], ["--tag-capacity", "1"], ["--engine", "device"]],
+                         ids=["defaults", "tag-requery", "engine-device"])
 def test_query_tags_matches_jax(files, expected, capfd, extra):
     want = reference(expected, capfd, files, "query-tags")
     got, err = port_run(capfd, [*paths(files, "query-tags"), *extra])
@@ -152,6 +153,77 @@ def test_entry_point_and_refusals(files, expected, capfd):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main(mem_args(files))
+
+
+@pytest.mark.parametrize("cmd", ["find-mems", "query-tags", "build-sdict"])
+def test_engine_takes_device_only(files, capfd, cmd):
+    """--engine parses with its one choice, `device`; the reference's host
+    and native engines are the parser's error (exit code 2)."""
+    argv = [cmd, str(files / "synth.ri")]
+    if cmd != "build-sdict":
+        argv += [str(files / "synth_c.tags"), str(files / "reads.txt")]
+        argv += [MIN_LEN, MIN_OCC] if cmd == "find-mems" else []
+    for engine in ("host", "native"):
+        with pytest.raises(SystemExit) as exc:
+            cli.main([*argv, "--engine", engine, "--device", "cpu"])
+        assert exc.value.code == 2
+    assert "invalid choice" in capfd.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main([cmd, "--help"])
+    assert "one engine" in " ".join(capfd.readouterr().out.split())
+
+
+def test_chunk_rule():
+    """chunk_size: at most the cap, no more than half the budget holds, at
+    least one; no budget (the CPU) leaves the cap."""
+    per_read = cli.read_bytes(150, 32)
+    assert cli.chunk_size(16384, per_read, cli.READ_CHUNK, None) == 4096
+    assert cli.chunk_size(100, per_read, cli.READ_CHUNK, None) == 100
+    assert cli.chunk_size(16384, per_read, cli.READ_CHUNK, 2 * 1000 * per_read) == 1000
+    assert cli.chunk_size(16384, per_read, cli.READ_CHUNK, 10**12) == 4096
+    assert cli.chunk_size(5, per_read, cli.READ_CHUNK, 1) == 1
+    assert cli.read_bytes(150, 1024) > cli.read_bytes(150, 32) > cli.read_bytes(20, 32)
+    assert cli.interval_bytes(256) == 8 + 256 * 8 + 9
+
+
+@pytest.mark.parametrize("extra", [[], ["--mem-capacity", "1"]],
+                         ids=["defaults", "escalation"])
+def test_find_mems_in_chunks_under_a_small_budget(files, expected, capfd,
+                                                   monkeypatch, extra):
+    """--batch-size 0 under a device budget that holds three reads a launch:
+    the reads and the tag intervals go in several chunks, in order, and
+    stdout is byte-equal to the unchunked run and to the JAX command line's
+    --engine native."""
+    want = reference(expected, capfd, files, "find-mems")
+    unchunked, _ = port_run(capfd, [*mem_args(files), *extra, "--batch-size", "1000"])
+    codes, lens = cli.pack_reads(cli.read_reads(str(files / "reads.txt")))
+    cap = 1 if extra else 32
+    budget = 2 * 3 * cli.read_bytes(codes.shape[1], cap)
+    assert cli.chunk_size(len(lens), cli.read_bytes(codes.shape[1], cap),
+                          cli.READ_CHUNK, budget) == 3
+    reads_a_launch, intervals_a_launch = [], []
+    find_mems, query_tags_batch = cli.find_mems, cli.query_tags_batch
+
+    def counted_find_mems(t, codes, *a, **k):
+        reads_a_launch.append((codes.shape[0], k["capacity"]))
+        return find_mems(t, codes, *a, **k)
+
+    def counted_query_tags_batch(tt, start, end, **k):
+        intervals_a_launch.append(start.shape[0])
+        return query_tags_batch(tt, start, end, **k)
+
+    monkeypatch.setattr(cli, "find_mems", counted_find_mems)
+    monkeypatch.setattr(cli, "query_tags_batch", counted_query_tags_batch)
+    monkeypatch.setattr(cli, "device_budget", lambda dev: budget)
+    got, err = port_run(capfd, [*mem_args(files), *extra])
+    assert got == unchunked == want
+    first = [n for n, c in reads_a_launch if c == cap]
+    assert first == [3] * (len(lens) // 3) + [len(lens) % 3] * (len(lens) % 3 > 0)
+    assert all(n == 1 or n * cli.read_bytes(codes.shape[1], c) <= budget // 2
+               for n, c in reads_a_launch)
+    assert ("escalated" in err) == bool(extra)
+    assert len(intervals_a_launch) > 1
+    assert max(intervals_a_launch) == budget // (2 * cli.interval_bytes(256))
 
 
 def run_both(capfd, jax_argv, port_argv):

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd, gather_probe,
-                                           mems, rank, sparsedict, tagquery)
+                                           locate, mems, rank, sparsedict, tagquery)
 from pangenome_index_tpu_torch.ops.mertable import build_mer_table, read_mer_keys_fast
 from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict, read_windows_fast
 from pangenome_index_tpu_torch.utils.alphabet import BYTE_TO_CODE
@@ -279,30 +279,66 @@ def test_count_staged_windows(dev, index, mode, width, n_reads):
         assert bool(found[::3].any()) and bool((~found).any())
 
 
+def same_level(got, expect):
+    """Two sdict_level results: the regions as far as their totals, the
+    offsets and the totals equal, dtypes too (the kernel leaves a region's
+    rows past its total unwritten)."""
+    (gk, gv, go, gt), (ek, ev, eo, et) = got, expect
+    assert gk.shape == ek.shape and gv.shape == ev.shape
+    assert go.dtype == eo.dtype and torch.equal(go, eo)
+    assert gt.dtype == et.dtype and torch.equal(gt, et)
+    counts = gt.tolist()
+    for g, e in zip(sparsedict.sdict_pack(gk, gv, counts),
+                    sparsedict.sdict_pack(ek, ev, counts)):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+    return counts
+
+
 @pytest.mark.parametrize("min_keep", [1, 2, 3])
 @pytest.mark.parametrize("mode", ["checkpoint", "dense"])
 def test_sdict_levels(dev, index, mode, min_keep):
-    """The dictionary's level kernels against their plain versions at every
-    level of a build (one entry, a partial block, many blocks), and the whole
-    build against the host build."""
+    """The dictionary's level kernel against its plain version at every
+    level of a build (one entry, a partial block, many blocks, so a
+    look-back over many predecessors), and the whole build against the host
+    build."""
     idx, _ = index
     t = rindex_to_device(idx, dev, **{mode: True})
-    keys = torch.zeros(1, dtype=torch.int64, device=dev)
-    vals = torch.tensor([[0, 0, idx.n]], dtype=torch.int32, device=dev)
+    keys = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    vals = torch.tensor([[[0, 0, idx.n]]], dtype=torch.int32, device=dev)
+    counts = [1]
     for level in range(20):
-        got = sparsedict.sdict_expand(t, vals, min_keep)
-        expect = sparsedict.sdict_expand_plain(t, vals, min_keep)
-        for name, g, e in zip(("child_sz", "child_kkp", "offsets", "total"), got, expect):
-            assert g.dtype == e.dtype and torch.equal(g, e), (level, name)
-        total = int(got[3])
-        nxt = sparsedict.sdict_scatter(keys, *got[:3], total, level)
-        plain = sparsedict.sdict_scatter_plain(keys, got[0], got[1], total, level)
-        for g, e in zip(nxt, plain):
-            assert g.dtype == e.dtype and torch.equal(g, e), level
-        keys, vals = nxt
+        got = sparsedict.sdict_level(t, keys, vals, counts, min_keep, level)
+        expect = sparsedict.sdict_level_plain(t, keys, vals, counts, min_keep, level)
+        counts = same_level(got, expect)
+        keys, vals = got[:2]
+    keys, vals = sparsedict.sdict_pack(keys, vals, counts)
     assert keys.shape[0] > 10 * sparsedict.LEVEL_BLOCK
     hk, hv = build_sparse_dict(idx, 20, min_keep)
     assert np.array_equal(keys.cpu().numpy(), hk) and np.array_equal(vals.cpu().numpy(), hv)
+
+
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("blocks", [1, 3, 64])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_sdict_level_across_the_block_partition(dev, index, mode, blocks, edge):
+    """D = k LEVEL_BLOCK - 1, k LEVEL_BLOCK, k LEVEL_BLOCK + 1 entries cut
+    into four regions off the blocks' edges, kernel against plain."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, **{mode: True})
+    hk, hv = build_sparse_dict(idx, 11, 1)
+    D = blocks * sparsedict.LEVEL_BLOCK + edge
+    assert len(hk) > D
+    cuts = [0, D // 5, D // 5 + 1, (3 * D) // 4, D]
+    w = max(b - a for a, b in zip(cuts, cuts[1:])) + 5
+    keys = torch.full((4, w), -7, dtype=torch.int64)
+    vals = torch.full((4, w, 3), -7, dtype=torch.int32)
+    for r, (a, b) in enumerate(zip(cuts, cuts[1:])):
+        keys[r, : b - a] = torch.from_numpy(hk[a:b])
+        vals[r, : b - a] = torch.from_numpy(hv[a:b])
+    counts = [b - a for a, b in zip(cuts, cuts[1:])]
+    keys, vals = keys.to(dev), vals.to(dev)
+    same_level(sparsedict.sdict_level(t, keys, vals, counts, 1, 11),
+               sparsedict.sdict_level_plain(t, keys, vals, counts, 1, 11))
 
 
 @pytest.mark.parametrize("s,min_keep", [(1, 1), (19, 1), (31, 1), (31, 2), (12, 3)])
@@ -311,11 +347,10 @@ def test_sdict_build_matches_host(dev, index, mode, s, min_keep, tmp_path):
     idx, _ = index
     t = rindex_to_device(idx, dev, **{mode: True})
     hk, hv = build_sparse_dict(idx, s, min_keep)
-    before = sparsedict.sdict_expand.launches, sparsedict.sdict_scatter.launches
+    before = sparsedict.sdict_level.launches
     keys, vals = sparsedict.get_sparse_dict(idx, s, path=str(tmp_path / "d.npz"),
                                             min_keep=min_keep, tables=t)
-    assert (sparsedict.sdict_expand.launches - before[0],
-            sparsedict.sdict_scatter.launches - before[1]) == (s, s)
+    assert sparsedict.sdict_level.launches - before == s
     assert vals.device == dev and vals.dtype == torch.int32
     assert np.array_equal(keys, hk) and np.array_equal(vals.cpu().numpy(), hv)
     with np.load(tmp_path / "d.npz", allow_pickle=False) as z:
@@ -330,6 +365,67 @@ def test_sdict_empty_and_budget(dev, index):
     with pytest.raises(MemoryError, match="needs"):
         sparsedict.build_sparse_dict_device(idx, t, 12, max_bytes=4096)
     sparsedict.build_sparse_dict_device(idx, t, 12)  # the card's own budget
+
+
+@pytest.mark.parametrize("capacity", [1, 48, 64])
+def test_locate_batch(dev, index, capacity):
+    """K8 against its plain version on the card and against the host SA:
+    intervals at run heads, mid-run and anywhere, sizes 0 to 200 and to
+    the end of the BWT; a warp whose lanes chase for different lengths."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    rng = np.random.default_rng(capacity)
+    B = 3001
+    j = rng.integers(0, idx.n_runs, B)
+    start = idx.run_start[j] + np.where(rng.random(B) < 0.5, 0,
+                                        rng.integers(0, idx.run_len[j]))
+    start[::7] = rng.integers(0, idx.n, len(start[::7]))
+    size = np.minimum(rng.integers(0, 201, B), idx.n - start)
+    size[5:9] = idx.n - start[5:9]
+    st = torch.from_numpy(start.astype(np.int32)).to(dev)
+    sz = torch.from_numpy(size.astype(np.int32)).to(dev)
+    before = locate.locate_batch.launches
+    got = locate.locate_batch(t, st, sz, capacity)
+    assert locate.locate_batch.launches == before + 1
+    expect = locate.locate_batch_plain(t, st, sz, capacity)
+    for g, e in zip(got, expect):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+    sa = idx.decompress_sa()
+    pos, cnt = got.positions.cpu().numpy(), got.count.cpu().numpy()
+    for i in range(0, B, 37):
+        assert np.array_equal(pos[i, : cnt[i]], sa[start[i] : start[i] + cnt[i]])
+
+
+@pytest.mark.parametrize("capacity", [1, 64])
+def test_locate_batch_outside_the_bwt(dev, index, capacity):
+    """K8 against its plain version where start lies before the BWT (down to
+    the least int32: the last sample, no chase) or at and just past its end,
+    sizes -2 to 200, beside lanes inside it in the same warps."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    rng = np.random.default_rng(capacity + 5)
+    B = 1000
+    start = rng.integers(0, idx.n, B)
+    start[::3] = -rng.integers(1, 1000, len(start[::3]))
+    start[1::5] = idx.n + rng.integers(0, 4, len(start[1::5]))
+    start[:2] = (-2**31, -1)
+    size = rng.integers(-2, 201, B)
+    st = torch.from_numpy(start.astype(np.int32)).to(dev)
+    sz = torch.from_numpy(size.astype(np.int32)).to(dev)
+    got = locate.locate_batch(t, st, sz, capacity)
+    expect = locate.locate_batch_plain(t, st, sz, capacity)
+    for g, e in zip(got, expect):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+
+
+def test_locate_refuses_tables_without_trees(dev, index):
+    idx, _ = index
+    from dataclasses import replace
+
+    t = rindex_to_device(idx, dev, checkpoint=True)
+    z = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="search trees"):
+        locate.locate_batch(replace(t, tail_tree=None), z, z)
 
 
 @pytest.mark.parametrize("capacity", [1, 8, 256])

@@ -258,12 +258,31 @@ def case_native_build_is_the_ports_own(w, tmp_path):
     assert native.build() == lib
 
 
+def case_locate(w, tmp_path):
+    """The host locate of the port's model (locate_first, locate_next,
+    decompress_sa) against the JAX model's, on the same index."""
+    idx = synth.build_synth_index(20_000, 4, seed=2)[0]
+    j = w["idx"]
+    assert idx.locate_first() == j.locate_first()
+    rng = np.random.default_rng(9)
+    prev = np.concatenate((j.samples, j.last_sorted,
+                           rng.integers(0, j.n_seq * j.max_len, 4096)))
+    # the models keep no pad after the last sample: leave out the values
+    # whose tail belongs to the last run (the device tables carry the pad)
+    tail = np.searchsorted(j.last_sorted, prev, side="right") - 1
+    prev = prev[j.last_to_run[tail] + 1 < j.n_runs]
+    same_arrays((idx.locate_next(prev),), (j.locate_next(prev),))
+    sa = idx.decompress_sa()
+    same_arrays((sa,), (j.decompress_sa(),))
+    assert len(np.unique(sa)) == idx.n
+
+
 CASES = [case_build_synth_index, case_synth_reads, case_synth_tag_array,
          case_ri_round_trip, case_tags_round_trip, case_build_mer_table,
          case_mer_table_key, case_read_mer_keys_fast, case_read_windows_fast,
          case_pack_reads, case_find_all_mems, case_find_mems_native,
          case_query_tags_native, case_format_mems_native,
-         case_native_build_is_the_ports_own]
+         case_native_build_is_the_ports_own, case_locate]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__[5:])

@@ -1,0 +1,203 @@
+"""The port's locate (ops/locate.py, K8) against the JAX package's
+locate_batch and the host SA, on the CPU (a small synthetic index; every
+value is an integer, tolerance 0).
+
+On CPU tensors locate_batch runs its plain version; the kernel of
+csrc/locate.cu is held against that on the card (tests/test_torch_cuda.py).
+The search trees the kernel descends are held here against
+torch.searchsorted through their plain walk."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pangenome_index_tpu.ops.locate import locate_batch as jax_locate_batch
+from pangenome_index_tpu.ops.tables import rindex_to_device as jax_tables
+from pangenome_index_tpu.utils.synth import build_synth_index
+from pangenome_index_tpu_torch import KERNELS
+from pangenome_index_tpu_torch.ops import locate
+from pangenome_index_tpu_torch.ops.rank import locate_next, run_of
+from pangenome_index_tpu_torch.ops.tables import (derive_search_tree,
+                                                  rindex_to_device,
+                                                  tables_from_numpy,
+                                                  tree_upper_bound_plain)
+from pangenome_index_tpu_torch.utils.synth import build_synth_index as port_synth
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The tensors here are small: intra-op threads only contend with the
+    other test workers."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def idx():
+    return build_synth_index(20_000, 4, seed=2)[0]
+
+
+@pytest.fixture(scope="module")
+def jt(idx):
+    """The JAX package's tables with every locate table (not mem_only)."""
+    return jax_tables(idx, checkpoint=True)
+
+
+@pytest.fixture(scope="module")
+def tables(idx, jt):
+    """The port's tables, made from the index and carried across from the
+    JAX package's."""
+    fields = {f: (None if getattr(jt, f) is None else np.asarray(getattr(jt, f)))
+              for f in ("run_sym", "run_start", "cum", "C", "samples", "last_sorted",
+                        "last_to_run", "pos_to_run", "rec", "ckpt", "ckpt_super",
+                        "bucket_lo", "rank_table")}
+    fields.update(n=jt.n, n_seq=jt.n_seq, max_len=jt.max_len)
+    return {"own": rindex_to_device(idx, "cpu", checkpoint=True),
+            "carried": tables_from_numpy(fields, None, "cpu")[0]}
+
+
+@pytest.fixture(scope="module")
+def sa(idx):
+    """The SA in packed coordinates by the port's host model."""
+    return port_synth(20_000, 4, seed=2)[0].decompress_sa()
+
+
+def intervals(idx, kind: str, B: int, seed: int):
+    """(start, size) [B] int64 of one kind: starts at run heads, mid-run
+    (and at run ends), or anywhere, with sizes 1 to 200 inside the BWT, a
+    few of 0 and of exactly the room left; or outside the BWT: starts
+    before it (down to the least int32) and at or just past its end, sizes
+    -2 to 200."""
+    rng = np.random.default_rng(seed)
+    heads = idx.run_start
+    if kind == "outside":
+        start = np.concatenate((-rng.integers(1, 1000, B - B // 4),
+                                idx.n + rng.integers(0, 4, B // 4)))
+        start[:2] = (-2**31, -1)
+        size = rng.integers(-2, 201, B)
+        size[2] = 0
+        return start.astype(np.int64), size.astype(np.int64)
+    if kind == "heads":
+        start = heads[rng.integers(0, idx.n_runs, B)]
+    elif kind == "mid-run":
+        long_runs = np.flatnonzero(idx.run_len > 1)
+        j = long_runs[rng.integers(0, len(long_runs), B)]
+        start = heads[j] + rng.integers(1, idx.run_len[j])
+        start[:4] = heads[j[:4]] + idx.run_len[j[:4]] - 1   # a run's last row
+    else:
+        start = rng.integers(0, idx.n, B)
+    size = np.minimum(rng.integers(1, 201, B), idx.n - start)
+    size[:3] = 0
+    size[3:6] = idx.n - start[3:6]
+    return start.astype(np.int64), size.astype(np.int64)
+
+
+def port_locate(t, start, size, capacity):
+    return locate.locate_batch(t, torch.from_numpy(start.astype(np.int32)),
+                               torch.from_numpy(size.astype(np.int32)), capacity)
+
+
+def same_as_jax(got, expect):
+    for name in ("positions", "count", "overflow"):
+        g, e = getattr(got, name).numpy(), np.asarray(getattr(expect, name))
+        assert g.dtype == e.dtype and g.shape == e.shape, name
+        np.testing.assert_array_equal(g, e, err_msg=name)
+
+
+@pytest.mark.parametrize("which", ["own", "carried"])
+@pytest.mark.parametrize("capacity", [1, 48, 64])
+@pytest.mark.parametrize("kind", ["heads", "mid-run", "anywhere", "outside"])
+def test_locate_batch_matches_jax(idx, jt, tables, kind, capacity, which):
+    """Every lane as the JAX function answers it, intervals outside the BWT
+    too (a start before it reads the last sample and chases nothing)."""
+    start, size = intervals(idx, kind, 96, seed=capacity)
+    assert (size > capacity).any() and (size == 0).any()
+    expect = jax_locate_batch(jt, jnp.asarray(start, jt.pos_dtype),
+                              jnp.asarray(size, jt.pos_dtype), capacity=capacity)
+    same_as_jax(port_locate(tables[which], start, size, capacity), expect)
+
+
+@pytest.mark.parametrize("capacity", [1, 48, 64])
+@pytest.mark.parametrize("kind", ["heads", "mid-run", "anywhere"])
+def test_locate_batch_matches_the_host_sa(idx, tables, sa, kind, capacity):
+    start, size = intervals(idx, kind, 160, seed=100 + capacity)
+    res = port_locate(tables["own"], start, size, capacity)
+    count = res.count.numpy()
+    np.testing.assert_array_equal(count, np.minimum(size, capacity))
+    np.testing.assert_array_equal(res.overflow.numpy(), size > capacity)
+    pos = res.positions.numpy()
+    for i in range(len(start)):
+        np.testing.assert_array_equal(pos[i, : count[i]], sa[start[i] : start[i] + count[i]])
+        assert not pos[i, count[i]:].any()
+
+
+@pytest.mark.parametrize("which", ["run_start", "last_sorted"])
+def test_locate_search_trees_match_searchsorted(idx, tables, which):
+    """The plain walk of the trees the kernel descends (over run_start for
+    run_of, over last_sorted for locate_next) against torch.searchsorted,
+    at every head, its neighbours, the ends of the int32 range and random
+    values; the tables made here and carried from JAX hold the same trees."""
+    t = tables["own"]
+    heads = getattr(t, which)
+    tree, levels = (t.run_tree, t.run_tree_levels) if which == "run_start" \
+        else (t.tail_tree, t.tail_tree_levels)
+    assert torch.equal(tree, derive_search_tree(heads)[0])
+    assert levels == derive_search_tree(heads)[1] and len(levels) >= 3
+    carried = tables["carried"]
+    assert torch.equal(tree, carried.run_tree if which == "run_start" else carried.tail_tree)
+    rng = np.random.default_rng(4)
+    h = heads.long()
+    v = torch.cat((h, h - 1, h + 1, torch.tensor([0, 2**31 - 1]),
+                   torch.from_numpy(rng.integers(0, int(h[-1]) + 10, 5000)))).to(heads.dtype)
+    np.testing.assert_array_equal(tree_upper_bound_plain(tree, levels, heads, v).numpy(),
+                                  torch.searchsorted(heads, v, right=True).numpy())
+
+
+def test_plain_steps_match_the_host_model(idx, tables):
+    """run_of and locate_next of ops/rank.py against the port's host model."""
+    model = port_synth(20_000, 4, seed=2)[0]
+    t = tables["own"]
+    rng = np.random.default_rng(8)
+    pos = rng.integers(0, idx.n, 3000)
+    np.testing.assert_array_equal(run_of(t, torch.from_numpy(pos)).numpy(),
+                                  model.run_of(pos))
+    prev = np.concatenate((model.samples, rng.integers(0, idx.n_seq * idx.max_len, 3000)))
+    # the model keeps no pad after the last sample, the tables do
+    tail = np.searchsorted(model.last_sorted, prev, side="right") - 1
+    prev = prev[model.last_to_run[tail] + 1 < model.n_runs]
+    np.testing.assert_array_equal(
+        locate_next(t, torch.from_numpy(prev)).numpy(), model.locate_next(prev))
+
+
+def test_locate_batch_is_a_kernel_with_a_count(tables):
+    """locate_batch is listed among the kernel wrappers; CPU tensors run the
+    plain version and count no launch."""
+    assert KERNELS["locate_batch"] is locate.locate_batch
+    before = locate.locate_batch.launches
+    port_locate(tables["own"], np.array([0, 5]), np.array([3, 1]), 4)
+    assert locate.locate_batch.launches == before
+
+
+def test_locate_refuses_bad_arguments_and_tables(tables):
+    """Shapes and capacity are checked on every device; the kernel's view of
+    the tables refuses tables without the trees, stubbed locate tables and
+    int64 positions (the message of the commands' int32 refusal)."""
+    t = tables["own"]
+    z = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="capacity"):
+        locate.locate_batch(t, z, z, 0)
+    with pytest.raises(ValueError, match="must be"):
+        locate.locate_batch(t, z, z[:3])
+    from dataclasses import replace
+
+    cpu = torch.device("cpu")
+    with pytest.raises(ValueError, match="search trees"):
+        locate._locate_args(replace(t, run_tree=None), cpu)
+    with pytest.raises(ValueError, match="locate tables"):
+        locate._locate_args(replace(t, last_sorted=t.last_sorted[:1]), cpu)
+    with pytest.raises(ValueError, match="n >= 2"):
+        locate._locate_args(replace(t, run_start=t.run_start.long()), cpu)
+    assert len(locate._locate_args(t, cpu)) == 9

@@ -6,6 +6,7 @@ plain versions and its wrappers on CPU tensors)."""
 import importlib.util
 import pathlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,7 +76,11 @@ def test_probe_refuses_bad_shapes(table, call, match):
 
 def test_gather_chain_matches_xla_loop(probe, table):
     idx = np.random.default_rng(1).integers(0, ROWS, BATCH).astype(np.int32)
-    expect = int(probe.xla_gather_loop(jnp.asarray(table), jnp.asarray(idx)))
+    # a test file run earlier by this worker may have switched jax to 64-bit
+    # types (the JAX package does so when it makes int64 tables), under which
+    # the probe's sum would not wrap: the probe's own types are 32 bits
+    with jax.enable_x64(False):
+        expect = int(probe.xla_gather_loop(jnp.asarray(table), jnp.asarray(idx)))
     T, I = torch.from_numpy(table), torch.from_numpy(idx)
     acc = gather_probe.gather_chain_plain(T, I, probe.ITERS)
     assert acc.dtype == torch.int32

@@ -224,12 +224,12 @@ def test_mer_table_cache_shared_with_jax(index, tmp_path, monkeypatch):
 
     with monkeypatch.context() as mp:
         mp.setattr(mertable, "build_mer_table_device", no_build)
-        got = mertable.get_mer_table(idx, m, pt, jax_path)
-    assert got.dtype == torch.int32
+        got, m_used = mertable.get_mer_table(idx, m, pt, jax_path)
+    assert got.dtype == torch.int32 and m_used == m
     np.testing.assert_array_equal(got.numpy(), host)
     # the JAX package reads a table the port built and wrote (int32)
     port_path = str(tmp_path / "port.mer5.npz")
-    built = mertable.get_mer_table(idx, m, pt, port_path)
+    built, _ = mertable.get_mer_table(idx, m, pt, port_path)
     table, _, m_used = jax_mertable.get_mer_table(idx, m, path=port_path)
     assert m_used == m and table.dtype == np.int32
     np.testing.assert_array_equal(table, host)
@@ -238,7 +238,40 @@ def test_mer_table_cache_shared_with_jax(index, tmp_path, monkeypatch):
     other = build_synth_index(2_000, 2, seed=5)[0]
     assert not np.array_equal(
         mertable.get_mer_table(other, m, rindex_to_device(other, "cpu", dense=True),
-                               port_path).numpy(), host)
+                               port_path)[0].numpy(), host)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2])
+def test_get_mer_table_steps_m_down(index, tmp_path, capfd, steps):
+    """Under a byte budget get_mer_table tries m, then m - 1, down to
+    min_m = max(m - 2, 4), names each step on stderr in the reference's
+    words, and returns the table it built with the m it used, keyed by that
+    m in the cache; the table equals the host build at that m."""
+    idx, _ = index
+    m = 7
+    pt = rindex_to_device(idx, "cpu", checkpoint=True)
+    budget = mertable.mer_table_bytes(m - steps)
+    capfd.readouterr()
+    table, m_used = mertable.get_mer_table(
+        idx, m, pt, lambda mt: str(tmp_path / f"x.mer{mt}.npz"), max_bytes=budget)
+    err = capfd.readouterr().err
+    assert m_used == m - steps
+    np.testing.assert_array_equal(table.numpy(), jax_mertable.build_mer_table(idx, m_used))
+    for mt in range(m, m - steps, -1):
+        assert f"mer table: device build failed at m={mt} (MemoryError: " in err
+        assert not (tmp_path / f"x.mer{mt}.npz").exists()
+    assert err.count("stepping down") == steps
+    with np.load(tmp_path / f"x.mer{m_used}.npz", allow_pickle=False) as z:
+        assert str(z["key"]) == jax_mertable.mer_table_key(idx, m_used)
+
+
+def test_get_mer_table_below_min_m_raises(index):
+    """No m down to min_m fits: MemoryError with the sizes (no host build
+    behind the device's)."""
+    idx, _ = index
+    pt = rindex_to_device(idx, "cpu", checkpoint=True)
+    with pytest.raises(MemoryError, match=r"from 6 down to 4 .* budget of 1000 bytes"):
+        mertable.get_mer_table(idx, 6, pt, max_bytes=1000)
 
 
 @pytest.mark.parametrize("arg,min_len", [(-1, 20), (-1, 6), (-1, 4), (6, 20),

@@ -100,18 +100,18 @@ def test_serve_mixed_batch_in_input_order(workload, dense, tmp_path):
 
 
 def test_serve_builds_the_dictionary_from_its_tables(workload, tmp_path):
-    """A cold cache is filled by the device build (the level wrappers run),
+    """A cold cache is filled by the device build (the level wrapper runs),
     a warm one is read, and both serve the same dictionary as the host build."""
     from pangenome_index_tpu_torch.ops import sparsedict as sd
 
     idx, _, _, codes, lens, tags = workload
     path = str(tmp_path / "sdict.npz")
-    before = sd.sdict_expand.launches
+    before = sd.sdict_level.launches
     cold = prepare(idx, tags, codes[:4], lens[:4], "cpu", mer_m=6, sdict_s=12,
                    sdict_path=path)
     warm = prepare(idx, tags, codes[:4], lens[:4], "cpu", mer_m=6, sdict_s=12,
                    sdict_path=path)
-    assert sd.sdict_expand.launches == before  # CPU tensors: the plain versions
+    assert sd.sdict_level.launches == before  # CPU tensors: the plain version
     keys, vals = sd.build_sparse_dict(idx, 12)
     for b in (cold, warm):
         assert b.dict_entries == len(keys)

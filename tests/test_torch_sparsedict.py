@@ -2,9 +2,9 @@
 package's builds and the port's own host build, element for element (CPU,
 small synthetic index; every value is an integer, tolerance 0).
 
-On CPU tensors the level wrappers (sdict_expand, sdict_scatter) run their
-plain PyTorch versions; the kernels of csrc/sparsedict.cu are held against
-those on the card (tests/test_torch_cuda.py)."""
+On CPU tensors the level wrapper (sdict_level) runs its plain PyTorch
+version; the kernel of csrc/sparsedict.cu is held against it on the card
+(tests/test_torch_cuda.py)."""
 
 import re
 
@@ -20,6 +20,7 @@ from pangenome_index_tpu.utils.synth import build_synth_index
 from pangenome_index_tpu_torch import cli
 from pangenome_index_tpu_torch.ops import sparsedict as sd
 from pangenome_index_tpu_torch.ops.tables import rindex_to_device
+from pangenome_index_tpu_torch.utils.alphabet import BASE_CODES, KP_WEIGHT
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -88,31 +89,97 @@ def test_device_build_matches_jax_device_build(idx, tables, s, min_keep, host_ma
          expect)
 
 
+def host_level(idx, keys, vals, thresh, level):
+    """One level by the host model's rank6, as build_sparse_dict's loop
+    body: the kept children of each branch, (keys, vals) per branch, and
+    the index of the entry each came from."""
+    k, kp, sz = (vals[:, c].astype(np.int64) for c in range(3))
+    r_k, r_ks = idx.rank6(k), idx.rank6(k + sz)
+    delta = r_ks - r_k
+    out = []
+    for b, code in enumerate(BASE_CODES):
+        code = int(code)
+        keep = delta[:, code] >= thresh
+        kid = np.stack((r_k[:, code] + idx.C[code],
+                        kp + (KP_WEIGHT[code][None, :] * delta).sum(axis=1),
+                        delta[:, code]), axis=1)[keep].astype(vals.dtype)
+        out.append((keys[keep] | (np.int64(b) << (2 * level)), kid,
+                    np.flatnonzero(keep)))
+    return out
+
+
+def regions_of(keys, vals, cuts, fill=-7):
+    """The entries cut into len(cuts) + 1 regions of one width, padded with
+    a value no entry has: (keys [R, w], vals [R, w, 3], counts)."""
+    parts = np.split(np.arange(len(keys)), cuts)
+    w = max(max(len(p) for p in parts), 1) + 3
+    rk = np.full((len(parts), w), fill, np.int64)
+    rv = np.full((len(parts), w, 3), fill, vals.dtype)
+    for r, p in enumerate(parts):
+        rk[r, : len(p)], rv[r, : len(p)] = keys[p], vals[p]
+    return torch.from_numpy(rk), torch.from_numpy(rv), [len(p) for p in parts]
+
+
+def check_level(idx, t, keys, vals, cuts, thresh, level):
+    """sdict_level over the entries cut into regions at `cuts`, against the
+    host model: each region holds its branch's kept children in source
+    order (zeros after them), totals count them, and offsets[b, j] counts
+    the kept children of branch b of the LEVEL_BLOCK-entry blocks before
+    block j."""
+    rk, rv, counts = regions_of(keys, vals, cuts)
+    out_keys, out_vals, offsets, totals = sd.sdict_level(t, rk, rv, counts, thresh,
+                                                         level)
+    D = len(keys)
+    blocks = -(-D // sd.LEVEL_BLOCK)
+    assert out_keys.shape == (4, D) and out_vals.shape == (4, D, 3)
+    assert offsets.shape == (4, blocks) and totals.shape == (4,)
+    for b, (hk, hv, src) in enumerate(host_level(idx, keys, vals, thresh, level)):
+        n_b = len(hk)
+        assert int(totals[b]) == n_b
+        np.testing.assert_array_equal(out_keys[b, :n_b].numpy(), hk)
+        np.testing.assert_array_equal(out_vals[b, :n_b].numpy(), hv)
+        assert not out_keys[b, n_b:].any() and not out_vals[b, n_b:].any()
+        per_block = np.bincount(src // sd.LEVEL_BLOCK, minlength=blocks)
+        np.testing.assert_array_equal(offsets[b].numpy(),
+                                      np.cumsum(per_block) - per_block)
+    return out_keys, out_vals, totals.tolist()
+
+
 @pytest.mark.parametrize("mode", ["checkpoint", "dense"])
 @pytest.mark.parametrize("level,min_keep", [(0, 1), (5, 1), (7, 3), (12, 1),
                                             (18, 2), (30, 1)])
 def test_one_level_step(idx, tables, host_builds, level, min_keep, mode):
-    """One plain level step (expand, then scatter) takes the frontier of
-    length `level` to the one of length `level` + 1, and its block offsets are
-    the places the kept children are written at."""
+    """One plain level step takes the frontier of length `level`, in the
+    four regions the level before left it in (one a branch), to the one of
+    length `level` + 1: its regions, block offsets and totals are the host
+    model's, and packed they are the host build's next level."""
     t = tables[mode]
     if level == 0:
         keys, vals = np.zeros(1, np.int64), np.array([[0, 0, idx.n]], np.int32)
+        cuts = []
     else:
         keys, vals = host_builds(level, min_keep)
-    keys, vals = torch.from_numpy(keys), torch.from_numpy(vals)
-    child_sz, child_kkp, offsets, total = sd.sdict_expand(t, vals, min_keep)
-    D, blocks = len(keys), -(-len(keys) // sd.LEVEL_BLOCK)
-    assert child_sz.shape == (4, D) and child_kkp.shape == (4, D, 2)
-    assert offsets.shape == (4, blocks) and total.shape == (1,)
-    kept = torch.nn.functional.pad(child_sz != 0, (0, blocks * sd.LEVEL_BLOCK - D))
-    counts = kept.view(4, blocks, -1).sum(dim=2).reshape(-1)
-    assert int(total) == int(counts.sum())
-    np.testing.assert_array_equal(offsets.reshape(-1).numpy(),
-                                  (torch.cumsum(counts, 0) - counts).numpy())
-    assert not child_kkp[child_sz == 0].any()
-    same(sd.sdict_scatter(keys, child_sz, child_kkp, offsets, int(total), level),
-         host_builds(level + 1, min_keep))
+        # the regions of the level before: by the base prepended last
+        cuts = np.searchsorted(keys >> (2 * (level - 1)), [1, 2, 3])
+    out_keys, out_vals, totals = check_level(idx, t, keys, vals, cuts, min_keep,
+                                             level)
+    same(sd.sdict_pack(out_keys, out_vals, totals), host_builds(level + 1, min_keep))
+
+
+@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("blocks", [1, 3])
+@pytest.mark.parametrize("edge", [-1, 0, 1])
+def test_level_across_the_block_partition(idx, tables, host_builds, blocks, edge,
+                                          mode):
+    """Levels of D = k LEVEL_BLOCK - 1, k LEVEL_BLOCK and k LEVEL_BLOCK + 1
+    entries (the first D of the s=9 frontier), cut into four regions at
+    places that do not fall on a block's edge: with k = 3 the offsets are a
+    scan over several blocks."""
+    keys, vals = host_builds(9, 1)
+    D = blocks * sd.LEVEL_BLOCK + edge
+    assert len(keys) > D
+    cuts = [D // 5, D // 5 + 1, (3 * D) // 4]
+    check_level(idx, tables[mode], keys[:D], vals[:D], cuts, 1, 9)
 
 
 def test_empty_dictionary(idx, tables):
@@ -141,11 +208,17 @@ def test_build_refuses_bad_arguments(idx, tables):
             sd.build_sparse_dict_device(idx, t, s)
     with pytest.raises(ValueError, match="rows"):
         sd.build_sparse_dict_device(idx.n + 1, t, 4)
-    z = torch.zeros((3, 3), dtype=torch.int32)
-    with pytest.raises(ValueError, match="vals must be"):
-        sd.sdict_expand(t, z[:, :2], 1)
-    with pytest.raises(ValueError, match="children must be"):
-        sd.sdict_scatter(torch.zeros(3, dtype=torch.int64), z, z, z, 0, 0)
+    keys = torch.zeros((4, 3), dtype=torch.int64)
+    vals = torch.zeros((4, 3, 3), dtype=torch.int32)
+    for bad in ((keys[:, :2], vals, [1, 0, 0, 0]), (keys, vals[:, :, :2], [1, 0, 0, 0]),
+                (keys, vals, [1, 0, 0]), (keys, vals, [4, 0, 0, 0]),
+                (keys, vals, [0, 0, 0, 0]), (torch.zeros((5, 3), dtype=torch.int64),
+                                             torch.zeros((5, 3, 3), dtype=torch.int32),
+                                             [1] * 5)):
+        with pytest.raises(ValueError, match="must be"):
+            sd.sdict_level(t, *bad, 1, 0)
+    with pytest.raises(ValueError, match="level must be"):
+        sd.sdict_level(t, keys, vals, [1, 0, 0, 0], 1, 31)
 
 
 @pytest.mark.parametrize("s,min_keep", [(7, 1), (19, 2)])
@@ -169,10 +242,10 @@ def test_get_sparse_dict_tables_route_shares_the_jax_cache(idx, tables, tmp_path
     # and a file the JAX package wrote is a hit here, vals on the device
     jpath = str(tmp_path / "j.npz")
     jax_sd.get_sparse_dict(idx, s, path=jpath, min_keep=min_keep)
-    launches = sd.sdict_expand.launches
+    launches = sd.sdict_level.launches
     hit = sd.get_sparse_dict(idx, s, path=jpath, min_keep=min_keep,
                              tables=tables["dense"])
-    assert isinstance(hit[1], torch.Tensor) and sd.sdict_expand.launches == launches
+    assert isinstance(hit[1], torch.Tensor) and sd.sdict_level.launches == launches
     same(hit, expect)
     assert "rebuilding" not in capfd.readouterr().err
 
@@ -182,7 +255,7 @@ def test_get_sparse_dict_does_not_fall_back(idx, tables, monkeypatch):
     def broken(*a, **k):
         raise RuntimeError("launch failed")
 
-    monkeypatch.setattr(sd, "sdict_expand", broken)
+    monkeypatch.setattr(sd, "sdict_level", broken)
     monkeypatch.setattr(sd, "build_sparse_dict",
                         lambda *a, **k: pytest.fail("fell back to the host build"))
     with pytest.raises(RuntimeError, match="launch failed"):
@@ -190,8 +263,9 @@ def test_get_sparse_dict_does_not_fall_back(idx, tables, monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [["-s", "12", "--min-keep", "2"],
-                                   ["--min-len", "9"]],
-                         ids=["s-and-min-keep", "from-min-len"])
+                                   ["--min-len", "9"],
+                                   ["-s", "7", "--engine", "device"]],
+                         ids=["s-and-min-keep", "from-min-len", "engine-device"])
 def test_build_sdict_command_matches_jax(idx, tmp_path, capfd, extra):
     """`build-sdict --device cpu` against the JAX `build-sdict --engine host`:
     the same arrays and content key in the file, the same summary line."""
