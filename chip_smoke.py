@@ -33,7 +33,17 @@ launch count set to 0 just before a path and read just after it:
    the first 65536 MEMs the serving run buffered and 32768 random ones (at
    run heads and mid-run, sizes 1 to 200), capacity 64, against its plain
    version on every lane and against the host model (RIndex.run_of and
-   chained RIndex.locate_next) on 4096 of them.
+   chained RIndex.locate_next) on 4096 of them;
+7. the index build from text (bwt.bwt_from_lines_device, the build-bwt and
+   build-rindex commands): the BWT of the bench text (8 lines, 20,000,008
+   characters) built on the card by prefix doubling, equal element for
+   element to native SA-IS (whose seconds are printed beside it); each
+   kernel against its plain version at the first round (k = 0 and 1) and a
+   plateau round (k = 256) and the finish; per round the device time at
+   k = 1 and k = 256 beside torch.sort's on the same keys; the whole build's
+   device time from the profiler and its wall; the build-bwt file
+   byte-equal to the native BWT's .rl_bwt, and build-rindex's .ri
+   byte-equal to the bench index's.
 
 find-mems also runs on all 16384 reads with --batch-size 0 (chunks of 4096
 reads) and with one launch over them, byte-equal.
@@ -92,6 +102,9 @@ SOURCES = {
     "tag_upper_bound": ("csrc/tagsearch.cu", "pangenome_index_tpu/ops/tagquery.py:42", "tag-search"),
     "sdict_level": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:100", "build-sdict"),
     "locate_batch": ("csrc/locate.cu", "pangenome_index_tpu/ops/locate.py:29", "locate"),
+    "bwt_sort_pairs": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:34", "build-bwt"),
+    "bwt_rerank": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:27", "build-bwt"),
+    "bwt_finish": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:56", "build-bwt"),
 }
 #: published peaks of one H100 SXM: device memory bytes/s, and float32
 #: operations/s outside the tensor cores (taken for the kernels' 32-bit
@@ -110,7 +123,10 @@ PATH_KERNELS = {
     "tag-search": ("tag_upper_bound",),
     "build-sdict": ("sdict_level",),
     "locate": ("locate_batch",),
+    "build-bwt": ("bwt_sort_pairs", "bwt_rerank", "bwt_finish"),
 }
+BWT_CHECKED_ROUNDS = (0, 1, 256)  # rounds whose kernels are held against plain
+BWT_TIMED_ROUNDS = (1, 256)       # rounds timed beside torch.sort; 256 is reported
 N_LOCATE_MEMS = 65536    # locate: the first buffered MEM intervals of the serving run
 N_LOCATE_RANDOM = 32768  # locate: random intervals, half at run heads, half mid-run
 LOCATE_CAP = 64          # locate: capacity
@@ -142,8 +158,8 @@ def main() -> int:
     import pangenome_index_tpu_torch as port
     from pangenome_index_tpu_torch import _build, gather_probe, native
     from pangenome_index_tpu_torch import cli as port_cli
-    from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
-    from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd,
+    from pangenome_index_tpu_torch.formats import ri, rlbwt, tags as tagfmt
+    from pangenome_index_tpu_torch.ops import (bwt, count, dense_rank, fmd,
                                                gather_probe as probe_ops, locate,
                                                mems, mertable, rank, sparsedict,
                                                tagquery)
@@ -999,6 +1015,168 @@ def main() -> int:
     t_dn = rindex_to_device(idx, dev, dense=True)
     compare("count (dense rank)", lambda: count.count(t_dn, qc, ql),
             lambda: count.count_plain(t_dn, qc, ql), record=False)
+
+    # --- 10. the index build from text: build-bwt and build-rindex ---------
+    phase("BWT build")
+    t0 = time.perf_counter()
+    nat = native.build_bwt_native(lines)
+    native_s = time.perf_counter() - t0
+    keys_np, starts_np, _, top_key = bwt.text_keys(lines)
+    n_text = keys_np.size
+    card_s = []
+    for _ in range(2):  # the first holds the warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = bwt.bwt_from_lines_device(lines, dev)
+        card_s.append(time.perf_counter() - t0)
+    for what, g, w in zip(("bwt", "da", "sa_pos", "seq_lengths"), built, nat):
+        check(g.shape == w.shape and np.array_equal(g, w),
+              f"the card's {what} differs from native SA-IS")
+    check([a.dtype for a in built] == [np.dtype(t) for t in ("uint8", "int64", "int64",
+                                                             "int64")],
+          "the card's BWT arrays are not uint8, int64, int64, int64")
+    log(f"BWT of the bench text ({len(lines)} lines, {n_text} characters) built on the "
+        f"card: bwt, da, sa_pos and seq_lengths identical to native SA-IS; card "
+        f"{card_s[0]:.4f} s (first call) / {card_s[1]:.4f} s wall, native SA-IS "
+        f"{native_s:.4f} s on {os.cpu_count()} cores {card}")
+    del built
+    # the rounds one by one: each kernel against its plain version at the
+    # first round and a plateau round, timed at k = 1 and k = 256 beside
+    # torch.sort on the same int64 keys
+    keys_d, starts_d = T(keys_np), T(starts_np)
+    rank_d, top, k = keys_d, top_key, 0
+    ks, bwt_err, bwt_plain, timed = [], {}, {}, {}
+
+    def held(name, got, plain):
+        """Hold a BWT kernel's result against its plain version's (timed)."""
+        want, ms = once_ms(plain)
+        bwt_err[name] = max(bwt_err.get(name, 0), max_abs_err(got, want))
+        bwt_plain.setdefault(name, ms)
+        return want
+
+    while True:
+        bits = max(1, top.bit_length())
+        if k in BWT_CHECKED_ROUNDS:
+            srt = bwt.bwt_sort_pairs(rank_d, k, bits)
+            held("bwt_sort_pairs", srt, lambda: bwt.bwt_sort_pairs_plain(rank_d, k, bits))
+            new = bwt.bwt_rerank(*srt)
+            held("bwt_rerank", new, lambda: bwt.bwt_rerank_plain(*srt))
+            if k in BWT_TIMED_ROUNDS:
+                pk = bwt.pair_keys(rank_d, k, bits)
+                timed[k] = dict(
+                    bits=2 * bits, passes=bwt.sort_passes(k, bits),
+                    sort=gather_probe.time_ms(lambda: bwt.bwt_sort_pairs(rank_d, k, bits)),
+                    rerank=gather_probe.time_ms(lambda: bwt.bwt_rerank(*srt)),
+                    torch_sort=time_ms(lambda: torch.sort(pk, stable=True), 10))
+                if k == BWT_TIMED_ROUNDS[-1]:  # the kernels line's shapes
+                    bwt_plain["bwt_sort_pairs"] = once_ms(
+                        lambda: bwt.bwt_sort_pairs_plain(rank_d, k, bits))[1]
+                    bwt_plain["bwt_rerank"] = once_ms(lambda: bwt.bwt_rerank_plain(*srt))[1]
+                del pk
+            del srt
+        else:
+            new = bwt.doubling_round(rank_d, k, bits)
+        ks.append(k)
+        rank_d, top = new[0], int(new[1])
+        del new
+        if k and top == n_text - 1:
+            break
+        k = 2 * k if k else 1
+        check(k < n_text, "the BWT rounds ended with ranks not distinct")
+    check(set(BWT_TIMED_ROUNDS) <= set(ks), f"the BWT build ran rounds {ks} only")
+    fin = bwt.bwt_finish(rank_d, keys_d, starts_d)
+    held("bwt_finish", fin, lambda: bwt.bwt_finish_plain(rank_d, keys_d, starts_d))
+    finish_ms = gather_probe.time_ms(lambda: bwt.bwt_finish(rank_d, keys_d, starts_d))
+    del fin
+    check(all(e == 0 for e in bwt_err.values()),
+          f"a BWT kernel differs from its plain version: {bwt_err}")
+    log(f"BWT rounds: {len(ks)} (k = {', '.join(map(str, ks))}); the sort, rerank and "
+        f"finish kernels identical to their plain versions at k = "
+        f"{', '.join(map(str, BWT_CHECKED_ROUNDS))} and the finish")
+    for kk, tm in timed.items():
+        log(f"  round k={kk}: {tm['bits']}-bit pair keys, radix passes {tm['passes']}: "
+            f"sort {tm['sort']:.4f} ms + rerank {tm['rerank']:.4f} ms (device); "
+            f"torch.sort of the same keys {tm['torch_sort']:.4f} ms {card}")
+    # the whole build's device time by kernel (every round's launches)
+    for _ in range(3):  # a trace that left launches out is taken again
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_head()
+            t0 = time.perf_counter()
+            bwt.bwt_from_lines_device(lines, dev)
+            build_wall = time.perf_counter() - t0
+            trace_tail()
+        reranks = sum(ev.count for ev in prof.key_averages() if "rerank_kernel" in ev.key)
+        if reranks == len(ks):
+            break
+    check(reranks == len(ks), f"the trace of a BWT build holds {reranks} of "
+                              f"{len(ks)} rerank launches")
+    by_kernel = {ev.key: (ev.device_time_total / 1e3, ev.count) for ev in prof.key_averages()
+                 if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key}
+    busy = sum(ms for ms, _ in by_kernel.values())
+    log(f"a whole BWT build of {n_text} characters: device busy {busy:.4f} ms in "
+        f"{build_wall:.4f} s wall {card}")
+    for key, (ms, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
+        log(f"  {ms:.4f} ms x{cnt}  {key[:90]}")
+    # bounds at the kernels line's shapes (k = 256): each input and output
+    # once (the sort reads rank, the gathered second rank from the same
+    # array, and writes keys and payload; the rerank reads both and writes
+    # rank; the finish reads rank and the symbol keys and writes order,
+    # bwt, da and sa_pos); the design's own bytes beside them
+    plateau = timed[BWT_TIMED_ROUNDS[-1]]
+    passes = plateau["passes"]
+    bwt_work = {
+        "bwt_sort_pairs": (n_text * 16, n_text * passes * 12, plateau["sort"],
+                           plateau["torch_sort"], n_text * (20 + 32 * passes)),
+        "bwt_rerank": (n_text * 16, n_text * 4, plateau["rerank"], None, n_text * 16),
+        "bwt_finish": (n_text * 29, n_text * 12, finish_ms, None, n_text * 33),
+    }
+    for name, (nbytes, ops, ms, lib_ms, design) in bwt_work.items():
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+        kernels[name] = dict(
+            name=name, route="cuda", source="pangenome_index_tpu_torch/" + SOURCES[name][0],
+            replaces=SOURCES[name][1], max_abs_err=bwt_err[name], ms=ms,
+            plain_ms=bwt_plain[name], bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=lib_ms,
+            chain_steps=None)
+        log(f"{name}: identical to its plain version; {ms:.4f} ms (device, k = "
+            f"{BWT_TIMED_ROUNDS[-1]}) vs plain {bwt_plain[name]:.4f} ms, bound "
+            f"{kernels[name]['bound_ms']:.5f} ms by {kernels[name]['bound_by']} ({nbytes} "
+            f"bytes, {ops} operations); the design's own bytes {design} "
+            f"({design / PEAK_BYTES_S * 1e3:.5f} ms)"
+            + ("" if lib_ms is None else f", torch.sort {lib_ms:.4f} ms") + f" {card}")
+    del rank_d, keys_d, starts_d
+
+    # the commands on the text as a file: build-bwt's file against the
+    # native BWT's, build-rindex's .ri against the bench index's
+    text_path = os.path.join(cli_dir, "bench_text.txt")
+    with open(text_path, "wb") as fh:
+        fh.write(b"\n".join(lines) + b"\n")
+    native_rl = os.path.join(cli_dir, "native.rl_bwt")
+    rlbwt.write_rlbwt(native_rl, rlbwt.rlbwt_from_text(nat[0].tobytes()))
+    del nat
+    port_rl, port_ri = (os.path.join(cli_dir, f"port.{ext}") for ext in ("rl_bwt", "ri"))
+    port.reset_launches()
+    sec = port_cmd(["build-bwt", text_path, port_rl], os.path.join(cli_dir, "bwt_port.txt"))
+    read_launches("build-bwt")
+    check(launches["build-bwt"]["bwt_sort_pairs"] == len(ks)
+          and launches["build-bwt"]["bwt_finish"] == 1,
+          f"build-bwt made {launches['build-bwt']['bwt_sort_pairs']} rounds, not {len(ks)}")
+    with open(port_rl, "rb") as fa, open(native_rl, "rb") as fb:
+        check(fa.read() == fb.read(), "build-bwt's file differs from the native BWT's")
+    with open(os.path.join(cli_dir, "bwt_port.txt.err")) as fh:
+        summary = fh.read().strip().splitlines()[-1]
+    log(f"build-bwt: file byte-equal to the native BWT's ({summary}); "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()) + f" {card}")
+    sec = port_cmd(["build-rindex", port_rl, "-o", port_ri],
+                   os.path.join(cli_dir, "rindex_port.txt"))
+    with open(port_ri, "rb") as fa, open(ri_path, "rb") as fb:
+        check(fa.read() == fb.read(), "build-rindex's .ri differs from the bench index's")
+    with open(os.path.join(cli_dir, "rindex_port.txt.err")) as fh:
+        summary = fh.read().strip().splitlines()[-1]
+    log(f"build-rindex: .ri byte-equal to the bench index's serialize_encoded "
+        f"({summary}); " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()) + f" {card}")
+    for path in (text_path, native_rl, port_rl, port_ri):
+        os.remove(path)
 
     for name, entry in kernels.items():
         entry["launches"] = launches[SOURCES[name][2]][name]

@@ -1,6 +1,7 @@
-"""pangenome_index_tpu_torch: find-mems serving, the find-mems, query-tags
-and build-sdict commands, batched locate and the gather-rate probe on
-PyTorch and hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""pangenome_index_tpu_torch: find-mems serving, the find-mems, query-tags,
+build-sdict, build-bwt and build-rindex commands, batched locate, the BWT
+build and the gather-rate probe on PyTorch and hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a).
 
 A port of the JAX package pangenome_index_tpu, which stays the reference.
 The port imports nothing of that package: the host side (index models,
@@ -15,15 +16,17 @@ Layout:
                    tag counts, K5 gather probe,
                    K6 tag positions per interval, K7 backward search (count),
                    K8 locate (locate.cu), the tag search tree's descent
-                   alone (tagsearch.cu), and the long-seed dictionary's
-                   frontier level (sparsedict.cu)
+                   alone (tagsearch.cu), the long-seed dictionary's
+                   frontier level (sparsedict.cu), and the BWT's prefix
+                   doubling rounds: radix sort, rerank, finish (bwt.cu)
   native.py        ctypes binding of the native C++ engine (src/cpp)
   utils/ models/ formats/   alphabet, synthetic data, host index models and
                    the .ri / .tags codecs
   ops/             tables, a kernel wrapper and its plain PyTorch version per
                    kernel
   serve.py         the find-mems serving pipeline on one device
-  cli.py           the find-mems, query-tags and build-sdict commands
+  cli.py           the find-mems, query-tags, build-sdict, build-bwt and
+                   build-rindex commands
   gather_probe.py  the gather-rate probe (random 64-byte row gathers)
 
 Every function that makes tensors takes an explicit `device`. A kernel
@@ -33,6 +36,7 @@ wrapper launches its kernel for CUDA tensors (and counts the launch in its
 
 from __future__ import annotations
 
+from .ops.bwt import bwt_finish, bwt_rerank, bwt_sort_pairs
 from .ops.count import count
 from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.fmd import extend
@@ -53,7 +57,9 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "gather_chain": gather_chain, "count": count,
            "query_tags_batch": query_tags_batch,
            "tag_upper_bound": tag_upper_bound,
-           "sdict_level": sdict_level, "locate_batch": locate_batch}
+           "sdict_level": sdict_level, "locate_batch": locate_batch,
+           "bwt_sort_pairs": bwt_sort_pairs, "bwt_rerank": bwt_rerank,
+           "bwt_finish": bwt_finish}
 
 
 def reset_launches() -> None:

@@ -62,6 +62,9 @@ SIGNATURES = {
                               _P, _P),
     "pgt_locate": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I,
                    _P, _P, _P, _P),
+    "pgt_bwt_sort_pairs": (_P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "pgt_bwt_rerank": (_P, _P, _I64, _P, _P, _P, _P),
+    "pgt_bwt_finish": (_P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P),
 }
 
 _lib = None

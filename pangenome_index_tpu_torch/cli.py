@@ -1,12 +1,17 @@
-"""find-mems, query-tags and build-sdict on the PyTorch/CUDA port.
+"""find-mems, query-tags, build-sdict, build-bwt and build-rindex on the
+PyTorch/CUDA port.
 
     python -m pangenome_index_tpu_torch.cli find-mems RI TAGS READS MIN_LEN MIN_OCC [options]
     python -m pangenome_index_tpu_torch.cli query-tags RI TAGS READS [options]
     python -m pangenome_index_tpu_torch.cli build-sdict RI [-o OUT] [-s S] [options]
+    python -m pangenome_index_tpu_torch.cli build-bwt TEXT OUT [--device D]
+    python -m pangenome_index_tpu_torch.cli build-rindex RL_BWT [-o OUT] [--format F]
 
-The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-651) with
-the same argv, and stdout byte-equal to theirs under --engine native and
---engine host, apart from the two "Total time" lines. There is one engine:
+The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-651,
+779-812) with the same argv, and output byte-equal to theirs (find-mems and
+query-tags: stdout under --engine native and --engine host, apart from the
+two "Total time" lines; build-bwt: the .rl_bwt of every engine;
+build-rindex: the .ri bytes of both formats). There is one engine:
 the port's kernels on --device (default cuda; a missing card is an error,
 and --device cpu runs the kernels' plain PyTorch versions). A missing file
 or invalid input ends a command with `panidx: ...` on stderr and exit code
@@ -31,6 +36,11 @@ the reference's run range quirk; overflowing lanes re-queried on the host).
 
 build-sdict: the long-seed dictionary of an index, built ahead of serving
 into the file find-mems --long-seed reads.
+
+build-bwt: the text's lines (split on newlines, empty ones dropped) to the
+run-length BWT file (.rl_bwt), the rotation sort on --device
+(ops/bwt.py). build-rindex: an .rl_bwt to the r-index (.ri) that find-mems
+reads, on the host (the native psi walk; there is no device program).
 """
 
 from __future__ import annotations
@@ -44,7 +54,10 @@ import torch
 
 from . import native
 from .formats import ri, tags as tagfmt
+from .formats.rlbwt import read_rlbwt, rlbwt_from_text, write_rlbwt
 from .models.mems import find_all_mems
+from .models.rindex import build_rindex
+from .ops.bwt import bwt_tensors
 from .ops.count import count
 from .ops.mems import find_mems
 from .ops.mertable import (device_budget, get_mer_table, read_mer_keys_fast,
@@ -382,6 +395,49 @@ def cmd_build_sdict(args, seconds: dict) -> int:
     return 0
 
 
+def cmd_build_bwt(args, seconds: dict) -> int:
+    """Text -> .rl_bwt, the rotations sorted on --device (the JAX command's
+    arguments, file and stderr summary)."""
+    dev = _device(args.device)
+    mark = _phases(dev, seconds)
+    with open(args.text, "rb") as fh:
+        lines = [l for l in fh.read().split(b"\n") if l]
+    mark("read")
+    # only the BWT comes back from the device (the document array and the
+    # suffix positions stay there); an empty text has no rotation to sort:
+    # an empty file, as the reference's default (native) engine writes
+    bwt = bwt_tensors(lines, dev)[0].cpu().numpy() if lines else np.zeros(0, np.uint8)
+    mark("build")
+    rlbwt = rlbwt_from_text(bwt.tobytes())
+    write_rlbwt(args.output, rlbwt)
+    mark("write")
+    print(f"build-bwt: {rlbwt.n_runs} runs over {rlbwt.size} characters",
+          file=sys.stderr)
+    return 0
+
+
+def cmd_build_rindex(args, seconds: dict) -> int:
+    """.rl_bwt -> .ri bytes on stdout or in -o (the JAX command's arguments,
+    bytes and stderr summary), built on the host."""
+    mark = _phases(torch.device("cpu"), seconds)
+    rlbwt = read_rlbwt(args.rl_bwt)
+    mark("read")
+    idx = build_rindex(rlbwt)
+    mark("build")
+    data = (ri.serialize_legacy(idx) if args.format == "legacy"
+            else ri.serialize_encoded(idx))
+    if args.output == "-":
+        sys.stdout.buffer.write(data)
+        sys.stdout.flush()
+    else:
+        with open(args.output, "wb") as fh:
+            fh.write(data)
+    mark("write")
+    print(f"r-index: {idx.n_runs} runs, {idx.n_seq} sequences, BWT size {idx.n}",
+          file=sys.stderr)
+    return 0
+
+
 def main(argv=None, seconds: dict | None = None) -> int:
     """Run one command; `seconds`, when given, receives the seconds of each
     phase (load, tables, ..., output)."""
@@ -448,6 +504,20 @@ def main(argv=None, seconds: dict | None = None) -> int:
     bs.add_argument("--engine", choices=["device"], default="device",
                     help=ENGINE_HELP)
     bs.set_defaults(fn=cmd_build_sdict)
+    bb = sub.add_parser("build-bwt")
+    bb.add_argument("text")
+    bb.add_argument("output")
+    bb.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the kernels' "
+                         "plain versions)")
+    bb.add_argument("--engine", choices=["device"], default="device",
+                    help=ENGINE_HELP)
+    bb.set_defaults(fn=cmd_build_bwt)
+    br = sub.add_parser("build-rindex")
+    br.add_argument("rl_bwt")
+    br.add_argument("-o", "--output", default="-")
+    br.add_argument("--format", choices=["encoded", "legacy"], default="encoded")
+    br.set_defaults(fn=cmd_build_rindex)
     args = p.parse_args(argv)
     try:
         return args.fn(args, {} if seconds is None else seconds)

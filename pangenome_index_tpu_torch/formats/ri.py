@@ -1,7 +1,7 @@
-"""``.ri`` r-index file codec: load (legacy and encoded) and write (encoded).
+"""``.ri`` r-index file codec: load and write, legacy and encoded.
 
-The port's copy of pangenome_index_tpu/formats/ri.py, cut to loading either
-format and writing the encoded one; the bytes are identical.
+The port's copy of pangenome_index_tpu/formats/ri.py; the bytes are
+identical (the legacy writer is vectorised over blocks).
 
 Common prefix:
   Header{u32 tag=0x6B3741D8, u32 version=1, u64 max_length, u64 flags}
@@ -106,6 +106,38 @@ def serialize_encoded(idx: RIndex) -> bytes:
     sdsl.write_int_vector(buf, np.array(offsets, dtype=np.int64), start_width)
     sdsl.write_u64(buf, len(stream))
     buf.write(bytes(stream))
+    return buf.getvalue()
+
+
+def serialize_legacy(idx: RIndex) -> bytes:
+    """The legacy format: every block as little-endian words, written for
+    all full blocks at once, then the last block (partial, or the trailing
+    empty one when the runs fill their blocks)."""
+    buf = io.BytesIO()
+    _write_common(buf, idx, 0)
+    present = _present_codes(idx)
+    ncp = len(present)
+    r = idx.n_runs
+    sdsl.write_u64(buf, r // BLOCK_SIZE + 1)
+    # per run its symbol byte and length, interleaved
+    runs = np.stack((CODE_TO_BYTE[idx.run_sym].astype(np.uint64),
+                     idx.run_len.astype(np.uint64)), axis=1).reshape(-1)
+    full = r // BLOCK_SIZE
+    if full:
+        # a full block: int_vector<64> of its cum ranks (bit count, words),
+        # its run count, its runs
+        blocks = np.empty((full, 2 + ncp + 2 * BLOCK_SIZE), np.uint64)
+        blocks[:, 0] = ncp * 64
+        blocks[:, 1 : 1 + ncp] = idx.cum[::BLOCK_SIZE][:full][:, present]
+        blocks[:, 1 + ncp] = BLOCK_SIZE
+        blocks[:, 2 + ncp :] = runs[: 2 * full * BLOCK_SIZE].reshape(full, -1)
+        buf.write(blocks.astype("<u8").tobytes())
+    lo = full * BLOCK_SIZE
+    if lo < r:
+        last = [ncp * 64, *idx.cum[lo, present], r - lo, *runs[2 * lo :]]
+    else:  # the default 8-entry zero cum vector and no runs
+        last = [8 * 64] + [0] * 8 + [0]
+    buf.write(np.array(last, dtype="<u8").tobytes())
     return buf.getvalue()
 
 

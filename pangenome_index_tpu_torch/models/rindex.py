@@ -2,9 +2,11 @@
 
 The port's copy of pangenome_index_tpu/models/rindex.py, cut to what the
 port uses: the RIndex tables with rank, LF, count, locate and FMD
-extension, and construction from a run-length BWT whose suffix array is
-known (the path utils/synth.py takes). Same fields, dtypes and values as the JAX package's
-RIndex, so either package's index serves the other's functions.
+extension, and construction from a run-length BWT, either by the native psi
+walk (build_rindex, the build-rindex command) or from a known suffix array
+(build_rindex_from_sa, the path utils/synth.py takes). Same fields, dtypes
+and values as the JAX package's RIndex, so either package's index serves the
+other's functions.
 
     run_sym[r]     int8  dense code of each logical run
     run_start[r]   i64   BWT offset of the run head
@@ -138,14 +140,14 @@ class RIndex:
         return (t[1], t[0], t[2])
 
 
-def build_rindex_from_sa(rlbwt: RLBWT, seq_of_row: np.ndarray,
-                         pos_of_row: np.ndarray, seq_lengths: np.ndarray,
-                         keep_sa: bool = False) -> RIndex:
-    """Construct the r-index from a run-length BWT and its suffix array
-    (per BWT row: sequence id and suffix start offset; per sequence: length
-    incl. endmarker)."""
+def _rindex_head(rlbwt: RLBWT):
+    """The tables every build shares: the endmarker runs split into unit
+    runs, C and the per-run counts. Returns (RIndex with zero samples,
+    last_sorted and last_to_run and max_len 1, run_sym as int64)."""
     syms = BYTE_TO_CODE[rlbwt.syms].astype(np.int8)
     freqs = rlbwt.freqs.astype(np.int64)
+    # the index is defined over the fixed 6-symbol alphabet; an unknown byte
+    # would alias to the endmarker and corrupt every structure downstream
     bad = ~np.isin(rlbwt.syms, NUC)
     if bad.any():
         vals = sorted(set(int(b) for b in rlbwt.syms[bad]))[:10]
@@ -163,37 +165,73 @@ def build_rindex_from_sa(rlbwt: RLBWT, seq_of_row: np.ndarray,
     n = int(run_len.sum())
 
     # per-code totals and exclusive prefix C over the full 6-code space
+    sym = run_sym.astype(np.int64)
     totals = np.zeros(SIGMA, dtype=np.int64)
-    np.add.at(totals, run_sym.astype(np.int64), run_len)
+    np.add.at(totals, sym, run_len)
     C = np.zeros(SIGMA + 1, dtype=np.int64)
     np.cumsum(totals, out=C[1:])
 
     # per-run cumulative occ before the run head
     cum = np.zeros((r, SIGMA), dtype=np.int64)
     contrib = np.zeros((r, SIGMA), dtype=np.int64)
-    contrib[np.arange(r), run_sym.astype(np.int64)] = run_len
+    contrib[np.arange(r), sym] = run_len
     np.cumsum(contrib[:-1], axis=0, out=cum[1:])
 
     n_seq = int(totals[0])
     if n_seq == 0:
         raise ValueError("BWT contains no endmarkers")
+    zeros = np.zeros(r, dtype=np.int64)
+    return RIndex(run_sym=run_sym, run_start=run_start, run_len=run_len,
+                  cum=cum, C=C, n=n, n_seq=n_seq, max_len=1, samples=zeros,
+                  last_sorted=zeros, last_to_run=zeros), sym
 
+
+def _set_tails(idx: RIndex, tail_packed: np.ndarray) -> None:
+    """last_sorted / last_to_run from the packed text position of every run
+    tail."""
+    order = np.argsort(tail_packed, kind="stable")
+    idx.last_sorted = tail_packed[order]
+    idx.last_to_run = order.astype(np.int64)
+
+
+def build_rindex(rlbwt: RLBWT) -> RIndex:
+    """Construct the r-index from a run-length BWT by the run-length-bounded
+    native psi walk (src/cpp/psi_walk.cpp): O(r) memory, the samples taken
+    at run heads and tails during the walk, positions from the distance
+    flip (a row's suffix starts seq_len - 1 - t into its sequence, t the
+    walk's step); the reference's per-sequence psi walk
+    (r-index.cpp:1025-1094). A failed native build raises."""
+    from .. import native
+
+    idx, sym = _rindex_head(rlbwt)
+    r = idx.n_runs
+    psi_base = idx.C[sym] + idx.cum[np.arange(r), sym]
+    h_seq, h_t, t_seq, t_t, seq_len = native.psi_walk_native(
+        idx.run_start, psi_base, idx.run_sym == 0, idx.n, idx.n_seq)
+    idx.max_len = max_len = int(seq_len.max())
+    idx.samples = h_seq * max_len + (seq_len[h_seq] - 1 - h_t)
+    _set_tails(idx, t_seq * max_len + (seq_len[t_seq] - 1 - t_t))
+    return idx
+
+
+def build_rindex_from_sa(rlbwt: RLBWT, seq_of_row: np.ndarray,
+                         pos_of_row: np.ndarray, seq_lengths: np.ndarray,
+                         keep_sa: bool = False) -> RIndex:
+    """Construct the r-index from a run-length BWT and its suffix array
+    (per BWT row: sequence id and suffix start offset; per sequence: length
+    incl. endmarker)."""
+    idx, _ = _rindex_head(rlbwt)
     # the caller's dtype is kept (the native SA-IS hands int32 below 2^31);
     # packing upcasts on the r-sized slice
     seq_of_row, pos_of_row = np.asarray(seq_of_row), np.asarray(pos_of_row)
     seq_len = np.asarray(seq_lengths, np.int64)
-    max_len = int(seq_len.max())
+    idx.max_len = max_len = int(seq_len.max())
 
     def packed_at(rows):
         return seq_of_row[rows].astype(np.int64) * max_len + pos_of_row[rows]
 
-    tail_packed = packed_at(run_start + run_len - 1)
-    order = np.argsort(tail_packed, kind="stable")
-    idx = RIndex(
-        run_sym=run_sym, run_start=run_start, run_len=run_len, cum=cum,
-        C=C, n=n, n_seq=n_seq, max_len=max_len,
-        samples=packed_at(run_start), last_sorted=tail_packed[order],
-        last_to_run=order.astype(np.int64))
+    idx.samples = packed_at(idx.run_start)
+    _set_tails(idx, packed_at(idx.run_start + idx.run_len - 1))
     if keep_sa:
         idx.sa_seq, idx.sa_pos, idx.seq_lengths = seq_of_row, pos_of_row, seq_len
     return idx

@@ -10,7 +10,8 @@ feature flags (the library is built with -march=native).
 
 The native engine is the exact host reference of the kernels (find_mems,
 query_tags, count), the command line's formatter, the read-window pass of
-serving, and the BWT and suffix-array builds of the synthetic index.
+serving, the BWT and suffix-array builds of the synthetic index (and the
+reference of the card's BWT build), and the psi walk of build-rindex.
 """
 
 from __future__ import annotations
@@ -302,12 +303,15 @@ def build_bwt_native(lines: list[bytes]):
     return bwt, da, sa_pos, seq_lens + 1
 
 
-def psi_walk_sa_native(run_start: np.ndarray, psi_base: np.ndarray,
-                       is_end: np.ndarray, n: int, n_seq: int,
-                       n_threads: int = 0):
-    """Run-length-bounded psi walk over the whole BWT (src/cpp/psi_walk.cpp):
-    (seq_len [n_seq] incl. endmarker, sa_seq [n], sa_t [n]), the lane and
-    step of every BWT row."""
+def psi_walk_native(run_start: np.ndarray, psi_base: np.ndarray,
+                    is_end: np.ndarray, n: int, n_seq: int,
+                    n_threads: int = 0, full_sa: bool = False):
+    """Run-length-bounded psi walk (src/cpp/psi_walk.cpp), O(r) memory: the
+    lane (sequence) and step of every run head and tail, and each sequence's
+    length incl. endmarker: (head_seq, head_t, tail_seq, tail_t, seq_len).
+    With full_sa, also (sa_seq [n], sa_t [n]), the lane and step of every
+    BWT row. n_threads partitions the lanes over OpenMP threads (0 = the
+    OpenMP default)."""
     lib = get_lib()
     run_start = np.ascontiguousarray(run_start, np.int64)
     psi_base = np.ascontiguousarray(psi_base, np.int64)
@@ -315,18 +319,27 @@ def psi_walk_sa_native(run_start: np.ndarray, psi_base: np.ndarray,
     r = run_start.size
     heads = [np.zeros(r, np.int64) for _ in range(4)]
     seq_len = np.zeros(n_seq, np.int64)
-    sa_seq = np.zeros(n, np.int64)
-    sa_t = np.zeros(n, np.int64)
+    sa = [np.zeros(n if full_sa else 0, np.int64) for _ in range(2)]
     lib.panindex_psi_walk_v2(
         _ptr(run_start, ctypes.c_int64), _ptr(psi_base, ctypes.c_int64),
         _ptr(is_end, ctypes.c_uint8),
         ctypes.c_int64(r), ctypes.c_int64(n), ctypes.c_int64(n_seq),
         *(_ptr(h, ctypes.c_int64) for h in heads),
         _ptr(seq_len, ctypes.c_int64), ctypes.c_int32(n_threads),
-        _ptr(sa_seq, ctypes.c_int64), _ptr(sa_t, ctypes.c_int64),
-        ctypes.c_int64(0), ctypes.c_int64(n),
+        *((_ptr(a, ctypes.c_int64) for a in sa) if full_sa else (None, None)),
+        ctypes.c_int64(0), ctypes.c_int64(n if full_sa else 0),
     )
-    return seq_len, sa_seq, sa_t
+    return (*heads, seq_len, *sa) if full_sa else (*heads, seq_len)
+
+
+def psi_walk_sa_native(run_start: np.ndarray, psi_base: np.ndarray,
+                       is_end: np.ndarray, n: int, n_seq: int,
+                       n_threads: int = 0):
+    """The psi walk over the whole BWT: (seq_len [n_seq] incl. endmarker,
+    sa_seq [n], sa_t [n]), the lane and step of every BWT row."""
+    res = psi_walk_native(run_start, psi_base, is_end, n, n_seq, n_threads,
+                          full_sa=True)
+    return res[4], res[5], res[6]
 
 
 # ---- what formats/sdsl.py calls --------------------------------------------

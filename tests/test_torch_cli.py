@@ -155,12 +155,14 @@ def test_entry_point_and_refusals(files, expected, capfd):
             cli.main(mem_args(files))
 
 
-@pytest.mark.parametrize("cmd", ["find-mems", "query-tags", "build-sdict"])
+@pytest.mark.parametrize("cmd", ["find-mems", "query-tags", "build-sdict", "build-bwt"])
 def test_engine_takes_device_only(files, capfd, cmd):
     """--engine parses with its one choice, `device`; the reference's host
     and native engines are the parser's error (exit code 2)."""
     argv = [cmd, str(files / "synth.ri")]
-    if cmd != "build-sdict":
+    if cmd == "build-bwt":
+        argv = [cmd, str(files / "synth.txt"), str(files / "unwritten.rl_bwt")]
+    elif cmd != "build-sdict":
         argv += [str(files / "synth_c.tags"), str(files / "reads.txt")]
         argv += [MIN_LEN, MIN_OCC] if cmd == "find-mems" else []
     for engine in ("host", "native"):
@@ -320,3 +322,111 @@ def test_find_mems_uses_a_prebuilt_dictionary(files, expected, capfd):
     finally:
         sd.build_sparse_dict_device = real
     assert got == want and artifact.stat().st_mtime_ns == stamp
+
+
+@pytest.mark.parametrize("engine", ["native", "device", "host"])
+def test_build_bwt_matches_jax(files, capfd, tmp_path, engine):
+    """build-bwt --device cpu writes the JAX command line's .rl_bwt, byte for
+    byte, under each of its engines, with its stderr summary line; the
+    phases are read, build, write."""
+    text = str(files / "synth.txt")
+    seconds = {}
+    capfd.readouterr()
+    assert jax_cli.main(["build-bwt", text, str(tmp_path / "jax.rl_bwt"),
+                         "--engine", engine]) == 0
+    jax_err = capfd.readouterr().err
+    assert cli.main(["build-bwt", text, str(tmp_path / "port.rl_bwt"), "--device",
+                     "cpu"], seconds) == 0
+    port_err = capfd.readouterr().err
+    assert (tmp_path / "port.rl_bwt").read_bytes() == (tmp_path / "jax.rl_bwt").read_bytes()
+    assert (tmp_path / "port.rl_bwt").read_bytes() == (files / "synth.rl_bwt").read_bytes()
+    assert last_line(port_err) == last_line(jax_err)
+    assert last_line(port_err).startswith("build-bwt: ")
+    assert set(seconds) == {"read", "build", "write"}
+
+
+def test_build_bwt_of_an_empty_text(files, capfd, tmp_path):
+    """An empty text gives the empty file and summary of the JAX command
+    line's default (native) engine."""
+    (tmp_path / "empty.txt").write_bytes(b"\n\n")
+    (jax_rc, jax_err), (port_rc, port_err) = run_both(
+        capfd, ["build-bwt", str(tmp_path / "empty.txt"), str(tmp_path / "jax.rl_bwt")],
+        ["build-bwt", str(tmp_path / "empty.txt"), str(tmp_path / "port.rl_bwt")])
+    assert jax_rc == port_rc == 0 and last_line(port_err) == last_line(jax_err)
+    assert (tmp_path / "port.rl_bwt").read_bytes() == (tmp_path / "jax.rl_bwt").read_bytes()
+
+
+@pytest.mark.parametrize("fmt", ["encoded", "legacy"])
+def test_build_rindex_matches_jax(files, capfdbinary, fmt):
+    """build-rindex prints the JAX command's .ri bytes on stdout, both
+    formats, with its stderr summary line."""
+    argv = ["build-rindex", str(files / "synth.rl_bwt"), "--format", fmt]
+    capfdbinary.readouterr()
+    assert jax_cli.main(argv) == 0
+    sys.stdout.flush()
+    want = capfdbinary.readouterr()
+    seconds = {}
+    assert cli.main(argv, seconds) == 0
+    got = capfdbinary.readouterr()
+    assert got.out == want.out and len(got.out) > 100
+    assert got.err.splitlines()[-1] == want.err.splitlines()[-1]
+    assert got.err.startswith(b"r-index: ")
+    assert set(seconds) == {"read", "build", "write"}
+    if fmt == "encoded":
+        assert got.out == (files / "synth.ri").read_bytes()
+
+
+def test_text_to_index_serves_the_same(files, expected, capfd, tmp_path):
+    """The port's text -> .rl_bwt -> .ri: the .ri is byte-equal to the one
+    that utils/synth's route (native SA-IS, build_rindex_from_sa) makes of
+    the same lines and to the JAX pipeline's, and find-mems on it prints
+    the JAX command line's bytes."""
+    from pangenome_index_tpu_torch import native
+    from pangenome_index_tpu_torch.formats import ri as port_ri
+    from pangenome_index_tpu_torch.formats.rlbwt import rlbwt_from_text
+    from pangenome_index_tpu_torch.models.rindex import build_rindex_from_sa
+
+    want = reference(expected, capfd, files, "find-mems")
+    assert cli.main(["build-bwt", str(files / "synth.txt"), str(tmp_path / "t.rl_bwt"),
+                     "--device", "cpu"]) == 0
+    assert cli.main(["build-rindex", str(tmp_path / "t.rl_bwt"), "-o",
+                     str(tmp_path / "t.ri")]) == 0
+    built = (tmp_path / "t.ri").read_bytes()
+    lines = [l for l in (files / "synth.txt").read_bytes().split(b"\n") if l]
+    b, da, sa_pos, seq_lengths = native.build_bwt_native(lines)
+    synth_ri = port_ri.serialize_encoded(build_rindex_from_sa(
+        rlbwt_from_text(b.tobytes()), da, sa_pos, seq_lengths))
+    assert built == synth_ri == (files / "synth.ri").read_bytes()
+    argv = mem_args(files)
+    argv[1] = str(tmp_path / "t.ri")
+    got, _ = port_run(capfd, argv)
+    assert got == want
+
+
+@pytest.mark.parametrize("case", ["missing-text", "missing-rl_bwt", "byte-outside"])
+def test_build_errors_are_panidx_errors(files, capfd, tmp_path, case):
+    """A missing text or .rl_bwt, and an .rl_bwt holding a byte outside
+    {\\n,A,C,G,N,T}: the JAX command line's stderr line, exit code 1."""
+    gone = str(tmp_path / "nowhere" / "missing")
+    if case == "missing-text":
+        jax_argv = port_argv = ["build-bwt", gone, str(tmp_path / "x.rl_bwt")]
+        port_argv = [*port_argv, "--device", "cpu"]
+    else:
+        path = gone
+        if case == "byte-outside":
+            path = str(tmp_path / "bad.rl_bwt")
+            data = bytearray((files / "synth.rl_bwt").read_bytes())
+            rec = int(np.frombuffer(bytes(data[:16]), np.uint64).sum())
+            data[16 + 3 * rec] = ord("X")  # the fourth run's symbol byte
+            open(path, "wb").write(bytes(data))
+        jax_argv = port_argv = ["build-rindex", path, "-o", str(tmp_path / "x.ri")]
+    capfd.readouterr()
+    assert jax_cli.main(jax_argv) == 1
+    jax_err = capfd.readouterr().err
+    assert cli.main(port_argv) == 1
+    port_err = capfd.readouterr().err
+    assert last_line(port_err) == last_line(jax_err)
+    assert last_line(port_err).startswith("panidx: ")
+    assert "Traceback" not in port_err
+    if case == "byte-outside":
+        assert "outside" in port_err

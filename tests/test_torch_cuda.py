@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from pangenome_index_tpu_torch.ops import (count, dense_rank, fmd, gather_probe,
+from pangenome_index_tpu_torch import native
+from pangenome_index_tpu_torch.ops import (bwt, count, dense_rank, fmd, gather_probe,
                                            locate, mems, rank, sparsedict, tagquery)
 from pangenome_index_tpu_torch.ops.mertable import build_mer_table, read_mer_keys_fast
 from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict, read_windows_fast
@@ -542,3 +543,66 @@ def test_tag_kernels_refuse_tables_without_the_tree(dev, index):
                  lambda: tagquery.query_mem_tags(bare, z[None, :], z[None, :], z[:1], 8)):
         with pytest.raises(ValueError, match="search tree"):
             call()
+
+
+def bwt_lines(case):
+    """Line sets of the BWT kernels' cases, from seeds."""
+    rng = np.random.default_rng(41)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    if case == "one-char":  # n = 2
+        return [b"A"]
+    if case == "below-a-block":
+        return [rng.choice(acgt, n).tobytes() for n in (1, 30, 2, 60)]
+    if case == "ragged":  # n = 3 tiles of 4096 + 17
+        return synth_reads([rng.choice(acgt, 5000).tobytes()], 5, 2460, 0.05, seed=3)
+    if case == "past-255":  # 300 separators: symbol keys of 9 bits
+        return [rng.choice(acgt, int(n)).tobytes() for n in rng.integers(1, 13, 300)]
+    if case == "identical":
+        return [rng.choice(acgt, 1000).tobytes()] * 4
+    return build_synth_index(100_000, 3, seed=5)[1]  # "many-tiles": 300003
+
+
+@pytest.mark.parametrize("case", ["one-char", "below-a-block", "ragged", "past-255",
+                                  "identical", "many-tiles"])
+def test_bwt_kernels(dev, case):
+    """Every round's sort (keys and payload) and rerank (ranks and largest)
+    and the finish equal their plain versions; the build equals native
+    SA-IS."""
+    lines = bwt_lines(case)
+    keys, starts, _, top = bwt.text_keys(lines)
+    n = keys.size
+    if case == "ragged":
+        assert n == 3 * bwt.TILE + 17
+    keys_d = torch.from_numpy(keys).to(dev)
+    rank, k = keys_d, 0
+    while True:
+        bits = max(1, top.bit_length())
+        got = bwt.bwt_sort_pairs(rank, k, bits)
+        want = bwt.bwt_sort_pairs_plain(rank, k, bits)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), k
+        new, new_top = bwt.bwt_rerank(*got)
+        want = bwt.bwt_rerank_plain(*got)
+        assert torch.equal(new, want[0]) and torch.equal(new_top, want[1]), k
+        rank, top = new, int(new_top)
+        if top == n - 1 or k >= n:
+            break
+        k = 1 if k == 0 else 2 * k
+    starts_d = torch.from_numpy(starts).to(dev)
+    got = bwt.bwt_finish(rank, keys_d, starts_d)
+    want = bwt.bwt_finish_plain(rank, keys_d, starts_d)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for g, w in zip(bwt.bwt_from_lines_device(lines, dev), native.build_bwt_native(lines)):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_bwt_sort_pairs_at_every_shift(dev):
+    """The radix sort on random ranks of every width from 1 to 31 bits, at
+    k = 0 and k > 0 (up to 62-bit keys, 8 passes)."""
+    rng = np.random.default_rng(9)
+    n = 70_001
+    for bits in (1, 4, 8, 9, 16, 25, 31):
+        rank = torch.from_numpy(rng.integers(0, 2**bits, n).astype(np.int32)).to(dev)
+        for k in (0, 1, 12345):
+            got = bwt.bwt_sort_pairs(rank, k, bits)
+            want = bwt.bwt_sort_pairs_plain(rank, k, bits)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (bits, k)

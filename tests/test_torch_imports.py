@@ -33,6 +33,10 @@ assert cli.main(["query-tags", *common, "--device", "cpu",
                  "--tags-format", "bytecode"]) == 0
 assert cli.main(["build-sdict", d + "/x.ri", "-s", "9", "--device", "cpu"]) == 0
 assert np.load(d + "/x.ri.sdict9.npz")["keys"].size > 0
+open(d + "/x.txt", "wb").write(b"\\n".join(lines) + b"\\n")
+assert cli.main(["build-bwt", d + "/x.txt", d + "/x.rl_bwt", "--device", "cpu"]) == 0
+assert cli.main(["build-rindex", d + "/x.rl_bwt", "-o", d + "/y.ri"]) == 0
+assert open(d + "/y.ri", "rb").read() == open(d + "/x.ri", "rb").read()
 
 def foreign(m):
     return (m == "jax" or m.startswith("jax.") or m == "pangenome_index_tpu"
@@ -51,8 +55,9 @@ FOREIGN = re.compile(
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port and its commands (--device cpu), in a fresh
-    interpreter: no jax and no pangenome_index_tpu module gets loaded."""
+    """Every module of the port and its commands (--device cpu; build-rindex
+    has no device), in a fresh interpreter: no jax and no
+    pangenome_index_tpu module gets loaded."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
