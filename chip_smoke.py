@@ -40,10 +40,22 @@ launch count set to 0 just before a path and read just after it:
    element to native SA-IS (whose seconds are printed beside it); each
    kernel against its plain version at the first round (k = 0 and 1) and a
    plateau round (k = 256) and the finish; per round the device time at
-   k = 1 and k = 256 beside torch.sort's on the same keys; the whole build's
-   device time from the profiler and its wall; the build-bwt file
-   byte-equal to the native BWT's .rl_bwt, and build-rindex's .ri
-   byte-equal to the bench index's.
+   k = 1 and k = 256 beside torch.sort's on the same keys; the whole
+   build's kernels' device time (events around each launch) and its wall;
+   the build-bwt file byte-equal to the native BWT's .rl_bwt, and
+   build-rindex's .ri byte-equal to the bench index's;
+8. serve-2g, an index past 2^31 (k_copy_index: every bench line repeated
+   108 times, n = 2,160,000,864; int64 positions over two-level checkpoint
+   rows): serve.prepare/run on all 16384 reads (m=13 seed table, s=19
+   dictionary built on the card), the int64 tag search, locate on 98304
+   intervals, find-mems on all reads and query-tags on 1024 reads on the
+   index's .ri/.tags files. Counts, every buffered slot and every tag count
+   equal the native engine's on the same index; MEMs equal the 1-copy
+   run's with bwt_start and size x108; the commands' stdout equals the host
+   route's; locate equals the host model on 4096 lanes; the dictionary
+   built on the card equals the host build (int64), itself the 1-copy one
+   with intervals x108. Each int64 instantiation is held against its plain
+   version and timed, and reported beside the int32 one.
 
 find-mems also runs on all 16384 reads with --batch-size 0 (chunks of 4096
 reads) and with one launch over them, byte-equal.
@@ -105,6 +117,27 @@ SOURCES = {
     "bwt_sort_pairs": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:34", "build-bwt"),
     "bwt_rerank": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:27", "build-bwt"),
     "bwt_finish": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:56", "build-bwt"),
+    # the int64 instantiations, on the serve-2g path (n >= 2^31; the rank
+    # step of the chain kernels is the two-level ops/rank.py:79,98): the
+    # fourth field is the wrapper whose launches they are
+    "extend_int64": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve-2g",
+                     "extend"),
+    "resolve_seeds_int64": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:87",
+                            "serve-2g", "resolve_seeds"),
+    "find_mems_int64": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43", "serve-2g",
+                        "find_mems"),
+    "query_mem_tags_int64": ("csrc/tagquery.cu", "pangenome_index_tpu/ops/tagquery.py:71",
+                             "serve-2g", "query_mem_tags"),
+    "query_tags_batch_int64": ("csrc/tagbatch.cu", "pangenome_index_tpu/ops/tagquery.py:32",
+                               "serve-2g", "query_tags_batch"),
+    "tag_upper_bound_int64": ("csrc/tagsearch.cu", "pangenome_index_tpu/ops/tagquery.py:42",
+                              "serve-2g", "tag_upper_bound"),
+    "count_int64": ("csrc/count.cu", "pangenome_index_tpu/ops/rank.py:196", "serve-2g",
+                    "count"),
+    "sdict_level_int64": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:100",
+                          "serve-2g", "sdict_level"),
+    "locate_batch_int64": ("csrc/locate.cu", "pangenome_index_tpu/ops/locate.py:29",
+                           "serve-2g", "locate_batch"),
 }
 #: published peaks of one H100 SXM: device memory bytes/s, and float32
 #: operations/s outside the tensor cores (taken for the kernels' 32-bit
@@ -124,6 +157,8 @@ PATH_KERNELS = {
     "build-sdict": ("sdict_level",),
     "locate": ("locate_batch",),
     "build-bwt": ("bwt_sort_pairs", "bwt_rerank", "bwt_finish"),
+    "serve-2g": ("extend", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
+                 "tag_upper_bound", "query_tags_batch", "count", "locate_batch"),
 }
 BWT_CHECKED_ROUNDS = (0, 1, 256)  # rounds whose kernels are held against plain
 BWT_TIMED_ROUNDS = (1, 256)       # rounds timed beside torch.sort; 256 is reported
@@ -131,6 +166,58 @@ N_LOCATE_MEMS = 65536    # locate: the first buffered MEM intervals of the servi
 N_LOCATE_RANDOM = 32768  # locate: random intervals, half at run heads, half mid-run
 LOCATE_CAP = 64          # locate: capacity
 N_LOCATE_HOST = 4096     # locate: lanes held against the host model's SA
+K_COPIES = 108           # serve-2g: the k-copy index, n = 108 * 20,000,008 >= 2^31
+MER_M_2G = 13            # serve-2g: the seed table past 2^31 (int64, as the reference caps it)
+N_QT_2G = 1024           # serve-2g: query-tags reads, half exact and half with errors
+
+
+def k_copy_index(idx, tags, k):
+    """The r-index and tag array of the text in which each sequence of
+    `idx` is repeated k times in a row (sequence i becomes the k
+    consecutive sequences i * k .. i * k + k - 1), made from idx's own
+    tables with no BWT build: the serve-2g path's index of n = k * idx.n.
+
+    The copies of a suffix are adjacent in the k-copy suffix order (their
+    strings are equal up to the separators, which order by sequence), so
+    row p of the 1-copy BWT becomes rows k * p .. k * p + k - 1, all of p's
+    symbol: a run keeps its symbol with k times its length, and an
+    endmarker (each its own logical run) becomes k runs of length 1. Run
+    starts, cum and C scale by k (plus j endmarkers before the j-th copy
+    of an endmarker run); the suffix at row k * p + j is copy j of p's, so
+    its packed SA value is (seq * k + j) * max_len + off with (seq, off)
+    those of p: run heads take copy 0 (copy j for an endmarker run), run
+    tails copy k - 1. A tag run keeps its graph position with k times its
+    length (TagArray.from_runs splits the long ones, as the reference's
+    writers do). tests/test_torch_int64.py holds the result against
+    build_rindex of the native BWT of the repeated lines."""
+    import numpy as np
+
+    from pangenome_index_tpu_torch.models.rindex import RIndex
+    from pangenome_index_tpu_torch.models.tagarray import TagArray
+
+    ml = int(idx.max_len)
+    is_end = idx.run_sym == 0
+    reps = np.where(is_end, k, 1)
+    src = np.repeat(np.arange(idx.n_runs), reps)      # the 1-copy run
+    j = np.arange(src.size) - np.repeat(np.cumsum(reps) - reps, reps)
+    run_len = np.where(is_end[src], 1, k * idx.run_len[src])
+    cum = k * idx.cum[src]
+    cum[:, 0] += j
+    seq, off = np.divmod(idx.samples[src], ml)
+    tail_1 = np.empty(idx.n_runs, np.int64)
+    tail_1[idx.last_to_run] = idx.last_sorted
+    tseq, toff = np.divmod(tail_1[src], ml)
+    tails = (tseq * k + np.where(is_end[src], j, k - 1)) * ml + toff
+    order = np.argsort(tails, kind="stable")
+    big = RIndex(run_sym=idx.run_sym[src], run_start=k * idx.run_start[src] + j,
+                 run_len=run_len, cum=cum, C=k * idx.C, n=k * int(idx.n),
+                 n_seq=k * int(idx.n_seq), max_len=ml,
+                 samples=(seq * k + j) * ml + off, last_sorted=tails[order],
+                 last_to_run=order.astype(np.int64))
+    big_tags = None
+    if tags is not None:
+        big_tags = TagArray.from_runs(tags.pos_enc, tags.run_lengths() * k)
+    return big, big_tags
 
 
 def log(msg):
@@ -165,7 +252,7 @@ def main() -> int:
                                                tagquery)
     from pangenome_index_tpu_torch.mems_probe import (
         BASE_LEN, MEM_CAP, MER_M, MIN_LEN, MIN_OCC, N_HAPS, N_READS, READ_LEN,
-        SDICT_S, TAIL_KERNEL, bench_workload, device_ms, trace_head, trace_tail)
+        SDICT_S, TAIL_KERNEL, bench_workload, launch_ms, trace_head, trace_tail)
     from pangenome_index_tpu_torch.ops.tables import rindex_to_device, tags_to_device
     from pangenome_index_tpu_torch.serve import prepare, run
     from pangenome_index_tpu_torch.utils import synth
@@ -333,34 +420,39 @@ def main() -> int:
           "m=8 seed table built with K2 differs from the host build")
     log(f"m=8 seed table through K2: identical to the host build "
         f"({time.perf_counter() - t0:.1f} s)")
-    # the m=14 table of the serving path: the device time of the whole
-    # function (its 14 K2 launches and the torch passes that tile the state
-    # between them) against what it must move: each level's 4^(v+1) lanes
-    # read k, kp, s, code (16 bytes) and their two 64-byte rank rows (the
-    # table at most once a level) and write 12 bytes; the chain is one
-    # gather a level
-    for _ in range(3):  # a trace that left launches out is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            trace_head()
-            mer14 = mertable.build_mer_table_device(t_ck, MER_M)
-            trace_tail()
-        evs = [ev for ev in prof.key_averages()
-               if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key]
-        k2 = [ev for ev in evs if "extend_kernel" in ev.key]
-        if sum(ev.count for ev in k2) == MER_M:
-            break
-        del mer14
-    check(sum(ev.count for ev in k2) == MER_M,
-          f"the trace of the m={MER_M} seed table holds {sum(ev.count for ev in k2)} K2 launches")
-    mer_ms = sum(ev.device_time_total for ev in evs) / 1e3
-    mer_k2 = sum(ev.device_time_total for ev in k2) / 1e3
-    mer_bytes = sum(4 ** (v + 1) * (16 + 12) + gathered(4 ** (v + 1) * 128, t_ck.ckpt_planes)
-                    for v in range(MER_M))
-    log(f"m={MER_M} seed table ({mer14.shape[0]} rows): device {mer_ms:.4f} ms "
-        f"(K2 {mer_k2:.4f}, the torch passes {mer_ms - mer_k2:.4f}); bound by bytes "
-        f"{mer_bytes / PEAK_BYTES_S * 1e3:.5f} ms ({mer_bytes} bytes), chain {MER_M} "
-        f"gathers {card}")
-    del mer14
+    def once_ms(fn):
+        """(fn()'s result, its milliseconds by events around the one call)."""
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        a.record()
+        out = fn()
+        b.record()
+        torch.cuda.synchronize()
+        return out, a.elapsed_time(b)
+
+    def seed_table_ms(t, m):
+        """The device time of the whole m-mer table build through tables t
+        (its m K2 launches and the torch passes that tile the state between
+        them), by CUDA-graph replay of the build, and K2's share, by events
+        around each launch, against what it must move: each level's
+        4^(v+1) lanes read k, kp, s (3 positions) and the code and their
+        two 64-byte rank rows (the table at most once a level) and write 3
+        positions; the chain is one gather a level."""
+        item = t.C.element_size()
+        ms = gather_probe.time_ms(lambda: mertable.build_mer_table_device(t, m), reps=1)
+        spent, table = launch_ms(lambda: mertable.build_mer_table_device(t, m),
+                                 "pgt_extend", reps=1)
+        k2_ms, k2_launches = spent["pgt_extend"]
+        check(k2_launches == m, f"the m={m} seed table made {k2_launches} K2 launches")
+        nbytes = sum(4 ** (v + 1) * (6 * item + 4) + gathered(4 ** (v + 1) * 128, t.ckpt_planes)
+                     for v in range(m))
+        log(f"m={m} seed table ({table.shape[0]} rows, {table.dtype}): device {ms:.4f} ms "
+            f"(CUDA-graph replay of the build; K2 {k2_ms:.4f} by events around its {m} "
+            f"launches, the torch passes {ms - k2_ms:.4f}); bound by bytes "
+            f"{nbytes / PEAK_BYTES_S * 1e3:.5f} ms ({nbytes} bytes), chain {m} "
+            f"gathers {card}")
+
+    seed_table_ms(t_ck, MER_M)
 
     # --- 3b. the long-seed dictionary on the card --------------------------
     phase("dictionary")
@@ -383,95 +475,77 @@ def main() -> int:
         f"build, keys and vals (max difference 0); host build {host_s:.4f} s {card}")
     del dk, dv, hk_d, hv_d
 
-    def once_ms(fn):
-        """(fn()'s result, its milliseconds by events around the one call)."""
-        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        torch.cuda.synchronize()
-        a.record()
-        out = fn()
-        b.record()
-        torch.cuda.synchronize()
-        return out, a.elapsed_time(b)
+    def hold_levels(t, name, host_keys, host_vals):
+        """Every level of an s=SDICT_S build through tables t, the kernel
+        against its plain version; the level loop's dictionary against the
+        host build; every level's device time by CUDA-graph replay, summed;
+        recorded as kernels[name]. What a level must move: an
+        entry (8 bytes of key, 3 positions), its one or two 64-byte rank
+        rows (the table at most once a level), a key and 3 positions a
+        kept child (the sum of the bounds of the two kernels a level had
+        before, expand and scatter: expand was given the interval and the
+        rows, scatter the key and the children written)."""
+        item = t.C.element_size()
+        sd = dict(nbytes=0, ops=0, ms=0.0, plain_ms=0.0, err=0)
+        keys_l = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+        vals_l = torch.tensor([[[0, 0, t.n]]], dtype=t.pos_dtype, device=dev)
+        counts_l = [1]
 
-    # every level of the build, the kernel against its plain version, and
-    # what the level must move: an entry (8 bytes of key, 12 of k, kp,
-    # size), its one or two 64-byte rank rows (the table at most once a
-    # level), 20 bytes a kept child (the sum of the bounds of the two
-    # kernels a level had before, expand and scatter: expand was given the
-    # interval and the rows, scatter the key and the children written)
-    sd = dict(nbytes=0, ops=0, plain_ms=0.0, err=0)
-    keys_l = torch.zeros((1, 1), dtype=torch.int64, device=dev)
-    vals_l = torch.tensor([[[0, 0, idx.n]]], dtype=torch.int32, device=dev)
-    counts_l = [1]
+        def level_out(res):
+            """A level's result as compared: the regions packed as far as
+            their totals, the block offsets and the totals."""
+            return (*sparsedict.sdict_pack(res[0], res[1], res[3].tolist()), res[2], res[3])
 
-    def level_out(res):
-        """A level's result as compared: the regions packed as far as their
-        totals, the block offsets and the totals."""
-        return (*sparsedict.sdict_pack(res[0], res[1], res[3].tolist()), res[2], res[3])
+        for level in range(SDICT_S):
+            entries = sparsedict.sdict_pack(keys_l, vals_l, counts_l)[1]
+            D = entries.shape[0]
+            got = sparsedict.sdict_level(t, keys_l, vals_l, counts_l, 1, level)
+            plain, ms = once_ms(lambda: sparsedict.sdict_level_plain(
+                t, keys_l, vals_l, counts_l, 1, level))
+            sd["err"] = max(sd["err"], max_abs_err(level_out(got), level_out(plain)))
+            sd["plain_ms"] += ms
+            sd["ms"] += gather_probe.time_ms(
+                lambda: sparsedict.sdict_level(t, keys_l, vals_l, counts_l, 1, level))
+            total = int(got[3].sum())
+            rows = D + int(((entries[:, 0] >> 6) != ((entries[:, 0] + entries[:, 2]) >> 6)).sum())
+            sd["nbytes"] += (D * (8 + 3 * item) + gathered(rows * 64, t.ckpt_planes)
+                             + total * (8 + 3 * item))
+            sd["ops"] += D * 460
+            log(f"  level {level}: {D} entries, {rows} rank rows, {total} children kept "
+                f"({', '.join(str(c) for c in got[3].tolist())} by branch)")
+            keys_l, vals_l, counts_l = got[0], got[1], got[3].tolist()
+            del got, plain, entries
+        check(all(torch.equal(a, T(b).to(a.dtype)) for a, b in zip(
+            sparsedict.sdict_pack(keys_l, vals_l, counts_l), (host_keys, host_vals))),
+              f"{name}: the level loop's dictionary differs from the host build")
+        check(sd["err"] == 0, f"{name}: kernel differs from its plain version by {sd['err']}")
+        del keys_l, vals_l
+        # one whole build: its level launches, and its time by events
+        # around the call
+        made = sparsedict.sdict_level.launches
+        _, span = once_ms(lambda: sparsedict.build_sparse_dict_device(t.n, t, SDICT_S))
+        made = sparsedict.sdict_level.launches - made
+        check(made == SDICT_S, f"an s={SDICT_S} build made {made} level launches")
+        t_bytes, t_ops = sd["nbytes"] / PEAK_BYTES_S * 1e3, sd["ops"] / PEAK_OPS_S * 1e3
+        kernels[name] = dict(
+            name=name, route="cuda",
+            source="pangenome_index_tpu_torch/" + SOURCES[name][0],
+            replaces=SOURCES[name][1], max_abs_err=sd["err"], ms=sd["ms"],
+            plain_ms=sd["plain_ms"], bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=None, chain_steps=None)
+        log(f"{name}: identical to its plain version at all {SDICT_S} levels; "
+            f"{sd['ms']:.4f} ms (device, the {SDICT_S} levels of a whole build, each the "
+            f"zeroing of its state and the kernel by CUDA-graph replay) vs plain "
+            f"{sd['plain_ms']:.4f} ms, bound {kernels[name]['bound_ms']:.5f} ms by "
+            f"{kernels[name]['bound_by']} ({sd['nbytes']} bytes, {sd['ops']} "
+            f"operations) {card}")
+        log(f"a whole s={SDICT_S} build on the card: {span:.4f} ms by events around the "
+            f"call, of which the level launches {sd['ms']:.4f}, the rest (the host's "
+            f"reads of each level's totals, the last level's pack) {span - sd['ms']:.4f} "
+            f"{card}")
 
-    for level in range(SDICT_S):
-        entries = sparsedict.sdict_pack(keys_l, vals_l, counts_l)[1]
-        D = entries.shape[0]
-        got = sparsedict.sdict_level(t_ck, keys_l, vals_l, counts_l, 1, level)
-        plain, ms = once_ms(lambda: sparsedict.sdict_level_plain(
-            t_ck, keys_l, vals_l, counts_l, 1, level))
-        sd["err"] = max(sd["err"], max_abs_err(level_out(got), level_out(plain)))
-        sd["plain_ms"] += ms
-        total = int(got[3].sum())
-        rows = D + int(((entries[:, 0] >> 6) != ((entries[:, 0] + entries[:, 2]) >> 6)).sum())
-        sd["nbytes"] += D * 20 + gathered(rows * 64, t_ck.ckpt_planes) + total * 20
-        sd["ops"] += D * 460
-        log(f"  level {level}: {D} entries, {rows} rank rows, {total} children kept "
-            f"({', '.join(str(c) for c in got[3].tolist())} by branch)")
-        keys_l, vals_l, counts_l = got[0], got[1], got[3].tolist()
-        del got, plain, entries
-    check(all(torch.equal(a, T(b)) for a, b in zip(
-        sparsedict.sdict_pack(keys_l, vals_l, counts_l), (host_keys, host_vals))),
-          "the level loop's dictionary differs from the host build")
-    check(sd["err"] == 0, f"sdict_level: kernel differs from its plain version by {sd['err']}")
-    # device time of one whole build by kernel, from the profiler
-    for _ in range(3):  # a trace that left launches out is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            trace_head()
-            sparsedict.build_sparse_dict_device(idx, t_ck, SDICT_S)
-            trace_tail()
-        level_launches = sum(ev.count for ev in prof.key_averages()
-                             if "sdict_level_kernel" in ev.key)
-        if level_launches == SDICT_S:
-            break
-    check(level_launches == SDICT_S,
-          f"the trace of an s={SDICT_S} build holds {level_launches} level launches")
-    by_kernel = {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
-                 if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key}
-
-    def kernel_ms(*names):
-        return sum(ms for key, ms in by_kernel.items() if any(n in key for n in names))
-
-    # the wrapper's work: the kernel and the zeroing of its look-back state
-    level_ms, memset_ms = kernel_ms("sdict_level_kernel"), kernel_ms("Memset")
-    sd["ms"] = level_ms + memset_ms
-    check(level_ms > 0, "the profiler saw no sdict_level kernel")
-    t_bytes, t_ops = sd["nbytes"] / PEAK_BYTES_S * 1e3, sd["ops"] / PEAK_OPS_S * 1e3
-    kernels["sdict_level"] = dict(
-        name="sdict_level", route="cuda",
-        source="pangenome_index_tpu_torch/" + SOURCES["sdict_level"][0],
-        replaces=SOURCES["sdict_level"][1], max_abs_err=sd["err"], ms=sd["ms"],
-        plain_ms=sd["plain_ms"], bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, chain_steps=None)
-    log(f"sdict_level: identical to its plain version at all {SDICT_S} levels; "
-        f"{sd['ms']:.4f} ms (device, a whole s={SDICT_S} build: the kernel "
-        f"{level_ms:.4f}, the zeroing of its state {memset_ms:.4f}) vs plain "
-        f"{sd['plain_ms']:.4f} ms, bound {kernels['sdict_level']['bound_ms']:.5f} ms by "
-        f"{kernels['sdict_level']['bound_by']} ({sd['nbytes']} bytes, {sd['ops']} "
-        f"operations) {card}")
-    busy = sum(by_kernel.values())
-    log(f"a whole s={SDICT_S} build on the card: device busy {busy:.4f} ms, of which "
-        f"the level kernel {level_ms:.4f}, state zeroing {memset_ms:.4f}, the rest "
-        f"(the last level's pack, the small copies) {busy - sd['ms']:.4f} {card}")
-    for key, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1]):
-        log(f"  {ms:.4f} ms  {key[:90]}")
-    del keys_l, vals_l
+    hold_levels(t_ck, "sdict_level", host_keys, host_vals)
     # s=31 (a key's last two bits) and min_keep=2 on a small index, both providers
     sidx, _ = synth.build_synth_index(*SMALL_INDEX[:2], seed=SMALL_INDEX[2])
     for dense in (False, True):
@@ -628,7 +702,16 @@ def main() -> int:
                        + int(l_steps.sum()) * (tail_lines * 64 + 12), *loc_tables),
             ops=(len(l_start) * run_lines + int(l_steps.sum()) * tail_lines) * 32,
             chain=run_lines + 2 + int(l_steps.max()) * (tail_lines + 2))
-    del located, ls, lz
+    # the int64 instantiation on the same index and intervals (int64
+    # tables over two-level rows of 2^24 positions: two superblocks), so
+    # that its cost is seen apart from the k-copy index's larger tables
+    t64 = rindex_to_device(idx, dev, checkpoint=True, super_shift=24, dtype=torch.int64)
+    ls64, lz64 = ls.long(), lz.long()
+    check(max_abs_err(locate.locate_batch(t64, ls64, lz64, LOCATE_CAP), located) == 0,
+          "locate through int64 tables differs from the int32 run")
+    same_index = {"locate_batch": (kernels["locate_batch"]["ms"], gather_probe.time_ms(
+        lambda: locate.locate_batch(t64, ls64, lz64, LOCATE_CAP)))}
+    del located, ls, lz, ls64, lz64
 
     # --- 2 (cont.). K3 and K4 against their plain versions ----------------
     phase("K3, K4 and the tag search")
@@ -646,6 +729,15 @@ def main() -> int:
         res, stats = fn(t, c, n, MIN_LEN, MIN_OCC, capacity=MEM_CAP,
                         with_stats=True, **seed_kw, **kw)
         return (*res, stats["steps"])
+
+    def k3_ms_of(fn):
+        """(K3's device ms, resolve_seeds' device ms, fn()'s result): the mean
+        of three calls of fn(), each launching both once, by events around
+        each launch."""
+        spent, out = launch_ms(fn, "pgt_find_mems", "pgt_resolve_seeds")
+        check(all(n == 1 for _, n in spent.values()),
+              f"a K3 call launched {spent} (ms, launches a call)")
+        return spent["pgt_find_mems"][0], spent["pgt_resolve_seeds"][0], out
 
     def k3_bytes(steps):
         """What K3 must move for reads that take `steps` extension steps:
@@ -719,13 +811,12 @@ def main() -> int:
             + gathered(n_slots * TAG_CAP * 8, tt.pos_enc, tt.bwt_start),
             ops=n_slots * (2 * levels * 32 + TAG_CAP * TAG_CAP), chain=levels + 1)
 
-    # K3 on the whole batch: the kernel's own device time (the
-    # profiler's) and its time per dependent extension step (set by the
-    # longest read's chain)
+    # K3 on the whole batch: the kernel's own device time (by events
+    # around its launch) and its time per dependent extension step (set by
+    # the longest read's chain)
     bt = batches["checkpoint"]
     whole = k3_inputs(bt, slice(None))
-    (k3_ms, seeds_ms), k3_out = device_ms(
-        lambda: k3(mems.find_mems, whole), "find_mems_kernel", "resolve_seeds_kernel")
+    k3_ms, seeds_ms, k3_out = k3_ms_of(lambda: k3(mems.find_mems, whole))
     k3_steps = k3_out[-1]
     k3_us_step = k3_ms * 1e3 / int(k3_steps.max())
     k3_bound = k3_bytes(k3_steps) / PEAK_BYTES_S * 1e3
@@ -735,23 +826,48 @@ def main() -> int:
         f"per dependent step; bound by bytes {k3_bound:.5f} ms; the "
         f"seed-resolving pass before it {seeds_ms:.4f} ms (device) {card}")
 
+    # K3's int64 instantiation on the same index, reads and seeds
+    kw64 = {k: (v.long() if k in ("mer_table", "sdict_vals") else v)
+            for k, v in bt.seed_kw.items()}
+    whole64 = (t64, whole[1], whole[2], kw64)
+    k3_ms64, _, k3_out64 = k3_ms_of(lambda: k3(mems.find_mems, whole64))
+    check(max_abs_err(k3_out64, k3_out) == 0, "K3 through int64 tables differs from int32")
+    same_index["find_mems"] = (k3_ms, k3_ms64)
+    del kw64, whole64, k3_out64
+
     # where serve.run's device time goes: a profiler trace of 5 runs (device
-    # activity only: kernels and copies, each counted once)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        trace_head()
-        t0 = time.perf_counter()
-        for _ in range(5):
-            run(bt, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP,
-                tag_capacity=TAG_CAP)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        trace_tail()
-    evs = sorted((ev for ev in prof.key_averages()
-                  if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key),
-                 key=lambda ev: -ev.device_time_total)
-    dev_ms = sum(ev.device_time_total for ev in evs) / 1e3
-    log(f"serve.run x5 under the profiler: wall {wall_ms:.3f} ms, device busy "
-        f"{dev_ms:.3f} ms (share {dev_ms / wall_ms:.4f}) {card}")
+    # activity only: kernels and copies, each counted once). The profiler
+    # loses kernel records on the card (mems_probe.launch_ms), so a trace
+    # counts only where it holds every K3 and resolve_seeds launch that the
+    # wrappers made; three traces are taken at most
+    for _ in range(3):
+        made = mems.find_mems.launches, mems.resolve_seeds.launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trace_head()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                run(bt, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP,
+                    tag_capacity=TAG_CAP)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            trace_tail()
+        made = mems.find_mems.launches - made[0], mems.resolve_seeds.launches - made[1]
+        evs = sorted((ev for ev in prof.key_averages()
+                      if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key),
+                     key=lambda ev: -ev.device_time_total)
+        seen = tuple(sum(ev.count for ev in evs if name in ev.key)
+                     for name in ("find_mems_kernel", "resolve_seeds_kernel"))
+        if seen == made:
+            break
+    if seen != made:
+        log(f"serve.run x5 under the profiler: device busy share not measured: each of "
+            f"3 traces lost kernel records (the last held {seen} of {made} K3 and "
+            f"resolve_seeds launches) {card}")
+        evs = []
+    else:
+        dev_ms = sum(ev.device_time_total for ev in evs) / 1e3
+        log(f"serve.run x5 under the profiler: wall {wall_ms:.3f} ms, device busy "
+            f"{dev_ms:.3f} ms (share {dev_ms / wall_ms:.4f}) {card}")
     for ev in evs[:10]:
         log(f"  {ev.device_time_total / 1e3 / dev_ms:7.2%} "
             f"{ev.device_time_total / 5e3:.4f} ms/run x{ev.count // 5}  {ev.key[:90]}")
@@ -830,20 +946,23 @@ def main() -> int:
         check(rc == 0, f"port {argv[0]} exited {rc}")
         return seconds
 
-    def host_find_mems(rs, out):
+    def host_find_mems(rs, out, index=None, tag_array=None):
         """find-mems by the port's host route: the native engine's MEMs (its
         buffers hold every MEM of a read here), its tag positions, and its
-        formatter, to `out`."""
+        formatter, to `out` (the bench index and tags unless others are
+        given)."""
+        index = idx if index is None else index
+        tag_array = tags if tag_array is None else tag_array
         t0 = time.perf_counter()
         c, n = port_cli.pack_reads(rs)
-        hs, he, hb, hz, hc = native.find_mems_native(idx, c, n, MIN_LEN, MIN_OCC,
+        hs, he, hb, hz, hc = native.find_mems_native(index, c, n, MIN_LEN, MIN_OCC,
                                                      capacity=1024)
         check(int(hc.max()) <= 1024, "a read has more than 1024 MEMs")
         hc = hc.astype(np.int64)
         hi = np.repeat(np.arange(len(rs)), hc)
         hw = np.arange(len(hi)) - np.repeat(np.cumsum(hc) - hc, hc)
         hq = hb[hi, hw]
-        tpos, tuniq, _ = native.query_tags_native(tags, hq, hq + hz[hi, hw] - 1,
+        tpos, tuniq, _ = native.query_tags_native(tag_array, hq, hq + hz[hi, hw] - 1,
                                                   capacity=256)
         check(int(tuniq.max()) <= 256, "a MEM has more than 256 tag positions")
         with open(out, "wb") as fh:
@@ -852,16 +971,19 @@ def main() -> int:
             fh.write(b"\n")
         return time.perf_counter() - t0
 
-    def host_query_tags(rs, out):
+    def host_query_tags(rs, out, index=None, tag_array=None):
         """query-tags by the port's host route: the native engine's backward
-        search, then the host tag array's query per read, to `out`."""
+        search, then the host tag array's query per read, to `out` (the
+        bench index and tags unless others are given)."""
+        index = idx if index is None else index
+        tag_array = tags if tag_array is None else tag_array
         t0 = time.perf_counter()
-        first, second = native.count_native(idx, *port_cli.pack_reads(rs))
+        first, second = native.count_native(index, *port_cli.pack_reads(rs))
         with open(out, "w") as fh:
             for i, read in enumerate(rs):
                 if first[i] > second[i]:
                     continue
-                vals, n_runs = tags.query(int(first[i]), int(second[i]))
+                vals, n_runs = tag_array.query(int(first[i]), int(second[i]))
                 fh.write(f"Number of unique positions: {len(vals)}\n"
                          + "".join(f"{v}, " for v in vals)
                          + f"\nread_index={i}\tlen={len(read)}\tbwt_start={first[i]}"
@@ -1015,6 +1137,15 @@ def main() -> int:
     t_dn = rindex_to_device(idx, dev, dense=True)
     compare("count (dense rank)", lambda: count.count(t_dn, qc, ql),
             lambda: count.count_plain(t_dn, qc, ql), record=False)
+    check(max_abs_err(count.count(t64, qc, ql), found) == 0,
+          "count through int64 tables differs from int32")
+    same_index["count"] = (kernels["count"]["ms"],
+                           gather_probe.time_ms(lambda: count.count(t64, qc, ql)))
+    log("the int64 instantiations on the bench index itself (two-level rows of 2^24 "
+        "positions), identical to the int32 runs: " + ", ".join(
+            f"{name} {b:.4f} ms vs int32 {a:.4f} ms ({b / a:.3f}x)"
+            for name, (a, b) in same_index.items()) + f" (device) {card}")
+    del t64
 
     # --- 10. the index build from text: build-bwt and build-rindex ---------
     phase("BWT build")
@@ -1097,26 +1228,21 @@ def main() -> int:
         log(f"  round k={kk}: {tm['bits']}-bit pair keys, radix passes {tm['passes']}: "
             f"sort {tm['sort']:.4f} ms + rerank {tm['rerank']:.4f} ms (device); "
             f"torch.sort of the same keys {tm['torch_sort']:.4f} ms {card}")
-    # the whole build's device time by kernel (every round's launches)
-    for _ in range(3):  # a trace that left launches out is taken again
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            trace_head()
-            t0 = time.perf_counter()
-            bwt.bwt_from_lines_device(lines, dev)
-            build_wall = time.perf_counter() - t0
-            trace_tail()
-        reranks = sum(ev.count for ev in prof.key_averages() if "rerank_kernel" in ev.key)
-        if reranks == len(ks):
-            break
-    check(reranks == len(ks), f"the trace of a BWT build holds {reranks} of "
-                              f"{len(ks)} rerank launches")
-    by_kernel = {ev.key: (ev.device_time_total / 1e3, ev.count) for ev in prof.key_averages()
-                 if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key}
-    busy = sum(ms for ms, _ in by_kernel.values())
-    log(f"a whole BWT build of {n_text} characters: device busy {busy:.4f} ms in "
+    # the whole build: its wall time, and the device time of each kernel's
+    # launches (every round's) by events around each launch
+    t0 = time.perf_counter()
+    bwt.bwt_from_lines_device(lines, dev)
+    build_wall = time.perf_counter() - t0
+    spent, _ = launch_ms(lambda: bwt.bwt_from_lines_device(lines, dev),
+                         "pgt_bwt_sort_pairs", "pgt_bwt_rerank", "pgt_bwt_finish", reps=1)
+    made = {e[4:]: n for e, (_, n) in spent.items()}
+    check(made == {"bwt_sort_pairs": len(ks), "bwt_rerank": len(ks), "bwt_finish": 1},
+          f"a BWT build of {len(ks)} rounds made the launches {made}")
+    busy = sum(ms for ms, _ in spent.values())
+    log(f"a whole BWT build of {n_text} characters: the kernels {busy:.4f} ms (device) in "
         f"{build_wall:.4f} s wall {card}")
-    for key, (ms, cnt) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"  {ms:.4f} ms x{cnt}  {key[:90]}")
+    for e, (ms, n) in spent.items():
+        log(f"  {ms:.4f} ms x{n:g}  {e[4:]}")
     # bounds at the kernels line's shapes (k = 256): each input and output
     # once (the sort reads rank, the gathered second rank from the same
     # array, and writes keys and payload; the rerank reads both and writes
@@ -1178,8 +1304,298 @@ def main() -> int:
     for path in (text_path, native_rl, port_rl, port_ri):
         os.remove(path)
 
+    # --- 11. serve-2g: an index of n >= 2^31 through the int64 kernels ---
+    # The k-copy index (k_copy_index): the bench index with every line
+    # repeated K_COPIES times, n = 2,160,000,864, built from the bench
+    # index's tables. Real in n and in the n-sized tables (checkpoint rows,
+    # their planes), not in the run-sized ones: r stays ~2.27 M.
+    phase("serve-2g: the k-copy index")
+    t0 = time.perf_counter()
+    big, big_tags = k_copy_index(idx, tags, K_COPIES)
+    check(big.n == K_COPIES * idx.n and big.n >= 2**31, "the k-copy index is not past 2^31")
+    big_ri, big_tp = os.path.join(cli_dir, "big.ri"), os.path.join(cli_dir, "big.tags")
+    for path, data in ((big_ri, ri.serialize_encoded(big)),
+                       (big_tp, tagfmt.write_compressed_bytecode(big_tags))):
+        with open(path, "wb") as fh:
+            fh.write(data)
+    log(f"k-copy index: k={K_COPIES}, n={big.n}, {big.n_runs} runs, {big.n_seq} "
+        f"sequences, {big_tags.n_runs} tag runs; as files {os.path.getsize(big_ri)} + "
+        f"{os.path.getsize(big_tp)} bytes ({time.perf_counter() - t0:.1f} s)")
+
+    # the path: serving, the tag search, locate and both commands, every
+    # kernel in its int64 instantiation; the launches of the comparisons
+    # below do not count
+    phase("serve-2g: serving")
+    port.reset_launches()
+    b2 = prepare(big, big_tags, codes, lens, dev, min_occ=MIN_OCC, mer_m=MER_M_2G,
+                 sdict_s=SDICT_S)
+    r2 = run(b2, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP, tag_capacity=TAG_CAP,
+             repeats=REPEATS)
+    t2, tt2 = b2.tables, b2.tag_tables
+    check(t2.pos_dtype == torch.int64 and tt2.bwt_start.dtype == torch.int64
+          and t2.ckpt_super is not None and t2.super_shift == 30,
+          "serve-2g's tables are not int64 over two-level rows")
+    check(b2.seed_kw["mer_m"] == MER_M_2G, f"serve-2g's seed table is m={b2.seed_kw['mer_m']}")
+    sec = r2.seconds
+    log(f"serve-2g: " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
+    log(f"serve-2g: {t2.super_S.shape[0]} superblocks, {t2.ckpt_planes.shape[0]} checkpoint "
+        f"rows; dictionary {r2.dict_entries} entries; MEM-only {N_READS / sec['mems']:.1f} "
+        f"reads/s, MEM+tags {N_READS / (sec['mems'] + sec['tags']):.1f} reads/s (steady "
+        f"mean of {REPEATS}) {card}")
+    # the tag search over the int64 run heads: every head, its neighbours,
+    # both sides of 2^31 and random values, against searchsorted
+    heads2 = torch.from_numpy(big_tags.bwt_start).to(dev)
+    sv2 = torch.cat((heads2, heads2 - 1, heads2 + 1,
+                     T(np.array([0, 2**31 - 1, 2**31, big.n], np.int64)),
+                     T(np.random.default_rng(12).integers(0, big.n, N_SEARCH_RANDOM))))
+    found2 = tagquery.tag_upper_bound(tt2, sv2)
+    check(torch.equal(found2.long(), torch.searchsorted(tt2.bwt_start, sv2, right=True)),
+          "the int64 tag search tree differs from searchsorted")
+    log(f"int64 tag search tree: {big_tags.n_runs} run heads up to {int(heads2[-1])}, "
+        f"{tt2.search_tree.shape[0]} lines of 8 keys, depth {len(tt2.tree_levels)}; identical "
+        f"to torch.searchsorted at {sv2.numel()} values")
+    del heads2, sv2, found2
+    # locate: the first buffered MEMs of the serving run and random
+    # intervals, half at run heads, half mid-run
+    eff2 = np.minimum(r2.count, MEM_CAP).astype(np.int64)
+    ii2 = np.repeat(np.arange(N_READS), eff2)
+    wi2 = np.arange(len(ii2)) - np.repeat(np.cumsum(eff2) - eff2, eff2)
+    qs2, qz2 = r2.bwt_start[ii2, wi2], r2.size[ii2, wi2]
+    lrng = np.random.default_rng(18)
+    heads_j = lrng.integers(0, big.n_runs, N_LOCATE_RANDOM)
+    long_runs = np.flatnonzero(big.run_len > 1)
+    mid_j = long_runs[lrng.integers(0, len(long_runs), N_LOCATE_RANDOM // 2)]
+    rand_start = np.concatenate((big.run_start[heads_j[: N_LOCATE_RANDOM // 2]],
+                                 big.run_start[mid_j] + lrng.integers(1, big.run_len[mid_j])))
+    rand_size = np.minimum(lrng.integers(1, 201, N_LOCATE_RANDOM), big.n - rand_start)
+    l_start2 = np.concatenate((qs2[:N_LOCATE_MEMS], rand_start)).astype(np.int64)
+    l_size2 = np.concatenate((qz2[:N_LOCATE_MEMS], rand_size)).astype(np.int64)
+    ls2, lz2 = T(l_start2), T(l_size2)
+    located2 = locate.locate_batch(t2, ls2, lz2, LOCATE_CAP)
+    lpos2, lcnt2 = located2.positions.cpu().numpy(), located2.count.cpu().numpy()
+    check(np.array_equal(lcnt2, np.minimum(l_size2, LOCATE_CAP)),
+          "serve-2g locate counts are wrong")
+    del located2
+    # the commands on the files of the big index: find-mems on all reads
+    # (neither cache: the m=13 table is past the cache's size and the
+    # dictionary is built on the card), query-tags on exact and erring reads
+    phase("serve-2g: commands")
+    big_sdict = f"{big_ri}.sdict{SDICT_S}.npz"
+    if os.path.exists(big_sdict):
+        os.remove(big_sdict)
+    sec_fm = port_cmd(["find-mems", big_ri, big_tp, all_reads, str(MIN_LEN), str(MIN_OCC),
+                       *fmt], os.path.join(cli_dir, "big_find_port.txt"))
+    qt2_reads = exact[: N_QT_2G // 2] + reads[: N_QT_2G // 2]
+    qt2_file = reads_file("big_query_reads.txt", qt2_reads)
+    sec_qt = port_cmd(["query-tags", big_ri, big_tp, qt2_file, *fmt],
+                      os.path.join(cli_dir, "big_query_port.txt"))
+    read_launches("serve-2g")
+
+    # --- the path's answers: against the native engine, and the 1-copy run
+    phase("serve-2g: checks")
+    t0 = time.perf_counter()
+    s_n, e_n, b_n, z_n, c_n = native.find_mems_native(big, codes, lens, MIN_LEN, MIN_OCC,
+                                                      capacity=MEM_CAP, n_threads=0)
+    native_s = time.perf_counter() - t0
+    check(np.array_equal(r2.count, c_n), "serve-2g: MEM counts differ from the native engine")
+    for name, ref in (("start", s_n), ("end", e_n), ("bwt_start", b_n), ("size", z_n)):
+        check(np.array_equal(getattr(r2, name), ref),
+              f"serve-2g: buffered MEM {name} differs from the native engine")
+    qe2 = qs2 + qz2 - 1
+    _, tuniq2, _ = native.query_tags_native(big_tags, qs2, qe2, capacity=256, n_threads=0)
+    ok2 = ~r2.tag_ov[ii2, wi2]
+    check(np.array_equal(r2.tag_nu[ii2, wi2][ok2], tuniq2[ok2]),
+          "serve-2g: tag unique counts differ from the native engine")
+    log(f"serve-2g native cross-check: {int(c_n.sum())} MEMs over {N_READS} reads, counts "
+        f"and all {len(ii2)} buffered slots identical; tag unique counts identical on "
+        f"{int(ok2.sum())} slots ({int((~ok2).sum())} overflowed); native engine "
+        f"{native_s:.2f} s")
+    r1 = results["checkpoint"]
+    check(np.array_equal(r2.count, r1.count) and np.array_equal(r2.start, r1.start)
+          and np.array_equal(r2.end, r1.end), "serve-2g: MEMs differ from the 1-copy run's")
+    check(np.array_equal(r2.bwt_start, K_COPIES * r1.bwt_start.astype(np.int64))
+          and np.array_equal(r2.size, K_COPIES * r1.size.astype(np.int64)),
+          f"serve-2g: bwt_start and size are not {K_COPIES} times the 1-copy run's")
+    # tags: the quirk of the reference's run range (START_EVERY_K) makes the
+    # counts depend on how the runs are cut, and the k-copy tag array cuts
+    # its k times longer runs at 511 rows; the runs that overlap an interval
+    # exactly hold the same positions in both
+    q1 = (T(r1.bwt_start[ii2, wi2].astype(np.int32)),
+          T((r1.bwt_start + r1.size - 1)[ii2, wi2].astype(np.int32)))
+    ex1 = tagquery.query_tags_batch(tt, *q1, 256, True)
+    ex2 = tagquery.query_tags_batch(tt2, T(qs2), T(qe2), 256, True)
+    both = ~(ex1.overflow | ex2.overflow)
+    check(torch.equal(ex1.n_unique[both], ex2.n_unique[both]) and int(both.sum()) > 0,
+          "serve-2g: the exact tag positions of the MEMs differ from the 1-copy run's")
+    quirk_same = int((r2.tag_nu == r1.tag_nu).sum())
+    log(f"serve-2g against the 1-copy run: counts, starts and ends identical, bwt_start and "
+        f"size {K_COPIES}x; exact tag positions identical on {int(both.sum())} MEMs; the "
+        f"reference's tag counts (run range quirk) equal on {quirk_same} of "
+        f"{r2.tag_nu.size} slots")
+    # locate against the host model on a sample of lanes
+    t0 = time.perf_counter()
+    sample = lrng.choice(len(l_start2), N_LOCATE_HOST, replace=False)
+    h_start = l_start2[sample]
+    h_emit = np.minimum(l_size2[sample], LOCATE_CAP)
+    h_run = big.run_of(h_start)
+    cur = big.samples[h_run].astype(np.int64)
+    left = np.where(h_emit > 0, h_start - big.run_start[h_run], 0)
+    while (left > 0).any():
+        go = left > 0
+        cur[go] = big.locate_next(cur[go])
+        left[go] -= 1
+    host_pos = np.zeros((N_LOCATE_HOST, LOCATE_CAP), np.int64)
+    for c in range(int(h_emit.max())):
+        host_pos[c < h_emit, c] = cur[c < h_emit]
+        go = c + 1 < h_emit
+        cur[go] = big.locate_next(cur[go])
+    bad = np.flatnonzero((lpos2[sample] != host_pos).any(axis=1))
+    check(len(bad) == 0, f"{len(bad)} serve-2g locate lanes differ from the host model")
+    log(f"serve-2g locate: {len(l_start2)} intervals, identical to the host model on "
+        f"{N_LOCATE_HOST} lanes ({time.perf_counter() - t0:.2f} s)")
+    # the commands' stdout against the port's host route on the same files
+    host_s = host_find_mems(reads, os.path.join(cli_dir, "big_find_host.txt"), big, big_tags)
+    got = without_seconds(os.path.join(cli_dir, "big_find_port.txt"))
+    check(got == without_seconds(os.path.join(cli_dir, "big_find_host.txt")),
+          "serve-2g: find-mems stdout differs from the host route (native engine)")
+    log(f"serve-2g find-mems on all {N_READS} reads: stdout byte-equal to the host route "
+        f"({len(got)} bytes, {got.count(b'MEM START')} MEMs; host route {host_s:.1f} s); "
+        f"port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec_fm.items()) + f" {card}")
+    host_s = host_query_tags(qt2_reads, os.path.join(cli_dir, "big_query_host.txt"), big,
+                             big_tags)
+    got = without_seconds(os.path.join(cli_dir, "big_query_port.txt"))
+    check(got == without_seconds(os.path.join(cli_dir, "big_query_host.txt")),
+          "serve-2g: query-tags stdout differs from the host route (native engine)")
+    log(f"serve-2g query-tags on {len(qt2_reads)} reads: stdout byte-equal to the host "
+        f"route ({len(got)} bytes, {got.count(b'read_index=')} reads found; host route "
+        f"{host_s:.1f} s); port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec_qt.items())
+        + f" {card}")
+    for name in ("big_find_port.txt", "big_find_host.txt", "big_query_port.txt",
+                 "big_query_host.txt"):
+        for suffix in ("", ".err"):
+            if os.path.exists(os.path.join(cli_dir, name + suffix)):
+                os.remove(os.path.join(cli_dir, name + suffix))
+    for path in (big_sdict, big_ri, big_tp, qt2_file):
+        if os.path.exists(path):
+            os.remove(path)
+
+    # --- the int64 kernels against their plain versions, timed ----------
+    phase("serve-2g: the int64 kernels")
+    seed_table_ms(t2, MER_M_2G)
+    t0 = time.perf_counter()
+    host2_keys, host2_vals = sparsedict.build_sparse_dict(big, SDICT_S)
+    log(f"s={SDICT_S} host build on the k-copy index: {len(host2_keys)} entries, "
+        f"{host2_vals.dtype} ({time.perf_counter() - t0:.1f} s)")
+    check(np.array_equal(host2_keys, host_keys)
+          and np.array_equal(host2_vals, K_COPIES * host_vals.astype(np.int64)),
+          f"the k-copy dictionary is not the 1-copy one with {K_COPIES}x intervals")
+    hold_levels(t2, "sdict_level_int64", host2_keys, host2_vals)
+    del host2_keys, host2_vals
+    rng = np.random.default_rng(27)
+    k = rng.integers(0, big.n, N_LANES)
+    lanes2 = [T(a.astype(np.int64)) for a in (
+        k, rng.integers(0, big.n, N_LANES), rng.integers(1, np.minimum(big.n - k, 4096) + 1))]
+    code2 = T(rng.choice(np.array([1, 2, 3, 5]), N_LANES).astype(np.int32))
+    fwd2 = T(rng.integers(0, 2, N_LANES).astype(bool))
+    compare("extend_int64", lambda: fmd.extend(t2, *lanes2, code2, forward=fwd2),
+            lambda: fmd.extend_plain(t2, *lanes2, code2, forward=fwd2),
+            nbytes=N_LANES * (24 + 4 + 1 + 24) + gathered(N_LANES * 128, t2.ckpt_planes),
+            ops=N_LANES * 100, chain=1)
+    # the chain kernels across superblock boundaries: intervals that start
+    # just before one and end past it
+    bnd = T(((rng.integers(1, t2.super_S.shape[0], N_LANES) << t2.super_shift)
+             - rng.integers(1, 3000, N_LANES)).astype(np.int64))
+    span = T(rng.integers(1, 6000, N_LANES).astype(np.int64))
+    compare("extend_int64 (across superblocks)",
+            lambda: fmd.extend(t2, bnd, lanes2[1], span, code2, forward=fwd2),
+            lambda: fmd.extend_plain(t2, bnd, lanes2[1], span, code2, forward=fwd2),
+            record=False)
+    del lanes2, bnd, span
+    kw2 = b2.seed_kw
+    check(kw2["sdict_vals"].dtype == kw2["mer_table"].dtype == torch.int64,
+          "serve-2g's seed tables are not int64")
+    n_pos, n_miss = kw2["sdict_idx"].numel(), int((kw2["sdict_idx"] < 0).sum())
+    compare("resolve_seeds_int64",
+            lambda: mems.resolve_seeds(N_READS, READ_LEN + 1, MIN_OCC, **kw2),
+            lambda: mems.resolve_seeds_plain(N_READS, READ_LEN + 1, MIN_OCC, **kw2),
+            nbytes=n_pos * (4 + 32) + gathered(n_pos * 24, kw2["sdict_vals"])
+            + n_miss * 5 + gathered(n_miss * 24, kw2["mer_table"]),
+            ops=n_pos * 12, chain=2)
+    inputs2 = k3_inputs(b2, ends["last"])
+    st2 = k3(mems.find_mems, inputs2)[-1]
+    n2 = st2.numel()
+    compare("find_mems_int64", lambda: k3(mems.find_mems, inputs2),
+            lambda: k3(mems.find_mems_plain, inputs2), plain_reps=1,
+            nbytes=n2 * ((READ_LEN + 1) * (1 + 32) + 4)
+            + gathered(int(st2.sum()) * 128, t2.ckpt_planes) + n2 * (MEM_CAP * 20 + 8),
+            ops=int(st2.sum()) * 100, chain=int(st2.max()))
+    for which in ("first",):
+        inp = k3_inputs(b2, ends[which])
+        compare(f"find_mems_int64 ({which} {N_K3} reads)", lambda: k3(mems.find_mems, inp),
+                lambda: k3(mems.find_mems_plain, inp), record=False)
+    k3_ms2, seeds_ms2, k3_out2 = k3_ms_of(
+        lambda: k3(mems.find_mems, k3_inputs(b2, slice(None))))
+    k3_steps2 = k3_out2[-1]
+    log(f"K3 int64 on all {N_READS} reads of the k-copy index: {k3_ms2:.4f} ms (device), "
+        f"longest read {int(k3_steps2.max())} steps: "
+        f"{k3_ms2 * 1e3 / int(k3_steps2.max()):.4f} us per dependent step (int32, the "
+        f"bench index: {k3_ms:.4f} ms, {k3_us_step:.4f} us); resolve_seeds {seeds_ms2:.4f} "
+        f"ms {card}")
+    del inputs2, inp, k3_out2
+    bufs2 = (T(r2.bwt_start), T(r2.size), T(r2.count))
+    levels2 = len(tt2.tree_levels)
+    compare("query_mem_tags_int64",
+            lambda: tagquery.query_mem_tags(tt2, *bufs2, capacity=TAG_CAP),
+            lambda: tagquery.query_mem_tags_plain(tt2, *bufs2, capacity=TAG_CAP),
+            nbytes=N_READS * (MEM_CAP * (16 + 5) + 4)
+            + gathered(len(ii2) * TAG_CAP * 8, tt2.pos_enc, tt2.bwt_start),
+            ops=len(ii2) * (2 * levels2 * 32 + TAG_CAP * TAG_CAP), chain=levels2 + 1)
+    sv2 = T(qs2)
+    compare("tag_upper_bound_int64", lambda: tagquery.tag_upper_bound(tt2, sv2),
+            lambda: tagquery.tag_upper_bound_plain(tt2, sv2),
+            nbytes=len(qs2) * 12 + gathered(len(qs2) * 64, tt2.bwt_start)
+            + gathered(len(qs2) * (levels2 - 1) * 64, tt2.search_tree),
+            ops=len(qs2) * levels2 * 32, chain=levels2,
+            library=lambda: torch.searchsorted(tt2.bwt_start, sv2, right=True))
+    mq2 = (sv2, T(qe2))
+    n_tagged2 = int(tagquery.query_tags_batch(tt2, *mq2, 256).n_unique.sum())
+    for ex in (False, True):
+        compare("query_tags_batch_int64 (exact)" if ex else "query_tags_batch_int64",
+                lambda: tagquery.query_tags_batch(tt2, *mq2, 256, ex),
+                lambda: tagquery.query_tags_batch_plain(tt2, *mq2, 256, ex),
+                record=not ex, nbytes=len(qs2) * (16 + 256 * 8 + 9)
+                + gathered(n_tagged2 * 8, tt2.pos_enc, tt2.bwt_start),
+                ops=len(qs2) * (2 * levels2 * 32 + 256), chain=levels2 + 1)
+    del bufs2, sv2, mq2
+    found2 = count.count(t2, qc, ql)
+    q_steps2 = int(torch.where(found2[0] <= found2[1], ql.long(), 1).sum())
+    compare("count_int64", lambda: count.count(t2, qc, ql),
+            lambda: count.count_plain(t2, qc, ql), plain_reps=1,
+            nbytes=qc.numel() * 4 + len(qlens) * 20
+            + gathered(q_steps2 * 128, t2.ckpt_planes),
+            ops=q_steps2 * 60, chain=int(qlens.max()))
+    del found2
+    run_j2 = np.searchsorted(big.run_start, l_start2, side="right") - 1
+    emit2 = np.minimum(l_size2, LOCATE_CAP)
+    l_steps2 = np.where(emit2 > 0, l_start2 - big.run_start[run_j2] + emit2 - 1, 0)
+    run_lines2, tail_lines2 = len(t2.run_tree_levels), len(t2.tail_tree_levels)
+    loc_tables2 = (t2.run_start, t2.run_tree, t2.samples, t2.last_sorted, t2.last_to_run,
+                   t2.tail_tree)
+    log(f"serve-2g locate: locate_next steps a lane: mean {l_steps2.mean():.2f}, longest "
+        f"{int(l_steps2.max())}; search trees of {run_lines2} and {tail_lines2} lines a "
+        f"search")
+    compare("locate_batch_int64", lambda: locate.locate_batch(t2, ls2, lz2, LOCATE_CAP),
+            lambda: locate.locate_batch_plain(t2, ls2, lz2, LOCATE_CAP), plain_reps=1,
+            nbytes=len(l_start2) * (16 + 8 * LOCATE_CAP + 5)
+            + gathered(len(l_start2) * (run_lines2 * 64 + 16)
+                       + int(l_steps2.sum()) * (tail_lines2 * 64 + 24), *loc_tables2),
+            ops=(len(l_start2) * run_lines2 + int(l_steps2.sum()) * tail_lines2) * 32,
+            chain=run_lines2 + 2 + int(l_steps2.max()) * (tail_lines2 + 2))
+    del b2, t2, tt2, kw2, ls2, lz2, loc_tables2, big, big_tags
+
     for name, entry in kernels.items():
-        entry["launches"] = launches[SOURCES[name][2]][name]
+        src_ = SOURCES[name]
+        entry["launches"] = launches[src_[2]][src_[3] if len(src_) > 3 else name]
         # the longest chain of dependent gathers, at this run's gather latency
         steps = entry.pop("chain_steps")
         entry["chain_ms"] = None if steps is None else steps * chain[N_READS] / 1e3

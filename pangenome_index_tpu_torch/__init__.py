@@ -18,7 +18,9 @@ Layout:
                    K8 locate (locate.cu), the tag search tree's descent
                    alone (tagsearch.cu), the long-seed dictionary's
                    frontier level (sparsedict.cu), and the BWT's prefix
-                   doubling rounds: radix sort, rerank, finish (bwt.cu)
+                   doubling rounds: radix sort, rerank, finish (bwt.cu);
+                   every serving kernel in an int32 instantiation and an
+                   int64 one (indexes of n >= 2^31, two-level rank rows)
   native.py        ctypes binding of the native C++ engine (src/cpp)
   utils/ models/ formats/   alphabet, synthetic data, host index models and
                    the .ri / .tags codecs

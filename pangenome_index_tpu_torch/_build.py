@@ -65,9 +65,33 @@ SIGNATURES = {
     "pgt_bwt_sort_pairs": (_P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P),
     "pgt_bwt_rerank": (_P, _P, _I64, _P, _P, _P, _P),
     "pgt_bwt_finish": (_P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P),
+    # the int64 instantiations (n >= 2^31): checkpoint rows with their
+    # superblock bases (ckpt, nrows, super_S, n_super, super_shift) and
+    # int64 positions; the tag and locate searches over int64 heads
+    "pgt_extend_ckpt64": (_P, _I64, _P, _I64, _I, _P, _P, _P, _P, _P, _P,
+                          _I64, _P, _P, _P, _P),
+    "pgt_resolve_seeds64": (_P, _I64, _P, _P, _I, _P, _I64, _P, _I, _I64, _I,
+                            _P, _P),
+    "pgt_find_mems_ckpt64": (_P, _I64, _P, _I64, _I, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I64, _I, _I64, _P, _P, _P, _P, _P,
+                             _P),
+    "pgt_count_ckpt64": (_P, _I64, _P, _I64, _I, _P, _P, _I64, _P, _I64, _I64,
+                         _P, _P, _P),
+    "pgt_sdict_level_ckpt64": (_P, _I64, _P, _I64, _I, _P, _P, _P, _I, _I64,
+                               _I64, _I64, _I64, _I64, _I, _I, _I64, _P, _P,
+                               _P, _P, _P, _P),
+    "pgt_tag_upper_bound64": (_P, _I64, _P, _I64, _P, _I64, _P, _P),
+    "pgt_query_mem_tags64": (_P, _I64, _P, _I64, _P, _P, _P, _P, _I, _I, _I,
+                             _P, _P, _P),
+    "pgt_query_tags_batch64": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _I,
+                               _I, _P, _P, _P, _P, _P),
+    "pgt_locate64": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64,
+                     _I, _P, _P, _P, _P),
 }
 
 _lib = None
+#: the first failed build's error: a process does not run nvcc again after it
+_build_error = None
 
 
 def _nvcc() -> str:
@@ -139,10 +163,18 @@ def build_log() -> str:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
-    global _lib
+    """The loaded kernel library (built on first use; after a failed build,
+    every later call raises the same error without running nvcc again)."""
+    global _lib, _build_error
     if _lib is None:
-        handle = ctypes.CDLL(str(build()))
+        if _build_error is not None:
+            raise RuntimeError(_build_error)
+        try:
+            path = build()
+        except RuntimeError as exc:
+            _build_error = str(exc)
+            raise
+        handle = ctypes.CDLL(str(path))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes

@@ -11,7 +11,9 @@ The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-651,
 779-812) with the same argv, and output byte-equal to theirs (find-mems and
 query-tags: stdout under --engine native and --engine host, apart from the
 two "Total time" lines; build-bwt: the .rl_bwt of every engine;
-build-rindex: the .ri bytes of both formats). There is one engine:
+build-rindex: the .ri bytes of both formats). Indexes of any n are served:
+past 2^31 positions through int64 tables over two-level checkpoint rows
+(--rank-mode dense stays below 2^31). There is one engine:
 the port's kernels on --device (default cuda; a missing card is an error,
 and --device cpu runs the kernels' plain PyTorch versions). A missing file
 or invalid input ends a command with `panidx: ...` on stderr and exit code
@@ -91,13 +93,14 @@ def chunk_size(n: int, item_bytes: int, cap: int, budget: int | None) -> int:
     return max(1, k)
 
 
-def read_bytes(width: int, capacity: int) -> int:
-    """Device bytes one read of `width` codes costs a MEM launch: its codes
-    and length; at each of its width + 1 window ends the m-mer key (8),
-    validity (1), dictionary row (4) and resolve_seeds' seed (16); its
-    [capacity] buffers (start, end, bwt_start, size), count, overflow and
-    steps."""
-    return 4 * width + 4 + (width + 1) * (8 + 1 + 4 + 16) + 16 * capacity + 9
+def read_bytes(width: int, capacity: int, item: int = 4) -> int:
+    """Device bytes one read of `width` codes costs a MEM launch at `item`
+    bytes a position (4, or 8 past 2^31): its codes and length; at each of
+    its width + 1 window ends the m-mer key (8), validity (1), dictionary
+    row (4) and resolve_seeds' seed (4 positions); its [capacity] buffers
+    (start, end, bwt_start, size), count, overflow and steps."""
+    return (4 * width + 4 + (width + 1) * (8 + 1 + 4 + 4 * item)
+            + 4 * item * capacity + 9)
 
 
 def interval_bytes(capacity: int) -> int:
@@ -167,10 +170,13 @@ def _phases(device: torch.device, seconds: dict):
     return mark
 
 
-def _check_int32(idx) -> None:
-    if idx.n >= 2**31:
-        raise ValueError("n >= 2^31: the port's kernels take int32 positions "
-                         "(the int64 kernels are not written)")
+def _check_rank_mode(idx, mode: str) -> None:
+    """Dense records are int32 (n < 2^31); past it the reference serves
+    --rank-mode dense through its bucketed rank, which the port lacks."""
+    if mode == "dense" and idx.n >= 2**31:
+        raise ValueError("--rank-mode dense at n >= 2^31: the reference serves "
+                         "it through bucketed rank, which the port does not "
+                         "have; --rank-mode checkpoint serves any n")
 
 
 def _tag_positions(tags, tt, qs: np.ndarray, qe: np.ndarray, capacity: int,
@@ -214,7 +220,7 @@ def cmd_find_mems(args, seconds: dict) -> int:
     mark = _phases(dev, seconds)
     reads = read_reads(args.reads)
     idx, tags = load_serving(args)
-    _check_int32(idx)
+    _check_rank_mode(idx, args.rank_mode)
     mark("load")
 
     def put(a):
@@ -252,7 +258,7 @@ def cmd_find_mems(args, seconds: dict) -> int:
                   file=sys.stderr)
         else:
             _, _, di = read_windows_fast(codes, lens, s_long, sd_keys)
-            shared.update(sdict_vals=sdict_vals_to_device(sd_vals, dev),
+            shared.update(sdict_vals=sdict_vals_to_device(sd_vals, dev, t.pos_dtype),
                           sdict_m=s_long)
             per_read["sdict_idx"] = np.ascontiguousarray(di, np.int32)
     n_reads = len(reads)
@@ -271,7 +277,8 @@ def cmd_find_mems(args, seconds: dict) -> int:
 
     def chunks(n: int, capacity: int):
         """Chunk starts and length for n reads at `capacity` MEMs a read."""
-        size = chunk_size(n, read_bytes(codes.shape[1], capacity),
+        size = chunk_size(n, read_bytes(codes.shape[1], capacity,
+                                         t.C.element_size()),
                           args.batch_size or READ_CHUNK, budget)
         return range(0, n, size), size
 
@@ -343,7 +350,6 @@ def cmd_query_tags(args, seconds: dict) -> int:
     mark = _phases(dev, seconds)
     reads = read_reads(args.reads)
     idx, tags = load_serving(args)
-    _check_int32(idx)
     mark("load")
     t = rindex_to_device(idx, dev, checkpoint=True)
     tt = tags_to_device(tags, dev)
@@ -379,7 +385,6 @@ def cmd_build_sdict(args, seconds: dict) -> int:
     dev = _device(args.device)
     mark = _phases(dev, seconds)
     idx = ri.load_file(args.ri)
-    _check_int32(idx)
     mark("load")
     s = args.s if args.s > 0 else min(args.min_len - 1, 31)
     out = args.output or f"{args.ri}.sdict{s}.npz"

@@ -30,7 +30,8 @@
 //     interval's advance, which backward search never uses, are not computed.
 // The reads are independent: one launch, small blocks to spread the threads
 // over every SM. The rank provider is a template parameter: checkpoint rows
-// or dense records.
+// (int32 positions, or int64 over the two-level rows of n >= 2^31, whose
+// superblock bases a block stages in shared memory) or dense records.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -42,24 +43,25 @@ constexpr int kThreads = 64;         // reads a block
 constexpr int kWindow = 256;         // read positions staged at a time
 constexpr int kWords = kWindow / 8;  // packed words a read and window
 
-template <class Rank>
+template <class Rank, class P = typename Rank::Pos>
 __global__ void __launch_bounds__(kThreads)
-count_kernel(Rank rk, const int* __restrict__ Cg,
+count_kernel(Rank rk, const P* __restrict__ Cg,
              const int* __restrict__ codes, int64_t width,
-             const int* __restrict__ lengths, int64_t n_reads, int n,
-             int* __restrict__ first_out, int* __restrict__ second_out) {
+             const int* __restrict__ lengths, int64_t n_reads, P n,
+             P* __restrict__ first_out, P* __restrict__ second_out) {
   // word j of the block's read r at [j * kThreads + r]: a warp's reads of
   // its own words fall into 32 banks
   __shared__ uint32_t packed[kWords * kThreads];
-  __shared__ int c_of[8];
+  __shared__ P c_of[8];
+  rk.stage();
   const int tid = threadIdx.x;
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kThreads;
   const int64_t b = b0 + tid;
   const int reads_here =
       static_cast<int>(n_reads - b0 < kThreads ? n_reads - b0 : kThreads);
-  if (tid < 8) c_of[tid] = tid < 7 ? __ldg(Cg + tid) : 0;
+  if (tid < 8) c_of[tid] = tid < 7 ? pgt::ld(Cg + tid) : 0;
   const int len = b < n_reads ? __ldg(lengths + b) : 0;
-  int first = 0, second = n - 1;
+  P first = 0, second = n - 1;
   // no step is taken over a batch of width 0, whatever the lengths say (the
   // loop of ops/rank.py:count runs `width` times)
   bool done = len <= 0 || width <= 0;
@@ -97,7 +99,8 @@ count_kernel(Rank rk, const int* __restrict__ Cg,
     int at = i - lo_pos;  // position inside the window
     uint32_t word = packed[(at >> 3) * kThreads + tid];
     int c = (word >> (4 * (at & 7))) & 15;
-    int qe = pgt::comp_code(c), c_c = c_of[c];
+    int qe = pgt::comp_code(c);
+    P c_c = c_of[c];
     while (true) {
       if (c == 0) {
         first = 1;
@@ -105,7 +108,7 @@ count_kernel(Rank rk, const int* __restrict__ Cg,
         done = true;
         break;
       }
-      const int size = second + 1 - first;
+      const P size = second + 1 - first;
       const typename Rank::LfRows rows = rk.load_lf(first, size, qe);
       // while the rows are in flight: the next step's code and what depends
       // on it alone
@@ -114,8 +117,9 @@ count_kernel(Rank rk, const int* __restrict__ Cg,
         if (((at - 1) & 7) == 7) word = packed[((at - 1) >> 3) * kThreads + tid];
         c_next = (word >> (4 * ((at - 1) & 7))) & 15;
       }
-      const int qe_next = pgt::comp_code(c_next), cc_next = c_of[c_next];
-      int lo, inside;
+      const int qe_next = pgt::comp_code(c_next);
+      const P cc_next = c_of[c_next];
+      P lo, inside;
       rk.lf(rows, first, size, c, qe, lo, inside);
       if (inside <= 0) {
         first = 1;
@@ -139,10 +143,10 @@ count_kernel(Rank rk, const int* __restrict__ Cg,
   }
 }
 
-template <class Rank>
-int launch(const Rank& rk, const int* C, const int* codes, int64_t width,
-           const int* lengths, int64_t n_reads, int n, int* first,
-           int* second, void* stream) {
+template <class Rank, class P = typename Rank::Pos>
+int launch(const Rank& rk, const P* C, const int* codes, int64_t width,
+           const int* lengths, int64_t n_reads, P n, P* first, P* second,
+           void* stream) {
   if (n_reads > 0) {
     const unsigned blocks =
         static_cast<unsigned>((n_reads + kThreads - 1) / kThreads);
@@ -163,7 +167,20 @@ int pgt_count_ckpt(const int* ckpt, int64_t nrows, const int* C,
                    const int* codes, int64_t width, const int* lengths,
                    int64_t n_reads, int n, int* first, int* second,
                    void* stream) {
-  pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
+  pgt::CkptRank<int> rk{ckpt, static_cast<int>(nrows - 1)};
+  return launch(rk, C, codes, width, lengths, n_reads, n, first, second,
+                stream);
+}
+
+// int64 positions over two-level rows (super_S [n_super, 8] int64)
+int pgt_count_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
+                     int64_t n_super, int super_shift, const int64_t* C,
+                     const int* codes, int64_t width, const int* lengths,
+                     int64_t n_reads, int64_t n, int64_t* first,
+                     int64_t* second, void* stream) {
+  pgt::CkptRank<int64_t> rk;
+  if (!pgt::make_ckpt64(ckpt, nrows, super_S, n_super, super_shift, &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, codes, width, lengths, n_reads, n, first, second,
                 stream);
 }

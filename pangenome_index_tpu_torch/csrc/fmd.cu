@@ -9,7 +9,8 @@
 // computes only the three counts an extension uses (rank.cuh: on checkpoint
 // tables two masks and four 64-bit popcounts over bit-plane rows, in place
 // of the one-hot matrix math). The rank provider is a template parameter:
-// bit-plane checkpoint rows or dense records (rank.cuh).
+// bit-plane checkpoint rows, int32 or int64 positions (the two-level rows of
+// n >= 2^31), or dense records (rank.cuh).
 //
 // Used one level at a time to build the m-mer seed table (ops/mertable.py),
 // where a level is up to 4^m lanes, so every thread index is 64-bit.
@@ -20,20 +21,20 @@
 
 namespace {
 
-template <class Rank>
-__global__ void extend_kernel(Rank rk, const int* __restrict__ Cg,
-                              const int* __restrict__ k,
-                              const int* __restrict__ kp,
-                              const int* __restrict__ s,
+template <class Rank, class P = typename Rank::Pos>
+__global__ void extend_kernel(Rank rk, const P* __restrict__ Cg,
+                              const P* __restrict__ k, const P* __restrict__ kp,
+                              const P* __restrict__ s,
                               const int* __restrict__ code,
                               const uint8_t* __restrict__ forward, int64_t n,
-                              int* __restrict__ ok, int* __restrict__ okp,
-                              int* __restrict__ os) {
+                              P* __restrict__ ok, P* __restrict__ okp,
+                              P* __restrict__ os) {
+  rk.stage();
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const bool fwd = forward != nullptr && forward[i] != 0;
-  const int ki = __ldg(k + i), kpi = __ldg(kp + i), si = __ldg(s + i);
-  int a, b, z;
+  const P ki = pgt::ld(k + i), kpi = pgt::ld(kp + i), si = pgt::ld(s + i);
+  P a, b, z;
   pgt::extend1(rk, rk.load(fwd ? kpi : ki, si), Cg, ki, kpi, si,
                __ldg(code + i), fwd, a, b, z);
   ok[i] = a;
@@ -43,10 +44,10 @@ __global__ void extend_kernel(Rank rk, const int* __restrict__ Cg,
 
 constexpr int kThreads = 256;
 
-template <class Rank>
-int launch(const Rank& rk, const int* C, const int* k, const int* kp,
-           const int* s, const int* code, const uint8_t* forward, int64_t n,
-           int* ok, int* okp, int* os, void* stream) {
+template <class Rank, class P = typename Rank::Pos>
+int launch(const Rank& rk, const P* C, const P* k, const P* kp, const P* s,
+           const int* code, const uint8_t* forward, int64_t n, P* ok, P* okp,
+           P* os, void* stream) {
   if (n > 0) {
     const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
     extend_kernel<Rank><<<blocks, kThreads, 0,
@@ -66,7 +67,20 @@ int pgt_extend_ckpt(const int* ckpt, int64_t nrows, const int* C, const int* k,
                     const int* kp, const int* s, const int* code,
                     const uint8_t* forward, int64_t n, int* ok, int* okp,
                     int* os, void* stream) {
-  pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
+  pgt::CkptRank<int> rk{ckpt, static_cast<int>(nrows - 1)};
+  return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
+}
+
+// the same over int64 positions: two-level rows with their superblock
+// bases super_S [n_super, 8] int64 (ops/tables.py:derive_super_S)
+int pgt_extend_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
+                      int64_t n_super, int super_shift, const int64_t* C,
+                      const int64_t* k, const int64_t* kp, const int64_t* s,
+                      const int* code, const uint8_t* forward, int64_t n,
+                      int64_t* ok, int64_t* okp, int64_t* os, void* stream) {
+  pgt::CkptRank<int64_t> rk;
+  if (!pgt::make_ckpt64(ckpt, nrows, super_S, n_super, super_shift, &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 

@@ -45,7 +45,15 @@
 // caller zeroes them; slots past the count stay zero), the exact MEM count
 // per read (it may exceed M), and optionally the number of extension steps
 // each read took.
+//
+// Positions (the interval state, the seeds, bwt_start and size) are int32
+// below n = 2^31 and int64 past it, over the two-level checkpoint rows
+// (rank.cuh:CkptRank<int64_t>); the read positions and the packed
+// (start, end) stay int32. The position type is a template parameter beside
+// the rank provider, as in every serving kernel.
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 #include "rank.cuh"
@@ -57,69 +65,93 @@ __device__ __forceinline__ int clamp_to(int v, int hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
 }
 
+// A resolved seed (k, kp, s, tier length): one 16-byte int4 for int32
+// positions, 32 bytes (two 16-byte loads) for int64.
+struct alignas(32) Seed64 {
+  int64_t x, y, z, w;
+};
+template <class P>
+using SeedT = std::conditional_t<sizeof(P) == 8, Seed64, int4>;
+
+__device__ __forceinline__ int4 make_seed(int k, int kp, int s, int len) {
+  return make_int4(k, kp, s, len);
+}
+__device__ __forceinline__ Seed64 make_seed(int64_t k, int64_t kp, int64_t s,
+                                            int len) {
+  return Seed64{k, kp, s, len};
+}
+__device__ __forceinline__ int4 load_seed(const int4* p) { return __ldg(p); }
+__device__ __forceinline__ Seed64 load_seed(const Seed64* p) {
+  const longlong2 a = __ldg(reinterpret_cast<const longlong2*>(p));
+  const longlong2 b = __ldg(reinterpret_cast<const longlong2*>(p) + 1);
+  return Seed64{a.x, a.y, b.x, b.y};
+}
+
 // Seed tiers, as the JAX engine takes them: the dense table of every m-mer's
 // interval with the per-position keys of the reads, and the sparse long-seed
 // dictionary with the per-position dictionary rows of the reads. A null
 // table switches its tier off.
+template <class P>
 struct SeedTiers {
-  const int* mer_table;      // [n_mer, 3] (k, kp, s)
+  const P* mer_table;        // [n_mer, 3] (k, kp, s)
   int64_t n_mer;
   const int* mer_keys;       // [B, W]
   const uint8_t* mer_valid;  // [B, W]
   int mer_m;
-  const int* sdict_vals;     // [n_dict, 3] (k, kp, s)
+  const P* sdict_vals;       // [n_dict, 3] (k, kp, s)
   int64_t n_dict;
   const int* sdict_idx;      // [B, W], -1 = absent
   int sdict_m;
 
   // (k, kp, s, length) of the longest passing tier at flat position `at`
   // of the per-read arrays; length 0 = no seed
-  __device__ __forceinline__ int4 lookup(int64_t at, int min_occ) const {
+  __device__ __forceinline__ SeedT<P> lookup(int64_t at, int min_occ) const {
     if (sdict_vals != nullptr) {
       const int di = __ldg(sdict_idx + at);
       if (di >= 0) {
-        const int* r = sdict_vals + 3 * pgt::clamp64(di, 0, n_dict - 1);
-        const int size = __ldg(r + 2);
+        const P* r = sdict_vals + 3 * pgt::clamp64(di, 0, n_dict - 1);
+        const P size = pgt::ld(r + 2);
         if (size >= (min_occ > 1 ? min_occ : 1))
-          return make_int4(__ldg(r), __ldg(r + 1), size, sdict_m);
+          return make_seed(pgt::ld(r), pgt::ld(r + 1), size, sdict_m);
       }
     }
     if (mer_table != nullptr && __ldg(mer_valid + at) != 0) {
-      const int* r =
+      const P* r =
           mer_table + 3 * pgt::clamp64(__ldg(mer_keys + at), 0, n_mer - 1);
-      const int size = __ldg(r + 2);
-      if (size > 0) return make_int4(__ldg(r), __ldg(r + 1), size, mer_m);
+      const P size = pgt::ld(r + 2);
+      if (size > 0) return make_seed(pgt::ld(r), pgt::ld(r + 1), size, mer_m);
     }
-    return make_int4(0, 0, 0, 0);
+    return make_seed(P{0}, P{0}, P{0}, 0);
   }
 };
 
 // seeds [n_pos] = (k, kp, s, tier length) of every read position
-__global__ void resolve_seeds_kernel(SeedTiers tiers, int64_t n_pos,
-                                     int min_occ, int4* __restrict__ seeds) {
+template <class P>
+__global__ void resolve_seeds_kernel(SeedTiers<P> tiers, int64_t n_pos,
+                                     int min_occ, SeedT<P>* __restrict__ seeds) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < n_pos) seeds[i] = tiers.lookup(i, min_occ);
 }
 
-template <class Rank>
-__global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
+template <class Rank, class P = typename Rank::Pos>
+__global__ void find_mems_kernel(Rank rk, const P* __restrict__ Cg,
                                  const int8_t* __restrict__ codes,
                                  const int* __restrict__ lengths,
-                                 const int4* __restrict__ seeds, int n_reads,
-                                 int width, int code_stride, int min_len,
-                                 int min_occ, int N, int M, int64_t max_iters,
-                                 int* __restrict__ m_se,
-                                 int* __restrict__ m_bwt,
-                                 int* __restrict__ m_size,
+                                 const SeedT<P>* __restrict__ seeds,
+                                 int n_reads, int width, int code_stride,
+                                 int min_len, int min_occ, P N, int M,
+                                 int64_t max_iters, int* __restrict__ m_se,
+                                 P* __restrict__ m_bwt, P* __restrict__ m_size,
                                  int* __restrict__ count,
                                  int* __restrict__ steps_out) {
+  rk.stage();
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= n_reads) return;
   const int L = width - 1;  // codes are padded with the NUL column j == L
   // the read's resolved seeds, and the two of them loaded ahead: those of
   // the positions ahead_at and ahead_at + 1 (clamped into the read)
-  const int4* sr = seeds ? seeds + static_cast<int64_t>(b) * width : nullptr;
-  int4 ahead_a = make_int4(0, 0, 0, 0), ahead_b = ahead_a;
+  const SeedT<P>* sr = seeds ? seeds + static_cast<int64_t>(b) * width : nullptr;
+  SeedT<P> ahead_a = make_seed(P{0}, P{0}, P{0}, 0), ahead_b = ahead_a;
   int at_a = -1, at_b = -1;
   // the read's codes, eight to a 64-bit word (rows are code_stride bytes, a
   // multiple of 8, zero past the read)
@@ -129,11 +161,11 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
   int window_at = -1;
   const int len = __ldg(lengths + b);
   int* se_out = m_se + static_cast<int64_t>(b) * M;
-  int* bwt_out = m_bwt + static_cast<int64_t>(b) * M;
-  int* size_out = m_size + static_cast<int64_t>(b) * M;
+  P* bwt_out = m_bwt + static_cast<int64_t>(b) * M;
+  P* size_out = m_size + static_cast<int64_t>(b) * M;
 
-  int phase = 0, x = 0, j = 0, k = 0, kp = 0, s = 0;
-  int k2 = 0, kp2 = 0, s2 = 0, cnt = 0, steps = 0;
+  int phase = 0, x = 0, j = 0, cnt = 0, steps = 0;
+  P k = 0, kp = 0, s = 0, k2 = 0, kp2 = 0, s2 = 0;
   for (int64_t it = 0; it < max_iters && phase != 4; ++it) {
     // --- phase 0: begin a find_mems_function call at x; phase 5: step 3 ---
     const bool enter1 = phase == 0 && !(x >= len || len - x < min_len);
@@ -149,13 +181,15 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
     if (sr != nullptr && (enter1 || enter3)) {
       // longest passing seed tier: skips row.w extensions
       const int widx = clamp_to(enter1 ? x + min_len - 1 : j, L);
-      const int4 row = widx == at_a ? ahead_a
-                                    : (widx == at_b ? ahead_b : __ldg(sr + widx));
+      const SeedT<P> row = widx == at_a
+                               ? ahead_a
+                               : (widx == at_b ? ahead_b : load_seed(sr + widx));
       const bool okrow = row.z >= min_occ && row.z > 0 && row.w > 0;
-      const bool can1 = enter1 && min_len > row.w && okrow;
-      const bool can3 = enter3 && j - row.w > x && okrow;
-      if (can1) j = x + min_len - 1 - row.w;
-      if (can3) j = j - row.w;
+      const int len_t = static_cast<int>(row.w);
+      const bool can1 = enter1 && min_len > len_t && okrow;
+      const bool can3 = enter3 && j - len_t > x && okrow;
+      if (can1) j = x + min_len - 1 - len_t;
+      if (can3) j = j - len_t;
       if (can1 || can3) {
         k = row.x;
         kp = row.y;
@@ -174,8 +208,8 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
       const int base = p2 ? j : j + min_len - 1;
       at_a = clamp_to(base, L);
       at_b = clamp_to(base + 1, L);
-      ahead_a = __ldg(sr + at_a);
-      ahead_b = __ldg(sr + at_b);
+      ahead_a = load_seed(sr + at_a);
+      ahead_b = load_seed(sr + at_b);
     }
     const int jc = clamp_to(j, L);
     if ((jc >> 3) != window_at) {
@@ -183,7 +217,7 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
       window = __ldg(cr + window_at);
     }
     const int c = static_cast<int8_t>(window >> (8 * (jc & 7)));
-    int nk, nkp, ns;
+    P nk, nkp, ns;
     pgt::extend1(rk, rows, Cg, k, kp, s, c, p2, nk, nkp, ns);
     ++steps;
     const bool fail = ns < min_occ || ns <= 0;
@@ -249,11 +283,11 @@ __global__ void find_mems_kernel(Rank rk, const int* __restrict__ Cg,
 constexpr int kThreads = 64;
 constexpr int kResolveThreads = 256;
 
-template <class Rank>
-int launch(const Rank& rk, const int* C, const int8_t* codes,
-           const int* lengths, const int4* seeds, int n_reads, int width,
-           int code_stride, int min_len, int min_occ, int N, int M,
-           int64_t max_iters, int* m_se, int* m_bwt, int* m_size, int* count,
+template <class Rank, class P = typename Rank::Pos>
+int launch(const Rank& rk, const P* C, const int8_t* codes,
+           const int* lengths, const SeedT<P>* seeds, int n_reads, int width,
+           int code_stride, int min_len, int min_occ, P N, int M,
+           int64_t max_iters, int* m_se, P* m_bwt, P* m_size, int* count,
            int* steps, void* stream) {
   if (n_reads > 0) {
     const unsigned blocks = (n_reads + kThreads - 1) / kThreads;
@@ -261,6 +295,23 @@ int launch(const Rank& rk, const int* C, const int8_t* codes,
                               static_cast<cudaStream_t>(stream)>>>(
         rk, C, codes, lengths, seeds, n_reads, width, code_stride, min_len,
         min_occ, N, M, max_iters, m_se, m_bwt, m_size, count, steps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class P>
+int resolve(const P* mer_table, int64_t n_mer, const int* mer_keys,
+            const uint8_t* mer_valid, int mer_m, const P* sdict_vals,
+            int64_t n_dict, const int* sdict_idx, int sdict_m, int64_t n_pos,
+            int min_occ, P* seeds, void* stream) {
+  if (n_pos > 0) {
+    const SeedTiers<P> tiers{mer_table,  n_mer,  mer_keys,  mer_valid, mer_m,
+                             sdict_vals, n_dict, sdict_idx, sdict_m};
+    resolve_seeds_kernel<P><<<static_cast<unsigned>(
+                                  (n_pos + kResolveThreads - 1) / kResolveThreads),
+                              kResolveThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        tiers, n_pos, min_occ, reinterpret_cast<SeedT<P>*>(seeds));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -279,16 +330,18 @@ int pgt_resolve_seeds(const int* mer_table, int64_t n_mer, const int* mer_keys,
                       const int* sdict_vals, int64_t n_dict,
                       const int* sdict_idx, int sdict_m, int64_t n_pos,
                       int min_occ, int* seeds, void* stream) {
-  if (n_pos > 0) {
-    const SeedTiers tiers{mer_table,  n_mer,  mer_keys,  mer_valid, mer_m,
-                          sdict_vals, n_dict, sdict_idx, sdict_m};
-    resolve_seeds_kernel<<<static_cast<unsigned>(
-                               (n_pos + kResolveThreads - 1) / kResolveThreads),
-                           kResolveThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        tiers, n_pos, min_occ, reinterpret_cast<int4*>(seeds));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return resolve(mer_table, n_mer, mer_keys, mer_valid, mer_m, sdict_vals,
+                 n_dict, sdict_idx, sdict_m, n_pos, min_occ, seeds, stream);
+}
+
+// the same with int64 tables and seeds [n_pos, 4] int64 (32-byte aligned)
+int pgt_resolve_seeds64(const int64_t* mer_table, int64_t n_mer,
+                        const int* mer_keys, const uint8_t* mer_valid,
+                        int mer_m, const int64_t* sdict_vals, int64_t n_dict,
+                        const int* sdict_idx, int sdict_m, int64_t n_pos,
+                        int min_occ, int64_t* seeds, void* stream) {
+  return resolve(mer_table, n_mer, mer_keys, mer_valid, mer_m, sdict_vals,
+                 n_dict, sdict_idx, sdict_m, n_pos, min_occ, seeds, stream);
 }
 
 // ckpt: [nrows, 16] int32 bit-plane rows (ops/tables.py:derive_rank_planes).
@@ -301,8 +354,26 @@ int pgt_find_mems_ckpt(const int* ckpt, int64_t nrows, const int* C,
                        int code_stride, int min_len, int min_occ, int N, int M,
                        int64_t max_iters, int* m_se, int* m_bwt, int* m_size,
                        int* count, int* steps, void* stream) {
-  pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
+  pgt::CkptRank<int> rk{ckpt, static_cast<int>(nrows - 1)};
   return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
+                n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
+                m_se, m_bwt, m_size, count, steps, stream);
+}
+
+// int64 positions over two-level rows (super_S [n_super, 8] int64); seeds
+// [n_reads, width, 4] int64 from pgt_resolve_seeds64, or null
+int pgt_find_mems_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
+                         int64_t n_super, int super_shift, const int64_t* C,
+                         const int8_t* codes, const int* lengths,
+                         const int64_t* seeds, int n_reads, int width,
+                         int code_stride, int min_len, int min_occ, int64_t N,
+                         int M, int64_t max_iters, int* m_se, int64_t* m_bwt,
+                         int64_t* m_size, int* count, int* steps,
+                         void* stream) {
+  pgt::CkptRank<int64_t> rk;
+  if (!pgt::make_ckpt64(ckpt, nrows, super_S, n_super, super_shift, &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(rk, C, codes, lengths, reinterpret_cast<const Seed64*>(seeds),
                 n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
                 m_se, m_bwt, m_size, count, steps, stream);
 }

@@ -14,8 +14,8 @@
 // 64-bit popcount; and, when both ends of the interval lie in the same row,
 // loads and decodes that row once.
 //
-// Int32 positions and single-level checkpoint rows only (n < 2^31); the
-// wrappers refuse int64 tables and a two-level ckpt_super.
+// Checkpoint rows serve any n: int32 positions below 2^31, int64 positions
+// over two-level rows past it (CkptRank<P>). Dense records are int32 only.
 #pragma once
 
 #include <cstdint>
@@ -46,6 +46,12 @@ __device__ __forceinline__ int comp_code(int c) {
 __device__ __forceinline__ uint64_t u64(int lo, int hi) {
   return static_cast<uint64_t>(static_cast<uint32_t>(lo)) |
          (static_cast<uint64_t>(static_cast<uint32_t>(hi)) << 32);
+}
+
+// read-only loads of either position type
+__device__ __forceinline__ int ld(const int* p) { return __ldg(p); }
+__device__ __forceinline__ int64_t ld(const int64_t* p) {
+  return static_cast<int64_t>(__ldg(reinterpret_cast<const long long*>(p)));
 }
 
 // What one extension by the code `ext` needs of rank6 at pos and pos + s:
@@ -80,27 +86,73 @@ __device__ __forceinline__ uint64_t u64(int lo, int hi) {
 // stored overlapping so that S[q] and S[q + 1] come with one aligned 8-byte
 // load: a row is three loads (16 + 8 + 8 bytes of one 64-byte line), the
 // first two of them before the code is known.
+//
+// P is the position type: int below n = 2^31, int64_t past it (the
+// instantiation follows the tables' dtype). With P = int64_t the rows are the
+// two-level form of ops/tables.py:build_ckpt_rows: their S[j] count from the
+// start of their superblock of 2^super_shift positions (at most 2^30, so they
+// still fit int32) and super_S[sb][j] (tables.derive_super_S: [n_super, 8]
+// int64, S[0..6] and a pad, comp-permuted as the rows' pairs) adds the
+// absolute count before superblock sb; single-level int64 tables carry one
+// row of zeros. pos and pos + s may lie in different superblocks. The
+// superblock table is tiny (3 rows at 2.16 G positions, 21 at 22 G) and is
+// read on every step of a chain, so stage() copies it into shared memory at
+// block start, and the add costs a shared-memory read, not a global load.
+constexpr int kMaxSuper = 64;  // superblocks a block stages: 2^36 positions
+
+template <class P>
 struct CkptRank {
+  using Pos = P;
+  static constexpr bool kTwoLevel = sizeof(P) == 8;
   const int* rows;  // [nrows, 16] bit-plane rows
-  int last_row;     // nrows - 1 (nrows < 2^31 / 64)
+  P last_row;       // nrows - 1
+  // P = int64_t: [n_super, 8] superblock bases, in device memory at launch
+  // and in shared memory after stage(); unused for P = int
+  const int64_t* super_S = nullptr;
+  int n_super = 0;
+  int super_shift = 62;
 
   // the planes of the rows of pos and pos + s (one row when they share it)
   struct Rows {
-    int row1, row2;
+    P row1, row2;
     int4 a1, a2;
     int2 b1, b2;
   };
 
-  __device__ __forceinline__ int row_of(int pos) const {
-    const int r = pos >> 6;
+  // Every thread of the block calls it, before any early return.
+  __device__ __forceinline__ void stage() {
+    if constexpr (kTwoLevel) {
+      __shared__ int64_t staged[kMaxSuper * 8];
+      for (int i = threadIdx.x; i < n_super * 8; i += blockDim.x)
+        staged[i] = super_S[i];
+      __syncthreads();
+      super_S = staged;
+    }
+  }
+
+  __device__ __forceinline__ P row_of(P pos) const {
+    const P r = pos >> 6;
     return r < 0 ? 0 : (r > last_row ? last_row : r);
   }
 
-  __device__ __forceinline__ const int* row_ptr(int row) const {
+  __device__ __forceinline__ const int* row_ptr(P row) const {
     return rows + 16 * static_cast<int64_t>(row);
   }
 
-  __device__ __forceinline__ Rows load(int pos, int s) const {
+  // S[qe] and S[qe + 1] of the superblock that holds `row` (0 and 0 for
+  // P = int: the rows are absolute)
+  __device__ __forceinline__ void super_pair(P row, int qe, P& lo, P& hi) const {
+    if constexpr (kTwoLevel) {
+      const int64_t* sp = super_S + 8 * ((row << 6) >> super_shift);
+      lo = sp[qe];
+      hi = sp[qe + 1];
+    } else {
+      lo = 0;
+      hi = 0;
+    }
+  }
+
+  __device__ __forceinline__ Rows load(P pos, P s) const {
     Rows r;
     r.row1 = row_of(pos);
     r.row2 = row_of(pos + s);
@@ -116,13 +168,13 @@ struct CkptRank {
   }
 
   // the stored pair that holds S[qe] and S[qe + 1] of a row
-  __device__ __forceinline__ int2 pair_of(int row, int qe) const {
+  __device__ __forceinline__ int2 pair_of(P row, int qe) const {
     return __ldg(reinterpret_cast<const int2*>(
         row_ptr(row) + 6 + 2 * (qe > 0 ? qe - 1 : 0)));
   }
 
   // s_lo, s_hi = S[qe], S[qe + 1] of a row
-  __device__ __forceinline__ void below(int row, int qe, int& s_lo,
+  __device__ __forceinline__ void below(P row, int qe, int& s_lo,
                                         int& s_hi) const {
     const int2 s = pair_of(row, qe);
     s_lo = qe > 0 ? s.x : 0;
@@ -141,23 +193,27 @@ struct CkptRank {
     lt = (~p2 & c2) | (x2 & ((~p1 & c1) | (x1 & ~p0 & c0)));
   }
 
-  __device__ __forceinline__ void counts(const Rows& r, int pos, int s, int,
-                                         int qe, int& r1, int& d,
-                                         int& dlt) const {
-    const int pos2 = pos + s;
+  __device__ __forceinline__ void counts(const Rows& r, P pos, P s, int,
+                                         int qe, P& r1, P& d, P& dlt) const {
+    const P pos2 = pos + s;
     const uint64_t m1 = (1ull << (pos & 63)) - 1, m2 = (1ull << (pos2 & 63)) - 1;
     int lo1, hi1;
     uint64_t eq1, lt1;
     below(r.row1, qe, lo1, hi1);
+    P sl1, sh1;
+    super_pair(r.row1, qe, sl1, sh1);
     if (r.row2 != r.row1) {
       int lo2, hi2;
       uint64_t eq2, lt2;
       below(r.row2, qe, lo2, hi2);
+      P sl2, sh2;
+      super_pair(r.row2, qe, sl2, sh2);
       masks(r.a1, r.b1, qe, eq1, lt1);
       masks(r.a2, r.b2, qe, eq2, lt2);
-      r1 = hi1 - lo1 + __popcll(eq1 & m1);
-      d = hi2 - lo2 + __popcll(eq2 & m2) - r1;
-      dlt = lo2 + __popcll(lt2 & m2) - lo1 - __popcll(lt1 & m1);
+      r1 = static_cast<P>(hi1 - lo1 + __popcll(eq1 & m1)) + (sh1 - sl1);
+      d = static_cast<P>(hi2 - lo2 + __popcll(eq2 & m2)) + (sh2 - sl2) - r1;
+      dlt = static_cast<P>(lo2 + __popcll(lt2 & m2)) + sl2 -
+            static_cast<P>(lo1 + __popcll(lt1 & m1)) - sl1;
     } else {
       // both ends in one row (most steps of a chain: intervals are small):
       // one row decoded, the counts of the range taken with one mask. For an
@@ -165,7 +221,7 @@ struct CkptRank {
       // negative; the callers read both as a failed extension.
       masks(r.a1, r.b1, qe, eq1, lt1);
       const uint64_t range = m2 & ~m1;
-      r1 = hi1 - lo1 + __popcll(eq1 & m1);
+      r1 = static_cast<P>(hi1 - lo1 + __popcll(eq1 & m1)) + (sh1 - sl1);
       d = __popcll(eq1 & range);
       dlt = __popcll(lt1 & range);
     }
@@ -179,7 +235,7 @@ struct CkptRank {
 
   // every load of one lf step, none waiting for another: the count pair's
   // address needs the code, which the caller has before the range
-  __device__ __forceinline__ LfRows load_lf(int pos, int s, int qe) const {
+  __device__ __forceinline__ LfRows load_lf(P pos, P s, int qe) const {
     LfRows l;
     l.r = load(pos, s);
     l.s1 = pair_of(l.r.row1, qe);
@@ -198,26 +254,51 @@ struct CkptRank {
 
   // lo = occ(ext, [0, pos)), inside = occ(ext, [pos, pos + s)); after the
   // rows arrive: one mask and two popcounts
-  __device__ __forceinline__ void lf(const LfRows& l, int pos, int s, int,
-                                     int qe, int& lo, int& inside) const {
-    const int pos2 = pos + s;
+  __device__ __forceinline__ void lf(const LfRows& l, P pos, P s, int,
+                                     int qe, P& lo, P& inside) const {
+    const P pos2 = pos + s;
     const uint64_t m1 = (1ull << (pos & 63)) - 1, m2 = (1ull << (pos2 & 63)) - 1;
     const uint64_t eq1 = eq_mask(l.r.a1, l.r.b1, qe);
-    lo = (qe > 0 ? l.s1.y - l.s1.x : l.s1.x) + __popcll(eq1 & m1);
+    P sl1, sh1;
+    super_pair(l.r.row1, qe, sl1, sh1);
+    lo = static_cast<P>((qe > 0 ? l.s1.y - l.s1.x : l.s1.x) + __popcll(eq1 & m1)) +
+         (sh1 - sl1);
     if (l.r.row2 != l.r.row1) {
       const uint64_t eq2 = eq_mask(l.r.a2, l.r.b2, qe);
-      inside = (qe > 0 ? l.s2.y - l.s2.x : l.s2.x) + __popcll(eq2 & m2) - lo;
+      P sl2, sh2;
+      super_pair(l.r.row2, qe, sl2, sh2);
+      inside = static_cast<P>((qe > 0 ? l.s2.y - l.s2.x : l.s2.x) +
+                              __popcll(eq2 & m2)) +
+               (sh2 - sl2) - lo;
     } else {
       inside = __popcll(eq1 & m2 & ~m1);
     }
   }
 };
 
+// The int64 provider of a C entry point's arguments; false when the
+// superblock table does not fit what a block stages or the shift is out of
+// range (the wrappers check both before they launch).
+inline bool make_ckpt64(const int* rows, int64_t nrows, const int64_t* super_S,
+                        int64_t n_super, int super_shift,
+                        CkptRank<int64_t>* rk) {
+  if (nrows < 1 || n_super < 1 || n_super > kMaxSuper || super_shift < 6 ||
+      super_shift > 62 || (((nrows - 1) << 6) >> super_shift) >= n_super)
+    return false;
+  rk->rows = rows;
+  rk->last_row = nrows - 1;
+  rk->super_S = super_S;
+  rk->n_super = static_cast<int>(n_super);
+  rk->super_shift = super_shift;
+  return true;
+}
+
 // Dense records: pos_to_run [n+2] int32 and rec [r, 8] int32 rows
 // (start, sym, cum0..cum5). One run-id load, then one 32-byte record as two
 // 16-byte loads; rank6 = cum + onehot(sym) * (pos - start). No load depends
 // on the code.
 struct DenseRank {
+  using Pos = int;
   const int* pos_to_run;
   int64_t n_p2r;
   const int4* rec;  // [r, 8] viewed as [r, 2] int4
@@ -226,6 +307,8 @@ struct DenseRank {
   struct Rows {
     int a[6], b[6];  // rank6 at pos and at pos + s
   };
+
+  __device__ __forceinline__ void stage() {}
 
   __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
     const int64_t p = clamp64(pos, 0, n_p2r - 1);
@@ -275,25 +358,25 @@ struct DenseRank {
 // `rows` = rk.load(forward ? kp : k, s), issued by the caller as early as it
 // knows the interval; Cg: the index's C array (exclusive prefix counts per
 // code) in global memory.
-template <class Rank>
+template <class Rank, class P = typename Rank::Pos>
 __device__ __forceinline__ void extend1(const Rank& rk,
                                         const typename Rank::Rows& rows,
-                                        const int* __restrict__ Cg, int k,
-                                        int kp, int s, int code, bool forward,
-                                        int& ok, int& okp, int& os) {
+                                        const P* __restrict__ Cg, P k, P kp,
+                                        P s, int code, bool forward, P& ok,
+                                        P& okp, P& os) {
   // ext = forward ? comp(code) : code, qe = comp(ext); a code outside 0..5
   // complements to 0 and, going backward, matches nothing
   const bool valid = static_cast<unsigned>(code) < 6u;
   const int cv = valid ? code : 0, cc = comp_code(code);
   const int ext = forward ? cc : cv, qe = forward ? cv : cc;
   const bool known = forward || valid;
-  const int bk = forward ? kp : k;
-  const int bkp = forward ? k : kp;
-  const int c_e = __ldg(Cg + ext);
-  int r1, d, dlt;
+  const P bk = forward ? kp : k;
+  const P bkp = forward ? k : kp;
+  const P c_e = ld(Cg + ext);
+  P r1, d, dlt;
   rk.counts(rows, bk, s, ext, qe, r1, d, dlt);
   const bool good = known && d > 0;
-  const int gk = good ? r1 + c_e : 0, gkp = good ? bkp + dlt : 0;
+  const P gk = good ? r1 + c_e : 0, gkp = good ? bkp + dlt : 0;
   ok = forward ? gkp : gk;
   okp = forward ? gk : gkp;
   os = good ? d : 0;

@@ -33,7 +33,10 @@
 // the wrapper reads the four totals after the launch and packs the last
 // level once into contiguous keys / vals. Branch-major order with the source
 // order kept inside a branch keeps the keys sorted with no sort, as in the
-// host build. Keys are plain int64, so t up to 30 (s = 31) is exact.
+// host build. Keys are plain int64, so t up to 30 (s = 31) is exact. The
+// entries' (k, kp, size) are int32 below n = 2^31 and int64 past it (an
+// entry is then 32 bytes, not 20), over the two-level checkpoint rows whose
+// superblock bases a block stages in shared memory (rank.cuh).
 //
 // What bounds it: the bytes of a level are an entry and its rank rows (a
 // gather, but in key order, which is k order, so the rows come nearly in
@@ -95,15 +98,18 @@ struct EntryRows {
   typename Rank::Rows r;
 };
 
-template <>
-struct EntryRows<pgt::CkptRank> {
-  int row1, row2;
+template <class P>
+struct EntryRows<pgt::CkptRank<P>> {
+  P row1, row2;
   int4 r1[4], r2[4];
 };
 
 template <class Rank>
-__device__ __forceinline__ EntryRows<Rank> load_rows(const Rank& rk, int k, int s) {
-  if constexpr (std::is_same_v<Rank, pgt::CkptRank>) {
+constexpr bool kIsCkpt = !std::is_same_v<Rank, pgt::DenseRank>;
+
+template <class Rank, class P = typename Rank::Pos>
+__device__ __forceinline__ EntryRows<Rank> load_rows(const Rank& rk, P k, P s) {
+  if constexpr (kIsCkpt<Rank>) {
     EntryRows<Rank> e;
     e.row1 = rk.row_of(k);
     e.row2 = rk.row_of(k + s);
@@ -132,27 +138,31 @@ __device__ __forceinline__ int2 pair_in(const int4 (&r)[4], int qe) {
 
 // The backward extension of (k, kp, s) by base b, as pgt::extend1 computes
 // it (C: the C array at the four bases' codes)
-template <class Rank>
+template <class Rank, class P = typename Rank::Pos>
 __device__ __forceinline__ void extend_base(const Rank& rk,
                                             const EntryRows<Rank>& e,
-                                            const int* __restrict__ Cg,
-                                            const int (&C)[4], int k, int kp,
-                                            int s, int b, int& ok, int& okp,
-                                            int& os) {
-  if constexpr (std::is_same_v<Rank, pgt::CkptRank>) {
+                                            const P* __restrict__ Cg,
+                                            const P (&C)[4], P k, P kp, P s,
+                                            int b, P& ok, P& okp, P& os) {
+  if constexpr (kIsCkpt<Rank>) {
     const int qe = pgt::comp_code(base_code(b));
     const uint64_t m1 = (1ull << (k & 63)) - 1, m2 = (1ull << ((k + s) & 63)) - 1;
     const int2 s1 = pair_in(e.r1, qe);
     uint64_t eq1, lt1;
-    pgt::CkptRank::masks(e.r1[0], make_int2(e.r1[1].x, e.r1[1].y), qe, eq1, lt1);
-    int r1, d, dlt;
-    r1 = s1.y - s1.x + __popcll(eq1 & m1);
+    Rank::masks(e.r1[0], make_int2(e.r1[1].x, e.r1[1].y), qe, eq1, lt1);
+    P sl1, sh1;
+    rk.super_pair(e.row1, qe, sl1, sh1);
+    P r1, d, dlt;
+    r1 = static_cast<P>(s1.y - s1.x + __popcll(eq1 & m1)) + (sh1 - sl1);
     if (e.row2 != e.row1) {
       const int2 s2 = pair_in(e.r2, qe);
       uint64_t eq2, lt2;
-      pgt::CkptRank::masks(e.r2[0], make_int2(e.r2[1].x, e.r2[1].y), qe, eq2, lt2);
-      d = s2.y - s2.x + __popcll(eq2 & m2) - r1;
-      dlt = s2.x + __popcll(lt2 & m2) - s1.x - __popcll(lt1 & m1);
+      Rank::masks(e.r2[0], make_int2(e.r2[1].x, e.r2[1].y), qe, eq2, lt2);
+      P sl2, sh2;
+      rk.super_pair(e.row2, qe, sl2, sh2);
+      d = static_cast<P>(s2.y - s2.x + __popcll(eq2 & m2)) + (sh2 - sl2) - r1;
+      dlt = static_cast<P>(s2.x + __popcll(lt2 & m2)) + sl2 -
+            static_cast<P>(s1.x + __popcll(lt1 & m1)) - sl1;
     } else {
       // both ends in one row; an s < 0 counts nothing, as in rank.cuh
       const uint64_t range = m2 & ~m1;
@@ -168,18 +178,19 @@ __device__ __forceinline__ void extend_base(const Rank& rk,
   }
 }
 
-template <class Rank>
+template <class Rank, class P = typename Rank::Pos>
 __global__ void __launch_bounds__(kBlock)
-sdict_level_kernel(Rank rk, const int* __restrict__ Cg,
+sdict_level_kernel(Rank rk, const P* __restrict__ Cg,
                    const int64_t* __restrict__ keys_in,
-                   const int* __restrict__ vals_in, Segments sg, int thresh,
+                   const P* __restrict__ vals_in, Segments sg, int thresh,
                    int level, unsigned long long* state,
                    unsigned int* ticket, int64_t* __restrict__ keys_out,
-                   int* __restrict__ vals_out, int* __restrict__ offsets,
+                   P* __restrict__ vals_out, int* __restrict__ offsets,
                    int* __restrict__ totals) {
   __shared__ int blk_s;
   __shared__ int warp_at[4][kWarps];  // kept children of the warps before
   __shared__ int base_s[4];
+  rk.stage();
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (threadIdx.x == 0) blk_s = static_cast<int>(atomicAdd(ticket, 1u));
   __syncthreads();
@@ -189,20 +200,20 @@ sdict_level_kernel(Rank rk, const int* __restrict__ Cg,
   const int64_t i = static_cast<int64_t>(blk) * kBlock + threadIdx.x;
   const bool live = i < D;
   int64_t key = 0;
-  int k = 0, kp = 0, sz = 0;
+  P k = 0, kp = 0, sz = 0;
   if (live) {
     const int64_t src = source_of(sg, i);
     key = __ldg(reinterpret_cast<const long long*>(keys_in) + src);
-    k = __ldg(vals_in + 3 * src);
-    kp = __ldg(vals_in + 3 * src + 1);
-    sz = __ldg(vals_in + 3 * src + 2);
+    k = pgt::ld(vals_in + 3 * src);
+    kp = pgt::ld(vals_in + 3 * src + 1);
+    sz = pgt::ld(vals_in + 3 * src + 2);
   }
-  int C[4];
+  P C[4];
 #pragma unroll
-  for (int b = 0; b < 4; ++b) C[b] = __ldg(Cg + base_code(b));
+  for (int b = 0; b < 4; ++b) C[b] = pgt::ld(Cg + base_code(b));
   // a thread past the entries ranks the empty interval at 0 and keeps nothing
   const EntryRows<Rank> rows = load_rows(rk, k, sz);
-  int ck[4], ckp[4], cs[4];
+  P ck[4], ckp[4], cs[4];
   unsigned kept[4];
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
@@ -269,11 +280,11 @@ sdict_level_kernel(Rank rk, const int* __restrict__ Cg,
   }
 }
 
-template <class Rank>
-int launch_level(const Rank& rk, const int* C, const int64_t* keys_in,
-                 const int* vals_in, int regions, int64_t stride, int64_t c0,
+template <class Rank, class P = typename Rank::Pos>
+int launch_level(const Rank& rk, const P* C, const int64_t* keys_in,
+                 const P* vals_in, int regions, int64_t stride, int64_t c0,
                  int64_t c1, int64_t c2, int64_t c3, int thresh, int level,
-                 int64_t blocks, void* state, int64_t* keys_out, int* vals_out,
+                 int64_t blocks, void* state, int64_t* keys_out, P* vals_out,
                  int* offsets, int* totals, void* stream) {
   Segments sg;
   const int64_t counts[4] = {c0, c1, c2, c3};
@@ -317,7 +328,26 @@ int pgt_sdict_level_ckpt(const int* ckpt, int64_t nrows, const int* C,
                          int64_t blocks, void* state, int64_t* keys_out,
                          int* vals_out, int* offsets, int* totals,
                          void* stream) {
-  pgt::CkptRank rk{ckpt, static_cast<int>(nrows - 1)};
+  pgt::CkptRank<int> rk{ckpt, static_cast<int>(nrows - 1)};
+  return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
+                      thresh, level, blocks, state, keys_out, vals_out,
+                      offsets, totals, stream);
+}
+
+// the same over int64 positions: two-level rows (super_S [n_super, 8]
+// int64), vals_in / vals_out int64
+int pgt_sdict_level_ckpt64(const int* ckpt, int64_t nrows,
+                           const int64_t* super_S, int64_t n_super,
+                           int super_shift, const int64_t* C,
+                           const int64_t* keys_in, const int64_t* vals_in,
+                           int regions, int64_t stride, int64_t c0, int64_t c1,
+                           int64_t c2, int64_t c3, int thresh, int level,
+                           int64_t blocks, void* state, int64_t* keys_out,
+                           int64_t* vals_out, int* offsets, int* totals,
+                           void* stream) {
+  pgt::CkptRank<int64_t> rk;
+  if (!pgt::make_ckpt64(ckpt, nrows, super_S, n_super, super_shift, &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
                       thresh, level, blocks, state, keys_out, vals_out,
                       offsets, totals, stream);

@@ -37,6 +37,9 @@
 //    neighbour's (streaming stores: the output is written once and is far
 //    larger than L2): a row's values from shared memory, then -1. Slots
 //    that a warp or the block already wrote in step 1 are left alone.
+//
+// The run heads and intervals are int32 below 2^31 BWT rows and int64 past
+// it (a tree line of 8 keys); the key type is a template parameter.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -73,9 +76,10 @@ __device__ __forceinline__ void sort8(int64_t (&x)[kTiny]) {
   order(x[3], x[4]);
 }
 
+template <class K>
 __global__ void query_tags_batch_kernel(
-    pgt::SearchTree tree, int64_t n_runs, const int64_t* __restrict__ pos_enc,
-    const int* __restrict__ start, const int* __restrict__ end, int64_t n,
+    pgt::SearchTree<K> tree, int64_t n_runs, const int64_t* __restrict__ pos_enc,
+    const K* __restrict__ start, const K* __restrict__ end, int64_t n,
     int capacity, int exact, int64_t* __restrict__ positions,
     int* __restrict__ n_unique, int* __restrict__ n_runs_out,
     uint8_t* __restrict__ overflow) {
@@ -97,7 +101,8 @@ __global__ void query_tags_batch_kernel(
 
   // --- 1. finding --------------------------------------------------------
   int v = 0, w0 = 0;
-  const int ends[2] = {b < n ? __ldg(start + b) : 0, b < n ? __ldg(end + b) : 0};
+  const K ends[2] = {b < n ? pgt::load_key(start + b) : 0,
+                     b < n ? pgt::load_key(end + b) : 0};
   int bits[2];
   pgt::upper_bound_ends(tree, ends, b < n, bits);  // by quads: every lane goes in
   if (b < n) {
@@ -241,6 +246,34 @@ __global__ void query_tags_batch_kernel(
   }
 }
 
+template <class K>
+int query(const K* run_start, int64_t n_runs, const K* tree, int64_t tree_rows,
+          const int64_t* pos_enc, const K* start, const K* end, int64_t n,
+          int capacity, int exact, int sort_slots, int64_t* positions,
+          int* n_unique, int* n_runs_out, uint8_t* overflow, void* stream) {
+  pgt::SearchTree<K> tt;
+  if (!pgt::make_search_tree(tree, tree_rows, run_start, n_runs, &tt) ||
+      capacity < 1 || capacity > kMaxCapacity || sort_slots < 64 ||
+      sort_slots < capacity || (sort_slots & (sort_slots - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    const size_t dynamic = static_cast<size_t>(sort_slots) * sizeof(int64_t);
+    if (dynamic > 32 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          query_tags_batch_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(dynamic));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    query_tags_batch_kernel<K><<<blocks, kThreads, dynamic,
+                              static_cast<cudaStream_t>(stream)>>>(
+        tt, n_runs, pos_enc, start, end, n, capacity, exact, positions, n_unique,
+        n_runs_out, overflow);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -256,27 +289,23 @@ int pgt_query_tags_batch(const int* run_start, int64_t n_runs, const int* tree,
                          int capacity, int exact, int sort_slots,
                          int64_t* positions, int* n_unique, int* n_runs_out,
                          uint8_t* overflow, void* stream) {
-  pgt::SearchTree tt;
-  if (!pgt::make_search_tree(tree, tree_rows, run_start, n_runs, &tt) ||
-      capacity < 1 || capacity > kMaxCapacity || sort_slots < 64 ||
-      sort_slots < capacity || (sort_slots & (sort_slots - 1)) != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n > 0) {
-    const size_t dynamic = static_cast<size_t>(sort_slots) * sizeof(int64_t);
-    if (dynamic > 32 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          query_tags_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(dynamic));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    query_tags_batch_kernel<<<blocks, kThreads, dynamic,
-                              static_cast<cudaStream_t>(stream)>>>(
-        tt, n_runs, pos_enc, start, end, n, capacity, exact, positions, n_unique,
-        n_runs_out, overflow);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return query(run_start, n_runs, tree, tree_rows, pos_enc, start, end, n,
+               capacity, exact, sort_slots, positions, n_unique, n_runs_out,
+               overflow, stream);
+}
+
+// the same over int64 run heads (tree [tree_rows, 8] int64) and int64
+// intervals
+int pgt_query_tags_batch64(const int64_t* run_start, int64_t n_runs,
+                           const int64_t* tree, int64_t tree_rows,
+                           const int64_t* pos_enc, const int64_t* start,
+                           const int64_t* end, int64_t n, int capacity,
+                           int exact, int sort_slots, int64_t* positions,
+                           int* n_unique, int* n_runs_out, uint8_t* overflow,
+                           void* stream) {
+  return query(run_start, n_runs, tree, tree_rows, pos_enc, start, end, n,
+               capacity, exact, sort_slots, positions, n_unique, n_runs_out,
+               overflow, stream);
 }
 
 }  // extern "C"

@@ -22,6 +22,9 @@
 // (tagquery.py:100, START_EVERY_K), slots past min(count, M) give 0, and a
 // slot overflows when its run span exceeds `capacity` (its count then covers
 // the first `capacity` runs only).
+//
+// The run heads and MEM buffers are int32 below 2^31 BWT rows and int64 past
+// it (a tree line of 8 keys); the key type is a template parameter.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -36,31 +39,31 @@ using pgt::load64;
 // capacities up to this keep the window in registers
 constexpr int kRegWindow = 8;
 
-template <bool kInRegisters>
-__global__ void query_mem_tags_kernel(pgt::SearchTree tree, int64_t n_runs,
+template <bool kInRegisters, class K>
+__global__ void query_mem_tags_kernel(pgt::SearchTree<K> tree, int64_t n_runs,
                                       const int64_t* __restrict__ pos_enc,
-                                      const int* __restrict__ bwt_start,
-                                      const int* __restrict__ size,
+                                      const K* __restrict__ bwt_start,
+                                      const K* __restrict__ size,
                                       const int* __restrict__ count,
                                       int n_reads, int M, int capacity,
                                       int* __restrict__ n_unique,
                                       uint8_t* __restrict__ overflow) {
   const int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const bool in_range = e < static_cast<int64_t>(n_reads) * M;
-  int s = 0, z = 0;
+  K s = 0, z = 0;
   bool holds_mem = false;
   if (in_range) {
     const int64_t b = e / M;
     const int slot = static_cast<int>(e - b * M);
     // the three loads do not wait for each other
     const int cnt = __ldg(count + b);
-    s = __ldg(bwt_start + e);
-    z = __ldg(size + e);
+    s = pgt::load_key(bwt_start + e);
+    z = pgt::load_key(size + e);
     holds_mem = slot < (cnt < M ? cnt : M);
   }
   // the searches belong to quads of lanes: every lane goes in, a slot
   // without a MEM brings no search
-  const int ends[2] = {s, s + z - 1};
+  const K ends[2] = {s, s + z - 1};
   int bits[2];
   pgt::upper_bound_ends(tree, ends, holds_mem, bits);
   if (!in_range) return;
@@ -104,6 +107,32 @@ __global__ void query_mem_tags_kernel(pgt::SearchTree tree, int64_t n_runs,
 
 constexpr int kThreads = 256;
 
+template <class K>
+int query(const K* run_start, int64_t n_runs, const K* tree, int64_t tree_rows,
+          const int64_t* pos_enc, const K* bwt_start, const K* size,
+          const int* count, int n_reads, int M, int capacity, int* n_unique,
+          uint8_t* overflow, void* stream) {
+  pgt::SearchTree<K> tt;
+  if (!pgt::make_search_tree(tree, tree_rows, run_start, n_runs, &tt)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t total = static_cast<int64_t>(n_reads) * M;
+  if (total > 0) {
+    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (capacity <= kRegWindow) {
+      query_mem_tags_kernel<true, K><<<blocks, kThreads, 0, s>>>(
+          tt, n_runs, pos_enc, bwt_start, size, count, n_reads, M, capacity,
+          n_unique, overflow);
+    } else {
+      query_mem_tags_kernel<false, K><<<blocks, kThreads, 0, s>>>(
+          tt, n_runs, pos_enc, bwt_start, size, count, n_reads, M, capacity,
+          n_unique, overflow);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -116,25 +145,20 @@ int pgt_query_mem_tags(const int* run_start, int64_t n_runs, const int* tree,
                        const int* bwt_start, const int* size, const int* count,
                        int n_reads, int M, int capacity, int* n_unique,
                        uint8_t* overflow, void* stream) {
-  pgt::SearchTree tt;
-  if (!pgt::make_search_tree(tree, tree_rows, run_start, n_runs, &tt)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int64_t total = static_cast<int64_t>(n_reads) * M;
-  if (total > 0) {
-    const unsigned blocks = static_cast<unsigned>((total + kThreads - 1) / kThreads);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (capacity <= kRegWindow) {
-      query_mem_tags_kernel<true><<<blocks, kThreads, 0, s>>>(
-          tt, n_runs, pos_enc, bwt_start, size, count, n_reads, M, capacity,
-          n_unique, overflow);
-    } else {
-      query_mem_tags_kernel<false><<<blocks, kThreads, 0, s>>>(
-          tt, n_runs, pos_enc, bwt_start, size, count, n_reads, M, capacity,
-          n_unique, overflow);
-    }
-  }
-  return static_cast<int>(cudaGetLastError());
+  return query(run_start, n_runs, tree, tree_rows, pos_enc, bwt_start, size,
+               count, n_reads, M, capacity, n_unique, overflow, stream);
+}
+
+// the same over int64 run heads (tree [tree_rows, 8] int64) and int64 MEM
+// buffers
+int pgt_query_mem_tags64(const int64_t* run_start, int64_t n_runs,
+                         const int64_t* tree, int64_t tree_rows,
+                         const int64_t* pos_enc, const int64_t* bwt_start,
+                         const int64_t* size, const int* count, int n_reads,
+                         int M, int capacity, int* n_unique, uint8_t* overflow,
+                         void* stream) {
+  return query(run_start, n_runs, tree, tree_rows, pos_enc, bwt_start, size,
+               count, n_reads, M, capacity, n_unique, overflow, stream);
 }
 
 }  // extern "C"

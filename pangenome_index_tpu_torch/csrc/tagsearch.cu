@@ -8,7 +8,8 @@
 //
 // What bounds it: the rate at which L1 serves the searches' divergent loads
 // (tags.cuh), then the chain of dependent loads of one search: one 64-byte
-// line a level, the top levels served by L1.
+// line a level, the top levels served by L1. An instantiation for int32
+// heads and one for int64 heads (n >= 2^31; 8 keys a line).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -16,13 +17,15 @@
 
 namespace {
 
-__global__ void tag_search_kernel(pgt::SearchTree tree,
-                                  const int* __restrict__ values, int64_t n,
+template <class K>
+__global__ void tag_search_kernel(pgt::SearchTree<K> tree,
+                                  const K* __restrict__ values, int64_t n,
                                   int* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int mine = i < n ? __ldg(values + i) : 0;
+  const K mine = i < n ? pgt::load_key(values + i) : 0;
   // the quad's four values, searched together
-  int v[4], r[4];
+  K v[4];
+  int r[4];
   bool active[4];
 #pragma unroll
   for (int m = 0; m < 4; ++m) {
@@ -38,6 +41,21 @@ __global__ void tag_search_kernel(pgt::SearchTree tree,
 
 constexpr int kThreads = 256;
 
+template <class K>
+int search(const K* heads, int64_t t, const K* nodes, int64_t rows,
+           const K* values, int64_t n, int* out, void* stream) {
+  pgt::SearchTree<K> tree;
+  if (!pgt::make_search_tree(nodes, rows, heads, t, &tree)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+    tag_search_kernel<K><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        tree, values, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -47,16 +65,15 @@ extern "C" {
 int pgt_tag_upper_bound(const int* heads, int64_t t, const int* nodes,
                         int64_t rows, const int* values, int64_t n, int* out,
                         void* stream) {
-  pgt::SearchTree tree;
-  if (!pgt::make_search_tree(nodes, rows, heads, t, &tree)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n > 0) {
-    const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    tag_search_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        tree, values, n, out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return search(heads, t, nodes, rows, values, n, out, stream);
+}
+
+// the same over int64 heads, nodes [rows, 8] int64 and int64 values
+int pgt_tag_upper_bound64(const int64_t* heads, int64_t t,
+                          const int64_t* nodes, int64_t rows,
+                          const int64_t* values, int64_t n, int* out,
+                          void* stream) {
+  return search(heads, t, nodes, rows, values, n, out, stream);
 }
 
 }  // extern "C"

@@ -49,9 +49,10 @@ def card_name(device) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn) -> float:
-    """Mean device milliseconds of fn()'s launch over REPS launches
-    captured in a CUDA graph and replayed back to back."""
+def time_ms(fn, reps: int = REPS) -> float:
+    """Mean device milliseconds of fn()'s launch over reps launches
+    captured in a CUDA graph and replayed back to back; a large fn (a
+    whole seed-table build) is captured once, reps=1."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -59,7 +60,7 @@ def time_ms(fn) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -68,7 +69,7 @@ def time_ms(fn) -> float:
     graph.replay()
     b.record()
     torch.cuda.synchronize()
-    return a.elapsed_time(b) / REPS
+    return a.elapsed_time(b) / reps
 
 
 def make_table(rng: np.random.Generator, device) -> torch.Tensor:

@@ -18,7 +18,8 @@ command line runs across chunks); a mixed batch (mixed_reads: lengths 50 to
 what the sort itself costs there (the proxy and the argsort, the gathers
 that put the results back in input order); and backward search (K7) on N
 reads. Times are the kernels' device
-times from torch.profiler, each the mean of three launches; every line
+times by CUDA events around each launch (launch_ms), each the mean of
+three launches; every line
 carries the card's name and power limit. The last lines count the SASS
 instructions of the MEM and count kernels, and the POPC among them
 (cuobjdump; a line says so where the toolkit lacks it): a chain's step costs
@@ -37,7 +38,6 @@ import sys
 
 import numpy as np
 import torch
-from torch.profiler import ProfilerActivity, profile
 
 from . import _build, gather_probe
 from .ops.count import count
@@ -115,28 +115,46 @@ def trace_tail() -> None:
     torch.cuda.synchronize()
 
 
-def device_ms(fn, *kernels: str, reps: int = 3):
-    """(mean device ms a launch, over reps calls of fn(), of each kernel whose
-    name holds one of `kernels`; the last call's result). The calls come
-    between trace_head and trace_tail; a trace that did not record exactly
-    reps launches of each kernel is taken again, up to three times."""
+#: spin cycles queued ahead of each launch that launch_ms times (about 50 us
+#: on an H100): the host's work of launching is done before the GPU reaches
+#: the start event
+SPIN_CYCLES = 100_000
+
+
+def launch_ms(fn, *entries: str, reps: int = 3):
+    """Device time of the launches fn() makes through the C entry points
+    whose names hold one of `entries`: ({entry: (mean ms a call, launches a
+    call)}, the last call's result), over reps calls after one warm-up call.
+    Each such launch is timed alone by CUDA events around it, behind a short
+    spin. torch.profiler is not used: on the card it loses kernel records,
+    some or all of a trace's, more often the longer the process has run."""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            trace_head()
-            for _ in range(reps):
-                out = fn()
-            trace_tail()
-        found = [[ev for ev in prof.key_averages() if kernel in ev.key]
-                 for kernel in kernels]
-        if all(len(evs) == 1 and evs[0].count == reps for evs in found):
-            return [evs[0].device_time_total / reps / 1e3 for evs in found], out
-        seen = [(ev.key[:60], ev.count) for evs in found for ev in evs]
-        print(f"device_ms: trace {attempt + 1} of {reps} calls saw {seen}",
-              file=sys.stderr)
-    raise RuntimeError(f"the profiler did not record {reps} launches of each of "
-                       f"{', '.join(kernels)}")
+    launch, marks = _build.launch, []
+
+    def timed(name, *args):
+        hit = next((e for e in entries if e in name), None)
+        if hit is None:
+            return launch(name, *args)
+        torch.cuda._sleep(SPIN_CYCLES)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        launch(name, *args)
+        b.record()
+        marks.append((hit, a, b))
+
+    _build.launch = timed
+    try:
+        for _ in range(reps):
+            out = fn()
+    finally:
+        _build.launch = launch
+    torch.cuda.synchronize()
+    spent = {e: [0.0, 0] for e in entries}
+    for e, a, b in marks:
+        spent[e][0] += a.elapsed_time(b)
+        spent[e][1] += 1
+    return {e: (ms / reps, n / reps) for e, (ms, n) in spent.items()}, out
 
 
 def event_ms(fn, reps: int = 10) -> float:
@@ -203,9 +221,10 @@ def main() -> int:
         kw = {k: (pick(v) if k in PER_READ else v) for k, v in b.seed_kw.items()
               if keep is None or k in keep}
         c, n = pick(b.codes), pick(b.lengths)
-        (ms,), (_, stats) = device_ms(
+        got, (_, stats) = launch_ms(
             lambda: find_mems(b.tables, c, n, MIN_LEN, MIN_OCC, capacity=MEM_CAP,
-                              with_stats=True, **kw), "find_mems_kernel")
+                              with_stats=True, **kw), "pgt_find_mems")
+        ms = got["pgt_find_mems"][0]
         steps = stats["steps"]
         print(json.dumps({
             "kernel": "find_mems", "reads": what, "n_reads": int(c.shape[0]),
@@ -254,7 +273,7 @@ def main() -> int:
     qc = torch.from_numpy(qc.reshape(N_READS, READ_LEN).astype(np.int32)).to(dev)
     ql = torch.from_numpy(lens).to(dev)
     for n in (2048, 8192, N_READS):
-        (ms,), _ = device_ms(lambda: count(tables, qc[:n], ql[:n]), "count_kernel")
+        ms = launch_ms(lambda: count(tables, qc[:n], ql[:n]), "pgt_count")[0]["pgt_count"][0]
         print(json.dumps({"kernel": "count", "n_reads": n, "ms": ms,
                           "us_per_step": ms * 1e3 / READ_LEN, "card": card}), flush=True)
     sass = sass_instructions()

@@ -37,20 +37,22 @@ def count_plain(t: RIndexTables, codes: torch.Tensor, lengths: torch.Tensor):
 
 
 def count(t: RIndexTables, codes: torch.Tensor, lengths: torch.Tensor):
-    """(first, second) [B] as count_plain; on the card one launch over the
-    batch (int32 tables, codes and lengths), the plain version on the CPU."""
+    """(first, second) [B] in the tables' position dtype, as count_plain; on
+    the card one launch over the batch (int32 codes and lengths), the plain
+    version on the CPU."""
     if codes.dim() != 2 or lengths.shape != codes.shape[:1]:
         raise ValueError("count: codes must be [B, L] and lengths [B]")
     if codes.device.type == "cpu":
         return count_plain(t, codes, lengths)
     check_kernel_tables(t)
     dev = t.device
+    pd = t.pos_dtype
     B, L = codes.shape
     kind, rargs = rank_args(t)
-    first = torch.empty(B, dtype=torch.int32, device=dev)
-    second = torch.empty(B, dtype=torch.int32, device=dev)
+    first = torch.empty(B, dtype=pd, device=dev)
+    second = torch.empty(B, dtype=pd, device=dev)
     _build.launch(f"pgt_count_{kind}", *rargs,
-                  _build.check("C", t.C, torch.int32, dev),
+                  _build.check("C", t.C, pd, dev),
                   _build.check("codes", codes, torch.int32, dev), L,
                   _build.check("lengths", lengths, torch.int32, dev), B, t.n,
                   first.data_ptr(), second.data_ptr(), _build.stream(dev))

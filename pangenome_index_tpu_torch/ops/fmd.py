@@ -7,7 +7,8 @@ r = rank6 at the backward interval start bk and at bk + s:
 Forward lanes swap k/kp and complement the code; failed lanes (s' <= 0)
 return (0, 0, 0). The rank provider is the table's checkpoint rows when
 present, else its dense records (ops/rank.py:rank6); the kernel reads the
-checkpoint rows in their bit-plane form (tables.ckpt_planes).
+checkpoint rows in their bit-plane form (tables.ckpt_planes), at int32
+positions or, past 2^31, at int64 over two-level rows (with tables.super_S).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from .. import _build
 from ..utils.alphabet import COMP_CODE
 from .rank import rank6 as rank6_plain
-from .tables import RIndexTables
+from .tables import MAX_SUPER, RIndexTables
 
 
 def extend_plain(t: RIndexTables, k, kp, s, code, forward=None):
@@ -50,25 +51,47 @@ def extend_plain(t: RIndexTables, k, kp, s, code, forward=None):
 
 
 def check_kernel_tables(t: RIndexTables) -> None:
-    """The kernels take int32 positions and single-level checkpoint rows."""
-    if t.pos_dtype != torch.int32:
-        raise ValueError("the CUDA kernels take int32 tables (n < 2^31)")
-    if t.ckpt_super is not None:
-        raise ValueError("the CUDA kernels take single-level checkpoint rows, "
-                         "not a two-level ckpt_super layout")
+    """The kernels take checkpoint rows at int32 positions (single-level
+    rows, n < 2^31) or int64 positions (two-level rows past 2^31, or
+    single-level), and dense records at int32 positions."""
     if t.ckpt is None and t.rec is None:
         raise ValueError("tables carry neither checkpoint rows nor dense records")
-    if t.ckpt is not None and t.ckpt_planes is None:
+    if t.pos_dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"the CUDA kernels take int32 or int64 positions, "
+                         f"not {t.pos_dtype}")
+    if t.ckpt is None:
+        if t.pos_dtype != torch.int32:
+            raise ValueError("dense records take int32 positions (n < 2^31): "
+                             "past it the kernels rank through checkpoint rows")
+        return
+    if t.ckpt_planes is None:
         raise ValueError("checkpoint tables lack ckpt_planes "
                          "(ops/tables.py:derive_rank_planes)")
+    if t.pos_dtype == torch.int32:
+        if t.ckpt_super is not None:
+            raise ValueError("two-level checkpoint rows take int64 positions "
+                             "(rindex_to_device(..., dtype=torch.int64))")
+        return
+    if t.super_S is None:
+        raise ValueError("int64 checkpoint tables lack super_S "
+                         "(ops/tables.py:derive_super_S)")
+    if t.super_S.shape[0] > MAX_SUPER:
+        raise ValueError(f"{t.super_S.shape[0]} superblocks: the kernels take "
+                         f"at most {MAX_SUPER} (2^{t.super_shift} positions each)")
 
 
 def rank_args(t: RIndexTables) -> tuple[str, tuple]:
-    """(provider suffix, leading C arguments) of the table's rank provider."""
+    """(entry point suffix, leading C arguments) of the table's rank
+    provider: "ckpt" (int32 positions), "ckpt64" (int64 positions, with the
+    superblock bases) or "dense"."""
     dev = t.device
     if t.ckpt is not None:
-        return "ckpt", (_build.check("ckpt_planes", t.ckpt_planes, torch.int32,
-                                     dev), t.ckpt_planes.shape[0])
+        planes = (_build.check("ckpt_planes", t.ckpt_planes, torch.int32, dev),
+                  t.ckpt_planes.shape[0])
+        if t.pos_dtype == torch.int32:
+            return "ckpt", planes
+        return "ckpt64", (*planes, _build.check("super_S", t.super_S, torch.int64, dev),
+                          t.super_S.shape[0], t.super_shift)
     return "dense", (_build.check("pos_to_run", t.pos_to_run, torch.int32, dev),
                      t.pos_to_run.shape[0],
                      _build.check("rec", t.rec, torch.int32, dev),
@@ -76,22 +99,24 @@ def rank_args(t: RIndexTables) -> tuple[str, tuple]:
 
 
 def extend(t: RIndexTables, k, kp, s, code, forward=None):
-    """k, kp, s, code: [B] (int32 on the card); forward: bool [B] or None
-    (all backward). Returns the extended (k, kp, s)."""
+    """k, kp, s: [B] in the tables' position dtype, code: [B] (int32 on the
+    card); forward: bool [B] or None (all backward). Returns the extended
+    (k, kp, s)."""
     if k.device.type == "cpu":
         return extend_plain(t, k, kp, s, code, forward)
     check_kernel_tables(t)
     dev = t.device
+    pd = t.pos_dtype
     B = k.shape[0]
     kind, rargs = rank_args(t)
-    out = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(3)]
+    out = [torch.empty(B, dtype=pd, device=dev) for _ in range(3)]
     fwd = None if forward is None else \
         _build.check("forward", forward, torch.bool, dev)
     _build.launch(f"pgt_extend_{kind}", *rargs,
-                  _build.check("C", t.C, torch.int32, dev),
-                  _build.check("k", k, torch.int32, dev),
-                  _build.check("kp", kp, torch.int32, dev),
-                  _build.check("s", s, torch.int32, dev),
+                  _build.check("C", t.C, pd, dev),
+                  _build.check("k", k, pd, dev),
+                  _build.check("kp", kp, pd, dev),
+                  _build.check("s", s, pd, dev),
                   _build.check("code", code, torch.int32, dev), fwd, B,
                   *(o.data_ptr() for o in out), _build.stream(dev))
     extend.launches += 1

@@ -10,8 +10,9 @@ as in the JAX package.
 
 On the card one launch, one thread an interval, both searches (run_of and
 the predecessor among the sorted run tails in locate_next) through the
-search trees the tables carry (tables.with_locate_trees); on the CPU the
-plain version, which takes the JAX function's steps with torch.searchsorted.
+search trees the tables carry (tables.with_locate_trees), at int32
+positions or, past 2^31, int64; on the CPU the plain version, which takes
+the JAX function's steps with torch.searchsorted.
 """
 
 from __future__ import annotations
@@ -55,9 +56,9 @@ def locate_batch_plain(t: RIndexTables, start: torch.Tensor, size: torch.Tensor,
 
 def _locate_args(t: RIndexTables, dev) -> tuple:
     """The kernel's view of the locate tables and their search trees."""
-    if t.pos_dtype != torch.int32:
-        raise ValueError("n >= 2^31: the port's kernels take int32 positions "
-                         "(the int64 kernels are not written)")
+    pd = t.pos_dtype
+    if pd not in (torch.int32, torch.int64):
+        raise ValueError(f"locate: int32 or int64 positions, not {pd}")
     if t.run_tree is None or t.tail_tree is None:
         raise ValueError("tables without the locate search trees: build them "
                          "with rindex_to_device or tables_from_numpy")
@@ -66,7 +67,7 @@ def _locate_args(t: RIndexTables, dev) -> tuple:
             or t.samples.shape[0] != r + 1:
         raise ValueError("tables without the locate tables (samples, "
                          "last_sorted, last_to_run of every run)")
-    ptrs = [_build.check(name, a, torch.int32, dev) for name, a in (
+    ptrs = [_build.check(name, a, pd, dev) for name, a in (
         ("run_start", t.run_start), ("run search tree", t.run_tree),
         ("samples", t.samples), ("last_sorted", t.last_sorted),
         ("last_to_run", t.last_to_run), ("tail search tree", t.tail_tree))]
@@ -81,7 +82,8 @@ def locate_batch(t: RIndexTables, start: torch.Tensor, size: torch.Tensor,
     """start/size [B] BWT intervals -> LocateResult (positions [B, capacity]
     in the tables' position dtype, count [B] int32 = min(size, capacity),
     overflow [B] bool = size > capacity); one kernel launch on the card
-    (int32 tables and intervals), the plain version on the CPU."""
+    (intervals in the tables' position dtype: int32, or int64 past 2^31),
+    the plain version on the CPU."""
     if capacity < 1:
         raise ValueError("locate_batch: capacity must be >= 1")
     if start.dim() != 1 or size.shape != start.shape:
@@ -89,13 +91,15 @@ def locate_batch(t: RIndexTables, start: torch.Tensor, size: torch.Tensor,
     if start.device.type == "cpu":
         return locate_batch_plain(t, start, size, capacity)
     dev = t.device
+    pd = t.pos_dtype
     B = start.shape[0]
-    positions = torch.empty((B, capacity), dtype=torch.int32, device=dev)
+    args = _locate_args(t, dev)
+    positions = torch.empty((B, capacity), dtype=pd, device=dev)
     count = torch.empty(B, dtype=torch.int32, device=dev)
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
-    _build.launch("pgt_locate", *_locate_args(t, dev),
-                  _build.check("start", start, torch.int32, dev),
-                  _build.check("size", size, torch.int32, dev), B, int(capacity),
+    _build.launch("pgt_locate64" if pd == torch.int64 else "pgt_locate", *args,
+                  _build.check("start", start, pd, dev),
+                  _build.check("size", size, pd, dev), B, int(capacity),
                   positions.data_ptr(), count.data_ptr(), overflow.data_ptr(),
                   _build.stream(dev))
     locate_batch.launches += 1

@@ -15,6 +15,10 @@ tier's length goes with it, 0 meaning no seed. They are resolved for every
 read position before the loop (resolve_seeds: on the card one launch of its
 own kernel, one thread a position), so that the MEM kernel finds a seed with
 one load, which it issues an iteration ahead.
+
+Positions (intervals, seeds, bwt_start and size) are the tables' position
+dtype: int32 below n = 2^31, int64 past it, each with its instantiation of
+the kernels; the read positions and the packed (start, end) stay int32.
 """
 
 from __future__ import annotations
@@ -41,18 +45,18 @@ class MemResult(NamedTuple):
 def resolve_seeds_plain(B: int, W: int, min_occ: int, mer_table=None,
                         mer_keys=None, mer_valid=None, mer_m: int = 0,
                         sdict_vals=None, sdict_idx=None, sdict_m: int = 0):
-    """Per read position (k, kp, s, tier length) as int32 [B, W, 4], or None
-    without seed tiers."""
+    """Per read position (k, kp, s, tier length) as [B, W, 4] in the tables'
+    dtype, or None without seed tiers."""
     if mer_table is None and sdict_vals is None:
         return None
     gather = gather_rows_plain
-    dev = (mer_table if mer_table is not None else sdict_vals).device
-    seeds = torch.zeros((B, W, 4), dtype=torch.int32, device=dev)
+    ref = mer_table if mer_table is not None else sdict_vals
+    seeds = torch.zeros((B, W, 4), dtype=ref.dtype, device=ref.device)
     if mer_table is not None:
         rows = gather(mer_table, mer_keys.reshape(-1)).reshape(B, W, 3)
         ok = mer_valid & (rows[..., 2] > 0)
         seeds[..., :3] = torch.where(ok[..., None], rows, 0)
-        seeds[..., 3] = ok.to(torch.int32) * mer_m
+        seeds[..., 3] = ok.to(seeds.dtype) * mer_m
     if sdict_vals is not None:
         lrows = gather(sdict_vals, sdict_idx.reshape(-1)).reshape(B, W, 3)
         ls = lrows[..., 2]
@@ -65,15 +69,16 @@ def resolve_seeds_plain(B: int, W: int, min_occ: int, mer_table=None,
 def resolve_seeds(B: int, W: int, min_occ: int, mer_table=None, mer_keys=None,
                   mer_valid=None, mer_m: int = 0, sdict_vals=None,
                   sdict_idx=None, sdict_m: int = 0):
-    """Per read position (k, kp, s, tier length) as int32 [B, W, 4], or None
-    without seed tiers: mer_table [4^m, 3] with mer_keys / mer_valid [B, W],
-    sdict_vals [D, 3] with sdict_idx [B, W] (-1 = absent). On the
-    card one launch, one thread a position, the dictionary first and the
-    m-mer table only where it misses (int32 tables); on the CPU the plain
-    version."""
+    """Per read position (k, kp, s, tier length) as [B, W, 4] in the tables'
+    dtype, or None without seed tiers: mer_table [4^m, 3] with mer_keys /
+    mer_valid [B, W], sdict_vals [D, 3] with sdict_idx [B, W] (-1 = absent);
+    both tables int32, or both int64. On the card one launch, one thread a
+    position, the dictionary first and the m-mer table only where it misses;
+    on the CPU the plain version."""
     if mer_table is None and sdict_vals is None:
         return None
-    dev = (mer_table if mer_table is not None else sdict_vals).device
+    ref = mer_table if mer_table is not None else sdict_vals
+    dev, pd = ref.device, ref.dtype
     if dev.type == "cpu":
         return resolve_seeds_plain(B, W, min_occ, mer_table, mer_keys, mer_valid,
                                    mer_m, sdict_vals, sdict_idx, sdict_m)
@@ -86,7 +91,7 @@ def resolve_seeds(B: int, W: int, min_occ: int, mer_table=None, mer_keys=None,
     def table(name, a):
         if a.dim() != 2 or a.shape[1] != 3 or a.shape[0] == 0:
             raise ValueError(f"{name}: expected [rows > 0, 3]")
-        return _build.check(name, a, torch.int32, dev), a.shape[0]
+        return _build.check(name, a, pd, dev), a.shape[0]
 
     mer = (None, 0, None, None, 0)
     if mer_table is not None:
@@ -97,8 +102,11 @@ def resolve_seeds(B: int, W: int, min_occ: int, mer_table=None, mer_keys=None,
     if sdict_vals is not None:
         sdict = (*table("sdict_vals", sdict_vals),
                  per_read("sdict_idx", sdict_idx, torch.int32), int(sdict_m))
-    seeds = torch.empty((B, W, 4), dtype=torch.int32, device=dev)
-    _build.launch("pgt_resolve_seeds", *mer, *sdict, B * W, int(min_occ),
+    if pd not in (torch.int32, torch.int64):
+        raise ValueError(f"resolve_seeds: int32 or int64 tables, not {pd}")
+    seeds = torch.empty((B, W, 4), dtype=pd, device=dev)
+    _build.launch("pgt_resolve_seeds64" if pd == torch.int64 else "pgt_resolve_seeds",
+                  *mer, *sdict, B * W, int(min_occ),
                   seeds.data_ptr(), _build.stream(dev))
     resolve_seeds.launches += 1
     return seeds
@@ -136,22 +144,28 @@ def find_mems(t: RIndexTables, codes, lengths, min_len: int, min_occ: int,
     whole batch and has no counterpart here.
 
     On the card: resolve_seeds, then one launch of the kernel over the whole
-    batch (int32 tables, codes and lengths); on the CPU: the plain version."""
+    batch (int32 codes and lengths; seed tables in the tables' position
+    dtype); on the CPU: the plain version."""
     if codes.device.type == "cpu":
         return find_mems_plain(t, codes, lengths, min_len, min_occ, capacity,
                                with_stats, **seed_kw)
     check_kernel_tables(t)
     dev = t.device
+    pd = t.pos_dtype
     padded, max_iters = _prepare(codes, align=8)  # the kernel reads 8 codes a load
     B, W = codes.shape[0], codes.shape[1] + 1
     kind, rargs = rank_args(t)
     seeds = resolve_seeds(B, W, min_occ, **seed_kw)
-    se, bwt, size = torch.zeros((3, B, capacity), dtype=torch.int32, device=dev)
+    if seeds is not None and seeds.dtype != pd:
+        raise ValueError(f"find_mems: seed tables of {seeds.dtype} beside tables "
+                         f"of {pd} positions")
+    se = torch.zeros((B, capacity), dtype=torch.int32, device=dev)
+    bwt, size = torch.zeros((2, B, capacity), dtype=pd, device=dev)
     cnt = torch.empty(B, dtype=torch.int32, device=dev)
     steps = torch.empty(B, dtype=torch.int32, device=dev) if with_stats else None
     _build.launch(
         f"pgt_find_mems_{kind}", *rargs,
-        _build.check("C", t.C, torch.int32, dev), padded.data_ptr(),
+        _build.check("C", t.C, pd, dev), padded.data_ptr(),
         _build.check("lengths", lengths, torch.int32, dev),
         None if seeds is None else seeds.data_ptr(), B, W, padded.shape[1],
         int(min_len), int(min_occ), t.n, capacity, max_iters, se.data_ptr(),

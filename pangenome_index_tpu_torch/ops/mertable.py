@@ -94,7 +94,8 @@ def read_mer_keys_fast(codes: np.ndarray, lengths: np.ndarray, m: int):
 
 
 def build_mer_table_device(t: RIndexTables, m: int) -> torch.Tensor:
-    """[4^m, 3] (k, kp, s) table on the tables' device, int32 positions."""
+    """[4^m, 3] (k, kp, s) table on the tables' device, in their position
+    dtype (int64 at n >= 2^31, where K2 runs its int64 instantiation)."""
     dev = t.device
     k = torch.zeros(1, dtype=t.pos_dtype, device=dev)
     kp = torch.zeros(1, dtype=t.pos_dtype, device=dev)
@@ -178,7 +179,7 @@ def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
     min_m = max(m - 2, 4)
     if max_bytes is None:
         max_bytes = device_budget(tables.device)
-    item = 8 if idx.n >= 2**31 else 4
+    item = tables.C.element_size()
     for m_try in range(m, min_m - 1, -1):
         key = mer_table_key(idx, m_try)
         table_bytes = (4 ** m_try) * 3 * item

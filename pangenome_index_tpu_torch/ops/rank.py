@@ -10,7 +10,8 @@ Each checkpoint row holds the occ counts before its bucket (cols 0..5) and
 the bucket's 64 BWT codes as 4-bit nibbles (cols 6..13, LSB first, 0xF past
 n); rank6(pos) is the row of pos >> 6 plus the count of each code among its
 first pos & 63 nibbles. Row indices clamp into the table as JAX gathers do.
-The kernels read the same counts from a bit-plane form of the rows;
+The kernels read the same counts from a bit-plane form of the rows (and,
+for int64 positions, the superblock bases super_S of two-level rows);
 planes_rank6 is its plain reader, held against ckpt_rank6 by the tests.
 run_of and locate_next are the two searches of locate (ops/locate.py).
 """
@@ -21,7 +22,7 @@ import torch
 
 from ..utils.alphabet import COMP_CODE
 from .dense_rank import rank6_dense_plain
-from .tables import RIndexTables
+from .tables import SINGLE_LEVEL_SHIFT, RIndexTables
 
 _NIBBLE_SHIFTS = torch.arange(0, 32, 4, dtype=torch.int32)
 
@@ -54,23 +55,31 @@ def _popcount64(x: torch.Tensor) -> torch.Tensor:
     return (x * 0x0101010101010101) >> 56
 
 
-def planes_rank6(planes: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
-    """rank6 ([B] -> [B, 6] int32) read from the bit-plane rows the kernels
-    use (tables.derive_rank_planes; csrc/rank.cuh:CkptRank): per code, the
-    row's count below the code's q = COMP_CODE[code] and one popcount of the
-    positions before pos whose planes spell q."""
-    row = planes[(pos.long() >> 6).clamp(0, planes.shape[0] - 1)]
+def planes_rank6(planes: torch.Tensor, pos: torch.Tensor,
+                 super_S: torch.Tensor | None = None,
+                 super_shift: int = SINGLE_LEVEL_SHIFT) -> torch.Tensor:
+    """rank6 ([B] -> [B, 6]) read from the bit-plane rows the kernels use
+    (tables.derive_rank_planes; csrc/rank.cuh:CkptRank): per code, the row's
+    count below the code's q = COMP_CODE[code] and one popcount of the
+    positions before pos whose planes spell q. int32; with super_S
+    (tables.derive_super_S, the bases of two-level rows) int64, the count
+    below q in the superblock of the row added, the superblock being
+    (row << 6) >> super_shift as in the kernels."""
+    ri = (pos.long() >> 6).clamp(0, planes.shape[0] - 1)
+    row = planes[ri]
     words = row[:, :6].contiguous().view(torch.int64)              # [B, 3]
     before = (torch.ones_like(pos, dtype=torch.int64) << (pos.long() & 63)) - 1
     # S[0..6] back out of the overlapping pairs (S[1], S[2]) ... (S[5], S[6])
     below = torch.cat((torch.zeros_like(row[:, :1]), row[:, 6:7], row[:, 7::2]), dim=1)
+    sup = None if super_S is None else super_S[(ri << 6) >> super_shift]
     out = []
     for code in range(6):
         q = int(COMP_CODE[code])
         hit = before
         for b in range(3):
             hit = hit & (words[:, b] if (q >> b) & 1 else ~words[:, b])
-        out.append(below[:, q + 1] - below[:, q] + _popcount64(hit).to(torch.int32))
+        r = below[:, q + 1] - below[:, q] + _popcount64(hit).to(torch.int32)
+        out.append(r if sup is None else r.long() + sup[:, q + 1] - sup[:, q])
     return torch.stack(out, dim=1)
 
 

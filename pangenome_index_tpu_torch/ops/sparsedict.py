@@ -146,11 +146,11 @@ def sdict_level_plain(t: RIndexTables, keys: torch.Tensor, vals: torch.Tensor,
 def sdict_level(t: RIndexTables, keys: torch.Tensor, vals: torch.Tensor,
                 counts, thresh: int, level: int):
     """(keys, vals, offsets, totals) of the next level as sdict_level_plain;
-    on the card one launch of the level kernel (int32 tables), which writes
-    a region only as far as its total, the plain version on the CPU. keys
-    [R, cap] int64 and vals [R, cap, 3] hold the level's entries, the first
-    counts[r] of region r (R = 1 for the root, 4 after a level); D =
-    sum(counts) must be at least 1."""
+    on the card one launch of the level kernel, which writes a region only
+    as far as its total, the plain version on the CPU. keys [R, cap] int64
+    and vals [R, cap, 3] (the tables' position dtype) hold the level's
+    entries, the first counts[r] of region r (R = 1 for the root, 4 after a
+    level); D = sum(counts) must be at least 1."""
     R = keys.shape[0] if keys.dim() == 2 else 0
     if not (1 <= R <= 4 and vals.shape == (*keys.shape, 3) and len(counts) == R
             and all(0 <= c <= keys.shape[1] for c in counts) and sum(counts) >= 1):
@@ -163,18 +163,19 @@ def sdict_level(t: RIndexTables, keys: torch.Tensor, vals: torch.Tensor,
         return sdict_level_plain(t, keys, vals, counts, thresh, level)
     check_kernel_tables(t)
     dev = t.device
+    pd = t.pos_dtype
     D = int(sum(counts))
     blocks = -(-D // LEVEL_BLOCK)
     kind, rargs = rank_args(t)
     out_keys = torch.empty((4, D), dtype=torch.int64, device=dev)
-    out_vals = torch.empty((4, D, 3), dtype=torch.int32, device=dev)
+    out_vals = torch.empty((4, D, 3), dtype=pd, device=dev)
     offsets = torch.empty((4, blocks), dtype=torch.int32, device=dev)
     totals = torch.empty(4, dtype=torch.int32, device=dev)
     state = torch.empty(4 * blocks + 1, dtype=torch.int64, device=dev)
     _build.launch(f"pgt_sdict_level_{kind}", *rargs,
-                  _build.check("C", t.C, torch.int32, dev),
+                  _build.check("C", t.C, pd, dev),
                   _build.check("keys", keys, torch.int64, dev),
-                  _build.check("vals", vals, torch.int32, dev), R, keys.shape[1],
+                  _build.check("vals", vals, pd, dev), R, keys.shape[1],
                   *(list(counts) + [0] * (4 - R)), int(thresh), level, blocks,
                   state.data_ptr(), out_keys.data_ptr(), out_vals.data_ptr(),
                   offsets.data_ptr(), totals.data_ptr(), _build.stream(dev))
@@ -304,21 +305,25 @@ def read_windows_fast(codes: np.ndarray, lengths: np.ndarray, s: int,
     return keys, valid, idx
 
 
-def sdict_vals_to_device(vals, device) -> torch.Tensor:
-    """vals [D, 3] as a numpy array or a tensor -> an int32 tensor on
-    `device`. An empty dictionary gives one all-zero row, which no window
-    points at."""
+def sdict_vals_to_device(vals, device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """vals [D, 3] as a numpy array or a tensor -> a tensor of `dtype` (the
+    rank tables' position dtype, which the seed pass takes) on `device`.
+    An empty dictionary gives one all-zero row, which no window points at.
+    Values that do not fit `dtype` are refused."""
     if not isinstance(vals, torch.Tensor):
         vals = torch.from_numpy(np.ascontiguousarray(vals))
     if vals.shape[0] == 0:
-        vals = torch.zeros((1, 3), dtype=torch.int32)
-    if vals.dtype != torch.int32:
-        raise ValueError("the port's dictionary tier takes int32 values (n < 2^31)")
-    return vals.to(device)
+        vals = torch.zeros((1, 3), dtype=dtype)
+    if vals.dtype != dtype and vals.numel() and \
+            int(vals.max()) > torch.iinfo(dtype).max:
+        raise ValueError(f"dictionary values past {dtype}")
+    return vals.to(device, dtype)
 
 
-def sdict_to_device(vals, dict_rows: np.ndarray, device):
+def sdict_to_device(vals, dict_rows: np.ndarray, device,
+                    dtype: torch.dtype = torch.int32):
     """(vals [D, 3] as a numpy array or a tensor, dict_rows [B, L+1] with -1
-    for absent windows) -> int32 tensors on `device` (sdict_vals_to_device)."""
-    return (sdict_vals_to_device(vals, device),
+    for absent windows) -> tensors on `device`: vals in `dtype`
+    (sdict_vals_to_device), the rows int32."""
+    return (sdict_vals_to_device(vals, device, dtype),
             torch.from_numpy(np.ascontiguousarray(dict_rows, np.int32)).to(device))

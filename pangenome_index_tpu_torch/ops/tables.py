@@ -13,6 +13,13 @@ card. The tag tables carry, beside the JAX package's fields, the search tree
 over their run heads that the tag kernels descend (`derive_search_tree`);
 the r-index tables carry two more, over the run heads and the sorted run
 tails, that locate descends.
+
+Positions are int32 while every value fits and int64 past 2^31, as in the
+JAX package; the kernels take either (an instantiation for each). At n >=
+2^31 the checkpoint rows are the two-level form: int32 counts relative to
+their superblock of 2^SUPER_SHIFT positions, and `ckpt_super` the absolute
+counts at each superblock start, which the kernels read as `super_S`
+(`derive_super_S`) from shared memory.
 """
 
 from __future__ import annotations
@@ -31,6 +38,11 @@ SUPER_SHIFT = 30
 #: positions per checkpoint row (the 128-position variant of the JAX package
 #: measured slower and is not carried over)
 CKPT_BLOCK = 64
+#: the superblock shift that single-level rows are read with
+SINGLE_LEVEL_SHIFT = 62
+#: superblocks the kernels take (csrc/rank.cuh:kMaxSuper, staged in shared
+#: memory): 2^36 positions at SUPER_SHIFT
+MAX_SUPER = 64
 
 
 @dataclass
@@ -52,6 +64,9 @@ class RIndexTables:
     ckpt: torch.Tensor | None = None        # checkpoint: [n//64+2, 16] int32
     ckpt_planes: torch.Tensor | None = None  # the kernels' form of ckpt
     ckpt_super: torch.Tensor | None = None  # two-level: [n_super, 6+shift] int64
+    # int64 checkpoint tables: the kernels' form of ckpt_super (one row of
+    # zeros for single-level rows), derive_super_S
+    super_S: torch.Tensor | None = None
     # the search trees over run_start and last_sorted (derive_search_tree)
     # and the first line of each of their levels: locate (K8) searches
     # through them and refuses tables without them
@@ -67,6 +82,14 @@ class RIndexTables:
     @property
     def device(self) -> torch.device:
         return self.C.device
+
+    @property
+    def super_shift(self) -> int:
+        """log2 of the superblock width of two-level rows; single-level
+        rows read as one superblock (every position's pos >> 62 is 0)."""
+        if self.ckpt_super is None:
+            return SINGLE_LEVEL_SHIFT
+        return self.ckpt_super.shape[1] - 6
 
 
 @dataclass
@@ -183,7 +206,8 @@ def derive_rank_planes(ckpt: torch.Tensor, chunk_rows: int = 1 << 16) -> torch.T
                    (S[4], S[5]), (S[5], S[6]), S[j] = positions before the
                    row with q < j (overlapping, so that S[q] and S[q + 1]
                    are one aligned 8-byte load)
-    Single-level rows only (no ckpt_super)."""
+    Two-level rows (n >= 2^31) keep the same form: their S[j] count from
+    the superblock start and fit int32; derive_super_S gives the bases."""
     dev = ckpt.device
     comp = torch.as_tensor(COMP_CODE.astype(np.int64), device=dev)
     q_of_nibble = torch.full((16,), 7, dtype=torch.int64, device=dev)
@@ -205,53 +229,81 @@ def derive_rank_planes(ckpt: torch.Tensor, chunk_rows: int = 1 << 16) -> torch.T
     return out
 
 
-#: keys of a search-tree node (one 64-byte line of int32) and its children
-NODE_KEYS = 16
-FAN_OUT = NODE_KEYS + 1
+def derive_super_S(ckpt_super: torch.Tensor) -> torch.Tensor:
+    """The kernels' superblock bases, derived from `ckpt_super` [n_super,
+    6 + shift] (absolute occ of each code at each superblock start) on its
+    device: [n_super, 8] int64, S[0..6] comp-permuted as the rows' pairs
+    (S[j] = positions before the superblock with q = COMP_CODE[code] < j)
+    and S[6] again as a pad."""
+    comp = torch.as_tensor(COMP_CODE.astype(np.int64), device=ckpt_super.device)
+    out = torch.zeros((ckpt_super.shape[0], 8), dtype=torch.int64,
+                      device=ckpt_super.device)
+    out[:, 1:7] = torch.cumsum(ckpt_super[:, :6].long()[:, comp], dim=1)
+    out[:, 7] = out[:, 6]
+    return out
+
+
+def with_rank_planes(t: "RIndexTables") -> "RIndexTables":
+    """The kernels' forms of the checkpoint rows, derived on their device:
+    ckpt_planes, and for int64 positions super_S (returns t)."""
+    if t.ckpt is not None:
+        t.ckpt_planes = derive_rank_planes(t.ckpt)
+        if t.pos_dtype == torch.int64:
+            t.super_S = (derive_super_S(t.ckpt_super) if t.ckpt_super is not None
+                         else torch.zeros((1, 8), dtype=torch.int64, device=t.device))
+    return t
+
+
+def node_keys(dtype: torch.dtype) -> int:
+    """Keys of a search-tree node of `dtype` keys: one 64-byte line (16
+    int32 keys, 8 int64 keys); a node has one child more."""
+    return 64 * 8 // torch.iinfo(dtype).bits
 
 
 def derive_search_tree(heads: torch.Tensor) -> tuple[torch.Tensor, tuple[int, ...]]:
     """The static search tree over the sorted run heads `heads` [t], derived
-    on their device: (lines [rows, 16] of the heads' dtype, the first line
-    of each level).
+    on their device: (lines [rows, K] of the heads' dtype, the first line
+    of each level), K = node_keys(dtype): 16 for int32 heads, 8 for int64.
 
-    A node is one line of 16 keys with 17 children. The leaf level is `heads`
-    itself read as lines of 16 (the last may be short); node j of height h
-    covers the leaf lines [j * 17^h, (j + 1) * 17^h), and its key i is the
-    first head of the leaf line where its child i + 1 begins, or the dtype's
-    maximum where the heads end before it. The tensor holds the internal
-    levels, root first, then one more line: the last leaf line padded to 16
-    keys with the maximum. levels[d] is the first line of level d, and
-    levels[depth] that padded line. With c = the keys of a node that are
-    <= v, the descent goes to child 17 * j + c, and the number of heads <= v
-    is 16 * (leaf line) + the keys of that line that are <= v
+    A node is one 64-byte line of K keys with F = K + 1 children. The leaf
+    level is `heads` itself read as lines of K (the last may be short); node
+    j of height h covers the leaf lines [j * F^h, (j + 1) * F^h), and its key
+    i is the first head of the leaf line where its child i + 1 begins, or the
+    dtype's maximum where the heads end before it. The tensor holds the
+    internal levels, root first, then one more line: the last leaf line
+    padded to K keys with the maximum. levels[d] is the first line of level
+    d, and levels[depth] that padded line. With c = the keys of a node that
+    are <= v, the descent goes to child F * j + c, and the number of heads
+    <= v is K * (leaf line) + the keys of that line that are <= v
     (ops/tagquery.py:tag_upper_bound_plain, csrc/tags.cuh:upper_bound_quad).
     A head equal to the dtype's maximum could not be told from the padding
     and is refused (heads are BWT offsets or packed text positions, below
     it wherever the kernels take them)."""
     t = heads.shape[0]
     dev = heads.device
+    keys_n = node_keys(heads.dtype)
+    fan = keys_n + 1
     big = torch.iinfo(heads.dtype).max
     if t and int(heads[-1]) == big:
         raise ValueError("a head of the search tree equals the dtype's maximum")
-    n_lines = max(1, -(-t // NODE_KEYS))
+    n_lines = max(1, -(-t // keys_n))
     depth = 0
-    while FAN_OUT ** depth < n_lines:
+    while fan ** depth < n_lines:
         depth += 1
-    child = torch.arange(1, FAN_OUT, device=dev)
+    child = torch.arange(1, fan, device=dev)
     parts, levels, at = [], [], 0
     for h in range(depth, 0, -1):
-        n_nodes = -(-n_lines // FAN_OUT ** h)
-        line = (torch.arange(n_nodes, device=dev)[:, None] * FAN_OUT ** h
-                + child[None, :] * FAN_OUT ** (h - 1))
-        keys = torch.full((n_nodes, NODE_KEYS), big, dtype=heads.dtype, device=dev)
+        n_nodes = -(-n_lines // fan ** h)
+        line = (torch.arange(n_nodes, device=dev)[:, None] * fan ** h
+                + child[None, :] * fan ** (h - 1))
+        keys = torch.full((n_nodes, keys_n), big, dtype=heads.dtype, device=dev)
         there = line < n_lines
-        keys[there] = heads[line[there] * NODE_KEYS]
+        keys[there] = heads[line[there] * keys_n]
         parts.append(keys)
         levels.append(at)
         at += n_nodes
-    last = torch.full((1, NODE_KEYS), big, dtype=heads.dtype, device=dev)
-    tail = heads[(n_lines - 1) * NODE_KEYS :]
+    last = torch.full((1, keys_n), big, dtype=heads.dtype, device=dev)
+    tail = heads[(n_lines - 1) * keys_n :]
     last[0, : tail.shape[0]] = tail
     parts.append(last)
     levels.append(at)
@@ -262,21 +314,23 @@ def tree_upper_bound_plain(tree: torch.Tensor, levels: tuple[int, ...],
                            heads: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Number of heads <= v[i] (searchsorted side="right"), found by walking
     the search tree (tree, levels) = derive_search_tree(heads) with torch
-    indexing: one line of 16 keys a level, the child chosen by the count of
+    indexing: one line of keys a level, the child chosen by the count of
     keys <= v. [B] int64."""
     t = heads.shape[0]
     if t == 0:
         return torch.zeros(v.shape, dtype=torch.int64, device=v.device)
+    keys_n = node_keys(tree.dtype)
+    fan = keys_n + 1
     big = torch.iinfo(tree.dtype).max
     key = v.to(tree.dtype).clamp(max=big - 1)[:, None]   # the padding never counts
     node = torch.zeros(v.shape, dtype=torch.int64, device=v.device)
     for first in levels[:-1]:
-        node = node * FAN_OUT + (tree[first + node] <= key).sum(dim=1)
-    slots = node[:, None] * NODE_KEYS + torch.arange(NODE_KEYS, device=v.device)
+        node = node * fan + (tree[first + node] <= key).sum(dim=1)
+    slots = node[:, None] * keys_n + torch.arange(keys_n, device=v.device)
     # the last leaf line is read from the tree, where it is padded
-    leaf = torch.where((node == (t - 1) // NODE_KEYS)[:, None], tree[levels[-1]][None, :],
+    leaf = torch.where((node == (t - 1) // keys_n)[:, None], tree[levels[-1]][None, :],
                        heads[slots.clamp(max=t - 1)])
-    return node * NODE_KEYS + (leaf <= key).sum(dim=1)
+    return node * keys_n + (leaf <= key).sum(dim=1)
 
 
 def with_locate_trees(t: RIndexTables) -> RIndexTables:
@@ -288,24 +342,26 @@ def with_locate_trees(t: RIndexTables) -> RIndexTables:
 
 
 def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
-                     dense: bool = False,
-                     super_shift: int | None = None) -> RIndexTables:
+                     dense: bool = False, super_shift: int | None = None,
+                     dtype: torch.dtype | None = None) -> RIndexTables:
     """r-index -> tables on `device` with checkpoint rows, dense records, or
     both (rank reads the checkpoint rows when present, as in the JAX
     package); with neither, base tables that rank through the full per-run
     cum table (plain PyTorch only: the kernels refuse them). Same fields and
     values as the JAX rindex_to_device (base: bucketed=False), and the
-    search trees that locate descends (with_locate_trees)."""
+    search trees that locate descends (with_locate_trees).
+
+    Positions are `dtype`, by default int32 where every value fits and int64
+    past 2^31; rows are two-level at n >= 2^31 or with an explicit
+    super_shift (the kernels take two-level rows with int64 positions)."""
     device = torch.device(device)
-    pd = _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
-    ckpt = ckpt_planes = ckpt_super = pos_to_run = rec = None
+    pd = dtype or _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
+    ckpt = ckpt_super = pos_to_run = rec = None
     if checkpoint:
         rows, sup = build_ckpt_rows(idx, super_shift=super_shift)
         ckpt = _put(rows, torch.int32, device)
         if sup is not None:
             ckpt_super = _put(sup, torch.int64, device)
-        else:
-            ckpt_planes = derive_rank_planes(ckpt)
     if dense:
         runs = np.repeat(np.arange(idx.n_runs, dtype=np.int64), idx.run_len)
         p2r = np.concatenate((runs, [idx.n_runs - 1, idx.n_runs - 1]))
@@ -315,7 +371,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         rec_np[:, 1] = idx.run_sym
         rec_np[:, 2:8] = idx.cum
         rec = _put(rec_np, pd, device)
-    return with_locate_trees(RIndexTables(
+    return with_locate_trees(with_rank_planes(RIndexTables(
         run_sym=_put(idx.run_sym, torch.int8, device),
         run_start=_put(idx.run_start, pd, device),
         # only base tables rank through the per-run cum table; beside a
@@ -327,15 +383,16 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         last_sorted=_put(idx.last_sorted, pd, device),
         last_to_run=_put(idx.last_to_run, pd, device),
         n=int(idx.n), n_seq=int(idx.n_seq), max_len=int(idx.max_len),
-        pos_to_run=pos_to_run, rec=rec, ckpt=ckpt, ckpt_planes=ckpt_planes,
-        ckpt_super=ckpt_super))
+        pos_to_run=pos_to_run, rec=rec, ckpt=ckpt, ckpt_super=ckpt_super)))
 
 
-def tags_to_device(tags: TagArray, device) -> TagTables:
+def tags_to_device(tags: TagArray, device,
+                   dtype: torch.dtype | None = None) -> TagTables:
     """Tag array -> tables on `device`, with the search tree over the run
-    heads; run heads int32 below 2^31 rows."""
+    heads; run heads `dtype`, by default int32 below 2^31 rows and int64
+    past it."""
     device = torch.device(device)
-    pd = _pick_dtype(tags.total)
+    pd = dtype or _pick_dtype(tags.total)
     heads = _put(tags.bwt_start, pd, device)
     tree, levels = derive_search_tree(heads)
     return TagTables(pos_enc=_put(tags.pos_enc, torch.int64, device),
@@ -351,8 +408,10 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
                       tags: dict[str, np.ndarray] | None, device):
     """The JAX package's RIndexTables / TagTables fields, each as a numpy
     array (None kept), -> (RIndexTables, TagTables or None) on `device`, with
-    the same dtypes and values, and the search trees the port derives
-    beside them (over the tag run heads; over run_start and last_sorted)."""
+    the same dtypes and values, and what the port derives beside them: the
+    search trees (over the tag run heads; over run_start and last_sorted),
+    the bit-plane rows and, for int64 positions, the superblock bases
+    (two-level rows included)."""
     device = torch.device(device)
     for name in _UNPORTED_FIELDS:
         if rindex.get(name) is not None:
@@ -370,9 +429,7 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
         max_len=int(rindex["max_len"]))
     if t.ckpt_super is not None:
         t.ckpt_super = t.ckpt_super.to(torch.int64)
-    elif t.ckpt is not None:
-        t.ckpt_planes = derive_rank_planes(t.ckpt)
-    with_locate_trees(t)
+    with_locate_trees(with_rank_planes(t))
     tt = None
     if tags is not None:
         heads = put(tags["bwt_start"])

@@ -20,6 +20,11 @@ alone (csrc/tagsearch.cu), the counterpart of the jnp.searchsorted calls of
 the two JAX functions; its plain version walks the same tree with torch
 indexing, so the structure can be held against torch.searchsorted on any
 device. The plain versions of K4 and K6 keep torch.searchsorted.
+
+The run heads are int32 below 2^31 BWT rows and int64 past it (a tree node
+then holds 8 keys); each kernel has an instantiation for either, picked by
+the heads' dtype, and takes the intervals in that dtype (converted where
+they come in the other: _keys).
 """
 
 from __future__ import annotations
@@ -46,14 +51,34 @@ def _require_tree(tt: TagTables) -> None:
 
 
 def _tree_args(tt: TagTables, dev) -> tuple:
-    """The kernels' view of the tag tables: heads, their count, the search
-    tree and its lines. Raises when the tables carry no tree."""
+    """(entry point suffix: "" for int32 heads, "64" for int64; the kernels'
+    view of the tag tables: heads, their count, the search tree and its
+    lines). Raises when the tables carry no tree."""
     _require_tree(tt)
-    heads = _build.check("tag bwt_start", tt.bwt_start, torch.int32, dev)
-    tree = _build.check("tag search tree", tt.search_tree, torch.int32, dev)
+    kd = tt.bwt_start.dtype
+    if kd not in (torch.int32, torch.int64):
+        raise ValueError(f"tag run heads of {kd}: the kernels take int32 or int64")
+    heads = _build.check("tag bwt_start", tt.bwt_start, kd, dev)
+    tree = _build.check("tag search tree", tt.search_tree, kd, dev)
     if heads % 16 or tree % 16:
         raise ValueError("tag run heads and search tree must be 16-byte aligned")
-    return heads, tt.n_runs, tree, tt.search_tree.shape[0]
+    return ("64" if kd == torch.int64 else ""), (heads, tt.n_runs, tree,
+                                                 tt.search_tree.shape[0])
+
+
+def _keys(name: str, v: torch.Tensor, kd: torch.dtype, dev) -> torch.Tensor:
+    """v in the heads' dtype. int32 values are widened for int64 heads;
+    int64 values (the MEM buffers of int64 r-index tables beside int32 tag
+    heads, where n_seq * max_len passes 2^31 and n does not) are clamped
+    into int32, which keeps every search's answer: every head lies below
+    the int32 maximum and at or above 0."""
+    if v.dtype == torch.int64 and kd == torch.int32:
+        info = torch.iinfo(torch.int32)
+        v = v.clamp(info.min, info.max).int()
+    elif v.dtype != kd:
+        v = v.to(kd)
+    _build.check(name, v, kd, dev)
+    return v
 
 
 def tag_upper_bound_plain(tt: TagTables, v: torch.Tensor) -> torch.Tensor:
@@ -67,16 +92,17 @@ def tag_upper_bound_plain(tt: TagTables, v: torch.Tensor) -> torch.Tensor:
 
 def tag_upper_bound(tt: TagTables, v: torch.Tensor) -> torch.Tensor:
     """v [B] (the run heads' dtype) -> number of run heads <= v[i], [B]
-    int32: one kernel launch on the card (int32 heads), the plain walk of
-    the tree on the CPU."""
+    int32: one kernel launch on the card, the plain walk of the tree on the
+    CPU."""
     if v.dim() != 1:
         raise ValueError("tag_upper_bound: v must be [B]")
     if v.device.type == "cpu":
         return tag_upper_bound_plain(tt, v)
     dev = tt.bwt_start.device
+    sfx, targs = _tree_args(tt, dev)
+    v = _keys("v", v, tt.bwt_start.dtype, dev)
     out = torch.empty(v.shape[0], dtype=torch.int32, device=dev)
-    _build.launch("pgt_tag_upper_bound", *_tree_args(tt, dev),
-                  _build.check("v", v, torch.int32, dev), v.shape[0],
+    _build.launch(f"pgt_tag_upper_bound{sfx}", *targs, v.data_ptr(), v.shape[0],
                   out.data_ptr(), _build.stream(dev))
     tag_upper_bound.launches += 1
     return out
@@ -115,17 +141,21 @@ def query_mem_tags_plain(tt: TagTables, bwt_start, size, count,
 def query_mem_tags(tt: TagTables, bwt_start, size, count, capacity: int = 32):
     """bwt_start/size [B, M] and count [B] (MemResult buffers) ->
     (n_unique [B, M] int32, overflow [B, M] bool); one kernel launch on the
-    card (int32 buffers and run heads), the plain version on the CPU."""
+    card (buffers converted to the run heads' dtype), the plain version on
+    the CPU."""
     if bwt_start.device.type == "cpu":
         return query_mem_tags_plain(tt, bwt_start, size, count, capacity)
     dev = tt.bwt_start.device
     B, M = bwt_start.shape
+    sfx, targs = _tree_args(tt, dev)
+    kd = tt.bwt_start.dtype
+    bwt_start, size = (_keys(name, a, kd, dev)
+                       for name, a in (("bwt_start", bwt_start), ("size", size)))
     nu = torch.empty((B, M), dtype=torch.int32, device=dev)
     ov = torch.empty((B, M), dtype=torch.bool, device=dev)
-    _build.launch("pgt_query_mem_tags", *_tree_args(tt, dev),
+    _build.launch(f"pgt_query_mem_tags{sfx}", *targs,
                   _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
-                  _build.check("bwt_start", bwt_start, torch.int32, dev),
-                  _build.check("size", size, torch.int32, dev),
+                  bwt_start.data_ptr(), size.data_ptr(),
                   _build.check("count", count, torch.int32, dev), B, M,
                   int(capacity), nu.data_ptr(), ov.data_ptr(), _build.stream(dev))
     query_mem_tags.launches += 1
@@ -173,8 +203,9 @@ def query_tags_batch_plain(tt: TagTables, start, end, capacity: int = 64,
 def query_tags_batch(tt: TagTables, start, end, capacity: int = 64,
                      exact: bool = False) -> TagQueryResult:
     """start/end [B] inclusive BWT intervals -> TagQueryResult; one kernel
-    launch on the card (int32 intervals and run heads), the plain version
-    on the CPU. The kernel writes every slot of `positions` itself."""
+    launch on the card (intervals converted to the run heads' dtype), the
+    plain version on the CPU. The kernel writes every slot of `positions`
+    itself."""
     if capacity < 1:
         raise ValueError("query_tags_batch: capacity must be >= 1")
     if start.dim() != 1 or end.shape != start.shape:
@@ -186,16 +217,18 @@ def query_tags_batch(tt: TagTables, start, end, capacity: int = 64,
                          f"to {MAX_BATCH_CAPACITY}, got {capacity}")
     dev = tt.bwt_start.device
     B = start.shape[0]
+    sfx, targs = _tree_args(tt, dev)
+    start, end = (_keys(name, a, tt.bwt_start.dtype, dev)
+                  for name, a in (("start", start), ("end", end)))
     positions = torch.empty((B, capacity), dtype=torch.int64, device=dev)
     n_unique, n_runs = (torch.empty(B, dtype=torch.int32, device=dev)
                         for _ in range(2))
     overflow = torch.empty(B, dtype=torch.bool, device=dev)
     # the block's sort buffer: the power of two that holds the widest row
     sort_slots = max(64, 1 << (capacity - 1).bit_length())
-    _build.launch("pgt_query_tags_batch", *_tree_args(tt, dev),
+    _build.launch(f"pgt_query_tags_batch{sfx}", *targs,
                   _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
-                  _build.check("start", start, torch.int32, dev),
-                  _build.check("end", end, torch.int32, dev), B, int(capacity),
+                  start.data_ptr(), end.data_ptr(), B, int(capacity),
                   int(bool(exact)), sort_slots, positions.data_ptr(),
                   n_unique.data_ptr(), n_runs.data_ptr(), overflow.data_ptr(),
                   _build.stream(dev))

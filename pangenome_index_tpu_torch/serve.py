@@ -9,7 +9,9 @@ the batch is not sorted by work: on the card what a sorted batch of mixed
 reads saved K3 was less than the sort and its inverse gathers cost (PERF.md).
 
 Two rank configurations: checkpoint rows (the serving default) or dense run
-records (the counterpart of the TPU's Pallas rank path).
+records (the counterpart of the TPU's Pallas rank path). Checkpoint rows
+serve any n: past 2^31 positions the tables are int64 over two-level rows
+and every kernel runs its int64 instantiation; dense records are int32.
 """
 
 from __future__ import annotations
@@ -121,7 +123,7 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
     def put(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    vals_d, di_d = sdict_to_device(vals_sd, di, device)
+    vals_d, di_d = sdict_to_device(vals_sd, di, device, t.pos_dtype)
     kw = dict(mer_table=mer_table, mer_keys=put(mk, np.int32), mer_valid=put(mv),
               mer_m=mer_m, sdict_vals=vals_d, sdict_idx=di_d, sdict_m=sdict_s)
     batch = Batch(tables=t, tag_tables=tt, codes=put(codes, np.int32),

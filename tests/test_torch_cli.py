@@ -280,23 +280,82 @@ def test_bad_tag_payload_is_invalid_input(files, capfd, tmp_path, cmd):
     assert last_line(port_err).startswith("panidx: invalid input: ")
 
 
-@pytest.mark.parametrize("cmd", ["find-mems", "query-tags", "build-sdict"])
-def test_int32_refusal_is_invalid_input(files, capfd, monkeypatch, cmd):
-    """An index past the kernels' int32 positions is refused in the command
-    line's words, not with a traceback."""
+@pytest.fixture
+def two_level(monkeypatch):
+    """The commands' tables made as at n >= 2^31: int64 positions over
+    two-level checkpoint rows (superblocks of 2^7 positions, so that the
+    small index spans many) and int64 tag run heads. Returns the tables the
+    commands made."""
+    from pangenome_index_tpu_torch.ops import tables as port_tables
+
+    made = []
+
+    def rindex(idx, device, **kw):
+        made.append(port_tables.rindex_to_device(idx, device, super_shift=7,
+                                                 dtype=torch.int64, **kw))
+        return made[-1]
+
+    def tags(t, device):
+        made.append(port_tables.tags_to_device(t, device, dtype=torch.int64))
+        return made[-1]
+
+    monkeypatch.setattr(cli, "rindex_to_device", rindex)
+    monkeypatch.setattr(cli, "tags_to_device", tags)
+    return made
+
+
+@pytest.mark.parametrize("extra", [[], ["--mem-capacity", "1"]],
+                         ids=["defaults", "escalation"])
+def test_find_mems_two_level_int64_matches_jax(files, expected, capfd, two_level,
+                                               extra):
+    """find-mems served through int64 tables over two-level checkpoint rows
+    (the n >= 2^31 form) prints the JAX command line's native bytes."""
+    want = reference(expected, capfd, files, "find-mems")
+    got, _ = port_run(capfd, [*mem_args(files), *extra])
+    assert got == want
+    t = two_level[0]
+    assert t.pos_dtype == torch.int64 and t.super_S.shape[0] > 4
+    assert two_level[1].bwt_start.dtype == torch.int64
+
+
+def test_query_tags_two_level_int64_matches_jax(files, expected, capfd, two_level):
+    want = reference(expected, capfd, files, "query-tags")
+    got, _ = port_run(capfd, paths(files, "query-tags"))
+    assert got == want
+    assert two_level[0].pos_dtype == two_level[1].bwt_start.dtype == torch.int64
+
+
+def test_build_sdict_two_level_int64(files, capfd, two_level, tmp_path):
+    """build-sdict through int64 two-level tables writes the host build's
+    dictionary (values compared as integers: the host build keeps int32
+    below 2^31)."""
+    from pangenome_index_tpu_torch.formats import ri
+    from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict
+
+    out = tmp_path / "two_level.npz"
+    capfd.readouterr()
+    assert cli.main(["build-sdict", str(files / "synth.ri"), "-o", str(out), "-s", "9",
+                     "--device", "cpu"]) == 0
+    keys, vals = build_sparse_dict(ri.load_file(str(files / "synth.ri")), 9)
+    with np.load(out) as z:
+        np.testing.assert_array_equal(z["keys"], keys)
+        np.testing.assert_array_equal(z["vals"], vals)
+        assert z["vals"].dtype == np.int64 and len(keys) > 0
+    assert two_level[0].pos_dtype == torch.int64
+
+
+def test_dense_past_int32_is_invalid_input(files, capfd, monkeypatch):
+    """--rank-mode dense at n >= 2^31 ends in the command line's words, not
+    a traceback: the reference serves it through bucketed rank, which the
+    port does not have."""
     from types import SimpleNamespace
 
-    big = SimpleNamespace(n=2**31)
-    monkeypatch.setattr(cli, "load_serving", lambda args: (big, None))
-    monkeypatch.setattr(cli.ri, "load_file", lambda path: big)
-    argv = [cmd, str(files / "synth.ri")]
-    if cmd != "build-sdict":
-        argv += [str(files / "synth_c.tags"), str(files / "reads.txt")]
-        argv += [MIN_LEN, MIN_OCC] if cmd == "find-mems" else []
+    monkeypatch.setattr(cli, "load_serving", lambda args: (SimpleNamespace(n=2**31), None))
     capfd.readouterr()
-    assert cli.main([*argv, "--device", "cpu"]) == 1
+    assert cli.main([*mem_args(files), "--rank-mode", "dense", "--device", "cpu"]) == 1
     err = capfd.readouterr().err
-    assert last_line(err).startswith("panidx: invalid input: n >= 2^31")
+    assert last_line(err).startswith(
+        "panidx: invalid input: --rank-mode dense at n >= 2^31")
 
 
 def test_find_mems_uses_a_prebuilt_dictionary(files, expected, capfd):

@@ -606,3 +606,222 @@ def test_bwt_sort_pairs_at_every_shift(dev):
             got = bwt.bwt_sort_pairs(rank, k, bits)
             want = bwt.bwt_sort_pairs_plain(rank, k, bits)
             assert all(torch.equal(g, w) for g, w in zip(got, want)), (bits, k)
+
+
+# --- the int64 instantiations (n >= 2^31): two-level rows, int64 positions ---
+
+#: superblocks of 2^11 positions: the small index spans 40 of them
+WIDE_SHIFT = 11
+
+
+@pytest.fixture(scope="module", params=["two-level", "single-level"])
+def wide(request, dev, index):
+    """int64 tables on the card: two-level rows (the n >= 2^31 form, many
+    superblocks) or single-level rows read with one superblock of zeros."""
+    idx, _ = index
+    shift = WIDE_SHIFT if request.param == "two-level" else None
+    t = rindex_to_device(idx, dev, checkpoint=True, super_shift=shift, dtype=torch.int64)
+    assert t.pos_dtype == torch.int64 and t.super_S is not None
+    assert t.super_S.shape[0] == (40 if shift else 1)
+    return t
+
+
+def T64(a, dev):
+    return torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(dev)
+
+
+def test_int64_planes_and_extend(dev, index, wide):
+    """K2's int64 instantiation against its plain version: intervals inside
+    one row, across rows and across superblock boundaries, both directions;
+    the bit planes with the superblock bases against ckpt_rank6."""
+    idx, _ = index
+    t = wide
+    rng = np.random.default_rng(31)
+    B = 6000
+    k = rng.integers(0, idx.n, B)
+    bounds = np.arange(1, 40, dtype=np.int64) << WIDE_SHIFT
+    k[:2000] = bounds[rng.integers(0, len(bounds), 2000)] - rng.integers(1, 200, 2000)
+    s = rng.integers(0, np.minimum(idx.n - k, 4096) + 1)
+    s[:1000] = rng.integers(0, 64 - (k[:1000] & 63) + 1)
+    args = [T64(a, dev) for a in (k, rng.integers(0, idx.n, B), s)]
+    code = torch.from_numpy(rng.integers(-1, 8, B).astype(np.int32)).to(dev)
+    fwd = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    for f in (None, fwd):
+        got = fmd.extend(t, *args, code, forward=f)
+        expect = fmd.extend_plain(t, *args, code, forward=f)
+        for g, e in zip(got, expect):
+            assert g.dtype == torch.int64 and torch.equal(g, e)
+    pos = T64(np.concatenate((np.arange(idx.n + 1), [-1, idx.n + 70])), dev)
+    assert torch.equal(rank.planes_rank6(t.ckpt_planes, pos, t.super_S, t.super_shift),
+                       rank.ckpt_rank6(t, pos))
+
+
+def int64_seed_tiers(idx, codes, lens, dev):
+    mk, mv = read_mer_keys_fast(codes, lens, 6)
+    keys, vals = build_sparse_dict(idx, 19)
+    di = read_windows_fast(codes, lens, 19, keys)[2]
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return dict(mer_table=T64(build_mer_table(idx, 6), dev), mer_keys=T(mk),
+                mer_valid=T(mv), mer_m=6, sdict_vals=T64(vals, dev), sdict_idx=T(di),
+                sdict_m=19)
+
+
+def test_int64_resolve_seeds_find_mems_and_tags(dev, index, wide):
+    """resolve_seeds, K3 and K4 (over int64 tag run heads) at int64,
+    against their plain versions."""
+    idx, lines = index
+    t = wide
+    reads = synth_reads(lines, 300, 150, error_rate=0.02, seed=8)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                      for r in reads]).astype(np.int32)
+    lens = np.full(len(reads), 150, np.int32)
+    lens[::9] = np.random.default_rng(8).integers(0, 150, len(lens[::9]))
+    for i, n in enumerate(lens):
+        codes[i, n:] = 0
+    codes[4, 33] = 4
+    kw = int64_seed_tiers(idx, codes, lens, dev)
+    for min_occ in (1, 3):
+        expect = mems.resolve_seeds_plain(len(reads), 151, min_occ, **kw)
+        got = mems.resolve_seeds(len(reads), 151, min_occ, **kw)
+        assert got.dtype == torch.int64 and torch.equal(got, expect)
+    c, n = (torch.from_numpy(a).to(dev) for a in (codes, lens))
+    for min_occ, capacity in ((1, 8), (2, 3)):
+        got, gs = mems.find_mems(t, c, n, 20, min_occ, capacity=capacity,
+                                 with_stats=True, **kw)
+        expect, es = mems.find_mems_plain(t, c, n, 20, min_occ, capacity=capacity,
+                                          with_stats=True, **kw)
+        for g, e in zip(got, expect):
+            assert torch.equal(g, e)
+        assert torch.equal(gs["steps"], es["steps"])
+    assert got.bwt_start.dtype == torch.int64 and bool((got.count > 0).any())
+    tags = synth_tag_array(idx)
+    tt = tags_to_device(tags, dev, dtype=torch.int64)
+    assert tt.search_tree.shape[1] == 8
+    # int64 heads, and int32 heads beside the int64 buffers (an index whose
+    # n_seq * max_len passes 2^31 while its n does not)
+    for heads in (tt, tags_to_device(tags, dev)):
+        for cap in (8, 9):
+            for g, e in zip(tagquery.query_mem_tags(heads, got.bwt_start, got.size,
+                                                    got.count, cap),
+                            tagquery.query_mem_tags_plain(heads, got.bwt_start, got.size,
+                                                          got.count, cap)):
+                assert torch.equal(g, e)
+        q = got.bwt_start[got.count > 0, 0]
+        for name, g, e in zip(tagquery.TagQueryResult._fields,
+                              tagquery.query_tags_batch(heads, q, q + 3, 64),
+                              tagquery.query_tags_batch_plain(heads, q, q + 3, 64)):
+            assert torch.equal(g, e), name
+
+
+@pytest.mark.parametrize("width,n_reads", [(1, 70), (150, 1000), (700, 333)])
+def test_int64_count(dev, index, wide, width, n_reads):
+    idx, lines = index
+    reads = synth_reads(lines, n_reads, width, error_rate=0.0, seed=width)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                      for r in reads]).astype(np.int32)
+    rng = np.random.default_rng(width)
+    lens = rng.integers(0, width + 1, n_reads).astype(np.int32)
+    lens[::3] = width
+    codes[4::5, 0] = 4
+    c, n = (torch.from_numpy(a).to(dev) for a in (codes, lens))
+    got = count.count(wide, c, n)
+    expect = count.count_plain(wide, c, n)
+    for g, e in zip(got, expect):
+        assert g.dtype == torch.int64 and torch.equal(g, e)
+    if width >= 150:
+        assert bool((got[0] <= got[1]).any()) and bool((got[0] > got[1]).any())
+
+
+@pytest.mark.parametrize("min_keep", [1, 2])
+def test_int64_sdict_levels(dev, index, wide, min_keep):
+    """sdict_level's int64 instantiation (32-byte entries) at every level of
+    a build against its plain version, and the build against the host's."""
+    idx, _ = index
+    t = wide
+    keys = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    vals = torch.tensor([[[0, 0, idx.n]]], dtype=torch.int64, device=dev)
+    counts = [1]
+    for level in range(19):
+        got = sparsedict.sdict_level(t, keys, vals, counts, min_keep, level)
+        expect = sparsedict.sdict_level_plain(t, keys, vals, counts, min_keep, level)
+        counts = same_level(got, expect)
+        keys, vals = got[:2]
+    keys, vals = sparsedict.sdict_pack(keys, vals, counts)
+    hk, hv = build_sparse_dict(idx, 19, min_keep)
+    assert vals.dtype == torch.int64
+    assert np.array_equal(keys.cpu().numpy(), hk) and np.array_equal(vals.cpu().numpy(), hv)
+
+
+@pytest.mark.parametrize("capacity", [1, 64])
+def test_int64_locate_batch(dev, index, wide, capacity):
+    """K8's int64 instantiation (int64 search trees of 8 keys a line)
+    against its plain version and the host SA, intervals outside the BWT
+    included."""
+    idx, _ = index
+    t = wide
+    assert t.run_tree.shape[1] == 8
+    rng = np.random.default_rng(capacity)
+    B = 3001
+    j = rng.integers(0, idx.n_runs, B)
+    start = idx.run_start[j] + np.where(rng.random(B) < 0.5, 0,
+                                        rng.integers(0, idx.run_len[j]))
+    start[::7] = rng.integers(0, idx.n, len(start[::7]))
+    start[1::11] = -rng.integers(1, 1000, len(start[1::11]))
+    start[:2] = (-2**40, idx.n + 2)
+    size = np.minimum(rng.integers(-2, 201, B), idx.n - start)
+    st, sz = T64(start, dev), T64(size, dev)
+    got = locate.locate_batch(t, st, sz, capacity)
+    expect = locate.locate_batch_plain(t, st, sz, capacity)
+    for g, e in zip(got, expect):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+    assert got.positions.dtype == torch.int64
+    sa = idx.decompress_sa()
+    pos, cnt = got.positions.cpu().numpy(), got.count.cpu().numpy()
+    for i in range(2, B, 37):
+        if start[i] >= 0:
+            assert np.array_equal(pos[i, : cnt[i]], sa[start[i] : start[i] + cnt[i]])
+
+
+@pytest.mark.parametrize("t", [1, 8, 9, 81, 4000, 70000])
+def test_int64_tag_search_past_int32(dev, t):
+    """The int64 tree descent (tag_upper_bound's int64 instantiation) over
+    heads past 2^31 against torch.searchsorted, and K6 / K4 over them."""
+    rng = np.random.default_rng(t)
+    heads = np.unique(rng.integers(2**31 - 10 * t, 2**31 + 40 * t, t))
+    heads = np.concatenate(([0], heads))
+    tags = TagArray(pos_enc=rng.integers(0, 50, heads.size) * 3, bwt_start=heads,
+                    total=int(heads[-1]) + 5)
+    tt = tags_to_device(tags, dev)
+    assert tt.bwt_start.dtype == torch.int64
+    v = np.concatenate((heads, heads - 1, heads + 1, [-1, 2**31 - 1, 2**31, 2**62],
+                        rng.integers(0, 2**31 + 50 * t, 5000)))
+    vd = T64(v, dev)
+    got = tagquery.tag_upper_bound(tt, vd)
+    assert torch.equal(got.long(), torch.searchsorted(tt.bwt_start, vd, right=True))
+    assert torch.equal(got, tagquery.tag_upper_bound_plain(tt, vd))
+    s = T64(np.sort(rng.choice(heads, 3000)), dev)
+    e = s + T64(rng.integers(0, 60 * 3, 3000), dev)
+    for cap in (8, 256):
+        for ex in (False, True):
+            for name, g, x in zip(tagquery.TagQueryResult._fields,
+                                  tagquery.query_tags_batch(tt, s, e, cap, ex),
+                                  tagquery.query_tags_batch_plain(tt, s, e, cap, ex)):
+                assert torch.equal(g, x), name
+    B, M = 300, 10
+    bwt, size = s[: B * M].view(B, M), (e - s + 1)[: B * M].view(B, M)
+    cnt = torch.from_numpy(rng.integers(0, M + 2, B).astype(np.int32)).to(dev)
+    for cap in (8, 32):
+        for g, x in zip(tagquery.query_mem_tags(tt, bwt, size, cnt, cap),
+                        tagquery.query_mem_tags_plain(tt, bwt, size, cnt, cap)):
+            assert torch.equal(g, x)
+
+
+def test_int64_refuses_more_superblocks_than_a_block_stages(dev, index):
+    idx, _ = index
+    t = rindex_to_device(idx, dev, checkpoint=True, super_shift=6, dtype=torch.int64)
+    z = torch.zeros(8, dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="superblocks"):
+        fmd.extend(t, z, z, z, z.int())

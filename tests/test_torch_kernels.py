@@ -139,8 +139,13 @@ def test_rank_planes_match_ckpt(seed):
     assert torch.equal(planes[:, 15].long(), before.clamp(max=n))
     carried, _ = tables_from_numpy(as_numpy(jt), None, "cpu")
     assert torch.equal(carried.ckpt_planes, planes)
-    # two-level rows have no kernel form
-    assert rindex_to_device(idx, "cpu", checkpoint=True, super_shift=9).ckpt_planes is None
+    # two-level rows (int64 positions) have a kernel form too: the planes of
+    # the superblock-relative rows and the superblock bases beside them
+    t2 = rindex_to_device(idx, "cpu", checkpoint=True, super_shift=9, dtype=torch.int64)
+    assert t2.super_S.shape == (t2.ckpt_super.shape[0], 8)
+    np.testing.assert_array_equal(
+        rank.planes_rank6(t2.ckpt_planes, pos.long(), t2.super_S, t2.super_shift).numpy(),
+        via_ckpt.numpy())
 
 
 def test_dense_rank6_matches_pallas(index):
@@ -316,3 +321,23 @@ def test_tables_from_numpy_refuses_other_rank_modes(index):
     idx, _ = index
     with pytest.raises(ValueError, match="bucket_lo"):
         tables_from_numpy(as_numpy(jax_rindex_to_device(idx)), None, "cpu")
+
+
+def test_failed_build_is_not_retried(monkeypatch):
+    """After a failed kernel build, every later call raises the same error
+    without running nvcc again (each retry took seconds)."""
+    from pangenome_index_tpu_torch import _build
+
+    calls = []
+
+    def failing():
+        calls.append(1)
+        raise RuntimeError("nvcc failed on mems.cu: the message")
+
+    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_build_error", None)
+    monkeypatch.setattr(_build, "build", failing)
+    for _ in range(3):
+        with pytest.raises(RuntimeError, match="nvcc failed on mems.cu"):
+            _build.lib()
+    assert len(calls) == 1

@@ -184,7 +184,8 @@ def test_locate_batch_is_a_kernel_with_a_count(tables):
 def test_locate_refuses_bad_arguments_and_tables(tables):
     """Shapes and capacity are checked on every device; the kernel's view of
     the tables refuses tables without the trees, stubbed locate tables and
-    int64 positions (the message of the commands' int32 refusal)."""
+    tables whose positions are not of one dtype, and takes int32 or int64
+    positions (an instantiation of the kernel for each)."""
     t = tables["own"]
     z = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="capacity"):
@@ -198,6 +199,11 @@ def test_locate_refuses_bad_arguments_and_tables(tables):
         locate._locate_args(replace(t, run_tree=None), cpu)
     with pytest.raises(ValueError, match="locate tables"):
         locate._locate_args(replace(t, last_sorted=t.last_sorted[:1]), cpu)
-    with pytest.raises(ValueError, match="n >= 2"):
+    with pytest.raises(ValueError, match="expected torch.int64"):
         locate._locate_args(replace(t, run_start=t.run_start.long()), cpu)
     assert len(locate._locate_args(t, cpu)) == 9
+    wide = {f: getattr(t, f).long() for f in ("run_start", "samples", "last_sorted",
+                                              "last_to_run")}
+    wide["run_tree"], _ = derive_search_tree(wide["run_start"])
+    wide["tail_tree"], _ = derive_search_tree(wide["last_sorted"])
+    assert len(locate._locate_args(replace(t, **wide), cpu)) == 9

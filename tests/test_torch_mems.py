@@ -24,6 +24,19 @@ MIN_LEN, MIN_OCC, MER_M, SDICT_S = 20, 1, 6, 19
 
 
 @pytest.fixture(autouse=True, scope="module")
+def jax_at_32_bits():
+    """The JAX references here run at 32 bits, as the port's int32 tables
+    do. A test file that ran earlier on this worker may have turned 64-bit
+    types on for the whole process (the JAX package does so for int64
+    tables), under which the JAX loops' carried types no longer match; the
+    flag is restored after the module."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", prev)
+
+
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """The tensors here are tiny: intra-op threads only contend with the
     other test workers."""

@@ -4,6 +4,7 @@ search (K7 count) over checkpoint, two-level checkpoint, dense and base
 tables; tag positions per interval (K6 query_tags_batch); and the seed
 table's npz cache, shared with the JAX package."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +30,19 @@ MODES = {"checkpoint": (dict(checkpoint=True), dict(checkpoint=True)),
                        dict(checkpoint=True, super_shift=9)),
          "dense": (dict(dense=True), dict(dense=True)),
          "base": (dict(bucketed=False), dict())}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_at_32_bits():
+    """The JAX references here run at 32 bits, as the port's int32 tables
+    do. A test file that ran earlier on this worker may have turned 64-bit
+    types on for the whole process (the JAX package does so for int64
+    tables), under which the JAX loops' carried types no longer match; the
+    flag is restored after the module."""
+    prev = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    yield
+    jax.config.update("jax_enable_x64", prev)
 
 
 @pytest.fixture(autouse=True, scope="module")
