@@ -10,15 +10,19 @@ launch count set to 0 just before a path and read just after it:
    pangenome (8 haplotypes), 16384 reads of 150 bp with 1% errors, min_len
    20, min_occ 1, m=14 seed table, s=19 long-seed dictionary, MEM capacity
    8, tag capacity 8 - through the checkpoint-rank and the dense-rank
-   configurations, each building the dictionary on the card (no cache
-   holds it), checked against the native C++ engine;
+   configurations (one path), then the ultra-rank and the bucketed-rank
+   ones (a path each), each building the dictionary on the card (no cache
+   holds it), checked against the native C++ engine; the seed table and
+   the dictionary built through each new provider equal the checkpoint
+   builds element for element;
 2. the gather-rate probe (gather_probe.sweep): random 64-byte row gathers
    from a [312500, 16] int32 table, independent and as dependent chains;
 3. the find-mems and query-tags commands (cli.main) on the bench index
    written as .ri/.tags files, byte-compared with the port's own host route
    (find-mems: native.find_mems_native + query_tags_native +
    format_mems_native; query-tags: native.count_native + TagArray.query),
-   then timed per phase on all reads;
+   then timed per phase on all reads; find-mems --rank-mode ultra and
+   bucketed on the same reads byte-equal to the checkpoint run;
 4. the tag search (tagquery.tag_upper_bound): the descent of the tag search
    tree that K4 and K6 search with, alone, against torch.searchsorted at
    every run head of the bench index, its neighbours, the ends of the int32
@@ -27,8 +31,9 @@ launch count set to 0 just before a path and read just after it:
    build-sdict command): s=19 at the bench index on the card, through both
    rank providers, equal element for element to the port's host build
    (whose seconds are printed beside the card's); every level's kernel
-   against its plain version; s=31 and min_keep=2 on a small synthetic
-   index; the command's file loaded back and compared;
+   against its plain version, through checkpoint rows, ultra rows and
+   bucketed runs; s=31 and min_keep=2 on a small synthetic index through
+   all four providers; the command's file loaded back and compared;
 6. locate (locate.locate_batch, K8) on the bench index: the intervals of
    the first 65536 MEMs the serving run buffered and 32768 random ones (at
    run heads and mid-run, sizes 1 to 200), capacity 64, against its plain
@@ -55,7 +60,16 @@ launch count set to 0 just before a path and read just after it:
    route's; locate equals the host model on 4096 lanes; the dictionary
    built on the card equals the host build (int64), itself the 1-copy one
    with intervals x108. Each int64 instantiation is held against its plain
-   version and timed, and reported beside the int32 one.
+   version and timed, and reported beside the int32 one. Then a path of
+   its own, serve-2g-bucketed: prepare/run through int64 bucketed runs
+   (the same gates against the native engine) and find-mems --rank-mode
+   dense on the index's files, which the reference serves through bucketed
+   runs past 2^31: stdout byte-equal to the checkpoint run's.
+
+The ultra and bucketed rank6 kernels (csrc/rankmodes.cu) are held against
+their plain versions on 32768 positions (0, n and n + 1 among them), at
+int32 on the bench index and at int64 on the k-copy index, and K2, K3 and
+the dictionary's level through their providers likewise.
 
 find-mems also runs on all 16384 reads with --batch-size 0 (chunks of 4096
 reads) and with one launch over them, byte-equal.
@@ -138,6 +152,36 @@ SOURCES = {
                           "serve-2g", "sdict_level"),
     "locate_batch_int64": ("csrc/locate.cu", "pangenome_index_tpu/ops/locate.py:29",
                            "serve-2g", "locate_batch"),
+    # the ultra and bucketed rank providers (the XLA rank6 forms
+    # ops/rank.py:165 through rank_table, ops/rank.py:22 + :173 through
+    # bucket_lo and cum), alone and inside the chain kernels, each on the
+    # serving path of its rank configuration
+    "rank6_ultra": ("csrc/rankmodes.cu", "pangenome_index_tpu/ops/rank.py:165",
+                    "serve-ultra"),
+    "rank6_bucketed": ("csrc/rankmodes.cu", "pangenome_index_tpu/ops/rank.py:22",
+                       "serve-bucketed"),
+    "rank6_bucketed64": ("csrc/rankmodes.cu", "pangenome_index_tpu/ops/rank.py:22",
+                         "serve-2g-bucketed", "rank6_bucketed"),
+    "extend_ultra": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve-ultra",
+                     "extend"),
+    "extend_bucketed": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve-bucketed",
+                        "extend"),
+    "extend_bucketed64": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31",
+                          "serve-2g-bucketed", "extend"),
+    "find_mems_ultra": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43", "serve-ultra",
+                        "find_mems"),
+    "find_mems_bucketed": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43",
+                           "serve-bucketed", "find_mems"),
+    "find_mems_bucketed64": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43",
+                             "serve-2g-bucketed", "find_mems"),
+    "sdict_level_ultra": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:100",
+                          "serve-ultra", "sdict_level"),
+    "sdict_level_bucketed": ("csrc/sparsedict.cu",
+                             "pangenome_index_tpu/ops/sparsedict.py:100", "serve-bucketed",
+                             "sdict_level"),
+    "sdict_level_bucketed64": ("csrc/sparsedict.cu",
+                               "pangenome_index_tpu/ops/sparsedict.py:100",
+                               "serve-2g-bucketed", "sdict_level"),
 }
 #: published peaks of one H100 SXM: device memory bytes/s, and float32
 #: operations/s outside the tensor cores (taken for the kernels' 32-bit
@@ -159,7 +203,19 @@ PATH_KERNELS = {
     "build-bwt": ("bwt_sort_pairs", "bwt_rerank", "bwt_finish"),
     "serve-2g": ("extend", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
                  "tag_upper_bound", "query_tags_batch", "count", "locate_batch"),
+    # the new rank configurations: the table check (rank6), the seed table,
+    # the dictionary and the MEMs through their provider; past 2^31 also
+    # find-mems --rank-mode dense, which the reference serves through
+    # bucketed runs there
+    "serve-ultra": ("rank6_ultra", "extend", "resolve_seeds", "find_mems", "query_mem_tags",
+                    "sdict_level"),
+    "serve-bucketed": ("rank6_bucketed", "extend", "resolve_seeds", "find_mems",
+                       "query_mem_tags", "sdict_level"),
+    "serve-2g-bucketed": ("rank6_bucketed", "extend", "resolve_seeds", "find_mems",
+                          "query_mem_tags", "sdict_level", "query_tags_batch"),
 }
+#: the rank configurations of the serving path, in the order they are served
+RANK_CONFIGS = ("checkpoint", "dense", "ultra", "bucketed")
 BWT_CHECKED_ROUNDS = (0, 1, 256)  # rounds whose kernels are held against plain
 BWT_TIMED_ROUNDS = (1, 256)       # rounds timed beside torch.sort; 256 is reported
 N_LOCATE_MEMS = 65536    # locate: the first buffered MEM intervals of the serving run
@@ -325,6 +381,52 @@ def main() -> int:
         no table more than once."""
         return min(nbytes, sum(t.numel() * t.element_size() for t in tables))
 
+    def rank_reads(t, pos):
+        """(bytes, chain) of rank6 at `pos` through t's rank provider: the
+        bytes it must read, no table more than once (a checkpoint row 64, an
+        ultra row 32; a bucketed query its bucket's entry, the 64-byte lines
+        of heads it reads and its run's start, symbol and counts), and the
+        longest chain of dependent loads (1; bucketed: the bucket, its lines
+        of heads, the run), as this run's positions need them."""
+        n = pos.numel()
+        if t.ckpt is not None:
+            return gathered(n * 64, t.ckpt_planes), 1
+        if t.rank_table is not None:
+            return gathered(n * 32, t.rank_table), 1
+        if t.rec is not None:
+            return gathered(n * 4, t.pos_to_run) + gathered(n * 32, t.rec), 2
+        item = t.run_start.element_size()
+        b = (pos.long() >> 6).clamp(0, t.bucket_lo.shape[0] - 1)
+        lines = (rank.run_of(t, pos) - t.bucket_lo[b].long()) // (64 // item) + 1
+        return (gathered(n * item, t.bucket_lo)
+                + gathered(int(lines.sum()) * 64 + n * item, t.run_start)
+                + gathered(n, t.run_sym) + gathered(n * 6 * item, t.cum),
+                2 + int(lines.max()))
+
+    def step_reads(t):
+        """(bytes, dependent loads) of one extension step's rank reads
+        through t's provider, where the positions are not kept: two
+        checkpoint rows, two ultra rows, two dense records with their run
+        ids, or two bucketed queries of one line of heads each."""
+        item = t.C.element_size()
+        if t.ckpt is not None:
+            return 128, 1
+        if t.rank_table is not None:
+            return 64, 1
+        if t.rec is not None:  # a run id, then a 32-byte record, at each end
+            return 2 * (4 + 32), 2
+        return 2 * (item + 64 + 7 * item + 1), 3
+
+    def rank_tables(t):
+        """The tables t's rank provider reads."""
+        if t.ckpt is not None:
+            return (t.ckpt_planes,)
+        if t.rank_table is not None:
+            return (t.rank_table,)
+        if t.rec is not None:
+            return (t.pos_to_run, t.rec)
+        return (t.bucket_lo, t.run_start, t.run_sym, t.cum)
+
     kernels = {}
 
     def compare(name, kernel, plain, plain_reps=3, record=True, nbytes=0, ops=0,
@@ -405,7 +507,47 @@ def main() -> int:
             lambda: fmd.extend_plain(t_ck, *lanes, forward=fwd),
             nbytes=N_LANES * (17 + 12) + gathered(N_LANES * 128, t_ck.ckpt_planes),
             ops=N_LANES * 100, chain=1)
-    for t, what in ((t_ck, "checkpoint"), (t_dn, "dense")):
+    # the ultra and bucketed tables: their builds' seconds (host and upload,
+    # through the first use of the card), rank6 through each provider alone
+    # at every kind of position, and K2 through them
+    table_s = {}
+    for mode in ("checkpoint", "dense", "ultra", "bucketed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        made_t = rindex_to_device(idx, dev, **{mode: True})
+        torch.cuda.synchronize()
+        table_s[mode] = time.perf_counter() - t0
+        if mode == "ultra":
+            t_ul = made_t
+        elif mode == "bucketed":
+            t_bk = made_t
+        del made_t
+    log("rank tables of the bench index, seconds a build (host arrays, upload, the "
+        "derived planes and search trees): " + ", ".join(
+            f"{m} {v:.4f}" for m, v in table_s.items())
+        + f"; ultra rank_table {t_ul.rank_table.numel() * 4} bytes, bucket_lo "
+        f"{t_bk.bucket_lo.numel() * 4} + cum {t_bk.cum.numel() * 4} bytes {card}")
+    rpos6 = T(np.concatenate((rng.integers(0, idx.n + 2, N_LANES - 3),
+                              [0, idx.n, idx.n + 1])).astype(np.int32))
+    rpos6_l = rpos6.long()
+    compare("rank6_ultra", lambda: rank.rank6_ultra(t_ul, rpos6),
+            lambda: rank.rank6_ultra_plain(t_ul, rpos6),
+            nbytes=N_LANES * (4 + 24) + gathered(N_LANES * 32, t_ul.rank_table),
+            ops=N_LANES * 8, chain=1,
+            library=lambda: torch.index_select(t_ul.rank_table, 0, rpos6_l))
+    bk_bytes, bk_chain = rank_reads(t_bk, rpos6)
+    compare("rank6_bucketed", lambda: rank.rank6_bucketed(t_bk, rpos6),
+            lambda: rank.rank6_bucketed_plain(t_bk, rpos6),
+            nbytes=N_LANES * (4 + 24) + bk_bytes, ops=N_LANES * 40, chain=bk_chain)
+    for t, what in ((t_ul, "ultra"), (t_bk, "bucketed")):
+        # per lane: k, kp, s, code and the direction in, 3 out, and the rank
+        # reads of both ends
+        ext_bytes, ext_chain = rank_reads(t, torch.cat((lanes[0], lanes[0] + lanes[2])))
+        compare(f"extend_{what}", lambda: fmd.extend(t, *lanes, forward=fwd),
+                lambda: fmd.extend_plain(t, *lanes, forward=fwd),
+                nbytes=N_LANES * (17 + 12) + ext_bytes, ops=N_LANES * 100, chain=ext_chain)
+    for t, what in ((t_ck, "checkpoint"), (t_dn, "dense"), (t_ul, "ultra"),
+                    (t_bk, "bucketed")):
         for f in (None, fwd):
             compare(f"extend ({what}, "
                     f"{'backward' if f is None else 'both directions'})",
@@ -480,8 +622,9 @@ def main() -> int:
         against its plain version; the level loop's dictionary against the
         host build; every level's device time by CUDA-graph replay, summed;
         recorded as kernels[name]. What a level must move: an
-        entry (8 bytes of key, 3 positions), its one or two 64-byte rank
-        rows (the table at most once a level), a key and 3 positions a
+        entry (8 bytes of key, 3 positions), its rank reads (one or two
+        64-byte checkpoint rows, or rank_reads at both ends; the table at
+        most once a level), a key and 3 positions a
         kept child (the sum of the bounds of the two kernels a level had
         before, expand and scatter: expand was given the interval and the
         rows, scatter the key and the children written)."""
@@ -507,11 +650,17 @@ def main() -> int:
             sd["ms"] += gather_probe.time_ms(
                 lambda: sparsedict.sdict_level(t, keys_l, vals_l, counts_l, 1, level))
             total = int(got[3].sum())
-            rows = D + int(((entries[:, 0] >> 6) != ((entries[:, 0] + entries[:, 2]) >> 6)).sum())
-            sd["nbytes"] += (D * (8 + 3 * item) + gathered(rows * 64, t.ckpt_planes)
-                             + total * (8 + 3 * item))
+            if t.ckpt is not None:
+                rows = D + int(((entries[:, 0] >> 6)
+                                != ((entries[:, 0] + entries[:, 2]) >> 6)).sum())
+                rank_b = gathered(rows * 64, t.ckpt_planes)
+            else:  # a query at each end of the interval
+                rows = 2 * D
+                rank_b = rank_reads(t, torch.cat((entries[:, 0],
+                                                  entries[:, 0] + entries[:, 2])))[0]
+            sd["nbytes"] += D * (8 + 3 * item) + rank_b + total * (8 + 3 * item)
             sd["ops"] += D * 460
-            log(f"  level {level}: {D} entries, {rows} rank rows, {total} children kept "
+            log(f"  level {level}: {D} entries, {rows} rank reads, {total} children kept "
                 f"({', '.join(str(c) for c in got[3].tolist())} by branch)")
             keys_l, vals_l, counts_l = got[0], got[1], got[3].tolist()
             del got, plain, entries
@@ -546,19 +695,21 @@ def main() -> int:
             f"{card}")
 
     hold_levels(t_ck, "sdict_level", host_keys, host_vals)
-    # s=31 (a key's last two bits) and min_keep=2 on a small index, both providers
+    hold_levels(t_ul, "sdict_level_ultra", host_keys, host_vals)
+    hold_levels(t_bk, "sdict_level_bucketed", host_keys, host_vals)
+    # s=31 (a key's last two bits) and min_keep=2 on a small index, every provider
     sidx, _ = synth.build_synth_index(*SMALL_INDEX[:2], seed=SMALL_INDEX[2])
-    for dense in (False, True):
-        st = rindex_to_device(sidx, dev, checkpoint=not dense, dense=dense)
+    for mode in RANK_CONFIGS:
+        st = rindex_to_device(sidx, dev, **{mode: True})
         for s_, keep in ((31, 1), (31, 2), (SDICT_S, 2)):
             hk, hv = sparsedict.build_sparse_dict(sidx, s_, keep)
             dk, dv = sparsedict.build_sparse_dict_device(sidx, st, s_, keep)
             check(torch.equal(dk, T(hk)) and torch.equal(dv, T(hv)) and len(hk) > 0,
-                  f"s={s_}, min_keep={keep} on the small index "
-                  f"({'dense' if dense else 'checkpoint'} rank) differs from the host build")
+                  f"s={s_}, min_keep={keep} on the small index ({mode} rank) differs "
+                  f"from the host build")
     log(f"small index (n={sidx.n}): s=31 and min_keep=2 builds on the card "
-        f"identical to the host build, both rank providers")
-    del t_dn, sidx, st
+        f"identical to the host build, all {len(RANK_CONFIGS)} rank providers")
+    del t_dn, t_ul, t_bk, sidx, st
 
     # --- 4./6. the serving path, both rank configurations -----------------
     phase("serving")
@@ -569,19 +720,37 @@ def main() -> int:
         os.remove(sdict_path)
     port.reset_launches()
     results, batches = {}, {}
-    for dense in (False, True):
-        cfg = "dense" if dense else "checkpoint"
-        batches[cfg] = prepare(idx, tags, codes, lens, dev, dense=dense,
+
+    def serve_config(cfg, path=None):
+        batches[cfg] = prepare(idx, tags, codes, lens, dev, rank_mode=cfg,
                                min_occ=MIN_OCC, mer_m=MER_M, sdict_s=SDICT_S,
-                               sdict_path=None if dense else sdict_path)
+                               sdict_path=path)
         results[cfg] = run(batches[cfg], min_len=MIN_LEN, min_occ=MIN_OCC,
                            capacity=MEM_CAP, tag_capacity=TAG_CAP,
                            repeats=REPEATS)
+
+    serve_config("checkpoint", sdict_path)
+    serve_config("dense")
     read_launches("serve")
     check(launches["serve"]["sdict_level"] == 2 * SDICT_S,
           "serving did not build the dictionary on the card in both configurations")
     check(results["checkpoint"].dict_entries == len(host_keys),
           "serving's dictionary differs from the host build")
+    # the ultra and bucketed configurations, each a path of its own: the
+    # table check, the seed table and the dictionary (no cache) through
+    # their provider, then the reads; both tiers equal the checkpoint
+    # configuration's element for element
+    for cfg in ("ultra", "bucketed"):
+        port.reset_launches()
+        serve_config(cfg)
+        read_launches(f"serve-{cfg}")
+        check(launches[f"serve-{cfg}"]["sdict_level"] == SDICT_S,
+              f"the {cfg} configuration did not build the dictionary on the card")
+        for tier in ("mer_table", "sdict_vals"):
+            check(torch.equal(batches[cfg].seed_kw[tier], batches["checkpoint"].seed_kw[tier]),
+                  f"the {tier} built through {cfg} rank differs from the checkpoint build")
+    log("the seed table and the dictionary built through the ultra and bucketed "
+        "providers: identical to the checkpoint builds, element for element")
     for cfg, r in results.items():
         sec = r.seconds
         log(f"serve [{cfg} rank]: " + ", ".join(
@@ -625,11 +794,13 @@ def main() -> int:
         f"identical on {int(ok.sum())} slots ({int((~ok).sum())} overflowed); "
         f"native engine {native_s:.2f} s on {os.cpu_count()} cores")
 
-    d = results["dense"]
-    for name in ("count", "start", "end", "bwt_start", "size", "tag_nu", "tag_ov"):
-        check(np.array_equal(getattr(d, name), getattr(r, name)),
-              f"dense-rank configuration differs from checkpoint on {name}")
-    log("dense-rank configuration: counts, buffers and tags identical to checkpoint")
+    for cfg in RANK_CONFIGS[1:]:
+        d = results[cfg]
+        for name in ("count", "start", "end", "bwt_start", "size", "tag_nu", "tag_ov"):
+            check(np.array_equal(getattr(d, name), getattr(r, name)),
+                  f"{cfg}-rank configuration differs from checkpoint on {name}")
+    log(f"{', '.join(RANK_CONFIGS[1:])} rank configurations: counts, buffers and tags "
+        f"identical to checkpoint (and so to the native engine) on all {N_READS} reads")
 
     # --- 6b. locate on the bench index -------------------------------------
     phase("locate")
@@ -739,29 +910,34 @@ def main() -> int:
               f"a K3 call launched {spent} (ms, launches a call)")
         return spent["pgt_find_mems"][0], spent["pgt_resolve_seeds"][0], out
 
-    def k3_bytes(steps):
-        """What K3 must move for reads that take `steps` extension steps:
-        codes, lengths and the resolved seed of every read position once, two
-        64-byte rank rows a step (the rank table at most once), the MEM
-        buffers, counts and steps out."""
+    def k3_bytes(steps, t):
+        """What K3 must move for reads that take `steps` extension steps
+        through tables t: codes, lengths and the resolved seed of every read
+        position once, a step's rank reads (step_reads: two 64-byte
+        checkpoint rows; the rank tables at most once), the MEM buffers,
+        counts and steps out."""
         n = steps.numel()
         return (n * ((READ_LEN + 1) * (1 + 16) + 4)
-                + gathered(int(steps.sum()) * 128, t_ck.ckpt_planes)
+                + gathered(int(steps.sum()) * step_reads(t)[0], *rank_tables(t))
                 + n * (3 * MEM_CAP * 4 + 8))
 
-    # reads in input order: both ends hold easy reads and long chains
+    # reads in input order: both ends hold easy reads and long chains; the
+    # last ones' are recorded for each rank provider but dense
     ends = {"first": slice(0, N_K3), "last": slice(N_READS - N_K3, N_READS)}
+    k3_names = {"checkpoint": "find_mems", "ultra": "find_mems_ultra",
+                "bucketed": "find_mems_bucketed"}
     for cfg, bt in batches.items():
         for which, sel in ends.items():
-            rec = (cfg, which) == ("checkpoint", "last")
+            rec = which == "last" and cfg in k3_names
             inputs = k3_inputs(bt, sel)
             st = k3(mems.find_mems, inputs)[-1]
-            compare("find_mems" if rec else
+            compare(k3_names[cfg] if rec else
                     f"find_mems ({cfg} rank, {which} {N_K3} reads)",
                     lambda: k3(mems.find_mems, inputs),
                     lambda: k3(mems.find_mems_plain, inputs),
-                    plain_reps=1, record=rec, nbytes=k3_bytes(st),
-                    ops=int(st.sum()) * 100, chain=int(st.max()))
+                    plain_reps=1, record=rec, nbytes=k3_bytes(st, bt.tables),
+                    ops=int(st.sum()) * 100,
+                    chain=int(st.max()) * step_reads(bt.tables)[1])
     # the seed-resolving pass at the whole batch's shape: per position the
     # dictionary row index and row in and the seed out, and where the
     # dictionary misses the m-mer key, validity and row as well
@@ -819,12 +995,26 @@ def main() -> int:
     k3_ms, seeds_ms, k3_out = k3_ms_of(lambda: k3(mems.find_mems, whole))
     k3_steps = k3_out[-1]
     k3_us_step = k3_ms * 1e3 / int(k3_steps.max())
-    k3_bound = k3_bytes(k3_steps) / PEAK_BYTES_S * 1e3
+    k3_bound = k3_bytes(k3_steps, bt.tables) / PEAK_BYTES_S * 1e3
     log(f"K3 kernel on all {N_READS} reads: "
         f"{k3_ms:.4f} ms (device), longest read {int(k3_steps.max())} "
         f"steps (mean {float(k3_steps.float().mean()):.2f}): {k3_us_step:.4f} us "
         f"per dependent step; bound by bytes {k3_bound:.5f} ms; the "
         f"seed-resolving pass before it {seeds_ms:.4f} ms (device) {card}")
+
+    # K3 on the whole batch through the ultra and bucketed providers: the
+    # same reads and seeds, the same steps
+    for cfg in ("ultra", "bucketed"):
+        ms_c, _, out_c = k3_ms_of(lambda: k3(mems.find_mems, k3_inputs(batches[cfg],
+                                                                      slice(None))))
+        check(max_abs_err(out_c, k3_out) == 0, f"K3 through {cfg} rank differs from "
+                                               f"checkpoint on the whole batch")
+        kernels[k3_names[cfg]]["all_reads_ms"] = ms_c
+        log(f"K3 kernel on all {N_READS} reads, {cfg} rank: {ms_c:.4f} ms (device), "
+            f"{ms_c * 1e3 / int(k3_steps.max()):.4f} us per dependent step; "
+            f"{ms_c / k3_ms:.3f}x the checkpoint kernel ({k3_ms:.4f} ms) {card}")
+        del out_c
+    kernels["find_mems"]["all_reads_ms"] = k3_ms
 
     # K3's int64 instantiation on the same index, reads and seeds
     kw64 = {k: (v.long() if k in ("mer_table", "sdict_vals") else v)
@@ -1018,6 +1208,19 @@ def main() -> int:
         f"route through the native engine ({len(got)} bytes, "
         f"{got.count(b'MEM START')} MEMs; host route {host_s:.1f} s); port "
         + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
+    # the same reads through the ultra and bucketed rank tables (the caches
+    # beside the index written by the run above): the same bytes
+    for mode in ("ultra", "bucketed"):
+        out_m = os.path.join(cli_dir, f"find_{mode}.txt")
+        sec = port_cmd(["find-mems", *common, fm_reads, str(MIN_LEN), str(MIN_OCC), *fmt,
+                        "--rank-mode", mode], out_m)
+        check(without_seconds(out_m) == got,
+              f"find-mems --rank-mode {mode} differs from the checkpoint run")
+        log(f"find-mems --rank-mode {mode} on {CLI_FIND_READS} reads: stdout byte-equal to "
+            f"the checkpoint run's; " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items())
+            + f" {card}")
+        for suffix in ("", ".err"):
+            os.remove(out_m + suffix)
 
     built = os.path.join(cli_dir, f"built.sdict{SDICT_S}.npz")
     if os.path.exists(built):
@@ -1390,6 +1593,35 @@ def main() -> int:
     sec_qt = port_cmd(["query-tags", big_ri, big_tp, qt2_file, *fmt],
                       os.path.join(cli_dir, "big_query_port.txt"))
     read_launches("serve-2g")
+    # the bucketed configuration past 2^31, a path of its own: prepare/run
+    # through int64 bucketed runs (seed table and dictionary built through
+    # them), and find-mems --rank-mode dense on the files, which the
+    # reference serves through bucketed runs at this n
+    phase("serve-2g: bucketed rank")
+    port.reset_launches()
+    b2b = prepare(big, big_tags, codes, lens, dev, rank_mode="bucketed", min_occ=MIN_OCC,
+                  mer_m=MER_M_2G, sdict_s=SDICT_S)
+    r2b = run(b2b, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP, tag_capacity=TAG_CAP,
+              repeats=REPEATS)
+    sec_fd = port_cmd(["find-mems", big_ri, big_tp, all_reads, str(MIN_LEN), str(MIN_OCC),
+                       *fmt, "--rank-mode", "dense"],
+                      os.path.join(cli_dir, "big_find_dense.txt"))
+    read_launches("serve-2g-bucketed")
+    t2b = b2b.tables
+    check(t2b.pos_dtype == torch.int64 and t2b.bucket_lo is not None and t2b.ckpt is None
+          and t2b.cum.shape == (big.n_runs, 6), "serve-2g's bucketed tables are not int64 runs")
+    check(b2b.seed_kw["mer_m"] == MER_M_2G
+          and torch.equal(b2b.seed_kw["mer_table"], b2.seed_kw["mer_table"])
+          and torch.equal(b2b.seed_kw["sdict_vals"], b2.seed_kw["sdict_vals"]),
+          "serve-2g: the seed table or dictionary built through bucketed runs differs from "
+          "the checkpoint build")
+    sec = r2b.seconds
+    log(f"serve-2g [bucketed rank]: " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
+    log(f"serve-2g [bucketed rank]: bucket_lo {t2b.bucket_lo.numel()} entries, seed table "
+        f"and dictionary identical to the checkpoint builds; MEM-only "
+        f"{N_READS / sec['mems']:.1f} reads/s, MEM+tags "
+        f"{N_READS / (sec['mems'] + sec['tags']):.1f} reads/s (steady mean of {REPEATS}) "
+        f"{card}")
 
     # --- the path's answers: against the native engine, and the 1-copy run
     phase("serve-2g: checks")
@@ -1410,6 +1642,15 @@ def main() -> int:
         f"and all {len(ii2)} buffered slots identical; tag unique counts identical on "
         f"{int(ok2.sum())} slots ({int((~ok2).sum())} overflowed); native engine "
         f"{native_s:.2f} s")
+    for name, ref in (("count", c_n), ("start", s_n), ("end", e_n), ("bwt_start", b_n),
+                      ("size", z_n)):
+        check(np.array_equal(getattr(r2b, name), ref),
+              f"serve-2g [bucketed rank]: MEM {name} differs from the native engine")
+    check(np.array_equal(r2b.tag_nu[ii2, wi2][ok2], tuniq2[ok2])
+          and np.array_equal(r2b.tag_nu, r2.tag_nu) and np.array_equal(r2b.tag_ov, r2.tag_ov),
+          "serve-2g [bucketed rank]: tag counts differ from the native engine")
+    log(f"serve-2g [bucketed rank]: counts and all {len(ii2)} buffered slots identical to "
+        f"the native engine's, tag counts too")
     r1 = results["checkpoint"]
     check(np.array_equal(r2.count, r1.count) and np.array_equal(r2.start, r1.start)
           and np.array_equal(r2.end, r1.end), "serve-2g: MEMs differ from the 1-copy run's")
@@ -1461,6 +1702,11 @@ def main() -> int:
     log(f"serve-2g find-mems on all {N_READS} reads: stdout byte-equal to the host route "
         f"({len(got)} bytes, {got.count(b'MEM START')} MEMs; host route {host_s:.1f} s); "
         f"port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec_fm.items()) + f" {card}")
+    check(without_seconds(os.path.join(cli_dir, "big_find_dense.txt")) == got,
+          "serve-2g: find-mems --rank-mode dense differs from the checkpoint run")
+    log(f"serve-2g find-mems --rank-mode dense (served through int64 bucketed runs) on all "
+        f"{N_READS} reads: stdout byte-equal to the checkpoint run's ({len(got)} bytes); "
+        f"port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec_fd.items()) + f" {card}")
     host_s = host_query_tags(qt2_reads, os.path.join(cli_dir, "big_query_host.txt"), big,
                              big_tags)
     got = without_seconds(os.path.join(cli_dir, "big_query_port.txt"))
@@ -1471,7 +1717,7 @@ def main() -> int:
         f"{host_s:.1f} s); port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec_qt.items())
         + f" {card}")
     for name in ("big_find_port.txt", "big_find_host.txt", "big_query_port.txt",
-                 "big_query_host.txt"):
+                 "big_query_host.txt", "big_find_dense.txt"):
         for suffix in ("", ".err"):
             if os.path.exists(os.path.join(cli_dir, name + suffix)):
                 os.remove(os.path.join(cli_dir, name + suffix))
@@ -1490,6 +1736,7 @@ def main() -> int:
           and np.array_equal(host2_vals, K_COPIES * host_vals.astype(np.int64)),
           f"the k-copy dictionary is not the 1-copy one with {K_COPIES}x intervals")
     hold_levels(t2, "sdict_level_int64", host2_keys, host2_vals)
+    hold_levels(t2b, "sdict_level_bucketed64", host2_keys, host2_vals)
     del host2_keys, host2_vals
     rng = np.random.default_rng(27)
     k = rng.integers(0, big.n, N_LANES)
@@ -1510,7 +1757,20 @@ def main() -> int:
             lambda: fmd.extend(t2, bnd, lanes2[1], span, code2, forward=fwd2),
             lambda: fmd.extend_plain(t2, bnd, lanes2[1], span, code2, forward=fwd2),
             record=False)
-    del lanes2, bnd, span
+    ext2_bytes, ext2_chain = rank_reads(t2b, torch.cat((lanes2[0], lanes2[0] + lanes2[2])))
+    compare("extend_bucketed64", lambda: fmd.extend(t2b, *lanes2, code2, forward=fwd2),
+            lambda: fmd.extend_plain(t2b, *lanes2, code2, forward=fwd2),
+            nbytes=N_LANES * (24 + 4 + 1 + 24) + ext2_bytes, ops=N_LANES * 100,
+            chain=ext2_chain)
+    # bucketed rank6 alone at 32768 positions of the k-copy index, 0, n, n + 1
+    # among them
+    rpos2 = T(np.concatenate((rng.integers(0, big.n + 2, N_LANES - 3),
+                              [0, big.n, big.n + 1])).astype(np.int64))
+    bk2_bytes, bk2_chain = rank_reads(t2b, rpos2)
+    compare("rank6_bucketed64", lambda: rank.rank6_bucketed(t2b, rpos2),
+            lambda: rank.rank6_bucketed_plain(t2b, rpos2),
+            nbytes=N_LANES * (8 + 48) + bk2_bytes, ops=N_LANES * 40, chain=bk2_chain)
+    del lanes2, bnd, span, rpos2
     kw2 = b2.seed_kw
     check(kw2["sdict_vals"].dtype == kw2["mer_table"].dtype == torch.int64,
           "serve-2g's seed tables are not int64")
@@ -1533,8 +1793,25 @@ def main() -> int:
         inp = k3_inputs(b2, ends[which])
         compare(f"find_mems_int64 ({which} {N_K3} reads)", lambda: k3(mems.find_mems, inp),
                 lambda: k3(mems.find_mems_plain, inp), record=False)
+    # K3 through the int64 bucketed runs: the last reads against plain, all
+    # reads by events
+    inputs2b = k3_inputs(b2b, ends["last"])
+    st2b = k3(mems.find_mems, inputs2b)[-1]
+    compare("find_mems_bucketed64", lambda: k3(mems.find_mems, inputs2b),
+            lambda: k3(mems.find_mems_plain, inputs2b), plain_reps=1,
+            nbytes=n2 * ((READ_LEN + 1) * (1 + 32) + 4)
+            + gathered(int(st2b.sum()) * step_reads(t2b)[0], *rank_tables(t2b))
+            + n2 * (MEM_CAP * 20 + 8),
+            ops=int(st2b.sum()) * 100, chain=int(st2b.max()) * step_reads(t2b)[1])
     k3_ms2, seeds_ms2, k3_out2 = k3_ms_of(
         lambda: k3(mems.find_mems, k3_inputs(b2, slice(None))))
+    k3_ms2b, _, k3_out2b = k3_ms_of(lambda: k3(mems.find_mems, k3_inputs(b2b, slice(None))))
+    check(max_abs_err(k3_out2b, k3_out2) == 0,
+          "K3 through int64 bucketed runs differs from the two-level rows on the whole batch")
+    kernels["find_mems_bucketed64"]["all_reads_ms"] = k3_ms2b
+    log(f"K3 int64 bucketed on all {N_READS} reads of the k-copy index: {k3_ms2b:.4f} ms "
+        f"(device), {k3_ms2b / k3_ms2:.3f}x the two-level rows' ({k3_ms2:.4f} ms) {card}")
+    del inputs2b, k3_out2b
     k3_steps2 = k3_out2[-1]
     log(f"K3 int64 on all {N_READS} reads of the k-copy index: {k3_ms2:.4f} ms (device), "
         f"longest read {int(k3_steps2.max())} steps: "
@@ -1591,7 +1868,7 @@ def main() -> int:
                        + int(l_steps2.sum()) * (tail_lines2 * 64 + 24), *loc_tables2),
             ops=(len(l_start2) * run_lines2 + int(l_steps2.sum()) * tail_lines2) * 32,
             chain=run_lines2 + 2 + int(l_steps2.max()) * (tail_lines2 + 2))
-    del b2, t2, tt2, kw2, ls2, lz2, loc_tables2, big, big_tags
+    del b2, t2, tt2, kw2, ls2, lz2, loc_tables2, big, big_tags, b2b, t2b
 
     for name, entry in kernels.items():
         src_ = SOURCES[name]

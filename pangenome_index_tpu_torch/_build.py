@@ -32,6 +32,16 @@ LIB_NAME = "libpgt_kernels.so"
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
+#: the arguments of an entry point after its rank provider's: extend,
+#: find_mems (int32 / int64 positions) and the dictionary's level
+_EXTEND = (_P, _P, _P, _P, _P, _P, _I64, _P, _P, _P, _P)
+_MEMS = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I64, _P, _P, _P, _P, _P, _P)
+_MEMS64 = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I, _I64, _P, _P, _P, _P, _P,
+           _P)
+_LEVEL = (_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P, _P,
+          _P, _P)
+#: the bucketed provider's arguments
+_BUCKET = (_P, _I64, _P, _P, _P, _I64)
 #: argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "pgt_gather_rows": (_P, _I64, _I, _P, _I64, _P, _P),
@@ -87,6 +97,21 @@ SIGNATURES = {
                                _I, _P, _P, _P, _P, _P),
     "pgt_locate64": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64,
                      _I, _P, _P, _P, _P),
+    # the ultra (rank_table, rows) and bucketed (bucket_lo, buckets,
+    # run_start, run_sym, cum, runs) rank providers; bucketed64: int64
+    # tables and positions
+    "pgt_rank6_ultra": (_P, _I64, _P, _I64, _P, _P),
+    "pgt_rank6_bucketed": _BUCKET + (_P, _I64, _P, _P),
+    "pgt_rank6_bucketed64": _BUCKET + (_P, _I64, _P, _P),
+    "pgt_extend_ultra": (_P, _I64) + _EXTEND,
+    "pgt_extend_bucketed": _BUCKET + _EXTEND,
+    "pgt_extend_bucketed64": _BUCKET + _EXTEND,
+    "pgt_find_mems_ultra": (_P, _I64) + _MEMS,
+    "pgt_find_mems_bucketed": _BUCKET + _MEMS,
+    "pgt_find_mems_bucketed64": _BUCKET + _MEMS64,
+    "pgt_sdict_level_ultra": (_P, _I64) + _LEVEL,
+    "pgt_sdict_level_bucketed": _BUCKET + _LEVEL,
+    "pgt_sdict_level_bucketed64": _BUCKET + _LEVEL,
 }
 
 _lib = None

@@ -12,15 +12,17 @@ The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-651,
 query-tags: stdout under --engine native and --engine host, apart from the
 two "Total time" lines; build-bwt: the .rl_bwt of every engine;
 build-rindex: the .ri bytes of both formats). Indexes of any n are served:
-past 2^31 positions through int64 tables over two-level checkpoint rows
-(--rank-mode dense stays below 2^31). There is one engine:
+past 2^31 positions through int64 tables over two-level checkpoint rows or
+bucketed runs (--rank-mode dense and ultra are served there through bucketed
+runs, as the reference serves them). There is one engine:
 the port's kernels on --device (default cuda; a missing card is an error,
 and --device cpu runs the kernels' plain PyTorch versions). A missing file
 or invalid input ends a command with `panidx: ...` on stderr and exit code
 1, as the JAX command line does. --engine takes the one choice `device`,
 so that the reference's argv with it parses.
 
-find-mems: checkpoint (or dense) rank tables, the m-mer seed table (npz
+find-mems: the rank tables of --rank-mode (checkpoint rows, dense records,
+ultra rows or bucketed runs), the m-mer seed table (npz
 cache beside the index, else built with K2; m stepped down where the build
 would not fit the device, as in the reference), the long-seed dictionary
 (npz cache beside the index, else built on the device from the rank tables:
@@ -68,7 +70,7 @@ from .ops.sparsedict import (DEVICE_BYTES_CAP, get_sparse_dict,
                              read_windows_fast, sdict_vals_to_device)
 from .ops.tables import rindex_to_device, tags_to_device
 from .ops.tagquery import query_tags_batch
-from .serve import check_dense_tables
+from .serve import check_rank_tables
 from .utils.alphabet import BYTE_TO_CODE
 
 #: device capacities that overflowed reads are re-run at (cli.py:482)
@@ -170,13 +172,12 @@ def _phases(device: torch.device, seconds: dict):
     return mark
 
 
-def _check_rank_mode(idx, mode: str) -> None:
-    """Dense records are int32 (n < 2^31); past it the reference serves
-    --rank-mode dense through its bucketed rank, which the port lacks."""
-    if mode == "dense" and idx.n >= 2**31:
-        raise ValueError("--rank-mode dense at n >= 2^31: the reference serves "
-                         "it through bucketed rank, which the port does not "
-                         "have; --rank-mode checkpoint serves any n")
+def rank_mode_for(n: int, mode: str) -> str:
+    """The rank tables find-mems serves --rank-mode `mode` with at n
+    positions: the reference's mapping (pangenome_index_tpu/cli.py:360-366),
+    dense and ultra at n >= 2^31 through bucketed runs (their tables would
+    be O(n) int64 there); every other case as asked."""
+    return "bucketed" if mode in ("dense", "ultra") and n >= 2**31 else mode
 
 
 def _tag_positions(tags, tt, qs: np.ndarray, qe: np.ndarray, capacity: int,
@@ -220,16 +221,14 @@ def cmd_find_mems(args, seconds: dict) -> int:
     mark = _phases(dev, seconds)
     reads = read_reads(args.reads)
     idx, tags = load_serving(args)
-    _check_rank_mode(idx, args.rank_mode)
     mark("load")
 
     def put(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
-    dense = args.rank_mode == "dense"
-    t = rindex_to_device(idx, dev, checkpoint=not dense, dense=dense)
-    if dense:
-        check_dense_tables(t)
+    mode = rank_mode_for(idx.n, args.rank_mode)
+    t = rindex_to_device(idx, dev, **{mode: True})
+    check_rank_tables(t, mode)
     tt = tags_to_device(tags, dev)
     codes, lens = pack_reads(reads)
     mark("tables")
@@ -481,9 +480,10 @@ def main(argv=None, seconds: dict | None = None) -> int:
                                 "the device's free memory would not hold "
                                 "them")
             q.add_argument("--rank-mode", default="checkpoint",
-                           choices=["checkpoint", "dense"],
-                           help="rank tables: checkpoint rows or dense run "
-                                "records")
+                           choices=["checkpoint", "dense", "ultra", "bucketed"],
+                           help="device rank representation (checkpoint: one "
+                                "64B gather per rank6 query - the fastest, "
+                                "see PERF.md)")
         q.add_argument("--tags-format", default="auto",
                        choices=["auto", "algorithm", "sdsl", "bytecode",
                                 "bytecode-compact"])

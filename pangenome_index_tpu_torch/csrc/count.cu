@@ -190,8 +190,8 @@ int pgt_count_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
                     int64_t n_runs, const int* C, const int* codes,
                     int64_t width, const int* lengths, int64_t n_reads, int n,
                     int* first, int* second, void* stream) {
-  pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
-                    n_runs};
+  pgt::DenseRank rk{
+      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
   return launch(rk, C, codes, width, lengths, n_reads, n, first, second,
                 stream);
 }

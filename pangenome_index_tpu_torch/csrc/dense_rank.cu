@@ -74,8 +74,8 @@ int pgt_rank6_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
                     int64_t n_runs, const int* pos, int64_t n, int* out,
                     void* stream) {
   if (n > 0) {
-    pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
-                      n_runs};
+    pgt::DenseRank rk{
+        {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
     rank6_dense_kernel<<<blocks_for(n), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(rk, pos, n, out);
   }

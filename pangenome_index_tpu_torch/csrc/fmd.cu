@@ -10,7 +10,8 @@
 // tables two masks and four 64-bit popcounts over bit-plane rows, in place
 // of the one-hot matrix math). The rank provider is a template parameter:
 // bit-plane checkpoint rows, int32 or int64 positions (the two-level rows of
-// n >= 2^31), or dense records (rank.cuh).
+// n >= 2^31), dense records, ultra rows, or bucketed runs at int32 or int64
+// positions (rank.cuh).
 //
 // Used one level at a time to build the m-mer seed table (ops/mertable.py),
 // where a level is up to 4^m lanes, so every thread index is 64-bit.
@@ -89,8 +90,47 @@ int pgt_extend_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
                      int64_t n_runs, const int* C, const int* k, const int* kp,
                      const int* s, const int* code, const uint8_t* forward,
                      int64_t n, int* ok, int* okp, int* os, void* stream) {
-  pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
-                    n_runs};
+  pgt::DenseRank rk{
+      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+  return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
+}
+
+// ultra rows: rank_table [n_rows, 8] int32
+int pgt_extend_ultra(const int* rank_table, int64_t n_rows, const int* C,
+                     const int* k, const int* kp, const int* s, const int* code,
+                     const uint8_t* forward, int64_t n, int* ok, int* okp,
+                     int* os, void* stream) {
+  pgt::UltraRank rk{{}, reinterpret_cast<const int4*>(rank_table), n_rows};
+  return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
+}
+
+// bucketed runs: bucket_lo [n_buckets], run_start [n_runs], run_sym
+// [n_runs] int8, cum [n_runs, 6]; int32 positions
+int pgt_extend_bucketed(const int* bucket_lo, int64_t n_buckets,
+                        const int* run_start, const int8_t* run_sym,
+                        const int* cum, int64_t n_runs, const int* C,
+                        const int* k, const int* kp, const int* s,
+                        const int* code, const uint8_t* forward, int64_t n,
+                        int* ok, int* okp, int* os, void* stream) {
+  pgt::BucketRank<int> rk;
+  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
+                        &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
+}
+
+// the same over int64 positions
+int pgt_extend_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
+                          const int64_t* run_start, const int8_t* run_sym,
+                          const int64_t* cum, int64_t n_runs, const int64_t* C,
+                          const int64_t* k, const int64_t* kp,
+                          const int64_t* s, const int* code,
+                          const uint8_t* forward, int64_t n, int64_t* ok,
+                          int64_t* okp, int64_t* os, void* stream) {
+  pgt::BucketRank<int64_t> rk;
+  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
+                        &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 

@@ -48,9 +48,11 @@
 //
 // Positions (the interval state, the seeds, bwt_start and size) are int32
 // below n = 2^31 and int64 past it, over the two-level checkpoint rows
-// (rank.cuh:CkptRank<int64_t>); the read positions and the packed
-// (start, end) stay int32. The position type is a template parameter beside
-// the rank provider, as in every serving kernel.
+// (rank.cuh:CkptRank<int64_t>) or bucketed runs (BucketRank<int64_t>); the
+// read positions and the packed (start, end) stay int32. The position type
+// is a template parameter beside the rank provider, as in every serving
+// kernel; the providers are the checkpoint rows, dense records, ultra rows
+// and bucketed runs of rank.cuh (the --rank-mode choices).
 #include <cstdint>
 #include <type_traits>
 
@@ -385,9 +387,59 @@ int pgt_find_mems_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
                         int N, int M, int64_t max_iters, int* m_se,
                         int* m_bwt, int* m_size, int* count, int* steps,
                         void* stream) {
-  pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
-                    n_runs};
+  pgt::DenseRank rk{
+      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
   return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
+                n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
+                m_se, m_bwt, m_size, count, steps, stream);
+}
+
+int pgt_find_mems_ultra(const int* rank_table, int64_t n_rows, const int* C,
+                        const int8_t* codes, const int* lengths,
+                        const int* seeds, int n_reads, int width,
+                        int code_stride, int min_len, int min_occ, int N,
+                        int M, int64_t max_iters, int* m_se, int* m_bwt,
+                        int* m_size, int* count, int* steps, void* stream) {
+  pgt::UltraRank rk{{}, reinterpret_cast<const int4*>(rank_table), n_rows};
+  return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
+                n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
+                m_se, m_bwt, m_size, count, steps, stream);
+}
+
+// bucketed runs (rank.cuh:BucketRank), int32 positions
+int pgt_find_mems_bucketed(const int* bucket_lo, int64_t n_buckets,
+                           const int* run_start, const int8_t* run_sym,
+                           const int* cum, int64_t n_runs, const int* C,
+                           const int8_t* codes, const int* lengths,
+                           const int* seeds, int n_reads, int width,
+                           int code_stride, int min_len, int min_occ, int N,
+                           int M, int64_t max_iters, int* m_se, int* m_bwt,
+                           int* m_size, int* count, int* steps, void* stream) {
+  pgt::BucketRank<int> rk;
+  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
+                        &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
+                n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
+                m_se, m_bwt, m_size, count, steps, stream);
+}
+
+// the same over int64 positions, seeds from pgt_resolve_seeds64
+int pgt_find_mems_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
+                             const int64_t* run_start, const int8_t* run_sym,
+                             const int64_t* cum, int64_t n_runs,
+                             const int64_t* C, const int8_t* codes,
+                             const int* lengths, const int64_t* seeds,
+                             int n_reads, int width, int code_stride,
+                             int min_len, int min_occ, int64_t N, int M,
+                             int64_t max_iters, int* m_se, int64_t* m_bwt,
+                             int64_t* m_size, int* count, int* steps,
+                             void* stream) {
+  pgt::BucketRank<int64_t> rk;
+  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
+                        &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch(rk, C, codes, lengths, reinterpret_cast<const Seed64*>(seeds),
                 n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
                 m_se, m_bwt, m_size, count, steps, stream);
 }

@@ -1,8 +1,10 @@
 // Rank providers shared by the kernels, and the FMD extension built on them.
 //
 // Replaces the rank step of ops/rank.py:_ckpt_rank6 / ckpt_row_rank6 (the
-// serving default, XLA on the TPU) and the dense record fetch of
-// ops/pallas_rank.py:gather_rows_pallas + rank6_pallas (Pallas). A query is
+// serving default, XLA on the TPU), the dense record fetch of
+// ops/pallas_rank.py:gather_rows_pallas + rank6_pallas (Pallas), and the
+// ultra (rank_table row) and bucketed (run_of + cum) forms of ops/rank.py:
+// rank6 (XLA). A query is
 // a dependent random row load, each thread at its own address, and the
 // kernels that chain extensions (K3, K7) run about one warp to an SM
 // scheduler. Measured on an H100 80GB HBM3 at 700 W (PERF.md), a step of
@@ -15,10 +17,13 @@
 // loads and decodes that row once.
 //
 // Checkpoint rows serve any n: int32 positions below 2^31, int64 positions
-// over two-level rows past it (CkptRank<P>). Dense records are int32 only.
+// over two-level rows past it (CkptRank<P>). Dense records and ultra rows
+// are int32 only; bucketed runs serve both (BucketRank<P>).
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
+
 #include <cuda_runtime.h>
 
 namespace pgt {
@@ -29,8 +34,9 @@ __device__ __forceinline__ int64_t clamp64(int64_t v, int64_t lo, int64_t hi) {
 
 // value at index i of a six-entry register array; 0 when i is outside 0..5
 // (the one-hot select semantics of the JAX code, so odd codes behave alike)
-__device__ __forceinline__ int sel6(const int (&a)[6], int i) {
-  int v = 0;
+template <class P>
+__device__ __forceinline__ P sel6(const P (&a)[6], int i) {
+  P v = 0;
 #pragma unroll
   for (int c = 0; c < 6; ++c) v = (c == i) ? a[c] : v;
   return v;
@@ -276,6 +282,13 @@ struct CkptRank {
   }
 };
 
+// True for the checkpoint providers: their Rows are bit-plane rows, which
+// a kernel may load and decode itself (csrc/sparsedict.cu).
+template <class Rank>
+struct IsCkptRank : std::false_type {};
+template <class P>
+struct IsCkptRank<CkptRank<P>> : std::true_type {};
+
 // The int64 provider of a C entry point's arguments; false when the
 // superblock table does not fit what a block stages or the shift is out of
 // range (the wrappers check both before they launch).
@@ -293,22 +306,68 @@ inline bool make_ckpt64(const int* rows, int64_t nrows, const int64_t* super_S,
   return true;
 }
 
+// rank6 at both ends of an interval: the rows of the providers that read
+// whole rank vectors (dense records, ultra rows, bucketed runs)
+template <class P>
+struct Rank6Pair {
+  P a[6], b[6];  // rank6 at pos and at pos + s
+};
+
+// What the rank6-vector providers share (Self::rank6(pos, r) gives one
+// vector, Self::load(pos, s) both): an extension's three counts and an LF
+// step's two from the pair, so that the providers differ only in how they
+// fetch a vector. No load depends on the code.
+template <class Self, class P>
+struct Rank6Provider {
+  using Pos = P;
+  using Rows = Rank6Pair<P>;
+  using LfRows = Rows;
+
+  __device__ __forceinline__ void stage() {}
+
+  __device__ __forceinline__ const Self& self() const {
+    return static_cast<const Self&>(*this);
+  }
+
+  // both vectors, their loads in flight together (a provider with a chain
+  // of loads a vector overrides it to interleave the two chains)
+  __device__ __forceinline__ Rows load(P pos, P s) const {
+    Rows r;
+    self().rank6(pos, r.a);
+    self().rank6(pos + s, r.b);
+    return r;
+  }
+
+  __device__ __forceinline__ void counts(const Rows& r, P, P, int ext, int qe,
+                                         P& r1, P& d, P& dlt) const {
+    r1 = sel6(r.a, ext);
+    d = sel6(r.b, ext) - r1;
+    dlt = 0;
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      dlt += comp_code(c) < qe ? r.b[c] - r.a[c] : 0;
+  }
+
+  // Backward search: the vectors do not depend on the code
+  __device__ __forceinline__ LfRows load_lf(P pos, P s, int) const {
+    return self().load(pos, s);
+  }
+
+  __device__ __forceinline__ void lf(const LfRows& r, P, P, int ext, int,
+                                     P& lo, P& inside) const {
+    lo = sel6(r.a, ext);
+    inside = sel6(r.b, ext) - lo;
+  }
+};
+
 // Dense records: pos_to_run [n+2] int32 and rec [r, 8] int32 rows
 // (start, sym, cum0..cum5). One run-id load, then one 32-byte record as two
-// 16-byte loads; rank6 = cum + onehot(sym) * (pos - start). No load depends
-// on the code.
-struct DenseRank {
-  using Pos = int;
+// 16-byte loads; rank6 = cum + onehot(sym) * (pos - start).
+struct DenseRank : Rank6Provider<DenseRank, int> {
   const int* pos_to_run;
   int64_t n_p2r;
   const int4* rec;  // [r, 8] viewed as [r, 2] int4
   int64_t n_runs;
-
-  struct Rows {
-    int a[6], b[6];  // rank6 at pos and at pos + s
-  };
-
-  __device__ __forceinline__ void stage() {}
 
   __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
     const int64_t p = clamp64(pos, 0, n_p2r - 1);
@@ -319,38 +378,137 @@ struct DenseRank {
 #pragma unroll
     for (int c = 0; c < 6; ++c) r[c] += (a.y == c) ? extra : 0;
   }
+};
 
-  __device__ __forceinline__ Rows load(int pos, int s) const {
-    Rows r;
-    rank6(pos, r.a);
-    rank6(pos + s, r.b);
-    return r;
-  }
+// Ultra rows: rank_table [n+2, 8] int32, row p = occ of each code before p
+// (columns 6, 7 zero: 32 bytes). One row a vector as two 16-byte loads, the
+// row index clamped into the table; the rows of pos and pos + s are loaded
+// together. The reference builds them for n < 2^31 only.
+struct UltraRank : Rank6Provider<UltraRank, int> {
+  const int4* rows;  // [n_rows, 8] viewed as [n_rows, 2] int4
+  int64_t n_rows;
 
-  __device__ __forceinline__ void counts(const Rows& r, int, int, int ext,
-                                         int qe, int& r1, int& d,
-                                         int& dlt) const {
-    r1 = sel6(r.a, ext);
-    d = sel6(r.b, ext) - r1;
-    dlt = 0;
-#pragma unroll
-    for (int c = 0; c < 6; ++c)
-      dlt += comp_code(c) < qe ? r.b[c] - r.a[c] : 0;
-  }
-
-  // Backward search: the records do not depend on the code
-  using LfRows = Rows;
-
-  __device__ __forceinline__ LfRows load_lf(int pos, int s, int) const {
-    return load(pos, s);
-  }
-
-  __device__ __forceinline__ void lf(const LfRows& r, int, int, int ext, int,
-                                     int& lo, int& inside) const {
-    lo = sel6(r.a, ext);
-    inside = sel6(r.b, ext) - lo;
+  __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
+    const int64_t p = clamp64(pos, 0, n_rows - 1);
+    const int4 a = __ldg(rows + 2 * p), b = __ldg(rows + 2 * p + 1);
+    r[0] = a.x; r[1] = a.y; r[2] = a.z; r[3] = a.w; r[4] = b.x; r[5] = b.y;
   }
 };
+
+// Bucketed runs: the run of a position (ops/rank.py:run_of) from
+// bucket_lo [(n >> 6) + 2] (the run that holds each bucket's first
+// position), then rank6 = cum[j] + onehot(run_sym[j]) * (pos - run_start[j])
+// over the per-run tables run_start [r], run_sym [r] int8, cum [r, 6]; P
+// int32 or int64 (every table in it but run_sym).
+// The run: the reference probes the 127 runs after the bucket's by seven
+// dependent halvings. Here the heads after bucket_lo[b] are read a 64-byte
+// line's worth at a time (16 int32 or 8 int64 heads, every load of them
+// issued at once) and counted where <= pos; the next ones are read only
+// when all of them were <= pos, which is exact for any run length and on
+// the bench index (7.3 heads a bucket) nearly always one trip. Then the
+// run's start, symbol and counts (24 or 48 bytes) are loaded together: three
+// round trips a vector where the reference took nine. load() walks the
+// chains of pos and pos + s in step, so that their trips overlap.
+template <class P>
+struct BucketRank : Rank6Provider<BucketRank<P>, P> {
+  static constexpr int kHeads = 64 / static_cast<int>(sizeof(P));
+  const P* bucket_lo;
+  int64_t n_buckets;
+  const P* run_start;
+  const int8_t* run_sym;
+  const P* cum;  // [n_runs, 6]
+  int64_t n_runs;
+
+  // the run of each of N positions
+  template <int N>
+  __device__ __forceinline__ void runs_of(const P (&pos)[N],
+                                          int64_t (&j)[N]) const {
+    bool more[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const int64_t b =
+          clamp64(static_cast<int64_t>(pos[e] >> 6), 0, n_buckets - 1);
+      j[e] = clamp64(static_cast<int64_t>(ld(bucket_lo + b)), 0, n_runs - 1);
+      more[e] = true;
+    }
+    bool any = true;
+    while (any) {
+      P h[N][kHeads];
+      bool in[N][kHeads];
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+#pragma unroll
+        for (int i = 0; i < kHeads; ++i) {
+          const int64_t at = j[e] + 1 + i;
+          in[e][i] = more[e] && at < n_runs;
+          h[e][i] = in[e][i] ? ld(run_start + at) : P{0};
+        }
+      }
+      any = false;
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        int c = 0;
+#pragma unroll
+        for (int i = 0; i < kHeads; ++i) c += in[e][i] && h[e][i] <= pos[e];
+        j[e] += c;
+        more[e] = c == kHeads;
+        any = any || more[e];
+      }
+    }
+  }
+
+  // the run's three loads, issued together
+  __device__ __forceinline__ void rank6_at(P pos, int64_t j, P (&r)[6]) const {
+    const P start = ld(run_start + j);
+    const int sym = __ldg(run_sym + j);
+    const P* row = cum + 6 * j;
+    if constexpr (sizeof(P) == 4) {  // 24 bytes, 8-byte aligned
+      const int2* v = reinterpret_cast<const int2*>(row);
+      const int2 a = __ldg(v), b = __ldg(v + 1), c = __ldg(v + 2);
+      r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y; r[4] = c.x; r[5] = c.y;
+    } else {  // 48 bytes, 16-byte aligned
+      const longlong2* v = reinterpret_cast<const longlong2*>(row);
+      const longlong2 a = __ldg(v), b = __ldg(v + 1), c = __ldg(v + 2);
+      r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y; r[4] = c.x; r[5] = c.y;
+    }
+    const P extra = pos - start;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) r[c] += sym == c ? extra : 0;
+  }
+
+  __device__ __forceinline__ void rank6(P pos, P (&r)[6]) const {
+    const P p[1] = {pos};
+    int64_t j[1];
+    runs_of(p, j);
+    rank6_at(pos, j[0], r);
+  }
+
+  __device__ __forceinline__ Rank6Pair<P> load(P pos, P s) const {
+    const P p[2] = {pos, pos + s};
+    int64_t j[2];
+    runs_of(p, j);
+    Rank6Pair<P> r;
+    rank6_at(p[0], j[0], r.a);
+    rank6_at(p[1], j[1], r.b);
+    return r;
+  }
+};
+
+// The bucketed provider of a C entry point's arguments; false when a table
+// is empty (the wrappers check the shapes before they launch).
+template <class P>
+inline bool make_bucket(const P* bucket_lo, int64_t n_buckets,
+                        const P* run_start, const int8_t* run_sym, const P* cum,
+                        int64_t n_runs, BucketRank<P>* rk) {
+  if (n_buckets < 1 || n_runs < 1) return false;
+  rk->bucket_lo = bucket_lo;
+  rk->n_buckets = n_buckets;
+  rk->run_start = run_start;
+  rk->run_sym = run_sym;
+  rk->cum = cum;
+  rk->n_runs = n_runs;
+  return true;
+}
 
 // One bidirectional FMD extension (ops/fmd.py:extend) of the interval
 // (k, kp, s) by `code`; forward lanes swap k/kp and complement the code.

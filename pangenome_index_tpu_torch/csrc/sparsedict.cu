@@ -15,7 +15,8 @@
 //     rows are loaded once, and the four backward extensions are taken from
 //     them; a checkpoint row is loaded whole (four 16-byte loads: the planes
 //     and every base's count pair), so the four bases read their pairs from
-//     registers, and dense records go through rank.cuh's extend1;
+//     registers, and the other providers (dense records, ultra rows,
+//     bucketed runs) go through rank.cuh's extend1;
 //   - the block counts its kept children per branch (ballot, popcount; one
 //     warp a branch scans the block's eight warp counts);
 //   - the same four warps find the block's offset inside each branch by a
@@ -36,7 +37,8 @@
 // host build. Keys are plain int64, so t up to 30 (s = 31) is exact. The
 // entries' (k, kp, size) are int32 below n = 2^31 and int64 past it (an
 // entry is then 32 bytes, not 20), over the two-level checkpoint rows whose
-// superblock bases a block stages in shared memory (rank.cuh).
+// superblock bases a block stages in shared memory, or over bucketed runs
+// (rank.cuh).
 //
 // What bounds it: the bytes of a level are an entry and its rank rows (a
 // gather, but in key order, which is k order, so the rows come nearly in
@@ -105,7 +107,7 @@ struct EntryRows<pgt::CkptRank<P>> {
 };
 
 template <class Rank>
-constexpr bool kIsCkpt = !std::is_same_v<Rank, pgt::DenseRank>;
+constexpr bool kIsCkpt = pgt::IsCkptRank<Rank>::value;
 
 template <class Rank, class P = typename Rank::Pos>
 __device__ __forceinline__ EntryRows<Rank> load_rows(const Rank& rk, P k, P s) {
@@ -361,8 +363,61 @@ int pgt_sdict_level_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
                           int thresh, int level, int64_t blocks, void* state,
                           int64_t* keys_out, int* vals_out, int* offsets,
                           int* totals, void* stream) {
-  pgt::DenseRank rk{pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec),
-                    n_runs};
+  pgt::DenseRank rk{
+      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+  return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
+                      thresh, level, blocks, state, keys_out, vals_out,
+                      offsets, totals, stream);
+}
+
+// the same over ultra rows (rank_table [n_rows, 8] int32)
+int pgt_sdict_level_ultra(const int* rank_table, int64_t n_rows, const int* C,
+                          const int64_t* keys_in, const int* vals_in,
+                          int regions, int64_t stride, int64_t c0, int64_t c1,
+                          int64_t c2, int64_t c3, int thresh, int level,
+                          int64_t blocks, void* state, int64_t* keys_out,
+                          int* vals_out, int* offsets, int* totals,
+                          void* stream) {
+  pgt::UltraRank rk{{}, reinterpret_cast<const int4*>(rank_table), n_rows};
+  return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
+                      thresh, level, blocks, state, keys_out, vals_out,
+                      offsets, totals, stream);
+}
+
+// the same over bucketed runs, int32 positions
+int pgt_sdict_level_bucketed(const int* bucket_lo, int64_t n_buckets,
+                             const int* run_start, const int8_t* run_sym,
+                             const int* cum, int64_t n_runs, const int* C,
+                             const int64_t* keys_in, const int* vals_in,
+                             int regions, int64_t stride, int64_t c0,
+                             int64_t c1, int64_t c2, int64_t c3, int thresh,
+                             int level, int64_t blocks, void* state,
+                             int64_t* keys_out, int* vals_out, int* offsets,
+                             int* totals, void* stream) {
+  pgt::BucketRank<int> rk;
+  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
+                        &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
+                      thresh, level, blocks, state, keys_out, vals_out,
+                      offsets, totals, stream);
+}
+
+// the same over bucketed runs, int64 positions (vals int64)
+int pgt_sdict_level_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
+                               const int64_t* run_start, const int8_t* run_sym,
+                               const int64_t* cum, int64_t n_runs,
+                               const int64_t* C, const int64_t* keys_in,
+                               const int64_t* vals_in, int regions,
+                               int64_t stride, int64_t c0, int64_t c1,
+                               int64_t c2, int64_t c3, int thresh, int level,
+                               int64_t blocks, void* state, int64_t* keys_out,
+                               int64_t* vals_out, int* offsets, int* totals,
+                               void* stream) {
+  pgt::BucketRank<int64_t> rk;
+  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
+                        &rk))
+    return static_cast<int>(cudaErrorInvalidValue);
   return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
                       thresh, level, blocks, state, keys_out, vals_out,
                       offsets, totals, stream);

@@ -5,7 +5,10 @@ left from (0, n - 1), through lf_range; the result is the read's BWT
 interval (first, second), or the reference's (1, 0) sentinel when it does
 not occur. The kernel runs one thread per read, with the block's codes
 staged in shared memory ahead of the chain, and stops at the sentinel; the
-plain version keeps JAX's lockstep loop over the longest read.
+plain version keeps JAX's lockstep loop over the longest read. The kernel
+ranks through checkpoint rows or dense records (query-tags builds checkpoint
+rows in every rank mode, as the reference does); the plain version through
+any tables.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from .. import _build
 from .fmd import check_kernel_tables, rank_args
 from .rank import lf_range
 from .tables import RIndexTables
+
+#: the rank providers the kernel is instantiated for (fmd.rank_args kinds)
+COUNT_KINDS = ("ckpt", "ckpt64", "dense")
 
 
 def count_plain(t: RIndexTables, codes: torch.Tensor, lengths: torch.Tensor):
@@ -49,6 +55,9 @@ def count(t: RIndexTables, codes: torch.Tensor, lengths: torch.Tensor):
     pd = t.pos_dtype
     B, L = codes.shape
     kind, rargs = rank_args(t)
+    if kind not in COUNT_KINDS:
+        raise ValueError(f"count: the backward search ranks through checkpoint "
+                         f"rows or dense records, not {kind} tables")
     first = torch.empty(B, dtype=pd, device=dev)
     second = torch.empty(B, dtype=pd, device=dev)
     _build.launch(f"pgt_count_{kind}", *rargs,

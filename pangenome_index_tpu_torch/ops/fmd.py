@@ -5,10 +5,12 @@ r = rank6 at the backward interval start bk and at bk + s:
     delta = r(bk + s) - r(bk);  s' = delta[c];  k' = r(bk)[c] + C[c]
     kp' = bkp + exclusive-prefix(delta[COMP_CODE])[comp(c)]
 Forward lanes swap k/kp and complement the code; failed lanes (s' <= 0)
-return (0, 0, 0). The rank provider is the table's checkpoint rows when
-present, else its dense records (ops/rank.py:rank6); the kernel reads the
-checkpoint rows in their bit-plane form (tables.ckpt_planes), at int32
-positions or, past 2^31, at int64 over two-level rows (with tables.super_S).
+return (0, 0, 0). The rank provider is the table's, in ops/rank.py:rank6's
+order: checkpoint rows, ultra rows, dense records, bucketed runs. The kernel
+reads the checkpoint rows in their bit-plane form (tables.ckpt_planes), at
+int32 positions or, past 2^31, at int64 over two-level rows (with
+tables.super_S); ultra rows and dense records at int32 positions; bucketed
+runs at either.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .. import _build
 from ..utils.alphabet import COMP_CODE
+from .rank import bucket_args, ultra_args
 from .rank import rank6 as rank6_plain
 from .tables import MAX_SUPER, RIndexTables
 
@@ -53,16 +56,21 @@ def extend_plain(t: RIndexTables, k, kp, s, code, forward=None):
 def check_kernel_tables(t: RIndexTables) -> None:
     """The kernels take checkpoint rows at int32 positions (single-level
     rows, n < 2^31) or int64 positions (two-level rows past 2^31, or
-    single-level), and dense records at int32 positions."""
-    if t.ckpt is None and t.rec is None:
-        raise ValueError("tables carry neither checkpoint rows nor dense records")
+    single-level), ultra rows and dense records at int32 positions, and
+    bucketed runs at either; base tables (no bucket_lo) they refuse."""
     if t.pos_dtype not in (torch.int32, torch.int64):
         raise ValueError(f"the CUDA kernels take int32 or int64 positions, "
                          f"not {t.pos_dtype}")
     if t.ckpt is None:
-        if t.pos_dtype != torch.int32:
+        if t.rank_table is None and t.rec is None and t.bucket_lo is None:
+            raise ValueError("tables carry neither checkpoint rows, ultra rows, "
+                             "dense records nor bucket_lo: no rank table the "
+                             "kernels read")
+        if t.rank_table is None and t.rec is not None and t.pos_dtype != torch.int32:
             raise ValueError("dense records take int32 positions (n < 2^31): "
-                             "past it the kernels rank through checkpoint rows")
+                             "past it the kernels rank through checkpoint rows "
+                             "or bucketed runs")
+        rank_args(t)  # checks the provider's tables
         return
     if t.ckpt_planes is None:
         raise ValueError("checkpoint tables lack ckpt_planes "
@@ -82,8 +90,9 @@ def check_kernel_tables(t: RIndexTables) -> None:
 
 def rank_args(t: RIndexTables) -> tuple[str, tuple]:
     """(entry point suffix, leading C arguments) of the table's rank
-    provider: "ckpt" (int32 positions), "ckpt64" (int64 positions, with the
-    superblock bases) or "dense"."""
+    provider, in ops/rank.py:rank6's order: "ckpt" (int32 positions),
+    "ckpt64" (int64 positions, with the superblock bases), "ultra", "dense",
+    "bucketed" (int32) or "bucketed64" (int64)."""
     dev = t.device
     if t.ckpt is not None:
         planes = (_build.check("ckpt_planes", t.ckpt_planes, torch.int32, dev),
@@ -92,10 +101,17 @@ def rank_args(t: RIndexTables) -> tuple[str, tuple]:
             return "ckpt", planes
         return "ckpt64", (*planes, _build.check("super_S", t.super_S, torch.int64, dev),
                           t.super_S.shape[0], t.super_shift)
-    return "dense", (_build.check("pos_to_run", t.pos_to_run, torch.int32, dev),
-                     t.pos_to_run.shape[0],
-                     _build.check("rec", t.rec, torch.int32, dev),
-                     t.rec.shape[0])
+    if t.rank_table is not None:
+        return "ultra", ultra_args(t)
+    if t.rec is not None:
+        return "dense", (_build.check("pos_to_run", t.pos_to_run, torch.int32, dev),
+                         t.pos_to_run.shape[0],
+                         _build.check("rec", t.rec, torch.int32, dev),
+                         t.rec.shape[0])
+    if t.bucket_lo is None:
+        raise ValueError("base tables (no bucket_lo): the kernels rank through "
+                         "bucketed runs only")
+    return ("bucketed" if t.pos_dtype == torch.int32 else "bucketed64"), bucket_args(t)
 
 
 def extend(t: RIndexTables, k, kp, s, code, forward=None):

@@ -22,7 +22,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
-from .rank import locate_next, run_of
+from .rank import locate_next, search_run
 from .tables import RIndexTables
 
 
@@ -38,7 +38,7 @@ def locate_batch_plain(t: RIndexTables, start: torch.Tensor, size: torch.Tensor,
     values of rows start .. start + min(size, capacity) - 1 per lane, step
     for step as the JAX function."""
     B = start.shape[0]
-    j = run_of(t, start)
+    j = search_run(t, start)
     first = t.samples[j]
     off = t.run_start[j]
     while bool((off < start).any()):   # the chase from the run head

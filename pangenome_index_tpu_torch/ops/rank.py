@@ -1,10 +1,13 @@
-"""Rank and LF primitives, plain PyTorch.
+"""Rank and LF primitives, plain PyTorch, and the ultra and bucketed rank6
+kernels (csrc/rankmodes.cu).
 
 The plain versions of the rank providers in csrc/rank.cuh, which extend
-(K2), find_mems (K3) and count (K7) instantiate, and of
-pangenome_index_tpu/ops/rank.py: rank6, rank and lf_range over the three
-table kinds - checkpoint rows (CkptRank), dense run records (DenseRank), and
-base tables (the per-run cum table, run_of by searchsorted; no kernel).
+(K2), find_mems (K3), count (K7) and the dictionary's level instantiate, and
+of pangenome_index_tpu/ops/rank.py: rank6, rank and lf_range over the table
+kinds, in the JAX package's order - checkpoint rows (CkptRank), ultra rows
+(UltraRank: rank_table[pos][:6]), dense run records (DenseRank), and the
+per-run cum table, found through bucket_lo (BucketRank: run_of's bucket jump
+and seven halving probes) or, in base tables, by searchsorted (no kernel).
 
 Each checkpoint row holds the occ counts before its bucket (cols 0..5) and
 the bucket's 64 BWT codes as 4-bit nibbles (cols 6..13, LSB first, 0xF past
@@ -14,15 +17,20 @@ The kernels read the same counts from a bit-plane form of the rows (and,
 for int64 positions, the superblock bases super_S of two-level rows);
 planes_rank6 is its plain reader, held against ckpt_rank6 by the tests.
 run_of and locate_next are the two searches of locate (ops/locate.py).
+
+rank6_ultra and rank6_bucketed launch their kernel for CUDA tensors (and
+count the launch in their `launches` attribute) and run the plain version
+for CPU tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import _build
 from ..utils.alphabet import COMP_CODE
 from .dense_rank import rank6_dense_plain
-from .tables import SINGLE_LEVEL_SHIFT, RIndexTables
+from .tables import BUCKET_SHIFT, SINGLE_LEVEL_SHIFT, RIndexTables
 
 _NIBBLE_SHIFTS = torch.arange(0, 32, 4, dtype=torch.int32)
 
@@ -83,10 +91,30 @@ def planes_rank6(planes: torch.Tensor, pos: torch.Tensor,
     return torch.stack(out, dim=1)
 
 
-def run_of(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
-    """Run id containing each position (0..n inclusive), by searchsorted."""
+def search_run(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """Run id containing each position, by searchsorted over run_start (-1
+    before the first run). [B] int64."""
     pos = pos.to(t.run_start.dtype)
     return torch.searchsorted(t.run_start, pos, right=True) - 1
+
+
+def run_of(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """Run id containing each position (0..n inclusive). With bucket_lo:
+    the JAX package's bucket jump and seven halving probes (the bucket of
+    2^BUCKET_SHIFT positions bounds the window to 64 runs; a bucket index
+    is clamped into the table, as the kernels do); else search_run. [B]
+    int64."""
+    if t.bucket_lo is None:
+        return search_run(t, pos)
+    pos = pos.to(t.run_start.dtype)
+    r = t.run_start.shape[0]
+    b = (pos.long() >> BUCKET_SHIFT).clamp(0, t.bucket_lo.shape[0] - 1)
+    j = t.bucket_lo[b].long()
+    for step in (64, 32, 16, 8, 4, 2, 1):
+        cand = j + step
+        ok = (cand <= r - 1) & (t.run_start[cand.clamp(max=r - 1)] <= pos)
+        j = torch.where(ok, cand, j)
+    return j
 
 
 def locate_next(t: RIndexTables, prev: torch.Tensor) -> torch.Tensor:
@@ -99,18 +127,102 @@ def locate_next(t: RIndexTables, prev: torch.Tensor) -> torch.Tensor:
     return t.samples[run] + (prev - t.last_sorted[i])
 
 
-def rank6(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
-    """The table's rank provider ([B] -> [B, 6]): checkpoint rows when
-    present, else dense records, else the per-run cum table."""
-    if t.ckpt is not None:
-        return ckpt_rank6(t, pos)
-    if t.rec is not None:
-        return rank6_dense_plain(t.rec, t.pos_to_run, pos)
+def rank6_ultra_plain(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """Ultra rank6: rank_table[pos][:6], the row index clamped into the
+    table ([B] -> [B, 6])."""
+    return t.rank_table[pos.long().clamp(0, t.rank_table.shape[0] - 1), :6]
+
+
+def rank6_bucketed_plain(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """rank6 through the per-run cum table ([B] -> [B, 6]): the run j of pos
+    (run_of: the bucket jump where the tables have bucket_lo, else the
+    search), then cum[j] + onehot(run_sym[j]) * (pos - run_start[j])."""
     j = run_of(t, pos)
     onehot = torch.arange(6, device=pos.device)[None, :] \
         == t.run_sym[j].long()[:, None]
     extra = (pos.to(t.pos_dtype) - t.run_start[j])[:, None]
     return t.cum[j] + onehot.to(t.pos_dtype) * extra
+
+
+def ultra_args(t: RIndexTables) -> tuple:
+    """The ultra provider's C arguments (rank_table, rows); the kernels take
+    int32 rows and positions, as the reference builds them (n < 2^31)."""
+    if t.pos_dtype != torch.int32:
+        raise ValueError("ultra rows take int32 positions (n < 2^31): the "
+                         "reference serves larger indexes through bucketed rank")
+    if t.rank_table.dim() != 2 or t.rank_table.shape[1] != 8 or not t.rank_table.shape[0]:
+        raise ValueError("rank_table must be [n + 2, 8]")
+    return (_build.check("rank_table", t.rank_table, torch.int32, t.device),
+            t.rank_table.shape[0])
+
+
+def bucket_args(t: RIndexTables) -> tuple:
+    """The bucketed provider's C arguments (bucket_lo, buckets, run_start,
+    run_sym, cum, runs): every table but run_sym (int8) in the position
+    dtype, the cum table whole."""
+    dev, pd = t.device, t.pos_dtype
+    r = t.run_start.shape[0]
+    if t.bucket_lo.dtype != pd:
+        raise ValueError(f"bucket_lo is {t.bucket_lo.dtype}, the positions {pd}")
+    if not t.bucket_lo.shape[0] or not r or t.cum.shape != (r, 6) \
+            or t.run_sym.shape != (r,):
+        raise ValueError("bucketed tables need bucket_lo, and run_start, run_sym "
+                         "and cum [r, 6] of every run")
+    return (_build.check("bucket_lo", t.bucket_lo, pd, dev), t.bucket_lo.shape[0],
+            _build.check("run_start", t.run_start, pd, dev),
+            _build.check("run_sym", t.run_sym, torch.int8, dev),
+            _build.check("cum", t.cum, pd, dev), r)
+
+
+def rank6_ultra(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """Ultra rank6 of int32 positions over the int32 rank_table ([B] ->
+    [B, 6]): one launch on the card, the plain version on the CPU."""
+    if pos.device.type == "cpu":
+        return rank6_ultra_plain(t, pos)
+    args = ultra_args(t)
+    out = torch.empty((pos.shape[0], 6), dtype=torch.int32, device=t.device)
+    _build.launch("pgt_rank6_ultra", *args,
+                  _build.check("pos", pos, torch.int32, t.device), pos.shape[0],
+                  out.data_ptr(), _build.stream(t.device))
+    rank6_ultra.launches += 1
+    return out
+
+
+rank6_ultra.launches = 0
+
+
+def rank6_bucketed(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """Bucketed rank6 ([B] -> [B, 6]) of positions in the tables' dtype:
+    one launch on the card (the int32 or int64 entry point by that dtype),
+    the plain version on the CPU."""
+    if pos.device.type == "cpu":
+        return rank6_bucketed_plain(t, pos)
+    if t.bucket_lo is None:
+        raise ValueError("rank6_bucketed: the tables carry no bucket_lo")
+    pd = t.pos_dtype
+    args = bucket_args(t)
+    out = torch.empty((pos.shape[0], 6), dtype=pd, device=t.device)
+    _build.launch("pgt_rank6_bucketed" + ("64" if pd == torch.int64 else ""), *args,
+                  _build.check("pos", pos, pd, t.device), pos.shape[0],
+                  out.data_ptr(), _build.stream(t.device))
+    rank6_bucketed.launches += 1
+    return out
+
+
+rank6_bucketed.launches = 0
+
+
+def rank6(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """The table's rank provider ([B] -> [B, 6]), in the JAX package's
+    order: checkpoint rows when present, else ultra rows, else dense
+    records, else the per-run cum table (bucketed or base)."""
+    if t.ckpt is not None:
+        return ckpt_rank6(t, pos)
+    if t.rank_table is not None:
+        return rank6_ultra_plain(t, pos)
+    if t.rec is not None:
+        return rank6_dense_plain(t.rec, t.pos_to_run, pos)
+    return rank6_bucketed_plain(t, pos)
 
 
 def rank(t: RIndexTables, pos: torch.Tensor, code: torch.Tensor) -> torch.Tensor:

@@ -3,11 +3,14 @@
 The layouts are those of the JAX package (pangenome_index_tpu/ops/tables.py),
 field for field, so tables carry across between the two packages
 (`tables_from_numpy`) and the tests can compare them directly. The port keeps
-the two rank representations its kernels read: checkpoint rows (the serving
-default: one 64-byte row per rank6 query; `ckpt` in the layout shared with
-the JAX package, `ckpt_planes` derived from it for the kernels) and dense
-run records (a run id and one 32-byte record per query); base tables (the
-full per-run cum table) serve the plain versions only. n, n_seq and max_len are host integers: every
+the four rank representations of the JAX package, and its kernels read each:
+checkpoint rows (the serving default: one 64-byte row per rank6 query;
+`ckpt` in the layout shared with the JAX package, `ckpt_planes` derived from
+it for the kernels), dense run records (a run id and one 32-byte record per
+query), ultra rows (`rank_table`, one 32-byte row of counts per position)
+and bucketed runs (`bucket_lo`, the run of each bucket of 2^BUCKET_SHIFT
+positions, beside the full per-run cum table). Base tables (the cum table
+with no bucket index) serve the plain versions only. n, n_seq and max_len are host integers: every
 kernel takes them as launch arguments, and reading them never waits on the
 card. The tag tables carry, beside the JAX package's fields, the search tree
 over their run heads that the tag kernels descend (`derive_search_tree`);
@@ -43,6 +46,9 @@ SINGLE_LEVEL_SHIFT = 62
 #: superblocks the kernels take (csrc/rank.cuh:kMaxSuper, staged in shared
 #: memory): 2^36 positions at SUPER_SHIFT
 MAX_SUPER = 64
+#: positions a bucket of the bucketed rank mode covers: 2^BUCKET_SHIFT
+#: (pangenome_index_tpu/ops/tables.py:BUCKET_SHIFT)
+BUCKET_SHIFT = 6
 
 
 @dataclass
@@ -51,7 +57,7 @@ class RIndexTables:
 
     run_sym: torch.Tensor      # int8 [r]
     run_start: torch.Tensor    # [r]
-    cum: torch.Tensor          # [r, 6] (a 1-row stub beside a fast rank table)
+    cum: torch.Tensor          # [r, 6] (a 1-row stub beside a row rank table)
     C: torch.Tensor            # [7] exclusive prefix counts per code
     samples: torch.Tensor      # [r+1]
     last_sorted: torch.Tensor  # [r]
@@ -59,8 +65,12 @@ class RIndexTables:
     n: int                     # BWT size
     n_seq: int
     max_len: int
+    # bucketed: [(n >> BUCKET_SHIFT) + 2] the run holding each bucket's first
+    # position (beside the full cum)
+    bucket_lo: torch.Tensor | None = None
     pos_to_run: torch.Tensor | None = None  # dense: [n+2] run of each position
     rec: torch.Tensor | None = None         # dense: [r, 8] start, sym, cum0..5
+    rank_table: torch.Tensor | None = None  # ultra: [n+2, 8] occ before each position
     ckpt: torch.Tensor | None = None        # checkpoint: [n//64+2, 16] int32
     ckpt_planes: torch.Tensor | None = None  # the kernels' form of ckpt
     ckpt_super: torch.Tensor | None = None  # two-level: [n_super, 6+shift] int64
@@ -341,27 +351,58 @@ def with_locate_trees(t: RIndexTables) -> RIndexTables:
     return t
 
 
+def build_rank_table(idx: RIndex, dtype: torch.dtype) -> np.ndarray:
+    """The ultra rank table on the host: [n+2, 8] of `dtype`, row p the
+    occurrences of each code before position p (row n+1 = row n; columns
+    6 and 7 zero), the values of the JAX package's
+    cumsum(onehot(bwt)) build, one code's column at a time."""
+    codes = np.repeat(idx.run_sym, idx.run_len)
+    table = np.zeros((int(idx.n) + 2, 8),
+                     dtype=np.int32 if dtype == torch.int32 else np.int64)
+    for c in range(6):
+        np.cumsum(codes == c, dtype=table.dtype, out=table[1 : int(idx.n) + 1, c])
+    table[-1] = table[-2]
+    return table
+
+
+def derive_bucket_lo(run_start: torch.Tensor, n: int) -> torch.Tensor:
+    """bucket_lo on run_start's device: for each bucket b < (n >>
+    BUCKET_SHIFT) + 2, the last run whose head is <= b << BUCKET_SHIFT (0
+    where none is), in run_start's dtype."""
+    nb = (n >> BUCKET_SHIFT) + 2
+    bucket_pos = torch.arange(nb, dtype=torch.int64, device=run_start.device) << BUCKET_SHIFT
+    j = torch.searchsorted(run_start, bucket_pos.to(run_start.dtype), right=True) - 1
+    return j.clamp(min=0).to(run_start.dtype)
+
+
 def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
-                     dense: bool = False, super_shift: int | None = None,
+                     dense: bool = False, ultra: bool = False,
+                     bucketed: bool = False, super_shift: int | None = None,
                      dtype: torch.dtype | None = None) -> RIndexTables:
-    """r-index -> tables on `device` with checkpoint rows, dense records, or
-    both (rank reads the checkpoint rows when present, as in the JAX
-    package); with neither, base tables that rank through the full per-run
-    cum table (plain PyTorch only: the kernels refuse them). Same fields and
-    values as the JAX rindex_to_device (base: bucketed=False), and the
-    search trees that locate descends (with_locate_trees).
+    """r-index -> tables on `device` with checkpoint rows, dense records,
+    ultra rows, or any of them together (rank reads the checkpoint rows
+    first, then the ultra rows, then the dense records, as in the JAX
+    package); with none of them, bucketed=True gives the bucketed tables
+    (bucket_lo beside the full per-run cum table), and bucketed=False base
+    tables that rank through the cum table by a search over run_start
+    (plain PyTorch only: the kernels refuse them). Same fields and values
+    as the JAX rindex_to_device with the same flags (whose bucketed is True
+    by default: here False, base tables), and the search trees that locate
+    descends (with_locate_trees).
 
     Positions are `dtype`, by default int32 where every value fits and int64
     past 2^31; rows are two-level at n >= 2^31 or with an explicit
     super_shift (the kernels take two-level rows with int64 positions)."""
     device = torch.device(device)
     pd = dtype or _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
-    ckpt = ckpt_super = pos_to_run = rec = None
+    ckpt = ckpt_super = pos_to_run = rec = rank_table = None
     if checkpoint:
         rows, sup = build_ckpt_rows(idx, super_shift=super_shift)
         ckpt = _put(rows, torch.int32, device)
         if sup is not None:
             ckpt_super = _put(sup, torch.int64, device)
+    if ultra:
+        rank_table = torch.from_numpy(build_rank_table(idx, pd)).to(device)
     if dense:
         runs = np.repeat(np.arange(idx.n_runs, dtype=np.int64), idx.run_len)
         p2r = np.concatenate((runs, [idx.n_runs - 1, idx.n_runs - 1]))
@@ -371,19 +412,23 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         rec_np[:, 1] = idx.run_sym
         rec_np[:, 2:8] = idx.cum
         rec = _put(rec_np, pd, device)
+    row_table = checkpoint or dense or ultra
+    run_start = _put(idx.run_start, pd, device)
     return with_locate_trees(with_rank_planes(RIndexTables(
         run_sym=_put(idx.run_sym, torch.int8, device),
-        run_start=_put(idx.run_start, pd, device),
-        # only base tables rank through the per-run cum table; beside a
-        # faster rank table it ships a 1-row stub, as in the JAX package
-        cum=_put(idx.cum if ckpt is None and rec is None else idx.cum[:1],
-                 pd, device),
+        run_start=run_start,
+        # only the run-based modes rank through the per-run cum table;
+        # beside a row rank table it ships a 1-row stub, as in the JAX package
+        cum=_put(idx.cum[:1] if row_table else idx.cum, pd, device),
         C=_put(idx.C, pd, device),
         samples=_put(np.concatenate((idx.samples, [0])), pd, device),
         last_sorted=_put(idx.last_sorted, pd, device),
         last_to_run=_put(idx.last_to_run, pd, device),
         n=int(idx.n), n_seq=int(idx.n_seq), max_len=int(idx.max_len),
-        pos_to_run=pos_to_run, rec=rec, ckpt=ckpt, ckpt_super=ckpt_super)))
+        bucket_lo=(derive_bucket_lo(run_start, int(idx.n))
+                   if bucketed and not row_table else None),
+        pos_to_run=pos_to_run, rec=rec, rank_table=rank_table, ckpt=ckpt,
+        ckpt_super=ckpt_super)))
 
 
 def tags_to_device(tags: TagArray, device,
@@ -400,31 +445,24 @@ def tags_to_device(tags: TagArray, device,
                      search_tree=tree, tree_levels=levels)
 
 
-#: JAX RIndexTables fields with no counterpart in the port (other rank modes)
-_UNPORTED_FIELDS = ("bucket_lo", "rank_table")
-
-
 def tables_from_numpy(rindex: dict[str, np.ndarray],
                       tags: dict[str, np.ndarray] | None, device):
     """The JAX package's RIndexTables / TagTables fields, each as a numpy
-    array (None kept), -> (RIndexTables, TagTables or None) on `device`, with
-    the same dtypes and values, and what the port derives beside them: the
-    search trees (over the tag run heads; over run_start and last_sorted),
-    the bit-plane rows and, for int64 positions, the superblock bases
-    (two-level rows included)."""
+    array (None or absent: None), -> (RIndexTables, TagTables or None) on
+    `device`, with the same dtypes and values, and what the port derives
+    beside them: the search trees (over the tag run heads; over run_start
+    and last_sorted), the bit-plane rows and, for int64 positions, the
+    superblock bases (two-level rows included)."""
     device = torch.device(device)
-    for name in _UNPORTED_FIELDS:
-        if rindex.get(name) is not None:
-            raise ValueError(f"{name}: the port has no such rank mode")
 
     def put(a):  # np.array copies: arrays from JAX are read-only
         return None if a is None else torch.from_numpy(np.array(a)).to(device)
 
     t = RIndexTables(
-        **{f: put(rindex[f]) for f in ("run_sym", "run_start", "cum", "C",
-                                        "samples", "last_sorted",
-                                        "last_to_run", "pos_to_run", "rec",
-                                        "ckpt", "ckpt_super")},
+        **{f: put(rindex.get(f)) for f in (
+            "run_sym", "run_start", "cum", "C", "samples", "last_sorted",
+            "last_to_run", "bucket_lo", "pos_to_run", "rec", "rank_table",
+            "ckpt", "ckpt_super")},
         n=int(rindex["n"]), n_seq=int(rindex["n_seq"]),
         max_len=int(rindex["max_len"]))
     if t.ckpt_super is not None:

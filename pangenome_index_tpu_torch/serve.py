@@ -8,10 +8,13 @@ counts per buffered MEM (K4). K3 gives every read a thread of its own, so
 the batch is not sorted by work: on the card what a sorted batch of mixed
 reads saved K3 was less than the sort and its inverse gathers cost (PERF.md).
 
-Two rank configurations: checkpoint rows (the serving default) or dense run
-records (the counterpart of the TPU's Pallas rank path). Checkpoint rows
-serve any n: past 2^31 positions the tables are int64 over two-level rows
-and every kernel runs its int64 instantiation; dense records are int32.
+Four rank configurations, the reference's --rank-mode choices: checkpoint
+rows (the serving default), dense run records (the counterpart of the TPU's
+Pallas rank path), ultra rows (one 32-byte row of counts a position) and
+bucketed runs (a bucket index into the per-run tables). Checkpoint rows and
+bucketed runs serve any n: past 2^31 positions their tables are int64 (the
+rows two-level) and every kernel runs its int64 instantiation; dense
+records and ultra rows are int32.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from .models.rindex import RIndex
 from .models.tagarray import TagArray
 from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.mems import find_mems
+from .ops.rank import rank6_bucketed, rank6_ultra
 from .ops.mertable import get_mer_table, read_mer_keys_fast
 from .ops.sparsedict import get_sparse_dict, read_windows_fast, sdict_to_device
 from .ops.tables import (RIndexTables, TagTables, rindex_to_device,
@@ -66,6 +70,35 @@ def check_dense_tables(t: RIndexTables) -> None:
                          "heads to their records")
 
 
+#: the rank configurations: --rank-mode choice -> rindex_to_device flag
+RANK_MODES = ("checkpoint", "dense", "ultra", "bucketed")
+
+
+def check_rank_tables(t: RIndexTables, rank_mode: str) -> None:
+    """Exactness guard of a rank configuration's tables, through its rank6:
+    dense (check_dense_tables); ultra, the rows at consecutive run heads
+    differ by the run's length in the run's symbol and the row at n holds
+    the totals C gives; bucketed, rank6 at every run head is that run's cum
+    row (the bucket jump lands each head in its own run). Checkpoint rows
+    need none (tests/test_torch_kernels.py holds their planes)."""
+    if rank_mode == "dense":
+        check_dense_tables(t)
+    elif rank_mode == "ultra":
+        heads = torch.cat((t.run_start, torch.full((1,), t.n, dtype=t.pos_dtype,
+                                                   device=t.device)))
+        r6 = rank6_ultra(t, heads)
+        step = r6[1:] - r6[:-1]
+        onehot = torch.arange(6, device=t.device)[None, :] == t.run_sym.long()[:, None]
+        want = onehot.to(t.pos_dtype) * (heads[1:] - heads[:-1])[:, None]
+        if not (torch.equal(step, want) and torch.equal(r6[-1], t.C[1:7] - t.C[:6])):
+            raise ValueError("ultra tables disagree with the runs: rank_table "
+                             "does not count the run heads' symbols")
+    elif rank_mode == "bucketed":
+        if not torch.equal(rank6_bucketed(t, t.run_start), t.cum):
+            raise ValueError("bucketed tables disagree: bucket_lo does not "
+                             "lead each run head to its run")
+
+
 @dataclass
 class Batch:
     """A read batch resident on the device, in input read order, with the
@@ -82,15 +115,19 @@ class Batch:
 
 
 def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
-            device, *, dense: bool = False, min_occ: int = 1, mer_m: int = 14,
-            sdict_s: int = 19, sdict_path=None) -> Batch:
+            device, *, rank_mode: str = "checkpoint", min_occ: int = 1,
+            mer_m: int = 14, sdict_s: int = 19, sdict_path=None) -> Batch:
     """Tables, m-mer seed table (get_mer_table: m steps down where the
     device could not hold it, and the reads are keyed with the m it used),
     length-sdict_s dictionary and read windows for one batch of reads
     (codes [B, L] int32, lens [B]) on `device`.
-    dense=False ranks through checkpoint rows, dense=True through dense run
-    records; the dictionary is built on `device` from the tables (the
-    kernels of csrc/sparsedict.cu on a card) unless sdict_path holds it."""
+    rank_mode (RANK_MODES) picks the rank tables, as find-mems --rank-mode
+    does (without its mapping past 2^31: dense and ultra tables are int32,
+    and the kernels refuse them there); the seed table and the dictionary
+    are built through them, the dictionary on `device` (the kernels of
+    csrc/sparsedict.cu on a card) unless sdict_path holds it."""
+    if rank_mode not in RANK_MODES:
+        raise ValueError(f"rank_mode must be one of {RANK_MODES}, not {rank_mode!r}")
     device = torch.device(device)
     sec: dict[str, float] = {}
 
@@ -99,9 +136,8 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
         sec[name] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    t = rindex_to_device(idx, device, checkpoint=not dense, dense=dense)
-    if dense:
-        check_dense_tables(t)
+    t = rindex_to_device(idx, device, **{rank_mode: True})
+    check_rank_tables(t, rank_mode)
     tt = tags_to_device(tags, device)
     phase("tables", t0)
 
@@ -171,12 +207,12 @@ def run(batch: Batch, min_len: int = 20, min_occ: int = 1, capacity: int = 8,
 
 
 def serve(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
-          device, *, dense: bool = False, min_len: int = 20, min_occ: int = 1,
-          mer_m: int = 14, sdict_s: int = 19, sdict_path=None,
-          capacity: int = 8, tag_capacity: int = 8,
+          device, *, rank_mode: str = "checkpoint", min_len: int = 20,
+          min_occ: int = 1, mer_m: int = 14, sdict_s: int = 19,
+          sdict_path=None, capacity: int = 8, tag_capacity: int = 8,
           repeats: int = 0) -> ServeResult:
     """Serve one batch of reads end to end: `prepare`, then `run`."""
-    batch = prepare(idx, tags, codes, lens, device, dense=dense,
+    batch = prepare(idx, tags, codes, lens, device, rank_mode=rank_mode,
                     min_occ=min_occ, mer_m=mer_m, sdict_s=sdict_s,
                     sdict_path=sdict_path)
     return run(batch, min_len=min_len, min_occ=min_occ, capacity=capacity,

@@ -114,9 +114,10 @@ def reference(expected, capfd, d, cmd):
 
 @pytest.mark.parametrize("extra", [
     [], ["--batch-size", "2", "--mer-len", "4"], ["--mem-capacity", "1"],
-    ["--tag-capacity", "1"], ["--rank-mode", "dense"], ["--engine", "device"]],
+    ["--tag-capacity", "1"], ["--rank-mode", "dense"], ["--engine", "device"],
+    ["--rank-mode", "ultra"], ["--rank-mode", "bucketed"]],
     ids=["defaults", "sorted-chunks", "escalation", "tag-requery", "dense",
-         "engine-device"])
+         "engine-device", "ultra", "bucketed"])
 # "sorted-chunks": the JAX command sorts its reads by work across chunks and
 # permutes the results back; the port serves the chunks in input order
 def test_find_mems_matches_jax(files, expected, capfd, extra):
@@ -344,18 +345,47 @@ def test_build_sdict_two_level_int64(files, capfd, two_level, tmp_path):
     assert two_level[0].pos_dtype == torch.int64
 
 
-def test_dense_past_int32_is_invalid_input(files, capfd, monkeypatch):
-    """--rank-mode dense at n >= 2^31 ends in the command line's words, not
-    a traceback: the reference serves it through bucketed rank, which the
-    port does not have."""
+@pytest.mark.parametrize("n", [2**31 - 1, 2**31])
+def test_rank_mode_past_int32_follows_the_reference(files, capfd, monkeypatch, n):
+    """The rank tables find-mems builds for each --rank-mode, below and at
+    n = 2^31, are the JAX command line's: dense and ultra resolve to
+    bucketed at n >= 2^31, checkpoint and bucketed stay themselves. Both
+    commands are stopped where they ask for their tables, their index a
+    stand-in of n positions."""
     from types import SimpleNamespace
 
-    monkeypatch.setattr(cli, "load_serving", lambda args: (SimpleNamespace(n=2**31), None))
+    from pangenome_index_tpu.ops import tables as jax_tables
+
+    class Stop(Exception):
+        pass
+
+    asked = {"jax": [], "port": []}
+
+    def recorder(which):
+        def rindex_to_device(idx, *args, **kw):
+            asked[which].append(sorted(k for k, v in kw.items() if v is True))
+            raise Stop
+        return rindex_to_device
+
+    stand_in = SimpleNamespace(n=n, n_seq=1, max_len=n)
+    monkeypatch.setenv("PANIDX_XLA_CACHE", "")
+    monkeypatch.setattr(jax_cli, "_load_serving", lambda args: (stand_in, None))
+    monkeypatch.setattr(jax_tables, "rindex_to_device", recorder("jax"))
+    monkeypatch.setattr(cli, "load_serving", lambda args: (stand_in, None))
+    monkeypatch.setattr(cli, "rindex_to_device", recorder("port"))
+    modes = ("checkpoint", "dense", "ultra", "bucketed")
+    for mode in modes:
+        for main, extra in ((jax_cli.main, ["--engine", "device"]),
+                            (cli.main, ["--device", "cpu"])):
+            with pytest.raises(Stop):
+                main([*mem_args(files), "--rank-mode", mode, *extra])
     capfd.readouterr()
-    assert cli.main([*mem_args(files), "--rank-mode", "dense", "--device", "cpu"]) == 1
-    err = capfd.readouterr().err
-    assert last_line(err).startswith(
-        "panidx: invalid input: --rank-mode dense at n >= 2^31")
+    # the JAX command passes no flag for bucketed (its default)
+    jax_modes = [a[0] if a else "bucketed" for a in asked["jax"]]
+    assert jax_modes == [cli.rank_mode_for(n, m) for m in modes]
+    assert asked["port"] == [[m] for m in jax_modes]
+    assert jax_modes == (["checkpoint", "bucketed", "bucketed", "bucketed"] if n >= 2**31
+                         else list(modes))
 
 
 def test_find_mems_uses_a_prebuilt_dictionary(files, expected, capfd):

@@ -20,6 +20,9 @@ from pangenome_index_tpu_torch.ops.tables import (TagTables, rindex_to_device,
                                                   tags_to_device)
 
 pytestmark = pytest.mark.cuda
+#: the rank configurations of the chain kernels (K2, K3, the dictionary's
+#: level); K7 takes checkpoint rows and dense records only
+MODES = ["checkpoint", "dense", "ultra", "bucketed"]
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +49,7 @@ def test_gather_rows_and_rank6_dense(dev, index):
                        dense_rank.gather_rows_plain(t.rec, rows))
 
 
-@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_extend(dev, index, mode):
     idx, _ = index
     t = rindex_to_device(idx, dev, **{mode: True})
@@ -63,6 +66,37 @@ def test_extend(dev, index, mode):
             assert torch.equal(g, e)
 
 
+@pytest.mark.parametrize("mode,dtype", [("ultra", torch.int32), ("bucketed", torch.int32),
+                                        ("bucketed", torch.int64)])
+def test_rank6_ultra_and_bucketed(dev, index, mode, dtype):
+    """The ultra and bucketed rank6 kernels against their plain versions at
+    every position of the index, the run heads and the positions beside
+    them, and the table edges and past them."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, dtype=dtype, **{mode: True})
+    heads = idx.run_start.astype(np.int64)
+    pos = np.concatenate((np.arange(idx.n + 2), heads - 1, heads + 1,
+                          [-1, idx.n + 70, 64 * (idx.n // 64 + 5)]))
+    pos = torch.from_numpy(pos).to(dev, dtype)
+    fn, plain = ((rank.rank6_ultra, rank.rank6_ultra_plain) if mode == "ultra"
+                 else (rank.rank6_bucketed, rank.rank6_bucketed_plain))
+    before = fn.launches
+    got = fn(t, pos)
+    assert fn.launches == before + 1 and got.dtype == dtype
+    assert torch.equal(got, plain(t, pos))
+
+
+def test_count_refuses_the_row_modes(dev, index):
+    """K7 is instantiated for checkpoint rows and dense records: ultra and
+    bucketed tables are refused, not served by another provider."""
+    idx, _ = index
+    c = torch.ones((2, 4), dtype=torch.int32, device=dev)
+    n = torch.full((2,), 4, dtype=torch.int32, device=dev)
+    for mode in ("ultra", "bucketed"):
+        with pytest.raises(ValueError, match="checkpoint rows or dense records"):
+            count.count(rindex_to_device(idx, dev, **{mode: True}), c, n)
+
+
 def test_rank_planes_match_ckpt(dev, index):
     """The bit-plane table derived on the card: rank6 through it equals
     rank6 through ckpt at every position and at the table's edges."""
@@ -77,7 +111,7 @@ def test_rank_planes_match_ckpt(dev, index):
 
 
 @pytest.mark.parametrize("rows", ["shared", "straddled"])
-@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_extend_interval_ends_share_or_straddle_a_row(dev, index, mode, rows):
     idx, _ = index
     t = rindex_to_device(idx, dev, **{mode: True})
@@ -167,7 +201,7 @@ def test_resolve_seeds(dev, index, tiers):
     assert mems.resolve_seeds(4, 101, 1) is None
 
 
-@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_find_mems_and_tags(dev, index, mode):
     idx, lines = index
     t = rindex_to_device(idx, dev, **{mode: True})
@@ -296,7 +330,7 @@ def same_level(got, expect):
 
 
 @pytest.mark.parametrize("min_keep", [1, 2, 3])
-@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_sdict_levels(dev, index, mode, min_keep):
     """The dictionary's level kernel against its plain version at every
     level of a build (one entry, a partial block, many blocks, so a
@@ -318,7 +352,7 @@ def test_sdict_levels(dev, index, mode, min_keep):
     assert np.array_equal(keys.cpu().numpy(), hk) and np.array_equal(vals.cpu().numpy(), hv)
 
 
-@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("blocks", [1, 3, 64])
 @pytest.mark.parametrize("edge", [-1, 0, 1])
 def test_sdict_level_across_the_block_partition(dev, index, mode, blocks, edge):
@@ -343,7 +377,7 @@ def test_sdict_level_across_the_block_partition(dev, index, mode, blocks, edge):
 
 
 @pytest.mark.parametrize("s,min_keep", [(1, 1), (19, 1), (31, 1), (31, 2), (12, 3)])
-@pytest.mark.parametrize("mode", ["checkpoint", "dense"])
+@pytest.mark.parametrize("mode", MODES)
 def test_sdict_build_matches_host(dev, index, mode, s, min_keep, tmp_path):
     idx, _ = index
     t = rindex_to_device(idx, dev, **{mode: True})
@@ -752,6 +786,48 @@ def test_int64_sdict_levels(dev, index, wide, min_keep):
     keys, vals = sparsedict.sdict_pack(keys, vals, counts)
     hk, hv = build_sparse_dict(idx, 19, min_keep)
     assert vals.dtype == torch.int64
+    assert np.array_equal(keys.cpu().numpy(), hk) and np.array_equal(vals.cpu().numpy(), hv)
+
+
+def test_int64_bucketed_chain_kernels(dev, index):
+    """K2, resolve_seeds and K3, and the dictionary's level at every level
+    of a build, through int64 bucketed tables (the --rank-mode dense and
+    ultra tables past 2^31), against their plain versions."""
+    idx, lines = index
+    t = rindex_to_device(idx, dev, bucketed=True, dtype=torch.int64)
+    rng = np.random.default_rng(33)
+    B = 6000
+    k = rng.integers(0, idx.n, B)
+    s = rng.integers(0, np.minimum(idx.n - k, 4096) + 1)
+    s[:1000] = rng.integers(0, 4, 1000)
+    args = [T64(a, dev) for a in (k, rng.integers(0, idx.n, B), s)]
+    code = torch.from_numpy(rng.integers(-1, 8, B).astype(np.int32)).to(dev)
+    fwd = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    for f in (None, fwd):
+        for g, e in zip(fmd.extend(t, *args, code, forward=f),
+                        fmd.extend_plain(t, *args, code, forward=f)):
+            assert g.dtype == torch.int64 and torch.equal(g, e)
+    reads = synth_reads(lines, 300, 150, error_rate=0.02, seed=9)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                      for r in reads]).astype(np.int32)
+    lens = np.full(len(reads), 150, np.int32)
+    kw = int64_seed_tiers(idx, codes, lens, dev)
+    c, n = (torch.from_numpy(a).to(dev) for a in (codes, lens))
+    got, gs = mems.find_mems(t, c, n, 20, 1, capacity=8, with_stats=True, **kw)
+    expect, es = mems.find_mems_plain(t, c, n, 20, 1, capacity=8, with_stats=True, **kw)
+    for g, e in zip(got, expect):
+        assert torch.equal(g, e)
+    assert torch.equal(gs["steps"], es["steps"]) and bool((got.count > 0).any())
+    keys = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    vals = torch.tensor([[[0, 0, idx.n]]], dtype=torch.int64, device=dev)
+    counts = [1]
+    for level in range(19):
+        got = sparsedict.sdict_level(t, keys, vals, counts, 1, level)
+        counts = same_level(got, sparsedict.sdict_level_plain(t, keys, vals, counts, 1,
+                                                              level))
+        keys, vals = got[:2]
+    keys, vals = sparsedict.sdict_pack(keys, vals, counts)
+    hk, hv = build_sparse_dict(idx, 19, 1)
     assert np.array_equal(keys.cpu().numpy(), hk) and np.array_equal(vals.cpu().numpy(), hv)
 
 

@@ -322,6 +322,31 @@ def test_device_dictionary_matches_jax(index, jax_tables, tables, s, min_keep):
     same(vals, hv)
 
 
+def test_bucketed_tables_match_jax_and_the_two_level_rows(index, tables, buffered, reads):
+    """The int64 bucketed tables (the form find-mems serves --rank-mode dense
+    and ultra with past 2^31), carried across from the JAX package's: rank6
+    at every position equal to the JAX rank6 on them and to the two-level
+    rows', and the MEM batch equal to the two-level tables' (buffered)."""
+    idx, _ = index
+    t, _ = tables
+    jb = jax_rindex_to_device(idx, dtype=jnp.int64)
+    assert jb.bucket_lo is not None and jb.bucket_lo.dtype == jnp.int64
+    fields = {f: (None if getattr(jb, f) is None else np.asarray(getattr(jb, f)))
+              for f in RINDEX_FIELDS}
+    fields.update(n=jb.n, n_seq=jb.n_seq, max_len=jb.max_len)
+    tb, _ = tables_from_numpy(fields, None, "cpu")
+    assert tb.pos_dtype == torch.int64 and fmd.rank_args(tb)[0] == "bucketed64"
+    pos = np.arange(idx.n + 2, dtype=np.int64)
+    got = rank.rank6(tb, torch.from_numpy(pos))
+    same(got, jrank.rank6(jb, jnp.asarray(pos)))
+    same(got[:-1], rank.rank6(t, torch.from_numpy(pos[:-1])))
+    codes, lens = reads
+    res = mems.find_mems(tb, torch.from_numpy(codes), torch.from_numpy(lens), MIN_LEN,
+                         MIN_OCC, capacity=8)
+    for name, g, e in zip(res._fields, res, buffered):
+        same(g, e, name)
+
+
 def test_int64_search_tree_past_int32():
     """The int64 tree (8 keys a node) over heads past 2^31, against
     torch.searchsorted at every head, its neighbours, values between and

@@ -25,7 +25,8 @@ JAX_FIELDS = ("run_sym", "run_start", "cum", "C", "samples", "last_sorted",
               "last_to_run", "n", "n_seq", "max_len", "bucket_lo",
               "pos_to_run", "rec", "rank_table", "ckpt", "ckpt_super")
 MODES = {"checkpoint": dict(checkpoint=True), "dense": dict(dense=True),
-         "two_level": dict(checkpoint=True, super_shift=9)}
+         "two_level": dict(checkpoint=True, super_shift=9),
+         "ultra": dict(ultra=True), "bucketed": dict(bucketed=True)}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -77,9 +78,6 @@ def test_tables_match_jax_field_for_field(index, mode):
     jt = as_numpy(jax_rindex_to_device(idx, **MODES[mode]))
     pt = rindex_to_device(idx, "cpu", **MODES[mode])
     for f in JAX_FIELDS:
-        if f in ("bucket_lo", "rank_table"):
-            assert jt[f] is None
-            continue
         got = getattr(pt, f)
         if jt[f] is None:
             assert got is None, f
@@ -303,8 +301,6 @@ def test_tables_carried_from_jax(index, mode):
                                                          "total")}, "cpu")
     own = rindex_to_device(idx, "cpu", **MODES[mode])
     for f in JAX_FIELDS:
-        if f in ("bucket_lo", "rank_table"):
-            continue
         a, b = getattr(pt, f), getattr(own, f)
         assert (a is None) == (b is None), f
         if a is not None:
@@ -317,10 +313,21 @@ def test_tables_carried_from_jax(index, mode):
                                   np.asarray(jrank.rank6(jt, jnp.asarray(pos))))
 
 
-def test_tables_from_numpy_refuses_other_rank_modes(index):
+def test_tables_from_numpy_carries_the_jax_default_tables(index):
+    """The JAX package's default tables (bucketed: bucket_lo beside the full
+    cum table) carried across: the same bucket_lo, and both packages find
+    the same runs and give the same rank6 on them."""
     idx, _ = index
-    with pytest.raises(ValueError, match="bucket_lo"):
-        tables_from_numpy(as_numpy(jax_rindex_to_device(idx)), None, "cpu")
+    jt = jax_rindex_to_device(idx)
+    assert jt.bucket_lo is not None and jt.rank_table is None
+    pt, _ = tables_from_numpy(as_numpy(jt), None, "cpu")
+    np.testing.assert_array_equal(pt.bucket_lo.numpy(), np.asarray(jt.bucket_lo))
+    assert pt.cum.shape == (idx.n_runs, 6) and pt.rank_table is None
+    pos = np.concatenate((positions(idx, seed=6), idx.run_start, [idx.n + 1])).astype(np.int32)
+    np.testing.assert_array_equal(rank.run_of(pt, torch.from_numpy(pos)).numpy(),
+                                  np.asarray(jrank.run_of(jt, jnp.asarray(pos))))
+    np.testing.assert_array_equal(rank.rank6(pt, torch.from_numpy(pos)).numpy(),
+                                  np.asarray(jrank.rank6(jt, jnp.asarray(pos))))
 
 
 def test_failed_build_is_not_retried(monkeypatch):

@@ -13,7 +13,7 @@ from pangenome_index_tpu.utils.alphabet import BYTE_TO_CODE
 from pangenome_index_tpu.utils.synth import (build_synth_index, synth_reads,
                                              synth_tag_array)
 from pangenome_index_tpu_torch.mems_probe import mixed_reads
-from pangenome_index_tpu_torch.serve import prepare, serve
+from pangenome_index_tpu_torch.serve import RANK_MODES, prepare, serve
 
 CAP = 8
 
@@ -46,10 +46,10 @@ def native_result(workload):
     return s, e, b, z, cnt
 
 
-@pytest.mark.parametrize("dense", [False, True])
-def test_serve_matches_native(workload, native_result, dense, tmp_path):
+@pytest.mark.parametrize("rank_mode", RANK_MODES)
+def test_serve_matches_native(workload, native_result, rank_mode, tmp_path):
     idx, _, _, codes, lens, tags = workload
-    out = serve(idx, tags, codes, lens, "cpu", dense=dense, mer_m=6,
+    out = serve(idx, tags, codes, lens, "cpu", rank_mode=rank_mode, mer_m=6,
                 sdict_s=19, sdict_path=str(tmp_path / "sdict.npz"),
                 capacity=CAP, tag_capacity=8)
     s, e, b, z, cnt = native_result
@@ -74,8 +74,8 @@ def test_serve_matches_native(workload, native_result, dense, tmp_path):
     assert "sort" not in out.seconds
 
 
-@pytest.mark.parametrize("dense", [False, True])
-def test_serve_mixed_batch_in_input_order(workload, dense, tmp_path):
+@pytest.mark.parametrize("rank_mode", RANK_MODES)
+def test_serve_mixed_batch_in_input_order(workload, rank_mode, tmp_path):
     """Reads of 50 to 1000 bp with 0 to 10% errors, unsorted: every result row
     is its own read's (the native engine's, in input order), and the batch
     `prepare` builds holds the reads as they were given."""
@@ -83,12 +83,12 @@ def test_serve_mixed_batch_in_input_order(workload, dense, tmp_path):
     codes, lens = mixed_reads(lines, 48, seed=9)
     assert lens.min() >= 50 and lens.max() <= 1000 and len(set(lens)) > 40
     path = str(tmp_path / "sdict.npz")
-    batch = prepare(idx, tags, codes, lens, "cpu", dense=dense, mer_m=6,
+    batch = prepare(idx, tags, codes, lens, "cpu", rank_mode=rank_mode, mer_m=6,
                     sdict_s=19, sdict_path=path)
     np.testing.assert_array_equal(batch.codes.numpy(), codes)
     np.testing.assert_array_equal(batch.lengths.numpy(), lens)
     assert not hasattr(batch, "order")
-    out = serve(idx, tags, codes, lens, "cpu", dense=dense, mer_m=6, sdict_s=19,
+    out = serve(idx, tags, codes, lens, "cpu", rank_mode=rank_mode, mer_m=6, sdict_s=19,
                 sdict_path=path, capacity=CAP, tag_capacity=8)
     s, e, b, z, cnt = native.find_mems_native(idx, codes, lens, 20, 1,
                                               capacity=CAP, n_threads=0)
