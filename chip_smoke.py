@@ -45,7 +45,9 @@ launch count set to 0 just before a path and read just after it:
    element to native SA-IS (whose seconds are printed beside it); each
    kernel against its plain version at the first round (k = 0 and 1) and a
    plateau round (k = 256) and the finish; per round the device time at
-   k = 1 and k = 256 beside torch.sort's on the same keys; the whole
+   k = 1 and k = 256 beside torch.sort's on the same keys, and each round's
+   digit passes (the onesweep sort: an up-front count, then a launch a
+   pass); the whole
    build's kernels' device time (events around each launch) and its wall;
    the build-bwt file byte-equal to the native BWT's .rl_bwt, and
    build-rindex's .ri byte-equal to the bench index's;
@@ -65,6 +67,16 @@ launch count set to 0 just before a path and read just after it:
    (the same gates against the native engine) and find-mems --rank-mode
    dense on the index's files, which the reference serves through bucketed
    runs past 2^31: stdout byte-equal to the checkpoint run's.
+
+The m-mer seed table (mertable.build_mer_table_device: the level kernel of
+csrc/mertable.cu, one thread per parent, the last launch two levels deep
+but through bucketed runs) is held against the host build at m=8 and against its plain version on the
+card at m=14 on the bench index (checkpoint rows, ultra rows, bucketed
+runs) and at m=13 on the k-copy index (int64 two-level rows and int64
+bucketed runs), its launches counted by the wrapper, its device time beside
+the least bytes the build must move and beside the other schedule of the
+same kernel (the last launch two levels deep, or one through bucketed
+runs).
 
 The ultra and bucketed rank6 kernels (csrc/rankmodes.cu) are held against
 their plain versions on 32768 positions (0, n and n + 1 among them), at
@@ -113,11 +125,13 @@ CLI_QUERY_ERRORS = 1024  # query-tags: bench reads with errors after the exact o
 PROBE_GROUP_BATCH = 65536  # K5 comparison batch (the probe's grouped sweep)
 SMALL_INDEX = (20_000, 4, 2)  # base length, haplotypes, seed: the s=31 build
 #: kernel -> (source, the TPU kernel or device program it replaces, the path
-#: whose launch count the kernels line reports)
+#: whose launch count the kernels line reports; None: K2, which no path
+#: launches since the seed table is built by its own kernel)
 SOURCES = {
     "gather_rows": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:39", "serve"),
     "rank6_dense": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:70", "serve"),
-    "extend": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve"),
+    "extend": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
+    "mer_level": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84", "serve"),
     "resolve_seeds": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:87", "serve"),
     "find_mems": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43", "serve"),
     "query_mem_tags": ("csrc/tagquery.cu", "pangenome_index_tpu/ops/tagquery.py:71", "serve"),
@@ -134,8 +148,9 @@ SOURCES = {
     # the int64 instantiations, on the serve-2g path (n >= 2^31; the rank
     # step of the chain kernels is the two-level ops/rank.py:79,98): the
     # fourth field is the wrapper whose launches they are
-    "extend_int64": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve-2g",
-                     "extend"),
+    "extend_int64": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
+    "mer_level_int64": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84",
+                        "serve-2g", "mer_level"),
     "resolve_seeds_int64": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:87",
                             "serve-2g", "resolve_seeds"),
     "find_mems_int64": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43", "serve-2g",
@@ -162,12 +177,15 @@ SOURCES = {
                        "serve-bucketed"),
     "rank6_bucketed64": ("csrc/rankmodes.cu", "pangenome_index_tpu/ops/rank.py:22",
                          "serve-2g-bucketed", "rank6_bucketed"),
-    "extend_ultra": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve-ultra",
-                     "extend"),
-    "extend_bucketed": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", "serve-bucketed",
-                        "extend"),
-    "extend_bucketed64": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31",
-                          "serve-2g-bucketed", "extend"),
+    "mer_level_ultra": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84",
+                        "serve-ultra", "mer_level"),
+    "mer_level_bucketed": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84",
+                           "serve-bucketed", "mer_level"),
+    "mer_level_bucketed64": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84",
+                             "serve-2g-bucketed", "mer_level"),
+    "extend_ultra": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
+    "extend_bucketed": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
+    "extend_bucketed64": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
     "find_mems_ultra": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43", "serve-ultra",
                         "find_mems"),
     "find_mems_bucketed": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43",
@@ -191,27 +209,27 @@ PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 #: dictionary not cached; gather_rows and rank6_dense: the dense-rank
 #: configuration's table check)
 PATH_KERNELS = {
-    "serve": ("gather_rows", "rank6_dense", "extend", "resolve_seeds", "find_mems",
+    "serve": ("gather_rows", "rank6_dense", "mer_level", "resolve_seeds", "find_mems",
               "query_mem_tags", "sdict_level"),
     "probe": ("row_gather", "gather_chain"),
-    "find-mems": ("extend", "resolve_seeds", "find_mems", "query_tags_batch",
+    "find-mems": ("mer_level", "resolve_seeds", "find_mems", "query_tags_batch",
                   "sdict_level"),
     "query-tags": ("count", "query_tags_batch"),
     "tag-search": ("tag_upper_bound",),
     "build-sdict": ("sdict_level",),
     "locate": ("locate_batch",),
     "build-bwt": ("bwt_sort_pairs", "bwt_rerank", "bwt_finish"),
-    "serve-2g": ("extend", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
+    "serve-2g": ("mer_level", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
                  "tag_upper_bound", "query_tags_batch", "count", "locate_batch"),
     # the new rank configurations: the table check (rank6), the seed table,
     # the dictionary and the MEMs through their provider; past 2^31 also
     # find-mems --rank-mode dense, which the reference serves through
     # bucketed runs there
-    "serve-ultra": ("rank6_ultra", "extend", "resolve_seeds", "find_mems", "query_mem_tags",
+    "serve-ultra": ("rank6_ultra", "mer_level", "resolve_seeds", "find_mems", "query_mem_tags",
                     "sdict_level"),
-    "serve-bucketed": ("rank6_bucketed", "extend", "resolve_seeds", "find_mems",
+    "serve-bucketed": ("rank6_bucketed", "mer_level", "resolve_seeds", "find_mems",
                        "query_mem_tags", "sdict_level"),
-    "serve-2g-bucketed": ("rank6_bucketed", "extend", "resolve_seeds", "find_mems",
+    "serve-2g-bucketed": ("rank6_bucketed", "mer_level", "resolve_seeds", "find_mems",
                           "query_mem_tags", "sdict_level", "query_tags_batch"),
 }
 #: the rank configurations of the serving path, in the order they are served
@@ -554,13 +572,13 @@ def main() -> int:
                     lambda: fmd.extend(t, *lanes, forward=f),
                     lambda: fmd.extend_plain(t, *lanes, forward=f), record=False)
 
-    # --- 3. the seed-table schedule: m=8 through K2 == host build ---------
+    # --- 3. the seed table: the level kernel == host build and plain ---------
     phase("seed tables")
     t0 = time.perf_counter()
     check(np.array_equal(mertable.build_mer_table_device(t_ck, 8).cpu().numpy(),
                          mertable.build_mer_table(idx, 8)),
-          "m=8 seed table built with K2 differs from the host build")
-    log(f"m=8 seed table through K2: identical to the host build "
+          "m=8 seed table built by the level kernel differs from the host build")
+    log(f"m=8 seed table through the level kernel: identical to the host build "
         f"({time.perf_counter() - t0:.1f} s)")
     def once_ms(fn):
         """(fn()'s result, its milliseconds by events around the one call)."""
@@ -572,29 +590,59 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, a.elapsed_time(b)
 
-    def seed_table_ms(t, m):
-        """The device time of the whole m-mer table build through tables t
-        (its m K2 launches and the torch passes that tile the state between
-        them), by CUDA-graph replay of the build, and K2's share, by events
-        around each launch, against what it must move: each level's
-        4^(v+1) lanes read k, kp, s (3 positions) and the code and their
-        two 64-byte rank rows (the table at most once a level) and write 3
-        positions; the chain is one gather a level."""
-        item = t.C.element_size()
-        ms = gather_probe.time_ms(lambda: mertable.build_mer_table_device(t, m), reps=1)
-        spent, table = launch_ms(lambda: mertable.build_mer_table_device(t, m),
-                                 "pgt_extend", reps=1)
-        k2_ms, k2_launches = spent["pgt_extend"]
-        check(k2_launches == m, f"the m={m} seed table made {k2_launches} K2 launches")
-        nbytes = sum(4 ** (v + 1) * (6 * item + 4) + gathered(4 ** (v + 1) * 128, t.ckpt_planes)
-                     for v in range(m))
-        log(f"m={m} seed table ({table.shape[0]} rows, {table.dtype}): device {ms:.4f} ms "
-            f"(CUDA-graph replay of the build; K2 {k2_ms:.4f} by events around its {m} "
-            f"launches, the torch passes {ms - k2_ms:.4f}); bound by bytes "
-            f"{nbytes / PEAK_BYTES_S * 1e3:.5f} ms ({nbytes} bytes), chain {m} "
-            f"gathers {card}")
+    def other_schedule(t, m, last):
+        """The m-level build through the same kernel with its last launch
+        `last` levels deep: the schedule last_depth did not choose, timed
+        beside the shipped one."""
+        table = mertable.mer_root(t)
+        for _ in range(m - last):
+            table = mertable.mer_level(t, table, 1)
+        return mertable.mer_level(t, table, last)
 
-    seed_table_ms(t_ck, MER_M)
+    def seed_table_ms(t, m, name):
+        """The m-mer table built by the level kernel through tables t: held
+        against its plain version (build_mer_table_plain, slabs of parents)
+        on the card; its launches (max(m - 1, 1), m through bucketed runs,
+        counted by the wrapper); the device time of the whole build by
+        CUDA-graph replay, beside the other schedule (the last launch two
+        levels deep or one); and what the build must move: the table
+        written once, levels 1 to m - 2 written and read once (a fused last
+        launch keeps level m - 1 in registers), and per
+        level the rank reads of its parents of size > 0, no rank table more
+        than once a level. The chain is one rank step's dependent loads a
+        level."""
+        item, last = t.C.element_size(), mertable.last_depth(t)
+        before = mertable.mer_level.launches
+        table = mertable.build_mer_table_device(t, m)
+        made = mertable.mer_level.launches - before
+        check(made == max(m - last + 1, 1), f"the m={m} seed table made {made} level launches")
+        plain, plain_ms = once_ms(lambda: mertable.build_mer_table_plain(t, m))
+        err = max_abs_err(table, plain)
+        check(err == 0, f"the m={m} seed table differs from its plain version by {err}")
+        del plain
+        ms = gather_probe.time_ms(lambda: mertable.build_mer_table_device(t, m), reps=1)
+        other_ms = gather_probe.time_ms(lambda: other_schedule(t, m, 3 - last), reps=1)
+        occupied, level = [], mertable.mer_root(t)
+        for v in range(m):
+            occupied.append(int((level[:, 2] > 0).sum()))
+            level = mertable.mer_level(t, level) if v < m - 1 else None
+        del level
+        step_bytes, step_chain = step_reads(t)
+        nbytes = (4 ** m * 3 * item + sum(2 * 4 ** v * 3 * item for v in range(1, m - 1))
+                  + sum(gathered(c * step_bytes, *rank_tables(t)) for c in occupied))
+        t_bytes = nbytes / PEAK_BYTES_S * 1e3
+        kernels[name] = dict(
+            name=name, route="cuda", source="pangenome_index_tpu_torch/" + SOURCES[name][0],
+            replaces=SOURCES[name][1], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=t_bytes, bound_by="bytes", library_ms=None, chain_steps=m * step_chain)
+        log(f"{name}: m={m} seed table ({table.shape[0]} rows, {table.dtype}) identical to "
+            f"its plain version ({plain_ms:.1f} ms) in {made} launches; device {ms:.4f} ms "
+            f"(CUDA-graph replay of the build, the last launch {last} deep), "
+            f"{other_ms:.4f} ms with it {3 - last} deep; bound by bytes {t_bytes:.5f} ms ({nbytes} bytes; parents of size > 0 "
+            f"a level: {occupied}), chain {m * step_chain} gathers {card}")
+        del table
+
+    seed_table_ms(t_ck, MER_M, "mer_level")
 
     # --- 3b. the long-seed dictionary on the card --------------------------
     phase("dictionary")
@@ -697,6 +745,8 @@ def main() -> int:
     hold_levels(t_ck, "sdict_level", host_keys, host_vals)
     hold_levels(t_ul, "sdict_level_ultra", host_keys, host_vals)
     hold_levels(t_bk, "sdict_level_bucketed", host_keys, host_vals)
+    seed_table_ms(t_ul, MER_M, "mer_level_ultra")
+    seed_table_ms(t_bk, MER_M, "mer_level_bucketed")
     # s=31 (a key's last two bits) and min_keep=2 on a small index, every provider
     sidx, _ = synth.build_synth_index(*SMALL_INDEX[:2], seed=SMALL_INDEX[2])
     for mode in RANK_CONFIGS:
@@ -1186,8 +1236,8 @@ def main() -> int:
     mer_cache = f"{ri_path}.mer{MER_M}.npz"
     for cached in (mer_cache, sdict_path):
         if os.path.exists(cached):
-            # the first run builds the seed table through K2 and the
-            # dictionary through the level kernels
+            # the first run builds the seed table and the dictionary
+            # through their level kernels
             os.remove(cached)
     port.reset_launches()
     sec = port_cmd(["find-mems", *common, fm_reads, str(MIN_LEN), str(MIN_OCC),
@@ -1399,6 +1449,7 @@ def main() -> int:
                 pk = bwt.pair_keys(rank_d, k, bits)
                 timed[k] = dict(
                     bits=2 * bits, passes=bwt.sort_passes(k, bits),
+                    digit=bwt.digit_bits(k, bits),
                     sort=gather_probe.time_ms(lambda: bwt.bwt_sort_pairs(rank_d, k, bits)),
                     rerank=gather_probe.time_ms(lambda: bwt.bwt_rerank(*srt)),
                     torch_sort=time_ms(lambda: torch.sort(pk, stable=True), 10))
@@ -1428,9 +1479,10 @@ def main() -> int:
         f"finish kernels identical to their plain versions at k = "
         f"{', '.join(map(str, BWT_CHECKED_ROUNDS))} and the finish")
     for kk, tm in timed.items():
-        log(f"  round k={kk}: {tm['bits']}-bit pair keys, radix passes {tm['passes']}: "
-            f"sort {tm['sort']:.4f} ms + rerank {tm['rerank']:.4f} ms (device); "
-            f"torch.sort of the same keys {tm['torch_sort']:.4f} ms {card}")
+        log(f"  round k={kk}: {tm['bits']}-bit pair keys, {tm['passes']} digit passes of "
+            f"{tm['digit']} bits (the sort's launches: the up-front count, the digit "
+            f"starts, one a pass): sort {tm['sort']:.4f} ms + rerank {tm['rerank']:.4f} "
+            f"ms (device); torch.sort of the same keys {tm['torch_sort']:.4f} ms {card}")
     # the whole build: its wall time, and the device time of each kernel's
     # launches (every round's) by events around each launch
     t0 = time.perf_counter()
@@ -1441,6 +1493,17 @@ def main() -> int:
     made = {e[4:]: n for e, (_, n) in spent.items()}
     check(made == {"bwt_sort_pairs": len(ks), "bwt_rerank": len(ks), "bwt_finish": 1},
           f"a BWT build of {len(ks)} rounds made the launches {made}")
+    plan, top_r = [], top_key  # each round's digit passes, from its ranks' width
+    rank_r = keys_d
+    for kk in ks:
+        bits_r = max(1, top_r.bit_length())
+        plan.append((kk, bwt.sort_passes(kk, bits_r), bwt.digit_bits(kk, bits_r)))
+        rank_r, top_t = bwt.doubling_round(rank_r, kk, bits_r)
+        top_r = int(top_t)
+    del rank_r
+    log("the sort's plan a round (k: passes x digit bits; kernel launches a round "
+        "2 + passes): " + ", ".join(f"{kk}: {p}x{d}" for kk, p, d in plan)
+        + f"; {sum(2 + p for _, p, _ in plan)} sort kernels a build")
     busy = sum(ms for ms, _ in spent.values())
     log(f"a whole BWT build of {n_text} characters: the kernels {busy:.4f} ms (device) in "
         f"{build_wall:.4f} s wall {card}")
@@ -1453,9 +1516,15 @@ def main() -> int:
     # bwt, da and sa_pos); the design's own bytes beside them
     plateau = timed[BWT_TIMED_ROUNDS[-1]]
     passes = plateau["passes"]
+    # the sort's own bytes: the up-front pass reads rank (8 a key with the
+    # shifted read), the first digit pass reads it again and writes a key and
+    # payload (20), each later one reads and writes both (24); per tile and
+    # digit a look-back word zeroed, then written twice and read at least once
+    sort_words = -(-n_text // bwt.TILE) << plateau["digit"]
     bwt_work = {
         "bwt_sort_pairs": (n_text * 16, n_text * passes * 12, plateau["sort"],
-                           plateau["torch_sort"], n_text * (20 + 32 * passes)),
+                           plateau["torch_sort"],
+                           n_text * (28 + 24 * (passes - 1)) + sort_words * 8 * (1 + 3 * passes)),
         "bwt_rerank": (n_text * 16, n_text * 4, plateau["rerank"], None, n_text * 16),
         "bwt_finish": (n_text * 29, n_text * 12, finish_ms, None, n_text * 33),
     }
@@ -1727,7 +1796,7 @@ def main() -> int:
 
     # --- the int64 kernels against their plain versions, timed ----------
     phase("serve-2g: the int64 kernels")
-    seed_table_ms(t2, MER_M_2G)
+    seed_table_ms(t2, MER_M_2G, "mer_level_int64")
     t0 = time.perf_counter()
     host2_keys, host2_vals = sparsedict.build_sparse_dict(big, SDICT_S)
     log(f"s={SDICT_S} host build on the k-copy index: {len(host2_keys)} entries, "
@@ -1737,6 +1806,7 @@ def main() -> int:
           f"the k-copy dictionary is not the 1-copy one with {K_COPIES}x intervals")
     hold_levels(t2, "sdict_level_int64", host2_keys, host2_vals)
     hold_levels(t2b, "sdict_level_bucketed64", host2_keys, host2_vals)
+    seed_table_ms(t2b, MER_M_2G, "mer_level_bucketed64")
     del host2_keys, host2_vals
     rng = np.random.default_rng(27)
     k = rng.integers(0, big.n, N_LANES)
@@ -1872,7 +1942,8 @@ def main() -> int:
 
     for name, entry in kernels.items():
         src_ = SOURCES[name]
-        entry["launches"] = launches[src_[2]][src_[3] if len(src_) > 3 else name]
+        entry["launches"] = (0 if src_[2] is None else
+                             launches[src_[2]][src_[3] if len(src_) > 3 else name])
         # the longest chain of dependent gathers, at this run's gather latency
         steps = entry.pop("chain_steps")
         entry["chain_ms"] = None if steps is None else steps * chain[N_READS] / 1e3

@@ -12,7 +12,8 @@ names (utils/, models/, formats/, native.py).
 Layout:
   _build.py        nvcc build of csrc/*.cu into one library, loaded with ctypes
   csrc/            the kernels: K1 dense rank + row gather, the ultra and
-                   bucketed rank6 (rankmodes.cu), K2 FMD extension,
+                   bucketed rank6 (rankmodes.cu), K2 FMD extension, the
+                   m-mer seed table's level (mertable.cu),
                    K3 MEM finding (with its seed-resolving pass), K4 per-MEM
                    tag counts, K5 gather probe,
                    K6 tag positions per interval, K7 backward search (count),
@@ -22,7 +23,8 @@ Layout:
                    doubling rounds: radix sort, rerank, finish (bwt.cu);
                    every serving kernel in an int32 instantiation and an
                    int64 one (indexes of n >= 2^31, two-level rank rows),
-                   the chain kernels (K2, K3, the dictionary's level) for
+                   the chain kernels (K2, K3, the seed table's and the
+                   dictionary's levels) for
                    each of the four rank providers of csrc/rank.cuh
   native.py        ctypes binding of the native C++ engine (src/cpp)
   utils/ models/ formats/   alphabet, synthetic data, host index models and
@@ -49,6 +51,7 @@ from .ops.gather_probe import gather_chain, row_gather
 from .ops.locate import locate_batch
 from .ops.mems import find_mems as _find_mems_batch
 from .ops.mems import resolve_seeds
+from .ops.mertable import mer_level
 from .ops.rank import rank6_bucketed, rank6_ultra
 from .ops.sparsedict import sdict_level
 from .ops.tagquery import query_mem_tags, query_tags_batch, tag_upper_bound
@@ -66,7 +69,7 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "sdict_level": sdict_level, "locate_batch": locate_batch,
            "bwt_sort_pairs": bwt_sort_pairs, "bwt_rerank": bwt_rerank,
            "bwt_finish": bwt_finish, "rank6_ultra": rank6_ultra,
-           "rank6_bucketed": rank6_bucketed}
+           "rank6_bucketed": rank6_bucketed, "mer_level": mer_level}
 
 
 def reset_launches() -> None:

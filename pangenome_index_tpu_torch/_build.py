@@ -42,6 +42,9 @@ _LEVEL = (_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P
           _P, _P)
 #: the bucketed provider's arguments
 _BUCKET = (_P, _I64, _P, _P, _P, _I64)
+#: the seed table's level after its rank provider's: C, parents, n_parents,
+#: v, depth, out, stream
+_MER = (_P, _P, _I64, _I, _I, _P, _P)
 #: argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "pgt_gather_rows": (_P, _I64, _I, _P, _I64, _P, _P),
@@ -72,7 +75,8 @@ SIGNATURES = {
                               _P, _P),
     "pgt_locate": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I,
                    _P, _P, _P, _P),
-    "pgt_bwt_sort_pairs": (_P, _I64, _I64, _I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "pgt_bwt_sort_pairs": (_P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P),
     "pgt_bwt_rerank": (_P, _P, _I64, _P, _P, _P, _P),
     "pgt_bwt_finish": (_P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P),
     # the int64 instantiations (n >= 2^31): checkpoint rows with their
@@ -112,6 +116,13 @@ SIGNATURES = {
     "pgt_sdict_level_ultra": (_P, _I64) + _LEVEL,
     "pgt_sdict_level_bucketed": _BUCKET + _LEVEL,
     "pgt_sdict_level_bucketed64": _BUCKET + _LEVEL,
+    # the seed table's level (csrc/mertable.cu), one a rank provider
+    "pgt_mer_level_ckpt": (_P, _I64) + _MER,
+    "pgt_mer_level_ckpt64": (_P, _I64, _P, _I64, _I) + _MER,
+    "pgt_mer_level_dense": (_P, _I64, _P, _I64) + _MER,
+    "pgt_mer_level_ultra": (_P, _I64) + _MER,
+    "pgt_mer_level_bucketed": _BUCKET + _MER,
+    "pgt_mer_level_bucketed64": _BUCKET + _MER,
 }
 
 _lib = None

@@ -4,27 +4,39 @@ PyTorch/CUDA port.
     python -m pangenome_index_tpu_torch.cli find-mems RI TAGS READS MIN_LEN MIN_OCC [options]
     python -m pangenome_index_tpu_torch.cli query-tags RI TAGS READS [options]
     python -m pangenome_index_tpu_torch.cli build-sdict RI [-o OUT] [-s S] [options]
-    python -m pangenome_index_tpu_torch.cli build-bwt TEXT OUT [--device D]
+    python -m pangenome_index_tpu_torch.cli build-bwt TEXT OUT [--engine E] [--device D]
     python -m pangenome_index_tpu_torch.cli build-rindex RL_BWT [-o OUT] [--format F]
 
 The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-651,
 779-812) with the same argv, and output byte-equal to theirs (find-mems and
 query-tags: stdout under --engine native and --engine host, apart from the
-two "Total time" lines; build-bwt: the .rl_bwt of every engine;
-build-rindex: the .ri bytes of both formats). Indexes of any n are served:
-past 2^31 positions through int64 tables over two-level checkpoint rows or
-bucketed runs (--rank-mode dense and ultra are served there through bucketed
-runs, as the reference serves them). There is one engine:
-the port's kernels on --device (default cuda; a missing card is an error,
-and --device cpu runs the kernels' plain PyTorch versions). A missing file
+two "Total time" lines; build-sdict: the npz; build-bwt: the .rl_bwt of
+every engine; build-rindex: the .ri bytes of both formats). Indexes of any
+n are served: past 2^31 positions through int64 tables over two-level
+checkpoint rows or bucketed runs (--rank-mode dense and ultra are served
+there through bucketed runs, as the reference serves them). A missing file
 or invalid input ends a command with `panidx: ...` on stderr and exit code
-1, as the JAX command line does. --engine takes the one choice `device`,
-so that the reference's argv with it parses.
+1, as the JAX command line does.
+
+--engine takes the reference's choices, each with the reference's output:
+  device  (the default) the port's kernels on --device (default cuda; a
+          missing card is an error, and --device cpu runs the kernels'
+          plain PyTorch versions);
+  host    numpy on the host: find-mems through models/mems.py and the tag
+          array's query per MEM, query-tags through RIndex.count,
+          build-sdict through the host frontier build, build-bwt through
+          the host rotation sort (models/oracle.py);
+  native  the native C++ engine (src/cpp, built with g++ at first use; a
+          failed build raises with the compiler's output): find-mems,
+          query-tags' count and build-bwt's SA-IS.
+find-mems and query-tags take all three, build-sdict device and host,
+build-bwt device, native and host. --device is read by the device engine
+only.
 
 find-mems: the rank tables of --rank-mode (checkpoint rows, dense records,
-ultra rows or bucketed runs), the m-mer seed table (npz
-cache beside the index, else built with K2; m stepped down where the build
-would not fit the device, as in the reference), the long-seed dictionary
+ultra rows or bucketed runs), the m-mer seed table (npz cache beside the
+index, else built by its level kernel; m stepped down where the build would
+not fit the device, as in the reference), the long-seed dictionary
 (npz cache beside the index, else built on the device from the rank tables:
 ops/sparsedict.py), MEM finding over the reads in input order in chunks
 (K3; --batch-size 0 takes the reference's 4096 reads a launch, fewer where
@@ -43,7 +55,7 @@ into the file find-mems --long-seed reads.
 
 build-bwt: the text's lines (split on newlines, empty ones dropped) to the
 run-length BWT file (.rl_bwt), the rotation sort on --device
-(ops/bwt.py). build-rindex: an .rl_bwt to the r-index (.ri) that find-mems
+(ops/bwt.py), or by the native SA-IS or the host sort. build-rindex: an .rl_bwt to the r-index (.ri) that find-mems
 reads, on the host (the native psi walk; there is no device program).
 """
 
@@ -60,6 +72,7 @@ from . import native
 from .formats import ri, tags as tagfmt
 from .formats.rlbwt import read_rlbwt, rlbwt_from_text, write_rlbwt
 from .models.mems import find_all_mems
+from .models.oracle import oracle_from_file
 from .models.rindex import build_rindex
 from .ops.bwt import bwt_tensors
 from .ops.count import count
@@ -80,9 +93,10 @@ ESCALATION_TIERS = (128, 1024)
 READ_CHUNK = 4096
 #: MEM intervals a tag-position launch (K6) takes at most
 TAG_CHUNK = 65536
-ENGINE_HELP = ("accepted so that the reference's argv parses: the port has "
-               "one engine, its kernels on --device (the card, or their plain "
-               "versions on the CPU)")
+ENGINE_HELP = ("device: the port's kernels on --device (the card, or their "
+               "plain versions on the CPU); host: numpy on the host; native: "
+               "the native C++ engine (src/cpp). --device is read by the "
+               "device engine only")
 
 
 def chunk_size(n: int, item_bytes: int, cap: int, budget: int | None) -> int:
@@ -216,7 +230,98 @@ def _tag_positions(tags, tt, qs: np.ndarray, qe: np.ndarray, capacity: int,
     return tpos, tuniq, truns
 
 
+def print_read_mems(n_reads: int, counts, mem_at, tag_at) -> None:
+    """The reference's find-mems print form: per read `Seq: i`, per MEM its
+    line and its tag positions (mem_at(i, m) -> (start, end, bwt_start,
+    size); tag_at(i, m) -> (n_unique, positions)), then an empty line."""
+    for i in range(n_reads):
+        print(f"Seq: {i + 1}")
+        for m in range(int(counts[i])):
+            s, e, b, z = mem_at(i, m)
+            print(f"MEM START: {s}, MEM END: {e} BWT START: {b} SIZE: {z}")
+            n_unique, vals = tag_at(i, m)
+            print(f"Number of unique positions: {n_unique}")
+            print("".join(f"{v}, " for v in vals))
+        print()
+
+
+def find_mems_host(args, idx, tags, reads) -> tuple[float, float]:
+    """find-mems --engine host (pangenome_index_tpu/cli.py:168-183): the
+    numpy model per read and the tag array's query per MEM. Returns the
+    seconds of MEM finding and of the tag queries."""
+    mem_time = tag_time = 0.0
+    found = []
+    for read in reads:
+        t0 = time.perf_counter()
+        found.append(find_all_mems(idx, read, args.min_len, args.min_occ))
+        mem_time += time.perf_counter() - t0
+
+    def tag_at(i, m):
+        nonlocal tag_time
+        mm = found[i][m]
+        t0 = time.perf_counter()
+        vals, _ = tags.query(mm.bwt_start, mm.bwt_start + mm.size - 1)
+        tag_time += time.perf_counter() - t0
+        return len(vals), vals
+
+    def mem_at(i, m):
+        mm = found[i][m]
+        return mm.start, mm.end, mm.bwt_start, mm.size
+
+    print_read_mems(len(reads), [len(f) for f in found], mem_at, tag_at)
+    return mem_time, tag_time
+
+
+def find_mems_native(args, idx, tags, reads) -> tuple[float, float]:
+    """find-mems --engine native (pangenome_index_tpu/cli.py:184-218): the
+    native engine at --mem-capacity MEMs a read, the reads past it found
+    again on the host, the native tag query at --tag-capacity. Returns the
+    seconds of MEM finding and of the tag queries."""
+    codes, lens = pack_reads(reads)
+    t0 = time.perf_counter()
+    s, e, b, z, cnt = native.find_mems_native(idx, codes, lens, args.min_len,
+                                              args.min_occ, capacity=args.mem_capacity)
+    mem_time = time.perf_counter() - t0
+    for i in np.flatnonzero(cnt > args.mem_capacity):
+        mems = find_all_mems(idx, reads[i], args.min_len, args.min_occ)
+        pad = max(len(mems) - s.shape[1], 0)
+        if pad:
+            s, e, b, z = (np.pad(a, ((0, 0), (0, pad))) for a in (s, e, b, z))
+        for m, mm in enumerate(mems):
+            s[i, m], e[i, m], b[i, m], z[i, m] = mm.start, mm.end, mm.bwt_start, mm.size
+        cnt[i] = len(mems)
+    ii = np.repeat(np.arange(len(reads)), cnt)
+    within = np.arange(len(ii)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
+    first_flat = np.cumsum(cnt) - cnt
+    t0 = time.perf_counter()
+    if len(ii):
+        qs = b[ii, within]
+        tpos, tuniq, _ = native.query_tags_native(tags, qs, qs + z[ii, within] - 1,
+                                                  capacity=args.tag_capacity)
+    tag_time = time.perf_counter() - t0
+
+    def tag_at(i, m):
+        f = first_flat[i] + m
+        return tuniq[f], tpos[f, : tuniq[f]]
+
+    print_read_mems(len(reads), cnt, lambda i, m: (s[i, m], e[i, m], b[i, m], z[i, m]),
+                    tag_at)
+    return mem_time, tag_time
+
+
 def cmd_find_mems(args, seconds: dict) -> int:
+    if args.engine != "device":
+        mark = _phases(torch.device("cpu"), seconds)
+        reads = read_reads(args.reads)
+        idx, tags = load_serving(args)
+        mark("load")
+        engine = find_mems_host if args.engine == "host" else find_mems_native
+        total_mem_time, total_tag_time = engine(args, idx, tags, reads)
+        print(f"\nTotal time for finding all MEMs: {total_mem_time} seconds")
+        print(f"Total time for all tag queries: {total_tag_time} seconds")
+        sys.stdout.flush()
+        mark("output")
+        return 0
     dev = _device(args.device)
     mark = _phases(dev, seconds)
     reads = read_reads(args.reads)
@@ -344,7 +449,37 @@ def cmd_find_mems(args, seconds: dict) -> int:
     return 0
 
 
+def query_tags_host(args, idx, tags, reads) -> None:
+    """query-tags --engine host|native (pangenome_index_tpu/cli.py:600-606,
+    631-643): each read's range by RIndex.count (host) or the native
+    engine's backward search, then the tag array's query of the range."""
+    if args.engine == "host":
+        ranges = [idx.count(r) for r in reads]
+    else:
+        codes, lens = pack_reads(reads)
+        first, second = native.count_native(idx, codes, lens)
+        ranges = list(zip(first.tolist(), second.tolist()))
+    for i, (read, (first, second)) in enumerate(zip(reads, ranges)):
+        if first > second:
+            print(f"Read {i} has no matches", file=sys.stderr)
+            continue
+        vals, nruns = tags.query(first, second)
+        print(f"Number of unique positions: {len(vals)}")
+        print("".join(f"{v}, " for v in vals))
+        print(f"read_index={i}\tlen={len(read)}\tbwt_start={first}\tbwt_end={second}"
+              f"\truns={nruns}")
+
+
 def cmd_query_tags(args, seconds: dict) -> int:
+    if args.engine != "device":
+        mark = _phases(torch.device("cpu"), seconds)
+        reads = read_reads(args.reads)
+        idx, tags = load_serving(args)
+        mark("load")
+        query_tags_host(args, idx, tags, reads)
+        sys.stdout.flush()
+        mark("output")
+        return 0
     dev = _device(args.device)
     mark = _phases(dev, seconds)
     reads = read_reads(args.reads)
@@ -379,38 +514,53 @@ def cmd_query_tags(args, seconds: dict) -> int:
 def cmd_build_sdict(args, seconds: dict) -> int:
     """The long-seed dictionary of an index, built ahead of serving into the
     content-keyed file find-mems --long-seed reads (the JAX command's
-    arguments and stderr summary). The frontier levels run on --device from
-    the index's checkpoint rank tables."""
-    dev = _device(args.device)
+    arguments and stderr summary). --engine device: the frontier levels run
+    on --device from the index's checkpoint rank tables; host: the numpy
+    frontier (build_sparse_dict), nothing on a device. The file is the same
+    either way."""
+    host = args.engine == "host"
+    dev = torch.device("cpu") if host else _device(args.device)
     mark = _phases(dev, seconds)
     idx = ri.load_file(args.ri)
     mark("load")
     s = args.s if args.s > 0 else min(args.min_len - 1, 31)
     out = args.output or f"{args.ri}.sdict{s}.npz"
-    t = rindex_to_device(idx, dev, checkpoint=True)
+    t = None if host else rindex_to_device(idx, dev, checkpoint=True)
     mark("tables")
     t0 = time.perf_counter()
     keys, vals = get_sparse_dict(idx, s, path=out, min_keep=args.min_keep,
                                  tables=t)
     mark("sdict")
-    nbytes = keys.nbytes + vals.numel() * vals.element_size()
+    nbytes = keys.nbytes + (vals.nbytes if isinstance(vals, np.ndarray)
+                            else vals.numel() * vals.element_size())
     print(f"sparse dict s={s}: {len(keys)} entries, {nbytes >> 20} MB -> {out} "
           f"({time.perf_counter() - t0:.1f}s)", file=sys.stderr)
     return 0
 
 
 def cmd_build_bwt(args, seconds: dict) -> int:
-    """Text -> .rl_bwt, the rotations sorted on --device (the JAX command's
-    arguments, file and stderr summary)."""
-    dev = _device(args.device)
+    """Text -> .rl_bwt (the JAX command's arguments, file and stderr
+    summary): the rotations sorted on --device (--engine device), by the
+    native engine's SA-IS (native) or by the host rotation sort (host)."""
+    dev = _device(args.device) if args.engine == "device" else torch.device("cpu")
     mark = _phases(dev, seconds)
-    with open(args.text, "rb") as fh:
-        lines = [l for l in fh.read().split(b"\n") if l]
-    mark("read")
-    # only the BWT comes back from the device (the document array and the
-    # suffix positions stay there); an empty text has no rotation to sort:
-    # an empty file, as the reference's default (native) engine writes
-    bwt = bwt_tensors(lines, dev)[0].cpu().numpy() if lines else np.zeros(0, np.uint8)
+    if args.engine == "host":
+        bwt = oracle_from_file(args.text).bwt
+        mark("read")
+    else:
+        with open(args.text, "rb") as fh:
+            lines = [l for l in fh.read().split(b"\n") if l]
+        mark("read")
+        if args.engine == "native":
+            bwt = native.build_bwt_native(lines)[0]
+        elif lines:
+            # only the BWT comes back from the device (the document array
+            # and the suffix positions stay there)
+            bwt = bwt_tensors(lines, dev)[0].cpu().numpy()
+        else:
+            # an empty text has no rotation to sort: an empty file, as the
+            # reference's default (native) engine writes
+            bwt = np.zeros(0, np.uint8)
     mark("build")
     rlbwt = rlbwt_from_text(bwt.tobytes())
     write_rlbwt(args.output, rlbwt)
@@ -490,8 +640,8 @@ def main(argv=None, seconds: dict | None = None) -> int:
         q.add_argument("--device", default="cuda",
                        help="torch device (default cuda; cpu runs the "
                             "kernels' plain versions)")
-        q.add_argument("--engine", choices=["device"], default="device",
-                       help=ENGINE_HELP)
+        q.add_argument("--engine", choices=["device", "host", "native"],
+                       default="device", help=ENGINE_HELP)
         q.set_defaults(fn=fn)
     bs = sub.add_parser("build-sdict")
     bs.add_argument("ri")
@@ -506,7 +656,7 @@ def main(argv=None, seconds: dict | None = None) -> int:
     bs.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
-    bs.add_argument("--engine", choices=["device"], default="device",
+    bs.add_argument("--engine", choices=["device", "host"], default="device",
                     help=ENGINE_HELP)
     bs.set_defaults(fn=cmd_build_sdict)
     bb = sub.add_parser("build-bwt")
@@ -515,8 +665,8 @@ def main(argv=None, seconds: dict | None = None) -> int:
     bb.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the kernels' "
                          "plain versions)")
-    bb.add_argument("--engine", choices=["device"], default="device",
-                    help=ENGINE_HELP)
+    bb.add_argument("--engine", choices=["device", "native", "host"],
+                    default="device", help=ENGINE_HELP)
     bb.set_defaults(fn=cmd_build_bwt)
     br = sub.add_parser("build-rindex")
     br.add_argument("rl_bwt")

@@ -6,20 +6,33 @@
 // one-key sort of rotation_order_device, its final argsort(rank), and the
 // host numpy read-off of bwt_from_lines_device (the BWT, document array and
 // suffix positions gathered through the order), XLA programs and numpy on
-// the TPU's host. Three entry points, each a simple kernel chain:
+// the TPU's host. Three entry points:
 //
-//   pgt_bwt_sort_pairs: key[i] = rank[i] << bits | rank[(i + k) mod n]
-//     (k = 0: rank[i] alone, the symbol keys of the first sort), payload i,
-//     sorted by a least-significant-digit radix sort over only the key's
-//     significant bits (2 bits, or bits at k = 0), 8 bits a pass. A pass
-//     is three launches over tiles of kTile keys: a per-tile digit
-//     histogram in shared memory (a warp's equal digits counted once, by
-//     __match_any_sync), an exclusive scan of the [256, tiles] counts in
-//     digit-major order (so a tile's place for a digit follows every smaller
-//     digit and every earlier tile), and a stable scatter: a warp ranks its
-//     512 consecutive keys inside their digits with no block barrier, the
-//     tile is staged in shared memory in digit order, and its stores leave
-//     in runs of one digit.
+//   pgt_bwt_sort_pairs: the pairs key[i] = rank[i] << bits | rank[(i + k)
+//     mod n] (k = 0: rank[i] alone, the symbol keys of the first sort) with
+//     payload i, stably sorted by key: a least-significant-digit radix sort
+//     over only the key's significant bits (2 bits, or bits at k = 0), in
+//     the fewest passes of at most kMaxDigitBits bits, onesweep style
+//     (Adinets and Merrill 2022):
+//       - one up-front pass forms every key on the fly (a contiguous read
+//         of rank and a shifted one) and counts the digits of every pass at
+//         once (a block's counts in shared memory); a one-block launch a
+//         pass turns them into each digit's first place;
+//       - then one launch a pass. A tile of kTile keys takes its place by
+//         an atomic ticket and counts its digits warp by warp in shared
+//         memory, and thread d publishes the tile's count of digit d at
+//         once, before any key is ranked. Each warp then ranks its 512
+//         consecutive keys inside their digits, 32 a step: the lanes of a
+//         digit set their bits in a shared mask by an atomic OR, and the
+//         last of them adds their number to the warp's count of the digit
+//         (the warp's first place inside the digit, from the counts). The
+//         tile is staged in shared memory in digit order. Thread d then
+//         finds the count of digit d in every tile before this one by a
+//         decoupled look-back over the tiles' published counts, kWindow
+//         tiles a step, and the tile's stores leave in runs of one digit.
+//         The first pass forms its keys again from rank and takes i itself
+//         as the payload: no key or payload array is read before it.
+//     Keys stay in 8 bytes (up to 62 bits) and the payload in 4.
 //   pgt_bwt_rerank: a bump where two adjacent sorted keys differ, an
 //     inclusive scan of the bumps, and rank[order[j]] = scan[j]; the last
 //     scan value (the largest rank) is written to 4 bytes that the host
@@ -29,16 +42,23 @@
 //     order[j], its line (a binary search of the line starts) and its
 //     offset in the line.
 //
-// Both scans are one pass over tiles that take their place from an atomic
-// ticket (so every tile before a tile has started: a look-back never waits
-// for a block that is not resident) and find their prefix by a decoupled
-// look-back (Merrill and Garland 2016), as csrc/sparsedict.cu does.
+// The rerank's scan is one pass over tiles that take their place from an
+// atomic ticket (so every tile before a tile has started: a look-back never
+// waits for a block that is not resident) and find their prefix by a
+// decoupled look-back (Merrill and Garland 2016), as csrc/sparsedict.cu
+// does; the sort's passes take their digit offsets the same way.
 //
-// What bounds it: bytes. A pass reads a key (8 bytes) twice and its payload
-// (4) once and writes both: a round of p passes moves about 32 p bytes a key
-// and 20 to form the keys, far above the inputs-and-outputs-once bound. The
-// rerank's and the finish's scatters are random 4-byte stores, one a key.
-// Ranks fit int32: n < 2^31 - 1, keys of at most 62 bits.
+// What bounds it: bytes. The sort's own function reads rank once and writes
+// keys and payload once (16 bytes a key); the design moves 8 bytes a key in
+// the up-front pass, 8 + 12 in the first digit pass and 24 in each later
+// one, plus the look-back words (8 bytes a tile and digit: half a byte a
+// key). The digit width: 8 bits, so that a thread owns one digit's count,
+// look-back chain and store run in the tile. Wider digits would take fewer
+// passes (the rounds' keys are about 2 * log2(n) bits, 50 at n = 20 M: 7
+// passes of 8 bits, 5 of 10) but several digits a thread; this design has
+// not been timed at another width (PERF.md). The rerank's and the
+// finish's scatters are random 4-byte stores, one a key. Ranks fit int32:
+// n < 2^31 - 1, keys of at most 62 bits.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -47,13 +67,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kItems = 16;
 constexpr int kTile = kThreads * kItems;  // ops/bwt.py:TILE
-constexpr int kDigitBits = 8;             // ops/bwt.py:DIGIT_BITS
-constexpr int kBins = 1 << kDigitBits;
 constexpr int kWarps = kThreads / 32;
-static_assert(kBins == kThreads, "a thread a digit in the scatter's prefix step");
-// look-back state of a tile: flag in the high word, value low
+constexpr int kMaxDigitBits = 8;          // ops/bwt.py:MAX_DIGIT_BITS
+constexpr int kMaxBins = 1 << kMaxDigitBits;
+static_assert(kMaxBins == kThreads, "a thread a digit in the sort's tile");
+constexpr int kMaxPasses = (62 + kMaxDigitBits - 1) / kMaxDigitBits;
+constexpr int kHistKeys = 8;  // keys a thread of the up-front pass has in flight
+constexpr int kWindow = 4;    // tiles a look-back step of the sort reads
+// look-back state of a tile: flag in the high word, value low; the sort's
+// words also carry the pass's epoch (pass + 1) from bit 34, so that one
+// zeroing serves every pass of a call
 constexpr unsigned long long kAggregate = 1ull << 32;  // the tile's own sum
 constexpr unsigned long long kPrefix = 2ull << 32;     // the sum of all up to it
+constexpr int kEpochShift = 34;
 constexpr unsigned char kEndmarker = '\n';             // utils/alphabet.py:NENDMARKER
 
 using u64 = unsigned long long;
@@ -130,61 +156,6 @@ __device__ int exclusive_before(int c, int tile, u64* state) {
   return tile_at + warp_at[warp] + incl - c;
 }
 
-__global__ void __launch_bounds__(kThreads)
-form_keys_kernel(const int* __restrict__ rank, int64_t n, int64_t k, int bits,
-                 u64* __restrict__ keys, int* __restrict__ vals) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  u64 key = static_cast<unsigned>(rank[i]);
-  if (k > 0) {
-    const int64_t j = i + k < n ? i + k : i + k - n;  // never (i + k) % n in int32
-    key = (key << bits) | static_cast<unsigned>(rank[j]);
-  }
-  keys[i] = key;
-  vals[i] = static_cast<int>(i);
-}
-
-// counts[d * tiles + t]: the keys of tile t whose digit at `shift` is d
-__global__ void __launch_bounds__(kThreads)
-radix_hist_kernel(const u64* __restrict__ keys, int64_t n, int shift, int tiles,
-                  int* __restrict__ counts) {
-  __shared__ int hist[kBins];
-  const int lane = threadIdx.x & 31;
-  hist[threadIdx.x] = 0;
-  __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile + threadIdx.x;
-#pragma unroll 4
-  for (int r = 0; r < kItems; ++r) {
-    const int64_t j = base + r * kThreads;
-    const bool valid = j < n;
-    const int d = valid ? static_cast<int>((keys[j] >> shift) & (kBins - 1)) : kBins;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    if (valid && lane == __ffs(peers) - 1) atomicAdd(&hist[d], __popc(peers));
-  }
-  __syncthreads();
-  counts[static_cast<int64_t>(threadIdx.x) * tiles + blockIdx.x] = hist[threadIdx.x];
-}
-
-// in place: counts[j] = the sum of counts[0 .. j - 1], kItems a thread
-__global__ void __launch_bounds__(kThreads)
-scan_counts_kernel(int* __restrict__ counts, int64_t m, u64* state, unsigned* ticket) {
-  const int tile = take_ticket(ticket);
-  const int64_t base = static_cast<int64_t>(tile) * kTile + threadIdx.x * kItems;
-  int v[kItems];
-  int c = 0;
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    v[r] = base + r < m ? counts[base + r] : 0;
-    c += v[r];
-  }
-  int at = exclusive_before(c, tile, state);
-#pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    if (base + r < m) counts[base + r] = at;
-    at += v[r];
-  }
-}
-
 // The exclusive sum of v over the block's threads before this one.
 __device__ int block_exclusive(int v) {
   __shared__ int warp_at[kWarps];
@@ -211,85 +182,188 @@ __device__ int block_exclusive(int v) {
   return warp_at[warp] + incl - v;
 }
 
-// The stable scatter of one pass. A warp takes 512 consecutive keys of the
-// tile, 32 a step, and ranks each inside its digit among the warp's keys
-// before it (a match mask, and the warp's own counts in shared memory: no
-// block barrier while ranking); the warps' counts then give each key its
-// place in the tile sorted by digit, where the tile is staged in shared
-// memory, so that the stores to offsets[d * tiles + t] and on leave in
-// runs of one digit, consecutive threads on consecutive addresses; the
-// payloads follow through the same buffer.
+// key i of round k: rank[i] << bits | rank[(i + k) mod n] (k = 0: rank[i])
+__device__ __forceinline__ u64 pair_key(const int* __restrict__ rank, int64_t n,
+                                        int64_t k, int bits, int64_t i) {
+  u64 key = static_cast<unsigned>(__ldg(rank + i));
+  if (k > 0) {
+    const int64_t j = i + k < n ? i + k : i + k - n;  // never (i + k) % n in int32
+    key = (key << bits) | static_cast<unsigned>(__ldg(rank + j));
+  }
+  return key;
+}
+
+// hist [passes, bins] (zeroed before): the keys whose digit of each pass is
+// d. The block's counts in shared memory, added to hist at the end.
 __global__ void __launch_bounds__(kThreads)
-radix_scatter_kernel(const u64* __restrict__ keys_in, const int* __restrict__ vals_in,
-                     int64_t n, int shift, int tiles, const int* __restrict__ offsets,
-                     u64* __restrict__ keys_out, int* __restrict__ vals_out) {
-  constexpr int kSteps = kItems;  // 32 keys a step, 512 a warp
-  __shared__ u64 stage[kTile];               // the tile by digit: keys, then payloads
-  __shared__ unsigned char digit_at[kTile];  // the digit of each staged place
-  __shared__ int warp_at[kWarps][kBins];     // a warp's keys of a digit, then its first place
-  __shared__ int tile_at[kBins];             // the tile's first place of a digit
-  __shared__ int out_at[kBins];              // where that place goes in the output
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) warp_at[w][threadIdx.x] = 0;
-  out_at[threadIdx.x] = offsets[static_cast<int64_t>(threadIdx.x) * tiles + blockIdx.x];
+digit_hist_kernel(const int* __restrict__ rank, int64_t n, int64_t k, int bits,
+                  int passes, int dbits, int* __restrict__ hist) {
+  __shared__ int counts[kMaxPasses * kMaxBins];
+  const int bins = 1 << dbits, all = passes * bins;
+  for (int i = threadIdx.x; i < all; i += kThreads) counts[i] = 0;
   __syncthreads();
-  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int64_t base = tile0 + warp * (kSteps * 32) + lane;
-  int* counts = warp_at[warp];
-  u64 key[kSteps];
-  int place[kSteps];  // among the warp's keys of its digit
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads * kHistKeys;
+  for (int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads * kHistKeys + threadIdx.x;
+       b < n; b += stride) {
+    u64 key[kHistKeys];
 #pragma unroll
-  for (int s = 0; s < kSteps; ++s) {
-    const int64_t j = base + s * 32;
-    const bool valid = j < n;
-    key[s] = valid ? keys_in[j] : 0;
-    const int d = valid ? static_cast<int>((key[s] >> shift) & (kBins - 1)) : kBins;
-    const unsigned peers = __match_any_sync(0xffffffffu, d);
-    const int before = valid ? counts[d] : 0;
-    __syncwarp();
-    if (valid && lane == __ffs(peers) - 1) counts[d] = before + __popc(peers);
-    __syncwarp();
-    place[s] = before + __popc(peers & below);
+    for (int r = 0; r < kHistKeys; ++r) {
+      const int64_t i = b + r * kThreads;
+      key[r] = i < n ? pair_key(rank, n, k, bits, i) : 0;
+    }
+#pragma unroll
+    for (int r = 0; r < kHistKeys; ++r)
+      if (b + r * kThreads < n)
+        for (int p = 0; p < passes; ++p)
+          atomicAdd(&counts[p * bins + static_cast<int>((key[r] >> (p * dbits)) & (bins - 1))],
+                    1);
   }
   __syncthreads();
-  {  // thread d: the warps' first places inside digit d, the digit's in the tile
-    const int d = threadIdx.x;
-    int total = 0;
+  for (int i = threadIdx.x; i < all; i += kThreads)
+    if (counts[i]) atomicAdd(hist + i, counts[i]);
+}
+
+// in place, one block a pass: hist[p, d] = the keys of the pass's digits
+// below d (the digit's first place in the pass's output); thread d, digit d
+__global__ void __launch_bounds__(kThreads)
+digit_starts_kernel(int* __restrict__ hist, int dbits) {
+  const int bins = 1 << dbits, d = threadIdx.x;
+  int* h = hist + static_cast<int64_t>(blockIdx.x) * bins;
+  const int at = block_exclusive(d < bins ? h[d] : 0);
+  if (d < bins) h[d] = at;
+}
+
+__device__ __forceinline__ u64 sort_word(unsigned epoch, u64 flag, int count) {
+  return (static_cast<u64>(epoch) << kEpochShift) | flag | static_cast<unsigned>(count);
+}
+
+__device__ __forceinline__ void store_state(u64* p, u64 word) {
+  *reinterpret_cast<volatile u64*>(p) = word;
+}
+
+// Dynamic shared memory of a pass's tile: the staged keys and payloads, each
+// warp's counts of a digit (then its first place inside the digit) and its
+// match masks, the tile's first place of each digit, and where that place
+// goes in the output.
+constexpr size_t kSweepSmem =
+    static_cast<size_t>(kTile) * (8 + 4) + static_cast<size_t>(kWarps) * kMaxBins * (4 + 4) +
+    static_cast<size_t>(kMaxBins) * (4 + 4);
+
+// One digit pass: keys_out/vals_out = the stable order of the input by the
+// digit at `shift`. kFirst: the input is the pairs of rank (pair_key, payload
+// i); else keys_in/vals_in. starts: the pass's digit starts
+// (digit_starts_kernel); state [tiles, bins] look-back words (zeroed before
+// the call's first pass), ticket: the pass's tile counter (zeroed).
+// Thread d of the block owns digit d.
+template <bool kFirst>
+__global__ void __launch_bounds__(kThreads, 3)
+onesweep_kernel(const int* __restrict__ rank, int64_t k, int bits,
+                const u64* __restrict__ keys_in, const int* __restrict__ vals_in,
+                int64_t n, int shift, int dbits, const int* __restrict__ starts,
+                u64* state, unsigned* ticket, unsigned epoch,
+                u64* __restrict__ keys_out, int* __restrict__ vals_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  u64* skeys = reinterpret_cast<u64*>(smem);              // [kTile] the tile by digit
+  int* svals = reinterpret_cast<int*>(skeys + kTile);     // [kTile] its payloads
+  int* wcount = svals + kTile;                            // [kWarps, kMaxBins]
+  auto* wmask = reinterpret_cast<unsigned*>(wcount + kWarps * kMaxBins);  // [kWarps, kMaxBins]
+  int* tile_at = reinterpret_cast<int*>(wmask + kWarps * kMaxBins);     // [kMaxBins]
+  int* out_at = tile_at + kMaxBins;                       // [kMaxBins] output - tile place
+  const int bins = 1 << dbits;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile = take_ticket(ticket);
+  for (int i = threadIdx.x; i < 2 * kWarps * kMaxBins; i += kThreads) wcount[i] = 0;
+  const int64_t tile0 = static_cast<int64_t>(tile) * kTile;
+  const int64_t base = tile0 + warp * (kItems * 32) + lane;
+  u64 key[kItems];
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const int c = warp_at[w][d];
-      warp_at[w][d] = total;
-      total += c;
+  for (int s = 0; s < kItems; ++s) {
+    const int64_t j = base + s * 32;
+    if constexpr (kFirst)
+      key[s] = j < n ? pair_key(rank, n, k, bits, j) : 0;
+    else
+      key[s] = j < n ? keys_in[j] : 0;
+  }
+  __syncthreads();
+  // each warp's count of each digit, then (thread d) the warps' first places
+  // inside digit d and the tile's count of it, published at once
+  int* counts = wcount + warp * kMaxBins;
+#pragma unroll
+  for (int s = 0; s < kItems; ++s)
+    if (base + s * 32 < n) atomicAdd(&counts[static_cast<int>((key[s] >> shift) & (bins - 1))], 1);
+  __syncthreads();
+  const int d = threadIdx.x;
+  int c = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int x = wcount[w * kMaxBins + d];
+    wcount[w * kMaxBins + d] = c;
+    c += x;
+  }
+  u64* words = state + static_cast<int64_t>(tile) * bins;
+  if (d < bins) store_state(words + d, sort_word(epoch, tile == 0 ? kPrefix : kAggregate, c));
+  const int at = block_exclusive(c);
+  tile_at[d] = at;
+  __syncthreads();
+  // each key's place in the tile: the warp's keys of its digit before it (a
+  // mask of the step's lanes by an atomic OR, a count by the step's last
+  // lane of the digit), after the tile's and the earlier warps' keys of it
+  unsigned* masks = wmask + warp * kMaxBins;
+  const unsigned upto = (2u << lane) - 1u;
+#pragma unroll
+  for (int s = 0; s < kItems; ++s) {
+    const int64_t j = base + s * 32;
+    const bool valid = j < n;
+    const int dk = static_cast<int>((key[s] >> shift) & (bins - 1));
+    if (valid) atomicOr(&masks[dk], 1u << lane);
+    __syncwarp();
+    const unsigned peers = valid ? masks[dk] : 0u;
+    const int last = 31 - __clz(peers);
+    int before = 0;
+    if (valid && lane == last) before = atomicAdd(&counts[dk], __popc(peers));
+    before = __shfl_sync(0xffffffffu, before, last & 31);
+    if (valid && lane == last) masks[dk] = 0;
+    __syncwarp();
+    if (valid) {
+      const int q = tile_at[dk] + before + __popc(peers & upto) - 1;
+      skeys[q] = key[s];
+      if constexpr (kFirst)
+        svals[q] = static_cast<int>(j);
+      else
+        svals[q] = vals_in[j];
     }
-    tile_at[d] = block_exclusive(total);
+  }
+  // digit d's keys in the tiles before this one: back to the nearest tile
+  // that knows its prefix, kWindow tiles a step
+  if (d < bins) {
+    int prior = 0;
+    int64_t look = tile - 1;
+    bool pending = tile > 0;
+    while (pending) {
+      u64 w[kWindow];
+#pragma unroll
+      for (int q = 0; q < kWindow; ++q)
+        w[q] = look - q >= 0 ? load_state(state + (look - q) * bins + d) : 0;
+#pragma unroll
+      for (int q = 0; q < kWindow; ++q) {
+        if (!pending || (w[q] >> kEpochShift) != epoch) break;  // read it again
+        prior += static_cast<int>(w[q] & 0xffffffffu);
+        if (w[q] & kPrefix)
+          pending = false;
+        else
+          --look;
+      }
+    }
+    if (tile > 0) store_state(words + d, sort_word(epoch, kPrefix, prior + c));
+    out_at[d] = __ldg(starts + d) + prior - at;
   }
   __syncthreads();
   const int len = n - tile0 < kTile ? static_cast<int>(n - tile0) : kTile;
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s) {  // place[s]: now the key's place in the tile
-    if (base + s * 32 < n) {
-      const int d = static_cast<int>((key[s] >> shift) & (kBins - 1));
-      place[s] += tile_at[d] + counts[d];
-      stage[place[s]] = key[s];
-      digit_at[place[s]] = static_cast<unsigned char>(d);
-    }
-  }
-  __syncthreads();
   for (int q = threadIdx.x; q < len; q += kThreads) {
-    const int d = digit_at[q];
-    keys_out[out_at[d] + (q - tile_at[d])] = stage[q];
-  }
-  __syncthreads();
-  int* vstage = reinterpret_cast<int*>(stage);
-#pragma unroll
-  for (int s = 0; s < kSteps; ++s)
-    if (base + s * 32 < n) vstage[place[s]] = vals_in[base + s * 32];
-  __syncthreads();
-  for (int q = threadIdx.x; q < len; q += kThreads) {
-    const int d = digit_at[q];
-    vals_out[out_at[d] + (q - tile_at[d])] = vstage[q];
+    const u64 kk = skeys[q];
+    const int64_t o = out_at[static_cast<int>((kk >> shift) & (bins - 1))] + q;
+    keys_out[o] = kk;
+    vals_out[o] = svals[q];
   }
 }
 
@@ -364,37 +438,62 @@ inline bool bad_n(int64_t n) { return n < 1 || n >= (int64_t{1} << 31) - 1; }
 
 extern "C" {
 
-// One round's ordered pairs: keys_a [n] (uint64 in int64) and vals_a [n]
-// (payload i) hold the result when `passes` is even, keys_b / vals_b when
-// it is odd; passes = ceil(bits * (k > 0 ? 2 : 1) / 8) (ops/bwt.py:
-// sort_passes). counts: 256 * ceil(n / kTile) int32; state: ceil(counts /
-// kTile) + 1 words of 8 bytes.
+// One round's ordered pairs: passes digit passes of dbits bits each (ops/
+// bwt.py:sort_passes and digit_bits: key_bits = bits * (k > 0 ? 2 : 1),
+// passes = ceil(key_bits / kMaxDigitBits), dbits = ceil(key_bits /
+// passes)). Pass p writes keys_a / vals_a when p is even, keys_b / vals_b
+// when it is odd: the result is in the last pass's. hist: passes << dbits
+// int32; state: (ceil(n / kTile) << dbits) + passes words of 8 bytes.
 int pgt_bwt_sort_pairs(const int* rank, int64_t n, int64_t k, int bits, int passes,
-                       int64_t* keys_a, int* vals_a, int64_t* keys_b, int* vals_b,
-                       int* counts, void* state, void* stream) {
+                       int dbits, int64_t* keys_a, int* vals_a, int64_t* keys_b,
+                       int* vals_b, int* hist, void* state, void* stream) {
   const int key_bits = bits * (k > 0 ? 2 : 1);
-  if (bad_n(n) || k < 0 || k >= n || bits < 1 || bits > 31 ||
-      passes != (key_bits + kDigitBits - 1) / kDigitBits)
+  const int want_passes = (key_bits + kMaxDigitBits - 1) / kMaxDigitBits;
+  if (bad_n(n) || k < 0 || k >= n || bits < 1 || bits > 31 || passes != want_passes ||
+      passes > kMaxPasses || dbits != (key_bits + passes - 1) / passes)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = static_cast<int>(grid_of(n, kTile));
-  const int64_t m = static_cast<int64_t>(kBins) * tiles;
-  const int scan_tiles = static_cast<int>(grid_of(m, kTile));
+  const int bins = 1 << dbits;
+  const int64_t tiles = (n + kTile - 1) / kTile;
   auto* words = static_cast<u64*>(state);
+  auto* tickets = reinterpret_cast<unsigned*>(words + tiles * bins);
   u64* keys[2] = {reinterpret_cast<u64*>(keys_a), reinterpret_cast<u64*>(keys_b)};
   int* vals[2] = {vals_a, vals_b};
-  form_keys_kernel<<<grid_of(n, kThreads), kThreads, 0, st>>>(rank, n, k, bits,
-                                                                keys[0], vals[0]);
-  cudaError_t err = cudaGetLastError();
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(onesweep_kernel<true>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSweepSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(onesweep_kernel<false>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kSweepSmem));
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(hist, 0, static_cast<size_t>(passes) * bins * sizeof(int), st);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(state, 0, (tiles * bins + passes) * sizeof(u64), st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t hist_blocks = (n + kThreads * kHistKeys - 1) / (kThreads * kHistKeys);
+  digit_hist_kernel<<<static_cast<unsigned>(hist_blocks < 8 * sms ? hist_blocks : 8 * sms),
+                      kThreads, 0, st>>>(rank, n, k, bits, passes, dbits, hist);
+  digit_starts_kernel<<<passes, kThreads, 0, st>>>(hist, dbits);
+  err = cudaGetLastError();
   for (int p = 0; p < passes && err == cudaSuccess; ++p) {
-    const int in = p & 1, shift = p * kDigitBits;
-    radix_hist_kernel<<<tiles, kThreads, 0, st>>>(keys[in], n, shift, tiles, counts);
-    err = cudaMemsetAsync(state, 0, (scan_tiles + 1) * sizeof(u64), st);
-    if (err != cudaSuccess) break;
-    scan_counts_kernel<<<scan_tiles, kThreads, 0, st>>>(
-        counts, m, words, reinterpret_cast<unsigned*>(words + scan_tiles));
-    radix_scatter_kernel<<<tiles, kThreads, 0, st>>>(keys[in], vals[in], n, shift, tiles,
-                                                      counts, keys[1 - in], vals[1 - in]);
+    const int shift = p * dbits;
+    int* starts = hist + static_cast<int64_t>(p) * bins;
+    u64* out_k = keys[p & 1];
+    int* out_v = vals[p & 1];
+    if (p == 0)
+      onesweep_kernel<true><<<static_cast<unsigned>(tiles), kThreads, kSweepSmem, st>>>(
+          rank, k, bits, nullptr, nullptr, n, shift, dbits, starts, words, tickets + p,
+          p + 1, out_k, out_v);
+    else
+      onesweep_kernel<false><<<static_cast<unsigned>(tiles), kThreads, kSweepSmem, st>>>(
+          rank, k, bits, keys[(p - 1) & 1], vals[(p - 1) & 1], n, shift, dbits, starts,
+          words, tickets + p, p + 1, out_k, out_v);
     err = cudaGetLastError();
   }
   return static_cast<int>(err);

@@ -16,7 +16,9 @@ sort is not stable and ties rank equal); here each round is
 
   bwt_sort_pairs  the pair keys, rank[i] << bits | rank[(i + k) mod n] (at
                   k = 0 the key alone), with payload i, sorted by the
-                  kernel's LSD radix sort over their significant bits;
+                  kernels' onesweep LSD radix sort over their significant
+                  bits (one up-front pass that forms the keys and counts
+                  every pass's digits, then one launch a digit pass);
   bwt_rerank      bumps where adjacent sorted keys differ, their inclusive
                   scan scattered to rank[order[j]], and the largest rank,
                   whose 4 bytes the host reads (the round's one sync);
@@ -39,14 +41,14 @@ from .. import _build
 from ..utils.alphabet import NENDMARKER
 from .mertable import device_budget
 
-#: keys a tile of the sort, the scans and the rerank (csrc/bwt.cu:kTile)
+#: keys a tile of the sort and the rerank (csrc/bwt.cu:kTile)
 TILE = 4096
-#: bits a radix pass sorts by (csrc/bwt.cu:kDigitBits)
-DIGIT_BITS = 8
+#: the widest digit a radix pass sorts by (csrc/bwt.cu:kMaxDigitBits)
+MAX_DIGIT_BITS = 8
 #: device bytes a character of the text costs the build at its peak (the
 #: symbol keys and the rank 4 + 4, a round's new rank 4, the sort's two
-#: key and payload buffers 24, its digit counts 0.25; the finish's outputs
-#: fit in the same), rounded up
+#: key and payload buffers 24, its look-back words 8 a tile and digit, half
+#: a byte; the finish's outputs fit in the same), rounded up
 BYTES_PER_CHAR = 37
 
 
@@ -58,8 +60,15 @@ def _check_n(n: int) -> None:
 
 def sort_passes(k: int, bits: int) -> int:
     """Radix passes of a round: the key's significant bits (2 bits, or bits
-    at k = 0), DIGIT_BITS a pass."""
-    return -(-(bits * (2 if k else 1)) // DIGIT_BITS)
+    at k = 0) in passes of at most MAX_DIGIT_BITS."""
+    return -(-(bits * (2 if k else 1)) // MAX_DIGIT_BITS)
+
+
+def digit_bits(k: int, bits: int) -> int:
+    """The digit width of a round's passes: the narrowest that sorts the
+    key's significant bits in sort_passes(k, bits) passes (the last digit
+    may be partial)."""
+    return -(-(bits * (2 if k else 1)) // sort_passes(k, bits))
 
 
 def pair_keys(rank: torch.Tensor, k: int, bits: int) -> torch.Tensor:
@@ -108,8 +117,9 @@ def _need(cond: bool, what: str) -> None:
 
 
 def bwt_sort_pairs(rank: torch.Tensor, k: int, bits: int):
-    """bwt_sort_pairs_plain; on the card the kernels' LSD radix sort
-    (sort_passes(k, bits) passes), the plain version on the CPU."""
+    """bwt_sort_pairs_plain; on the card the kernels' onesweep radix sort
+    (sort_passes(k, bits) passes of digit_bits(k, bits) bits), the plain
+    version on the CPU."""
     n = rank.shape[0]
     _need(rank.dim() == 1 and rank.dtype == torch.int32 and 1 <= n < 2**31 - 1
           and 0 <= k < n and 1 <= bits <= 31,
@@ -118,18 +128,18 @@ def bwt_sort_pairs(rank: torch.Tensor, k: int, bits: int):
     if rank.device.type == "cpu":
         return bwt_sort_pairs_plain(rank, k, bits)
     dev = rank.device
-    passes = sort_passes(k, bits)
-    tiles = -(-n // TILE)
+    passes, dbits = sort_passes(k, bits), digit_bits(k, bits)
     keys = [torch.empty(n, dtype=torch.int64, device=dev) for _ in range(2)]
     vals = [torch.empty(n, dtype=torch.int32, device=dev) for _ in range(2)]
-    counts = torch.empty(256 * tiles, dtype=torch.int32, device=dev)
-    state = torch.empty(-(-counts.numel() // TILE) + 1, dtype=torch.int64, device=dev)
+    hist = torch.empty(passes << dbits, dtype=torch.int32, device=dev)
+    state = torch.empty((-(-n // TILE) << dbits) + passes, dtype=torch.int64, device=dev)
     _build.launch("pgt_bwt_sort_pairs", _build.check("rank", rank, torch.int32, dev),
-                  n, k, bits, passes, keys[0].data_ptr(), vals[0].data_ptr(),
-                  keys[1].data_ptr(), vals[1].data_ptr(), counts.data_ptr(),
+                  n, k, bits, passes, dbits, keys[0].data_ptr(), vals[0].data_ptr(),
+                  keys[1].data_ptr(), vals[1].data_ptr(), hist.data_ptr(),
                   state.data_ptr(), _build.stream(dev))
     bwt_sort_pairs.launches += 1
-    return keys[passes & 1], vals[passes & 1]
+    last = (passes - 1) & 1
+    return keys[last], vals[last]
 
 
 bwt_sort_pairs.launches = 0

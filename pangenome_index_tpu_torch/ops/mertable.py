@@ -2,11 +2,18 @@
 
 The table holds the FMD bi-interval (k, kp, s) of every ACGT m-mer, keyed by
 its 2-bit pack with the leftmost base in the highest bits (the layout of
-pangenome_index_tpu/ops/mertable.py). It is built level by level: level v
-extends the interval of every length-v suffix by each of the four bases, one
-launch of the extension kernel (K2) over 4^(v+1) lanes, the same schedule as
-the explicit-expansion levels of build_mer_table_device. Failed extensions
-stay (0, 0, 0), so the table equals the host build_mer_table.
+pangenome_index_tpu/ops/mertable.py). It is built level by level from the
+root (0, 0, n): level v + 1 holds the backward extension of every interval
+of level v by each of the four bases, child b of key p at key b << 2v | p.
+On the card each level is one launch of the kernel of csrc/mertable.cu
+(mer_level: one thread per parent, one rank pair through the tables' rank
+provider, the four children written in the table layout), the last launch
+two levels deep except through bucketed runs (last_depth), so that the
+build of m levels is max(m - 1, 1) launches, or m through bucketed runs,
+and no torch pass between them; mer_level_plain is its plain version (the
+same parent-per-lane schedule through ops/rank.py's rank6, in slabs of
+parents), which tables on the CPU take. Failed extensions stay (0, 0, 0),
+so the table equals the host build_mer_table.
 
 get_mer_table reads and writes the JAX package's npz cache of the table
 (same content key, same 1 GB cap on cached tables) and steps m down, as the
@@ -29,16 +36,20 @@ import sys
 import numpy as np
 import torch
 
-from .. import native
+from .. import _build, native
 from ..utils.alphabet import BASE_CODES, KP_WEIGHT
 from .dense_rank import gather_rows
-from .fmd import extend
+from .fmd import check_kernel_tables, rank_args
+from .rank import rank6
 from .tables import RIndexTables
 
 #: tables past this size are rebuilt per process instead of cached: the
 #: device-to-host fetch and the disk round trip cost more than the build
 #: (pangenome_index_tpu/ops/mertable.py:285-292)
 CACHE_MAX_BYTES = 1 << 30
+#: parents a step of mer_level_plain takes: its rank temporaries (a [B, 6,
+#: 64] mask of checkpoint rows) stay under a GB at m = 14
+PLAIN_SLAB = 1 << 20
 
 
 def _batched_backward_extend(idx, k, kp, s, code: int):
@@ -93,21 +104,92 @@ def read_mer_keys_fast(codes: np.ndarray, lengths: np.ndarray, m: int):
     return k, v
 
 
-def build_mer_table_device(t: RIndexTables, m: int) -> torch.Tensor:
+def mer_level_plain(t: RIndexTables, parents: torch.Tensor, depth: int = 1) -> torch.Tensor:
+    """parents [4^v, 3] (level v) -> level v + depth [4^(v + depth), 3], in
+    the tables' position dtype: per parent one rank6 pair (ops/rank.py), in
+    slabs of PLAIN_SLAB parents, and its four backward extensions, child b
+    of parent p at row b * 4^v + p; a parent of size 0 gives (0, 0, 0)."""
+    dev, pd, slab = parents.device, t.pos_dtype, PLAIN_SLAB
+    C = t.C.long()
+    weight = torch.from_numpy(KP_WEIGHT.astype(np.int64)).to(dev)
+    for _ in range(depth):
+        n = parents.shape[0]
+        out = torch.empty((4 * n, 3), dtype=pd, device=dev)
+        for a in range(0, n, slab):
+            k, kp, s = parents[a : a + slab].long().unbind(1)
+            r_k = rank6(t, k.to(pd)).long()
+            delta = rank6(t, (k + s).to(pd)).long() - r_k
+            for b, code in enumerate(BASE_CODES):
+                ok = delta[:, code] > 0
+                child = torch.stack((r_k[:, code] + C[code],
+                                     kp + (delta * weight[code]).sum(dim=1),
+                                     delta[:, code]), dim=1)
+                out[b * n + a : b * n + a + k.shape[0]] = torch.where(ok[:, None], child, 0)
+        parents = out
+    return parents
+
+
+def mer_level(t: RIndexTables, parents: torch.Tensor, depth: int = 1) -> torch.Tensor:
+    """mer_level_plain; on the card one launch of the level kernel
+    (csrc/mertable.cu) through the tables' rank provider, the plain version
+    for tables on the CPU. depth: 1, or 2 (the grandchildren, the level
+    between them kept in registers)."""
+    n = parents.shape[0]
+    v = (n.bit_length() - 1) // 2
+    if not (parents.dim() == 2 and parents.shape[1] == 3 and n == 4 ** v and v <= 15
+            and depth in (1, 2)):
+        raise ValueError(f"mer_level: parents must be [4^v, 3] with v <= 15 and depth "
+                         f"1 or 2, not {tuple(parents.shape)} and {depth}")
+    if parents.device.type == "cpu":
+        return mer_level_plain(t, parents, depth)
+    check_kernel_tables(t)
+    dev, pd = t.device, t.pos_dtype
+    kind, rargs = rank_args(t)
+    out = torch.empty((n << (2 * depth), 3), dtype=pd, device=dev)
+    _build.launch(f"pgt_mer_level_{kind}", *rargs, _build.check("C", t.C, pd, dev),
+                  _build.check("parents", parents, pd, dev), n, v, depth,
+                  out.data_ptr(), _build.stream(dev))
+    mer_level.launches += 1
+    return out
+
+
+mer_level.launches = 0
+
+
+def mer_root(t: RIndexTables) -> torch.Tensor:
+    """Level 0: the interval (0, 0, n) of the empty string, [1, 3] on the
+    tables' device (made there, so that a CUDA graph may hold the build)."""
+    root = torch.zeros((1, 3), dtype=t.pos_dtype, device=t.device)
+    root[:, 2].fill_(t.n)  # a fill kernel: no copy from the host
+    return root
+
+
+def last_depth(t: RIndexTables) -> int:
+    """Levels the build's last launch makes: 2 (level m - 1 kept in
+    registers), but 1 through bucketed runs (the provider of ops/fmd.py's
+    rank_args when the tables hold no rows or records), where a thread's
+    four children's rank walks of dependent trips make the fused launch
+    slower than two one-deep launches (PERF.md)."""
+    bucketed = t.ckpt is None and t.rank_table is None and t.rec is None
+    return 1 if bucketed else 2
+
+
+def build_mer_table_device(t: RIndexTables, m: int, level=mer_level) -> torch.Tensor:
     """[4^m, 3] (k, kp, s) table on the tables' device, in their position
-    dtype (int64 at n >= 2^31, where K2 runs its int64 instantiation)."""
-    dev = t.device
-    k = torch.zeros(1, dtype=t.pos_dtype, device=dev)
-    kp = torch.zeros(1, dtype=t.pos_dtype, device=dev)
-    s = torch.full((1,), t.n, dtype=t.pos_dtype, device=dev)
-    for v in range(m):
-        size = 4 ** (v + 1)
-        # new key = b << 2v | old key: tile the old state 4x and prepend the
-        # base read off the new key (codes 1, 2, 3, 5 for bases 0..3)
-        b = torch.arange(size, dtype=torch.int32, device=dev) >> (2 * v)
-        code = b + 1 + (b == 3).to(torch.int32)
-        k, kp, s = extend(t, k.repeat(4), kp.repeat(4), s.repeat(4), code)
-    return torch.stack((k, kp, s), dim=1)
+    dtype (int64 at n >= 2^31): level by level from the root through
+    `level` (mer_level: the kernel on the card, its plain version on the
+    CPU), one level a launch and the last launch last_depth(t) levels
+    deep."""
+    table = mer_root(t)
+    last = min(m, last_depth(t))
+    for _ in range(m - last):
+        table = level(t, table, 1)
+    return level(t, table, last) if m else table
+
+
+def build_mer_table_plain(t: RIndexTables, m: int) -> torch.Tensor:
+    """build_mer_table_device through mer_level_plain, on any device."""
+    return build_mer_table_device(t, m, level=mer_level_plain)
 
 
 def seed_difficulty(mer_table: torch.Tensor, keys: torch.Tensor,
@@ -142,11 +224,11 @@ def resolve_mer_len(arg: int, min_len: int, n: int, device) -> int:
     return m if m >= 4 else 0
 
 
-def mer_table_bytes(m: int, item: int = 4) -> int:
-    """Device bytes build_mer_table_device needs at m: at its last level the
-    four-fold copies of the last state, the bases, the three outputs of K2
-    and the stacked table, nine [4^m] arrays of `item` bytes."""
-    return 9 * (4 ** m) * item
+def mer_table_bytes(m: int, item: int = 4, depth: int = 2) -> int:
+    """Device bytes build_mer_table_device needs at m: its peak is the last
+    launch, `depth` levels deep (last_depth), which reads level m - depth
+    and writes the [4^m, 3] table, in positions of `item` bytes."""
+    return 3 * item * (4 ** m + 4 ** max(m - depth, 0))
 
 
 def device_budget(device) -> int | None:
@@ -166,8 +248,8 @@ def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
     tried first, then m - 1, down to min_m = max(m - 2, 4).
 
     At each m: the npz cache at path(m) when its content key matches
-    (index, m) and the table fits the budget; else the build with K2
-    launches (build_mer_table_device), written to path(m), when its bytes
+    (index, m) and the table fits the budget; else the build of the level
+    kernel (build_mer_table_device), written to path(m), when its bytes
     (mer_table_bytes) fit; else a step down, named on stderr in the
     reference's words. The budget is max_bytes, by default what the device
     has free (device_budget; none on the CPU), and is decided before
@@ -179,7 +261,7 @@ def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
     min_m = max(m - 2, 4)
     if max_bytes is None:
         max_bytes = device_budget(tables.device)
-    item = tables.C.element_size()
+    item, depth = tables.C.element_size(), last_depth(tables)
     for m_try in range(m, min_m - 1, -1):
         key = mer_table_key(idx, m_try)
         table_bytes = (4 ** m_try) * 3 * item
@@ -194,7 +276,7 @@ def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
                     return (torch.from_numpy(table).to(tables.device, tables.pos_dtype),
                             m_try)
             print(f"mer cache {mpath}: stale key, rebuilding", file=sys.stderr)
-        need = mer_table_bytes(m_try, item)
+        need = mer_table_bytes(m_try, item, depth)
         if max_bytes is not None and need > max_bytes:
             print(f"mer table: device build failed at m={m_try} (MemoryError: "
                   f"the build needs {need} bytes, the budget is {max_bytes}); "
@@ -209,4 +291,4 @@ def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
         return table, m_try
     raise MemoryError(f"mer table: no m from {m} down to {min_m} fits the budget "
                       f"of {max_bytes} bytes (m={min_m} needs "
-                      f"{mer_table_bytes(min_m, item)})")
+                      f"{mer_table_bytes(min_m, item, depth)})")

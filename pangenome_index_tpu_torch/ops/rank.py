@@ -2,7 +2,8 @@
 kernels (csrc/rankmodes.cu).
 
 The plain versions of the rank providers in csrc/rank.cuh, which extend
-(K2), find_mems (K3), count (K7) and the dictionary's level instantiate, and
+(K2), find_mems (K3), count (K7), the seed table's level and the
+dictionary's level instantiate, and
 of pangenome_index_tpu/ops/rank.py: rank6, rank and lf_range over the table
 kinds, in the JAX package's order - checkpoint rows (CkptRank), ultra rows
 (UltraRank: rank_table[pos][:6]), dense run records (DenseRank), and the

@@ -1,7 +1,7 @@
 """find-mems serving on one device, end to end.
 
 The pipeline bench.py:serve_measure measures for the JAX package, on the
-port: r-index tables -> m-mer seed table (K2 launches) -> long-seed
+port: r-index tables -> m-mer seed table (its level kernel) -> long-seed
 dictionary (built on the device at first use, cached) -> host read windows
 -> MEM finding over the batch in input read order (K3, one launch) -> tag
 counts per buffered MEM (K4). K3 gives every read a thread of its own, so

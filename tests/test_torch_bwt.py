@@ -136,7 +136,8 @@ def test_line_sets_rotation_order_plain():
 def test_sort_pairs_is_the_stable_sort_of_the_pair_keys():
     """The sort's keys and payload: key = rank[i] << bits | rank[(i + k) mod
     n] (k = 0: rank[i]), payload i, ties in index order; the passes count
-    the key's significant bits 8 at a time."""
+    the key's significant bits at most 8 at a time, in digits as narrow as
+    that many passes allow."""
     rng = np.random.default_rng(3)
     n = 1000
     rank = torch.from_numpy(rng.integers(0, 37, n).astype(np.int32))
@@ -148,8 +149,39 @@ def test_sort_pairs_is_the_stable_sort_of_the_pair_keys():
         np.testing.assert_array_equal(order.numpy(), want_order)
         np.testing.assert_array_equal(keys.numpy(), want_keys[want_order])
         assert order.dtype == torch.int32 and keys.dtype == torch.int64
-    assert [bwt.sort_passes(k, b) for k, b in ((0, 7), (0, 9), (1, 4), (1, 5), (8, 25),
-                                               (8, 31))] == [1, 2, 1, 2, 7, 8]
+    widths = ((0, 7), (0, 9), (1, 4), (1, 5), (8, 25), (8, 31))
+    assert [bwt.sort_passes(k, b) for k, b in widths] == [1, 2, 1, 2, 7, 8]
+    assert [bwt.digit_bits(k, b) for k, b in widths] == [7, 5, 8, 5, 8, 8]
+
+
+#: (k, bits) where the digit plan turns: one pass (a key of 8 bits or
+#: fewer), the first width past it, a partial last digit, keys of 62 bits
+DIGIT_EDGES = {"one-pass": (0, 8), "one-pass-pairs": (1, 4), "two-passes": (0, 9),
+               "two-passes-pairs": (1, 5), "partial-last-digit": (1, 17),
+               "k0-partial": (0, 23), "widest-k0": (0, 31), "widest-pairs": (5, 31)}
+
+
+@pytest.mark.parametrize("k,bits", list(DIGIT_EDGES.values()), ids=list(DIGIT_EDGES))
+def test_sort_pairs_at_the_digit_edges(k, bits):
+    """The sort's contract (the stable order of the pair keys, with payload
+    i) at the key widths where the digit plan changes, on ranks that use
+    every bit (0 and 2^bits - 1 among them); the plan covers the key's bits
+    in the fewest passes of at most MAX_DIGIT_BITS, its last digit the only
+    partial one."""
+    rng = np.random.default_rng(bits * 64 + k)
+    n = 4 * bwt.TILE + 123
+    r = rng.integers(0, 2**bits, n)
+    r[:2] = (0, 2**bits - 1)
+    r[rng.integers(0, n, n // 3)] = r[rng.integers(0, n, n // 3)]  # ties
+    keys, order = bwt.bwt_sort_pairs(torch.from_numpy(r.astype(np.int32)), k, bits)
+    want_keys = r if k == 0 else (r << bits) | np.roll(r, -k)
+    want_order = np.argsort(want_keys, kind="stable")
+    np.testing.assert_array_equal(order.numpy(), want_order)
+    np.testing.assert_array_equal(keys.numpy(), want_keys[want_order])
+    key_bits = bits * (2 if k else 1)
+    passes, width = bwt.sort_passes(k, bits), bwt.digit_bits(k, bits)
+    assert width <= bwt.MAX_DIGIT_BITS and passes == -(-key_bits // bwt.MAX_DIGIT_BITS)
+    assert (passes - 1) * width < key_bits <= passes * width
 
 
 def test_wrappers_refuse_bad_arguments():

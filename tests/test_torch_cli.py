@@ -156,24 +156,95 @@ def test_entry_point_and_refusals(files, expected, capfd):
             cli.main(mem_args(files))
 
 
-@pytest.mark.parametrize("cmd", ["find-mems", "query-tags", "build-sdict", "build-bwt"])
-def test_engine_takes_device_only(files, capfd, cmd):
-    """--engine parses with its one choice, `device`; the reference's host
-    and native engines are the parser's error (exit code 2)."""
+#: every (command, engine) pair of the reference's --engine choices besides
+#: device, which the cases above hold
+REFERENCE_ENGINES = [("find-mems", "host"), ("find-mems", "native"),
+                     ("query-tags", "host"), ("query-tags", "native"),
+                     ("build-sdict", "host"), ("build-bwt", "native"),
+                     ("build-bwt", "host")]
+
+
+def no_seconds(err: str) -> str:
+    """build-sdict's stderr summary without its "(x.ys)" seconds."""
+    return re.sub(r" \(\d+\.\ds\)$", "", err.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("cmd,engine", REFERENCE_ENGINES,
+                         ids=[f"{c}-{e}" for c, e in REFERENCE_ENGINES])
+def test_reference_engines_match_jax(files, capfd, tmp_path, cmd, engine):
+    """Each --engine choice of the reference besides device gives the JAX
+    command line's output under the same engine: find-mems' and
+    query-tags' stdout (minus the seconds lines) and stderr, build-sdict's
+    file (its arrays and content key) and summary line, build-bwt's .rl_bwt
+    bytes and summary line. The port's commands run with no --device, whose
+    default (cuda) these engines never read: nothing goes to a device."""
     argv = [cmd, str(files / "synth.ri")]
+    outs = ["-o", str(tmp_path / "jax.npz")], ["-o", str(tmp_path / "port.npz")]
     if cmd == "build-bwt":
-        argv = [cmd, str(files / "synth.txt"), str(files / "unwritten.rl_bwt")]
-    elif cmd != "build-sdict":
-        argv += [str(files / "synth_c.tags"), str(files / "reads.txt")]
-        argv += [MIN_LEN, MIN_OCC] if cmd == "find-mems" else []
-    for engine in ("host", "native"):
-        with pytest.raises(SystemExit) as exc:
-            cli.main([*argv, "--engine", engine, "--device", "cpu"])
-        assert exc.value.code == 2
-    assert "invalid choice" in capfd.readouterr().err
+        argv = [cmd, str(files / "synth.txt")]
+        outs = [str(tmp_path / "jax.rl_bwt")], [str(tmp_path / "port.rl_bwt")]
+    elif cmd == "build-sdict":
+        argv += ["-s", "7", "--min-keep", "2"]
+    else:
+        argv = mem_args(files) if cmd == "find-mems" else paths(files, cmd)
+        outs = [], []
+    capfd.readouterr()
+    assert jax_cli.main([*argv, *outs[0], "--engine", engine]) == 0
+    sys.stdout.flush()
+    want = capfd.readouterr()
+    seconds = {}
+    assert cli.main([*argv, *outs[1], "--engine", engine], seconds) == 0
+    got = capfd.readouterr()
+    assert "cuda" not in got.err and "Traceback" not in got.err
+    if cmd in ("find-mems", "query-tags"):
+        assert without_seconds(got.out.encode()) == without_seconds(want.out.encode())
+        assert got.err == want.err
+        assert seconds.keys() == {"load", "output"}
+        if cmd == "find-mems":
+            assert got.out.count("MEM START") > got.out.count("Seq: ") > 0
+        else:
+            assert "Read 14 has no matches" in got.err
+    elif cmd == "build-sdict":
+        assert no_seconds(got.err).replace(outs[1][1], "OUT") == \
+            no_seconds(want.err).replace(outs[0][1], "OUT")
+        with np.load(tmp_path / "port.npz") as p, np.load(tmp_path / "jax.npz") as j:
+            assert sorted(p.files) == sorted(j.files) == ["key", "keys", "vals"]
+            for f in p.files:
+                assert p[f].dtype == j[f].dtype
+                np.testing.assert_array_equal(p[f], j[f])
+            assert p["keys"].size > 0
+    else:
+        assert last_line(got.err) == last_line(want.err)
+        assert (tmp_path / "port.rl_bwt").read_bytes() == \
+            (tmp_path / "jax.rl_bwt").read_bytes() == (files / "synth.rl_bwt").read_bytes()
+
+
+def test_build_sdict_host_equals_the_device_build(files, tmp_path):
+    """build-sdict --engine host writes the file of the device engine (here
+    its plain levels on the CPU): the same arrays under the same key."""
+    ri_path = str(files / "synth.ri")
+    for engine, extra in (("host", []), ("device", ["--device", "cpu"])):
+        assert cli.main(["build-sdict", ri_path, "-s", "9", "-o",
+                         str(tmp_path / f"{engine}.npz"), "--engine", engine, *extra]) == 0
+    with np.load(tmp_path / "host.npz") as h, np.load(tmp_path / "device.npz") as d:
+        for f in ("key", "keys", "vals"):
+            np.testing.assert_array_equal(h[f], d[f])
+
+
+@pytest.mark.parametrize("cmd", ["find-mems", "query-tags", "build-sdict", "build-bwt"])
+def test_engine_choices_are_the_references(capfd, cmd):
+    """--engine lists the reference's choices for each command and refuses
+    any other (the parser's exit code 2)."""
+    want = {"find-mems": "device,host,native", "query-tags": "device,host,native",
+            "build-sdict": "device,host", "build-bwt": "device,native,host"}[cmd]
+    capfd.readouterr()
     with pytest.raises(SystemExit):
         cli.main([cmd, "--help"])
-    assert "one engine" in " ".join(capfd.readouterr().out.split())
+    assert "{" + want + "}" in capfd.readouterr().out
+    with pytest.raises(SystemExit) as exc:
+        cli.main([cmd, "x", "y", "--engine", "oracle"])
+    assert exc.value.code == 2
+    assert "invalid choice" in capfd.readouterr().err
 
 
 def test_chunk_rule():

@@ -9,6 +9,7 @@ import torch
 
 from pangenome_index_tpu_torch import native
 from pangenome_index_tpu_torch.ops import (bwt, count, dense_rank, fmd, gather_probe,
+                                           mertable,
                                            locate, mems, rank, sparsedict, tagquery)
 from pangenome_index_tpu_torch.ops.mertable import build_mer_table, read_mer_keys_fast
 from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict, read_windows_fast
@@ -64,6 +65,42 @@ def test_extend(dev, index, mode):
         expect = fmd.extend_plain(t, *args, forward=fwd)
         for g, e in zip(got, expect):
             assert torch.equal(g, e)
+
+
+def held_mer_table(t, idx, m):
+    """The seed table built by the level kernel equals its plain version and
+    the host build; the build is max(m - 1, 1) launches, m through
+    bucketed runs (the last launch one level deep)."""
+    before = mertable.mer_level.launches
+    got = mertable.build_mer_table_device(t, m)
+    assert mertable.mer_level.launches - before == max(m - mertable.last_depth(t) + 1, 1)
+    want = mertable.build_mer_table_plain(t, m)
+    assert got.dtype == want.dtype == t.pos_dtype and torch.equal(got, want)
+    np.testing.assert_array_equal(got.cpu().numpy(), build_mer_table(idx, m))
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 8])
+@pytest.mark.parametrize("mode", MODES)
+def test_mer_table(dev, index, mode, m):
+    """The seed table's level kernel through every rank provider at int32,
+    one and two levels a launch."""
+    idx, _ = index
+    held_mer_table(rindex_to_device(idx, dev, **{mode: True}), idx, m)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("mode", MODES)
+def test_mer_level_at_every_level(dev, index, mode, depth):
+    """One launch of the level kernel from each level 0 to 7 against its
+    plain version on the same parents (most of them empty past level 7 of
+    the small index)."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, **{mode: True})
+    level = mertable.mer_root(t)
+    for _ in range(8):
+        assert torch.equal(mertable.mer_level(t, level, depth),
+                           mertable.mer_level_plain(t, level, depth))
+        level = mertable.mer_level(t, level)
 
 
 @pytest.mark.parametrize("mode,dtype", [("ultra", torch.int32), ("bucketed", torch.int32),
@@ -642,6 +679,25 @@ def test_bwt_sort_pairs_at_every_shift(dev):
             assert all(torch.equal(g, w) for g, w in zip(got, want)), (bits, k)
 
 
+@pytest.mark.parametrize("n", [1, 2, 4095, 4096, 4097, 3 * 4096 + 17, 300_001])
+@pytest.mark.parametrize("k,bits", [(0, 8), (1, 4), (0, 9), (1, 5), (1, 17), (7, 25),
+                                    (5, 31)])
+def test_bwt_sort_pairs_at_the_digit_edges(dev, n, k, bits):
+    """The onesweep sort at the key widths where its digit plan changes (one
+    pass, two, a partial last digit, 62 bits) and at tile edges, on random
+    ranks, on ranks of a few values (long runs of one digit through the
+    look-back), and on one rank value."""
+    if k >= n:
+        k = n - 1
+    rng = np.random.default_rng(n + 7 * bits + k)
+    for r in (rng.integers(0, 2**bits, n), rng.integers(0, min(4, 2**bits), n),
+              np.full(n, 2**bits - 1)):
+        rank = torch.from_numpy(r.astype(np.int32)).to(dev)
+        got = bwt.bwt_sort_pairs(rank, k, bits)
+        want = bwt.bwt_sort_pairs_plain(rank, k, bits)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), (n, k, bits)
+
+
 # --- the int64 instantiations (n >= 2^31): two-level rows, int64 positions ---
 
 #: superblocks of 2^11 positions: the small index spans 40 of them
@@ -829,6 +885,19 @@ def test_int64_bucketed_chain_kernels(dev, index):
     keys, vals = sparsedict.sdict_pack(keys, vals, counts)
     hk, hv = build_sparse_dict(idx, 19, 1)
     assert np.array_equal(keys.cpu().numpy(), hk) and np.array_equal(vals.cpu().numpy(), hv)
+
+
+@pytest.mark.parametrize("m", [2, 7])
+def test_int64_mer_table(dev, index, wide, m):
+    """The level kernel over int64 checkpoint rows, two-level (many
+    superblocks) and single-level."""
+    held_mer_table(wide, index[0], m)
+
+
+@pytest.mark.parametrize("m", [2, 7])
+def test_int64_bucketed_mer_table(dev, index, m):
+    idx, _ = index
+    held_mer_table(rindex_to_device(idx, dev, bucketed=True, dtype=torch.int64), idx, m)
 
 
 @pytest.mark.parametrize("capacity", [1, 64])

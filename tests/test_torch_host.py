@@ -14,12 +14,13 @@ from pangenome_index_tpu import native as jnative
 from pangenome_index_tpu.formats import ri as jri
 from pangenome_index_tpu.formats import tags as jtagfmt
 from pangenome_index_tpu.models import mems as jmems
+from pangenome_index_tpu.models import oracle as joracle
 from pangenome_index_tpu.ops import mertable as jmertable
 from pangenome_index_tpu.ops import sparsedict as jsparsedict
 from pangenome_index_tpu.utils import synth as jsynth
 from pangenome_index_tpu_torch import cli, native
 from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
-from pangenome_index_tpu_torch.models import mems
+from pangenome_index_tpu_torch.models import mems, oracle
 from pangenome_index_tpu_torch.ops import mertable, sparsedict
 from pangenome_index_tpu_torch.utils import synth
 
@@ -277,12 +278,28 @@ def case_locate(w, tmp_path):
     assert len(np.unique(sa)) == idx.n
 
 
+def case_oracle(w, tmp_path):
+    """The host rotation sort of build-bwt --engine host: the same BWT,
+    document array, suffix positions and lengths from the lines and from
+    the text file (its last newline dropped, inner empty lines kept)."""
+    fields = ("bwt", "da", "sa_pos", "seq_lengths")
+    got = oracle.oracle_from_lines(w["lines"])
+    same_arrays([getattr(got, f) for f in fields],
+                [getattr(joracle.oracle_from_lines(w["lines"]), f) for f in fields])
+    path = tmp_path / "text.txt"
+    path.write_bytes(b"\n".join(w["lines"][:2] + [b""] + w["lines"][2:]) + b"\n")
+    got = oracle.oracle_from_file(str(path))
+    same_arrays([getattr(got, f) for f in fields],
+                [getattr(joracle.oracle_from_file(str(path)), f) for f in fields])
+    assert len(got.seq_lengths) == len(w["lines"]) + 1
+
+
 CASES = [case_build_synth_index, case_synth_reads, case_synth_tag_array,
          case_ri_round_trip, case_tags_round_trip, case_build_mer_table,
          case_mer_table_key, case_read_mer_keys_fast, case_read_windows_fast,
          case_pack_reads, case_find_all_mems, case_find_mems_native,
          case_query_tags_native, case_format_mems_native,
-         case_native_build_is_the_ports_own, case_locate]
+         case_native_build_is_the_ports_own, case_locate, case_oracle]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__[5:])

@@ -304,6 +304,20 @@ def test_mer_table_matches_jax(jax_tables, tables):
     same(got, build_mer_table_device(jt, 5))
 
 
+@pytest.mark.parametrize("m", [1, 2, 7])
+def test_mer_table_plain_over_two_level_rows(index, jax_tables, tables, m):
+    """The seed table's plain version (one level a step, the last two
+    levels as the card's last launch takes them) over the int64 two-level
+    rows equals the JAX device build over the same rows and the host
+    build."""
+    jt, _ = jax_tables
+    t, _ = tables
+    got = mertable.build_mer_table_plain(t, m)
+    assert got.dtype == torch.int64 and got.shape == (4**m, 3)
+    same(got, build_mer_table_device(jt, m))
+    same(got, build_mer_table(index[0], m))
+
+
 @pytest.mark.parametrize("s,min_keep", [(6, 1), (11, 1), (16, 2)])
 def test_device_dictionary_matches_jax(index, jax_tables, tables, s, min_keep):
     """The device dictionary build's plain levels over the int64 two-level
