@@ -47,8 +47,12 @@ launch count set to 0 just before a path and read just after it:
    plateau round (k = 256) and the finish; per round the device time at
    k = 1 and k = 256 beside torch.sort's on the same keys, and each round's
    digit passes (the onesweep sort: an up-front count, then a launch a
-   pass); the whole
+   pass); at k = 256 the rerank's two launches by events beside what the
+   random 4-byte store they replace costs (torch scatter_ against copy_ of
+   the same values); the whole
    build's kernels' device time (events around each launch) and its wall;
+   build-bwt's launches a sort and two reranks a round (the rerank's
+   wrapper counts each of its two launches) and one finish;
    the build-bwt file byte-equal to the native BWT's .rl_bwt, and
    build-rindex's .ri byte-equal to the bench index's;
 8. serve-2g, an index past 2^31 (k_copy_index: every bench line repeated
@@ -85,6 +89,10 @@ the dictionary's level through their providers likewise.
 
 find-mems also runs on all 16384 reads with --batch-size 0 (chunks of 4096
 reads) and with one launch over them, byte-equal.
+
+The seed-resolving pass (mems.resolve_seeds) is timed beside the same launch
+with the dictionary tier alone, with its entries folded into the table's
+first 2^20 rows, and with no entry at all: where its time goes.
 
 The script imports and starts nothing of the JAX package
 (pangenome_index_tpu), which need not be importable where it runs: that the
@@ -448,14 +456,15 @@ def main() -> int:
     kernels = {}
 
     def compare(name, kernel, plain, plain_reps=3, record=True, nbytes=0, ops=0,
-                chain=None, library=None):
+                chain=None, library=None, design=None):
         """Hold kernel() against plain(); with record, time both (the kernel's
         device time by CUDA-graph replay, the plain version by events around
         eager calls) and the one PyTorch call `library` that computes the
         same function, and work out the bound: `nbytes` moved at the card's
         memory rate or `ops` operations at its peak rate, whichever takes
         longer. `chain`: the steps of the kernel's longest chain of dependent
-        gathers, timed at the end at this run's gather latency."""
+        gathers, timed at the end at this run's gather latency. `design`:
+        the bytes the kernel's own design moves, logged beside the bound."""
         err = max_abs_err(kernel(), plain())
         torch.cuda.synchronize()
         check(err == 0, f"{name}: kernel differs from its plain version by {err}")
@@ -477,7 +486,8 @@ def main() -> int:
             f"plain {plain_ms:.4f} ms, bound {k['bound_ms']:.5f} ms by "
             f"{k['bound_by']} ({nbytes} bytes, {ops} operations)"
             + ("" if library is None else f", library call {k['library_ms']:.4f} ms")
-            + f" {card}")
+            + ("" if design is None else f"; the design's own bytes {design} "
+               f"({design / PEAK_BYTES_S * 1e3:.5f} ms)") + f" {card}")
 
     launches = {}
 
@@ -938,6 +948,30 @@ def main() -> int:
     phase("K3, K4 and the tag search")
     per_read = ("mer_keys", "mer_valid", "sdict_idx")
 
+    def seed_reads(kw, min_occ):
+        """(bytes, table) of what resolve_seeds must move at this run's
+        positions: every position's dictionary index and its seed out; the
+        dictionary's row (3 entries) where it has an entry; where that
+        misses or is under min_occ, the window's validity, and where the
+        window is valid its m-mer key and row. The bound passes each through
+        gathered() (no table more than once); the design moves their sum."""
+        item = kw["mer_table"].element_size()
+        di, mv = kw["sdict_idx"].reshape(-1), kw["mer_valid"].reshape(-1)
+        has = di >= 0
+        size = kw["sdict_vals"][di.long().clamp(0, kw["sdict_vals"].shape[0] - 1), 2]
+        fall = ~has | (size < max(min_occ, 1))
+        valid = int((fall & mv).sum())
+        return [(di.numel() * 4, kw["sdict_idx"]), (di.numel() * 4 * item, None),
+                (int(has.sum()) * 3 * item, kw["sdict_vals"]),
+                (int(fall.sum()), kw["mer_valid"]), (valid * 4, kw["mer_keys"]),
+                (valid * 3 * item, kw["mer_table"])]
+
+    def seed_bytes(kw, min_occ):
+        """(bound bytes, design bytes) of resolve_seeds: seed_reads'."""
+        parts = seed_reads(kw, min_occ)
+        return (sum(b if t is None else gathered(b, t) for b, t in parts),
+                sum(b for b, _ in parts))
+
     def k3_inputs(bt, sel):
         """find_mems arguments for the reads `sel` of a batch."""
         return (bt.tables, bt.codes[sel].contiguous(), bt.lengths[sel].contiguous(),
@@ -988,17 +1022,33 @@ def main() -> int:
                     plain_reps=1, record=rec, nbytes=k3_bytes(st, bt.tables),
                     ops=int(st.sum()) * 100,
                     chain=int(st.max()) * step_reads(bt.tables)[1])
-    # the seed-resolving pass at the whole batch's shape: per position the
-    # dictionary row index and row in and the seed out, and where the
-    # dictionary misses the m-mer key, validity and row as well
+    # the seed-resolving pass at the whole batch's shape (seed_reads: what
+    # this run's positions read of each tier)
     kw = batches["checkpoint"].seed_kw
-    n_pos, n_miss = kw["sdict_idx"].numel(), int((kw["sdict_idx"] < 0).sum())
+    n_pos = kw["sdict_idx"].numel()
+    seed_bound, seed_design = seed_bytes(kw, MIN_OCC)
     compare("resolve_seeds",
             lambda: mems.resolve_seeds(N_READS, READ_LEN + 1, MIN_OCC, **kw),
             lambda: mems.resolve_seeds_plain(N_READS, READ_LEN + 1, MIN_OCC, **kw),
-            nbytes=n_pos * (4 + 16) + gathered(n_pos * 12, kw["sdict_vals"])
-            + n_miss * 5 + gathered(n_miss * 12, kw["mer_table"]),
-            ops=n_pos * 12, chain=2)
+            nbytes=seed_bound, ops=n_pos * 12, chain=2, design=seed_design)
+    # what bounds the seed pass: the same launch with the dictionary tier
+    # alone, with its entries folded into the table's first 2^20 rows (12
+    # MB, which L2 holds), and with no entry at all (indices and seeds only)
+    sd, di = {k: v for k, v in kw.items() if k.startswith("sdict")}, kw["sdict_idx"]
+    seed_parts = {"the dictionary tier alone": sd,
+                  "its entries folded into its first 2^20 rows":
+                      dict(sd, sdict_idx=torch.where(di >= 0, di % (1 << 20), di)),
+                  "no entry (the indices and seeds alone)":
+                      dict(sd, sdict_idx=torch.full_like(di, -1))}
+    seed_ms = {name: gather_probe.time_ms(
+        lambda: mems.resolve_seeds(N_READS, READ_LEN + 1, MIN_OCC, **part))
+        for name, part in seed_parts.items()}
+    dict_bytes = kw["sdict_vals"].numel() * kw["sdict_vals"].element_size()
+    log(f"resolve_seeds, where its time goes: both tiers {kernels['resolve_seeds']['ms']:.4f} "
+        "ms; " + "; ".join(f"{name} {ms:.4f} ms" for name, ms in seed_ms.items())
+        + f" (the dictionary {dict_bytes} bytes, {int((di >= 0).sum())} of {n_pos} "
+        f"positions with an entry) {card}")
+    del sd, di, seed_parts
     tt = tags_to_device(tags, dev)
     # the tag search tree (64-byte nodes over the run heads) against
     # searchsorted: every head, its neighbours, the ends of the int32 range
@@ -1457,6 +1507,20 @@ def main() -> int:
                     bwt_plain["bwt_sort_pairs"] = once_ms(
                         lambda: bwt.bwt_sort_pairs_plain(rank_d, k, bits))[1]
                     bwt_plain["bwt_rerank"] = once_ms(lambda: bwt.bwt_rerank_plain(*srt))[1]
+                    # where the rerank's time goes: each of its two launches
+                    # by events, and what the store it avoids costs here: the
+                    # same n values stored at their destinations by one
+                    # random 4-byte store each (scatter_), and in order
+                    phases, _ = launch_ms(lambda: bwt.bwt_rerank(*srt), "pgt_bwt_rerank_group",
+                                          "pgt_bwt_rerank_scatter")
+                    dest = srt[1].long()
+                    vals = new[0][dest]
+                    out = torch.empty_like(vals)
+                    timed[k]["phases"] = {e[4:]: ms for e, (ms, _) in phases.items()}
+                    timed[k]["scatter_"] = gather_probe.time_ms(
+                        lambda: out.scatter_(0, dest, vals))
+                    timed[k]["copy_"] = gather_probe.time_ms(lambda: out.copy_(vals))
+                    del dest, vals, out
                 del pk
             del srt
         else:
@@ -1483,15 +1547,25 @@ def main() -> int:
             f"{tm['digit']} bits (the sort's launches: the up-front count, the digit "
             f"starts, one a pass): sort {tm['sort']:.4f} ms + rerank {tm['rerank']:.4f} "
             f"ms (device); torch.sort of the same keys {tm['torch_sort']:.4f} ms {card}")
+    plateau = timed[BWT_TIMED_ROUNDS[-1]]
+    log(f"bwt_rerank at k = {BWT_TIMED_ROUNDS[-1]}, its two launches by events: "
+        + ", ".join(f"{e} {ms:.4f} ms" for e, ms in plateau["phases"].items())
+        + f" (groups of {1 << bwt.rerank_group_shift(n_text)} destinations: "
+        f"{bwt.rerank_groups(n_text)}); the store it replaces, the same {n_text} values "
+        f"at their destinations by random 4-byte stores (torch scatter_): "
+        f"{plateau['scatter_']:.4f} ms, against {plateau['copy_']:.4f} ms stored in order "
+        f"(copy_) {card}")
     # the whole build: its wall time, and the device time of each kernel's
     # launches (every round's) by events around each launch
     t0 = time.perf_counter()
     bwt.bwt_from_lines_device(lines, dev)
     build_wall = time.perf_counter() - t0
     spent, _ = launch_ms(lambda: bwt.bwt_from_lines_device(lines, dev),
-                         "pgt_bwt_sort_pairs", "pgt_bwt_rerank", "pgt_bwt_finish", reps=1)
+                         "pgt_bwt_sort_pairs", "pgt_bwt_rerank_group",
+                         "pgt_bwt_rerank_scatter", "pgt_bwt_finish", reps=1)
     made = {e[4:]: n for e, (_, n) in spent.items()}
-    check(made == {"bwt_sort_pairs": len(ks), "bwt_rerank": len(ks), "bwt_finish": 1},
+    check(made == {"bwt_sort_pairs": len(ks), "bwt_rerank_group": len(ks),
+                   "bwt_rerank_scatter": len(ks), "bwt_finish": 1},
           f"a BWT build of {len(ks)} rounds made the launches {made}")
     plan, top_r = [], top_key  # each round's digit passes, from its ranks' width
     rank_r = keys_d
@@ -1514,7 +1588,6 @@ def main() -> int:
     # array, and writes keys and payload; the rerank reads both and writes
     # rank; the finish reads rank and the symbol keys and writes order,
     # bwt, da and sa_pos); the design's own bytes beside them
-    plateau = timed[BWT_TIMED_ROUNDS[-1]]
     passes = plateau["passes"]
     # the sort's own bytes: the up-front pass reads rank (8 a key with the
     # shifted read), the first digit pass reads it again and writes a key and
@@ -1525,7 +1598,13 @@ def main() -> int:
         "bwt_sort_pairs": (n_text * 16, n_text * passes * 12, plateau["sort"],
                            plateau["torch_sort"],
                            n_text * (28 + 24 * (passes - 1)) + sort_words * 8 * (1 + 3 * passes)),
-        "bwt_rerank": (n_text * 16, n_text * 4, plateau["rerank"], None, n_text * 16),
+        # the rerank's own bytes: its first launch reads keys and order and
+        # writes the pairs (20), its second reads them and writes rank (12);
+        # a look-back word a tile zeroed, written twice and read once, and
+        # the groups' cursors (a 128-byte line each, zeroed)
+        "bwt_rerank": (n_text * 16, n_text * 4, plateau["rerank"], None,
+                       n_text * 32 + -(-n_text // bwt.TILE) * 8 * 4
+                       + bwt.rerank_groups(n_text) * 128),
         "bwt_finish": (n_text * 29, n_text * 12, finish_ms, None, n_text * 33),
     }
     for name, (nbytes, ops, ms, lib_ms, design) in bwt_work.items():
@@ -1557,8 +1636,10 @@ def main() -> int:
     sec = port_cmd(["build-bwt", text_path, port_rl], os.path.join(cli_dir, "bwt_port.txt"))
     read_launches("build-bwt")
     check(launches["build-bwt"]["bwt_sort_pairs"] == len(ks)
+          and launches["build-bwt"]["bwt_rerank"] == 2 * len(ks)
           and launches["build-bwt"]["bwt_finish"] == 1,
-          f"build-bwt made {launches['build-bwt']['bwt_sort_pairs']} rounds, not {len(ks)}")
+          f"build-bwt made the launches {launches['build-bwt']}, not {len(ks)} rounds' "
+          "(a sort and the rerank's two a round, one finish)")
     with open(port_rl, "rb") as fa, open(native_rl, "rb") as fb:
         check(fa.read() == fb.read(), "build-bwt's file differs from the native BWT's")
     with open(os.path.join(cli_dir, "bwt_port.txt.err")) as fh:
@@ -1844,13 +1925,12 @@ def main() -> int:
     kw2 = b2.seed_kw
     check(kw2["sdict_vals"].dtype == kw2["mer_table"].dtype == torch.int64,
           "serve-2g's seed tables are not int64")
-    n_pos, n_miss = kw2["sdict_idx"].numel(), int((kw2["sdict_idx"] < 0).sum())
+    n_pos = kw2["sdict_idx"].numel()
+    seed_bound, seed_design = seed_bytes(kw2, MIN_OCC)
     compare("resolve_seeds_int64",
             lambda: mems.resolve_seeds(N_READS, READ_LEN + 1, MIN_OCC, **kw2),
             lambda: mems.resolve_seeds_plain(N_READS, READ_LEN + 1, MIN_OCC, **kw2),
-            nbytes=n_pos * (4 + 32) + gathered(n_pos * 24, kw2["sdict_vals"])
-            + n_miss * 5 + gathered(n_miss * 24, kw2["mer_table"]),
-            ops=n_pos * 12, chain=2)
+            nbytes=seed_bound, ops=n_pos * 12, chain=2, design=seed_design)
     inputs2 = k3_inputs(b2, ends["last"])
     st2 = k3(mems.find_mems, inputs2)[-1]
     n2 = st2.numel()

@@ -6,7 +6,7 @@
 // one-key sort of rotation_order_device, its final argsort(rank), and the
 // host numpy read-off of bwt_from_lines_device (the BWT, document array and
 // suffix positions gathered through the order), XLA programs and numpy on
-// the TPU's host. Three entry points:
+// the TPU's host. Four entry points:
 //
 //   pgt_bwt_sort_pairs: the pairs key[i] = rank[i] << bits | rank[(i + k)
 //     mod n] (k = 0: rank[i] alone, the symbol keys of the first sort) with
@@ -33,10 +33,16 @@
 //         The first pass forms its keys again from rank and takes i itself
 //         as the payload: no key or payload array is read before it.
 //     Keys stay in 8 bytes (up to 62 bits) and the payload in 4.
-//   pgt_bwt_rerank: a bump where two adjacent sorted keys differ, an
-//     inclusive scan of the bumps, and rank[order[j]] = scan[j]; the last
-//     scan value (the largest rank) is written to 4 bytes that the host
-//     reads, the loop's one sync a round.
+//   pgt_bwt_rerank_group and pgt_bwt_rerank_scatter, one call each a round:
+//     a bump where two adjacent sorted keys differ, an inclusive scan of the
+//     bumps, and rank[order[j]] = scan[j]; the last scan value (the largest
+//     rank) is written to 4 bytes that the host reads, the loop's one sync a
+//     round. The store is partitioned by destination: the first launch
+//     writes the pairs (order[j], scan[j]) grouped by order[j] >> gshift (at
+//     most 2^kGroupBits groups), in runs a tile and group; the second fills
+//     each group's slice of rank in shared memory, one block a group, and
+//     stores it whole (past n = 2^25, where a slice would not fit, it
+//     stores each pair's value at its destination through L2 instead).
 //   pgt_bwt_finish: order[rank[i]] = i (rank is a permutation once the
 //     rounds end), then per row j the BWT symbol of the rotation before
 //     order[j], its line (a binary search of the line starts) and its
@@ -56,9 +62,16 @@
 // look-back chain and store run in the tile. Wider digits would take fewer
 // passes (the rounds' keys are about 2 * log2(n) bits, 50 at n = 20 M: 7
 // passes of 8 bits, 5 of 10) but several digits a thread; this design has
-// not been timed at another width (PERF.md). The rerank's and the
-// finish's scatters are random 4-byte stores, one a key. Ranks fit int32:
-// n < 2^31 - 1, keys of at most 62 bits.
+// not been timed at another width (PERF.md). The rerank's own function
+// reads keys and order and writes rank (16 bytes a key). Its store is a
+// random 4-byte store a key into an array past L2, which took most of a
+// one-pass rerank's time, and such stores cost several times their bytes
+// even into a window that stays in L2 (PERF.md §6). So the design moves
+// 12 + 8 bytes a key in its first launch and 8 + 4 in its second, whose
+// only random stores go to shared memory. The group cursors lie a 128-byte
+// line apart: packed in a few lines, the tiles' atomics on them slowed the
+// first launch by a third. The finish's scatter is still a random 4-byte
+// store a key. Ranks fit int32: n < 2^31 - 1, keys of at most 62 bits.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -74,6 +87,20 @@ static_assert(kMaxBins == kThreads, "a thread a digit in the sort's tile");
 constexpr int kMaxPasses = (62 + kMaxDigitBits - 1) / kMaxDigitBits;
 constexpr int kHistKeys = 8;  // keys a thread of the up-front pass has in flight
 constexpr int kWindow = 4;    // tiles a look-back step of the sort reads
+// the rerank's destination groups: at most 2^kGroupBits, 1 << gshift
+// destinations each (ops/bwt.py:GROUP_BITS, rerank_group_shift)
+constexpr int kGroupBits = 10;
+constexpr int kMaxGroups = 1 << kGroupBits;
+constexpr int kGroupsPerThread = kMaxGroups / kThreads;
+// ints from one group's cursor to the next: one 128-byte line each, so that
+// the tiles' atomics on them spread over the L2's slices
+constexpr int kCursorStride = 32;
+constexpr int kScatterItems = 8;  // pairs a thread of the rerank's second phase reads a step
+constexpr int kScatterTile = kThreads * kScatterItems;
+// the second phase's groups in shared memory: at most 2^kMaxSliceShift
+// destinations (128 KB), one block of kSliceThreads a group
+constexpr int kMaxSliceShift = 15;
+constexpr int kSliceThreads = 1024;
 // look-back state of a tile: flag in the high word, value low; the sort's
 // words also carry the pass's epoch (pass + 1) from bit 34, so that one
 // zeroing serves every pass of a call
@@ -367,37 +394,156 @@ onesweep_kernel(const int* __restrict__ rank, int64_t k, int bits,
   }
 }
 
-// rank[order[j]] = the number of j' in 1..j whose key differs from the one
-// before it; *top = that number at j = n - 1
+// The rerank's first phase: scan[j] = the number of j' in 1..j whose key
+// differs from the one before it, *top = scan[n - 1], and the pairs
+// order[j] << 32 | scan[j] stored grouped by the destination's group
+// order[j] >> gshift: group g's pairs fill pairs[g << gshift ..) (order is
+// a permutation, so a group holds 1 << gshift destinations, the last one
+// fewer). A tile of kTile keys by ticket, warp-striped (item s of lane l of
+// warp w is j = tile * kTile + w * 32 * kItems + s * 32 + l), so that every
+// load of keys and order is coalesced; the bump of j compares its key with
+// its lane neighbour's by a shuffle, a warp ballot a step gives the scan
+// inside the warp, and lane 0 of each warp carries the warp's count through
+// the decoupled look-back. The tile's pairs are then grouped in shared
+// memory (a shared atomic a pair gives its place in its group), each group
+// reserves its run at its cursor (one global atomic a group present), and
+// the tile leaves in those runs. cursor [groups * kCursorStride], zeroed
+// before.
 __global__ void __launch_bounds__(kThreads)
-rerank_kernel(const u64* __restrict__ keys, const int* __restrict__ order, int64_t n,
-              u64* state, unsigned* ticket, int* __restrict__ rank, int* __restrict__ top) {
+rerank_group_kernel(const u64* __restrict__ keys, const int* __restrict__ order, int64_t n,
+                    int gshift, int groups, u64* state, unsigned* ticket,
+                    unsigned* cursor, u64* __restrict__ pairs, int* __restrict__ top) {
+  __shared__ u64 spairs[kTile];      // the tile's pairs by group
+  __shared__ int gfirst[kMaxGroups];  // a group's pairs in the tile, then its first place
+  __shared__ int gout[kMaxGroups];    // a group's place in pairs - its place in spairs
+  __shared__ int tile_len;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tile = take_ticket(ticket);
-  const int64_t base = static_cast<int64_t>(tile) * kTile + threadIdx.x * kItems;
-  unsigned bumps = 0;
-  int c = 0;
-  u64 prev = base > 0 && base < n ? keys[base - 1] : 0;
+  for (int g = threadIdx.x; g < groups; g += kThreads) gfirst[g] = 0;
+  const int64_t base = static_cast<int64_t>(tile) * kTile + warp * (kItems * 32) + lane;
+  u64 key[kItems];
+  int dest[kItems];
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const int64_t j = base + r;
-    if (j < n) {
-      const u64 key = keys[j];
-      if (j > 0 && key != prev) {
-        bumps |= 1u << r;
-        ++c;
-      }
-      prev = key;
+  for (int s = 0; s < kItems; ++s) {
+    const int64_t j = base + s * 32;
+    key[s] = j < n ? keys[j] : 0;
+    dest[s] = j < n ? order[j] : -1;
+  }
+  // the key before item 0 of lane 0; every other item's is a lane's
+  // neighbour's (lane 0's: lane 31's of the step before)
+  const u64 first_prev = lane == 0 && base > 0 && base < n ? keys[base - 1] : 0;
+  unsigned bumps[kItems];
+  int c = 0;
+#pragma unroll
+  for (int s = 0; s < kItems; ++s) {
+    const u64 up = __shfl_up_sync(0xffffffffu, key[s], 1);
+    const u64 last = __shfl_sync(0xffffffffu, key[s > 0 ? s - 1 : 0], 31);
+    const u64 prev = lane > 0 ? up : (s > 0 ? last : first_prev);
+    const int64_t j = base + s * 32;
+    bumps[s] = __ballot_sync(0xffffffffu, j > 0 && j < n && key[s] != prev);
+    c += __popc(bumps[s]);
+  }
+  int at = __shfl_sync(0xffffffffu, exclusive_before(lane == 0 ? c : 0, tile, state), 0);
+  const unsigned upto = (2u << lane) - 1u;
+  int val[kItems], slot[kItems];
+#pragma unroll
+  for (int s = 0; s < kItems; ++s) {
+    const int64_t j = base + s * 32;
+    val[s] = at + __popc(bumps[s] & upto);
+    at += __popc(bumps[s]);
+    if (j == n - 1) *top = val[s];
+    // a destination outside [0, n) (order not a permutation) is dropped
+    const bool ok = j < n && static_cast<unsigned>(dest[s]) < static_cast<unsigned>(n);
+    slot[s] = ok ? atomicAdd(&gfirst[dest[s] >> gshift], 1) : -1;
+  }
+  __syncthreads();
+  // thread t holds groups kGroupsPerThread * t ..: their first places in
+  // the tile, and their runs in pairs reserved at their cursors
+  int cnt[kGroupsPerThread], sum = 0;
+#pragma unroll
+  for (int i = 0; i < kGroupsPerThread; ++i) {
+    const int g = threadIdx.x * kGroupsPerThread + i;
+    cnt[i] = g < groups ? gfirst[g] : 0;
+    sum += cnt[i];
+  }
+  int place = block_exclusive(sum);
+  if (threadIdx.x == kThreads - 1) tile_len = place + sum;
+#pragma unroll
+  for (int i = 0; i < kGroupsPerThread; ++i) {
+    const int g = threadIdx.x * kGroupsPerThread + i;
+    if (g < groups) {
+      gfirst[g] = place;
+      const int64_t run = cnt[i] ? (static_cast<int64_t>(g) << gshift) +
+                                          atomicAdd(cursor + g * kCursorStride,
+                                                    static_cast<unsigned>(cnt[i]))
+                                    : 0;
+      gout[g] = static_cast<int>(run - place);
+      place += cnt[i];
     }
   }
-  int at = exclusive_before(c, tile, state);
+  __syncthreads();
 #pragma unroll
-  for (int r = 0; r < kItems; ++r) {
-    const int64_t j = base + r;
-    if (j < n) {
-      at += (bumps >> r) & 1u;
-      rank[order[j]] = at;
-      if (j == n - 1) *top = at;
+  for (int s = 0; s < kItems; ++s)
+    if (slot[s] >= 0)
+      spairs[gfirst[dest[s] >> gshift] + slot[s]] =
+          (static_cast<u64>(static_cast<unsigned>(dest[s])) << 32) | static_cast<unsigned>(val[s]);
+  __syncthreads();
+  for (int q = threadIdx.x; q < tile_len; q += kThreads) {
+    const u64 p = spairs[q];
+    const int64_t o = static_cast<int64_t>(gout[static_cast<int>(p >> 32) >> gshift]) + q;
+    if (o < n) pairs[o] = p;  // a group past its size (order not a permutation) stops at n
+  }
+}
+
+// The rerank's second phase where a group's slice of rank fits in shared
+// memory (gshift <= kMaxSliceShift): one block a group. Its pairs, the
+// group's region of pairs (order a permutation: 1 << gshift of them, the
+// last group fewer), are read coalesced and each scan value is stored at its
+// destination's place in the shared slice; the slice then leaves for rank
+// coalesced. No random store reaches L2.
+__global__ void __launch_bounds__(kSliceThreads)
+rerank_slice_kernel(const u64* __restrict__ pairs, int64_t n, int gshift,
+                    int* __restrict__ rank) {
+  extern __shared__ int slice[];
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) << gshift;
+  const int len = static_cast<int>(n - lo < (int64_t{1} << gshift) ? n - lo : int64_t{1} << gshift);
+  for (int at = 0; at < len; at += kSliceThreads * kScatterItems) {
+    u64 p[kScatterItems];
+#pragma unroll
+    for (int s = 0; s < kScatterItems; ++s) {
+      const int i = at + s * kSliceThreads + threadIdx.x;
+      p[s] = i < len ? pairs[lo + i] : ~0ull;
     }
+#pragma unroll
+    for (int s = 0; s < kScatterItems; ++s) {
+      // a destination outside the group (order not a permutation) is dropped
+      const int64_t d = static_cast<int64_t>(p[s] >> 32) - lo;
+      if (d >= 0 && d < len) slice[d] = static_cast<int>(p[s] & 0xffffffffu);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < len; i += kSliceThreads) rank[lo + i] = slice[i];
+}
+
+// The rerank's second phase past that (n > 2^(kGroupBits + kMaxSliceShift)):
+// rank[p >> 32] = p & 0xffffffff for every pair p, kScatterItems a thread,
+// coalesced loads. The blocks start in index order, so the blocks in flight
+// read a window of a few groups, whose slices of rank stay in L2 until
+// every sector of them is written: a sector leaves for device memory once,
+// whole.
+__global__ void __launch_bounds__(kThreads)
+rerank_scatter_kernel(const u64* __restrict__ pairs, int64_t n, int* __restrict__ rank) {
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kScatterTile + threadIdx.x;
+  u64 p[kScatterItems];
+#pragma unroll
+  for (int s = 0; s < kScatterItems; ++s) {
+    const int64_t j = base + s * kThreads;
+    p[s] = j < n ? pairs[j] : ~0ull;
+  }
+#pragma unroll
+  for (int s = 0; s < kScatterItems; ++s) {
+    const unsigned d = static_cast<unsigned>(p[s] >> 32);
+    if (d < static_cast<unsigned>(n)) rank[d] = static_cast<int>(p[s] & 0xffffffffu);
   }
 }
 
@@ -433,6 +579,13 @@ inline unsigned grid_of(int64_t n, int64_t per_block) {
 }
 
 inline bool bad_n(int64_t n) { return n < 1 || n >= (int64_t{1} << 31) - 1; }
+
+// a group shift the rerank's shared arrays take: at most kMaxGroups groups
+// of 1 << gshift destinations over 0 .. n - 1 (the caller chooses it:
+// ops/bwt.py:rerank_group_shift)
+inline bool bad_gshift(int64_t n, int gshift) {
+  return gshift < 0 || gshift > 30 || ((n - 1) >> gshift) >= kMaxGroups;
+}
 
 }  // namespace
 
@@ -499,19 +652,49 @@ int pgt_bwt_sort_pairs(const int* rank, int64_t n, int64_t k, int bits, int pass
   return static_cast<int>(err);
 }
 
-// keys [n] sorted, order [n] their payload -> rank [n] (dense, 0 ..), top
-// [1] the largest; state: ceil(n / kTile) + 1 words of 8 bytes
-int pgt_bwt_rerank(const int64_t* keys, const int* order, int64_t n, int* rank,
-                   int* top, void* state, void* stream) {
-  if (bad_n(n)) return static_cast<int>(cudaErrorInvalidValue);
+// The rerank's first phase (rerank_group_kernel): keys [n] sorted, order
+// [n] their payload (a permutation of 0 .. n - 1) -> pairs [n], grouped by
+// destination, and top [1], the largest rank; gshift: groups of 1 << gshift
+// destinations, at most kMaxGroups of them (the caller's plan, ops/bwt.py:
+// rerank_group_shift); state: ceil(n / kTile) + 1 + groups * 16 words of
+// 8 bytes (the look-back words, the ticket, the groups' cursors, a
+// 128-byte line each).
+int pgt_bwt_rerank_group(const int64_t* keys, const int* order, int64_t n, int gshift,
+                         int64_t* pairs, int* top, void* state, void* stream) {
+  if (bad_n(n) || bad_gshift(n, gshift)) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tiles = static_cast<int>(grid_of(n, kTile));
+  const int groups = static_cast<int>(((n - 1) >> gshift) + 1);
   auto* words = static_cast<u64*>(state);
-  cudaError_t err = cudaMemsetAsync(state, 0, (tiles + 1) * sizeof(u64), st);
+  auto* ticket = reinterpret_cast<unsigned*>(words + tiles);
+  cudaError_t err = cudaMemsetAsync(
+      state, 0, (tiles + 1) * sizeof(u64) + static_cast<size_t>(groups) * kCursorStride * 4, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  rerank_kernel<<<tiles, kThreads, 0, st>>>(
-      reinterpret_cast<const u64*>(keys), order, n, words,
-      reinterpret_cast<unsigned*>(words + tiles), rank, top);
+  rerank_group_kernel<<<tiles, kThreads, 0, st>>>(
+      reinterpret_cast<const u64*>(keys), order, n, gshift, groups, words, ticket,
+      reinterpret_cast<unsigned*>(words + tiles + 1), reinterpret_cast<u64*>(pairs), top);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rerank's second phase: pairs [n] from pgt_bwt_rerank_group (gshift
+// the same) -> rank [n], rank[order[j]] = scan[j]; one block a group with
+// its slice in shared memory where gshift <= kMaxSliceShift, else the
+// scatter through L2.
+int pgt_bwt_rerank_scatter(const int64_t* pairs, int64_t n, int gshift, int* rank,
+                           void* stream) {
+  if (bad_n(n) || bad_gshift(n, gshift)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* p = reinterpret_cast<const u64*>(pairs);
+  if (gshift > kMaxSliceShift) {
+    rerank_scatter_kernel<<<grid_of(n, kScatterTile), kThreads, 0, st>>>(p, n, rank);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int smem = static_cast<int>(sizeof(int)) << gshift;
+  cudaError_t err = cudaFuncSetAttribute(
+      rerank_slice_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  rerank_slice_kernel<<<static_cast<unsigned>(((n - 1) >> gshift) + 1), kSliceThreads, smem,
+                        st>>>(p, n, gshift, rank);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -20,12 +20,14 @@ sort is not stable and ties rank equal); here each round is
                   bits (one up-front pass that forms the keys and counts
                   every pass's digits, then one launch a digit pass);
   bwt_rerank      bumps where adjacent sorted keys differ, their inclusive
-                  scan scattered to rank[order[j]], and the largest rank,
-                  whose 4 bytes the host reads (the round's one sync);
+                  scan stored to rank[order[j]] through pairs grouped by
+                  destination (two launches), and the largest rank, whose
+                  4 bytes the host reads (the round's one sync);
 
 and the build ends with bwt_finish: order[rank[i]] = i, then per row the
 BWT symbol, line and offset. Each wrapper launches its kernels for CUDA
-tensors (and counts the call in `launches`) and runs its plain PyTorch
+tensors (and counts each C entry point it calls in `launches`: one a call,
+two for the rerank) and runs its plain PyTorch
 version (torch.sort, cumsum, scatter) for CPU tensors. No fallback: a card
 build that fails raises; a text of n >= 2^31 - 1 is refused (the int64 form
 is not written); a build the card's free memory would not hold raises
@@ -48,8 +50,12 @@ MAX_DIGIT_BITS = 8
 #: device bytes a character of the text costs the build at its peak (the
 #: symbol keys and the rank 4 + 4, a round's new rank 4, the sort's two
 #: key and payload buffers 24, its look-back words 8 a tile and digit, half
-#: a byte; the finish's outputs fit in the same), rounded up
+#: a byte; the rerank's grouped pairs, 8, take the key buffer the sort
+#: frees, and the finish's outputs fit in the same), rounded up
 BYTES_PER_CHAR = 37
+#: the rerank's store goes out in at most 2^GROUP_BITS destination groups
+#: (csrc/bwt.cu:kGroupBits)
+GROUP_BITS = 10
 
 
 def _check_n(n: int) -> None:
@@ -69,6 +75,18 @@ def digit_bits(k: int, bits: int) -> int:
     key's significant bits in sort_passes(k, bits) passes (the last digit
     may be partial)."""
     return -(-(bits * (2 if k else 1)) // sort_passes(k, bits))
+
+
+def rerank_group_shift(n: int) -> int:
+    """log2 of the destinations a group of the rerank's partitioned store
+    holds: the least shift that cuts 0 .. n - 1 into at most 2^GROUP_BITS
+    groups."""
+    return max((n - 1).bit_length() - GROUP_BITS, 0)
+
+
+def rerank_groups(n: int) -> int:
+    """The rerank's destination groups over 0 .. n - 1."""
+    return ((n - 1) >> rerank_group_shift(n)) + 1
 
 
 def pair_keys(rank: torch.Tensor, k: int, bits: int) -> torch.Tensor:
@@ -146,8 +164,12 @@ bwt_sort_pairs.launches = 0
 
 
 def bwt_rerank(keys: torch.Tensor, order: torch.Tensor):
-    """bwt_rerank_plain; on the card one launch (bumps, the scan by
-    decoupled look-back, the scatter), the plain version on the CPU."""
+    """bwt_rerank_plain; on the card two launches, each counted in
+    `launches` (the bumps, their scan by decoupled look-back and the pairs
+    (order[j], scan[j]) stored grouped by destination; then each group's
+    slice of rank filled in shared memory and stored whole), the plain
+    version on the CPU.
+    order must be a permutation of 0 .. n - 1, as the sort's payload is."""
     n = keys.shape[0]
     _need(keys.dim() == 1 and keys.dtype == torch.int64 and order.shape == keys.shape
           and order.dtype == torch.int32 and 1 <= n < 2**31 - 1,
@@ -157,10 +179,17 @@ def bwt_rerank(keys: torch.Tensor, order: torch.Tensor):
     dev = keys.device
     rank = torch.empty(n, dtype=torch.int32, device=dev)
     top = torch.empty(1, dtype=torch.int32, device=dev)
-    state = torch.empty(-(-n // TILE) + 1, dtype=torch.int64, device=dev)
-    _build.launch("pgt_bwt_rerank", _build.check("keys", keys, torch.int64, dev),
-                  _build.check("order", order, torch.int32, dev), n, rank.data_ptr(),
-                  top.data_ptr(), state.data_ptr(), _build.stream(dev))
+    pairs = torch.empty(n, dtype=torch.int64, device=dev)
+    # the look-back words, the ticket, a 128-byte line a group's cursor
+    state = torch.empty(-(-n // TILE) + 1 + 16 * rerank_groups(n), dtype=torch.int64,
+                        device=dev)
+    shift = rerank_group_shift(n)
+    _build.launch("pgt_bwt_rerank_group", _build.check("keys", keys, torch.int64, dev),
+                  _build.check("order", order, torch.int32, dev), n, shift,
+                  pairs.data_ptr(), top.data_ptr(), state.data_ptr(), _build.stream(dev))
+    bwt_rerank.launches += 1
+    _build.launch("pgt_bwt_rerank_scatter", pairs.data_ptr(), n, shift, rank.data_ptr(),
+                  _build.stream(dev))
     bwt_rerank.launches += 1
     return rank, top
 

@@ -184,6 +184,55 @@ def test_sort_pairs_at_the_digit_edges(k, bits):
     assert (passes - 1) * width < key_bits <= passes * width
 
 
+#: n at the rerank's edges (the card's cases in test_torch_cuda.py): one key;
+#: 1024 groups of one destination and one past; a tile one below, at and one
+#: above; 1024 groups of 1024 and one past
+RERANK_N = [1, 2, 1023, 1024, 1025, 4095, 4096, 4097, 2**20 - 1, 2**20, 2**20 + 1]
+
+
+@pytest.mark.parametrize("kind", ["equal", "distinct", "ties"])
+@pytest.mark.parametrize("n", RERANK_N)
+def test_rerank_plain_matches_jax(n, kind):
+    """bwt_rerank_plain, and the wrapper on CPU tensors, against the JAX
+    _rerank on sorted keys all equal, all distinct (past 2^32: the int64
+    compare) and with ties, through a random order, the identity and its
+    reverse. JAX compares the keys' dense codes at 32 bits: the same
+    adjacent changes."""
+    rng = np.random.default_rng(n)
+    if kind == "equal":
+        keys = np.full(n, 7, np.int64)
+    elif kind == "distinct":
+        keys = np.arange(n, dtype=np.int64) * 3 + (1 << 40)
+    else:
+        keys = np.sort(rng.integers(0, max(n // 4, 1), n)).astype(np.int64)
+    codes = np.unique(keys, return_inverse=True)[1].astype(np.int32)
+    for order in (rng.permutation(n), np.arange(n), np.arange(n)[::-1]):
+        order = order.astype(np.int32)
+        with jax.enable_x64(False):
+            kj = jnp.asarray(codes)
+            want = np.asarray(jbwt._rerank(jnp.asarray(order), kj, kj, n))
+        k, o = torch.from_numpy(keys), torch.from_numpy(order)
+        for fn in (bwt.bwt_rerank_plain, bwt.bwt_rerank):
+            rank, top = fn(k, o)
+            assert rank.dtype == torch.int32 and top.shape == (1,)
+            np.testing.assert_array_equal(rank.numpy(), want)
+            assert int(top) == int(want.max())
+
+
+@pytest.mark.parametrize("n", [1, 2, 1023, 1024, 1025, 4097, 2**20 - 1, 2**20, 2**20 + 1,
+                               5_000_011, 20_000_008, 2**31 - 2])
+def test_rerank_groups_follow_their_definition(n):
+    """The rerank's plan: groups of 2^shift destinations cover 0 .. n - 1 in
+    at most 2^GROUP_BITS groups, with the least such shift (n = 20,000,008,
+    the bench text: 611 groups of 32768)."""
+    shift, groups = bwt.rerank_group_shift(n), bwt.rerank_groups(n)
+    assert groups == -(-n // (1 << shift)) <= 1 << bwt.GROUP_BITS
+    assert shift == 0 or -(-n // (1 << (shift - 1))) > 1 << bwt.GROUP_BITS
+    assert (groups - 1) << shift < n <= groups << shift
+    if n == 20_000_008:
+        assert (shift, groups) == (15, 611)
+
+
 def test_wrappers_refuse_bad_arguments():
     r = torch.zeros(8, dtype=torch.int32)
     for args in ((r.long(), 0, 3), (r, 8, 3), (r, -1, 3), (r, 1, 0), (r, 1, 32),

@@ -7,15 +7,15 @@ import numpy as np
 import pytest
 import torch
 
-from pangenome_index_tpu_torch import native
+from pangenome_index_tpu_torch import _build, native
 from pangenome_index_tpu_torch.ops import (bwt, count, dense_rank, fmd, gather_probe,
                                            mertable,
                                            locate, mems, rank, sparsedict, tagquery)
 from pangenome_index_tpu_torch.ops.mertable import build_mer_table, read_mer_keys_fast
 from pangenome_index_tpu_torch.ops.sparsedict import build_sparse_dict, read_windows_fast
 from pangenome_index_tpu_torch.utils.alphabet import BYTE_TO_CODE
-from pangenome_index_tpu_torch.utils.synth import (build_synth_index, synth_reads,
-                                                   synth_tag_array)
+from pangenome_index_tpu_torch.utils.synth import (build_synth_index, synth_haplotypes,
+                                                   synth_reads, synth_tag_array)
 from pangenome_index_tpu_torch.models.tagarray import TagArray
 from pangenome_index_tpu_torch.ops.tables import (TagTables, rindex_to_device,
                                                   tags_to_device)
@@ -696,6 +696,153 @@ def test_bwt_sort_pairs_at_the_digit_edges(dev, n, k, bits):
         got = bwt.bwt_sort_pairs(rank, k, bits)
         want = bwt.bwt_sort_pairs_plain(rank, k, bits)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), (n, k, bits)
+
+
+#: n at the rerank's edges: one key; the group count at its largest (1024
+#: groups of one destination) and one past it (513 of two); a tile (4096
+#: keys) one below, at and one above; 1024 groups of 1024 and one past
+RERANK_N = [1, 2, 1023, 1024, 1025, 4095, 4096, 4097, 2**20 - 1, 2**20, 2**20 + 1]
+
+
+def rerank_case(n, kind, rng):
+    """Sorted int64 keys of one kind: all equal, all distinct, or with ties."""
+    if kind == "equal":
+        return np.full(n, 7, np.int64)
+    if kind == "distinct":
+        return np.arange(n, dtype=np.int64) * 3 + (1 << 40)
+    return np.sort(rng.integers(0, max(n // 4, 1), n)).astype(np.int64)
+
+
+def held_rerank(dev, keys, order):
+    k, o = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (keys, order))
+    got, want = bwt.bwt_rerank(k, o), bwt.bwt_rerank_plain(k, o)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("kind", ["equal", "distinct", "ties"])
+@pytest.mark.parametrize("n", RERANK_N)
+def test_bwt_rerank_at_the_edges(dev, n, kind):
+    """The two-launch rerank against its plain version at tile and group
+    edges, on keys all equal, all distinct and with ties, through a random
+    order, the identity (a tile's destinations in as few groups as can be)
+    and its reverse."""
+    rng = np.random.default_rng(n)
+    keys = rerank_case(n, kind, rng)
+    for order in (rng.permutation(n), np.arange(n), np.arange(n)[::-1]):
+        held_rerank(dev, keys, order.astype(np.int32))
+
+
+def test_bwt_rerank_every_tile_into_one_group(dev):
+    """Groups of 8192 destinations: through the identity and through an
+    order that shuffles each tile inside its span, every tile's 4096 pairs
+    go to one group (one shared count and one cursor take them all)."""
+    n = 5_000_011
+    assert 1 << bwt.rerank_group_shift(n) >= 2 * bwt.TILE
+    rng = np.random.default_rng(3)
+    keys = rerank_case(n, "ties", rng)
+    shuffled = np.arange(n)
+    for a in range(0, n, bwt.TILE):
+        shuffled[a:a + bwt.TILE] = rng.permutation(shuffled[a:a + bwt.TILE])
+    for order in (np.arange(n), shuffled):
+        held_rerank(dev, keys, order.astype(np.int32))
+
+
+@pytest.mark.parametrize("n", [2**25, 2**25 + 1])
+def test_bwt_rerank_past_the_shared_slices(dev, n):
+    """The largest n whose groups' slices of rank fit in shared memory
+    (2^15 destinations a group) and the first past it, where the second
+    launch scatters through L2 instead."""
+    assert (bwt.rerank_group_shift(n) > 15) == (n > 2**25)
+    rng = np.random.default_rng(n)
+    keys = rerank_case(n, "ties", rng)
+    for order in (rng.permutation(n), np.arange(n)):
+        held_rerank(dev, keys, order.astype(np.int32))
+
+
+def test_bwt_rerank_bench_round(dev):
+    """The rerank at the bench text's round k = 256 (20,000,008 keys)."""
+    lines = synth_haplotypes(2_500_000, 8, 0.002, 3)
+    keys, _, _, top = bwt.text_keys(lines)
+    rank, k = torch.from_numpy(keys).to(dev), 0
+    while k < 256:
+        rank, top_t = bwt.doubling_round(rank, k, max(1, top.bit_length()))
+        top, k = int(top_t), (1 if k == 0 else 2 * k)
+    srt = bwt.bwt_sort_pairs(rank, 256, max(1, top.bit_length()))
+    got, want = bwt.bwt_rerank(*srt), bwt.bwt_rerank_plain(*srt)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [4_000_037, 2**25 + 1])
+def test_bwt_rerank_group_launch_under_cursor_contention(dev, n):
+    """The rerank's first launch alone through a random order, so that every
+    tile reserves a run at nearly every group's cursor while the other
+    tiles do the same, with its state and pairs filled with garbage before:
+    each cursor ends at its group's size (the launch zeroes them), each
+    group's region of pairs holds its own destinations once each, and each
+    pair carries its destination's rank."""
+    rng = np.random.default_rng(n)
+    keys = torch.from_numpy(rerank_case(n, "ties", rng)).to(dev)
+    order = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    shift, groups = bwt.rerank_group_shift(n), bwt.rerank_groups(n)
+    tiles = -(-n // bwt.TILE)
+    # the wrapper's state: the look-back words, the ticket, a group's cursor
+    # a 128-byte line (32 ints) apart
+    state = torch.full((tiles + 1 + 16 * groups,), -1, dtype=torch.int64, device=dev)
+    pairs = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    top = torch.full((1,), -1, dtype=torch.int32, device=dev)
+    _build.launch("pgt_bwt_rerank_group", keys.data_ptr(), order.data_ptr(), n, shift,
+                  pairs.data_ptr(), top.data_ptr(), state.data_ptr(), _build.stream(dev))
+    want, want_top = bwt.bwt_rerank_plain(keys, order)
+    at = torch.arange(n, device=dev)
+    cursors = state[tiles + 1:].view(torch.int32)[::32].long()
+    assert torch.equal(cursors, torch.bincount(at >> shift, minlength=groups))
+    dest, val = pairs >> 32, pairs & 0xFFFFFFFF
+    assert torch.equal(dest >> shift, at >> shift)
+    assert torch.equal(torch.sort(dest).values, at)
+    assert torch.equal(val, want.long()[dest]) and torch.equal(top, want_top)
+
+
+def seed_inputs(dev, B, W, pd, case, rng, misaligned=False):
+    """Random seed tiers of both kinds at [B, W] positions: m-mer rows of
+    sizes 0..4 (0: none), dictionary rows of sizes 1..4 (under min_occ 3
+    at times: the m-mer row after it); case "all-miss": no position has a
+    dictionary entry; misaligned: the per-position arrays are views that
+    start one element past their allocation."""
+    def T(a, dtype=None):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if not misaligned:
+            return t
+        flat = torch.empty(a.size + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    mer = torch.from_numpy(rng.integers(0, 5, (64, 3))).to(dev, pd)
+    vals = torch.from_numpy(rng.integers(1, 5, (50, 3))).to(dev, pd)
+    di = rng.integers(-1, 50, (B, W)).astype(np.int32)
+    if case == "all-miss":
+        di[:] = -1
+    return dict(mer_table=mer, mer_keys=T(rng.integers(-3, 70, (B, W)).astype(np.int32)),
+                mer_valid=T(rng.random((B, W)) < 0.8), mer_m=3, sdict_vals=vals,
+                sdict_idx=T(di), sdict_m=19)
+
+
+@pytest.mark.parametrize("pd", [torch.int32, torch.int64], ids=["int32", "int64"])
+@pytest.mark.parametrize("B,W", [(1, 1), (1, 3), (3, 5), (7, 151), (129, 33)])
+def test_resolve_seeds_at_the_edges(dev, B, W, pd):
+    """resolve_seeds against its plain version at position counts from one
+    to past a block of 256 (1, 3, 15, 1057, 4257), every position missing
+    the dictionary, each tier switched off, per-position arrays that are
+    offset views, min_occ 1 and 3; int32 and int64 tables."""
+    rng = np.random.default_rng(B * W)
+    for case, misaligned in (("mixed", False), ("all-miss", False), ("mixed", True)):
+        full = seed_inputs(dev, B, W, pd, case, rng, misaligned)
+        mer = {k: v for k, v in full.items() if k.startswith("mer")}
+        sdict = {k: v for k, v in full.items() if k.startswith("sdict")}
+        for kw in (full, mer, sdict):
+            for min_occ in (1, 3):
+                got = mems.resolve_seeds(B, W, min_occ, **kw)
+                want = mems.resolve_seeds_plain(B, W, min_occ, **kw)
+                assert got.dtype == pd and torch.equal(got, want), (case, sorted(kw), min_occ)
 
 
 # --- the int64 instantiations (n >= 2^31): two-level rows, int64 positions ---

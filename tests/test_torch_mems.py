@@ -100,6 +100,40 @@ def test_find_mems_matches_jax(setup, tiers, capacity):
         assert bool(got.overflow.any())  # counts stay exact past the capacity
 
 
+#: seed inputs where a tier finds nothing: no dictionary entry at any
+#: position, no valid m-mer window, neither, the dictionary alone with no
+#: entry, and min_occ 3 (dictionary rows under it fall to the m-mer table)
+SEED_MISSES = {"dict-all-miss": ("dense+sdict", ("di",), 1),
+               "mer-all-invalid": ("dense+sdict", ("mv",), 1),
+               "both-miss": ("dense+sdict", ("di", "mv"), 1),
+               "sdict-only-all-miss": ("sdict", ("di",), 1),
+               "min-occ-3": ("dense+sdict", (), 3)}
+
+
+@pytest.mark.parametrize("case", list(SEED_MISSES))
+def test_find_mems_matches_jax_when_seeds_miss(setup, case):
+    """The seed merge (resolve_seeds_plain against the JAX engine's,
+    mems.py:87-116, reached through find_mems_impl) where a tier misses
+    everywhere or is off."""
+    idx, codes, lens, s = setup
+    tiers, missing, min_occ = SEED_MISSES[case]
+    s = dict(s)
+    if "di" in missing:
+        s["di"] = np.full_like(s["di"], -1)
+    if "mv" in missing:
+        s["mv"] = np.zeros_like(s["mv"])
+    jt = jax_rindex_to_device(idx, checkpoint=True)
+    expect, jstats = find_mems_batch(jt, jnp.asarray(codes), jnp.asarray(lens),
+                                     MIN_LEN, min_occ, capacity=8, with_stats=True,
+                                     **seed_kwargs(tiers, s, "jax"))
+    pt = rindex_to_device(idx, "cpu", checkpoint=True)
+    got, stats = find_mems(pt, torch.from_numpy(codes), torch.from_numpy(lens),
+                           MIN_LEN, min_occ, capacity=8, with_stats=True,
+                           **seed_kwargs(tiers, s, "torch"))
+    assert_same(got, expect)
+    assert int(stats["steps"].sum()) == int(jstats["steps"])
+
+
 @pytest.mark.parametrize("rows", ["shared", "straddled"])
 @pytest.mark.parametrize("mode", ["checkpoint", "dense"])
 def test_extend_interval_ends_share_or_straddle_a_row(setup, mode, rows):
