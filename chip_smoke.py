@@ -22,7 +22,12 @@ launch count set to 0 just before a path and read just after it:
    (find-mems: native.find_mems_native + query_tags_native +
    format_mems_native; query-tags: native.count_native + TagArray.query),
    then timed per phase on all reads; find-mems --rank-mode ultra and
-   bucketed on the same reads byte-equal to the checkpoint run;
+   bucketed on the same reads byte-equal to the checkpoint run; then
+   print-stats, convert-tags and tags-check on the same files (host work,
+   no kernel): print-stats' section sums equal the files' sizes and its
+   counts the loaded index's, convert-tags of the tags in the algorithm
+   format gives the bench .tags file's bytes and the compact writer's, and
+   tags-check reports every file's runs;
 4. the tag search (tagquery.tag_upper_bound): the descent of the tag search
    tree that K4 and K6 search with, alone, against torch.searchsorted at
    every run head of the bench index, its neighbours, the ends of the int32
@@ -44,7 +49,9 @@ launch count set to 0 just before a path and read just after it:
    characters) built on the card by prefix doubling, equal element for
    element to native SA-IS (whose seconds are printed beside it); each
    kernel against its plain version at the first round (k = 0 and 1) and a
-   plateau round (k = 256) and the finish; per round the device time at
+   plateau round (k = 256) and the finish (on the last round's sort payload,
+   checked to be the inverse of its ranks; its two launches by events beside
+   torch scatter_ and argsort of the inverse it no longer forms); per round the device time at
    k = 1 and k = 256 beside torch.sort's on the same keys, and each round's
    digit passes (the onesweep sort: an up-front count, then a launch a
    pass); at k = 256 the rerank's two launches by events beside what the
@@ -52,7 +59,7 @@ launch count set to 0 just before a path and read just after it:
    the same values); the whole
    build's kernels' device time (events around each launch) and its wall;
    build-bwt's launches a sort and two reranks a round (the rerank's
-   wrapper counts each of its two launches) and one finish;
+   wrapper counts each of its two launches) and the finish's two;
    the build-bwt file byte-equal to the native BWT's .rl_bwt, and
    build-rindex's .ri byte-equal to the bench index's;
 8. serve-2g, an index past 2^31 (k_copy_index: every bench line repeated
@@ -117,6 +124,7 @@ function where there is one (library_ms).
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -227,6 +235,8 @@ PATH_KERNELS = {
     "build-sdict": ("sdict_level",),
     "locate": ("locate_batch",),
     "build-bwt": ("bwt_sort_pairs", "bwt_rerank", "bwt_finish"),
+    # print-stats, convert-tags and tags-check: host work, no kernel
+    "formats": (),
     "serve-2g": ("mer_level", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
                  "tag_upper_bound", "query_tags_batch", "count", "locate_batch"),
     # the new rank configurations: the table check (rank6), the seed table,
@@ -1357,6 +1367,65 @@ def main() -> int:
         f"bytes, {got.count(b'read_index=')} reads found; host route "
         f"{host_s:.1f} s); port " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
 
+    # --- 8b. the formats-only commands on the bench index's files --------
+    # print-stats' section sums are the files' sizes and its counts the
+    # loaded index's; convert-tags of the tags written in the algorithm
+    # format gives the bench .tags file's bytes (--no-compat) and the
+    # compact writer's (--compact --no-compat); tags-check reports every
+    # file's runs. Host work: no kernel is launched.
+    phase("formats commands")
+    port.reset_launches()
+    t0 = time.perf_counter()
+    file_idx, file_tags = ri.load_file(ri_path), tagfmt.load_tags_file(tags_path)
+    stats = os.path.join(cli_dir, "stats_port.txt")
+    port_cmd(["print-stats", ri_path, tags_path, "--runtime"], stats)
+    with open(stats) as fh:
+        text = fh.read()
+    totals = {k: int(v) for k, v in re.findall(r"^TOTAL ([^:]*): (\d+) bytes", text, re.M)}
+    runtime = sum(getattr(file_idx, f).nbytes for f in (
+        "run_sym", "run_start", "cum", "samples", "last_sorted", "last_to_run"))
+    check(totals == {"r-index (on disk)": os.path.getsize(ri_path),
+                     "tag arrays (compressed)": os.path.getsize(tags_path),
+                     "runtime": runtime},
+          f"print-stats' totals {totals} are not the files' sizes and the index's arrays")
+    check(all(line in text for line in (
+        f"Total sequence length (BWT size): {file_idx.n}\n",
+        f"BWT runs (r-index): {file_idx.n_runs}\n", f"Tag array runs: {file_tags.n_runs}\n")),
+          "print-stats' counts are not the loaded index's")
+    algorithm = os.path.join(cli_dir, "bench_algorithm.tags")
+    with open(algorithm, "wb") as fh:
+        fh.write(tagfmt.write_algorithm(file_tags))
+    converted = {flags: os.path.join(cli_dir, f"converted{i}.tags")
+                 for i, flags in enumerate((("--no-compat",), ("--compact", "--no-compat")))}
+    for flags, out in converted.items():
+        port_cmd(["convert-tags", algorithm, out, *flags], out + ".txt")
+    with open(converted[("--no-compat",)], "rb") as fa, open(tags_path, "rb") as fb:
+        check(fa.read() == fb.read(), "convert-tags --no-compat differs from the bench .tags")
+    with open(converted[("--compact", "--no-compat")], "rb") as fh:
+        check(fh.read() == tagfmt.write_compressed_bytecode(file_tags, compact=True),
+              "convert-tags --compact --no-compat differs from the compact writer's bytes")
+    checked = [tags_path, algorithm, *converted.values()]
+    check_out = os.path.join(cli_dir, "tags_check.txt")
+    port_cmd(["tags-check", *checked], check_out)
+    with open(check_out) as fh:
+        check(fh.read() == "".join(f"{p}: {file_tags.n_runs} runs, covers {file_tags.total} "
+                                   "BWT positions\n" for p in checked),
+              "tags-check's lines are not the loaded tags' runs")
+    read_launches("formats")
+    check(not any(launches["formats"].values()),
+          f"the formats commands launched kernels: {launches['formats']}")
+    log(f"print-stats, convert-tags (--no-compat, --compact --no-compat) and tags-check on "
+        f"the bench index's files: section sums equal the files' sizes ({totals}), counts "
+        f"the loaded index's ({file_idx.n_runs} BWT runs, {file_tags.n_runs} tag runs), "
+        f"converted files byte-equal, no kernel launched "
+        f"({time.perf_counter() - t0:.1f} s, host)")
+    for out in (stats, check_out, *(p + ".txt" for p in converted.values())):
+        os.remove(out)
+        os.remove(out + ".err")
+    for path in (algorithm, *converted.values()):
+        os.remove(path)
+    del file_idx, file_tags
+
     all_reads = reads_file("all_reads.txt", reads)
     for name, argv in (("find-mems", ["find-mems", *common, all_reads,
                                       str(MIN_LEN), str(MIN_OCC), *fmt]),
@@ -1522,26 +1591,49 @@ def main() -> int:
                     timed[k]["copy_"] = gather_probe.time_ms(lambda: out.copy_(vals))
                     del dest, vals, out
                 del pk
+            new = (*new, srt[1])
             del srt
         else:
             new = bwt.doubling_round(rank_d, k, bits)
         ks.append(k)
-        rank_d, top = new[0], int(new[1])
+        # order_d: the round's sort payload, the rotation order after the last
+        rank_d, top, order_d = new[0], int(new[1]), new[2]
         del new
         if k and top == n_text - 1:
             break
         k = 2 * k if k else 1
         check(k < n_text, "the BWT rounds ended with ranks not distinct")
     check(set(BWT_TIMED_ROUNDS) <= set(ks), f"the BWT build ran rounds {ks} only")
-    fin = bwt.bwt_finish(rank_d, keys_d, starts_d)
-    held("bwt_finish", fin, lambda: bwt.bwt_finish_plain(rank_d, keys_d, starts_d))
-    finish_ms = gather_probe.time_ms(lambda: bwt.bwt_finish(rank_d, keys_d, starts_d))
+    check(torch.equal(rank_d[order_d.long()],
+                      torch.arange(n_text, dtype=torch.int32, device=dev)),
+          "the last round's sort payload is not the inverse of its ranks")
+    fin = bwt.bwt_finish(order_d, keys_d, starts_d)
+    held("bwt_finish", fin, lambda: bwt.bwt_finish_plain(order_d, keys_d, starts_d))
+    finish_ms = gather_probe.time_ms(lambda: bwt.bwt_finish(order_d, keys_d, starts_d))
     del fin
+    # where the finish's time goes: its two launches by events, and the
+    # inverse of the ranks that it no longer forms (the order it reads is
+    # the last round's sort payload), as torch scatter_ and argsort
+    finish_phases, _ = launch_ms(lambda: bwt.bwt_finish(order_d, keys_d, starts_d),
+                                 "pgt_bwt_finish_symbols", "pgt_bwt_finish_read_off")
+    dest, ident = rank_d.long(), torch.arange(n_text, dtype=torch.int32, device=dev)
+    inverse = torch.empty_like(order_d)
+    check(torch.equal(inverse.scatter_(0, dest, ident), order_d),
+          "the scatter_ inverse of the last ranks differs from the kept sort payload")
+    inverse_ms = {"scatter_": gather_probe.time_ms(lambda: inverse.scatter_(0, dest, ident)),
+                  "argsort": gather_probe.time_ms(lambda: torch.argsort(rank_d))}
+    del dest, ident, inverse
     check(all(e == 0 for e in bwt_err.values()),
           f"a BWT kernel differs from its plain version: {bwt_err}")
     log(f"BWT rounds: {len(ks)} (k = {', '.join(map(str, ks))}); the sort, rerank and "
         f"finish kernels identical to their plain versions at k = "
-        f"{', '.join(map(str, BWT_CHECKED_ROUNDS))} and the finish")
+        f"{', '.join(map(str, BWT_CHECKED_ROUNDS))} and the finish (on the last round's "
+        f"sort payload, the inverse of its ranks)")
+    log(f"bwt_finish {finish_ms:.4f} ms (device), its two launches by events: "
+        + ", ".join(f"{e[4:]} {ms:.4f} ms" for e, (ms, _) in finish_phases.items())
+        + "; the inverse of the ranks it no longer forms: torch scatter_ "
+        f"{inverse_ms['scatter_']:.4f} ms, torch argsort {inverse_ms['argsort']:.4f} ms "
+        f"{card}")
     for kk, tm in timed.items():
         log(f"  round k={kk}: {tm['bits']}-bit pair keys, {tm['passes']} digit passes of "
             f"{tm['digit']} bits (the sort's launches: the up-front count, the digit "
@@ -1562,17 +1654,19 @@ def main() -> int:
     build_wall = time.perf_counter() - t0
     spent, _ = launch_ms(lambda: bwt.bwt_from_lines_device(lines, dev),
                          "pgt_bwt_sort_pairs", "pgt_bwt_rerank_group",
-                         "pgt_bwt_rerank_scatter", "pgt_bwt_finish", reps=1)
+                         "pgt_bwt_rerank_scatter", "pgt_bwt_finish_symbols",
+                         "pgt_bwt_finish_read_off", reps=1)
     made = {e[4:]: n for e, (_, n) in spent.items()}
     check(made == {"bwt_sort_pairs": len(ks), "bwt_rerank_group": len(ks),
-                   "bwt_rerank_scatter": len(ks), "bwt_finish": 1},
+                   "bwt_rerank_scatter": len(ks), "bwt_finish_symbols": 1,
+                   "bwt_finish_read_off": 1},
           f"a BWT build of {len(ks)} rounds made the launches {made}")
     plan, top_r = [], top_key  # each round's digit passes, from its ranks' width
     rank_r = keys_d
     for kk in ks:
         bits_r = max(1, top_r.bit_length())
         plan.append((kk, bwt.sort_passes(kk, bits_r), bwt.digit_bits(kk, bits_r)))
-        rank_r, top_t = bwt.doubling_round(rank_r, kk, bits_r)
+        rank_r, top_t, _ = bwt.doubling_round(rank_r, kk, bits_r)
         top_r = int(top_t)
     del rank_r
     log("the sort's plan a round (k: passes x digit bits; kernel launches a round "
@@ -1586,8 +1680,8 @@ def main() -> int:
     # bounds at the kernels line's shapes (k = 256): each input and output
     # once (the sort reads rank, the gathered second rank from the same
     # array, and writes keys and payload; the rerank reads both and writes
-    # rank; the finish reads rank and the symbol keys and writes order,
-    # bwt, da and sa_pos); the design's own bytes beside them
+    # rank; the finish reads order and the symbol keys and writes bwt, da
+    # and sa_pos); the design's own bytes beside them
     passes = plateau["passes"]
     # the sort's own bytes: the up-front pass reads rank (8 a key with the
     # shifted read), the first digit pass reads it again and writes a key and
@@ -1605,7 +1699,12 @@ def main() -> int:
         "bwt_rerank": (n_text * 16, n_text * 4, plateau["rerank"], None,
                        n_text * 32 + -(-n_text // bwt.TILE) * 8 * 4
                        + bwt.rerank_groups(n_text) * 128),
-        "bwt_finish": (n_text * 29, n_text * 12, finish_ms, None, n_text * 33),
+        # the finish's own bytes: its first launch reads the keys and writes
+        # a byte each (5), its second reads the order, gathers a byte and
+        # writes 17 (22); operations: the byte (2), the previous index (2),
+        # the line search (2 a step) and the offset (1)
+        "bwt_finish": (n_text * 25, n_text * (5 + 2 * max(1, (len(lines)).bit_length())),
+                       finish_ms, None, n_text * 27),
     }
     for name, (nbytes, ops, ms, lib_ms, design) in bwt_work.items():
         t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
@@ -1637,9 +1736,9 @@ def main() -> int:
     read_launches("build-bwt")
     check(launches["build-bwt"]["bwt_sort_pairs"] == len(ks)
           and launches["build-bwt"]["bwt_rerank"] == 2 * len(ks)
-          and launches["build-bwt"]["bwt_finish"] == 1,
+          and launches["build-bwt"]["bwt_finish"] == 2,
           f"build-bwt made the launches {launches['build-bwt']}, not {len(ks)} rounds' "
-          "(a sort and the rerank's two a round, one finish)")
+          "(a sort and the rerank's two a round, the finish's two)")
     with open(port_rl, "rb") as fa, open(native_rl, "rb") as fb:
         check(fa.read() == fb.read(), "build-bwt's file differs from the native BWT's")
     with open(os.path.join(cli_dir, "bwt_port.txt.err")) as fh:

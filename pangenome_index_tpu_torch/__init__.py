@@ -1,7 +1,7 @@
 """pangenome_index_tpu_torch: find-mems serving, the find-mems, query-tags,
-build-sdict, build-bwt and build-rindex commands, batched locate, the BWT
-build and the gather-rate probe on PyTorch and hand-written CUDA kernels for
-NVIDIA Hopper (sm_90a).
+build-sdict, build-bwt, build-rindex, print-stats, convert-tags and
+tags-check commands, batched locate, the BWT build and the gather-rate probe
+on PyTorch and hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package pangenome_index_tpu, which stays the reference.
 The port imports nothing of that package: the host side (index models,
@@ -32,8 +32,9 @@ Layout:
   ops/             tables, a kernel wrapper and its plain PyTorch version per
                    kernel
   serve.py         the find-mems serving pipeline on one device
-  cli.py           the find-mems, query-tags, build-sdict, build-bwt and
-                   build-rindex commands
+  cli.py           the find-mems, query-tags, build-sdict, build-bwt,
+                   build-rindex, print-stats, convert-tags and tags-check
+                   commands
   gather_probe.py  the gather-rate probe (random 64-byte row gathers)
 
 Every function that makes tensors takes an explicit `device`. A kernel

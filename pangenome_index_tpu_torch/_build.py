@@ -79,7 +79,8 @@ SIGNATURES = {
                            _P),
     "pgt_bwt_rerank_group": (_P, _P, _I64, _I, _P, _P, _P, _P),
     "pgt_bwt_rerank_scatter": (_P, _I64, _I, _P, _P),
-    "pgt_bwt_finish": (_P, _P, _I64, _P, _I64, _P, _P, _P, _P, _P),
+    "pgt_bwt_finish_symbols": (_P, _I64, _I64, _P, _P),
+    "pgt_bwt_finish_read_off": (_P, _P, _I64, _P, _I64, _P, _P, _P, _P),
     # the int64 instantiations (n >= 2^31): checkpoint rows with their
     # superblock bases (ckpt, nrows, super_S, n_super, super_shift) and
     # int64 positions; the tag and locate searches over int64 heads

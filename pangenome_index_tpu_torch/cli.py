@@ -1,17 +1,22 @@
-"""find-mems, query-tags, build-sdict, build-bwt and build-rindex on the
-PyTorch/CUDA port.
+"""find-mems, query-tags, build-sdict, build-bwt, build-rindex, print-stats,
+convert-tags and tags-check on the PyTorch/CUDA port.
 
     python -m pangenome_index_tpu_torch.cli find-mems RI TAGS READS MIN_LEN MIN_OCC [options]
     python -m pangenome_index_tpu_torch.cli query-tags RI TAGS READS [options]
     python -m pangenome_index_tpu_torch.cli build-sdict RI [-o OUT] [-s S] [options]
     python -m pangenome_index_tpu_torch.cli build-bwt TEXT OUT [--engine E] [--device D]
     python -m pangenome_index_tpu_torch.cli build-rindex RL_BWT [-o OUT] [--format F]
+    python -m pangenome_index_tpu_torch.cli print-stats RI [TAGS] [--runtime]
+    python -m pangenome_index_tpu_torch.cli convert-tags IN OUT [--compact] [--no-compat] [--wrapped]
+    python -m pangenome_index_tpu_torch.cli tags-check TAGS...
 
-The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-651,
+The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-757,
 779-812) with the same argv, and output byte-equal to theirs (find-mems and
 query-tags: stdout under --engine native and --engine host, apart from the
 two "Total time" lines; build-sdict: the npz; build-bwt: the .rl_bwt of
-every engine; build-rindex: the .ri bytes of both formats). Indexes of any
+every engine; build-rindex: the .ri bytes of both formats; print-stats,
+convert-tags and tags-check: stdout, the converted file and the exit code;
+tags-check's --verify-gbz and --verify-rlbwt are not ported yet). Indexes of any
 n are served: past 2^31 positions through int64 tables over two-level
 checkpoint rows or bucketed runs (--rank-mode dense and ultra are served
 there through bucketed runs, as the reference serves them). A missing file
@@ -57,6 +62,12 @@ build-bwt: the text's lines (split on newlines, empty ones dropped) to the
 run-length BWT file (.rl_bwt), the rotation sort on --device
 (ops/bwt.py), or by the native SA-IS or the host sort. build-rindex: an .rl_bwt to the r-index (.ri) that find-mems
 reads, on the host (the native psi walk; there is no device program).
+
+print-stats, convert-tags and tags-check read and write the file formats
+on the host and take no --device: the size of every on-disk substructure
+of an .ri (and a .tags) file with its bits a run; an algorithm-format .tags
+file to compressed bytecode; the run count of each .tags file (a file that
+does not load ends the command with exit code 1).
 """
 
 from __future__ import annotations
@@ -592,6 +603,84 @@ def cmd_build_rindex(args, seconds: dict) -> int:
     return 0
 
 
+def cmd_print_stats(args, seconds: dict) -> int:
+    """The size of every on-disk substructure of the .ri (and the .tags)
+    file, with its bits a run, in the JAX command's lines; --runtime adds
+    the host arrays of the loaded index that the device tables are made
+    from."""
+    def human(name, nbytes, runs):
+        line = f"{name}: {nbytes} bytes ({nbytes / (1024.0 * 1024.0):g} MB)"
+        if runs:
+            line += f", {nbytes * 8.0 / runs:g} bits/run"
+        print(line)
+
+    with open(args.ri, "rb") as fh:
+        ri_data = fh.read()
+    idx = ri.load(ri_data)
+    r = idx.n_runs
+    print("=== High-level ===")
+    print(f"Total sequence length (BWT size): {idx.n}")
+    print(f"BWT runs (r-index): {r}")
+    tags = None
+    if args.tags:
+        with open(args.tags, "rb") as fh:
+            tags_data = fh.read()
+        tags = tagfmt.load_tags(tags_data)
+        print(f"Tag array runs: {tags.n_runs}")
+    print()
+    print("=== R-index components ===")
+    sections = ri.file_sections(ri_data)
+    for name, nbytes in sections:
+        human(name, nbytes, r)
+    human("TOTAL r-index (on disk)", sum(b for _, b in sections), r)
+    print()
+    if tags is not None:
+        print("=== Tag arrays (compressed) components ===")
+        tsections = tagfmt.file_sections(tags_data)
+        for name, nbytes in tsections:
+            human(name, nbytes, tags.n_runs)
+        human("TOTAL tag arrays (compressed)", sum(b for _, b in tsections), tags.n_runs)
+    if args.runtime:
+        print()
+        print("=== Runtime flat tables (device layout) ===")
+        subs = [("run symbols", idx.run_sym.nbytes), ("run starts", idx.run_start.nbytes),
+                ("cumulative counts", idx.cum.nbytes), ("SA samples", idx.samples.nbytes),
+                ("last (run tails)", idx.last_sorted.nbytes),
+                ("last_to_run", idx.last_to_run.nbytes)]
+        for name, nbytes in subs:
+            human(name, nbytes, r)
+        human("TOTAL runtime", sum(b for _, b in subs), r)
+    return 0
+
+
+def cmd_convert_tags(args, seconds: dict) -> int:
+    """An algorithm-format .tags file to compressed bytecode (the
+    reference's bytes unless --no-compat; compact values with --compact;
+    --wrapped prefixes the self-describing wrapper)."""
+    with open(args.input, "rb") as fh:
+        raw = fh.read()
+    data = tagfmt.convert_algorithm(raw, compact=args.compact, compat=args.compat)
+    if args.wrapped:
+        data = tagfmt.wrap_payload(data, "bytecode-compact" if args.compact else "bytecode")
+    with open(args.output, "wb") as fh:
+        fh.write(data)
+    return 0
+
+
+def cmd_tags_check(args, seconds: dict) -> int:
+    """The run count and covered BWT positions of each .tags file; a file
+    that does not load ends the command with its error on stderr and exit
+    code 1."""
+    for path in args.tags:
+        try:
+            tags = tagfmt.load_tags_file(path)
+        except Exception as exc:  # the JAX command's report, any load error
+            print(f"{path}: FAILED to load ({exc})", file=sys.stderr)
+            return 1
+        print(f"{path}: {tags.n_runs} runs, covers {tags.total} BWT positions")
+    return 0
+
+
 def main(argv=None, seconds: dict | None = None) -> int:
     """Run one command; `seconds`, when given, receives the seconds of each
     phase (load, tables, ..., output)."""
@@ -673,6 +762,26 @@ def main(argv=None, seconds: dict | None = None) -> int:
     br.add_argument("-o", "--output", default="-")
     br.add_argument("--format", choices=["encoded", "legacy"], default="encoded")
     br.set_defaults(fn=cmd_build_rindex)
+    ps = sub.add_parser("print-stats")
+    ps.add_argument("ri")
+    ps.add_argument("tags", nargs="?")
+    ps.add_argument("--runtime", action="store_true",
+                    help="also report the host arrays the device tables are made from")
+    ps.set_defaults(fn=cmd_print_stats)
+    ct = sub.add_parser("convert-tags")
+    ct.add_argument("input")
+    ct.add_argument("output")
+    ct.add_argument("--compact", action="store_true")
+    ct.add_argument("--no-compat", dest="compat", action="store_false",
+                    help="skip the int_vector header instead of decoding it as "
+                         "data (the reference's bytes are the default)")
+    ct.add_argument("--wrapped", action="store_true",
+                    help="prefix the output with a self-describing magic and "
+                         "format byte (off: the reference's bytes)")
+    ct.set_defaults(fn=cmd_convert_tags)
+    tc = sub.add_parser("tags-check")
+    tc.add_argument("tags", nargs="+")
+    tc.set_defaults(fn=cmd_tags_check)
     args = p.parse_args(argv)
     try:
         return args.fn(args, {} if seconds is None else seconds)

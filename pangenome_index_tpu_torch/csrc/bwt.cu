@@ -6,7 +6,7 @@
 // one-key sort of rotation_order_device, its final argsort(rank), and the
 // host numpy read-off of bwt_from_lines_device (the BWT, document array and
 // suffix positions gathered through the order), XLA programs and numpy on
-// the TPU's host. Four entry points:
+// the TPU's host. Five entry points:
 //
 //   pgt_bwt_sort_pairs: the pairs key[i] = rank[i] << bits | rank[(i + k)
 //     mod n] (k = 0: rank[i] alone, the symbol keys of the first sort) with
@@ -43,10 +43,16 @@
 //     each group's slice of rank in shared memory, one block a group, and
 //     stores it whole (past n = 2^25, where a slice would not fit, it
 //     stores each pair's value at its destination through L2 instead).
-//   pgt_bwt_finish: order[rank[i]] = i (rank is a permutation once the
-//     rounds end), then per row j the BWT symbol of the rotation before
-//     order[j], its line (a binary search of the line starts) and its
-//     offset in the line.
+//   pgt_bwt_finish_symbols and pgt_bwt_finish_read_off, one call each a
+//     build: the BWT, document array and suffix positions read off the
+//     rotation order. The order is the last round's sort payload: the
+//     rounds end when every adjacent sorted key differs, so that round's
+//     payload already lists the rotations in rank order, and no inverse of
+//     rank is formed. The first launch writes sym[p], the byte of key p (1
+//     byte a key, read coalesced); the second reads order[j] coalesced and
+//     gathers sym[order[j] - 1], finds the line by a binary search of the
+//     line starts and writes the byte, the line and the offset, a row a
+//     thread.
 //
 // The rerank's scan is one pass over tiles that take their place from an
 // atomic ticket (so every tile before a tile has started: a look-back never
@@ -70,8 +76,13 @@
 // 12 + 8 bytes a key in its first launch and 8 + 4 in its second, whose
 // only random stores go to shared memory. The group cursors lie a 128-byte
 // line apart: packed in a few lines, the tiles' atomics on them slowed the
-// first launch by a third. The finish's scatter is still a random 4-byte
-// store a key. Ranks fit int32: n < 2^31 - 1, keys of at most 62 bits.
+// first launch by a third. The finish's own function reads order and keys
+// and writes bwt, da and sa_pos (25 bytes a key). Its gather is the one
+// random access: through the keys (4 bytes a key, an array past L2 at the
+// bench text's 80 MB) it cost several times its bytes, so the design
+// gathers from the n-byte sym that L2 holds (20 MB there) and moves 27
+// bytes a key: 4 + 1 in the first launch, 4 + 1 + 17 in the second.
+// Ranks fit int32: n < 2^31 - 1, keys of at most 62 bits.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -108,11 +119,18 @@ constexpr unsigned long long kAggregate = 1ull << 32;  // the tile's own sum
 constexpr unsigned long long kPrefix = 2ull << 32;     // the sum of all up to it
 constexpr int kEpochShift = 34;
 constexpr unsigned char kEndmarker = '\n';             // utils/alphabet.py:NENDMARKER
+// keys a thread of the finish's first launch takes
+constexpr int kSymbolKeys = 4;
 
 using u64 = unsigned long long;
 
 __device__ __forceinline__ u64 load_state(const u64* p) {
   return *reinterpret_cast<const volatile u64*>(p);
+}
+
+// the BWT byte that symbol key `key` stands for
+__device__ __forceinline__ uint8_t symbol_of(int key, int64_t n_lines) {
+  return key >= n_lines ? static_cast<uint8_t>(key - n_lines) : kEndmarker;
 }
 
 __device__ __forceinline__ int warp_sum(int v) {
@@ -547,35 +565,64 @@ rerank_scatter_kernel(const u64* __restrict__ pairs, int64_t n, int* __restrict_
   }
 }
 
+// The finish's first launch: sym[p], the BWT byte of the row whose rotation
+// starts at p + 1 (mod n), i.e. the byte of key p (a key below n_lines is a
+// separator: the endmarker). A thread takes kSymbolKeys keys, one 16-byte
+// load and one 4-byte store where the arrays align (vec).
 __global__ void __launch_bounds__(kThreads)
-invert_kernel(const int* __restrict__ rank, int64_t n, int* __restrict__ order) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i < n) order[rank[i]] = static_cast<int>(i);
+finish_symbols_kernel(const int* __restrict__ keys, int64_t n, int64_t n_lines,
+                      uint8_t* __restrict__ sym, bool vec) {
+  const int64_t i = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) * kSymbolKeys;
+  if (i >= n) return;
+  if (vec && i + kSymbolKeys <= n) {
+    const int4 k = *reinterpret_cast<const int4*>(keys + i);
+    *reinterpret_cast<uchar4*>(sym + i) =
+        make_uchar4(symbol_of(k.x, n_lines), symbol_of(k.y, n_lines),
+                    symbol_of(k.z, n_lines), symbol_of(k.w, n_lines));
+    return;
+  }
+  for (int64_t t = i; t < n && t < i + kSymbolKeys; ++t) sym[t] = symbol_of(keys[t], n_lines);
 }
 
-// row j: the symbol before rotation order[j] (a key below n_lines is a
-// separator), the line holding order[j] and its offset there
+// the line holding position p: the last l with starts[l] <= p (starts[0] = 0,
+// starts[n_lines] = n), read through the read-only cache
+__device__ __forceinline__ int64_t line_of(const int64_t* __restrict__ starts,
+                                           int64_t n_lines, int64_t p) {
+  int64_t lo = 0, hi = n_lines;  // starts[lo] <= p < starts[hi]
+  while (hi - lo > 1) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (__ldg(starts + mid) <= p) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// The finish's second launch: row j reads p = order[j] (coalesced), gathers
+// its BWT byte sym[p - 1 mod n] (1 byte from the n-byte array, which L2
+// holds at the bench text's n), finds its line by a binary search of the
+// line starts and writes the byte, the line and the offset (coalesced). One
+// row a thread: several rows a thread, 16-byte stores, the line starts
+// staged in shared memory and a grid of resident blocks striding over the
+// rows each measured no faster on the bench text (PERF.md).
 __global__ void __launch_bounds__(kThreads)
-read_off_kernel(const int* __restrict__ order, const int* __restrict__ keys, int64_t n,
-                const int64_t* __restrict__ line_starts, int64_t n_lines,
-                uint8_t* __restrict__ bwt, int64_t* __restrict__ da,
-                int64_t* __restrict__ sa_pos) {
+finish_read_off_kernel(const int* __restrict__ order, const uint8_t* __restrict__ sym,
+                       int64_t n, const int64_t* __restrict__ line_starts, int64_t n_lines,
+                       uint8_t* __restrict__ bwt, int64_t* __restrict__ da,
+                       int64_t* __restrict__ sa_pos) {
   const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (j >= n) return;
   const int64_t p = order[j];
-  const int64_t key = keys[p == 0 ? n - 1 : p - 1];
-  bwt[j] = key >= n_lines ? static_cast<uint8_t>(key - n_lines) : kEndmarker;
-  int64_t lo = 0, hi = n_lines;  // line_starts[lo] <= p < line_starts[hi]
-  while (hi - lo > 1) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (__ldg(line_starts + mid) <= p) lo = mid; else hi = mid;
-  }
-  da[j] = lo;
-  sa_pos[j] = p - __ldg(line_starts + lo);
+  bwt[j] = __ldg(sym + (p == 0 ? n - 1 : p - 1));
+  const int64_t d = line_of(line_starts, n_lines, p);
+  da[j] = d;
+  sa_pos[j] = p - __ldg(line_starts + d);
 }
 
 inline unsigned grid_of(int64_t n, int64_t per_block) {
   return static_cast<unsigned>((n + per_block - 1) / per_block);
+}
+
+inline bool aligned(const void* p, uintptr_t bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
 inline bool bad_n(int64_t n) { return n < 1 || n >= (int64_t{1} << 31) - 1; }
@@ -698,16 +745,28 @@ int pgt_bwt_rerank_scatter(const int64_t* pairs, int64_t n, int gshift, int* ran
   return static_cast<int>(cudaGetLastError());
 }
 
-// rank [n] a permutation, keys [n] the symbol keys, line_starts [n_lines + 1]
-// (the last is n) -> order [n], bwt [n] bytes, da [n] and sa_pos [n] int64
-int pgt_bwt_finish(const int* rank, const int* keys, int64_t n,
-                   const int64_t* line_starts, int64_t n_lines, int* order,
-                   uint8_t* bwt, int64_t* da, int64_t* sa_pos, void* stream) {
+// The finish's first phase: keys [n] the symbol keys -> sym [n] bytes,
+// sym[p] the BWT byte of the row whose rotation starts at p + 1 (mod n).
+int pgt_bwt_finish_symbols(const int* keys, int64_t n, int64_t n_lines, uint8_t* sym,
+                           void* stream) {
   if (bad_n(n) || n_lines < 1 || n_lines > n) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  invert_kernel<<<grid_of(n, kThreads), kThreads, 0, st>>>(rank, n, order);
-  read_off_kernel<<<grid_of(n, kThreads), kThreads, 0, st>>>(order, keys, n, line_starts,
-                                                             n_lines, bwt, da, sa_pos);
+  const bool vec = aligned(keys, 16) && aligned(sym, 4);
+  finish_symbols_kernel<<<grid_of(n, kThreads * kSymbolKeys), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(keys, n, n_lines, sym, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The finish's second phase: order [n] the rotation order (a permutation of
+// 0 .. n - 1: the last round's sort payload), sym [n] from the first phase,
+// line_starts [n_lines + 1] (the last is n) -> bwt [n] bytes, da [n] and
+// sa_pos [n] int64.
+int pgt_bwt_finish_read_off(const int* order, const uint8_t* sym, int64_t n,
+                            const int64_t* line_starts, int64_t n_lines, uint8_t* bwt,
+                            int64_t* da, int64_t* sa_pos, void* stream) {
+  if (bad_n(n) || n_lines < 1 || n_lines > n) return static_cast<int>(cudaErrorInvalidValue);
+  finish_read_off_kernel<<<grid_of(n, kThreads), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(order, sym, n, line_starts,
+                                                                n_lines, bwt, da, sa_pos);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,6 +21,13 @@ def write_value(out: bytearray, value: int) -> None:
     out.append(value)
 
 
+def write_values(values) -> bytes:
+    out = bytearray()
+    for v in values:
+        write_value(out, v)
+    return bytes(out)
+
+
 def decode_stream(data) -> np.ndarray:
     """Vectorized decode of a whole stream of back-to-back varints."""
     arr = np.frombuffer(bytes(data), dtype=np.uint8).astype(np.int64)

@@ -1,7 +1,8 @@
 """``.ri`` r-index file codec: load and write, legacy and encoded.
 
-The port's copy of pangenome_index_tpu/formats/ri.py; the bytes are
-identical (the legacy writer is vectorised over blocks).
+The port's copy of pangenome_index_tpu/formats/ri.py (with file_sections,
+the sizes print-stats reports); the bytes are identical (the legacy writer
+is vectorised over blocks).
 
 Common prefix:
   Header{u32 tag=0x6B3741D8, u32 version=1, u64 max_length, u64 flags}
@@ -301,6 +302,60 @@ def load(data) -> RIndex:
     if not np.array_equal(blocks_start.positions, expect_heads):
         raise ValueError(".ri block start positions inconsistent with runs")
     return idx
+
+
+def file_sections(data: bytes) -> list[tuple[str, int]]:
+    """On-disk byte size of every substructure of a `.ri` file, in file
+    order: the categories print-stats reports (sdsl's size_in_bytes of a
+    structure equals its serialized length)."""
+    buf = io.BytesIO(data)
+    sections: list[tuple[str, int]] = []
+
+    def mark(name, fn):
+        at = buf.tell()
+        out = fn()
+        sections.append((name, buf.tell() - at))
+        return out
+
+    tag = int.from_bytes(buf.read(4), "little")
+    if tag != TAG:
+        raise ValueError(f"invalid .ri tag {tag:#x}")
+    buf.read(4 + 8)
+    flags = int.from_bytes(buf.read(8), "little")
+    sections.append(("header", 24))
+    mark("samples", lambda: sdsl.read_int_vector(buf))
+    mark("last (sd_vector)", lambda: sdsl.read_sd_vector(buf))
+    mark("last_to_run", lambda: sdsl.read_int_vector(buf))
+    mark("sym_map", lambda: sdsl.read_int_vector(buf, fixed_width=8))
+    mark("C", lambda: sdsl.read_int_vector(buf, fixed_width=64))
+    mark("blocks_start_pos (sd_vector)", lambda: sdsl.read_sd_vector(buf))
+    misc = 8  # sequence_size
+    buf.read(8)
+    if flags & FLAG_ENCODED:
+        buf.read(8 + 1)  # encoded_block_size, has_N
+        misc += 9
+        mark("blocks.encoded_start_bits (int_vector<0>)",
+             lambda: sdsl.read_int_vector(buf))
+        stream_size = sdsl.read_u64(buf)
+        buf.read(stream_size)
+        misc += 8
+        sections.append(("blocks.encoded_stream (bytes)", stream_size))
+    else:
+        n_blocks = sdsl.read_u64(buf)
+        misc += 8
+        cum_bytes = runs_bytes = 0
+        for _ in range(n_blocks):
+            at = buf.tell()
+            sdsl.read_int_vector(buf, fixed_width=64)
+            cum_bytes += buf.tell() - at
+            n_runs = sdsl.read_u64(buf)
+            misc += 8
+            buf.read(16 * n_runs)
+            runs_bytes += 16 * n_runs
+        sections.append(("blocks.character_cum_ranks", cum_bytes))
+        sections.append(("blocks.runs (pairs)", runs_bytes))
+    sections.append(("misc (sequence_size, block sizes)", misc))
+    return sections
 
 
 def load_file(path) -> RIndex:

@@ -1,8 +1,10 @@
-"""``.tags`` tag-array file codecs: load (all three reference formats) and
-write (compressed bytecode).
+"""``.tags`` tag-array file codecs: load and write all three reference
+formats, convert an algorithm file to compressed bytecode (convert-tags),
+and the on-disk sizes print-stats reports.
 
 The port's copy of pangenome_index_tpu/formats/tags.py, cut to what the
-commands load and the synthetic bench index writes; the bytes are identical.
+commands call and the tests need to make every input format; the bytes are
+identical.
 
 1. **algorithm** format: an sdsl ``int_vector<8>`` container file
    ([u64 bit_count][payload padded to 64-bit words]) whose payload is a bare
@@ -10,7 +12,11 @@ commands load and the synthetic bench index writes; the bytes are identical.
    (offset:10 | is_rev:1 | length:9 | node_id<<20).
 2. **compressed bytecode**: [u64 n_bytes][ByteCode varints of run encodings]
    [sd_vector: byte offset of every 10th run][sd_vector: BWT run starts].
-   Values are *full* encodings (older writer) or *compact* ones.
+   Values are *full* encodings (older writer) or *compact* ones. The
+   reference's convert_tags reads the whole algorithm file, its 8-byte
+   header and zero padding included, as ByteCode data (one bogus leading
+   run, zero-length runs dropped); ``convert_algorithm`` reproduces that
+   byte for byte with compat=True.
 3. **compressed sdsl / compact**: [int_vector<0> of compact encodings]
    [sd_vector: item index of every 10th run][sd_vector: BWT run starts].
 """
@@ -31,6 +37,10 @@ LENGTH_MASK = MAX_TAG_LEN - 1
 #: structural arithmetic (see _sniff)
 WRAP_MAGIC = b"PanIdxTg"
 _WRAP_FMTS = ["algorithm", "sdsl", "bytecode", "bytecode-compact"]
+
+
+def wrap_payload(payload: bytes, fmt: str) -> bytes:
+    return WRAP_MAGIC + bytes([1, _WRAP_FMTS.index(fmt)]) + payload
 
 
 def unwrap_payload(data: bytes) -> tuple[bytes, str] | None:
@@ -79,12 +89,47 @@ def read_algorithm(data: bytes) -> TagArray:
     return TagArray(pos_enc=pos_enc, bwt_start=starts, total=int(lengths.sum()))
 
 
-# ------------------------------------------------------------- compressed
-
-def write_compressed_bytecode(tags: TagArray, compact: bool = False) -> bytes:
+def write_algorithm(tags: TagArray) -> bytes:
     lengths = tags.run_lengths()
     pos, lens = split_long_runs(tags.pos_enc, lengths)
-    values = pos if compact else encode_full(pos, lens)
+    payload = bytecode.write_values(encode_full(pos, lens))
+    nwords = (len(payload) + 7) // 8
+    out = io.BytesIO()
+    sdsl.write_u64(out, len(payload) * 8)
+    out.write(payload)
+    out.write(b"\x00" * (nwords * 8 - len(payload)))
+    return out.getvalue()
+
+
+# ------------------------------------------- compressed (both variants)
+
+def _write_compressed_tail(buf, run_offsets: np.ndarray, lens: np.ndarray) -> None:
+    """The two sd_vector sidecars of both compressed variants: the offset
+    (byte or item) of every 10th run, and the BWT run starts."""
+    t = len(lens)
+    samples = run_offsets[::START_EVERY_K] if t else np.zeros(0, np.int64)
+    size = int(samples[-1]) + 1 if t else 1
+    sdsl.write_sd_vector(buf, sdsl.SdVector(size=size, positions=samples))
+    starts = np.zeros(t, dtype=np.int64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    sdsl.write_sd_vector(buf, sdsl.SdVector(size=int(lens.sum()) + 1, positions=starts))
+
+
+def write_compressed_sdsl(tags: TagArray, width: int | None = None) -> bytes:
+    lengths = tags.run_lengths()
+    pos, lens = split_long_runs(tags.pos_enc, lengths)
+    t = len(pos)
+    if width is None:
+        # the reference sizes the element width from the largest node id:
+        # 11 + bits(max node id)
+        width = 11 + sdsl.bits_length(int(pos.max(initial=0)) >> 11)
+    buf = io.BytesIO()
+    sdsl.write_int_vector(buf, pos, width)
+    _write_compressed_tail(buf, np.arange(t, dtype=np.int64), lens)
+    return buf.getvalue()
+
+
+def _write_compressed_bytecode_values(values: np.ndarray, lens: np.ndarray) -> bytes:
     t = len(values)
     stream = bytearray()
     byte_offsets = np.zeros(t, dtype=np.int64)
@@ -94,15 +139,34 @@ def write_compressed_bytecode(tags: TagArray, compact: bool = False) -> bytes:
     buf = io.BytesIO()
     sdsl.write_u64(buf, len(stream))
     buf.write(bytes(stream))
-    # the two sd_vector sidecars: byte offset of every 10th run, run starts
-    samples = byte_offsets[::START_EVERY_K] if t else np.zeros(0, np.int64)
-    size = int(samples[-1]) + 1 if t else 1
-    sdsl.write_sd_vector(buf, sdsl.SdVector(size=size, positions=samples))
-    starts = np.zeros(t, dtype=np.int64)
-    np.cumsum(lens[:-1], out=starts[1:])
-    sdsl.write_sd_vector(buf, sdsl.SdVector(size=int(lens.sum()) + 1,
-                                            positions=starts))
+    _write_compressed_tail(buf, byte_offsets, lens)
     return buf.getvalue()
+
+
+def write_compressed_bytecode(tags: TagArray, compact: bool = False) -> bytes:
+    lengths = tags.run_lengths()
+    pos, lens = split_long_runs(tags.pos_enc, lengths)
+    values = pos if compact else encode_full(pos, lens)
+    return _write_compressed_bytecode_values(values, lens)
+
+
+def convert_algorithm(raw: bytes, compact: bool = False, compat: bool = True) -> bytes:
+    """convert-tags: an algorithm file -> a compressed bytecode file.
+
+    compat=True gives the reference binary's bytes: the whole input file
+    (header, payload and padding) is decoded as one ByteCode stream and
+    zero-length runs are dropped; compat=False decodes the payload alone.
+    """
+    if compat:
+        values = bytecode.decode_stream(raw)
+    else:
+        nbits = int.from_bytes(raw[:8], "little")
+        values = bytecode.decode_stream(raw[8 : 8 + nbits // 8])
+    pos_enc, lengths = decode_full(values)
+    keep = lengths > 0
+    pos_enc, lengths = pos_enc[keep], lengths[keep]
+    out_values = pos_enc if compact else encode_full(pos_enc, lengths)
+    return _write_compressed_bytecode_values(out_values, lengths)
 
 
 def _as_buf(data):
@@ -140,6 +204,32 @@ def read_compressed_bytecode(data) -> TagArray:
     if len(values) and np.array_equal(lens_full, iv_lens):
         return _finish(pos_full, intervals)
     return _finish(values, intervals)
+
+
+def file_sections(data: bytes) -> list[tuple[str, int]]:
+    """On-disk byte size of every substructure of a `.tags` file (the
+    categories print-stats reports for the compressed formats); an
+    algorithm-format file is one section."""
+    buf = io.BytesIO(data)
+    sections: list[tuple[str, int]] = []
+    kind = _sniff(data)
+    if kind == "algorithm":
+        return [("encoded_runs (raw ByteCode stream)", len(data))]
+    at = buf.tell()
+    if kind == "sdsl":
+        sdsl.read_int_vector(buf)
+        sections.append(("encoded_runs (int_vector)", buf.tell() - at))
+    else:
+        nbytes = sdsl.read_u64(buf)
+        buf.read(nbytes)
+        sections.append(("encoded_runs (ByteCode)", buf.tell() - at))
+    at = buf.tell()
+    sdsl.read_sd_vector(buf)
+    sections.append(("encoded_runs_starts (sd_vector)", buf.tell() - at))
+    at = buf.tell()
+    sdsl.read_sd_vector(buf)
+    sections.append(("bwt_intervals (sd_vector)", buf.tell() - at))
+    return sections
 
 
 def _sniff(data: bytes) -> str:

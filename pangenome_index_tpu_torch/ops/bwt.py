@@ -24,11 +24,15 @@ sort is not stable and ties rank equal); here each round is
                   destination (two launches), and the largest rank, whose
                   4 bytes the host reads (the round's one sync);
 
-and the build ends with bwt_finish: order[rank[i]] = i, then per row the
-BWT symbol, line and offset. Each wrapper launches its kernels for CUDA
-tensors (and counts each C entry point it calls in `launches`: one a call,
-two for the rerank) and runs its plain PyTorch
-version (torch.sort, cumsum, scatter) for CPU tensors. No fallback: a card
+and the build ends with bwt_finish, which reads the BWT symbol, line and
+offset of every row off the rotation order: the payload of the last
+round's sort (the round whose largest rank is n - 1, so every adjacent
+sorted key differs and payload j is the rotation of rank j), kept by
+rotation_rank; no inverse of the ranks is formed. Each wrapper launches its
+kernels for CUDA tensors (and counts each C entry point it calls in
+`launches`: one a call for the sort, two for the rerank and the finish) and
+runs its plain PyTorch version (torch.sort, cumsum, scatter, gathers) for
+CPU tensors. No fallback: a card
 build that fails raises; a text of n >= 2^31 - 1 is refused (the int64 form
 is not written); a build the card's free memory would not hold raises
 MemoryError before it allocates.
@@ -51,7 +55,9 @@ MAX_DIGIT_BITS = 8
 #: symbol keys and the rank 4 + 4, a round's new rank 4, the sort's two
 #: key and payload buffers 24, its look-back words 8 a tile and digit, half
 #: a byte; the rerank's grouped pairs, 8, take the key buffer the sort
-#: frees, and the finish's outputs fit in the same), rounded up
+#: frees; the kept payload of one round, 4, is dropped before the next
+#: round's sort; the finish's keys, order, symbols and outputs, 4 + 4 + 1 +
+#: 17, fit in the same), rounded up
 BYTES_PER_CHAR = 37
 #: the rerank's store goes out in at most 2^GROUP_BITS destination groups
 #: (csrc/bwt.cu:kGroupBits)
@@ -114,19 +120,19 @@ def bwt_rerank_plain(keys: torch.Tensor, order: torch.Tensor):
     return rank, bumps[-1:].clone()
 
 
-def bwt_finish_plain(rank: torch.Tensor, keys: torch.Tensor,
+def bwt_finish_plain(order: torch.Tensor, keys: torch.Tensor,
                      line_starts: torch.Tensor):
-    """rank [n] a permutation, keys [n] int32 the symbol keys, line_starts
-    [L + 1] int64 (the last is n) -> (order [n] int32, bwt [n] uint8, da [n]
-    int64, sa_pos [n] int64)."""
-    n, L = rank.shape[0], line_starts.shape[0] - 1
-    order = torch.empty_like(rank).scatter_(
-        0, rank.long(), torch.arange(n, dtype=torch.int32, device=rank.device))
+    """order [n] int32 the rotation order (a permutation of 0 .. n - 1),
+    keys [n] int32 the symbol keys, line_starts [L + 1] int64 (the last is
+    n) -> (bwt [n] uint8, da [n] int64, sa_pos [n] int64): row j's BWT byte
+    (that of the key before order[j], cyclically; the endmarker for a
+    separator), the line holding order[j] and its offset there."""
+    n, L = order.shape[0], line_starts.shape[0] - 1
     o = order.long()
     prev = keys[(o - 1) % n].long()
     bwt = torch.where(prev >= L, prev - L, NENDMARKER).to(torch.uint8)
     da = torch.searchsorted(line_starts, o, right=True) - 1
-    return order, bwt, da, o - line_starts[da]
+    return bwt, da, o - line_starts[da]
 
 
 def _need(cond: bool, what: str) -> None:
@@ -197,62 +203,76 @@ def bwt_rerank(keys: torch.Tensor, order: torch.Tensor):
 bwt_rerank.launches = 0
 
 
-def bwt_finish(rank: torch.Tensor, keys: torch.Tensor, line_starts: torch.Tensor):
-    """bwt_finish_plain; on the card the inverse scatter and the read-off
-    (two launches, one call), the plain version on the CPU."""
-    n, L = rank.shape[0], line_starts.shape[0] - 1
-    _need(rank.dim() == 1 and rank.dtype == torch.int32 and keys.shape == rank.shape
+def bwt_finish(order: torch.Tensor, keys: torch.Tensor, line_starts: torch.Tensor):
+    """bwt_finish_plain; on the card two launches, each counted in
+    `launches` (every key's BWT byte into an n-byte array, read coalesced;
+    then per row order[j] read coalesced, its byte gathered from that array,
+    its line found among the line starts and the three outputs written),
+    the plain version on the CPU.
+    order must be a permutation of 0 .. n - 1, as the last round's sort
+    payload is."""
+    n, L = order.shape[0], line_starts.shape[0] - 1
+    _need(order.dim() == 1 and order.dtype == torch.int32 and keys.shape == order.shape
           and keys.dtype == torch.int32 and line_starts.dtype == torch.int64
           and 1 <= L <= n < 2**31 - 1,
-          "bwt_finish: rank and keys must be int32 [n] and line_starts int64 "
+          "bwt_finish: order and keys must be int32 [n] and line_starts int64 "
           "[L + 1], 1 <= L <= n < 2^31 - 1")
-    if rank.device.type == "cpu":
-        return bwt_finish_plain(rank, keys, line_starts)
-    dev = rank.device
-    order = torch.empty(n, dtype=torch.int32, device=dev)
+    if order.device.type == "cpu":
+        return bwt_finish_plain(order, keys, line_starts)
+    dev = order.device
+    sym = torch.empty(n, dtype=torch.uint8, device=dev)
     bwt = torch.empty(n, dtype=torch.uint8, device=dev)
     da = torch.empty(n, dtype=torch.int64, device=dev)
     sa_pos = torch.empty(n, dtype=torch.int64, device=dev)
-    _build.launch("pgt_bwt_finish", _build.check("rank", rank, torch.int32, dev),
-                  _build.check("keys", keys, torch.int32, dev), n,
-                  _build.check("line_starts", line_starts, torch.int64, dev), L,
-                  order.data_ptr(), bwt.data_ptr(), da.data_ptr(), sa_pos.data_ptr(),
-                  _build.stream(dev))
+    _build.launch("pgt_bwt_finish_symbols", _build.check("keys", keys, torch.int32, dev),
+                  n, L, sym.data_ptr(), _build.stream(dev))
     bwt_finish.launches += 1
-    return order, bwt, da, sa_pos
+    _build.launch("pgt_bwt_finish_read_off", _build.check("order", order, torch.int32, dev),
+                  sym.data_ptr(), n,
+                  _build.check("line_starts", line_starts, torch.int64, dev), L,
+                  bwt.data_ptr(), da.data_ptr(), sa_pos.data_ptr(), _build.stream(dev))
+    bwt_finish.launches += 1
+    return bwt, da, sa_pos
 
 
 bwt_finish.launches = 0
 
 
 def doubling_round(rank: torch.Tensor, k: int, bits: int):
-    """(rank [n] int32, top [1] int32) after round k (k = 0: the dense rank
-    of the keys `rank`) through the wrappers; bits: the bit length of the
-    largest value of `rank`."""
-    return bwt_rerank(*bwt_sort_pairs(rank, k, bits))
+    """(rank [n] int32, top [1] int32, order [n] int32) after round k (k =
+    0: the dense rank of the keys `rank`) through the wrappers; bits: the
+    bit length of the largest value of `rank`. order is the round's sort
+    payload: once top reads n - 1 it is the rotation order."""
+    keys, order = bwt_sort_pairs(rank, k, bits)
+    rank, top = bwt_rerank(keys, order)
+    return rank, top, order
 
 
 def doubling_round_plain(rank: torch.Tensor, k: int, bits: int):
     """doubling_round through the plain versions (torch.sort), on any device."""
-    return bwt_rerank_plain(*bwt_sort_pairs_plain(rank, k, bits))
+    keys, order = bwt_sort_pairs_plain(rank, k, bits)
+    return (*bwt_rerank_plain(keys, order), order)
 
 
 def rotation_rank(keys: torch.Tensor, top_key: int, round_fn=doubling_round):
     """The rounds of the JAX loop on keys [n] int32 (top_key: their largest
     value): the initial sort, then k = 1, 2, 4, ... while k < n, stopping
     once the ranks are distinct. Returns (rank [n] int32, its largest
-    value)."""
+    value, the last round's sort payload: the rotation order where that
+    value is n - 1). Only the last round's payload is kept: each is dropped
+    before the next round's sort."""
     n = keys.shape[0]
-    rank, top = round_fn(keys, 0, max(1, top_key.bit_length()))
+    rank, top, order = round_fn(keys, 0, max(1, top_key.bit_length()))
     top = int(top)
     k = 1
     while k < n:
-        rank, top = round_fn(rank, k, max(1, top.bit_length()))
+        order = None  # before the round's sort: the peak of BYTES_PER_CHAR
+        rank, top, order = round_fn(rank, k, max(1, top.bit_length()))
         top = int(top)  # the round's 4-byte read
         if top == n - 1:
             break
         k *= 2
-    return rank, top
+    return rank, top, order
 
 
 def _keys_tensor(keys: np.ndarray, device) -> tuple[torch.Tensor, int]:
@@ -270,18 +290,17 @@ def rotation_order_device(keys: np.ndarray, device="cuda") -> np.ndarray:
     function's."""
     keys_t, top_key = _keys_tensor(keys, device)
     n = keys_t.shape[0]
-    rank, top = rotation_rank(keys_t, top_key)
+    rank, top, order = rotation_rank(keys_t, top_key)
     if top != n - 1:
         return bwt_sort_pairs(rank, 0, max(1, top.bit_length()))[1].cpu().numpy()
-    line_starts = torch.tensor([0, n], dtype=torch.int64, device=keys_t.device)
-    return bwt_finish(rank, keys_t, line_starts)[0].cpu().numpy()
+    return order.cpu().numpy()
 
 
 def rotation_order_plain(keys: np.ndarray) -> np.ndarray:
     """rotation_order_device through the plain rounds (torch.sort) on the
     CPU."""
     keys_t, top_key = _keys_tensor(keys, "cpu")
-    rank, _ = rotation_rank(keys_t, top_key, doubling_round_plain)
+    rank = rotation_rank(keys_t, top_key, doubling_round_plain)[0]
     return torch.argsort(rank, stable=True).to(torch.int32).numpy()
 
 
@@ -313,11 +332,12 @@ def bwt_tensors(lines: list[bytes], device="cuda"):
         raise MemoryError(f"device BWT build: {n} characters need "
                           f"{BYTES_PER_CHAR * n} bytes, the device has {budget} free")
     keys_t = torch.from_numpy(keys).to(dev)
-    rank, top = rotation_rank(keys_t, top_key)
+    rank, top, order = rotation_rank(keys_t, top_key)
     if top != n - 1:  # distinct separators make every rotation distinct
         raise RuntimeError(f"BWT rounds ended with {top + 1} distinct ranks "
                            f"of {n}")
-    _, bwt, da, sa_pos = bwt_finish(rank, keys_t, torch.from_numpy(line_starts).to(dev))
+    del rank
+    bwt, da, sa_pos = bwt_finish(order, keys_t, torch.from_numpy(line_starts).to(dev))
     return bwt, da, sa_pos, seq_lengths
 
 

@@ -1,5 +1,6 @@
 """The port's BWT build (ops/bwt.py on CPU tensors: the plain versions of the
-sort, rerank and finish kernels), the .rl_bwt codec, the psi-walk r-index
+sort, rerank and finish kernels; the rotation order kept from the last
+round's sort), the .rl_bwt codec, the psi-walk r-index
 build and the legacy .ri writer against the JAX package's, exactly: the
 same lines, made with numpy from seeds, through the JAX function (on the
 CPU) and the port's, and through the port's native SA-IS build."""
@@ -57,9 +58,10 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def jax_rounds(keys, count):
+def jax_rounds(keys, count=None):
     """The JAX package's ranks after its initial sort and after each of the
-    first `count` doubling rounds, with each round's max."""
+    first `count` doubling rounds (count None: every round its loop runs,
+    up to the one whose max is n - 1), with each round's max."""
     n = keys.size
     with jax.enable_x64(False):
         kd = jnp.asarray(keys, jnp.int32)
@@ -67,7 +69,8 @@ def jax_rounds(keys, count):
         rank = jbwt._rerank(order0, k_s, k_s, n)
         out = [(np.asarray(rank), int(rank.max()))]
         k = 1
-        while len(out) <= count and k < n:
+        while (len(out) <= count if count is not None
+               else len(out) == 1 or out[-1][1] != n - 1) and k < n:
             rank, mx = jbwt._doubling_round(rank, k, n)
             out.append((np.asarray(rank), int(mx)))
             k *= 2
@@ -100,15 +103,71 @@ def test_rounds_match_jax(name):
     want = jax_rounds(keys, 3)
     assert len(want) == 4
     for round_fn in (bwt.doubling_round, bwt.doubling_round_plain):
-        rank, top = round_fn(torch.from_numpy(keys), 0, top_key.bit_length())
+        rank, top, _ = round_fn(torch.from_numpy(keys), 0, top_key.bit_length())
         got = [(rank.numpy(), int(top))]
         for k in (1, 2, 4):
-            rank, top = round_fn(rank, k, max(1, got[-1][1].bit_length()))
+            rank, top, _ = round_fn(rank, k, max(1, got[-1][1].bit_length()))
             got.append((rank.numpy(), int(top)))
         for (g, gm), (w, wm) in zip(got, want):
             assert g.dtype == np.int32
             np.testing.assert_array_equal(g, w)
             assert gm == wm
+
+
+@pytest.mark.parametrize("name", list(LINES))
+def test_kept_payload_is_the_argsort_of_the_jax_ranks(name):
+    """rotation_rank, through the wrappers (plain versions on the CPU) and
+    through the plain round, ends on the JAX loop's last rank and top and
+    keeps the last round's sort payload, which equals jnp.argsort of the
+    JAX package's last ranks (_rerank, then _doubling_round until the max
+    is n - 1): the rotation order, with no inverse formed."""
+    keys, _, _, top_key = bwt.text_keys(LINES[name])
+    n = keys.size
+    rounds = jax_rounds(keys)
+    last, last_max = rounds[-1]
+    assert last_max == n - 1
+    with jax.enable_x64(False):
+        want = np.asarray(jnp.argsort(jnp.asarray(last)))
+    for round_fn in (bwt.doubling_round, bwt.doubling_round_plain):
+        rank, top, order = bwt.rotation_rank(torch.from_numpy(keys), top_key, round_fn)
+        assert top == n - 1 and order.dtype == torch.int32
+        np.testing.assert_array_equal(rank.numpy(), last)
+        np.testing.assert_array_equal(order.numpy(), want)
+
+
+def finish_case(lines):
+    """(order, keys, line_starts) tensors of a line set, the order from the
+    JAX rotation_order_device; and the JAX bwt_from_lines_device's arrays."""
+    keys, starts, _, _ = bwt.text_keys(lines)
+    with jax.enable_x64(False):
+        order = np.asarray(jbwt.rotation_order_device(keys)).astype(np.int32)
+        want = jbwt.bwt_from_lines_device(lines)
+    return (torch.from_numpy(order), torch.from_numpy(keys), torch.from_numpy(starts)), want
+
+
+#: the finish's edges (the card's cases in test_torch_cuda.py): one
+#: character (a lone separator); lines of length 0 among others; 2100 lines
+#: (a deep search of the line starts)
+FINISH_EDGES = {"n-1": [b""], "empty-lines": [b"AC", b"", b"G", b"", b""],
+                "many-lines": random_lines(np.random.default_rng(8),
+                                           np.random.default_rng(9).integers(0, 4, 2100))}
+
+
+@pytest.mark.parametrize("name", [*LINES, *FINISH_EDGES])
+def test_finish_plain_matches_jax_read_off(name):
+    """bwt_finish_plain(order, keys, line_starts), and the wrapper on CPU
+    tensors, equal the JAX bwt_from_lines_device's read-off (bwt, da,
+    sa_pos: values and dtypes) on every line set and at the finish's
+    edges."""
+    lines = LINES.get(name) or FINISH_EDGES[name]
+    args, want = finish_case(lines)
+    for fn in (bwt.bwt_finish_plain, bwt.bwt_finish):
+        got = fn(*args)
+        assert len(got) == 3
+        for g, w in zip(got, want[:3]):
+            assert g.numpy().dtype == w.dtype
+            np.testing.assert_array_equal(g.numpy(), w)
+    np.testing.assert_array_equal(bwt.bwt_from_lines_device(lines, device="cpu")[0], want[0])
 
 
 @pytest.mark.parametrize("keys", [
@@ -243,6 +302,10 @@ def test_wrappers_refuse_bad_arguments():
         bwt.bwt_rerank(r.long(), r[:4])
     with pytest.raises(ValueError):
         bwt.bwt_finish(r, r, torch.tensor([0, 4, 8, 9, 10, 11, 12, 13, 14, 15]))
+    with pytest.raises(ValueError):  # order not int32
+        bwt.bwt_finish(r.long(), r, torch.tensor([0, 8]))
+    with pytest.raises(ValueError):  # keys not the order's shape
+        bwt.bwt_finish(r, r[:4], torch.tensor([0, 8]))
     with pytest.raises(ValueError, match="2\\^31 - 1"):
         bwt._check_n(2**31 - 1)
     bwt._check_n(2**31 - 2)

@@ -1,7 +1,9 @@
 """The port's find-mems and query-tags commands end to end against the JAX
 package's: stdout byte-equal to `--engine native` and `--engine host`
 (minus the "Total time ... seconds" lines), on the synthetic graph pipeline
-of tests/test_cli.py (CPU: --device cpu runs the kernels' plain versions).
+of tests/test_cli.py (CPU: --device cpu runs the kernels' plain versions);
+the other commands likewise (the formats-only print-stats, convert-tags and
+tags-check: stdout, the written file and the exit code).
 
 The commands run in this process with the output descriptors captured
 (capfd), apart from one run of `python -m pangenome_index_tpu_torch.cli`
@@ -21,6 +23,7 @@ from pangenome_index_tpu import cli as jax_cli
 from pangenome_index_tpu.core.gbwt_build import random_pangenome_gbz
 from pangenome_index_tpu.formats.gbz_write import save_gbz
 from pangenome_index_tpu_torch import cli
+from pangenome_index_tpu_torch.formats import tags as port_tags
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 MIN_LEN, MIN_OCC = "10", "1"
@@ -590,3 +593,140 @@ def test_build_errors_are_panidx_errors(files, capfd, tmp_path, case):
     assert "Traceback" not in port_err
     if case == "byte-outside":
         assert "outside" in port_err
+
+
+def both_outputs(capfd, argv):
+    """((exit code, stdout, stderr) of the JAX command line, the same of
+    the port's) for one argv; the formats-only commands take no --device."""
+    capfd.readouterr()
+    jax_rc = jax_cli.main(argv)
+    sys.stdout.flush()
+    jax_out = capfd.readouterr()
+    port_rc = cli.main(argv)
+    sys.stdout.flush()
+    port_out = capfd.readouterr()
+    return (jax_rc, jax_out.out, jax_out.err), (port_rc, port_out.out, port_out.err)
+
+
+@pytest.fixture(scope="module")
+def legacy_ri(files):
+    """The synthetic graph's r-index in the legacy format, by the JAX
+    command line."""
+    path = files / "synth_legacy.ri"
+    if not path.exists():
+        assert jax_cli.main(["build-rindex", str(files / "synth.rl_bwt"), "-o", str(path),
+                             "--format", "legacy"]) == 0
+    return path
+
+
+PRINT_STATS = {"ri": ("synth.ri", None, []), "ri-runtime": ("synth.ri", None, ["--runtime"]),
+               "bytecode-tags": ("synth.ri", "synth_c.tags", []),
+               "algorithm-tags-runtime": ("synth.ri", "synth.tags", ["--runtime"]),
+               "legacy-ri-tags-runtime": ("legacy", "synth_c.tags", ["--runtime"])}
+
+
+@pytest.mark.parametrize("case", list(PRINT_STATS))
+def test_print_stats_matches_jax(files, legacy_ri, capfd, case):
+    """print-stats prints the JAX command line's bytes, with and without a
+    tag file (bytecode and algorithm formats) and --runtime, on the encoded
+    and the legacy .ri; its sections sum to the files' sizes."""
+    ri_name, tags_name, extra = PRINT_STATS[case]
+    ri_path = legacy_ri if ri_name == "legacy" else files / ri_name
+    argv = ["print-stats", str(ri_path), *([str(files / tags_name)] if tags_name else []),
+            *extra]
+    (jax_rc, jax_out, jax_err), (rc, out, err) = both_outputs(capfd, argv)
+    assert jax_rc == rc == 0 and out == jax_out and err == jax_err == ""
+    totals = [int(x) for x in re.findall(r"^TOTAL [^:]*\(on disk\): (\d+) bytes", out, re.M)]
+    assert totals == [ri_path.stat().st_size]
+    if tags_name:
+        totals = re.findall(r"^TOTAL tag arrays \(compressed\): (\d+) bytes", out, re.M)
+        assert [int(x) for x in totals] == [(files / tags_name).stat().st_size]
+    assert ("=== Runtime flat tables" in out) == ("--runtime" in extra)
+
+
+CONVERT_FLAGS = [[], ["--compact"], ["--no-compat"], ["--compact", "--no-compat"],
+                 ["--wrapped"], ["--compact", "--no-compat", "--wrapped"]]
+
+
+@pytest.mark.parametrize("flags", CONVERT_FLAGS, ids=lambda f: "-".join(f) or "defaults")
+def test_convert_tags_matches_jax(files, capfd, tmp_path, flags):
+    """convert-tags writes the JAX command line's file, byte for byte, under
+    each flag, with the same (empty) stdout and exit code; the file loads
+    back to the algorithm file's tags where the header is not decoded as
+    data (--no-compat)."""
+    src = str(files / "synth.tags")
+    capfd.readouterr()
+    assert jax_cli.main(["convert-tags", src, str(tmp_path / "jax.tags"), *flags]) == 0
+    sys.stdout.flush()
+    want = capfd.readouterr()
+    assert cli.main(["convert-tags", src, str(tmp_path / "port.tags"), *flags]) == 0
+    got = capfd.readouterr()
+    assert (got.out, got.err) == (want.out, want.err) == ("", "")
+    data = (tmp_path / "port.tags").read_bytes()
+    assert data == (tmp_path / "jax.tags").read_bytes()
+    assert data.startswith(b"PanIdxTg") == ("--wrapped" in flags)
+    if flags == ["--compact", "--no-compat"]:
+        assert data == (files / "synth_c.tags").read_bytes()
+    if "--no-compat" in flags:
+        want_tags = port_tags.load_tags_file(files / "synth.tags")
+        back = port_tags.load_tags(data, fmt="auto" if "--wrapped" in flags else
+                                   "bytecode-compact" if "--compact" in flags else "bytecode")
+        np.testing.assert_array_equal(back.pos_enc, want_tags.pos_enc)
+        np.testing.assert_array_equal(back.bwt_start, want_tags.bwt_start)
+
+
+@pytest.mark.parametrize("case", ["one", "several", "unreadable", "missing"])
+def test_tags_check_matches_jax(files, capfd, tmp_path, case):
+    """tags-check prints the JAX command line's line for each file, on one
+    file and on several (algorithm, bytecode, wrapped); a file that does not
+    load ends both with the same stderr line and exit code 1, after the
+    lines of the files before it."""
+    good = [str(files / "synth.tags"), str(files / "synth_c.tags")]
+    wrapped = tmp_path / "wrapped.tags"
+    assert cli.main(["convert-tags", good[0], str(wrapped), "--wrapped"]) == 0
+    bad = tmp_path / "bad.tags"
+    bad.write_bytes((files / "synth_c.tags").read_bytes()[:37])
+    paths = {"one": good[:1], "several": [*good, str(wrapped)],
+             "unreadable": [good[0], str(bad), good[1]],
+             "missing": [str(tmp_path / "nowhere" / "missing.tags")]}[case]
+    (jax_rc, jax_out, jax_err), (rc, out, err) = both_outputs(capfd, ["tags-check", *paths])
+    assert (rc, out) == (jax_rc, jax_out)
+    if case in ("one", "several"):
+        assert rc == 0 and err == jax_err == ""
+        assert out.count(" runs, covers ") == len(paths)
+    else:
+        assert rc == 1 and last_line(err) == last_line(jax_err)
+        assert "FAILED to load" in last_line(err) and "Traceback" not in err
+        assert out.count(" runs, covers ") == (1 if case == "unreadable" else 0)
+
+
+def test_formats_commands_take_no_device_and_no_verify(files, capfd):
+    """print-stats, convert-tags and tags-check run on the host: none takes
+    --device; tags-check's --verify-gbz / --verify-rlbwt wait for the graph
+    modules of the port, so its parser refuses them (exit code 2)."""
+    for argv in (["print-stats", str(files / "synth.ri"), "--device", "cpu"],
+                 ["convert-tags", "a", "b", "--device", "cpu"],
+                 ["tags-check", str(files / "synth.tags"), "--verify-gbz", "x.gbz"],
+                 ["tags-check", str(files / "synth.tags"), "--verify-rlbwt", "x.rl_bwt"]):
+        capfd.readouterr()
+        with pytest.raises(SystemExit) as exc:
+            cli.main(argv)
+        assert exc.value.code == 2
+        assert "unrecognized arguments" in capfd.readouterr().err
+
+
+@pytest.mark.parametrize("cmd", ["print-stats", "convert-tags"])
+def test_formats_commands_errors_are_panidx_errors(files, capfd, tmp_path, cmd):
+    """A missing input and an invalid .ri end print-stats and convert-tags
+    with the JAX command line's `panidx: ...` line and exit code 1."""
+    gone = str(tmp_path / "nowhere" / "missing")
+    bad_ri = tmp_path / "bad.ri"
+    bad_ri.write_bytes(b"\0" * 64)
+    cases = ([["print-stats", gone], ["print-stats", str(bad_ri)],
+              ["print-stats", str(files / "synth.ri"), gone]] if cmd == "print-stats"
+             else [["convert-tags", gone, str(tmp_path / "x.tags")]])
+    for argv in cases:
+        (jax_rc, jax_out, jax_err), (rc, out, err) = both_outputs(capfd, argv)
+        assert jax_rc == rc == 1 and out == jax_out
+        assert last_line(err) == last_line(jax_err)
+        assert last_line(err).startswith("panidx: ") and "Traceback" not in err

@@ -630,15 +630,21 @@ def bwt_lines(case):
         return [rng.choice(acgt, int(n)).tobytes() for n in rng.integers(1, 13, 300)]
     if case == "identical":
         return [rng.choice(acgt, 1000).tobytes()] * 4
+    if case == "empty-lines":  # lines of length 0: lone separators
+        return [b"AC", b"", b"G", b"", b""]
+    if case == "many-lines":  # 2100 lines, most of length 0 to 3
+        return [rng.choice(acgt, int(n)).tobytes() for n in rng.integers(0, 4, 2100)]
     return build_synth_index(100_000, 3, seed=5)[1]  # "many-tiles": 300003
 
 
 @pytest.mark.parametrize("case", ["one-char", "below-a-block", "ragged", "past-255",
-                                  "identical", "many-tiles"])
+                                  "identical", "empty-lines", "many-lines",
+                                  "many-tiles"])
 def test_bwt_kernels(dev, case):
     """Every round's sort (keys and payload) and rerank (ranks and largest)
-    and the finish equal their plain versions; the build equals native
-    SA-IS."""
+    equal their plain versions; the last round's payload is the inverse of
+    its ranks; the finish on it equals its plain version; the build equals
+    native SA-IS."""
     lines = bwt_lines(case)
     keys, starts, _, top = bwt.text_keys(lines)
     n = keys.size
@@ -654,16 +660,81 @@ def test_bwt_kernels(dev, case):
         new, new_top = bwt.bwt_rerank(*got)
         want = bwt.bwt_rerank_plain(*got)
         assert torch.equal(new, want[0]) and torch.equal(new_top, want[1]), k
-        rank, top = new, int(new_top)
+        rank, top, order = new, int(new_top), got[1]
         if top == n - 1 or k >= n:
             break
         k = 1 if k == 0 else 2 * k
+    assert top == n - 1
+    assert torch.equal(rank[order.long()], torch.arange(n, dtype=torch.int32, device=dev))
     starts_d = torch.from_numpy(starts).to(dev)
-    got = bwt.bwt_finish(rank, keys_d, starts_d)
-    want = bwt.bwt_finish_plain(rank, keys_d, starts_d)
+    got = bwt.bwt_finish(order, keys_d, starts_d)
+    want = bwt.bwt_finish_plain(order, keys_d, starts_d)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     for g, w in zip(bwt.bwt_from_lines_device(lines, dev), native.build_bwt_native(lines)):
         np.testing.assert_array_equal(g, w)
+
+
+def held_finish(dev, order, keys, starts, misaligned=False):
+    """The finish against its plain version; misaligned: the inputs are
+    views one element past their allocation (the kernels' scalar path)."""
+    def T(a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        if not misaligned:
+            return t
+        flat = torch.empty(a.size + 1, dtype=t.dtype, device=dev)
+        flat[1:] = t
+        return flat[1:]
+
+    args = [T(a) for a in (order.astype(np.int32), keys.astype(np.int32), starts)]
+    before = bwt.bwt_finish.launches
+    got, want = bwt.bwt_finish(*args), bwt.bwt_finish_plain(*args)
+    assert bwt.bwt_finish.launches == before + 2
+    assert all(g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+
+
+#: rows a block of the finish's read-off takes (a row a thread), and keys a
+#: block of its first launch takes (4 a thread)
+FINISH_ROWS, SYMBOL_KEYS = 256, 1024
+
+
+@pytest.mark.parametrize("n,lines", [
+    (1, 1), (FINISH_ROWS - 1, 1), (FINISH_ROWS, 1), (FINISH_ROWS + 1, 1),
+    (SYMBOL_KEYS - 1, 1), (SYMBOL_KEYS, 1), (SYMBOL_KEYS + 1, 1), (4099, 7),
+    (50_001, 2049), (50_001, 25_000)],
+    ids=["n-1", "block-1", "block", "block+1", "keys-block-1", "keys-block",
+         "keys-block+1", "ragged", "many-lines", "short-lines"])
+def test_bwt_finish_at_the_edges(dev, n, lines):
+    """The two-launch finish against its plain version at n = 1, one below,
+    at and one above a block's rows in each launch, with one line, many
+    lines (a deep search of the line starts) and lines of length 0 (lone
+    separators: starts one apart) among many; through a random order and a
+    reversed one, on aligned inputs and on offset ones (the first launch's
+    scalar path)."""
+    rng = np.random.default_rng(n + lines)
+    cuts = np.sort(rng.choice(np.arange(1, n), lines - 1, replace=False))
+    starts = np.concatenate(([0], cuts, [n])).astype(np.int64)
+    keys = rng.integers(0, lines + 256, n)
+    if lines == 25_000:
+        assert (np.diff(starts) == 1).any()
+    for order in (rng.permutation(n), np.arange(n)[::-1]):
+        for misaligned in (False, True):
+            held_finish(dev, order, keys, starts, misaligned)
+
+
+def test_bwt_finish_bench_text(dev):
+    """The finish on the bench text (20,000,008 keys, 8 lines) through the
+    order rotation_rank keeps (the last round's payload, checked to be the
+    inverse of its ranks), against its plain version."""
+    lines = synth_haplotypes(2_500_000, 8, 0.002, 3)
+    keys, starts, _, top_key = bwt.text_keys(lines)
+    keys_d = torch.from_numpy(keys).to(dev)
+    rank, top, order = bwt.rotation_rank(keys_d, top_key)
+    n = keys.size
+    assert top == n - 1 and n == 20_000_008
+    assert torch.equal(rank[order.long()], torch.arange(n, dtype=torch.int32, device=dev))
+    args = (order, keys_d, torch.from_numpy(starts).to(dev))
+    got, want = bwt.bwt_finish(*args), bwt.bwt_finish_plain(*args)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_bwt_sort_pairs_at_every_shift(dev):
@@ -765,7 +836,7 @@ def test_bwt_rerank_bench_round(dev):
     keys, _, _, top = bwt.text_keys(lines)
     rank, k = torch.from_numpy(keys).to(dev), 0
     while k < 256:
-        rank, top_t = bwt.doubling_round(rank, k, max(1, top.bit_length()))
+        rank, top_t, _ = bwt.doubling_round(rank, k, max(1, top.bit_length()))
         top, k = int(top_t), (1 if k == 0 else 2 * k)
     srt = bwt.bwt_sort_pairs(rank, 256, max(1, top.bit_length()))
     got, want = bwt.bwt_rerank(*srt), bwt.bwt_rerank_plain(*srt)

@@ -11,6 +11,7 @@ import pytest
 
 from pangenome_index_tpu import cli as jcli
 from pangenome_index_tpu import native as jnative
+from pangenome_index_tpu.formats import bytecode as jbytecode
 from pangenome_index_tpu.formats import ri as jri
 from pangenome_index_tpu.formats import tags as jtagfmt
 from pangenome_index_tpu.models import mems as jmems
@@ -19,7 +20,8 @@ from pangenome_index_tpu.ops import mertable as jmertable
 from pangenome_index_tpu.ops import sparsedict as jsparsedict
 from pangenome_index_tpu.utils import synth as jsynth
 from pangenome_index_tpu_torch import cli, native
-from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
+from pangenome_index_tpu_torch.formats import bytecode, ri, tags as tagfmt
+from pangenome_index_tpu_torch.models.tagarray import TagArray
 from pangenome_index_tpu_torch.models import mems, oracle
 from pangenome_index_tpu_torch.ops import mertable, sparsedict
 from pangenome_index_tpu_torch.utils import synth
@@ -116,6 +118,86 @@ def case_tags_round_trip(w, tmp_path):
     path = tmp_path / "x.tags"
     path.write_bytes(tagfmt.write_compressed_bytecode(w["tags"]))
     same_tags(tagfmt.load_tags_file(path, fmt="bytecode"), w["tags"])
+
+
+def case_ri_file_sections(w, tmp_path):
+    """The .ri sizes print-stats reports, on the encoded and the legacy
+    file: the JAX function's sections, summing to the file's size."""
+    for data in (jri.serialize_encoded(w["idx"]), jri.serialize_legacy(w["idx"])):
+        got = ri.file_sections(data)
+        assert got == jri.file_sections(data)
+        assert sum(b for _, b in got) == len(data)
+    with pytest.raises(ValueError, match="invalid .ri tag"):
+        ri.file_sections(b"\0" * 64)
+
+
+def tag_payloads(tags):
+    """fmt -> the JAX writers' bytes of `tags` in every on-disk format."""
+    return {"algorithm": jtagfmt.write_algorithm(tags),
+            "sdsl": jtagfmt.write_compressed_sdsl(tags),
+            "bytecode": jtagfmt.write_compressed_bytecode(tags),
+            "bytecode-compact": jtagfmt.write_compressed_bytecode(tags, compact=True)}
+
+
+def case_tags_file_sections(w, tmp_path):
+    """The .tags sizes print-stats reports on algorithm, sdsl and bytecode
+    files (full and compact values), summing to the file's size."""
+    for fmt, data in tag_payloads(w["tags"]).items():
+        got = tagfmt.file_sections(data)
+        assert got == jtagfmt.file_sections(data), fmt
+        assert sum(b for _, b in got) == len(data)
+        assert len(got) == (1 if fmt == "algorithm" else 3)
+
+
+def case_convert_algorithm(w, tmp_path):
+    """convert-tags' conversion of an algorithm file, under both compact and
+    both compat, gives the JAX function's bytes, which load back."""
+    raw = jtagfmt.write_algorithm(w["tags"])
+    for compact in (False, True):
+        for compat in (False, True):
+            got = tagfmt.convert_algorithm(raw, compact=compact, compat=compat)
+            assert got == jtagfmt.convert_algorithm(raw, compact=compact, compat=compat)
+            fmt = "bytecode-compact" if compact else "bytecode"
+            loaded = tagfmt.load_tags(got, fmt=fmt)
+            if not compat:
+                same_tags(loaded, w["tags"])
+
+
+def case_wrap_payload(w, tmp_path):
+    for fmt, data in tag_payloads(w["tags"]).items():
+        wrapped = tagfmt.wrap_payload(data, fmt)
+        assert wrapped == jtagfmt.wrap_payload(data, fmt)
+        assert tagfmt.unwrap_payload(wrapped) == (data, fmt)
+
+
+def case_write_algorithm(w, tmp_path):
+    """write_algorithm's bytes, on the synthetic tags and on runs longer
+    than the 9-bit length field (split as the JAX writer splits them)."""
+    long_runs = TagArray(pos_enc=np.array([5 << 11, 7 << 11 | 1024 | 3], np.int64),
+                         bwt_start=np.array([0, 1500], np.int64), total=1600)
+    for tags in (w["tags"], long_runs):
+        data = tagfmt.write_algorithm(tags)
+        assert data == jtagfmt.write_algorithm(tags)
+        same_tags(tagfmt.load_tags(data, fmt="algorithm"),
+                  jtagfmt.load_tags(data, fmt="algorithm"))
+    assert bytecode.write_values([0, 127, 128, 1 << 40]) == \
+        jbytecode.write_values([0, 127, 128, 1 << 40])
+
+
+def case_write_compressed_sdsl(w, tmp_path):
+    """write_compressed_sdsl's bytes at the width the reference sizes from
+    the largest node id and at a given width, and write_compressed_bytecode
+    (now through the shared sidecar writer) still the JAX bytes."""
+    for width in (None, 40):
+        data = tagfmt.write_compressed_sdsl(w["tags"], width=width)
+        assert data == jtagfmt.write_compressed_sdsl(w["tags"], width=width)
+        same_tags(tagfmt.load_tags(data, fmt="sdsl"), w["tags"])
+    empty = TagArray(pos_enc=np.zeros(0, np.int64), bwt_start=np.zeros(0, np.int64), total=0)
+    for tags in (w["tags"], empty):
+        assert tagfmt.write_compressed_sdsl(tags) == jtagfmt.write_compressed_sdsl(tags)
+        for compact in (False, True):
+            assert tagfmt.write_compressed_bytecode(tags, compact=compact) == \
+                jtagfmt.write_compressed_bytecode(tags, compact=compact)
 
 
 def case_build_mer_table(w, tmp_path):
@@ -295,7 +377,9 @@ def case_oracle(w, tmp_path):
 
 
 CASES = [case_build_synth_index, case_synth_reads, case_synth_tag_array,
-         case_ri_round_trip, case_tags_round_trip, case_build_mer_table,
+         case_ri_round_trip, case_tags_round_trip, case_ri_file_sections,
+         case_tags_file_sections, case_convert_algorithm, case_wrap_payload,
+         case_write_algorithm, case_write_compressed_sdsl, case_build_mer_table,
          case_mer_table_key, case_read_mer_keys_fast, case_read_windows_fast,
          case_pack_reads, case_find_all_mems, case_find_mems_native,
          case_query_tags_native, case_format_mems_native,

@@ -37,6 +37,10 @@ open(d + "/x.txt", "wb").write(b"\\n".join(lines) + b"\\n")
 assert cli.main(["build-bwt", d + "/x.txt", d + "/x.rl_bwt", "--device", "cpu"]) == 0
 assert cli.main(["build-rindex", d + "/x.rl_bwt", "-o", d + "/y.ri"]) == 0
 assert open(d + "/y.ri", "rb").read() == open(d + "/x.ri", "rb").read()
+open(d + "/a.tags", "wb").write(tags.write_algorithm(synth.synth_tag_array(idx)))
+assert cli.main(["print-stats", d + "/x.ri", d + "/x.tags", "--runtime"]) == 0
+assert cli.main(["convert-tags", d + "/a.tags", d + "/c.tags", "--compact"]) == 0
+assert cli.main(["tags-check", d + "/x.tags", d + "/c.tags"]) == 0
 
 def foreign(m):
     return (m == "jax" or m.startswith("jax.") or m == "pangenome_index_tpu"
@@ -55,9 +59,9 @@ FOREIGN = re.compile(
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port and its commands (--device cpu; build-rindex
-    has no device), in a fresh interpreter: no jax and no
-    pangenome_index_tpu module gets loaded."""
+    """Every module of the port and its commands (--device cpu; build-rindex,
+    print-stats, convert-tags and tags-check have no device), in a fresh
+    interpreter: no jax and no pangenome_index_tpu module gets loaded."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
