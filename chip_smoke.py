@@ -62,6 +62,17 @@ launch count set to 0 just before a path and read just after it:
    wrapper counts each of its two launches) and the finish's two;
    the build-bwt file byte-equal to the native BWT's .rl_bwt, and
    build-rindex's .ri byte-equal to the bench index's;
+7b. the graph build (graph_build), the per-chromosome index build and the
+   tag merge: a genome of three synthetic chromosomes of 833,334 bp and 8
+   haplotypes (synth_multi_component_gbz, 20 Mbp of forward text, 40,000,080
+   BWT rows with both strands) saved as GBZ files, then extract-text,
+   build-bwt on the card (byte-equal to --engine native), build-rindex,
+   build-tags (each verified by tags-check --verify-gbz), merge-tags --engine
+   host and --engine device on the components' tags in three formats
+   (byte-equal, and equal to the whole genome's direct build), and
+   find-mems and query-tags on the merged files against the host route;
+   then merge_rows (csrc/merge.cu) against its plain version on the whole
+   genome's rows, and the BWT kernels' times on its 40 M-row text;
 8. serve-2g, an index past 2^31 (k_copy_index: every bench line repeated
    108 times, n = 2,160,000,864; int64 positions over two-level checkpoint
    rows): serve.prepare/run on all 16384 reads (m=13 seed table, s=19
@@ -127,6 +138,7 @@ import os
 import re
 import sys
 import time
+from types import SimpleNamespace
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 TAG_CAP = 8       # tag capacity of the serving path
@@ -161,6 +173,7 @@ SOURCES = {
     "bwt_sort_pairs": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:34", "build-bwt"),
     "bwt_rerank": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:27", "build-bwt"),
     "bwt_finish": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:56", "build-bwt"),
+    "merge_rows": ("csrc/merge.cu", "pangenome_index_tpu/parallel/merge.py:26", "graph-build"),
     # the int64 instantiations, on the serve-2g path (n >= 2^31; the rank
     # step of the chain kernels is the two-level ops/rank.py:79,98): the
     # fourth field is the wrapper whose launches they are
@@ -235,6 +248,11 @@ PATH_KERNELS = {
     "build-sdict": ("sdict_level",),
     "locate": ("locate_batch",),
     "build-bwt": ("bwt_sort_pairs", "bwt_rerank", "bwt_finish"),
+    # extract-text, build-bwt, build-rindex, build-tags, tags-check,
+    # merge-tags (host and device), find-mems and query-tags on the merged
+    # files (their caches not built)
+    "graph-build": ("bwt_sort_pairs", "bwt_rerank", "bwt_finish", "merge_rows", "mer_level",
+                    "resolve_seeds", "find_mems", "query_tags_batch", "sdict_level", "count"),
     # print-stats, convert-tags and tags-check: host work, no kernel
     "formats": (),
     "serve-2g": ("mer_level", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
@@ -310,6 +328,178 @@ def k_copy_index(idx, tags, k):
     if tags is not None:
         big_tags = TagArray.from_runs(tags.pos_enc, tags.run_lengths() * k)
     return big, big_tags
+
+
+GRAPH = (833_334, 8, 3, 0.002, 17)  # graph build: base length, haplotypes, components, site rate, seed
+GRAPH_READS = 16384  # find-mems and query-tags on the merged files
+
+
+def graph_build(env, base_len=GRAPH[0]):
+    """The graph-build path through the port's command line: a genome of
+    GRAPH's synthetic chromosomes (synth_multi_component_gbz; at the full
+    base length 20,000,002 bp of forward text, 48 sequences, 40,000,080 BWT
+    rows) saved as the whole GBZ and one a component; extract-text of each
+    (the generator's lines, each followed by its reverse complement);
+    build-bwt on the card of each text, byte-equal to --engine native's;
+    build-rindex of the whole genome; build-tags of each component and of
+    the whole genome, each verified by tags-check --verify-gbz; merge-tags
+    --engine host and --engine device of the components' tags given in
+    three formats (algorithm, compressed sdsl, wrapped compressed
+    bytecode), byte-equal, and from row n_seq on the direct build's
+    positions; find-mems and query-tags on the merged files equal to the
+    host route through the native engine. The path's launches are read
+    before its kernels are held against their plain versions: merge_rows on
+    the whole genome's rows, the BWT kernels' times on its text. `env`
+    holds main()'s helpers; returns the seconds of each command's phases."""
+    import numpy as np
+    import torch
+
+    from pangenome_index_tpu_torch import reset_launches
+    from pangenome_index_tpu_torch.core import merge
+    from pangenome_index_tpu_torch.formats import ri, tags as tagfmt
+    from pangenome_index_tpu_torch.formats.gbz import load_gbz
+    from pangenome_index_tpu_torch.formats.gbz_write import save_gbz
+    from pangenome_index_tpu_torch.ops import merge as merge_ops
+    from pangenome_index_tpu_torch.utils import synth
+
+    check, log, cmd = env.check, env.log, env.port_cmd
+    d = env.work_dir
+    comp_dir = os.path.join(d, "comp")
+    os.makedirs(comp_dir, exist_ok=True)
+    _, n_haps, n_comps, site_rate, seed = GRAPH
+    t0 = time.perf_counter()
+    whole, subs, comp_lines = synth.synth_multi_component_gbz(
+        base_len, n_haps, n_comps=n_comps, site_rate=site_rate, seed=seed)
+    names = ["whole"] + [f"c{c}" for c in range(n_comps)]
+    path = {(name, ext): os.path.join(d, f"{name}.{ext}") for name in names
+            for ext in ("gbz", "txt", "rl_bwt", "native.rl_bwt", "tags")}
+    for name, g in zip(names, (whole, *subs)):
+        save_gbz(g, path[name, "gbz"])
+    del whole, subs
+    revcomp = bytes.maketrans(b"ACGT", b"TGCA")
+    texts = [b"".join(l + b"\n" + l.translate(revcomp)[::-1] + b"\n" for l in lines)
+             for lines in comp_lines]
+    texts.insert(0, b"".join(texts))
+    log(f"graph build: {n_comps} chromosomes of {base_len} bp, {n_haps} haplotypes, site "
+        f"rate {site_rate}: {sum(len(t) for t in texts[1:])} characters of text with both "
+        f"strands; generated and saved ({time.perf_counter() - t0:.1f} s)")
+    seconds = {}
+
+    def run(label, argv):
+        sec = cmd(argv, os.path.join(d, label + ".out"))
+        seconds[label] = sec
+        return sec
+
+    reset_launches()
+    t_path = time.perf_counter()
+    for name, text in zip(names, texts):
+        run(f"extract-text {name}", ["extract-text", path[name, "gbz"], "-o", path[name, "txt"]])
+        with open(path[name, "txt"], "rb") as fh:
+            check(fh.read() == text, f"extract-text of {name} differs from the generator's lines")
+        run(f"build-bwt {name}", ["build-bwt", path[name, "txt"], path[name, "rl_bwt"]])
+        run(f"build-bwt --engine native {name}", ["build-bwt", path[name, "txt"],
+                                                  path[name, "native.rl_bwt"], "--engine",
+                                                  "native"])
+        with open(path[name, "rl_bwt"], "rb") as fa, \
+                open(path[name, "native.rl_bwt"], "rb") as fb:
+            check(fa.read() == fb.read(), f"build-bwt of {name} on the card differs from "
+                  "native SA-IS's")
+    whole_ri = os.path.join(d, "whole.ri")
+    run("build-rindex whole", ["build-rindex", path["whole", "rl_bwt"], "-o", whole_ri])
+    for name in names:
+        run(f"build-tags {name}", ["build-tags", path[name, "gbz"], path[name, "rl_bwt"],
+                                   path[name, "tags"]])
+        run(f"tags-check --verify-gbz {name}", ["tags-check", path[name, "tags"],
+                                                "--verify-gbz", path[name, "gbz"],
+                                                "--verify-rlbwt", path[name, "rl_bwt"]])
+        with open(os.path.join(d, f"tags-check --verify-gbz {name}.out")) as fh:
+            check(fh.read().endswith(f"{path[name, 'tags']}: verification OK\n"),
+                  f"tags-check --verify-gbz of {name} did not print verification OK")
+    # the components' tags in three formats: as built (algorithm), compressed
+    # sdsl, wrapped compressed bytecode (convert-tags)
+    c_tags = [os.path.join(comp_dir, f"c{c}.tags") for c in range(n_comps)]
+    os.replace(path["c0", "tags"], c_tags[0])
+    with open(c_tags[1], "wb") as fh:
+        fh.write(tagfmt.write_compressed_sdsl(tagfmt.load_tags_file(path["c1", "tags"])))
+    for c in range(2, n_comps):
+        run(f"convert-tags c{c}", ["convert-tags", path[f"c{c}", "tags"], c_tags[c],
+                                   "--no-compat", "--wrapped"])
+    merged = {e: os.path.join(d, f"merged_{e}.tags") for e in ("host", "device")}
+    for e, out in merged.items():
+        run(f"merge-tags --engine {e}", ["merge-tags", path["whole", "gbz"], whole_ri,
+                                         comp_dir, out, "--engine", e])
+    with open(merged["host"], "rb") as fa, open(merged["device"], "rb") as fb:
+        check(fa.read() == fb.read(), "merge-tags --engine device differs from --engine host")
+    idx = ri.load_file(whole_ri)
+    merged_tags = tagfmt.load_tags_file(merged["device"], fmt="sdsl")
+    direct = tagfmt.load_tags_file(path["whole", "tags"])
+    per_pos = np.repeat(merged_tags.pos_enc, merged_tags.run_lengths())
+    check(not per_pos[: idx.n_seq].any() and np.array_equal(
+        per_pos[idx.n_seq:], np.repeat(direct.pos_enc, direct.run_lengths())),
+        "the merged tags differ from the whole genome's direct build")
+    del per_pos, direct
+    log(f"graph build: {len(texts) - 1} texts and the whole genome's extracted, built on the "
+        f"card equal to native SA-IS, tags verified against each graph; merge-tags host and "
+        f"device byte-equal ({os.path.getsize(merged['device'])} bytes, {merged_tags.n_runs} "
+        f"runs over {idx.n} rows) and equal to the direct build from row {idx.n_seq} on")
+    # serving on the merged files, against the host route (native engine)
+    lines = [l for ls in comp_lines for l in ls]
+    reads = synth.synth_reads(lines, GRAPH_READS, env.read_len, error_rate=0.01, seed=1)
+    exact = synth.synth_reads(lines, GRAPH_READS, env.read_len, error_rate=0.0, seed=2)
+    common = [whole_ri, merged["device"]]
+    for label, argv, rs, host in (
+            ("find-mems merged", ["find-mems", *common, env.write_reads("graph_reads.txt", reads),
+                                  str(env.min_len), str(env.min_occ)], reads,
+             env.host_find_mems),
+            ("query-tags merged", ["query-tags", *common,
+                                   env.write_reads("graph_exact.txt", exact)], exact,
+             env.host_query_tags)):
+        run(label, [*argv, "--tags-format", "sdsl"])
+        host(rs, os.path.join(d, label + ".host"), index=idx, tag_array=merged_tags)
+        check(env.without_seconds(os.path.join(d, label + ".out"))
+              == env.without_seconds(os.path.join(d, label + ".host")),
+              f"{label}: stdout differs from the host route (native engine)")
+    path_s = time.perf_counter() - t_path
+    env.read_launches("graph-build")
+    log(f"find-mems and query-tags on the merged files ({GRAPH_READS} reads each): stdout "
+        f"byte-equal to the host route through the native engine; the path's commands "
+        f"{path_s:.1f} s")
+    for label, sec in seconds.items():
+        log(f"  {label}: " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
+
+    # merge_rows on the whole genome's rows, against its plain version
+    whole = load_gbz(path["whole", "gbz"])
+    comps = merge.node_components(whole)
+    comp_tags = {}
+    for f in c_tags:
+        t = tagfmt.load_tags_file(f)
+        comp_tags[comps[int(t.pos_enc[0]) >> 11]] = t
+    inputs = [env.T(a) for a in merge.device_merge_inputs(whole, idx, comp_tags)]
+    n, t_len, C = inputs[0].numel(), inputs[1].numel(), inputs[2].numel() - 1
+    env.compare("merge_rows", lambda: merge_ops.merge_rows(*inputs),
+                lambda: merge_ops.merge_rows_plain(*inputs),
+                nbytes=n * (4 + 8) + t_len * 8 + (C + 1) * 8, ops=n * 4,
+                design=n * (4 + 4 + 8) + t_len * 8 + 2 * 8 * (C + 1) * -(-n // merge_ops.TILE))
+    phases, _ = env.launch_ms(lambda: merge_ops.merge_rows(*inputs), "pgt_merge_count",
+                              "pgt_merge_scan", "pgt_merge_place")
+    log(f"merge_rows on {n} rows, {C} components: its launches by events, "
+        + ", ".join(f"{e[4:]} {ms:.4f} ms" for e, (ms, _) in phases.items()) + f" {env.card}")
+    del inputs
+    # the BWT kernels on the whole genome's text (k = 256 and the finish),
+    # beside the bench text's rows of the kernels line
+    with open(path["whole", "txt"], "rb") as fh:
+        big = env.bwt_kernel_ms([l for l in fh.read().split(b"\n") if l])
+    log(f"BWT kernels on the whole genome's text ({len(texts[0])} rows), device ms (the "
+        f"bench text's, {env.bench_rows} rows, in brackets): "
+        + ", ".join(f"{k} {v:.4f} ({env.kernels[k]['ms']:.4f})" for k, v in big.items())
+        + f" {env.card}")
+    for f in os.listdir(d):
+        full = os.path.join(d, f)
+        if os.path.isfile(full):
+            os.remove(full)
+    for f in c_tags:
+        os.remove(f)
+    return seconds
 
 
 def log(msg):
@@ -1755,6 +1945,40 @@ def main() -> int:
         f"({summary}); " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()) + f" {card}")
     for path in (text_path, native_rl, port_rl, port_ri):
         os.remove(path)
+
+    def bwt_kernel_ms(text_lines):
+        """Device ms (CUDA-graph replay) of the sort and the rerank at round
+        k = 256 and of the finish, on the BWT build of these lines."""
+        keys_np, starts_np, _, top_r = bwt.text_keys(text_lines)
+        n_r = keys_np.size
+        keys_r, starts_r = T(keys_np), T(starts_np)
+        rank_r, kk, out = keys_r, 0, {}
+        while True:
+            bits_r = max(1, top_r.bit_length())
+            if kk == BWT_TIMED_ROUNDS[-1]:
+                srt = bwt.bwt_sort_pairs(rank_r, kk, bits_r)
+                out["bwt_sort_pairs"] = gather_probe.time_ms(
+                    lambda: bwt.bwt_sort_pairs(rank_r, kk, bits_r))
+                out["bwt_rerank"] = gather_probe.time_ms(lambda: bwt.bwt_rerank(*srt))
+                del srt
+            rank_r, top_t, order_r = bwt.doubling_round(rank_r, kk, bits_r)
+            top_r = int(top_t)
+            if kk and top_r == n_r - 1:
+                break
+            kk = 2 * kk if kk else 1
+        out["bwt_finish"] = gather_probe.time_ms(lambda: bwt.bwt_finish(order_r, keys_r,
+                                                                        starts_r))
+        return out
+
+    # --- 10b. the graph build: a genome of three chromosomes from its GBZ to
+    # merged tags, served (graph_build)
+    phase("graph build")
+    graph_build(SimpleNamespace(
+        check=check, log=log, port_cmd=port_cmd, work_dir=os.path.join(cli_dir, "graph"), T=T,
+        compare=compare, launch_ms=launch_ms, read_launches=read_launches, kernels=kernels,
+        card=card, host_find_mems=host_find_mems, host_query_tags=host_query_tags,
+        write_reads=reads_file, without_seconds=without_seconds, read_len=READ_LEN,
+        min_len=MIN_LEN, min_occ=MIN_OCC, bwt_kernel_ms=bwt_kernel_ms, bench_rows=n_text))
 
     # --- 11. serve-2g: an index of n >= 2^31 through the int64 kernels ---
     # The k-copy index (k_copy_index): the bench index with every line

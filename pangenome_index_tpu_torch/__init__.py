@@ -1,13 +1,14 @@
 """pangenome_index_tpu_torch: find-mems serving, the find-mems, query-tags,
-build-sdict, build-bwt, build-rindex, print-stats, convert-tags and
-tags-check commands, batched locate, the BWT build and the gather-rate probe
-on PyTorch and hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+build-sdict, build-bwt, build-rindex, print-stats, convert-tags, tags-check,
+extract-text, build-tags and merge-tags commands, batched locate, the BWT
+build, the tag build and merge and the gather-rate probe on PyTorch and
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package pangenome_index_tpu, which stays the reference.
 The port imports nothing of that package: the host side (index models,
 codecs, synthetic data, the binding of the native C++ engine in src/cpp and
 the numpy build functions) is the port's own copy, under the same module
-names (utils/, models/, formats/, native.py).
+names (utils/, models/, formats/, core/, native.py).
 
 Layout:
   _build.py        nvcc build of csrc/*.cu into one library, loaded with ctypes
@@ -20,21 +21,24 @@ Layout:
                    K8 locate (locate.cu), the tag search tree's descent
                    alone (tagsearch.cu), the long-seed dictionary's
                    frontier level (sparsedict.cu), and the BWT's prefix
-                   doubling rounds: radix sort, rerank, finish (bwt.cu);
+                   doubling rounds: radix sort, rerank, finish (bwt.cu),
+                   and the one-card tag merge (merge.cu);
                    every serving kernel in an int32 instantiation and an
                    int64 one (indexes of n >= 2^31, two-level rank rows),
                    the chain kernels (K2, K3, the seed table's and the
                    dictionary's levels) for
                    each of the four rank providers of csrc/rank.cuh
   native.py        ctypes binding of the native C++ engine (src/cpp)
-  utils/ models/ formats/   alphabet, synthetic data, host index models and
-                   the .ri / .tags codecs
+  utils/ models/ formats/   alphabet, synthetic data and graphs, host index
+                   models, the .ri / .tags / GBZ codecs
+  core/            the GBWT from paths, the tag build, its k-mer statistics,
+                   the tag merge
   ops/             tables, a kernel wrapper and its plain PyTorch version per
                    kernel
   serve.py         the find-mems serving pipeline on one device
   cli.py           the find-mems, query-tags, build-sdict, build-bwt,
-                   build-rindex, print-stats, convert-tags and tags-check
-                   commands
+                   build-rindex, print-stats, convert-tags, tags-check,
+                   extract-text, build-tags and merge-tags commands
   gather_probe.py  the gather-rate probe (random 64-byte row gathers)
 
 Every function that makes tensors takes an explicit `device`. A kernel
@@ -50,6 +54,7 @@ from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.fmd import extend
 from .ops.gather_probe import gather_chain, row_gather
 from .ops.locate import locate_batch
+from .ops.merge import merge_rows
 from .ops.mems import find_mems as _find_mems_batch
 from .ops.mems import resolve_seeds
 from .ops.mertable import mer_level
@@ -70,7 +75,8 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "sdict_level": sdict_level, "locate_batch": locate_batch,
            "bwt_sort_pairs": bwt_sort_pairs, "bwt_rerank": bwt_rerank,
            "bwt_finish": bwt_finish, "rank6_ultra": rank6_ultra,
-           "rank6_bucketed": rank6_bucketed, "mer_level": mer_level}
+           "rank6_bucketed": rank6_bucketed, "mer_level": mer_level,
+           "merge_rows": merge_rows}
 
 
 def reset_launches() -> None:

@@ -125,6 +125,10 @@ SIGNATURES = {
     "pgt_mer_level_ultra": (_P, _I64) + _MER,
     "pgt_mer_level_bucketed": _BUCKET + _MER,
     "pgt_mer_level_bucketed64": _BUCKET + _MER,
+    # the one-card tag merge (csrc/merge.cu): a pass's count, scan, place
+    "pgt_merge_count": (_P, _P, _I64, _I, _I, _I, _I64, _P, _P),
+    "pgt_merge_scan": (_P, _I64, _P),
+    "pgt_merge_place": (_P, _P, _P, _I64, _I, _I, _I, _I64, _P, _P, _P, _P, _I64, _P, _P),
 }
 
 _lib = None

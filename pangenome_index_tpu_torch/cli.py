@@ -1,5 +1,6 @@
 """find-mems, query-tags, build-sdict, build-bwt, build-rindex, print-stats,
-convert-tags and tags-check on the PyTorch/CUDA port.
+convert-tags, tags-check, extract-text, build-tags and merge-tags on the
+PyTorch/CUDA port.
 
     python -m pangenome_index_tpu_torch.cli find-mems RI TAGS READS MIN_LEN MIN_OCC [options]
     python -m pangenome_index_tpu_torch.cli query-tags RI TAGS READS [options]
@@ -8,15 +9,18 @@ convert-tags and tags-check on the PyTorch/CUDA port.
     python -m pangenome_index_tpu_torch.cli build-rindex RL_BWT [-o OUT] [--format F]
     python -m pangenome_index_tpu_torch.cli print-stats RI [TAGS] [--runtime]
     python -m pangenome_index_tpu_torch.cli convert-tags IN OUT [--compact] [--no-compat] [--wrapped]
-    python -m pangenome_index_tpu_torch.cli tags-check TAGS...
+    python -m pangenome_index_tpu_torch.cli tags-check TAGS... [--verify-gbz G --verify-rlbwt R]
+    python -m pangenome_index_tpu_torch.cli extract-text GBZ [-o OUT] [--forward-only]
+    python -m pangenome_index_tpu_torch.cli build-tags GBZ RL_BWT OUT [--k K] [--stats] [--stream-sa]
+    python -m pangenome_index_tpu_torch.cli merge-tags GBZ RI TAGS_DIR OUT [--engine E] [--device D]
 
-The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-757,
-779-812) with the same argv, and output byte-equal to theirs (find-mems and
-query-tags: stdout under --engine native and --engine host, apart from the
-two "Total time" lines; build-sdict: the npz; build-bwt: the .rl_bwt of
-every engine; build-rindex: the .ri bytes of both formats; print-stats,
-convert-tags and tags-check: stdout, the converted file and the exit code;
-tags-check's --verify-gbz and --verify-rlbwt are not ported yet). Indexes of any
+The commands of `python -m pangenome_index_tpu.cli` (cli.py:104-827) with
+the same argv, and output byte-equal to theirs (find-mems and query-tags:
+stdout under --engine native and --engine host, apart from the two "Total
+time" lines; build-sdict: the npz; build-bwt: the .rl_bwt of every engine;
+build-rindex: the .ri bytes of both formats; print-stats, convert-tags,
+tags-check, extract-text, build-tags and merge-tags: stdout, the written
+file and the exit code, and stderr apart from the seconds). Indexes of any
 n are served: past 2^31 positions through int64 tables over two-level
 checkpoint rows or bucketed runs (--rank-mode dense and ultra are served
 there through bucketed runs, as the reference serves them). A missing file
@@ -35,8 +39,8 @@ or invalid input ends a command with `panidx: ...` on stderr and exit code
           failed build raises with the compiler's output): find-mems,
           query-tags' count and build-bwt's SA-IS.
 find-mems and query-tags take all three, build-sdict device and host,
-build-bwt device, native and host. --device is read by the device engine
-only.
+build-bwt device, native and host; merge-tags host (its default, as the
+reference's) and device. --device is read by the device engine only.
 
 find-mems: the rank tables of --rank-mode (checkpoint rows, dense records,
 ultra rows or bucketed runs), the m-mer seed table (npz cache beside the
@@ -67,7 +71,16 @@ print-stats, convert-tags and tags-check read and write the file formats
 on the host and take no --device: the size of every on-disk substructure
 of an .ri (and a .tags) file with its bits a run; an algorithm-format .tags
 file to compressed bytecode; the run count of each .tags file (a file that
-does not load ends the command with exit code 1).
+does not load ends the command with exit code 1), and with --verify-gbz
+and --verify-rlbwt every tag against a fresh build from the graph.
+
+extract-text and build-tags run on the host and take no --device: a GBZ's
+haplotype texts; the tag array of a graph and its .rl_bwt (core/tagbuild.py:
+the graph position of each BWT row's suffix, through the suffix array of
+the native psi walk; --stats adds the reference's k-mer coverage lines).
+merge-tags: the components' .tags files of a directory (any format) merged
+into the whole genome's tag array over its GBZ and .ri (core/merge.py), on
+the host or by the merge kernel (ops/merge.py) on --device.
 """
 
 from __future__ import annotations
@@ -80,7 +93,11 @@ import numpy as np
 import torch
 
 from . import native
+from .core.merge import merge_tags_pipeline
+from .core.tagbuild import (build_tags_pipeline, graph_arrays, tags_per_row,
+                            visits_to_text)
 from .formats import ri, tags as tagfmt
+from .formats.gbz import load_gbz
 from .formats.rlbwt import read_rlbwt, rlbwt_from_text, write_rlbwt
 from .models.mems import find_all_mems
 from .models.oracle import oracle_from_file
@@ -670,7 +687,19 @@ def cmd_convert_tags(args, seconds: dict) -> int:
 def cmd_tags_check(args, seconds: dict) -> int:
     """The run count and covered BWT positions of each .tags file; a file
     that does not load ends the command with its error on stderr and exit
-    code 1."""
+    code 1. With --verify-gbz and --verify-rlbwt, every tag is also held
+    against a fresh ground-truth build (core/tagbuild.tags_per_row): a
+    `verification OK` or `FAILED (k positions differ)` line a file, exit
+    code 1 where one differs."""
+    truth = None
+    if args.verify_gbz and args.verify_rlbwt:
+        mark = _phases(torch.device("cpu"), seconds)
+        gbz = load_gbz(args.verify_gbz)
+        idx = build_rindex(read_rlbwt(args.verify_rlbwt), keep_sa=True)
+        truth = tags_per_row(gbz, idx)
+        del idx
+        mark("truth")
+    rc = 0
     for path in args.tags:
         try:
             tags = tagfmt.load_tags_file(path)
@@ -678,7 +707,59 @@ def cmd_tags_check(args, seconds: dict) -> int:
             print(f"{path}: FAILED to load ({exc})", file=sys.stderr)
             return 1
         print(f"{path}: {tags.n_runs} runs, covers {tags.total} BWT positions")
+        if truth is not None:
+            per_pos = np.repeat(tags.pos_enc, tags.run_lengths())
+            cmp = per_pos[-len(truth):] if len(per_pos) >= len(truth) else per_pos
+            ok = np.array_equal(cmp, truth[: len(cmp)])
+            mism = int((cmp != truth[: len(cmp)]).sum()) if not ok else 0
+            print(f"{path}: verification {'OK' if ok else f'FAILED ({mism} positions differ)'}")
+            rc = rc or (0 if ok else 1)
+    return rc
+
+
+def cmd_extract_text(args, seconds: dict) -> int:
+    """GBZ -> newline-separated haplotype text, every GBWT sequence (or the
+    forward ones) in sequence order, on stdout or in -o: the paths' node
+    visits by the native walk of the record table and their oriented node
+    sequences (core/tagbuild.visits_to_text)."""
+    mark = _phases(torch.device("cpu"), seconds)
+    gbz = load_gbz(args.gbz)
+    mark("load")
+    n = gbz.index.sequences // 2 if args.forward_only else gbz.index.sequences
+    seq_ids = np.arange(n, dtype=np.int64) * (2 if args.forward_only else 1)
+    visits, vptr = gbz.index.table().extract_all(seq_ids)
+    _, _, node_lens, first = graph_arrays(gbz)
+    ends = np.concatenate(([0], np.cumsum(node_lens[(visits >> 1) - first])))[vptr[1:]]
+    text = np.insert(visits_to_text(gbz, visits), ends, ord("\n"))
+    mark("extract")
+    if args.output == "-":
+        sys.stdout.buffer.write(text.tobytes())
+        sys.stdout.flush()
+    else:
+        with open(args.output, "wb") as fh:
+            fh.write(text.tobytes())
+    mark("write")
     return 0
+
+
+def cmd_build_tags(args, seconds: dict) -> int:
+    """GBZ + .rl_bwt -> the tag array in the algorithm format, on the host
+    (core/tagbuild.py; its phases' seconds on stderr, as the JAX command
+    prints them)."""
+    return build_tags_pipeline(args.gbz, args.rl_bwt, args.output, k=args.k,
+                               stats=args.stats, stream_sa=args.stream_sa,
+                               sa_window_bytes=args.sa_window_bytes, seconds=seconds)
+
+
+def cmd_merge_tags(args, seconds: dict) -> int:
+    """Per-component .tags files (any format) -> the whole genome's tag
+    array, compressed sdsl: merged on the host (--engine host, the default)
+    or by the merge kernel on --device (--engine device)."""
+    dev = _device(args.device) if args.engine == "device" else torch.device("cpu")
+    return merge_tags_pipeline(args.gbz, args.ri, args.tags_dir, args.output,
+                               window=args.window, chunk_runs=args.chunk_runs,
+                               engine=args.engine, device=dev,
+                               mark=_phases(dev, seconds))
 
 
 def main(argv=None, seconds: dict | None = None) -> int:
@@ -781,7 +862,45 @@ def main(argv=None, seconds: dict | None = None) -> int:
     ct.set_defaults(fn=cmd_convert_tags)
     tc = sub.add_parser("tags-check")
     tc.add_argument("tags", nargs="+")
+    tc.add_argument("--verify-gbz",
+                    help="cross-check tag values against a fresh build from this GBZ")
+    tc.add_argument("--verify-rlbwt", help="the matching rl_bwt for --verify-gbz")
     tc.set_defaults(fn=cmd_tags_check)
+    et = sub.add_parser("extract-text")
+    et.add_argument("gbz")
+    et.add_argument("-o", "--output", default="-")
+    et.add_argument("--forward-only", action="store_true")
+    et.set_defaults(fn=cmd_extract_text)
+    bt = sub.add_parser("build-tags")
+    bt.add_argument("gbz")
+    bt.add_argument("rl_bwt")
+    bt.add_argument("output")
+    bt.add_argument("--k", type=int, default=31)
+    bt.add_argument("--stats", action="store_true",
+                    help="run the anchored pipeline for coverage statistics")
+    bt.add_argument("--stream-sa", action="store_true",
+                    help="never hold the 16 B/row SA: windowed native psi walks "
+                         "a row window at a time (O(r + window) memory)")
+    bt.add_argument("--sa-window-bytes", type=int, default=2 << 30,
+                    help="per-pass SA window budget for --stream-sa")
+    bt.set_defaults(fn=cmd_build_tags)
+    mt = sub.add_parser("merge-tags")
+    mt.add_argument("gbz")
+    mt.add_argument("ri")
+    mt.add_argument("tags_dir")
+    mt.add_argument("output")
+    mt.add_argument("--window", type=int, default=1 << 22,
+                    help="BWT rows processed per batch (bounds peak memory)")
+    mt.add_argument("--chunk-runs", type=int, default=1 << 20,
+                    help="input-cursor refill size in runs per tag file "
+                         "(bounds input-side resident memory)")
+    mt.add_argument("--engine", choices=["host", "device"], default="host",
+                    help="host: the streamed merge on the host; device: the "
+                         "merge kernel on --device. The same output")
+    mt.add_argument("--device", default="cuda",
+                    help="torch device of --engine device (default cuda; cpu "
+                         "runs the kernel's plain version)")
+    mt.set_defaults(fn=cmd_merge_tags)
     args = p.parse_args(argv)
     try:
         return args.fn(args, {} if seconds is None else seconds)

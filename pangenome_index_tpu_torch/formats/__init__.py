@@ -1,1 +1,2 @@
-"""File codecs of the port: what loading and writing .ri and .tags needs."""
+"""File codecs of the port: .ri, .tags (whole and streamed), .rl_bwt and
+the GBZ graph container (simple-sds)."""

@@ -305,13 +305,16 @@ def build_bwt_native(lines: list[bytes]):
 
 def psi_walk_native(run_start: np.ndarray, psi_base: np.ndarray,
                     is_end: np.ndarray, n: int, n_seq: int,
-                    n_threads: int = 0, full_sa: bool = False):
+                    n_threads: int = 0, full_sa: bool = False,
+                    window: tuple[int, int] | None = None):
     """Run-length-bounded psi walk (src/cpp/psi_walk.cpp), O(r) memory: the
     lane (sequence) and step of every run head and tail, and each sequence's
     length incl. endmarker: (head_seq, head_t, tail_seq, tail_t, seq_len).
-    With full_sa, also (sa_seq [n], sa_t [n]), the lane and step of every
-    BWT row. n_threads partitions the lanes over OpenMP threads (0 = the
-    OpenMP default)."""
+    With full_sa, also (sa_seq, sa_t), the lane and step of every BWT row;
+    `window` = (lo, hi) restricts them to rows [lo, hi) (row i at i - lo),
+    so that the streamed tag build keeps O(r + window) memory a pass.
+    n_threads partitions the lanes over OpenMP threads (0 = the OpenMP
+    default)."""
     lib = get_lib()
     run_start = np.ascontiguousarray(run_start, np.int64)
     psi_base = np.ascontiguousarray(psi_base, np.int64)
@@ -319,7 +322,8 @@ def psi_walk_native(run_start: np.ndarray, psi_base: np.ndarray,
     r = run_start.size
     heads = [np.zeros(r, np.int64) for _ in range(4)]
     seq_len = np.zeros(n_seq, np.int64)
-    sa = [np.zeros(n if full_sa else 0, np.int64) for _ in range(2)]
+    lo, hi = (window if window is not None else (0, n)) if full_sa else (0, 0)
+    sa = [np.zeros(hi - lo, np.int64) for _ in range(2)]
     lib.panindex_psi_walk_v2(
         _ptr(run_start, ctypes.c_int64), _ptr(psi_base, ctypes.c_int64),
         _ptr(is_end, ctypes.c_uint8),
@@ -327,7 +331,7 @@ def psi_walk_native(run_start: np.ndarray, psi_base: np.ndarray,
         *(_ptr(h, ctypes.c_int64) for h in heads),
         _ptr(seq_len, ctypes.c_int64), ctypes.c_int32(n_threads),
         *((_ptr(a, ctypes.c_int64) for a in sa) if full_sa else (None, None)),
-        ctypes.c_int64(0), ctypes.c_int64(n if full_sa else 0),
+        ctypes.c_int64(lo), ctypes.c_int64(hi),
     )
     return (*heads, seq_len, *sa) if full_sa else (*heads, seq_len)
 

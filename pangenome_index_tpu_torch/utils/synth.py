@@ -1,10 +1,12 @@
 """Synthetic pangenome generator for the bench workload and the tests.
 
 The port's copy of pangenome_index_tpu/utils/synth.py, cut to the index, the
-reads and the tag array (same seeds, same values, same cache files): a base
-"contig" plus N haplotypes (mutated copies), which gives the run-length
-structure real pangenome BWTs have. The BWT and the suffix array come from
-the native SA-IS build; the index arrays are cached on disk.
+reads, the tag array and the synthetic graphs (same seeds, same values, same
+cache files): a base "contig" plus N haplotypes (mutated copies), which
+gives the run-length structure real pangenome BWTs have. The BWT and the
+suffix array come from the native SA-IS build; the index arrays are cached
+on disk. synth_graph_gbz and synth_multi_component_gbz make the matching
+variation graphs (GBZ), one component per synthetic chromosome.
 """
 
 from __future__ import annotations
@@ -35,6 +37,105 @@ def synth_haplotypes(base_len: int, n_haps: int, snp_rate: float = 0.002,
                              + rng.integers(1, 4, n_mut)) % 4]
         lines.append(hap.tobytes())
     return lines
+
+
+def synth_graph_gbz(base_len: int, n_haps: int, site_rate: float = 0.002,
+                    seed: int = 0, max_node_len: int = 1024,
+                    first_id: int = 1, _raw: bool = False):
+    """Synthetic pangenome GRAPH + matching haplotype texts: a backbone
+    segmented at shared variant sites (each site a 2-allele bubble), each
+    haplotype a path picking ref/alt per site. Returns (GBZ, lines) where
+    lines[h] is exactly the text spelled by GBZ path 2h (forward strand), so
+    `build-tags` over an r-index of `lines` exercises the full pipeline at
+    scale. Node lengths are capped at max_node_len (the tag packing carries a
+    10-bit in-node offset)."""
+    from ..core.gbwt_build import gbz_from_graph
+
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"ACGT", np.uint8)
+    base = alphabet[rng.integers(0, 4, base_len)]
+    n_sites = int(rng.binomial(base_len, site_rate))
+    site_pos = np.sort(rng.choice(base_len, size=n_sites, replace=False))
+    ref = base[site_pos]
+    alt = alphabet[(np.searchsorted(alphabet, ref) + rng.integers(1, 4, n_sites)) % 4]
+    hap_alt = rng.random((n_haps, n_sites)) < 0.5
+
+    # backbone gaps between sites, split into <= max_node_len chunks
+    gap_start = np.concatenate(([0], site_pos + 1))
+    gap_end = np.concatenate((site_pos, [base_len]))
+    gap_len = gap_end - gap_start
+    chunks_per_gap = -(-gap_len // max_node_len)  # ceil; 0 for empty gaps
+
+    # node ids in genomic order: gap g's chunks, then site g's (ref, alt)
+    ids_per_gap = chunks_per_gap + 2                # last gap has no site
+    ids_per_gap[-1] -= 2
+    gap_id0 = np.concatenate(([first_id], first_id + np.cumsum(ids_per_gap)))[:-1]
+
+    node_seqs: dict[int, bytes] = {}
+    skeleton: list[np.ndarray] = []
+    site_slot = np.zeros(n_sites, np.int64)       # skeleton index of site g
+    ref_id = np.zeros(n_sites, np.int64)
+    pos = 0
+    for g in range(n_sites + 1):
+        nid = int(gap_id0[g])
+        s, e = int(gap_start[g]), int(gap_end[g])
+        ck = int(chunks_per_gap[g])
+        for c in range(ck):
+            a = s + c * max_node_len
+            node_seqs[nid + c] = base[a:min(a + max_node_len, e)].tobytes()
+        if ck:
+            skeleton.append(np.arange(nid, nid + ck, dtype=np.int64))
+            pos += ck
+        if g < n_sites:
+            node_seqs[nid + ck] = bytes([int(ref[g])])
+            node_seqs[nid + ck + 1] = bytes([int(alt[g])])
+            ref_id[g] = nid + ck
+            site_slot[g] = pos
+            skeleton.append(np.array([nid + ck], np.int64))
+            pos += 1
+    skel = np.concatenate(skeleton) if skeleton else np.zeros(0, np.int64)
+
+    paths: list[np.ndarray] = []
+    lines: list[bytes] = []
+    for h in range(n_haps):
+        p = skel.copy()
+        p[site_slot] = ref_id + hap_alt[h]
+        fwd = 2 * p
+        paths.append(fwd)
+        paths.append((fwd ^ 1)[::-1])             # reverse orientation
+        line = base.copy()
+        m = hap_alt[h]
+        line[site_pos[m]] = alt[m]
+        lines.append(line.tobytes())
+    if _raw:
+        return node_seqs, paths, lines
+    return gbz_from_graph(node_seqs, paths), lines
+
+
+def synth_multi_component_gbz(base_len: int, n_haps: int, n_comps: int = 2,
+                              site_rate: float = 0.002, seed: int = 0,
+                              max_node_len: int = 1024):
+    """A whole-"genome" GBZ with n_comps weakly-connected components (one per
+    synthetic chromosome) + the per-component sub-GBZs carrying the SAME node
+    ids - the shape `merge-tags` consumes (per-chromosome build_tags shards +
+    the whole-genome graph, README.md:103-133). Returns
+    (whole_gbz, [sub_gbz...], [comp_lines...])."""
+    from ..core.gbwt_build import gbz_from_graph
+
+    all_nodes: dict[int, bytes] = {}
+    all_paths: list[np.ndarray] = []
+    subs, comp_lines = [], []
+    first_id = 1
+    for c in range(n_comps):
+        nodes, paths, lines = synth_graph_gbz(
+            base_len, n_haps, site_rate=site_rate, seed=seed + 101 * c,
+            max_node_len=max_node_len, first_id=first_id, _raw=True)
+        all_nodes.update(nodes)
+        all_paths.extend(paths)
+        subs.append(gbz_from_graph(nodes, paths))
+        comp_lines.append(lines)
+        first_id = max(nodes) + 1
+    return gbz_from_graph(all_nodes, all_paths), subs, comp_lines
 
 
 def synth_reads(lines: list[bytes], n_reads: int, read_len: int,

@@ -3,7 +3,9 @@ package's: stdout byte-equal to `--engine native` and `--engine host`
 (minus the "Total time ... seconds" lines), on the synthetic graph pipeline
 of tests/test_cli.py (CPU: --device cpu runs the kernels' plain versions);
 the other commands likewise (the formats-only print-stats, convert-tags and
-tags-check: stdout, the written file and the exit code).
+tags-check, and the graph commands extract-text, build-tags, tags-check
+--verify-gbz and merge-tags: stdout, the written file and the exit code;
+stderr too, without the seconds lines).
 
 The commands run in this process with the output descriptors captured
 (capfd), apart from one run of `python -m pangenome_index_tpu_torch.cli`
@@ -22,6 +24,7 @@ import torch
 from pangenome_index_tpu import cli as jax_cli
 from pangenome_index_tpu.core.gbwt_build import random_pangenome_gbz
 from pangenome_index_tpu.formats.gbz_write import save_gbz
+from pangenome_index_tpu.utils.synth import synth_multi_component_gbz
 from pangenome_index_tpu_torch import cli
 from pangenome_index_tpu_torch.formats import tags as port_tags
 
@@ -701,13 +704,15 @@ def test_tags_check_matches_jax(files, capfd, tmp_path, case):
 
 
 def test_formats_commands_take_no_device_and_no_verify(files, capfd):
-    """print-stats, convert-tags and tags-check run on the host: none takes
-    --device; tags-check's --verify-gbz / --verify-rlbwt wait for the graph
-    modules of the port, so its parser refuses them (exit code 2)."""
+    """print-stats, convert-tags, tags-check, extract-text and build-tags
+    run on the host, as in the JAX command line: none takes --device (exit
+    code 2). tags-check takes --verify-gbz / --verify-rlbwt since the graph
+    modules are ported (test_tags_check_verify_matches_jax)."""
     for argv in (["print-stats", str(files / "synth.ri"), "--device", "cpu"],
                  ["convert-tags", "a", "b", "--device", "cpu"],
-                 ["tags-check", str(files / "synth.tags"), "--verify-gbz", "x.gbz"],
-                 ["tags-check", str(files / "synth.tags"), "--verify-rlbwt", "x.rl_bwt"]):
+                 ["tags-check", str(files / "synth.tags"), "--device", "cpu"],
+                 ["extract-text", "x.gbz", "--device", "cpu"],
+                 ["build-tags", "x.gbz", "x.rl_bwt", "x.tags", "--device", "cpu"]):
         capfd.readouterr()
         with pytest.raises(SystemExit) as exc:
             cli.main(argv)
@@ -730,3 +735,183 @@ def test_formats_commands_errors_are_panidx_errors(files, capfd, tmp_path, cmd):
         assert jax_rc == rc == 1 and out == jax_out
         assert last_line(err) == last_line(jax_err)
         assert last_line(err).startswith("panidx: ") and "Traceback" not in err
+
+
+# --- the graph commands: extract-text, build-tags, tags-check --verify-gbz,
+# merge-tags, on a whole genome of three synthetic chromosomes ----------------
+
+def took_removed(err: str) -> str:
+    """stderr without the per-phase `... took x seconds` lines."""
+    return "".join(l for l in err.splitlines(True) if not re.search(r" took [\d.]+ seconds", l))
+
+
+@pytest.fixture(scope="module")
+def genome(tmp_path_factory):
+    """The JAX command line's files of a three-chromosome genome: the whole
+    GBZ and the component GBZs, their texts and BWTs, the whole genome's
+    .ri, and the components' tags in mixed formats (algorithm, compressed
+    sdsl, wrapped compressed bytecode) in a directory of their own."""
+    from pangenome_index_tpu.formats import tags as jtagfmt
+
+    d = tmp_path_factory.mktemp("torch_graph_cli")
+    whole, subs, _ = synth_multi_component_gbz(5000, 3, n_comps=3, site_rate=0.01, seed=19)
+    save_gbz(whole, d / "whole.gbz")
+    for i, sub in enumerate(subs):
+        save_gbz(sub, d / f"c{i}.gbz")
+    (d / "comp").mkdir()
+    for stem in ("whole", "c0", "c1", "c2"):
+        for argv in (["extract-text", f"{stem}.gbz", "-o", f"{stem}.txt"],
+                     ["build-bwt", f"{stem}.txt", f"{stem}.rl_bwt"],
+                     ["build-tags", f"{stem}.gbz", f"{stem}.rl_bwt", f"{stem}.tags"]):
+            assert jax_cli.main([argv[0], *(a if a.startswith("-") else str(d / a)
+                                            for a in argv[1:])]) == 0
+    assert jax_cli.main(["build-rindex", str(d / "whole.rl_bwt"), "-o", str(d / "whole.ri")]) == 0
+    (d / "comp" / "c0.tags").write_bytes((d / "c0.tags").read_bytes())
+    (d / "comp" / "c1.tags").write_bytes(jtagfmt.write_compressed_sdsl(
+        jtagfmt.load_tags_file(d / "c1.tags")))
+    assert jax_cli.main(["convert-tags", str(d / "c2.tags"), str(d / "comp" / "c2.tags"),
+                         "--no-compat", "--wrapped"]) == 0
+    return d
+
+
+def both_runs(capfd, argv, port_extra=()):
+    """((exit code, stdout, stderr without the seconds lines) of the JAX
+    command line, the same of the port's, which also gets port_extra)."""
+    capfd.readouterr()
+    jax_rc = jax_cli.main(list(argv))
+    sys.stdout.flush()
+    jax_out = capfd.readouterr()
+    port_rc = cli.main([*argv, *port_extra])
+    sys.stdout.flush()
+    port_out = capfd.readouterr()
+    return ((jax_rc, jax_out.out, took_removed(jax_out.err)),
+            (port_rc, port_out.out, took_removed(port_out.err)))
+
+
+@pytest.mark.parametrize("stem", ["whole", "c1"])
+@pytest.mark.parametrize("flags", [[], ["--forward-only"]], ids=["both-strands", "forward"])
+@pytest.mark.parametrize("to", ["stdout", "file"])
+def test_extract_text_matches_jax(genome, capfd, tmp_path, stem, flags, to):
+    """extract-text writes the JAX command line's bytes, to stdout (-o -)
+    and to a file, of every sequence and of the forward ones."""
+    gbz_path = str(genome / f"{stem}.gbz")
+    if to == "stdout":
+        (jax_rc, jax_out, jax_err), (rc, out, err) = both_runs(
+            capfd, ["extract-text", gbz_path, "-o", "-", *flags])
+        assert jax_rc == rc == 0 and out == jax_out and err == jax_err == ""
+        text = out.encode()
+    else:
+        for m, name in ((jax_cli, "jax.txt"), (cli, "port.txt")):
+            assert m.main(["extract-text", gbz_path, "-o", str(tmp_path / name), *flags]) == 0
+        text = (tmp_path / "port.txt").read_bytes()
+        assert text == (tmp_path / "jax.txt").read_bytes()
+    lines = text.split(b"\n")
+    assert lines[-1] == b"" and len(lines) - 1 == (9 if stem == "whole" else 3) * (
+        1 if flags else 2)
+    if not flags:
+        assert text == (genome / f"{stem}.txt").read_bytes()
+
+
+@pytest.mark.parametrize("flags", [[], ["--stats"], ["--stats", "--k", "15"],
+                                   ["--stream-sa", "--sa-window-bytes", "1024"]],
+                         ids=["plain", "stats", "stats-k15", "stream-sa"])
+def test_build_tags_matches_jax(genome, capfd, tmp_path, flags):
+    """build-tags writes the JAX command line's file, with its stdout, exit
+    code and stderr (the coverage lines of --stats among it); the file is
+    the JAX build of the same inputs."""
+    outs = [str(tmp_path / "jax.tags"), str(tmp_path / "port.tags")]
+    capfd.readouterr()
+    assert jax_cli.main(["build-tags", str(genome / "c0.gbz"), str(genome / "c0.rl_bwt"),
+                         outs[0], *flags]) == 0
+    want = capfd.readouterr()
+    seconds = {}
+    assert cli.main(["build-tags", str(genome / "c0.gbz"), str(genome / "c0.rl_bwt"),
+                     outs[1], *flags], seconds) == 0
+    got = capfd.readouterr()
+    assert got.out == want.out == ""
+    assert took_removed(got.err) == took_removed(want.err)
+    assert ("The fraction of the tag arrays covered" in got.err) == ("--stats" in flags)
+    assert (tmp_path / "port.tags").read_bytes() == (tmp_path / "jax.tags").read_bytes() \
+        == (genome / "c0.tags").read_bytes()
+    assert {"Building the r-index", "Serializing tag runs"} <= set(seconds)
+
+
+@pytest.mark.parametrize("case", ["ok", "several", "other-graph", "one-flag"])
+def test_tags_check_verify_matches_jax(genome, capfd, case):
+    """tags-check --verify-gbz --verify-rlbwt prints the JAX command line's
+    `verification OK` line for the graph's own tags, `FAILED (k positions
+    differ)` and exit code 1 for another graph's; with one of the two flags
+    no verification, as in the JAX command line."""
+    gbz_path, rl = str(genome / "c1.gbz"), str(genome / "c1.rl_bwt")
+    argv = {"ok": ["tags-check", str(genome / "c1.tags"), "--verify-gbz", gbz_path,
+                   "--verify-rlbwt", rl],
+            "several": ["tags-check", str(genome / "c1.tags"), str(genome / "comp" / "c1.tags"),
+                        "--verify-gbz", gbz_path, "--verify-rlbwt", rl],
+            "other-graph": ["tags-check", str(genome / "c1.tags"), str(genome / "c2.tags"),
+                            "--verify-gbz", gbz_path, "--verify-rlbwt", rl],
+            "one-flag": ["tags-check", str(genome / "c2.tags"), "--verify-gbz", gbz_path]}[case]
+    (jax_rc, jax_out, jax_err), (rc, out, err) = both_runs(capfd, argv)
+    assert (rc, out, err) == (jax_rc, jax_out, jax_err)
+    assert rc == (1 if case == "other-graph" else 0)
+    assert out.count("verification OK") == {"ok": 1, "several": 2, "other-graph": 1,
+                                            "one-flag": 0}[case]
+    assert ("positions differ)" in out) == (case == "other-graph")
+
+
+@pytest.mark.parametrize("engine", [["--engine", "host"], ["--engine", "host", "--window",
+                                                             "97", "--chunk-runs", "5"],
+                                    ["--engine", "device"]],
+                         ids=["host", "host-small-windows", "device"])
+def test_merge_tags_matches_jax(genome, capfd, tmp_path, engine):
+    """merge-tags on the components' tags in mixed formats writes the JAX
+    command line's file (its host engine's, which its device engine's
+    equals), with its stdout, exit code and stderr; the port's device
+    engine runs the kernel's plain version (--device cpu). From row n_seq
+    on the merged positions are the whole genome's direct build."""
+    from pangenome_index_tpu.formats import tags as jtagfmt
+
+    outs = [str(tmp_path / "jax.tags"), str(tmp_path / "port.tags")]
+    args = [str(genome / "whole.gbz"), str(genome / "whole.ri"), str(genome / "comp")]
+    capfd.readouterr()
+    assert jax_cli.main(["merge-tags", *args, outs[0], *engine]) == 0
+    want = capfd.readouterr()
+    seconds = {}
+    extra = ["--device", "cpu"] if "device" in engine else []
+    assert cli.main(["merge-tags", *args, outs[1], *engine, *extra], seconds) == 0
+    got = capfd.readouterr()
+    assert got.out == want.out == "" and got.err == want.err
+    assert "(sdsl stream)" in got.err and "(bytecode stream)" in got.err
+    data = (tmp_path / "port.tags").read_bytes()
+    assert data == (tmp_path / "jax.tags").read_bytes()
+    assert set(seconds) == ({"load", "route", "rows", "rle", "write"}
+                            if "device" in engine else {"load", "merge", "write"})
+    merged, direct = jtagfmt.load_tags(data), jtagfmt.load_tags_file(genome / "whole.tags")
+    per_pos = np.repeat(merged.pos_enc, merged.run_lengths())
+    n_seq = 18
+    assert not per_pos[:n_seq].any()
+    np.testing.assert_array_equal(per_pos[n_seq:],
+                                  np.repeat(direct.pos_enc, direct.run_lengths()))
+
+
+@pytest.mark.parametrize("cmd", ["extract-text", "build-tags", "tags-check", "merge-tags",
+                                 "merge-tags-device"])
+def test_graph_commands_missing_gbz_is_panidx_error(genome, capfd, tmp_path, cmd):
+    """A missing GBZ ends each graph command with the JAX command line's
+    `panidx: ...` line on stderr and exit code 1."""
+    gone = str(tmp_path / "nowhere" / "missing.gbz")
+    argv, extra = {
+        "extract-text": (["extract-text", gone], []),
+        "build-tags": (["build-tags", gone, str(genome / "c0.rl_bwt"),
+                        str(tmp_path / "x.tags")], []),
+        "tags-check": (["tags-check", str(genome / "c0.tags"), "--verify-gbz", gone,
+                        "--verify-rlbwt", str(genome / "c0.rl_bwt")], []),
+        "merge-tags": (["merge-tags", gone, str(genome / "whole.ri"), str(genome / "comp"),
+                        str(tmp_path / "m.tags")], []),
+        "merge-tags-device": (["merge-tags", gone, str(genome / "whole.ri"),
+                               str(genome / "comp"), str(tmp_path / "m.tags"), "--engine",
+                               "device"], ["--device", "cpu"]),
+    }[cmd]
+    (jax_rc, jax_out, jax_err), (rc, out, err) = both_runs(capfd, argv, extra)
+    assert jax_rc == rc == 1 and out == jax_out
+    assert last_line(err) == last_line(jax_err)
+    assert last_line(err).startswith("panidx: ") and gone in err and "Traceback" not in err

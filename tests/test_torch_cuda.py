@@ -1188,3 +1188,114 @@ def test_int64_refuses_more_superblocks_than_a_block_stages(dev, index):
     z = torch.zeros(8, dtype=torch.int64, device=dev)
     with pytest.raises(ValueError, match="superblocks"):
         fmd.extend(t, z, z, z, z.int())
+
+
+# --- the one-card tag merge (csrc/merge.cu) ----------------------------------
+
+def merge_inputs(comp, C, dev, seed=0):
+    """comp -> (comp, stream, offsets) on dev, the streams exactly as long
+    as their components' rows (the kernel's precondition)."""
+    comp = np.asarray(comp, np.int32)
+    counts = np.bincount(comp[(comp >= 0) & (comp < C)], minlength=C)
+    offsets = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
+    stream = np.random.default_rng(seed).integers(0, 1 << 45, int(offsets[-1]))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (comp, stream.astype(np.int64), offsets))
+
+
+def held_merge(dev, comp, C, passes=None):
+    """merge_rows equals merge_rows_plain on the card (torch.equal), in
+    3 launches a pass of its sort."""
+    from pangenome_index_tpu_torch.ops import merge
+
+    args = merge_inputs(comp, C, dev)
+    before = merge.merge_rows.launches
+    got = merge.merge_rows(*args)
+    torch.cuda.synchronize()
+    made = merge.merge_rows.launches - before
+    assert made == (3 * len(merge.merge_passes(C)) if len(comp) else 0)
+    if passes is not None:
+        assert made == 3 * passes
+    want = merge.merge_rows_plain(*args)
+    assert got.dtype == want.dtype == torch.int64 and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 1])
+def test_merge_rows_at_tile_edges(dev, n):
+    rng = np.random.default_rng(n)
+    held_merge(dev, rng.integers(-1, 3, n), 3, passes=1)
+
+
+@pytest.mark.parametrize("C", [1, 3, 255, 256, 300, 70_000])
+def test_merge_rows_any_component_count(dev, C):
+    """One pass up to C = 255; two past the 256 digits a pass holds; three
+    past 2^16."""
+    rng = np.random.default_rng(C)
+    n = 50_000
+    comp = rng.integers(-1, C, n)
+    comp[rng.random(n) < 0.3] = C - 1     # a large component beside many small ones
+    held_merge(dev, comp, C)
+
+
+def test_merge_rows_edges(dev):
+    """Every row -1; no component at all; a component absent from most
+    tiles; labels outside [0, C) get 0; no rows."""
+    held_merge(dev, np.full(3 * 4096 + 7, -1), 3)
+    held_merge(dev, np.full(100, -1), 0)
+    comp = np.zeros(20 * 4096, np.int64)
+    comp[[5, 40_000, 81_000]] = 2
+    comp[::7] = 1
+    held_merge(dev, comp, 3)
+    got = held_merge(dev, np.array([0, 5, -3, 1, 7, 0]), 2)
+    assert got[[1, 2, 4]].tolist() == [0, 0, 0]
+    held_merge(dev, np.zeros(0, np.int64), 3)
+
+
+def test_merge_rows_random_interleavings(dev):
+    rng = np.random.default_rng(11)
+    for C in (2, 3, 24):
+        comp = np.repeat(rng.integers(-1, C, 3000), rng.integers(1, 60, 3000))
+        held_merge(dev, comp, C)
+
+
+def test_merge_rows_at_40m_rows(dev):
+    """The whole genome's rows of chip_smoke.py's graph-build path: 48
+    sequences, 3 components, 40,000,080 rows."""
+    rng = np.random.default_rng(40)
+    n = 40_000_080
+    comp = rng.integers(0, 3, n).astype(np.int32)
+    comp[:48] = -1
+    held_merge(dev, comp, 3, passes=1)
+
+
+def test_merge_tags_on_device_equals_the_cpu(dev):
+    """merge_tags_on_device on the card equals it on the CPU (the plain
+    version) and the host merge, on a genome of three synthetic
+    chromosomes."""
+    from pangenome_index_tpu_torch.core import merge, tagbuild
+    from pangenome_index_tpu_torch.formats import rlbwt
+    from pangenome_index_tpu_torch.models.rindex import build_rindex
+    from pangenome_index_tpu_torch.utils.synth import synth_multi_component_gbz
+
+    def index(g):
+        visits, ptr = g.index.table().extract_all(np.arange(g.index.sequences))
+        text = tagbuild.visits_to_text(g, visits).tobytes()
+        _, _, lens, first = tagbuild.graph_arrays(g)
+        cum = np.concatenate(([0], np.cumsum(lens[(visits >> 1) - first])))
+        lines = [text[cum[ptr[s]]:cum[ptr[s + 1]]] for s in range(g.index.sequences)]
+        return build_rindex(rlbwt.rlbwt_from_text(native.build_bwt_native(lines)[0].tobytes()),
+                            keep_sa=True)
+
+    whole, subs, _ = synth_multi_component_gbz(20_000, 4, n_comps=3, seed=5)
+    comps = merge.node_components(whole)
+    comp_tags = {}
+    for sub in subs:
+        t = tagbuild.build_tags(sub, index(sub))
+        comp_tags[comps[int(t.pos_enc[0]) >> 11]] = t
+    idx = index(whole)
+    on_card = merge.merge_tags_on_device(whole, idx, comp_tags, dev)
+    for want in (merge.merge_tags_on_device(whole, idx, comp_tags, "cpu"),
+                 merge.merge_tags(whole, idx, comp_tags)):
+        np.testing.assert_array_equal(on_card.pos_enc, want.pos_enc)
+        np.testing.assert_array_equal(on_card.bwt_start, want.bwt_start)

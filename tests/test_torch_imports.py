@@ -42,6 +42,30 @@ assert cli.main(["print-stats", d + "/x.ri", d + "/x.tags", "--runtime"]) == 0
 assert cli.main(["convert-tags", d + "/a.tags", d + "/c.tags", "--compact"]) == 0
 assert cli.main(["tags-check", d + "/x.tags", d + "/c.tags"]) == 0
 
+# the graph commands on a genome of two synthetic chromosomes
+import os
+from pangenome_index_tpu_torch.formats.gbz_write import save_gbz
+whole, subs, _ = synth.synth_multi_component_gbz(1500, 2, n_comps=2, site_rate=0.01, seed=3)
+os.mkdir(d + "/comp")
+for name, g in (("whole", whole), ("c0", subs[0]), ("c1", subs[1])):
+    save_gbz(g, d + f"/{name}.gbz")
+    assert cli.main(["extract-text", d + f"/{name}.gbz", "-o", d + f"/{name}.txt"]) == 0
+    assert cli.main(["build-bwt", d + f"/{name}.txt", d + f"/{name}.rl_bwt",
+                     "--device", "cpu"]) == 0
+    assert cli.main(["build-tags", d + f"/{name}.gbz", d + f"/{name}.rl_bwt",
+                     d + f"/{name}.tags", "--stats"]) == 0
+    assert cli.main(["tags-check", d + f"/{name}.tags", "--verify-gbz", d + f"/{name}.gbz",
+                     "--verify-rlbwt", d + f"/{name}.rl_bwt"]) == 0
+for c in ("c0", "c1"):
+    os.replace(d + f"/{c}.tags", d + f"/comp/{c}.tags")
+assert cli.main(["build-rindex", d + "/whole.rl_bwt", "-o", d + "/whole.ri"]) == 0
+merged = []
+for engine in (["--engine", "host"], ["--engine", "device", "--device", "cpu"]):
+    merged.append(d + f"/merged{len(merged)}.tags")
+    assert cli.main(["merge-tags", d + "/whole.gbz", d + "/whole.ri", d + "/comp",
+                     merged[-1], *engine]) == 0
+assert open(merged[0], "rb").read() == open(merged[1], "rb").read()
+
 def foreign(m):
     return (m == "jax" or m.startswith("jax.") or m == "pangenome_index_tpu"
             or m.startswith("pangenome_index_tpu."))
@@ -60,7 +84,8 @@ FOREIGN = re.compile(
 
 def test_port_imports_no_jax(tmp_path):
     """Every module of the port and its commands (--device cpu; build-rindex,
-    print-stats, convert-tags and tags-check have no device), in a fresh
+    print-stats, convert-tags, tags-check, extract-text and build-tags have
+    no device; merge-tags on the host and on the CPU device), in a fresh
     interpreter: no jax and no pangenome_index_tpu module gets loaded."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
