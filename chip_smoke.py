@@ -73,6 +73,16 @@ launch count set to 0 just before a path and read just after it:
    find-mems and query-tags on the merged files against the host route;
    then merge_rows (csrc/merge.cu) against its plain version on the whole
    genome's rows, and the BWT kernels' times on its 40 M-row text;
+7c. the mesh path (mesh_path), the multi-card path on this one card: on the
+   serving workload the model-sharded engine (find_mems_lockstep: the
+   lockstep MEM step, then each shard's rank partials, an iteration) over 2
+   and 4 virtual model shards in three forms (checkpoint rows, two-level
+   int64 rows, the run table), every MemResult field equal to K3's on all
+   16384 reads; find-mems --mesh 1x1 over a real one-rank NCCL group,
+   byte-equal to find-mems and the native engine; the graph build's
+   40,000,080 rows merged over 2 and 4 virtual data shards equal to
+   merge_rows; then the four kernels against their plain versions. NCCL
+   between cards is not driven (one card);
 8. serve-2g, an index past 2^31 (k_copy_index: every bench line repeated
    108 times, n = 2,160,000,864; int64 positions over two-level checkpoint
    rows): serve.prepare/run on all 16384 reads (m=13 seed table, s=19
@@ -174,6 +184,20 @@ SOURCES = {
     "bwt_rerank": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:27", "build-bwt"),
     "bwt_finish": ("csrc/bwt.cu", "pangenome_index_tpu/ops/bwt.py:56", "build-bwt"),
     "merge_rows": ("csrc/merge.cu", "pangenome_index_tpu/parallel/merge.py:26", "graph-build"),
+    # the multi-card path (mesh): a model shard's rank6 partials over
+    # checkpoint rows (int32; int64 two-level) and over runs, the lockstep
+    # MEM step between them, a data shard's merge
+    "shard_ckpt_rank6": ("csrc/shard.cu", "pangenome_index_tpu/parallel/sharding.py:120",
+                         "mesh"),
+    "shard_ckpt_rank6_int64": ("csrc/shard.cu",
+                               "pangenome_index_tpu/parallel/sharding.py:120", "mesh",
+                               "shard_ckpt_rank6"),
+    "shard_run_rank6": ("csrc/shard.cu", "pangenome_index_tpu/parallel/sharding.py:154",
+                        "mesh"),
+    "mem_step": ("csrc/memstep.cu", "pangenome_index_tpu/parallel/engine.py:82", "mesh"),
+    "mem_step_int64": ("csrc/memstep.cu", "pangenome_index_tpu/parallel/engine.py:82", "mesh",
+                       "mem_step"),
+    "merge_rows_shard": ("csrc/merge.cu", "pangenome_index_tpu/parallel/merge.py:26", "mesh"),
     # the int64 instantiations, on the serve-2g path (n >= 2^31; the rank
     # step of the chain kernels is the two-level ops/rank.py:79,98): the
     # fourth field is the wrapper whose launches they are
@@ -255,6 +279,11 @@ PATH_KERNELS = {
                     "resolve_seeds", "find_mems", "query_tags_batch", "sdict_level", "count"),
     # print-stats, convert-tags and tags-check: host work, no kernel
     "formats": (),
+    # the model-sharded engine over 2 and 4 shards on one card (checkpoint
+    # rows, two-level rows, runs), find-mems --mesh 1x1 over a one-rank
+    # NCCL group (the one-card kernels under it), the cross-card merge
+    "mesh": ("shard_ckpt_rank6", "shard_run_rank6", "mem_step", "merge_rows_shard",
+             "resolve_seeds", "find_mems", "query_tags_batch"),
     "serve-2g": ("mer_level", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
                  "tag_upper_bound", "query_tags_batch", "count", "locate_batch"),
     # the new rank configurations: the table check (rank6), the seed table,
@@ -484,6 +513,7 @@ def graph_build(env, base_len=GRAPH[0]):
                               "pgt_merge_scan", "pgt_merge_place")
     log(f"merge_rows on {n} rows, {C} components: its launches by events, "
         + ", ".join(f"{e[4:]} {ms:.4f} ms" for e, (ms, _) in phases.items()) + f" {env.card}")
+    env.merge_inputs = inputs  # the mesh path's cross-card merge takes these rows
     del inputs
     # the BWT kernels on the whole genome's text (k = 256 and the finish),
     # beside the bench text's rows of the kernels line
@@ -500,6 +530,252 @@ def graph_build(env, base_len=GRAPH[0]):
     for f in c_tags:
         os.remove(f)
     return seconds
+
+
+MESH_SHARDS = (2, 4)   # the mesh path: virtual model shards and data shards on one card
+MESH_SUPER_SHIFT = 19  # its two-level form: 2^19-position superblocks (39 at 20 M)
+MESH_MID_ITERS = 100   # the MEM step is also checked and timed this many iterations in
+#: the mesh path's table forms: checkpoint rows (int32), two-level rows
+#: (int64), runs (the run-table form, every other --rank-mode)
+MESH_FORMS = {"checkpoint": dict(checkpoint=True),
+              "two-level": dict(checkpoint=True, super_shift=MESH_SUPER_SHIFT, dtype="int64"),
+              "runs": {}}
+
+
+def mesh_path(env):
+    """The multi-card path on one card. NCCL between cards is not driven
+    here (one card): the model shards and the data shards are virtual, all
+    on this card in this process, their partials summed launch by launch
+    where a mesh sums them by one all_reduce (parallel/sharding.py:
+    virtual_shards, parallel/merge.py:merge_virtual_shards), and the command
+    line's --mesh 1x1 joins a real one-rank NCCL group. Main path (launches
+    counted): on the serving bench's 16384 reads (m=14 seed table, s=19
+    dictionary, capacity 8) the model-sharded engine (find_mems_lockstep:
+    the MEM step, then each shard's rank partials, an iteration) over 2 and
+    4 shards in the checkpoint, two-level and run-table forms, every
+    MemResult field equal to K3's on all reads; find-mems --mesh 1x1 on the
+    bench files byte-equal to find-mems and to the native engine; the
+    graph-build path's 40,000,080 rows merged over 2 and 4 data shards equal
+    to merge_rows. Then each new kernel against its plain version."""
+    import numpy as np
+    import torch
+
+    from pangenome_index_tpu_torch import KERNELS, reset_launches
+    from pangenome_index_tpu_torch.ops import merge as merge_ops
+    from pangenome_index_tpu_torch.ops import mems, shard_rank
+    from pangenome_index_tpu_torch.mems_probe import MEM_CAP, MER_M, MIN_LEN, MIN_OCC, SDICT_S
+    from pangenome_index_tpu_torch.parallel import merge as pmerge
+    from pangenome_index_tpu_torch.parallel import sharding
+    from pangenome_index_tpu_torch.serve import prepare
+
+    check, log, card, dev = env.check, env.log, env.card, env.dev
+    log("mesh path: one card. The model shards and data shards below are virtual (all on "
+        "this card, partials summed on the card in place of NCCL's all_reduce); "
+        "find-mems --mesh 1x1 runs over a real NCCL group of one rank. NCCL traffic "
+        "between cards is not covered: this machine has one.")
+    bt = prepare(env.idx, env.tags, env.codes, env.lens, dev, rank_mode="checkpoint",
+                 min_occ=MIN_OCC, mer_m=MER_M, sdict_s=SDICT_S, sdict_path=env.sdict_path)
+    tables = {}
+    for form, kw in MESH_FORMS.items():
+        kw = {k: (getattr(torch, v) if k == "dtype" else v) for k, v in kw.items()}
+        # padded to 4 shards, which also divides into 2
+        tables[form] = sharding.pad_rindex_tables(env.idx, max(MESH_SHARDS), device=dev, **kw)
+
+    def seed_kw(pd):
+        return {k: (v.to(pd) if k in ("mer_table", "sdict_vals") else v)
+                for k, v in bt.seed_kw.items()}
+
+    def k3():
+        return mems.find_mems(bt.tables, bt.codes, bt.lengths, MIN_LEN, MIN_OCC,
+                              capacity=MEM_CAP, **bt.seed_kw)
+
+    def engine(form, S):
+        t = tables[form]
+        prov = sharding.virtual_shards(t, S, dev)
+        return mems.find_mems_lockstep(
+            prov.partial, prov.C, prov.n, bt.codes, bt.lengths, MIN_LEN, MIN_OCC,
+            capacity=MEM_CAP, with_stats=True, super_base=prov.super_base,
+            super_shift=prov.super_shift, **seed_kw(t.pos_dtype))
+
+    def wall_s(fn, reps=3):
+        """The least host seconds of fn() to the card's end, of reps calls
+        after one more."""
+        fn()
+        best = float("inf")
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best
+
+    want = k3()  # K3's MemResult on all reads (not counted: it is the reference)
+    merge_in = env.merge_inputs
+    reset_launches()
+    iters = {}
+    for form in tables:
+        for S in MESH_SHARDS:
+            got, stats = engine(form, S)
+            iters[form, S] = stats["iters"]
+            for f, g, w in zip(got._fields, got, want):
+                check(torch.equal(g.long(), w.long()),
+                      f"the model-sharded engine ({form}, {S} shards): {f} differs from K3's")
+    out_mesh = os.path.join(env.cli_dir, "find_mesh.txt")
+    sec = env.port_cmd(["find-mems", env.ri_path, env.tags_path, env.fm_reads, str(MIN_LEN),
+                        str(MIN_OCC), "--tags-format", "bytecode", "--mesh", "1x1"], out_mesh)
+    mesh_out = env.without_seconds(out_mesh)
+    want_tags = merge_ops.merge_rows(*merge_in)
+    for S in MESH_SHARDS:
+        check(torch.equal(pmerge.merge_virtual_shards(*merge_in, S), want_tags),
+              f"the cross-card merge over {S} data shards differs from merge_rows")
+    # merge_rows above is the reference: its launches are not the path's
+    KERNELS["merge_rows"].launches = 0
+    env.read_launches("mesh")
+    merge_s = {S: wall_s(lambda: pmerge.merge_virtual_shards(*merge_in, S))
+               for S in MESH_SHARDS}
+    for path in ("find_port.txt", "find_host.txt"):
+        check(mesh_out == env.without_seconds(os.path.join(env.cli_dir, path)),
+              f"find-mems --mesh 1x1 differs from {path}")
+    n_reads = bt.codes.shape[0]
+    k3_s = wall_s(k3)
+    engine_s = {key: wall_s(lambda: engine(*key)) for key in iters}
+    log(f"mesh: the model-sharded engine on all {n_reads} reads equals K3 in every field; "
+        f"wall, the least of 3 calls after a warm one (K3 with resolve_seeds "
+        f"{k3_s * 1e3:.2f} ms): "
+        + ", ".join(f"{form} S={S} {sec_ * 1e3:.2f} ms, {iters[form, S]} iterations "
+                    f"({sec_ / k3_s:.1f}x K3)" for (form, S), sec_ in engine_s.items())
+        + f" {card}")
+    log(f"mesh: find-mems --mesh 1x1 (one-rank NCCL group) on {env.fm_reads}: stdout "
+        f"byte-equal to find-mems and to the native engine; "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()) + f" {card}")
+    n_rows = merge_in[0].numel()
+    log(f"mesh: the cross-card merge of {n_rows} rows equals merge_rows over "
+        + ", ".join(f"{S} data shards ({v * 1e3:.2f} ms wall, the least of 3)"
+                    for S, v in merge_s.items()) + f" {card}")
+
+    # each kernel against its plain version, at the main path's shapes: the
+    # query positions of the engine's first iteration; the MEM step on that
+    # state and, timed, on the state MESH_MID_ITERS iterations in (phases 2
+    # and 3, emissions and step-3 entries live)
+    lanes_per_sm = 2 * n_reads / torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def search_levels(heads, pos):
+        """The distinct heads each level of shard_run_rank6's binary search
+        (the first head > pos) reads over these positions."""
+        r = heads.numel()
+        lo = torch.zeros_like(pos, dtype=torch.long)
+        hi = torch.full_like(lo, r)
+        levels = []
+        while True:
+            act = lo < hi
+            if not bool(act.any()):
+                return levels
+            mid = (lo + hi) >> 1
+            levels.append(int(torch.unique(mid[act]).numel()))
+            go = act & (heads[mid.clamp(max=r - 1)] <= pos)
+            lo, hi = torch.where(go, mid + 1, lo), torch.where(act & ~go, mid, hi)
+
+    def step_bytes(before, after, item, seeded, super_base):
+        """Bytes one mem_step must move from `before` to `after`: every
+        read's phase, x, j, k, kp, s in and out, its length and its two
+        query positions; a live read's code, two rank vectors (and their
+        superblock rows), steps in and out; the last complete interval
+        where it changes; an emission's count in and out, and where it is
+        stored its k2, s2 and slot; an entering read's seed row."""
+        live = (before.phase >= 1) & (before.phase <= 3)
+        emitted = after.cnt != before.cnt
+        bint2 = live & ((after.k2 != before.k2) | (after.kp2 != before.kp2)
+                        | (after.s2 != before.s2))
+        entering = (((after.x != before.x) | emitted | (before.phase == 0))
+                    & (after.phase >= 1) & (after.phase <= 3))
+        stored = emitted & (before.cnt < MEM_CAP)
+        n_live, n_bint2, n_emit, n_enter, n_stored = (
+            int(v.sum()) for v in (live, bint2, emitted, entering, stored))
+        return (n_reads * (2 * (12 + 3 * item) + 4 + 2 * item)
+                + n_live * (1 + 12 * item + 8)
+                + (0 if super_base is None else env.gathered(n_live * 2 * 48, super_base))
+                + n_bint2 * 3 * item + n_emit * 8 + n_stored * (4 * item + 4)
+                + (n_enter * 4 * item if seeded else 0))
+
+    for form, name in (("checkpoint", "shard_ckpt_rank6"),
+                       ("two-level", "shard_ckpt_rank6_int64"), ("runs", "shard_run_rank6")):
+        t = tables[form]
+        prov = sharding.virtual_shards(t, 2, dev)
+        pd = t.pos_dtype
+        padded, _ = mems._prepare(bt.codes, align=8)
+        seeds = mems.resolve_seeds(bt.codes.shape[0], bt.codes.shape[1] + 1, MIN_OCC,
+                                   **seed_kw(pd))
+        state = mems.step_state(n_reads, MEM_CAP, pd, dev)
+        args = (prov.C, prov.n, padded, bt.lengths, seeds, bt.codes.shape[1], MIN_LEN,
+                MIN_OCC, prov.super_base, prov.super_shift)
+        mems.mem_step(state, None, *args)
+        pos = state.pos
+        item = torch.empty(0, dtype=pd).element_size()
+        sh = prov.shards[0]
+        io = pos.numel() * (item + 6 * item)  # the positions in, the partials out
+        if form != "runs":
+            # the rows of the positions this shard owns, each once
+            local = (pos.long() >> 6) - sh.row0
+            owned = local[(local >= 0) & (local < sh.planes.shape[0])]
+            rows = int(torch.unique(owned).numel())
+            env.compare(name, lambda: sh.rank6(pos),
+                        lambda: shard_rank.shard_ckpt_rank6_plain(sh.planes, sh.row0, pos),
+                        nbytes=io + rows * 64, ops=pos.numel() * 6 * 12, chain=1)
+            log(f"{name}: {owned.numel()} of {pos.numel()} positions owned by shard 0 of 2, "
+                f"{rows} distinct rows")
+        else:
+            # the heads each search level reads (each once), and the owned
+            # positions' runs; the chain counts a level only where its
+            # distinct heads outnumber the lanes an SM holds (fewer stay in
+            # the SM's cache, shared by its lanes), and the run's read
+            levels = search_levels(sh.run_start, pos)
+            j = torch.searchsorted(sh.run_start, pos, right=True) - 1
+            runs = int(torch.unique(j[(j >= 0) & (pos.long() < sh.upper)]).numel())
+            far = sum(d > lanes_per_sm for d in levels)
+            env.compare(name, lambda: sh.rank6(pos),
+                        lambda: shard_rank.shard_run_rank6_plain(sh.run_start, sh.run_sym,
+                                                                 sh.cum, sh.upper, pos),
+                        nbytes=io + env.gathered(sum(levels) * item, sh.run_start)
+                        + runs * (1 + 7 * item),
+                        ops=pos.numel() * (len(levels) * 4 + 12), chain=far + 1,
+                        library=lambda: torch.searchsorted(sh.run_start, pos, right=True))
+            log(f"{name}: {len(levels)} search levels, distinct heads a level {levels}; "
+                f"{far} levels with more than the {lanes_per_sm:.0f} lanes an SM holds; "
+                f"{runs} distinct owned runs")
+            continue
+        step_name = "mem_step" if form == "checkpoint" else "mem_step_int64"
+        first = mems.StepState(*(f.clone() for f in state))
+        for _ in range(MESH_MID_ITERS):
+            mems.mem_step(state, prov.partial(state.pos), *args)
+        for at, st, record in (("the first iteration", first, False),
+                               (f"iteration {MESH_MID_ITERS}", state, True)):
+            ranks = prov.partial(st.pos)
+            after = mems.StepState(*(f.clone() for f in st))
+            mems.mem_step_plain(after, ranks, *args)
+            nbytes = step_bytes(st, after, item, seeds is not None, prov.super_base)
+            st_k = mems.StepState(*(f.clone() for f in st))
+            st_p = mems.StepState(*(f.clone() for f in st))
+            env.compare(step_name, lambda: (mems.mem_step(st_k, ranks, *args), tuple(st_k))[1],
+                        lambda: (mems.mem_step_plain(st_p, ranks, *args), tuple(st_p))[1],
+                        record=record, nbytes=nbytes, ops=n_reads * 120)
+            phases = torch.bincount(st.phase.long(), minlength=6).tolist()
+            log(f"{step_name} at {at}: reads by phase {phases}, "
+                f"{int((after.cnt != st.cnt).sum())} emissions in the step, {nbytes} bytes")
+    comp, stream, offsets = merge_in
+    half = -(-comp.numel() // 2)
+    first = comp[:half].contiguous()
+    second = comp[half:].contiguous()
+    n2, C = second.numel(), offsets.numel() - 1
+    base = torch.bincount(first.long()[first >= 0], minlength=C)[:C]  # the first shard's
+    env.compare("merge_rows_shard",
+                lambda: merge_ops.merge_rows_shard(second, stream, offsets, lambda c: base),
+                lambda: merge_ops.merge_rows_shard_plain(second, stream, offsets,
+                                                         lambda c: base),
+                nbytes=n2 * (4 + 8 + 8) + (C + 1) * 16, ops=n2 * 6,
+                design=n2 * (4 + 4 + 4 + 8) + 2 * 8 * (C + 1) * -(-n2 // merge_ops.TILE))
+    for path in ("find_mesh.txt", "find_mesh.txt.err"):
+        os.remove(os.path.join(env.cli_dir, path))
 
 
 def log(msg):
@@ -1973,12 +2249,22 @@ def main() -> int:
     # --- 10b. the graph build: a genome of three chromosomes from its GBZ to
     # merged tags, served (graph_build)
     phase("graph build")
-    graph_build(SimpleNamespace(
+    graph_build(env_ns := SimpleNamespace(
         check=check, log=log, port_cmd=port_cmd, work_dir=os.path.join(cli_dir, "graph"), T=T,
         compare=compare, launch_ms=launch_ms, read_launches=read_launches, kernels=kernels,
         card=card, host_find_mems=host_find_mems, host_query_tags=host_query_tags,
         write_reads=reads_file, without_seconds=without_seconds, read_len=READ_LEN,
         min_len=MIN_LEN, min_occ=MIN_OCC, bwt_kernel_ms=bwt_kernel_ms, bench_rows=n_text))
+
+    # --- 10c. the mesh path: the multi-card path on one card ------------
+    phase("mesh")
+    mesh_path(SimpleNamespace(
+        check=check, log=log, port_cmd=port_cmd, cli_dir=cli_dir, T=T, compare=compare,
+        read_launches=read_launches, card=card, without_seconds=without_seconds,
+        gathered=gathered, idx=idx, tags=tags, codes=codes, lens=lens, dev=dev,
+        ri_path=ri_path, tags_path=tags_path, fm_reads=fm_reads, sdict_path=sdict_path,
+        merge_inputs=env_ns.merge_inputs, launches=launches, kernels=kernels))
+    env_ns.merge_inputs = None
 
     # --- 11. serve-2g: an index of n >= 2^31 through the int64 kernels ---
     # The k-copy index (k_copy_index): the bench index with every line

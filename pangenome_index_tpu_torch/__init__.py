@@ -22,7 +22,9 @@ Layout:
                    alone (tagsearch.cu), the long-seed dictionary's
                    frontier level (sparsedict.cu), and the BWT's prefix
                    doubling rounds: radix sort, rerank, finish (bwt.cu),
-                   and the one-card tag merge (merge.cu);
+                   the tag merge, one card or a data shard of it (merge.cu),
+                   a model shard's rank6 partials (shard.cu) and the
+                   lockstep MEM step between them (memstep.cu);
                    every serving kernel in an int32 instantiation and an
                    int64 one (indexes of n >= 2^31, two-level rank rows),
                    the chain kernels (K2, K3, the seed table's and the
@@ -35,6 +37,9 @@ Layout:
                    the tag merge
   ops/             tables, a kernel wrapper and its plain PyTorch version per
                    kernel
+  parallel/        the (data, model) mesh over torch.distributed: the
+                   tables padded and placed, the model-sharded rank, the
+                   distributed MEM and serving steps, the cross-card merge
   serve.py         the find-mems serving pipeline on one device
   cli.py           the find-mems, query-tags, build-sdict, build-bwt,
                    build-rindex, print-stats, convert-tags, tags-check,
@@ -54,11 +59,12 @@ from .ops.dense_rank import gather_rows, rank6_dense
 from .ops.fmd import extend
 from .ops.gather_probe import gather_chain, row_gather
 from .ops.locate import locate_batch
-from .ops.merge import merge_rows
+from .ops.merge import merge_rows, merge_rows_shard
 from .ops.mems import find_mems as _find_mems_batch
-from .ops.mems import resolve_seeds
+from .ops.mems import mem_step, resolve_seeds
 from .ops.mertable import mer_level
 from .ops.rank import rank6_bucketed, rank6_ultra
+from .ops.shard_rank import shard_ckpt_rank6, shard_run_rank6
 from .ops.sparsedict import sdict_level
 from .ops.tagquery import query_mem_tags, query_tags_batch, tag_upper_bound
 
@@ -76,7 +82,9 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "bwt_sort_pairs": bwt_sort_pairs, "bwt_rerank": bwt_rerank,
            "bwt_finish": bwt_finish, "rank6_ultra": rank6_ultra,
            "rank6_bucketed": rank6_bucketed, "mer_level": mer_level,
-           "merge_rows": merge_rows}
+           "merge_rows": merge_rows, "shard_ckpt_rank6": shard_ckpt_rank6,
+           "shard_run_rank6": shard_run_rank6, "mem_step": mem_step,
+           "merge_rows_shard": merge_rows_shard}
 
 
 def reset_launches() -> None:

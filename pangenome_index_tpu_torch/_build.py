@@ -45,6 +45,12 @@ _BUCKET = (_P, _I64, _P, _P, _P, _I64)
 #: the seed table's level after its rank provider's: C, parents, n_parents,
 #: v, depth, out, stream
 _MER = (_P, _P, _I64, _I, _I, _P, _P)
+#: the lockstep MEM step's arguments: ranks, super_base, n_super,
+#: super_width, super_shift, C, codes, code_stride, lengths, seeds, B, W;
+#: then min_len, min_occ, n (by position type); then M, the state arrays,
+#: steps, pos, active and the stream
+_STEP_HEAD = (_P, _P, _I64, _I, _I, _P, _P, _I, _P, _P, _I, _I)
+_STEP_TAIL = (_I,) + (_P,) * 16 + (_P,)
 #: argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "pgt_gather_rows": (_P, _I64, _I, _P, _I64, _P, _P),
@@ -128,7 +134,20 @@ SIGNATURES = {
     # the one-card tag merge (csrc/merge.cu): a pass's count, scan, place
     "pgt_merge_count": (_P, _P, _I64, _I, _I, _I, _I64, _P, _P),
     "pgt_merge_scan": (_P, _I64, _P),
-    "pgt_merge_place": (_P, _P, _P, _I64, _I, _I, _I, _I64, _P, _P, _P, _P, _I64, _P, _P),
+    "pgt_merge_place": (_P, _P, _P, _I64, _I, _I, _I, _I64, _P, _P, _P, _P, _I64, _P, _P,
+                        _P),
+    # the cross-card merge's per-component counts (csrc/merge.cu)
+    "pgt_merge_hist": (_P, _I64, _I, _P, _P),
+    # a model shard's rank6 partials (csrc/shard.cu): checkpoint rows
+    # (planes, rows_local, row0) or runs (run_start, run_sym, cum,
+    # runs_local, upper), then pos, npos, out, accumulate, stream
+    "pgt_shard_ckpt_rank6": (_P, _I64, _I64, _P, _I64, _P, _I, _P),
+    "pgt_shard_ckpt_rank6_64": (_P, _I64, _I64, _P, _I64, _P, _I, _P),
+    "pgt_shard_run_rank6": (_P, _P, _P, _I64, _I, _P, _I64, _P, _I, _P),
+    "pgt_shard_run_rank6_64": (_P, _P, _P, _I64, _I64, _P, _I64, _P, _I, _P),
+    # one lockstep iteration of the MEM state machine (csrc/memstep.cu)
+    "pgt_mem_step": _STEP_HEAD + (_I, _I, _I) + _STEP_TAIL,
+    "pgt_mem_step64": _STEP_HEAD + (_I, _I64, _I64) + _STEP_TAIL,
 }
 
 _lib = None

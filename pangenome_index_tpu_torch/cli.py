@@ -109,7 +109,7 @@ from .ops.mertable import (device_budget, get_mer_table, read_mer_keys_fast,
                            resolve_mer_len)
 from .ops.sparsedict import (DEVICE_BYTES_CAP, get_sparse_dict,
                              read_windows_fast, sdict_vals_to_device)
-from .ops.tables import rindex_to_device, tags_to_device
+from .ops.tables import DeferredTables, pos_dtype_for, rindex_to_device, tags_to_device
 from .ops.tagquery import query_tags_batch
 from .serve import check_rank_tables
 from .utils.alphabet import BYTE_TO_CODE
@@ -337,7 +337,18 @@ def find_mems_native(args, idx, tags, reads) -> tuple[float, float]:
     return mem_time, tag_time
 
 
+def parse_mesh(text: str) -> tuple[int, int]:
+    """--mesh DATAxMODEL -> (n_data, n_model), both positive."""
+    parts = text.lower().split("x")
+    if len(parts) != 2 or not all(p.isdigit() and int(p) > 0 for p in parts):
+        raise ValueError(f"--mesh {text}: expected DATAxMODEL, two positive integers "
+                         f"(e.g. 4x2)")
+    return int(parts[0]), int(parts[1])
+
+
 def cmd_find_mems(args, seconds: dict) -> int:
+    if args.engine == "device" and args.mesh:
+        return find_mems_mesh(args, seconds)
     if args.engine != "device":
         mark = _phases(torch.device("cpu"), seconds)
         reads = read_reads(args.reads)
@@ -475,6 +486,261 @@ def cmd_find_mems(args, seconds: dict) -> int:
     sys.stdout.flush()
     mark("output")
     return 0
+
+
+def find_mems_mesh(args, seconds: dict) -> int:
+    """find-mems --mesh DATAxMODEL (pangenome_index_tpu/cli.py:222-351): the
+    reads over `data`, the index over `model`, one process a card. Under a
+    process group named by the environment (torchrun's variables, or JAX's
+    COORDINATOR_ADDRESS, NUM_PROCESSES, PROCESS_ID) this process is one rank
+    of it, whose size must be DATA*MODEL; otherwise the command starts that
+    many ranks itself on this host (torch.multiprocessing over a FileStore;
+    one card a rank, gloo processes with --device cpu), this process being
+    rank 0. Rank 0 prints."""
+    from .parallel.multihost import init_distributed, launched, spawn_group
+
+    n_data, n_model = parse_mesh(args.mesh)
+    if launched():
+        dev = init_distributed(device=args.device)
+        return serve_mesh(args, n_data, n_model, dev, seconds)
+    n = n_data * n_model
+    dev = _device(args.device)
+    if dev.type == "cuda" and torch.cuda.device_count() < n:
+        raise ValueError(f"need {n} devices, have {torch.cuda.device_count()}")
+    return spawn_group(_mesh_rank, n, (args.argv, seconds), device=dev.type)
+
+
+def _mesh_rank(rank: int, world: int, argv: list, seconds: dict) -> int:
+    """One rank of a group that find_mems_mesh started: the command's
+    arguments parsed again, served as that rank."""
+    args = build_parser().parse_args(argv)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if torch.device(args.device).type == "cuda" else torch.device("cpu"))
+    return serve_mesh(args, *parse_mesh(args.mesh), dev, seconds)
+
+
+def serve_mesh(args, n_data: int, n_model: int, dev: torch.device, seconds: dict) -> int:
+    """This rank's part of find-mems --mesh, in the joined process group:
+    the seed table and dictionary replicated (built once where no cache
+    holds them: rank 0 first), their per-read keys sent with the reads; the
+    index whole on every card with model 1 (the one-card kernels), else
+    padded and range-sharded over `model` (checkpoint rows for --rank-mode
+    checkpoint, the run table otherwise), the whole index put on the card
+    only for a seed tier's build and freed before the shards; B = batch *
+    DATA global reads a chunk, each chunk padded to a multiple of DATA, this
+    rank serving its slice (parallel/engine.py:make_distributed_serving_step),
+    every slice gathered on every rank. Reads past --mem-capacity run again at 128,
+    then 1024 MEMs a read, as the one-card command escalates them, and past
+    that on the host; rank 0 queries the tags of windows past
+    --tag-capacity on the host and prints through the one-card command's
+    formatter."""
+    import torch.distributed as dist
+
+    from .parallel.engine import make_distributed_serving_step
+    from .parallel.multihost import put_global
+    from .parallel.sharding import make_mesh, pad_rindex_tables, shard_tables
+
+    mesh = make_mesh(n_data, n_model, dev)
+    first = mesh.rank == 0
+    mark = _phases(dev, seconds)
+    reads = read_reads(args.reads)
+    idx, tags = load_serving(args)
+    mark("load")
+    mode = rank_mode_for(idx.n, args.rank_mode)
+
+    def whole_tables():
+        whole = rindex_to_device(idx, dev, **{mode: True})
+        check_rank_tables(whole, mode)
+        return whole
+
+    # tables that build the seed tiers, and with model 1 serve the reads;
+    # with model > 1 made only where a seed tier is not cached, and freed
+    # before the shards are placed
+    t = (whole_tables() if n_model == 1
+         else DeferredTables(whole_tables, dev, pos_dtype_for(idx)))
+    tt = tags_to_device(tags, dev)
+    codes, lens = pack_reads(reads)
+    mark("tables")
+
+    shared, per_read = {}, {}
+    mer_m = resolve_mer_len(args.mer_len, args.min_len, idx.n, dev)
+    s_long = 0
+
+    def seed_tiers():
+        """Rank 0 builds (and caches) first; the others after it."""
+        nonlocal mer_m, s_long
+        if mer_m:
+            path = None if args.no_mer_cache else (lambda m: f"{args.ri}.mer{m}.npz")
+            table, mer_m = get_mer_table(idx, mer_m, t, path)
+            shared.update(mer_table=table, mer_m=mer_m)
+            mk, mv = read_mer_keys_fast(codes, lens, mer_m)
+            per_read.update(mer_keys=mk, mer_valid=mv)
+        s_long = resolve_long_seed(args.long_seed, args.min_len, mer_m)
+        if s_long:
+            sd_path = None if args.no_mer_cache else f"{args.ri}.sdict{s_long}.npz"
+            sd_keys, sd_vals = get_sparse_dict(idx, s_long, path=sd_path, tables=t)
+            sd_bytes = sd_vals.numel() * sd_vals.element_size() \
+                if isinstance(sd_vals, torch.Tensor) else sd_vals.nbytes
+            if sd_bytes > DEVICE_BYTES_CAP:
+                if first:
+                    print(f"long-seed dictionary is {sd_bytes >> 20} MB (> "
+                          f"{DEVICE_BYTES_CAP >> 20} MB budget); serving with the dense "
+                          f"tier only (PANIDX_SDICT_MAX_BYTES overrides)", file=sys.stderr)
+                s_long = 0
+            else:
+                _, _, di = read_windows_fast(codes, lens, s_long, sd_keys)
+                shared.update(sdict_vals=sdict_vals_to_device(sd_vals, dev, t.pos_dtype),
+                              sdict_m=s_long)
+                per_read["sdict_idx"] = np.ascontiguousarray(di, np.int32)
+
+    if first:
+        seed_tiers()
+    dist.barrier()
+    if not first:
+        seed_tiers()
+    mark("seeds")
+    if n_model == 1:
+        placed = t
+    else:
+        del t
+        placed = shard_tables(pad_rindex_tables(idx, n_model,
+                                                checkpoint=args.rank_mode == "checkpoint"),
+                              mesh)
+    n_reads = len(reads)
+
+    def serve(sel: np.ndarray, capacity: int):
+        """The reads `sel` (global indices) at `capacity` MEMs a read, in
+        chunks of B global reads (fewer at a larger capacity, so that a
+        chunk's tag slots stay as many), each chunk's slices gathered on
+        every rank: (the six MemResult fields, tag positions [n, M, w],
+        n_unique and overflow [n, M]) for the reads of sel, in order."""
+        step = make_distributed_serving_step(mesh, capacity=capacity,
+                                             tag_capacity=args.tag_capacity, mer_m=mer_m,
+                                             sdict_m=s_long)
+        B = max(1, (args.batch_size or READ_CHUNK) * args.mem_capacity // capacity) * n_data
+        parts = []
+        for s0 in range(0, len(sel), B):
+            rows = sel[s0 : s0 + B]
+            pad = (-len(rows)) % n_data
+            fill = {"sdict_idx": -1}
+            chunk = {k: np.pad(v[rows], ((0, pad),) + ((0, 0),) * (v.ndim - 1),
+                               constant_values=fill.get(k, 0))
+                     for k, v in (("codes", codes), ("lens", lens), *per_read.items())}
+            local = put_global(mesh, chunk, dict.fromkeys(chunk, "data"))
+            seed = []
+            if mer_m:
+                seed += [shared["mer_table"], local["mer_keys"], local["mer_valid"]]
+            if s_long:
+                seed += [shared["sdict_vals"], local["sdict_idx"]]
+            res, tq, _ = step(placed, tt, local["codes"], local["lens"], args.min_len,
+                              args.min_occ, *seed)
+            uniq = tq.n_unique.cpu().numpy()
+            M = res.bwt_start.shape[1]
+            wid = max(int(uniq.max(initial=0)), 1)
+            mine = None
+            if mesh.axis_index("model") == 0:  # model peers hold the same results
+                mine = ([f.cpu().numpy() for f in res],
+                        tq.positions.reshape(-1, M, args.tag_capacity)[:, :, :wid].cpu().numpy(),
+                        uniq, tq.overflow.cpu().numpy())
+            every = [None] * dist.get_world_size()
+            dist.all_gather_object(every, mine)
+            parts.append((len(rows), [every[d * n_model] for d in range(n_data)]))
+        return _gathered(parts)
+
+    t_mem = time.perf_counter()
+    found = serve(np.arange(n_reads), args.mem_capacity)
+    # reads past the buffer run again at a capacity that holds them (the
+    # count is exact past the capacity), then on the host
+    for tier in (c for c in ESCALATION_TIERS if c > args.mem_capacity):
+        counts, overflow = found[4], found[5]
+        sel = np.flatnonzero(overflow & (counts <= tier))
+        if not len(sel):
+            continue
+        again = serve(sel, tier)
+        found = [_widen(a, tier) for a in found]
+        wid = max(found[6].shape[2], again[6].shape[2])  # tag positions [n, M, w]
+        found[6], again[6] = (np.pad(a, ((0, 0), (0, 0), (0, wid - a.shape[2])))
+                              for a in (found[6], again[6]))
+        for dst, src in zip(found, again):
+            dst[sel] = src
+        found[5][sel] = False
+        if first:
+            print(f"escalated {len(sel)} overflowed reads to device capacity {tier}",
+                  file=sys.stderr)
+    total_mem_time = time.perf_counter() - t_mem
+    mark("mems")
+    if not first:
+        return 0
+    t_tag = time.perf_counter()
+    _print_mesh_mems(args, idx, tags, reads, found)
+    total_tag_time = time.perf_counter() - t_tag
+    print(f"\nTotal time for finding all MEMs: {total_mem_time} seconds")
+    print(f"Total time for all tag queries: {total_tag_time} seconds")
+    sys.stdout.flush()
+    mark("output")
+    return 0
+
+
+def _widen(a: np.ndarray, width: int) -> np.ndarray:
+    """a with its second dimension zero-padded to at least `width`."""
+    if a.ndim < 2 or a.shape[1] >= width:
+        return a
+    return np.pad(a, ((0, 0), (0, width - a.shape[1])) + ((0, 0),) * (a.ndim - 2))
+
+
+def _gathered(parts) -> list:
+    """The chunks' gathered slices, each cut to its chunk's reads, as whole
+    arrays: [start, end, bwt_start, size, count, overflow, tag positions
+    [n, M, w], n_unique [n, M], tag overflow [n, M]]."""
+    out = []
+    for n_chunk, slices in parts:
+        wid = max(s[1].shape[2] for s in slices)
+        out.append([np.concatenate(f)[:n_chunk] for f in zip(*(s[0] for s in slices))]
+                   + [np.concatenate([np.pad(s[1], ((0, 0), (0, 0), (0, wid - s[1].shape[2])))
+                                      for s in slices])[:n_chunk],
+                      np.concatenate([s[2] for s in slices])[:n_chunk],
+                      np.concatenate([s[3] for s in slices])[:n_chunk]])
+    wid = max(p[6].shape[2] for p in out)
+    for p in out:
+        p[6] = np.pad(p[6], ((0, 0), (0, 0), (0, wid - p[6].shape[2])))
+    return [np.concatenate(f) for f in zip(*out)]
+
+
+def _print_mesh_mems(args, idx, tags, reads, found) -> None:
+    """Rank 0's output of find-mems --mesh: the gathered MEMs (reads past
+    the top device capacity found again on the host, tag windows past the
+    tag capacity queried on the host) through the native formatter."""
+    starts, ends, bwts, sizes, counts, overflow, tp, tu, tof = found
+    counts, tof = counts.astype(np.int64), tof.copy()
+    refind = {int(i): find_all_mems(idx, reads[i], args.min_len, args.min_occ)
+              for i in np.flatnonzero(overflow)}
+    if refind:
+        print(f"{len(refind)} reads past the top device tier: host refind", file=sys.stderr)
+        width = max(len(m) for m in refind.values())
+        starts, ends, bwts, sizes, tu, tof = (_widen(a, width)
+                                              for a in (starts, ends, bwts, sizes, tu, tof))
+        tp = _widen(tp, width)
+        for i, mems in refind.items():
+            counts[i] = len(mems)
+            for m, mm in enumerate(mems):
+                starts[i, m], ends[i, m] = mm.start, mm.end
+                bwts[i, m], sizes[i, m] = mm.bwt_start, mm.size
+                tof[i, m] = True
+    n_flat = int(counts.sum())
+    ii = np.repeat(np.arange(len(reads)), counts)
+    within = np.arange(n_flat) - np.repeat(np.cumsum(counts) - counts, counts)
+    qs, zs = bwts[ii, within].astype(np.int64), sizes[ii, within].astype(np.int64)
+    tuniq, tpos = tu[ii, within].astype(np.int64), tp[ii, within]
+    again = np.flatnonzero(tof[ii, within])
+    vals = [tags.query(int(qs[f]), int(qs[f] + zs[f] - 1))[0] for f in again]
+    wid = max([tpos.shape[1]] + [len(v) for v in vals])
+    tpos = np.pad(tpos, ((0, 0), (0, wid - tpos.shape[1])))
+    for f, v in zip(again, vals):
+        tpos[f, : len(v)] = v
+        tuniq[f] = len(v)
+    sys.stdout.flush()
+    native.format_mems_native(counts, starts[ii, within], ends[ii, within], qs, zs, tuniq,
+                              tpos, sys.stdout.fileno())
 
 
 def query_tags_host(args, idx, tags, reads) -> None:
@@ -755,16 +1021,25 @@ def cmd_merge_tags(args, seconds: dict) -> int:
     """Per-component .tags files (any format) -> the whole genome's tag
     array, compressed sdsl: merged on the host (--engine host, the default)
     or by the merge kernel on --device (--engine device)."""
-    dev = _device(args.device) if args.engine == "device" else torch.device("cpu")
+    mesh = None
+    if args.engine == "device":
+        from .parallel.multihost import global_mesh, init_distributed, launched
+
+        if launched():
+            dev = init_distributed(device=args.device)
+            mesh = global_mesh(1, dev)
+        else:
+            dev = _device(args.device)
+    else:
+        dev = torch.device("cpu")
     return merge_tags_pipeline(args.gbz, args.ri, args.tags_dir, args.output,
                                window=args.window, chunk_runs=args.chunk_runs,
                                engine=args.engine, device=dev,
-                               mark=_phases(dev, seconds))
+                               mark=_phases(dev, seconds), mesh=mesh)
 
 
-def main(argv=None, seconds: dict | None = None) -> int:
-    """Run one command; `seconds`, when given, receives the seconds of each
-    phase (load, tables, ..., output)."""
+def build_parser() -> argparse.ArgumentParser:
+    """The command line's parser."""
     p = argparse.ArgumentParser(prog="python -m pangenome_index_tpu_torch.cli",
                                 description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -804,6 +1079,11 @@ def main(argv=None, seconds: dict | None = None) -> int:
                            help="device rank representation (checkpoint: one "
                                 "64B gather per rank6 query - the fastest, "
                                 "see PERF.md)")
+            q.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                           help="serve over a (data x model) mesh of processes, "
+                                "one a card (gloo processes with --device cpu), "
+                                "e.g. 4x2: reads data-sharded, the index "
+                                "model-sharded (rank = one all_reduce)")
         q.add_argument("--tags-format", default="auto",
                        choices=["auto", "algorithm", "sdsl", "bytecode",
                                 "bytecode-compact"])
@@ -901,7 +1181,14 @@ def main(argv=None, seconds: dict | None = None) -> int:
                     help="torch device of --engine device (default cuda; cpu "
                          "runs the kernel's plain version)")
     mt.set_defaults(fn=cmd_merge_tags)
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None, seconds: dict | None = None) -> int:
+    """Run one command; `seconds`, when given, receives the seconds of each
+    phase (load, tables, ..., output)."""
+    args = build_parser().parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
     try:
         return args.fn(args, {} if seconds is None else seconds)
     except FileNotFoundError as exc:

@@ -229,22 +229,28 @@ def _no_mark(name: str) -> None:
 
 
 def merge_tags_on_device(gbz: GBZ, idx: RIndex, comp_tags: dict[int, TagArray],
-                         device="cuda", mark=_no_mark) -> TagArray:
+                         device="cuda", mark=_no_mark, mesh=None) -> TagArray:
     """The device merge, the output of `merge_tags`: each row's rank within
     its component and the gather of its tag as one kernel on `device`
-    (ops/merge.py:merge_rows; its plain version on the CPU), in place of the
-    JAX package's sharded scan over a mesh. The routing
-    (device_merge_inputs) and the RLE of the result stay on the host.
-    mark(phase) is called as each phase ends: route, rows (the kernel with
-    the copies to and from the device), rle."""
+    (ops/merge.py:merge_rows; its plain version on the CPU), or, on a mesh
+    of more than one data shard (parallel/sharding.py:Mesh), the cross-card
+    form: each rank merges its range of the rows (ops/merge.py:
+    merge_rows_shard) and the ranges are gathered, as the JAX package's
+    sharded scan. The routing (device_merge_inputs) and the RLE of the
+    result stay on the host. mark(phase) is called as each phase ends:
+    route, rows (the kernel with the copies to and from the device), rle."""
     import torch
 
     from ..ops.merge import merge_rows
+    from ..parallel.merge import merge_rows_on_mesh
 
     inputs = device_merge_inputs(gbz, idx, comp_tags)
     mark("route")
-    dev = torch.device(device)
-    tag = merge_rows(*(torch.from_numpy(a).to(dev) for a in inputs)).cpu().numpy()
+    if mesh is not None and mesh.shape["data"] > 1:
+        tag = merge_rows_on_mesh(mesh, *inputs)
+    else:
+        dev = torch.device(device)
+        tag = merge_rows(*(torch.from_numpy(a).to(dev) for a in inputs)).cpu().numpy()
     mark("rows")
     merged = TagArray.from_runs(*rle(tag))
     mark("rle")
@@ -253,12 +259,15 @@ def merge_tags_on_device(gbz: GBZ, idx: RIndex, comp_tags: dict[int, TagArray],
 
 def merge_tags_pipeline(gbz_path: str, ri_path: str, tags_dir: str, output: str,
                         window: int = 1 << 22, chunk_runs: int = 1 << 20,
-                        engine: str = "host", device="cuda", mark=_no_mark) -> int:
+                        engine: str = "host", device="cuda", mark=_no_mark,
+                        mesh=None) -> int:
     """The merge-tags command: every `.tags` file of tags_dir (any format,
     found by its first graph position's component), merged on the host
     through file-backed cursors (engine host) or on `device` (engine
-    device), written as compressed sdsl. mark(phase) is called as each
-    phase ends (load, merge or the device merge's phases, write)."""
+    device; across the data shards of `mesh` where it has more than one,
+    rank 0 writing the file), written as compressed sdsl. mark(phase) is
+    called as each phase ends (load, merge or the device merge's phases,
+    write)."""
     from ..formats import ri as rifmt
     from ..formats import tags as tagfmt
     from ..formats.gbz import load_gbz
@@ -283,10 +292,12 @@ def merge_tags_pipeline(gbz_path: str, ri_path: str, tags_dir: str, output: str,
         print(f"{name}: component {comp} ({stream.fmt} stream)", file=sys.stderr)
     mark("load")
     if engine == "device":
-        merged = merge_tags_on_device(gbz, idx, comp_tags, device, mark)
+        merged = merge_tags_on_device(gbz, idx, comp_tags, device, mark, mesh)
     else:
         merged = merge_tags_streamed(gbz, idx, comp_tags, window=window)
         mark("merge")
+    if mesh is not None and mesh.rank != 0:
+        return 0
     with open(output, "wb") as fh:
         fh.write(tagfmt.write_compressed_sdsl(
             merged, width=11 + max(int(n) for n in gbz.graph.node_ids).bit_length()))

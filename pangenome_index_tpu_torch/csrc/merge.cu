@@ -36,6 +36,15 @@
 //                    its place; the last pass writes tag[row] = stream[p].
 // The work is O(n) a pass and the scan O(C / 256 x n / kTile) entries.
 //
+// The cross-card merge (parallel/merge.py:make_device_merge over more than
+// one 'data' shard) is the same sort of a shard's rows with a per-component
+// adjustment: where the shard's row of component c is the r-th of c here and
+// base[c] rows of c lie on earlier shards (one all_gather of the shards'
+// pgt_merge_hist counts, outside the kernel), its stream index is
+// offsets[c] + base[c] + r. Its place p in the shard's sorted rows is
+// local_start[c] + r, so the last pass reads stream[p + adj[c]] with adj[c]
+// = offsets[c] + base[c] - local_start[c]; on one card adj is 0.
+//
 // What bounds it: bytes. The function reads comp (4 bytes a row) and a
 // stream value (8) and writes tag (8): 20 bytes a row, 0.24 ms at 40 M rows
 // and 3.35 TB/s. The one-pass design reads comp twice (count and place):
@@ -142,7 +151,7 @@ place_kernel(const int* __restrict__ comp, const int* __restrict__ key_in,
              const int64_t* __restrict__ row_in, int64_t n, int C, int shift, int radix,
              int64_t tiles, const int64_t* __restrict__ base, int* __restrict__ key_out,
              int64_t* __restrict__ row_out, const int64_t* __restrict__ stream, int64_t t,
-             int64_t* __restrict__ tag) {
+             const int64_t* __restrict__ adj, int64_t* __restrict__ tag) {
   __shared__ unsigned long long next[kRadix];    // the tile's next place a digit
   __shared__ int warp_count[kWarps][kRadix];     // this round's keys a warp and digit
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -179,14 +188,60 @@ place_kernel(const int* __restrict__ comp, const int* __restrict__ key_in,
       key_out[p] = key;
       row_out[p] = row;
     } else {
-      tag[row] = key < C && p < t ? stream[p] : 0;
+      const int64_t q = key < C && adj != nullptr ? p + adj[key] : p;
+      tag[row] = key < C && q >= 0 && q < t ? stream[q] : 0;
     }
+  }
+}
+
+// counts[c] += the rows of component c (0 <= c < C) among the n of comp:
+// a shared-memory histogram a block where C fits kHistShared, else global
+// atomics, each warp-aggregated.
+constexpr int kHistShared = 8192;
+
+__global__ void __launch_bounds__(kThreads)
+hist_kernel(const int* __restrict__ comp, int64_t n, int C,
+            unsigned long long* __restrict__ counts) {
+  __shared__ int hist[kHistShared];
+  const bool shared = C <= kHistShared;
+  if (shared) {
+    for (int c = threadIdx.x; c < C; c += kThreads) hist[c] = 0;
+    __syncthreads();
+  }
+  const int lane = threadIdx.x & 31;
+  const int64_t tile0 = static_cast<int64_t>(blockIdx.x) * kTile;
+  for (int it = 0; it < kItems; ++it) {
+    const int64_t i = tile0 + it * kThreads + threadIdx.x;
+    const int c = i < n ? comp[i] : -1;
+    const int key = c >= 0 && c < C ? c : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, key);
+    if (key >= 0 && lane == __ffs(peers) - 1) {
+      if (shared) atomicAdd(&hist[key], __popc(peers));
+      else atomicAdd(&counts[key], static_cast<unsigned long long>(__popc(peers)));
+    }
+  }
+  if (shared) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < C; c += kThreads)
+      if (hist[c]) atomicAdd(&counts[c], static_cast<unsigned long long>(hist[c]));
   }
 }
 
 }  // namespace
 
 extern "C" {
+
+// counts [C] int64 (zeroed by the caller) += the rows of each component
+// among comp [n] (labels outside [0, C) are not counted).
+int pgt_merge_hist(const int* comp, int64_t n, int C, int64_t* counts, void* stream) {
+  if (n < 0 || C < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const int64_t tiles = (n + kTile - 1) / kTile;
+  hist_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
+      comp, n, C, reinterpret_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // One pass's histogram: the digit (key >> shift) & 255 of each of the n
 // keys (comp, C where it is outside [0, C), when key_in is null; else
@@ -210,18 +265,18 @@ int pgt_merge_scan(int64_t* counts, int64_t m, void* stream) {
 
 // One pass's placement by the scanned counts (base): (key, row) at its place
 // into key_out / row_out, or, in the last pass (key_out null), tag[row] =
-// stream[place] for a key below C and 0 otherwise. row_in null: element i is
-// row i.
+// stream[place + adj[key]] (adj null: 0) for a key below C where that index
+// lies in the stream, and 0 otherwise. row_in null: element i is row i.
 int pgt_merge_place(const int* comp, const int* key_in, const int64_t* row_in, int64_t n,
                     int C, int shift, int radix, int64_t tiles, const int64_t* base,
                     int* key_out, int64_t* row_out, const int64_t* stream_vals, int64_t t,
-                    int64_t* tag, void* stream) {
+                    const int64_t* adj, int64_t* tag, void* stream) {
   if (n <= 0 || radix < 1 || radix > kRadix || tiles != (n + kTile - 1) / kTile)
     return static_cast<int>(cudaErrorInvalidValue);
   place_kernel<<<static_cast<unsigned>(tiles), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>(comp, key_in, row_in, n, C, shift, radix,
                                                       tiles, base, key_out, row_out,
-                                                      stream_vals, t, tag);
+                                                      stream_vals, t, adj, tag);
   return static_cast<int>(cudaGetLastError());
 }
 

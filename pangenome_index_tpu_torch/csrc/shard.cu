@@ -1,0 +1,179 @@
+// The model-sharded rank6: one shard's partial rank vectors, over a slice of
+// the checkpoint rows or of the run table.
+//
+// Replaces parallel/sharding.py:distributed_ckpt_rank6 and distributed_rank6
+// (XLA programs under shard_map on the TPU, each followed by a psum over the
+// 'model' axis). Exactly one shard owns each position: the owner writes the
+// position's rank6 from its slice, every other shard 0, and the sum over the
+// shards (one all_reduce over the model group, or, with every shard on one
+// card, the launches of the shards into one output with `accumulate` set) is
+// the rank6 of the whole index. The collective runs outside the kernel, as
+// NCCL does.
+//
+//   pgt_shard_ckpt_rank6  the shard holds bit-plane rows [row0, row0 +
+//                         rows_local) of ops/tables.py:derive_rank_planes;
+//                         a position's row is pos >> 6, and its owner counts
+//                         each code's S[q + 1] - S[q] plus one popcount of
+//                         the row's positions before pos whose planes spell
+//                         q = comp(code). Two-level rows (n >= 2^31) give
+//                         counts relative to their superblock: the caller
+//                         adds the superblock base after the sum, as the JAX
+//                         program does after its psum.
+//   pgt_shard_run_rank6   the shard holds runs [j0, j0 + runs_local) of
+//                         run_start, run_sym and cum; a position's run is
+//                         its predecessor among the local heads (a binary
+//                         search), owned where it lies before `upper`, the
+//                         next shard's first head (the type's maximum on the
+//                         last shard), gathered once when the tables are
+//                         placed where the JAX program ppermutes it on every
+//                         call; rank6 = cum[j] + onehot(sym[j]) * (pos -
+//                         run_start[j]).
+//
+// What bounds them: bytes. A position reads its 4 or 8 bytes, one 64-byte row
+// (or log2(runs_local) heads and one run's 25 or 49 bytes) and writes 6
+// counts, 24 or 48 bytes; a shard that does not own the position writes
+// zeros, or nothing when it accumulates. One thread a position; the rows are
+// random reads, so the loads of the row are issued together.
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "rank.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+
+template <class P>
+__device__ __forceinline__ void put6(P* __restrict__ out, int64_t i, const P (&r)[6],
+                                     bool owns, int accumulate) {
+  P* o = out + 6 * i;
+  if (accumulate) {
+    if (!owns) return;
+#pragma unroll
+    for (int c = 0; c < 6; ++c) o[c] += r[c];
+  } else {
+#pragma unroll
+    for (int c = 0; c < 6; ++c) o[c] = owns ? r[c] : P{0};
+  }
+}
+
+template <class P>
+__global__ void __launch_bounds__(kThreads)
+shard_ckpt_kernel(const int* __restrict__ planes, int64_t rows_local, int64_t row0,
+                  const P* __restrict__ pos, int64_t npos, P* __restrict__ out,
+                  int accumulate) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= npos) return;
+  const P p = pos[i];
+  const int64_t l = static_cast<int64_t>(p >> 6) - row0;
+  const bool owns = l >= 0 && l < rows_local;
+  P r[6] = {0, 0, 0, 0, 0, 0};
+  if (owns) {
+    const int4* row = reinterpret_cast<const int4*>(planes + 16 * l);
+    const int4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2), d = __ldg(row + 3);
+    const uint64_t p0 = pgt::u64(a.x, a.y), p1 = pgt::u64(a.z, a.w), p2 = pgt::u64(b.x, b.y);
+    // S[0..6]: the positions before the row with q < j (pairs overlap:
+    // words 6, 7 = S[1], S[2]; 9, 11, 13, 15 = S[3..6])
+    const int S[7] = {0, b.z, b.w, c.y, c.w, d.y, d.w};
+    const uint64_t before = (1ull << (static_cast<int64_t>(p) & 63)) - 1;
+#pragma unroll
+    for (int code = 0; code < 6; ++code) {
+      const int q = pgt::comp_code(code);
+      const uint64_t c0 = 0ull - (q & 1), c1 = 0ull - ((q >> 1) & 1), c2 = 0ull - ((q >> 2) & 1);
+      const uint64_t eq = ~((p0 ^ c0) | (p1 ^ c1) | (p2 ^ c2));
+      r[code] = static_cast<P>(S[q + 1] - S[q] + __popcll(eq & before));
+    }
+  }
+  put6(out, i, r, owns, accumulate);
+}
+
+template <class P>
+__global__ void __launch_bounds__(kThreads)
+shard_run_kernel(const P* __restrict__ run_start, const int8_t* __restrict__ run_sym,
+                 const P* __restrict__ cum, int64_t runs_local, P upper,
+                 const P* __restrict__ pos, int64_t npos, P* __restrict__ out,
+                 int accumulate) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= npos) return;
+  const P p = pos[i];
+  int64_t lo = 0, hi = runs_local;  // the first local head > p
+  while (lo < hi) {
+    const int64_t mid = (lo + hi) >> 1;
+    if (pgt::ld(run_start + mid) <= p) lo = mid + 1;
+    else hi = mid;
+  }
+  const int64_t j = lo - 1;
+  const bool owns = j >= 0 && p < upper;
+  P r[6] = {0, 0, 0, 0, 0, 0};
+  if (owns) {
+    const P extra = p - pgt::ld(run_start + j);
+    const int sym = __ldg(run_sym + j);
+#pragma unroll
+    for (int c = 0; c < 6; ++c) r[c] = pgt::ld(cum + 6 * j + c) + (sym == c ? extra : P{0});
+  }
+  put6(out, i, r, owns, accumulate);
+}
+
+template <class P>
+int ckpt_launch(const int* planes, int64_t rows_local, int64_t row0, const P* pos,
+                int64_t npos, P* out, int accumulate, void* stream) {
+  if (rows_local < 1 || npos < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (npos == 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((npos + kThreads - 1) / kThreads);
+  shard_ckpt_kernel<P><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      planes, rows_local, row0, pos, npos, out, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class P>
+int run_launch(const P* run_start, const int8_t* run_sym, const P* cum, int64_t runs_local,
+               P upper, const P* pos, int64_t npos, P* out, int accumulate, void* stream) {
+  if (runs_local < 1 || npos < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (npos == 0) return 0;
+  const unsigned blocks = static_cast<unsigned>((npos + kThreads - 1) / kThreads);
+  shard_run_kernel<P><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      run_start, run_sym, cum, runs_local, upper, pos, npos, out, accumulate);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// A shard's rank6 partials over its checkpoint rows: planes [rows_local, 16]
+// int32 (global rows row0 .. row0 + rows_local - 1), pos [npos] int32 ->
+// out [npos, 6] int32 (written, or added to where accumulate is set).
+int pgt_shard_ckpt_rank6(const int* planes, int64_t rows_local, int64_t row0, const int* pos,
+                         int64_t npos, int* out, int accumulate, void* stream) {
+  return ckpt_launch(planes, rows_local, row0, pos, npos, out, accumulate, stream);
+}
+
+// the same with int64 positions and partials (two-level rows: relative to
+// the superblock)
+int pgt_shard_ckpt_rank6_64(const int* planes, int64_t rows_local, int64_t row0,
+                            const int64_t* pos, int64_t npos, int64_t* out, int accumulate,
+                            void* stream) {
+  return ckpt_launch(planes, rows_local, row0, pos, npos, out, accumulate, stream);
+}
+
+// A shard's rank6 partials over its runs: run_start [runs_local], run_sym
+// [runs_local] int8, cum [runs_local, 6], upper the next shard's first head
+// (int32 maximum on the last), pos [npos] -> out [npos, 6], all int32.
+int pgt_shard_run_rank6(const int* run_start, const int8_t* run_sym, const int* cum,
+                        int64_t runs_local, int upper, const int* pos, int64_t npos,
+                        int* out, int accumulate, void* stream) {
+  return run_launch(run_start, run_sym, cum, runs_local, upper, pos, npos, out, accumulate,
+                    stream);
+}
+
+// the same with int64 tables, positions and partials
+int pgt_shard_run_rank6_64(const int64_t* run_start, const int8_t* run_sym,
+                           const int64_t* cum, int64_t runs_local, int64_t upper,
+                           const int64_t* pos, int64_t npos, int64_t* out, int accumulate,
+                           void* stream) {
+  return run_launch(run_start, run_sym, cum, runs_local, upper, pos, npos, out, accumulate,
+                    stream);
+}
+
+}  // extern "C"

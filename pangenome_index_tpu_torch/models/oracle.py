@@ -1,8 +1,8 @@
 """Naive multi-string BWT: the host rotation sort of `build-bwt --engine
-host`.
+host`, and the textbook MEMs that the MEM engines are held against.
 
-The port's copy of pangenome_index_tpu/models/oracle.py, cut to the BWT
-build (oracle_from_file, oracle_from_lines, _rotation_order): concatenate
+The port's copy of pangenome_index_tpu/models/oracle.py (oracle_from_file,
+oracle_from_lines, _rotation_order, brute_force_mems): concatenate
 the input lines, replace each terminating '\\n' with a *distinct* separator
 ordered by sequence index (so separator comparisons tie-break by sequence),
 sort all rotations by prefix doubling on the host, and read off the last
@@ -84,3 +84,41 @@ def oracle_from_file(path: str) -> OracleBWT:
     if lines and lines[-1] == b"":
         lines = lines[:-1]
     return oracle_from_lines(lines)
+
+
+def brute_force_mems(text_lines: list[bytes], pattern: bytes, min_len: int, min_occ: int):
+    """Textbook MEMs of `pattern` against the text (which holds both
+    strands in the bidirectional indexes): a MEM [x, e) is a match of
+    pattern[x:e] with at least min_occ occurrences, length >= min_len, that
+    cannot be extended left or right without dropping below min_occ. The
+    semantics of find_mems_function (algorithm.hpp:653-736). Returns a list
+    of (x, e, occurrences)."""
+    def occ(s: bytes) -> int:
+        if not s:
+            return sum(len(t) for t in text_lines)
+        c = 0
+        for t in text_lines:
+            start = 0
+            while True:
+                i = t.find(s, start)
+                if i < 0:
+                    break
+                c += 1
+                start = i + 1
+        return c
+
+    def passes(s: bytes) -> bool:
+        k = occ(s)
+        return k >= min_occ and k > 0
+
+    n = len(pattern)
+    mems = []
+    for x in range(n - min_len + 1):
+        e = x + min_len
+        if not passes(pattern[x:e]):
+            continue
+        while e < n and passes(pattern[x : e + 1]):
+            e += 1
+        if x == 0 or not passes(pattern[x - 1 : e]):
+            mems.append((x, e, occ(pattern[x:e])))
+    return mems

@@ -24,12 +24,27 @@ from .rank import rank6 as rank6_plain
 from .tables import MAX_SUPER, RIndexTables
 
 
-def extend_plain(t: RIndexTables, k, kp, s, code, forward=None):
+def extend_plain(t: RIndexTables, k, kp, s, code, forward=None, rank6_fn=None):
     """Plain extension; the 6-wide selects are one-hot, as in the JAX code,
-    so codes outside 0..5 behave alike."""
+    so codes outside 0..5 behave alike. rank6_fn(pos) -> [B, 6] overrides
+    the tables' rank provider (the model-sharded engine's, as the JAX
+    extend's rank6_fn); it is asked for (bk, bk + s) as one batch of 2B
+    positions."""
     dev = k.device
     if forward is None:
         forward = torch.zeros(k.shape, dtype=torch.bool, device=dev)
+    bk = torch.where(forward, kp, k)
+    rank = rank6_fn or (lambda pos: rank6_plain(t, pos))
+    both = rank(torch.cat((bk, bk + s)))  # one batch for both ends
+    return extend_from_ranks(t.C, k, kp, s, code, forward, both[: k.shape[0]],
+                             both[k.shape[0]:])
+
+
+def extend_from_ranks(C, k, kp, s, code, forward, r_k, r_ks):
+    """The extension of (k, kp, s) by `code` given rank6 at the backward
+    interval's ends: r_k at bk, r_ks at bk + s ([B, 6] each; bk = kp on
+    forward lanes, k on the others). C: the index's [7] prefix counts."""
+    dev = k.device
     sym6 = torch.arange(6, device=dev)[None, :]
     comp = torch.as_tensor(COMP_CODE, dtype=torch.int64, device=dev)
     code = code.long()
@@ -38,16 +53,13 @@ def extend_plain(t: RIndexTables, k, kp, s, code, forward=None):
     ext_code = torch.where(forward, comp_val, code)
     comp_ext = torch.where(forward, code, comp_val)
     oh = sym6 == ext_code[:, None]
-    bk = torch.where(forward, kp, k)
     bkp = torch.where(forward, k, kp)
-    both = rank6_plain(t, torch.cat((bk, bk + s)))  # one batch for both ends
-    r_k = both[: k.shape[0]]
-    delta = both[k.shape[0]:] - r_k
+    delta = r_ks - r_k
     pdelta = delta[:, comp]
     excl = torch.cumsum(pdelta, dim=1) - pdelta
     nkp = bkp + torch.where(sym6 == comp_ext[:, None], excl, 0).sum(dim=1)
     ns = torch.where(oh, delta, 0).sum(dim=1)
-    nk = torch.where(oh, r_k + t.C[None, :6], 0).sum(dim=1)
+    nk = torch.where(oh, r_k + C[None, :6], 0).sum(dim=1)
     ok = ns > 0
     nk, nkp, ns = (torch.where(ok, a, 0).to(k.dtype) for a in (nk, nkp, ns))
     return (torch.where(forward, nkp, nk), torch.where(forward, nk, nkp), ns)

@@ -29,7 +29,7 @@ import torch
 
 from .. import _build
 from .dense_rank import gather_rows_plain
-from .fmd import check_kernel_tables, extend_plain, rank_args
+from .fmd import check_kernel_tables, extend_from_ranks, extend_plain, rank_args
 from .tables import RIndexTables
 
 
@@ -126,8 +126,7 @@ def _prepare(codes, align: int = 1):
     return padded, 4 * (L + 1) * (L + 1) + 64
 
 
-def _result(t, se, bwt, size, cnt, steps, capacity, with_stats):
-    pd = t.pos_dtype
+def _result(pd, se, bwt, size, cnt, steps, capacity, with_stats):
     res = MemResult((se >> 16).to(pd), (se & 0xFFFF).to(pd), bwt.to(pd),
                     size.to(pd), cnt, cnt > capacity)
     return (res, {"steps": steps}) if with_stats else res
@@ -172,7 +171,7 @@ def find_mems(t: RIndexTables, codes, lengths, min_len: int, min_occ: int,
         bwt.data_ptr(), size.data_ptr(), cnt.data_ptr(),
         None if steps is None else steps.data_ptr(), _build.stream(dev))
     find_mems.launches += 1
-    return _result(t, se, bwt, size, cnt, steps, capacity, with_stats)
+    return _result(pd, se, bwt, size, cnt, steps, capacity, with_stats)
 
 
 find_mems.launches = 0
@@ -180,40 +179,76 @@ find_mems.launches = 0
 
 def find_mems_plain(t: RIndexTables, codes, lengths, min_len: int,
                     min_occ: int, capacity: int = 32, with_stats: bool = False,
-                    **seed_kw):
+                    rank6_fn=None, **seed_kw):
     """The plain version: all reads in lockstep, one extension per active
-    read per iteration, per-read table reads by direct indexing."""
+    read per iteration, per-read table reads by direct indexing.
+    rank6_fn(pos) -> [2B, 6] overrides the tables' rank provider, as the
+    JAX find_mems_impl's rank6_fn does (the model-sharded engine's; t then
+    gives only C and n)."""
     padded, max_iters = _prepare(codes)
     B, W = padded.shape
     seeds = resolve_seeds_plain(B, W, min_occ, **seed_kw)
-    L = W - 1
-    dev = padded.device
-    M = capacity
-    lane = torch.arange(B, device=dev)
-    lens = lengths.long()
-    z = torch.zeros(B, dtype=torch.int64, device=dev)
-    phase, x, j, k, kp, s, k2, kp2, s2, cnt, steps = (z.clone() for _ in range(11))
-    se = torch.zeros((B, M), dtype=torch.int32, device=dev)
-    bwt = torch.zeros((B, M), dtype=torch.int64, device=dev)
-    size = torch.zeros((B, M), dtype=torch.int64, device=dev)
+    st = _Lockstep(padded, lengths, seeds, W - 1, min_len, min_occ, t.n, capacity)
     for _ in range(max_iters):
-        if not bool((phase != 4).any()):
+        if not bool((st.phase != 4).any()):
             break
-        # phase 0: begin a find_mems_function call at x; phase 5: step 3
+        st.enter()
+        p2 = st.phase == 2
+        nk, nkp, ns = extend_plain(t, st.k, st.kp, st.s, st.code(), forward=p2,
+                                   rank6_fn=rank6_fn)
+        st.advance(nk, nkp, ns)
+    return _result(t.pos_dtype, st.se, st.bwt, st.size, st.cnt.to(torch.int32),
+                   st.steps.to(torch.int32), capacity, with_stats)
+
+
+class _Lockstep:
+    """The state of the lockstep MEM state machine (mems.py:43-283 of the
+    JAX package) over B reads, every field an int64 [B] tensor but the
+    buffers: phase (0 start a call at x, 1..3 the steps, 4 done, 5 step 3
+    next), x, j, the interval k, kp, s, the last complete one k2, kp2, s2,
+    the MEM count and steps; se [B, M] int32 ((start << 16) | end), bwt and
+    size [B, M] int64. enter() and advance() are the two halves of one
+    iteration, around its extension."""
+
+    FIELDS = ("phase", "x", "j", "k", "kp", "s", "k2", "kp2", "s2", "cnt", "steps")
+
+    def __init__(self, padded, lengths, seeds, L, min_len, min_occ, n, capacity):
+        B = padded.shape[0]
+        dev = padded.device
+        self.padded, self.seeds = padded, seeds
+        self.lens = lengths.long()
+        self.min_len, self.min_occ, self.n, self.M = min_len, min_occ, n, capacity
+        self.L = L
+        self.lane = torch.arange(B, device=dev)
+        z = torch.zeros(B, dtype=torch.int64, device=dev)
+        for f in self.FIELDS:
+            setattr(self, f, z.clone())
+        self.se = torch.zeros((B, capacity), dtype=torch.int32, device=dev)
+        self.bwt = torch.zeros((B, capacity), dtype=torch.int64, device=dev)
+        self.size = torch.zeros((B, capacity), dtype=torch.int64, device=dev)
+
+    def code(self):
+        """Each read's code at j (the NUL pad at j == length)."""
+        return self.padded[self.lane, self.j.clamp(0, self.L)]
+
+    def enter(self):
+        """Phase 0 begins a find_mems_function call at x, phase 5 step 3;
+        both are seeded from the resolved seed tiers."""
+        phase, x, j, lens, min_len = self.phase, self.x, self.j, self.lens, self.min_len
         p0 = phase == 0
         finished = p0 & ((x >= lens) | (lens - x < min_len))
         enter1 = p0 & ~finished
         enter3 = phase == 5
         phase = torch.where(finished, 4, torch.where(enter1, 1, phase))
-        phase = torch.where(enter3, 3, phase)
+        self.phase = torch.where(enter3, 3, phase)
         j = torch.where(enter1, x + min_len - 1, j)
-        k = torch.where(enter1, 0, k)
-        kp = torch.where(enter1, 0, kp)
-        s = torch.where(enter1, t.n, s)
-        if seeds is not None:
-            widx = torch.where(enter1, x + min_len - 1, j).clamp(0, L)
-            rk, rkp, rs, rl = seeds[lane, widx].long().unbind(1)
-            okrow = (rs >= min_occ) & (rs > 0) & (rl > 0)
+        k = torch.where(enter1, 0, self.k)
+        kp = torch.where(enter1, 0, self.kp)
+        s = torch.where(enter1, self.n, self.s)
+        if self.seeds is not None:
+            widx = torch.where(enter1, x + min_len - 1, j).clamp(0, self.L)
+            rk, rkp, rs, rl = self.seeds[self.lane, widx].long().unbind(1)
+            okrow = (rs >= self.min_occ) & (rs > 0) & (rl > 0)
             can1 = enter1 & (min_len > rl) & okrow
             can3 = enter3 & (j - rl > x) & okrow
             j = torch.where(can1, x + min_len - 1 - rl,
@@ -222,20 +257,21 @@ def find_mems_plain(t: RIndexTables, codes, lengths, min_len: int,
             k = torch.where(can, rk, k)
             kp = torch.where(can, rkp, kp)
             s = torch.where(can, rs, s)
+        self.j, self.k, self.kp, self.s = j, k, kp, s
 
-        # one extension step for every active read
+    def advance(self, nk, nkp, ns):
+        """The transitions and emissions (mems.py:213-281 of the JAX
+        package) after the extension (nk, nkp, ns) of every read."""
+        phase, x, j, lens, cnt = self.phase, self.x, self.j, self.lens, self.cnt
+        nk, nkp, ns = nk.long(), nkp.long(), ns.long()
         p1, p2, p3 = phase == 1, phase == 2, phase == 3
         act = p1 | p2 | p3
-        c = padded[lane, j.clamp(0, L)]
-        nk, nkp, ns = extend_plain(t, k, kp, s, c, forward=p2)
-        fail = act & ((ns < min_occ) | (ns <= 0))
-
-        # transitions (mems.py:213-281)
+        fail = act & ((ns < self.min_occ) | (ns <= 0))
         p1_fail = p1 & fail
         p1_ok = p1 & ~fail
         p1_boundary = p1_ok & ((j == x) | (j == 0))
         p1_cont = p1_ok & ~p1_boundary
-        e1 = x + min_len
+        e1 = x + self.min_len
         p1_to3 = p1_boundary & (e1 >= lens)
         p1_to2 = p1_boundary & ~(e1 >= lens)
         p2_fail = p2 & fail
@@ -248,36 +284,213 @@ def find_mems_plain(t: RIndexTables, codes, lengths, min_len: int,
         p3_cont = p3_ok & ~p3_done
 
         upd2 = p1_boundary | p2_ok  # bint2 bookkeeping
-        k2 = torch.where(upd2, nk, k2)
-        kp2 = torch.where(upd2, nkp, kp2)
-        s2 = torch.where(upd2, ns, s2)
+        self.k2 = torch.where(upd2, nk, self.k2)
+        self.kp2 = torch.where(upd2, nkp, self.kp2)
+        self.s2 = torch.where(upd2, ns, self.s2)
 
         emit = p1_to3 | p2_fail | p2_to3
         e_val = torch.where(p1_to3, e1, torch.where(p2_fail, j, lens))
-        put = emit & (cnt < M)
-        rows, cols = lane[put], cnt[put]
-        se[rows, cols] = (x[put].to(torch.int32) << 16) | e_val[put].to(torch.int32)
-        bwt[rows, cols] = k2[put]
-        size[rows, cols] = s2[put]
-        cnt = cnt + emit.long()
+        put = emit & (cnt < self.M)
+        rows, cols = self.lane[put], cnt[put]
+        self.se[rows, cols] = (x[put].to(torch.int32) << 16) | e_val[put].to(torch.int32)
+        self.bwt[rows, cols] = self.k2[put]
+        self.size[rows, cols] = self.s2[put]
+        self.cnt = cnt + emit.long()
 
-        x_new = torch.where(p1_fail | p3_fail, j + 1,
-                            torch.where(p3_done, x + 1, x))
+        self.x = torch.where(p1_fail | p3_fail, j + 1, torch.where(p3_done, x + 1, x))
         phase = torch.where(p1_fail | p3_fail | p3_done, 0, phase)
         phase = torch.where(p1_to2, 2, phase)
-        phase = torch.where(emit, 5, phase)
+        self.phase = torch.where(emit, 5, phase)
         j = torch.where(p1_cont | p3_cont, j - 1, j)
         j = torch.where(p1_to2 | p1_to3, e1, j)
         j = torch.where(p2_cont, j + 1, j)
-        j = torch.where(p2_to3, lens, j)
+        self.j = torch.where(p2_to3, lens, j)
         keep_new = p1_cont | p1_to2 | p2_cont | p3_cont
-        k = torch.where(keep_new, nk, k)
-        kp = torch.where(keep_new, nkp, kp)
-        s = torch.where(keep_new, ns, s)
-        k = torch.where(emit, 0, k)  # step 3 restarts from the full interval
-        kp = torch.where(emit, 0, kp)
-        s = torch.where(emit, t.n, s)
-        x = x_new
-        steps = steps + act.long()
-    return _result(t, se, bwt, size, cnt.to(torch.int32),
-                   steps.to(torch.int32), capacity, with_stats)
+        k = torch.where(keep_new, nk, self.k)
+        kp = torch.where(keep_new, nkp, self.kp)
+        s = torch.where(keep_new, ns, self.s)
+        self.k = torch.where(emit, 0, k)  # step 3 restarts from the full interval
+        self.kp = torch.where(emit, 0, kp)
+        self.s = torch.where(emit, self.n, s)
+        self.steps = self.steps + act.long()
+
+
+class StepState(NamedTuple):
+    """The device state of the lockstep engine (find_mems_lockstep) over B
+    reads, updated in place by mem_step: phase, x, j, cnt, steps [B] int32;
+    k, kp, s, k2, kp2, s2 [B] and bwt, size [B, M] of the position type; se
+    [B, M] int32; pos [2B] the positions of the next rank queries (bk, then
+    bk + s; 0 for reads that are not active)."""
+
+    phase: torch.Tensor
+    x: torch.Tensor
+    j: torch.Tensor
+    k: torch.Tensor
+    kp: torch.Tensor
+    s: torch.Tensor
+    k2: torch.Tensor
+    kp2: torch.Tensor
+    s2: torch.Tensor
+    cnt: torch.Tensor
+    se: torch.Tensor
+    bwt: torch.Tensor
+    size: torch.Tensor
+    steps: torch.Tensor
+    pos: torch.Tensor
+
+
+def step_state(B: int, capacity: int, dtype: torch.dtype, device) -> StepState:
+    """A zeroed StepState for B reads (every read in phase 0 at x = 0)."""
+    def z(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    i32 = torch.int32
+    return StepState(phase=z(B, dt=i32), x=z(B, dt=i32), j=z(B, dt=i32), k=z(B), kp=z(B),
+                     s=z(B), k2=z(B), kp2=z(B), s2=z(B), cnt=z(B, dt=i32),
+                     se=z(B, capacity, dt=i32), bwt=z(B, capacity), size=z(B, capacity),
+                     steps=z(B, dt=i32), pos=z(2 * B))
+
+
+def _super_add(ranks, pos, super_base, super_shift):
+    """ranks + the superblock base of each position's superblock (two-level
+    rows), the superblock index clamped into the table."""
+    sb = (pos.long() >> super_shift).clamp(0, super_base.shape[0] - 1)
+    return ranks.long() + super_base[sb, :6].long()
+
+
+def mem_step_plain(state: StepState, ranks, C, n: int, padded, lengths, seeds,
+                   read_len: int, min_len: int, min_occ: int, super_base=None,
+                   super_shift: int = 0) -> int:
+    """One lockstep iteration, in place on `state`, by _Lockstep's halves:
+    with ranks ([2B, 6]: rank6 at state.pos, summed over the shards, plus
+    super_base's row of each position where the rows are two-level), the
+    extension of every active read and its transitions; then the entry into
+    the next iteration and its query positions. Returns the number of reads
+    active after it."""
+    B, M = state.se.shape
+    st = _Lockstep(padded, lengths, seeds, read_len, min_len, min_occ, n, M)
+    for f in _Lockstep.FIELDS:
+        setattr(st, f, getattr(state, f).long())
+    st.se, st.bwt, st.size = state.se.clone(), state.bwt.long(), state.size.long()
+    if ranks is not None:
+        r = ranks.long()
+        if super_base is not None:
+            r = _super_add(r, state.pos, super_base, super_shift)
+        forward = st.phase == 2
+        nk, nkp, ns = extend_from_ranks(C.long(), st.k, st.kp, st.s, st.code(), forward,
+                                        r[:B], r[B:])
+        st.advance(nk, nkp, ns)
+    st.enter()
+    live = (st.phase >= 1) & (st.phase <= 3)
+    bk = torch.where(st.phase == 2, st.kp, st.k)
+    for f in _Lockstep.FIELDS:
+        getattr(state, f).copy_(getattr(st, f))
+    state.se.copy_(st.se)
+    state.bwt.copy_(st.bwt)
+    state.size.copy_(st.size)
+    state.pos.copy_(torch.cat((torch.where(live, bk, 0), torch.where(live, bk + st.s, 0))))
+    return int(live.sum())
+
+
+def mem_step(state: StepState, ranks, C, n: int, padded, lengths, seeds, read_len: int,
+             min_len: int, min_occ: int, super_base=None, super_shift: int = 0,
+             active=None) -> None:
+    """One lockstep iteration (csrc/memstep.cu), as mem_step_plain, in place
+    on `state`: padded [B, stride] int8 codes (stride >= L + 1 for reads of
+    at most L = read_len codes, code 0 past each read), lengths [B] int32,
+    seeds [B, L + 1, 4] (resolve_seeds) or None, C [7] and ranks [2B, 6]
+    (None: enter the first iteration only) of
+    the position type, super_base [n_super, 6 + shift] int64 or None.
+    `active` (int32 [1], zeroed by the caller) receives the number of reads
+    active after the launch. On the card one launch, counted; on the CPU
+    mem_step_plain (which returns the count)."""
+    if state.pos.device.type == "cpu":
+        live = mem_step_plain(state, ranks, C, n, padded, lengths, seeds, read_len, min_len,
+                              min_occ, super_base, super_shift)
+        if active is not None:
+            active += live
+        return
+    dev = state.pos.device
+    pd = state.k.dtype
+    if pd not in (torch.int32, torch.int64):
+        raise ValueError(f"mem_step: int32 or int64 positions, not {pd}")
+    B, M = state.se.shape
+    W = read_len + 1
+    if lengths.shape != (B,) or padded.shape[0] != B or padded.shape[1] < W:
+        raise ValueError("mem_step: padded [B, stride >= read_len + 1] and lengths [B]")
+    if seeds is not None and tuple(seeds.shape) != (B, W, 4):
+        raise ValueError(f"mem_step: seeds [{B}, {W}, 4]")
+    if ranks is not None and tuple(ranks.shape) != (2 * B, 6):
+        raise ValueError(f"mem_step: ranks [{2 * B}, 6], not {tuple(ranks.shape)}")
+
+    def ptr(name, a, dtype):
+        return _build.check(name, a, dtype, dev)
+
+    sup = (None, 0, 0, 0)
+    if super_base is not None:
+        sup = (ptr("super_base", super_base, torch.int64), super_base.shape[0],
+               super_base.shape[1], int(super_shift))
+    _build.launch(
+        "pgt_mem_step64" if pd == torch.int64 else "pgt_mem_step",
+        None if ranks is None else ptr("ranks", ranks, pd), *sup, ptr("C", C, pd),
+        ptr("codes", padded, torch.int8), padded.shape[1],
+        ptr("lengths", lengths, torch.int32),
+        None if seeds is None else ptr("seeds", seeds, pd), B, W, int(min_len),
+        int(min_occ), int(n), M,
+        *(ptr(f, getattr(state, f), getattr(state, f).dtype) for f in StepState._fields[:14]),
+        ptr("pos", state.pos, pd), None if active is None else ptr("active", active, torch.int32),
+        _build.stream(dev))
+    mem_step.launches += 1
+
+
+mem_step.launches = 0
+
+#: find_mems_lockstep reads the count of active reads every this many iterations
+ACTIVE_CHECK_EVERY = 8
+
+
+def find_mems_lockstep(rank, C, n: int, codes, lengths, min_len: int, min_occ: int,
+                       capacity: int = 32, with_stats: bool = False, super_base=None,
+                       super_shift: int = 0, **seed_kw):
+    """The lockstep MEM engine over a rank provider that answers a whole
+    batch at once: the model-sharded engine's (parallel/engine.py), where
+    rank(pos) [2B] -> [2B, 6] sums the shards' partials (an all_reduce over
+    the model group, or every shard launched on one card); two-level rows'
+    superblock bases (super_base, super_shift) are added by the step, after
+    the sum. C [7] of the position type on the reads' device, n the BWT size.
+
+    An iteration is the rank query of the positions the last mem_step
+    launch wrote (2B of them, as the JAX find_mems_impl asks its rank6_fn
+    inside its while_loop), then one mem_step launch. The number of
+    active reads is read every ACTIVE_CHECK_EVERY iterations (the finished
+    reads' iterations are no-ops), within _prepare's bound; every rank of a model
+    group sees the same reads and ranks, so all leave at the same iteration.
+    Returns MemResult (with_stats: and {"steps": [B], "iters": iterations}),
+    equal to find_mems and to find_mems_plain on the same reads."""
+    dev = codes.device
+    pd = C.dtype
+    padded, max_iters = _prepare(codes, align=8)
+    B, W = codes.shape[0], codes.shape[1] + 1
+    seeds = resolve_seeds(B, W, min_occ, **seed_kw)
+    if seeds is not None and seeds.dtype != pd:
+        raise ValueError(f"find_mems_lockstep: seed tables of {seeds.dtype} beside "
+                         f"positions of {pd}")
+    lens = lengths.to(torch.int32).contiguous()
+    state = step_state(B, capacity, pd, dev)
+    active = torch.zeros(1, dtype=torch.int32, device=dev)
+    args = (C, n, padded, lens, seeds, codes.shape[1], min_len, min_occ, super_base,
+            super_shift)
+    mem_step(state, None, *args)
+    iters = 0
+    while iters < max_iters:
+        ranks = rank(state.pos)
+        check = iters % ACTIVE_CHECK_EVERY == ACTIVE_CHECK_EVERY - 1
+        if check:
+            active.zero_()
+        mem_step(state, ranks, *args, active=active if check else None)
+        iters += 1
+        if check and int(active) == 0:
+            break
+    res = MemResult((state.se >> 16).to(pd), (state.se & 0xFFFF).to(pd), state.bwt,
+                    state.size, state.cnt, state.cnt > capacity)
+    return (res, {"steps": state.steps, "iters": iters}) if with_stats else res

@@ -20,6 +20,12 @@ place in it being its stream index: per pass of 8 bits of the label (one
 pass up to C = 255), a tile histogram, one scan of the histograms and the
 placement (csrc/merge.cu). The plain version computes each row's rank in
 its component by a stable sort.
+
+merge_rows_shard is one data shard's part of the cross-card merge
+(parallel/merge.py): a row's stream index is offsets[c] + base[c] + its
+rank within c on the shard, base[c] being the rows of c on earlier shards;
+the same sort, with one more launch that counts the shard's rows of each
+component for the exchange that gives base.
 """
 
 from __future__ import annotations
@@ -61,24 +67,97 @@ def merge_rows_plain(comp: torch.Tensor, stream: torch.Tensor,
     return torch.where(inside, stream[at.clamp(0, t - 1)], 0)
 
 
+def _check_inputs(name: str, comp, stream, offsets) -> None:
+    if comp.dim() != 1 or stream.dim() != 1 or offsets.dim() != 1 or not offsets.numel():
+        raise ValueError(f"{name}: comp [n], stream [t] and offsets [C + 1] are 1-d")
+    if offsets.numel() - 1 >= 2**31 - 1:
+        raise ValueError(f"{name}: {offsets.numel() - 1} components do not fit an int32 label")
+
+
 def merge_rows(comp: torch.Tensor, stream: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     """tag [n] int64, as merge_rows_plain; on the card three launches a pass
     of the sort (one pass up to C = 255), each counted; the plain version on
     the CPU."""
-    if comp.dim() != 1 or stream.dim() != 1 or offsets.dim() != 1 or not offsets.numel():
-        raise ValueError("merge_rows: comp [n], stream [t] and offsets [C + 1] are 1-d")
+    _check_inputs("merge_rows", comp, stream, offsets)
     if comp.device.type == "cpu":
         return merge_rows_plain(comp, stream, offsets)
+    tag, n_launches = _sort_and_gather(comp, stream, offsets, None)
+    merge_rows.launches += n_launches
+    return tag
+
+
+merge_rows.launches = 0
+
+
+def merge_rows_shard_plain(comp: torch.Tensor, stream: torch.Tensor, offsets: torch.Tensor,
+                           base_of) -> torch.Tensor:
+    """One data shard's rows of the cross-card merge by the definition: the
+    shard's per-component counts (bincount), base = base_of(counts) [C]
+    int64 (the rows of each component on earlier shards), then each row's
+    tag stream[offsets[c] + base[c] + its rank within c here], 0 where c is
+    outside [0, C) or the index outside the stream."""
+    n, C, t = comp.numel(), offsets.numel() - 1, stream.numel()
+    c = comp.long()
+    inside = (c >= 0) & (c < C)
+    counts = torch.bincount(c[inside], minlength=C)[:C]
+    base = base_of(counts).to(torch.int64)
+    key = torch.where(inside, c, C)
+    order = torch.sort(key, stable=True).indices
+    first = torch.searchsorted(key[order], torch.arange(C + 1, device=comp.device))
+    rank = torch.empty(n, dtype=torch.int64, device=comp.device)
+    rank[order] = torch.arange(n, device=comp.device) - first[key[order]]
+    if not t:
+        return torch.zeros(n, dtype=torch.int64, device=comp.device)
+    kc = key.clamp(max=max(C - 1, 0))
+    at = offsets[kc] + base[kc] + rank
+    return torch.where(inside & (at >= 0) & (at < t), stream[at.clamp(0, t - 1)], 0)
+
+
+def merge_rows_shard(comp: torch.Tensor, stream: torch.Tensor, offsets: torch.Tensor,
+                     base_of) -> torch.Tensor:
+    """One data shard's rows of the cross-card merge (parallel/merge.py), as
+    merge_rows_shard_plain. On the card: one launch counts the shard's rows
+    of each component (pgt_merge_hist); base_of(counts) returns the rows of
+    each component on earlier shards (the caller's all_gather and exclusive
+    prefix, outside the kernel; on one card zeros); then merge_rows' sort
+    with each component's adjustment adj[c] = offsets[c] + base[c] -
+    (the shard's rows of components below c), read by its last pass. Every
+    launch counted; the plain version on the CPU."""
+    _check_inputs("merge_rows_shard", comp, stream, offsets)
+    if comp.device.type == "cpu":
+        return merge_rows_shard_plain(comp, stream, offsets, base_of)
+    dev = comp.device
+    C = offsets.numel() - 1
+    counts = torch.zeros(max(C, 1), dtype=torch.int64, device=dev)
+    if comp.numel() and C:
+        _build.launch("pgt_merge_hist", _build.check("comp", comp, torch.int32, dev),
+                      comp.numel(), C, counts.data_ptr(), _build.stream(dev))
+        merge_rows_shard.launches += 1
+    counts = counts[:C]
+    base = base_of(counts).to(device=dev, dtype=torch.int64)
+    local_start = torch.cumsum(counts, 0) - counts
+    adj = (offsets[:C] + base - local_start).contiguous()
+    tag, n_launches = _sort_and_gather(comp, stream, offsets, adj if C else None)
+    merge_rows_shard.launches += n_launches
+    return tag
+
+
+merge_rows_shard.launches = 0
+
+
+def _sort_and_gather(comp, stream, offsets, adj):
+    """merge_rows' launches, the last pass reading stream[place + adj[c]]
+    (adj None: the place itself): (tag, the number of launches)."""
     dev = comp.device
     n, C, t = comp.numel(), offsets.numel() - 1, stream.numel()
-    if C >= 2**31 - 1:
-        raise ValueError(f"merge_rows: {C} components do not fit an int32 label")
     tag = torch.empty(n, dtype=torch.int64, device=dev)
     if not n:
-        return tag
+        return tag, 0
     comp_p = _build.check("comp", comp, torch.int32, dev)
     stream_p = _build.check("stream", stream, torch.int64, dev) if t else None
     _build.check("offsets", offsets, torch.int64, dev)
+    adj_p = None if adj is None else _build.check("adj", adj, torch.int64, dev)
+    n_launches = 0
     tiles = -(-n // TILE)
     st = _build.stream(dev)
     passes = merge_passes(C)
@@ -92,18 +171,14 @@ def merge_rows(comp: torch.Tensor, stream: torch.Tensor, offsets: torch.Tensor) 
         rows_p = None if rows is None else rows.data_ptr()
         _build.launch("pgt_merge_count", comp_p, keys_p, n, C, shift, radix, tiles,
                       counts.data_ptr(), st)
-        merge_rows.launches += 1
         _build.launch("pgt_merge_scan", counts.data_ptr(), counts.numel(), st)
-        merge_rows.launches += 1
         keys_out = None if last else torch.empty(n, dtype=torch.int32, device=dev)
         rows_out = None if last else torch.empty(n, dtype=torch.int64, device=dev)
         _build.launch("pgt_merge_place", comp_p, keys_p, rows_p, n, C, shift, radix, tiles,
                       counts.data_ptr(), None if last else keys_out.data_ptr(),
-                      None if last else rows_out.data_ptr(), stream_p, t, tag.data_ptr(), st)
-        merge_rows.launches += 1
+                      None if last else rows_out.data_ptr(), stream_p, t, adj_p,
+                      tag.data_ptr(), st)
+        n_launches += 3
         # the inputs are dropped only once the launch that reads them is queued
         keys, rows = keys_out, rows_out
-    return tag
-
-
-merge_rows.launches = 0
+    return tag, n_launches

@@ -41,7 +41,7 @@ from ..utils.alphabet import BASE_CODES, KP_WEIGHT
 from .dense_rank import gather_rows
 from .fmd import check_kernel_tables, rank_args
 from .rank import rank6
-from .tables import RIndexTables
+from .tables import DeferredTables, RIndexTables
 
 #: tables past this size are rebuilt per process instead of cached: the
 #: device-to-host fetch and the disk round trip cost more than the build
@@ -241,7 +241,7 @@ def device_budget(device) -> int | None:
             - torch.cuda.memory_allocated(device))
 
 
-def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
+def get_mer_table(idx, m: int, tables: RIndexTables | DeferredTables, path=None,
                   max_bytes: int | None = None):
     """(table [4^m_used, 3] on the tables' device in their position dtype,
     m_used), as pangenome_index_tpu/ops/mertable.py:get_mer_table: m is
@@ -253,15 +253,17 @@ def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
     (mer_table_bytes) fit; else a step down, named on stderr in the
     reference's words. The budget is max_bytes, by default what the device
     has free (device_budget; none on the CPU), and is decided before
-    anything is allocated. `path`: a function of m, or a file name for m
-    only, or None; a table past CACHE_MAX_BYTES skips the cache. Below
+    anything is allocated. DeferredTables are built at the first miss (and
+    the budget read again after them); a cache hit needs none. `path`: a
+    function of m, or a file name for m only, or None; a table past CACHE_MAX_BYTES skips the cache. Below
     min_m it raises MemoryError with the sizes: the port has no host build
     behind the device's."""
     path_fn = path if callable(path) else (lambda mt: path if mt == m else None)
     min_m = max(m - 2, 4)
-    if max_bytes is None:
+    budget_of_device = max_bytes is None
+    if budget_of_device:
         max_bytes = device_budget(tables.device)
-    item, depth = tables.C.element_size(), last_depth(tables)
+    item = tables.pos_dtype.itemsize
     for m_try in range(m, min_m - 1, -1):
         key = mer_table_key(idx, m_try)
         table_bytes = (4 ** m_try) * 3 * item
@@ -276,6 +278,11 @@ def get_mer_table(idx, m: int, tables: RIndexTables, path=None,
                     return (torch.from_numpy(table).to(tables.device, tables.pos_dtype),
                             m_try)
             print(f"mer cache {mpath}: stale key, rebuilding", file=sys.stderr)
+        if isinstance(tables, DeferredTables):  # a miss: the build needs them now
+            tables = tables.get()
+            if budget_of_device:
+                max_bytes = device_budget(tables.device)
+        depth = last_depth(tables)
         need = mer_table_bytes(m_try, item, depth)
         if max_bytes is not None and need > max_bytes:
             print(f"mer table: device build failed at m={m_try} (MemoryError: "

@@ -76,19 +76,30 @@ def planes_rank6(planes: torch.Tensor, pos: torch.Tensor,
     (row << 6) >> super_shift as in the kernels."""
     ri = (pos.long() >> 6).clamp(0, planes.shape[0] - 1)
     row = planes[ri]
+    out = plane_rows_rank6(row, pos)
+    if super_S is None:
+        return out
+    sup = super_S[(ri << 6) >> super_shift]
+    comp = torch.as_tensor(COMP_CODE, dtype=torch.int64, device=pos.device)
+    return out.long() + sup[:, comp + 1] - sup[:, comp]
+
+
+def plane_rows_rank6(row: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """rank6 [B, 6] int32 at pos [B] from each position's bit-plane row
+    [B, 16] (its row's count below q = COMP_CODE[code] and one popcount of
+    the positions before pos whose planes spell q); relative to the
+    superblock for two-level rows."""
     words = row[:, :6].contiguous().view(torch.int64)              # [B, 3]
     before = (torch.ones_like(pos, dtype=torch.int64) << (pos.long() & 63)) - 1
     # S[0..6] back out of the overlapping pairs (S[1], S[2]) ... (S[5], S[6])
     below = torch.cat((torch.zeros_like(row[:, :1]), row[:, 6:7], row[:, 7::2]), dim=1)
-    sup = None if super_S is None else super_S[(ri << 6) >> super_shift]
     out = []
     for code in range(6):
         q = int(COMP_CODE[code])
         hit = before
         for b in range(3):
             hit = hit & (words[:, b] if (q >> b) & 1 else ~words[:, b])
-        r = below[:, q + 1] - below[:, q] + _popcount64(hit).to(torch.int32)
-        out.append(r if sup is None else r.long() + sup[:, q + 1] - sup[:, q])
+        out.append(below[:, q + 1] - below[:, q] + _popcount64(hit).to(torch.int32))
     return torch.stack(out, dim=1)
 
 

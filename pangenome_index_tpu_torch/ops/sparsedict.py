@@ -42,7 +42,7 @@ from ..utils.alphabet import BASE_CODES, KP_WEIGHT
 from .fmd import check_kernel_tables, rank_args
 from .mertable import device_budget
 from .rank import rank6
-from .tables import RIndexTables
+from .tables import RIndexTables, resolve_tables
 
 #: longest supported window: 2 bits/base must fit an int64 key
 MAX_S = 31
@@ -256,7 +256,8 @@ def get_sparse_dict(idx, s: int, path=None, min_keep: int = 1, tables=None):
     runs on their device (build_sparse_dict_device), keys come back as a
     numpy array for the native window pass and vals as a tensor on that
     device, where the MEM engine reads them, from the cache or from the
-    build. There is no fallback: with tables a failed build raises."""
+    build (DeferredTables are built only for the build). There is no
+    fallback: with tables a failed build raises."""
     key = sparse_dict_key(idx, s, min_keep)
     keys = vals = None
     if path is not None and os.path.exists(path):
@@ -275,7 +276,7 @@ def get_sparse_dict(idx, s: int, path=None, min_keep: int = 1, tables=None):
             vals = torch.from_numpy(np.ascontiguousarray(vals)).to(tables.device)
         return keys, vals
     if tables is not None:
-        keys_d, vals = build_sparse_dict_device(idx, tables, s, min_keep)
+        keys_d, vals = build_sparse_dict_device(idx, resolve_tables(tables), s, min_keep)
         keys, vals_np = keys_d.cpu().numpy(), None
     else:
         keys, vals = build_sparse_dict(idx, s, min_keep)

@@ -124,6 +124,31 @@ def _pick_dtype(*maxvals: int) -> torch.dtype:
     return torch.int32 if all(v < 2**31 for v in maxvals) else torch.int64
 
 
+def pos_dtype_for(idx: RIndex) -> torch.dtype:
+    """The position type rindex_to_device gives an index's tables by default."""
+    return _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
+
+
+class DeferredTables:
+    """Tables that a seed tier's build reads, made by `build` only when one
+    needs them (a cache miss); their device and position type are known
+    without them."""
+
+    def __init__(self, build, device, pos_dtype: torch.dtype):
+        self._build, self._t = build, None
+        self.device, self.pos_dtype = torch.device(device), pos_dtype
+
+    def get(self) -> RIndexTables:
+        if self._t is None:
+            self._t = self._build()
+        return self._t
+
+
+def resolve_tables(t):
+    """RIndexTables from tables or DeferredTables (built now if need be)."""
+    return t.get() if isinstance(t, DeferredTables) else t
+
+
 def _put(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
@@ -394,7 +419,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     past 2^31; rows are two-level at n >= 2^31 or with an explicit
     super_shift (the kernels take two-level rows with int64 positions)."""
     device = torch.device(device)
-    pd = dtype or _pick_dtype(idx.n, idx.n_seq * idx.max_len, idx.n_runs)
+    pd = dtype or pos_dtype_for(idx)
     ckpt = ckpt_super = pos_to_run = rec = rank_table = None
     if checkpoint:
         rows, sup = build_ckpt_rows(idx, super_shift=super_shift)

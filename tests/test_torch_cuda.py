@@ -1299,3 +1299,133 @@ def test_merge_tags_on_device_equals_the_cpu(dev):
                  merge.merge_tags(whole, idx, comp_tags)):
         np.testing.assert_array_equal(on_card.pos_enc, want.pos_enc)
         np.testing.assert_array_equal(on_card.bwt_start, want.bwt_start)
+
+
+# --- the multi-card path's kernels: a model shard's rank6 partials
+# (csrc/shard.cu), the lockstep MEM step (csrc/memstep.cu), the data
+# shard's merge (csrc/merge.cu) ------------------------------------------
+
+from pangenome_index_tpu_torch.ops import merge as merge_ops  # noqa: E402
+from pangenome_index_tpu_torch.ops import shard_rank  # noqa: E402
+from pangenome_index_tpu_torch.parallel import merge as pmerge  # noqa: E402
+from pangenome_index_tpu_torch.parallel import sharding  # noqa: E402
+
+#: the sharded table forms: checkpoint rows, two-level rows (int64), runs
+SHARD_FORMS = {"checkpoint": dict(checkpoint=True),
+               "two-level": dict(checkpoint=True, super_shift=11, dtype=torch.int64),
+               "runs": dict()}
+
+
+def shard_positions(idx, t, S, dtype, dev):
+    """Random positions, 0 and n, and each shard's first position and the
+    one before it (rows, or run heads)."""
+    rng = np.random.default_rng(9)
+    edges = [0, idx.n, max(idx.n - 1, 0)]
+    if t.ckpt is not None:
+        rows = t.ckpt.shape[0] // S
+        edges += [min(64 * rows * m + d, idx.n) for m in range(S) for d in (-1, 0)]
+    else:
+        runs = t.run_start.shape[0] // S
+        edges += [min(int(t.run_start[runs * m]) + d, idx.n) for m in range(S) for d in (-1, 0)]
+    pos = np.concatenate((rng.integers(0, idx.n + 1, 5000), np.maximum(edges, 0)))
+    return torch.from_numpy(pos).to(dev, dtype)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4, 8])
+@pytest.mark.parametrize("form", list(SHARD_FORMS))
+def test_shard_rank6(dev, index, form, S):
+    """Each shard's partials equal the plain version's, written and
+    accumulated; summed over the shards they are the whole index's rank6."""
+    idx, _ = index
+    t = sharding.pad_rindex_tables(idx, S, **SHARD_FORMS[form])
+    on_card = sharding.virtual_shards(t, S, dev)
+    on_cpu = sharding.virtual_shards(t, S, "cpu")
+    pos = shard_positions(idx, t, S, t.pos_dtype, dev)
+    before = (shard_rank.shard_ckpt_rank6.launches, shard_rank.shard_run_rank6.launches)
+    for a, b in zip(on_card.shards, on_cpu.shards):
+        assert torch.equal(a.rank6(pos).cpu(), b.rank6(pos.cpu()))
+    got = on_card(pos)
+    assert torch.equal(got.cpu(), on_cpu(pos.cpu()))
+    assert torch.equal(got.cpu().long(), rank.rank6(t, pos.cpu()).long())
+    after = (shard_rank.shard_ckpt_rank6.launches, shard_rank.shard_run_rank6.launches)
+    assert sum(after) - sum(before) == 2 * S
+
+
+@pytest.mark.parametrize("tiers", ["none", "both"])
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("form", list(SHARD_FORMS))
+def test_lockstep_engine(dev, index, form, S, tiers):
+    """The lockstep engine over S shards on the card: every step equal to
+    the plain step on the same state and ranks, and the result equal to K3's
+    on the same reads."""
+    idx, lines = index
+    t = sharding.pad_rindex_tables(idx, S, **SHARD_FORMS[form])
+    reads = synth_reads(lines, 300, 80, error_rate=0.02, seed=4)
+    codes = np.zeros((len(reads), 80), np.int32)
+    lens = np.array([len(r) for r in reads], np.int32)
+    for i, r in enumerate(reads):
+        codes[i, : len(r)] = BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+    c, n = (torch.from_numpy(a).to(dev) for a in (codes, lens))
+    kw = {}
+    if tiers == "both":
+        mk, mv = read_mer_keys_fast(codes, lens, 6)
+        keys, vals = build_sparse_dict(idx, 15)
+        _, _, di = read_windows_fast(codes, lens, 15, keys)
+        kw = dict(mer_table=torch.from_numpy(build_mer_table(idx, 6)).to(dev, t.pos_dtype),
+                  mer_keys=torch.from_numpy(np.ascontiguousarray(mk, np.int32)).to(dev),
+                  mer_valid=torch.from_numpy(mv).to(dev), mer_m=6,
+                  sdict_vals=torch.from_numpy(vals).to(dev, t.pos_dtype),
+                  sdict_idx=torch.from_numpy(np.ascontiguousarray(di, np.int32)).to(dev),
+                  sdict_m=15)
+    prov = sharding.virtual_shards(t, S, dev)
+    # one step at a time against the plain step, on copies of the state
+    padded, _ = mems._prepare(c, align=8)
+    B, W = c.shape[0], c.shape[1] + 1
+    seeds = mems.resolve_seeds(B, W, 1, **kw)
+    st = mems.step_state(B, 8, t.pos_dtype, dev)
+    args = (prov.C, prov.n, padded, n, seeds, c.shape[1], 12, 1, prov.super_base,
+            prov.super_shift)
+    mems.mem_step(st, None, *args)
+    for it in range(40):
+        ranks = prov.partial(st.pos)
+        cpu = mems.StepState(*(f.cpu().clone() for f in st))
+        active = torch.zeros(1, dtype=torch.int32, device=dev)
+        mems.mem_step(st, ranks, *args, active=active)
+        live = mems.mem_step_plain(cpu, ranks.cpu(), prov.C.cpu(), prov.n, padded.cpu(),
+                                   n.cpu(), None if seeds is None else seeds.cpu(),
+                                   c.shape[1], 12, 1,
+                                   None if prov.super_base is None else prov.super_base.cpu(),
+                                   prov.super_shift)
+        for a, b in zip(st, cpu):
+            assert torch.equal(a.cpu(), b), it
+        assert int(active) == live
+    t_k3 = rindex_to_device(idx, dev, **({"checkpoint": True, "super_shift": 11,
+                                          "dtype": torch.int64} if form == "two-level"
+                                         else {"checkpoint": True}))
+    want = mems.find_mems(t_k3, c, n, 12, 1, capacity=8, **kw)
+    got = mems.find_mems_lockstep(prov.partial, prov.C, prov.n, c, n, 12, 1, capacity=8,
+                                  super_base=prov.super_base, super_shift=prov.super_shift,
+                                  **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.long(), w.long())
+
+
+@pytest.mark.parametrize("n,C", [(1, 1), (4096, 3), (4097, 3), (100_000, 300),
+                                 (200_003, 70_000)])
+@pytest.mark.parametrize("S", [1, 2, 4])
+def test_merge_rows_shard(dev, n, C, S):
+    """The data shards' merge on the card equals its plain version shard by
+    shard and merge_rows on all the rows."""
+    rng = np.random.default_rng(n + C)
+    comp = rng.integers(-1, C, n).astype(np.int32)
+    counts = np.bincount(comp[comp >= 0], minlength=C)
+    stream = rng.integers(0, 1 << 40, int(counts.sum())).astype(np.int64)
+    offsets = np.zeros(C + 1, np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    on = [torch.from_numpy(a).to(dev) for a in (comp, stream, offsets)]
+    want = merge_ops.merge_rows(*on)
+    before = merge_ops.merge_rows_shard.launches
+    got = pmerge.merge_virtual_shards(*on, S)
+    assert merge_ops.merge_rows_shard.launches > before
+    assert torch.equal(got, want)
+    assert torch.equal(pmerge.merge_virtual_shards(*(a.cpu() for a in on), S), want.cpu())

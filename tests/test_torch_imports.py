@@ -31,6 +31,9 @@ assert cli.main(["find-mems", *common, "12", "1", "--device", "cpu",
                  "--tags-format", "bytecode"]) == 0
 assert cli.main(["query-tags", *common, "--device", "cpu",
                  "--tags-format", "bytecode"]) == 0
+# the multi-card path: the mesh's ranks in gloo processes of their own
+assert cli.main(["find-mems", *common, "12", "1", "--device", "cpu",
+                 "--tags-format", "bytecode", "--mesh", "1x2"]) == 0
 assert cli.main(["build-sdict", d + "/x.ri", "-s", "9", "--device", "cpu"]) == 0
 assert np.load(d + "/x.ri.sdict9.npz")["keys"].size > 0
 open(d + "/x.txt", "wb").write(b"\\n".join(lines) + b"\\n")
@@ -73,6 +76,7 @@ leaked = sorted(m for m in sys.modules if foreign(m))
 print(len(names), leaked, file=sys.stderr)
 assert not leaked, leaked
 assert len(names) >= 20, names
+assert "pangenome_index_tpu_torch.parallel.engine" in names
 """
 
 #: an import of the JAX package, or a process started on one of its modules
@@ -83,9 +87,10 @@ FOREIGN = re.compile(
 
 
 def test_port_imports_no_jax(tmp_path):
-    """Every module of the port and its commands (--device cpu; build-rindex,
-    print-stats, convert-tags, tags-check, extract-text and build-tags have
-    no device; merge-tags on the host and on the CPU device), in a fresh
+    """Every module of the port (parallel/ too) and its commands (--device
+    cpu, find-mems also over a 1x2 mesh; build-rindex, print-stats,
+    convert-tags, tags-check, extract-text and build-tags have no device;
+    merge-tags on the host and on the CPU device), in a fresh
     interpreter: no jax and no pangenome_index_tpu module gets loaded."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
