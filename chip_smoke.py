@@ -83,6 +83,14 @@ launch count set to 0 just before a path and read just after it:
    40,000,080 rows merged over 2 and 4 virtual data shards equal to
    merge_rows; then the four kernels against their plain versions. NCCL
    between cards is not driven (one card);
+7d. the api path (api_path), the package's public functions at the bench's
+   size: build_index of the bench text's lines equal to the bench index
+   (its suffix array held against the index's samples, tails and BWT);
+   to_device (its defaults: the card, dense records; then dense=False,
+   bucketed runs) and find_mems on all 16384 reads equal to the native
+   engine, each call one K3 launch; load_rindex and load_tags of the bench
+   files with and without use_mmap, field for field; the end-to-end demo
+   (end_to_end.main) on the card printing the lines it prints on the CPU;
 8. serve-2g, an index past 2^31 (k_copy_index: every bench line repeated
    108 times, n = 2,160,000,864; int64 positions over two-level checkpoint
    rows): serve.prepare/run on all 16384 reads (m=13 seed table, s=19
@@ -279,6 +287,9 @@ PATH_KERNELS = {
                     "resolve_seeds", "find_mems", "query_tags_batch", "sdict_level", "count"),
     # print-stats, convert-tags and tags-check: host work, no kernel
     "formats": (),
+    # the public functions: find_mems through both to_device forms (no seed
+    # tier, as the JAX package's), the end-to-end demo (K3 and K6)
+    "api": ("find_mems", "query_tags_batch"),
     # the model-sharded engine over 2 and 4 shards on one card (checkpoint
     # rows, two-level rows, runs), find-mems --mesh 1x1 over a one-rank
     # NCCL group (the one-card kernels under it), the cross-card merge
@@ -776,6 +787,140 @@ def mesh_path(env):
                 design=n2 * (4 + 4 + 4 + 8) + 2 * 8 * (C + 1) * -(-n2 // merge_ops.TILE))
     for path in ("find_mesh.txt", "find_mesh.txt.err"):
         os.remove(os.path.join(env.cli_dir, path))
+
+
+#: the index fields build_index must give as the bench index holds them
+#: (the bench cache keeps no suffix array: that is checked on its own)
+API_INDEX_FIELDS = ("run_sym", "run_start", "run_len", "cum", "C", "n", "n_seq", "max_len",
+                    "samples", "last_sorted", "last_to_run")
+#: the table forms of the public to_device: its default, and dense=False
+API_FORMS = (("dense records", {}), ("bucketed runs", {"dense": False}))
+
+
+def api_path(env):
+    """The package's public functions at the bench's size, as a library user
+    calls them: build_index of the bench text's lines (the native SA-IS
+    build) equal to the bench index, which bench_workload builds from the
+    same lines by the same native route but caches without its suffix
+    array; the suffix array build_index keeps is held against the bench
+    index's samples and tails and against its BWT (each row's character is
+    the one before its suffix). to_device (cuda: dense records, then
+    dense=False: bucketed runs) and find_mems on all 16384 reads, every
+    count and buffered (start, end, bwt_start, size) equal to the native
+    engine's; the counts of the path show that each find_mems call was one
+    K3 launch (the public find_mems, as the JAX package's, passes no seed
+    tier: resolve_seeds is not launched). load_rindex and load_tags of the
+    bench files with and without use_mmap, every field equal. The
+    end-to-end demo on the card, its lines equal to those on the CPU (K3
+    and K6 on the card). Then K3 alone by events on the same tables and
+    reads, beside the API's wall. `env` holds main()'s helpers and the
+    bench workload; returns the seconds of each step."""
+    import numpy as np
+    import torch
+
+    import pangenome_index_tpu_torch as port
+    from pangenome_index_tpu_torch import end_to_end, native
+    from pangenome_index_tpu_torch.ops import mems
+    from pangenome_index_tpu_torch.utils.alphabet import CODE_TO_BYTE
+
+    check, log, card, idx = env.check, env.log, env.card, env.idx
+    seconds = {}
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[label] = time.perf_counter() - t0
+        return out
+
+    def same_fields(got, expect, fields, what, dtypes=True):
+        for f in fields:
+            g, e = getattr(got, f), getattr(expect, f)
+            ok = np.array_equal(g, e) and (
+                not dtypes or np.asarray(g).dtype == np.asarray(e).dtype)
+            check(ok, f"{what}: field {f} differs")
+
+    built = timed("build_index", lambda: port.build_index(env.lines))
+    same_fields(built, idx, API_INDEX_FIELDS, "build_index against the bench index")
+    n, max_len = built.n, built.max_len
+    check(built.sa_seq.shape == built.sa_pos.shape == (n,), "build_index: suffix array shape")
+    check(np.array_equal(built.seq_lengths, [len(l) + 1 for l in env.lines]),
+          "build_index: sequence lengths")
+    packed = built.sa_seq.astype(np.int64) * max_len + built.sa_pos
+    check(np.array_equal(packed[idx.run_start], idx.samples),
+          "build_index: suffix array at the run heads differs from the bench samples")
+    check(np.array_equal(np.sort(packed[idx.run_start + idx.run_len - 1]), idx.last_sorted),
+          "build_index: suffix array at the run tails differs from the bench tails")
+    del packed
+    text = np.frombuffer(b"".join(l + b"\n" for l in env.lines), np.uint8)
+    starts = np.concatenate(([0], np.cumsum(built.seq_lengths[:-1])))
+    row = starts[built.sa_seq] + built.sa_pos
+    before = np.where(built.sa_pos > 0, text[np.maximum(row - 1, 0)], ord("\n"))
+    check(np.array_equal(before, np.repeat(CODE_TO_BYTE[idx.run_sym], idx.run_len)),
+          "build_index: the suffix array does not give the bench index's BWT")
+    del text, starts, row, before
+    log(f"api: build_index of {len(env.lines)} lines (n={n}): every index field equal "
+        f"to the bench index's, the suffix array gives its samples, tails and BWT; "
+        f"{seconds['build_index']:.4f} s (native SA-IS, RLE, the index from the suffix "
+        f"array, on {os.cpu_count()} cores) {card}")
+
+    s, e, b, z, cnt = timed("native find_mems", lambda: native.find_mems_native(
+        idx, env.codes, env.lens, env.min_len, env.min_occ, capacity=env.mem_cap,
+        n_threads=0))
+    eff = np.minimum(cnt, env.mem_cap)
+    expect = [list(zip(s[i, :k].tolist(), e[i, :k].tolist(), b[i, :k].tolist(),
+                       z[i, :k].tolist())) for i, k in enumerate(eff.tolist())]
+    port.reset_launches()
+    tables = {}
+    for form, kw in API_FORMS:
+        tables[form] = t = timed(f"to_device ({form})", lambda: port.to_device(built, **kw))
+        check(t.run_start.device == env.dev, f"to_device ({form}) is not on {env.dev}")
+        check((t.rec is not None) == (form == "dense records")
+              and (t.bucket_lo is not None) == (form == "bucketed runs"),
+              f"to_device ({form}) gave other rank tables")
+        k3_before = port.KERNELS["find_mems"].launches
+        got = timed(f"find_mems ({form})", lambda: port.find_mems(
+            t, env.reads, env.min_len, env.min_occ, capacity=env.mem_cap))
+        check(port.KERNELS["find_mems"].launches == k3_before + 1,
+              f"find_mems through {form} was not one K3 launch")
+        check(got == expect, f"find_mems through {form} differs from the native engine")
+    log(f"api: find_mems on all {len(env.reads)} reads through dense records and bucketed "
+        f"runs: {int(cnt.sum())} MEMs, every count and buffered slot equal to the native "
+        f"engine's")
+    demo = timed(f"end_to_end ({env.dev})", lambda: end_to_end.main(device=env.dev))
+    env.read_launches("api")
+    got = env.launches["api"]
+    check(got["find_mems"] == len(API_FORMS) + 1,
+          "the api path's find_mems calls were not one K3 launch each")
+    check(got["resolve_seeds"] == 0, "the public find_mems resolved seed tiers")
+    check(demo == timed("end_to_end (cpu)", lambda: end_to_end.main(device="cpu")),
+          "the demo's lines on the card differ from those on the CPU")
+    log(f"api: the end-to-end demo on the card prints the lines it prints on the CPU "
+        f"({len(demo)} lines)")
+
+    for path, load, fields in (
+            (env.ri_path, port.load_rindex, API_INDEX_FIELDS),
+            (env.tags_path, port.load_tags, ("pos_enc", "bwt_start", "total"))):
+        name = os.path.basename(path)
+        read = timed(f"load {name}", lambda: load(path))
+        mapped = timed(f"load {name} (use_mmap)", lambda: load(path, use_mmap=True))
+        same_fields(mapped, read, fields, f"{name} loaded through the mapping")
+        same_fields(read, idx if load is port.load_rindex else env.tags, fields,
+                    f"{name} against the workload's", dtypes=False)
+    log(f"api: load_rindex and load_tags of the bench files with and without use_mmap: "
+        f"every field equal")
+
+    # K3 alone (events around its launch) on the API's tables and reads, as
+    # the public find_mems launches it: no seed tier
+    codes_t = torch.from_numpy(env.codes).to(env.dev)
+    lens_t = torch.from_numpy(env.lens).to(env.dev)
+    for label, sec in seconds.items():
+        log(f"api: {label} {sec:.4f} s {card}")
+    for form, t in tables.items():
+        ms = env.time_ms(lambda: mems.find_mems(t, codes_t, lens_t, env.min_len,
+                                                env.min_occ, capacity=env.mem_cap), 5)
+        log(f"api: K3 alone through {form}, no seed tier: {ms:.4f} ms (device, events), "
+            f"beside the API's find_mems wall {seconds[f'find_mems ({form})']:.4f} s {card}")
+    return seconds
 
 
 def log(msg):
@@ -2265,6 +2410,14 @@ def main() -> int:
         ri_path=ri_path, tags_path=tags_path, fm_reads=fm_reads, sdict_path=sdict_path,
         merge_inputs=env_ns.merge_inputs, launches=launches, kernels=kernels))
     env_ns.merge_inputs = None
+
+    # --- 10d. the api path: the package's public functions (api_path) ----
+    phase("api")
+    api_path(SimpleNamespace(
+        check=check, log=log, card=card, idx=idx, lines=lines, reads=reads, codes=codes,
+        lens=lens, tags=tags, ri_path=ri_path, tags_path=tags_path, dev=dev,
+        min_len=MIN_LEN, min_occ=MIN_OCC, mem_cap=MEM_CAP, time_ms=time_ms,
+        read_launches=read_launches, launches=launches))
 
     # --- 11. serve-2g: an index of n >= 2^31 through the int64 kernels ---
     # The k-copy index (k_copy_index): the bench index with every line

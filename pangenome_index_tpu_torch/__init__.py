@@ -45,6 +45,14 @@ Layout:
                    build-rindex, print-stats, convert-tags, tags-check,
                    extract-text, build-tags and merge-tags commands
   gather_probe.py  the gather-rate probe (random 64-byte row gathers)
+  end_to_end.py    the demo: graph -> GBZ -> index -> MEMs -> tags through
+                   the public functions
+
+The public functions are the JAX package's: load_rindex, load_tags
+(use_mmap: parse out of a mapping of the file), load_gbz, build_index (the
+native SA-IS build; no host-sort fallback), to_device (on "cuda" unless the
+caller names another device; dense records, bucketed runs with dense=False)
+and find_mems.
 
 Every function that makes tensors takes an explicit `device`. A kernel
 wrapper launches its kernel for CUDA tensors (and counts the launch in its
@@ -93,27 +101,73 @@ def reset_launches() -> None:
         fn.launches = 0
 
 
-def to_device(idx, device, dense: bool = True, **kw):
-    """r-index -> tables on `device` (dense records by default, as the JAX
-    package's to_device; checkpoint=True adds checkpoint rows)."""
+def load_rindex(path, use_mmap: bool = False):
+    """Load a .ri r-index file (legacy or encoded format); use_mmap parses
+    it out of a read-only mapping of the file."""
+    from .formats.ri import load_file
+
+    return load_file(path, use_mmap=use_mmap)
+
+
+def load_tags(path, use_mmap: bool = False):
+    """Load a .tags tag-array file (any of the three on-disk formats);
+    use_mmap parses it out of a read-only mapping of the file."""
+    from .formats.tags import load_tags_file
+
+    return load_tags_file(path, use_mmap=use_mmap)
+
+
+def load_gbz(path):
+    """Load a GBZ graph container (simple-sds format)."""
+    from .formats.gbz import load_gbz as _load
+
+    return _load(path)
+
+
+def build_index(text_lines, keep_sa: bool = True):
+    """Build an r-index from newline-free sequence byte strings by the native
+    SA-IS build (src/cpp, compiled at first use). A failed native build
+    raises with its error: there is no host-sort fallback. With keep_sa the
+    index keeps its suffix array (sa_seq, sa_pos) and the sequence lengths,
+    which the tag build reads.
+
+    NOTE: FMD-based MEM finding assumes the text contains both strands;
+    include each sequence's reverse complement (the reference's bidirectional
+    workflow) when serving find_mems."""
+    from .formats.rlbwt import rlbwt_from_text
+    from .models.rindex import build_rindex_from_sa
+    from .native import build_bwt_native
+
+    bwt, da, sa_pos, seq_lengths = build_bwt_native(list(text_lines))
+    return build_rindex_from_sa(rlbwt_from_text(bwt.tobytes()), da, sa_pos,
+                                seq_lengths, keep_sa=keep_sa)
+
+
+def to_device(idx, device="cuda", dense: bool = True, **kw):
+    """r-index -> tables on `device` for find_mems, with the JAX package's
+    to_device fields: dense records by default, bucketed runs with
+    dense=False (bucketed=False asks for base tables, which only the plain
+    versions read); checkpoint=True adds checkpoint rows. Runs on the card
+    unless the caller asks for the CPU."""
+    import torch
+
     from .ops.tables import rindex_to_device
 
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"to_device: no CUDA device here (device={device!r}; "
+                           "pass 'cpu' for the plain versions)")
+    kw.setdefault("bucketed", True)
     return rindex_to_device(idx, device, dense=dense, **kw)
 
 
 def find_mems(tables, reads, min_len: int, min_occ: int, capacity: int = 64):
     """Batched MEM finding on the tables' device. reads: list of byte
     strings. Returns per-read lists of (start, end, bwt_start, size)."""
-    import numpy as np
     import torch
 
-    from .utils.alphabet import BYTE_TO_CODE
+    from .cli import pack_reads
 
-    L = max(len(r) for r in reads)
-    codes = np.zeros((len(reads), L), np.int32)
-    lens = np.array([len(r) for r in reads], np.int32)
-    for i, r in enumerate(reads):
-        codes[i, : len(r)] = BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+    codes, lens = pack_reads(reads)
     dev = tables.device
     res = _find_mems_batch(tables, torch.from_numpy(codes).to(dev),
                            torch.from_numpy(lens).to(dev), min_len, min_occ,

@@ -815,7 +815,7 @@ def cmd_build_sdict(args, seconds: dict) -> int:
     host = args.engine == "host"
     dev = torch.device("cpu") if host else _device(args.device)
     mark = _phases(dev, seconds)
-    idx = ri.load_file(args.ri)
+    idx = ri.load_file(args.ri, use_mmap=True)
     mark("load")
     s = args.s if args.s > 0 else min(args.min_len - 1, 31)
     out = args.output or f"{args.ri}.sdict{s}.npz"

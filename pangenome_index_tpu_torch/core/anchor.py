@@ -104,6 +104,27 @@ def anchor_kmers(idx: RIndex, keys: np.ndarray, positions: np.ndarray, k: int):
     return lo[hit], (hi - lo + 1)[hit], positions[j_c[hit]]
 
 
+def predecessor_map(gbz: GBZ):
+    """For every oriented node (gbwt node id), the list of (pred gbwt node,
+    pred base), by flipping successor edges (follow_edges backwards,
+    algorithm.hpp:311). An oriented node without a record has no edges."""
+    from ..formats.gbz import node_seq
+
+    preds: dict[int, list[int]] = {}
+    for nid in gbz.graph.node_ids:
+        for orient in (0, 1):
+            node = 2 * int(nid) + orient
+            try:
+                rec = gbz.index.record(node)
+            except IndexError:
+                continue
+            for succ, _ in rec.edges:
+                if succ != 0:
+                    preds.setdefault(succ, []).append(node)
+    return {node: [(p, node_seq(gbz, p >> 1, bool(p & 1))[-1]) for p in set(plist)]
+            for node, plist in preds.items()}
+
+
 def det_predecessor_csr(gbz: GBZ):
     """(dst_sorted, base, pred_pos): for every oriented node, its
     DETERMINISTIC predecessor entries — bases carried by exactly one

@@ -76,6 +76,12 @@ def visits_to_text(gbz: GBZ, visits: np.ndarray) -> np.ndarray:
     return np.where(rev[vi] == 1, _COMP_LUT[ch], ch)
 
 
+def path_tag_array(gbz: GBZ, seq_id: int) -> np.ndarray:
+    """Compact-packed graph position of every character of sequence seq_id
+    (terminator excluded), in path order."""
+    return visits_to_tags(gbz, np.array(gbz.index.extract(seq_id), np.int64))
+
+
 def text_seq_map(gbz: GBZ, n_seq: int) -> list[int]:
     """GBWT sequence id of each text sequence: text sequence i is GBWT
     sequence i when the text holds both strands, GBWT sequence 2i when it

@@ -1,8 +1,7 @@
 """ByteCode varint codec (7-bit groups, 0x80 continuation).
 
-The port's copy of pangenome_index_tpu/formats/bytecode.py, cut to what the
-.ri and .tags codecs call. Little-endian 7-bit groups; the final byte of
-each value has the high bit clear:
+The port's copy of pangenome_index_tpu/formats/bytecode.py. Little-endian
+7-bit groups; the final byte of each value has the high bit clear:
 
     while value > 0x7F: emit (value & 0x7F) | 0x80; value >>= 7
     emit value
@@ -26,6 +25,20 @@ def write_values(values) -> bytes:
     for v in values:
         write_value(out, v)
     return bytes(out)
+
+
+def read_value(data, loc: int) -> tuple[int, int]:
+    """Read one value at byte offset `loc`; return (value, next_loc)."""
+    byte = data[loc]
+    loc += 1
+    result = byte & 0x7F
+    offset = 7
+    while byte & 0x80:
+        byte = data[loc]
+        loc += 1
+        result += (byte & 0x7F) << offset
+        offset += 7
+    return result, loc
 
 
 def decode_stream(data) -> np.ndarray:

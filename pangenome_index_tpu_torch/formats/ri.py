@@ -31,6 +31,7 @@ block whose cum-rank vector is the default 8-entry zero vector.
 from __future__ import annotations
 
 import io
+import mmap
 
 import numpy as np
 
@@ -257,7 +258,9 @@ def _decode_legacy_runs(buf: io.BytesIO, n_blocks: int, ncp: int,
 
 
 def load(data) -> RIndex:
-    """Load either format. `data` may be bytes or any seekable file-like."""
+    """Load either format. `data` may be bytes or any seekable file-like (a
+    mapping of the file included: only the sections being parsed are read
+    out of it)."""
     buf = io.BytesIO(data) if isinstance(data, (bytes, bytearray)) else data
     tag = int.from_bytes(buf.read(4), "little")
     if tag != TAG:
@@ -358,6 +361,12 @@ def file_sections(data: bytes) -> list[tuple[str, int]]:
     return sections
 
 
-def load_file(path) -> RIndex:
+def load_file(path, use_mmap: bool = False) -> RIndex:
+    """Load a .ri file. use_mmap parses straight out of a read-only mapping
+    of the file: only the sections being parsed are copied, never the whole
+    file."""
     with open(path, "rb") as fh:
-        return load(fh.read())
+        if not use_mmap:
+            return load(fh.read())
+        with mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            return load(mm)

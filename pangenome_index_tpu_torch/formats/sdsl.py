@@ -129,6 +129,13 @@ def write_int_vector(buf, values, width: int, fixed_width: int | None = None) ->
     buf.write(_values_to_words(values, width).tobytes())
 
 
+def read_bit_vector(buf) -> np.ndarray:
+    nbits = read_u64(buf)
+    nwords = (nbits + 63) // 64
+    words = np.frombuffer(buf.read(nwords * 8), dtype="<u8")
+    return _words_to_bits(words, nbits)
+
+
 def write_bit_vector(buf, bits: np.ndarray) -> None:
     bits = np.asarray(bits, dtype=np.uint8)
     write_u64(buf, bits.size)
@@ -149,6 +156,17 @@ class SelectMcl:
     superblock_width: int
     mini_or_long: np.ndarray  # bit per superblock (may be empty)
     blocks: list[tuple[np.ndarray, int]]  # (values, width) per superblock
+
+
+def read_select_mcl(buf) -> SelectMcl:
+    arg_cnt = read_u64(buf)
+    if arg_cnt == 0:
+        return SelectMcl(0, np.zeros(0, np.int64), 1, np.zeros(0, np.uint8), [])
+    sb = (arg_cnt + SUPER_BLOCK_SIZE - 1) // SUPER_BLOCK_SIZE
+    superblock, sb_width = read_int_vector(buf)
+    mini_or_long = read_bit_vector(buf)
+    blocks = [read_int_vector(buf) for _ in range(sb)]
+    return SelectMcl(arg_cnt, superblock, sb_width, mini_or_long, blocks)
 
 
 def skip_select_mcl(buf) -> None:

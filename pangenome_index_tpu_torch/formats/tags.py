@@ -24,6 +24,7 @@ identical.
 from __future__ import annotations
 
 import io
+import mmap
 
 import numpy as np
 
@@ -170,7 +171,8 @@ def convert_algorithm(raw: bytes, compact: bool = False, compat: bool = True) ->
 
 
 def _as_buf(data):
-    """bytes -> fresh BytesIO; file-likes pass through, rewound."""
+    """bytes -> fresh BytesIO; file-likes (a mapping of the file included)
+    pass through, rewound."""
     if isinstance(data, (bytes, bytearray)):
         return io.BytesIO(data)
     data.seek(0)
@@ -294,6 +296,13 @@ def load_tags(data: bytes, fmt: str = "auto") -> TagArray:
     return read_compressed_bytecode(data)
 
 
-def load_tags_file(path, fmt: str = "auto") -> TagArray:
+def load_tags_file(path, use_mmap: bool = False, fmt: str = "auto") -> TagArray:
+    """Load a .tags file. use_mmap parses straight out of a read-only
+    mapping of the file: the compressed formats copy only the sections being
+    parsed; an algorithm-format or wrapped payload is sliced out of the
+    mapping whole, as its parse needs it as bytes."""
     with open(path, "rb") as fh:
-        return load_tags(fh.read(), fmt=fmt)
+        if not use_mmap:
+            return load_tags(fh.read(), fmt=fmt)
+        with mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ) as mm:
+            return load_tags(mm, fmt=fmt)

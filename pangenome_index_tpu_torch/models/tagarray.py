@@ -22,6 +22,19 @@ MAX_TAG_LEN = 1 << LENGTH_BITS
 START_EVERY_K = 10       # the reference samples every 10th run start
 
 
+def encode_compact(node_id, is_rev, offset):
+    """(node_id, is_rev, offset) -> the compact packed graph position."""
+    return ((np.asarray(node_id, dtype=np.int64) << 11)
+            | (np.asarray(is_rev, dtype=np.int64) << 10)
+            | (np.asarray(offset, dtype=np.int64) & 0x3FF))
+
+
+def decode_compact(enc):
+    """The compact packed graph position -> (node_id, is_rev, offset)."""
+    enc = np.asarray(enc, dtype=np.int64)
+    return enc >> 11, (enc >> 10) & 1, enc & 0x3FF
+
+
 def split_long_runs(pos_enc: np.ndarray, lengths: np.ndarray):
     """Split runs >= MAX_TAG_LEN as the reference writers do: a run of length
     l becomes l // 511 pieces of 511 plus an l % 511 remainder piece."""

@@ -45,3 +45,15 @@ BASE_CODES = np.array([1, 2, 3, 5], dtype=np.int64)
 CODE_TO_BASE = np.full(8, -1, dtype=np.int64)
 for _b, _c in enumerate(BASE_CODES):
     CODE_TO_BASE[_c] = _b
+
+
+def encode_bytes(data) -> np.ndarray:
+    """Map bytes / uint8 array to dense codes (int8)."""
+    arr = (np.frombuffer(data, dtype=np.uint8) if isinstance(data, (bytes, bytearray))
+           else np.asarray(data, dtype=np.uint8))
+    return BYTE_TO_CODE[arr]
+
+
+def decode_codes(codes) -> bytes:
+    """Map dense codes back to bytes."""
+    return CODE_TO_BYTE[np.asarray(codes)].tobytes()

@@ -1429,3 +1429,35 @@ def test_merge_rows_shard(dev, n, C, S):
     assert merge_ops.merge_rows_shard.launches > before
     assert torch.equal(got, want)
     assert torch.equal(pmerge.merge_virtual_shards(*(a.cpu() for a in on), S), want.cpu())
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_public_api_on_the_card(dev, index, dense):
+    """The public route to_device -> find_mems on the card (K3 through
+    DenseRank, and through BucketRank with dense=False; one launch a call,
+    no seed tier) equals the same route on the CPU; to_device places on the
+    card by default."""
+    import pangenome_index_tpu_torch as px
+
+    idx, lines = index
+    reads = synth_reads(lines, 300, 100, error_rate=0.02, seed=5)
+    t = px.to_device(idx, dense=dense)
+    assert t.run_start.device.type == "cuda"
+    assert (t.rec is not None) == dense and (t.bucket_lo is not None) != dense
+    before, seeds = mems.find_mems.launches, mems.resolve_seeds.launches
+    got = px.find_mems(t, reads, 20, 1, capacity=8)
+    assert mems.find_mems.launches == before + 1
+    assert mems.resolve_seeds.launches == seeds
+    assert got == px.find_mems(px.to_device(idx, "cpu", dense=dense), reads, 20, 1,
+                               capacity=8)
+
+
+def test_end_to_end_on_the_card(dev):
+    """The demo's lines with K3 and K6 on the card equal its lines on the
+    CPU."""
+    from pangenome_index_tpu_torch import end_to_end
+
+    before = (mems.find_mems.launches, tagquery.query_tags_batch.launches)
+    assert end_to_end.main(device=dev) == end_to_end.main(device="cpu")
+    assert mems.find_mems.launches == before[0] + 1
+    assert tagquery.query_tags_batch.launches > before[1]

@@ -2,14 +2,28 @@
 seeded numpy inputs through the JAX package's host function and the port's
 copy of it (index model and synthetic data, the .ri and .tags codecs, the
 seed-table and dictionary builds, the read-window passes, the host MEM finder
-and the native engine's binding). One case per copied function."""
+and the native engine's binding, the alphabet, sdsl, ByteCode and graph
+helpers, and the public loaders and build_index). One case per copied
+function."""
 
+import dataclasses
+import io
 import os
 
 import numpy as np
 import pytest
 
+import pangenome_index_tpu as jpx
+import pangenome_index_tpu_torch as px
 from pangenome_index_tpu import cli as jcli
+from pangenome_index_tpu import utils as jutils
+from pangenome_index_tpu.core import anchor as janchor
+from pangenome_index_tpu.core import tagbuild as jtagbuild
+from pangenome_index_tpu.core.gbwt_build import random_pangenome_gbz
+from pangenome_index_tpu.formats import gbz as jgbz
+from pangenome_index_tpu.formats import sdsl as jsdsl
+from pangenome_index_tpu.formats.gbz_write import save_gbz
+from pangenome_index_tpu.models import tagarray as jtagarray
 from pangenome_index_tpu import native as jnative
 from pangenome_index_tpu.formats import bytecode as jbytecode
 from pangenome_index_tpu.formats import ri as jri
@@ -19,8 +33,11 @@ from pangenome_index_tpu.models import oracle as joracle
 from pangenome_index_tpu.ops import mertable as jmertable
 from pangenome_index_tpu.ops import sparsedict as jsparsedict
 from pangenome_index_tpu.utils import synth as jsynth
-from pangenome_index_tpu_torch import cli, native
-from pangenome_index_tpu_torch.formats import bytecode, ri, tags as tagfmt
+from pangenome_index_tpu_torch import cli, native, utils
+from pangenome_index_tpu_torch.core import anchor, tagbuild
+from pangenome_index_tpu_torch.formats import bytecode, ri, sdsl, tags as tagfmt
+from pangenome_index_tpu_torch.models import tagarray
+from pangenome_index_tpu_torch.models.rindex import RIndex
 from pangenome_index_tpu_torch.models.tagarray import TagArray
 from pangenome_index_tpu_torch.models import mems, oracle
 from pangenome_index_tpu_torch.ops import mertable, sparsedict
@@ -376,6 +393,191 @@ def case_oracle(w, tmp_path):
     assert len(got.seq_lengths) == len(w["lines"]) + 1
 
 
+def case_alphabet_helpers(w, tmp_path):
+    """utils re-exports the JAX package's alphabet names with its values, and
+    encode_bytes / decode_codes map as the JAX functions do (bytes, a
+    bytearray, a uint8 array, bytes outside the alphabet)."""
+    names = ("NENDMARKER", "NUC", "SIGMA", "BYTE_TO_CODE", "CODE_TO_BYTE", "COMP_CODE")
+    for name in names:
+        same_arrays((getattr(utils, name),), (getattr(jutils, name),))
+    text = b"".join(w["lines"])[:5000] + b"\nNnXACGT"
+    for data in (text, bytearray(text), np.frombuffer(text, np.uint8), b""):
+        same_arrays((utils.encode_bytes(data),), (jutils.encode_bytes(data),))
+    codes = jutils.encode_bytes(text)
+    assert utils.decode_codes(codes) == jutils.decode_codes(codes)
+    assert utils.decode_codes(codes.astype(np.int64)) == jutils.decode_codes(codes)
+
+
+def case_compact_encoding(w, tmp_path):
+    """encode_compact / decode_compact on every tag run's position."""
+    parts = jtagarray.decode_compact(w["tags"].pos_enc)
+    same_arrays(tagarray.decode_compact(w["tags"].pos_enc), parts)
+    same_arrays((tagarray.encode_compact(*parts),), (jtagarray.encode_compact(*parts),))
+    same_arrays((tagarray.encode_compact(*parts),), (w["tags"].pos_enc,))
+    # scalars, and offsets past the 10-bit field (masked)
+    assert tagarray.encode_compact(7, 1, 1500) == jtagarray.encode_compact(7, 1, 1500)
+
+
+def case_read_bit_vector(w, tmp_path):
+    """read_bit_vector on the JAX writer's bytes: the index's run-head bit
+    vector, 64 bits of it, and an empty one."""
+    heads = np.zeros(w["idx"].n, np.uint8)
+    heads[w["idx"].run_start] = 1
+    for bits in (heads, heads[:64], np.zeros(0, np.uint8)):
+        buf = io.BytesIO()
+        jsdsl.write_bit_vector(buf, bits)
+        got = sdsl.read_bit_vector(io.BytesIO(buf.getvalue()))
+        same_arrays((got,), (jsdsl.read_bit_vector(io.BytesIO(buf.getvalue())),))
+        same_arrays((got.astype(np.uint8),), (bits,))
+
+
+def case_read_select_mcl(w, tmp_path):
+    """read_select_mcl on the JAX writer's bytes: the select structures over
+    the high bits of the run heads' sd_vector (pattern 1 and 0; one with no
+    argument), read to their end, and written back to the same bytes."""
+    idx = w["idx"]
+    high = jsdsl.SdVector(idx.n, idx.run_start.astype(np.int64)).high_bits()
+    for pattern in (1, 0, 7):
+        sel = jsdsl.build_select_mcl(high, pattern)
+        buf = io.BytesIO()
+        jsdsl.write_select_mcl(buf, sel)
+        raw = buf.getvalue() + b"tail"
+        r1, r2 = io.BytesIO(raw), io.BytesIO(raw)
+        got, expect = sdsl.read_select_mcl(r1), jsdsl.read_select_mcl(r2)
+        assert r1.tell() == r2.tell() == len(raw) - 4
+        assert got.arg_cnt == expect.arg_cnt and got.superblock_width == expect.superblock_width
+        same_arrays((got.superblock, got.mini_or_long),
+                    (expect.superblock, expect.mini_or_long))
+        assert len(got.blocks) == len(expect.blocks)
+        for (gv, gw), (ev, ew) in zip(got.blocks, expect.blocks):
+            assert gw == ew
+            same_arrays((gv,), (ev,))
+        out = io.BytesIO()
+        sdsl.write_select_mcl(out, got)
+        assert out.getvalue() == raw[:-4]
+
+
+def case_read_value(w, tmp_path):
+    """read_value walks a ByteCode stream value by value, as the JAX
+    function does (bytes and a mapping-like bytearray)."""
+    values = [0, 1, 127, 128, 16383, 16384, 1 << 35, *w["tags"].pos_enc[:200].tolist()]
+    data = jbytecode.write_values(values)
+    for buf in (data, bytearray(data)):
+        loc, got = 0, []
+        while loc < len(buf):
+            v, nxt = bytecode.read_value(buf, loc)
+            assert (v, nxt) == jbytecode.read_value(buf, loc)
+            got.append(v)
+            loc = nxt
+        assert got == values
+
+
+def demo_graph(tmp_path):
+    """The end-to-end demo's graph (seed 0, 60 nodes, 3 paths) as the JAX
+    writer writes it, loaded by the port's load_gbz and the JAX one."""
+    path = tmp_path / "demo.gbz"
+    save_gbz(random_pangenome_gbz(np.random.default_rng(0), n_nodes=60, n_paths=3), path)
+    g, jg = px.load_gbz(path), jgbz.load_gbz(path)
+    assert g.index.sequences == jg.index.sequences
+    assert g.graph.sequences == jg.graph.sequences
+    return g, jg
+
+
+def case_predecessor_map(w, tmp_path):
+    """Every oriented node's predecessors (node and base, in the JAX order)."""
+    g, jg = demo_graph(tmp_path)
+    got = anchor.predecessor_map(g)
+    assert got == janchor.predecessor_map(jg) and len(got) > 0
+
+
+def case_path_tag_array(w, tmp_path):
+    """Every sequence's graph positions, forward and reverse paths."""
+    g, jg = demo_graph(tmp_path)
+    for i in range(jg.index.sequences):
+        same_arrays((tagbuild.path_tag_array(g, i),), (jtagbuild.path_tag_array(jg, i),))
+
+
+class ReadLog(io.BytesIO):
+    """A file-like with a mapping's interface (read, seek, tell, len and
+    slices) that keeps the size of every read and slice."""
+
+    def __init__(self, data):
+        super().__init__(data)
+        self.sizes = []
+
+    def read(self, n=-1):
+        out = super().read(n)
+        self.sizes.append(len(out))
+        return out
+
+    def __len__(self):
+        return len(self.getbuffer())
+
+    def __getitem__(self, key):
+        out = self.getbuffer()[key]
+        out = out.tobytes() if isinstance(out, memoryview) else out
+        self.sizes.append(len(out) if isinstance(out, bytes) else 1)
+        return out
+
+
+def case_load_rindex_mmap(w, tmp_path):
+    """load_rindex with and without use_mmap, on the encoded and the legacy
+    file: every field the JAX loaders' (both ways) and the index's; the parse
+    of a file-like reads sections, never the whole file."""
+    for name, data in (("enc", jri.serialize_encoded(w["idx"])),
+                       ("legacy", jri.serialize_legacy(w["idx"]))):
+        path = tmp_path / f"{name}.ri"
+        path.write_bytes(data)
+        expect = jpx.load_rindex(path, use_mmap=True)
+        same_index(jpx.load_rindex(path), expect)
+        for use_mmap in (False, True):
+            same_index(px.load_rindex(path, use_mmap=use_mmap), expect)
+            same_index(ri.load_file(path, use_mmap=use_mmap), w["idx"])
+        log = ReadLog(data)
+        same_index(ri.load(log), expect)
+        assert max(log.sizes) < len(data)
+
+
+def case_load_tags_mmap(w, tmp_path):
+    """load_tags with and without use_mmap, on every on-disk format (and a
+    wrapped payload): the JAX loaders' runs, auto-detected and by name; the
+    compressed formats' parse reads sections, never the whole file."""
+    payloads = tag_payloads(w["tags"])
+    payloads["wrapped"] = jtagfmt.wrap_payload(payloads["sdsl"], "sdsl")
+    for fmt, data in payloads.items():
+        path = tmp_path / f"{fmt}.tags"
+        path.write_bytes(data)
+        expect = jtagfmt.load_tags_file(path, use_mmap=True)
+        same_tags(jpx.load_tags(path), expect)
+        same_tags(expect, w["tags"])
+        named = "auto" if fmt == "wrapped" else fmt
+        for use_mmap in (False, True):
+            same_tags(px.load_tags(path, use_mmap=use_mmap), expect)
+            same_tags(tagfmt.load_tags_file(path, use_mmap=use_mmap, fmt=named),
+                      jtagfmt.load_tags_file(path, use_mmap=use_mmap, fmt=named))
+        if fmt in ("sdsl", "bytecode", "bytecode-compact"):
+            log = ReadLog(data)
+            same_tags(tagfmt.load_tags(log, fmt=fmt), expect)
+            assert max(log.sizes) < len(data)
+
+
+def case_build_index(w, tmp_path):
+    """build_index on the index's lines, with and without the suffix array:
+    every field of the JAX build_index's result, values and dtypes; with
+    keep_sa the index's own fields too."""
+    for keep_sa in (True, False):
+        got = px.build_index(w["lines"], keep_sa=keep_sa)
+        expect = jpx.build_index(w["lines"], keep_sa=keep_sa)
+        for f in dataclasses.fields(RIndex):
+            g, e = getattr(got, f.name), getattr(expect, f.name)
+            if e is None:
+                assert g is None, f.name
+            else:
+                same_arrays((g,), (e,))
+        assert (got.sa_seq is not None) == keep_sa
+        same_index(got, w["idx"])
+
+
 CASES = [case_build_synth_index, case_synth_reads, case_synth_tag_array,
          case_ri_round_trip, case_tags_round_trip, case_ri_file_sections,
          case_tags_file_sections, case_convert_algorithm, case_wrap_payload,
@@ -383,7 +585,11 @@ CASES = [case_build_synth_index, case_synth_reads, case_synth_tag_array,
          case_mer_table_key, case_read_mer_keys_fast, case_read_windows_fast,
          case_pack_reads, case_find_all_mems, case_find_mems_native,
          case_query_tags_native, case_format_mems_native,
-         case_native_build_is_the_ports_own, case_locate, case_oracle]
+         case_native_build_is_the_ports_own, case_locate, case_oracle,
+         case_alphabet_helpers, case_compact_encoding, case_read_bit_vector,
+         case_read_select_mcl, case_read_value, case_predecessor_map,
+         case_path_tag_array, case_load_rindex_mmap, case_load_tags_mmap,
+         case_build_index]
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: c.__name__[5:])

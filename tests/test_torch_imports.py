@@ -69,6 +69,19 @@ for engine in (["--engine", "host"], ["--engine", "device", "--device", "cpu"]):
                      merged[-1], *engine]) == 0
 assert open(merged[0], "rb").read() == open(merged[1], "rb").read()
 
+# the public functions and the end-to-end demo, on the CPU
+import pangenome_index_tpu_torch as px
+from pangenome_index_tpu_torch import end_to_end
+built = px.build_index(lines)
+for use_mmap in (False, True):
+    assert px.load_rindex(d + "/x.ri", use_mmap=use_mmap).n == built.n
+    assert px.load_tags(d + "/x.tags", use_mmap=use_mmap).n_runs > 0
+assert px.load_gbz(d + "/whole.gbz").index.sequences == whole.index.sequences
+for dense in (True, False):
+    t = px.to_device(built, "cpu", dense=dense)
+    assert len(px.find_mems(t, synth.synth_reads(lines, 4, 60), 12, 1)) == 4
+assert len(end_to_end.main(device="cpu")) >= 5
+
 def foreign(m):
     return (m == "jax" or m.startswith("jax.") or m == "pangenome_index_tpu"
             or m.startswith("pangenome_index_tpu."))
@@ -90,8 +103,9 @@ def test_port_imports_no_jax(tmp_path):
     """Every module of the port (parallel/ too) and its commands (--device
     cpu, find-mems also over a 1x2 mesh; build-rindex, print-stats,
     convert-tags, tags-check, extract-text and build-tags have no device;
-    merge-tags on the host and on the CPU device), in a fresh
-    interpreter: no jax and no pangenome_index_tpu module gets loaded."""
+    merge-tags on the host and on the CPU device), the public functions and
+    the end-to-end demo on the CPU, in a fresh interpreter: no jax and no
+    pangenome_index_tpu module gets loaded."""
     proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
