@@ -74,14 +74,17 @@ launch count set to 0 just before a path and read just after it:
    then merge_rows (csrc/merge.cu) against its plain version on the whole
    genome's rows, and the BWT kernels' times on its 40 M-row text;
 7c. the mesh path (mesh_path), the multi-card path on this one card: on the
-   serving workload the model-sharded engine (find_mems_lockstep: the
-   lockstep MEM step, then each shard's rank partials, an iteration) over 2
-   and 4 virtual model shards in three forms (checkpoint rows, two-level
-   int64 rows, the run table), every MemResult field equal to K3's on all
-   16384 reads; find-mems --mesh 1x1 over a real one-rank NCCL group,
-   byte-equal to find-mems and the native engine; the graph build's
-   40,000,080 rows merged over 2 and 4 virtual data shards equal to
-   merge_rows; then the four kernels against their plain versions. NCCL
+   serving workload the model-sharded engine (find_mems_lockstep: one
+   launch of the MEM step fused with its shards' rank partials an
+   iteration, the iterations replayed as a CUDA graph) over 2 and 4
+   virtual model shards in three forms (checkpoint rows, two-level int64
+   rows, the run table), every MemResult field equal to K3's on all 16384
+   reads, beside the same iterations launched one by one; the engine and
+   3a/3b's entry points in a one-rank NCCL group joined by this process
+   (the all_reduce captured in the graph); find-mems --mesh 1x1 over such
+   a group, byte-equal to find-mems and the native engine; the graph
+   build's 40,000,080 rows merged over 2 and 4 virtual data shards equal
+   to merge_rows; then the kernels against their plain versions. NCCL
    between cards is not driven (one card);
 7d. the api path (api_path), the package's public functions at the bench's
    size: build_index of the bench text's lines equal to the bench index
@@ -194,7 +197,8 @@ SOURCES = {
     "merge_rows": ("csrc/merge.cu", "pangenome_index_tpu/parallel/merge.py:26", "graph-build"),
     # the multi-card path (mesh): a model shard's rank6 partials over
     # checkpoint rows (int32; int64 two-level) and over runs, the lockstep
-    # MEM step between them, a data shard's merge
+    # MEM step fused with the partials of its shards (3c, which carries 3a
+    # and 3b's bodies), a data shard's merge
     "shard_ckpt_rank6": ("csrc/shard.cu", "pangenome_index_tpu/parallel/sharding.py:120",
                          "mesh"),
     "shard_ckpt_rank6_int64": ("csrc/shard.cu",
@@ -202,9 +206,11 @@ SOURCES = {
                                "shard_ckpt_rank6"),
     "shard_run_rank6": ("csrc/shard.cu", "pangenome_index_tpu/parallel/sharding.py:154",
                         "mesh"),
-    "mem_step": ("csrc/memstep.cu", "pangenome_index_tpu/parallel/engine.py:82", "mesh"),
-    "mem_step_int64": ("csrc/memstep.cu", "pangenome_index_tpu/parallel/engine.py:82", "mesh",
-                       "mem_step"),
+    "mem_step_fused": ("csrc/memstep.cu", "pangenome_index_tpu/parallel/engine.py:82", "mesh"),
+    "mem_step_fused_int64": ("csrc/memstep.cu", "pangenome_index_tpu/parallel/engine.py:82",
+                             "mesh", "mem_step_fused"),
+    "mem_step_fused_runs": ("csrc/memstep.cu", "pangenome_index_tpu/parallel/engine.py:82",
+                            "mesh", "mem_step_fused"),
     "merge_rows_shard": ("csrc/merge.cu", "pangenome_index_tpu/parallel/merge.py:26", "mesh"),
     # the int64 instantiations, on the serve-2g path (n >= 2^31; the rank
     # step of the chain kernels is the two-level ops/rank.py:79,98): the
@@ -291,9 +297,11 @@ PATH_KERNELS = {
     # tier, as the JAX package's), the end-to-end demo (K3 and K6)
     "api": ("find_mems", "query_tags_batch"),
     # the model-sharded engine over 2 and 4 shards on one card (checkpoint
-    # rows, two-level rows, runs), find-mems --mesh 1x1 over a one-rank
-    # NCCL group (the one-card kernels under it), the cross-card merge
-    "mesh": ("shard_ckpt_rank6", "shard_run_rank6", "mem_step", "merge_rows_shard",
+    # rows, two-level rows, runs: the fused step), in a one-rank NCCL group
+    # with distributed_ckpt_rank6 and distributed_rank6 (3a, 3b), find-mems
+    # --mesh 1x1 over such a group (the one-card kernels under it), the
+    # cross-card merge
+    "mesh": ("shard_ckpt_rank6", "shard_run_rank6", "mem_step_fused", "merge_rows_shard",
              "resolve_seeds", "find_mems", "query_tags_batch"),
     "serve-2g": ("mer_level", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level",
                  "tag_upper_bound", "query_tags_batch", "count", "locate_batch"),
@@ -551,39 +559,53 @@ MESH_MID_ITERS = 100   # the MEM step is also checked and timed this many iterat
 MESH_FORMS = {"checkpoint": dict(checkpoint=True),
               "two-level": dict(checkpoint=True, super_shift=MESH_SUPER_SHIFT, dtype="int64"),
               "runs": {}}
+#: the fused step's kernels line entries by form
+FUSED_NAMES = {"checkpoint": "mem_step_fused", "two-level": "mem_step_fused_int64",
+               "runs": "mem_step_fused_runs"}
 
 
 def mesh_path(env):
     """The multi-card path on one card. NCCL between cards is not driven
     here (one card): the model shards and the data shards are virtual, all
-    on this card in this process, their partials summed launch by launch
-    where a mesh sums them by one all_reduce (parallel/sharding.py:
-    virtual_shards, parallel/merge.py:merge_virtual_shards), and the command
-    line's --mesh 1x1 joins a real one-rank NCCL group. Main path (launches
+    on this card in this process, where a mesh sums their partials by one
+    all_reduce (parallel/sharding.py:virtual_shards, parallel/merge.py:
+    merge_virtual_shards), and a real one-rank NCCL group is joined twice:
+    by this process (multihost.spawn_group of one rank, as the command
+    joins it) and by the command line's --mesh 1x1. Main path (launches
     counted): on the serving bench's 16384 reads (m=14 seed table, s=19
     dictionary, capacity 8) the model-sharded engine (find_mems_lockstep:
-    the MEM step, then each shard's rank partials, an iteration) over 2 and
-    4 shards in the checkpoint, two-level and run-table forms, every
-    MemResult field equal to K3's on all reads; find-mems --mesh 1x1 on the
-    bench files byte-equal to find-mems and to the native engine; the
-    graph-build path's 40,000,080 rows merged over 2 and 4 data shards equal
-    to merge_rows. Then each new kernel against its plain version."""
+    one launch of the step fused with the partials of its shards, an
+    iteration; on the card the iterations replayed as a CUDA graph) over 2
+    and 4 shards in the checkpoint, two-level and run-table forms, every
+    MemResult field equal to K3's on all reads and no 3a or 3b launched; in
+    the one-rank NCCL group the engine through make_distributed_mem_step
+    over 2 virtual shards in each form, its all_reduce captured in the
+    graph, equal to K3's, and distributed_ckpt_rank6 (3a) and
+    distributed_rank6 (3b) at the engine's first query positions equal to
+    the tables' rank6; find-mems --mesh 1x1 on the bench files byte-equal
+    to find-mems and to the native engine; the graph-build path's
+    40,000,080 rows merged over 2 and 4 data shards equal to merge_rows.
+    Then the engine's wall beside K3's, one call of it timed in parts (the
+    setup and first launch, the graph's capture and instantiation, the
+    replays' host launches and device time, the reads of the active
+    count), and each kernel against its plain version."""
     import numpy as np
     import torch
 
     from pangenome_index_tpu_torch import KERNELS, reset_launches
     from pangenome_index_tpu_torch.ops import merge as merge_ops
-    from pangenome_index_tpu_torch.ops import mems, shard_rank
+    from pangenome_index_tpu_torch.ops import mems, rank, shard_rank
     from pangenome_index_tpu_torch.mems_probe import MEM_CAP, MER_M, MIN_LEN, MIN_OCC, SDICT_S
+    from pangenome_index_tpu_torch.parallel import engine as pengine
     from pangenome_index_tpu_torch.parallel import merge as pmerge
-    from pangenome_index_tpu_torch.parallel import sharding
+    from pangenome_index_tpu_torch.parallel import multihost, sharding
     from pangenome_index_tpu_torch.serve import prepare
 
     check, log, card, dev = env.check, env.log, env.card, env.dev
     log("mesh path: one card. The model shards and data shards below are virtual (all on "
-        "this card, partials summed on the card in place of NCCL's all_reduce); "
-        "find-mems --mesh 1x1 runs over a real NCCL group of one rank. NCCL traffic "
-        "between cards is not covered: this machine has one.")
+        "this card; the step computes every shard's partials in place of NCCL's all_reduce); "
+        "a one-rank NCCL group is joined by this process and by find-mems --mesh 1x1. NCCL "
+        "traffic between cards is not covered: this machine has one.")
     bt = prepare(env.idx, env.tags, env.codes, env.lens, dev, rank_mode="checkpoint",
                  min_occ=MIN_OCC, mer_m=MER_M, sdict_s=SDICT_S, sdict_path=env.sdict_path)
     tables = {}
@@ -591,6 +613,7 @@ def mesh_path(env):
         kw = {k: (getattr(torch, v) if k == "dtype" else v) for k, v in kw.items()}
         # padded to 4 shards, which also divides into 2
         tables[form] = sharding.pad_rindex_tables(env.idx, max(MESH_SHARDS), device=dev, **kw)
+    n_reads, read_len = bt.codes.shape
 
     def seed_kw(pd):
         return {k: (v.to(pd) if k in ("mer_table", "sdict_vals") else v)
@@ -601,12 +624,69 @@ def mesh_path(env):
                               capacity=MEM_CAP, **bt.seed_kw)
 
     def engine(form, S):
-        t = tables[form]
-        prov = sharding.virtual_shards(t, S, dev)
+        prov = sharding.virtual_shards(tables[form], S, dev)
         return mems.find_mems_lockstep(
-            prov.partial, prov.C, prov.n, bt.codes, bt.lengths, MIN_LEN, MIN_OCC,
+            prov.shards, prov.C, prov.n, bt.codes, bt.lengths, MIN_LEN, MIN_OCC,
             capacity=MEM_CAP, with_stats=True, super_base=prov.super_base,
-            super_shift=prov.super_shift, **seed_kw(t.pos_dtype))
+            super_shift=prov.super_shift, **seed_kw(prov.pos_dtype))
+
+    def step_inputs(form, S):
+        """The virtual shards of `form`, the step's arguments after them,
+        and a zeroed state."""
+        prov = sharding.virtual_shards(tables[form], S, dev)
+        pd = prov.pos_dtype
+        padded, max_iters = mems._prepare(bt.codes, align=8)
+        seeds = mems.resolve_seeds(n_reads, read_len + 1, MIN_OCC, **seed_kw(pd))
+        args = (prov.C, prov.n, padded, bt.lengths, seeds, read_len, MIN_LEN, MIN_OCC,
+                prov.super_base, prov.super_shift)
+        return prov, args, mems.step_state(n_reads, MEM_CAP, pd, dev), max_iters
+
+    def engine_parts(form, S, replays):
+        """One engine call timed in parts, its graph wrapped so that the
+        capture is timed on the host's clock and each of its `replays`
+        replays by CUDA events on the stream (device time) and on the
+        host's clock (the launch): seconds of the wall, the setup before
+        the capture (the shards' views, seed resolution, state, the first
+        launch), the capture
+        and instantiation, the replays' host launches, the rest of the loop
+        (the host blocked in its reads of the active count, and the
+        result), the replays' device time, and the loop's wall."""
+        orig, t = mems._graph_of, {"launch": 0.0}
+        events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                  for _ in range(replays)]
+        used = []
+
+        def timed_graph_of(iterations, d):
+            t["capture"] = time.perf_counter()
+            replay = orig(iterations, d)
+            t["loop"] = time.perf_counter()
+
+            def timed():
+                a, b = events[len(used)]
+                a.record()
+                h = time.perf_counter()
+                replay()
+                t["launch"] += time.perf_counter() - h
+                b.record()
+                used.append((a, b))
+
+            return timed
+
+        torch.cuda.synchronize()
+        mems._graph_of = timed_graph_of
+        try:
+            t0 = time.perf_counter()
+            engine(form, S)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        finally:
+            mems._graph_of = orig
+        check(len(used) == replays, f"the engine ({form}, {S}) replayed {len(used)} times, "
+              f"not {replays}")
+        loop = t1 - t["loop"]
+        return dict(wall=t1 - t0, setup=t["capture"] - t0, capture=t["loop"] - t["capture"],
+                    launch=t["launch"], wait=loop - t["launch"],
+                    device=sum(a.elapsed_time(b) for a, b in used) / 1e3, loop=loop)
 
     def wall_s(fn, reps=3):
         """The least host seconds of fn() to the card's end, of reps calls
@@ -621,17 +701,73 @@ def mesh_path(env):
             best = min(best, time.perf_counter() - t0)
         return best
 
+    def counts():
+        return {k: KERNELS[k].launches for k in ("mem_step_fused", "shard_ckpt_rank6",
+                                                 "shard_run_rank6")}
+
     want = k3()  # K3's MemResult on all reads (not counted: it is the reference)
+
+    def same_as_k3(got, what):
+        for f, g, w in zip(got._fields, got, want):
+            check(torch.equal(g.long(), w.long()), f"{what}: {f} differs from K3's")
+
     merge_in = env.merge_inputs
     reset_launches()
-    iters = {}
+    iters, per_iter = {}, {}
     for form in tables:
         for S in MESH_SHARDS:
+            before = counts()
             got, stats = engine(form, S)
+            after = counts()
             iters[form, S] = stats["iters"]
-            for f, g, w in zip(got._fields, got, want):
-                check(torch.equal(g.long(), w.long()),
-                      f"the model-sharded engine ({form}, {S} shards): {f} differs from K3's")
+            same_as_k3(got, f"the model-sharded engine ({form}, {S} shards)")
+            fused = after["mem_step_fused"] - before["mem_step_fused"]
+            check(fused == 1 + stats["iters"] and all(
+                after[k] == before[k] for k in ("shard_ckpt_rank6", "shard_run_rank6")),
+                f"the engine ({form}, {S} shards) launched {after} from {before}: not one "
+                f"fused step an iteration and the first")
+            per_iter[form, S] = (fused - 1) / stats["iters"]
+
+    # the one-rank NCCL group, joined in this process: the engine's
+    # all_reduce captured in its graph; 3a and 3b through their entry points
+    def one_rank(rank_, world):
+        mesh = sharding.make_mesh(1, 1, dev)
+        step = pengine.make_distributed_mem_step(mesh, capacity=MEM_CAP, mer_m=MER_M,
+                                                 sdict_m=SDICT_S)
+        out = {}
+        for form, t in tables.items():
+            virt = sharding.virtual_shards(t, 2, dev)
+            placed = sharding.ShardedRank(virt.shards, virt.C, virt.n, mesh, virt.super_base)
+            check(mesh.groups.get("model") is not None, "the one-rank mesh has no model group")
+            kw = seed_kw(t.pos_dtype)
+            seed = (kw["mer_table"], kw["mer_keys"], kw["mer_valid"], kw["sdict_vals"],
+                    kw["sdict_idx"])
+            res, total = step(placed, bt.codes, bt.lengths, MIN_LEN, MIN_OCC, *seed)
+            same_as_k3(res, f"the engine in a one-rank NCCL group ({form}, 2 shards)")
+            check(int(total) == int(want.count.sum()), "the one-rank group's total differs")
+            # timed calls are not the path's drive: their launches are taken back
+            drive = {k: fn.launches for k, fn in KERNELS.items()}
+            out[form] = wall_s(lambda: step(placed, bt.codes, bt.lengths, MIN_LEN, MIN_OCC,
+                                            *seed))
+            for k, v in drive.items():
+                KERNELS[k].launches = v
+            # 3a / 3b at the engine's first query positions, the whole table
+            # one shard of the one-rank model group, against the tables' rank6
+            _, args, state, _ = step_inputs(form, 1)
+            mems.mem_step_plain(state, None, *args)
+            pos = mems.query_positions(state)[1].to(t.pos_dtype)
+            if t.ckpt is not None:
+                got = sharding.distributed_ckpt_rank6(t.ckpt_planes, pos, mesh,
+                                                      t.ckpt_super)
+            else:
+                got = sharding.distributed_rank6(t.run_start, t.run_sym, t.cum, pos, mesh,
+                                                 torch.iinfo(t.pos_dtype).max)
+            check(torch.equal(got.long(), rank.rank6(t, pos).long()),
+                  f"distributed rank6 in the one-rank NCCL group ({form}) differs from "
+                  "the tables' rank6")
+        return out
+
+    nccl_s = multihost.spawn_group(one_rank, 1, device="cuda")
     out_mesh = os.path.join(env.cli_dir, "find_mesh.txt")
     sec = env.port_cmd(["find-mems", env.ri_path, env.tags_path, env.fm_reads, str(MIN_LEN),
                         str(MIN_OCC), "--tags-format", "bytecode", "--mesh", "1x1"], out_mesh)
@@ -648,15 +784,38 @@ def mesh_path(env):
     for path in ("find_port.txt", "find_host.txt"):
         check(mesh_out == env.without_seconds(os.path.join(env.cli_dir, path)),
               f"find-mems --mesh 1x1 differs from {path}")
-    n_reads = bt.codes.shape[0]
     k3_s = wall_s(k3)
-    engine_s = {key: wall_s(lambda: engine(*key)) for key in iters}
-    log(f"mesh: the model-sharded engine on all {n_reads} reads equals K3 in every field; "
-        f"wall, the least of 3 calls after a warm one (K3 with resolve_seeds "
-        f"{k3_s * 1e3:.2f} ms): "
-        + ", ".join(f"{form} S={S} {sec_ * 1e3:.2f} ms, {iters[form, S]} iterations "
-                    f"({sec_ / k3_s:.1f}x K3)" for (form, S), sec_ in engine_s.items())
+    every = mems.ACTIVE_CHECK_EVERY
+    engine_s, parts = {}, {}
+    for key in iters:
+        engine_s[key] = wall_s(lambda: engine(*key))
+        # the call of the least wall of 3, in parts
+        parts[key] = min((engine_parts(*key, iters[key] // every) for _ in range(3)),
+                         key=lambda p: p["wall"])
+    log(f"mesh: the model-sharded engine on all {n_reads} reads equals K3 in every field, "
+        f"through its CUDA graph ({every} fused steps a replay, no 3a or 3b launch); wall, "
+        f"the least of 3 calls after a warm one, beside PR 15's engine of one launch at a "
+        f"time (56.47-81.06 ms over these forms and S, PERF.md) and K3 with resolve_seeds "
+        f"({k3_s * 1e3:.2f} ms): "
+        + ", ".join(f"{form} S={S} {engine_s[form, S] * 1e3:.2f} ms "
+                    f"({engine_s[form, S] / k3_s:.1f}x K3), {n} iterations, {n // every} "
+                    f"replays, {per_iter[form, S]:.3f} launches an iteration"
+                    for (form, S), n in iters.items())
         + f" {card}")
+    for (form, S), p in parts.items():
+        ms = {k: v * 1e3 for k, v in p.items()}
+        log(f"mesh: the engine ({form}, S={S}) in parts, the call of the least wall of 3: "
+            f"wall {ms['wall']:.3f} ms = setup and first launch {ms['setup']:.3f} + capture "
+            f"and instantiation {ms['capture']:.3f} + loop {ms['loop']:.3f} (replays' host "
+            f"launches {ms['launch']:.3f}, host blocked on the active count and the result "
+            f"{ms['wait']:.3f}); the {iters[form, S] // every} replays' device time "
+            f"{ms['device']:.3f} ms, the card idle {1 - p['device'] / p['loop']:.1%} of the "
+            f"loop {card}")
+    log(f"mesh: the engine in a one-rank NCCL group (make_distributed_mem_step, 2 shards, "
+        f"its all_reduce captured in the graph) equals K3; wall, the least of 3: "
+        + ", ".join(f"{form} {v * 1e3:.2f} ms" for form, v in nccl_s.items())
+        + f"; distributed_ckpt_rank6 and distributed_rank6 in that group equal the tables' "
+        f"rank6 {card}")
     log(f"mesh: find-mems --mesh 1x1 (one-rank NCCL group) on {env.fm_reads}: stdout "
         f"byte-equal to find-mems and to the native engine; "
         + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()) + f" {card}")
@@ -666,7 +825,7 @@ def mesh_path(env):
                     for S, v in merge_s.items()) + f" {card}")
 
     # each kernel against its plain version, at the main path's shapes: the
-    # query positions of the engine's first iteration; the MEM step on that
+    # query positions of the engine's first iteration; the step on that
     # state and, timed, on the state MESH_MID_ITERS iterations in (phases 2
     # and 3, emissions and step-3 entries live)
     lanes_per_sm = 2 * n_reads / torch.cuda.get_device_properties(dev).multi_processor_count
@@ -688,9 +847,9 @@ def mesh_path(env):
             lo, hi = torch.where(go, mid + 1, lo), torch.where(act & ~go, mid, hi)
 
     def step_bytes(before, after, item, seeded, super_base):
-        """Bytes one mem_step must move from `before` to `after`: every
-        read's phase, x, j, k, kp, s in and out, its length and its two
-        query positions; a live read's code, two rank vectors (and their
+        """Bytes the step's own part of the fused step must move from
+        `before` to `after`: every read's phase, x, j, k, kp, s in and out
+        and its length; a live read's code, two rank vectors (and their
         superblock rows), steps in and out; the last complete interval
         where it changes; an emission's count in and out, and where it is
         stored its k2, s2 and slot; an entering read's seed row."""
@@ -703,25 +862,45 @@ def mesh_path(env):
         stored = emitted & (before.cnt < MEM_CAP)
         n_live, n_bint2, n_emit, n_enter, n_stored = (
             int(v.sum()) for v in (live, bint2, emitted, entering, stored))
-        return (n_reads * (2 * (12 + 3 * item) + 4 + 2 * item)
+        return (n_reads * (2 * (12 + 3 * item) + 4)
                 + n_live * (1 + 12 * item + 8)
                 + (0 if super_base is None else env.gathered(n_live * 2 * 48, super_base))
                 + n_bint2 * 3 * item + n_emit * 8 + n_stored * (4 * item + 4)
                 + (n_enter * 4 * item if seeded else 0))
 
+    def partial_reads(shards, pos, item):
+        """(bytes, operations, dependent loads) of the shards' partials at
+        pos: each owned checkpoint row once, or per run shard the heads each
+        search level reads over the positions it owns and their runs once;
+        the chain counts a search level only where its distinct heads
+        outnumber the lanes an SM holds (fewer stay in its cache)."""
+        if isinstance(shards[0], shard_rank.CkptShard):
+            rows = int(torch.unique(pos.long() >> 6).numel())
+            planes = sum(sh.planes.numel() * 4 for sh in shards)
+            return min(rows * 64, planes), pos.numel() * 6 * 12, 1
+        nbytes = ops = far = 0
+        for sh in shards:
+            j = torch.searchsorted(sh.run_start, pos, right=True) - 1
+            mine = pos[(j >= 0) & (pos.long() < sh.upper)]
+            if not mine.numel():
+                continue
+            levels = search_levels(sh.run_start, mine)
+            runs = int(torch.unique(j[(j >= 0) & (pos.long() < sh.upper)]).numel())
+            nbytes += (env.gathered(sum(levels) * item, sh.run_start)
+                       + runs * (1 + 7 * item))
+            ops += mine.numel() * (len(levels) * 4 + 12)
+            far = max(far, sum(d > lanes_per_sm for d in levels))
+        return nbytes, ops, far + 1
+
     for form, name in (("checkpoint", "shard_ckpt_rank6"),
                        ("two-level", "shard_ckpt_rank6_int64"), ("runs", "shard_run_rank6")):
-        t = tables[form]
-        prov = sharding.virtual_shards(t, 2, dev)
-        pd = t.pos_dtype
-        padded, _ = mems._prepare(bt.codes, align=8)
-        seeds = mems.resolve_seeds(bt.codes.shape[0], bt.codes.shape[1] + 1, MIN_OCC,
-                                   **seed_kw(pd))
-        state = mems.step_state(n_reads, MEM_CAP, pd, dev)
-        args = (prov.C, prov.n, padded, bt.lengths, seeds, bt.codes.shape[1], MIN_LEN,
-                MIN_OCC, prov.super_base, prov.super_shift)
-        mems.mem_step(state, None, *args)
-        pos = state.pos
+        prov, args, state, _ = step_inputs(form, 2)
+        pd = prov.pos_dtype
+        # the first launch: the entry into the first iteration, then every
+        # shard's partials at its query positions (their sum: the rank6)
+        ranks = torch.zeros((2 * n_reads, 6), dtype=pd, device=dev)
+        mems.mem_step_fused(state, ranks, prov.shards, *args, apply=False)
+        pos = mems.query_positions(state)[1].to(pd)
         item = torch.empty(0, dtype=pd).element_size()
         sh = prov.shards[0]
         io = pos.numel() * (item + 6 * item)  # the positions in, the partials out
@@ -736,10 +915,6 @@ def mesh_path(env):
             log(f"{name}: {owned.numel()} of {pos.numel()} positions owned by shard 0 of 2, "
                 f"{rows} distinct rows")
         else:
-            # the heads each search level reads (each once), and the owned
-            # positions' runs; the chain counts a level only where its
-            # distinct heads outnumber the lanes an SM holds (fewer stay in
-            # the SM's cache, shared by its lanes), and the run's read
             levels = search_levels(sh.run_start, pos)
             j = torch.searchsorted(sh.run_start, pos, right=True) - 1
             runs = int(torch.unique(j[(j >= 0) & (pos.long() < sh.upper)]).numel())
@@ -754,25 +929,37 @@ def mesh_path(env):
             log(f"{name}: {len(levels)} search levels, distinct heads a level {levels}; "
                 f"{far} levels with more than the {lanes_per_sm:.0f} lanes an SM holds; "
                 f"{runs} distinct owned runs")
-            continue
-        step_name = "mem_step" if form == "checkpoint" else "mem_step_int64"
-        first = mems.StepState(*(f.clone() for f in state))
+        # the fused step at the first iteration and MESH_MID_ITERS in
+        first = (mems.StepState(*(f.clone() for f in state)), ranks.clone())
+        mid = (mems.StepState(*(f.clone() for f in state)), ranks.clone())
         for _ in range(MESH_MID_ITERS):
-            mems.mem_step(state, prov.partial(state.pos), *args)
-        for at, st, record in (("the first iteration", first, False),
-                               (f"iteration {MESH_MID_ITERS}", state, True)):
-            ranks = prov.partial(st.pos)
+            mems.mem_step_fused(*mid, prov.shards, *args)
+        seeded = args[4] is not None
+        for at, (st, st_ranks), record in (("the first iteration", first, False),
+                                           (f"iteration {MESH_MID_ITERS}", mid, True)):
             after = mems.StepState(*(f.clone() for f in st))
-            mems.mem_step_plain(after, ranks, *args)
-            nbytes = step_bytes(st, after, item, seeds is not None, prov.super_base)
-            st_k = mems.StepState(*(f.clone() for f in st))
-            st_p = mems.StepState(*(f.clone() for f in st))
-            env.compare(step_name, lambda: (mems.mem_step(st_k, ranks, *args), tuple(st_k))[1],
-                        lambda: (mems.mem_step_plain(st_p, ranks, *args), tuple(st_p))[1],
-                        record=record, nbytes=nbytes, ops=n_reads * 120)
+            mems.mem_step_plain(after, st_ranks, *args)
+            nbytes = step_bytes(st, after, item, seeded, prov.super_base)
+            # then the rows of the new positions read and the ranks [2B, 6]
+            # written
+            live, new_pos = mems.query_positions(after)
+            new_pos = new_pos[torch.cat((live, live))].to(pd)
+            p_bytes, p_ops, p_chain = partial_reads(prov.shards, new_pos, item)
+            f_bytes = nbytes + 2 * n_reads * 6 * item + p_bytes
+            fst_k, fst_p = (mems.StepState(*(f.clone() for f in st)) for _ in range(2))
+            r_k, r_p = st_ranks.clone(), st_ranks.clone()
+            env.compare(FUSED_NAMES[form],
+                        lambda: (mems.mem_step_fused(fst_k, r_k, prov.shards, *args),
+                                 *fst_k, r_k)[1:],
+                        lambda: (mems.mem_step_fused_plain(fst_p, r_p, prov.shards, *args),
+                                 *fst_p, r_p)[1:],
+                        record=record, nbytes=f_bytes, ops=n_reads * 120 + p_ops,
+                        chain=1 + p_chain)
             phases = torch.bincount(st.phase.long(), minlength=6).tolist()
-            log(f"{step_name} at {at}: reads by phase {phases}, "
-                f"{int((after.cnt != st.cnt).sum())} emissions in the step, {nbytes} bytes")
+            log(f"{FUSED_NAMES[form]} at {at}: reads by phase {phases}, "
+                f"{int((after.cnt != st.cnt).sum())} emissions in the step, {nbytes} bytes "
+                f"for the step's own part, {f_bytes} in all ({new_pos.numel()} positions' "
+                f"partials, {p_bytes} bytes of rows or runs)")
     comp, stream, offsets = merge_in
     half = -(-comp.numel() // 2)
     first = comp[:half].contiguous()
@@ -977,9 +1164,13 @@ def main() -> int:
     native.get_lib()
     log(f"kernel build (nvcc) and native engine build (g++): "
         f"{time.perf_counter() - t0:.1f} s")
+    entry = ""
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas " + line.split("ptxas info    :")[-1].strip())
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:  # the mangled kernel name, its instantiation included
+            entry = found.group(1)
+        elif "registers" in line or "spill" in line:
+            log(f"  ptxas {entry}: " + line.split("ptxas info    :")[-1].strip())
 
     # --- workload (host; the index is cached under .bench_cache/) --------
     t0 = time.perf_counter()

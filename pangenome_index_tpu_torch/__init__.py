@@ -23,8 +23,9 @@ Layout:
                    frontier level (sparsedict.cu), and the BWT's prefix
                    doubling rounds: radix sort, rerank, finish (bwt.cu),
                    the tag merge, one card or a data shard of it (merge.cu),
-                   a model shard's rank6 partials (shard.cu) and the
-                   lockstep MEM step between them (memstep.cu);
+                   a model shard's rank6 partials (shard.cu, bodies in
+                   shard.cuh) and the lockstep MEM step fused with its
+                   shards' partials (memstep.cu);
                    every serving kernel in an int32 instantiation and an
                    int64 one (indexes of n >= 2^31, two-level rank rows),
                    the chain kernels (K2, K3, the seed table's and the
@@ -69,7 +70,7 @@ from .ops.gather_probe import gather_chain, row_gather
 from .ops.locate import locate_batch
 from .ops.merge import merge_rows, merge_rows_shard
 from .ops.mems import find_mems as _find_mems_batch
-from .ops.mems import mem_step, resolve_seeds
+from .ops.mems import mem_step_fused, resolve_seeds
 from .ops.mertable import mer_level
 from .ops.rank import rank6_bucketed, rank6_ultra
 from .ops.shard_rank import shard_ckpt_rank6, shard_run_rank6
@@ -91,7 +92,7 @@ KERNELS = {"gather_rows": gather_rows, "rank6_dense": rank6_dense,
            "bwt_finish": bwt_finish, "rank6_ultra": rank6_ultra,
            "rank6_bucketed": rank6_bucketed, "mer_level": mer_level,
            "merge_rows": merge_rows, "shard_ckpt_rank6": shard_ckpt_rank6,
-           "shard_run_rank6": shard_run_rank6, "mem_step": mem_step,
+           "shard_run_rank6": shard_run_rank6, "mem_step_fused": mem_step_fused,
            "merge_rows_shard": merge_rows_shard}
 
 

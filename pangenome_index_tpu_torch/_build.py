@@ -45,12 +45,13 @@ _BUCKET = (_P, _I64, _P, _P, _P, _I64)
 #: the seed table's level after its rank provider's: C, parents, n_parents,
 #: v, depth, out, stream
 _MER = (_P, _P, _I64, _I, _I, _P, _P)
-#: the lockstep MEM step's arguments: ranks, super_base, n_super,
+#: the lockstep MEM step's arguments: ranks, apply, super_base, n_super,
 #: super_width, super_shift, C, codes, code_stride, lengths, seeds, B, W;
-#: then min_len, min_occ, n (by position type); then M, the state arrays,
-#: steps, pos, active and the stream
-_STEP_HEAD = (_P, _P, _I64, _I, _I, _P, _P, _I, _P, _P, _I, _I)
-_STEP_TAIL = (_I,) + (_P,) * 16 + (_P,)
+#: then min_len, min_occ, n (by position type); then M, the state arrays
+#: and steps, the shard table (kind, count, host array), active and the
+#: stream
+_STEP_HEAD = (_P, _I, _P, _I64, _I, _I, _P, _P, _I, _P, _P, _I, _I)
+_STEP_TAIL = (_I,) + (_P,) * 14 + (_I, _I, _P, _P, _P)
 #: argument types of every C entry point (pointers and the stream as void*)
 SIGNATURES = {
     "pgt_gather_rows": (_P, _I64, _I, _P, _I64, _P, _P),
@@ -145,7 +146,8 @@ SIGNATURES = {
     "pgt_shard_ckpt_rank6_64": (_P, _I64, _I64, _P, _I64, _P, _I, _P),
     "pgt_shard_run_rank6": (_P, _P, _P, _I64, _I, _P, _I64, _P, _I, _P),
     "pgt_shard_run_rank6_64": (_P, _P, _P, _I64, _I64, _P, _I64, _P, _I, _P),
-    # one lockstep iteration of the MEM state machine (csrc/memstep.cu)
+    # one lockstep iteration of the MEM state machine, fused with the
+    # partials of its shards (csrc/memstep.cu)
     "pgt_mem_step": _STEP_HEAD + (_I, _I, _I) + _STEP_TAIL,
     "pgt_mem_step64": _STEP_HEAD + (_I, _I64, _I64) + _STEP_TAIL,
 }

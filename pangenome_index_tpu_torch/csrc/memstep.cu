@@ -1,5 +1,6 @@
 // One lockstep iteration of the MEM state machine for every read: the step
-// that the model-sharded engine launches between its rank queries.
+// of the model-sharded engine (ops/mems.py:find_mems_lockstep), fused with
+// the rank partials of the positions it makes.
 //
 // Replaces the body of the lax.while_loop of ops/mems.py:find_mems_impl as
 // parallel/engine.py:make_distributed_mem_step and
@@ -8,20 +9,33 @@
 // every iteration). K3 (csrc/mems.cu) runs each read to its end in one
 // thread, and a collective cannot sit inside a kernel; so here one launch is
 // one iteration: it applies the ranks that the shards' partials summed to
-// (ranks [2B, 6]: rank6 at each read's bk, then at bk + s), makes that
-// iteration's transitions and emissions (ops/mems.py:find_mems_plain, the
-// phases 0..5 and the bint2 bookkeeping), enters the next iteration (phase 0
-// starts a find_mems_function call, phase 5 step 3, both seeded from the
-// resolved seed tiers) and writes the positions of its rank queries into pos
-// [2B]: bk and bk + s for an active read, 0 for the others (a valid position
-// whose answer is not read). The launch with no ranks only enters the first
-// iteration. Two-level rows give counts relative to their superblock: the
-// step adds super_base [n_super, 6 + shift] (ops/tables.py ckpt_super) of
-// each queried position, after the sum, as the JAX program adds it after
+// (ranks [2B, 6]: rank6 at each read's bk, then at bk + s, where bk is kp in
+// phase 2 and k otherwise: both recomputed from the state the thread loads),
+// makes that iteration's transitions and emissions (ops/mems.py:
+// find_mems_plain, the phases 0..5 and the bint2 bookkeeping), and enters
+// the next iteration (phase 0 starts a find_mems_function call, phase 5 step
+// 3, both seeded from the resolved seed tiers). `apply` 0 only enters the
+// first iteration. Two-level rows give counts relative to their superblock:
+// the step adds super_base [n_super, 6 + shift] (ops/tables.py ckpt_super)
+// of each queried position, after the sum, as the JAX program adds it after
 // its psum. Where `active` is given, the launch adds the number of reads
-// still active after it (warp ballots, one atomic a warp): the caller reads
-// it every few iterations, and all ranks of a model group, which hold the
-// same reads and receive the same ranks, leave the loop at the same one.
+// still active after it (warp ballots, one atomic a warp).
+//
+// Then the partials of the next iteration's rank queries (bk and bk + s
+// for an active read, zeros for the others), over the table of the shards
+// this process holds (csrc/shard.cuh, by value in the launch's parameters),
+// written in place over the read's two rows of ranks, which the thread
+// loaded before: thread b alone reads and writes rows b and B + b:
+//   checkpoint the owning shard's bit-plane rows (3a's body);
+//   runs       the owning shard's runs (3b's body, its binary search
+//              unchanged: it runs at 61% of its chain alone).
+// The owning shard is found by a binary search over the table's first rows
+// or heads. With every shard of the index in the table (virtual shards on
+// one card) the partial is the rank6; with a mesh's one shard the caller
+// sums the partials over the model group (one all_reduce) before the next
+// launch. So an iteration of the engine is one launch, plus the all_reduce
+// under a mesh, and the engine replays ACTIVE_CHECK_EVERY of them as one
+// CUDA graph.
 //
 // State (device memory, one entry a read): phase, x, j (int32); the
 // interval k, kp, s and the last complete one k2, kp2, s2 (position type
@@ -30,16 +44,17 @@
 //
 // What bounds it: bytes. A read's iteration loads its state (~40 bytes), two
 // rank vectors (48 or 96 bytes), one code, and an entry's seed, and stores
-// the state and two positions; one thread a read, no dependent chain inside
-// a launch. Across the loop, though, the engine pays a launch of this step
-// and one of each shard's rank kernel (and an all_reduce) an iteration, for
-// as many iterations as the longest read takes steps: latency, not bytes,
-// decides its time (PERF.md).
+// the state; then it loads the owning rows (64 bytes a position) or the
+// search's heads and one run, and stores two rank vectors. One thread a
+// read; the rank rows depend on the state just made, a chain of one gather
+// (the binary search's levels through runs). Across the loop the iterations
+// are as many as the longest read takes steps: latency decides its time,
+// which the graph's replay keeps to the kernel's own (PERF.md).
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "rank.cuh"
+#include "shard.cuh"
 
 namespace {
 
@@ -47,7 +62,8 @@ constexpr int kThreads = 256;
 
 template <class P>
 struct StepArgs {
-  const P* ranks;              // [2B, 6] or null: the first launch
+  P* ranks;                    // [2B, 6]: read where apply, then written
+  int apply;                   // 0: the first launch (enter only)
   const int64_t* super_base;   // [n_super, super_width] or null
   int64_t n_super;
   int super_width;
@@ -67,8 +83,8 @@ struct StepArgs {
   int* se;                     // [B, M]
   P *bwt, *size;               // [B, M]
   int* steps;                  // [B] or null
-  P* pos;                      // [2B]
   int* active;                 // [1] or null
+  pgt::ShardTable shards;
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -76,9 +92,15 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 }
 
 template <class P>
-__device__ __forceinline__ void load6(const P* __restrict__ src, P (&r)[6]) {
+__device__ __forceinline__ void load6(const P* src, P (&r)[6]) {
 #pragma unroll
   for (int c = 0; c < 6; ++c) r[c] = src[c];
+}
+
+template <class P>
+__device__ __forceinline__ void store6(P* dst, const P (&r)[6]) {
+#pragma unroll
+  for (int c = 0; c < 6; ++c) dst[c] = r[c];
 }
 
 template <class P>
@@ -90,8 +112,11 @@ __device__ __forceinline__ void add_super(const StepArgs<P>& a, P at, P (&r)[6])
   for (int c = 0; c < 6; ++c) r[c] = static_cast<P>(r[c] + row[c]);
 }
 
-template <class P>
-__global__ void __launch_bounds__(kThreads) mem_step_kernel(const StepArgs<P> a) {
+// ranks aliases nothing else; ranks is read and written by the same
+// thread only (rows b and B + b), so it is not __restrict__
+template <class P, int Kind>
+__global__ void __launch_bounds__(kThreads)
+mem_step_kernel(const __grid_constant__ StepArgs<P> a) {
   const int b = blockIdx.x * kThreads + threadIdx.x;
   bool live = false;
   if (b < a.B) {
@@ -99,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) mem_step_kernel(const StepArgs<P> a)
     P k = a.k[b], kp = a.kp[b], s = a.s[b];
     const int len = a.lengths[b];
     const int L = a.W - 1;
-    if (a.ranks != nullptr && ph >= 1 && ph <= 3) {
+    if (a.apply && ph >= 1 && ph <= 3) {
       // the extension of this iteration (ops/fmd.py:extend on the summed
       // ranks): forward reads swap k/kp and complement the code
       const bool forward = ph == 2;
@@ -107,9 +132,10 @@ __global__ void __launch_bounds__(kThreads) mem_step_kernel(const StepArgs<P> a)
       P rk[6], rks[6];
       load6(a.ranks + 6 * static_cast<int64_t>(b), rk);
       load6(a.ranks + 6 * (static_cast<int64_t>(a.B) + b), rks);
-      if (a.super_base != nullptr) {
-        add_super(a, a.pos[b], rk);
-        add_super(a, a.pos[a.B + b], rks);
+      if (a.super_base != nullptr) {  // the positions the ranks were asked at
+        const P bk = forward ? kp : k;
+        add_super(a, bk, rk);
+        add_super(a, static_cast<P>(bk + s), rks);
       }
       const int cc = pgt::comp_code(code);
       const int ext = forward ? cc : code;   // outside 0..5: matches nothing
@@ -234,15 +260,21 @@ __global__ void __launch_bounds__(kThreads) mem_step_kernel(const StepArgs<P> a)
       }
     }
     live = ph >= 1 && ph <= 3;
-    const P bk = ph == 2 ? kp : k;
-    a.pos[b] = live ? bk : P{0};
-    a.pos[a.B + b] = live ? bk + s : P{0};
     a.phase[b] = ph;
     a.x[b] = x;
     a.j[b] = j;
     a.k[b] = k;
     a.kp[b] = kp;
     a.s[b] = s;
+    // the next iteration's partials, over the rows loaded above
+    const P bk = ph == 2 ? kp : k;
+    P r0[6] = {0, 0, 0, 0, 0, 0}, r1[6] = {0, 0, 0, 0, 0, 0};
+    if (live) {
+      pgt::shard_rank6<Kind>(a.shards, bk, r0);
+      pgt::shard_rank6<Kind>(a.shards, static_cast<P>(bk + s), r1);
+    }
+    store6(a.ranks + 6 * static_cast<int64_t>(b), r0);
+    store6(a.ranks + 6 * (static_cast<int64_t>(a.B) + b), r1);
   }
   if (a.active != nullptr) {
     const unsigned m = __ballot_sync(0xffffffffu, live);
@@ -251,22 +283,43 @@ __global__ void __launch_bounds__(kThreads) mem_step_kernel(const StepArgs<P> a)
 }
 
 template <class P>
-int step_launch(const P* ranks, const int64_t* super_base, int64_t n_super, int super_width,
-                int super_shift, const P* C, const int8_t* codes, int code_stride,
-                const int* lengths, const P* seeds, int B, int W, int min_len, P min_occ, P n,
-                int M, int* phase, int* x, int* j, P* k, P* kp, P* s, P* k2, P* kp2, P* s2,
-                int* cnt, int* se, P* bwt, P* size, int* steps, P* pos, int* active,
+int step_launch(P* ranks, int apply, const int64_t* super_base, int64_t n_super,
+                int super_width, int super_shift, const P* C, const int8_t* codes,
+                int code_stride, const int* lengths, const P* seeds, int B, int W, int min_len,
+                P min_occ, P n, int M, int* phase, int* x, int* j, P* k, P* kp, P* s, P* k2,
+                P* kp2, P* s2, int* cnt, int* se, P* bwt, P* size, int* steps,
+                int shard_kind, int n_shards, const int64_t* shards, int* active,
                 void* stream) {
-  if (B < 0 || W < 1 || M < 0 || code_stride < W ||
+  if (B < 0 || W < 1 || M < 0 || code_stride < W || ranks == nullptr ||
       (super_base != nullptr && (n_super < 1 || super_width < 6 || super_shift < 0 ||
                                  super_shift > 62)))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the shard table: 6 int64 a shard (a, sym, cum, lo, count, upper) in
+  // ascending lo; 1..kMaxShards of one kind
+  if ((shard_kind != pgt::kShardsCkpt && shard_kind != pgt::kShardsRuns) || n_shards < 1 ||
+      n_shards > pgt::kMaxShards)
+    return static_cast<int>(cudaErrorInvalidValue);
+  pgt::ShardTable tab{};
+  tab.n = n_shards;
+  for (int i = 0; i < n_shards; ++i) {
+    const int64_t* e = shards + 6 * i;
+    tab.e[i] = pgt::Shard{reinterpret_cast<const void*>(e[0]),
+                          reinterpret_cast<const int8_t*>(e[1]),
+                          reinterpret_cast<const void*>(e[2]), e[3], e[4], e[5]};
+    if (e[0] == 0 || e[4] < 1 || (i > 0 && e[3] < tab.e[i - 1].lo) ||
+        (shard_kind == pgt::kShardsRuns && (e[1] == 0 || e[2] == 0)))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (B == 0) return 0;
-  const StepArgs<P> a{ranks, super_base, n_super, super_width, super_shift, C, codes,
+  const StepArgs<P> a{ranks, apply, super_base, n_super, super_width, super_shift, C, codes,
                       code_stride, lengths, seeds, B, W, min_len, min_occ, n, M, phase, x,
-                      j, k, kp, s, k2, kp2, s2, cnt, se, bwt, size, steps, pos, active};
+                      j, k, kp, s, k2, kp2, s2, cnt, se, bwt, size, steps, active, tab};
   const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
-  mem_step_kernel<P><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (shard_kind == pgt::kShardsCkpt)
+    mem_step_kernel<P, pgt::kShardsCkpt><<<blocks, kThreads, 0, st>>>(a);
+  else
+    mem_step_kernel<P, pgt::kShardsRuns><<<blocks, kThreads, 0, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -275,29 +328,35 @@ int step_launch(const P* ranks, const int64_t* super_base, int64_t n_super, int 
 extern "C" {
 
 // One iteration for B reads at int32 positions (see StepArgs for the
-// arrays; ranks null: enter the first iteration only).
-int pgt_mem_step(const int* ranks, const int64_t* super_base, int64_t n_super,
+// arrays; apply 0: enter the first iteration only), then the next queries'
+// partials over the n_shards shards of `shards` (kind 1 checkpoint rows, 2
+// runs) into ranks in place.
+int pgt_mem_step(int* ranks, int apply, const int64_t* super_base, int64_t n_super,
                  int super_width, int super_shift, const int* C, const int8_t* codes,
                  int code_stride, const int* lengths, const int* seeds, int B, int W,
                  int min_len, int min_occ, int n, int M, int* phase, int* x, int* j, int* k,
                  int* kp, int* s, int* k2, int* kp2, int* s2, int* cnt, int* se, int* bwt,
-                 int* size, int* steps, int* pos, int* active, void* stream) {
-  return step_launch(ranks, super_base, n_super, super_width, super_shift, C, codes,
+                 int* size, int* steps, int shard_kind, int n_shards,
+                 const int64_t* shards, int* active, void* stream) {
+  return step_launch(ranks, apply, super_base, n_super, super_width, super_shift, C, codes,
                      code_stride, lengths, seeds, B, W, min_len, min_occ, n, M, phase, x, j,
-                     k, kp, s, k2, kp2, s2, cnt, se, bwt, size, steps, pos, active, stream);
+                     k, kp, s, k2, kp2, s2, cnt, se, bwt, size, steps, shard_kind,
+                     n_shards, shards, active, stream);
 }
 
 // the same at int64 positions
-int pgt_mem_step64(const int64_t* ranks, const int64_t* super_base, int64_t n_super,
+int pgt_mem_step64(int64_t* ranks, int apply, const int64_t* super_base, int64_t n_super,
                    int super_width, int super_shift, const int64_t* C, const int8_t* codes,
                    int code_stride, const int* lengths, const int64_t* seeds, int B, int W,
                    int min_len, int64_t min_occ, int64_t n, int M, int* phase, int* x, int* j,
                    int64_t* k, int64_t* kp, int64_t* s, int64_t* k2, int64_t* kp2,
                    int64_t* s2, int* cnt, int* se, int64_t* bwt, int64_t* size, int* steps,
-                   int64_t* pos, int* active, void* stream) {
-  return step_launch(ranks, super_base, n_super, super_width, super_shift, C, codes,
+                   int shard_kind, int n_shards, const int64_t* shards,
+                   int* active, void* stream) {
+  return step_launch(ranks, apply, super_base, n_super, super_width, super_shift, C, codes,
                      code_stride, lengths, seeds, B, W, min_len, min_occ, n, M, phase, x, j,
-                     k, kp, s, k2, kp2, s2, cnt, se, bwt, size, steps, pos, active, stream);
+                     k, kp, s, k2, kp2, s2, cnt, se, bwt, size, steps, shard_kind,
+                     n_shards, shards, active, stream);
 }
 
 }  // extern "C"

@@ -33,12 +33,15 @@
 // (or log2(runs_local) heads and one run's 25 or 49 bytes) and writes 6
 // counts, 24 or 48 bytes; a shard that does not own the position writes
 // zeros, or nothing when it accumulates. One thread a position; the rows are
-// random reads, so the loads of the row are issued together.
+// random reads, so the loads of the row are issued together. The bodies are
+// csrc/shard.cuh's, which the lockstep MEM step (csrc/memstep.cu) also calls:
+// the model-sharded engine no longer launches these kernels, which serve
+// parallel/sharding.py:distributed_ckpt_rank6 and distributed_rank6.
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
-#include "rank.cuh"
+#include "shard.cuh"
 
 namespace {
 
@@ -65,26 +68,8 @@ shard_ckpt_kernel(const int* __restrict__ planes, int64_t rows_local, int64_t ro
                   int accumulate) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= npos) return;
-  const P p = pos[i];
-  const int64_t l = static_cast<int64_t>(p >> 6) - row0;
-  const bool owns = l >= 0 && l < rows_local;
-  P r[6] = {0, 0, 0, 0, 0, 0};
-  if (owns) {
-    const int4* row = reinterpret_cast<const int4*>(planes + 16 * l);
-    const int4 a = __ldg(row), b = __ldg(row + 1), c = __ldg(row + 2), d = __ldg(row + 3);
-    const uint64_t p0 = pgt::u64(a.x, a.y), p1 = pgt::u64(a.z, a.w), p2 = pgt::u64(b.x, b.y);
-    // S[0..6]: the positions before the row with q < j (pairs overlap:
-    // words 6, 7 = S[1], S[2]; 9, 11, 13, 15 = S[3..6])
-    const int S[7] = {0, b.z, b.w, c.y, c.w, d.y, d.w};
-    const uint64_t before = (1ull << (static_cast<int64_t>(p) & 63)) - 1;
-#pragma unroll
-    for (int code = 0; code < 6; ++code) {
-      const int q = pgt::comp_code(code);
-      const uint64_t c0 = 0ull - (q & 1), c1 = 0ull - ((q >> 1) & 1), c2 = 0ull - ((q >> 2) & 1);
-      const uint64_t eq = ~((p0 ^ c0) | (p1 ^ c1) | (p2 ^ c2));
-      r[code] = static_cast<P>(S[q + 1] - S[q] + __popcll(eq & before));
-    }
-  }
+  P r[6];
+  const bool owns = pgt::ckpt_partial(planes, rows_local, row0, pos[i], r);
   put6(out, i, r, owns, accumulate);
 }
 
@@ -96,22 +81,8 @@ shard_run_kernel(const P* __restrict__ run_start, const int8_t* __restrict__ run
                  int accumulate) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= npos) return;
-  const P p = pos[i];
-  int64_t lo = 0, hi = runs_local;  // the first local head > p
-  while (lo < hi) {
-    const int64_t mid = (lo + hi) >> 1;
-    if (pgt::ld(run_start + mid) <= p) lo = mid + 1;
-    else hi = mid;
-  }
-  const int64_t j = lo - 1;
-  const bool owns = j >= 0 && p < upper;
-  P r[6] = {0, 0, 0, 0, 0, 0};
-  if (owns) {
-    const P extra = p - pgt::ld(run_start + j);
-    const int sym = __ldg(run_sym + j);
-#pragma unroll
-    for (int c = 0; c < 6; ++c) r[c] = pgt::ld(cum + 6 * j + c) + (sym == c ? extra : P{0});
-  }
+  P r[6];
+  const bool owns = pgt::run_partial(run_start, run_sym, cum, runs_local, upper, pos[i], r);
   put6(out, i, r, owns, accumulate);
 }
 

@@ -28,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from . import shard_rank
 from .dense_rank import gather_rows_plain
 from .fmd import check_kernel_tables, extend_from_ranks, extend_plain, rank_args
 from .tables import RIndexTables
@@ -317,10 +318,9 @@ class _Lockstep:
 
 class StepState(NamedTuple):
     """The device state of the lockstep engine (find_mems_lockstep) over B
-    reads, updated in place by mem_step: phase, x, j, cnt, steps [B] int32;
+    reads, updated in place by the step: phase, x, j, cnt, steps [B] int32;
     k, kp, s, k2, kp2, s2 [B] and bwt, size [B, M] of the position type; se
-    [B, M] int32; pos [2B] the positions of the next rank queries (bk, then
-    bk + s; 0 for reads that are not active)."""
+    [B, M] int32."""
 
     phase: torch.Tensor
     x: torch.Tensor
@@ -336,7 +336,6 @@ class StepState(NamedTuple):
     bwt: torch.Tensor
     size: torch.Tensor
     steps: torch.Tensor
-    pos: torch.Tensor
 
 
 def step_state(B: int, capacity: int, dtype: torch.dtype, device) -> StepState:
@@ -348,7 +347,16 @@ def step_state(B: int, capacity: int, dtype: torch.dtype, device) -> StepState:
     return StepState(phase=z(B, dt=i32), x=z(B, dt=i32), j=z(B, dt=i32), k=z(B), kp=z(B),
                      s=z(B), k2=z(B), kp2=z(B), s2=z(B), cnt=z(B, dt=i32),
                      se=z(B, capacity, dt=i32), bwt=z(B, capacity), size=z(B, capacity),
-                     steps=z(B, dt=i32), pos=z(2 * B))
+                     steps=z(B, dt=i32))
+
+
+def query_positions(state: StepState):
+    """(live [B], pos [2B]): the reads in a step (phases 1..3) and where
+    the next iteration asks rank6, bk (kp in phase 2, else k) and bk + s,
+    0 for the others; int64."""
+    live = (state.phase >= 1) & (state.phase <= 3)
+    bk = torch.where(state.phase == 2, state.kp, state.k).long()
+    return live, torch.cat((torch.where(live, bk, 0), torch.where(live, bk + state.s.long(), 0)))
 
 
 def _super_add(ranks, pos, super_base, super_shift):
@@ -362,11 +370,11 @@ def mem_step_plain(state: StepState, ranks, C, n: int, padded, lengths, seeds,
                    read_len: int, min_len: int, min_occ: int, super_base=None,
                    super_shift: int = 0) -> int:
     """One lockstep iteration, in place on `state`, by _Lockstep's halves:
-    with ranks ([2B, 6]: rank6 at state.pos, summed over the shards, plus
-    super_base's row of each position where the rows are two-level), the
-    extension of every active read and its transitions; then the entry into
-    the next iteration and its query positions. Returns the number of reads
-    active after it."""
+    with ranks ([2B, 6]: rank6 at query_positions(state), summed over the
+    shards, plus super_base's row of each position where the rows are
+    two-level; None: enter the first iteration only), the extension of
+    every active read and its transitions; then the entry into the next
+    iteration. Returns the number of reads active after it."""
     B, M = state.se.shape
     st = _Lockstep(padded, lengths, seeds, read_len, min_len, min_occ, n, M)
     for f in _Lockstep.FIELDS:
@@ -375,56 +383,77 @@ def mem_step_plain(state: StepState, ranks, C, n: int, padded, lengths, seeds,
     if ranks is not None:
         r = ranks.long()
         if super_base is not None:
-            r = _super_add(r, state.pos, super_base, super_shift)
+            r = _super_add(r, query_positions(state)[1], super_base, super_shift)
         forward = st.phase == 2
         nk, nkp, ns = extend_from_ranks(C.long(), st.k, st.kp, st.s, st.code(), forward,
                                         r[:B], r[B:])
         st.advance(nk, nkp, ns)
     st.enter()
-    live = (st.phase >= 1) & (st.phase <= 3)
-    bk = torch.where(st.phase == 2, st.kp, st.k)
     for f in _Lockstep.FIELDS:
         getattr(state, f).copy_(getattr(st, f))
     state.se.copy_(st.se)
     state.bwt.copy_(st.bwt)
     state.size.copy_(st.size)
-    state.pos.copy_(torch.cat((torch.where(live, bk, 0), torch.where(live, bk + st.s, 0))))
-    return int(live.sum())
+    return int(((st.phase >= 1) & (st.phase <= 3)).sum())
 
 
-def mem_step(state: StepState, ranks, C, n: int, padded, lengths, seeds, read_len: int,
-             min_len: int, min_occ: int, super_base=None, super_shift: int = 0,
-             active=None) -> None:
-    """One lockstep iteration (csrc/memstep.cu), as mem_step_plain, in place
-    on `state`: padded [B, stride] int8 codes (stride >= L + 1 for reads of
-    at most L = read_len codes, code 0 past each read), lengths [B] int32,
-    seeds [B, L + 1, 4] (resolve_seeds) or None, C [7] and ranks [2B, 6]
-    (None: enter the first iteration only) of
-    the position type, super_base [n_super, 6 + shift] int64 or None.
-    `active` (int32 [1], zeroed by the caller) receives the number of reads
-    active after the launch. On the card one launch, counted; on the CPU
-    mem_step_plain (which returns the count)."""
-    if state.pos.device.type == "cpu":
-        live = mem_step_plain(state, ranks, C, n, padded, lengths, seeds, read_len, min_len,
-                              min_occ, super_base, super_shift)
+def mem_step_fused_plain(state: StepState, ranks, shards: list, C, n: int, padded, lengths,
+                         seeds, read_len: int, min_len: int, min_occ: int, super_base=None,
+                         super_shift: int = 0, apply: bool = True) -> int:
+    """The plain version of mem_step_fused: mem_step_plain on the summed
+    ranks (none where not apply), then the shards' plain partials at the
+    new query positions, summed, written over ranks (0 for reads that are
+    not active). Returns the number of reads active after it."""
+    live = mem_step_plain(state, ranks if apply else None, C, n, padded, lengths, seeds,
+                          read_len, min_len, min_occ, super_base, super_shift)
+    on, pos = query_positions(state)
+    part = shard_rank.shards_rank6_plain(shards, pos.to(ranks.dtype))
+    ranks.copy_(torch.where(torch.cat((on, on))[:, None], part.to(ranks.dtype), 0))
+    return live
+
+
+def mem_step_fused(state: StepState, ranks, shards: list, C, n: int, padded, lengths, seeds,
+                   read_len: int, min_len: int, min_occ: int, super_base=None,
+                   super_shift: int = 0, active=None, apply: bool = True) -> None:
+    """One lockstep iteration fused with the rank partials of the next
+    (csrc/memstep.cu), in place on `state`: with the summed ranks [2B, 6]
+    of the position type (apply False: enter the first iteration only),
+    the extension and transitions of every active read and the entry into
+    the next iteration; then, in the same launch, each active read's
+    partial rank6 at its two new query positions (query_positions) over the
+    one of `shards` (1 to 16 CkptShard or RunShard of the position type,
+    the shards this process holds) that owns each, written in place over
+    ranks: the rank6 itself where the shards are the whole index; under a
+    mesh the caller sums it over the model group. padded [B, stride] int8
+    codes (stride >= L + 1 for reads of at most L = read_len codes, code 0
+    past each read), lengths [B] int32, seeds [B, L + 1, 4] (resolve_seeds)
+    or None, C [7] of the position type, super_base [n_super, 6 + shift]
+    int64 or None. `active` (int32 [1], zeroed by the caller) receives the
+    number of reads active after the launch. On the card one launch,
+    counted where it is launched, or tallied in `captured` while a CUDA
+    graph captures it (its replays count it); on the CPU
+    mem_step_fused_plain."""
+    if state.k.device.type == "cpu":
+        live = mem_step_fused_plain(state, ranks, shards, C, n, padded, lengths, seeds,
+                                    read_len, min_len, min_occ, super_base, super_shift, apply)
         if active is not None:
             active += live
         return
-    dev = state.pos.device
+    dev = state.k.device
     pd = state.k.dtype
-    if pd not in (torch.int32, torch.int64):
-        raise ValueError(f"mem_step: int32 or int64 positions, not {pd}")
     B, M = state.se.shape
     W = read_len + 1
+    if pd not in (torch.int32, torch.int64):
+        raise ValueError(f"mem_step_fused: int32 or int64 positions, not {pd}")
     if lengths.shape != (B,) or padded.shape[0] != B or padded.shape[1] < W:
-        raise ValueError("mem_step: padded [B, stride >= read_len + 1] and lengths [B]")
+        raise ValueError("mem_step_fused: padded [B, stride >= read_len + 1] and lengths [B]")
     if seeds is not None and tuple(seeds.shape) != (B, W, 4):
-        raise ValueError(f"mem_step: seeds [{B}, {W}, 4]")
-    if ranks is not None and tuple(ranks.shape) != (2 * B, 6):
-        raise ValueError(f"mem_step: ranks [{2 * B}, 6], not {tuple(ranks.shape)}")
+        raise ValueError(f"mem_step_fused: seeds [{B}, {W}, 4]")
+    if ranks is None or tuple(ranks.shape) != (2 * B, 6):
+        raise ValueError(f"mem_step_fused: ranks [{2 * B}, 6] are read and written in place")
 
-    def ptr(name, a, dtype):
-        return _build.check(name, a, dtype, dev)
+    def ptr(name, t, dt):
+        return _build.check(name, t, dt, dev)
 
     sup = (None, 0, 0, 0)
     if super_base is not None:
@@ -432,41 +461,55 @@ def mem_step(state: StepState, ranks, C, n: int, padded, lengths, seeds, read_le
                super_base.shape[1], int(super_shift))
     _build.launch(
         "pgt_mem_step64" if pd == torch.int64 else "pgt_mem_step",
-        None if ranks is None else ptr("ranks", ranks, pd), *sup, ptr("C", C, pd),
+        ptr("ranks", ranks, pd), int(apply), *sup, ptr("C", C, pd),
         ptr("codes", padded, torch.int8), padded.shape[1],
         ptr("lengths", lengths, torch.int32),
         None if seeds is None else ptr("seeds", seeds, pd), B, W, int(min_len),
         int(min_occ), int(n), M,
-        *(ptr(f, getattr(state, f), getattr(state, f).dtype) for f in StepState._fields[:14]),
-        ptr("pos", state.pos, pd), None if active is None else ptr("active", active, torch.int32),
-        _build.stream(dev))
-    mem_step.launches += 1
+        *(ptr(f, getattr(state, f), getattr(state, f).dtype) for f in StepState._fields),
+        *shard_rank.shard_table(shards, pd, dev),
+        None if active is None else ptr("active", active, torch.int32), _build.stream(dev))
+    if torch.cuda.is_current_stream_capturing():
+        mem_step_fused.captured += 1
+    else:
+        mem_step_fused.launches += 1
 
 
-mem_step.launches = 0
+mem_step_fused.launches = 0
+mem_step_fused.captured = 0
 
-#: find_mems_lockstep reads the count of active reads every this many iterations
+#: find_mems_lockstep reads the count of active reads every this many
+#: iterations: the iterations of one CUDA graph on the card
 ACTIVE_CHECK_EVERY = 8
 
 
-def find_mems_lockstep(rank, C, n: int, codes, lengths, min_len: int, min_occ: int,
+def find_mems_lockstep(shards: list, C, n: int, codes, lengths, min_len: int, min_occ: int,
                        capacity: int = 32, with_stats: bool = False, super_base=None,
-                       super_shift: int = 0, **seed_kw):
-    """The lockstep MEM engine over a rank provider that answers a whole
-    batch at once: the model-sharded engine's (parallel/engine.py), where
-    rank(pos) [2B] -> [2B, 6] sums the shards' partials (an all_reduce over
-    the model group, or every shard launched on one card); two-level rows'
-    superblock bases (super_base, super_shift) are added by the step, after
-    the sum. C [7] of the position type on the reads' device, n the BWT size.
+                       super_shift: int = 0, reduce=None, **seed_kw):
+    """The lockstep MEM engine over model shards: the model-sharded engine
+    of parallel/engine.py. `shards` are the ones this process holds
+    (ops/shard_rank.py CkptShard or RunShard: every shard of the index
+    where they all live on this device, else this rank's one); `reduce`,
+    where given, sums their partials [2B, 6] in place over the other
+    processes' shards (parallel/sharding.py:ShardedRank.reduce, the model
+    group's all_reduce), after every step and inside the CUDA graph;
+    two-level rows' superblock bases (super_base, super_shift) are added by
+    the step, after the sum. C [7] of the position type on the reads'
+    device, n the BWT size.
 
-    An iteration is the rank query of the positions the last mem_step
-    launch wrote (2B of them, as the JAX find_mems_impl asks its rank6_fn
-    inside its while_loop), then one mem_step launch. The number of
-    active reads is read every ACTIVE_CHECK_EVERY iterations (the finished
-    reads' iterations are no-ops), within _prepare's bound; every rank of a model
-    group sees the same reads and ranks, so all leave at the same iteration.
-    Returns MemResult (with_stats: and {"steps": [B], "iters": iterations}),
-    equal to find_mems and to find_mems_plain on the same reads."""
+    An iteration is one mem_step_fused launch (the ranks of the last
+    iteration's queries applied, the next queries' partials written in
+    their place), then reduce, as the JAX find_mems_impl asks its rank6_fn
+    inside its while_loop. The first launch only enters the first
+    iteration. Then ACTIVE_CHECK_EVERY iterations at a time, the last of
+    them counting the reads still active, until that count is 0 or
+    _prepare's bound is passed (a finished read's iterations are no-ops):
+    on the card captured once as a CUDA graph and replayed (every buffer
+    made before the capture; a capture that fails raises), on the CPU run
+    eagerly with the plain step. Every rank of a model group sees the same
+    reads and ranks, so all leave at the same replay. Returns MemResult
+    (with_stats: and {"steps": [B], "iters": iterations}), equal to
+    find_mems and to find_mems_plain on the same reads."""
     dev = codes.device
     pd = C.dtype
     padded, max_iters = _prepare(codes, align=8)
@@ -477,20 +520,61 @@ def find_mems_lockstep(rank, C, n: int, codes, lengths, min_len: int, min_occ: i
                          f"positions of {pd}")
     lens = lengths.to(torch.int32).contiguous()
     state = step_state(B, capacity, pd, dev)
-    active = torch.zeros(1, dtype=torch.int32, device=dev)
-    args = (C, n, padded, lens, seeds, codes.shape[1], min_len, min_occ, super_base,
-            super_shift)
-    mem_step(state, None, *args)
     iters = 0
-    while iters < max_iters:
-        ranks = rank(state.pos)
-        check = iters % ACTIVE_CHECK_EVERY == ACTIVE_CHECK_EVERY - 1
-        if check:
-            active.zero_()
-        mem_step(state, ranks, *args, active=active if check else None)
-        iters += 1
-        if check and int(active) == 0:
-            break
+    if B:
+        ranks = torch.zeros((2 * B, 6), dtype=pd, device=dev)
+        active = torch.zeros(1, dtype=torch.int32, device=dev)
+        args = (state, ranks, shards, C, n, padded, lens, seeds, codes.shape[1], min_len,
+                min_occ, super_base, super_shift)
+
+        def step(**kw):
+            mem_step_fused(*args, **kw)
+            if reduce is not None:
+                reduce(ranks)
+
+        def iterations():
+            for i in range(ACTIVE_CHECK_EVERY):
+                last = i == ACTIVE_CHECK_EVERY - 1
+                if last:
+                    active.zero_()
+                step(active=active if last else None)
+
+        step(apply=False)  # under a mesh on the card, also the communicator's warm-up
+        run = iterations
+        if dev.type == "cuda":
+            run = _graph_of(iterations, dev)
+        while iters < max_iters:
+            run()
+            iters += ACTIVE_CHECK_EVERY
+            if int(active) == 0:
+                break
     res = MemResult((state.se >> 16).to(pd), (state.se & 0xFFFF).to(pd), state.bwt,
                     state.size, state.cnt, state.cnt > capacity)
     return (res, {"steps": state.steps, "iters": iters}) if with_stats else res
+
+
+def _graph_of(iterations, dev):
+    """iterations() captured once as a CUDA graph on a side stream
+    (thread-local capture mode, so that other threads' CUDA calls, such as
+    NCCL's watchdog, do not break it); returns a function that replays it
+    on the current stream and adds to mem_step_fused.launches the launches
+    the capture recorded."""
+    graph = torch.cuda.CUDAGraph()
+    cur = torch.cuda.current_stream(dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(cur)
+    before = mem_step_fused.captured
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            iterations()
+        finally:
+            graph.capture_end()
+    cur.wait_stream(side)
+    per_replay = mem_step_fused.captured - before
+
+    def replay():
+        graph.replay()
+        mem_step_fused.launches += per_replay
+
+    return replay

@@ -20,9 +20,17 @@ others 0, so the sum over the shards is the whole index's rank6.
 else a new tensor is returned. Positions, partials and tables share the
 position dtype (int32 or int64). Each wrapper launches its kernel for CUDA
 tensors (counted in `launches`) and runs its plain version for CPU tensors.
+
+CkptShard and RunShard hold one shard; shard_table packs the shards a
+process holds for the lockstep MEM step (ops/mems.py:mem_step_fused), whose
+kernel computes the same partials for the positions it makes, and
+shards_rank6_plain is that computation's plain version.
 """
 
 from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
 
 import torch
 
@@ -128,3 +136,87 @@ def shard_run_rank6(run_start: torch.Tensor, run_sym: torch.Tensor, cum: torch.T
 
 
 shard_run_rank6.launches = 0
+
+
+@dataclass
+class CkptShard:
+    """A model shard's checkpoint rows in their bit-plane form: global rows
+    row0 .. row0 + planes.shape[0] - 1."""
+
+    planes: torch.Tensor
+    row0: int
+
+    def rank6(self, pos, out=None):
+        return shard_ckpt_rank6(self.planes, self.row0, pos, out)
+
+    def rank6_plain(self, pos):
+        return shard_ckpt_rank6_plain(self.planes, self.row0, pos)
+
+
+@dataclass
+class RunShard:
+    """A model shard's runs, and `upper`: the next shard's first head (the
+    position type's maximum on the last shard), which bounds the positions
+    this shard owns."""
+
+    run_start: torch.Tensor
+    run_sym: torch.Tensor
+    cum: torch.Tensor
+    upper: int
+
+    def rank6(self, pos, out=None):
+        return shard_run_rank6(self.run_start, self.run_sym, self.cum, self.upper, pos, out)
+
+    def rank6_plain(self, pos):
+        return shard_run_rank6_plain(self.run_start, self.run_sym, self.cum, self.upper, pos)
+
+
+def shards_rank6_plain(shards: list, pos: torch.Tensor) -> torch.Tensor:
+    """[B, 6]: the sum of the shards' plain partials at pos (the rank6 where
+    they are every shard of the index)."""
+    out = shards[0].rank6_plain(pos)
+    for sh in shards[1:]:
+        out = out + sh.rank6_plain(pos)
+    return out
+
+
+#: shard kinds of the step's table (csrc/shard.cuh) and its largest size
+SHARDS_CKPT, SHARDS_RUNS = 1, 2
+MAX_SHARDS = 16
+
+
+def shard_table(shards: list, dtype: torch.dtype, device) -> tuple:
+    """(kind, count, host array) of the shards for the step's kernel: per
+    shard its tables' pointers, its first global row (checkpoint) or head
+    (runs: the `upper` of the shard before it, 0 for the first), rows or
+    runs, and upper; in ascending first row or head. Reads nothing from
+    the device, so it may run while a CUDA graph captures. Raises
+    ValueError for shards of mixed kinds, of another dtype or device, or
+    more than MAX_SHARDS."""
+    if not shards or len(shards) > MAX_SHARDS:
+        raise ValueError(f"the step takes 1 to {MAX_SHARDS} shards, not {len(shards)}")
+    if all(isinstance(sh, CkptShard) for sh in shards):
+        rows = []
+        for sh in sorted(shards, key=lambda sh: sh.row0):
+            if sh.planes.dim() != 2 or sh.planes.shape[1] != 16 or not sh.planes.shape[0]:
+                raise ValueError("planes: expected [rows_local > 0, 16]")
+            rows.append((_build.check("planes", sh.planes, torch.int32, device), 0, 0,
+                         int(sh.row0), sh.planes.shape[0], 0))
+        kind = SHARDS_CKPT
+    elif all(isinstance(sh, RunShard) for sh in shards):
+        big = torch.iinfo(dtype).max
+        rows, first = [], 0
+        for sh in sorted(shards, key=lambda sh: sh.upper):
+            r = sh.run_start.shape[0]
+            if not r or sh.run_sym.shape != (r,) or tuple(sh.cum.shape) != (r, 6):
+                raise ValueError("run_start [r > 0], run_sym [r] and cum [r, 6]")
+            upper = min(int(sh.upper), big)
+            rows.append((_build.check("run_start", sh.run_start, dtype, device),
+                         _build.check("run_sym", sh.run_sym, torch.int8, device),
+                         _build.check("cum", sh.cum, dtype, device), first, r, upper))
+            first = upper
+        kind = SHARDS_RUNS
+    else:
+        raise ValueError("the shards are all checkpoint rows or all runs")
+    flat = [v for e in rows for v in e]
+    return kind, len(rows), (ctypes.c_int64 * len(flat))(*flat)

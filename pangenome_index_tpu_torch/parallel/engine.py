@@ -12,11 +12,12 @@ the data group.
   one-card kernels serve the slice (resolve_seeds, K3 find_mems, K6
   query_tags_batch), then one all_reduce of the count.
 * model > 1: the lockstep engine (ops/mems.py:find_mems_lockstep): each
-  iteration one launch of the MEM step (csrc/memstep.cu), then the shard's
-  rank partials (csrc/shard.cu: checkpoint rows, or the run table for every
-  other rank mode) and one all_reduce over the model group, as JAX's psum
-  inside its while_loop. Every rank of a model group holds the same reads
-  and receives the same ranks, so all leave the loop at the same iteration.
+  iteration one launch of the MEM step (csrc/memstep.cu), which also makes
+  the shard's rank partials of the next positions (checkpoint rows, or the
+  run table for every other rank mode), then one all_reduce over the model
+  group, as JAX's psum inside its while_loop; on a card the iterations run
+  as a CUDA graph. Every rank of a model group holds the same reads and
+  receives the same ranks, so all leave the loop at the same iteration.
 """
 
 from __future__ import annotations
@@ -44,10 +45,11 @@ def _seed_kwargs(mer_m: int, sdict_m: int, seed_args) -> dict:
 
 def _mems(placed, codes, lengths, min_len, min_occ, capacity, seed_kw) -> MemResult:
     if isinstance(placed, ShardedRank):
-        return find_mems_lockstep(placed.partial, placed.C, placed.n, codes, lengths,
+        return find_mems_lockstep(placed.shards, placed.C, placed.n, codes, lengths,
                                   int(min_len), int(min_occ), capacity=capacity,
                                   super_base=placed.super_base,
-                                  super_shift=placed.super_shift, **seed_kw)
+                                  super_shift=placed.super_shift, reduce=placed.reduce,
+                                  **seed_kw)
     return find_mems(placed, codes, lengths, int(min_len), int(min_occ), capacity=capacity,
                      **seed_kw)
 

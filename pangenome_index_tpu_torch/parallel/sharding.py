@@ -15,28 +15,29 @@ instead of hanging it.
   * `model` - the checkpoint rows (or the runs) are range-sharded; rank6
     becomes: the shard that owns the position answers, the others give
     zeros, and one all_reduce over the model group sums them
-    (ops/shard_rank.py, the kernels of csrc/shard.cu).
+    (ops/shard_rank.py, the kernels of csrc/shard.cu; inside the MEM
+    engine, its step computes them, ops/mems.py:mem_step_fused).
 
 pad_rindex_tables pads the run table to the number of shards with sentinel
 runs (run_start = n + 1, never a predecessor of a position <= n) and the
 checkpoint rows with copies of the last; shard_tables places a rank's slice.
 The same shards can also all live on one card in one process
-(virtual_shards): their partials are then summed on the card, launch by
-launch, through the same provider (ShardedRank).
+(virtual_shards): ShardedRank then sums their partials on the card launch
+by launch, and the MEM engine's step finds each position's owner among
+them.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from dataclasses import dataclass
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
 from ..models.rindex import RIndex
-from ..ops.shard_rank import shard_ckpt_rank6, shard_run_rank6
+from ..ops.shard_rank import CkptShard, RunShard
 from ..ops.tables import (CKPT_BLOCK, RIndexTables, rindex_to_device, with_locate_trees,
                           with_rank_planes)
 
@@ -193,41 +194,16 @@ def pad_rindex_tables(idx: RIndex, n_shards: int, checkpoint: bool = False,
     return t
 
 
-@dataclass
-class CkptShard:
-    """A model shard's checkpoint rows in their bit-plane form: global rows
-    row0 .. row0 + planes.shape[0] - 1."""
-
-    planes: torch.Tensor
-    row0: int
-
-    def rank6(self, pos, out=None):
-        return shard_ckpt_rank6(self.planes, self.row0, pos, out)
-
-
-@dataclass
-class RunShard:
-    """A model shard's runs, and `upper`: the next shard's first head (the
-    position type's maximum on the last shard), which bounds the positions
-    this shard owns."""
-
-    run_start: torch.Tensor
-    run_sym: torch.Tensor
-    cum: torch.Tensor
-    upper: int
-
-    def rank6(self, pos, out=None):
-        return shard_run_rank6(self.run_start, self.run_sym, self.cum, self.upper, pos, out)
-
-
 class ShardedRank:
     """rank6 over model shards: the shards this process holds (one under a
     mesh, all of them for virtual shards on one card), whose partials are
     summed on the device launch by launch and then, under a mesh, by one
     all_reduce over the model group. partial(pos) is that sum; calling the
     provider adds the superblock base of two-level rows after it, as the JAX
-    distributed_ckpt_rank6 adds it after its psum. C, n: the index's, for
-    the MEM engine (ops/mems.py:find_mems_lockstep)."""
+    distributed_ckpt_rank6 adds it after its psum. The MEM engine
+    (ops/mems.py:find_mems_lockstep) takes the shards, C and n (the
+    index's), the superblock bases and `reduce`, computes the partials
+    inside its step and sums them by reduce."""
 
     def __init__(self, shards: list, C: torch.Tensor, n: int, mesh: Mesh | None = None,
                  super_base: torch.Tensor | None = None):
@@ -239,13 +215,18 @@ class ShardedRank:
     def pos_dtype(self) -> torch.dtype:
         return self.C.dtype
 
+    def reduce(self, partials: torch.Tensor) -> torch.Tensor:
+        """The partials summed in place over the model group (no-op where
+        this process holds every shard)."""
+        if self.mesh is not None:
+            self.mesh.all_reduce(partials, "model")
+        return partials
+
     def partial(self, pos: torch.Tensor) -> torch.Tensor:
         out = self.shards[0].rank6(pos)
         for sh in self.shards[1:]:
             sh.rank6(pos, out)
-        if self.mesh is not None:
-            self.mesh.all_reduce(out, "model")
-        return out
+        return self.reduce(out)
 
     def __call__(self, pos: torch.Tensor) -> torch.Tensor:
         r = self.partial(pos)
@@ -299,8 +280,9 @@ def shard_tables(t: RIndexTables, mesh: Mesh):
 def virtual_shards(t: RIndexTables, n_shards: int, device) -> ShardedRank:
     """All n_shards model shards of the padded tables t on one device, in one
     process: the provider that the mesh's ranks hold one shard each of, with
-    the model group's all_reduce replaced by the launches of every shard
-    into one sum."""
+    the model group's all_reduce replaced by every shard on the card (the
+    launches of every shard into one sum, or in the MEM engine's step the
+    owning shard of each position)."""
     C, sup = _replicated(t, device)
     return ShardedRank([_shard_of(t, m, n_shards, device) for m in range(n_shards)],
                        C, t.n, None, sup)

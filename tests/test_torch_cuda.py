@@ -1351,15 +1351,10 @@ def test_shard_rank6(dev, index, form, S):
     assert sum(after) - sum(before) == 2 * S
 
 
-@pytest.mark.parametrize("tiers", ["none", "both"])
-@pytest.mark.parametrize("S", [2, 4])
-@pytest.mark.parametrize("form", list(SHARD_FORMS))
-def test_lockstep_engine(dev, index, form, S, tiers):
-    """The lockstep engine over S shards on the card: every step equal to
-    the plain step on the same state and ranks, and the result equal to K3's
-    on the same reads."""
-    idx, lines = index
-    t = sharding.pad_rindex_tables(idx, S, **SHARD_FORMS[form])
+def lockstep_inputs(dev, idx, lines, pd, tiers):
+    """300 reads of up to 80 codes on the card, with both seed tiers
+    (tiers "both") or none, resolved: (codes, lengths, seed kwargs, padded,
+    seeds)."""
     reads = synth_reads(lines, 300, 80, error_rate=0.02, seed=4)
     codes = np.zeros((len(reads), 80), np.int32)
     lens = np.array([len(r) for r in reads], np.int32)
@@ -1371,43 +1366,125 @@ def test_lockstep_engine(dev, index, form, S, tiers):
         mk, mv = read_mer_keys_fast(codes, lens, 6)
         keys, vals = build_sparse_dict(idx, 15)
         _, _, di = read_windows_fast(codes, lens, 15, keys)
-        kw = dict(mer_table=torch.from_numpy(build_mer_table(idx, 6)).to(dev, t.pos_dtype),
+        kw = dict(mer_table=torch.from_numpy(build_mer_table(idx, 6)).to(dev, pd),
                   mer_keys=torch.from_numpy(np.ascontiguousarray(mk, np.int32)).to(dev),
                   mer_valid=torch.from_numpy(mv).to(dev), mer_m=6,
-                  sdict_vals=torch.from_numpy(vals).to(dev, t.pos_dtype),
+                  sdict_vals=torch.from_numpy(vals).to(dev, pd),
                   sdict_idx=torch.from_numpy(np.ascontiguousarray(di, np.int32)).to(dev),
                   sdict_m=15)
-    prov = sharding.virtual_shards(t, S, dev)
-    # one step at a time against the plain step, on copies of the state
     padded, _ = mems._prepare(c, align=8)
-    B, W = c.shape[0], c.shape[1] + 1
-    seeds = mems.resolve_seeds(B, W, 1, **kw)
+    seeds = mems.resolve_seeds(c.shape[0], c.shape[1] + 1, 1, **kw)
+    return c, n, kw, padded, seeds
+
+
+def step_args(prov, padded, n, seeds, read_len, to=None):
+    """The step's arguments after the shards (on `to` if given)."""
+    def mv(a):
+        return a if a is None or to is None else a.to(to)
+
+    return (mv(prov.C), prov.n, mv(padded), mv(n), mv(seeds), read_len, 12, 1,
+            mv(prov.super_base), prov.super_shift)
+
+
+#: the fused step's forms: the sharded table forms at both position types
+FUSED_FORMS = {"checkpoint": dict(checkpoint=True),
+               "checkpoint-int64": dict(checkpoint=True, dtype=torch.int64),
+               "two-level": dict(checkpoint=True, super_shift=11, dtype=torch.int64),
+               "runs": dict(), "runs-int64": dict(dtype=torch.int64)}
+
+
+@pytest.mark.parametrize("tiers", ["none", "both"])
+@pytest.mark.parametrize("S", [1, 2, 4, 16])
+@pytest.mark.parametrize("form", list(FUSED_FORMS))
+def test_fused_step(dev, index, form, S, tiers):
+    """The fused step (one launch: the step, then the partials of its new
+    query positions over the shards' table) equals its plain version, state
+    and ranks, from the first launch (the entry, seeded or not) through 60
+    iterations, with every shard in the table and with one shard's alone
+    (a mesh rank's); each call is one counted launch and no 3a or 3b
+    launch."""
+    idx, lines = index
+    t = sharding.pad_rindex_tables(idx, S, **FUSED_FORMS[form])
+    prov = sharding.virtual_shards(t, S, dev)
+    cpu = sharding.virtual_shards(t, S, "cpu")
+    c, n, _, padded, seeds = lockstep_inputs(dev, idx, lines, t.pos_dtype, tiers)
+    assert (seeds is None) == (tiers == "none")
+    B = c.shape[0]
+    args = step_args(prov, padded, n, seeds, c.shape[1])
+    cargs = step_args(prov, padded, n, seeds, c.shape[1], "cpu")
+    # every shard in the table, and the last shard alone (a mesh rank's
+    # partials) on the same state
+    tables = [(prov.shards, cpu.shards)] + ([([prov.shards[-1]], [cpu.shards[-1]])]
+                                            if S > 1 else [])
     st = mems.step_state(B, 8, t.pos_dtype, dev)
-    args = (prov.C, prov.n, padded, n, seeds, c.shape[1], 12, 1, prov.super_base,
-            prov.super_shift)
-    mems.mem_step(st, None, *args)
-    for it in range(40):
-        ranks = prov.partial(st.pos)
-        cpu = mems.StepState(*(f.cpu().clone() for f in st))
-        active = torch.zeros(1, dtype=torch.int32, device=dev)
-        mems.mem_step(st, ranks, *args, active=active)
-        live = mems.mem_step_plain(cpu, ranks.cpu(), prov.C.cpu(), prov.n, padded.cpu(),
-                                   n.cpu(), None if seeds is None else seeds.cpu(),
-                                   c.shape[1], 12, 1,
-                                   None if prov.super_base is None else prov.super_base.cpu(),
-                                   prov.super_shift)
-        for a, b in zip(st, cpu):
-            assert torch.equal(a.cpu(), b), it
-        assert int(active) == live
+    ranks = torch.zeros((2 * B, 6), dtype=t.pos_dtype, device=dev)
+    before = (mems.mem_step_fused.launches, shard_rank.shard_ckpt_rank6.launches,
+              shard_rank.shard_run_rank6.launches)
+    for it in range(61):
+        for card_shards, cpu_shards in reversed(tables):  # the whole table's last
+            ref, ref_ranks = mems.StepState(*(f.cpu() for f in st)), ranks.cpu()
+            got = st if card_shards is prov.shards else mems.StepState(
+                *(f.clone() for f in st))
+            got_ranks = ranks if card_shards is prov.shards else ranks.clone()
+            active = torch.zeros(1, dtype=torch.int32, device=dev)
+            mems.mem_step_fused(got, got_ranks, card_shards, *args, active=active,
+                                apply=it > 0)
+            live = mems.mem_step_fused_plain(ref, ref_ranks, cpu_shards, *cargs,
+                                              apply=it > 0)
+            for f, a, b in zip(got._fields, got, ref):
+                assert torch.equal(a.cpu(), b), (it, len(card_shards), f)
+            assert torch.equal(got_ranks.cpu(), ref_ranks), (it, len(card_shards))
+            assert int(active) == live
+    after = (mems.mem_step_fused.launches, shard_rank.shard_ckpt_rank6.launches,
+             shard_rank.shard_run_rank6.launches)
+    assert (after[0] - before[0], after[1:]) == (61 * len(tables), before[1:])
+
+
+@pytest.mark.parametrize("tiers", ["none", "both"])
+@pytest.mark.parametrize("S", [2, 4])
+@pytest.mark.parametrize("form", list(SHARD_FORMS))
+def test_lockstep_engine(dev, index, form, S, tiers):
+    """The lockstep engine over S shards on the card, its iterations
+    replayed as a CUDA graph: every MemResult field equal to K3's on the
+    same reads; iters the first multiple of ACTIVE_CHECK_EVERY at or past
+    the iteration after which no read is active (found by eager launches of
+    the fused step); launches counted replays x ACTIVE_CHECK_EVERY, and no
+    launch of 3a or 3b."""
+    idx, lines = index
+    t = sharding.pad_rindex_tables(idx, S, **SHARD_FORMS[form])
+    prov = sharding.virtual_shards(t, S, dev)
+    c, n, kw, padded, seeds = lockstep_inputs(dev, idx, lines, t.pos_dtype, tiers)
+    B = c.shape[0]
+    args = step_args(prov, padded, n, seeds, c.shape[1])
+    st = mems.step_state(B, 8, t.pos_dtype, dev)
+    ranks = torch.zeros((2 * B, 6), dtype=t.pos_dtype, device=dev)
+    mems.mem_step_fused(st, ranks, prov.shards, *args, apply=False)
+    done, active = 0, torch.zeros(1, dtype=torch.int32, device=dev)
+    while True:
+        done += 1
+        active.zero_()
+        mems.mem_step_fused(st, ranks, prov.shards, *args, active=active)
+        if int(active) == 0:
+            break
     t_k3 = rindex_to_device(idx, dev, **({"checkpoint": True, "super_shift": 11,
                                           "dtype": torch.int64} if form == "two-level"
                                          else {"checkpoint": True}))
     want = mems.find_mems(t_k3, c, n, 12, 1, capacity=8, **kw)
-    got = mems.find_mems_lockstep(prov.partial, prov.C, prov.n, c, n, 12, 1, capacity=8,
-                                  super_base=prov.super_base, super_shift=prov.super_shift,
-                                  **kw)
+    counts = (mems.mem_step_fused.launches, shard_rank.shard_ckpt_rank6.launches,
+              shard_rank.shard_run_rank6.launches)
+    got, stats = mems.find_mems_lockstep(prov.shards, prov.C, prov.n, c, n, 12, 1, capacity=8,
+                                         with_stats=True, super_base=prov.super_base,
+                                         super_shift=prov.super_shift, **kw)
+    after = (mems.mem_step_fused.launches, shard_rank.shard_ckpt_rank6.launches,
+             shard_rank.shard_run_rank6.launches)
     for g, w in zip(got, want):
         assert torch.equal(g.long(), w.long())
+    every = mems.ACTIVE_CHECK_EVERY
+    assert stats["iters"] == -(-done // every) * every
+    # the first launch, then ACTIVE_CHECK_EVERY a replay
+    assert after[0] - counts[0] == 1 + stats["iters"]
+    assert after[1:] == counts[1:]
+    assert torch.equal(stats["steps"].cpu(), st.steps.cpu())
 
 
 @pytest.mark.parametrize("n,C", [(1, 1), (4096, 3), (4097, 3), (100_000, 300),

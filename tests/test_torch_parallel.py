@@ -149,10 +149,11 @@ def test_shard_partials_sum_to_jax_distributed_rank6(index, form, S):
 @pytest.mark.parametrize("tiers", ["none", "dense", "sdict", "both"])
 @pytest.mark.parametrize("form", ["checkpoint", "two-level", "runs"])
 def test_lockstep_engine_matches_plain_and_jax(index, form, tiers):
-    """find_mems_lockstep over 2 virtual shards (the plain step and the
-    plain partials), find_mems_plain with that provider as rank6_fn, and
-    find_mems_plain through the whole tables give one MemResult, equal to
-    JAX's find_mems_impl through the same padded tables."""
+    """find_mems_lockstep over 2 virtual shards (the fused step's plain
+    version: the plain step and the plain partials), find_mems_plain with
+    that provider as rank6_fn, and find_mems_plain through the whole tables
+    give one MemResult, equal to JAX's find_mems_impl through the same
+    padded tables."""
     idx, lines = index
     S = 2
     kw = PAD_FORMS[form]
@@ -181,7 +182,7 @@ def test_lockstep_engine_matches_plain_and_jax(index, form, tiers):
 
     c, n = torch.from_numpy(codes), torch.from_numpy(lens)
     prov = sharding.virtual_shards(t, S, "cpu")
-    got = mems.find_mems_lockstep(prov.partial, prov.C, prov.n, c, n, 12, 1, capacity=6,
+    got = mems.find_mems_lockstep(prov.shards, prov.C, prov.n, c, n, 12, 1, capacity=6,
                                   super_base=prov.super_base, super_shift=prov.super_shift,
                                   **torch_kw())
     hooked = mems.find_mems_plain(t, c, n, 12, 1, capacity=6, rank6_fn=prov, **torch_kw())
