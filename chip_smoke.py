@@ -43,7 +43,9 @@ launch count set to 0 just before a path and read just after it:
    the first 65536 MEMs the serving run buffered and 32768 random ones (at
    run heads and mid-run, sizes 1 to 200), capacity 64, against its plain
    version on every lane and against the host model (RIndex.run_of and
-   chained RIndex.locate_next) on 4096 of them;
+   chained RIndex.locate_next) on 4096 of them; the lanes' steps replayed
+   on the card give the tail buckets' occupancy and the share of steps
+   whose bucket holds at most a line of pairs (here and on serve-2g);
 7. the index build from text (bwt.bwt_from_lines_device, the build-bwt and
    build-rindex commands): the BWT of the bench text (8 lines, 20,000,008
    characters) built on the card by prefix doubling, equal element for
@@ -524,14 +526,17 @@ def graph_build(env, base_len=GRAPH[0]):
         comp_tags[comps[int(t.pos_enc[0]) >> 11]] = t
     inputs = [env.T(a) for a in merge.device_merge_inputs(whole, idx, comp_tags)]
     n, t_len, C = inputs[0].numel(), inputs[1].numel(), inputs[2].numel() - 1
+    # the design: comp once, a stream value and a tag a row, a look-back
+    # word a tile and key value
     env.compare("merge_rows", lambda: merge_ops.merge_rows(*inputs),
                 lambda: merge_ops.merge_rows_plain(*inputs),
                 nbytes=n * (4 + 8) + t_len * 8 + (C + 1) * 8, ops=n * 4,
-                design=n * (4 + 4 + 8) + t_len * 8 + 2 * 8 * (C + 1) * -(-n // merge_ops.TILE))
-    phases, _ = env.launch_ms(lambda: merge_ops.merge_rows(*inputs), "pgt_merge_count",
+                design=n * (4 + 8) + t_len * 8 + 8 * (C + 1) * -(-n // merge_ops.TILE))
+    phases, _ = env.launch_ms(lambda: merge_ops.merge_rows(*inputs), "pgt_merge_hist",
                               "pgt_merge_scan", "pgt_merge_place")
     log(f"merge_rows on {n} rows, {C} components: its launches by events, "
-        + ", ".join(f"{e[4:]} {ms:.4f} ms" for e, (ms, _) in phases.items()) + f" {env.card}")
+        + ", ".join(f"{e[4:]} {ms:.4f} ms ({k:g} a call)" for e, (ms, k) in phases.items())
+        + f" {env.card}")
     env.merge_inputs = inputs  # the mesh path's cross-card merge takes these rows
     del inputs
     # the BWT kernels on the whole genome's text (k = 256 and the finish),
@@ -966,12 +971,20 @@ def mesh_path(env):
     second = comp[half:].contiguous()
     n2, C = second.numel(), offsets.numel() - 1
     base = torch.bincount(first.long()[first >= 0], minlength=C)[:C]  # the first shard's
+    # the design: comp twice (the counts, the placement), a stream value and
+    # a tag a row, a look-back word a tile and key value
     env.compare("merge_rows_shard",
                 lambda: merge_ops.merge_rows_shard(second, stream, offsets, lambda c: base),
                 lambda: merge_ops.merge_rows_shard_plain(second, stream, offsets,
                                                          lambda c: base),
                 nbytes=n2 * (4 + 8 + 8) + (C + 1) * 16, ops=n2 * 6,
-                design=n2 * (4 + 4 + 4 + 8) + 2 * 8 * (C + 1) * -(-n2 // merge_ops.TILE))
+                design=n2 * (4 + 4 + 8 + 8) + 8 * (C + 1) * -(-n2 // merge_ops.TILE))
+    phases, _ = env.launch_ms(
+        lambda: merge_ops.merge_rows_shard(second, stream, offsets, lambda c: base),
+        "pgt_merge_hist", "pgt_merge_scan", "pgt_merge_place")
+    log(f"merge_rows_shard on {n2} rows, {C} components: its launches by events, "
+        + ", ".join(f"{e[4:]} {ms:.4f} ms ({k:g} a call)" for e, (ms, k) in phases.items())
+        + f" {env.card}")
     for path in ("find_mesh.txt", "find_mesh.txt.err"):
         os.remove(os.path.join(env.cli_dir, path))
 
@@ -1143,7 +1156,8 @@ def main() -> int:
     from pangenome_index_tpu_torch.mems_probe import (
         BASE_LEN, MEM_CAP, MER_M, MIN_LEN, MIN_OCC, N_HAPS, N_READS, READ_LEN,
         SDICT_S, TAIL_KERNEL, bench_workload, launch_ms, trace_head, trace_tail)
-    from pangenome_index_tpu_torch.ops.tables import rindex_to_device, tags_to_device
+    from pangenome_index_tpu_torch.ops.tables import (rindex_to_device, tags_to_device,
+                                                      tail_bucket)
     from pangenome_index_tpu_torch.serve import prepare, run
     from pangenome_index_tpu_torch.utils import synth
 
@@ -1264,6 +1278,64 @@ def main() -> int:
         if t.rec is not None:
             return (t.pos_to_run, t.rec)
         return (t.bucket_lo, t.run_start, t.run_sym, t.cum)
+
+    def locate_work(t, l_start, l_size):
+        """What locate (K8) must do on these intervals, and what its design
+        does: a dict of the bound's bytes and operations and its chain (the
+        function's own: the intervals and outputs once; per lane its run's
+        head and sample, per locate_next step the predecessor tail's value,
+        run and next sample, each table gathered at most once; the chain the
+        longest lane's steps + 1 dependent gathers), the design's bytes
+        (per lane a line a level of the run tree, its head and sample; per
+        step the bucket's line and the lines of its pairs) and chain (the
+        run tree's lines, head and sample, then two loads a step), the
+        steps (mean and longest a lane), the bucket occupancy (mean and
+        largest over all buckets) and the share of steps whose bucket holds
+        at most a line of pairs (two dependent loads), from the lanes
+        replayed on the card step by step."""
+        item = t.pos_dtype.itemsize
+        B = len(l_start)
+        st, sz = T(l_start).to(t.pos_dtype), T(l_size).to(t.pos_dtype)
+        j = torch.searchsorted(t.run_start, st, right=True) - 1
+        emit = sz.long().clamp(0, LOCATE_CAP)
+        steps = torch.where(emit > 0, (st - t.run_start[j]).long().clamp(min=0) + emit - 1, 0)
+        pair, line = 2 * item, 64 // (2 * item)
+        r = t.tail_pairs.shape[0]
+        cur, left = t.samples[j], steps
+        fits = pair_lines = torch.zeros((), dtype=torch.int64, device=dev)
+        while True:
+            go = left > 0
+            cur, left = cur[go], left[go]
+            if not cur.numel():
+                break
+            lo, m = tail_bucket(t, cur)
+            one = m <= line
+            first = torch.where(lo > 0, lo - 1, r - 1) * pair // 64
+            span = torch.where(one, (lo - 1 + m).clamp(min=0) * pair // 64 - first + 1,
+                               torch.log2(m.clamp(min=1).double()).long() + 2)
+            fits = fits + one.sum()
+            pair_lines = pair_lines + span.sum()
+            cur, left = rank.locate_next(t, cur), left - 1
+        n_steps, longest = int(steps.sum()), int(steps.max())
+        run_lines = len(t.run_tree_levels)
+        io = B * (2 * item + LOCATE_CAP * item + 5)
+        sizes = (t.tail_lo[1:] - t.tail_lo[:-1]).double()
+        return dict(
+            nbytes=io + gathered(B * item, t.run_start)
+            + gathered((B + n_steps) * item, t.samples)
+            + gathered(n_steps * item, t.last_sorted) + gathered(n_steps * item, t.last_to_run),
+            ops=(B + n_steps) * 4, chain=longest + 1,
+            design=io + B * (run_lines * 64 + 2 * item) + 64 * (n_steps + int(pair_lines)),
+            design_chain=run_lines + 2 + 2 * longest, mean_steps=n_steps / B,
+            longest=longest, occupancy=(float(sizes.mean()), int(sizes.max())),
+            fits=int(fits) / max(n_steps, 1), line=line)
+
+    def log_locate(label, w):
+        log(f"{label}: locate_next steps a lane: mean {w['mean_steps']:.2f}, longest "
+            f"{w['longest']}; tail buckets hold {w['occupancy'][0]:.4f} tails on average, "
+            f"{w['occupancy'][1]} at most; {w['fits']:.6f} of the steps meet a bucket of "
+            f"at most {w['line']} tails (two dependent loads); the design's chain "
+            f"{w['design_chain']} loads")
 
     kernels = {}
 
@@ -1720,31 +1792,15 @@ def main() -> int:
     bad = np.flatnonzero((lpos[sample] != host_pos).any(axis=1))
     check(len(bad) == 0, f"{len(bad)} locate lanes differ from the host model "
                          f"(lane {sample[bad[:1]]})")
-    # what a lane must do: run_of (a search), then a locate_next for each row
-    # from the run head to start and between two emitted values
-    run_j = np.searchsorted(idx.run_start, l_start, side="right") - 1
-    emit = np.minimum(l_size, LOCATE_CAP)
-    l_steps = np.where(emit > 0, l_start - idx.run_start[run_j] + emit - 1, 0)
-    run_lines, tail_lines = len(t_ck.run_tree_levels), len(t_ck.tail_tree_levels)
+    lw = locate_work(t_ck, l_start, l_size)
     log(f"locate: {len(l_start)} intervals ({N_LOCATE_MEMS} of the serving run's "
         f"MEMs), identical to the host model on {N_LOCATE_HOST} lanes (its "
-        f"locate_next chains {host_s:.2f} s); locate_next steps a lane: mean "
-        f"{l_steps.mean():.2f}, longest {int(l_steps.max())}; search trees of "
-        f"{run_lines} and {tail_lines} lines a search {card}")
-    # bytes: start, size, positions, count and overflow once; per search the
-    # lines it reads (internal levels and a leaf line) and per locate_next
-    # step three 4-byte gathers, no table more than once; chain: the longest
-    # lane's run_of (its lines, samples, run_start) and its steps (the lines
-    # of a search, last_to_run, samples)
-    loc_tables = (t_ck.run_start, t_ck.run_tree, t_ck.samples, t_ck.last_sorted,
-                  t_ck.last_to_run, t_ck.tail_tree)
+        f"locate_next chains {host_s:.2f} s); run search tree of "
+        f"{len(t_ck.run_tree_levels)} lines {card}")
+    log_locate("locate", lw)
     compare("locate_batch", lambda: locate.locate_batch(t_ck, ls, lz, LOCATE_CAP),
             lambda: locate.locate_batch_plain(t_ck, ls, lz, LOCATE_CAP), plain_reps=1,
-            nbytes=len(l_start) * (8 + 4 * LOCATE_CAP + 5)
-            + gathered(len(l_start) * (run_lines * 64 + 8)
-                       + int(l_steps.sum()) * (tail_lines * 64 + 12), *loc_tables),
-            ops=(len(l_start) * run_lines + int(l_steps.sum()) * tail_lines) * 32,
-            chain=run_lines + 2 + int(l_steps.max()) * (tail_lines + 2))
+            nbytes=lw["nbytes"], ops=lw["ops"], chain=lw["chain"], design=lw["design"])
     # the int64 instantiation on the same index and intervals (int64
     # tables over two-level rows of 2^24 positions: two superblocks), so
     # that its cost is seen apart from the k-copy index's larger tables
@@ -2599,7 +2655,8 @@ def main() -> int:
         read_launches=read_launches, card=card, without_seconds=without_seconds,
         gathered=gathered, idx=idx, tags=tags, codes=codes, lens=lens, dev=dev,
         ri_path=ri_path, tags_path=tags_path, fm_reads=fm_reads, sdict_path=sdict_path,
-        merge_inputs=env_ns.merge_inputs, launches=launches, kernels=kernels))
+        merge_inputs=env_ns.merge_inputs, launches=launches, kernels=kernels,
+        launch_ms=launch_ms))
     env_ns.merge_inputs = None
 
     # --- 10d. the api path: the package's public functions (api_path) ----
@@ -2955,23 +3012,12 @@ def main() -> int:
             + gathered(q_steps2 * 128, t2.ckpt_planes),
             ops=q_steps2 * 60, chain=int(qlens.max()))
     del found2
-    run_j2 = np.searchsorted(big.run_start, l_start2, side="right") - 1
-    emit2 = np.minimum(l_size2, LOCATE_CAP)
-    l_steps2 = np.where(emit2 > 0, l_start2 - big.run_start[run_j2] + emit2 - 1, 0)
-    run_lines2, tail_lines2 = len(t2.run_tree_levels), len(t2.tail_tree_levels)
-    loc_tables2 = (t2.run_start, t2.run_tree, t2.samples, t2.last_sorted, t2.last_to_run,
-                   t2.tail_tree)
-    log(f"serve-2g locate: locate_next steps a lane: mean {l_steps2.mean():.2f}, longest "
-        f"{int(l_steps2.max())}; search trees of {run_lines2} and {tail_lines2} lines a "
-        f"search")
+    lw2 = locate_work(t2, l_start2, l_size2)
+    log_locate("serve-2g locate", lw2)
     compare("locate_batch_int64", lambda: locate.locate_batch(t2, ls2, lz2, LOCATE_CAP),
             lambda: locate.locate_batch_plain(t2, ls2, lz2, LOCATE_CAP), plain_reps=1,
-            nbytes=len(l_start2) * (16 + 8 * LOCATE_CAP + 5)
-            + gathered(len(l_start2) * (run_lines2 * 64 + 16)
-                       + int(l_steps2.sum()) * (tail_lines2 * 64 + 24), *loc_tables2),
-            ops=(len(l_start2) * run_lines2 + int(l_steps2.sum()) * tail_lines2) * 32,
-            chain=run_lines2 + 2 + int(l_steps2.max()) * (tail_lines2 + 2))
-    del b2, t2, tt2, kw2, ls2, lz2, loc_tables2, big, big_tags, b2b, t2b
+            nbytes=lw2["nbytes"], ops=lw2["ops"], chain=lw2["chain"], design=lw2["design"])
+    del b2, t2, tt2, kw2, ls2, lz2, big, big_tags, b2b, t2b
 
     for name, entry in kernels.items():
         src_ = SOURCES[name]

@@ -80,7 +80,7 @@ SIGNATURES = {
     "pgt_sdict_level_dense": (_P, _I64, _P, _I64, _P, _P, _P, _I, _I64, _I64,
                               _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P, _P,
                               _P, _P),
-    "pgt_locate": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64, _I,
+    "pgt_locate": (_P, _P, _I64, _P, _P, _P, _I64, _I, _I64, _P, _P, _I64, _I,
                    _P, _P, _P, _P),
     "pgt_bwt_sort_pairs": (_P, _I64, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                            _P),
@@ -90,7 +90,7 @@ SIGNATURES = {
     "pgt_bwt_finish_read_off": (_P, _P, _I64, _P, _I64, _P, _P, _P, _P),
     # the int64 instantiations (n >= 2^31): checkpoint rows with their
     # superblock bases (ckpt, nrows, super_S, n_super, super_shift) and
-    # int64 positions; the tag and locate searches over int64 heads
+    # int64 positions; the tag search and locate over int64 heads
     "pgt_extend_ckpt64": (_P, _I64, _P, _I64, _I, _P, _P, _P, _P, _P, _P,
                           _I64, _P, _P, _P, _P),
     "pgt_resolve_seeds64": (_P, _I64, _P, _P, _I, _P, _I64, _P, _I, _I64, _I,
@@ -108,7 +108,7 @@ SIGNATURES = {
                              _P, _P, _P),
     "pgt_query_tags_batch64": (_P, _I64, _P, _I64, _P, _P, _P, _I64, _I, _I,
                                _I, _P, _P, _P, _P, _P),
-    "pgt_locate64": (_P, _P, _I64, _P, _P, _P, _P, _I64, _I64, _P, _P, _I64,
+    "pgt_locate64": (_P, _P, _I64, _P, _P, _P, _I64, _I, _I64, _P, _P, _I64,
                      _I, _P, _P, _P, _P),
     # the ultra (rank_table, rows) and bucketed (bucket_lo, buckets,
     # run_start, run_sym, cum, runs) rank providers; bucketed64: int64
@@ -133,12 +133,11 @@ SIGNATURES = {
     "pgt_mer_level_bucketed": _BUCKET + _MER,
     "pgt_mer_level_bucketed64": _BUCKET + _MER,
     # the one-card tag merge (csrc/merge.cu): a pass's count, scan, place
-    "pgt_merge_count": (_P, _P, _I64, _I, _I, _I, _I64, _P, _P),
-    "pgt_merge_scan": (_P, _I64, _P),
-    "pgt_merge_place": (_P, _P, _P, _I64, _I, _I, _I, _I64, _P, _P, _P, _P, _I64, _P, _P,
-                        _P),
-    # the cross-card merge's per-component counts (csrc/merge.cu)
-    "pgt_merge_hist": (_P, _I64, _I, _P, _P),
+    "pgt_merge_scan": (_P, _P, _I64, _P),
+    "pgt_merge_place": (_P, _P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _I64, _P, _P,
+                        _P, _P, _P),
+    # the per-component counts and the sort's digit totals (csrc/merge.cu)
+    "pgt_merge_hist": (_P, _I64, _I, _P, _I, _P, _P),
     # a model shard's rank6 partials (csrc/shard.cu): checkpoint rows
     # (planes, rows_local, row0) or runs (run_start, run_sym, cum,
     # runs_local, upper), then pos, npos, out, accumulate, stream

@@ -604,7 +604,8 @@ def serve_mesh(args, n_data: int, n_model: int, dev: torch.device, seconds: dict
     else:
         del t
         placed = shard_tables(pad_rindex_tables(idx, n_model,
-                                                checkpoint=args.rank_mode == "checkpoint"),
+                                                checkpoint=args.rank_mode == "checkpoint",
+                                                device=mesh.device),
                               mesh)
     n_reads = len(reads)
 

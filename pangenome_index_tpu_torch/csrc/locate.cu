@@ -11,21 +11,34 @@
 //   3. locate_next from the run head up to start, one step a row;
 //   4. min(size, capacity) values into the interval's row of `positions`,
 //      a locate_next between two, zeros after them;
-// locate_next(prev): i = (number of run tails <= prev) - 1, a search of
-// last_sorted; samples[last_to_run[i] + 1] + (prev - last_sorted[i]).
+// locate_next(prev): i = (number of run tails <= prev) - 1 (-1 wrapping to
+// r - 1); samples[last_to_run[i] + 1] + (prev - last_sorted[i]).
 //
-// Both searches go through the static search trees of ops/tables.py
-// (derive_search_tree over run_start and over last_sorted) with
-// tags.cuh:upper_bound_quad: a quad of lanes takes its four searches
-// together, one 64-byte line a level. A lane's steps form one chain of
-// dependent loads (tree depth + 1 lines of the search, then last_to_run and
-// samples), so the kernel is bound by the longest lane's chain, not by bytes;
-// its loop runs while any lane of the warp has a step left (every lane takes
-// part in the quads' searches), `cur` stays in a register, and each slot of
-// a row is written once. Positions (the tables, the intervals and the output)
-// are int32 below n = 2^31 and int64 past it, with int64 search trees of 8
-// keys a line (tags.cuh); the position type is a template parameter.
+// A lane's steps form one chain of dependent loads, so the kernel is bound
+// by its longest lane's chain, not by bytes (at 2.16 G positions the
+// longest lane takes some 6000 steps against a mean of some 360). The
+// design makes a step two dependent loads. locate_next(prev) is prev +
+// delta[i], delta[i] = samples[last_to_run[i] + 1] - last_sorted[i] a
+// constant of the tail, so the tails and their deltas are fused into pairs
+// (ops/tables.py:derive_tail_index), and the predecessor is found through a
+// bucket index over the tails' packed values, about one tail a bucket:
+//   1. b = prev >> shift (clamped into the buckets); tail_lo[b] and
+//      tail_lo[b + 1], one line: the bucket's tails [lo, hi);
+//   2. the pairs lo - 1 .. hi - 1 (the one before the bucket and the
+//      bucket's), loads issued together: one line, or two, wherever the
+//      bucket holds at most a line of pairs (4 at int64, 8 at int32); a
+//      fuller bucket is searched by halving, and its pair loaded;
+//   i = lo - 1 + (the bucket's tails <= prev), and the step is prev +
+//   delta[i], in unsigned arithmetic: the int32 form wraps as JAX's int32
+//   sum does.
+// run_of runs once a lane, through the static search tree over run_start
+// (ops/tables.py:derive_search_tree) with tags.cuh:upper_bound_quad, a quad
+// of lanes taking its four searches together. After it each lane steps on
+// by itself, `cur` in a register, and each slot of a row is written once.
+// Positions (the tables, the intervals and the output) are int32 below
+// n = 2^31 and int64 past it (the position type is a template parameter).
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "tags.cuh"
@@ -34,14 +47,23 @@ namespace {
 
 constexpr int kThreads = 128;
 
+// a (tail, delta) pair, read with one load: 8 bytes at int32, 16 at int64
+template <class P>
+using PairOf = std::conditional_t<sizeof(P) == 4, int2, longlong2>;
+
+// pairs a 64-byte line holds
+template <class P>
+constexpr int kLinePairs = 64 / static_cast<int>(sizeof(PairOf<P>));
+
 template <class P>
 struct LocateTables {
-  pgt::SearchTree<P> runs;   // over run_start
-  pgt::SearchTree<P> tails;  // over last_sorted
+  pgt::SearchTree<P> runs;  // over run_start
   const P* run_start;
-  const P* samples;     // [r + 1]
-  const P* last_sorted;
-  const P* last_to_run;
+  const P* samples;         // [r + 1]
+  const PairOf<P>* pairs;   // [r] (last_sorted[i], delta[i])
+  const int* tail_lo;       // [nb + 1] the first tail of each bucket, r at nb
+  int64_t nb;
+  int shift;
   int n_runs;
 };
 
@@ -65,17 +87,47 @@ __device__ __forceinline__ int search(const pgt::SearchTree<P>& tree, P v,
   return out;
 }
 
-// an index of -1 reads the last entry, as the JAX and torch gathers do
-__device__ __forceinline__ int wrap(int i, int n) { return i < 0 ? i + n : i; }
-
-// locate_next(prev) for an active lane, prev itself for another
+// the pair before tail index i (i = 0: the last, as the JAX gather of -1)
 template <class P>
-__device__ __forceinline__ P locate_next(const LocateTables<P>& t, P prev,
-                                         bool active) {
-  const int i = wrap(search(t.tails, prev, active) - 1, t.n_runs);
-  if (!active) return prev;
-  const P run = pgt::load_key(t.last_to_run + i) + 1;
-  return pgt::load_key(t.samples + run) + (prev - pgt::load_key(t.last_sorted + i));
+__device__ __forceinline__ PairOf<P> pair_before(const LocateTables<P>& t, int i) {
+  return __ldg(t.pairs + (i > 0 ? i - 1 : t.n_runs - 1));
+}
+
+// locate_next(prev): the bucket, then its pairs (one line where it fits)
+template <class P>
+__device__ __forceinline__ P locate_next(const LocateTables<P>& t, P prev) {
+  using U = std::make_unsigned_t<P>;
+  constexpr int K = kLinePairs<P>;
+  int64_t b = static_cast<int64_t>(prev) >> t.shift;
+  b = b < 0 ? 0 : (b >= t.nb ? t.nb - 1 : b);
+  const int lo = __ldg(t.tail_lo + b);
+  const int hi = __ldg(t.tail_lo + b + 1);
+  const int m = hi > lo ? hi - lo : 0;
+  P delta;
+  if (m <= K) {
+    // p[0] the pair before the bucket, p[1 .. m] the bucket's, loaded together
+    PairOf<P> p[K + 1];
+    p[0] = pair_before(t, lo);
+#pragma unroll
+    for (int j = 1; j <= K; ++j) p[j] = j <= m ? __ldg(t.pairs + lo + j - 1) : p[0];
+    int c = 0;
+#pragma unroll
+    for (int j = 1; j <= K; ++j) c += j <= m && static_cast<P>(p[j].x) <= prev;
+    delta = static_cast<P>(p[0].y);
+#pragma unroll
+    for (int j = 1; j <= K; ++j) delta = j == c ? static_cast<P>(p[j].y) : delta;
+  } else {
+    int l = lo, h = hi;  // the first tail of the bucket above prev
+    while (l < h) {
+      const int mid = l + (h - l) / 2;
+      if (static_cast<P>(__ldg(t.pairs + mid).x) <= prev)
+        l = mid + 1;
+      else
+        h = mid;
+    }
+    delta = static_cast<P>(pair_before(t, l).y);
+  }
+  return static_cast<P>(static_cast<U>(prev) + static_cast<U>(delta));
 }
 
 template <class P>
@@ -94,49 +146,41 @@ locate_kernel(LocateTables<P> t, const P* __restrict__ start,
   // -1 where start lies before the first run; it reads the last entry of
   // each table, as the JAX and torch gathers do (samples holds n_runs + 1)
   const int j = search(t.runs, st, live) - 1;
-  P cur = 0, chase = 0;
-  if (live) {
-    cur = pgt::load_key(t.samples + (j < 0 ? t.n_runs : j));
-    const P head = pgt::load_key(t.run_start + (j < 0 ? t.n_runs - 1 : j));
-    // the chase runs while the head is before start (none for a start
-    // before the BWT), and not at all for an interval that emits nothing
-    chase = emit > 0 && head < st ? st - head : 0;
-  }
+  if (!live) return;
+  P cur = pgt::load_key(t.samples + (j < 0 ? t.n_runs : j));
+  const P head = pgt::load_key(t.run_start + (j < 0 ? t.n_runs - 1 : j));
+  // the chase runs while the head is before start (none for a start
+  // before the BWT), and not at all for an interval that emits nothing
+  P chase = emit > 0 && head < st ? st - head : 0;
   P* row = positions + lane * capacity;
   int e = 0;
-  if (live && chase == 0 && e < emit) row[e++] = cur;
-  bool step = live && (chase > 0 || e < emit);
-  while (__any_sync(0xffffffffu, step)) {
-    cur = locate_next(t, cur, step);
-    if (step) {
-      if (chase > 0) --chase;
-      if (chase == 0) row[e++] = cur;
-    }
-    step = live && (chase > 0 || e < emit);
+  if (chase == 0 && e < emit) row[e++] = cur;
+  while (chase > 0 || e < emit) {
+    cur = locate_next(t, cur);
+    if (chase > 0) --chase;
+    if (chase == 0) row[e++] = cur;
   }
-  if (live) {
-    for (; e < capacity; ++e) row[e] = 0;
-    count[lane] = cnt;
-    overflow[lane] = sz > capacity;
-  }
+  for (; e < capacity; ++e) row[e] = 0;
+  count[lane] = cnt;
+  overflow[lane] = sz > capacity;
 }
 
 template <class P>
 int locate(const P* run_start, const P* run_nodes, int64_t run_rows,
-           const P* samples, const P* last_sorted, const P* last_to_run,
-           const P* tail_nodes, int64_t tail_rows, int64_t n_runs,
-           const P* start, const P* size, int64_t B, int capacity,
-           P* positions, int* count, bool* overflow, void* stream) {
+           const P* samples, const P* pairs, const int* tail_lo, int64_t nb,
+           int shift, int64_t n_runs, const P* start, const P* size, int64_t B,
+           int capacity, P* positions, int* count, bool* overflow, void* stream) {
   LocateTables<P> t;
-  if (n_runs < 1 || n_runs >= (int64_t{1} << 31) || capacity < 1 ||
-      !pgt::make_search_tree(run_nodes, run_rows, run_start, n_runs, &t.runs) ||
-      !pgt::make_search_tree(tail_nodes, tail_rows, last_sorted, n_runs,
-                             &t.tails))
+  if (n_runs < 1 || n_runs >= (int64_t{1} << 31) || capacity < 1 || nb < 1 ||
+      shift < 0 || shift > 62 ||
+      !pgt::make_search_tree(run_nodes, run_rows, run_start, n_runs, &t.runs))
     return static_cast<int>(cudaErrorInvalidValue);
   t.run_start = run_start;
   t.samples = samples;
-  t.last_sorted = last_sorted;
-  t.last_to_run = last_to_run;
+  t.pairs = reinterpret_cast<const PairOf<P>*>(pairs);
+  t.tail_lo = tail_lo;
+  t.nb = nb;
+  t.shift = shift;
   t.n_runs = static_cast<int>(n_runs);
   if (B > 0) {
     const unsigned blocks = static_cast<unsigned>((B + kThreads - 1) / kThreads);
@@ -151,32 +195,31 @@ int locate(const P* run_start, const P* run_nodes, int64_t run_rows,
 extern "C" {
 
 // run_start [r] int32 and its search tree [run_rows, 16] int32, samples
-// [r + 1], last_sorted [r] and its tree [tail_rows, 16], last_to_run [r];
+// [r + 1], the tail pairs [r, 2] int32 (last_sorted, delta) and their
+// bucket index tail_lo [nb + 1] int32 over buckets of 2^shift values;
 // start, size [B] int32 -> positions [B, capacity] int32, count [B] int32
 // (min(size, capacity)), overflow [B] bool (size > capacity)
 int pgt_locate(const int* run_start, const int* run_nodes, int64_t run_rows,
-               const int* samples, const int* last_sorted,
-               const int* last_to_run, const int* tail_nodes,
-               int64_t tail_rows, int64_t n_runs, const int* start,
+               const int* samples, const int* pairs, const int* tail_lo,
+               int64_t nb, int shift, int64_t n_runs, const int* start,
                const int* size, int64_t B, int capacity, int* positions,
                int* count, bool* overflow, void* stream) {
-  return locate(run_start, run_nodes, run_rows, samples, last_sorted,
-                last_to_run, tail_nodes, tail_rows, n_runs, start, size, B,
-                capacity, positions, count, overflow, stream);
+  return locate(run_start, run_nodes, run_rows, samples, pairs, tail_lo, nb,
+                shift, n_runs, start, size, B, capacity, positions, count,
+                overflow, stream);
 }
 
-// the same over int64 tables (trees [rows, 8] int64), intervals and
-// positions
+// the same over int64 tables (the run tree [rows, 8] int64, the pairs [r, 2]
+// int64, 16-byte aligned), intervals and positions; tail_lo stays int32
 int pgt_locate64(const int64_t* run_start, const int64_t* run_nodes,
-                 int64_t run_rows, const int64_t* samples,
-                 const int64_t* last_sorted, const int64_t* last_to_run,
-                 const int64_t* tail_nodes, int64_t tail_rows, int64_t n_runs,
+                 int64_t run_rows, const int64_t* samples, const int64_t* pairs,
+                 const int* tail_lo, int64_t nb, int shift, int64_t n_runs,
                  const int64_t* start, const int64_t* size, int64_t B,
                  int capacity, int64_t* positions, int* count, bool* overflow,
                  void* stream) {
-  return locate(run_start, run_nodes, run_rows, samples, last_sorted,
-                last_to_run, tail_nodes, tail_rows, n_runs, start, size, B,
-                capacity, positions, count, overflow, stream);
+  return locate(run_start, run_nodes, run_rows, samples, pairs, tail_lo, nb,
+                shift, n_runs, start, size, B, capacity, positions, count,
+                overflow, stream);
 }
 
 }  // extern "C"

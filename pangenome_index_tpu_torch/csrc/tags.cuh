@@ -1,10 +1,10 @@
 // Tag-array search pieces shared by K4 (tagquery.cu), K6 (tagbatch.cu) and
 // the search probe (tagsearch.cu), and the search tree that K8 (locate.cu)
-// searches the run heads and the sorted run tails with.
+// finds a start's run with.
 //
 // The search over t sorted heads below the key type's maximum ("how many
 // heads are <= v", searchsorted side="right": the tag run heads here,
-// run_start and last_sorted in locate.cu) goes through a static search tree
+// run_start in locate.cu) goes through a static search tree
 // made for 64-byte lines (ops/tables.py:derive_search_tree): a node is one
 // aligned line of 16 int32 keys with 17 children (8 int64 keys with 9
 // children past 2^31), the leaf level is the array of heads itself read as
@@ -43,8 +43,8 @@ constexpr int kStartEveryK = 10;
 // the "no value" filler of the JAX code: a pos_enc equal to it is never kept
 constexpr int64_t kBig = INT64_MAX;
 // A tree node is one 64-byte line: 16 int32 keys with 17 children, or 8
-// int64 keys with 9 children over int64 heads (the tag run heads, run_start
-// and last_sorted of an index of n >= 2^31 positions). A lane of a quad
+// int64 keys with 9 children over int64 heads (the tag run heads and
+// run_start of an index of n >= 2^31 positions). A lane of a quad
 // loads 16 bytes of a line either way: four int32 keys or two int64 keys.
 template <class K>
 struct TreeShape {

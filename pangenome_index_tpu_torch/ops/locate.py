@@ -8,9 +8,10 @@ lane's row of a [B, capacity] buffer, a locateNext between two, zeros after
 them. Document-array results (sequence ids) come from dividing by max_len,
 as in the JAX package.
 
-On the card one launch, one thread an interval, both searches (run_of and
-the predecessor among the sorted run tails in locate_next) through the
-search trees the tables carry (tables.with_locate_trees), at int32
+On the card one launch, one thread an interval: run_of through the search
+tree over the run heads, then each locate_next step through the bucket index
+over the run tails and the fused (tail, delta) pairs (two dependent loads a
+step where the bucket fits a line; tables.with_locate_tables), at int32
 positions or, past 2^31, int64; on the CPU the plain version, which takes
 the JAX function's steps with torch.searchsorted.
 """
@@ -55,26 +56,27 @@ def locate_batch_plain(t: RIndexTables, start: torch.Tensor, size: torch.Tensor,
 
 
 def _locate_args(t: RIndexTables, dev) -> tuple:
-    """The kernel's view of the locate tables and their search trees."""
+    """The kernel's view of the locate tables: the run heads and their
+    search tree, the samples, the tail pairs and their bucket index."""
     pd = t.pos_dtype
     if pd not in (torch.int32, torch.int64):
         raise ValueError(f"locate: int32 or int64 positions, not {pd}")
-    if t.run_tree is None or t.tail_tree is None:
-        raise ValueError("tables without the locate search trees: build them "
-                         "with rindex_to_device or tables_from_numpy")
+    if t.run_tree is None or t.tail_pairs is None or t.tail_lo is None:
+        raise ValueError("tables without the locate tables' search tree and tail "
+                         "index: build them with rindex_to_device or tables_from_numpy")
     r = t.run_start.shape[0]
-    if t.last_sorted.shape[0] != r or t.last_to_run.shape[0] != r \
-            or t.samples.shape[0] != r + 1:
-        raise ValueError("tables without the locate tables (samples, "
-                         "last_sorted, last_to_run of every run)")
+    if t.tail_pairs.shape != (r, 2) or t.samples.shape[0] != r + 1:
+        raise ValueError("tables without the locate tables (samples and the tail "
+                         "pairs of every run)")
     ptrs = [_build.check(name, a, pd, dev) for name, a in (
         ("run_start", t.run_start), ("run search tree", t.run_tree),
-        ("samples", t.samples), ("last_sorted", t.last_sorted),
-        ("last_to_run", t.last_to_run), ("tail search tree", t.tail_tree))]
-    if any(p % 16 for p in (ptrs[0], ptrs[1], ptrs[3], ptrs[5])):
-        raise ValueError("the searched heads and their trees must be 16-byte aligned")
-    return (ptrs[0], ptrs[1], t.run_tree.shape[0], ptrs[2], ptrs[3], ptrs[4],
-            ptrs[5], t.tail_tree.shape[0], r)
+        ("samples", t.samples), ("tail pairs", t.tail_pairs))]
+    lo_p = _build.check("tail_lo", t.tail_lo, torch.int32, dev)
+    if any(p % 16 for p in (ptrs[0], ptrs[1], ptrs[3])):
+        raise ValueError("the run heads, their tree and the tail pairs must be "
+                         "16-byte aligned")
+    return (ptrs[0], ptrs[1], t.run_tree.shape[0], ptrs[2], ptrs[3], lo_p,
+            t.tail_lo.shape[0] - 1, t.tail_shift, r)
 
 
 def locate_batch(t: RIndexTables, start: torch.Tensor, size: torch.Tensor,

@@ -16,16 +16,16 @@ place in the rows sorted by component, which is then offsets[c] plus its
 rank, and no read falls outside the stream.
 
 The kernel is a stable counting sort of the rows by component, a row's
-place in it being its stream index: per pass of 8 bits of the label (one
-pass up to C = 255), a tile histogram, one scan of the histograms and the
-placement (csrc/merge.cu). The plain version computes each row's rank in
-its component by a stable sort.
+place in it giving its stream index: one launch a pass of 8 bits of the
+label (one pass up to C = 255), each tile's place among the tiles taken by
+a decoupled look-back (csrc/merge.cu). The plain version computes each
+row's rank in its component by a stable sort.
 
 merge_rows_shard is one data shard's part of the cross-card merge
 (parallel/merge.py): a row's stream index is offsets[c] + base[c] + its
 rank within c on the shard, base[c] being the rows of c on earlier shards;
-the same sort, with one more launch that counts the shard's rows of each
-component for the exchange that gives base.
+one launch counts the shard's rows of each component for the exchange that
+gives base, then the same sort reads base itself.
 """
 
 from __future__ import annotations
@@ -35,9 +35,11 @@ import torch
 from .. import _build
 
 #: keys a tile of the kernel (csrc/merge.cu: kThreads * kItems)
-TILE = 4096
+TILE = 2048
 #: bits of the component label a pass
 DIGIT_BITS = 8
+#: digit values a pass, at most
+RADIX = 1 << DIGIT_BITS
 
 
 def merge_passes(C: int) -> list[tuple[int, int]]:
@@ -75,13 +77,19 @@ def _check_inputs(name: str, comp, stream, offsets) -> None:
 
 
 def merge_rows(comp: torch.Tensor, stream: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """tag [n] int64, as merge_rows_plain; on the card three launches a pass
-    of the sort (one pass up to C = 255), each counted; the plain version on
-    the CPU."""
+    """tag [n] int64, as merge_rows_plain; on the card one launch up to C =
+    255 (past it the digit totals, the components' first places and a
+    launch a pass of the sort), each counted; the plain version on the
+    CPU."""
     _check_inputs("merge_rows", comp, stream, offsets)
     if comp.device.type == "cpu":
         return merge_rows_plain(comp, stream, offsets)
-    tag, n_launches = _sort_and_gather(comp, stream, offsets, None)
+    C = offsets.numel() - 1
+    hist = None
+    if comp.numel() and len(merge_passes(C)) > 1:
+        hist = _hist(comp, C)
+        merge_rows.launches += 1
+    tag, n_launches = _sort_and_gather(comp, stream, offsets, None, hist)
     merge_rows.launches += n_launches
     return tag
 
@@ -117,27 +125,24 @@ def merge_rows_shard(comp: torch.Tensor, stream: torch.Tensor, offsets: torch.Te
                      base_of) -> torch.Tensor:
     """One data shard's rows of the cross-card merge (parallel/merge.py), as
     merge_rows_shard_plain. On the card: one launch counts the shard's rows
-    of each component (pgt_merge_hist); base_of(counts) returns the rows of
-    each component on earlier shards (the caller's all_gather and exclusive
-    prefix, outside the kernel; on one card zeros); then merge_rows' sort
-    with each component's adjustment adj[c] = offsets[c] + base[c] -
-    (the shard's rows of components below c), read by its last pass. Every
-    launch counted; the plain version on the CPU."""
+    of each component (pgt_merge_hist; past C = 255 also the sort's digit
+    totals); base_of(counts) returns the rows of each component on earlier
+    shards (the caller's all_gather and exclusive prefix, outside the
+    kernel; on one card zeros), and nothing else runs before merge_rows'
+    sort, whose last pass reads offsets and base itself. Every launch
+    counted; the plain version on the CPU."""
     _check_inputs("merge_rows_shard", comp, stream, offsets)
     if comp.device.type == "cpu":
         return merge_rows_shard_plain(comp, stream, offsets, base_of)
     dev = comp.device
     C = offsets.numel() - 1
-    counts = torch.zeros(max(C, 1), dtype=torch.int64, device=dev)
     if comp.numel() and C:
-        _build.launch("pgt_merge_hist", _build.check("comp", comp, torch.int32, dev),
-                      comp.numel(), C, counts.data_ptr(), _build.stream(dev))
+        hist = _hist(comp, C)
         merge_rows_shard.launches += 1
-    counts = counts[:C]
-    base = base_of(counts).to(device=dev, dtype=torch.int64)
-    local_start = torch.cumsum(counts, 0) - counts
-    adj = (offsets[:C] + base - local_start).contiguous()
-    tag, n_launches = _sort_and_gather(comp, stream, offsets, adj if C else None)
+    else:
+        hist = (torch.zeros(C, dtype=torch.int64, device=dev), None)
+    base = base_of(hist[0]).to(device=dev, dtype=torch.int64)
+    tag, n_launches = _sort_and_gather(comp, stream, offsets, base if C else None, hist)
     merge_rows_shard.launches += n_launches
     return tag
 
@@ -145,9 +150,23 @@ def merge_rows_shard(comp: torch.Tensor, stream: torch.Tensor, offsets: torch.Te
 merge_rows_shard.launches = 0
 
 
-def _sort_and_gather(comp, stream, offsets, adj):
-    """merge_rows' launches, the last pass reading stream[place + adj[c]]
-    (adj None: the place itself): (tag, the number of launches)."""
+def _hist(comp, C):
+    """One launch: (counts [C] int64, the rows of each component; the sort's
+    digit totals [passes, RADIX] int64 past one pass, else None)."""
+    dev = comp.device
+    passes = len(merge_passes(C))
+    counts = torch.empty(C, dtype=torch.int64, device=dev)
+    digits = torch.empty(passes * RADIX, dtype=torch.int64, device=dev) if passes > 1 else None
+    _build.launch("pgt_merge_hist", _build.check("comp", comp, torch.int32, dev), comp.numel(),
+                  C, counts.data_ptr(), passes if passes > 1 else 0,
+                  None if digits is None else digits.data_ptr(), _build.stream(dev))
+    return counts, digits
+
+
+def _sort_and_gather(comp, stream, offsets, base, hist):
+    """merge_rows' launches, the last pass reading stream[offsets[c] +
+    base[c] + the row's rank in c] (base None: 0); hist = _hist's counts
+    and digit totals, needed past one pass: (tag, the number of launches)."""
     dev = comp.device
     n, C, t = comp.numel(), offsets.numel() - 1, stream.numel()
     tag = torch.empty(n, dtype=torch.int64, device=dev)
@@ -155,30 +174,35 @@ def _sort_and_gather(comp, stream, offsets, adj):
         return tag, 0
     comp_p = _build.check("comp", comp, torch.int32, dev)
     stream_p = _build.check("stream", stream, torch.int64, dev) if t else None
-    _build.check("offsets", offsets, torch.int64, dev)
-    adj_p = None if adj is None else _build.check("adj", adj, torch.int64, dev)
+    offsets_p = _build.check("offsets", offsets, torch.int64, dev)
+    base = None if base is None else base.contiguous()  # kept until the launch is queued
+    base_p = None if base is None else _build.check("base", base, torch.int64, dev)
     n_launches = 0
     tiles = -(-n // TILE)
     st = _build.stream(dev)
     passes = merge_passes(C)
+    local_start = None
+    if len(passes) > 1:
+        # each component's first place in the sorted rows
+        local_start = torch.empty(C, dtype=torch.int64, device=dev)
+        _build.launch("pgt_merge_scan", hist[0].data_ptr(), local_start.data_ptr(), C, st)
+        n_launches += 1
     # an earlier pass places (key, row) pairs for the next; the first reads
     # the keys off comp and the rows are its indices (null pointers)
     keys = rows = None
     for d, (shift, radix) in enumerate(passes):
         last = d == len(passes) - 1
-        counts = torch.empty(radix * tiles, dtype=torch.int64, device=dev)
-        keys_p = None if keys is None else keys.data_ptr()
-        rows_p = None if rows is None else rows.data_ptr()
-        _build.launch("pgt_merge_count", comp_p, keys_p, n, C, shift, radix, tiles,
-                      counts.data_ptr(), st)
-        _build.launch("pgt_merge_scan", counts.data_ptr(), counts.numel(), st)
+        state = torch.empty(tiles * radix + 1, dtype=torch.int64, device=dev)
         keys_out = None if last else torch.empty(n, dtype=torch.int32, device=dev)
         rows_out = None if last else torch.empty(n, dtype=torch.int64, device=dev)
-        _build.launch("pgt_merge_place", comp_p, keys_p, rows_p, n, C, shift, radix, tiles,
-                      counts.data_ptr(), None if last else keys_out.data_ptr(),
-                      None if last else rows_out.data_ptr(), stream_p, t, adj_p,
+        digits_p = None if local_start is None else hist[1].data_ptr() + d * RADIX * 8
+        _build.launch("pgt_merge_place", comp_p, None if keys is None else keys.data_ptr(),
+                      None if rows is None else rows.data_ptr(), n, C, shift, radix, digits_p,
+                      state.data_ptr(), None if last else keys_out.data_ptr(),
+                      None if last else rows_out.data_ptr(), stream_p, t, offsets_p, base_p,
+                      None if local_start is None else local_start.data_ptr(),
                       tag.data_ptr(), st)
-        n_launches += 3
+        n_launches += 1
         # the inputs are dropped only once the launch that reads them is queued
         keys, rows = keys_out, rows_out
     return tag, n_launches

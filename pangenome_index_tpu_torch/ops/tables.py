@@ -14,8 +14,9 @@ with no bucket index) serve the plain versions only. n, n_seq and max_len are ho
 kernel takes them as launch arguments, and reading them never waits on the
 card. The tag tables carry, beside the JAX package's fields, the search tree
 over their run heads that the tag kernels descend (`derive_search_tree`);
-the r-index tables carry two more, over the run heads and the sorted run
-tails, that locate descends.
+the r-index tables carry what locate reads (`with_locate_tables`): the same
+tree over the run heads, and the sorted run tails fused with their next
+samples and indexed by buckets of their values (`derive_tail_index`).
 
 Positions are int32 while every value fits and int64 past 2^31, as in the
 JAX package; the kernels take either (an instantiation for each). At n >=
@@ -77,13 +78,17 @@ class RIndexTables:
     # int64 checkpoint tables: the kernels' form of ckpt_super (one row of
     # zeros for single-level rows), derive_super_S
     super_S: torch.Tensor | None = None
-    # the search trees over run_start and last_sorted (derive_search_tree)
-    # and the first line of each of their levels: locate (K8) searches
-    # through them and refuses tables without them
+    # what locate (K8) reads beside the JAX package's fields, and refuses
+    # tables without (with_locate_tables): the search tree over run_start
+    # (derive_search_tree) and the first line of each of its levels; the run
+    # tails fused with their next samples, [r, 2] (last_sorted[i],
+    # delta[i]), and their bucket index [nb + 1] int32 over buckets of
+    # 2^tail_shift packed values (derive_tail_index)
     run_tree: torch.Tensor | None = None
     run_tree_levels: tuple[int, ...] | None = None
-    tail_tree: torch.Tensor | None = None
-    tail_tree_levels: tuple[int, ...] | None = None
+    tail_pairs: torch.Tensor | None = None
+    tail_lo: torch.Tensor | None = None
+    tail_shift: int | None = None
 
     @property
     def pos_dtype(self) -> torch.dtype:
@@ -368,11 +373,73 @@ def tree_upper_bound_plain(tree: torch.Tensor, levels: tuple[int, ...],
     return node * keys_n + (leaf <= key).sum(dim=1)
 
 
-def with_locate_trees(t: RIndexTables) -> RIndexTables:
-    """The tables with the search trees over run_start and last_sorted
-    derived on their device (returns t)."""
+def derive_tail_index(last_sorted: torch.Tensor, samples: torch.Tensor,
+                      last_to_run: torch.Tensor,
+                      value_range: int) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """What locate_next reads, derived on the tables' device: (tail_pairs,
+    tail_lo, tail_shift).
+
+    locate_next(prev) = samples[last_to_run[i] + 1] + (prev - last_sorted[i])
+    with i the last tail <= prev (-1 wrapping to r - 1) is prev + delta[i],
+    delta[i] = samples[last_to_run[i] + 1] - last_sorted[i] a constant of
+    the tail (in the position dtype, wrapping as its sums do; the sample
+    index clamped into `samples`, as the JAX gather clamps it on the one-row
+    stubs). tail_pairs [r, 2] holds (last_sorted[i], delta[i]): one 16-byte
+    pair at int64, 8 at int32. Buckets of 2^tail_shift packed values cover
+    [0, value_range) (n_seq * max_len: every SA value lies below it), with
+    tail_shift = floor(log2(value_range / r)): about one tail a bucket, and
+    never fewer buckets than tails; tail_lo [nb + 1] int32 holds the first
+    tail >= b << tail_shift of each bucket b < nb and r at nb, so that the
+    last bucket also holds the tails past the range (the sentinels of padded
+    tables). The predecessor of prev is then tail_lo[b] - 1 plus the tails of
+    bucket b <= prev, b = prev >> tail_shift clamped into [0, nb - 1]
+    (tail_next_plain; csrc/locate.cu). last_sorted must be sorted."""
+    r = last_sorted.shape[0]
+    dev = last_sorted.device
+    run = (last_to_run.long() + 1).clamp(0, samples.shape[0] - 1)
+    pairs = torch.stack((last_sorted, samples[run] - last_sorted), dim=1).contiguous()
+    value_range = max(int(value_range), 1)
+    shift = max(value_range // max(r, 1), 1).bit_length() - 1
+    nb = -(-value_range >> shift)
+    bounds = torch.arange(nb, dtype=torch.int64, device=dev) << shift
+    lo = torch.searchsorted(last_sorted.long(), bounds)
+    tail_lo = torch.cat((lo, torch.tensor([r], device=dev))).to(torch.int32)
+    return pairs, tail_lo, shift
+
+
+def tail_bucket(t: RIndexTables, prev: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(lo, m) [B] int64 of each prev's bucket: its first tail and its
+    number of tails (0 where the bucket index is not monotone, as on
+    unsorted tails)."""
+    nb = t.tail_lo.shape[0] - 1
+    b = (prev.long() >> t.tail_shift).clamp(0, nb - 1)
+    lo, hi = t.tail_lo[b].long(), t.tail_lo[b + 1].long()
+    return lo, (hi - lo).clamp(min=0)
+
+
+def tail_next_plain(t: RIndexTables, prev: torch.Tensor) -> torch.Tensor:
+    """locate_next through the bucket index, as a step of csrc/locate.cu
+    takes it: the bucket of prev, the count of its tails <= prev, i = the
+    bucket's first tail - 1 + that count (-1 wrapping to r - 1), then prev +
+    delta[i] in the position dtype. [B]."""
+    r = t.tail_pairs.shape[0]
+    prev = prev.to(t.pos_dtype)
+    lo, m = tail_bucket(t, prev)
+    c = torch.zeros_like(lo)
+    for j in range(int(m.max()) if m.numel() else 0):
+        tail = t.tail_pairs[(lo + j).clamp(max=r - 1), 0]
+        c += (j < m) & (tail <= prev)
+    i = lo - 1 + c
+    return prev + t.tail_pairs[torch.where(i < 0, i + r, i), 1]
+
+
+def with_locate_tables(t: RIndexTables) -> RIndexTables:
+    """The tables with what locate reads derived on their device: the search
+    tree over run_start, and the tail pairs and their bucket index over the
+    packed values below n_seq * max_len (returns t)."""
     t.run_tree, t.run_tree_levels = derive_search_tree(t.run_start)
-    t.tail_tree, t.tail_tree_levels = derive_search_tree(t.last_sorted)
+    t.tail_pairs, t.tail_lo, t.tail_shift = derive_tail_index(
+        t.last_sorted, t.samples, t.last_to_run, t.n_seq * t.max_len)
     return t
 
 
@@ -412,8 +479,8 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     tables that rank through the cum table by a search over run_start
     (plain PyTorch only: the kernels refuse them). Same fields and values
     as the JAX rindex_to_device with the same flags (whose bucketed is True
-    by default: here False, base tables), and the search trees that locate
-    descends (with_locate_trees).
+    by default: here False, base tables), and what locate reads
+    (with_locate_tables).
 
     Positions are `dtype`, by default int32 where every value fits and int64
     past 2^31; rows are two-level at n >= 2^31 or with an explicit
@@ -439,7 +506,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         rec = _put(rec_np, pd, device)
     row_table = checkpoint or dense or ultra
     run_start = _put(idx.run_start, pd, device)
-    return with_locate_trees(with_rank_planes(RIndexTables(
+    return with_locate_tables(with_rank_planes(RIndexTables(
         run_sym=_put(idx.run_sym, torch.int8, device),
         run_start=run_start,
         # only the run-based modes rank through the per-run cum table;
@@ -475,9 +542,9 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
     """The JAX package's RIndexTables / TagTables fields, each as a numpy
     array (None or absent: None), -> (RIndexTables, TagTables or None) on
     `device`, with the same dtypes and values, and what the port derives
-    beside them: the search trees (over the tag run heads; over run_start
-    and last_sorted), the bit-plane rows and, for int64 positions, the
-    superblock bases (two-level rows included)."""
+    beside them: the search trees (over the tag run heads; over run_start),
+    the tail pairs and their bucket index, the bit-plane rows and, for int64
+    positions, the superblock bases (two-level rows included)."""
     device = torch.device(device)
 
     def put(a):  # np.array copies: arrays from JAX are read-only
@@ -492,7 +559,7 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
         max_len=int(rindex["max_len"]))
     if t.ckpt_super is not None:
         t.ckpt_super = t.ckpt_super.to(torch.int64)
-    with_locate_trees(with_rank_planes(t))
+    with_locate_tables(with_rank_planes(t))
     tt = None
     if tags is not None:
         heads = put(tags["bwt_start"])

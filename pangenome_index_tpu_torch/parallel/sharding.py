@@ -38,7 +38,7 @@ import torch.distributed as dist
 
 from ..models.rindex import RIndex
 from ..ops.shard_rank import CkptShard, RunShard
-from ..ops.tables import (CKPT_BLOCK, RIndexTables, rindex_to_device, with_locate_trees,
+from ..ops.tables import (CKPT_BLOCK, RIndexTables, rindex_to_device, with_locate_tables,
                           with_rank_planes)
 
 
@@ -148,7 +148,7 @@ def make_mesh(n_data: int, n_model: int, device="cuda") -> Mesh:
 
 def pad_rindex_tables(idx: RIndex, n_shards: int, checkpoint: bool = False,
                       ckpt_block: int = CKPT_BLOCK, super_shift: int | None = None,
-                      mem_only: bool = False, device="cpu",
+                      mem_only: bool = False, device="cuda",
                       dtype: torch.dtype | None = None) -> RIndexTables:
     """Tables with the run dimension padded to a multiple of n_shards by
     sentinel runs (start n + 1, the full cumulative counts), the JAX
@@ -157,12 +157,17 @@ def pad_rindex_tables(idx: RIndex, n_shards: int, checkpoint: bool = False,
     rows with copies of the last row (unreachable for positions <= n).
     mem_only (with checkpoint): the per-run and locate tables as one-row
     stubs, run_sym and run_start tiled to n_shards rows. The port's derived
-    tables (bit planes, superblock bases, search trees) follow the padded
-    arrays."""
+    tables (bit planes, superblock bases, the locate tables) follow the
+    padded arrays. The tables are built on `device`: a card unless the
+    caller asks for the CPU (RuntimeError where there is no card), as the
+    JAX function places them on its default device."""
     if ckpt_block != CKPT_BLOCK:
         raise ValueError(f"the port's checkpoint rows hold {CKPT_BLOCK} positions")
     if mem_only and not checkpoint:
         raise ValueError("mem_only requires checkpoint mode")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"pad_rindex_tables on {device}: no CUDA device here")
     r = idx.n_runs
     pad = 0 if mem_only else (-r) % n_shards
     if pad:
@@ -185,7 +190,7 @@ def pad_rindex_tables(idx: RIndex, n_shards: int, checkpoint: bool = False,
         t.run_start = t.run_start[:1].repeat(n_shards)
         t.last_sorted, t.last_to_run = t.last_sorted[:1], t.last_to_run[:1]
         t.samples = t.samples[:1]
-        with_locate_trees(t)
+        with_locate_tables(t)
     if checkpoint:
         rpad = (-t.ckpt.shape[0]) % n_shards
         if rpad:
@@ -258,7 +263,7 @@ def _replicated(t: RIndexTables, device):
 
 def shard_tables(t: RIndexTables, mesh: Mesh):
     """Place this rank's tables (from pad_rindex_tables(idx, n_model, ...),
-    held on the host by every rank): with n_model = 1 the whole tables on
+    which every rank builds whole): with n_model = 1 the whole tables on
     the mesh's device, served by the one-card kernels; else a ShardedRank
     of this rank's model slice of the checkpoint rows (or of the runs) and
     the replicated C and superblock bases, reduced over the model group.

@@ -491,13 +491,94 @@ def test_locate_batch_outside_the_bwt(dev, index, capacity):
 
 
 def test_locate_refuses_tables_without_trees(dev, index):
+    """Tables without the run tree or the tail index are refused on the
+    card, before any launch."""
     idx, _ = index
     from dataclasses import replace
 
     t = rindex_to_device(idx, dev, checkpoint=True)
     z = torch.zeros(4, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="search trees"):
-        locate.locate_batch(replace(t, tail_tree=None), z, z)
+    before = locate.locate_batch.launches
+    for missing in ("run_tree", "tail_pairs", "tail_lo"):
+        with pytest.raises(ValueError, match="search tree and tail index"):
+            locate.locate_batch(replace(t, **{missing: None}), z, z)
+    assert locate.locate_batch.launches == before
+
+
+def rebucketed(t, shift):
+    """t with its tail bucket index over buckets of 2^shift values: fuller
+    buckets than the derivation's, which the kernel searches by halving."""
+    from dataclasses import replace
+
+    V = t.n_seq * t.max_len
+    nb = -(-V >> shift)
+    lo = torch.searchsorted(t.last_sorted.long(),
+                            torch.arange(nb, device=t.device, dtype=torch.int64) << shift)
+    r = torch.tensor([t.last_sorted.shape[0]], device=t.device)
+    return replace(t, tail_lo=torch.cat((lo, r)).int(), tail_shift=shift)
+
+
+def held_locate(t, start, size, capacity, dev):
+    """K8 equals locate_batch_plain on the card, in one counted launch."""
+    dt = t.pos_dtype
+    st, sz = (torch.from_numpy(np.asarray(a, np.int64)).to(dev, dt) for a in (start, size))
+    before = locate.locate_batch.launches
+    got = locate.locate_batch(t, st, sz, capacity)
+    torch.cuda.synchronize()
+    assert locate.locate_batch.launches == before + 1
+    expect = locate.locate_batch_plain(t, st, sz, capacity)
+    for g, e in zip(got, expect):
+        assert g.dtype == e.dtype and torch.equal(g, e)
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("extra", [0, 3, 6])
+def test_locate_batch_through_full_buckets(dev, index, dtype, extra):
+    """K8 through buckets 2^extra times wider than the derivation's: at 3
+    and 6 most steps meet a bucket of more tails than a line holds pairs (8
+    at int32, 4 at int64) and take the halving search, at 0 (the derived
+    index) few or none; intervals inside and outside the BWT."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, checkpoint=True, dtype=dtype)
+    t = rebucketed(t, t.tail_shift + extra)
+    sizes = (t.tail_lo[1:] - t.tail_lo[:-1]).long()
+    line = 64 // (2 * t.pos_dtype.itemsize)
+    if extra:
+        assert int(sizes.max()) > line
+    rng = np.random.default_rng(extra)
+    B = 2000
+    start = rng.integers(0, idx.n, B)
+    start[::9] = -rng.integers(1, 100, len(start[::9]))
+    start[1::13] = idx.n + rng.integers(0, 3, len(start[1::13]))
+    size = np.minimum(rng.integers(-1, 120, B), idx.n - start)
+    got = held_locate(t, start, size, 64, dev)
+    sa = idx.decompress_sa()
+    pos, cnt = got.positions.cpu().numpy(), got.count.cpu().numpy().clip(min=0)
+    for i in range(0, B, 41):
+        if 0 <= start[i] < idx.n:
+            assert np.array_equal(pos[i, : cnt[i]], sa[start[i] : start[i] + cnt[i]])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_locate_batch_single_run(dev, dtype):
+    """An index of one run (one tail, one or two buckets): every step wraps
+    to the lone tail; starts before, inside and past the run, capacity 1
+    and 8."""
+    from pangenome_index_tpu_torch.ops.tables import RIndexTables, with_locate_tables
+
+    def put(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    t = with_locate_tables(RIndexTables(
+        run_sym=torch.zeros(1, dtype=torch.int8, device=dev), run_start=put([0]),
+        cum=put([[0] * 6]), C=put([0] * 7), samples=put([5, 0]), last_sorted=put([7]),
+        last_to_run=put([0]), n=40, n_seq=1, max_len=64))
+    assert t.tail_pairs.shape == (1, 2)
+    start = np.array([-3, -1, 0, 1, 5, 39, 40, 41, 20, 0])
+    size = np.array([4, 1, 0, 12, 3, 1, 2, -1, 8, 8])
+    for capacity in (1, 8):
+        held_locate(t, start, size, capacity, dev)
 
 
 @pytest.mark.parametrize("capacity", [1, 8, 256])
@@ -1203,9 +1284,18 @@ def merge_inputs(comp, C, dev, seed=0):
                  for a in (comp, stream.astype(np.int64), offsets))
 
 
+def merge_launches(C):
+    """merge_rows' launches a call: one up to C = 255; past it the
+    histogram, the scan and one a pass of the sort."""
+    from pangenome_index_tpu_torch.ops import merge
+
+    passes = len(merge.merge_passes(C))
+    return 1 if passes == 1 else passes + 2
+
+
 def held_merge(dev, comp, C, passes=None):
     """merge_rows equals merge_rows_plain on the card (torch.equal), in
-    3 launches a pass of its sort."""
+    merge_launches(C) launches (one where the sort takes one pass)."""
     from pangenome_index_tpu_torch.ops import merge
 
     args = merge_inputs(comp, C, dev)
@@ -1213,9 +1303,9 @@ def held_merge(dev, comp, C, passes=None):
     got = merge.merge_rows(*args)
     torch.cuda.synchronize()
     made = merge.merge_rows.launches - before
-    assert made == (3 * len(merge.merge_passes(C)) if len(comp) else 0)
+    assert made == (merge_launches(C) if len(comp) else 0)
     if passes is not None:
-        assert made == 3 * passes
+        assert len(merge.merge_passes(C)) == passes
     want = merge.merge_rows_plain(*args)
     assert got.dtype == want.dtype == torch.int64 and torch.equal(got, want)
     return got
@@ -1337,7 +1427,7 @@ def test_shard_rank6(dev, index, form, S):
     """Each shard's partials equal the plain version's, written and
     accumulated; summed over the shards they are the whole index's rank6."""
     idx, _ = index
-    t = sharding.pad_rindex_tables(idx, S, **SHARD_FORMS[form])
+    t = sharding.pad_rindex_tables(idx, S, device="cpu", **SHARD_FORMS[form])
     on_card = sharding.virtual_shards(t, S, dev)
     on_cpu = sharding.virtual_shards(t, S, "cpu")
     pos = shard_positions(idx, t, S, t.pos_dtype, dev)
@@ -1485,6 +1575,43 @@ def test_lockstep_engine(dev, index, form, S, tiers):
     assert after[0] - counts[0] == 1 + stats["iters"]
     assert after[1:] == counts[1:]
     assert torch.equal(stats["steps"].cpu(), st.steps.cpu())
+
+
+@pytest.mark.parametrize("n", [0, 1, merge_ops.TILE - 1, merge_ops.TILE + 1, 3 * merge_ops.TILE])
+@pytest.mark.parametrize("C", [1, 3, 255, 256, 300])
+def test_merge_rows_shard_with_a_base(dev, n, C):
+    """merge_rows_shard with a nonzero base (rows of each component on
+    earlier shards) and merge_rows equal their plain versions, -1 rows and
+    labels past C among them; a shard's call is two launches up to C = 255
+    (the counts, then the placement) and none for no rows, with base_of
+    called once either way."""
+    rng = np.random.default_rng(7 * n + C)
+    comp = rng.integers(-1, C + 2, n).astype(np.int32)
+    inside = comp[(comp >= 0) & (comp < C)]
+    counts = np.bincount(inside, minlength=C)
+    base = rng.integers(0, 40, C)
+    offsets = np.zeros(C + 1, np.int64)
+    np.cumsum(counts + base + rng.integers(0, 3, C), out=offsets[1:])
+    stream = rng.integers(0, 1 << 40, int(offsets[-1])).astype(np.int64)
+    on = [torch.from_numpy(a).to(dev) for a in (comp, stream, offsets)]
+    seen = []
+
+    def base_of(c):
+        seen.append(c.clone())
+        return torch.from_numpy(base).to(dev)
+
+    before = merge_ops.merge_rows_shard.launches
+    got = merge_ops.merge_rows_shard(*on, base_of)
+    torch.cuda.synchronize()
+    made = merge_ops.merge_rows_shard.launches - before
+    passes = len(merge_ops.merge_passes(C))
+    assert made == (0 if n == 0 else 2 if passes == 1 else passes + 2)
+    assert len(seen) == 1 and torch.equal(seen[0].cpu(), torch.from_numpy(counts))
+    want = merge_ops.merge_rows_shard_plain(*on, lambda c: torch.from_numpy(base).to(dev))
+    assert got.dtype == want.dtype == torch.int64 and torch.equal(got, want)
+    zero = [on[0], on[1][: int(counts.sum())].contiguous(),
+            torch.from_numpy(np.concatenate(([0], np.cumsum(counts)))).to(dev)]
+    assert torch.equal(merge_ops.merge_rows(*zero), merge_ops.merge_rows_plain(*zero))
 
 
 @pytest.mark.parametrize("n,C", [(1, 1), (4096, 3), (4097, 3), (100_000, 300),

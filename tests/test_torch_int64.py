@@ -8,7 +8,8 @@ tables_from_numpy (CPU tensors: the port's plain versions, which the card's
 int64 kernels are held against in tests/test_torch_cuda.py and
 chip_smoke.py). Also: the kernels' superblock bases and bit-plane reader
 across superblock boundaries, the int64 search tree over heads past 2^31,
-and the k-copy index of chip_smoke.py's serve-2g path against the native
+locate's int64 tail pairs and bucket index (carried, padded, stubbed and
+past 2^31) through the plain walk of the kernel's step, and the k-copy index of chip_smoke.py's serve-2g path against the native
 BWT build of the repeated lines."""
 
 import jax
@@ -29,6 +30,7 @@ from pangenome_index_tpu.ops.tables import rindex_to_device as jax_rindex_to_dev
 from pangenome_index_tpu.ops.tables import tags_to_device as jax_tags_to_device
 from pangenome_index_tpu.ops.tagquery import query_mem_tags as jax_query_mem_tags
 from pangenome_index_tpu.ops.tagquery import query_tags_batch as jax_query_tags_batch
+from pangenome_index_tpu.parallel import sharding as jax_sharding
 from pangenome_index_tpu.utils.alphabet import BYTE_TO_CODE
 from pangenome_index_tpu.utils.synth import build_synth_index, synth_reads, synth_tag_array
 from pangenome_index_tpu_torch import native
@@ -37,9 +39,12 @@ from pangenome_index_tpu_torch.models.rindex import build_rindex
 from pangenome_index_tpu_torch.models.tagarray import TagArray
 from pangenome_index_tpu_torch.ops import (count, fmd, locate, mems, mertable, rank,
                                            sparsedict, tagquery)
-from pangenome_index_tpu_torch.ops.tables import (TagTables, derive_search_tree,
-                                                  derive_super_S, rindex_to_device,
-                                                  tables_from_numpy, tree_upper_bound_plain)
+from pangenome_index_tpu_torch.ops.tables import (RIndexTables, TagTables,
+                                                  derive_search_tree, derive_super_S,
+                                                  derive_tail_index, rindex_to_device,
+                                                  tables_from_numpy, tail_bucket,
+                                                  tail_next_plain, tree_upper_bound_plain)
+from pangenome_index_tpu_torch.parallel import sharding
 from pangenome_index_tpu_torch.utils import synth as port_synth
 
 SUPER_SHIFT = 9
@@ -283,7 +288,7 @@ def test_locate_batch_matches_jax(index, jax_tables, tables, buffered):
     idx, _ = index
     jt, _ = jax_tables
     t, _ = tables
-    assert t.run_tree.dtype == t.tail_tree.dtype == torch.int64
+    assert t.run_tree.dtype == t.tail_pairs.dtype == torch.int64
     r = buffered
     held = r.count.numpy()[:, None] > np.arange(8)[None, :]
     rng = np.random.default_rng(4)
@@ -383,6 +388,87 @@ def test_int64_search_tree_past_int32():
     # a head of the dtype's maximum could not be told from the padding
     with pytest.raises(ValueError, match="maximum"):
         derive_search_tree(torch.tensor([1, 2**63 - 1]))
+
+
+def tail_walk_values(t, seed, extra=()):
+    """Every tail, its neighbours, below the first tail, around and past the
+    packed range, and random values in it (int64)."""
+    rng = np.random.default_rng(seed)
+    ls = t.last_sorted.long()
+    V = t.n_seq * t.max_len
+    return torch.cat((ls, ls - 1, ls + 1, torch.tensor([0, -1, int(ls[0]) - 1, V - 1, V, V + 1,
+                                                        2**31 - 1, 2**31, 2**40, *extra]),
+                      torch.from_numpy(rng.integers(0, V + 10, 4000))))
+
+
+def jax_view(t):
+    """The locate tables of the port's t as the JAX locate_next reads them."""
+    from types import SimpleNamespace
+
+    return SimpleNamespace(**{f: jnp.asarray(getattr(t, f).numpy()) for f in (
+        "last_sorted", "last_to_run", "samples")}, pos_dtype=jnp.int64)
+
+
+def test_tail_index_over_int64_tables(index, jax_tables, tables):
+    """The int64 tail pairs (16 bytes, 4 a line) and their bucket index of
+    the tables carried from JAX equal their definition, and the plain walk
+    of the kernel's step equals the JAX locate_next over the JAX tables."""
+    jt, _ = jax_tables
+    t, _ = tables
+    r = t.last_sorted.shape[0]
+    run = t.last_to_run + 1
+    assert t.tail_pairs.dtype == torch.int64 and t.tail_pairs.shape == (r, 2)
+    same(t.tail_pairs[:, 1], t.samples[run] - t.last_sorted)
+    bounds = torch.arange(t.tail_lo.shape[0] - 1) << t.tail_shift
+    same(t.tail_lo[:-1], torch.searchsorted(t.last_sorted, bounds).int())
+    assert int(t.tail_lo[-1]) == r
+    v = tail_walk_values(t, 3)
+    same(tail_next_plain(t, v), jrank.locate_next(jt, jnp.asarray(v.numpy())))
+
+
+@pytest.mark.parametrize("S", [3, 5, 8, "mem-only"])
+def test_tail_walk_on_padded_int64_tables(index, S):
+    """pad_rindex_tables at int64 positions: the sentinel tails (int64 max /
+    4, sorted at int64) fall into the last bucket, which reaches r; the
+    mem_only stubs hold one tail. The walk equals the JAX locate_next over
+    the same arrays."""
+    idx, _ = index
+    kw = dict(mem_only=True, checkpoint=True) if S == "mem-only" else {}
+    t = sharding.pad_rindex_tables(idx, 4 if S == "mem-only" else S, device="cpu",
+                                   dtype=torch.int64, **kw)
+    pad = t.last_sorted.shape[0] - idx.n_runs
+    if S != "mem-only":
+        assert pad == (-idx.n_runs) % S and (pad > 0) == (S != 8)
+        assert int(t.tail_lo[-1]) == t.last_sorted.shape[0]
+    v = tail_walk_values(t, 5)
+    same(tail_next_plain(t, v), jrank.locate_next(jax_view(t), jnp.asarray(v.numpy())))
+
+
+def test_tail_walk_past_int32():
+    """Tails past 2^31 in clusters: buckets of 2^27 values, some holding
+    more tails than a line of pairs (the kernel's halving search) and most
+    none; the walk equals the searchsorted locate_next, wrapping sums
+    included."""
+    rng = np.random.default_rng(22)
+    V = 1 << 40
+    spread = rng.integers(0, V, 4000)
+    clusters = (rng.integers(0, V >> 20, 40)[:, None] << 20) + rng.integers(0, 1 << 12, (40, 50))
+    ls = np.unique(np.concatenate((spread, clusters.ravel(), [2**31 - 1, 2**31])))
+    r = len(ls)
+    samples = np.append(rng.integers(0, V, r), 0)
+    z = torch.zeros(r, dtype=torch.int64)
+    t = RIndexTables(run_sym=z.to(torch.int8), run_start=z, cum=z[:, None], C=z[:7],
+                     samples=torch.from_numpy(samples), last_sorted=torch.from_numpy(ls),
+                     last_to_run=torch.from_numpy(rng.permutation(r)), n=r, n_seq=1,
+                     max_len=V)
+    t.tail_pairs, t.tail_lo, t.tail_shift = derive_tail_index(
+        t.last_sorted, t.samples, t.last_to_run, V)
+    assert t.tail_shift == int(np.log2(V // r))
+    _, m = tail_bucket(t, t.last_sorted)
+    sizes = t.tail_lo[1:] - t.tail_lo[:-1]
+    assert int(m.max()) > 4 and bool((sizes == 0).any())
+    v = tail_walk_values(t, 6, extra=(2**63 - 1, -2**63))
+    same(tail_next_plain(t, v), rank.locate_next(t, v))
 
 
 def test_k_copy_index_matches_the_native_build():

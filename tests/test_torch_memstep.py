@@ -104,7 +104,7 @@ def test_fused_step_equals_step_then_partials(index, form, S, at):
     with two-level rows' superblock bases added, equal JAX's distributed
     rank6 at those positions."""
     idx, lines = index
-    t = sharding.pad_rindex_tables(idx, S, **FORMS[form])
+    t = sharding.pad_rindex_tables(idx, S, device="cpu", **FORMS[form])
     prov = sharding.virtual_shards(t, S, "cpu")
     reads = synth_reads(lines, 40, L, error_rate=0.03, seed=21) + [lines[2][:13]]
     codes, lens = packed(reads)
@@ -166,7 +166,7 @@ def test_lockstep_engine_batch_edges(index, form, S, case):
     which no read is active (0 without reads), which for the off-multiple
     batch is not itself a multiple."""
     idx, lines = index
-    t = sharding.pad_rindex_tables(idx, S, **FORMS[form])
+    t = sharding.pad_rindex_tables(idx, S, device="cpu", **FORMS[form])
     prov = sharding.virtual_shards(t, S, "cpu")
     reads = edge_batch(lines, case)
     codes, lens = packed(reads)

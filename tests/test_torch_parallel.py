@@ -73,7 +73,7 @@ def test_pad_rindex_tables_matches_jax(index, form, S):
     idx, _ = index
     with jax.enable_x64(False):
         want = jax_sharding.pad_rindex_tables(idx, S, **PAD_FORMS[form])
-    got = sharding.pad_rindex_tables(idx, S, **PAD_FORMS[form])
+    got = sharding.pad_rindex_tables(idx, S, device="cpu", **PAD_FORMS[form])
     for f in FIELDS:
         w, g = getattr(want, f), getattr(got, f)
         assert (w is None) == (g is None), f
@@ -133,7 +133,7 @@ def test_shard_partials_sum_to_jax_distributed_rank6(index, form, S):
     kw = PAD_FORMS[form]
     with jax.enable_x64(False):
         t_jax = jax_sharding.pad_rindex_tables(idx, S, **kw)
-    t = sharding.pad_rindex_tables(idx, S, **kw)
+    t = sharding.pad_rindex_tables(idx, S, device="cpu", **kw)
     pos = boundary_positions(idx, t, S, np.random.default_rng(S))
     with jax.enable_x64(False):
         want = jax_sharded_rank6(t_jax, jnp.asarray(pos, t_jax.pos_dtype), S, "runs" != form)
@@ -157,7 +157,7 @@ def test_lockstep_engine_matches_plain_and_jax(index, form, tiers):
     idx, lines = index
     S = 2
     kw = PAD_FORMS[form]
-    t = sharding.pad_rindex_tables(idx, S, **kw)
+    t = sharding.pad_rindex_tables(idx, S, device="cpu", **kw)
     reads = synth_reads(lines, 30, 44, error_rate=0.03, seed=11) + [lines[0][:9],
                                                                     lines[1][:30]]
     codes, lens = packed(reads, 44)
@@ -268,15 +268,18 @@ def test_mesh_refusals_and_noop_join(monkeypatch):
     assert cli.parse_mesh("4X2") == (4, 2)
 
 
-def test_mesh_entry_points_default_to_the_card(monkeypatch, tmp_path):
-    """make_mesh, global_mesh, init_distributed with a coordinator and
-    spawn_group place on a card unless asked for the CPU: with no card they
-    raise, before any group is joined or rank started."""
+def test_mesh_entry_points_default_to_the_card(monkeypatch, tmp_path, index):
+    """make_mesh, global_mesh, init_distributed with a coordinator,
+    spawn_group and pad_rindex_tables place on a card unless asked for the
+    CPU: with no card they raise, before any group is joined, rank started
+    or table built."""
+    idx, _ = index
     for k in ("COORDINATOR_ADDRESS", "MASTER_ADDR", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(k, raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: sharding.make_mesh(1, 1), lambda: multihost.global_mesh(1),
-                 lambda: multihost.spawn_group(print, 2)):
+                 lambda: multihost.spawn_group(print, 2),
+                 lambda: sharding.pad_rindex_tables(idx, 2, checkpoint=True)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     monkeypatch.setenv("COORDINATOR_ADDRESS", "127.0.0.1:1")
@@ -285,6 +288,7 @@ def test_mesh_entry_points_default_to_the_card(monkeypatch, tmp_path):
         multihost.init_distributed()
     assert not torch.distributed.is_initialized()
     assert sharding.make_mesh(1, 1, "cpu").device == torch.device("cpu")
+    assert sharding.pad_rindex_tables(idx, 2, device="cpu").device == torch.device("cpu")
 
 
 def test_brute_force_mems_matches_jax_and_find_mems():

@@ -70,7 +70,7 @@ def engine_rank(rank: int, world: int, n_data: int, n_model: int, out_dir: str) 
     local = put_global(mesh, {k: seeds[k] for k in ("mer_keys", "mer_valid", "sdict_idx")},
                        dict.fromkeys(("mer_keys", "mer_valid", "sdict_idx"), "data"))
     for form, kw in FORMS.items():
-        t = pad_rindex_tables(idx, n_model, **kw)
+        t = pad_rindex_tables(idx, n_model, device="cpu", **kw)
         placed = shard_tables(t, mesh)
         if isinstance(placed, ShardedRank):
             sh = placed.shards[0]
