@@ -115,7 +115,7 @@ launch count set to 0 just before a path and read just after it:
 
 The m-mer seed table (mertable.build_mer_table_device: the level kernel of
 csrc/mertable.cu, one thread per parent, the last launch two levels deep
-but through bucketed runs) is held against the host build at m=8 and against its plain version on the
+but through int64 bucketed runs) is held against the host build at m=8 and against its plain version on the
 card at m=14 on the bench index (checkpoint rows, ultra rows, bucketed
 runs) and at m=13 on the k-copy index (int64 two-level rows and int64
 bucketed runs), its launches counted by the wrapper, its device time beside
@@ -126,7 +126,13 @@ runs).
 The ultra and bucketed rank6 kernels (csrc/rankmodes.cu) are held against
 their plain versions on 32768 positions (0, n and n + 1 among them), at
 int32 on the bench index and at int64 on the k-copy index, and K2, K3 and
-the dictionary's level through their providers likewise.
+the dictionary's level through their providers likewise. Bucketed runs and
+3b's shards read the run index (ops/tables.py:derive_run_index); its entries
+of rank6_bucketed (bench index), rank6_bucketed64 (serve-2g-bucketed) and
+shard_run_rank6 (each shard of the mesh path's runs) in the kernels line
+carry `run_index`: the bucket shift, heads a bucket (mean and most), the
+share of that kernel's lookups the entry resolves alone (two dependent
+loads), and the bytes of the index and of the run records.
 
 find-mems also runs on all 16384 reads with --batch-size 0 (chunks of 4096
 reads) and with one launch over them, byte-equal.
@@ -382,6 +388,43 @@ def k_copy_index(idx, tags, k):
 
 GRAPH = (833_334, 8, 3, 0.002, 17)  # graph build: base length, haplotypes, components, site rate, seed
 GRAPH_READS = 16384  # find-mems and query-tags on the merged files
+
+
+def run_index_work(index, first, shift, heads, pos):
+    """Per position of `pos`: whether its bucket entry alone resolves its
+    run (two dependent loads), and the 64-byte lines of heads it reads past
+    a full entry (0 where it reads none), as csrc/rank.cuh:RunIndex reads
+    the run index (ops/tables.py:derive_run_index; buckets of 2^shift
+    positions from bucket `first` on, over `heads`)."""
+    import torch
+
+    from pangenome_index_tpu_torch.ops import rank
+    from pangenome_index_tpu_torch.ops.tables import run_index_fields, run_index_slots
+
+    p = pos.long()
+    j0, cnt = run_index_fields(index[((p >> shift) - first).clamp(0, index.shape[0] - 1)])
+    cap = run_index_slots(shift)
+    j = rank.run_of_index(index, first, shift, heads, pos)
+    past = (cnt > cap) & (j - j0 >= cap)
+    lines = torch.where(past, (j - j0 - cap) // (64 // heads.element_size()) + 1, 0)
+    return ~past, lines
+
+
+def run_index_stats(index, first, shift, heads, rec, pos):
+    """What the kernels line reports of a run index: its shift and buckets,
+    the heads a bucket (mean and most), the share of the lookups at `pos`
+    that the entry resolves alone, and the bytes of the index and of the
+    run records."""
+    import torch
+
+    counts = torch.bincount((heads.long() >> shift) - first, minlength=index.shape[0])
+    resolved, _ = run_index_work(index, first, shift, heads, pos)
+    return {"shift": int(shift), "buckets": index.shape[0],
+            "heads_a_bucket_mean": float(counts.double().mean()),
+            "heads_a_bucket_max": int(counts.max()),
+            "resolved_share": float(resolved.double().mean()) if pos.numel() else None,
+            "index_bytes": index.numel() * 4,
+            "record_bytes": rec.numel() * rec.element_size()}
 
 
 def graph_build(env, base_len=GRAPH[0]):
@@ -833,24 +876,6 @@ def mesh_path(env):
     # query positions of the engine's first iteration; the step on that
     # state and, timed, on the state MESH_MID_ITERS iterations in (phases 2
     # and 3, emissions and step-3 entries live)
-    lanes_per_sm = 2 * n_reads / torch.cuda.get_device_properties(dev).multi_processor_count
-
-    def search_levels(heads, pos):
-        """The distinct heads each level of shard_run_rank6's binary search
-        (the first head > pos) reads over these positions."""
-        r = heads.numel()
-        lo = torch.zeros_like(pos, dtype=torch.long)
-        hi = torch.full_like(lo, r)
-        levels = []
-        while True:
-            act = lo < hi
-            if not bool(act.any()):
-                return levels
-            mid = (lo + hi) >> 1
-            levels.append(int(torch.unique(mid[act]).numel()))
-            go = act & (heads[mid.clamp(max=r - 1)] <= pos)
-            lo, hi = torch.where(go, mid + 1, lo), torch.where(act & ~go, mid, hi)
-
     def step_bytes(before, after, item, seeded, super_base):
         """Bytes the step's own part of the fused step must move from
         `before` to `after`: every read's phase, x, j, k, kp, s in and out
@@ -873,29 +898,38 @@ def mesh_path(env):
                 + n_bint2 * 3 * item + n_emit * 8 + n_stored * (4 * item + 4)
                 + (n_enter * 4 * item if seeded else 0))
 
+    def owned_reads(sh, pos, item):
+        """(positions owned, bytes, lines) of a run shard's partials at pos:
+        per owned position its bucket entry and its run's record, each
+        distinct one once, and the lines of heads read past full entries
+        (the longest position's count: `lines`)."""
+        mine = pos[(pos.long() >= sh.lo) & (pos.long() < sh.upper)]
+        if not mine.numel():
+            return mine, 0, 0
+        _, lines = run_index_work(sh.index, sh.first_bucket, sh.shift, sh.run_start, mine)
+        j = rank.run_of_index(sh.index, sh.first_bucket, sh.shift, sh.run_start, mine)
+        buckets = int(torch.unique(mine.long() >> sh.shift).numel())
+        runs = int(torch.unique(j).numel())
+        return (mine, buckets * 16 + runs * 8 * item
+                + env.gathered(int(lines.sum()) * 64, sh.run_start), int(lines.max()))
+
     def partial_reads(shards, pos, item):
         """(bytes, operations, dependent loads) of the shards' partials at
-        pos: each owned checkpoint row once, or per run shard the heads each
-        search level reads over the positions it owns and their runs once;
-        the chain counts a search level only where its distinct heads
-        outnumber the lanes an SM holds (fewer stay in its cache)."""
+        pos: each owned checkpoint row once, or per run shard the entries
+        and records of the positions it owns, each once, and the lines of
+        heads past full entries; the chain is one row, or an entry, its
+        lines and a record."""
         if isinstance(shards[0], shard_rank.CkptShard):
             rows = int(torch.unique(pos.long() >> 6).numel())
             planes = sum(sh.planes.numel() * 4 for sh in shards)
             return min(rows * 64, planes), pos.numel() * 6 * 12, 1
         nbytes = ops = far = 0
         for sh in shards:
-            j = torch.searchsorted(sh.run_start, pos, right=True) - 1
-            mine = pos[(j >= 0) & (pos.long() < sh.upper)]
-            if not mine.numel():
-                continue
-            levels = search_levels(sh.run_start, mine)
-            runs = int(torch.unique(j[(j >= 0) & (pos.long() < sh.upper)]).numel())
-            nbytes += (env.gathered(sum(levels) * item, sh.run_start)
-                       + runs * (1 + 7 * item))
-            ops += mine.numel() * (len(levels) * 4 + 12)
-            far = max(far, sum(d > lanes_per_sm for d in levels))
-        return nbytes, ops, far + 1
+            mine, b, lines = owned_reads(sh, pos, item)
+            nbytes += b
+            ops += mine.numel() * 30
+            far = max(far, lines)
+        return nbytes, ops, far + 2
 
     for form, name in (("checkpoint", "shard_ckpt_rank6"),
                        ("two-level", "shard_ckpt_rank6_int64"), ("runs", "shard_run_rank6")):
@@ -920,20 +954,18 @@ def mesh_path(env):
             log(f"{name}: {owned.numel()} of {pos.numel()} positions owned by shard 0 of 2, "
                 f"{rows} distinct rows")
         else:
-            levels = search_levels(sh.run_start, pos)
-            j = torch.searchsorted(sh.run_start, pos, right=True) - 1
-            runs = int(torch.unique(j[(j >= 0) & (pos.long() < sh.upper)]).numel())
-            far = sum(d > lanes_per_sm for d in levels)
+            mine, p_bytes, lines = owned_reads(sh, pos, item)
             env.compare(name, lambda: sh.rank6(pos),
-                        lambda: shard_rank.shard_run_rank6_plain(sh.run_start, sh.run_sym,
-                                                                 sh.cum, sh.upper, pos),
-                        nbytes=io + env.gathered(sum(levels) * item, sh.run_start)
-                        + runs * (1 + 7 * item),
-                        ops=pos.numel() * (len(levels) * 4 + 12), chain=far + 1,
+                        lambda: shard_rank.shard_run_rank6_plain(sh, pos),
+                        nbytes=io + p_bytes, ops=mine.numel() * 30, chain=lines + 2,
                         library=lambda: torch.searchsorted(sh.run_start, pos, right=True))
-            log(f"{name}: {len(levels)} search levels, distinct heads a level {levels}; "
-                f"{far} levels with more than the {lanes_per_sm:.0f} lanes an SM holds; "
-                f"{runs} distinct owned runs")
+            env.kernels[name]["run_index"] = [
+                run_index_stats(s_.index, s_.first_bucket, s_.shift, s_.run_start, s_.rec,
+                                pos[(pos.long() >= s_.lo) & (pos.long() < s_.upper)])
+                for s_ in prov.shards]
+            log(f"{name}: {mine.numel()} of {pos.numel()} positions owned by shard 0 of 2 "
+                f"(the others cost no load), {p_bytes} bytes of entries, records and "
+                f"heads; each shard's run index: {env.kernels[name]['run_index']}")
         # the fused step at the first iteration and MESH_MID_ITERS in
         first = (mems.StepState(*(f.clone() for f in state)), ranks.clone())
         mid = (mems.StepState(*(f.clone() for f in state)), ranks.clone())
@@ -1235,11 +1267,14 @@ def main() -> int:
 
     def rank_reads(t, pos):
         """(bytes, chain) of rank6 at `pos` through t's rank provider: the
-        bytes it must read, no table more than once (a checkpoint row 64, an
-        ultra row 32; a bucketed query its bucket's entry, the 64-byte lines
-        of heads it reads and its run's start, symbol and counts), and the
-        longest chain of dependent loads (1; bucketed: the bucket, its lines
-        of heads, the run), as this run's positions need them."""
+        bytes the function must read, no table more than once (a checkpoint
+        row 64, an ultra row 32; a bucketed query, as the JAX package's
+        run_of and rank6 read it, its bucket_lo entry, the 64-byte lines of
+        heads from there to its run and the run's start, symbol and counts
+        at their widths), and the longest chain of dependent loads of the
+        design (1; bucketed: the run index's entry, the lines of heads it
+        reads past a full entry, the record), as this run's positions need
+        them."""
         n = pos.numel()
         if t.ckpt is not None:
             return gathered(n * 64, t.ckpt_planes), 1
@@ -1250,16 +1285,19 @@ def main() -> int:
         item = t.run_start.element_size()
         b = (pos.long() >> 6).clamp(0, t.bucket_lo.shape[0] - 1)
         lines = (rank.run_of(t, pos) - t.bucket_lo[b].long()) // (64 // item) + 1
+        _, past = run_index_work(t.run_index, 0, t.run_shift, t.run_start, pos)
         return (gathered(n * item, t.bucket_lo)
                 + gathered(int(lines.sum()) * 64 + n * item, t.run_start)
                 + gathered(n, t.run_sym) + gathered(n * 6 * item, t.cum),
-                2 + int(lines.max()))
+                2 + int(past.max()))
 
     def step_reads(t):
         """(bytes, dependent loads) of one extension step's rank reads
         through t's provider, where the positions are not kept: two
         checkpoint rows, two ultra rows, two dense records with their run
-        ids, or two bucketed queries of one line of heads each."""
+        ids, or two bucketed queries, each (the function's own, as rank_reads
+        counts it) a bucket_lo entry, a line of heads and the run's start,
+        symbol and counts, where the design loads an entry, then a record."""
         item = t.C.element_size()
         if t.ckpt is not None:
             return 128, 1
@@ -1267,10 +1305,12 @@ def main() -> int:
             return 64, 1
         if t.rec is not None:  # a run id, then a 32-byte record, at each end
             return 2 * (4 + 32), 2
-        return 2 * (item + 64 + 7 * item + 1), 3
+        return 2 * (item + 64 + 7 * item + 1), 2
 
     def rank_tables(t):
-        """The tables t's rank provider reads."""
+        """The tables t's rank function reads (bucketed: the JAX package's
+        bucket_lo and the runs' start, symbol and counts, its own data,
+        where the design reads the run index and records)."""
         if t.ckpt is not None:
             return (t.ckpt_planes,)
         if t.rank_table is not None:
@@ -1438,7 +1478,10 @@ def main() -> int:
         "derived planes and search trees): " + ", ".join(
             f"{m} {v:.4f}" for m, v in table_s.items())
         + f"; ultra rank_table {t_ul.rank_table.numel() * 4} bytes, bucket_lo "
-        f"{t_bk.bucket_lo.numel() * 4} + cum {t_bk.cum.numel() * 4} bytes {card}")
+        f"{t_bk.bucket_lo.numel() * 4} + run_start {t_bk.run_start.numel() * 4} + run_sym "
+        f"{t_bk.run_sym.numel()} + cum {t_bk.cum.numel() * 4} bytes (the JAX fields), and "
+        f"the run index {t_bk.run_index.numel() * 4} + records {t_bk.run_rec.numel() * 4} "
+        f"bytes the kernels read {card}")
     rpos6 = T(np.concatenate((rng.integers(0, idx.n + 2, N_LANES - 3),
                               [0, idx.n, idx.n + 1])).astype(np.int32))
     rpos6_l = rpos6.long()
@@ -1451,6 +1494,10 @@ def main() -> int:
     compare("rank6_bucketed", lambda: rank.rank6_bucketed(t_bk, rpos6),
             lambda: rank.rank6_bucketed_plain(t_bk, rpos6),
             nbytes=N_LANES * (4 + 24) + bk_bytes, ops=N_LANES * 40, chain=bk_chain)
+    kernels["rank6_bucketed"]["run_index"] = run_index_stats(
+        t_bk.run_index, 0, t_bk.run_shift, t_bk.run_start, t_bk.run_rec, rpos6)
+    log(f"run index of the bench index: {kernels['rank6_bucketed']['run_index']} "
+        f"(the lookups: rank6_bucketed's {N_LANES} positions)")
     for t, what in ((t_ul, "ultra"), (t_bk, "bucketed")):
         # per lane: k, kp, s, code and the direction in, 3 out, and the rank
         # reads of both ends
@@ -1496,7 +1543,7 @@ def main() -> int:
     def seed_table_ms(t, m, name):
         """The m-mer table built by the level kernel through tables t: held
         against its plain version (build_mer_table_plain, slabs of parents)
-        on the card; its launches (max(m - 1, 1), m through bucketed runs,
+        on the card; its launches (max(m - 1, 1), m through int64 bucketed runs,
         counted by the wrapper); the device time of the whole build by
         CUDA-graph replay, beside the other schedule (the last launch two
         levels deep or one); and what the build must move: the table
@@ -2931,6 +2978,12 @@ def main() -> int:
     compare("rank6_bucketed64", lambda: rank.rank6_bucketed(t2b, rpos2),
             lambda: rank.rank6_bucketed_plain(t2b, rpos2),
             nbytes=N_LANES * (8 + 48) + bk2_bytes, ops=N_LANES * 40, chain=bk2_chain)
+    kernels["rank6_bucketed64"]["run_index"] = run_index_stats(
+        t2b.run_index, 0, t2b.run_shift, t2b.run_start, t2b.run_rec, rpos2)
+    log(f"serve-2g-bucketed: run index {kernels['rank6_bucketed64']['run_index']} (the "
+        f"lookups: rank6_bucketed64's {N_LANES} positions); the JAX fields bucket_lo "
+        f"{t2b.bucket_lo.numel() * 8} + run_start {t2b.run_start.numel() * 8} + run_sym "
+        f"{t2b.run_sym.numel()} + cum {t2b.cum.numel() * 8} bytes {card}")
     del lanes2, bnd, span, rpos2
     kw2 = b2.seed_kw
     check(kw2["sdict_vals"].dtype == kw2["mer_table"].dtype == torch.int64,

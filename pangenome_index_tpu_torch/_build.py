@@ -40,8 +40,9 @@ _MEMS64 = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I64, _I, _I64, _P, _P, _P, _P, _
            _P)
 _LEVEL = (_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P, _P,
           _P, _P)
-#: the bucketed provider's arguments
-_BUCKET = (_P, _I64, _P, _P, _P, _I64)
+#: the bucketed provider's arguments: run_index, buckets, shift, run_rec,
+#: run_start, runs
+_BUCKET = (_P, _I64, _I, _P, _P, _I64)
 #: the seed table's level after its rank provider's: C, parents, n_parents,
 #: v, depth, out, stream
 _MER = (_P, _P, _I64, _I, _I, _P, _P)
@@ -110,9 +111,8 @@ SIGNATURES = {
                                _I, _P, _P, _P, _P, _P),
     "pgt_locate64": (_P, _P, _I64, _P, _P, _P, _I64, _I, _I64, _P, _P, _I64,
                      _I, _P, _P, _P, _P),
-    # the ultra (rank_table, rows) and bucketed (bucket_lo, buckets,
-    # run_start, run_sym, cum, runs) rank providers; bucketed64: int64
-    # tables and positions
+    # the ultra (rank_table, rows) and bucketed (_BUCKET: the run index and
+    # records) rank providers; bucketed64: int64 tables and positions
     "pgt_rank6_ultra": (_P, _I64, _P, _I64, _P, _P),
     "pgt_rank6_bucketed": _BUCKET + (_P, _I64, _P, _P),
     "pgt_rank6_bucketed64": _BUCKET + (_P, _I64, _P, _P),
@@ -139,12 +139,14 @@ SIGNATURES = {
     # the per-component counts and the sort's digit totals (csrc/merge.cu)
     "pgt_merge_hist": (_P, _I64, _I, _P, _I, _P, _P),
     # a model shard's rank6 partials (csrc/shard.cu): checkpoint rows
-    # (planes, rows_local, row0) or runs (run_start, run_sym, cum,
-    # runs_local, upper), then pos, npos, out, accumulate, stream
+    # (planes, rows_local, row0) or runs (rec, index, buckets, first
+    # bucket, shift, run_start, runs_local, lo, upper), then pos, npos,
+    # out, accumulate, stream
     "pgt_shard_ckpt_rank6": (_P, _I64, _I64, _P, _I64, _P, _I, _P),
     "pgt_shard_ckpt_rank6_64": (_P, _I64, _I64, _P, _I64, _P, _I, _P),
-    "pgt_shard_run_rank6": (_P, _P, _P, _I64, _I, _P, _I64, _P, _I, _P),
-    "pgt_shard_run_rank6_64": (_P, _P, _P, _I64, _I64, _P, _I64, _P, _I, _P),
+    "pgt_shard_run_rank6": (_P, _P, _I64, _I64, _I, _P, _I64, _I, _I, _P, _I64, _P, _I, _P),
+    "pgt_shard_run_rank6_64": (_P, _P, _I64, _I64, _I, _P, _I64, _I64, _I64, _P, _I64, _P,
+                               _I, _P),
     # one lockstep iteration of the MEM state machine, fused with the
     # partials of its shards (csrc/memstep.cu)
     "pgt_mem_step": _STEP_HEAD + (_I, _I, _I) + _STEP_TAIL,

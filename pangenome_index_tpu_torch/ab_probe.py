@@ -1,6 +1,7 @@
-"""Device times of locate (K8) and of the tag merge's sort (merge_rows,
-merge_rows_shard) at chip_smoke.py's shapes, through the port of the checkout
-at --root (default: the one holding this file); one JSON line on stdout.
+"""Device times of the kernels that rank through bucketed runs and through a
+model shard's runs, at chip_smoke.py's shapes, through the port of the
+checkout at --root (default: the one holding this file); one JSON line on
+stdout.
 
     python3 pangenome_index_tpu_torch/ab_probe.py [--root DIR] [--cache DIR]
 
@@ -8,21 +9,33 @@ Two checkouts (a parent unpacked with git archive, and this one) are
 compared in one run on one card by running it on each in turns: parent,
 change, change, parent. Each run builds its checkout's kernels; the bench
 index is cached under --cache (default: .bench_cache of this checkout) and
-shared. Card only: it exits 1 where there is no CUDA device.
+shared. Card only: it exits 1 where there is no CUDA device. It uses only
+entry points both checkouts have (serve.prepare, mems.find_mems,
+sharding.pad_rindex_tables and virtual_shards, a shard's rank6,
+mems.mem_step_fused and find_mems_lockstep).
 
-  * locate_batch at capacity 64 on 98304 intervals of the bench index (half
-    at run heads, half mid-run, sizes 1 to 200), through int32 tables and
-    through int64 ones (two-level rows of 2^24 positions, as chip_smoke.py's
-    same-index comparison), and on as many intervals of the k-copy index
-    past 2^31 (chip_smoke.k_copy_index, 108 copies, int64);
-  * merge_rows on 40,000,080 rows of 3 components (the graph build's count;
-    random labels, 48 endmarker rows), and merge_rows_shard on its second
-    half with the first half's counts as base (the mesh path's shard).
+  * K3 (find_mems) through bucketed runs on all 16384 bench reads with the
+    serving path's seed tiers (m=14 seed table, s=19 dictionary), int32 on
+    the bench index and int64 on the k-copy index past 2^31
+    (chip_smoke.k_copy_index, 108 copies; m=13): device ms by CUDA events
+    around each launch (mems_probe.launch_ms), the mean of three calls;
+  * over the bench index's runs padded to 4 shards, as 2 virtual shards:
+    3b (a shard's rank6 partials) at the positions of the engine's first
+    iteration, the fused step through runs at iteration 100 (CUDA-graph
+    replay of the wrapper, gather_probe.time_ms, as chip_smoke.py's kernels
+    line), and the whole engine (find_mems_lockstep) on all reads, its wall
+    the least of three calls after a warm one;
+  * the level kernels through bucketed runs, int32 (bench index) and int64
+    (k-copy index): the device ms of a whole s=19 dictionary build
+    (sparsedict.build_sparse_dict_device, sdict_level) and of a whole seed
+    table build (mertable.build_mer_table_device, mer_level; m=14 and 13)
+    by CUDA events around each launch, the mean of three builds, with
+    their launches a build;
+  * the registers ptxas gave each kernel instantiated on BucketRank (the
+    checkout's build log).
 
-Times are CUDA-graph replays of the wrapper (gather_probe.time_ms), the
-same timer as chip_smoke.py's kernels line. Beside each time, a digest of
-the call's output (its values weighted by their index, summed), which must
-be the same for every checkout.
+Beside each time, a digest of the call's output (its values weighted by
+their index, summed), which must be the same for every checkout.
 """
 
 from __future__ import annotations
@@ -30,25 +43,14 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
+import time
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-N_INTERVALS = 98304
-CAPACITY = 64
 K_COPIES = 108
-MERGE_ROWS = 40_000_080
-
-
-def intervals(idx, rng, np):
-    """(start, size) int64: half at run heads, half mid-run, sizes 1 to 200
-    inside the BWT."""
-    half = N_INTERVALS // 2
-    heads = idx.run_start[rng.integers(0, idx.n_runs, half)]
-    long_runs = np.flatnonzero(idx.run_len > 1)
-    j = long_runs[rng.integers(0, len(long_runs), half)]
-    start = np.concatenate((heads, idx.run_start[j] + rng.integers(1, idx.run_len[j])))
-    size = np.minimum(rng.integers(1, 201, N_INTERVALS), idx.n - start)
-    return start.astype(np.int64), size.astype(np.int64)
+MER_M_2G = 13
+MID_ITERS = 100
 
 
 def main(argv=None) -> int:
@@ -58,7 +60,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -66,50 +67,102 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke
     from pangenome_index_tpu_torch import _build, gather_probe
-    from pangenome_index_tpu_torch.mems_probe import bench_workload
-    from pangenome_index_tpu_torch.ops import locate, merge
-    from pangenome_index_tpu_torch.ops.tables import rindex_to_device
+    from pangenome_index_tpu_torch.mems_probe import (MEM_CAP, MER_M, MIN_LEN, MIN_OCC,
+                                                      SDICT_S, bench_workload, launch_ms)
+    from pangenome_index_tpu_torch.ops import mems, mertable, sparsedict
+    from pangenome_index_tpu_torch.parallel import sharding
+    from pangenome_index_tpu_torch.serve import prepare
 
     dev = torch.device("cuda", 0)
     _build.lib()
-    out = {"root": root, "card": gather_probe.card_name(dev)}
-    idx = bench_workload(args.cache)[0]
-    rng = np.random.default_rng(31)
+    out = {"root": root, "card": gather_probe.card_name(dev), "bucket_rank_registers": {}}
+    entry = ""
+    for line in _build.build_log().splitlines():
+        found = re.search(r"Compiling entry function '([^']+)'", line)
+        if found:  # the mangled kernel name, its provider included
+            entry = found.group(1)
+        elif "BucketRank" in entry and (used := re.search(r"Used (\d+) registers", line)):
+            out["bucket_rank_registers"][entry] = int(used.group(1))
+    idx, _, _, codes, lens, tags, _ = bench_workload(args.cache)
 
     def digest(x):
         x = x.reshape(-1).long()
         return int((x * torch.arange(1, x.numel() + 1, device=dev)).sum())
 
-    def timed(name, fn, result):
-        out[name + "_ms"] = gather_probe.time_ms(fn)
-        out[name + "_digest"] = digest(result(fn()))
+    def k3(name, bt):
+        def call():
+            return mems.find_mems(bt.tables, bt.codes, bt.lengths, MIN_LEN, MIN_OCC,
+                                  capacity=MEM_CAP, **bt.seed_kw)
 
-    def located(name, t, start, size):
-        st, sz = (torch.from_numpy(a).to(dev, t.pos_dtype) for a in (start, size))
-        timed(name, lambda: locate.locate_batch(t, st, sz, CAPACITY), lambda r: r.positions)
+        spent, res = launch_ms(call, "pgt_find_mems")
+        out[name + "_ms"] = spent["pgt_find_mems"][0]
+        out[name + "_digest"] = sum(digest(f) for f in res)
 
-    start, size = intervals(idx, rng, np)
-    located("locate_int32", rindex_to_device(idx, dev), start, size)
-    located("locate_int64_same_index",
-            rindex_to_device(idx, dev, checkpoint=True, super_shift=24, dtype=torch.int64),
-            start, size)
-    big, _ = chip_smoke.k_copy_index(idx, None, K_COPIES)
-    start2, size2 = intervals(big, rng, np)
-    located("locate_int64_2g", rindex_to_device(big, dev, dtype=torch.int64), start2, size2)
-    del big
+    def levels(name, n, bt, m):
+        """The level kernels' device ms and launches of a whole dictionary
+        build and a whole m-mer table build through bt's tables."""
+        for kernel, build in (
+                ("sdict_level", lambda: sparsedict.build_sparse_dict_device(n, bt.tables,
+                                                                           SDICT_S)),
+                ("mer_level", lambda: mertable.build_mer_table_device(bt.tables, m))):
+            spent, res = launch_ms(build, kernel)
+            out[f"{kernel}_{name}_ms"], out[f"{kernel}_{name}_launches"] = spent[kernel]
+            res = res if isinstance(res, tuple) else (res,)
+            out[f"{kernel}_{name}_digest"] = sum(digest(f) for f in res)
 
-    comp = rng.integers(0, 3, MERGE_ROWS).astype(np.int32)
-    comp[:48] = -1
-    counts = np.bincount(comp[comp >= 0], minlength=3)
-    offsets = np.concatenate(([0], np.cumsum(counts))).astype(np.int64)
-    stream = rng.integers(0, 1 << 45, int(offsets[-1])).astype(np.int64)
-    c, s, o = (torch.from_numpy(a).to(dev) for a in (comp, stream, offsets))
-    timed("merge_rows", lambda: merge.merge_rows(c, s, o), lambda r: r)
-    half = -(-MERGE_ROWS // 2)
-    first, second = c[:half].contiguous(), c[half:].contiguous()
-    base = torch.bincount(first.long()[first >= 0], minlength=3)[:3]
-    timed("merge_rows_shard", lambda: merge.merge_rows_shard(second, s, o, lambda counts: base),
-          lambda r: r)
+    bt = prepare(idx, tags, codes, lens, dev, rank_mode="bucketed", min_occ=MIN_OCC,
+                 mer_m=MER_M, sdict_s=SDICT_S)
+    k3("find_mems_bucketed", bt)
+    levels("bucketed", idx.n, bt, MER_M)
+
+    # 3b, the fused step and the engine over the runs of 2 virtual shards
+    t = sharding.pad_rindex_tables(idx, 4, device=dev)
+    prov = sharding.virtual_shards(t, 2, dev)
+    n_reads, read_len = bt.codes.shape
+    padded, _ = mems._prepare(bt.codes, align=8)
+    seeds = mems.resolve_seeds(n_reads, read_len + 1, MIN_OCC, **bt.seed_kw)
+    step_args = (prov.C, prov.n, padded, bt.lengths, seeds, read_len, MIN_LEN, MIN_OCC,
+                 prov.super_base, prov.super_shift)
+    state = mems.step_state(n_reads, MEM_CAP, t.pos_dtype, dev)
+    ranks = torch.zeros((2 * n_reads, 6), dtype=t.pos_dtype, device=dev)
+    mems.mem_step_fused(state, ranks, prov.shards, *step_args, apply=False)
+    pos = mems.query_positions(state)[1].to(t.pos_dtype)
+    sh = prov.shards[0]
+    out["shard_run_rank6_ms"] = gather_probe.time_ms(lambda: sh.rank6(pos))
+    out["shard_run_rank6_digest"] = digest(sh.rank6(pos))
+    for _ in range(MID_ITERS - 1):
+        mems.mem_step_fused(state, ranks, prov.shards, *step_args)
+    mid = (mems.StepState(*(f.clone() for f in state)), ranks.clone())
+    timed = (mems.StepState(*(f.clone() for f in state)), ranks.clone())
+    out["mem_step_fused_runs_ms"] = gather_probe.time_ms(
+        lambda: mems.mem_step_fused(*timed, prov.shards, *step_args))
+    mems.mem_step_fused(*mid, prov.shards, *step_args)
+    out["mem_step_fused_runs_digest"] = digest(mid[1]) + sum(digest(f) for f in mid[0])
+
+    def engine():
+        return mems.find_mems_lockstep(prov.shards, prov.C, prov.n, bt.codes, bt.lengths,
+                                       MIN_LEN, MIN_OCC, capacity=MEM_CAP,
+                                       super_base=prov.super_base,
+                                       super_shift=prov.super_shift, **bt.seed_kw)
+
+    res = engine()
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    out["engine_runs_ms"] = best * 1e3
+    out["engine_runs_digest"] = sum(digest(f) for f in res)
+    del bt, t, prov, state, ranks, mid, timed, seeds, padded
+
+    # K3 through int64 bucketed runs past 2^31
+    big, big_tags = chip_smoke.k_copy_index(idx, tags, K_COPIES)
+    bt2 = prepare(big, big_tags, codes, lens, dev, rank_mode="bucketed", min_occ=MIN_OCC,
+                  mer_m=MER_M_2G, sdict_s=SDICT_S)
+    k3("find_mems_bucketed64", bt2)
+    levels("bucketed64", big.n, bt2, MER_M_2G)
     print(json.dumps(out), flush=True)
     return 0
 

@@ -104,32 +104,29 @@ int pgt_extend_ultra(const int* rank_table, int64_t n_rows, const int* C,
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 
-// bucketed runs: bucket_lo [n_buckets], run_start [n_runs], run_sym
-// [n_runs] int8, cum [n_runs, 6]; int32 positions
-int pgt_extend_bucketed(const int* bucket_lo, int64_t n_buckets,
-                        const int* run_start, const int8_t* run_sym,
-                        const int* cum, int64_t n_runs, const int* C,
+// bucketed runs: the run index [n_buckets, 4] int32 over buckets of
+// 2^shift positions, run_rec [n_runs, 8], run_start [n_runs]
+// (rank.cuh:RunIndex); int32 positions
+int pgt_extend_bucketed(const int* run_index, int64_t n_buckets, int shift,
+                        const int* run_rec, const int* run_start, int64_t n_runs, const int* C,
                         const int* k, const int* kp, const int* s,
                         const int* code, const uint8_t* forward, int64_t n,
                         int* ok, int* okp, int* os, void* stream) {
   pgt::BucketRank<int> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 
 // the same over int64 positions
-int pgt_extend_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
-                          const int64_t* run_start, const int8_t* run_sym,
-                          const int64_t* cum, int64_t n_runs, const int64_t* C,
+int pgt_extend_bucketed64(const int* run_index, int64_t n_buckets, int shift,
+                          const int64_t* run_rec, const int64_t* run_start, int64_t n_runs, const int64_t* C,
                           const int64_t* k, const int64_t* kp,
                           const int64_t* s, const int* code,
                           const uint8_t* forward, int64_t n, int64_t* ok,
                           int64_t* okp, int64_t* os, void* stream) {
   pgt::BucketRank<int64_t> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }

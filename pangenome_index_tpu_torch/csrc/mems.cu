@@ -407,17 +407,15 @@ int pgt_find_mems_ultra(const int* rank_table, int64_t n_rows, const int* C,
 }
 
 // bucketed runs (rank.cuh:BucketRank), int32 positions
-int pgt_find_mems_bucketed(const int* bucket_lo, int64_t n_buckets,
-                           const int* run_start, const int8_t* run_sym,
-                           const int* cum, int64_t n_runs, const int* C,
+int pgt_find_mems_bucketed(const int* run_index, int64_t n_buckets, int shift,
+                           const int* run_rec, const int* run_start, int64_t n_runs, const int* C,
                            const int8_t* codes, const int* lengths,
                            const int* seeds, int n_reads, int width,
                            int code_stride, int min_len, int min_occ, int N,
                            int M, int64_t max_iters, int* m_se, int* m_bwt,
                            int* m_size, int* count, int* steps, void* stream) {
   pgt::BucketRank<int> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
                 n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
@@ -425,9 +423,8 @@ int pgt_find_mems_bucketed(const int* bucket_lo, int64_t n_buckets,
 }
 
 // the same over int64 positions, seeds from pgt_resolve_seeds64
-int pgt_find_mems_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
-                             const int64_t* run_start, const int8_t* run_sym,
-                             const int64_t* cum, int64_t n_runs,
+int pgt_find_mems_bucketed64(const int* run_index, int64_t n_buckets, int shift,
+                             const int64_t* run_rec, const int64_t* run_start, int64_t n_runs,
                              const int64_t* C, const int8_t* codes,
                              const int* lengths, const int64_t* seeds,
                              int n_reads, int width, int code_stride,
@@ -436,8 +433,7 @@ int pgt_find_mems_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
                              int64_t* m_size, int* count, int* steps,
                              void* stream) {
   pgt::BucketRank<int64_t> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, codes, lengths, reinterpret_cast<const Seed64*>(seeds),
                 n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,

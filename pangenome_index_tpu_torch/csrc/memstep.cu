@@ -27,11 +27,14 @@
 // written in place over the read's two rows of ranks, which the thread
 // loaded before: thread b alone reads and writes rows b and B + b:
 //   checkpoint the owning shard's bit-plane rows (3a's body);
-//   runs       the owning shard's runs (3b's body, its binary search
-//              unchanged: it runs at 61% of its chain alone).
+//   runs       the owning shard's runs through its slice of the run index
+//              (3b's body: the position's bucket entry, then its run's
+//              record), both positions' entries loaded together, then
+//              both records: two round trips a read.
 // The owning shard is found by a binary search over the table's first rows
-// or heads. With every shard of the index in the table (virtual shards on
-// one card) the partial is the rank6; with a mesh's one shard the caller
+// or heads (kernel parameters, no load). With every shard of the index in
+// the table (virtual shards on one card) the partial is the rank6; with a
+// mesh's one shard the caller
 // sums the partials over the model group (one all_reduce) before the next
 // launch. So an iteration of the engine is one launch, plus the all_reduce
 // under a mesh, and the engine replays ACTIVE_CHECK_EVERY of them as one
@@ -45,11 +48,11 @@
 // What bounds it: bytes. A read's iteration loads its state (~40 bytes), two
 // rank vectors (48 or 96 bytes), one code, and an entry's seed, and stores
 // the state; then it loads the owning rows (64 bytes a position) or the
-// search's heads and one run, and stores two rank vectors. One thread a
-// read; the rank rows depend on the state just made, a chain of one gather
-// (the binary search's levels through runs). Across the loop the iterations
-// are as many as the longest read takes steps: latency decides its time,
-// which the graph's replay keeps to the kernel's own (PERF.md).
+// owning entries (16 bytes) and runs' records (32 or 64 bytes), and stores
+// two rank vectors. One thread a read; the rank rows depend on the state
+// just made, a chain of one gather (two through runs). Across the loop the
+// iterations are as many as the longest read takes steps: latency decides
+// its time, which the graph's replay keeps to the kernel's own (PERF.md).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -86,6 +89,8 @@ struct StepArgs {
   int* active;                 // [1] or null
   pgt::ShardTable shards;
 };
+// a kernel's parameters stay under the 4 KB every CUDA version takes
+static_assert(sizeof(StepArgs<int64_t>) <= 4096, "the step's parameters pass 4 KB");
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -269,10 +274,7 @@ mem_step_kernel(const __grid_constant__ StepArgs<P> a) {
     // the next iteration's partials, over the rows loaded above
     const P bk = ph == 2 ? kp : k;
     P r0[6] = {0, 0, 0, 0, 0, 0}, r1[6] = {0, 0, 0, 0, 0, 0};
-    if (live) {
-      pgt::shard_rank6<Kind>(a.shards, bk, r0);
-      pgt::shard_rank6<Kind>(a.shards, static_cast<P>(bk + s), r1);
-    }
+    if (live) pgt::shard_rank6_pair<Kind>(a.shards, bk, static_cast<P>(bk + s), r0, r1);
     store6(a.ranks + 6 * static_cast<int64_t>(b), r0);
     store6(a.ranks + 6 * (static_cast<int64_t>(a.B) + b), r1);
   }
@@ -294,20 +296,23 @@ int step_launch(P* ranks, int apply, const int64_t* super_base, int64_t n_super,
       (super_base != nullptr && (n_super < 1 || super_width < 6 || super_shift < 0 ||
                                  super_shift > 62)))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the shard table: 6 int64 a shard (a, sym, cum, lo, count, upper) in
-  // ascending lo; 1..kMaxShards of one kind
+  // the shard table: kShardFields int64 a shard (a, index, heads, lo, count,
+  // upper, first, n_buckets, shift) in ascending lo; 1..kMaxShards of one
+  // kind
   if ((shard_kind != pgt::kShardsCkpt && shard_kind != pgt::kShardsRuns) || n_shards < 1 ||
       n_shards > pgt::kMaxShards)
     return static_cast<int>(cudaErrorInvalidValue);
   pgt::ShardTable tab{};
   tab.n = n_shards;
   for (int i = 0; i < n_shards; ++i) {
-    const int64_t* e = shards + 6 * i;
+    const int64_t* e = shards + pgt::kShardFields * i;
     tab.e[i] = pgt::Shard{reinterpret_cast<const void*>(e[0]),
-                          reinterpret_cast<const int8_t*>(e[1]),
-                          reinterpret_cast<const void*>(e[2]), e[3], e[4], e[5]};
+                          reinterpret_cast<const int4*>(e[1]),
+                          reinterpret_cast<const void*>(e[2]), e[3], e[4], e[5], e[6], e[7],
+                          e[8]};
     if (e[0] == 0 || e[4] < 1 || (i > 0 && e[3] < tab.e[i - 1].lo) ||
-        (shard_kind == pgt::kShardsRuns && (e[1] == 0 || e[2] == 0)))
+        (shard_kind == pgt::kShardsRuns &&
+         (e[1] == 0 || e[2] == 0 || e[7] < 1 || e[8] < 0 || e[8] > 15)))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0) return 0;

@@ -27,12 +27,12 @@
 //     staging copy;
 //   - a parent of size 0 (a key that does not occur) loads nothing and
 //     writes (0, 0, 0) children, which is what the host build gives;
-//   - depth 2 (the build's last launch, but through bucketed runs): the
-//     thread goes on to the children of its four children, their four rank
-//     pairs in flight together, and writes sixteen grandchildren, so that
-//     level m - 1 never reaches device memory. Through bucketed runs each
-//     rank pair is a walk of dependent trips, and two one-deep launches are
-//     faster (ops/mertable.py:last_depth).
+//   - depth 2 (the build's last launch, but through int64 bucketed runs):
+//     the thread goes on to the children of its four children, their four
+//     rank pairs in flight together, and writes sixteen grandchildren, so
+//     that level m - 1 never reaches device memory. Through int64 bucketed
+//     runs each rank pair is two entries and two 64-byte records, and two
+//     one-deep launches are faster (ops/mertable.py:last_depth).
 // The row index is 64-bit (4^14 rows).
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -166,24 +166,22 @@ int pgt_mer_level_ultra(const int* rank_table, int64_t n_rows, const int* C,
   return launch(rk, C, parents, n_parents, v, depth, out, stream);
 }
 
-int pgt_mer_level_bucketed(const int* bucket_lo, int64_t n_buckets,
-                           const int* run_start, const int8_t* run_sym, const int* cum,
-                           int64_t n_runs, const int* C, const int* parents,
+int pgt_mer_level_bucketed(const int* run_index, int64_t n_buckets, int shift,
+                           const int* run_rec, const int* run_start, int64_t n_runs, const int* C, const int* parents,
                            int64_t n_parents, int v, int depth, int* out,
                            void* stream) {
   pgt::BucketRank<int> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs, &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, parents, n_parents, v, depth, out, stream);
 }
 
-int pgt_mer_level_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
-                             const int64_t* run_start, const int8_t* run_sym,
-                             const int64_t* cum, int64_t n_runs, const int64_t* C,
+int pgt_mer_level_bucketed64(const int* run_index, int64_t n_buckets, int shift,
+                             const int64_t* run_rec, const int64_t* run_start, int64_t n_runs, const int64_t* C,
                              const int64_t* parents, int64_t n_parents, int v,
                              int depth, int64_t* out, void* stream) {
   pgt::BucketRank<int64_t> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs, &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, C, parents, n_parents, v, depth, out, stream);
 }

@@ -18,7 +18,8 @@
 //
 // Checkpoint rows serve any n: int32 positions below 2^31, int64 positions
 // over two-level rows past it (CkptRank<P>). Dense records and ultra rows
-// are int32 only; bucketed runs serve both (BucketRank<P>).
+// are int32 only; bucketed runs serve both (BucketRank<P>, through the run
+// index RunIndex<P>, which a model shard's runs also read: shard.cuh).
 #pragma once
 
 #include <cstdint>
@@ -395,118 +396,169 @@ struct UltraRank : Rank6Provider<UltraRank, int> {
   }
 };
 
-// Bucketed runs: the run of a position (ops/rank.py:run_of) from
-// bucket_lo [(n >> 6) + 2] (the run that holds each bucket's first
-// position), then rank6 = cum[j] + onehot(run_sym[j]) * (pos - run_start[j])
-// over the per-run tables run_start [r], run_sym [r] int8, cum [r, 6]; P
-// int32 or int64 (every table in it but run_sym).
-// The run: the reference probes the 127 runs after the bucket's by seven
-// dependent halvings. Here the heads after bucket_lo[b] are read a 64-byte
-// line's worth at a time (16 int32 or 8 int64 heads, every load of them
-// issued at once) and counted where <= pos; the next ones are read only
-// when all of them were <= pos, which is exact for any run length and on
-// the bench index (7.3 heads a bucket) nearly always one trip. Then the
-// run's start, symbol and counts (24 or 48 bytes) are loaded together: three
-// round trips a vector where the reference took nine. load() walks the
-// chains of pos and pos + s in step, so that their trips overlap.
+// The run index of bucketed runs (ops/tables.py:derive_run_index): one
+// aligned 16-byte entry for each bucket of 2^shift positions (base B), from
+// bucket `first` on, and the runs' records rec [n_runs, 8] of P (start,
+// sym, cum0..cum5: 32 bytes at int32, 64 at int64). An entry holds
+//   bytes 0..4   j0, the last run whose head is <= B (signed, 40 bits)
+//   byte  5      how many heads of the runs after j0 start in the bucket
+//                (saturated at 255)
+//   bytes 6..15  the first of those heads' offsets h - B, ascending: ten of
+//                8 bits below shift 8, else five of 16; unused slots all
+//                ones, above every offset d = p - B within a bucket
+// The run of p is j0 + the stored offsets <= d, counted by SIMD byte (or
+// half-word) compares of the entry's last three words against d; then
+// rank6 = cum + onehot(sym) * (p - start) from the record. So a rank6
+// vector is two dependent loads: the entry, then the record (two 16-byte
+// loads at int32, four at int64). Only where a bucket holds more heads than
+// its entry and every stored one is <= d are the heads after them read from
+// run_start, a 64-byte line at a time (16 int32 or 8 int64 heads, issued
+// together), counted where <= p, until a line is not all counted: exact for
+// any run length. The shift is chosen so that a bucket holds one to two
+// heads on average. A bucket index is clamped into the index and d into
+// [0, 2^shift - 1], so positions past the last bucket find the last run
+// whose head is <= p.
 template <class P>
-struct BucketRank : Rank6Provider<BucketRank<P>, P> {
+struct RunIndex {
   static constexpr int kHeads = 64 / static_cast<int>(sizeof(P));
-  const P* bucket_lo;
+  const int4* index;  // [n_buckets] entries
   int64_t n_buckets;
-  const P* run_start;
-  const int8_t* run_sym;
-  const P* cum;  // [n_runs, 6]
+  int64_t first;      // the bucket of index[0]: 0, or a model shard's first
+  int shift;          // 0..15
+  const P* rec;       // [n_runs, 8]
+  const P* run_start; // [n_runs], read only past a full entry
   int64_t n_runs;
 
-  // the run of each of N positions
-  template <int N>
-  __device__ __forceinline__ void runs_of(const P (&pos)[N],
-                                          int64_t (&j)[N]) const {
-    bool more[N];
-#pragma unroll
-    for (int e = 0; e < N; ++e) {
-      const int64_t b =
-          clamp64(static_cast<int64_t>(pos[e] >> 6), 0, n_buckets - 1);
-      j[e] = clamp64(static_cast<int64_t>(ld(bucket_lo + b)), 0, n_runs - 1);
-      more[e] = true;
+  // p's entry, and d = p - B clamped into the bucket
+  __device__ __forceinline__ int4 entry(P p, int& d) const {
+    const int64_t b =
+        clamp64((static_cast<int64_t>(p) >> shift) - first, 0, n_buckets - 1);
+    d = static_cast<int>(clamp64(static_cast<int64_t>(p) - ((b + first) << shift), 0,
+                                 (int64_t{1} << shift) - 1));
+    return __ldg(index + b);
+  }
+
+  // the run of p from its entry
+  __device__ __forceinline__ int64_t run(const int4& e, int d, P p) const {
+    const int64_t j0 = static_cast<int64_t>(static_cast<uint32_t>(e.x)) |
+                       (static_cast<int64_t>(static_cast<int8_t>(e.y & 0xFF)) << 32);
+    const int cnt = (e.y >> 8) & 0xFF;
+    // the offset slots: the high half of word 1 (its low half set to ones,
+    // which never counts), words 2 and 3
+    const unsigned w1 = static_cast<unsigned>(e.y) | 0xFFFFu;
+    const unsigned w2 = static_cast<unsigned>(e.z), w3 = static_cast<unsigned>(e.w);
+    int c, cap;
+    if (shift < 8) {
+      const unsigned dd = static_cast<unsigned>(d) * 0x01010101u;
+      c = (__popc(__vcmpleu4(w1, dd)) + __popc(__vcmpleu4(w2, dd)) +
+           __popc(__vcmpleu4(w3, dd))) >> 3;
+      cap = 10;
+    } else {
+      const unsigned dd = static_cast<unsigned>(d) * 0x00010001u;
+      c = (__popc(__vcmpleu2(w1, dd)) + __popc(__vcmpleu2(w2, dd)) +
+           __popc(__vcmpleu2(w3, dd))) >> 4;
+      cap = 5;
     }
-    bool any = true;
-    while (any) {
-      P h[N][kHeads];
-      bool in[N][kHeads];
+    int64_t j = j0 + c;
+    if (cnt > cap && c == cap) j = scan(j, p);
+    return j;
+  }
+
+  // past a full entry: the heads after run j, a line at a time (a run id
+  // below 0, an earlier model shard's run in a shard's slice, lies below
+  // every position the shard owns: it counts without a read)
+  __device__ __noinline__ int64_t scan(int64_t j, P p) const {
+    bool more = true;
+    while (more) {
+      P h[kHeads];
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-#pragma unroll
-        for (int i = 0; i < kHeads; ++i) {
-          const int64_t at = j[e] + 1 + i;
-          in[e][i] = more[e] && at < n_runs;
-          h[e][i] = in[e][i] ? ld(run_start + at) : P{0};
-        }
+      for (int i = 0; i < kHeads; ++i) {
+        const int64_t at = j + 1 + i;
+        h[i] = at >= 0 && at < n_runs ? ld(run_start + at) : P{0};
       }
-      any = false;
+      int c = 0;
 #pragma unroll
-      for (int e = 0; e < N; ++e) {
-        int c = 0;
-#pragma unroll
-        for (int i = 0; i < kHeads; ++i) c += in[e][i] && h[e][i] <= pos[e];
-        j[e] += c;
-        more[e] = c == kHeads;
-        any = any || more[e];
+      for (int i = 0; i < kHeads; ++i) {
+        const int64_t at = j + 1 + i;
+        c += at < 0 || (at < n_runs && h[i] <= p);
       }
+      j += c;
+      more = c == kHeads;
+    }
+    return j;
+  }
+
+  // the record of run j (clamped into the records)
+  __device__ __forceinline__ void record(int64_t j, P (&v)[8]) const {
+    j = clamp64(j, 0, n_runs - 1);
+    if constexpr (sizeof(P) == 4) {  // 32 bytes: two 16-byte loads
+      const int4* q = reinterpret_cast<const int4*>(rec) + 2 * j;
+      const int4 a = __ldg(q), b = __ldg(q + 1);
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {  // 64 bytes: four 16-byte loads
+      const longlong2* q = reinterpret_cast<const longlong2*>(rec) + 4 * j;
+      const longlong2 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2), e = __ldg(q + 3);
+      v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+      v[4] = c.x; v[5] = c.y; v[6] = e.x; v[7] = e.y;
     }
   }
 
-  // the run's three loads, issued together
-  __device__ __forceinline__ void rank6_at(P pos, int64_t j, P (&r)[6]) const {
-    const P start = ld(run_start + j);
-    const int sym = __ldg(run_sym + j);
-    const P* row = cum + 6 * j;
-    if constexpr (sizeof(P) == 4) {  // 24 bytes, 8-byte aligned
-      const int2* v = reinterpret_cast<const int2*>(row);
-      const int2 a = __ldg(v), b = __ldg(v + 1), c = __ldg(v + 2);
-      r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y; r[4] = c.x; r[5] = c.y;
-    } else {  // 48 bytes, 16-byte aligned
-      const longlong2* v = reinterpret_cast<const longlong2*>(row);
-      const longlong2 a = __ldg(v), b = __ldg(v + 1), c = __ldg(v + 2);
-      r[0] = a.x; r[1] = a.y; r[2] = b.x; r[3] = b.y; r[4] = c.x; r[5] = c.y;
-    }
-    const P extra = pos - start;
+  // rank6 at p from its run's record: cum + onehot(sym) * (p - start)
+  __device__ __forceinline__ static void rank6_of(const P (&v)[8], P p, P (&r)[6]) {
+    const P extra = p - v[0];
+    const int sym = static_cast<int>(v[1]);
 #pragma unroll
-    for (int c = 0; c < 6; ++c) r[c] += sym == c ? extra : 0;
+    for (int c = 0; c < 6; ++c) r[c] = v[2 + c] + (sym == c ? extra : P{0});
   }
+
+  __device__ __forceinline__ void rank6_at(P p, int64_t j, P (&r)[6]) const {
+    P v[8];
+    record(j, v);
+    rank6_of(v, p, r);
+  }
+};
+
+// Bucketed runs (ops/rank.py:run_of + the cum rank6, XLA on the TPU)
+// through their run index: a vector is two dependent loads, and load()
+// issues both positions' entries together, then both records, so that a
+// pair is two round trips.
+template <class P>
+struct BucketRank : Rank6Provider<BucketRank<P>, P> {
+  RunIndex<P> ix;
 
   __device__ __forceinline__ void rank6(P pos, P (&r)[6]) const {
-    const P p[1] = {pos};
-    int64_t j[1];
-    runs_of(p, j);
-    rank6_at(pos, j[0], r);
+    int d;
+    const int4 e = ix.entry(pos, d);
+    ix.rank6_at(pos, ix.run(e, d, pos), r);
   }
 
   __device__ __forceinline__ Rank6Pair<P> load(P pos, P s) const {
-    const P p[2] = {pos, pos + s};
-    int64_t j[2];
-    runs_of(p, j);
+    const P p2 = pos + s;
+    int d1, d2;
+    const int4 e1 = ix.entry(pos, d1), e2 = ix.entry(p2, d2);
+    const int64_t j1 = ix.run(e1, d1, pos), j2 = ix.run(e2, d2, p2);
+    P v1[8], v2[8];
+    ix.record(j1, v1);
+    ix.record(j2, v2);
     Rank6Pair<P> r;
-    rank6_at(p[0], j[0], r.a);
-    rank6_at(p[1], j[1], r.b);
+    ix.rank6_of(v1, pos, r.a);
+    ix.rank6_of(v2, p2, r.b);
     return r;
   }
 };
 
-// The bucketed provider of a C entry point's arguments; false when a table
-// is empty (the wrappers check the shapes before they launch).
+// The bucketed provider of a C entry point's arguments: the run index
+// [n_buckets, 4] int32 over buckets of 2^shift positions, the records
+// [n_runs, 8] and run_start [n_runs] of P; false when a table is empty or
+// the shift is out of range (the wrappers check the shapes before they
+// launch).
 template <class P>
-inline bool make_bucket(const P* bucket_lo, int64_t n_buckets,
-                        const P* run_start, const int8_t* run_sym, const P* cum,
-                        int64_t n_runs, BucketRank<P>* rk) {
-  if (n_buckets < 1 || n_runs < 1) return false;
-  rk->bucket_lo = bucket_lo;
-  rk->n_buckets = n_buckets;
-  rk->run_start = run_start;
-  rk->run_sym = run_sym;
-  rk->cum = cum;
-  rk->n_runs = n_runs;
+inline bool make_bucket(const int* index, int64_t n_buckets, int shift, const P* rec,
+                        const P* run_start, int64_t n_runs, BucketRank<P>* rk) {
+  if (n_buckets < 1 || n_runs < 1 || shift < 0 || shift > 15) return false;
+  rk->ix = RunIndex<P>{reinterpret_cast<const int4*>(index), n_buckets, 0, shift, rec,
+                       run_start, n_runs};
   return true;
 }
 

@@ -10,10 +10,10 @@
 // functions that extend (fmd.cu), find_mems (mems.cu) and the dictionary's
 // level (sparsedict.cu) instantiate, so holding these kernels against their
 // plain versions holds the providers of those. An ultra query is one
-// 32-byte row; a bucketed one three round trips (bucket, the heads after
-// it, the run), each bound by load latency, so the design keeps one
-// position a thread and launches enough threads to keep many loads in
-// flight.
+// 32-byte row; a bucketed one two round trips through the run index (the
+// bucket's 16-byte entry, then the run's record), each bound by load
+// latency, so the design keeps one position a thread and launches enough
+// threads to keep many loads in flight.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -55,28 +55,25 @@ int pgt_rank6_ultra(const int* rank_table, int64_t n_rows, const int* pos,
   return launch(rk, pos, n, out, stream);
 }
 
-// out[i, :] = bucketed rank6(pos[i]) over bucket_lo [n_buckets], run_start
-// [n_runs], run_sym [n_runs] int8 and cum [n_runs, 6], int32
-int pgt_rank6_bucketed(const int* bucket_lo, int64_t n_buckets,
-                       const int* run_start, const int8_t* run_sym,
-                       const int* cum, int64_t n_runs, const int* pos,
+// out[i, :] = bucketed rank6(pos[i]) through the run index [n_buckets, 4]
+// over buckets of 2^shift positions, run_rec [n_runs, 8] and run_start
+// [n_runs] (rank.cuh:RunIndex), int32
+int pgt_rank6_bucketed(const int* run_index, int64_t n_buckets, int shift,
+                       const int* run_rec, const int* run_start, int64_t n_runs, const int* pos,
                        int64_t n, int* out, void* stream) {
   pgt::BucketRank<int> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, pos, n, out, stream);
 }
 
 // the same over int64 tables and positions
-int pgt_rank6_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
-                         const int64_t* run_start, const int8_t* run_sym,
-                         const int64_t* cum, int64_t n_runs,
+int pgt_rank6_bucketed64(const int* run_index, int64_t n_buckets, int shift,
+                         const int64_t* run_rec, const int64_t* run_start, int64_t n_runs,
                          const int64_t* pos, int64_t n, int64_t* out,
                          void* stream) {
   pgt::BucketRank<int64_t> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch(rk, pos, n, out, stream);
 }

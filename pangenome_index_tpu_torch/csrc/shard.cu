@@ -19,18 +19,20 @@
 //                         counts relative to their superblock: the caller
 //                         adds the superblock base after the sum, as the JAX
 //                         program does after its psum.
-//   pgt_shard_run_rank6   the shard holds runs [j0, j0 + runs_local) of
-//                         run_start, run_sym and cum; a position's run is
-//                         its predecessor among the local heads (a binary
-//                         search), owned where it lies before `upper`, the
-//                         next shard's first head (the type's maximum on the
-//                         last shard), gathered once when the tables are
-//                         placed where the JAX program ppermutes it on every
-//                         call; rank6 = cum[j] + onehot(sym[j]) * (pos -
-//                         run_start[j]).
+//   pgt_shard_run_rank6   the shard holds runs [j0, j0 + runs_local) as
+//                         their records and heads and its slice of the run
+//                         index (rank.cuh:RunIndex); it owns the positions
+//                         [lo, upper): lo its first head, upper the next
+//                         shard's (the type's maximum on the last shard),
+//                         gathered once when the tables are placed where the
+//                         JAX program ppermutes it on every call. Ownership
+//                         is checked first (a position another shard owns
+//                         costs no load); then the position's bucket entry
+//                         and its run's record, two dependent loads; rank6 =
+//                         cum[j] + onehot(sym[j]) * (pos - run_start[j]).
 //
 // What bounds them: bytes. A position reads its 4 or 8 bytes, one 64-byte row
-// (or log2(runs_local) heads and one run's 25 or 49 bytes) and writes 6
+// (or its 16-byte entry and its run's 32- or 64-byte record) and writes 6
 // counts, 24 or 48 bytes; a shard that does not own the position writes
 // zeros, or nothing when it accumulates. One thread a position; the rows are
 // random reads, so the loads of the row are issued together. The bodies are
@@ -75,14 +77,12 @@ shard_ckpt_kernel(const int* __restrict__ planes, int64_t rows_local, int64_t ro
 
 template <class P>
 __global__ void __launch_bounds__(kThreads)
-shard_run_kernel(const P* __restrict__ run_start, const int8_t* __restrict__ run_sym,
-                 const P* __restrict__ cum, int64_t runs_local, P upper,
-                 const P* __restrict__ pos, int64_t npos, P* __restrict__ out,
-                 int accumulate) {
+shard_run_kernel(const pgt::RunIndex<P> ix, P lo, P upper, const P* __restrict__ pos,
+                 int64_t npos, P* __restrict__ out, int accumulate) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= npos) return;
   P r[6];
-  const bool owns = pgt::run_partial(run_start, run_sym, cum, runs_local, upper, pos[i], r);
+  const bool owns = pgt::run_partial(ix, lo, upper, pos[i], r);
   put6(out, i, r, owns, accumulate);
 }
 
@@ -98,13 +98,17 @@ int ckpt_launch(const int* planes, int64_t rows_local, int64_t row0, const P* po
 }
 
 template <class P>
-int run_launch(const P* run_start, const int8_t* run_sym, const P* cum, int64_t runs_local,
-               P upper, const P* pos, int64_t npos, P* out, int accumulate, void* stream) {
-  if (runs_local < 1 || npos < 0) return static_cast<int>(cudaErrorInvalidValue);
+int run_launch(const P* rec, const int* index, int64_t n_buckets, int64_t first, int shift,
+               const P* run_start, int64_t runs_local, P lo, P upper, const P* pos,
+               int64_t npos, P* out, int accumulate, void* stream) {
+  if (runs_local < 1 || n_buckets < 1 || shift < 0 || shift > 15 || npos < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (npos == 0) return 0;
+  const pgt::RunIndex<P> ix{reinterpret_cast<const int4*>(index), n_buckets, first, shift,
+                            rec, run_start, runs_local};
   const unsigned blocks = static_cast<unsigned>((npos + kThreads - 1) / kThreads);
   shard_run_kernel<P><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      run_start, run_sym, cum, runs_local, upper, pos, npos, out, accumulate);
+      ix, lo, upper, pos, npos, out, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -128,23 +132,27 @@ int pgt_shard_ckpt_rank6_64(const int* planes, int64_t rows_local, int64_t row0,
   return ckpt_launch(planes, rows_local, row0, pos, npos, out, accumulate, stream);
 }
 
-// A shard's rank6 partials over its runs: run_start [runs_local], run_sym
-// [runs_local] int8, cum [runs_local, 6], upper the next shard's first head
-// (int32 maximum on the last), pos [npos] -> out [npos, 6], all int32.
-int pgt_shard_run_rank6(const int* run_start, const int8_t* run_sym, const int* cum,
-                        int64_t runs_local, int upper, const int* pos, int64_t npos,
-                        int* out, int accumulate, void* stream) {
-  return run_launch(run_start, run_sym, cum, runs_local, upper, pos, npos, out, accumulate,
-                    stream);
+// A shard's rank6 partials over its runs: the run records [runs_local, 8],
+// its run index slice [n_buckets, 4] int32 (buckets of 2^shift positions
+// from bucket `first` on), run_start [runs_local], lo and upper (its first
+// head and the next shard's, int32 maximum on the last), pos [npos] -> out
+// [npos, 6], all int32 but the index.
+int pgt_shard_run_rank6(const int* rec, const int* index, int64_t n_buckets, int64_t first,
+                        int shift, const int* run_start, int64_t runs_local, int lo,
+                        int upper, const int* pos, int64_t npos, int* out, int accumulate,
+                        void* stream) {
+  return run_launch(rec, index, n_buckets, first, shift, run_start, runs_local, lo, upper,
+                    pos, npos, out, accumulate, stream);
 }
 
-// the same with int64 tables, positions and partials
-int pgt_shard_run_rank6_64(const int64_t* run_start, const int8_t* run_sym,
-                           const int64_t* cum, int64_t runs_local, int64_t upper,
+// the same with int64 records, heads, positions and partials
+int pgt_shard_run_rank6_64(const int64_t* rec, const int* index, int64_t n_buckets,
+                           int64_t first, int shift, const int64_t* run_start,
+                           int64_t runs_local, int64_t lo, int64_t upper,
                            const int64_t* pos, int64_t npos, int64_t* out, int accumulate,
                            void* stream) {
-  return run_launch(run_start, run_sym, cum, runs_local, upper, pos, npos, out, accumulate,
-                    stream);
+  return run_launch(rec, index, n_buckets, first, shift, run_start, runs_local, lo, upper,
+                    pos, npos, out, accumulate, stream);
 }
 
 }  // extern "C"

@@ -385,9 +385,8 @@ int pgt_sdict_level_ultra(const int* rank_table, int64_t n_rows, const int* C,
 }
 
 // the same over bucketed runs, int32 positions
-int pgt_sdict_level_bucketed(const int* bucket_lo, int64_t n_buckets,
-                             const int* run_start, const int8_t* run_sym,
-                             const int* cum, int64_t n_runs, const int* C,
+int pgt_sdict_level_bucketed(const int* run_index, int64_t n_buckets, int shift,
+                             const int* run_rec, const int* run_start, int64_t n_runs, const int* C,
                              const int64_t* keys_in, const int* vals_in,
                              int regions, int64_t stride, int64_t c0,
                              int64_t c1, int64_t c2, int64_t c3, int thresh,
@@ -395,8 +394,7 @@ int pgt_sdict_level_bucketed(const int* bucket_lo, int64_t n_buckets,
                              int64_t* keys_out, int* vals_out, int* offsets,
                              int* totals, void* stream) {
   pgt::BucketRank<int> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
                       thresh, level, blocks, state, keys_out, vals_out,
@@ -404,9 +402,8 @@ int pgt_sdict_level_bucketed(const int* bucket_lo, int64_t n_buckets,
 }
 
 // the same over bucketed runs, int64 positions (vals int64)
-int pgt_sdict_level_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
-                               const int64_t* run_start, const int8_t* run_sym,
-                               const int64_t* cum, int64_t n_runs,
+int pgt_sdict_level_bucketed64(const int* run_index, int64_t n_buckets, int shift,
+                               const int64_t* run_rec, const int64_t* run_start, int64_t n_runs,
                                const int64_t* C, const int64_t* keys_in,
                                const int64_t* vals_in, int regions,
                                int64_t stride, int64_t c0, int64_t c1,
@@ -415,8 +412,7 @@ int pgt_sdict_level_bucketed64(const int64_t* bucket_lo, int64_t n_buckets,
                                int64_t* vals_out, int* offsets, int* totals,
                                void* stream) {
   pgt::BucketRank<int64_t> rk;
-  if (!pgt::make_bucket(bucket_lo, n_buckets, run_start, run_sym, cum, n_runs,
-                        &rk))
+  if (!pgt::make_bucket(run_index, n_buckets, shift, run_rec, run_start, n_runs, &rk))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
                       thresh, level, blocks, state, keys_out, vals_out,

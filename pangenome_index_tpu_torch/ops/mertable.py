@@ -8,8 +8,8 @@ of level v by each of the four bases, child b of key p at key b << 2v | p.
 On the card each level is one launch of the kernel of csrc/mertable.cu
 (mer_level: one thread per parent, one rank pair through the tables' rank
 provider, the four children written in the table layout), the last launch
-two levels deep except through bucketed runs (last_depth), so that the
-build of m levels is max(m - 1, 1) launches, or m through bucketed runs,
+two levels deep except through int64 bucketed runs (last_depth), so that
+the build of m levels is max(m - 1, 1) launches, or m through those,
 and no torch pass between them; mer_level_plain is its plain version (the
 same parent-per-lane schedule through ops/rank.py's rank6, in slabs of
 parents), which tables on the CPU take. Failed extensions stay (0, 0, 0),
@@ -166,12 +166,12 @@ def mer_root(t: RIndexTables) -> torch.Tensor:
 
 def last_depth(t: RIndexTables) -> int:
     """Levels the build's last launch makes: 2 (level m - 1 kept in
-    registers), but 1 through bucketed runs (the provider of ops/fmd.py's
-    rank_args when the tables hold no rows or records), where a thread's
-    four children's rank walks of dependent trips make the fused launch
+    registers), but 1 through int64 bucketed runs (the provider of
+    ops/fmd.py's rank_args when the tables hold no rows or records), where
+    a thread's four children's 64-byte run records make the fused launch
     slower than two one-deep launches (PERF.md)."""
     bucketed = t.ckpt is None and t.rank_table is None and t.rec is None
-    return 1 if bucketed else 2
+    return 1 if bucketed and t.pos_dtype == torch.int64 else 2
 
 
 def build_mer_table_device(t: RIndexTables, m: int, level=mer_level) -> torch.Tensor:

@@ -7,8 +7,12 @@ dictionary's level instantiate, and
 of pangenome_index_tpu/ops/rank.py: rank6, rank and lf_range over the table
 kinds, in the JAX package's order - checkpoint rows (CkptRank), ultra rows
 (UltraRank: rank_table[pos][:6]), dense run records (DenseRank), and the
-per-run cum table, found through bucket_lo (BucketRank: run_of's bucket jump
-and seven halving probes) or, in base tables, by searchsorted (no kernel).
+per-run cum table, found through bucket_lo (run_of: the JAX package's
+bucket jump and seven halving probes) or, in base tables, by searchsorted
+(no kernel). The kernels rank bucketed tables through the run index derived
+beside bucket_lo (BucketRank; tables.derive_run_index): a position's bucket
+entry, then its run's record, two dependent loads; run_of_index and
+records_rank6 are their plain readers, which rank6_bucketed_plain takes.
 
 Each checkpoint row holds the occ counts before its bucket (cols 0..5) and
 the bucket's 64 BWT codes as 4-bit nibbles (cols 6..13, LSB first, 0xF past
@@ -31,7 +35,8 @@ import torch
 from .. import _build
 from ..utils.alphabet import COMP_CODE
 from .dense_rank import rank6_dense_plain
-from .tables import BUCKET_SHIFT, SINGLE_LEVEL_SHIFT, RIndexTables
+from .tables import (BUCKET_SHIFT, SINGLE_LEVEL_SHIFT, RIndexTables, run_index_fields,
+                     run_index_slots)
 
 _NIBBLE_SHIFTS = torch.arange(0, 32, 4, dtype=torch.int32)
 
@@ -145,10 +150,57 @@ def rank6_ultra_plain(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
     return t.rank_table[pos.long().clamp(0, t.rank_table.shape[0] - 1), :6]
 
 
+def run_of_index(index: torch.Tensor, first_bucket: int, shift: int,
+                 run_start: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The run of each position through a run index (tables.derive_run_index
+    over run_start, its buckets from first_bucket on), as the kernels read
+    it (csrc/rank.cuh:RunIndex): the position's entry (its bucket clamped
+    into the index, its offset p - B into the bucket), j0 plus the stored
+    offsets <= p - B; where the entry is full and every stored offset
+    counted, the heads after them read from run_start a 64-byte line at a
+    time and counted where <= p (a run id below 0, an earlier model
+    shard's run in a shard's slice, counts without a read), until a line is
+    not all counted. [B] int64."""
+    p = pos.long()
+    nb, r = index.shape[0], run_start.shape[0]
+    b = ((p >> shift) - first_bucket).clamp(0, nb - 1)
+    d = (p - ((b + first_bucket) << shift)).clamp(0, (1 << shift) - 1)
+    e = index[b]
+    j, cnt = run_index_fields(e)
+    by = e.contiguous().view(torch.uint8).long()              # [B, 16]
+    cap = run_index_slots(shift)
+    off = by[:, 6:] if cap == 10 else by[:, 6::2] | (by[:, 7::2] << 8)
+    c = (off <= d[:, None]).sum(dim=1)
+    j = j + c
+    more = (cnt > cap) & (c == cap)
+    line = 64 // run_start.element_size()
+    k = torch.arange(line, device=p.device)
+    while bool(more.any()):
+        at = j[:, None] + 1 + k
+        h = run_start[at.clamp(0, max(r - 1, 0))].long()
+        c = (more[:, None] & ((at < 0) | ((at < r) & (h <= p[:, None])))).sum(dim=1)
+        j = j + c
+        more = more & (c == line)
+    return j
+
+
+def records_rank6(rec: torch.Tensor, j: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """rank6 [B, 6] from each position's run record rec[j] (start, sym,
+    cum0..cum5; j clamped into the records): cum + onehot(sym) * (pos -
+    start), in rec's dtype."""
+    row = rec[j.clamp(0, rec.shape[0] - 1)]
+    onehot = torch.arange(6, device=pos.device)[None, :] == row[:, 1:2].long()
+    return row[:, 2:] + onehot.to(rec.dtype) * (pos.to(rec.dtype) - row[:, 0])[:, None]
+
+
 def rank6_bucketed_plain(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
-    """rank6 through the per-run cum table ([B] -> [B, 6]): the run j of pos
-    (run_of: the bucket jump where the tables have bucket_lo, else the
-    search), then cum[j] + onehot(run_sym[j]) * (pos - run_start[j])."""
+    """rank6 through the per-run tables ([B] -> [B, 6]). With the run
+    index (bucketed tables): the run of pos through it (run_of_index), then
+    its record, as BucketRank reads them; else (base tables) the run by the
+    search, then cum[j] + onehot(run_sym[j]) * (pos - run_start[j])."""
+    if t.run_index is not None:
+        return records_rank6(t.run_rec, run_of_index(t.run_index, 0, t.run_shift,
+                                                     t.run_start, pos), pos)
     j = run_of(t, pos)
     onehot = torch.arange(6, device=pos.device)[None, :] \
         == t.run_sym[j].long()[:, None]
@@ -169,21 +221,19 @@ def ultra_args(t: RIndexTables) -> tuple:
 
 
 def bucket_args(t: RIndexTables) -> tuple:
-    """The bucketed provider's C arguments (bucket_lo, buckets, run_start,
-    run_sym, cum, runs): every table but run_sym (int8) in the position
-    dtype, the cum table whole."""
+    """The bucketed provider's C arguments (run_index, buckets, run_shift,
+    run_rec, run_start, runs): the run index [nb, 4] int32 and the records
+    [r, 8] and heads in the position dtype."""
     dev, pd = t.device, t.pos_dtype
     r = t.run_start.shape[0]
-    if t.bucket_lo.dtype != pd:
-        raise ValueError(f"bucket_lo is {t.bucket_lo.dtype}, the positions {pd}")
-    if not t.bucket_lo.shape[0] or not r or t.cum.shape != (r, 6) \
-            or t.run_sym.shape != (r,):
-        raise ValueError("bucketed tables need bucket_lo, and run_start, run_sym "
-                         "and cum [r, 6] of every run")
-    return (_build.check("bucket_lo", t.bucket_lo, pd, dev), t.bucket_lo.shape[0],
-            _build.check("run_start", t.run_start, pd, dev),
-            _build.check("run_sym", t.run_sym, torch.int8, dev),
-            _build.check("cum", t.cum, pd, dev), r)
+    if not r or t.run_index is None or t.run_index.dim() != 2 or t.run_index.shape[1] != 4 \
+            or not t.run_index.shape[0] or t.run_rec is None \
+            or tuple(t.run_rec.shape) != (r, 8):
+        raise ValueError("bucketed tables need the run index [nb, 4] and records "
+                         "[r, 8] (ops/tables.py:with_run_index)")
+    return (_build.check("run_index", t.run_index, torch.int32, dev), t.run_index.shape[0],
+            int(t.run_shift), _build.check("run_rec", t.run_rec, pd, dev),
+            _build.check("run_start", t.run_start, pd, dev), r)
 
 
 def rank6_ultra(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:

@@ -11,17 +11,21 @@ others 0, so the sum over the shards is the whole index's rank6.
                     shard that holds row pos >> 6. Two-level rows give
                     counts relative to the superblock (the base is added
                     after the sum).
-  shard_run_rank6   the shard's runs (run_start, run_sym, cum): the owner
-                    of pos is the shard whose predecessor run of pos exists
-                    and whose `upper` (the next shard's first head, the
-                    dtype's maximum on the last shard) lies above pos.
+  shard_run_rank6   the shard's runs (RunShard: their records and heads,
+                    and the shard's slice of the run index): the owner of
+                    pos is the shard with lo <= pos < upper (its first head
+                    and the next shard's, the dtype's maximum on the last
+                    shard); its partial is pos's bucket entry, then its
+                    run's record (ops/rank.py:run_of_index, records_rank6).
 
 `out`, when given, is added to (the shards of one card summed in place);
 else a new tensor is returned. Positions, partials and tables share the
 position dtype (int32 or int64). Each wrapper launches its kernel for CUDA
 tensors (counted in `launches`) and runs its plain version for CPU tensors.
 
-CkptShard and RunShard hold one shard; shard_table packs the shards a
+CkptShard and RunShard hold one shard (run_shard makes a RunShard of a
+slice of the run table, its slice of the run index derived on its device);
+shard_table packs the shards a
 process holds for the lockstep MEM step (ops/mems.py:mem_step_fused), whose
 kernel computes the same partials for the positions it makes, and
 shards_rank6_plain is that computation's plain version.
@@ -35,7 +39,8 @@ from dataclasses import dataclass
 import torch
 
 from .. import _build
-from .rank import plane_rows_rank6
+from .rank import plane_rows_rank6, records_rank6, run_of_index
+from .tables import derive_run_index, derive_run_records, run_index_shift
 
 
 def _finish(r, owns, pos, out):
@@ -58,17 +63,14 @@ def shard_ckpt_rank6_plain(planes: torch.Tensor, row0: int, pos: torch.Tensor,
     return _finish(r, owns, pos, out)
 
 
-def shard_run_rank6_plain(run_start: torch.Tensor, run_sym: torch.Tensor,
-                          cum: torch.Tensor, upper: int, pos: torch.Tensor,
+def shard_run_rank6_plain(shard: "RunShard", pos: torch.Tensor,
                           out: torch.Tensor | None = None) -> torch.Tensor:
-    """[B, 6] partials by the definition: searchsorted over the shard's
-    heads, ownership against `upper`, cum + onehot * (pos - run_start)."""
-    j = torch.searchsorted(run_start, pos.to(run_start.dtype), right=True) - 1
-    owns = (j >= 0) & (pos.long() < upper)
-    jc = j.clamp(0, run_start.shape[0] - 1)
-    onehot = torch.arange(6, device=pos.device)[None, :] == run_sym[jc].long()[:, None]
-    r = cum[jc].long() + onehot.long() * (pos.long() - run_start[jc].long())[:, None]
-    return _finish(r, owns, pos, out)
+    """[B, 6] partials as the kernel reads the shard: ownership lo <= pos <
+    upper, then the run through the shard's index slice and its record."""
+    p = pos.long()
+    owns = (p >= shard.lo) & (p < shard.upper)
+    j = run_of_index(shard.index, shard.first_bucket, shard.shift, shard.run_start, pos)
+    return _finish(records_rank6(shard.rec, j, pos), owns, pos, out)
 
 
 def _out(pos, out):
@@ -109,26 +111,19 @@ def shard_ckpt_rank6(planes: torch.Tensor, row0: int, pos: torch.Tensor,
 shard_ckpt_rank6.launches = 0
 
 
-def shard_run_rank6(run_start: torch.Tensor, run_sym: torch.Tensor, cum: torch.Tensor,
-                    upper: int, pos: torch.Tensor,
+def shard_run_rank6(shard: "RunShard", pos: torch.Tensor,
                     out: torch.Tensor | None = None) -> torch.Tensor:
-    """run_start [r_local], run_sym [r_local] int8, cum [r_local, 6] (the
-    shard's runs, pos's dtype), upper, pos [B] -> [B, 6] partials (added to
-    `out` if given). On the card one launch, one thread a position (a
-    binary search over the shard's heads); on the CPU the plain version."""
+    """The shard's partials at pos [B] -> [B, 6] (added to `out` if given),
+    the shard's tables and pos of one dtype. On the card one launch, one
+    thread a position (ownership, then the entry and the record); on the
+    CPU the plain version."""
     if pos.device.type == "cpu":
-        return shard_run_rank6_plain(run_start, run_sym, cum, upper, pos, out)
+        return shard_run_rank6_plain(shard, pos, out)
     dev = pos.device
-    r = run_start.shape[0]
-    if not r or run_sym.shape != (r,) or tuple(cum.shape) != (r, 6):
-        raise ValueError("run_start [r > 0], run_sym [r] and cum [r, 6]")
     sfx = _dtype_sfx(pos)
+    args = run_shard_args(shard, pos.dtype, dev)
     res, acc = _out(pos, out)
-    upper = min(int(upper), torch.iinfo(pos.dtype).max)
-    _build.launch(f"pgt_shard_run_rank6{sfx}",
-                  _build.check("run_start", run_start, pos.dtype, dev),
-                  _build.check("run_sym", run_sym, torch.int8, dev),
-                  _build.check("cum", cum, pos.dtype, dev), r, upper,
+    _build.launch(f"pgt_shard_run_rank6{sfx}", *args,
                   _build.check("pos", pos, pos.dtype, dev), pos.shape[0],
                   _build.check("out", res, pos.dtype, dev), acc, _build.stream(dev))
     shard_run_rank6.launches += 1
@@ -155,20 +150,74 @@ class CkptShard:
 
 @dataclass
 class RunShard:
-    """A model shard's runs, and `upper`: the next shard's first head (the
-    position type's maximum on the last shard), which bounds the positions
-    this shard owns."""
+    """A model shard's runs: runs [j0, j0 + R) of the padded tables as their
+    records rec [R, 8] (start, sym, cum0..cum5) and heads run_start [R],
+    and the shard's slice of the run index (index [nb, 4] int32 over
+    buckets of 2^shift positions from first_bucket on, run ids local:
+    ops/tables.py:slice_run_index of the tables' index, or derive_run_index
+    over the slice alone). It owns the positions [lo, upper): lo its first
+    head, upper the next shard's (the position type's maximum on the last
+    shard). parallel/sharding.py places one; run_shard makes one of a
+    slice alone."""
 
+    rec: torch.Tensor
     run_start: torch.Tensor
-    run_sym: torch.Tensor
-    cum: torch.Tensor
+    index: torch.Tensor
+    first_bucket: int
+    shift: int
+    lo: int
     upper: int
 
+    @property
+    def run_sym(self) -> torch.Tensor:
+        return self.rec[:, 1].to(torch.int8)
+
+    @property
+    def cum(self) -> torch.Tensor:
+        return self.rec[:, 2:]
+
     def rank6(self, pos, out=None):
-        return shard_run_rank6(self.run_start, self.run_sym, self.cum, self.upper, pos, out)
+        return shard_run_rank6(self, pos, out)
 
     def rank6_plain(self, pos):
-        return shard_run_rank6_plain(self.run_start, self.run_sym, self.cum, self.upper, pos)
+        return shard_run_rank6_plain(self, pos)
+
+
+def run_shard(run_start: torch.Tensor, run_sym: torch.Tensor, cum: torch.Tensor,
+              upper: int) -> RunShard:
+    """The RunShard of a slice of the run table (run_start [R > 0] sorted,
+    run_sym [R], cum [R, 6]), on its device: its records, and the run index
+    over its own heads at the slice's shift (run_index_shift of its heads'
+    span and count), its buckets from its first head's to its last head's,
+    j0 = -1 where no head of the slice is <= a bucket's base (positions the
+    shard owns lie at or past its first head). Reads the slice's first and
+    last heads from the device."""
+    r = run_start.shape[0]
+    if not r or run_sym.shape != (r,) or tuple(cum.shape) != (r, 6):
+        raise ValueError("run_start [r > 0], run_sym [r] and cum [r, 6]")
+    lo, last = int(run_start[0]), int(run_start[-1])
+    shift = run_index_shift(last - lo + 1, r)
+    first = lo >> shift
+    index = derive_run_index(run_start, shift, first, (last >> shift) - first + 1, j_min=-1)
+    return RunShard(derive_run_records(run_start, run_sym, cum), run_start, index, first,
+                    shift, lo, min(int(upper), torch.iinfo(run_start.dtype).max))
+
+
+def run_shard_args(sh: RunShard, dtype: torch.dtype, device) -> tuple:
+    """The C arguments of a run shard (rec, index, buckets, first bucket,
+    shift, run_start, runs, lo, upper); raises ValueError for tables of
+    another dtype or device, or of other shapes."""
+    r = sh.run_start.shape[0]
+    if not r or tuple(sh.rec.shape) != (r, 8) or sh.index.dim() != 2 \
+            or sh.index.shape[1] != 4 or not sh.index.shape[0] or not 0 <= sh.shift <= 15:
+        raise ValueError("a run shard: rec [r > 0, 8], run_start [r] and its run index "
+                         "[nb > 0, 4] at a shift of 0..15")
+    big = torch.iinfo(dtype).max
+    return (_build.check("rec", sh.rec, dtype, device),
+            _build.check("index", sh.index, torch.int32, device), sh.index.shape[0],
+            int(sh.first_bucket), int(sh.shift),
+            _build.check("run_start", sh.run_start, dtype, device), r,
+            min(int(sh.lo), big), min(int(sh.upper), big))
 
 
 def shards_rank6_plain(shards: list, pos: torch.Tensor) -> torch.Tensor:
@@ -187,10 +236,11 @@ MAX_SHARDS = 16
 
 def shard_table(shards: list, dtype: torch.dtype, device) -> tuple:
     """(kind, count, host array) of the shards for the step's kernel: per
-    shard its tables' pointers, its first global row (checkpoint) or head
-    (runs: the `upper` of the shard before it, 0 for the first), rows or
-    runs, and upper; in ascending first row or head. Reads nothing from
-    the device, so it may run while a CUDA graph captures. Raises
+    shard (csrc/shard.cuh:Shard, nine int64) its tables' pointers (planes;
+    or records, run index and heads), its first global row (checkpoint) or
+    head (runs: lo), rows or runs, upper, and the run index's first bucket,
+    buckets and shift (runs); in ascending first row or head. Reads nothing
+    from the device, so it may run while a CUDA graph captures. Raises
     ValueError for shards of mixed kinds, of another dtype or device, or
     more than MAX_SHARDS."""
     if not shards or len(shards) > MAX_SHARDS:
@@ -201,20 +251,14 @@ def shard_table(shards: list, dtype: torch.dtype, device) -> tuple:
             if sh.planes.dim() != 2 or sh.planes.shape[1] != 16 or not sh.planes.shape[0]:
                 raise ValueError("planes: expected [rows_local > 0, 16]")
             rows.append((_build.check("planes", sh.planes, torch.int32, device), 0, 0,
-                         int(sh.row0), sh.planes.shape[0], 0))
+                         int(sh.row0), sh.planes.shape[0], 0, 0, 0, 0))
         kind = SHARDS_CKPT
     elif all(isinstance(sh, RunShard) for sh in shards):
-        big = torch.iinfo(dtype).max
-        rows, first = [], 0
-        for sh in sorted(shards, key=lambda sh: sh.upper):
-            r = sh.run_start.shape[0]
-            if not r or sh.run_sym.shape != (r,) or tuple(sh.cum.shape) != (r, 6):
-                raise ValueError("run_start [r > 0], run_sym [r] and cum [r, 6]")
-            upper = min(int(sh.upper), big)
-            rows.append((_build.check("run_start", sh.run_start, dtype, device),
-                         _build.check("run_sym", sh.run_sym, torch.int8, device),
-                         _build.check("cum", sh.cum, dtype, device), first, r, upper))
-            first = upper
+        rows = []
+        for sh in sorted(shards, key=lambda sh: sh.lo):
+            rec, index, nb, first, shift, heads, r, lo, upper = run_shard_args(sh, dtype,
+                                                                               device)
+            rows.append((rec, index, heads, lo, r, upper, first, nb, shift))
         kind = SHARDS_RUNS
     else:
         raise ValueError("the shards are all checkpoint rows or all runs")

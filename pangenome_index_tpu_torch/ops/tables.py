@@ -9,7 +9,9 @@ checkpoint rows (the serving default: one 64-byte row per rank6 query;
 it for the kernels), dense run records (a run id and one 32-byte record per
 query), ultra rows (`rank_table`, one 32-byte row of counts per position)
 and bucketed runs (`bucket_lo`, the run of each bucket of 2^BUCKET_SHIFT
-positions, beside the full per-run cum table). Base tables (the cum table
+positions, beside the full per-run cum table; the kernels read the run index
+derived from them, `derive_run_index`: a 16-byte entry a bucket, then the
+run's record). Base tables (the cum table
 with no bucket index) serve the plain versions only. n, n_seq and max_len are host integers: every
 kernel takes them as launch arguments, and reading them never waits on the
 card. The tag tables carry, beside the JAX package's fields, the search tree
@@ -50,6 +52,8 @@ MAX_SUPER = 64
 #: positions a bucket of the bucketed rank mode covers: 2^BUCKET_SHIFT
 #: (pangenome_index_tpu/ops/tables.py:BUCKET_SHIFT)
 BUCKET_SHIFT = 6
+#: the largest bucket shift of the run index (its offsets are 16 bits)
+MAX_RUN_SHIFT = 15
 
 
 @dataclass
@@ -89,6 +93,13 @@ class RIndexTables:
     tail_pairs: torch.Tensor | None = None
     tail_lo: torch.Tensor | None = None
     tail_shift: int | None = None
+    # bucketed: what the kernels rank through beside the JAX package's
+    # fields (derive_run_index): the run index [nb, 4] int32, a 16-byte
+    # entry for each bucket of 2^run_shift positions, and the run records
+    # [r, 8] of the position dtype (start, sym, cum0..cum5)
+    run_index: torch.Tensor | None = None
+    run_shift: int | None = None
+    run_rec: torch.Tensor | None = None
 
     @property
     def pos_dtype(self) -> torch.dtype:
@@ -467,6 +478,112 @@ def derive_bucket_lo(run_start: torch.Tensor, n: int) -> torch.Tensor:
     return j.clamp(min=0).to(run_start.dtype)
 
 
+def run_index_shift(span: int, runs: int) -> int:
+    """The run index's bucket shift for `runs` heads over `span` positions:
+    floor(log2(2 * span / runs)), so that a bucket holds one to two heads on
+    average, within [0, MAX_RUN_SHIFT]."""
+    return min(max((2 * max(span, 1) // max(runs, 1)).bit_length() - 1, 0), MAX_RUN_SHIFT)
+
+
+def run_index_slots(shift: int) -> int:
+    """Offsets an entry holds: ten of 8 bits below shift 8, else five of 16."""
+    return 10 if shift < 8 else 5
+
+
+def derive_run_index(run_start: torch.Tensor, shift: int, first_bucket: int,
+                     n_buckets: int, j_min: int = 0) -> torch.Tensor:
+    """The run index over the sorted heads run_start [r] on their device:
+    [n_buckets, 4] int32, one 16-byte entry for each bucket b of 2^shift
+    positions from first_bucket on (base B = b << shift):
+      bytes 0..4   j0, the last run whose head is <= B (at least j_min: 0
+                   over a whole table, as JAX's bucket_lo clamps it; -1 in
+                   a model shard whose heads all lie past B), a signed
+                   40-bit value
+      byte  5      the number of heads of the runs after j0 that start in
+                   the bucket (each > B), saturated at 255
+      bytes 6..15  the first of those heads' offsets h - B, ascending:
+                   run_index_slots(shift) of them, 8 bits each below shift
+                   8, else 16; unused slots all ones (above every offset
+                   within a bucket, so they never count)
+    The run of a position p of bucket b is j0 + the stored offsets <= p - B,
+    exact unless the bucket holds more heads than its entry: then the heads
+    after the stored ones are counted from run_start (run_of_index;
+    csrc/rank.cuh:RunIndex). A bucket index is clamped into the table and
+    p - B into [0, 2^shift - 1], so positions past the last bucket find the
+    last run whose head is <= p."""
+    if not 0 <= shift <= MAX_RUN_SHIFT:
+        raise ValueError(f"run index shift {shift} outside 0..{MAX_RUN_SHIFT}")
+    dev = run_start.device
+    heads = run_start.long()
+    r = heads.shape[0]
+    base = (first_bucket + torch.arange(n_buckets, dtype=torch.int64, device=dev)) << shift
+    j0 = (torch.searchsorted(heads, base, right=True) - 1).clamp(min=j_min)
+    end = torch.searchsorted(heads, base + (1 << shift))
+    cnt = (end - 1 - j0).clamp(min=0)
+    slots = run_index_slots(shift)
+    k = torch.arange(slots, device=dev)
+    at = (j0[:, None] + 1 + k).clamp(0, max(r - 1, 0))
+    pad = 0xFF if slots == 10 else 0xFFFF
+    off = torch.where(k < cnt[:, None], heads[at] - base[:, None], pad) if r else \
+        torch.full((n_buckets, slots), pad, dtype=torch.int64, device=dev)
+    out = torch.empty((n_buckets, 16), dtype=torch.uint8, device=dev)
+    for i in range(5):
+        out[:, i] = ((j0 >> (8 * i)) & 0xFF).to(torch.uint8)
+    out[:, 5] = cnt.clamp(max=255).to(torch.uint8)
+    if slots == 10:
+        out[:, 6:] = off.to(torch.uint8)
+    else:
+        out[:, 6::2] = (off & 0xFF).to(torch.uint8)
+        out[:, 7::2] = (off >> 8).to(torch.uint8)
+    return out.view(torch.int32)
+
+
+def run_index_fields(entries: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(j0, head count) [B] int64 of run index entries [B, 4] int32 (j0 the
+    signed 40-bit value of bytes 0..4, the count byte 5)."""
+    w1 = entries[:, 1].long()
+    j0 = (entries[:, 0].long() & 0xFFFFFFFF) | ((((w1 & 0xFF) ^ 0x80) - 0x80) << 32)
+    return j0, (w1 >> 8) & 0xFF
+
+
+def slice_run_index(index: torch.Tensor, first: int, last: int, j_lo: int) -> torch.Tensor:
+    """Entries first..last of a run index, their run ids rebased by -j_lo
+    (a model shard of runs j_lo.. over the buckets of its heads): j0 may
+    turn negative where a bucket starts in an earlier shard's run, and its
+    offsets keep the earlier shard's heads, which lie below every position
+    the shard owns (the lookups count run ids below 0 as heads <= p)."""
+    e = index[first : last + 1]
+    j0 = run_index_fields(e)[0] - j_lo
+    out = e.clone()
+    out[:, 0] = (((j0 & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    out[:, 1] = ((e[:, 1].long() & ~0xFF) | ((j0 >> 32) & 0xFF)).to(torch.int32)
+    return out
+
+
+def derive_run_records(run_start: torch.Tensor, run_sym: torch.Tensor,
+                       cum: torch.Tensor) -> torch.Tensor:
+    """The run records [r, 8] of run_start's dtype: (start, sym,
+    cum0..cum5), the layout of the dense records' `rec` (32 bytes a run at
+    int32, 64 at int64, aligned; no tables hold both `rec` and bucket_lo,
+    so the bucketed tables derive their own)."""
+    return torch.cat((run_start[:, None], run_sym.to(run_start.dtype)[:, None],
+                      cum.to(run_start.dtype)), dim=1).contiguous()
+
+
+def with_run_index(t: "RIndexTables") -> "RIndexTables":
+    """The bucketed tables' run index and records, derived on their device
+    (returns t; tables without bucket_lo are left as they are). The index's
+    buckets cover positions 0..n + 1 (a padded table's sentinel heads at
+    n + 1 fall into the last one)."""
+    if t.bucket_lo is not None:
+        r = t.run_start.shape[0]
+        t.run_shift = run_index_shift(t.n, r)
+        t.run_index = derive_run_index(t.run_start, t.run_shift, 0,
+                                       ((t.n + 1) >> t.run_shift) + 1)
+        t.run_rec = derive_run_records(t.run_start, t.run_sym, t.cum)
+    return t
+
+
 def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
                      dense: bool = False, ultra: bool = False,
                      bucketed: bool = False, super_shift: int | None = None,
@@ -479,8 +596,9 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     tables that rank through the cum table by a search over run_start
     (plain PyTorch only: the kernels refuse them). Same fields and values
     as the JAX rindex_to_device with the same flags (whose bucketed is True
-    by default: here False, base tables), and what locate reads
-    (with_locate_tables).
+    by default: here False, base tables), what locate reads
+    (with_locate_tables), and for bucketed tables the run index and records
+    the kernels rank through (with_run_index).
 
     Positions are `dtype`, by default int32 where every value fits and int64
     past 2^31; rows are two-level at n >= 2^31 or with an explicit
@@ -506,7 +624,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         rec = _put(rec_np, pd, device)
     row_table = checkpoint or dense or ultra
     run_start = _put(idx.run_start, pd, device)
-    return with_locate_tables(with_rank_planes(RIndexTables(
+    return with_run_index(with_locate_tables(with_rank_planes(RIndexTables(
         run_sym=_put(idx.run_sym, torch.int8, device),
         run_start=run_start,
         # only the run-based modes rank through the per-run cum table;
@@ -520,7 +638,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         bucket_lo=(derive_bucket_lo(run_start, int(idx.n))
                    if bucketed and not row_table else None),
         pos_to_run=pos_to_run, rec=rec, rank_table=rank_table, ckpt=ckpt,
-        ckpt_super=ckpt_super)))
+        ckpt_super=ckpt_super))))
 
 
 def tags_to_device(tags: TagArray, device,
@@ -544,7 +662,8 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
     `device`, with the same dtypes and values, and what the port derives
     beside them: the search trees (over the tag run heads; over run_start),
     the tail pairs and their bucket index, the bit-plane rows and, for int64
-    positions, the superblock bases (two-level rows included)."""
+    positions, the superblock bases (two-level rows included), and beside
+    bucket_lo the run index and records."""
     device = torch.device(device)
 
     def put(a):  # np.array copies: arrays from JAX are read-only
@@ -559,7 +678,7 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
         max_len=int(rindex["max_len"]))
     if t.ckpt_super is not None:
         t.ckpt_super = t.ckpt_super.to(torch.int64)
-    with_locate_tables(with_rank_planes(t))
+    with_run_index(with_locate_tables(with_rank_planes(t)))
     tt = None
     if tags is not None:
         heads = put(tags["bwt_start"])

@@ -37,9 +37,9 @@ import torch
 import torch.distributed as dist
 
 from ..models.rindex import RIndex
-from ..ops.shard_rank import CkptShard, RunShard
-from ..ops.tables import (CKPT_BLOCK, RIndexTables, rindex_to_device, with_locate_tables,
-                          with_rank_planes)
+from ..ops.shard_rank import CkptShard, RunShard, run_shard
+from ..ops.tables import (CKPT_BLOCK, RIndexTables, rindex_to_device, slice_run_index,
+                          with_locate_tables, with_rank_planes)
 
 
 
@@ -241,18 +241,34 @@ class ShardedRank:
         return (self.super_base[sb, :6] + r).to(r.dtype)
 
 
-def _shard_of(t: RIndexTables, m: int, n_shards: int, device):
+def _run_heads(t: RIndexTables, n_shards: int) -> list[tuple[int, int]]:
+    """(first head, last head) of each run shard of the padded tables t,
+    in one read from their device."""
+    runs = t.run_start.shape[0] // n_shards
+    at = torch.tensor([j for m in range(n_shards) for j in (m * runs, (m + 1) * runs - 1)],
+                      device=t.device)
+    h = t.run_start[at].tolist()
+    return list(zip(h[0::2], h[1::2]))
+
+
+def _shard_of(t: RIndexTables, m: int, n_shards: int, device, heads=None):
     """Shard m of n_shards of the padded tables t, on `device` (`upper` of a
-    run shard from t's heads; shard_tables exchanges it instead)."""
+    run shard from t's heads; shard_tables exchanges it instead). A run
+    shard takes its slices of the records and heads, and the tables' run
+    index sliced to the buckets of its heads with run ids rebased to its
+    runs (tables.slice_run_index); `heads`: _run_heads(t, n_shards)."""
     if t.ckpt is not None:
         rows = t.ckpt_planes.shape[0] // n_shards
         return CkptShard(t.ckpt_planes[m * rows : (m + 1) * rows].to(device), m * rows)
     runs = t.run_start.shape[0] // n_shards
     sl = slice(m * runs, (m + 1) * runs)
-    big = torch.iinfo(t.pos_dtype).max
-    upper = int(t.run_start[(m + 1) * runs]) if m < n_shards - 1 else big
-    return RunShard(t.run_start[sl].to(device), t.run_sym[sl].to(device),
-                    t.cum[sl].to(device), upper)
+    heads = heads or _run_heads(t, n_shards)
+    lo, last = heads[m]
+    upper = heads[m + 1][0] if m < n_shards - 1 else torch.iinfo(t.pos_dtype).max
+    first = lo >> t.run_shift
+    index = slice_run_index(t.run_index, first, last >> t.run_shift, m * runs)
+    return RunShard(t.run_rec[sl].to(device), t.run_start[sl].to(device), index.to(device),
+                    first, t.run_shift, lo, upper)
 
 
 def _replicated(t: RIndexTables, device):
@@ -268,13 +284,17 @@ def shard_tables(t: RIndexTables, mesh: Mesh):
     of this rank's model slice of the checkpoint rows (or of the runs) and
     the replicated C and superblock bases, reduced over the model group.
     A run shard's upper bound, the next shard's first head, is gathered
-    once here over the model group."""
+    once here over the model group. The rank keeps its own slices (copies,
+    not views that would hold the whole tables)."""
     dev = mesh.device
     S = mesh.shape["model"]
     if S == 1:
         return _to(t, dev)
     m = mesh.axis_index("model")
     shard = _shard_of(t, m, S, dev)
+    for f, v in vars(shard).items():
+        if isinstance(v, torch.Tensor):
+            setattr(shard, f, v.clone())
     if isinstance(shard, RunShard):
         heads = mesh.all_gather(shard.run_start[:1].clone(), "model")[:, 0]
         shard.upper = int(heads[m + 1]) if m < S - 1 else torch.iinfo(t.pos_dtype).max
@@ -289,7 +309,8 @@ def virtual_shards(t: RIndexTables, n_shards: int, device) -> ShardedRank:
     launches of every shard into one sum, or in the MEM engine's step the
     owning shard of each position)."""
     C, sup = _replicated(t, device)
-    return ShardedRank([_shard_of(t, m, n_shards, device) for m in range(n_shards)],
+    heads = None if t.ckpt is not None else _run_heads(t, n_shards)
+    return ShardedRank([_shard_of(t, m, n_shards, device, heads) for m in range(n_shards)],
                        C, t.n, None, sup)
 
 
@@ -321,8 +342,9 @@ def distributed_rank6(local_run_start: torch.Tensor, local_run_sym: torch.Tensor
                       upper: int) -> torch.Tensor:
     """rank6 with the run table range-sharded over the model group: this
     rank's runs and `upper` (the next shard's first head, gathered when the
-    runs were placed; the dtype's maximum on the last shard). The owner's
-    partial (kernel 3b), summed by one all_reduce."""
+    runs were placed; the dtype's maximum on the last shard), made a
+    RunShard (ops/shard_rank.py:run_shard: its records and run index). The
+    owner's partial (kernel 3b), summed by one all_reduce."""
     C = torch.zeros(7, dtype=pos.dtype, device=pos.device)
-    shard = RunShard(local_run_start, local_run_sym, local_cum, upper)
+    shard = run_shard(local_run_start, local_run_sym, local_cum, upper)
     return ShardedRank([shard], C, 0, mesh)(pos)

@@ -79,8 +79,9 @@ def check_rank_tables(t: RIndexTables, rank_mode: str) -> None:
     dense (check_dense_tables); ultra, the rows at consecutive run heads
     differ by the run's length in the run's symbol and the row at n holds
     the totals C gives; bucketed, rank6 at every run head is that run's cum
-    row (the bucket jump lands each head in its own run). Checkpoint rows
-    need none (tests/test_torch_kernels.py holds their planes)."""
+    row (the run index, which the kernels read, lands each head in its own
+    run). Checkpoint rows need none (tests/test_torch_kernels.py holds
+    their planes)."""
     if rank_mode == "dense":
         check_dense_tables(t)
     elif rank_mode == "ultra":
@@ -95,7 +96,7 @@ def check_rank_tables(t: RIndexTables, rank_mode: str) -> None:
                              "does not count the run heads' symbols")
     elif rank_mode == "bucketed":
         if not torch.equal(rank6_bucketed(t, t.run_start), t.cum):
-            raise ValueError("bucketed tables disagree: bucket_lo does not "
+            raise ValueError("bucketed tables disagree: the run index does not "
                              "lead each run head to its run")
 
 

@@ -70,7 +70,7 @@ def test_extend(dev, index, mode):
 def held_mer_table(t, idx, m):
     """The seed table built by the level kernel equals its plain version and
     the host build; the build is max(m - 1, 1) launches, m through
-    bucketed runs (the last launch one level deep)."""
+    int64 bucketed runs (the last launch one level deep)."""
     before = mertable.mer_level.launches
     got = mertable.build_mer_table_device(t, m)
     assert mertable.mer_level.launches - before == max(m - mertable.last_depth(t) + 1, 1)
@@ -1665,3 +1665,104 @@ def test_end_to_end_on_the_card(dev):
     assert end_to_end.main(device=dev) == end_to_end.main(device="cpu")
     assert mems.find_mems.launches == before[0] + 1
     assert tagquery.query_tags_batch.launches > before[1]
+
+
+#: run index shifts the BucketRank and 3b tests read through: the tables'
+#: own, 7 (8-bit offsets, most entries full) and 12 (16-bit offsets, every
+#: entry of the small index full: the lookups read run_start past them)
+RUN_SHIFTS = [None, 7, 12]
+
+
+def at_run_shift(t, shift):
+    """t with its run index derived anew at `shift` (None: as it is)."""
+    from pangenome_index_tpu_torch.ops.tables import derive_run_index
+
+    if shift is not None:
+        t.run_shift = shift
+        t.run_index = derive_run_index(t.run_start, shift, 0, ((t.n + 1) >> shift) + 1)
+    return t
+
+
+@pytest.mark.parametrize("shift", RUN_SHIFTS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+def test_bucket_rank_through_the_run_index(dev, index, dtype, shift):
+    """Every kernel that takes BucketRank - rank6_bucketed, K2, K3, the seed
+    table's level (one and two deep) and the dictionary's level - equals its
+    plain version through the run index at the tables' shift and at shifts
+    whose entries are full."""
+    idx, lines = index
+    t = at_run_shift(rindex_to_device(idx, dev, bucketed=True, dtype=dtype), shift)
+    rng = np.random.default_rng(41)
+    heads = idx.run_start.astype(np.int64)
+    pos = np.concatenate((np.arange(idx.n + 2), heads - 1, heads + 1,
+                          [-1, idx.n + 70, 1 << 20]))
+    pos = torch.from_numpy(pos).to(dev, dtype)
+    assert torch.equal(rank.rank6_bucketed(t, pos), rank.rank6_bucketed_plain(t, pos))
+    B = 5000
+    k = rng.integers(0, idx.n, B)
+    s = rng.integers(0, np.minimum(idx.n - k, 4096) + 1)
+    args = [torch.from_numpy(a).to(dev, dtype) for a in (k, rng.integers(0, idx.n, B), s)]
+    code = torch.from_numpy(rng.integers(-1, 8, B).astype(np.int32)).to(dev)
+    fwd = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    for f in (None, fwd):
+        for g, e in zip(fmd.extend(t, *args, code, forward=f),
+                        fmd.extend_plain(t, *args, code, forward=f)):
+            assert torch.equal(g, e)
+    reads = synth_reads(lines, 120, 150, error_rate=0.02, seed=12)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                      for r in reads]).astype(np.int32)
+    c = torch.from_numpy(codes).to(dev)
+    n = torch.full((len(reads),), 150, dtype=torch.int32, device=dev)
+    got, gs = mems.find_mems(t, c, n, 20, 1, capacity=8, with_stats=True)
+    want, ws = mems.find_mems_plain(t, c, n, 20, 1, capacity=8, with_stats=True)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    assert torch.equal(gs["steps"], ws["steps"]) and bool((got.count > 0).any())
+    level = mertable.mer_root(t)
+    for _ in range(7):
+        for depth in (1, 2):
+            assert torch.equal(mertable.mer_level(t, level, depth),
+                               mertable.mer_level_plain(t, level, depth))
+        level = mertable.mer_level(t, level)
+    keys = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    vals = torch.tensor([[[0, 0, idx.n]]], dtype=dtype, device=dev)
+    counts = [1]
+    for lv in range(14):
+        got = sparsedict.sdict_level(t, keys, vals, counts, 1, lv)
+        counts = same_level(got, sparsedict.sdict_level_plain(t, keys, vals, counts, 1, lv))
+        keys, vals = got[:2]
+
+
+@pytest.mark.parametrize("shift", RUN_SHIFTS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64], ids=["int32", "int64"])
+def test_run_shards_through_their_slices(dev, index, dtype, shift):
+    """3b over each of 4 shards' slices of the run index, and the fused
+    step through runs (both positions' lookups together) for 40
+    iterations, equal their plain versions, full entries included; 3b
+    gives zeros for the positions another shard owns."""
+    idx, lines = index
+    S = 4
+    t = at_run_shift(sharding.pad_rindex_tables(idx, S, device="cpu", dtype=dtype), shift)
+    on_card = sharding.virtual_shards(t, S, dev)
+    on_cpu = sharding.virtual_shards(t, S, "cpu")
+    pos = shard_positions(idx, t, S, dtype, dev)
+    for a, b in zip(on_card.shards, on_cpu.shards):
+        assert a.shift == t.run_shift
+        got = a.rank6(pos)
+        assert torch.equal(got.cpu(), b.rank6(pos.cpu()))
+        mine = (pos >= a.lo) & (pos < a.upper)
+        assert not bool(got[~mine].any())
+    assert torch.equal(on_card(pos).cpu().long(), rank.rank6(t, pos.cpu()).long())
+    c, n, _, padded, seeds = lockstep_inputs(dev, idx, lines, dtype, "both")
+    args = step_args(on_card, padded, n, seeds, c.shape[1])
+    cargs = step_args(on_card, padded, n, seeds, c.shape[1], "cpu")
+    B = c.shape[0]
+    st = mems.step_state(B, 8, dtype, dev)
+    ranks = torch.zeros((2 * B, 6), dtype=dtype, device=dev)
+    for it in range(40):
+        ref, ref_ranks = mems.StepState(*(f.cpu() for f in st)), ranks.cpu()
+        mems.mem_step_fused(st, ranks, on_card.shards, *args, apply=it > 0)
+        mems.mem_step_fused_plain(ref, ref_ranks, on_cpu.shards, *cargs, apply=it > 0)
+        for f, a, b in zip(st._fields, st, ref):
+            assert torch.equal(a.cpu(), b), (it, f)
+        assert torch.equal(ranks.cpu(), ref_ranks), it

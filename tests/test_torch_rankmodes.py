@@ -299,20 +299,20 @@ def test_tables_from_numpy_carries_the_mode(index, mode, width):
 
 def test_kernel_tables_refuse_what_the_kernels_cannot_take(index):
     """The checks before a launch (the same on any device): ultra rows at
-    int64 positions, a bucket_lo of another dtype than run_start, bucketed
-    tables without the whole cum table, base tables."""
+    int64 positions, run records of another dtype than run_start, bucketed
+    tables without a record of every run, base tables."""
     idx, _ = index
     with pytest.raises(ValueError, match="ultra rows take int32"):
         fmd.check_kernel_tables(port_tables(idx, "ultra", "int64"))
     t = port_tables(idx, "bucketed", "int32")
     fmd.check_kernel_tables(t)
-    t.bucket_lo = t.bucket_lo.long()
-    with pytest.raises(ValueError, match="bucket_lo is torch.int64"):
+    t.run_rec = t.run_rec.long()
+    with pytest.raises(ValueError, match="run_rec: expected torch.int32"):
         fmd.check_kernel_tables(t)
     t = port_tables(idx, "bucketed", "int64")
     fmd.check_kernel_tables(t)
-    t.cum = t.cum[:1]
-    with pytest.raises(ValueError, match="cum"):
+    t.run_rec = t.run_rec[:1]
+    with pytest.raises(ValueError, match="records"):
         fmd.check_kernel_tables(t)
     with pytest.raises(ValueError, match="neither"):
         fmd.check_kernel_tables(rindex_to_device(idx, "cpu"))
@@ -327,7 +327,7 @@ def test_rank_table_guard(index, mode, width):
     check_rank_tables(t, mode)
     if mode == "ultra":
         t.rank_table[int(idx.run_start[8]), 0] += 1
-    else:  # the bucket of run 9's head sends it past its run
-        t.bucket_lo[int(idx.run_start[9]) >> 6] = 10
+    else:  # the run index entry of run 9's head sends it past its run
+        t.run_index[int(idx.run_start[9]) >> t.run_shift, 0] += 1
     with pytest.raises(ValueError, match="disagree"):
         check_rank_tables(t, mode)
