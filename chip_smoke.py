@@ -9,12 +9,12 @@ launch count set to 0 just before a path and read just after it:
 1. serving (serve.prepare/run): the bench workload - a 20 Mbp synthetic
    pangenome (8 haplotypes), 16384 reads of 150 bp with 1% errors, min_len
    20, min_occ 1, m=14 seed table, s=19 long-seed dictionary, MEM capacity
-   8, tag capacity 8 - through the checkpoint-rank and the dense-rank
-   configurations (one path), then the ultra-rank and the bucketed-rank
-   ones (a path each), each building the dictionary on the card (no cache
-   holds it), checked against the native C++ engine; the seed table and
-   the dictionary built through each new provider equal the checkpoint
-   builds element for element;
+   8, tag capacity 8 - through the checkpoint-rank configuration (serve),
+   then the dense-rank (serve-dense: its table check is K1's two kernels),
+   the ultra-rank and the bucketed-rank ones, a path each, each building
+   the dictionary on the card (no cache holds it), checked against the
+   native C++ engine; the seed table and the dictionary built through each
+   new provider equal the checkpoint builds element for element;
 2. the gather-rate probe (gather_probe.sweep): random 64-byte row gathers
    from a [312500, 16] int32 table, independent and as dependent chains;
 3. the find-mems and query-tags commands (cli.main) on the bench index
@@ -31,14 +31,15 @@ launch count set to 0 just before a path and read just after it:
 4. the tag search (tagquery.tag_upper_bound): the descent of the tag search
    tree that K4 and K6 search with, alone, against torch.searchsorted at
    every run head of the bench index, its neighbours, the ends of the int32
-   range and a million random values;
+   range and a million random values; count-dense: K7 (count.count) through
+   dense records on the query-tags reads, equal to the checkpoint rows';
 5. the long-seed dictionary (sparsedict.build_sparse_dict_device, the
    build-sdict command): s=19 at the bench index on the card, through both
    rank providers, equal element for element to the port's host build
    (whose seconds are printed beside the card's); every level's kernel
-   against its plain version, through checkpoint rows, ultra rows and
-   bucketed runs; s=31 and min_keep=2 on a small synthetic index through
-   all four providers; the command's file loaded back and compared;
+   against its plain version, through checkpoint rows, dense records, ultra
+   rows and bucketed runs; s=31 and min_keep=2 on a small synthetic index
+   through all four providers; the command's file loaded back and compared;
 6. locate (locate.locate_batch, K8) on the bench index: the intervals of
    the first 65536 MEMs the serving run buffered and 32768 random ones (at
    run heads and mid-run, sizes 1 to 200), capacity 64, against its plain
@@ -116,13 +117,18 @@ launch count set to 0 just before a path and read just after it:
 The m-mer seed table (mertable.build_mer_table_device: the level kernel of
 csrc/mertable.cu, one thread per parent, the last launch two levels deep
 but through int64 bucketed runs) is held against the host build at m=8 and against its plain version on the
-card at m=14 on the bench index (checkpoint rows, ultra rows, bucketed
-runs) and at m=13 on the k-copy index (int64 two-level rows and int64
-bucketed runs), its launches counted by the wrapper, its device time beside
+card at m=14 on the bench index (checkpoint rows, dense records, ultra
+rows, bucketed runs) and at m=13 on the k-copy index (int64 two-level rows
+and int64 bucketed runs), its launches counted by the wrapper, its device time beside
 the least bytes the build must move and beside the other schedule of the
 same kernel (the last launch two levels deep, or one through bucketed
 runs).
 
+The dense rank6 kernel (csrc/dense_rank.cu, through the lines of
+ops/tables.py:derive_dense_lines) is held against its plain version (which
+reads pos_to_run) on 32768 and on 4,194,304 positions, and the row gather
+on 32768 rows and on every record; K2, K3 (the last 512 reads, and all
+16384 by events), K7 and both levels through dense records likewise.
 The ultra and bucketed rank6 kernels (csrc/rankmodes.cu) are held against
 their plain versions on 32768 positions (0, n and n + 1 among them), at
 int32 on the bench index and at int64 on the k-copy index, and K2, K3 and
@@ -172,6 +178,7 @@ from types import SimpleNamespace
 REPO = os.path.dirname(os.path.abspath(__file__))
 TAG_CAP = 8       # tag capacity of the serving path
 N_LANES = 32768   # K1/K2 comparison batch
+N_RANK6_BIG = 1 << 22  # rank6_dense timed again past the launch floor
 N_K3 = 512        # K3 comparison: the first and the last reads
 N_RANK = 32768    # rank6 through the bit-plane table against the checkpoint rows
 N_SEARCH_RANDOM = 1 << 20  # random values of the tag search check
@@ -185,8 +192,17 @@ SMALL_INDEX = (20_000, 4, 2)  # base length, haplotypes, seed: the s=31 build
 #: whose launch count the kernels line reports; None: K2, which no path
 #: launches since the seed table is built by its own kernel)
 SOURCES = {
-    "gather_rows": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:39", "serve"),
-    "rank6_dense": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:70", "serve"),
+    "gather_rows": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:39",
+                    "serve-dense"),
+    "rank6_dense": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:70",
+                    "serve-dense"),
+    # K1 again at the shapes where the launch is not all of its time: every
+    # record of the bench index (the dense table check's gather), and
+    # 4,194,304 positions
+    "gather_rows_runs": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:39",
+                         "serve-dense", "gather_rows"),
+    "rank6_dense_4m": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:70",
+                       "serve-dense", "rank6_dense"),
     "extend": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
     "mer_level": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84", "serve"),
     "resolve_seeds": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:87", "serve"),
@@ -242,6 +258,18 @@ SOURCES = {
                           "serve-2g", "sdict_level"),
     "locate_batch_int64": ("csrc/locate.cu", "pangenome_index_tpu/ops/locate.py:29",
                            "serve-2g", "locate_batch"),
+    # the dense provider (rank6_pallas's, through the lines) inside the chain
+    # kernels, on the dense configuration's serving path; K7 on a path of
+    # its own (count through dense tables)
+    "extend_dense": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
+    "find_mems_dense": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43", "serve-dense",
+                        "find_mems"),
+    "count_dense": ("csrc/count.cu", "pangenome_index_tpu/ops/rank.py:196", "count-dense",
+                    "count"),
+    "sdict_level_dense": ("csrc/sparsedict.cu", "pangenome_index_tpu/ops/sparsedict.py:100",
+                          "serve-dense", "sdict_level"),
+    "mer_level_dense": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84",
+                        "serve-dense", "mer_level"),
     # the ultra and bucketed rank providers (the XLA rank6 forms
     # ops/rank.py:165 through rank_table, ops/rank.py:22 + :173 through
     # bucket_lo and cum), alone and inside the chain kernels, each on the
@@ -281,11 +309,15 @@ SOURCES = {
 #: integer arithmetic too)
 PEAK_BYTES_S, PEAK_OPS_S = 3.35e12, 67e12
 #: kernels each path must launch (serve and find-mems: seed table and
-#: dictionary not cached; gather_rows and rank6_dense: the dense-rank
-#: configuration's table check)
+#: dictionary not cached; serve through checkpoint rows, serve-dense through
+#: dense records, where gather_rows and rank6_dense are the table check)
 PATH_KERNELS = {
-    "serve": ("gather_rows", "rank6_dense", "mer_level", "resolve_seeds", "find_mems",
-              "query_mem_tags", "sdict_level"),
+    "serve": ("mer_level", "resolve_seeds", "find_mems", "query_mem_tags", "sdict_level"),
+    "serve-dense": ("gather_rows", "rank6_dense", "mer_level", "resolve_seeds", "find_mems",
+                    "query_mem_tags", "sdict_level"),
+    # the backward search through dense records (query-tags ranks through
+    # checkpoint rows, as the reference does)
+    "count-dense": ("count",),
     "probe": ("row_gather", "gather_chain"),
     "find-mems": ("mer_level", "resolve_seeds", "find_mems", "query_tags_batch",
                   "sdict_level"),
@@ -1443,11 +1475,41 @@ def main() -> int:
             nbytes=N_LANES * (4 + 32) + gathered(N_LANES * 32, t_dn.rec),
             ops=N_LANES * 8,
             library=lambda: torch.index_select(t_dn.rec, 0, rows_l))
+    # rank6 through the lines: the bound counts the function's own bytes (a
+    # run id of pos_to_run and a 32-byte record a position, as
+    # rank6_pallas reads them), the design's bytes read a 16-byte line in
+    # place of the run id
+    def dense_design(p):
+        n = p.numel()
+        return (n * (4 + 24) + gathered(n * 16, t_dn.dense_lines)
+                + gathered(n * 32, t_dn.rec))
+
     compare("rank6_dense",
-            lambda: dense_rank.rank6_dense(t_dn.rec, t_dn.pos_to_run, pos),
+            lambda: dense_rank.rank6_dense(t_dn, pos),
             lambda: dense_rank.rank6_dense_plain(t_dn.rec, t_dn.pos_to_run, pos),
-            nbytes=N_LANES * (4 + 24) + gathered(N_LANES * 4, t_dn.pos_to_run)
-            + gathered(N_LANES * 32, t_dn.rec), ops=N_LANES * 16, chain=2)
+            nbytes=N_LANES * (4 + 24) + rank_reads(t_dn, pos)[0], ops=N_LANES * 16,
+            chain=2, design=dense_design(pos))
+    # K1 at shapes past the launch floor: 4,194,304 positions (every p & 63
+    # of 0 and 63 of the first lines among them), and the gather of every
+    # record, the dense table check's
+    pos4m = T(np.concatenate((np.arange(0, 64 * 4096, 64), np.arange(63, 64 * 4096, 64),
+                              np.random.default_rng(71).integers(
+                                  0, idx.n + 2, N_RANK6_BIG - 2 * 4096)))
+              .astype(np.int32))
+    compare("rank6_dense_4m",
+            lambda: dense_rank.rank6_dense(t_dn, pos4m),
+            lambda: dense_rank.rank6_dense_plain(t_dn.rec, t_dn.pos_to_run, pos4m),
+            nbytes=N_RANK6_BIG * (4 + 24) + rank_reads(t_dn, pos4m)[0],
+            ops=N_RANK6_BIG * 16, chain=2, design=dense_design(pos4m))
+    del pos4m
+    runs = torch.arange(idx.n_runs, dtype=torch.int32, device=dev)
+    runs_l = runs.long()
+    compare("gather_rows_runs", lambda: dense_rank.gather_rows(t_dn.rec, runs),
+            lambda: dense_rank.gather_rows_plain(t_dn.rec, runs),
+            nbytes=idx.n_runs * (4 + 32) + gathered(idx.n_runs * 32, t_dn.rec),
+            ops=idx.n_runs * 8,
+            library=lambda: torch.index_select(t_dn.rec, 0, runs_l))
+    del runs, runs_l
     k = rng.integers(0, idx.n, N_LANES)
     lanes = [T(a.astype(np.int32)) for a in (
         k, rng.integers(0, idx.n, N_LANES),
@@ -1481,7 +1543,10 @@ def main() -> int:
         f"{t_bk.bucket_lo.numel() * 4} + run_start {t_bk.run_start.numel() * 4} + run_sym "
         f"{t_bk.run_sym.numel()} + cum {t_bk.cum.numel() * 4} bytes (the JAX fields), and "
         f"the run index {t_bk.run_index.numel() * 4} + records {t_bk.run_rec.numel() * 4} "
-        f"bytes the kernels read {card}")
+        f"bytes the kernels read; dense pos_to_run {t_dn.pos_to_run.numel() * 4} + rec "
+        f"{t_dn.rec.numel() * 4} bytes (the JAX fields), and the lines "
+        f"{t_dn.dense_lines.numel() * 4} bytes the kernels read in place of pos_to_run "
+        f"{card}")
     rpos6 = T(np.concatenate((rng.integers(0, idx.n + 2, N_LANES - 3),
                               [0, idx.n, idx.n + 1])).astype(np.int32))
     rpos6_l = rpos6.long()
@@ -1498,7 +1563,7 @@ def main() -> int:
         t_bk.run_index, 0, t_bk.run_shift, t_bk.run_start, t_bk.run_rec, rpos6)
     log(f"run index of the bench index: {kernels['rank6_bucketed']['run_index']} "
         f"(the lookups: rank6_bucketed's {N_LANES} positions)")
-    for t, what in ((t_ul, "ultra"), (t_bk, "bucketed")):
+    for t, what in ((t_dn, "dense"), (t_ul, "ultra"), (t_bk, "bucketed")):
         # per lane: k, kp, s, code and the direction in, 3 out, and the rank
         # reads of both ends
         ext_bytes, ext_chain = rank_reads(t, torch.cat((lanes[0], lanes[0] + lanes[2])))
@@ -1684,8 +1749,10 @@ def main() -> int:
             f"{card}")
 
     hold_levels(t_ck, "sdict_level", host_keys, host_vals)
+    hold_levels(t_dn, "sdict_level_dense", host_keys, host_vals)
     hold_levels(t_ul, "sdict_level_ultra", host_keys, host_vals)
     hold_levels(t_bk, "sdict_level_bucketed", host_keys, host_vals)
+    seed_table_ms(t_dn, MER_M, "mer_level_dense")
     seed_table_ms(t_ul, MER_M, "mer_level_ultra")
     seed_table_ms(t_bk, MER_M, "mer_level_bucketed")
     # s=31 (a key's last two bits) and min_keep=2 on a small index, every provider
@@ -1721,10 +1788,13 @@ def main() -> int:
                            repeats=REPEATS)
 
     serve_config("checkpoint", sdict_path)
-    serve_config("dense")
     read_launches("serve")
-    check(launches["serve"]["sdict_level"] == 2 * SDICT_S,
-          "serving did not build the dictionary on the card in both configurations")
+    port.reset_launches()
+    serve_config("dense")
+    read_launches("serve-dense")
+    for path in ("serve", "serve-dense"):
+        check(launches[path]["sdict_level"] == SDICT_S,
+              f"the {path} path did not build the dictionary on the card")
     check(results["checkpoint"].dict_entries == len(host_keys),
           "serving's dictionary differs from the host build")
     # the ultra and bucketed configurations, each a path of its own: the
@@ -1921,10 +1991,10 @@ def main() -> int:
                 + n * (3 * MEM_CAP * 4 + 8))
 
     # reads in input order: both ends hold easy reads and long chains; the
-    # last ones' are recorded for each rank provider but dense
+    # last ones' are recorded for each rank provider
     ends = {"first": slice(0, N_K3), "last": slice(N_READS - N_K3, N_READS)}
-    k3_names = {"checkpoint": "find_mems", "ultra": "find_mems_ultra",
-                "bucketed": "find_mems_bucketed"}
+    k3_names = {"checkpoint": "find_mems", "dense": "find_mems_dense",
+                "ultra": "find_mems_ultra", "bucketed": "find_mems_bucketed"}
     for cfg, bt in batches.items():
         for which, sel in ends.items():
             rec = which == "last" and cfg in k3_names
@@ -2017,9 +2087,9 @@ def main() -> int:
         f"per dependent step; bound by bytes {k3_bound:.5f} ms; the "
         f"seed-resolving pass before it {seeds_ms:.4f} ms (device) {card}")
 
-    # K3 on the whole batch through the ultra and bucketed providers: the
-    # same reads and seeds, the same steps
-    for cfg in ("ultra", "bucketed"):
+    # K3 on the whole batch through the dense, ultra and bucketed providers:
+    # the same reads and seeds, the same steps
+    for cfg in ("dense", "ultra", "bucketed"):
         ms_c, _, out_c = k3_ms_of(lambda: k3(mems.find_mems, k3_inputs(batches[cfg],
                                                                       slice(None))))
         check(max_abs_err(out_c, k3_out) == 0, f"K3 through {cfg} rank differs from "
@@ -2411,9 +2481,20 @@ def main() -> int:
             nbytes=qc.numel() * 4 + len(qlens) * 12
             + gathered(q_steps * 128, t_ck.ckpt_planes),
             ops=q_steps * 60, chain=int(qlens.max()))
+    # K7 through dense records, a path of its own: the same reads, the same
+    # answers; per step the rank reads of both ends (a run id and a record
+    # each, the function's own), the chain two loads a step
     t_dn = rindex_to_device(idx, dev, dense=True)
-    compare("count (dense rank)", lambda: count.count(t_dn, qc, ql),
-            lambda: count.count_plain(t_dn, qc, ql), record=False)
+    port.reset_launches()
+    check(max_abs_err(count.count(t_dn, qc, ql), found) == 0,
+          "count through dense records differs from checkpoint rows")
+    read_launches("count-dense")
+    compare("count_dense", lambda: count.count(t_dn, qc, ql),
+            lambda: count.count_plain(t_dn, qc, ql), plain_reps=1,
+            nbytes=qc.numel() * 4 + len(qlens) * 12
+            + gathered(q_steps * step_reads(t_dn)[0], *rank_tables(t_dn)),
+            ops=q_steps * 60, chain=int(qlens.max()) * step_reads(t_dn)[1])
+    del t_dn
     check(max_abs_err(count.count(t64, qc, ql), found) == 0,
           "count through int64 tables differs from int32")
     same_index["count"] = (kernels["count"]["ms"],

@@ -1,7 +1,8 @@
-"""Device times of the kernels that rank through bucketed runs and through a
-model shard's runs, at chip_smoke.py's shapes, through the port of the
-checkout at --root (default: the one holding this file); one JSON line on
-stdout.
+"""Device times of the kernels that rank through dense records, through
+bucketed runs and through a model shard's runs (and of K3 and K7 through
+checkpoint rows beside them), at chip_smoke.py's shapes, through the port
+of the checkout at --root (default: the one holding this file); one JSON
+line on stdout.
 
     python3 pangenome_index_tpu_torch/ab_probe.py [--root DIR] [--cache DIR]
 
@@ -11,9 +12,18 @@ change, change, parent. Each run builds its checkout's kernels; the bench
 index is cached under --cache (default: .bench_cache of this checkout) and
 shared. Card only: it exits 1 where there is no CUDA device. It uses only
 entry points both checkouts have (serve.prepare, mems.find_mems,
-sharding.pad_rindex_tables and virtual_shards, a shard's rank6,
-mems.mem_step_fused and find_mems_lockstep).
+count.count, sparsedict.build_sparse_dict_device,
+mertable.build_mer_table_device, sharding.pad_rindex_tables and
+virtual_shards, a shard's rank6, mems.mem_step_fused and
+find_mems_lockstep).
 
+  * through dense records and through checkpoint rows (serve.prepare's
+    rank_mode "dense" and "checkpoint"): K3 on all 16384 bench reads with
+    the serving path's seed tiers, K7 (count.count) on chip_smoke.py's
+    query-tags reads (16384 exact reads, then the first 1024 bench reads),
+    and the dictionary's and the seed table's level kernels over whole
+    s=19 and m=14 builds, each by CUDA events around each launch, the
+    mean of three calls;
   * K3 (find_mems) through bucketed runs on all 16384 bench reads with the
     serving path's seed tiers (m=14 seed table, s=19 dictionary), int32 on
     the bench index and int64 on the k-copy index past 2^31
@@ -31,8 +41,8 @@ mems.mem_step_fused and find_mems_lockstep).
     table build (mertable.build_mer_table_device, mer_level; m=14 and 13)
     by CUDA events around each launch, the mean of three builds, with
     their launches a build;
-  * the registers ptxas gave each kernel instantiated on BucketRank (the
-    checkout's build log).
+  * the registers ptxas gave each kernel instantiated on DenseRank or
+    BucketRank (the checkout's build log), by provider.
 
 Beside each time, a digest of the call's output (its values weighted by
 their index, summed), which must be the same for every checkout.
@@ -67,23 +77,30 @@ def main(argv=None) -> int:
         return 1
     import chip_smoke
     from pangenome_index_tpu_torch import _build, gather_probe
+    from pangenome_index_tpu_torch.cli import pack_reads
     from pangenome_index_tpu_torch.mems_probe import (MEM_CAP, MER_M, MIN_LEN, MIN_OCC,
-                                                      SDICT_S, bench_workload, launch_ms)
-    from pangenome_index_tpu_torch.ops import mems, mertable, sparsedict
+                                                      N_READS, READ_LEN, SDICT_S,
+                                                      bench_workload, launch_ms)
+    from pangenome_index_tpu_torch.ops import count, mems, mertable, sparsedict
+    from pangenome_index_tpu_torch.utils.synth import synth_reads
     from pangenome_index_tpu_torch.parallel import sharding
     from pangenome_index_tpu_torch.serve import prepare
 
     dev = torch.device("cuda", 0)
     _build.lib()
-    out = {"root": root, "card": gather_probe.card_name(dev), "bucket_rank_registers": {}}
+    providers = ("DenseRank", "BucketRank")
+    out = {"root": root, "card": gather_probe.card_name(dev),
+           "registers": {p: {} for p in providers}}
     entry = ""
     for line in _build.build_log().splitlines():
         found = re.search(r"Compiling entry function '([^']+)'", line)
         if found:  # the mangled kernel name, its provider included
             entry = found.group(1)
-        elif "BucketRank" in entry and (used := re.search(r"Used (\d+) registers", line)):
-            out["bucket_rank_registers"][entry] = int(used.group(1))
-    idx, _, _, codes, lens, tags, _ = bench_workload(args.cache)
+        elif used := re.search(r"Used (\d+) registers", line):
+            for p in providers:
+                if p in entry:
+                    out["registers"][p][entry] = int(used.group(1))
+    idx, lines, reads, codes, lens, tags, _ = bench_workload(args.cache)
 
     def digest(x):
         x = x.reshape(-1).long()
@@ -109,6 +126,20 @@ def main(argv=None) -> int:
             out[f"{kernel}_{name}_ms"], out[f"{kernel}_{name}_launches"] = spent[kernel]
             res = res if isinstance(res, tuple) else (res,)
             out[f"{kernel}_{name}_digest"] = sum(digest(f) for f in res)
+
+    # K3, K7 and both levels through dense records and checkpoint rows
+    qcodes, qlens = (torch.from_numpy(a).to(dev) for a in pack_reads(
+        synth_reads(lines, N_READS, READ_LEN, error_rate=0.0, seed=2) + reads[:1024]))
+    for mode in ("dense", "checkpoint"):
+        bt = prepare(idx, tags, codes, lens, dev, rank_mode=mode, min_occ=MIN_OCC,
+                     mer_m=MER_M, sdict_s=SDICT_S)
+        k3(f"find_mems_{mode}", bt)
+        spent, res = launch_ms(lambda: count.count(bt.tables, qcodes, qlens), "pgt_count")
+        out[f"count_{mode}_ms"] = spent["pgt_count"][0]
+        out[f"count_{mode}_digest"] = sum(digest(f) for f in res)
+        levels(mode, idx.n, bt, MER_M)
+        del bt, res
+    del qcodes, qlens
 
     bt = prepare(idx, tags, codes, lens, dev, rank_mode="bucketed", min_occ=MIN_OCC,
                  mer_m=MER_M, sdict_s=SDICT_S)

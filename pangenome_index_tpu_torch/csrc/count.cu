@@ -185,13 +185,14 @@ int pgt_count_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
                 stream);
 }
 
-// dense tables: pos_to_run [n_p2r] int32, rec [n_runs, 8] int32
-int pgt_count_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+// dense tables: the lines [n_lines, 4] int32 (rank.cuh:DenseRank), rec
+// [n_runs, 8] int32
+int pgt_count_dense(const int* lines, int64_t n_lines, const int* rec,
                     int64_t n_runs, const int* C, const int* codes,
                     int64_t width, const int* lengths, int64_t n_reads, int n,
                     int* first, int* second, void* stream) {
-  pgt::DenseRank rk{
-      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
+                    reinterpret_cast<const int4*>(rec), n_runs};
   return launch(rk, C, codes, width, lengths, n_reads, n, first, second,
                 stream);
 }

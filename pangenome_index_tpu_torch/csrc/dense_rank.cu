@@ -5,15 +5,18 @@
 // On the TPU the gather moved aligned 8-row windows by DMA because a grid
 // step could only fetch whole blocks; here every thread loads exactly the
 // row it needs, so the alignment and the 8x over-fetch are gone and any
-// batch size is taken. Both kernels are a single dependent random load per
-// row, bound by load latency: the design keeps one row per thread (rank6) or
-// one element per thread (gather, so neighbouring threads read neighbouring
-// words of a row and the stores coalesce), and launches enough threads to
-// keep many loads in flight on every SM.
+// batch size is taken. gather_rows is a single random load per row element
+// (neighbouring threads read neighbouring words of a row, so the stores
+// coalesce). rank6_pallas read the run id from pos_to_run (4 bytes a
+// position: 80 MB on a 20 Mbp index, past L2) and then the record; here
+// rank6_dense reads the position's 16-byte line instead (ops/tables.py:
+// derive_dense_lines, 5 MB there, which stays in L2), then the record: one
+// load that hits L2 and one that misses, a position a thread.
 //
 // rank6_dense runs pgt::DenseRank::rank6 from rank.cuh, the same device
-// function find_mems (mems.cu) and extend (fmd.cu) instantiate for dense
-// tables, so holding this kernel against its plain version holds theirs.
+// function K2 (fmd.cu), K3 (mems.cu), K7 (count.cu) and the levels
+// (sparsedict.cu, mertable.cu) instantiate for dense tables, so holding this
+// kernel against its plain version holds theirs.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -69,13 +72,14 @@ int pgt_gather_rows(const int* rec, int64_t n_rows, int width, const int* idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-// out[i, :] = dense rank6(pos[i]) over pos_to_run [n_p2r] and rec [n_runs, 8]
-int pgt_rank6_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+// out[i, :] = dense rank6(pos[i]) through the lines [n_lines, 4] int32 and
+// rec [n_runs, 8] int32 (rank.cuh:DenseRank)
+int pgt_rank6_dense(const int* lines, int64_t n_lines, const int* rec,
                     int64_t n_runs, const int* pos, int64_t n, int* out,
                     void* stream) {
   if (n > 0) {
-    pgt::DenseRank rk{
-        {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+    pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
+                      reinterpret_cast<const int4*>(rec), n_runs};
     rank6_dense_kernel<<<blocks_for(n), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(rk, pos, n, out);
   }

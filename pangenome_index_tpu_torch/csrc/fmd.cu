@@ -85,13 +85,14 @@ int pgt_extend_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 
-// dense tables: pos_to_run [n_p2r] int32, rec [n_runs, 8] int32
-int pgt_extend_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+// dense tables: the lines [n_lines, 4] int32 (rank.cuh:DenseRank), rec
+// [n_runs, 8] int32
+int pgt_extend_dense(const int* lines, int64_t n_lines, const int* rec,
                      int64_t n_runs, const int* C, const int* k, const int* kp,
                      const int* s, const int* code, const uint8_t* forward,
                      int64_t n, int* ok, int* okp, int* os, void* stream) {
-  pgt::DenseRank rk{
-      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
+                    reinterpret_cast<const int4*>(rec), n_runs};
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 

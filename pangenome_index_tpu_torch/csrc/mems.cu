@@ -380,15 +380,15 @@ int pgt_find_mems_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
                 m_se, m_bwt, m_size, count, steps, stream);
 }
 
-int pgt_find_mems_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+int pgt_find_mems_dense(const int* lines, int64_t n_lines, const int* rec,
                         int64_t n_runs, const int* C, const int8_t* codes,
                         const int* lengths, const int* seeds, int n_reads,
                         int width, int code_stride, int min_len, int min_occ,
                         int N, int M, int64_t max_iters, int* m_se,
                         int* m_bwt, int* m_size, int* count, int* steps,
                         void* stream) {
-  pgt::DenseRank rk{
-      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
+                    reinterpret_cast<const int4*>(rec), n_runs};
   return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
                 n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
                 m_se, m_bwt, m_size, count, steps, stream);

@@ -151,11 +151,11 @@ int pgt_mer_level_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
   return launch(rk, C, parents, n_parents, v, depth, out, stream);
 }
 
-int pgt_mer_level_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+int pgt_mer_level_dense(const int* lines, int64_t n_lines, const int* rec,
                         int64_t n_runs, const int* C, const int* parents,
                         int64_t n_parents, int v, int depth, int* out, void* stream) {
-  pgt::DenseRank rk{
-      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
+                    reinterpret_cast<const int4*>(rec), n_runs};
   return launch(rk, C, parents, n_parents, v, depth, out, stream);
 }
 

@@ -17,9 +17,10 @@
 // loads and decodes that row once.
 //
 // Checkpoint rows serve any n: int32 positions below 2^31, int64 positions
-// over two-level rows past it (CkptRank<P>). Dense records and ultra rows
-// are int32 only; bucketed runs serve both (BucketRank<P>, through the run
-// index RunIndex<P>, which a model shard's runs also read: shard.cuh).
+// over two-level rows past it (CkptRank<P>). Dense records (through their
+// lines) and ultra rows are int32 only; bucketed runs serve both
+// (BucketRank<P>, through the run index RunIndex<P>, which a model shard's
+// runs also read: shard.cuh).
 #pragma once
 
 #include <cstdint>
@@ -361,23 +362,60 @@ struct Rank6Provider {
   }
 };
 
-// Dense records: pos_to_run [n+2] int32 and rec [r, 8] int32 rows
-// (start, sym, cum0..cum5). One run-id load, then one 32-byte record as two
-// 16-byte loads; rank6 = cum + onehot(sym) * (pos - start).
+// Dense records (the Pallas rank6_pallas: rec[j, 2:8] + onehot(rec[j, 1]) *
+// (pos - rec[j, 0]), j = pos_to_run[pos]) through the lines of
+// ops/tables.py:derive_dense_lines: one aligned 16-byte line for each 64
+// positions from B = 64 i, (j0 = pos_to_run[B], a 64-bit mask of the run
+// heads at B + 1 .. B + 63, a spare word), so that the run of p is j0 +
+// popc(mask & ((2 << (p & 63)) - 1)). The lines take n/4 bytes (5 MB on a
+// 20 Mbp index), which L2 (50 MB) holds, where pos_to_run takes 4n; a
+// vector is the line, from L2, then the run's 32-byte record rec [r, 8]
+// int32 (start, sym, cum0..cum5) as two 16-byte loads. A position is
+// clamped into the lines (into 0 .. n + 1: the mask is clear past the last
+// entry) and a run id into the records, as the JAX gathers clamp.
 struct DenseRank : Rank6Provider<DenseRank, int> {
-  const int* pos_to_run;
-  int64_t n_p2r;
-  const int4* rec;  // [r, 8] viewed as [r, 2] int4
+  const int4* lines;  // [n_lines] (j0, mask low word, mask high word, spare)
+  int64_t n_lines;
+  const int4* rec;    // [r, 8] viewed as [r, 2] int4
   int64_t n_runs;
 
-  __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
-    const int64_t p = clamp64(pos, 0, n_p2r - 1);
-    const int64_t j = clamp64(__ldg(pos_to_run + p), 0, n_runs - 1);
+  // p's line; p is clamped into the lines' positions
+  __device__ __forceinline__ int4 line(int pos, int& k) const {
+    const int64_t p = clamp64(pos, 0, 64 * n_lines - 1);
+    k = static_cast<int>(p & 63);
+    return __ldg(lines + (p >> 6));
+  }
+
+  // the run of the position at k of line e, clamped into the records
+  __device__ __forceinline__ int64_t run(const int4& e, int k) const {
+    const uint64_t mask = u64(e.y, e.z) & (~0ull >> (63 - k));
+    return clamp64(static_cast<int64_t>(e.x) + __popcll(mask), 0, n_runs - 1);
+  }
+
+  // rank6 at pos from the record of run j: cum + onehot(sym) * (pos - start)
+  __device__ __forceinline__ void rank6_at(int pos, int64_t j, int (&r)[6]) const {
     const int4 a = __ldg(rec + 2 * j), b = __ldg(rec + 2 * j + 1);
     const int extra = pos - a.x;
     r[0] = a.z; r[1] = a.w; r[2] = b.x; r[3] = b.y; r[4] = b.z; r[5] = b.w;
 #pragma unroll
     for (int c = 0; c < 6; ++c) r[c] += (a.y == c) ? extra : 0;
+  }
+
+  __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
+    int k;
+    const int4 e = line(pos, k);
+    rank6_at(pos, run(e, k), r);
+  }
+
+  // both positions' lines, then both records: two round trips a pair
+  __device__ __forceinline__ Rank6Pair<int> load(int pos, int s) const {
+    const int p2 = pos + s;
+    int k1, k2;
+    const int4 e1 = line(pos, k1), e2 = line(p2, k2);
+    Rank6Pair<int> r;
+    rank6_at(pos, run(e1, k1), r.a);
+    rank6_at(p2, run(e2, k2), r.b);
+    return r;
   }
 };
 

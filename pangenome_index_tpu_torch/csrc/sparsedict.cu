@@ -356,15 +356,15 @@ int pgt_sdict_level_ckpt64(const int* ckpt, int64_t nrows,
 }
 
 // the same over dense tables
-int pgt_sdict_level_dense(const int* pos_to_run, int64_t n_p2r, const int* rec,
+int pgt_sdict_level_dense(const int* lines, int64_t n_lines, const int* rec,
                           int64_t n_runs, const int* C, const int64_t* keys_in,
                           const int* vals_in, int regions, int64_t stride,
                           int64_t c0, int64_t c1, int64_t c2, int64_t c3,
                           int thresh, int level, int64_t blocks, void* state,
                           int64_t* keys_out, int* vals_out, int* offsets,
                           int* totals, void* stream) {
-  pgt::DenseRank rk{
-      {}, pos_to_run, n_p2r, reinterpret_cast<const int4*>(rec), n_runs};
+  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
+                    reinterpret_cast<const int4*>(rec), n_runs};
   return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
                       thresh, level, blocks, state, keys_out, vals_out,
                       offsets, totals, stream);

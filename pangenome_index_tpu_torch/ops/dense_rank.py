@@ -3,7 +3,11 @@
 Counterparts of pangenome_index_tpu/ops/pallas_rank.py: gather_rows_pallas
 (rec[idx] by aligned 8-row DMA windows, so it needed B % 8 == 0) and
 rank6_pallas (dense rank6 on top of it). The kernels take any batch size.
-Row indices clamp into the table, as JAX gathers do.
+Row indices clamp into the table, as JAX gathers do. The rank kernel finds a
+position's run through the tables' dense lines (tables.derive_dense_lines),
+not pos_to_run; dense_run_of_plain is the plain reader of those lines, and
+rank6_dense_plain, the plain version, reads pos_to_run as the JAX function
+does.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its `launches` attribute; for CPU tensors it runs the plain version beside it.
@@ -14,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from .tables import DENSE_LINE, RIndexTables
 
 
 def gather_rows_plain(rec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -50,21 +55,47 @@ def rank6_dense_plain(rec: torch.Tensor, pos_to_run: torch.Tensor,
     return row[:, 2:8] + onehot.to(rec.dtype) * (pos.to(rec.dtype) - row[:, 0])[:, None]
 
 
-def rank6_dense(rec: torch.Tensor, pos_to_run: torch.Tensor,
-                pos: torch.Tensor) -> torch.Tensor:
-    """Dense rank6 of int32 positions over int32 tables ([B] -> [B, 6])."""
-    if rec.device.type == "cpu":
-        return rank6_dense_plain(rec, pos_to_run, pos)
-    dev = rec.device
-    if rec.dim() != 2 or rec.shape[1] != 8:
-        raise ValueError("rank6_dense: rec must be [runs, 8]")
-    out = torch.empty((pos.shape[0], 6), dtype=torch.int32, device=dev)
-    _build.launch("pgt_rank6_dense",
-                  _build.check("pos_to_run", pos_to_run, torch.int32, dev),
-                  pos_to_run.shape[0],
-                  _build.check("rec", rec, torch.int32, dev), rec.shape[0],
-                  _build.check("pos", pos, torch.int32, dev), pos.shape[0],
-                  out.data_ptr(), _build.stream(dev))
+def dense_run_of_plain(lines: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """The run of each position through the dense lines [L, 4] int32: j0 +
+    the heads of its line at or before it ([B] -> [B] int64), a position
+    clamped into the lines' 64 L positions (csrc/rank.cuh:DenseRank)."""
+    p = pos.long().clamp(0, DENSE_LINE * lines.shape[0] - 1)
+    e = lines[p >> 6].long()
+    mask = (e[:, 1] & 0xFFFFFFFF) | (e[:, 2] << 32)
+    k = torch.arange(DENSE_LINE, device=lines.device)
+    bits = (mask[:, None] >> k) & 1
+    return e[:, 0] + (bits * (k[None, :] <= (p & 63)[:, None])).sum(dim=1)
+
+
+def dense_args(t: RIndexTables) -> tuple:
+    """The dense provider's C arguments (dense_lines, lines, rec, runs): int32
+    lines and records, as the kernels take them (n < 2^31)."""
+    dev = t.device
+    if t.rec is None or t.pos_dtype != torch.int32:
+        raise ValueError("dense records take int32 positions (n < 2^31): past it the "
+                         "kernels rank through checkpoint rows or bucketed runs")
+    if t.dense_lines is None or t.dense_lines.dim() != 2 or t.dense_lines.shape[1] != 4 \
+            or not t.dense_lines.shape[0]:
+        raise ValueError("dense tables need their lines [L, 4] "
+                         "(ops/tables.py:with_dense_lines)")
+    if t.rec.dim() != 2 or t.rec.shape[1] != 8 or not t.rec.shape[0]:
+        raise ValueError("rec must be [runs, 8]")
+    return (_build.check("dense_lines", t.dense_lines, torch.int32, dev),
+            t.dense_lines.shape[0], _build.check("rec", t.rec, torch.int32, dev),
+            t.rec.shape[0])
+
+
+def rank6_dense(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
+    """Dense rank6 of int32 positions over int32 tables ([B] -> [B, 6]): one
+    launch through the lines and records on the card, the plain version
+    (pos_to_run, rec) on the CPU."""
+    if pos.device.type == "cpu":
+        return rank6_dense_plain(t.rec, t.pos_to_run, pos)
+    args = dense_args(t)
+    out = torch.empty((pos.shape[0], 6), dtype=torch.int32, device=t.device)
+    _build.launch("pgt_rank6_dense", *args,
+                  _build.check("pos", pos, torch.int32, t.device), pos.shape[0],
+                  out.data_ptr(), _build.stream(t.device))
     rank6_dense.launches += 1
     return out
 

@@ -19,6 +19,7 @@ import torch
 
 from .. import _build
 from ..utils.alphabet import COMP_CODE
+from .dense_rank import dense_args
 from .rank import bucket_args, ultra_args
 from .rank import rank6 as rank6_plain
 from .tables import MAX_SUPER, RIndexTables
@@ -78,10 +79,6 @@ def check_kernel_tables(t: RIndexTables) -> None:
             raise ValueError("tables carry neither checkpoint rows, ultra rows, "
                              "dense records nor bucket_lo: no rank table the "
                              "kernels read")
-        if t.rank_table is None and t.rec is not None and t.pos_dtype != torch.int32:
-            raise ValueError("dense records take int32 positions (n < 2^31): "
-                             "past it the kernels rank through checkpoint rows "
-                             "or bucketed runs")
         rank_args(t)  # checks the provider's tables
         return
     if t.ckpt_planes is None:
@@ -103,8 +100,8 @@ def check_kernel_tables(t: RIndexTables) -> None:
 def rank_args(t: RIndexTables) -> tuple[str, tuple]:
     """(entry point suffix, leading C arguments) of the table's rank
     provider, in ops/rank.py:rank6's order: "ckpt" (int32 positions),
-    "ckpt64" (int64 positions, with the superblock bases), "ultra", "dense",
-    "bucketed" (int32) or "bucketed64" (int64)."""
+    "ckpt64" (int64 positions, with the superblock bases), "ultra", "dense"
+    (the lines and records), "bucketed" (int32) or "bucketed64" (int64)."""
     dev = t.device
     if t.ckpt is not None:
         planes = (_build.check("ckpt_planes", t.ckpt_planes, torch.int32, dev),
@@ -116,10 +113,7 @@ def rank_args(t: RIndexTables) -> tuple[str, tuple]:
     if t.rank_table is not None:
         return "ultra", ultra_args(t)
     if t.rec is not None:
-        return "dense", (_build.check("pos_to_run", t.pos_to_run, torch.int32, dev),
-                         t.pos_to_run.shape[0],
-                         _build.check("rec", t.rec, torch.int32, dev),
-                         t.rec.shape[0])
+        return "dense", dense_args(t)
     if t.bucket_lo is None:
         raise ValueError("base tables (no bucket_lo): the kernels rank through "
                          "bucketed runs only")

@@ -6,10 +6,12 @@ field for field, so tables carry across between the two packages
 the four rank representations of the JAX package, and its kernels read each:
 checkpoint rows (the serving default: one 64-byte row per rank6 query;
 `ckpt` in the layout shared with the JAX package, `ckpt_planes` derived from
-it for the kernels), dense run records (a run id and one 32-byte record per
-query), ultra rows (`rank_table`, one 32-byte row of counts per position)
-and bucketed runs (`bucket_lo`, the run of each bucket of 2^BUCKET_SHIFT
-positions, beside the full per-run cum table; the kernels read the run index
+it for the kernels), dense run records (`pos_to_run`, the run of each
+position, and one 32-byte record a run; the kernels read the run from the
+lines derived from `pos_to_run`, `derive_dense_lines`: a 16-byte line for
+each 64 positions, then the record), ultra rows (`rank_table`, one 32-byte
+row of counts per position) and bucketed runs (`bucket_lo`, the run of each
+bucket of 2^BUCKET_SHIFT positions, beside the full per-run cum table; the kernels read the run index
 derived from them, `derive_run_index`: a 16-byte entry a bucket, then the
 run's record). Base tables (the cum table
 with no bucket index) serve the plain versions only. n, n_seq and max_len are host integers: every
@@ -76,6 +78,9 @@ class RIndexTables:
     pos_to_run: torch.Tensor | None = None  # dense: [n+2] run of each position
     rec: torch.Tensor | None = None         # dense: [r, 8] start, sym, cum0..5
     rank_table: torch.Tensor | None = None  # ultra: [n+2, 8] occ before each position
+    # dense: what the kernels read in place of pos_to_run (derive_dense_lines):
+    # [ceil((n+2) / 64), 4] int32, a 16-byte line for each 64 positions
+    dense_lines: torch.Tensor | None = None
     ckpt: torch.Tensor | None = None        # checkpoint: [n//64+2, 16] int32
     ckpt_planes: torch.Tensor | None = None  # the kernels' form of ckpt
     ckpt_super: torch.Tensor | None = None  # two-level: [n_super, 6+shift] int64
@@ -570,6 +575,70 @@ def derive_run_records(run_start: torch.Tensor, run_sym: torch.Tensor,
                       cum.to(run_start.dtype)), dim=1).contiguous()
 
 
+#: positions a dense line covers
+DENSE_LINE = 64
+#: dense lines derived at a time, which bounds the derivation's int64
+#: temporaries (a few KB a line)
+DENSE_CHUNK_LINES = 1 << 16
+
+
+def _wrap32(v: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 values as int32 (two's complement)."""
+    return (((v & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def derive_dense_lines(pos_to_run: torch.Tensor) -> torch.Tensor:
+    """The lines the kernels find a position's run through, on pos_to_run's
+    device: [ceil(m / 64), 4] int32 for the m = n + 2 entries of pos_to_run
+    (the two pads included), one aligned 16-byte line for each 64 positions
+    from B = 64 i:
+      word 0      j0 = pos_to_run[B]
+      words 1, 2  a 64-bit mask (low word first) whose bit k, 1 <= k <= 63,
+                  is set where pos_to_run[B + k] != pos_to_run[B + k - 1]
+                  (bit 0 and the bits past the last position are clear)
+      word 3      0 (spare)
+    so that pos_to_run[p] = j0 + popcount(mask & ((2 << (p & 63)) - 1))
+    (dense_run_of_plain; csrc/rank.cuh:DenseRank). Raises ValueError where a
+    step of pos_to_run is neither 0 nor 1 (the dense tables' construction,
+    a run id repeated over each run's positions, never makes one) or a run
+    id does not fit 32 bits."""
+    dev = pos_to_run.device
+    m = pos_to_run.shape[0]
+    n_lines = -(-m // DENSE_LINE)
+    out = torch.zeros((n_lines, 4), dtype=torch.int32, device=dev)
+    bit = torch.arange(32, dtype=torch.int64, device=dev)
+    for a in range(0, n_lines, DENSE_CHUNK_LINES):
+        b = min(a + DENSE_CHUNK_LINES, n_lines)
+        lo, hi = DENSE_LINE * a, min(DENSE_LINE * b, m)
+        # the steps into and inside this chunk
+        x = pos_to_run[max(lo - 1, 0):hi].long()
+        step = x[1:] - x[:-1]
+        if bool(((step != 0) & (step != 1)).any()):
+            raise ValueError("pos_to_run steps by other than 0 or 1: not the run of "
+                             "each position")
+        if not (-2**31 <= int(x[0]) and int(x[-1]) < 2**31):  # x is nondecreasing
+            raise ValueError("pos_to_run holds a run id past 32 bits")
+        seg = x[lo - max(lo - 1, 0):]
+        # the last line repeats the last entry: no head past it
+        seg = torch.cat((seg, seg[-1:].expand(DENSE_LINE * (b - a) - seg.shape[0])))
+        seg = seg.view(b - a, DENSE_LINE)
+        head = torch.zeros(seg.shape, dtype=torch.int64, device=dev)
+        head[:, 1:] = (seg[:, 1:] != seg[:, :-1]).long()
+        out[a:b, 0] = seg[:, 0].to(torch.int32)
+        out[a:b, 1] = _wrap32((head[:, :32] << bit).sum(dim=1))
+        out[a:b, 2] = _wrap32((head[:, 32:] << bit).sum(dim=1))
+    return out
+
+
+def with_dense_lines(t: "RIndexTables") -> "RIndexTables":
+    """The dense tables' lines (derive_dense_lines), derived on their device
+    where the positions are int32, the only dense form the kernels take
+    (returns t; other tables are left as they are)."""
+    if t.pos_to_run is not None and t.pos_dtype == torch.int32:
+        t.dense_lines = derive_dense_lines(t.pos_to_run)
+    return t
+
+
 def with_run_index(t: "RIndexTables") -> "RIndexTables":
     """The bucketed tables' run index and records, derived on their device
     (returns t; tables without bucket_lo are left as they are). The index's
@@ -597,8 +666,9 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     (plain PyTorch only: the kernels refuse them). Same fields and values
     as the JAX rindex_to_device with the same flags (whose bucketed is True
     by default: here False, base tables), what locate reads
-    (with_locate_tables), and for bucketed tables the run index and records
-    the kernels rank through (with_run_index).
+    (with_locate_tables), for bucketed tables the run index and records
+    the kernels rank through (with_run_index), and for int32 dense tables
+    the lines the kernels find a position's run through (with_dense_lines).
 
     Positions are `dtype`, by default int32 where every value fits and int64
     past 2^31; rows are two-level at n >= 2^31 or with an explicit
@@ -624,7 +694,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         rec = _put(rec_np, pd, device)
     row_table = checkpoint or dense or ultra
     run_start = _put(idx.run_start, pd, device)
-    return with_run_index(with_locate_tables(with_rank_planes(RIndexTables(
+    return with_dense_lines(with_run_index(with_locate_tables(with_rank_planes(RIndexTables(
         run_sym=_put(idx.run_sym, torch.int8, device),
         run_start=run_start,
         # only the run-based modes rank through the per-run cum table;
@@ -638,7 +708,7 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
         bucket_lo=(derive_bucket_lo(run_start, int(idx.n))
                    if bucketed and not row_table else None),
         pos_to_run=pos_to_run, rec=rec, rank_table=rank_table, ckpt=ckpt,
-        ckpt_super=ckpt_super))))
+        ckpt_super=ckpt_super)))))
 
 
 def tags_to_device(tags: TagArray, device,
@@ -663,7 +733,7 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
     beside them: the search trees (over the tag run heads; over run_start),
     the tail pairs and their bucket index, the bit-plane rows and, for int64
     positions, the superblock bases (two-level rows included), and beside
-    bucket_lo the run index and records."""
+    bucket_lo the run index and records, beside int32 pos_to_run its lines."""
     device = torch.device(device)
 
     def put(a):  # np.array copies: arrays from JAX are read-only
@@ -678,7 +748,7 @@ def tables_from_numpy(rindex: dict[str, np.ndarray],
         max_len=int(rindex["max_len"]))
     if t.ckpt_super is not None:
         t.ckpt_super = t.ckpt_super.to(torch.int64)
-    with_run_index(with_locate_tables(with_rank_planes(t)))
+    with_dense_lines(with_run_index(with_locate_tables(with_rank_planes(t))))
     tt = None
     if tags is not None:
         heads = put(tags["bwt_start"])

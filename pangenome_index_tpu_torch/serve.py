@@ -60,14 +60,15 @@ def _sync(device: torch.device) -> None:
 
 def check_dense_tables(t: RIndexTables) -> None:
     """Exactness guard for dense tables: rank6 at every run head must equal
-    that run's record, i.e. pos_to_run and rec describe the same runs (a
-    mismatch would make every answer silently wrong)."""
+    that run's record, i.e. the lines the kernels read (derived from
+    pos_to_run) and rec describe the same runs (a mismatch would make every
+    answer silently wrong)."""
     runs = torch.arange(t.rec.shape[0], dtype=torch.int32, device=t.rec.device)
     rows = gather_rows(t.rec, runs)  # the records, through the row gather
     heads = rows[:, 0].contiguous()
-    if not torch.equal(rank6_dense(t.rec, t.pos_to_run, heads), rows[:, 2:8]):
-        raise ValueError("dense tables disagree: pos_to_run does not map run "
-                         "heads to their records")
+    if not torch.equal(rank6_dense(t, heads), rows[:, 2:8]):
+        raise ValueError("dense tables disagree: the run of a run head is not "
+                         "its record")
 
 
 #: the rank configurations: --rank-mode choice -> rindex_to_device flag

@@ -43,11 +43,109 @@ def test_gather_rows_and_rank6_dense(dev, index):
     t = rindex_to_device(idx, dev, dense=True)
     rng = np.random.default_rng(0)
     pos = torch.from_numpy(rng.integers(0, idx.n + 1, 1001).astype(np.int32)).to(dev)
-    assert torch.equal(dense_rank.rank6_dense(t.rec, t.pos_to_run, pos),
+    assert torch.equal(dense_rank.rank6_dense(t, pos),
                        dense_rank.rank6_dense_plain(t.rec, t.pos_to_run, pos))
     rows = torch.from_numpy(rng.integers(-5, idx.n_runs + 5, 777).astype(np.int32)).to(dev)
     assert torch.equal(dense_rank.gather_rows(t.rec, rows),
                        dense_rank.gather_rows_plain(t.rec, rows))
+
+
+def heads_index():
+    """An r-index whose lines are full of heads: clusters of 300 one-position
+    runs between runs of 70 (random symbols 1..5, run 0 the endmarker's code
+    0; no locate data: one sample a run)."""
+    from pangenome_index_tpu_torch.models.rindex import RIndex
+
+    rng = np.random.default_rng(9)
+    lengths = np.tile(np.concatenate((np.ones(300, np.int64), [70])), 30)
+    r = len(lengths)
+    sym = rng.integers(1, 6, r).astype(np.int8)
+    sym[0] = 0
+    start = np.concatenate(([0], np.cumsum(lengths)[:-1]))
+    contrib = np.zeros((r, 6), np.int64)
+    contrib[np.arange(r), sym] = lengths
+    cum = np.zeros((r, 6), np.int64)
+    np.cumsum(contrib[:-1], axis=0, out=cum[1:])
+    C = np.concatenate(([0], np.cumsum(contrib.sum(axis=0)))).astype(np.int64)
+    n = int(lengths.sum())
+    return RIndex(run_sym=sym, run_start=start, run_len=lengths, cum=cum, C=C, n=n,
+                  n_seq=1, max_len=n, samples=np.zeros(r, np.int64),
+                  last_sorted=np.arange(r), last_to_run=np.arange(r))
+
+
+@pytest.mark.parametrize("which", ["bench-like", "full-of-heads"])
+def test_dense_kernels_at_the_line_edges(dev, index, which):
+    """Every kernel over dense tables - rank6_dense, K2, K3, K7, the seed
+    table's level (one and two deep) and the dictionary's level - equals its
+    plain version (which reads pos_to_run, not the lines) at positions with
+    p & 63 of 0 and 63, on the bench-like index and on one whose lines are
+    full of heads; and the dense table guard catches a line that disagrees
+    with the records."""
+    from pangenome_index_tpu_torch.serve import check_dense_tables
+
+    idx = index[0] if which == "bench-like" else heads_index()
+    t = rindex_to_device(idx, dev, dense=True)
+    lo, hi = t.dense_lines[:, 1].cpu(), t.dense_lines[:, 2].cpu()
+    full = (lo == -2) & (hi == -1)  # bits 1..63 set: 64 heads in a row
+    assert bool(full.any()) == (which == "full-of-heads")
+    edges = np.concatenate((np.arange(0, idx.n + 2, 64), np.arange(63, idx.n + 2, 64)))
+    pos = torch.from_numpy(np.concatenate((edges, [-1, idx.n + 2, idx.n + 70]))
+                           .astype(np.int32)).to(dev)
+    assert torch.equal(dense_rank.rank6_dense(t, pos),
+                       dense_rank.rank6_dense_plain(t.rec, t.pos_to_run, pos))
+    rng = np.random.default_rng(43)
+    B = 6000
+    k = rng.choice(edges[edges < idx.n], B)
+    s = np.minimum(rng.choice(np.array([0, 1, 63, 64, 65, 128, 1000]), B), idx.n - k)
+    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+            for a in (k, rng.choice(edges[edges < idx.n], B), s)]
+    code = torch.from_numpy(rng.integers(-1, 8, B).astype(np.int32)).to(dev)
+    fwd = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    for f in (None, fwd):
+        for g, e in zip(fmd.extend(t, *args, code, forward=f),
+                        fmd.extend_plain(t, *args, code, forward=f)):
+            assert torch.equal(g, e)
+    if which == "bench-like":
+        reads = synth_reads(index[1], 200, 150, error_rate=0.02, seed=14)
+        codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                          for r in reads]).astype(np.int32)
+    else:
+        codes = rng.choice(np.array([1, 2, 3, 5], np.int32), (200, 150))
+    c = torch.from_numpy(codes).to(dev)
+    n = torch.full((codes.shape[0],), codes.shape[1], dtype=torch.int32, device=dev)
+    got, gs = mems.find_mems(t, c, n, 3, 1, capacity=8, with_stats=True)
+    want, ws = mems.find_mems_plain(t, c, n, 3, 1, capacity=8, with_stats=True)
+    for g, e in zip(got, want):
+        assert torch.equal(g, e)
+    assert torch.equal(gs["steps"], ws["steps"]) and bool((got.count > 0).any())
+    lens = torch.from_numpy(rng.integers(0, 151, codes.shape[0]).astype(np.int32)).to(dev)
+    for g, e in zip(count.count(t, c, lens), count.count_plain(t, c, lens)):
+        assert torch.equal(g, e)
+    level = mertable.mer_root(t)
+    for _ in range(6):
+        for depth in (1, 2):
+            assert torch.equal(mertable.mer_level(t, level, depth),
+                               mertable.mer_level_plain(t, level, depth))
+        level = mertable.mer_level(t, level)
+    keys = torch.zeros((1, 1), dtype=torch.int64, device=dev)
+    vals = torch.tensor([[[0, 0, idx.n]]], dtype=torch.int32, device=dev)
+    counts = [1]
+    for lv in range(12):
+        got = sparsedict.sdict_level(t, keys, vals, counts, 1, lv)
+        counts = same_level(got, sparsedict.sdict_level_plain(t, keys, vals, counts, 1, lv))
+        keys, vals = got[:2]
+    check_dense_tables(t)
+    # a line with a head past its first position: full of them, or with
+    # none at its second position (so that filling it moves a head's run)
+    line = int(torch.nonzero(full if which == "full-of-heads"
+                             else ((lo != 0) | (hi != 0)) & ((lo & 2) == 0))[0])
+    t.dense_lines[line, 0] += 1  # the line's runs one later than their records
+    with pytest.raises(ValueError, match="disagree"):
+        check_dense_tables(t)
+    t.dense_lines[line, 0] -= 1
+    t.dense_lines[line, 1:3] = torch.tensor([-2, -1] if which == "bench-like" else [0, 0])
+    with pytest.raises(ValueError, match="disagree"):
+        check_dense_tables(t)
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -153,7 +153,7 @@ def test_dense_rank6_matches_pallas(index):
     pos = positions(idx, 256, seed=1)
     expect = np.asarray(rank6_pallas(jt.rec, jt.pos_to_run, jnp.asarray(pos),
                                      interpret=True))
-    got = dense_rank.rank6_dense(pt.rec, pt.pos_to_run, torch.from_numpy(pos))
+    got = dense_rank.rank6_dense(pt, torch.from_numpy(pos))
     np.testing.assert_array_equal(got.numpy(), expect)
 
 
