@@ -93,8 +93,10 @@ launch count set to 0 just before a path and read just after it:
    size: build_index of the bench text's lines equal to the bench index
    (its suffix array held against the index's samples, tails and BWT);
    to_device (its defaults: the card, dense records; then dense=False,
-   bucketed runs) and find_mems on all 16384 reads equal to the native
-   engine, each call one K3 launch; load_rindex and load_tags of the bench
+   bucketed runs; dtype=torch.int64, dense records at int64 positions;
+   checkpoint rows of 128 positions; checkpoint rows with mem_only stubs)
+   and find_mems on all 16384 reads equal to the native engine, each call
+   one K3 launch; load_rindex and load_tags of the bench
    files with and without use_mmap, field for field; the end-to-end demo
    (end_to_end.main) on the card printing the lines it prints on the CPU;
 8. serve-2g, an index past 2^31 (k_copy_index: every bench line repeated
@@ -112,7 +114,15 @@ launch count set to 0 just before a path and read just after it:
    its own, serve-2g-bucketed: prepare/run through int64 bucketed runs
    (the same gates against the native engine) and find-mems --rank-mode
    dense on the index's files, which the reference serves through bucketed
-   runs past 2^31: stdout byte-equal to the checkpoint run's.
+   runs past 2^31: stdout byte-equal to the checkpoint run's. Then
+   serve-2g-dense: prepare/run through dense records at int64 positions
+   (the table check through the row gather and rank6_dense, the seed table,
+   the dictionary, K3 and K4 on them) and the public find_mems(to_device(
+   big)) at its defaults on all reads, both equal to the checkpoint run;
+   the host's free memory before, and the peak memory and seconds of
+   to_device. The int64 dense kernels of that path (rank6_dense, K3 and
+   both levels) are held against their plain versions and timed on the
+   public route's tables, whose lines (540 MB) do not fit in L2.
 
 The m-mer seed table (mertable.build_mer_table_device: the level kernel of
 csrc/mertable.cu, one thread per parent, the last launch two levels deep
@@ -128,7 +138,10 @@ The dense rank6 kernel (csrc/dense_rank.cu, through the lines of
 ops/tables.py:derive_dense_lines) is held against its plain version (which
 reads pos_to_run) on 32768 and on 4,194,304 positions, and the row gather
 on 32768 rows and on every record; K2, K3 (the last 512 reads, and all
-16384 by events), K7 and both levels through dense records likewise.
+16384 by events), K7 and both levels through dense records likewise; and,
+on the bench index's dense tables at int64 positions, rank6 on 32768
+positions, the gather of every int64 record (as int32 words), K3, K7 and
+both levels (the *_dense64 entry points), each beside its int32 form.
 The ultra and bucketed rank6 kernels (csrc/rankmodes.cu) are held against
 their plain versions on 32768 positions (0, n and n + 1 among them), at
 int32 on the bench index and at int64 on the k-copy index, and K2, K3 and
@@ -203,6 +216,16 @@ SOURCES = {
                          "serve-dense", "gather_rows"),
     "rank6_dense_4m": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:70",
                        "serve-dense", "rank6_dense"),
+    # K1 at int64 positions, the launches of the path past 2^31 that serves
+    # through them: rank6 on 32768 positions of the k-copy index (its lines
+    # 540 MB, past L2; the bench index's reading, lines in L2, beside it as
+    # bench_index), the gather of every int64 record as int32 words (the
+    # bench index has the k-copy index's 2,268,338 runs)
+    "rank6_dense_int64": ("csrc/dense_rank.cu", "pangenome_index_tpu/ops/pallas_rank.py:70",
+                          "serve-2g-dense", "rank6_dense"),
+    "gather_rows_runs_int64": ("csrc/dense_rank.cu",
+                               "pangenome_index_tpu/ops/pallas_rank.py:39",
+                               "serve-2g-dense", "gather_rows"),
     "extend": ("csrc/fmd.cu", "pangenome_index_tpu/ops/fmd.py:31", None),
     "mer_level": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84", "serve"),
     "resolve_seeds": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:87", "serve"),
@@ -270,6 +293,20 @@ SOURCES = {
                           "serve-dense", "sdict_level"),
     "mer_level_dense": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84",
                         "serve-dense", "mer_level"),
+    # the dense provider at int64 positions (DenseRank<int64_t>), launched
+    # past 2^31 on serve-2g-dense and held there on the public route's
+    # tables (to_device of the k-copy index; the bench index's int64 dense
+    # tables' reading beside it as bench_index); K7 on a path of its own,
+    # on the bench index's int64 dense tables
+    "find_mems_dense_int64": ("csrc/mems.cu", "pangenome_index_tpu/ops/mems.py:43",
+                              "serve-2g-dense", "find_mems"),
+    "count_dense_int64": ("csrc/count.cu", "pangenome_index_tpu/ops/rank.py:196",
+                          "count-dense-int64", "count"),
+    "sdict_level_dense_int64": ("csrc/sparsedict.cu",
+                                "pangenome_index_tpu/ops/sparsedict.py:100",
+                                "serve-2g-dense", "sdict_level"),
+    "mer_level_dense_int64": ("csrc/mertable.cu", "pangenome_index_tpu/ops/mertable.py:84",
+                              "serve-2g-dense", "mer_level"),
     # the ultra and bucketed rank providers (the XLA rank6 forms
     # ops/rank.py:165 through rank_table, ops/rank.py:22 + :173 through
     # bucket_lo and cum), alone and inside the chain kernels, each on the
@@ -318,6 +355,7 @@ PATH_KERNELS = {
     # the backward search through dense records (query-tags ranks through
     # checkpoint rows, as the reference does)
     "count-dense": ("count",),
+    "count-dense-int64": ("count",),
     "probe": ("row_gather", "gather_chain"),
     "find-mems": ("mer_level", "resolve_seeds", "find_mems", "query_tags_batch",
                   "sdict_level"),
@@ -355,6 +393,11 @@ PATH_KERNELS = {
                        "query_mem_tags", "sdict_level"),
     "serve-2g-bucketed": ("rank6_bucketed", "mer_level", "resolve_seeds", "find_mems",
                           "query_mem_tags", "sdict_level", "query_tags_batch"),
+    # past 2^31 through dense records at int64 positions: prepare/run (the
+    # table check: the row gather and rank6_dense), then the public
+    # find_mems(to_device(big)) at its defaults
+    "serve-2g-dense": ("gather_rows", "rank6_dense", "mer_level", "resolve_seeds", "find_mems",
+                       "query_mem_tags", "sdict_level"),
 }
 #: the rank configurations of the serving path, in the order they are served
 RANK_CONFIGS = ("checkpoint", "dense", "ultra", "bucketed")
@@ -1057,8 +1100,14 @@ def mesh_path(env):
 #: (the bench cache keeps no suffix array: that is checked on its own)
 API_INDEX_FIELDS = ("run_sym", "run_start", "run_len", "cum", "C", "n", "n_seq", "max_len",
                     "samples", "last_sorted", "last_to_run")
-#: the table forms of the public to_device: its default, and dense=False
-API_FORMS = (("dense records", {}), ("bucketed runs", {"dense": False}))
+#: the table forms of the public to_device: its default, dense=False, dense
+#: records at int64 positions (the form past 2^31), checkpoint rows of 128
+#: positions and checkpoint rows with mem_only stubs (the JAX arguments);
+#: "int64" stands for torch.int64
+API_FORMS = (("dense records", {}), ("bucketed runs", {"dense": False}),
+             ("dense records at int64", {"dtype": "int64"}),
+             ("checkpoint rows of 128", {"checkpoint": True, "ckpt_block": 128}),
+             ("checkpoint rows, mem_only", {"checkpoint": True, "mem_only": True}))
 
 
 def api_path(env):
@@ -1136,20 +1185,37 @@ def api_path(env):
     port.reset_launches()
     tables = {}
     for form, kw in API_FORMS:
+        kw = {k: (torch.int64 if v == "int64" else v) for k, v in kw.items()}
         tables[form] = t = timed(f"to_device ({form})", lambda: port.to_device(built, **kw))
         check(t.run_start.device == env.dev, f"to_device ({form}) is not on {env.dev}")
-        check((t.rec is not None) == (form == "dense records")
-              and (t.bucket_lo is not None) == (form == "bucketed runs"),
+        check((t.rec is not None) == (form != "bucketed runs")
+              and (t.bucket_lo is not None) == (form == "bucketed runs")
+              and (t.ckpt is not None) == ("checkpoint" in kw)
+              and t.pos_dtype == kw.get("dtype", torch.int32),
               f"to_device ({form}) gave other rank tables")
+        if "ckpt_block" in kw:
+            check(t.ckpt.shape[1] == 24 and t.ckpt_planes.shape[1] == 16,
+                  "to_device (checkpoint rows of 128): rows not 24 words, or planes not 16")
+        if kw.get("mem_only"):
+            check(t.run_start.shape[0] == t.last_sorted.shape[0] == 1,
+                  "to_device (mem_only): the per-run tables are not one-row stubs")
         k3_before = port.KERNELS["find_mems"].launches
         got = timed(f"find_mems ({form})", lambda: port.find_mems(
             t, env.reads, env.min_len, env.min_occ, capacity=env.mem_cap))
         check(port.KERNELS["find_mems"].launches == k3_before + 1,
               f"find_mems through {form} was not one K3 launch")
         check(got == expect, f"find_mems through {form} differs from the native engine")
-    log(f"api: find_mems on all {len(env.reads)} reads through dense records and bucketed "
-        f"runs: {int(cnt.sum())} MEMs, every count and buffered slot equal to the native "
-        f"engine's")
+    log(f"api: find_mems on all {len(env.reads)} reads through "
+        + ", ".join(form for form, _ in API_FORMS) + f": {int(cnt.sum())} MEMs, every "
+        f"count and buffered slot equal to the native engine's (and so to the int32 dense "
+        f"call's)")
+    # what mem_only leaves off the card (the tables build-sdict asks for)
+    full = port.to_device(built, checkpoint=True, dense=False)
+    lean = port.to_device(built, checkpoint=True, dense=False, mem_only=True)
+    log(f"api: checkpoint tables on the card {table_bytes(full)} bytes, with mem_only "
+        f"{table_bytes(lean)} bytes (the per-run and locate tables as one-row stubs: "
+        f"{table_bytes(full) - table_bytes(lean)} bytes fewer) on the bench index")
+    del full, lean
     demo = timed(f"end_to_end ({env.dev})", lambda: end_to_end.main(device=env.dev))
     env.read_launches("api")
     got = env.launches["api"]
@@ -1187,6 +1253,57 @@ def api_path(env):
     return seconds
 
 
+def table_bytes_of(x):
+    return x.numel() * x.element_size()
+
+
+def host_memory():
+    """The host's memory as free -g shows it (total, used, free, available
+    GiB, from /proc/meminfo)."""
+    info = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            key, value = line.split(":", 1)
+            info[key] = int(value.split()[0]) * 1024
+    gib = {k: info.get(k, 0) / 2**30 for k in ("MemTotal", "MemFree", "MemAvailable")}
+    return (f"total {gib['MemTotal']:.1f} GiB, free {gib['MemFree']:.1f} GiB, available "
+            f"{gib['MemAvailable']:.1f} GiB")
+
+
+def rss_bytes():
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class PeakRss:
+    """This process's largest resident memory (bytes) while the block runs,
+    sampled every 5 ms; `start` the resident memory before it."""
+
+    def __enter__(self):
+        import threading
+
+        self.start = self.peak = rss_bytes()
+        self._stop = threading.Event()
+
+        def watch():
+            while not self._stop.wait(0.005):
+                self.peak = max(self.peak, rss_bytes())
+
+        self._watch = threading.Thread(target=watch, daemon=True)
+        self._watch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._watch.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+def table_bytes(t):
+    """Bytes of every tensor of tables t (what they hold on their device)."""
+    return sum(table_bytes_of(v) for v in vars(t).values() if hasattr(v, "element_size"))
+
+
 def log(msg):
     print(msg, flush=True)
 
@@ -1220,7 +1337,8 @@ def main() -> int:
     from pangenome_index_tpu_torch.mems_probe import (
         BASE_LEN, MEM_CAP, MER_M, MIN_LEN, MIN_OCC, N_HAPS, N_READS, READ_LEN,
         SDICT_S, TAIL_KERNEL, bench_workload, launch_ms, trace_head, trace_tail)
-    from pangenome_index_tpu_torch.ops.tables import (rindex_to_device, tags_to_device,
+    from pangenome_index_tpu_torch.ops.tables import (DENSE_CHUNK_LINES, derive_dense_lines,
+                                                      rindex_to_device, tags_to_device,
                                                       tail_bucket)
     from pangenome_index_tpu_torch.serve import prepare, run
     from pangenome_index_tpu_torch.utils import synth
@@ -1312,8 +1430,9 @@ def main() -> int:
             return gathered(n * 64, t.ckpt_planes), 1
         if t.rank_table is not None:
             return gathered(n * 32, t.rank_table), 1
-        if t.rec is not None:
-            return gathered(n * 4, t.pos_to_run) + gathered(n * 32, t.rec), 2
+        if t.rec is not None:  # a run id and a record of 8 positions
+            item = t.rec.element_size()
+            return gathered(n * item, t.pos_to_run) + gathered(n * 8 * item, t.rec), 2
         item = t.run_start.element_size()
         b = (pos.long() >> 6).clamp(0, t.bucket_lo.shape[0] - 1)
         lines = (rank.run_of(t, pos) - t.bucket_lo[b].long()) // (64 // item) + 1
@@ -1335,8 +1454,8 @@ def main() -> int:
             return 128, 1
         if t.rank_table is not None:
             return 64, 1
-        if t.rec is not None:  # a run id, then a 32-byte record, at each end
-            return 2 * (4 + 32), 2
+        if t.rec is not None:  # a run id, then a record of 8 positions, at each end
+            return 2 * 9 * item, 2
         return 2 * (item + 64 + 7 * item + 1), 2
 
     def rank_tables(t):
@@ -1453,6 +1572,14 @@ def main() -> int:
         for name in PATH_KERNELS[path]:
             check(launches[path][name] > 0, f"{name} was not launched on the {path} path")
 
+    def on_the_k_copy_index(name, hold):
+        """Record kernels[name] again through hold(), on the k-copy index;
+        the bench index's reading of it stays beside it as bench_index."""
+        first = kernels.pop(name)
+        hold()
+        kernels[name]["bench_index"] = {k: first[k] for k in (
+            "ms", "plain_ms", "bound_ms", "all_reads_ms") if k in first}
+
     # --- 2. K1 and K2 against their plain versions ------------------------
     phase("K1 and K2")
     t_ck = rindex_to_device(idx, dev, checkpoint=True)
@@ -1479,16 +1606,16 @@ def main() -> int:
     # run id of pos_to_run and a 32-byte record a position, as
     # rank6_pallas reads them), the design's bytes read a 16-byte line in
     # place of the run id
-    def dense_design(p):
-        n = p.numel()
-        return (n * (4 + 24) + gathered(n * 16, t_dn.dense_lines)
-                + gathered(n * 32, t_dn.rec))
+    def dense_design(t, p):
+        n, item = p.numel(), t.rec.element_size()
+        return (n * 7 * item + gathered(n * 16, t.dense_lines)
+                + gathered(n * 8 * item, t.rec))
 
     compare("rank6_dense",
             lambda: dense_rank.rank6_dense(t_dn, pos),
             lambda: dense_rank.rank6_dense_plain(t_dn.rec, t_dn.pos_to_run, pos),
             nbytes=N_LANES * (4 + 24) + rank_reads(t_dn, pos)[0], ops=N_LANES * 16,
-            chain=2, design=dense_design(pos))
+            chain=2, design=dense_design(t_dn, pos))
     # K1 at shapes past the launch floor: 4,194,304 positions (every p & 63
     # of 0 and 63 of the first lines among them), and the gather of every
     # record, the dense table check's
@@ -1500,7 +1627,7 @@ def main() -> int:
             lambda: dense_rank.rank6_dense(t_dn, pos4m),
             lambda: dense_rank.rank6_dense_plain(t_dn.rec, t_dn.pos_to_run, pos4m),
             nbytes=N_RANK6_BIG * (4 + 24) + rank_reads(t_dn, pos4m)[0],
-            ops=N_RANK6_BIG * 16, chain=2, design=dense_design(pos4m))
+            ops=N_RANK6_BIG * 16, chain=2, design=dense_design(t_dn, pos4m))
     del pos4m
     runs = torch.arange(idx.n_runs, dtype=torch.int32, device=dev)
     runs_l = runs.long()
@@ -1509,7 +1636,28 @@ def main() -> int:
             nbytes=idx.n_runs * (4 + 32) + gathered(idx.n_runs * 32, t_dn.rec),
             ops=idx.n_runs * 8,
             library=lambda: torch.index_select(t_dn.rec, 0, runs_l))
-    del runs, runs_l
+    # K1 at int64 positions: the bench index's dense tables at int64 (the
+    # form past 2^31; int64 records, the same lines), rank6 at the same
+    # 32768 positions, and every int64 record through the row gather as the
+    # dense table check takes it, 16 int32 words a record
+    t_dn64 = rindex_to_device(idx, dev, dense=True, dtype=torch.int64)
+    check(torch.equal(t_dn64.dense_lines, t_dn.dense_lines),
+          "the dense lines of the int64 tables differ from the int32 tables'")
+    pos64 = pos.long()
+    compare("rank6_dense_int64", lambda: dense_rank.rank6_dense(t_dn64, pos64),
+            lambda: dense_rank.rank6_dense_plain(t_dn64.rec, t_dn64.pos_to_run, pos64),
+            nbytes=N_LANES * (8 + 48) + rank_reads(t_dn64, pos64)[0], ops=N_LANES * 16,
+            chain=2, design=dense_design(t_dn64, pos64))
+    check(max_abs_err(dense_rank.rank6_dense(t_dn64, pos64),
+                      dense_rank.rank6_dense(t_dn, pos)) == 0,
+          "rank6 through the int64 dense tables differs from the int32 tables'")
+    words64 = t_dn64.rec.view(torch.int32)
+    compare("gather_rows_runs_int64", lambda: dense_rank.gather_rows(words64, runs),
+            lambda: dense_rank.gather_rows_plain(words64, runs),
+            nbytes=idx.n_runs * (4 + 64) + gathered(idx.n_runs * 64, words64),
+            ops=idx.n_runs * 16,
+            library=lambda: torch.index_select(words64, 0, runs_l))
+    del runs, runs_l, pos64, words64
     k = rng.integers(0, idx.n, N_LANES)
     lanes = [T(a.astype(np.int32)) for a in (
         k, rng.integers(0, idx.n, N_LANES),
@@ -1750,9 +1898,11 @@ def main() -> int:
 
     hold_levels(t_ck, "sdict_level", host_keys, host_vals)
     hold_levels(t_dn, "sdict_level_dense", host_keys, host_vals)
+    hold_levels(t_dn64, "sdict_level_dense_int64", host_keys, host_vals)
     hold_levels(t_ul, "sdict_level_ultra", host_keys, host_vals)
     hold_levels(t_bk, "sdict_level_bucketed", host_keys, host_vals)
     seed_table_ms(t_dn, MER_M, "mer_level_dense")
+    seed_table_ms(t_dn64, MER_M, "mer_level_dense_int64")
     seed_table_ms(t_ul, MER_M, "mer_level_ultra")
     seed_table_ms(t_bk, MER_M, "mer_level_bucketed")
     # s=31 (a key's last two bits) and min_keep=2 on a small index, every provider
@@ -2108,7 +2258,27 @@ def main() -> int:
     k3_ms64, _, k3_out64 = k3_ms_of(lambda: k3(mems.find_mems, whole64))
     check(max_abs_err(k3_out64, k3_out) == 0, "K3 through int64 tables differs from int32")
     same_index["find_mems"] = (k3_ms, k3_ms64)
-    del kw64, whole64, k3_out64
+    # K3 through the dense records at int64 positions (DenseRank<int64_t>):
+    # the last reads against its plain version, all reads by events beside
+    # the int32 dense kernel's
+    dense64 = (t_dn64, whole[1], whole[2], kw64)
+    last64 = k3_inputs(SimpleNamespace(tables=t_dn64, codes=whole[1], lengths=whole[2],
+                                       seed_kw=kw64), ends["last"])
+    st64 = k3(mems.find_mems, last64)[-1]
+    compare("find_mems_dense_int64", lambda: k3(mems.find_mems, last64),
+            lambda: k3(mems.find_mems_plain, last64), plain_reps=1,
+            nbytes=st64.numel() * ((READ_LEN + 1) * (1 + 32) + 4)
+            + gathered(int(st64.sum()) * step_reads(t_dn64)[0], *rank_tables(t_dn64))
+            + st64.numel() * (MEM_CAP * 20 + 8),
+            ops=int(st64.sum()) * 100, chain=int(st64.max()) * step_reads(t_dn64)[1])
+    ms_d64, _, out_d64 = k3_ms_of(lambda: k3(mems.find_mems, dense64))
+    check(max_abs_err(out_d64, k3_out) == 0,
+          "K3 through int64 dense records differs from checkpoint on the whole batch")
+    kernels["find_mems_dense_int64"]["all_reads_ms"] = ms_d64
+    log(f"K3 kernel on all {N_READS} reads, dense records at int64 positions: "
+        f"{ms_d64:.4f} ms (device), {ms_d64 / kernels['find_mems_dense']['all_reads_ms']:.3f}x "
+        f"the int32 dense kernel ({kernels['find_mems_dense']['all_reads_ms']:.4f} ms) {card}")
+    del kw64, whole64, k3_out64, dense64, last64, out_d64
 
     # where serve.run's device time goes: a profiler trace of 5 runs (device
     # activity only: kernels and copies, each counted once). The profiler
@@ -2494,7 +2664,17 @@ def main() -> int:
             nbytes=qc.numel() * 4 + len(qlens) * 12
             + gathered(q_steps * step_reads(t_dn)[0], *rank_tables(t_dn)),
             ops=q_steps * 60, chain=int(qlens.max()) * step_reads(t_dn)[1])
-    del t_dn
+    # and through them at int64 positions, a path of its own
+    port.reset_launches()
+    check(max_abs_err(count.count(t_dn64, qc, ql), found) == 0,
+          "count through int64 dense records differs from checkpoint rows")
+    read_launches("count-dense-int64")
+    compare("count_dense_int64", lambda: count.count(t_dn64, qc, ql),
+            lambda: count.count_plain(t_dn64, qc, ql), plain_reps=1,
+            nbytes=qc.numel() * 4 + len(qlens) * 20
+            + gathered(q_steps * step_reads(t_dn64)[0], *rank_tables(t_dn64)),
+            ops=q_steps * 60, chain=int(qlens.max()) * step_reads(t_dn64)[1])
+    del t_dn, t_dn64
     check(max_abs_err(count.count(t64, qc, ql), found) == 0,
           "count through int64 tables differs from int32")
     same_index["count"] = (kernels["count"]["ms"],
@@ -2911,6 +3091,72 @@ def main() -> int:
         f"{N_READS / (sec['mems'] + sec['tags']):.1f} reads/s (steady mean of {REPEATS}) "
         f"{card}")
 
+    # the dense configuration past 2^31, a path of its own: prepare/run
+    # through dense records at int64 positions (the table check gathers
+    # every int64 record and ranks every run head through them; the seed
+    # table, the dictionary, K3 and K4 on them), then the public route at
+    # its defaults, find_mems(to_device(big)), on all reads. pos_to_run is
+    # 17 GB of int64, filled on the card from the run lengths; the host's
+    # memory is read first, and this process's peak resident memory is
+    # sampled while to_device runs
+    phase("serve-2g: dense records")
+    log(f"host memory before the dense tables: {host_memory()}")
+    port.reset_launches()
+    b2d = prepare(big, big_tags, codes, lens, dev, rank_mode="dense", min_occ=MIN_OCC,
+                  mer_m=MER_M_2G, sdict_s=SDICT_S)
+    r2d = run(b2d, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP, tag_capacity=TAG_CAP,
+              repeats=REPEATS)
+    t2d = b2d.tables
+    check(t2d.pos_dtype == t2d.rec.dtype == torch.int64 and t2d.ckpt is None
+          and t2d.dense_lines is not None and t2d.dense_lines.dtype == torch.int32,
+          "serve-2g-dense's tables are not int64 dense records over int32 lines")
+    check(torch.equal(b2d.seed_kw["mer_table"], b2.seed_kw["mer_table"])
+          and torch.equal(b2d.seed_kw["sdict_vals"], b2.seed_kw["sdict_vals"]),
+          "serve-2g: the seed table or dictionary built through int64 dense records differs "
+          "from the checkpoint build")
+    sec = r2d.seconds
+    log(f"serve-2g [dense records, int64]: " + ", ".join(f"{k} {v:.4f} s"
+                                                        for k, v in sec.items()))
+    log(f"serve-2g [dense records, int64]: pos_to_run {table_bytes_of(t2d.pos_to_run)} + rec "
+        f"{table_bytes_of(t2d.rec)} bytes (the JAX fields), the lines "
+        f"{table_bytes_of(t2d.dense_lines)} bytes the kernels read; seed table and dictionary "
+        f"identical to the checkpoint builds; MEM-only {N_READS / sec['mems']:.1f} reads/s, "
+        f"MEM+tags {N_READS / (sec['mems'] + sec['tags']):.1f} reads/s (steady mean of "
+        f"{REPEATS}) {card}")
+    del b2d, t2d
+    torch.cuda.empty_cache()
+    k3_before = port.KERNELS["find_mems"].launches
+    with PeakRss() as peak:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t2p = port.to_device(big)
+        torch.cuda.synchronize()
+        to_device_s = time.perf_counter() - t0
+    check(t2p.pos_dtype == t2p.rec.dtype == torch.int64 and t2p.bucket_lo is None
+          and t2p.ckpt is None and t2p.run_start.device == dev,
+          "to_device(big) did not give int64 dense records on the card")
+    t0 = time.perf_counter()
+    mems2p = port.find_mems(t2p, reads, MIN_LEN, MIN_OCC, capacity=MEM_CAP)
+    find_s = time.perf_counter() - t0
+    check(port.KERNELS["find_mems"].launches == k3_before + 1,
+          "find_mems(to_device(big)) was not one K3 launch")
+    read_launches("serve-2g-dense")
+    # the lines' derivation alone, as to_device ran it (DENSE_CHUNK_LINES a chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lines2 = derive_dense_lines(t2p.pos_to_run)
+    torch.cuda.synchronize()
+    lines_s = time.perf_counter() - t0
+    check(torch.equal(lines2, t2p.dense_lines), "the dense lines differ between derivations")
+    log(f"serve-2g public route: to_device(big) {to_device_s:.4f} s (dense records at int64, "
+        f"n = {big.n}; this process's resident memory {peak.start} bytes before, "
+        f"{peak.peak} at its peak during the call, sampled every 5 ms); the lines derived "
+        f"again alone {lines_s:.4f} s ({lines2.shape[0]} lines, "
+        f"{-(-lines2.shape[0] // DENSE_CHUNK_LINES)} chunks); find_mems on all {N_READS} "
+        f"reads {find_s:.4f} s {card}")
+    del lines2  # t2p stays: the int64 dense kernels are held on it below
+    torch.cuda.empty_cache()
+
     # --- the path's answers: against the native engine, and the 1-copy run
     phase("serve-2g: checks")
     t0 = time.perf_counter()
@@ -2939,6 +3185,18 @@ def main() -> int:
           "serve-2g [bucketed rank]: tag counts differ from the native engine")
     log(f"serve-2g [bucketed rank]: counts and all {len(ii2)} buffered slots identical to "
         f"the native engine's, tag counts too")
+    for name in ("count", "start", "end", "bwt_start", "size", "tag_nu", "tag_ov"):
+        check(np.array_equal(getattr(r2d, name), getattr(r2, name)),
+              f"serve-2g [dense records, int64]: {name} differs from the checkpoint run")
+    expect2 = [list(zip(r2.start[i, :k].tolist(), r2.end[i, :k].tolist(),
+                        r2.bwt_start[i, :k].tolist(), r2.size[i, :k].tolist()))
+               for i, k in enumerate(eff2.tolist())]
+    check(mems2p == expect2,
+          "serve-2g: find_mems(to_device(big)) differs from the checkpoint run")
+    log(f"serve-2g [dense records, int64]: counts, all {len(ii2)} buffered slots and tag "
+        f"counts identical to the checkpoint run's; the public find_mems(to_device(big)) "
+        f"gives every read's buffered MEMs of the checkpoint run ({sum(map(len, mems2p))})")
+    del r2d, mems2p, expect2
     r1 = results["checkpoint"]
     check(np.array_equal(r2.count, r1.count) and np.array_equal(r2.start, r1.start)
           and np.array_equal(r2.end, r1.end), "serve-2g: MEMs differ from the 1-copy run's")
@@ -3026,6 +3284,10 @@ def main() -> int:
     hold_levels(t2, "sdict_level_int64", host2_keys, host2_vals)
     hold_levels(t2b, "sdict_level_bucketed64", host2_keys, host2_vals)
     seed_table_ms(t2b, MER_M_2G, "mer_level_bucketed64")
+    on_the_k_copy_index("sdict_level_dense_int64", lambda: hold_levels(
+        t2p, "sdict_level_dense_int64", host2_keys, host2_vals))
+    on_the_k_copy_index("mer_level_dense_int64", lambda: seed_table_ms(
+        t2p, MER_M_2G, "mer_level_dense_int64"))
     del host2_keys, host2_vals
     rng = np.random.default_rng(27)
     k = rng.integers(0, big.n, N_LANES)
@@ -3065,6 +3327,13 @@ def main() -> int:
         f"lookups: rank6_bucketed64's {N_LANES} positions); the JAX fields bucket_lo "
         f"{t2b.bucket_lo.numel() * 8} + run_start {t2b.run_start.numel() * 8} + run_sym "
         f"{t2b.run_sym.numel()} + cum {t2b.cum.numel() * 8} bytes {card}")
+    # dense rank6 alone at the same positions, through the public route's
+    # tables
+    on_the_k_copy_index("rank6_dense_int64", lambda: compare(
+        "rank6_dense_int64", lambda: dense_rank.rank6_dense(t2p, rpos2),
+        lambda: dense_rank.rank6_dense_plain(t2p.rec, t2p.pos_to_run, rpos2),
+        nbytes=N_LANES * (8 + 48) + rank_reads(t2p, rpos2)[0], ops=N_LANES * 16,
+        chain=2, design=dense_design(t2p, rpos2)))
     del lanes2, bnd, span, rpos2
     kw2 = b2.seed_kw
     check(kw2["sdict_vals"].dtype == kw2["mer_table"].dtype == torch.int64,
@@ -3106,6 +3375,28 @@ def main() -> int:
     log(f"K3 int64 bucketed on all {N_READS} reads of the k-copy index: {k3_ms2b:.4f} ms "
         f"(device), {k3_ms2b / k3_ms2:.3f}x the two-level rows' ({k3_ms2:.4f} ms) {card}")
     del inputs2b, k3_out2b
+    # K3 through the public route's int64 dense records: the last reads
+    # against plain, all reads by events, with the checkpoint run's seeds
+    bt2p = SimpleNamespace(tables=t2p, codes=b2.codes, lengths=b2.lengths,
+                           seed_kw=b2.seed_kw)
+    inputs2p = k3_inputs(bt2p, ends["last"])
+    st2p = k3(mems.find_mems, inputs2p)[-1]
+    on_the_k_copy_index("find_mems_dense_int64", lambda: compare(
+        "find_mems_dense_int64", lambda: k3(mems.find_mems, inputs2p),
+        lambda: k3(mems.find_mems_plain, inputs2p), plain_reps=1,
+        nbytes=n2 * ((READ_LEN + 1) * (1 + 32) + 4)
+        + gathered(int(st2p.sum()) * step_reads(t2p)[0], *rank_tables(t2p))
+        + n2 * (MEM_CAP * 20 + 8),
+        ops=int(st2p.sum()) * 100, chain=int(st2p.max()) * step_reads(t2p)[1]))
+    k3_ms2p, _, k3_out2p = k3_ms_of(lambda: k3(mems.find_mems, k3_inputs(bt2p, slice(None))))
+    check(max_abs_err(k3_out2p, k3_out2) == 0,
+          "K3 through int64 dense records differs from the two-level rows on the whole batch")
+    kernels["find_mems_dense_int64"]["all_reads_ms"] = k3_ms2p
+    log(f"K3 int64 dense on all {N_READS} reads of the k-copy index: {k3_ms2p:.4f} ms "
+        f"(device), {k3_ms2p / k3_ms2:.3f}x the two-level rows' ({k3_ms2:.4f} ms); on the "
+        f"bench index's int64 dense tables "
+        f"{kernels['find_mems_dense_int64']['bench_index']['all_reads_ms']:.4f} ms {card}")
+    del bt2p, inputs2p, k3_out2p
     k3_steps2 = k3_out2[-1]
     log(f"K3 int64 on all {N_READS} reads of the k-copy index: {k3_ms2:.4f} ms (device), "
         f"longest read {int(k3_steps2.max())} steps: "
@@ -3151,7 +3442,7 @@ def main() -> int:
     compare("locate_batch_int64", lambda: locate.locate_batch(t2, ls2, lz2, LOCATE_CAP),
             lambda: locate.locate_batch_plain(t2, ls2, lz2, LOCATE_CAP), plain_reps=1,
             nbytes=lw2["nbytes"], ops=lw2["ops"], chain=lw2["chain"], design=lw2["design"])
-    del b2, t2, tt2, kw2, ls2, lz2, big, big_tags, b2b, t2b
+    del b2, t2, tt2, kw2, ls2, lz2, big, big_tags, b2b, t2b, t2p
 
     for name, entry in kernels.items():
         src_ = SOURCES[name]

@@ -146,10 +146,14 @@ def build_index(text_lines, keep_sa: bool = True):
 
 def to_device(idx, device="cuda", dense: bool = True, **kw):
     """r-index -> tables on `device` for find_mems, with the JAX package's
-    to_device fields: dense records by default, bucketed runs with
-    dense=False (bucketed=False asks for base tables, which only the plain
-    versions read); checkpoint=True adds checkpoint rows. Runs on the card
-    unless the caller asks for the CPU."""
+    to_device fields: dense records by default, at any n (int32 positions
+    below 2^31, int64 past it or with dtype=torch.int64), bucketed runs
+    with dense=False (bucketed=False asks for base tables, which only the
+    plain versions read); checkpoint=True adds checkpoint rows, of
+    ckpt_block=64 or 128 positions, and mem_only=True (with checkpoint)
+    ships one-row stubs of the per-run and locate tables, as the JAX
+    rindex_to_device does. Runs on the card unless the caller asks for the
+    CPU."""
     import torch
 
     from .ops.tables import rindex_to_device

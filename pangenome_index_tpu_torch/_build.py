@@ -43,6 +43,8 @@ _LEVEL = (_P, _P, _P, _I, _I64, _I64, _I64, _I64, _I64, _I, _I, _I64, _P, _P, _P
 #: the bucketed provider's arguments: run_index, buckets, shift, run_rec,
 #: run_start, runs
 _BUCKET = (_P, _I64, _I, _P, _P, _I64)
+#: the dense provider's arguments: lines, n_lines, rec, runs
+_DENSE = (_P, _I64, _P, _I64)
 #: the seed table's level after its rank provider's: C, parents, n_parents,
 #: v, depth, out, stream
 _MER = (_P, _P, _I64, _I, _I, _P, _P)
@@ -132,6 +134,13 @@ SIGNATURES = {
     "pgt_mer_level_ultra": (_P, _I64) + _MER,
     "pgt_mer_level_bucketed": _BUCKET + _MER,
     "pgt_mer_level_bucketed64": _BUCKET + _MER,
+    # the dense provider at int64 positions (int64 records, int32 lines)
+    "pgt_rank6_dense64": _DENSE + (_P, _I64, _P, _P),
+    "pgt_extend_dense64": _DENSE + _EXTEND,
+    "pgt_find_mems_dense64": _DENSE + _MEMS64,
+    "pgt_count_dense64": _DENSE + (_P, _P, _I64, _P, _I64, _I64, _P, _P, _P),
+    "pgt_sdict_level_dense64": _DENSE + _LEVEL,
+    "pgt_mer_level_dense64": _DENSE + _MER,
     # the one-card tag merge (csrc/merge.cu): a pass's count, scan, place
     "pgt_merge_scan": (_P, _P, _I64, _P),
     "pgt_merge_place": (_P, _P, _P, _I64, _I, _I, _I, _P, _P, _P, _P, _P, _I64, _P, _P,

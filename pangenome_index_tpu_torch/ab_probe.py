@@ -17,6 +17,12 @@ mertable.build_mer_table_device, sharding.pad_rindex_tables and
 virtual_shards, a shard's rank6, mems.mem_step_fused and
 find_mems_lockstep).
 
+  * K1's row gather (dense_rank.gather_rows) of every record of the bench
+    index in order, as the dense table check takes them, and of 32768
+    random records, and of the m=14 seed table's 3-word rows at every
+    window of the bench reads (mertable.seed_difficulty's gather): device
+    ms by CUDA-graph replay (gather_probe.time_ms, as chip_smoke.py's
+    kernels line);
   * through dense records and through checkpoint rows (serve.prepare's
     rank_mode "dense" and "checkpoint"): K3 on all 16384 bench reads with
     the serving path's seed tiers, K7 (count.count) on chip_smoke.py's
@@ -42,7 +48,7 @@ find_mems_lockstep).
     by CUDA events around each launch, the mean of three builds, with
     their launches a build;
   * the registers ptxas gave each kernel instantiated on DenseRank or
-    BucketRank (the checkout's build log), by provider.
+    BucketRank, and the row gather's kernels (the checkout's build log).
 
 Beside each time, a digest of the call's output (its values weighted by
 their index, summed), which must be the same for every checkout.
@@ -70,6 +76,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -81,14 +88,15 @@ def main(argv=None) -> int:
     from pangenome_index_tpu_torch.mems_probe import (MEM_CAP, MER_M, MIN_LEN, MIN_OCC,
                                                       N_READS, READ_LEN, SDICT_S,
                                                       bench_workload, launch_ms)
-    from pangenome_index_tpu_torch.ops import count, mems, mertable, sparsedict
+    from pangenome_index_tpu_torch.ops import count, dense_rank, mems, mertable, sparsedict
+    from pangenome_index_tpu_torch.ops.tables import rindex_to_device
     from pangenome_index_tpu_torch.utils.synth import synth_reads
     from pangenome_index_tpu_torch.parallel import sharding
     from pangenome_index_tpu_torch.serve import prepare
 
     dev = torch.device("cuda", 0)
     _build.lib()
-    providers = ("DenseRank", "BucketRank")
+    providers = ("DenseRank", "BucketRank", "gather_rows")
     out = {"root": root, "card": gather_probe.card_name(dev),
            "registers": {p: {} for p in providers}}
     entry = ""
@@ -127,6 +135,17 @@ def main(argv=None) -> int:
             res = res if isinstance(res, tuple) else (res,)
             out[f"{kernel}_{name}_digest"] = sum(digest(f) for f in res)
 
+    # K1's row gather: every record in order, and random records
+    t_dn = rindex_to_device(idx, dev, dense=True)
+    runs = torch.arange(idx.n_runs, dtype=torch.int32, device=dev)
+    picks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, idx.n_runs, 32768).astype(np.int32)).to(dev)
+    for name, rows in (("runs", runs), ("random", picks)):
+        out[f"gather_rows_{name}_ms"] = gather_probe.time_ms(
+            lambda: dense_rank.gather_rows(t_dn.rec, rows))
+        out[f"gather_rows_{name}_digest"] = digest(dense_rank.gather_rows(t_dn.rec, rows))
+    del t_dn, runs, picks
+
     # K3, K7 and both levels through dense records and checkpoint rows
     qcodes, qlens = (torch.from_numpy(a).to(dev) for a in pack_reads(
         synth_reads(lines, N_READS, READ_LEN, error_rate=0.0, seed=2) + reads[:1024]))
@@ -138,6 +157,13 @@ def main(argv=None) -> int:
         out[f"count_{mode}_ms"] = spent["pgt_count"][0]
         out[f"count_{mode}_digest"] = sum(digest(f) for f in res)
         levels(mode, idx.n, bt, MER_M)
+        if mode == "dense":  # the seed table's rows, 3 words wide
+            table, keys = bt.seed_kw["mer_table"], bt.seed_kw["mer_keys"].reshape(-1)
+            out["gather_rows_seed_shape"] = [keys.numel(), table.shape[1]]
+            out["gather_rows_seed_ms"] = gather_probe.time_ms(
+                lambda: dense_rank.gather_rows(table, keys))
+            out["gather_rows_seed_digest"] = digest(dense_rank.gather_rows(table, keys))
+            del table, keys
         del bt, res
     del qcodes, qlens
 

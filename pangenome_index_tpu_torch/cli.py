@@ -810,7 +810,9 @@ def cmd_build_sdict(args, seconds: dict) -> int:
     """The long-seed dictionary of an index, built ahead of serving into the
     content-keyed file find-mems --long-seed reads (the JAX command's
     arguments and stderr summary). --engine device: the frontier levels run
-    on --device from the index's checkpoint rank tables; host: the numpy
+    on --device from the index's checkpoint rank tables, shipped mem_only
+    as the JAX command ships them (the levels read only the rows, C and n:
+    the per-run and locate tables stay on the host); host: the numpy
     frontier (build_sparse_dict), nothing on a device. The file is the same
     either way."""
     host = args.engine == "host"
@@ -820,7 +822,7 @@ def cmd_build_sdict(args, seconds: dict) -> int:
     mark("load")
     s = args.s if args.s > 0 else min(args.min_len - 1, 31)
     out = args.output or f"{args.ri}.sdict{s}.npz"
-    t = None if host else rindex_to_device(idx, dev, checkpoint=True)
+    t = None if host else rindex_to_device(idx, dev, checkpoint=True, mem_only=True)
     mark("tables")
     t0 = time.perf_counter()
     keys, vals = get_sparse_dict(idx, s, path=out, min_keep=args.min_keep,

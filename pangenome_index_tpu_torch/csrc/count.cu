@@ -191,8 +191,17 @@ int pgt_count_dense(const int* lines, int64_t n_lines, const int* rec,
                     int64_t n_runs, const int* C, const int* codes,
                     int64_t width, const int* lengths, int64_t n_reads, int n,
                     int* first, int* second, void* stream) {
-  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
-                    reinterpret_cast<const int4*>(rec), n_runs};
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
+  return launch(rk, C, codes, width, lengths, n_reads, n, first, second,
+                stream);
+}
+
+// the same over int64 positions: rec [n_runs, 8] int64
+int pgt_count_dense64(const int* lines, int64_t n_lines, const int64_t* rec,
+                      int64_t n_runs, const int64_t* C, const int* codes,
+                      int64_t width, const int* lengths, int64_t n_reads,
+                      int64_t n, int64_t* first, int64_t* second, void* stream) {
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
   return launch(rk, C, codes, width, lengths, n_reads, n, first, second,
                 stream);
 }

@@ -91,8 +91,17 @@ int pgt_extend_dense(const int* lines, int64_t n_lines, const int* rec,
                      int64_t n_runs, const int* C, const int* k, const int* kp,
                      const int* s, const int* code, const uint8_t* forward,
                      int64_t n, int* ok, int* okp, int* os, void* stream) {
-  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
-                    reinterpret_cast<const int4*>(rec), n_runs};
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
+  return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
+}
+
+// the same over int64 positions: rec [n_runs, 8] int64
+int pgt_extend_dense64(const int* lines, int64_t n_lines, const int64_t* rec,
+                       int64_t n_runs, const int64_t* C, const int64_t* k,
+                       const int64_t* kp, const int64_t* s, const int* code,
+                       const uint8_t* forward, int64_t n, int64_t* ok,
+                       int64_t* okp, int64_t* os, void* stream) {
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
   return launch(rk, C, k, kp, s, code, forward, n, ok, okp, os, stream);
 }
 

@@ -387,9 +387,23 @@ int pgt_find_mems_dense(const int* lines, int64_t n_lines, const int* rec,
                         int N, int M, int64_t max_iters, int* m_se,
                         int* m_bwt, int* m_size, int* count, int* steps,
                         void* stream) {
-  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
-                    reinterpret_cast<const int4*>(rec), n_runs};
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
   return launch(rk, C, codes, lengths, reinterpret_cast<const int4*>(seeds),
+                n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
+                m_se, m_bwt, m_size, count, steps, stream);
+}
+
+// dense tables at int64 positions (rec [n_runs, 8] int64), seeds from
+// pgt_resolve_seeds64
+int pgt_find_mems_dense64(const int* lines, int64_t n_lines, const int64_t* rec,
+                          int64_t n_runs, const int64_t* C, const int8_t* codes,
+                          const int* lengths, const int64_t* seeds, int n_reads,
+                          int width, int code_stride, int min_len, int min_occ,
+                          int64_t N, int M, int64_t max_iters, int* m_se,
+                          int64_t* m_bwt, int64_t* m_size, int* count, int* steps,
+                          void* stream) {
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
+  return launch(rk, C, codes, lengths, reinterpret_cast<const Seed64*>(seeds),
                 n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
                 m_se, m_bwt, m_size, count, steps, stream);
 }

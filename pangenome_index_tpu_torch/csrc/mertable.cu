@@ -154,8 +154,15 @@ int pgt_mer_level_ckpt64(const int* ckpt, int64_t nrows, const int64_t* super_S,
 int pgt_mer_level_dense(const int* lines, int64_t n_lines, const int* rec,
                         int64_t n_runs, const int* C, const int* parents,
                         int64_t n_parents, int v, int depth, int* out, void* stream) {
-  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
-                    reinterpret_cast<const int4*>(rec), n_runs};
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
+  return launch(rk, C, parents, n_parents, v, depth, out, stream);
+}
+
+int pgt_mer_level_dense64(const int* lines, int64_t n_lines, const int64_t* rec,
+                          int64_t n_runs, const int64_t* C, const int64_t* parents,
+                          int64_t n_parents, int v, int depth, int64_t* out,
+                          void* stream) {
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
   return launch(rk, C, parents, n_parents, v, depth, out, stream);
 }
 

@@ -18,9 +18,9 @@
 //
 // Checkpoint rows serve any n: int32 positions below 2^31, int64 positions
 // over two-level rows past it (CkptRank<P>). Dense records (through their
-// lines) and ultra rows are int32 only; bucketed runs serve both
-// (BucketRank<P>, through the run index RunIndex<P>, which a model shard's
-// runs also read: shard.cuh).
+// lines, DenseRank<P>) and bucketed runs (BucketRank<P>, through the run
+// index RunIndex<P>, which a model shard's runs also read: shard.cuh) serve
+// both; ultra rows are int32 only.
 #pragma once
 
 #include <cstdint>
@@ -368,19 +368,22 @@ struct Rank6Provider {
 // positions from B = 64 i, (j0 = pos_to_run[B], a 64-bit mask of the run
 // heads at B + 1 .. B + 63, a spare word), so that the run of p is j0 +
 // popc(mask & ((2 << (p & 63)) - 1)). The lines take n/4 bytes (5 MB on a
-// 20 Mbp index), which L2 (50 MB) holds, where pos_to_run takes 4n; a
-// vector is the line, from L2, then the run's 32-byte record rec [r, 8]
-// int32 (start, sym, cum0..cum5) as two 16-byte loads. A position is
-// clamped into the lines (into 0 .. n + 1: the mask is clear past the last
-// entry) and a run id into the records, as the JAX gathers clamp.
-struct DenseRank : Rank6Provider<DenseRank, int> {
+// 20 Mbp index), which L2 (50 MB) holds, where pos_to_run takes 4n (8n at
+// int64); a vector is the line, from L2, then the run's record rec [r, 8]
+// of P (start, sym, cum0..cum5): 32 bytes at int32 as two 16-byte loads,
+// 64 at int64 as four. The lines are int32 at either P (j0 is a run id,
+// below 2^31 wherever the records fit a card). A position is clamped into
+// the lines (into 0 .. n + 1: the mask is clear past the last entry) and a
+// run id into the records, as the JAX gathers clamp.
+template <class P>
+struct DenseRank : Rank6Provider<DenseRank<P>, P> {
   const int4* lines;  // [n_lines] (j0, mask low word, mask high word, spare)
   int64_t n_lines;
-  const int4* rec;    // [r, 8] viewed as [r, 2] int4
+  const int4* rec;    // [r, 8] of P viewed as int4 (two a record, or four)
   int64_t n_runs;
 
   // p's line; p is clamped into the lines' positions
-  __device__ __forceinline__ int4 line(int pos, int& k) const {
+  __device__ __forceinline__ int4 line(P pos, int& k) const {
     const int64_t p = clamp64(pos, 0, 64 * n_lines - 1);
     k = static_cast<int>(p & 63);
     return __ldg(lines + (p >> 6));
@@ -393,31 +396,53 @@ struct DenseRank : Rank6Provider<DenseRank, int> {
   }
 
   // rank6 at pos from the record of run j: cum + onehot(sym) * (pos - start)
-  __device__ __forceinline__ void rank6_at(int pos, int64_t j, int (&r)[6]) const {
-    const int4 a = __ldg(rec + 2 * j), b = __ldg(rec + 2 * j + 1);
-    const int extra = pos - a.x;
-    r[0] = a.z; r[1] = a.w; r[2] = b.x; r[3] = b.y; r[4] = b.z; r[5] = b.w;
+  __device__ __forceinline__ void rank6_at(P pos, int64_t j, P (&r)[6]) const {
+    if constexpr (sizeof(P) == 4) {  // 32 bytes: two 16-byte loads
+      const int4 a = __ldg(rec + 2 * j), b = __ldg(rec + 2 * j + 1);
+      const int extra = pos - a.x;
+      r[0] = a.z; r[1] = a.w; r[2] = b.x; r[3] = b.y; r[4] = b.z; r[5] = b.w;
 #pragma unroll
-    for (int c = 0; c < 6; ++c) r[c] += (a.y == c) ? extra : 0;
+      for (int c = 0; c < 6; ++c) r[c] += (a.y == c) ? extra : 0;
+    } else {  // 64 bytes: four 16-byte loads
+      const longlong2* q = reinterpret_cast<const longlong2*>(rec) + 4 * j;
+      const longlong2 a = __ldg(q), b = __ldg(q + 1), c = __ldg(q + 2), e = __ldg(q + 3);
+      const P extra = pos - a.x;
+      r[0] = b.x; r[1] = b.y; r[2] = c.x; r[3] = c.y; r[4] = e.x; r[5] = e.y;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) r[i] += (a.y == i) ? extra : P{0};
+    }
   }
 
-  __device__ __forceinline__ void rank6(int pos, int (&r)[6]) const {
+  __device__ __forceinline__ void rank6(P pos, P (&r)[6]) const {
     int k;
     const int4 e = line(pos, k);
     rank6_at(pos, run(e, k), r);
   }
 
   // both positions' lines, then both records: two round trips a pair
-  __device__ __forceinline__ Rank6Pair<int> load(int pos, int s) const {
-    const int p2 = pos + s;
+  __device__ __forceinline__ Rank6Pair<P> load(P pos, P s) const {
+    const P p2 = pos + s;
     int k1, k2;
     const int4 e1 = line(pos, k1), e2 = line(p2, k2);
-    Rank6Pair<int> r;
+    Rank6Pair<P> r;
     rank6_at(pos, run(e1, k1), r.a);
     rank6_at(p2, run(e2, k2), r.b);
     return r;
   }
 };
+
+// The dense provider of a C entry point's arguments: the lines [n_lines, 4]
+// int32 and the records [n_runs, 8] of P.
+template <class P>
+inline DenseRank<P> make_dense(const int* lines, int64_t n_lines, const P* rec,
+                               int64_t n_runs) {
+  DenseRank<P> rk;
+  rk.lines = reinterpret_cast<const int4*>(lines);
+  rk.n_lines = n_lines;
+  rk.rec = reinterpret_cast<const int4*>(rec);
+  rk.n_runs = n_runs;
+  return rk;
+}
 
 // Ultra rows: rank_table [n+2, 8] int32, row p = occ of each code before p
 // (columns 6, 7 zero: 32 bytes). One row a vector as two 16-byte loads, the

@@ -363,8 +363,21 @@ int pgt_sdict_level_dense(const int* lines, int64_t n_lines, const int* rec,
                           int thresh, int level, int64_t blocks, void* state,
                           int64_t* keys_out, int* vals_out, int* offsets,
                           int* totals, void* stream) {
-  pgt::DenseRank rk{{}, reinterpret_cast<const int4*>(lines), n_lines,
-                    reinterpret_cast<const int4*>(rec), n_runs};
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
+  return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
+                      thresh, level, blocks, state, keys_out, vals_out,
+                      offsets, totals, stream);
+}
+
+// the same over dense tables at int64 positions (rec and vals int64)
+int pgt_sdict_level_dense64(const int* lines, int64_t n_lines, const int64_t* rec,
+                            int64_t n_runs, const int64_t* C, const int64_t* keys_in,
+                            const int64_t* vals_in, int regions, int64_t stride,
+                            int64_t c0, int64_t c1, int64_t c2, int64_t c3,
+                            int thresh, int level, int64_t blocks, void* state,
+                            int64_t* keys_out, int64_t* vals_out, int* offsets,
+                            int* totals, void* stream) {
+  const auto rk = pgt::make_dense(lines, n_lines, rec, n_runs);
   return launch_level(rk, C, keys_in, vals_in, regions, stride, c0, c1, c2, c3,
                       thresh, level, blocks, state, keys_out, vals_out,
                       offsets, totals, stream);

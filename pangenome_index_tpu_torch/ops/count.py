@@ -6,9 +6,9 @@ interval (first, second), or the reference's (1, 0) sentinel when it does
 not occur. The kernel runs one thread per read, with the block's codes
 staged in shared memory ahead of the chain, and stops at the sentinel; the
 plain version keeps JAX's lockstep loop over the longest read. The kernel
-ranks through checkpoint rows or dense records (query-tags builds checkpoint
-rows in every rank mode, as the reference does); the plain version through
-any tables.
+ranks through checkpoint rows or dense records, at int32 or int64 positions
+(query-tags builds checkpoint rows in every rank mode, as the reference
+does); the plain version through any tables.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from .rank import lf_range
 from .tables import RIndexTables
 
 #: the rank providers the kernel is instantiated for (fmd.rank_args kinds)
-COUNT_KINDS = ("ckpt", "ckpt64", "dense")
+COUNT_KINDS = ("ckpt", "ckpt64", "dense", "dense64")
 
 
 def count_plain(t: RIndexTables, codes: torch.Tensor, lengths: torch.Tensor):

@@ -3,11 +3,14 @@
 Counterparts of pangenome_index_tpu/ops/pallas_rank.py: gather_rows_pallas
 (rec[idx] by aligned 8-row DMA windows, so it needed B % 8 == 0) and
 rank6_pallas (dense rank6 on top of it). The kernels take any batch size.
-Row indices clamp into the table, as JAX gathers do. The rank kernel finds a
-position's run through the tables' dense lines (tables.derive_dense_lines),
-not pos_to_run; dense_run_of_plain is the plain reader of those lines, and
-rank6_dense_plain, the plain version, reads pos_to_run as the JAX function
-does.
+Row indices clamp into the table, as JAX gathers do. The row gather copies
+int32 words: rows of 8 or 16 words a 16-byte vector a thread (int64
+records are gathered as their int32 words, rec.view(torch.int32)), other
+widths a word a thread. The rank kernel finds a position's run through the
+tables' dense lines (tables.derive_dense_lines), not pos_to_run, at int32
+or int64 positions, as rank6_pallas takes either; dense_run_of_plain is
+the plain reader of those lines, and rank6_dense_plain, the plain version,
+reads pos_to_run as the JAX function does.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 its `launches` attribute; for CPU tensors it runs the plain version beside it.
@@ -31,8 +34,10 @@ def gather_rows(rec: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if rec.device.type == "cpu":
         return gather_rows_plain(rec, idx)
     dev = rec.device
-    if rec.dim() != 2:
+    if rec.dim() != 2 or not rec.shape[1]:
         raise ValueError("gather_rows: rec must be [rows, width]")
+    if idx.shape[0] and not rec.shape[0]:
+        raise ValueError("gather_rows: rows asked of an empty table")
     out = torch.empty((idx.shape[0], rec.shape[1]), dtype=torch.int32, device=dev)
     _build.launch("pgt_gather_rows",
                   _build.check("rec", rec, torch.int32, dev), rec.shape[0],
@@ -69,11 +74,11 @@ def dense_run_of_plain(lines: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
 
 def dense_args(t: RIndexTables) -> tuple:
     """The dense provider's C arguments (dense_lines, lines, rec, runs): int32
-    lines and records, as the kernels take them (n < 2^31)."""
+    lines, and records of the tables' position dtype (int32, or int64 past
+    2^31 or where the caller asked for it)."""
     dev = t.device
-    if t.rec is None or t.pos_dtype != torch.int32:
-        raise ValueError("dense records take int32 positions (n < 2^31): past it the "
-                         "kernels rank through checkpoint rows or bucketed runs")
+    if t.rec is None or t.pos_dtype not in (torch.int32, torch.int64):
+        raise ValueError("dense tables need records of int32 or int64 positions")
     if t.dense_lines is None or t.dense_lines.dim() != 2 or t.dense_lines.shape[1] != 4 \
             or not t.dense_lines.shape[0]:
         raise ValueError("dense tables need their lines [L, 4] "
@@ -81,20 +86,21 @@ def dense_args(t: RIndexTables) -> tuple:
     if t.rec.dim() != 2 or t.rec.shape[1] != 8 or not t.rec.shape[0]:
         raise ValueError("rec must be [runs, 8]")
     return (_build.check("dense_lines", t.dense_lines, torch.int32, dev),
-            t.dense_lines.shape[0], _build.check("rec", t.rec, torch.int32, dev),
+            t.dense_lines.shape[0], _build.check("rec", t.rec, t.pos_dtype, dev),
             t.rec.shape[0])
 
 
 def rank6_dense(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
-    """Dense rank6 of int32 positions over int32 tables ([B] -> [B, 6]): one
-    launch through the lines and records on the card, the plain version
-    (pos_to_run, rec) on the CPU."""
+    """Dense rank6 of positions in the tables' dtype, int32 or int64 ([B] ->
+    [B, 6] of that dtype): one launch through the lines and records on the
+    card, the plain version (pos_to_run, rec) on the CPU."""
     if pos.device.type == "cpu":
         return rank6_dense_plain(t.rec, t.pos_to_run, pos)
     args = dense_args(t)
-    out = torch.empty((pos.shape[0], 6), dtype=torch.int32, device=t.device)
-    _build.launch("pgt_rank6_dense", *args,
-                  _build.check("pos", pos, torch.int32, t.device), pos.shape[0],
+    pd = t.pos_dtype
+    out = torch.empty((pos.shape[0], 6), dtype=pd, device=t.device)
+    _build.launch("pgt_rank6_dense64" if pd == torch.int64 else "pgt_rank6_dense", *args,
+                  _build.check("pos", pos, pd, t.device), pos.shape[0],
                   out.data_ptr(), _build.stream(t.device))
     rank6_dense.launches += 1
     return out

@@ -9,7 +9,7 @@ return (0, 0, 0). The rank provider is the table's, in ops/rank.py:rank6's
 order: checkpoint rows, ultra rows, dense records, bucketed runs. The kernel
 reads the checkpoint rows in their bit-plane form (tables.ckpt_planes), at
 int32 positions or, past 2^31, at int64 over two-level rows (with
-tables.super_S); ultra rows and dense records at int32 positions; bucketed
+tables.super_S); ultra rows at int32 positions; dense records and bucketed
 runs at either.
 """
 
@@ -69,8 +69,9 @@ def extend_from_ranks(C, k, kp, s, code, forward, r_k, r_ks):
 def check_kernel_tables(t: RIndexTables) -> None:
     """The kernels take checkpoint rows at int32 positions (single-level
     rows, n < 2^31) or int64 positions (two-level rows past 2^31, or
-    single-level), ultra rows and dense records at int32 positions, and
-    bucketed runs at either; base tables (no bucket_lo) they refuse."""
+    single-level), ultra rows at int32 positions, and dense records (int32
+    lines beside records of the position dtype) and bucketed runs at
+    either; base tables (no bucket_lo) they refuse."""
     if t.pos_dtype not in (torch.int32, torch.int64):
         raise ValueError(f"the CUDA kernels take int32 or int64 positions, "
                          f"not {t.pos_dtype}")
@@ -101,7 +102,8 @@ def rank_args(t: RIndexTables) -> tuple[str, tuple]:
     """(entry point suffix, leading C arguments) of the table's rank
     provider, in ops/rank.py:rank6's order: "ckpt" (int32 positions),
     "ckpt64" (int64 positions, with the superblock bases), "ultra", "dense"
-    (the lines and records), "bucketed" (int32) or "bucketed64" (int64)."""
+    (the lines and records; int32) or "dense64" (int64), "bucketed" (int32)
+    or "bucketed64" (int64)."""
     dev = t.device
     if t.ckpt is not None:
         planes = (_build.check("ckpt_planes", t.ckpt_planes, torch.int32, dev),
@@ -113,7 +115,7 @@ def rank_args(t: RIndexTables) -> tuple[str, tuple]:
     if t.rank_table is not None:
         return "ultra", ultra_args(t)
     if t.rec is not None:
-        return "dense", dense_args(t)
+        return ("dense" if t.pos_dtype == torch.int32 else "dense64"), dense_args(t)
     if t.bucket_lo is None:
         raise ValueError("base tables (no bucket_lo): the kernels rank through "
                          "bucketed runs only")

@@ -16,8 +16,11 @@ records_rank6 are their plain readers, which rank6_bucketed_plain takes.
 
 Each checkpoint row holds the occ counts before its bucket (cols 0..5) and
 the bucket's 64 BWT codes as 4-bit nibbles (cols 6..13, LSB first, 0xF past
-n); rank6(pos) is the row of pos >> 6 plus the count of each code among its
-first pos & 63 nibbles. Row indices clamp into the table as JAX gathers do.
+n), or, in rows of 24 words, its 128 codes (cols 6..21; the JAX package's
+ckpt_block=128); rank6(pos) is the row of pos >> 6 (pos >> 7) plus the
+count of each code among its first pos & 63 (pos & 127) nibbles, the block
+read from the row width as the JAX _ckpt_rank6 reads it. Row indices clamp
+into the table as JAX gathers do.
 The kernels read the same counts from a bit-plane form of the rows (and,
 for int64 positions, the superblock bases super_S of two-level rows);
 planes_rank6 is its plain reader, held against ckpt_rank6 by the tests.
@@ -44,12 +47,15 @@ _NIBBLE_SHIFTS = torch.arange(0, 32, 4, dtype=torch.int32)
 def ckpt_rank6(t: RIndexTables, pos: torch.Tensor) -> torch.Tensor:
     """pos [B] -> [B, 6] occ counts, including the two-level ckpt_super add."""
     ckpt = t.ckpt
-    row = ckpt[(pos.long() >> 6).clamp(0, ckpt.shape[0] - 1)]     # [B, 16]
+    nwords = ckpt.shape[1] - 8                                    # 8 or 16
+    block = 8 * nwords                                            # 64 or 128
+    shift = block.bit_length() - 1
+    row = ckpt[(pos.long() >> shift).clamp(0, ckpt.shape[0] - 1)]
     shifts = _NIBBLE_SHIFTS.to(ckpt.device)
-    nib = (row[:, 6:14, None] >> shifts) & 0xF                    # [B, 8, 8]
-    nib = nib.reshape(-1, 64)                                     # LSB first
-    before = torch.arange(64, device=ckpt.device)[None, :] \
-        < (pos.long() & 63)[:, None]
+    nib = (row[:, 6 : 6 + nwords, None] >> shifts) & 0xF         # [B, nwords, 8]
+    nib = nib.reshape(-1, block)                                  # LSB first
+    before = torch.arange(block, device=ckpt.device)[None, :] \
+        < (pos.long() & (block - 1))[:, None]
     codes = torch.arange(6, device=ckpt.device, dtype=nib.dtype)
     hits = (nib[:, None, :] == codes[None, :, None]) & before[:, None, :]
     r6 = row[:, :6].to(t.pos_dtype) + hits.sum(dim=2).to(t.pos_dtype)

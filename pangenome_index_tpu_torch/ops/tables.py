@@ -27,7 +27,11 @@ JAX package; the kernels take either (an instantiation for each). At n >=
 2^31 the checkpoint rows are the two-level form: int32 counts relative to
 their superblock of 2^SUPER_SHIFT positions, and `ckpt_super` the absolute
 counts at each superblock start, which the kernels read as `super_S`
-(`derive_super_S`) from shared memory.
+(`derive_super_S`) from shared memory. Checkpoint rows hold 64 positions
+(16 words) or, as the JAX package's ckpt_block=128, 128 (24 words); the
+kernels read 64-position bit-plane rows of either (`derive_rank_planes`).
+With mem_only the per-run and locate tables ship as the JAX package's
+one-row stubs.
 """
 
 from __future__ import annotations
@@ -43,9 +47,12 @@ from ..utils.alphabet import COMP_CODE
 
 #: default superblock width of the two-level checkpoint layout (n >= 2^31)
 SUPER_SHIFT = 30
-#: positions per checkpoint row (the 128-position variant of the JAX package
-#: measured slower and is not carried over)
+#: positions per checkpoint row by default (the JAX package's ckpt_block)
 CKPT_BLOCK = 64
+#: a checkpoint row's width in int32 words at each block the JAX package
+#: takes: six occ counts and the block's 4-bit codes, padded to a multiple
+#: of 8
+CKPT_WIDTH = {64: 16, 128: 24}
 #: the superblock shift that single-level rows are read with
 SINGLE_LEVEL_SHIFT = 62
 #: superblocks the kernels take (csrc/rank.cuh:kMaxSuper, staged in shared
@@ -81,8 +88,10 @@ class RIndexTables:
     # dense: what the kernels read in place of pos_to_run (derive_dense_lines):
     # [ceil((n+2) / 64), 4] int32, a 16-byte line for each 64 positions
     dense_lines: torch.Tensor | None = None
-    ckpt: torch.Tensor | None = None        # checkpoint: [n//64+2, 16] int32
-    ckpt_planes: torch.Tensor | None = None  # the kernels' form of ckpt
+    # checkpoint: [n//64+2, 16] int32, or [n//128+2, 24] (ckpt_block=128)
+    ckpt: torch.Tensor | None = None
+    # the kernels' form of ckpt: [rows, 16] int32, 64 positions a row
+    ckpt_planes: torch.Tensor | None = None
     ckpt_super: torch.Tensor | None = None  # two-level: [n_super, 6+shift] int64
     # int64 checkpoint tables: the kernels' form of ckpt_super (one row of
     # zeros for single-level rows), derive_super_S
@@ -174,18 +183,21 @@ def _put(a, dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
 
 
-def build_ckpt_rows(idx: RIndex, chunk: int = 1 << 22,
+def build_ckpt_rows(idx: RIndex, ckpt_block: int = CKPT_BLOCK, chunk: int = 1 << 22,
                     super_shift: int | None = None):
     """Host construction of the checkpoint rank table.
 
-    A copy of pangenome_index_tpu/ops/tables.py:build_ckpt_rows (64-position
-    rows only): the JAX module imports jax when it is loaded, so the port
-    cannot import it from there. Returns (rows [(n >> 6) + 2, 16] int32,
-    super_base [n_super, 6 + super_shift] int64 or None). For n >= 2^31, or
-    an explicit super_shift, the occ columns are relative to their
-    2^super_shift-position superblock and super_base holds the absolute occ
-    at each superblock start; otherwise rows are absolute."""
-    shift = CKPT_BLOCK.bit_length() - 1
+    A copy of pangenome_index_tpu/ops/tables.py:build_ckpt_rows: the JAX
+    module imports jax when it is loaded, so the port cannot import it from
+    there. Returns (rows [(n >> shift) + 2, width] int32, 2^shift =
+    ckpt_block of 64 (width 16) or 128 (width 24), super_base [n_super, 6 +
+    super_shift] int64 or None). For n >= 2^31, or an explicit super_shift,
+    the occ columns are relative to their 2^super_shift-position superblock
+    and super_base holds the absolute occ at each superblock start;
+    otherwise rows are absolute."""
+    if ckpt_block not in CKPT_WIDTH:
+        raise ValueError("ckpt_block must be 64 or 128")
+    shift = ckpt_block.bit_length() - 1
     if super_shift is None:
         super_shift = SUPER_SHIFT if idx.n >= 2**31 else 0
     ss = super_shift
@@ -194,10 +206,10 @@ def build_ckpt_rows(idx: RIndex, chunk: int = 1 << 22,
                          "super_shift <= 31 (int32 relative counts)")
     if ss and ss < shift:
         raise ValueError("super_shift must be >= the bucket shift")
-    nwords = CKPT_BLOCK // 8                 # 4-bit codes, 8 per int32
-    width = 16                               # 6 + nwords, padded to x8
+    nwords = ckpt_block // 8                 # 4-bit codes, 8 per int32
+    width = CKPT_WIDTH[ckpt_block]           # 6 + nwords, padded to x8
     n_buckets = (int(idx.n) >> shift) + 2
-    chunk = max(CKPT_BLOCK, chunk - chunk % CKPT_BLOCK)  # bucket-aligned
+    chunk = max(ckpt_block, chunk - chunk % ckpt_block)  # bucket-aligned
     row = np.zeros((n_buckets, width), dtype=np.int32)
     super_base = None
     if ss:
@@ -215,8 +227,8 @@ def build_ckpt_rows(idx: RIndex, chunk: int = 1 << 22,
                - np.maximum(idx.run_start[j0:j1], p0))
         codes = np.repeat(idx.run_sym[j0:j1], seg)
         b0 = p0 >> shift
-        nb = (p1 - p0 + CKPT_BLOCK - 1) >> shift
-        padded = np.full(nb * CKPT_BLOCK, 15, dtype=np.uint8)
+        nb = (p1 - p0 + ckpt_block - 1) >> shift
+        padded = np.full(nb * ckpt_block, 15, dtype=np.uint8)
         padded[: p1 - p0] = codes
         nib = padded.reshape(nb, nwords, 8).astype(np.uint32)
         row[b0 : b0 + nb, 6 : 6 + nwords] = (
@@ -250,20 +262,46 @@ def build_ckpt_rows(idx: RIndex, chunk: int = 1 << 22,
     return row, super_base
 
 
+def split_ckpt_rows(rows: torch.Tensor) -> torch.Tensor:
+    """128-position checkpoint rows [R, 24] (ckpt_block=128: six occ counts,
+    128 four-bit codes in words 6..21) -> the 64-position rows [2R, 16] of
+    the same positions: row 2i keeps row i's counts and its first 64 codes,
+    row 2i + 1 takes its last 64 codes and its counts plus those of each code
+    among the first 64 (the 0xF fillers past n count for none). The counts
+    of two-level rows stay relative to the superblock of their 128
+    positions, which holds both halves (superblocks are at least 2^7
+    positions)."""
+    dev = rows.device
+    shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=dev)
+    nib = ((rows[:, 6:14, None] >> shifts) & 0xF).reshape(-1, 64)
+    first = torch.stack([(nib == c).sum(dim=1) for c in range(6)], dim=1)
+    out = torch.zeros((2 * rows.shape[0], 16), dtype=torch.int32, device=dev)
+    out[0::2, :14] = rows[:, :14]
+    out[1::2, :6] = rows[:, :6] + first.to(torch.int32)
+    out[1::2, 6:14] = rows[:, 14:22]
+    return out
+
+
 def derive_rank_planes(ckpt: torch.Tensor, chunk_rows: int = 1 << 16) -> torch.Tensor:
     """The kernels' checkpoint table, derived from `ckpt` on its device.
 
     `ckpt` rows (six occ bases, 64 four-bit codes: the layout shared with
-    the JAX package) become rows of the same 64 bytes laid out for 64-bit
-    popcounts (csrc/rank.cuh:CkptRank), with q = COMP_CODE[code]:
+    the JAX package; 128-position rows of 24 words are read as two such
+    rows each, split_ckpt_rows) become rows of the same 64 bytes laid out
+    for 64-bit popcounts (csrc/rank.cuh:CkptRank), with q = COMP_CODE[code]:
       words 0..5   three 64-bit planes of q (lo word, hi word; bit i =
                    position i of the row), q = 7 for the 0xF fillers past n
       words 6..15  the pairs (S[1], S[2]), (S[2], S[3]), (S[3], S[4]),
                    (S[4], S[5]), (S[5], S[6]), S[j] = positions before the
                    row with q < j (overlapping, so that S[q] and S[q + 1]
                    are one aligned 8-byte load)
+    So the kernels read 64-position rows whatever the block of `ckpt`.
     Two-level rows (n >= 2^31) keep the same form: their S[j] count from
     the superblock start and fit int32; derive_super_S gives the bases."""
+    if ckpt.dim() != 2 or ckpt.shape[1] not in CKPT_WIDTH.values():
+        raise ValueError(f"checkpoint rows must be [rows, 16] or [rows, 24], not "
+                         f"{list(ckpt.shape)}")
+    halves = 2 if ckpt.shape[1] == CKPT_WIDTH[128] else 1
     dev = ckpt.device
     comp = torch.as_tensor(COMP_CODE.astype(np.int64), device=dev)
     q_of_nibble = torch.full((16,), 7, dtype=torch.int64, device=dev)
@@ -271,17 +309,20 @@ def derive_rank_planes(ckpt: torch.Tensor, chunk_rows: int = 1 << 16) -> torch.T
     shifts = torch.arange(0, 32, 4, dtype=torch.int32, device=dev)
     bit = torch.ones(64, dtype=torch.int64, device=dev) \
         << torch.arange(64, dtype=torch.int64, device=dev)
-    out = torch.zeros_like(ckpt)
+    out = torch.zeros((halves * ckpt.shape[0], 16), dtype=torch.int32, device=dev)
     for r0 in range(0, ckpt.shape[0], chunk_rows):
         rows = ckpt[r0 : r0 + chunk_rows]
+        if halves == 2:
+            rows = split_ckpt_rows(rows)
+        o0 = halves * r0
         nib = ((rows[:, 6:14, None] >> shifts) & 0xF).reshape(-1, 64)  # LSB first
         q = q_of_nibble[nib.long()]
         planes = torch.stack([(((q >> b) & 1) * bit).sum(dim=1)
                               for b in range(3)], dim=1)
-        out[r0 : r0 + chunk_rows, :6] = planes.view(torch.int32)
+        out[o0 : o0 + rows.shape[0], :6] = planes.view(torch.int32)
         below = torch.cumsum(rows[:, :6].long()[:, comp], dim=1)   # S[1..6]
         pairs = torch.stack((below[:, :5], below[:, 1:]), dim=2)
-        out[r0 : r0 + chunk_rows, 6:] = pairs.reshape(-1, 10).to(torch.int32)
+        out[o0 : o0 + rows.shape[0], 6:] = pairs.reshape(-1, 10).to(torch.int32)
     return out
 
 
@@ -632,9 +673,9 @@ def derive_dense_lines(pos_to_run: torch.Tensor) -> torch.Tensor:
 
 def with_dense_lines(t: "RIndexTables") -> "RIndexTables":
     """The dense tables' lines (derive_dense_lines), derived on their device
-    where the positions are int32, the only dense form the kernels take
-    (returns t; other tables are left as they are)."""
-    if t.pos_to_run is not None and t.pos_dtype == torch.int32:
+    at either position dtype (returns t; other tables are left as they
+    are)."""
+    if t.pos_to_run is not None:
         t.dense_lines = derive_dense_lines(t.pos_to_run)
     return t
 
@@ -653,9 +694,39 @@ def with_run_index(t: "RIndexTables") -> "RIndexTables":
     return t
 
 
+#: runs whose positions dense_pos_to_run fills at a time, which bounds its
+#: temporaries on the device (their positions, 8 bytes each at int64)
+DENSE_CHUNK_RUNS = 1 << 16
+
+
+def dense_pos_to_run(idx: RIndex, dtype: torch.dtype, device) -> torch.Tensor:
+    """pos_to_run [n + 2] of `dtype` on `device`: each run's id over its
+    positions, then two pads of the last run (the JAX package's np.repeat
+    and concatenate), filled on the device DENSE_CHUNK_RUNS runs at a time
+    from the run lengths, so that the host holds no n-sized array (17 GB of
+    int64 at n = 2.16 G)."""
+    device = torch.device(device)
+    n, r = int(idx.n), int(idx.n_runs)
+    out = torch.empty(n + 2, dtype=dtype, device=device)
+    lens = np.ascontiguousarray(idx.run_len, dtype=np.int64)
+    at = 0
+    for j0 in range(0, r, DENSE_CHUNK_RUNS):
+        j1 = min(j0 + DENSE_CHUNK_RUNS, r)
+        span = int(lens[j0:j1].sum())
+        out[at : at + span] = torch.repeat_interleave(
+            torch.arange(j0, j1, dtype=dtype, device=device),
+            torch.from_numpy(lens[j0:j1]).to(device), output_size=span)
+        at += span
+    if at != n:
+        raise ValueError(f"the run lengths sum to {at}, not n = {n}")
+    out[n:] = r - 1
+    return out
+
+
 def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
                      dense: bool = False, ultra: bool = False,
-                     bucketed: bool = False, super_shift: int | None = None,
+                     bucketed: bool = False, ckpt_block: int = CKPT_BLOCK,
+                     super_shift: int | None = None, mem_only: bool = False,
                      dtype: torch.dtype | None = None) -> RIndexTables:
     """r-index -> tables on `device` with checkpoint rows, dense records,
     ultra rows, or any of them together (rank reads the checkpoint rows
@@ -667,43 +738,50 @@ def rindex_to_device(idx: RIndex, device, checkpoint: bool = False,
     as the JAX rindex_to_device with the same flags (whose bucketed is True
     by default: here False, base tables), what locate reads
     (with_locate_tables), for bucketed tables the run index and records
-    the kernels rank through (with_run_index), and for int32 dense tables
-    the lines the kernels find a position's run through (with_dense_lines).
+    the kernels rank through (with_run_index), and for dense tables the
+    lines the kernels find a position's run through (with_dense_lines), at
+    either position dtype.
 
     Positions are `dtype`, by default int32 where every value fits and int64
-    past 2^31; rows are two-level at n >= 2^31 or with an explicit
-    super_shift (the kernels take two-level rows with int64 positions)."""
+    past 2^31; checkpoint rows hold ckpt_block (64 or 128) positions and are
+    two-level at n >= 2^31 or with an explicit super_shift (the kernels take
+    two-level rows with int64 positions). mem_only (with checkpoint, as in
+    the JAX package) ships one-row stubs of the per-run and locate tables
+    (run_sym, run_start, last_sorted, last_to_run, samples; cum is a stub
+    beside any row table): MEM finding and counting read only the rank
+    tables, C and n; locate needs the full tables."""
+    if mem_only and not checkpoint:
+        raise ValueError("mem_only requires checkpoint mode")
     device = torch.device(device)
     pd = dtype or pos_dtype_for(idx)
     ckpt = ckpt_super = pos_to_run = rec = rank_table = None
     if checkpoint:
-        rows, sup = build_ckpt_rows(idx, super_shift=super_shift)
+        rows, sup = build_ckpt_rows(idx, ckpt_block, super_shift=super_shift)
         ckpt = _put(rows, torch.int32, device)
         if sup is not None:
             ckpt_super = _put(sup, torch.int64, device)
     if ultra:
         rank_table = torch.from_numpy(build_rank_table(idx, pd)).to(device)
     if dense:
-        runs = np.repeat(np.arange(idx.n_runs, dtype=np.int64), idx.run_len)
-        p2r = np.concatenate((runs, [idx.n_runs - 1, idx.n_runs - 1]))
-        pos_to_run = _put(p2r, pd, device)
+        pos_to_run = dense_pos_to_run(idx, pd, device)
         rec_np = np.zeros((idx.n_runs, 8), dtype=np.int64)
         rec_np[:, 0] = idx.run_start
         rec_np[:, 1] = idx.run_sym
         rec_np[:, 2:8] = idx.cum
         rec = _put(rec_np, pd, device)
     row_table = checkpoint or dense or ultra
-    run_start = _put(idx.run_start, pd, device)
+    keep = slice(0, 1) if mem_only else slice(None)
+    run_start = _put(idx.run_start[keep], pd, device)
     return with_dense_lines(with_run_index(with_locate_tables(with_rank_planes(RIndexTables(
-        run_sym=_put(idx.run_sym, torch.int8, device),
+        run_sym=_put(idx.run_sym[keep], torch.int8, device),
         run_start=run_start,
         # only the run-based modes rank through the per-run cum table;
         # beside a row rank table it ships a 1-row stub, as in the JAX package
         cum=_put(idx.cum[:1] if row_table else idx.cum, pd, device),
         C=_put(idx.C, pd, device),
-        samples=_put(np.concatenate((idx.samples, [0])), pd, device),
-        last_sorted=_put(idx.last_sorted, pd, device),
-        last_to_run=_put(idx.last_to_run, pd, device),
+        samples=_put(np.concatenate((idx.samples, [0]))[keep], pd, device),
+        last_sorted=_put(idx.last_sorted[keep], pd, device),
+        last_to_run=_put(idx.last_to_run[keep], pd, device),
         n=int(idx.n), n_seq=int(idx.n_seq), max_len=int(idx.max_len),
         bucket_lo=(derive_bucket_lo(run_start, int(idx.n))
                    if bucketed and not row_table else None),

@@ -154,15 +154,15 @@ def pad_rindex_tables(idx: RIndex, n_shards: int, checkpoint: bool = False,
     sentinel runs (start n + 1, the full cumulative counts), the JAX
     function's arrays element for element: bucketed runs, or with
     checkpoint=True the checkpoint rows, padded to a multiple of n_shards
-    rows with copies of the last row (unreachable for positions <= n).
+    rows with copies of the last row (unreachable for positions <= n);
+    rows of ckpt_block positions, 64 or 128, as in the JAX function.
     mem_only (with checkpoint): the per-run and locate tables as one-row
     stubs, run_sym and run_start tiled to n_shards rows. The port's derived
-    tables (bit planes, superblock bases, the locate tables) follow the
-    padded arrays. The tables are built on `device`: a card unless the
-    caller asks for the CPU (RuntimeError where there is no card), as the
-    JAX function places them on its default device."""
-    if ckpt_block != CKPT_BLOCK:
-        raise ValueError(f"the port's checkpoint rows hold {CKPT_BLOCK} positions")
+    tables (bit planes of 64 positions whatever the block, superblock
+    bases, the locate tables) follow the padded arrays. The tables are
+    built on `device`: a card unless the caller asks for the CPU
+    (RuntimeError where there is no card), as the JAX function places them
+    on its default device."""
     if mem_only and not checkpoint:
         raise ValueError("mem_only requires checkpoint mode")
     device = torch.device(device)
@@ -184,12 +184,11 @@ def pad_rindex_tables(idx: RIndex, n_shards: int, checkpoint: bool = False,
                 (idx.last_sorted, np.full(pad, np.iinfo(np.int64).max // 4, np.int64))),
             last_to_run=np.concatenate((idx.last_to_run, np.zeros(pad, np.int64))))
     t = rindex_to_device(idx, device, checkpoint=checkpoint, bucketed=True,
-                         super_shift=super_shift, dtype=dtype)
-    if mem_only:
-        t.run_sym = t.run_sym[:1].repeat(n_shards)
-        t.run_start = t.run_start[:1].repeat(n_shards)
-        t.last_sorted, t.last_to_run = t.last_sorted[:1], t.last_to_run[:1]
-        t.samples = t.samples[:1]
+                         ckpt_block=ckpt_block, super_shift=super_shift,
+                         mem_only=mem_only, dtype=dtype)
+    if mem_only:  # the stubs divide over the model shards
+        t.run_sym = t.run_sym.repeat(n_shards)
+        t.run_start = t.run_start.repeat(n_shards)
         with_locate_tables(t)
     if checkpoint:
         rpad = (-t.ckpt.shape[0]) % n_shards

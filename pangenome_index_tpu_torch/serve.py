@@ -11,10 +11,10 @@ reads saved K3 was less than the sort and its inverse gathers cost (PERF.md).
 Four rank configurations, the reference's --rank-mode choices: checkpoint
 rows (the serving default), dense run records (the counterpart of the TPU's
 Pallas rank path), ultra rows (one 32-byte row of counts a position) and
-bucketed runs (a bucket index into the per-run tables). Checkpoint rows and
-bucketed runs serve any n: past 2^31 positions their tables are int64 (the
-rows two-level) and every kernel runs its int64 instantiation; dense
-records and ultra rows are int32.
+bucketed runs (a bucket index into the per-run tables). Checkpoint rows,
+dense records and bucketed runs serve any n: past 2^31 positions their
+tables are int64 (the rows two-level) and every kernel runs its int64
+instantiation; ultra rows are int32.
 """
 
 from __future__ import annotations
@@ -62,9 +62,12 @@ def check_dense_tables(t: RIndexTables) -> None:
     """Exactness guard for dense tables: rank6 at every run head must equal
     that run's record, i.e. the lines the kernels read (derived from
     pos_to_run) and rec describe the same runs (a mismatch would make every
-    answer silently wrong)."""
+    answer silently wrong). The records come through the row gather as
+    int32 words (an int64 record is 16 of them), at either position
+    dtype."""
     runs = torch.arange(t.rec.shape[0], dtype=torch.int32, device=t.rec.device)
-    rows = gather_rows(t.rec, runs)  # the records, through the row gather
+    # the records, through the row gather
+    rows = gather_rows(t.rec.view(torch.int32), runs).view(t.rec.dtype)
     heads = rows[:, 0].contiguous()
     if not torch.equal(rank6_dense(t, heads), rows[:, 2:8]):
         raise ValueError("dense tables disagree: the run of a run head is not "
@@ -124,8 +127,9 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
     length-sdict_s dictionary and read windows for one batch of reads
     (codes [B, L] int32, lens [B]) on `device`.
     rank_mode (RANK_MODES) picks the rank tables, as find-mems --rank-mode
-    does (without its mapping past 2^31: dense and ultra tables are int32,
-    and the kernels refuse them there); the seed table and the dictionary
+    does (without its mapping past 2^31: there dense records serve at int64
+    positions, and ultra tables, which are int32, are refused); the seed
+    table and the dictionary
     are built through them, the dictionary on `device` (the kernels of
     csrc/sparsedict.cu on a card) unless sdict_path holds it."""
     if rank_mode not in RANK_MODES:

@@ -1,7 +1,9 @@
 """The port's public functions against the JAX package's on the CPU: the
 route build_index -> to_device -> find_mems, the tables to_device gives
-(the same rank fields as the JAX to_device for the same flags), and the
-end-to-end demo's output against examples/end_to_end.py."""
+(the same rank fields as the JAX to_device for the same flags: dense records
+at int32 and at int64 positions, checkpoint rows of 64 and 128 positions,
+mem_only stubs), and the end-to-end demo's output against
+examples/end_to_end.py."""
 
 import contextlib
 import io
@@ -10,6 +12,8 @@ import pathlib
 import subprocess
 import sys
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -63,6 +67,76 @@ def test_route_on_synthetic_reads_matches_jax(synth_world, dense):
         got = px.find_mems(t, reads, 20, 1, capacity=capacity)
         assert got == jpx.find_mems(jt, reads, 20, 1, capacity=capacity)
         assert sum(map(len, got)) > len(reads)
+
+
+@pytest.mark.parametrize("capacity", [8, 64])
+def test_int64_dense_route_matches_jax(synth_world, capacity):
+    """to_device(idx, "cpu", dtype=torch.int64), dense records at int64
+    positions (the form past 2^31), against the JAX to_device(jidx,
+    dtype=jnp.int64) under 64-bit types: every rank and base field equal, of
+    the same dtype; the lines derived from the int64 pos_to_run (the same as
+    the int32 tables'); find_mems on the 48 reads equal to the JAX route's
+    and to the int32 tables' at the given capacity."""
+    lines, reads = synth_world
+    idx = px.build_index(lines)
+    t = px.to_device(idx, "cpu", dtype=torch.int64)
+    with jax.enable_x64(True):
+        jt = jpx.to_device(jpx.build_index(lines), dtype=jnp.int64)
+        expect = jpx.find_mems(jt, reads, 20, 1, capacity=capacity)
+        jf = {f: None if getattr(jt, f) is None else np.asarray(getattr(jt, f))
+              for f in RANK_FIELDS + BASE_FIELDS}
+    for f in RANK_FIELDS + BASE_FIELDS:
+        g, e = getattr(t, f), jf[f]
+        assert (g is None) == (e is None), f
+        if e is not None:
+            assert g.numpy().dtype == e.dtype, f
+            np.testing.assert_array_equal(g.numpy(), e, err_msg=f)
+    assert t.pos_dtype == t.rec.dtype == torch.int64
+    narrow = px.to_device(idx, "cpu")
+    assert torch.equal(t.dense_lines, narrow.dense_lines)
+    got = px.find_mems(t, reads, 20, 1, capacity=capacity)
+    assert got == expect == px.find_mems(narrow, reads, 20, 1, capacity=capacity)
+    assert sum(map(len, got)) > len(reads)
+
+
+@pytest.mark.parametrize("kw", [dict(checkpoint=True, ckpt_block=128),
+                                dict(checkpoint=True, mem_only=True),
+                                dict(checkpoint=True, ckpt_block=128, mem_only=True,
+                                     dense=False)],
+                         ids=["ckpt128", "mem-only", "ckpt128-mem-only-no-dense"])
+def test_checkpoint_forms_route_matches_jax(synth_world, kw):
+    """to_device with checkpoint rows of 128 positions and with mem_only
+    stubs: every rank and base field equal to the JAX to_device's with the
+    same flags, and find_mems on the 48 reads equal to the JAX route's and
+    to the default tables' (the kernels' 64-position planes of the rows)."""
+    lines, reads = synth_world
+    idx = px.build_index(lines)
+    t = px.to_device(idx, "cpu", **kw)
+    jt = jpx.to_device(jpx.build_index(lines), **kw)
+    for f in RANK_FIELDS + BASE_FIELDS:
+        g, e = getattr(t, f), getattr(jt, f)
+        assert (g is None) == (e is None), f
+        if e is not None:
+            np.testing.assert_array_equal(g.numpy(), np.asarray(e), err_msg=f)
+    if kw.get("mem_only"):
+        assert all(getattr(t, f).shape[0] == 1 for f in BASE_FIELDS if f != "C")
+    assert t.ckpt.shape[1] == (24 if kw.get("ckpt_block") == 128 else 16)
+    assert t.ckpt_planes.shape[1] == 16
+    got = px.find_mems(t, reads, 20, 1, capacity=8)
+    assert got == jpx.find_mems(jt, reads, 20, 1, capacity=8)
+    assert got == px.find_mems(px.to_device(idx, "cpu"), reads, 20, 1, capacity=8)
+
+
+def test_to_device_refuses_what_the_jax_one_refuses(synth_world):
+    """mem_only without checkpoint rows and a block other than 64 or 128
+    raise the JAX package's errors."""
+    idx = px.build_index(synth_world[0][:1])
+    jidx = jpx.build_index(synth_world[0][:1])
+    for kw, msg in ((dict(mem_only=True), "mem_only requires checkpoint mode"),
+                    (dict(checkpoint=True, ckpt_block=96), "ckpt_block must be 64 or 128")):
+        for call in (lambda: px.to_device(idx, "cpu", **kw), lambda: jpx.to_device(jidx, **kw)):
+            with pytest.raises(ValueError, match=msg):
+                call()
 
 
 def test_to_device_gives_the_jax_rank_fields(synth_world):

@@ -225,6 +225,50 @@ def test_reference_engines_match_jax(files, capfd, tmp_path, cmd, engine):
             (tmp_path / "jax.rl_bwt").read_bytes() == (files / "synth.rl_bwt").read_bytes()
 
 
+@pytest.mark.parametrize("s,keep", [(7, 2), (9, 1)])
+def test_build_sdict_device_ships_mem_only_tables(files, capfd, tmp_path, monkeypatch, s,
+                                                  keep):
+    """build-sdict --engine device asks for checkpoint rows with mem_only, as
+    the JAX command does (pangenome_index_tpu/cli.py): its tables carry
+    one-row stubs of the per-run and locate tables, and its file and summary
+    line equal the JAX command line's --engine device, and the file equals
+    the one the command writes through the full tables."""
+    from pangenome_index_tpu_torch.ops import tables as port_tables
+
+    made = []
+
+    def rindex(idx, device, **kw):
+        made.append((kw, port_tables.rindex_to_device(idx, device, **kw)))
+        return made[-1][1]
+
+    monkeypatch.setattr(cli, "rindex_to_device", rindex)
+    argv = ["build-sdict", str(files / "synth.ri"), "-s", str(s), "--min-keep", str(keep)]
+    capfd.readouterr()
+    assert jax_cli.main([*argv, "-o", str(tmp_path / "jax.npz"), "--engine", "device"]) == 0
+    sys.stdout.flush()
+    want = capfd.readouterr()
+    assert cli.main([*argv, "-o", str(tmp_path / "port.npz"), "--device", "cpu"]) == 0
+    got = capfd.readouterr()
+    kw, t = made[-1]
+    assert kw == dict(checkpoint=True, mem_only=True)
+    assert all(getattr(t, f).shape[0] == 1 for f in (
+        "run_sym", "run_start", "cum", "samples", "last_sorted", "last_to_run"))
+    assert no_seconds(got.err).replace(str(tmp_path / "port.npz"), "OUT") == \
+        no_seconds(want.err).replace(str(tmp_path / "jax.npz"), "OUT")
+    # the same command over the full tables (mem_only dropped)
+    monkeypatch.setattr(cli, "rindex_to_device", lambda idx, device, mem_only, **kw:
+                        port_tables.rindex_to_device(idx, device, **kw))
+    assert cli.main([*argv, "-o", str(tmp_path / "full.npz"), "--device", "cpu"]) == 0
+    with np.load(tmp_path / "port.npz") as p, np.load(tmp_path / "jax.npz") as j, \
+            np.load(tmp_path / "full.npz") as full:
+        assert sorted(p.files) == sorted(j.files) == ["key", "keys", "vals"]
+        for f in p.files:
+            assert p[f].dtype == j[f].dtype
+            np.testing.assert_array_equal(p[f], j[f])
+            np.testing.assert_array_equal(p[f], full[f])
+        assert p["keys"].size > 0
+
+
 def test_build_sdict_host_equals_the_device_build(files, tmp_path):
     """build-sdict --engine host writes the file of the device engine (here
     its plain levels on the CPU): the same arrays under the same key."""

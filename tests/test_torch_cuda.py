@@ -38,6 +38,46 @@ def index():
     return build_synth_index(20_000, 4, seed=2)
 
 
+@pytest.mark.parametrize("width", [3, 8, 16, 4, 5])
+@pytest.mark.parametrize("rows_out", [0, 1, 33, 70_001])
+def test_gather_rows_widths(dev, width, rows_out):
+    """The row gather at the widths the port gives it (3: the seed table's
+    rows, 8: int32 records, 16: int64 records as int32 words) and others,
+    against gather_rows_plain: indices clamped at both ends, no rows, one
+    row, a table of one row, a table that is a view at an offset of 4 bytes
+    (the scalar path) and the records of the bench-like index viewed as
+    words (every record, in order)."""
+    rng = np.random.default_rng(width * 7 + rows_out)
+    for n_rows in (1, 5000):
+        rec = torch.from_numpy(rng.integers(-2**31, 2**31, (n_rows, width))
+                               .astype(np.int32)).to(dev)
+        idx = torch.from_numpy(rng.integers(-5, n_rows + 5, rows_out).astype(np.int32)).to(dev)
+        got = dense_rank.gather_rows(rec, idx)
+        assert got.shape == (rows_out, width)
+        assert torch.equal(got, dense_rank.gather_rows_plain(rec, idx))
+        flat = torch.from_numpy(rng.integers(-2**31, 2**31, n_rows * width + 1)
+                                .astype(np.int32)).to(dev)
+        view = flat[1:].view(n_rows, width)  # 4 bytes past an aligned start
+        assert torch.equal(dense_rank.gather_rows(view, idx),
+                           dense_rank.gather_rows_plain(view, idx))
+    with pytest.raises(ValueError, match="empty table"):
+        dense_rank.gather_rows(rec[:0], torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_gather_rows_of_every_record(dev, index, dtype):
+    """Every record of the bench-like index, in order, through the row gather
+    as the dense table check takes them (int32 words: 8 a record, 16 at
+    int64), equal to the records."""
+    idx, _ = index
+    t = rindex_to_device(idx, dev, dense=True, dtype=dtype)
+    words = t.rec.view(torch.int32)
+    assert words.shape[1] == (8 if dtype == torch.int32 else 16)
+    runs = torch.arange(idx.n_runs, dtype=torch.int32, device=dev)
+    got = dense_rank.gather_rows(words, runs)
+    assert torch.equal(got, words) and torch.equal(got.view(dtype), t.rec)
+
+
 def test_gather_rows_and_rank6_dense(dev, index):
     idx, _ = index
     t = rindex_to_device(idx, dev, dense=True)
@@ -73,31 +113,39 @@ def heads_index():
                   last_sorted=np.arange(r), last_to_run=np.arange(r))
 
 
-@pytest.mark.parametrize("which", ["bench-like", "full-of-heads"])
+@pytest.mark.parametrize("which", ["bench-like", "full-of-heads", "bench-like-int64",
+                                   "full-of-heads-int64"])
 def test_dense_kernels_at_the_line_edges(dev, index, which):
     """Every kernel over dense tables - rank6_dense, K2, K3, K7, the seed
     table's level (one and two deep) and the dictionary's level - equals its
     plain version (which reads pos_to_run, not the lines) at positions with
     p & 63 of 0 and 63, on the bench-like index and on one whose lines are
-    full of heads; and the dense table guard catches a line that disagrees
-    with the records."""
+    full of heads, at int32 positions and at int64 (the *_dense64 entry
+    points: int64 records, the same int32 lines); and the dense table guard
+    catches a line that disagrees with the records."""
     from pangenome_index_tpu_torch.serve import check_dense_tables
 
+    which, _, width = which.partition("-int")
+    pd = torch.int64 if width == "64" else torch.int32
+    npd = np.int64 if width == "64" else np.int32
     idx = index[0] if which == "bench-like" else heads_index()
-    t = rindex_to_device(idx, dev, dense=True)
+    t = rindex_to_device(idx, dev, dense=True, dtype=pd)
+    assert t.pos_dtype == t.rec.dtype == pd and fmd.rank_args(t)[0] == (
+        "dense64" if width == "64" else "dense")
     lo, hi = t.dense_lines[:, 1].cpu(), t.dense_lines[:, 2].cpu()
     full = (lo == -2) & (hi == -1)  # bits 1..63 set: 64 heads in a row
     assert bool(full.any()) == (which == "full-of-heads")
     edges = np.concatenate((np.arange(0, idx.n + 2, 64), np.arange(63, idx.n + 2, 64)))
     pos = torch.from_numpy(np.concatenate((edges, [-1, idx.n + 2, idx.n + 70]))
-                           .astype(np.int32)).to(dev)
-    assert torch.equal(dense_rank.rank6_dense(t, pos),
-                       dense_rank.rank6_dense_plain(t.rec, t.pos_to_run, pos))
+                           .astype(npd)).to(dev)
+    r6 = dense_rank.rank6_dense(t, pos)
+    assert r6.dtype == pd
+    assert torch.equal(r6, dense_rank.rank6_dense_plain(t.rec, t.pos_to_run, pos))
     rng = np.random.default_rng(43)
     B = 6000
     k = rng.choice(edges[edges < idx.n], B)
     s = np.minimum(rng.choice(np.array([0, 1, 63, 64, 65, 128, 1000]), B), idx.n - k)
-    args = [torch.from_numpy(a.astype(np.int32)).to(dev)
+    args = [torch.from_numpy(a.astype(npd)).to(dev)
             for a in (k, rng.choice(edges[edges < idx.n], B), s)]
     code = torch.from_numpy(rng.integers(-1, 8, B).astype(np.int32)).to(dev)
     fwd = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
@@ -128,7 +176,7 @@ def test_dense_kernels_at_the_line_edges(dev, index, which):
                                mertable.mer_level_plain(t, level, depth))
         level = mertable.mer_level(t, level)
     keys = torch.zeros((1, 1), dtype=torch.int64, device=dev)
-    vals = torch.tensor([[[0, 0, idx.n]]], dtype=torch.int32, device=dev)
+    vals = torch.tensor([[[0, 0, idx.n]]], dtype=pd, device=dev)
     counts = [1]
     for lv in range(12):
         got = sparsedict.sdict_level(t, keys, vals, counts, 1, lv)
@@ -243,6 +291,52 @@ def test_rank_planes_match_ckpt(dev, index):
     assert torch.equal(rank.planes_rank6(t.ckpt_planes, pos), rank.ckpt_rank6(t, pos))
     assert torch.equal(t.ckpt_planes.cpu(),
                        rindex_to_device(idx, "cpu", checkpoint=True).ckpt_planes)
+
+
+@pytest.mark.parametrize("levels", ["one-level", "two-level"])
+def test_kernels_through_128_position_rows(dev, index, levels):
+    """Checkpoint rows of 128 positions (ckpt_block=128) give the kernels'
+    64-position planes derived on the card equal to those on the CPU and to
+    the 64-position rows' over their rows; rank6 through them equals the
+    128-position rows' at every position; K2, K3 and K7 through them equal
+    their plain versions (which read the 128-position rows) and the
+    64-position tables' kernels."""
+    idx, lines = index
+    kw = dict(checkpoint=True) if levels == "one-level" else dict(
+        checkpoint=True, super_shift=12, dtype=torch.int64)  # 20 superblocks
+    t = rindex_to_device(idx, dev, ckpt_block=128, **kw)
+    t64 = rindex_to_device(idx, dev, **kw)
+    pd = t.pos_dtype
+    assert t.ckpt.shape[1] == 24 and t.ckpt_planes.shape[0] == 2 * t.ckpt.shape[0]
+    assert torch.equal(t.ckpt_planes.cpu(),
+                       rindex_to_device(idx, "cpu", ckpt_block=128, **kw).ckpt_planes)
+    assert torch.equal(t.ckpt_planes[: t64.ckpt_planes.shape[0]], t64.ckpt_planes)
+    pos = torch.arange(idx.n + 2, dtype=pd, device=dev)
+    sup = {} if t.super_S is None else dict(super_S=t.super_S, super_shift=t.super_shift)
+    assert torch.equal(rank.planes_rank6(t.ckpt_planes, pos, **sup).long(),
+                       rank.ckpt_rank6(t, pos).long())
+    rng = np.random.default_rng(5)
+    B = 4096
+    k = rng.integers(0, idx.n, B)
+    args = [torch.from_numpy(a).to(pd).to(dev) for a in (
+        k, rng.integers(0, idx.n, B), np.minimum(rng.integers(0, 3000, B), idx.n - k))]
+    code = torch.from_numpy(rng.integers(-1, 8, B).astype(np.int32)).to(dev)
+    fwd = torch.from_numpy(rng.integers(0, 2, B).astype(bool)).to(dev)
+    for g, e, c in zip(fmd.extend(t, *args, code, forward=fwd),
+                       fmd.extend_plain(t, *args, code, forward=fwd),
+                       fmd.extend(t64, *args, code, forward=fwd)):
+        assert torch.equal(g, e) and torch.equal(g, c)
+    reads = synth_reads(lines, 200, 150, error_rate=0.02, seed=14)
+    c = torch.from_numpy(np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)]
+                                   for r in reads]).astype(np.int32)).to(dev)
+    n = torch.full((c.shape[0],), c.shape[1], dtype=torch.int32, device=dev)
+    got = mems.find_mems(t, c, n, 20, 1, capacity=8)
+    for g, e, o in zip(got, mems.find_mems_plain(t, c, n, 20, 1, capacity=8),
+                       mems.find_mems(t64, c, n, 20, 1, capacity=8)):
+        assert torch.equal(g, e) and torch.equal(g, o)
+    assert int(got.count.sum()) > 200
+    for g, e, o in zip(count.count(t, c, n), count.count_plain(t, c, n), count.count(t64, c, n)):
+        assert torch.equal(g, e) and torch.equal(g, o)
 
 
 @pytest.mark.parametrize("rows", ["shared", "straddled"])
@@ -1733,25 +1827,30 @@ def test_merge_rows_shard(dev, n, C, S):
     assert torch.equal(pmerge.merge_virtual_shards(*(a.cpu() for a in on), S), want.cpu())
 
 
-@pytest.mark.parametrize("dense", [True, False])
+@pytest.mark.parametrize("dense", [True, False, "int64", "ckpt128", "mem-only"])
 def test_public_api_on_the_card(dev, index, dense):
     """The public route to_device -> find_mems on the card (K3 through
-    DenseRank, and through BucketRank with dense=False; one launch a call,
-    no seed tier) equals the same route on the CPU; to_device places on the
-    card by default."""
+    DenseRank, and through BucketRank with dense=False; dense records at
+    int64 positions, DenseRank<int64_t>; checkpoint rows of 128 positions
+    and mem_only stubs, CkptRank over their 64-position planes; one launch
+    a call, no seed tier) equals the same route on the CPU; to_device
+    places on the card by default."""
     import pangenome_index_tpu_torch as px
 
     idx, lines = index
     reads = synth_reads(lines, 300, 100, error_rate=0.02, seed=5)
-    t = px.to_device(idx, dense=dense)
+    kw = {True: {}, False: dict(dense=False), "int64": dict(dtype=torch.int64),
+          "ckpt128": dict(checkpoint=True, ckpt_block=128),
+          "mem-only": dict(checkpoint=True, mem_only=True)}[dense]
+    t = px.to_device(idx, **kw)
     assert t.run_start.device.type == "cuda"
-    assert (t.rec is not None) == dense and (t.bucket_lo is not None) != dense
+    assert (t.rec is not None) == (dense is not False)
+    assert (t.bucket_lo is not None) == (dense is False)
     before, seeds = mems.find_mems.launches, mems.resolve_seeds.launches
     got = px.find_mems(t, reads, 20, 1, capacity=8)
     assert mems.find_mems.launches == before + 1
     assert mems.resolve_seeds.launches == seeds
-    assert got == px.find_mems(px.to_device(idx, "cpu", dense=dense), reads, 20, 1,
-                               capacity=8)
+    assert got == px.find_mems(px.to_device(idx, "cpu", **kw), reads, 20, 1, capacity=8)
 
 
 def test_end_to_end_on_the_card(dev):

@@ -7,16 +7,22 @@ builds it (np.repeat of each run id over its run, then two pads), exactly
 made-up run layouts (n off a multiple of 64, runs longer than a line, lines
 whose 64 positions are all heads, a single run) and of the bench-like index;
 steps other than 0 or 1 refused; the port's dense tables, through the plain
-path and through the lines, against the JAX rank6_pallas in interpret mode.
-The card's kernels are held against these plain versions in
-tests/test_torch_cuda.py and chip_smoke.py."""
+path and through the lines, against the JAX rank6_pallas in interpret mode,
+at int32 and at int64 positions (the JAX package under 64-bit types); the
+int64 tables field for field against the JAX ones; and, on a made-up index
+whose first run ends past 2^31, the run and rank6 of positions past 2^31
+through the lines (held in a sparse file: 537 MB of lines, almost all
+zero) against the JAX rank6 of its base tables. The card's kernels are held
+against these plain versions in tests/test_torch_cuda.py and chip_smoke.py."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from pangenome_index_tpu.models.rindex import RIndex as JaxRIndex
+from pangenome_index_tpu.ops import rank as jrank
 from pangenome_index_tpu.ops.pallas_rank import rank6_pallas
 from pangenome_index_tpu.ops.tables import rindex_to_device as jax_rindex_to_device
 from pangenome_index_tpu.utils.synth import build_synth_index
@@ -29,16 +35,21 @@ from pangenome_index_tpu_torch.ops.tables import (DENSE_LINE, derive_dense_lines
 
 #: run-length layouts of the made-up indexes (run_lengths)
 LAYOUTS = ("long-runs", "all-heads", "mixed", "single-run", "one-line", "two-lines")
+#: the tables' fields shared with the JAX package
+FIELDS = ("run_sym", "run_start", "cum", "C", "samples", "last_sorted", "last_to_run",
+          "bucket_lo", "pos_to_run", "rec", "rank_table", "ckpt", "ckpt_super")
 
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """The tensors here are tiny: intra-op threads only contend with the
-    other test workers."""
-    n = torch.get_num_threads()
+    other test workers; JAX's type width is restored after the module (the
+    int64 cases run the JAX package under 64-bit types)."""
+    n, prev = torch.get_num_threads(), jax.config.jax_enable_x64
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+    jax.config.update("jax_enable_x64", prev)
 
 
 @pytest.fixture(scope="module")
@@ -182,35 +193,125 @@ def records_rank6(rec, j, pos):
     return row[:, 2:8] + onehot.to(rec.dtype) * (pos.to(rec.dtype) - row[:, 0])[:, None]
 
 
-@pytest.mark.parametrize("layout", ["bench-like", "all-heads", "mixed", "long-runs"])
+@pytest.mark.parametrize("layout", ["bench-like", "all-heads", "mixed", "long-runs",
+                                    "bench-like-int64", "all-heads-int64", "mixed-int64",
+                                    "long-runs-int64"])
 def test_dense_rank6_matches_pallas(index, layout):
     """The port's dense tables give, through the plain path (pos_to_run)
     and through the lines, the JAX rank6_pallas in interpret mode, exactly,
-    at seeded positions (p & 63 of 0 and 63 among them)."""
+    at seeded positions (p & 63 of 0 and 63 among them); at int32
+    positions, and at int64 (dtype=int64 tables and positions, the JAX
+    package under 64-bit types: int64 ranks from both)."""
+    layout, _, width = layout.partition("-int")
+    wide = width == "64"
     if layout == "bench-like":
         idx = jidx = index[0]
     else:
         idx, jidx = (made_index(run_lengths(layout), cls) for cls in (RIndex, JaxRIndex))
-    jt = jax_rindex_to_device(jidx, dense=True)
-    pt = rindex_to_device(idx, "cpu", dense=True)
-    assert pt.pos_dtype == torch.int32
-    np.testing.assert_array_equal(pt.pos_to_run.numpy(), np.asarray(jt.pos_to_run))
-    pos = seeded_positions(idx.n, 5)
-    pos = pos[: len(pos) // 8 * 8]
-    expect = np.asarray(rank6_pallas(jt.rec, jt.pos_to_run, jnp.asarray(pos),
-                                     interpret=True))
+    with jax.enable_x64(wide):
+        jt = jax_rindex_to_device(jidx, dense=True, dtype=jnp.int64 if wide else None)
+        pos = seeded_positions(idx.n, 5).astype(np.int64 if wide else np.int32)
+        pos = pos[: len(pos) // 8 * 8]
+        expect = np.asarray(rank6_pallas(jt.rec, jt.pos_to_run, jnp.asarray(pos),
+                                         interpret=True))
+        jp2r = np.asarray(jt.pos_to_run)
+    pt = rindex_to_device(idx, "cpu", dense=True, dtype=torch.int64 if wide else None)
+    assert pt.pos_dtype == (torch.int64 if wide else torch.int32)
+    assert expect.dtype == (np.int64 if wide else np.int32)
+    np.testing.assert_array_equal(pt.pos_to_run.numpy(), jp2r)
     p = torch.from_numpy(pos)
-    np.testing.assert_array_equal(dense_rank.rank6_dense(pt, p).numpy(), expect)
-    np.testing.assert_array_equal(rank.rank6(pt, p).numpy(), expect)
-    through_lines = records_rank6(pt.rec, dense_rank.dense_run_of_plain(pt.dense_lines, p), p)
-    np.testing.assert_array_equal(through_lines.numpy(), expect)
+    for got in (dense_rank.rank6_dense(pt, p), rank.rank6(pt, p),
+                records_rank6(pt.rec, dense_rank.dense_run_of_plain(pt.dense_lines, p), p)):
+        assert got.dtype == pt.pos_dtype
+        np.testing.assert_array_equal(got.numpy(), expect)
+
+
+@pytest.mark.parametrize("layout", ["bench-like", "all-heads", "mixed", "single-run"])
+def test_int64_dense_tables_match_jax(index, layout):
+    """rindex_to_device(dense=True, dtype=int64) against the JAX
+    rindex_to_device(dense=True, dtype=jnp.int64) under 64-bit types: every
+    field equal, of the same dtype; the lines derived from the int64
+    pos_to_run equal those of the int32 one, and the kernels' provider is
+    the int64 one (its records int64, its lines int32)."""
+    if layout == "bench-like":
+        idx = jidx = index[0]
+    else:
+        idx, jidx = (made_index(run_lengths(layout), cls) for cls in (RIndex, JaxRIndex))
+    with jax.enable_x64(True):
+        jt = jax_rindex_to_device(jidx, dense=True, dtype=jnp.int64)
+        jf = {f: None if getattr(jt, f) is None else np.asarray(getattr(jt, f))
+              for f in FIELDS}
+    pt = rindex_to_device(idx, "cpu", dense=True, dtype=torch.int64)
+    for f in FIELDS:
+        got = getattr(pt, f)
+        assert (got is None) == (jf[f] is None), f
+        if got is not None:
+            assert got.numpy().dtype == jf[f].dtype, f
+            np.testing.assert_array_equal(got.numpy(), jf[f], err_msg=f)
+    assert pt.rec.dtype == pt.pos_to_run.dtype == torch.int64
+    narrow = rindex_to_device(idx, "cpu", dense=True)
+    assert pt.dense_lines.dtype == torch.int32
+    assert torch.equal(pt.dense_lines, narrow.dense_lines)
+    kind, args = fmd.rank_args(pt)
+    assert kind == "dense64" and args[1] == pt.dense_lines.shape[0] and args[3] == idx.n_runs
+
+
+def past_2_31_lengths():
+    """tests/test_torch_runindex.py's "past-2^31" layout: a first run past
+    2^31, then 3000 short runs."""
+    rng = np.random.default_rng(3)
+    return np.concatenate(([2**31 + 5], rng.integers(1, 40, 3000)))
+
+
+def test_dense_lines_past_2_31(tmp_path):
+    """On an index whose first run ends past 2^31 (n ~ 2^31 + 60,000): the
+    lines, written into a sparse file where they are not all zero (the
+    lines inside the first run are: j0 = 0, no head), give the run of every
+    position past 2^31, and of positions inside the first run, at the line
+    edges and outside the BWT, that the run heads give (the values
+    pos_to_run holds), and through the int64 records the JAX rank6 of the
+    index's base tables (its searchsorted over run_start) under 64-bit
+    types, int64 ranks past 2^31."""
+    lengths = past_2_31_lengths()
+    idx, jidx = (made_index(lengths, cls) for cls in (RIndex, JaxRIndex))
+    n, r = idx.n, idx.n_runs
+    m = n + 2
+    n_lines = -(-m // DENSE_LINE)
+    first = int(lengths[0]) // DENSE_LINE  # the lines before it lie inside run 0
+    lines = np.memmap(tmp_path / "lines", dtype=np.int32, mode="w+", shape=(n_lines, 4))
+    tail = np.arange(DENSE_LINE * first, m, dtype=np.int64)
+    tail_p2r = np.searchsorted(idx.run_start, np.minimum(tail, n - 1), side="right") - 1
+    lines[first:] = derive_dense_lines(torch.from_numpy(tail_p2r)).numpy()
+    lines.flush()
+    rng = np.random.default_rng(9)
+    edges = DENSE_LINE * (first + np.arange(-3, n_lines - first))
+    pos = np.concatenate((rng.integers(2**31 - 10, m, 3000), rng.integers(0, 2**31, 500),
+                          edges, edges + 63, [0, 1, 2**31 - 1, 2**31, n - 1, n, n + 1,
+                                              n + 64, -5])).astype(np.int64)
+    p = torch.from_numpy(pos)
+    run = dense_rank.dense_run_of_plain(torch.from_numpy(lines), p)
+    want = np.searchsorted(idx.run_start, np.clip(pos, 0, n - 1), side="right") - 1
+    np.testing.assert_array_equal(run.numpy(), want)
+    assert int(run.max()) == r - 1 and bool((p >= 2**31).sum() > 3000)
+    rec = rindex_to_device(idx, "cpu", bucketed=False, dtype=torch.int64)
+    records = torch.cat((rec.run_start[:, None], rec.run_sym.long()[:, None],
+                         torch.from_numpy(idx.cum)), dim=1)
+    inside = (pos >= 0) & (pos <= n)
+    got = records_rank6(records, run, p)[torch.from_numpy(inside)]
+    with jax.enable_x64(True):
+        jt = jax_rindex_to_device(jidx, bucketed=False, dtype=jnp.int64)
+        expect = np.asarray(jrank.rank6(jt, jnp.asarray(pos[inside])))
+    assert got.dtype == torch.int64 and expect.dtype == np.int64
+    np.testing.assert_array_equal(got.numpy(), expect)
+    assert int(got.max()) >= 2**31
 
 
 def test_every_dense_table_form_carries_its_lines(index):
     """rindex_to_device(dense=True), the public to_device (its default) and
-    tables_from_numpy of the JAX tables attach the lines of their pos_to_run;
-    the kernels' dense arguments are the lines and the records; tables
-    without int32 pos_to_run carry none."""
+    tables_from_numpy of the JAX tables attach the lines of their pos_to_run,
+    at int32 and at int64 positions (the same lines); the kernels' dense
+    arguments are the lines and the records; tables without pos_to_run
+    carry none."""
     idx, _ = index
     want = derive_dense_lines(rindex_to_device(idx, "cpu", dense=True).pos_to_run)
     jt = jax_rindex_to_device(idx, dense=True)
@@ -221,11 +322,12 @@ def test_every_dense_table_form_carries_its_lines(index):
             for f in fields}, "n": jt.n, "n_seq": jt.n_seq, "max_len": jt.max_len},
         None, "cpu")
     for t in (rindex_to_device(idx, "cpu", dense=True), port.to_device(idx, "cpu"),
-              from_jax):
+              from_jax, rindex_to_device(idx, "cpu", dense=True, dtype=torch.int64),
+              port.to_device(idx, "cpu", dtype=torch.int64)):
         assert torch.equal(t.dense_lines, want)
         kind, args = fmd.rank_args(t)
-        assert kind == "dense" and args[1] == want.shape[0] and args[3] == idx.n_runs
-    assert rindex_to_device(idx, "cpu", dense=True, dtype=torch.int64).dense_lines is None
+        assert kind == {torch.int32: "dense", torch.int64: "dense64"}[t.pos_dtype]
+        assert args[1] == want.shape[0] and args[3] == idx.n_runs
     for kw in (dict(checkpoint=True), dict(ultra=True), dict(bucketed=True)):
         assert rindex_to_device(idx, "cpu", **kw).dense_lines is None
     t = rindex_to_device(idx, "cpu", dense=True)

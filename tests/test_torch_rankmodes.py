@@ -272,7 +272,7 @@ def test_count_matches_jax(index, reads, mode, width):
     f, s = count.count(pt, torch.from_numpy(codes), torch.from_numpy(lens))
     same(f, ef)
     same(s, es)
-    assert count.COUNT_KINDS == ("ckpt", "ckpt64", "dense")
+    assert count.COUNT_KINDS == ("ckpt", "ckpt64", "dense", "dense64")
 
 
 @pytest.mark.parametrize("mode,width", CASES)
