@@ -196,7 +196,6 @@ N_K3 = 512        # K3 comparison: the first and the last reads
 N_RANK = 32768    # rank6 through the bit-plane table against the checkpoint rows
 N_SEARCH_RANDOM = 1 << 20  # random values of the tag search check
 N_WIDE = 8192     # K6 comparison on wide rows: intervals of 2 to 400 tag runs
-REPEATS = 3       # timed serving repeats after the first
 CLI_FIND_READS = 2048   # find-mems byte comparison: the first bench reads
 CLI_QUERY_ERRORS = 1024  # query-tags: bench reads with errors after the exact ones
 PROBE_GROUP_BATCH = 65536  # K5 comparison batch (the probe's grouped sweep)
@@ -1340,10 +1339,22 @@ def main() -> int:
     from pangenome_index_tpu_torch.ops.tables import (DENSE_CHUNK_LINES, derive_dense_lines,
                                                       rindex_to_device, tags_to_device,
                                                       tail_bucket)
+    from pangenome_index_tpu_torch import spans
     from pangenome_index_tpu_torch.serve import prepare, run
     from pangenome_index_tpu_torch.utils import synth
 
     t_start = time.perf_counter()
+
+    def served(batch):
+        """run on the batch, then once more under spans.recording: (the first
+        call's result, the recorded call's device milliseconds of mems.find
+        and tags.k4, by the spans' events)."""
+        kw = dict(min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP, tag_capacity=TAG_CAP)
+        res = run(batch, **kw)
+        with spans.recording(batch.codes.device) as rec:
+            run(batch, **kw)
+        return res, {s.name: (s.device[1] - s.device[0]) * 1e-6 for s in rec.spans
+                     if s.name in ("mems.find", "tags.k4")}
 
     def phase(name):
         """Mark where a phase starts, in seconds since the run began."""
@@ -1927,15 +1938,13 @@ def main() -> int:
     if os.path.exists(sdict_path):
         os.remove(sdict_path)
     port.reset_launches()
-    results, batches = {}, {}
+    results, batches, span_ms = {}, {}, {}
 
     def serve_config(cfg, path=None):
         batches[cfg] = prepare(idx, tags, codes, lens, dev, rank_mode=cfg,
                                min_occ=MIN_OCC, mer_m=MER_M, sdict_s=SDICT_S,
                                sdict_path=path)
-        results[cfg] = run(batches[cfg], min_len=MIN_LEN, min_occ=MIN_OCC,
-                           capacity=MEM_CAP, tag_capacity=TAG_CAP,
-                           repeats=REPEATS)
+        results[cfg], span_ms[cfg] = served(batches[cfg])
 
     serve_config("checkpoint", sdict_path)
     read_launches("serve")
@@ -1968,10 +1977,8 @@ def main() -> int:
             f"{k} {v:.4f} s" for k, v in sec.items()))
         log(f"serve [{cfg} rank]: dictionary {r.dict_entries} entries, window "
             f"hit rate {r.dict_hit_rate:.4f}")
-        log(f"serve [{cfg} rank]: MEM-only {N_READS / sec['mems']:.1f} reads/s, "
-            f"MEM+tags {N_READS / (sec['mems'] + sec['tags']):.1f} reads/s "
-            f"(steady mean of {REPEATS}; first run {sec['mems_first']:.4f} s "
-            f"+ {sec['tags_first']:.4f} s) {card}")
+        log(f"serve [{cfg} rank]: mems.find {span_ms[cfg]['mems.find']:.4f} ms, tags.k4 "
+            f"{span_ms[cfg]['tags.k4']:.4f} ms (device, the second call's spans) {card}")
 
     # --- 5. cross-checks against the native engine (all reads) -----------
     phase("native cross-check")
@@ -2297,8 +2304,11 @@ def main() -> int:
             wall_ms = (time.perf_counter() - t0) * 1e3
             trace_tail()
         made = mems.find_mems.launches - made[0], mems.resolve_seeds.launches - made[1]
+        # the program's spans (spans.py) are profiler annotations, which the
+        # profiler gives the device time of the work inside them: left out
         evs = sorted((ev for ev in prof.key_averages()
-                      if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key),
+                      if ev.device_time_total > 0 and TAIL_KERNEL not in ev.key
+                      and not ev.key.startswith(("serve.", "mems.", "tags."))),
                      key=lambda ev: -ev.device_time_total)
         seen = tuple(sum(ev.count for ev in evs if name in ev.key)
                      for name in ("find_mems_kernel", "resolve_seeds_kernel"))
@@ -3000,8 +3010,7 @@ def main() -> int:
     port.reset_launches()
     b2 = prepare(big, big_tags, codes, lens, dev, min_occ=MIN_OCC, mer_m=MER_M_2G,
                  sdict_s=SDICT_S)
-    r2 = run(b2, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP, tag_capacity=TAG_CAP,
-             repeats=REPEATS)
+    r2, ms2 = served(b2)
     t2, tt2 = b2.tables, b2.tag_tables
     check(t2.pos_dtype == torch.int64 and tt2.bwt_start.dtype == torch.int64
           and t2.ckpt_super is not None and t2.super_shift == 30,
@@ -3010,9 +3019,8 @@ def main() -> int:
     sec = r2.seconds
     log(f"serve-2g: " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
     log(f"serve-2g: {t2.super_S.shape[0]} superblocks, {t2.ckpt_planes.shape[0]} checkpoint "
-        f"rows; dictionary {r2.dict_entries} entries; MEM-only {N_READS / sec['mems']:.1f} "
-        f"reads/s, MEM+tags {N_READS / (sec['mems'] + sec['tags']):.1f} reads/s (steady "
-        f"mean of {REPEATS}) {card}")
+        f"rows; dictionary {r2.dict_entries} entries; mems.find {ms2['mems.find']:.4f} ms, "
+        f"tags.k4 {ms2['tags.k4']:.4f} ms (device, the second call's spans) {card}")
     # the tag search over the int64 run heads: every head, its neighbours,
     # both sides of 2^31 and random values, against searchsorted
     heads2 = torch.from_numpy(big_tags.bwt_start).to(dev)
@@ -3069,8 +3077,7 @@ def main() -> int:
     port.reset_launches()
     b2b = prepare(big, big_tags, codes, lens, dev, rank_mode="bucketed", min_occ=MIN_OCC,
                   mer_m=MER_M_2G, sdict_s=SDICT_S)
-    r2b = run(b2b, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP, tag_capacity=TAG_CAP,
-              repeats=REPEATS)
+    r2b, ms2b = served(b2b)
     sec_fd = port_cmd(["find-mems", big_ri, big_tp, all_reads, str(MIN_LEN), str(MIN_OCC),
                        *fmt, "--rank-mode", "dense"],
                       os.path.join(cli_dir, "big_find_dense.txt"))
@@ -3086,10 +3093,9 @@ def main() -> int:
     sec = r2b.seconds
     log(f"serve-2g [bucketed rank]: " + ", ".join(f"{k} {v:.4f} s" for k, v in sec.items()))
     log(f"serve-2g [bucketed rank]: bucket_lo {t2b.bucket_lo.numel()} entries, seed table "
-        f"and dictionary identical to the checkpoint builds; MEM-only "
-        f"{N_READS / sec['mems']:.1f} reads/s, MEM+tags "
-        f"{N_READS / (sec['mems'] + sec['tags']):.1f} reads/s (steady mean of {REPEATS}) "
-        f"{card}")
+        f"and dictionary identical to the checkpoint builds; mems.find "
+        f"{ms2b['mems.find']:.4f} ms, tags.k4 {ms2b['tags.k4']:.4f} ms (device, the second "
+        f"call's spans) {card}")
 
     # the dense configuration past 2^31, a path of its own: prepare/run
     # through dense records at int64 positions (the table check gathers
@@ -3104,8 +3110,7 @@ def main() -> int:
     port.reset_launches()
     b2d = prepare(big, big_tags, codes, lens, dev, rank_mode="dense", min_occ=MIN_OCC,
                   mer_m=MER_M_2G, sdict_s=SDICT_S)
-    r2d = run(b2d, min_len=MIN_LEN, min_occ=MIN_OCC, capacity=MEM_CAP, tag_capacity=TAG_CAP,
-              repeats=REPEATS)
+    r2d, ms2d = served(b2d)
     t2d = b2d.tables
     check(t2d.pos_dtype == t2d.rec.dtype == torch.int64 and t2d.ckpt is None
           and t2d.dense_lines is not None and t2d.dense_lines.dtype == torch.int32,
@@ -3120,9 +3125,8 @@ def main() -> int:
     log(f"serve-2g [dense records, int64]: pos_to_run {table_bytes_of(t2d.pos_to_run)} + rec "
         f"{table_bytes_of(t2d.rec)} bytes (the JAX fields), the lines "
         f"{table_bytes_of(t2d.dense_lines)} bytes the kernels read; seed table and dictionary "
-        f"identical to the checkpoint builds; MEM-only {N_READS / sec['mems']:.1f} reads/s, "
-        f"MEM+tags {N_READS / (sec['mems'] + sec['tags']):.1f} reads/s (steady mean of "
-        f"{REPEATS}) {card}")
+        f"identical to the checkpoint builds; mems.find {ms2d['mems.find']:.4f} ms, tags.k4 "
+        f"{ms2d['tags.k4']:.4f} ms (device, the second call's spans) {card}")
     del b2d, t2d
     torch.cuda.empty_cache()
     k3_before = port.KERNELS["find_mems"].launches

@@ -42,6 +42,8 @@ Layout:
                    tables padded and placed, the model-sharded rank, the
                    distributed MEM and serving steps, the cross-card merge
   serve.py         the find-mems serving pipeline on one device
+  spans.py         the serving path's spans and counters (off by default),
+                   on one clock with the device
   cli.py           the find-mems, query-tags, build-sdict, build-bwt,
                    build-rindex, print-stats, convert-tags, tags-check,
                    extract-text, build-tags and merge-tags commands

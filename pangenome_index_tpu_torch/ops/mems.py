@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, spans
 from . import shard_rank
 from .dense_rank import gather_rows_plain
 from .fmd import check_kernel_tables, extend_from_ranks, extend_plain, rank_args
@@ -145,34 +145,38 @@ def find_mems(t: RIndexTables, codes, lengths, min_len: int, min_occ: int,
 
     On the card: resolve_seeds, then one launch of the kernel over the whole
     batch (int32 codes and lengths; seed tables in the tables' position
-    dtype); on the CPU: the plain version."""
-    if codes.device.type == "cpu":
-        return find_mems_plain(t, codes, lengths, min_len, min_occ, capacity,
-                               with_stats, **seed_kw)
-    check_kernel_tables(t)
-    dev = t.device
-    pd = t.pos_dtype
-    padded, max_iters = _prepare(codes, align=8)  # the kernel reads 8 codes a load
-    B, W = codes.shape[0], codes.shape[1] + 1
-    kind, rargs = rank_args(t)
-    seeds = resolve_seeds(B, W, min_occ, **seed_kw)
-    if seeds is not None and seeds.dtype != pd:
-        raise ValueError(f"find_mems: seed tables of {seeds.dtype} beside tables "
-                         f"of {pd} positions")
-    se = torch.zeros((B, capacity), dtype=torch.int32, device=dev)
-    bwt, size = torch.zeros((2, B, capacity), dtype=pd, device=dev)
-    cnt = torch.empty(B, dtype=torch.int32, device=dev)
-    steps = torch.empty(B, dtype=torch.int32, device=dev) if with_stats else None
-    _build.launch(
-        f"pgt_find_mems_{kind}", *rargs,
-        _build.check("C", t.C, pd, dev), padded.data_ptr(),
-        _build.check("lengths", lengths, torch.int32, dev),
-        None if seeds is None else seeds.data_ptr(), B, W, padded.shape[1],
-        int(min_len), int(min_occ), t.n, capacity, max_iters, se.data_ptr(),
-        bwt.data_ptr(), size.data_ptr(), cnt.data_ptr(),
-        None if steps is None else steps.data_ptr(), _build.stream(dev))
-    find_mems.launches += 1
-    return _result(pd, se, bwt, size, cnt, steps, capacity, with_stats)
+    dtype); on the CPU: the plain version. Spans (spans.py): mems.find, and
+    inside it mems.resolve_seeds and mems.k3, each with a device interval."""
+    with spans.span("mems.find", device=True):
+        if codes.device.type == "cpu":
+            return find_mems_plain(t, codes, lengths, min_len, min_occ, capacity,
+                                   with_stats, **seed_kw)
+        check_kernel_tables(t)
+        dev = t.device
+        pd = t.pos_dtype
+        padded, max_iters = _prepare(codes, align=8)  # the kernel reads 8 codes a load
+        B, W = codes.shape[0], codes.shape[1] + 1
+        kind, rargs = rank_args(t)
+        with spans.span("mems.resolve_seeds", device=True):
+            seeds = resolve_seeds(B, W, min_occ, **seed_kw)
+        if seeds is not None and seeds.dtype != pd:
+            raise ValueError(f"find_mems: seed tables of {seeds.dtype} beside tables "
+                             f"of {pd} positions")
+        with spans.span("mems.k3", device=True):
+            se = torch.zeros((B, capacity), dtype=torch.int32, device=dev)
+            bwt, size = torch.zeros((2, B, capacity), dtype=pd, device=dev)
+            cnt = torch.empty(B, dtype=torch.int32, device=dev)
+            steps = torch.empty(B, dtype=torch.int32, device=dev) if with_stats else None
+            _build.launch(
+                f"pgt_find_mems_{kind}", *rargs,
+                _build.check("C", t.C, pd, dev), padded.data_ptr(),
+                _build.check("lengths", lengths, torch.int32, dev),
+                None if seeds is None else seeds.data_ptr(), B, W, padded.shape[1],
+                int(min_len), int(min_occ), t.n, capacity, max_iters, se.data_ptr(),
+                bwt.data_ptr(), size.data_ptr(), cnt.data_ptr(),
+                None if steps is None else steps.data_ptr(), _build.stream(dev))
+            find_mems.launches += 1
+        return _result(pd, se, bwt, size, cnt, steps, capacity, with_stats)
 
 
 find_mems.launches = 0
@@ -188,16 +192,18 @@ def find_mems_plain(t: RIndexTables, codes, lengths, min_len: int,
     gives only C and n)."""
     padded, max_iters = _prepare(codes)
     B, W = padded.shape
-    seeds = resolve_seeds_plain(B, W, min_occ, **seed_kw)
-    st = _Lockstep(padded, lengths, seeds, W - 1, min_len, min_occ, t.n, capacity)
-    for _ in range(max_iters):
-        if not bool((st.phase != 4).any()):
-            break
-        st.enter()
-        p2 = st.phase == 2
-        nk, nkp, ns = extend_plain(t, st.k, st.kp, st.s, st.code(), forward=p2,
-                                   rank6_fn=rank6_fn)
-        st.advance(nk, nkp, ns)
+    with spans.span("mems.resolve_seeds", device=True):
+        seeds = resolve_seeds_plain(B, W, min_occ, **seed_kw)
+    with spans.span("mems.k3", device=True):
+        st = _Lockstep(padded, lengths, seeds, W - 1, min_len, min_occ, t.n, capacity)
+        for _ in range(max_iters):
+            if not bool((st.phase != 4).any()):
+                break
+            st.enter()
+            p2 = st.phase == 2
+            nk, nkp, ns = extend_plain(t, st.k, st.kp, st.s, st.code(), forward=p2,
+                                       rank6_fn=rank6_fn)
+            st.advance(nk, nkp, ns)
     return _result(t.pos_dtype, st.se, st.bwt, st.size, st.cnt.to(torch.int32),
                    st.steps.to(torch.int32), capacity, with_stats)
 

@@ -33,7 +33,7 @@ from typing import NamedTuple
 
 import torch
 
-from .. import _build
+from .. import _build, spans
 from .tables import TagTables, tree_upper_bound_plain
 
 #: encoded_start_every_k_run of the reference (tag_arrays.hpp:120); the JAX
@@ -142,24 +142,25 @@ def query_mem_tags(tt: TagTables, bwt_start, size, count, capacity: int = 32):
     """bwt_start/size [B, M] and count [B] (MemResult buffers) ->
     (n_unique [B, M] int32, overflow [B, M] bool); one kernel launch on the
     card (buffers converted to the run heads' dtype), the plain version on
-    the CPU."""
-    if bwt_start.device.type == "cpu":
-        return query_mem_tags_plain(tt, bwt_start, size, count, capacity)
-    dev = tt.bwt_start.device
-    B, M = bwt_start.shape
-    sfx, targs = _tree_args(tt, dev)
-    kd = tt.bwt_start.dtype
-    bwt_start, size = (_keys(name, a, kd, dev)
-                       for name, a in (("bwt_start", bwt_start), ("size", size)))
-    nu = torch.empty((B, M), dtype=torch.int32, device=dev)
-    ov = torch.empty((B, M), dtype=torch.bool, device=dev)
-    _build.launch(f"pgt_query_mem_tags{sfx}", *targs,
-                  _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
-                  bwt_start.data_ptr(), size.data_ptr(),
-                  _build.check("count", count, torch.int32, dev), B, M,
-                  int(capacity), nu.data_ptr(), ov.data_ptr(), _build.stream(dev))
-    query_mem_tags.launches += 1
-    return nu, ov
+    the CPU. Span (spans.py): tags.k4, with a device interval."""
+    with spans.span("tags.k4", device=True):
+        if bwt_start.device.type == "cpu":
+            return query_mem_tags_plain(tt, bwt_start, size, count, capacity)
+        dev = tt.bwt_start.device
+        B, M = bwt_start.shape
+        sfx, targs = _tree_args(tt, dev)
+        kd = tt.bwt_start.dtype
+        bwt_start, size = (_keys(name, a, kd, dev)
+                           for name, a in (("bwt_start", bwt_start), ("size", size)))
+        nu = torch.empty((B, M), dtype=torch.int32, device=dev)
+        ov = torch.empty((B, M), dtype=torch.bool, device=dev)
+        _build.launch(f"pgt_query_mem_tags{sfx}", *targs,
+                      _build.check("pos_enc", tt.pos_enc, torch.int64, dev),
+                      bwt_start.data_ptr(), size.data_ptr(),
+                      _build.check("count", count, torch.int32, dev), B, M,
+                      int(capacity), nu.data_ptr(), ov.data_ptr(), _build.stream(dev))
+        query_mem_tags.launches += 1
+        return nu, ov
 
 
 query_mem_tags.launches = 0

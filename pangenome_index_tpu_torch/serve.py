@@ -19,12 +19,12 @@ instantiation; ultra rows are int32.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
+from . import spans
 from .models.rindex import RIndex
 from .models.tagarray import TagArray
 from .ops.dense_rank import gather_rows, rank6_dense
@@ -137,89 +137,87 @@ def prepare(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
     device = torch.device(device)
     sec: dict[str, float] = {}
 
-    def phase(name, t0):
+    def phase(name):
+        """The phase's span, its host seconds in sec[name]; a phase with
+        device work ends with a synchronize, so they cover that work."""
+        return spans.span("prepare." + name, into=sec, key=name)
+
+    with phase("tables"):
+        t = rindex_to_device(idx, device, **{rank_mode: True})
+        check_rank_tables(t, rank_mode)
+        tt = tags_to_device(tags, device)
         _sync(device)
-        sec[name] = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    t = rindex_to_device(idx, device, **{rank_mode: True})
-    check_rank_tables(t, rank_mode)
-    tt = tags_to_device(tags, device)
-    phase("tables", t0)
+    with phase("mer_table"):
+        mer_table, mer_m = get_mer_table(idx, mer_m, t)
+        _sync(device)
 
-    t0 = time.perf_counter()
-    mer_table, mer_m = get_mer_table(idx, mer_m, t)
-    phase("mer_table", t0)
+    with phase("sdict"):
+        keys_sd, vals_sd = get_sparse_dict(idx, sdict_s, path=sdict_path, tables=t)
+        _sync(device)
 
-    t0 = time.perf_counter()
-    keys_sd, vals_sd = get_sparse_dict(idx, sdict_s, path=sdict_path, tables=t)
-    phase("sdict", t0)
-
-    t0 = time.perf_counter()
-    mk, mv = read_mer_keys_fast(codes, lens, mer_m)
-    _, rv, di = read_windows_fast(codes, lens, sdict_s, keys_sd)
-    phase("windows", t0)
-
-    t0 = time.perf_counter()
+    with phase("windows"):
+        mk, mv = read_mer_keys_fast(codes, lens, mer_m)
+        _, rv, di = read_windows_fast(codes, lens, sdict_s, keys_sd)
 
     def put(a, dtype=None):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
-    vals_d, di_d = sdict_to_device(vals_sd, di, device, t.pos_dtype)
-    kw = dict(mer_table=mer_table, mer_keys=put(mk, np.int32), mer_valid=put(mv),
-              mer_m=mer_m, sdict_vals=vals_d, sdict_idx=di_d, sdict_m=sdict_s)
-    batch = Batch(tables=t, tag_tables=tt, codes=put(codes, np.int32),
-                  lengths=put(lens, np.int32), seed_kw=kw, seconds=sec,
-                  dict_entries=len(keys_sd),
-                  dict_hit_rate=float((di >= 0).sum() / max(rv.sum(), 1)))
-    phase("upload", t0)
+    with phase("upload"):
+        vals_d, di_d = sdict_to_device(vals_sd, di, device, t.pos_dtype)
+        kw = dict(mer_table=mer_table, mer_keys=put(mk, np.int32), mer_valid=put(mv),
+                  mer_m=mer_m, sdict_vals=vals_d, sdict_idx=di_d, sdict_m=sdict_s)
+        batch = Batch(tables=t, tag_tables=tt, codes=put(codes, np.int32),
+                      lengths=put(lens, np.int32), seed_kw=kw, seconds=sec,
+                      dict_entries=len(keys_sd),
+                      dict_hit_rate=float((di >= 0).sum() / max(rv.sum(), 1)))
+        _sync(device)
     return batch
 
 
+#: the result tensors `run` copies back, in this order, and their spans
+FETCHED = ("count", "start", "end", "bwt_start", "size", "tag_nu", "tag_ov")
+_COPY_SPANS = tuple("serve.copy." + name for name in FETCHED)
+
+
 def run(batch: Batch, min_len: int = 20, min_occ: int = 1, capacity: int = 8,
-        tag_capacity: int = 8, repeats: int = 0) -> ServeResult:
+        tag_capacity: int = 8) -> ServeResult:
     """MEM finding (one K3 launch over the batch) and tag counts (K4), in
-    input read order. repeats > 0 runs both phases that many more times
-    after the first and reports their mean seconds (steady state)."""
+    input read order; then one wait for the device, and the seven result
+    tensors copied back. Spans (spans.py): serve.run, the call's root;
+    mems.find (resolve_seeds, K3) and tags.k4 inside the kernels' wrappers;
+    serve.wait, the one synchronize; serve.fetch, the copies, a
+    serve.copy.<field> each, its host seconds in seconds["fetch"]; the
+    counter serve.copy_back_bytes, the bytes of the returned arrays."""
     device = batch.codes.device
     sec = dict(batch.seconds)
-    runs = []
-    for _ in range(1 + repeats):
-        t0 = time.perf_counter()
+    with spans.span("serve.run", call=True):
         res = find_mems(batch.tables, batch.codes, batch.lengths, min_len,
                         min_occ, capacity=capacity, **batch.seed_kw)
-        _sync(device)
-        t1 = time.perf_counter()
         nu, ov = query_mem_tags(batch.tag_tables, res.bwt_start, res.size,
                                 res.count, capacity=tag_capacity)
-        _sync(device)
-        runs.append((t1 - t0, time.perf_counter() - t1))
-    sec["mems_first"], sec["tags_first"] = runs[0]
-    steady = runs[1:] or runs
-    sec["mems"] = sum(r[0] for r in steady) / len(steady)
-    sec["tags"] = sum(r[1] for r in steady) / len(steady)
-    t0 = time.perf_counter()
-
-    def back(a):
-        return a.cpu().numpy()
-
-    out = ServeResult(
-        count=back(res.count), start=back(res.start), end=back(res.end),
-        bwt_start=back(res.bwt_start), size=back(res.size), tag_nu=back(nu),
-        tag_ov=back(ov), seconds=sec, dict_entries=batch.dict_entries,
-        dict_hit_rate=batch.dict_hit_rate)
-    sec["fetch"] = time.perf_counter() - t0
-    return out
+        with spans.span("serve.wait"):
+            _sync(device)
+        out = {}
+        nbytes = 0
+        with spans.span("serve.fetch", into=sec, key="fetch"):
+            for name, label, a in zip(FETCHED, _COPY_SPANS, (
+                    res.count, res.start, res.end, res.bwt_start, res.size, nu, ov)):
+                with spans.span(label, device=True):
+                    out[name] = a.cpu().numpy()
+                nbytes += out[name].nbytes
+        spans.count("serve.copy_back_bytes", nbytes)
+        return ServeResult(**out, seconds=sec, dict_entries=batch.dict_entries,
+                           dict_hit_rate=batch.dict_hit_rate)
 
 
 def serve(idx: RIndex, tags: TagArray, codes: np.ndarray, lens: np.ndarray,
           device, *, rank_mode: str = "checkpoint", min_len: int = 20,
           min_occ: int = 1, mer_m: int = 14, sdict_s: int = 19,
-          sdict_path=None, capacity: int = 8, tag_capacity: int = 8,
-          repeats: int = 0) -> ServeResult:
+          sdict_path=None, capacity: int = 8, tag_capacity: int = 8) -> ServeResult:
     """Serve one batch of reads end to end: `prepare`, then `run`."""
     batch = prepare(idx, tags, codes, lens, device, rank_mode=rank_mode,
                     min_occ=min_occ, mer_m=mer_m, sdict_s=sdict_s,
                     sdict_path=sdict_path)
     return run(batch, min_len=min_len, min_occ=min_occ, capacity=capacity,
-               tag_capacity=tag_capacity, repeats=repeats)
+               tag_capacity=tag_capacity)

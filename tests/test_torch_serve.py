@@ -69,8 +69,7 @@ def test_serve_matches_native(workload, native_result, rank_mode, tmp_path):
     assert ok.all()
     np.testing.assert_array_equal(out.tag_nu[ii, within][ok], tuniq[ok])
     assert not out.tag_nu[out.count[:, None] <= np.arange(CAP)[None, :]].any()
-    assert {"tables", "mer_table", "sdict", "windows", "upload", "mems",
-            "tags"} <= set(out.seconds)
+    assert {"tables", "mer_table", "sdict", "windows", "upload", "fetch"} <= set(out.seconds)
     assert "sort" not in out.seconds
 
 
