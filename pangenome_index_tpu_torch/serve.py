@@ -39,7 +39,8 @@ from .ops.tagquery import query_mem_tags
 
 @dataclass
 class ServeResult:
-    """Per-read results in input order, and seconds per phase."""
+    """Per-read results in input order, host arrays of the call's own
+    (page-locked where they came from a card), and seconds per phase."""
 
     count: np.ndarray        # [B] MEMs per read (exact past capacity)
     start: np.ndarray        # [B, M] buffered MEMs
@@ -180,15 +181,42 @@ FETCHED = ("count", "start", "end", "bwt_start", "size", "tag_nu", "tag_ov")
 _COPY_SPANS = tuple("serve.copy." + name for name in FETCHED)
 
 
+def _to_host(a: torch.Tensor) -> np.ndarray:
+    """A host array of `a` that owns its memory. From a card: one blocking
+    copy straight into page-locked memory from PyTorch's caching host
+    allocator (one DMA, no staging through a pageable buffer); the array
+    keeps the block alive, and once it is dropped the allocator takes the
+    block back for the next call of the same shape. On the CPU: the
+    tensor's own memory, as before."""
+    if a.device.type != "cuda":
+        return a.cpu().numpy()
+    host = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+    host.copy_(a)
+    return host.numpy()
+
+
+def _host_allocs(device: torch.device) -> int:
+    """Page-locked blocks the caching host allocator has created so far
+    (0 on the CPU, which pins nothing; its statistics are empty until it
+    first allocates)."""
+    if device.type != "cuda":
+        return 0
+    return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+
+
 def run(batch: Batch, min_len: int = 20, min_occ: int = 1, capacity: int = 8,
         tag_capacity: int = 8) -> ServeResult:
     """MEM finding (one K3 launch over the batch) and tag counts (K4), in
     input read order; then one wait for the device, and the seven result
-    tensors copied back. Spans (spans.py): serve.run, the call's root;
+    tensors copied back, on a card into page-locked host arrays of the
+    call's own (_to_host). Spans (spans.py): serve.run, the call's root;
     mems.find (resolve_seeds, K3) and tags.k4 inside the kernels' wrappers;
     serve.wait, the one synchronize; serve.fetch, the copies, a
-    serve.copy.<field> each, its host seconds in seconds["fetch"]; the
-    counter serve.copy_back_bytes, the bytes of the returned arrays."""
+    serve.copy.<field> each, its host seconds in seconds["fetch"].
+    Counters: serve.copy_back_bytes, the bytes of the returned arrays;
+    serve.copy_back_pinned_bytes, those of them in page-locked memory;
+    serve.copy.host_allocs, the page-locked blocks the copies had to
+    allocate (0 where the allocator's cache served every one)."""
     device = batch.codes.device
     sec = dict(batch.seconds)
     with spans.span("serve.run", call=True):
@@ -201,12 +229,16 @@ def run(batch: Batch, min_len: int = 20, min_occ: int = 1, capacity: int = 8,
         out = {}
         nbytes = 0
         with spans.span("serve.fetch", into=sec, key="fetch"):
+            allocs = _host_allocs(device) if spans.recording_now() else None
             for name, label, a in zip(FETCHED, _COPY_SPANS, (
                     res.count, res.start, res.end, res.bwt_start, res.size, nu, ov)):
                 with spans.span(label, device=True):
-                    out[name] = a.cpu().numpy()
+                    out[name] = _to_host(a)
                 nbytes += out[name].nbytes
+            if allocs is not None:
+                spans.count("serve.copy.host_allocs", _host_allocs(device) - allocs)
         spans.count("serve.copy_back_bytes", nbytes)
+        spans.count("serve.copy_back_pinned_bytes", nbytes if device.type == "cuda" else 0)
         return ServeResult(**out, seconds=sec, dict_entries=batch.dict_entries,
                            dict_hit_rate=batch.dict_hit_rate)
 

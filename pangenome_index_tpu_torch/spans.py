@@ -169,6 +169,12 @@ def count(name: str, n: int) -> None:
         rec.counters[name] = rec.counters.get(name, 0) + n
 
 
+def recording_now() -> bool:
+    """Whether a `recording` block is open: a counter that costs something
+    to take is taken only then."""
+    return _active is not None
+
+
 @contextlib.contextmanager
 def recording(device="cpu"):
     """Record every span and counter of the block on `device`'s clock (see

@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 import torch
 
-from pangenome_index_tpu_torch import _build, native
+from pangenome_index_tpu_torch import _build, native, serve, spans
 from pangenome_index_tpu_torch.ops import (bwt, count, dense_rank, fmd, gather_probe,
                                            mertable,
                                            locate, mems, rank, sparsedict, tagquery)
@@ -1963,3 +1963,50 @@ def test_run_shards_through_their_slices(dev, index, dtype, shift):
         for f, a, b in zip(st._fields, st, ref):
             assert torch.equal(a.cpu(), b), (it, f)
         assert torch.equal(ranks.cpu(), ref_ranks), it
+
+
+@pytest.fixture(scope="module")
+def served(dev):
+    """A small batch of reads prepared for serve.run on the card."""
+    idx, lines = build_synth_index(6000, 3, seed=5)
+    reads = synth_reads(lines, 16, 60, error_rate=0.01, seed=3)
+    codes = np.stack([BYTE_TO_CODE[np.frombuffer(r, np.uint8)] for r in reads]).astype(np.int32)
+    lens = np.full(len(reads), 60, np.int32)
+    return serve.prepare(idx, synth_tag_array(idx), codes, lens, dev, mer_m=5, sdict_s=11)
+
+
+def test_run_copies_back_into_page_locked_arrays(dev, served, monkeypatch):
+    """serve.run on a card: every array it returns is page-locked and equals
+    a.cpu().numpy() of its result tensor bit for bit (dtype, shape, bytes);
+    after a warm call a recorded call allocates no page-locked block and
+    counts every byte copied back as page-locked; the first call's arrays
+    share no memory with two later calls' and hold what they held."""
+    kw = dict(min_len=20, min_occ=1, capacity=8, tag_capacity=8)
+    seen = []
+    with monkeypatch.context() as m:
+        to_host = serve._to_host
+        m.setattr(serve, "_to_host", lambda a: seen.append((a, to_host(a))) or seen[-1][1])
+        first = serve.run(served, **kw)
+    assert len(seen) == len(serve.FETCHED)
+    for name, (a, arr) in zip(serve.FETCHED, seen):
+        want = a.cpu().numpy()
+        assert arr is getattr(first, name)
+        assert (arr.dtype, arr.shape) == (want.dtype, want.shape), name
+        assert arr.tobytes() == want.tobytes(), name
+        assert torch.from_numpy(arr).is_pinned(), name
+    seen.clear()
+    kept = [getattr(first, f).copy() for f in serve.FETCHED]
+    second = serve.run(served, **kw)
+    for name in serve.FETCHED:
+        assert not np.shares_memory(getattr(first, name), getattr(second, name)), name
+    del second  # its blocks back to the cache, for the recorded call to draw
+    with spans.recording(dev) as rec:
+        third = serve.run(served, **kw)
+    nbytes = sum(getattr(third, f).nbytes for f in serve.FETCHED)
+    assert rec.counters["serve.copy.host_allocs"] == 0
+    assert rec.counters["serve.copy_back_pinned_bytes"] == nbytes
+    assert rec.counters["serve.copy_back_bytes"] == nbytes
+    for name, want in zip(serve.FETCHED, kept):
+        a = getattr(first, name)
+        assert a.tobytes() == want.tobytes(), name
+        assert not np.shares_memory(a, getattr(third, name)), name

@@ -78,7 +78,12 @@ def _check_tree(rec, res):
         assert (s.device is not None) == (s.name in DEVICE_SPANS)
     fetch = by_name["serve.fetch"]
     assert (fetch.host[1] - fetch.host[0]) * 1e-9 == res.seconds["fetch"]
-    assert rec.counters == {"serve.copy_back_bytes": sum(a.nbytes for a in _arrays(res))}
+    # every byte copied back lands in page-locked memory on a card, none on
+    # the CPU; a warm call draws every page-locked block from the cache
+    nbytes = sum(a.nbytes for a in _arrays(res))
+    assert rec.counters == {"serve.copy_back_bytes": nbytes,
+                            "serve.copy_back_pinned_bytes": nbytes if rec.cuda else 0,
+                            "serve.copy.host_allocs": 0}
     return by_name
 
 
@@ -91,6 +96,7 @@ def test_recording_off_records_nothing(batch, monkeypatch):
     syncs = []
     monkeypatch.setattr(torch.profiler, "record_function", refuse)
     monkeypatch.setattr(torch.cuda, "Event", refuse)
+    monkeypatch.setattr(torch.cuda, "host_memory_stats", refuse)
     monkeypatch.setattr(serve, "_sync", lambda device: syncs.append(device))
     got = serve.run(batch, **RUN_KW)
     assert syncs == [batch.codes.device]
@@ -116,6 +122,21 @@ def test_two_calls_give_two_call_ids(batch):
     assert sorted({s.call for s in rec.spans}) == [0, 1]
     assert rec.counters["serve.copy_back_bytes"] == sum(
         a.nbytes for r in results for a in _arrays(r))
+
+
+def test_calls_own_their_arrays(batch):
+    """Each call's arrays own their memory: no array of the first of three
+    calls on one batch shares memory with the later calls' arrays, and the
+    first call's arrays still hold what they held right after it."""
+    first = serve.run(batch, **RUN_KW)
+    kept = [a.copy() for a in _arrays(first)]
+    later = [serve.run(batch, **RUN_KW) for _ in range(2)]
+    for a in _arrays(first):
+        for res in later:
+            assert not any(np.shares_memory(a, b) for b in _arrays(res))
+    for a, b in zip(_arrays(first), kept):
+        np.testing.assert_array_equal(a, b)
+        assert a.dtype == b.dtype
 
 
 def test_spans_outside_a_recording_and_nested_recordings():
