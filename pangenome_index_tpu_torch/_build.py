@@ -124,6 +124,9 @@ SIGNATURES = {
     "pgt_find_mems_ultra": (_P, _I64) + _MEMS,
     "pgt_find_mems_bucketed": _BUCKET + _MEMS,
     "pgt_find_mems_bucketed64": _BUCKET + _MEMS64,
+    # K3's resident lanes an SM, one entry per rank provider
+    **{f"pgt_find_mems_resident_{kind}": (_P,) for kind in (
+        "ckpt", "ckpt64", "dense", "dense64", "ultra", "bucketed", "bucketed64")},
     "pgt_sdict_level_ultra": (_P, _I64) + _LEVEL,
     "pgt_sdict_level_bucketed": _BUCKET + _LEVEL,
     "pgt_sdict_level_bucketed64": _BUCKET + _LEVEL,

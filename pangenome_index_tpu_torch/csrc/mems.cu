@@ -301,6 +301,17 @@ int launch(const Rank& rk, const P* C, const int8_t* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// the reads (threads) of find_mems_kernel<Rank> that one SM of the current
+// device keeps resident at kThreads a block
+template <class Rank>
+int resident_per_sm(int* lanes) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, find_mems_kernel<Rank, typename Rank::Pos>, kThreads, 0);
+  *lanes = blocks * kThreads;
+  return static_cast<int>(err);
+}
+
 template <class P>
 int resolve(const P* mer_table, int64_t n_mer, const int* mer_keys,
             const uint8_t* mer_valid, int mer_m, const P* sdict_vals,
@@ -452,6 +463,25 @@ int pgt_find_mems_bucketed64(const int* run_index, int64_t n_buckets, int shift,
   return launch(rk, C, codes, lengths, reinterpret_cast<const Seed64*>(seeds),
                 n_reads, width, code_stride, min_len, min_occ, N, M, max_iters,
                 m_se, m_bwt, m_size, count, steps, stream);
+}
+
+// The reads of K3's instantiation for each rank provider (the suffix of its
+// pgt_find_mems_* entry) that one SM of the current device keeps resident:
+// the occupancy API at kThreads a block, in *lanes.
+int pgt_find_mems_resident_ckpt(int* lanes) { return resident_per_sm<pgt::CkptRank<int>>(lanes); }
+int pgt_find_mems_resident_ckpt64(int* lanes) {
+  return resident_per_sm<pgt::CkptRank<int64_t>>(lanes);
+}
+int pgt_find_mems_resident_dense(int* lanes) { return resident_per_sm<pgt::DenseRank<int>>(lanes); }
+int pgt_find_mems_resident_dense64(int* lanes) {
+  return resident_per_sm<pgt::DenseRank<int64_t>>(lanes);
+}
+int pgt_find_mems_resident_ultra(int* lanes) { return resident_per_sm<pgt::UltraRank>(lanes); }
+int pgt_find_mems_resident_bucketed(int* lanes) {
+  return resident_per_sm<pgt::BucketRank<int>>(lanes);
+}
+int pgt_find_mems_resident_bucketed64(int* lanes) {
+  return resident_per_sm<pgt::BucketRank<int64_t>>(lanes);
 }
 
 }  // extern "C"

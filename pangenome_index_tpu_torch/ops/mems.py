@@ -23,6 +23,7 @@ the kernels; the read positions and the packed (start, end) stay int32.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -127,9 +128,15 @@ def _prepare(codes, align: int = 1):
     return padded, 4 * (L + 1) * (L + 1) + 64
 
 
+def unpack_start_end(se, pd):
+    """(start, end) in dtype pd of the packed (start << 16) | end [B, M]
+    int32: both 16-bit fields unsigned, so that a start past 32767 (its top
+    bit the int32's sign) decodes as itself."""
+    return ((se >> 16) & 0xFFFF).to(pd), (se & 0xFFFF).to(pd)
+
+
 def _result(pd, se, bwt, size, cnt, steps, capacity, with_stats):
-    res = MemResult((se >> 16).to(pd), (se & 0xFFFF).to(pd), bwt.to(pd),
-                    size.to(pd), cnt, cnt > capacity)
+    res = MemResult(*unpack_start_end(se, pd), bwt.to(pd), size.to(pd), cnt, cnt > capacity)
     return (res, {"steps": steps}) if with_stats else res
 
 
@@ -146,40 +153,93 @@ def find_mems(t: RIndexTables, codes, lengths, min_len: int, min_occ: int,
     On the card: resolve_seeds, then one launch of the kernel over the whole
     batch (int32 codes and lengths; seed tables in the tables' position
     dtype); on the CPU: the plain version. Spans (spans.py): mems.find, and
-    inside it mems.resolve_seeds and mems.k3, each with a device interval."""
+    inside it mems.resolve_seeds and mems.k3, each with a device interval.
+    While a recording is open, the counters of the launch (count_k3)."""
+    counting = spans.recording_now()
     with spans.span("mems.find", device=True):
         if codes.device.type == "cpu":
-            return find_mems_plain(t, codes, lengths, min_len, min_occ, capacity,
-                                   with_stats, **seed_kw)
-        check_kernel_tables(t)
-        dev = t.device
-        pd = t.pos_dtype
-        padded, max_iters = _prepare(codes, align=8)  # the kernel reads 8 codes a load
-        B, W = codes.shape[0], codes.shape[1] + 1
-        kind, rargs = rank_args(t)
-        with spans.span("mems.resolve_seeds", device=True):
-            seeds = resolve_seeds(B, W, min_occ, **seed_kw)
-        if seeds is not None and seeds.dtype != pd:
-            raise ValueError(f"find_mems: seed tables of {seeds.dtype} beside tables "
-                             f"of {pd} positions")
-        with spans.span("mems.k3", device=True):
-            se = torch.zeros((B, capacity), dtype=torch.int32, device=dev)
-            bwt, size = torch.zeros((2, B, capacity), dtype=pd, device=dev)
-            cnt = torch.empty(B, dtype=torch.int32, device=dev)
-            steps = torch.empty(B, dtype=torch.int32, device=dev) if with_stats else None
-            _build.launch(
-                f"pgt_find_mems_{kind}", *rargs,
-                _build.check("C", t.C, pd, dev), padded.data_ptr(),
-                _build.check("lengths", lengths, torch.int32, dev),
-                None if seeds is None else seeds.data_ptr(), B, W, padded.shape[1],
-                int(min_len), int(min_occ), t.n, capacity, max_iters, se.data_ptr(),
-                bwt.data_ptr(), size.data_ptr(), cnt.data_ptr(),
-                None if steps is None else steps.data_ptr(), _build.stream(dev))
-            find_mems.launches += 1
-        return _result(pd, se, bwt, size, cnt, steps, capacity, with_stats)
+            res, stats = find_mems_plain(t, codes, lengths, min_len, min_occ, capacity,
+                                         True, **seed_kw)
+            kind = None
+        else:
+            res, stats, kind = _find_mems_card(t, codes, lengths, min_len, min_occ, capacity,
+                                               with_stats or counting, seed_kw)
+    if counting:
+        count_k3(lengths, stats["steps"], kind)
+    return (res, stats) if with_stats else res
+
+
+def _find_mems_card(t, codes, lengths, min_len, min_occ, capacity, with_steps, seed_kw):
+    """find_mems on the card: (MemResult, {"steps": [B] or None}, the rank
+    provider's entry suffix)."""
+    check_kernel_tables(t)
+    dev = t.device
+    pd = t.pos_dtype
+    padded, max_iters = _prepare(codes, align=8)  # the kernel reads 8 codes a load
+    B, W = codes.shape[0], codes.shape[1] + 1
+    kind, rargs = rank_args(t)
+    with spans.span("mems.resolve_seeds", device=True):
+        seeds = resolve_seeds(B, W, min_occ, **seed_kw)
+    if seeds is not None and seeds.dtype != pd:
+        raise ValueError(f"find_mems: seed tables of {seeds.dtype} beside tables "
+                         f"of {pd} positions")
+    with spans.span("mems.k3", device=True):
+        se = torch.zeros((B, capacity), dtype=torch.int32, device=dev)
+        bwt, size = torch.zeros((2, B, capacity), dtype=pd, device=dev)
+        cnt = torch.empty(B, dtype=torch.int32, device=dev)
+        steps = torch.empty(B, dtype=torch.int32, device=dev) if with_steps else None
+        _build.launch(
+            f"pgt_find_mems_{kind}", *rargs,
+            _build.check("C", t.C, pd, dev), padded.data_ptr(),
+            _build.check("lengths", lengths, torch.int32, dev),
+            None if seeds is None else seeds.data_ptr(), B, W, padded.shape[1],
+            int(min_len), int(min_occ), t.n, capacity, max_iters, se.data_ptr(),
+            bwt.data_ptr(), size.data_ptr(), cnt.data_ptr(),
+            None if steps is None else steps.data_ptr(), _build.stream(dev))
+        find_mems.launches += 1
+    res, stats = _result(pd, se, bwt, size, cnt, steps, capacity, True)
+    return res, stats, kind
 
 
 find_mems.launches = 0
+
+_resident: dict[tuple[str, int], int] = {}
+
+
+def resident_lanes(kind: str, device) -> int:
+    """The reads K3's instantiation for the rank provider `kind` (rank_args'
+    suffix) keeps resident on the whole card at once: its blocks a
+    multiprocessor by the CUDA occupancy API (pgt_find_mems_resident_<kind>),
+    times its threads a block, times the multiprocessors. Asked once a kind
+    and card."""
+    dev = torch.device(device)
+    key = (kind, dev.index if dev.index is not None else torch.cuda.current_device())
+    if key not in _resident:
+        per_sm = ctypes.c_int(0)
+        with torch.cuda.device(key[1]):
+            _build.launch(f"pgt_find_mems_resident_{kind}", ctypes.addressof(per_sm))
+        sms = torch.cuda.get_device_properties(key[1]).multi_processor_count
+        _resident[key] = per_sm.value * sms
+    return _resident[key]
+
+
+def count_k3(lengths, steps, kind: str | None) -> None:
+    """The counters of one K3 launch (or its plain version) over lengths [B]
+    with its steps [B] (spans.py): mems.k3.lanes, the reads; mems.k3.bases,
+    the sum of their lengths; mems.k3.steps and mems.k3.max_steps, the sum
+    and the largest of their extension steps (both reduced on the device
+    after the call, spans.count_later); mems.k3.resident_lanes, the reads
+    the engine keeps in flight at once: on the card resident_lanes of the
+    instantiation `kind`, in the plain version (kind None), whose lockstep
+    advances every read of the batch together, the batch's reads."""
+    B = lengths.shape[0]
+    spans.count("mems.k3.lanes", B)
+    spans.count("mems.k3.resident_lanes",
+                B if kind is None else resident_lanes(kind, lengths.device))
+    spans.count_later("mems.k3.bases", lengths, "sum")
+    spans.count_later("mems.k3.steps", steps, "sum")
+    if B:  # an empty batch has no longest read
+        spans.count_later("mems.k3.max_steps", steps, "max")
 
 
 def find_mems_plain(t: RIndexTables, codes, lengths, min_len: int,
@@ -554,7 +614,7 @@ def find_mems_lockstep(shards: list, C, n: int, codes, lengths, min_len: int, mi
             iters += ACTIVE_CHECK_EVERY
             if int(active) == 0:
                 break
-    res = MemResult((state.se >> 16).to(pd), (state.se & 0xFFFF).to(pd), state.bwt,
+    res = MemResult(*unpack_start_end(state.se, pd), state.bwt,
                     state.size, state.cnt, state.cnt > capacity)
     return (res, {"steps": state.steps, "iters": iters}) if with_stats else res
 

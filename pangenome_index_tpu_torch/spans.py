@@ -7,7 +7,10 @@ its name, the call id of the `serve.run` it belongs to, its parent, its host
 interval (`time.perf_counter_ns`) and, for a span that enqueues device work
 (`device=True`), its device interval: a pair of CUDA events recorded on the
 current stream, drawn from a pool the recorder owns. `count(name, n)` adds
-to `rec.counters[name]`.
+to `rec.counters[name]`; `count_later(name, tensor, how)` adds the tensor's
+sum, or keeps its served call's maximum, reduced on its device when
+`rec.counters` is read, so that a count the device makes costs a call no
+synchronize.
 
 One clock: when recording starts on a card, the recorder takes one
 calibration pair (a synchronize, `perf_counter_ns`, then an event), and every
@@ -63,7 +66,9 @@ class Recorder:
     def __init__(self, device):
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
-        self.counters: dict[str, int] = {}
+        self._counters: dict[str, int] = {}
+        self._later: list[tuple[str, torch.Tensor, str, int | None]] = []
+        self._peaks: dict[tuple[str, int | None], int] = {}  # (max counter, call) -> max
         self._spans: list[Span] = []
         self._open: list[int] = []       # indices of the spans open now
         self._pending: list[tuple[Span, object, object]] = []
@@ -116,6 +121,24 @@ class Recorder:
             self._pending.clear()
         return self._spans
 
+    @property
+    def counters(self) -> dict[str, int]:
+        """The counters so far, those of count_later reduced on their device
+        now (this waits for the device): a "sum" counter adds each tensor's
+        sum, a "max" counter holds the sum over the served calls of each
+        call's largest value."""
+        for name, t, how, call in self._later:
+            v = int(getattr(t, how)())
+            if how == "sum":
+                self._counters[name] = self._counters.get(name, 0) + v
+                continue
+            peak = self._peaks.get((name, call))
+            if peak is None or v > peak:  # the call's maximum rose by v - peak
+                self._counters[name] = self._counters.get(name, 0) + v - (peak or 0)
+                self._peaks[name, call] = v
+        self._later.clear()
+        return self._counters
+
 
 class _Span:
     __slots__ = ("name", "device", "new_call", "into", "key", "rec", "index",
@@ -166,7 +189,24 @@ def count(name: str, n: int) -> None:
     """Add n to the counter `name` of the open recording, if any."""
     rec = _active
     if rec is not None:
-        rec.counters[name] = rec.counters.get(name, 0) + n
+        rec._counters[name] = rec._counters.get(name, 0) + n
+
+
+def count_later(name: str, tensor: torch.Tensor, how: str) -> None:
+    """Count `tensor`'s values in the counter `name` of the open recording,
+    if any: how "sum" adds their sum; how "max" keeps the largest value that
+    the served call open now (its call id; None outside a call) counts,
+    however many tensors it counts, and the counter holds the sum of the
+    calls' maxima, so that it changes over one call by that call's maximum.
+    The recorder keeps the tensor and reduces it on its device when
+    `rec.counters` is read, after the call, so the call neither waits for
+    the tensor nor launches the reduction."""
+    rec = _active
+    if rec is not None:
+        if how not in ("sum", "max"):
+            raise ValueError(f"count_later: how is 'sum' or 'max', not {how!r}")
+        call = rec._spans[rec._open[-1]].call if rec._open else None
+        rec._later.append((name, tensor, how, call))
 
 
 def recording_now() -> bool:

@@ -2010,3 +2010,78 @@ def test_run_copies_back_into_page_locked_arrays(dev, served, monkeypatch):
         a = getattr(first, name)
         assert a.tobytes() == want.tobytes(), name
         assert not np.shares_memory(a, getattr(third, name)), name
+
+
+@pytest.fixture(scope="module")
+def long_index(dev):
+    """Both strands of 2 haplotypes of 70,000 bases (the benchmark's
+    generator, so that the plain reference's FMD extension is exact), its
+    index and tag array built on the card as the benchmark builds them."""
+    from benchmark import data
+
+    cfg = {"base_len": 70_000, "haplotypes": 2, "snp_rate": 0.002, "strands": 2,
+           "copies": 1, "node_len": 512,
+           "repeats": {"share": 0.1, "length": 300, "families": 4, "divergence": 0.03}}
+    lines = data.sequences(cfg, 2**35 + 11)
+    idx, tags = data.index(cfg, lines, dev)
+    return cfg, lines, idx, tags
+
+
+@pytest.mark.parametrize("n_reads, read_len", [(256, 15_000), (1, 65_534)])
+def test_k3_on_long_reads(dev, long_index, n_reads, read_len):
+    """K3 over HiFi-like reads (0.1% substitutions, every MEM kept at
+    capacity 64) equals its plain version, steps included, and the
+    benchmark's plain reference, counts, MEMs and tag counts: 256 reads of
+    15,000 bases, and one read at the engine's 65,534-base limit; a read a
+    base longer is refused by _prepare."""
+    from benchmark import data, reference
+
+    cfg, lines, idx, tags = long_index
+    codes, lens = data.reads(lines, n_reads, read_len, 0.001, data.rng(7, read_len))
+    kw = dict(mer_m=10, sdict_s=15)
+    got_b = serve.prepare(idx, tags, codes, lens, dev, **kw)
+    cpu_b = serve.prepare(idx, tags, codes, lens, "cpu", **kw)
+    res, stats = mems.find_mems(got_b.tables, got_b.codes, got_b.lengths, 20, 1, capacity=64,
+                                with_stats=True, **got_b.seed_kw)
+    n = torch.get_num_threads()
+    torch.set_num_threads(4)
+    try:
+        want, want_stats = mems.find_mems_plain(cpu_b.tables, cpu_b.codes, cpu_b.lengths, 20,
+                                                1, 64, True, **cpu_b.seed_kw)
+        fmd = reference.fmd_index(lines, "cpu")
+        ref = reference.answers(fmd, torch.from_numpy(codes), torch.from_numpy(lens),
+                                min_len=20, min_occ=1, capacity=64, tag_capacity=8,
+                                tags=reference.tag_runs(fmd, cfg["node_len"], 1), copies=1)
+    finally:
+        torch.set_num_threads(n)
+    for f in mems.MemResult._fields:
+        assert torch.equal(getattr(res, f).cpu(), getattr(want, f).to(getattr(res, f).dtype)), f
+    assert torch.equal(stats["steps"].cpu(), want_stats["steps"])
+    assert int(stats["steps"].max()) >= 0.9 * read_len
+    count, slots, nu, ov = (a.numpy() for a in ref)
+    np.testing.assert_array_equal(res.count.cpu().numpy(), count)
+    kept = np.minimum(count, 64)
+    got = np.stack([res.start.cpu(), res.end.cpu(), res.bwt_start.cpu(), res.size.cpu()], axis=2)
+    for r in range(n_reads):
+        np.testing.assert_array_equal(got[r, :kept[r]], slots[r, :kept[r]])
+    tnu, tov = tagquery.query_mem_tags(got_b.tag_tables, res.bwt_start, res.size, res.count,
+                                       capacity=8)
+    np.testing.assert_array_equal(tnu.cpu().numpy(), nu)
+    np.testing.assert_array_equal(tov.cpu().numpy(), ov.astype(tov.cpu().numpy().dtype))
+    if read_len == 65_534:
+        over = torch.zeros((1, 65_535), dtype=torch.int32, device=dev)
+        with pytest.raises(ValueError, match="65534 engine limit"):
+            mems.find_mems(got_b.tables, over, torch.full((1,), 65_535, dtype=torch.int32,
+                                                          device=dev), 20, 1, capacity=64)
+
+
+def test_k3_resident_lanes(dev):
+    """Every K3 instantiation (each rank provider's pgt_find_mems_resident_*
+    entry) keeps a whole number of blocks resident on each multiprocessor,
+    at least one, counted over the whole card; the count is asked once and
+    kept."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kind in ("ckpt", "ckpt64", "dense", "dense64", "ultra", "bucketed", "bucketed64"):
+        lanes = mems.resident_lanes(kind, dev)
+        assert lanes >= 64 * sms and lanes % (64 * sms) == 0, kind
+        assert mems.resident_lanes(kind, dev) == lanes
